@@ -1,0 +1,169 @@
+"""Command line of the port: ``python -m helix_tpu_torch serve-node``.
+
+The counterpart of the random-init catalog branch of
+``helix-tpu serve-node``: each model is a catalog architecture (or the tiny
+test config for unknown names) with random weights made on the device from
+a seed, served over the OpenAI HTTP surface with the ``ByteTokenizer``.
+
+    python -m helix_tpu_torch serve-node \\
+        --model meta-llama/Meta-Llama-3-8B-Instruct --port 8000 \\
+        [--device cuda] [--engine max_prefill_len=512 ...]
+    python -m helix_tpu_torch serve-node --profile profile.json
+
+A profile is JSON (or YAML when ``yaml`` is importable) with a ``models``
+list of ``{name, kind, engine, model_overrides, context_length}`` entries,
+the reference's profile fields; checkpoints and non-chat kinds are not
+ported yet (ROADMAP A3, A17).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+
+from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from helix_tpu_torch.engine.engine import Engine, EngineConfig
+from helix_tpu_torch.models.common import CATALOG, ModelConfig
+from helix_tpu_torch.models.llama import init_params
+from helix_tpu_torch.serving.engine_loop import EngineLoop
+from helix_tpu_torch.serving.openai_api import OpenAIServer
+from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
+from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+
+log = logging.getLogger("helix_tpu_torch")
+
+
+def model_config(name: str, overrides: dict | None = None) -> ModelConfig:
+    """The catalog architecture for ``name`` (tiny test config for an
+    unknown name), with ``overrides`` applied."""
+    overrides = overrides or {}
+    cfg = CATALOG.get(name)
+    if cfg is None:
+        return ModelConfig.tiny(name=name, **overrides)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def build_served_model(
+    name: str, *, device=DEFAULT_DEVICE, engine: dict | None = None,
+    model_overrides: dict | None = None, seed: int = 0,
+    context_length: int | None = None, warmup: bool = True,
+) -> ServedModel:
+    """Random-init weights on ``device``, an ``Engine`` and a started
+    ``EngineLoop`` for one model.  The served path always takes the
+    kernels: ``attn_backend`` is refused here."""
+    if "attn_backend" in (engine or {}):
+        raise ValueError(
+            "attn_backend is for comparisons only; a served model always "
+            "runs the attention kernels"
+        )
+    dev = resolve_device(device)
+    cfg = model_config(name, model_overrides)
+    params = init_params(cfg, seed, device=dev)
+    tok = ByteTokenizer()
+    eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
+    eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
+    eng = Engine(cfg, params, EngineConfig(**eng_kw), rng_seed=seed,
+                 device=dev)
+    if warmup:
+        eng.warmup()
+    loop = EngineLoop(eng, name=name).start()
+    return ServedModel(name=name, loop=loop, tokenizer=tok,
+                       context_length=context_length or eng.max_context_len)
+
+
+def _parse_kv(items) -> dict:
+    out = {}
+    for item in items or ():
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise SystemExit(f"--engine expects key=value, got {item!r}")
+        try:
+            out[key] = json.loads(raw)
+        except ValueError:
+            out[key] = raw
+    return out
+
+
+def _load_profile(path: str) -> dict:
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except ValueError:
+        pass
+    try:
+        import yaml
+    except ImportError:
+        raise SystemExit(
+            f"{path}: not JSON, and PyYAML is not installed for YAML"
+        ) from None
+    return yaml.safe_load(text)
+
+
+def _model_specs(args) -> list[dict]:
+    engine = _parse_kv(args.engine)
+    if args.profile:
+        specs = []
+        for m in _load_profile(args.profile).get("models", []):
+            if m.get("checkpoint"):
+                raise NotImplementedError(
+                    f"{m['name']}: checkpoint loading is not ported yet "
+                    "(ROADMAP A3)"
+                )
+            if m.get("kind", "chat") != "chat":
+                raise NotImplementedError(
+                    f"{m['name']}: kind {m.get('kind')!r} is not ported yet "
+                    "(ROADMAP A17)"
+                )
+            specs.append(dict(
+                name=m["name"], engine={**m.get("engine", {}), **engine},
+                model_overrides=m.get("model_overrides", {}),
+                context_length=m.get("context_length"),
+            ))
+        return specs
+    if not args.model:
+        raise SystemExit("serve-node needs --model or --profile")
+    return [dict(name=n, engine=engine) for n in args.model]
+
+
+def _cmd_serve_node(args) -> int:
+    registry = ModelRegistry()
+    for spec in _model_specs(args):
+        registry.register(build_served_model(
+            device=args.device, seed=args.seed, warmup=not args.no_warmup,
+            **spec,
+        ))
+        log.info("serving %s on %s", spec["name"], args.device)
+    httpd = OpenAIServer(registry).make_http_server(args.host, args.port)
+    print(f"helix_tpu_torch serving {registry.names()} on "
+          f"http://{args.host}:{httpd.server_address[1]}", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        for name in registry.names():
+            registry.unregister(name)
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="helix_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    n = sub.add_parser("serve-node", help="serve models over OpenAI HTTP")
+    n.add_argument("--model", action="append",
+                   help="catalog model name (repeatable)")
+    n.add_argument("--profile", help="profile file (JSON, or YAML)")
+    n.add_argument("--host", default="0.0.0.0")
+    n.add_argument("--port", type=int, default=8000)
+    n.add_argument("--device", default=DEFAULT_DEVICE)
+    n.add_argument("--engine", action="append", metavar="KEY=VALUE",
+                   help="EngineConfig field override (repeatable)")
+    n.add_argument("--seed", type=int, default=0)
+    n.add_argument("--no-warmup", action="store_true")
+    n.set_defaults(fn=_cmd_serve_node)
+    args = p.parse_args(argv)
+    return args.fn(args)

@@ -1,0 +1,995 @@
+"""The serving engine: continuous batching over a paged KV cache.
+
+Port of the main path of ``helix_tpu/engine/engine.py`` to eager PyTorch.
+One ``Engine`` owns one model's weights and page pool on one device and
+exposes token-level ``add_request`` / ``step``.  Every device step is the
+reference's unified ragged step (``_build_ragged_step_fn``), run as plain
+code:
+
+1. **Prefill segment** — one flat token axis of ragged rows padded to a
+   token-bucket rung: cold packed prompts (no history: kernel K2, flash
+   attention with segment ids), prefix-cache hits and chunk continuations
+   (history: kernel K1, ragged paged attention).  One forward, one
+   ``write_kv`` scatter, one batched first-token sample.
+2. **State segment** — every decode slot as a one-token row over its paged
+   history (kernel K1).  A row sits the call out (``draft_len`` -1) during
+   admission waves and standalone chunk steps.
+3. **Fused tail** — ``n_extra`` more plain decode steps before the one
+   host fetch of the step (``decode_steps_per_sync``).
+
+Admission packs waiting short prompts into waves, long prompts prefill in
+``max_prefill_len`` chunks, and while a chunk is in flight the mixed step
+runs it together with every decode row in one call.  The page pool is
+updated in place (the reference donates it to jit).
+
+Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
+speculative decoding (A10), the async loop (A11), the host KV tier and
+tiered contexts (A12, A14), int8 KV (A9), adapters (A13), meshes (A15),
+MoE and mrope models (A15, A17).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+import os
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
+from helix_tpu_torch.engine.kv_cache import (
+    CacheConfig,
+    PageAllocator,
+    PagedKVCache,
+    PrefixCache,
+    slot_to_page_offset,
+    write_kv,
+)
+from helix_tpu_torch.engine.ragged import (
+    PrefillPlan,
+    bucket_tokens,
+    parse_token_buckets,
+)
+from helix_tpu_torch.engine.sampling import (
+    SamplingParams,
+    SamplingState,
+    apply_penalties,
+    sample,
+    split_keys,
+)
+from helix_tpu_torch.models.common import ModelConfig
+from helix_tpu_torch.models.llama import check_supported, forward, project_logits
+from helix_tpu_torch.ops.attention import attention
+from helix_tpu_torch.ops.paged import ragged_paged_attention
+
+# tenant identity of unauthenticated traffic (helix_tpu/obs/slo.py)
+ANON_TENANT = "anonymous"
+
+
+class FinishReason(str, enum.Enum):
+    STOP = "stop"
+    LENGTH = "length"
+    ABORT = "abort"
+
+
+@dataclasses.dataclass
+class Request:
+    id: str
+    prompt_tokens: list
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    stop_token_ids: tuple = ()
+    # --- multimodal (not ported: ROADMAP A17) ---
+    image_embeds: Optional[object] = None
+    image_positions: Optional[list] = None
+    positions3: Optional[object] = None
+    mrope_delta: int = 0
+    # mutable state
+    output_tokens: list = dataclasses.field(default_factory=list)
+    finished: bool = False
+    finish_reason: Optional[FinishReason] = None
+    slot: Optional[int] = None
+    max_len: Optional[int] = None   # page-capacity cap set at admission
+    submit_time: float = dataclasses.field(default_factory=time.monotonic)
+    admitted_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    trace_id: str = ""
+    tenant: str = ANON_TENANT
+    sched_class: str = ""
+    adapter: str = ""
+    cached_tokens: int = 0          # prompt tokens served by prefix cache
+    preempt_count: int = 0
+    ctx_pin: bool = False
+    _page_hashes: Optional[list] = None
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt_tokens) + len(self.output_tokens)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The reference's ``EngineConfig``: same fields, same defaults.
+    Options outside this slice raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them."""
+
+    max_decode_batch: int = 8
+    page_size: int = 16
+    num_pages: int = 2048
+    max_pages_per_seq: int = 128
+    max_prefill_len: int = 2048
+    max_model_len: Optional[int] = None
+    # None: the hand-written kernels (plain versions on CPU tensors);
+    # "reference": the plain versions on any device, for comparisons
+    attn_backend: Optional[str] = None
+    eos_token_ids: tuple = ()
+    decode_steps_per_sync: int = 1
+    adaptive_sync_max_streams: int = 2
+    enable_prefix_cache: bool = True
+    kv_cache_dtype: str = "auto"   # auto | bfloat16 | float32 (int8: A9)
+    enable_mixed_step: bool = True
+    enable_spec_decode: bool = False
+    spec_tokens: int = 4
+    enable_async_loop: bool = False
+    adapter_pool_slots: int = 0
+    adapter_rank: int = 16
+    adapter_targets: tuple = ("wq", "wk", "wv", "wo")
+    host_pool_bytes: int = 0
+    ctx_hot_pages: int = 0
+    ctx_stream_pages: int = 4
+
+    def __post_init__(self):
+        unported = [
+            (self.enable_spec_decode, "enable_spec_decode", "A10"),
+            (self.enable_async_loop, "enable_async_loop", "A11"),
+            (self.adapter_pool_slots > 0, "adapter_pool_slots > 0", "A13"),
+            (self.host_pool_bytes > 0, "host_pool_bytes > 0", "A12"),
+            (self.ctx_hot_pages > 0, "ctx_hot_pages > 0", "A14"),
+            (self.kv_cache_dtype == "int8", 'kv_cache_dtype="int8"', "A9"),
+        ]
+        for on, what, item in unported:
+            if on:
+                raise NotImplementedError(
+                    f"EngineConfig {what} is not ported yet (ROADMAP {item})"
+                )
+        if self.attn_backend not in (None, "reference"):
+            raise ValueError(
+                f"attn_backend {self.attn_backend!r}: expected None or "
+                "'reference'"
+            )
+
+    def cache_config(self, dtype: str = "bfloat16") -> CacheConfig:
+        kv_dtype = (
+            dtype
+            if self.kv_cache_dtype in ("auto", None, "")
+            else self.kv_cache_dtype
+        )
+        return CacheConfig(
+            num_pages=self.num_pages,
+            page_size=self.page_size,
+            max_pages_per_seq=self.max_pages_per_seq,
+            dtype=kv_dtype,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Host-side key derivation, copied from the reference (engine.py:300-317)
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+_SEED_DOMAIN = 0xA076_1D64_78BD_642F  # seeded-request key domain
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E37_79B9_7F4A_7C15) & _M64
+    z = ((x ^ (x >> 30)) * 0xBF58_476D_1CE4_E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D0_49BB_1331_11EB) & _M64
+    return z ^ (z >> 31)
+
+
+def _host_key(x: int) -> np.ndarray:
+    """uint32[2] key data from a 64-bit state."""
+    z = _splitmix64(x)
+    return np.array([z >> 32, z & 0xFFFF_FFFF], np.uint32)
+
+
+def _host_split(key: np.ndarray, n: int = 2) -> list:
+    """Derive n child keys from a host key, deterministically."""
+    base = (int(key[0]) << 32) | int(key[1])
+    return [_host_key(base ^ (0xD6E8_FEB8_6659_FD93 * (i + 1))) for i in
+            range(n)]
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Device-resident per-slot decode state.  Steady-state decode uploads
+    nothing: last tokens, positions and the output-token histogram advance
+    on the device; the host re-syncs only when the slot set changes
+    (``Engine._sync_state``), keeping surviving slots' histograms.  The
+    per-slot sampling keys advance on the host (``Engine._dkeys``)."""
+
+    last_token: torch.Tensor    # [B] i64
+    positions: torch.Tensor     # [B] i64
+    page_tables: torch.Tensor   # [B, maxP] i32
+    active: torch.Tensor        # [B] i64
+    token_counts: torch.Tensor  # [B, V] i32 — output-token histogram
+    sampling: SamplingState
+
+
+class Engine:
+    """Single-model serving engine on one device."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        params,
+        cfg: EngineConfig,
+        mesh=None,
+        rng_seed: int = 0,
+        *,
+        device=DEFAULT_DEVICE,
+    ):
+        check_supported(model_cfg)
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes (tensor/sequence/pipeline parallel) are not ported "
+                "yet (ROADMAP A15)"
+            )
+        self.device = resolve_device(device)
+        w = params["embed"]["weight"]
+        if w.device.type != self.device.type:
+            raise ValueError(
+                f"params live on {w.device}, engine device is {self.device}"
+            )
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.params = params
+        q, ps = cfg.max_prefill_len, cfg.page_size
+        while q > ps and q % 2 == 0:
+            q //= 2
+        if q != ps:
+            raise ValueError(
+                f"max_prefill_len ({cfg.max_prefill_len}) must be "
+                f"page_size ({ps}) times a power of two"
+            )
+        if cfg.kv_cache_dtype not in ("auto", None, "", "bfloat16", "float32"):
+            raise ValueError(
+                f"unsupported kv_cache_dtype {cfg.kv_cache_dtype!r}"
+            )
+        self.cache_cfg = cfg.cache_config(dtype=model_cfg.dtype)
+        self.cache = PagedKVCache.create(model_cfg, self.cache_cfg,
+                                         self.device)
+        self.allocator = PageAllocator(
+            self.cache_cfg.num_pages, self.cache_cfg.max_pages_per_seq
+        )
+        B = cfg.max_decode_batch
+        self.slots: list[Optional[Request]] = [None] * B
+        self.waiting: list[Request] = []
+        self._requests: dict[str, Request] = {}
+        # host mirrors of device-visible per-slot state
+        self._last_token = np.zeros((B,), np.int64)
+        self._positions = np.zeros((B,), np.int64)
+        self._page_tables = np.zeros(
+            (B, self.cache_cfg.max_pages_per_seq), np.int32
+        )
+        self._slot_keys = np.zeros((B, 2), np.uint32)   # admission carry keys
+        self._dkeys = np.zeros((B, 2), np.uint32)       # evolving step keys
+        self._active = np.zeros((B,), bool)             # as of the last sync
+        self._state_dirty = True
+        self._changed_slots: set[int] = set()
+        self._dstate: Optional[DecodeState] = None
+        self._chunking: Optional[dict] = None
+        self.prefix_cache = PrefixCache() if cfg.enable_prefix_cache else None
+        self._shared_pages: dict[str, list] = {}
+        self._key_base = _splitmix64(0x8E1_1C9 ^ (rng_seed & _M64))
+        self._key_nonce = 0
+        self._token_ladder = parse_token_buckets(
+            os.environ.get("HELIX_TOKEN_BUCKETS"),
+            self.cache_cfg.page_size, cfg.max_prefill_len,
+        )
+        self._inert_rows = np.full((B,), -1, np.int32)   # state rows sit out
+        self._zero_rows = np.zeros((B,), np.int32)       # plain decode rows
+        self._s_t0 = torch.arange(B, dtype=torch.int32, device=self.device)
+        # optional observer of every sampled logits tensor:
+        # logits_hook(kind, logits) with kind "prefill" ([R, V], each
+        # row's last token) or "decode" ([B, V]); None in serving
+        self.logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None
+        # counters (the loop and the bench read these)
+        self.num_prefill_tokens = 0
+        self.num_decode_tokens = 0
+        self.num_decode_device_steps = 0
+        self.num_mixed_steps = 0
+        self.prefix_cache_hits = 0
+        self.recent_ttfts: collections.deque = collections.deque(maxlen=200)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    @property
+    def max_context_len(self) -> int:
+        """Hard prompt+generation limit: the profile's max_model_len capped
+        by per-sequence page capacity and the physical pool."""
+        cap = min(
+            self.cache_cfg.max_seq_len,
+            (self.cache_cfg.num_pages - 1) * self.cache_cfg.page_size,
+        )
+        if self.cfg.max_model_len is not None:
+            cap = min(cap, self.cfg.max_model_len)
+        return cap
+
+    def validate_request(self, req: Request) -> Optional[str]:
+        """Admission pre-check, safe from any thread; None = acceptable."""
+        plen = len(req.prompt_tokens)
+        if plen + 1 > self.max_context_len:
+            return (
+                f"prompt ({plen} tokens) exceeds the model context limit "
+                f"{self.max_context_len}"
+            )
+        if not req.prompt_tokens:
+            return "empty prompt"
+        if req.adapter:
+            return (
+                f"adapter '{req.adapter}' requested but adapters are not "
+                "ported yet (ROADMAP A13)"
+            )
+        if req.image_embeds is not None:
+            return "image input is not ported yet (ROADMAP A17)"
+        return None
+
+    def add_request(self, req: Request) -> None:
+        err = self.validate_request(req)
+        if err:
+            raise ValueError(err)
+        self._requests[req.id] = req
+        self.waiting.append(req)
+
+    def abort(self, req_id: str) -> None:
+        req = self._requests.get(req_id)
+        if req is None or req.finished:
+            return
+        self._finish(req, FinishReason.ABORT)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(s is not None for s in self.slots)
+
+    def warmup(self) -> None:
+        """Drive one tiny request through the public path, so the first
+        real request pays neither the kernels' build nor the libraries'
+        first-call set-up.  (The reference also walks its token-bucket
+        ladder to compile every shape; eager execution has nothing to
+        compile per shape.)"""
+        req = Request(
+            id="__warmup__",
+            prompt_tokens=[0] * min(4, self.cache_cfg.page_size),
+            sampling=SamplingParams(max_tokens=2, temperature=0.0),
+        )
+        self.add_request(req)
+        while self.has_work():
+            self.step()
+        self._requests.pop(req.id, None)
+        self.recent_ttfts.clear()
+
+    def step(self) -> list[tuple[Request, int]]:
+        """Admit + prefill waiting requests, then one decode step (or one
+        mixed chunk + decode step).  Returns [(request, token), ...] for
+        the tokens produced this step."""
+        emitted: list[tuple[Request, int]] = []
+        self._admit(emitted)
+        if self._chunking is not None and self._chunking["req"].finished:
+            self._chunking = None    # aborted mid-prefill
+        decode_ready = any(
+            self._slot_active(i) for i in range(len(self.slots))
+        )
+        if self._chunking is not None and decode_ready \
+                and self.cfg.enable_mixed_step:
+            self._mixed_step(emitted)
+            return emitted
+        if self._chunking is not None:
+            self._chunk_step(emitted)
+        # a chunk that just completed activates its slot and decodes its
+        # second token this same step
+        if any(self._slot_active(i) for i in range(len(self.slots))):
+            self._decode_step(emitted)
+        return emitted
+
+    def generate(
+        self, prompts: Sequence[Sequence[int]], sampling: SamplingParams
+    ) -> list[list[int]]:
+        """Blocking convenience wrapper (tests, bench)."""
+        reqs = [
+            Request(
+                id=f"gen-{i}",
+                prompt_tokens=list(p),
+                sampling=sampling,
+                stop_token_ids=tuple(self.cfg.eos_token_ids),
+            )
+            for i, p in enumerate(prompts)
+        ]
+        for r in reqs:
+            self.add_request(r)
+        while self.has_work():
+            self.step()
+        return [r.output_tokens for r in reqs]
+
+    def _request_key(self, req: Request) -> np.ndarray:
+        """Root key for one request: from its seed when given, else from
+        the engine's counter stream (host-only, as in the reference)."""
+        if req.sampling.seed is not None:
+            return _host_key(_SEED_DOMAIN ^ (req.sampling.seed & _M64))
+        self._key_nonce += 1
+        return _host_key(self._key_base ^ self._key_nonce)
+
+    def _slot_active(self, i: int) -> bool:
+        """Occupied and decodable (not mid-chunked-prefill)."""
+        s = self.slots[i]
+        if s is None:
+            return False
+        return self._chunking is None or s is not self._chunking["req"]
+
+    # ------------------------------------------------------------------
+    # admission + prefill
+    # ------------------------------------------------------------------
+
+    def _prompt_hashes(self, req: Request) -> list:
+        """Chain digests for the prompt's shareable full pages, capped at
+        (plen-1)//ps: the page holding the LAST prompt token is never
+        shared, so sampling always has a token to prefill."""
+        if req._page_hashes is None:
+            ps = self.cache_cfg.page_size
+            cap = (len(req.prompt_tokens) - 1) // ps
+            req._page_hashes = PrefixCache.page_hashes(
+                req.prompt_tokens, ps, cap
+            )
+        return req._page_hashes
+
+    def _cached_prefix_pages(self, req: Request) -> int:
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.match_len(self._prompt_hashes(req))
+
+    def _ensure_pages(self, need: int) -> bool:
+        """can_allocate, with prefix-cache LRU eviction as the backstop."""
+        if self.allocator.can_allocate(need):
+            return True
+        if self.prefix_cache is not None:
+            freed = self.prefix_cache.evict(need - self.allocator.free_pages)
+            if freed:
+                self.allocator.give_back(freed)
+        return self.allocator.can_allocate(need)
+
+    def _try_claim(self, req: Request, use_cache: bool = False):
+        """Allocate pages + a slot for one waiting request; returns its
+        page table or None when resources are unavailable.  With
+        ``use_cache`` the longest cached prefix is acquired and stitched
+        in front of freshly allocated pages; ``req.cached_tokens`` records
+        how many prompt tokens are already resident."""
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        if not free_slots:
+            return None
+        plen = len(req.prompt_tokens)
+        ps = self.cache_cfg.page_size
+        maxP = self.cache_cfg.max_pages_per_seq
+        limit = min(plen + req.sampling.max_tokens, self.max_context_len)
+        need = min(self.allocator.pages_needed(limit, ps), maxP)
+        hashes: list = []
+        shared: list = []
+        if use_cache and self.prefix_cache is not None:
+            hashes = self._prompt_hashes(req)
+            k = self.prefix_cache.match_len(hashes)
+            if not self._ensure_pages(need - k):
+                return None
+            shared = self.prefix_cache.acquire(hashes)
+        need_new = need - len(shared)
+        if not self._ensure_pages(need_new):
+            if shared:
+                self.prefix_cache.release(shared)
+            return None
+        slot = free_slots[0]
+        pages = shared + self.allocator.allocate(req.id, need_new)
+        req.slot = slot
+        req.admitted_time = time.monotonic()
+        req.cached_tokens = len(shared) * ps
+        if shared:
+            self.prefix_cache_hits += 1
+        if use_cache and self.prefix_cache is not None:
+            self.prefix_cache.record_claim(len(shared), len(hashes))
+        if shared:
+            self._shared_pages.setdefault(req.id, []).extend(shared)
+        req.max_len = min(len(pages) * ps, self.max_context_len)
+        self.slots[slot] = req
+        table = np.zeros((maxP,), np.int32)
+        table[: len(pages)] = pages
+        self._page_tables[slot] = table
+        return table
+
+    def _admit(self, emitted) -> None:
+        # Long prompts that cannot start THIS step (another chunked prefill
+        # in flight) are set aside so shorter prompts behind them still
+        # admit; they go back at the queue head afterwards.
+        if any(r.finished for r in self.waiting):
+            self.waiting[:] = [r for r in self.waiting if not r.finished]
+        deferred: list[Request] = []
+        pending: list = []   # (batch, first-token tensor) per wave
+        try:
+            self._admit_inner(deferred, pending)
+        finally:
+            if pending:
+                self._finish_packed_admissions(pending, emitted)
+            if deferred:
+                self.waiting[:0] = deferred
+
+    def _admit_inner(self, deferred: list, pending: list) -> None:
+        while self.waiting:
+            req = self.waiting[0]
+            if req.finished:
+                self.waiting.pop(0)
+                continue
+            needs_chunking = len(req.prompt_tokens) > self.cfg.max_prefill_len
+            if not needs_chunking:
+                # short prompts — cold and prefix-cache hits — pack into
+                # ONE ragged prefill segment per wave
+                if not self._admit_wave(pending):
+                    return   # resource wait; decode frees pages
+                continue
+            if self._chunking is not None:
+                deferred.append(self.waiting.pop(0))
+                continue
+            table = self._try_claim(req, use_cache=True)
+            if table is None:
+                return
+            self.waiting.pop(0)
+            # one chunk per engine step; the slot stays inactive until the
+            # prompt is fully cached.  A prefix hit starts past the
+            # resident pages.
+            self._chunking = {
+                "req": req, "table": table, "next": req.cached_tokens,
+                "key": self._request_key(req), "slot": req.slot,
+            }
+            self._state_dirty = True
+            self._changed_slots.add(req.slot)
+
+    def _admit_wave(self, pending: list) -> int:
+        """Claim as many waiting short prompts as fit one ragged prefill
+        segment and prefill each wave in ONE step.  Returns requests
+        admitted (0 = blocked on resources)."""
+        C_cap = self.cfg.max_prefill_len
+        ps = self.cache_cfg.page_size
+        maxP = self.cache_cfg.max_pages_per_seq
+        B = self.cfg.max_decode_batch
+        plan = PrefillPlan(ps, maxP, B)
+        batch: list = []
+        waves: list = []
+
+        def flush():
+            nonlocal plan, batch
+            if batch:
+                waves.append((plan, batch))
+            plan = PrefillPlan(ps, maxP, B)
+            batch = []
+
+        while self.waiting:
+            req = self.waiting[0]
+            if req.finished:
+                self.waiting.pop(0)
+                continue
+            plen = len(req.prompt_tokens)
+            if plen > C_cap:
+                break   # long prompt: the outer admission loop chunks it
+            if len(batch) >= B:
+                flush()
+            cache_match = self._cached_prefix_pages(req)
+            table = self._try_claim(req, use_cache=cache_match > 0)
+            if table is None:
+                break
+            self.waiting.pop(0)
+            start = req.cached_tokens
+            rem = plen - start
+            if batch and not plan.fits(rem, C_cap):
+                flush()
+            carry, sub = _host_split(self._request_key(req))
+            self._slot_keys[req.slot] = carry
+            plan.add(req, table, start, rem, req.prompt_tokens[start:plen],
+                     sub, req.sampling)
+            batch.append(req)
+        flush()
+        for wave_plan, wave_batch in waves:
+            first, _, _ = self._ragged_step(
+                plan=wave_plan, draft_len=self._inert_rows
+            )
+            pending.append((wave_batch, first))
+        return sum(len(b) for _, b in waves)
+
+    def _finish_packed_admissions(self, pending: list, emitted) -> None:
+        """Fetch every admission wave's first tokens in ONE host round
+        trip and complete the per-request bookkeeping."""
+        flat = torch.cat(
+            [t[: len(b)] for b, t in pending]
+        ).tolist()
+        now = time.monotonic()
+        i = 0
+        for batch, _ in pending:
+            for req in batch:
+                first_token = int(flat[i])
+                i += 1
+                slot = req.slot
+                req.first_token_time = now
+                self.recent_ttfts.append(now - req.submit_time)
+                self._positions[slot] = len(req.prompt_tokens)
+                self._last_token[slot] = first_token
+                self._state_dirty = True
+                self._changed_slots.add(slot)
+                self.num_prefill_tokens += (
+                    len(req.prompt_tokens) - req.cached_tokens
+                )
+                self._adopt_prompt_pages(req, self._page_tables[slot])
+                self._emit(req, first_token, emitted)
+
+    def _chunk_plan(self, st) -> tuple:
+        """ONE ragged row for the in-flight long prefill's next chunk; its
+        history length is the chunk start."""
+        req: Request = st["req"]
+        plen = len(req.prompt_tokens)
+        start = st["next"]
+        end = min(start + self.cfg.max_prefill_len, plen)
+        rem = end - start
+        st["key"], sub = _host_split(st["key"])
+        plan = PrefillPlan(
+            self.cache_cfg.page_size, self.cache_cfg.max_pages_per_seq, 1
+        )
+        plan.add(req, st["table"], start, rem, req.prompt_tokens[start:end],
+                 sub, req.sampling)
+        return plan, rem, end
+
+    def _finish_chunk(self, st, first_token: int, emitted) -> None:
+        """Prompt fully cached: activate the slot with its first token."""
+        req: Request = st["req"]
+        self._adopt_prompt_pages(req, st["table"])
+        slot = st["slot"]
+        self._chunking = None
+        req.first_token_time = time.monotonic()
+        self.recent_ttfts.append(req.first_token_time - req.submit_time)
+        self._positions[slot] = len(req.prompt_tokens)
+        self._slot_keys[slot] = _host_split(st["key"])[0]
+        self._last_token[slot] = first_token
+        self._state_dirty = True
+        self._changed_slots.add(slot)
+        self._emit(req, first_token, emitted)
+
+    def _chunk_step(self, emitted) -> None:
+        """ONE chunk of the in-flight long prefill, decode rows sitting
+        out (the mixed step is off or nothing decodes)."""
+        st = self._chunking
+        req: Request = st["req"]
+        plan, rem, end = self._chunk_plan(st)
+        first, _, _ = self._ragged_step(plan=plan,
+                                        draft_len=self._inert_rows)
+        self.num_prefill_tokens += rem
+        st["next"] = end
+        if end >= len(req.prompt_tokens):
+            self._finish_chunk(st, int(first[0].item()), emitted)
+
+    def _mixed_step(self, emitted) -> None:
+        """ONE device step advances every active decode slot one token
+        AND the in-flight long prefill one chunk."""
+        st = self._chunking
+        req: Request = st["req"]
+        self._check_headroom(1)
+        rows = [
+            (i, r) for i, r in enumerate(self.slots)
+            if r is not None and self._slot_active(i)
+        ]
+        plan, rem, end = self._chunk_plan(st)
+        first, sampled, _ = self._ragged_step(plan=plan,
+                                              draft_len=self._zero_rows)
+        self.num_mixed_steps += 1
+        self.num_decode_device_steps += 1
+        self.num_prefill_tokens += rem
+        st["next"] = end
+        final = end >= len(req.prompt_tokens)
+        fetched = torch.cat([sampled, first[:1]] if final else [sampled])
+        fetched = fetched.tolist()
+        for i, r in rows:
+            if self.slots[i] is not r or r.finished:
+                continue
+            self._positions[i] += 1
+            self._last_token[i] = fetched[i]
+            self.num_decode_tokens += 1
+            self._emit(r, int(fetched[i]), emitted)
+        if final:
+            self._finish_chunk(st, int(fetched[-1]), emitted)
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+
+    def _sync_state(self) -> None:
+        """Upload the host mirrors after the slot set changed; surviving
+        slots keep their device histograms and evolved keys."""
+        B = self.cfg.max_decode_batch
+        V = self.model_cfg.vocab_size
+        dev = self.device
+        active = np.array(
+            [self._slot_active(i) for i in range(B)], bool
+        )
+        keep = np.array(
+            [s is not None and i not in self._changed_slots
+             for i, s in enumerate(self.slots)], bool
+        )
+        greedy = SamplingParams(temperature=0.0)
+        sampling = SamplingState.from_params(
+            [s.sampling if s is not None else greedy for s in self.slots],
+            device=dev,
+        )
+        if self._dstate is None:
+            counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
+        else:
+            counts = self._dstate.token_counts
+        fresh = torch.from_numpy(np.nonzero(~keep)[0]).to(dev)
+        counts[fresh] = 0
+        # fresh slots start their histogram with the prefill-sampled first
+        # token (it is output token #1 for penalty purposes)
+        seed = np.nonzero(~keep & active)[0]
+        if len(seed):
+            counts.index_put_(
+                (torch.from_numpy(seed).to(dev),
+                 torch.from_numpy(self._last_token[seed]).to(dev)),
+                torch.ones(len(seed), dtype=torch.int32, device=dev),
+                accumulate=True,
+            )
+        self._dkeys = np.where(keep[:, None], self._dkeys, self._slot_keys)
+        self._active = active
+        self._dstate = DecodeState(
+            last_token=torch.from_numpy(self._last_token.copy()).to(dev),
+            positions=torch.from_numpy(self._positions.copy()).to(dev),
+            page_tables=torch.from_numpy(self._page_tables.copy()).to(dev),
+            active=torch.from_numpy(active.astype(np.int64)).to(dev),
+            token_counts=counts,
+            sampling=sampling,
+        )
+        self._changed_slots.clear()
+        self._state_dirty = False
+
+    def _decode_window(self) -> int:
+        """Fused decode steps before the next host sync: 1 while
+        admission/chunking work is pending, with few streams, or near a
+        slot's token budget / page room; else the largest power of two
+        <= decode_steps_per_sync every active slot can absorb."""
+        n_max = self.cfg.decode_steps_per_sync
+        if n_max <= 1 or self._chunking is not None:
+            return 1
+        n_active = sum(
+            1 for i in range(len(self.slots)) if self._slot_active(i)
+        )
+        if n_active <= self.cfg.adaptive_sync_max_streams:
+            return 1
+        cap = n_max
+        if self.waiting:
+            cap = min(cap, 4)
+        for i, req in enumerate(self.slots):
+            if req is None or not self._slot_active(i):
+                continue
+            budget = req.sampling.max_tokens - len(req.output_tokens)
+            room = (req.max_len or self.cache_cfg.max_seq_len) - req.num_tokens
+            cap = min(cap, budget, room)
+        if cap <= 1:
+            return 1
+        n = 1
+        while n * 2 <= cap:
+            n *= 2
+        return n
+
+    def _check_headroom(self, n: int) -> None:
+        """The KV write clamps its page-table index, so a slot reaching
+        table capacity inside the window would corrupt its last page
+        instead of failing; the window logic must make that impossible."""
+        table_cap = self.cache_cfg.max_pages_per_seq * self.cache_cfg.page_size
+        for i in range(len(self.slots)):
+            if self._slot_active(i) and self._positions[i] + n > table_cap:
+                raise RuntimeError(
+                    f"decode window overruns page-table capacity: slot {i} "
+                    f"at position {self._positions[i]} + {n} steps > "
+                    f"{table_cap} — headroom invariant violated"
+                )
+
+    def _decode_step(self, emitted) -> None:
+        n = self._decode_window()
+        self._check_headroom(n)
+        rows = [
+            (i, r) for i, r in enumerate(self.slots)
+            if r is not None and self._slot_active(i)
+        ]
+        _, sampled, extra = self._ragged_step(draft_len=self._zero_rows,
+                                              n_extra=n - 1)
+        self.num_decode_device_steps += n
+        toks = torch.stack([sampled, *extra]).tolist()   # ONE host fetch
+        for s in range(n):
+            for i, r in rows:
+                if self.slots[i] is not r or r.finished:
+                    continue   # finished mid-window: discard the overrun
+                self._positions[i] += 1
+                self._last_token[i] = toks[s][i]
+                self.num_decode_tokens += 1
+                self._emit(r, int(toks[s][i]), emitted)
+
+    # ------------------------------------------------------------------
+    # the unified ragged device step
+    # ------------------------------------------------------------------
+
+    def _paged_attn(self, q, k, v, lyr, t0, q_len, hist, tables):
+        """One ragged-op call from inside a forward: flatten the token
+        grid onto the op's flat row axis."""
+        Bq, Sq, H, D = q.shape
+        KVH = k.shape[-2]
+        out = ragged_paged_attention(
+            q.reshape(Bq * Sq, H, D), k.reshape(Bq * Sq, KVH, D),
+            v.reshape(Bq * Sq, KVH, D), self.cache.k_pages,
+            self.cache.v_pages, lyr, t0, q_len, hist, tables,
+            backend=self.cfg.attn_backend,
+        )
+        return out.reshape(Bq, Sq, H, D)
+
+    def _kv_buffers(self, B: int, S: int):
+        cfg = self.model_cfg
+        shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return (torch.empty(shape, dtype=dt, device=self.device),
+                torch.empty(shape, dtype=dt, device=self.device))
+
+    def _prefill_segment(self, plan: PrefillPlan) -> torch.Tensor:
+        """Forward the plan's rows on one flat token axis, persist their
+        K/V, sample each row's first token.  Returns [R] int64."""
+        rung = bucket_tokens(plan.used, self._token_ladder)
+        a = plan.finalize_device(rung, self.device)
+        has_hist = plan.has_hist
+        kacc, vacc = self._kv_buffers(1, rung)
+
+        def p_attn(q, k, v, carry, pos):
+            cache, lyr = carry
+            kacc[lyr].copy_(k)
+            vacc[lyr].copy_(v)
+            if has_hist:
+                out = self._paged_attn(q, k, v, lyr, a["t0"], a["qlen"],
+                                       a["hist"], a["tables"])
+            else:
+                # cold rows only: packed self-attention, no pool reads
+                out = attention(
+                    q, k, v, causal=True, q_positions=pos,
+                    kv_positions=pos, q_segment_ids=a["seg"],
+                    kv_segment_ids=a["seg"], backend=self.cfg.attn_backend,
+                )
+            return out, cache
+
+        h, _ = forward(self.params, self.model_cfg, a["tokens"], a["pos"],
+                       attn_fn=p_attn, carry_caches=self.cache,
+                       return_hidden=True)
+        # pool updated in place (the reference's donated scatter)
+        write_kv(self.cache, kacc, vacc, a["pages"], a["offsets"],
+                 a["seg"] > 0)
+        last = project_logits(self.params, self.model_cfg,
+                              h[0, a["ends"].long()])          # [R, V]
+        if self.logits_hook is not None:
+            self.logits_hook("prefill", last[: len(plan.rows)])
+        greedy = SamplingParams(temperature=0.0)
+        sampling = SamplingState.from_params(
+            [r.sampling for r in plan.rows]
+            + [greedy] * (plan.max_rows - len(plan.rows)),
+            device=self.device,
+        )
+        return sample(last, sampling, a["keys"])
+
+    def _decode_rows(self, live: np.ndarray) -> torch.Tensor:
+        """One plain decode step over every slot: each live slot is a
+        one-token row over its paged history.  Advances the device state
+        and the host keys of live slots; returns [B] tokens (0 where not
+        live)."""
+        st = self._dstate
+        B = len(live)
+        live_t = torch.from_numpy(live).to(self.device)
+        q_len = live_t.to(torch.int32)
+        hist = (st.positions * st.active).to(torch.int32)
+        tokens = st.last_token[:, None]
+        pos = st.positions[:, None]
+        kacc, vacc = self._kv_buffers(B, 1)
+
+        def s_attn(q, k, v, carry, _pos):
+            cache, lyr = carry
+            kacc[lyr].copy_(k)
+            vacc[lyr].copy_(v)
+            out = self._paged_attn(q, k, v, lyr, self._s_t0, q_len, hist,
+                                   st.page_tables)
+            return out, cache
+
+        logits, _ = forward(self.params, self.model_cfg, tokens, pos,
+                            attn_fn=s_attn, carry_caches=self.cache)
+        pages, offs = slot_to_page_offset(pos, st.page_tables,
+                                          self.cache_cfg.page_size)
+        write_kv(self.cache, kacc, vacc, pages, offs, live_t[:, None])
+        logits = logits[:, 0]
+        if self.logits_hook is not None:
+            self.logits_hook("decode", logits)
+        pen = apply_penalties(logits, st.token_counts,
+                              st.sampling.presence, st.sampling.frequency)
+        carry, step = split_keys(self._dkeys)
+        tok = sample(pen, st.sampling, step)
+        # keys advance only at live positions: one split per real step
+        self._dkeys = np.where(live[:, None], carry, self._dkeys)
+        tok = torch.where(live_t, tok, torch.zeros_like(tok))
+        rows = torch.nonzero(live_t)[:, 0]
+        st.token_counts.index_put_(
+            (rows, tok[rows]),
+            torch.ones(len(rows), dtype=torch.int32, device=self.device),
+            accumulate=True,
+        )
+        st.positions += live_t.long()
+        st.last_token = torch.where(live_t, tok, st.last_token)
+        return tok
+
+    def _ragged_step(self, plan=None, draft_len=None, n_extra: int = 0):
+        """ONE unified device step: the optional prefill plan's rows, the
+        decode-state segment (rows with ``draft_len`` >= 0) and a fused
+        tail of ``n_extra`` plain decode steps.  Returns
+        ``(p_first [R] or None, sampled [B] or None, extra list of [B])``
+        device tensors."""
+        if self._state_dirty or self._dstate is None:
+            self._sync_state()
+        p_first = None
+        if plan is not None and plan.rows:
+            p_first = self._prefill_segment(plan)
+        live = self._active & (np.asarray(draft_len) >= 0)
+        sampled = self._decode_rows(live) if live.any() else None
+        extra = [self._decode_rows(self._active) for _ in range(n_extra)]
+        return p_first, sampled, extra
+
+    # ------------------------------------------------------------------
+    # completion
+    # ------------------------------------------------------------------
+
+    def _emit(self, req: Request, token: int, emitted: list) -> None:
+        req.output_tokens.append(token)
+        emitted.append((req, token))
+        stop_ids = set(req.stop_token_ids) | set(self.cfg.eos_token_ids)
+        if token in stop_ids:
+            self._finish(req, FinishReason.STOP)
+        elif len(req.output_tokens) >= req.sampling.max_tokens:
+            self._finish(req, FinishReason.LENGTH)
+        elif req.num_tokens >= (req.max_len or self.cache_cfg.max_seq_len):
+            self._finish(req, FinishReason.LENGTH)
+
+    def _adopt_prompt_pages(self, req: Request, table) -> None:
+        """Hand a fully resident prompt's fresh full pages to the prefix
+        cache (detached from the allocator so teardown cannot free them
+        from under a later sharer)."""
+        if self.prefix_cache is None:
+            return
+        hashes = self._prompt_hashes(req)
+        ps = self.cache_cfg.page_size
+        k_shared = req.cached_tokens // ps
+        fresh_hashes = hashes[k_shared:]
+        if not fresh_hashes:
+            return
+        fresh_pages = [int(table[i]) for i in range(k_shared, len(hashes))]
+        adopted = self.prefix_cache.adopt(fresh_hashes, fresh_pages)
+        if adopted:
+            self.allocator.detach(req.id, adopted)
+            self._shared_pages.setdefault(req.id, []).extend(adopted)
+
+    def _finish(self, req: Request, reason: FinishReason) -> None:
+        req.finished = True
+        req.finish_reason = reason
+        if req.slot is not None:
+            self.slots[req.slot] = None
+            self._state_dirty = True
+            self._changed_slots.add(req.slot)
+            req.slot = None
+        if req in self.waiting:
+            self.waiting.remove(req)
+        self._requests.pop(req.id, None)
+        shared = self._shared_pages.pop(req.id, None)
+        if shared and self.prefix_cache is not None:
+            self.prefix_cache.release(shared)
+        if self.allocator.owns(req.id):
+            self.allocator.free(req.id)

@@ -1,0 +1,258 @@
+"""Llama-family decoder in PyTorch over a parameter dictionary.
+
+Port of ``helix_tpu/models/llama.py``.  Covers Llama-3, Phi-3 (MHA),
+Qwen-2 (attention bias) and Qwen-3 (qk-norm) through ``ModelConfig``
+switches.  Weights keep the reference's stacked layout (every layer weight
+has a leading ``num_layers`` dim, projections are ``[in, out]`` and used
+as ``x @ W``), so converting a JAX parameter tree is a plain copy
+(``params_from_jax``).
+
+- A Python loop over layers takes the place of ``lax.scan``.
+- Attention is injected (``attn_fn``) under the reference's two cache
+  protocols: ``layer_caches`` hands each layer its per-layer views,
+  ``carry_caches`` threads the whole pool and the attention function
+  mutates it in place (jit donation in the reference).
+- Mixture-of-experts and mrope (vision) configs are not ported:
+  ROADMAP A15 and A17.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
+from helix_tpu_torch.models.common import ModelConfig
+from helix_tpu_torch.ops.norms import rms_norm
+from helix_tpu_torch.ops.quant import embed_lookup, maybe_dequant_dense
+from helix_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+Params = dict
+AttnFn = Callable[..., Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for model families outside this slice of the port."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts models are not ported yet "
+            "(ROADMAP A15)"
+        )
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mrope (vision) models are not ported yet "
+            "(ROADMAP A17)"
+        )
+
+
+def _act(name: str):
+    if name == "silu":
+        return torch.nn.functional.silu
+    if name in ("gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh"):
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
+                dtype=None) -> Params:
+    """Random-init the stacked-layer parameter dict ON ``device``: normal
+    x 0.02 for projections and embeddings, ones for norms, zeros for
+    biases (``llama.py:73-112``).  Draws come from one ``torch.Generator``
+    seeded with ``seed`` on that device, layer by layer, so a full-width
+    model never exists in float32 at once."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    L, E, H, KVH, D, F, V = (
+        cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+        cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
+    )
+
+    def normal(shape, stacked=False):
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for part in (out if stacked else (out,)):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
+                                   dtype=torch.float32).mul_(0.02))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    params = {
+        "embed": {"weight": normal((V, E))},
+        "layers": {
+            "attn_norm": {"weight": ones((L, E))},
+            "mlp_norm": {"weight": ones((L, E))},
+            "wq": {"weight": normal((L, E, H * D), True)},
+            "wk": {"weight": normal((L, E, KVH * D), True)},
+            "wv": {"weight": normal((L, E, KVH * D), True)},
+            "wo": {"weight": normal((L, H * D, E), True)},
+            "w_gate": {"weight": normal((L, E, F), True)},
+            "w_up": {"weight": normal((L, E, F), True)},
+            "w_down": {"weight": normal((L, F, E), True)},
+        },
+        "final_norm": {"weight": ones((E,))},
+    }
+    if cfg.attention_bias:
+        for nm, width in (("wq", H * D), ("wk", KVH * D), ("wv", KVH * D)):
+            params["layers"][nm]["bias"] = torch.zeros(
+                (L, width), dtype=dt, device=dev
+            )
+    if cfg.qk_norm:
+        params["layers"]["q_norm"] = {"weight": ones((L, D))}
+        params["layers"]["k_norm"] = {"weight": ones((L, D))}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"weight": normal((E, V))}
+    return params
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)   # a writable copy: device_get may hand back views
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes bfloat16: torch.from_numpy refuses it, but the bits
+        # are torch.bfloat16's — reinterpret, no float32 round trip
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree) -> Params:
+    """Convert a JAX parameter tree (after ``jax.device_get``: nested dicts
+    of numpy arrays) into the port's parameter dict of CPU tensors with
+    the same keys, shapes and dtypes.  Move it with ``params_to``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v) for k, v in tree.items()}
+    return _to_tensor(tree)
+
+
+def params_to(params: Params, device) -> Params:
+    """The parameter dict with every tensor moved to ``device``."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, dev) for k, v in params.items()}
+    return params.to(dev)
+
+
+def _layer_params(layers: Params, i: int) -> Params:
+    return {k: {kk: vv[i] for kk, vv in v.items()} for k, v in layers.items()}
+
+
+def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
+           attn_fn: AttnFn):
+    """One decoder block. h: [B, S, E].  Returns ``(h, (k, v),
+    new_cache)``; ``new_cache`` is what a carry-protocol ``attn_fn``
+    returned alongside its output (None for plain attn_fns)."""
+    B, S, E = h.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = rms_norm(h, p["attn_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_offset)
+    q = maybe_dequant_dense(x, p["wq"]).reshape(B, S, H, D)
+    k = maybe_dequant_dense(x, p["wk"]).reshape(B, S, KVH, D)
+    v = maybe_dequant_dense(x, p["wv"]).reshape(B, S, KVH, D)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    res = attn_fn(q, k, v, layer_cache, positions)
+    new_cache = None
+    if isinstance(res, tuple):
+        attn_out, new_cache = res
+    else:
+        attn_out = res
+    h = h + maybe_dequant_dense(attn_out.reshape(B, S, H * D), p["wo"])
+    x = rms_norm(h, p["mlp_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_offset)
+    gate = maybe_dequant_dense(x, p["w_gate"])
+    up = maybe_dequant_dense(x, p["w_up"])
+    h = h + maybe_dequant_dense(_act(cfg.hidden_act)(gate) * up, p["w_down"])
+    return h, (k, v), new_cache
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens,              # [B, S] integer
+    positions,           # [B, S] integer (absolute, ragged-aware)
+    *,
+    attn_fn: AttnFn,
+    layer_caches=None,   # tuple of tensors with a leading num_layers dim
+    carry_caches=None,   # anything; threaded through every layer
+    return_hidden: bool = False,
+):
+    """Run the decoder.
+
+    - ``layer_caches`` (or no cache): ``attn_fn(q, k, v, layer_cache,
+      pos)`` gets layer i's views (``tuple(c[i] for c in layer_caches)``,
+      or None) and returns the attention output; returns ``(logits, kv)``
+      with ``kv = (k, v)`` stacked ``[L, B, S, KVH, D]``.
+    - ``carry_caches``: ``attn_fn(q, k, v, (caches, i), pos)`` returns
+      ``(out, caches)`` — in place, the same pool object comes back — and
+      the call returns ``(logits, caches)``.
+
+    Logits are float32 (``project_logits``); ``return_hidden`` returns
+    the final-norm hidden states instead.
+    """
+    check_supported(cfg)
+    inv_freq = torch.from_numpy(
+        rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    ).to(tokens.device)
+    h = embed_lookup(params["embed"], tokens.long(), torch_dtype(cfg.dtype))
+    caches = carry_caches
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        if carry_caches is not None:
+            lc = (caches, i)
+        elif layer_caches is not None:
+            lc = tuple(c[i] for c in layer_caches)
+        else:
+            lc = None
+        h, (k, v), new = _layer(
+            h, _layer_params(params["layers"], i), lc, cfg, positions,
+            inv_freq, attn_fn,
+        )
+        if carry_caches is not None:
+            caches = new
+        else:
+            ks.append(k)
+            vs.append(v)
+    h = rms_norm(h, params["final_norm"]["weight"], cfg.rms_norm_eps,
+                 cfg.norm_offset)
+    out_cache = caches if carry_caches is not None else (
+        torch.stack(ks), torch.stack(vs)
+    )
+    if return_hidden:
+        return h, out_cache
+    return project_logits(params, cfg, h), out_cache
+
+
+def project_logits(params: Params, cfg: ModelConfig, h):
+    """Final-norm hidden states -> float32 logits over the vocab.  With
+    bf16 weights the product rounds to bf16 before the cast (the
+    reference accumulates it straight into f32)."""
+    if cfg.tie_word_embeddings:
+        w_out = params["embed"]["weight"].T
+    else:
+        w_out = params["lm_head"]["weight"]
+    logits = torch.matmul(h, w_out).float()
+    if cfg.logits_soft_cap:
+        logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
+    return logits
+
+
+def prefill_attn_fn(q, k, v, layer_cache, positions, *, segment_ids=None,
+                    backend=None, soft_cap=None):
+    """Self-attention over the freshly computed K/V (no history): kernel
+    K2 on the card."""
+    from helix_tpu_torch.ops.attention import attention
+
+    return attention(
+        q, k, v,
+        causal=True,
+        q_positions=positions,
+        kv_positions=positions,
+        q_segment_ids=segment_ids,
+        kv_segment_ids=segment_ids,
+        logits_soft_cap=soft_cap,
+        backend=backend,
+    )

@@ -1,0 +1,150 @@
+"""Kernel K1: ragged paged attention, wrapper + plain version.
+
+``ragged_paged_attention`` launches ``csrc/ragged_paged_attention.cu``
+(the Hopper replacement of the Pallas ``ragged_paged_attention_tpu``) on a
+CUDA tensor and runs ``ragged_paged_attention_plain`` on a CPU tensor.
+Contract (``helix_tpu/ops/paged.py``): flat queries ``q [T, H, D]`` and
+fresh ``k_new``/``v_new [T, KVH, D]`` carved into rows by ``t0``/``q_len``;
+token t of row r sits at position ``hist[r] + (t - t0[r])`` and attends the
+row's pages-resident history ``[0, hist[r])`` of pool layer ``layer`` plus
+the row's fresh tokens up to and including itself.  Output ``[T, H, D]``;
+tokens outside every row are left unspecified (the kernel never writes
+them), so callers read live tokens only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from helix_tpu_torch.kernels.build import Kernel
+from helix_tpu_torch.ops.attention import SUPPORTED_HEAD_DIMS, mha_reference
+
+K1 = Kernel("ragged_paged_attention", "ragged_paged_attention.cu")
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_K1_ARGS = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P]
+
+
+def _row_of_tokens(t0, q_len, T: int):
+    """Per-token row assignment from ascending disjoint row extents.
+
+    Returns ``(row, q_off)``: ``row[t]`` is the owning row id or -1 for
+    tokens outside every row; ``q_off[t]`` the token's offset within its
+    row (garbage where ``row < 0``)."""
+    t = torch.arange(T, device=t0.device)
+    cand = (t[:, None] >= t0[None, :]).sum(dim=1) - 1
+    cand = cand.clamp(0, t0.shape[0] - 1)
+    start = t0[cand]
+    in_row = (t >= start) & (t < start + q_len[cand])
+    return torch.where(in_row, cand, torch.full_like(cand, -1)), t - start
+
+
+def ragged_paged_attention_plain(
+    q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
+    *, scale: Optional[float] = None,
+):
+    """K1's plain PyTorch version: the gather-and-mask form of the
+    reference oracle.  Gathers every row's full page table, masks history
+    past ``hist[r]``, appends the fresh tokens and runs one segment-masked
+    softmax (row identity as segment, absolute positions for causality)."""
+    T, H, D = q.shape
+    R, maxP = tables.shape
+    _, N, P, KVH, _ = k_pages.shape
+    Hs = maxP * P
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    t0, q_len, hist = t0.long(), q_len.long(), hist.long()
+    tables = tables.long()
+    row, q_off = _row_of_tokens(t0, q_len, T)
+    q_pos = torch.where(row >= 0, hist[row.clamp(min=0)] + q_off,
+                        torch.zeros_like(row))
+    kh = k_pages[layer][tables].to(q.dtype).reshape(1, R * Hs, KVH, D)
+    vh = v_pages[layer][tables].to(q.dtype).reshape(1, R * Hs, KVH, D)
+    hist_tok = torch.arange(Hs, device=q.device)
+    resident = hist_tok[None, :] < hist[:, None]                 # [R, Hs]
+    kv_seg_h = torch.where(
+        resident, torch.arange(1, R + 1, device=q.device)[:, None], 0
+    ).reshape(1, R * Hs)
+    kv_pos_h = hist_tok[None, :].expand(R, Hs).reshape(1, R * Hs)
+    k_all = torch.cat([kh, k_new.to(q.dtype)[None]], dim=1)
+    v_all = torch.cat([vh, v_new.to(q.dtype)[None]], dim=1)
+    seg_fresh = torch.where(row >= 0, row + 1, torch.zeros_like(row))
+    kv_seg = torch.cat([kv_seg_h, seg_fresh[None]], dim=1)
+    kv_pos = torch.cat([kv_pos_h, q_pos[None]], dim=1)
+    # masked slots weigh exactly 0, but 0 * NaN garbage (pages past the
+    # history, tokens outside every row) would still poison the sum
+    v_all = torch.where((kv_seg > 0)[..., None, None], v_all,
+                        torch.zeros_like(v_all))
+    out = mha_reference(
+        q[None], k_all, v_all, causal=True, q_positions=q_pos[None],
+        kv_positions=kv_pos, q_segment_ids=seg_fresh[None],
+        kv_segment_ids=kv_seg, scale=scale,
+    )
+    return out[0]
+
+
+def ragged_paged_attention(
+    q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
+    *, scale: Optional[float] = None,
+):
+    """K1 wrapper.  ``layer`` is a Python int; ``t0``/``q_len``/``hist``
+    ``[R]`` and ``tables [R, maxP]`` are int32 tensors on q's device.
+    CUDA tensors launch the kernel on the current stream and raise on
+    anything it does not take; CPU tensors run the plain version."""
+    if not q.is_cuda:
+        return ragged_paged_attention_plain(
+            q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist,
+            tables, scale=scale,
+        )
+    T, H, D = q.shape
+    L, N, P, KVH, Dp = k_pages.shape
+    R, maxP = tables.shape
+    if (
+        k_new.shape != (T, KVH, D) or v_new.shape != k_new.shape
+        or v_pages.shape != k_pages.shape or Dp != D or H % KVH
+        or t0.shape != (R,) or q_len.shape != (R,) or hist.shape != (R,)
+    ):
+        raise ValueError(
+            "ragged_paged_attention: inconsistent shapes "
+            f"q{tuple(q.shape)} k_new{tuple(k_new.shape)} "
+            f"pool{tuple(k_pages.shape)} tables{tuple(tables.shape)}"
+        )
+    dt = q.dtype
+    if dt not in _KERNEL_DTYPES or any(
+        x.dtype != dt for x in (k_new, v_new, k_pages, v_pages)
+    ):
+        raise TypeError(
+            "ragged_paged_attention kernel takes float32 or bfloat16 "
+            "queries, fresh K/V and pools of one dtype (int8 pools: A9)"
+        )
+    if any(x.dtype != torch.int32 for x in (t0, q_len, hist, tables)):
+        raise TypeError("ragged_paged_attention: row metadata must be int32")
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"ragged_paged_attention: head_dim {D} unsupported")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"ragged_paged_attention: layer {layer} not in [0, {L})")
+    tensors = (q, k_new, v_new, k_pages, v_pages, t0, q_len, hist, tables)
+    if any(not x.is_cuda or x.device != q.device for x in tensors):
+        raise ValueError("ragged_paged_attention: all tensors on one CUDA device")
+    if any(not x.is_contiguous() for x in tensors):
+        raise ValueError("ragged_paged_attention: tensors must be contiguous")
+    out = torch.empty_like(q)
+    fn = K1.symbol("helix_ragged_paged_attention", _K1_ARGS)
+    err = fn(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), t0.data_ptr(),
+        q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(), out.data_ptr(),
+        T, H, KVH, D, N, P, R, maxP, int(layer),
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        _KERNEL_DTYPES[dt], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"ragged_paged_attention kernel launch failed: cuda error {err}"
+        )
+    K1.launches += 1
+    return out

@@ -1,0 +1,340 @@
+"""OpenAI-compatible HTTP surface on the standard library.
+
+A subset of ``helix_tpu/serving/openai_api.py`` served by
+``http.server.ThreadingHTTPServer`` (one thread per connection), so the
+port needs no web framework:
+
+- ``GET /healthz``, ``GET /v1/models``;
+- ``POST /v1/chat/completions`` and ``POST /v1/completions``, non-stream
+  and SSE (``text/event-stream``: ``data: {...}\\n\\n`` frames ending in
+  ``data: [DONE]``), with the reference's JSON fields, stop strings and
+  error shape ``{"error": {"message", "type"[, "code", "request_id"]}}``.
+
+``/metrics``, embeddings, the Anthropic surface and the debug, migration
+and context endpoints wait for later slices (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from helix_tpu_torch.engine.engine import Request
+from helix_tpu_torch.engine.sampling import SamplingParams
+from helix_tpu_torch.serving.engine_loop import SHUTTING_DOWN
+from helix_tpu_torch.serving.registry import ModelRegistry
+from helix_tpu_torch.serving.tokenizer import IncrementalDetokenizer
+
+
+class EngineRequestError(Exception):
+    """A request the engine rejected or failed mid-flight."""
+
+    def __init__(self, message: str, request_id: str = ""):
+        super().__init__(message)
+        self.request_id = request_id
+
+
+def _error_body(message: str, etype: str = "invalid_request_error",
+                code: str = "", request_id: str = "") -> dict:
+    err: dict = {"message": message, "type": etype}
+    if code:
+        err["code"] = code
+    if request_id:
+        err["request_id"] = request_id
+    return {"error": err}
+
+
+def _engine_error(e: EngineRequestError) -> tuple:
+    """(status, body, headers) for an engine error."""
+    msg = str(e)
+    if msg.startswith(SHUTTING_DOWN):
+        return 503, _error_body(msg, "overloaded_error",
+                                request_id=e.request_id), {"Retry-After": "5"}
+    if msg.startswith("inter_token_timeout"):
+        return 504, _error_body(msg, "timeout_error",
+                                request_id=e.request_id), {}
+    return 400, _error_body(msg, request_id=e.request_id), {}
+
+
+def sampling_from_body(body: dict) -> SamplingParams:
+    stop = body.get("stop") or []
+    if isinstance(stop, str):
+        stop = [stop]
+    return SamplingParams(
+        temperature=float(body.get("temperature", 1.0)),
+        top_p=float(body.get("top_p", 1.0)),
+        top_k=int(body.get("top_k", 0)),
+        presence_penalty=float(body.get("presence_penalty", 0.0)),
+        frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+        max_tokens=int(
+            body.get("max_tokens") or body.get("max_completion_tokens")
+            or 256
+        ),
+        stop=tuple(stop),
+        seed=body.get("seed"),
+    )
+
+
+class OpenAIServer:
+    """Routes OpenAI requests to the registry's engine loops."""
+
+    def __init__(self, registry: ModelRegistry,
+                 inter_token_timeout: Optional[float] = 600.0):
+        self.registry = registry
+        self.inter_token_timeout = inter_token_timeout
+
+    def generate(self, served, prompt_ids, sampling: SamplingParams):
+        """Submit to the engine loop; yields ``(delta_text, token_id,
+        finished, finish_reason)``.  Serving-level stop strings end the
+        stream at the match."""
+        q: "queue.Queue" = queue.Queue()
+        req = Request(
+            id=f"req-{uuid.uuid4().hex[:12]}",
+            prompt_tokens=list(prompt_ids),
+            sampling=sampling,
+            stop_token_ids=tuple(served.tokenizer.eos_ids),
+        )
+        served.loop.submit(req, q.put)
+        detok = IncrementalDetokenizer(served.tokenizer)
+        emitted_len = 0
+        try:
+            while True:
+                try:
+                    ev = q.get(timeout=self.inter_token_timeout)
+                except queue.Empty:
+                    served.loop.abort(req.id)
+                    raise EngineRequestError(
+                        f"inter_token_timeout: no engine event for "
+                        f"{self.inter_token_timeout:.0f}s; request "
+                        f"{req.id} aborted", request_id=req.id,
+                    ) from None
+                if ev.error:
+                    raise EngineRequestError(ev.error, request_id=req.id)
+                is_eos = ev.token_id in served.tokenizer.eos_ids
+                delta = "" if is_eos else detok.push(ev.token_id)
+                hit_stop = None
+                for s in sampling.stop:
+                    idx = detok._emitted.find(s, max(0, emitted_len - len(s)))
+                    if idx >= 0:
+                        hit_stop = idx
+                        break
+                if hit_stop is not None:
+                    final_delta = detok._emitted[:hit_stop][emitted_len:]
+                    served.loop.abort(req.id)
+                    yield final_delta, ev.token_id, True, "stop"
+                    return
+                emitted_len = len(detok._emitted)
+                yield delta, ev.token_id, ev.finished, ev.finish_reason
+                if ev.finished:
+                    return
+        finally:
+            if not req.finished:
+                served.loop.abort(req.id)
+
+    def models_body(self) -> dict:
+        data = []
+        for m in self.registry.list():
+            entry = {"id": m.name, "object": "model", "created": m.created,
+                     "owned_by": m.owned_by}
+            if m.context_length:
+                entry["context_length"] = m.context_length
+            data.append(entry)
+        return {"object": "list", "data": data}
+
+    def handler_class(self):
+        server = self
+
+        class Handler(_Handler):
+            api = server
+
+        return Handler
+
+    def make_http_server(self, host: str = "0.0.0.0",
+                         port: int = 8000) -> ThreadingHTTPServer:
+        httpd = ThreadingHTTPServer((host, port), self.handler_class())
+        httpd.daemon_threads = True
+        return httpd
+
+    def start(self, host: str = "127.0.0.1", port: int = 0):
+        """Serve on a background thread; returns the HTTP server (its
+        ``server_address`` holds the bound port; ``shutdown()`` stops
+        it)."""
+        httpd = self.make_http_server(host, port)
+        threading.Thread(target=httpd.serve_forever, daemon=True,
+                         name="helix-torch-http").start()
+        return httpd
+
+
+class _Handler(BaseHTTPRequestHandler):
+    api: OpenAIServer = None   # set by OpenAIServer.handler_class
+
+    def log_message(self, fmt, *args):   # quiet: no per-request stderr
+        pass
+
+    # -- plumbing -------------------------------------------------------
+
+    def _json(self, status: int, body: dict, headers: Optional[dict] = None):
+        data = json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, status: int, message: str,
+               etype: str = "invalid_request_error", code: str = ""):
+        self._json(status, _error_body(message, etype, code))
+
+    def _body(self) -> Optional[dict]:
+        n = int(self.headers.get("Content-Length") or 0)
+        try:
+            body = json.loads(self.rfile.read(n) or b"{}")
+        except (ValueError, UnicodeDecodeError):
+            return None
+        return body if isinstance(body, dict) else None
+
+    def _start_sse(self):
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+
+    def _sse(self, obj) -> None:
+        data = obj if isinstance(obj, str) else json.dumps(obj)
+        self.wfile.write(f"data: {data}\n\n".encode())
+        self.wfile.flush()
+
+    def _served(self, body: dict):
+        model = body.get("model", "")
+        served = self.api.registry.get(model)
+        if served is None:
+            self._error(
+                404,
+                f"model '{model}' not found; available: "
+                f"{self.api.registry.names()}",
+                "model_not_found",
+            )
+        return served
+
+    # -- routes -----------------------------------------------------------
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._json(200, {"status": "ok",
+                             "models": self.api.registry.names()})
+        elif self.path == "/v1/models":
+            self._json(200, self.api.models_body())
+        else:
+            self._error(404, f"no route {self.path}", "not_found")
+
+    def do_POST(self):
+        routes = {"/v1/chat/completions": self._chat,
+                  "/v1/completions": self._completions}
+        route = routes.get(self.path)
+        if route is None:
+            self._error(404, f"no route {self.path}", "not_found")
+            return
+        body = self._body()
+        if body is None:
+            self._error(400, "invalid JSON body")
+            return
+        route(body)
+
+    def _chat(self, body: dict):
+        served = self._served(body)
+        if served is None:
+            return
+        messages = body.get("messages")
+        if not messages:
+            self._error(400, "'messages' is required")
+            return
+        prompt_ids = served.tokenizer.apply_chat_template(
+            messages, add_generation_prompt=True
+        )
+        self._run(body, served, prompt_ids, chat=True)
+
+    def _completions(self, body: dict):
+        served = self._served(body)
+        if served is None:
+            return
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list):
+            prompt = prompt[0] if prompt else ""
+        self._run(body, served, served.tokenizer.encode(prompt), chat=False)
+
+    def _run(self, body: dict, served, prompt_ids, *, chat: bool):
+        try:
+            sampling = sampling_from_body(body)
+        except (TypeError, ValueError) as e:
+            self._error(400, f"invalid sampling parameters: {e}")
+            return
+        model = body.get("model", "")
+        rid = (f"chatcmpl-{uuid.uuid4().hex[:16]}" if chat
+               else f"cmpl-{uuid.uuid4().hex[:16]}")
+        created = int(time.time())
+        obj = "chat.completion" if chat else "text_completion"
+        gen = self.api.generate(served, prompt_ids, sampling)
+        if body.get("stream"):
+            self._stream(gen, rid, created, model, obj, chat)
+            return
+        parts, n, finish = [], 0, "stop"
+        try:
+            for delta, _tok, finished, reason in gen:
+                parts.append(delta)
+                n += 1
+                if finished:
+                    finish = reason or "stop"
+                    break
+        except EngineRequestError as e:
+            status, err, headers = _engine_error(e)
+            self._json(status, err, headers)
+            return
+        text = "".join(parts)
+        choice = (
+            {"index": 0, "message": {"role": "assistant", "content": text},
+             "finish_reason": finish}
+            if chat else
+            {"index": 0, "text": text, "finish_reason": finish}
+        )
+        self._json(200, {
+            "id": rid, "object": obj, "created": created, "model": model,
+            "choices": [choice],
+            "usage": {"prompt_tokens": len(prompt_ids),
+                      "completion_tokens": n,
+                      "total_tokens": len(prompt_ids) + n},
+        })
+
+    def _stream(self, gen, rid, created, model, obj, chat):
+        self._start_sse()
+        first = True
+        try:
+            for delta, _tok, finished, reason in gen:
+                if chat:
+                    d = {}
+                    if first:
+                        d["role"] = "assistant"
+                        first = False
+                    if delta:
+                        d["content"] = delta
+                    choice = {"index": 0, "delta": d,
+                              "finish_reason": reason if finished else None}
+                else:
+                    choice = {"index": 0, "text": delta,
+                              "finish_reason": reason if finished else None}
+                self._sse({"id": rid, "object": obj + ".chunk" if chat
+                           else obj, "created": created, "model": model,
+                           "choices": [choice]})
+                if finished:
+                    break
+        except EngineRequestError as e:
+            self._sse(_error_body(str(e), request_id=e.request_id))
+        finally:
+            gen.close()
+        self._sse("[DONE]")

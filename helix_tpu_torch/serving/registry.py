@@ -1,0 +1,44 @@
+"""Model registry: model name -> engine loop + tokenizer (port of
+``helix_tpu/serving/registry.py``).  Unknown names answer 404 with the
+available list at the HTTP layer."""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+from helix_tpu_torch.serving.engine_loop import EngineLoop
+
+
+@dataclasses.dataclass
+class ServedModel:
+    name: str
+    loop: EngineLoop
+    tokenizer: object
+    kind: str = "chat"
+    created: int = dataclasses.field(default_factory=lambda: int(time.time()))
+    owned_by: str = "helix-tpu"
+    context_length: Optional[int] = None
+
+
+class ModelRegistry:
+    def __init__(self):
+        self._models: dict[str, ServedModel] = {}
+
+    def register(self, model: ServedModel):
+        self._models[model.name] = model
+
+    def unregister(self, name: str):
+        m = self._models.pop(name, None)
+        if m is not None and m.loop is not None:
+            m.loop.stop(join=False)
+
+    def get(self, name: str) -> Optional[ServedModel]:
+        return self._models.get(name)
+
+    def names(self) -> list:
+        return sorted(self._models)
+
+    def list(self) -> list:
+        return [self._models[n] for n in self.names()]

@@ -1,0 +1,152 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (the kernels have
+no CPU mode; their arithmetic is covered on the CPU through the plain
+versions in ``tests/test_torch_ops.py``).  This file imports no JAX, so it
+runs on a machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: float32 ``atol 1e-4`` (fp32 online softmax vs one fp32
+softmax, different summation order); bf16 ``atol 1e-5, rtol 2**-7`` per
+element (both sides compute in f32 and round once to bf16, so they may
+differ by one bf16 ulp of the value).
+Attention outputs are compared on live tokens only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from helix_tpu_torch.ops import attention as tatt
+from helix_tpu_torch.ops import paged_kernel as tpk
+
+TOL = {torch.float32: dict(atol=1e-4, rtol=0),
+       torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _packed(B, S, H, KVH, D, seed):
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((B, S), np.int32)
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        t, s_id = 0, 1
+        while t < S - 3:
+            n = min(int(rng.integers(1, S // 3 + 2)), S - 3 - t)
+            pos[b, t:t + n] = np.arange(n)
+            seg[b, t:t + n] = s_id
+            t, s_id = t + n, s_id + 1
+    shapes = ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D))
+    qkv = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return qkv, pos, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,KVH,S", [(64, 8, 2, 100), (96, 4, 4, 70),
+                                       (128, 8, 2, 130)])
+def test_flash_kernel_matches_plain(cuda, dtype, D, H, KVH, S):
+    (q, k, v), pos, seg = _packed(2, S, H, KVH, D, seed=D + S)
+    args = [torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v)]
+    kw = dict(q_positions=torch.from_numpy(pos).to(cuda),
+              kv_positions=torch.from_numpy(pos).to(cuda),
+              q_segment_ids=torch.from_numpy(seg).to(cuda),
+              kv_segment_ids=torch.from_numpy(seg).to(cuda))
+    before = tatt.K2.launches
+    got = tatt.flash_attention(*args, **kw)
+    assert tatt.K2.launches == before + 1
+    want = tatt.flash_attention_plain(*args, **kw)
+    live = torch.from_numpy(seg > 0).to(cuda)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_causal_soft_cap(cuda):
+    (q, k, v), _, _ = _packed(1, 77, 4, 2, 64, seed=3)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, k, v)]
+    got = tatt.flash_attention(*args, logits_soft_cap=3.0)
+    want = tatt.flash_attention_plain(*args, logits_soft_cap=3.0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _ragged(seed, L, N, P, KVH, D, H, maxP, R):
+    rng = np.random.default_rng(seed)
+    kp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    vp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    q_len = rng.integers(0, 20, size=R).astype(np.int32)
+    q_len[0] = 1
+    t0 = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int32)
+    T = int(q_len.sum())
+    hist = rng.integers(0, maxP * P - 20, size=R).astype(np.int32)
+    tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(R, maxP)
+    q = rng.standard_normal((T, H, D)).astype(np.float32)
+    kn = rng.standard_normal((T, KVH, D)).astype(np.float32)
+    vn = rng.standard_normal((T, KVH, D)).astype(np.float32)
+    live = np.concatenate([np.arange(s, s + n) for s, n in zip(t0, q_len)])
+    return (q, kn, vn, kp, vp), (t0, q_len, hist,
+                                 tables.astype(np.int32)), live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,KVH,P", [(64, 8, 2, 4), (96, 4, 4, 16),
+                                       (128, 8, 2, 16)])
+def test_ragged_kernel_matches_plain(cuda, dtype, D, H, KVH, P):
+    L, N, maxP, R = 3, 96, 8, 6
+    f, i, live = _ragged(D + P, L, N, P, KVH, D, H, maxP, R)
+    f = [torch.from_numpy(x).to(cuda, dtype) for x in f]
+    i = [torch.from_numpy(x).to(cuda) for x in i]
+    # NaN garbage outside every row's history must not leak (trap 2)
+    f[3][:, 0] = float("nan")
+    f[4][:, 0] = float("nan")
+    before = tpk.K1.launches
+    got = tpk.ragged_paged_attention(*f, 1, *i)
+    assert tpk.K1.launches == before + 1
+    want = tpk.ragged_paged_attention_plain(*f, 1, *i)
+    live = torch.from_numpy(live).to(cuda)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_writes_only_its_rows(cuda):
+    """Blocks run in no order, so a block storing past its row's
+    [t0, t0 + q_len) (trap 1) would race with the next row's block: with
+    a parked row in the middle, every live token still gets exactly its
+    own row's result."""
+    f, i, live = _ragged(7, 2, 48, 4, 2, 64, 4, 8, 5)
+    f = [torch.from_numpy(x).to(cuda) for x in f]
+    i = [torch.from_numpy(x).to(cuda) for x in i]
+    t0, q_len = i[0].clone(), i[1].clone()
+    q_len[2] = 0                        # a parked row in the middle
+    out = tpk.ragged_paged_attention(*f, 0, t0, q_len, i[2], i[3])
+    parked = slice(int(t0[2]), int(t0[2]) + int(i[1][2]))   # unspecified
+    want = tpk.ragged_paged_attention_plain(*f, 0, t0, q_len, i[2], i[3])
+    keep = torch.ones(out.shape[0], dtype=torch.bool, device=cuda)
+    keep[parked] = False
+    torch.testing.assert_close(out[keep], want[keep], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(4, 4, 48, device=cuda)     # head_dim 48: no instance
+    kv = torch.zeros(4, 2, 48, device=cuda)
+    pool = torch.zeros(1, 4, 4, 2, 48, device=cuda)
+    meta = [torch.zeros(1, dtype=torch.int32, device=cuda)] * 3
+    with pytest.raises(ValueError, match="head_dim"):
+        tpk.ragged_paged_attention(q, kv, kv, pool, pool, 0, *meta,
+                                   torch.zeros(1, 4, dtype=torch.int32,
+                                               device=cuda))
+    with pytest.raises(TypeError):
+        tatt.flash_attention(*(torch.zeros(1, 8, 2, 64, device=cuda,
+                                           dtype=torch.float16),) * 3)

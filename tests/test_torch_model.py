@@ -1,0 +1,201 @@
+"""Model-level parity of the PyTorch port: the weight converter and the
+decoder's logits against ``helix_tpu.models.llama.forward``.
+
+Same JAX-initialised weights on both sides (through ``params_from_jax``),
+the same tokens and positions.  float32 with ``atol=1e-4`` (two layers of
+float32 matmuls summed in different orders on two libraries); bf16 with
+``atol=2e-2``, because both sides round activations to bf16 after every
+projection but at different points (the port's bf16 ``x @ W`` rounds
+before the bias is added and its vocab projection rounds to bf16 before
+the float32 cast, where the reference accumulates into float32).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helix_tpu.models import llama as jllama
+from helix_tpu.models.common import ModelConfig as JModelConfig
+from helix_tpu.ops.paged import ragged_paged_attention_reference as jragged
+from helix_tpu_torch.models import llama as tllama
+from helix_tpu_torch.models.common import ModelConfig
+from helix_tpu_torch.ops.paged import ragged_paged_attention as tragged
+
+CONFIGS = {
+    "llama": {},
+    "qwen2_bias": {"attention_bias": True},
+    "qwen3_qk_norm": {"qk_norm": True},
+    "phi3_mha": {"num_kv_heads": 4, "rms_norm_eps": 1e-6},
+    "tied_softcap": {"tie_word_embeddings": True, "logits_soft_cap": 30.0,
+                     "hidden_act": "gelu_tanh", "norm_offset": 1.0},
+}
+
+
+def _pair(name, dtype="float32", seed=0):
+    over = dict(CONFIGS[name], dtype=dtype)
+    jcfg = JModelConfig.tiny(**over)
+    cfg = ModelConfig.tiny(**over)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(seed))
+    if jcfg.attention_bias:
+        # the reference initialises biases to zero: give them values
+        rng = np.random.default_rng(seed)
+        for nm in ("wq", "wk", "wv"):
+            b = jp["layers"][nm]["bias"]
+            jp["layers"][nm]["bias"] = jnp.asarray(
+                rng.standard_normal(b.shape) * 0.1, b.dtype
+            )
+    return jcfg, cfg, jp, tllama.params_from_jax(jax.device_get(jp))
+
+
+def _tokens(cfg, B=2, S=7, seed=1):
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1)) + 3
+    return tok, pos
+
+
+def test_params_from_jax_round_trip():
+    """Keys, shapes and dtypes carry over; bf16 bits are reinterpreted,
+    never rounded through float32."""
+    jcfg = JModelConfig.tiny(attention_bias=True, qk_norm=True)
+    jp = jax.device_get(jllama.init_params(jcfg, jax.random.PRNGKey(3)))
+    tp = tllama.params_from_jax(jp)
+    flat_j = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(flat_j) == len(jax.tree_util.tree_leaves(tp))
+    for path, leaf in flat_j:
+        t = tp
+        for k in path:
+            t = t[k.key]
+        assert t.dtype == torch.bfloat16
+        assert tuple(t.shape) == leaf.shape
+        np.testing.assert_array_equal(
+            t.view(torch.int16).numpy(), np.asarray(leaf).view(np.int16)
+        )
+
+
+def test_init_params_layout_matches_reference():
+    cfg = ModelConfig.tiny(attention_bias=True, qk_norm=True)
+    tp = tllama.init_params(cfg, 0, device="cpu")
+    jp = jllama.init_params(JModelConfig.tiny(attention_bias=True,
+                                              qk_norm=True),
+                            jax.random.PRNGKey(0))
+    shapes_t = jax.tree_util.tree_map(lambda x: tuple(x.shape), tp)
+    shapes_j = jax.tree_util.tree_map(lambda x: tuple(x.shape), jp)
+    assert shapes_t == shapes_j
+    w = tp["layers"]["wq"]["weight"].float()
+    assert abs(w.std().item() - 0.02) < 0.002
+    assert torch.all(tp["layers"]["attn_norm"]["weight"] == 1)
+
+
+def _prefill_logits(jcfg, cfg, jp, tp, tok, pos):
+    seg = np.ones_like(tok)
+    j_logits, j_kv = jllama.forward(
+        jp, jcfg, tok, pos,
+        attn_fn=lambda q, k, v, c, p: jllama.prefill_attn_fn(
+            q, k, v, c, p, segment_ids=seg, backend="reference"),
+    )
+    t_logits, t_kv = tllama.forward(
+        tp, cfg, torch.from_numpy(tok), torch.from_numpy(pos),
+        attn_fn=lambda q, k, v, c, p: tllama.prefill_attn_fn(
+            q, k, v, c, p, segment_ids=torch.from_numpy(seg)),
+    )
+    return j_logits, j_kv, t_logits, t_kv
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_forward_layer_protocol_matches_jax(name):
+    """No-cache / per-layer protocol: logits and the stacked fresh K/V."""
+    jcfg, cfg, jp, tp = _pair(name)
+    tok, pos = _tokens(cfg)
+    j_logits, j_kv, t_logits, t_kv = _prefill_logits(jcfg, cfg, jp, tp,
+                                                     tok, pos)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    for t, j in zip(t_kv, j_kv):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_forward_carry_protocol_matches_jax(name):
+    """Carry protocol: the whole pool threads through the layers and the
+    attention function (ragged paged attention over a random pool with
+    history) returns it alongside its output."""
+    jcfg, cfg, jp, tp = _pair(name)
+    rng = np.random.default_rng(4)
+    L, N, P = cfg.num_layers, 12, 4
+    pool = rng.standard_normal(
+        (2, L, N, P, cfg.num_kv_heads, cfg.head_dim)).astype(np.float32)
+    B, S = 2, 3
+    tok, _ = _tokens(cfg, B, S, seed=5)
+    hist = np.array([5, 9], np.int32)
+    pos = (hist[:, None] + np.arange(S)[None]).astype(np.int32)
+    tables = np.array([[3, 7, 1, 0], [2, 9, 11, 4]], np.int32)
+    t0 = np.array([0, S], np.int32)
+    qlen = np.full((B,), S, np.int32)
+
+    def j_attn(q, k, v, carry, p):
+        (kp, vp), lyr = carry
+        out = jragged(q.reshape(B * S, *q.shape[2:]),
+                      k.reshape(B * S, *k.shape[2:]),
+                      v.reshape(B * S, *v.shape[2:]), kp, vp, lyr,
+                      jnp.asarray(t0), jnp.asarray(qlen), jnp.asarray(hist),
+                      jnp.asarray(tables))
+        return out.reshape(q.shape), (kp, vp)
+
+    def t_attn(q, k, v, carry, p):
+        (kp, vp), lyr = carry
+        out = tragged(q.reshape(B * S, *q.shape[2:]),
+                      k.reshape(B * S, *k.shape[2:]),
+                      v.reshape(B * S, *v.shape[2:]), kp, vp, lyr,
+                      torch.from_numpy(t0), torch.from_numpy(qlen),
+                      torch.from_numpy(hist), torch.from_numpy(tables))
+        return out.reshape(q.shape), carry[0]   # the same pool, in place
+
+    j_logits, _ = jllama.forward(
+        jp, jcfg, tok, pos, attn_fn=j_attn,
+        carry_caches=(jnp.asarray(pool[0]), jnp.asarray(pool[1])),
+    )
+    caches = (torch.from_numpy(pool[0]), torch.from_numpy(pool[1]))
+    t_logits, t_caches = tllama.forward(
+        tp, cfg, torch.from_numpy(tok), torch.from_numpy(pos),
+        attn_fn=t_attn, carry_caches=caches,
+    )
+    assert t_caches is caches
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["llama", "qwen2_bias"])
+def test_forward_bf16_within_stated_tolerance(name):
+    jcfg, cfg, jp, tp = _pair(name, dtype="bfloat16")
+    tok, pos = _tokens(cfg)
+    j_logits, _, t_logits, _ = _prefill_logits(jcfg, cfg, jp, tp, tok, pos)
+    np.testing.assert_allclose(t_logits.numpy(),
+                               np.asarray(j_logits, np.float32), atol=2e-2)
+
+
+def test_unported_families_raise():
+    for over, item in (({"num_experts": 4}, "A15"),
+                       ({"mrope_sections": (2, 3, 3)}, "A17")):
+        cfg = ModelConfig.tiny(**over)
+        with pytest.raises(NotImplementedError, match=item):
+            tllama.init_params(cfg, device="cpu")
+
+
+def test_catalog_and_from_hf_config_match_reference():
+    from helix_tpu.models import common as jcommon
+    from helix_tpu_torch.models import common as tcommon
+
+    assert set(tcommon.CATALOG) == set(jcommon.CATALOG)
+    for n, m in jcommon.CATALOG.items():
+        assert dataclasses.asdict(tcommon.CATALOG[n]) == dataclasses.asdict(m)
+    hf = {"hidden_size": 64, "num_attention_heads": 4, "vocab_size": 99,
+          "num_hidden_layers": 2, "intermediate_size": 128,
+          "model_type": "qwen2",
+          "rope_scaling": {"rope_type": "llama3", "factor": 8.0}}
+    assert dataclasses.asdict(ModelConfig.from_hf_config(hf)) == \
+        dataclasses.asdict(JModelConfig.from_hf_config(hf))
