@@ -10,28 +10,35 @@ no result line):
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA
    version, and an ``nvcc`` build of both kernels from ``helix_tpu_torch/
    csrc/`` (one process per source, started together);
-2. K2 (flash attention) and 3. K1 (ragged paged attention): each kernel's
-   wrapper on the card at Llama-3-8B attention widths (H 32, KVH 8, D 128,
-   bf16) and at the shapes the serving path gives it, held against its
-   plain PyTorch version (per element, one bf16 ulp of the plain value;
-   live tokens only) and shown to fail that check on planted faults (a
-   key too many or too few), timed
-   with CUDA events beside the plain version, one PyTorch library call
-   (``scaled_dot_product_attention``, a yardstick the port never calls)
-   and the least time the card could take (``bound_ms``);
+2. K2 (flash attention), 3. K1 (ragged paged attention) and 3b. K1's
+   int8-pool form: each kernel's wrapper on the card at Llama-3-8B
+   attention widths (H 32, KVH 8, D 128, bf16; int8 pools quantized by
+   the port's ``quantize_kv``) and at the shapes the serving path gives
+   it, held against its plain PyTorch version (per element, one bf16 ulp
+   of the plain value; live tokens only) and shown to fail that check on
+   planted faults (a key too many or too few; for int8, scales read from
+   the neighbouring slot), timed with CUDA events beside the plain
+   version, one PyTorch library call (``scaled_dot_product_attention``,
+   a yardstick the port never calls) and the least time the card could
+   take (``bound_ms``);
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
    completion, 8 concurrent chats, a prompt longer than max_prefill_len
-   (chunked, mixed with a decoding request) and the same prompt again (a
-   prefix-cache hit).  The kernels' launch counters are zeroed just
-   before and read just after: both must have run;
+   (chunked, mixed with a decoding request), the same prompt again (a
+   prefix-cache hit), and one seeded temperature 0.8 request sent twice,
+   whose two texts must be identical.  The kernels' launch counters are
+   zeroed just before and read just after: both must have run;
+4b. the same with int8 weights and an int8 KV pool (the profile fields
+   ``quantization: int8`` and ``kv_cache_dtype: int8``), after phase 4
+   has freed its engine: K1's int8 form must have run;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
-   tolerance.
+   tolerance, in bf16 and with int8 weights and KV.
 
 Then one JSON line with every kernel's numbers, the ``nvidia-smi`` line,
-and last the device JSON line.
+and last the device JSON line.  The kernels build in ``helix_tpu_torch/
+kernels/build.py``; every number printed is measured in this run.
 """
 
 from __future__ import annotations
@@ -60,6 +67,12 @@ PEAK_BYTES = 3.35e12
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL = 1e-5
 LOGIT_TOL = 0.25         # see phase_parity
+# R1 check: one seeded sampled request, sent twice.  The prompt stays
+# under one page (16 tokens), so neither run hits the prefix cache (a hit
+# attends the pooled K/V -- quantized in the int8 phase -- which is a
+# different input, not a different draw).
+SEEDED = {"prompt": "Once upon a", "max_tokens": 24, "temperature": 0.8,
+          "seed": 1234}
 H, KVH, D = 32, 8, 128
 MODEL = "meta-llama/Meta-Llama-3-8B-Instruct"
 
@@ -140,6 +153,7 @@ def phase_device() -> dict:
     from helix_tpu_torch.kernels.build import build_all
     from helix_tpu_torch.ops.attention import K2
     from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.ops.quant import matmul_f32
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -162,6 +176,13 @@ def phase_device() -> dict:
             log(f"[build] {k.name}: {len(regs)} instantiations, at most "
                 f"{max(regs)} registers, spill stores "
                 f"{max(int(s) for s in spills) if spills else 0} bytes")
+    # one rounding per projection: a bf16 GEMM with a float32 output
+    a = torch.ones((2, 8), device="cuda", dtype=torch.bfloat16)
+    out = matmul_f32(a, a.T.contiguous())
+    if out.dtype != torch.float32 or out[0, 0].item() != 8.0:
+        raise AssertionError("bf16 GEMM with float32 output is wrong")
+    log("[device] torch.mm(..., out_dtype=torch.float32) on bf16: "
+        "available (one rounding per projection)")
     return {"smi": smi, "kind": name}
 
 
@@ -238,7 +259,13 @@ def phase_k2() -> list:
 # ---------------------------------------------------------------------------
 
 
-def _k1_case(label, q_lens, hists, pool, gen, rng):
+def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
+    """One K1 case.  ``scales``: the int8 pool's (k_scale, v_scale); the
+    int8 form is then held to the plain version evaluated in float32 (it
+    dequantizes history in f32 without rounding it, like the kernel) and
+    rounded once, under the same one-ulp limit; the ratio against the
+    bf16 plain version, which rounds the dequantized history to bf16 as
+    the reference oracle does, is printed beside it."""
     from helix_tpu_torch.ops.paged_kernel import (
         ragged_paged_attention,
         ragged_paged_attention_plain,
@@ -261,17 +288,40 @@ def _k1_case(label, q_lens, hists, pool, gen, rng):
     vn = torch.randn((T, KVH, D), generator=gen, device=dev).bfloat16()
     layer = 7
     args = (q, kn, vn, kp, vp, layer, *meta)
-    got = ragged_paged_attention(*args)
+    kw = {} if scales is None else dict(k_scale=scales[0],
+                                        v_scale=scales[1])
+    tag = "K1" if scales is None else "K1-int8"
+    got = ragged_paged_attention(*args, **kw)
     torch.cuda.synchronize()
-    want = ragged_paged_attention_plain(*args)
-    err, ratio = check(f"K1 {label}", got, want)
+    want_bf16 = ragged_paged_attention_plain(*args, **kw)
+    if scales is None:
+        want = want_bf16
+    else:
+        want = ragged_paged_attention_plain(
+            q.float(), kn.float(), vn.float(), *args[3:], **kw).bfloat16()
+    err, ratio = check(f"{tag} {label}", got, want)
+    extra = {}
+    if scales is not None:
+        extra["tol_ratio_vs_bf16_plain"] = tol_ratio(got, want_bf16)
+        extra["max_abs_err_vs_bf16_plain"] = max_err(got, want_bf16)
     # planted faults: every row reads one history slot too few / too many
-    faults = [planted(f"K1 hist{d:+d}", ragged_paged_attention(
-        *args[:8], meta[2] + d, meta[3]), want) for d in (-1, 1)]
-    ms = cuda_ms(lambda: ragged_paged_attention(*args), 20)
-    plain_ms = cuda_ms(lambda: ragged_paged_attention_plain(*args), 3, 1)
-    # library yardstick: SDPA over each row's gathered history + fresh
-    # tokens, rows padded to one batch (the gather is not timed)
+    # (and, for int8, every scale from the neighbouring slot)
+    faults = {f"hist{d:+d}": planted(f"{tag} hist{d:+d}",
+                                     ragged_paged_attention(
+                                         *args[:8], meta[2] + d, meta[3],
+                                         **kw), want) for d in (-1, 1)}
+    if scales is not None:
+        rolled = [torch.roll(x, 1, dims=2).contiguous() for x in scales]
+        faults["scale_roll"] = planted(
+            f"{tag} scales rolled one slot", ragged_paged_attention(
+                *args, k_scale=rolled[0], v_scale=rolled[1]), want)
+        del rolled
+    ms = cuda_ms(lambda: ragged_paged_attention(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: ragged_paged_attention_plain(*args, **kw),
+                       3, 1)
+    # library yardstick: SDPA over each row's gathered (and, for int8,
+    # dequantized) history + fresh tokens, rows padded to one batch; the
+    # gather and the dequantization are not timed
     Sq = int(q_lens.max())
     Skv = int((hists + q_lens).max())
     qb = torch.zeros((R, H, Sq, D), device=dev, dtype=torch.bfloat16)
@@ -283,6 +333,12 @@ def _k1_case(label, q_lens, hists, pool, gen, rng):
         pages = torch.from_numpy(tables[r]).to(dev).long()
         kh = kp[layer][pages].reshape(-1, KVH, D)[:h]
         vh = vp[layer][pages].reshape(-1, KVH, D)[:h]
+        if scales is not None:
+            kh = kh.float() * scales[0][layer][pages].reshape(
+                -1, KVH)[:h, :, None]
+            vh = vh.float() * scales[1][layer][pages].reshape(
+                -1, KVH)[:h, :, None]
+        kh, vh = kh.bfloat16(), vh.bfloat16()
         k_all = torch.cat([kh, kn[s:s + n]]).repeat_interleave(H // KVH, 1)
         v_all = torch.cat([vh, vn[s:s + n]]).repeat_interleave(H // KVH, 1)
         qb[r, :, :n] = q[s:s + n].transpose(0, 1)
@@ -294,22 +350,42 @@ def _k1_case(label, q_lens, hists, pool, gen, rng):
         mask[r, 0, n:, 0] = True          # padding rows: any one key
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(qb, kb, vb, attn_mask=mask), 20)
-    # bytes: the history K/V walked, the page-table entries walked
+    # bytes: the history K/V walked (int8: codes plus one f32 scale per
+    # token and KV head, for K and for V), the page-table entries walked
     # (ceil(hist / P) per row), the row metadata, q, fresh K/V and out
-    hist_bytes = int(hists.sum()) * KVH * D * 2 * kp.element_size()
+    per_tok = 2 * KVH * D * kp.element_size()
+    if scales is not None:
+        per_tok += 2 * KVH * 4
+    hist_bytes = int(hists.sum()) * per_tok
     table_bytes = int(sum(-(-int(h) // P) for h in hists)) * 4
     fresh_pairs = int(sum(n * (n + 1) // 2 for n in q_lens))
     flops = 4.0 * H * D * (int((q_lens * hists).sum()) + fresh_pairs)
     b_ms, b_by = bound(flops, hist_bytes + table_bytes
                        + nbytes(q, kn, vn, got, *meta[:3]))
     row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
-               planted_fault_ratio=min(faults), ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"[K1] {label}: max_abs_err {err:.3e}, {ratio:.3f}x the limit "
-        f"(planted faults hist-1 {faults[0]:.1f}x, hist+1 {faults[1]:.1f}x)"
-        f" kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+               planted_fault_ratio=min(faults.values()),
+               planted_faults=faults, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+    bf16_note = ("" if scales is None else
+                 f"; vs the bf16 plain version "
+                 f"{extra['tol_ratio_vs_bf16_plain']:.3f}x the limit")
+    log(f"[{tag}] {label}: max_abs_err {err:.3e}, {ratio:.3f}x the limit"
+        f"{bf16_note} (planted faults "
+        + ", ".join(f"{k} {v:.1f}x" for k, v in faults.items())
+        + f") kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} bound_ms {b_ms:.6f} ({b_by})")
     return row
+
+
+def _k1_cases(pool, gen, rng, scales=None) -> list:
+    return [
+        _k1_case("decode 8 rows, hist 1000-4000", [1] * 8,
+                 rng.integers(1000, 4000, size=8), pool, gen, rng, scales),
+        _k1_case("mixed 256-token row (hist 512) + 7 decode rows",
+                 [256] + [1] * 7,
+                 [512] + list(rng.integers(1000, 4000, size=7)),
+                 pool, gen, rng, scales),
+    ]
 
 
 def phase_k1() -> list:
@@ -323,16 +399,33 @@ def phase_k1() -> list:
     for lyr in range(L):
         kp[lyr].normal_(generator=gen)
         vp[lyr].normal_(generator=gen)
-    pool = (kp, vp)
-    rows = [
-        _k1_case("decode 8 rows, hist 1000-4000", [1] * 8,
-                 rng.integers(1000, 4000, size=8), pool, gen, rng),
-        _k1_case("mixed 256-token row (hist 512) + 7 decode rows",
-                 [256] + [1] * 7,
-                 [512] + list(rng.integers(1000, 4000, size=7)),
-                 pool, gen, rng),
-    ]
-    del kp, vp, pool
+    rows = _k1_cases((kp, vp), gen, rng)
+    del kp, vp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_k1_int8() -> list:
+    """K1's int8 form at the same two cases, on a full-size int8 pool
+    (32 layers, 4096 pages) quantized layer by layer with the port's
+    ``quantize_kv`` from unit-normal K/V."""
+    from helix_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    L, N, P = 32, 4096, 16
+    shape = (L, N, P, KVH, D)
+    pools = [torch.empty(shape, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    scales = [torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+              for _ in range(2)]
+    for lyr in range(L):
+        for pool, sc in zip(pools, scales):
+            pool[lyr], sc[lyr] = quantize_kv(torch.randn(
+                shape[1:], generator=gen, device=dev))
+    rows = _k1_cases(tuple(pools), gen, rng, tuple(scales))
+    del pools, scales
     torch.cuda.empty_cache()
     return rows
 
@@ -370,26 +463,111 @@ def _chat(base, content, max_tokens, stream=False):
     return chunks
 
 
-def phase_e2e() -> dict:
+class _IdTokenizer:
+    """The served byte tokenizer, except that ``decode`` writes every
+    token id as ``<id>``: random weights put almost every draw outside
+    the 256 byte ids, which the byte tokenizer decodes to nothing, so
+    the texts compared would be empty whatever the tokens were."""
+
+    def __init__(self, tok):
+        self._tok = tok
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+    def decode(self, ids) -> str:
+        return "".join(f"<{i}>" for i in ids)
+
+
+def _seeded_twice(base) -> str:
+    """R1 on the card: one seeded sampled completion sent twice must give
+    the same text twice."""
+    texts = []
+    for _ in range(2):
+        out = json.loads(_post(base + "/v1/completions",
+                               {"model": MODEL, **SEEDED}))
+        texts.append(out["choices"][0]["text"])
+    if not texts[0] or texts[0] != texts[1]:
+        raise AssertionError(
+            f"seeded temperature {SEEDED['temperature']} request did not "
+            f"reproduce: {texts[0]!r} != {texts[1]!r}")
+    return texts[0]
+
+
+def _threefry_cost(eng) -> dict:
+    """What the threefry draw adds to a sampled decode step: ``sample``
+    over the engine's [B, V] logits with every row at temperature 0.8
+    (tiers 1 and 2 reachable, as for OpenAI's defaults) against every row
+    greedy, and the Gumbel bits of the full-vocab tier alone."""
+    from helix_tpu_torch.engine import threefry
+    from helix_tpu_torch.engine.sampling import (
+        SamplingParams,
+        SamplingState,
+        sample,
+    )
+
+    B, V = eng.cfg.max_decode_batch, eng.model_cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    keys = np.stack([np.array([i, 7 * i + 1], np.uint32) for i in range(B)])
+    hot = SamplingState.from_params(
+        [SamplingParams(temperature=0.8)] * B, device="cuda")
+    cold = SamplingState.from_params(
+        [SamplingParams(temperature=0.0)] * B, device="cuda")
+    tk = threefry.as_keys(keys, "cuda")
+    sampled_ms = cuda_ms(lambda: sample(logits, hot, keys), 20)
+    greedy_ms = cuda_ms(lambda: sample(logits, cold, keys), 20)
+    gumbel_ms = cuda_ms(lambda: threefry.gumbel(tk, V), 20)
+    return {"sampled_step_ms": sampled_ms, "greedy_step_ms": greedy_ms,
+            "added_ms": sampled_ms - greedy_ms,
+            "gumbel_full_vocab_ms": gumbel_ms}
+
+
+def _rounding_cost(eng) -> dict:
+    """What one rounding per projection costs on Llama's path, where the
+    only projection it changes is the vocab projection: ``project_logits``
+    (a bf16 GEMM with a float32 output) against the bf16 GEMM rounded to
+    bf16 and then cast, at the decode shape [B, E] x [E, V]."""
+    from helix_tpu_torch.models.llama import project_logits
+
+    cfg, params = eng.model_cfg, eng.params
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h = torch.randn((eng.cfg.max_decode_batch, cfg.hidden_size),
+                    generator=gen, device="cuda").bfloat16()
+    w = params["lm_head"]["weight"]
+    one = cuda_ms(lambda: project_logits(params, cfg, h), 20)
+    two = cuda_ms(lambda: torch.matmul(h, w).float(), 20)
+    return {"f32_output_ms": one, "bf16_then_cast_ms": two}
+
+
+def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
     from helix_tpu_torch.cli import build_served_model
     from helix_tpu_torch.ops.attention import K2
-    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
     from helix_tpu_torch.serving.openai_api import OpenAIServer
     from helix_tpu_torch.serving.registry import ModelRegistry
 
     t0 = time.monotonic()
-    served = build_served_model(
-        MODEL, device="cuda", seed=0,
-        engine=dict(max_decode_batch=8, page_size=16, num_pages=4096,
-                    max_pages_per_seq=256, max_prefill_len=512),
-    )
+    torch.cuda.reset_peak_memory_stats()
+    engine = dict(max_decode_batch=8, page_size=16, num_pages=4096,
+                  max_pages_per_seq=256, max_prefill_len=512)
+    if kv_cache_dtype:
+        engine["kv_cache_dtype"] = kv_cache_dtype
+    served = build_served_model(MODEL, device="cuda", seed=0,
+                                quantization=quantization, engine=engine)
+    served.tokenizer = _IdTokenizer(served.tokenizer)
     eng = served.loop.engine
     cfg = eng.model_cfg
-    log(f"[e2e] {MODEL}: L {cfg.num_layers} E {cfg.hidden_size} H "
+    tag = f"e2e {label}"
+    mem = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+           "kv_pool_gib": sum(nbytes(t) for t in eng.cache.carry()) / 2**30}
+    log(f"[{tag}] {MODEL}: L {cfg.num_layers} E {cfg.hidden_size} H "
         f"{cfg.num_heads} KVH {cfg.num_kv_heads} D {cfg.head_dim} F "
-        f"{cfg.intermediate_size} V {cfg.vocab_size} {cfg.dtype}; built + "
+        f"{cfg.intermediate_size} V {cfg.vocab_size} {cfg.dtype}, weights "
+        f"{eng.params['layers']['wq']['weight'].dtype}, KV pool "
+        f"{eng.cache.k_pages.dtype} ({mem['kv_pool_gib']:.2f} GiB); built + "
         f"warmed in {time.monotonic() - t0:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{mem['allocated_gib']:.2f} GiB allocated")
     registry = ModelRegistry()
     registry.register(served)
     httpd = OpenAIServer(registry).start("127.0.0.1", 0)
@@ -397,7 +575,7 @@ def phase_e2e() -> dict:
     answered = 0
     try:
         # the main path starts here: counters to 0
-        K1.launches = K2.launches = 0
+        K1.launches = K1_INT8.launches = K2.launches = 0
         hits0, mixed0 = eng.prefix_cache_hits, eng.num_mixed_steps
         eng.recent_ttfts.clear()
         _chat(base, "Say hello in one line.", 16)
@@ -448,33 +626,57 @@ def phase_e2e() -> dict:
         assert bg_result["rest"].rstrip().endswith("data: [DONE]")
         _chat(base, long_prompt, 8)
         answered += 3
+        seeded_text = _seeded_twice(base)
+        answered += 2
         torch.cuda.synchronize()
         launches = {"ragged_paged_attention": K1.launches,
+                    "ragged_paged_attention_int8": K1_INT8.launches,
                     "flash_attention": K2.launches}
     finally:
         httpd.shutdown()
         httpd.server_close()
+        served.loop.stop()
         registry.unregister(MODEL)
     ttfts = sorted(eng.recent_ttfts)
     ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
     mixed = eng.num_mixed_steps - mixed0
     hits = eng.prefix_cache_hits - hits0
-    log(f"[e2e] requests answered {answered}; TTFT p50 {ttft_p50:.1f} ms "
+    mem["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    draw = _threefry_cost(eng)
+    if quantization is None:
+        r2 = _rounding_cost(eng)
+        log(f"[{tag}] vocab projection, one rounding (f32-output GEMM) "
+            f"{r2['f32_output_ms']:.4f} ms vs bf16 GEMM then cast "
+            f"{r2['bf16_then_cast_ms']:.4f} ms, once per decode step")
+    log(f"[{tag}] requests answered {answered}; TTFT p50 {ttft_p50:.1f} ms "
         f"over {len(ttfts)} requests; decode {decode_tps:.1f} tok/s over "
         f"the 8-chat batch ({batch_s:.2f} s); mixed steps {mixed}; prefix "
-        f"hits {hits}; launches {launches}")
-    if launches["ragged_paged_attention"] <= 0:
-        raise AssertionError("K1 never launched on the serving path")
+        f"hits {hits}; launches {launches}; device memory peak "
+        f"{mem['peak_gib']:.2f} GiB")
+    log(f"[{tag}] seeded temperature {SEEDED['temperature']} request "
+        f"reproduced ({seeded_text.count('<')} tokens: "
+        f"{seeded_text[:48]}...); threefry: a sampled step's "
+        f"sample() {draw['sampled_step_ms']:.4f} ms vs greedy "
+        f"{draw['greedy_step_ms']:.4f} ms (adds {draw['added_ms']:.4f} ms; "
+        f"full-vocab Gumbel bits alone {draw['gumbel_full_vocab_ms']:.4f} "
+        f"ms)")
+    k1 = ("ragged_paged_attention_int8" if kv_cache_dtype == "int8"
+          else "ragged_paged_attention")
+    if launches[k1] <= 0:
+        raise AssertionError(f"{k1} never launched on the serving path")
     if launches["flash_attention"] <= 0:
         raise AssertionError("K2 never launched on the serving path")
     if mixed <= 0:
         raise AssertionError("no mixed step ran")
     if hits <= 0:
         raise AssertionError("no prefix-cache hit")
+    if answered != 16:
+        raise AssertionError(f"answered {answered} of 16 requests")
     del served, eng, registry
     torch.cuda.empty_cache()
     return {"launches": launches, "answered": answered,
-            "ttft_p50_ms": ttft_p50, "decode_tokens_per_s": decode_tps}
+            "ttft_p50_ms": ttft_p50, "decode_tokens_per_s": decode_tps,
+            "memory": mem, "threefry": draw}
 
 
 # ---------------------------------------------------------------------------
@@ -482,21 +684,30 @@ def phase_e2e() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_parity() -> dict:
+def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
     the kernels and with the plain versions.  Logits are compared while
     the two token streams agree (random weights give near-tied argmaxes,
     so the streams may part; the step where they part is still compared,
     its inputs being identical).  Tolerance LOGIT_TOL: logits of std
     ~1.3 from bf16 activations whose attention outputs differ by up to a
-    bf16 ulp per layer, and bf16-rounded logits (ulp 2**-5 at |x| >= 4)."""
+    bf16 ulp per layer, and logits that round once from f32.  With
+    ``int8`` (int8 weights quantized on the card, int8 KV pool) the plain
+    version also rounds the dequantized history to bf16 where the kernel
+    keeps it in f32: one more bf16 rounding of the attention inputs, of
+    the same size, under the same tolerance."""
     from helix_tpu_torch.engine.engine import Engine, EngineConfig
     from helix_tpu_torch.engine.sampling import SamplingParams
     from helix_tpu_torch.models.common import CATALOG
     from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.quant import quantize_params
 
     cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2)
     params = init_params(cfg, 1, device="cuda")
+    extra = {}
+    if int8:
+        params = quantize_params(params)
+        extra["kv_cache_dtype"] = "int8"
     prompt = [int(x) for x in np.random.default_rng(5).integers(
         4, 260, size=300)]
     runs = []
@@ -504,7 +715,7 @@ def phase_parity() -> dict:
         eng = Engine(cfg, params, EngineConfig(
             max_decode_batch=8, page_size=16, num_pages=512,
             max_pages_per_seq=64, max_prefill_len=512,
-            attn_backend=backend), device="cuda")
+            attn_backend=backend, **extra), device="cuda")
         logits = []
         eng.logits_hook = lambda kind, x: logits.append(x[:1].float().clone())
         toks = eng.generate([prompt], SamplingParams(temperature=0.0,
@@ -516,7 +727,8 @@ def phase_parity() -> dict:
     compared = min(n_same + 1, len(lk), len(lp))
     errs = [(lk[i] - lp[i]).abs().max().item() for i in range(compared)]
     err = max(errs)
-    log(f"[parity] 2-layer full width: {compared} logit steps compared "
+    tag = "parity int8" if int8 else "parity"
+    log(f"[{tag}] 2-layer full width: {compared} logit steps compared "
         f"(tokens agree for {n_same} of {len(tk)}), max |dlogit| {err:.4f} "
         f"(tol {LOGIT_TOL})")
     if not err <= LOGIT_TOL:
@@ -527,7 +739,7 @@ def phase_parity() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(k1_rows, k2_rows, launches) -> dict:
+def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches) -> dict:
     def entry(name, source, replaces, rows):
         head = rows[0]
         return {
@@ -545,6 +757,9 @@ def kernel_line(k1_rows, k2_rows, launches) -> dict:
         entry("ragged_paged_attention",
               "helix_tpu_torch/csrc/ragged_paged_attention.cu",
               "helix_tpu/ops/paged_kernel.py:452", k1_rows),
+        entry("ragged_paged_attention_int8",
+              "helix_tpu_torch/csrc/ragged_paged_attention.cu",
+              "helix_tpu/ops/paged_kernel.py:452 (quantized)", k1_int8_rows),
         entry("flash_attention",
               "helix_tpu_torch/csrc/flash_attention.cu",
               "helix_tpu/ops/attention.py:258", k2_rows),
@@ -565,12 +780,23 @@ def main(argv=None) -> int:
     dev = phase_device()
     k2_rows = phase_k2()
     k1_rows = phase_k1()
+    k1_int8_rows = phase_k1_int8()
     launches = {}
     if args.phase == "all":
-        e2e = phase_e2e()
-        launches = e2e["launches"]
+        # each path's own launches: the bf16 phase's for the float forms,
+        # the int8 phase's for K1's int8 form
+        bf16 = phase_e2e("bf16")
+        int8 = phase_e2e("int8", quantization="int8", kv_cache_dtype="int8")
+        launches = {
+            "ragged_paged_attention":
+                bf16["launches"]["ragged_paged_attention"],
+            "flash_attention": bf16["launches"]["flash_attention"],
+            "ragged_paged_attention_int8":
+                int8["launches"]["ragged_paged_attention_int8"],
+        }
         phase_parity()
-    log(json.dumps(kernel_line(k1_rows, k2_rows, launches)))
+        phase_parity(int8=True)
+    log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches)))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -11,8 +11,11 @@ a seed, served over the OpenAI HTTP surface with the ``ByteTokenizer``.
     python -m helix_tpu_torch serve-node --profile profile.json
 
 A profile is JSON (or YAML when ``yaml`` is importable) with a ``models``
-list of ``{name, kind, engine, model_overrides, context_length}`` entries,
-the reference's profile fields; checkpoints and non-chat kinds are not
+list of ``{name, kind, quantization, engine, model_overrides,
+context_length}`` entries, the reference's profile fields.
+``quantization: int8`` serves int8 weights (``ops.quant.quantize_params``
+on the device, as the reference node agent does); an int8 KV pool is
+``engine: {kv_cache_dtype: int8}``.  Checkpoints and non-chat kinds are not
 ported yet (ROADMAP A3, A17).
 """
 
@@ -27,6 +30,7 @@ from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
 from helix_tpu_torch.models.llama import init_params
+from helix_tpu_torch.ops.quant import quantize_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
@@ -49,18 +53,26 @@ def build_served_model(
     name: str, *, device=DEFAULT_DEVICE, engine: dict | None = None,
     model_overrides: dict | None = None, seed: int = 0,
     context_length: int | None = None, warmup: bool = True,
+    quantization: str | None = None,
 ) -> ServedModel:
-    """Random-init weights on ``device``, an ``Engine`` and a started
-    ``EngineLoop`` for one model.  The served path always takes the
-    kernels: ``attn_backend`` is refused here."""
+    """Random-init weights on ``device`` (int8 weights with
+    ``quantization="int8"``), an ``Engine`` and a started ``EngineLoop``
+    for one model.  The served path always takes the kernels:
+    ``attn_backend`` is refused here."""
     if "attn_backend" in (engine or {}):
         raise ValueError(
             "attn_backend is for comparisons only; a served model always "
             "runs the attention kernels"
         )
+    if quantization not in (None, "int8"):
+        raise ValueError(
+            f"quantization {quantization!r}: expected None or 'int8'"
+        )
     dev = resolve_device(device)
     cfg = model_config(name, model_overrides)
     params = init_params(cfg, seed, device=dev)
+    if quantization == "int8":
+        params = quantize_params(params)
     tok = ByteTokenizer()
     eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
     eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
@@ -118,7 +130,8 @@ def _model_specs(args) -> list[dict]:
                     "(ROADMAP A17)"
                 )
             specs.append(dict(
-                name=m["name"], engine={**m.get("engine", {}), **engine},
+                name=m["name"], quantization=m.get("quantization"),
+                engine={**m.get("engine", {}), **engine},
                 model_overrides=m.get("model_overrides", {}),
                 context_length=m.get("context_length"),
             ))

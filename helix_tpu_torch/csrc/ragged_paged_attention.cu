@@ -30,6 +30,18 @@
 //    can never poison the sum through 0 * NaN (garbage pages, a
 //    neighbouring row's NaN fresh V);
 //  * the pool holds all L layers; only layer `layer` is read.
+//
+// Int8 pools (the Pallas kernel's quantized=True form, K1-int8): the pool
+// holds int8 codes and two float32 scale pools [L, N, P, KVH], one scale
+// per (token slot, KV head).  Each history element is staged as
+// float(code) * scale in f32 -- never rounded to the query dtype, as the
+// TPU kernel dequantizes in-register (paged_kernel.py:219-227) -- and
+// only the ceil(hist/P) pages a row walks have their scales read.  Fresh
+// K/V stay at the query dtype.  An int8 pool moves 2*D + 8 bytes per
+// history token and KV head (264 B at D=128) where a bf16 pool moves
+// 4*D (512 B); the design is otherwise the float kernel's.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -47,15 +59,20 @@ __host__ __device__ constexpr size_t smem_floats(int group, int chunk) {
          (size_t)chunk * (2 * D + 1);
 }
 
-template <typename T, int D>
+// T: query / fresh K/V / output type; TP: pool element type (T, or
+// int8_t with the scale pools k_scale/v_scale, nullptr otherwise).
+template <typename T, typename TP, int D>
 __global__ void __launch_bounds__(kThreads)
 ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-              const T* __restrict__ v_new, const T* __restrict__ k_pages,
-              const T* __restrict__ v_pages, const int* __restrict__ t0,
+              const T* __restrict__ v_new, const TP* __restrict__ k_pages,
+              const TP* __restrict__ v_pages,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, const int* __restrict__ t0,
               const int* __restrict__ q_len, const int* __restrict__ hist,
               const int* __restrict__ tables, T* __restrict__ out, int H,
               int KVH, int N, int P, int maxP, int layer, int chunk,
               float scale) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   constexpr int DP = D + 1;   // padded row: conflict-free column reads
   const int tile = blockIdx.x, g = blockIdx.y, r = blockIdx.z;
   const int ql = q_len[r];
@@ -91,9 +108,9 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     l_s[i] = 0.f;
   }
 
-  const size_t layer_off = (size_t)layer * N * P * KVH * D;
-  const T* kp = k_pages + layer_off;
-  const T* vp = v_pages + layer_off;
+  const size_t slot_off = (size_t)layer * N * P * KVH;   // scale pools
+  const TP* kp = k_pages + slot_off * D;
+  const TP* vp = v_pages + slot_off * D;
   const int* table = tables + (size_t)r * maxP;
 
   // ---- history: walk only the pages the row uses ----------------------
@@ -107,9 +124,13 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
         const int pos = c0 + j;
         int page = table[min(pos / P, maxP - 1)];
         page = min(max(page, 0), N - 1);
-        const size_t off = (((size_t)page * P + pos % P) * KVH + g) * D + d;
-        kv = to_float(kp[off]);
-        vv = to_float(vp[off]);
+        const size_t slot = ((size_t)page * P + pos % P) * KVH + g;
+        kv = to_float(kp[slot * D + d]);
+        vv = to_float(vp[slot * D + d]);
+        if constexpr (kQuant) {
+          kv *= k_scale[slot_off + slot];
+          vv *= v_scale[slot_off + slot];
+        }
       }
       k_s[j * DP + d] = kv;
       v_s[j * D + d] = vv;
@@ -177,9 +198,10 @@ ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TP, int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   const void* k_pages, const void* v_pages, const int* t0,
+                   const void* k_pages, const void* v_pages,
+                   const float* k_scale, const float* v_scale, const int* t0,
                    const int* q_len, const int* hist, const int* tables,
                    void* out, int T_tokens, int H, int KVH, int N, int P,
                    int R, int maxP, int layer, float scale,
@@ -187,31 +209,33 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   const int group = H / KVH;
   const int chunk = P < kMaxChunk ? P : kMaxChunk;
   const size_t smem = smem_floats<D>(group, chunk) * sizeof(float);
-  auto kern = ragged_kernel<T, D>;
+  auto kern = ragged_kernel<T, TP, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_tokens + kTileTokens - 1) / kTileTokens, KVH, R);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), t0, q_len, hist, tables,
-      static_cast<T*>(out), H, KVH, N, P, maxP, layer, chunk, scale);
+      static_cast<const T*>(v_new), static_cast<const TP*>(k_pages),
+      static_cast<const TP*>(v_pages), k_scale, v_scale, t0, q_len, hist,
+      tables, static_cast<T*>(out), H, KVH, N, P, maxP, layer, chunk, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TP>
 cudaError_t dispatch_d(int D, const void* q, const void* k_new,
                        const void* v_new, const void* k_pages,
-                       const void* v_pages, const int* t0, const int* q_len,
+                       const void* v_pages, const float* k_scale,
+                       const float* v_scale, const int* t0, const int* q_len,
                        const int* hist, const int* tables, void* out,
                        int n_tokens, int H, int KVH, int N, int P, int R,
                        int maxP, int layer, float scale, cudaStream_t s) {
 #define HELIX_K1_CASE(DIM)                                                  \
   case DIM:                                                                 \
-    return launch<T, DIM>(q, k_new, v_new, k_pages, v_pages, t0, q_len,    \
-                          hist, tables, out, n_tokens, H, KVH, N, P, R,     \
-                          maxP, layer, scale, s);
+    return launch<T, TP, DIM>(q, k_new, v_new, k_pages, v_pages, k_scale,  \
+                              v_scale, t0, q_len, hist, tables, out,        \
+                              n_tokens, H, KVH, N, P, R, maxP, layer,       \
+                              scale, s);
   switch (D) {
     HELIX_K1_CASE(16)
     HELIX_K1_CASE(32)
@@ -228,8 +252,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_new,
 }  // namespace helix
 
 // dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer;
-// q/out are [T, H, D], k_new/v_new [T, KVH, D], pools [L, N, P, KVH, D],
-// t0/q_len/hist [R] int32, tables [R, maxP] int32, all contiguous.
+// q/out are [T, H, D], k_new/v_new [T, KVH, D], pools [L, N, P, KVH, D] of
+// the same dtype, t0/q_len/hist [R] int32, tables [R, maxP] int32, all
+// contiguous.
 extern "C" int helix_ragged_paged_attention(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* t0, const void* q_len, const void* hist,
@@ -246,13 +271,47 @@ extern "C" int helix_ragged_paged_attention(
   if (H % KVH != 0) return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, q, k_new, v_new, k_pages, v_pages, t0i, qli,
-                            hi, tbl, out, T, H, KVH, N, P, R, maxP, layer,
-                            scale, s);
+    err = dispatch_d<float, float>(D, q, k_new, v_new, k_pages, v_pages,
+                                   nullptr, nullptr, t0i, qli, hi, tbl, out,
+                                   T, H, KVH, N, P, R, maxP, layer, scale, s);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, q, k_new, v_new, k_pages, v_pages,
-                                    t0i, qli, hi, tbl, out, T, H, KVH, N, P,
-                                    R, maxP, layer, scale, s);
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(
+        D, q, k_new, v_new, k_pages, v_pages, nullptr, nullptr, t0i, qli, hi,
+        tbl, out, T, H, KVH, N, P, R, maxP, layer, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The int8-pool form: as above with int8 pools [L, N, P, KVH, D] and their
+// float32 scale pools k_scale/v_scale [L, N, P, KVH]; dtype names the
+// query / fresh K/V / output type.
+extern "C" int helix_ragged_paged_attention_int8(
+    const void* q, const void* k_new, const void* v_new, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale,
+    const void* t0, const void* q_len, const void* hist, const void* tables,
+    void* out, int T, int H, int KVH, int D, int N, int P, int R, int maxP,
+    int layer, float scale, int dtype, void* stream) {
+  using namespace helix;
+  const auto* t0i = static_cast<const int*>(t0);
+  const auto* qli = static_cast<const int*>(q_len);
+  const auto* hi = static_cast<const int*>(hist);
+  const auto* tbl = static_cast<const int*>(tables);
+  const auto* ks = static_cast<const float*>(k_scale);
+  const auto* vs = static_cast<const float*>(v_scale);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || R <= 0) return cudaSuccess;
+  if (H % KVH != 0) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch_d<float, int8_t>(D, q, k_new, v_new, k_pages, v_pages, ks,
+                                    vs, t0i, qli, hi, tbl, out, T, H, KVH, N,
+                                    P, R, maxP, layer, scale, s);
+  } else if (dtype == 1) {
+    err = dispatch_d<__nv_bfloat16, int8_t>(
+        D, q, k_new, v_new, k_pages, v_pages, ks, vs, t0i, qli, hi, tbl, out,
+        T, H, KVH, N, P, R, maxP, layer, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -22,10 +22,15 @@ Admission packs waiting short prompts into waves, long prompts prefill in
 runs it together with every decode row in one call.  The page pool is
 updated in place (the reference donates it to jit).
 
+``kv_cache_dtype="int8"`` serves an int8 page pool with float32 scale
+pools: ``write_kv`` quantizes on write and every history read goes
+through K1's int8 form.  Params from ``ops.quant.quantize_params`` (int8
+weights) serve through the same path.
+
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
 speculative decoding (A10), the async loop (A11), the host KV tier and
-tiered contexts (A12, A14), int8 KV (A9), adapters (A13), meshes (A15),
-MoE and mrope models (A15, A17).
+tiered contexts (A12, A14), adapters (A13), meshes (A15), MoE and mrope
+models (A15, A17).
 """
 
 from __future__ import annotations
@@ -129,7 +134,7 @@ class EngineConfig:
     decode_steps_per_sync: int = 1
     adaptive_sync_max_streams: int = 2
     enable_prefix_cache: bool = True
-    kv_cache_dtype: str = "auto"   # auto | bfloat16 | float32 (int8: A9)
+    kv_cache_dtype: str = "auto"   # auto | bfloat16 | float32 | int8
     enable_mixed_step: bool = True
     enable_spec_decode: bool = False
     spec_tokens: int = 4
@@ -148,7 +153,6 @@ class EngineConfig:
             (self.adapter_pool_slots > 0, "adapter_pool_slots > 0", "A13"),
             (self.host_pool_bytes > 0, "host_pool_bytes > 0", "A12"),
             (self.ctx_hot_pages > 0, "ctx_hot_pages > 0", "A14"),
-            (self.kv_cache_dtype == "int8", 'kv_cache_dtype="int8"', "A9"),
         ]
         for on, what, item in unported:
             if on:
@@ -255,7 +259,8 @@ class Engine:
                 f"max_prefill_len ({cfg.max_prefill_len}) must be "
                 f"page_size ({ps}) times a power of two"
             )
-        if cfg.kv_cache_dtype not in ("auto", None, "", "bfloat16", "float32"):
+        if cfg.kv_cache_dtype not in ("auto", None, "", "bfloat16", "float32",
+                                      "int8"):
             raise ValueError(
                 f"unsupported kv_cache_dtype {cfg.kv_cache_dtype!r}"
             )
@@ -821,14 +826,16 @@ class Engine:
 
     def _paged_attn(self, q, k, v, lyr, t0, q_len, hist, tables):
         """One ragged-op call from inside a forward: flatten the token
-        grid onto the op's flat row axis."""
+        grid onto the op's flat row axis (int8 pools bring their scale
+        pools, as the reference's ``_ragged_attn_call``)."""
         Bq, Sq, H, D = q.shape
         KVH = k.shape[-2]
         out = ragged_paged_attention(
             q.reshape(Bq * Sq, H, D), k.reshape(Bq * Sq, KVH, D),
             v.reshape(Bq * Sq, KVH, D), self.cache.k_pages,
             self.cache.v_pages, lyr, t0, q_len, hist, tables,
-            backend=self.cfg.attn_backend,
+            backend=self.cfg.attn_backend, k_scale=self.cache.k_scale,
+            v_scale=self.cache.v_scale,
         )
         return out.reshape(Bq, Sq, H, D)
 

@@ -1,19 +1,20 @@
 """Paged KV cache: device page pool + host-side allocator.
 
-Port of ``helix_tpu/engine/kv_cache.py`` (float pools, device tier only).
+Port of ``helix_tpu/engine/kv_cache.py`` (device tier).
 
 - The pool is two tensors per model, ``k_pages``/``v_pages`` of shape
   ``[L, N, P, KVH, D]`` — the same layout as the reference, so one
   ``(layer, page)`` slice is a contiguous ``[P, KVH, D]`` block and one
-  token's ``[KVH, D]`` is contiguous.
+  token's ``[KVH, D]`` is contiguous.  Int8 pools add float32 scale pools
+  ``k_scale``/``v_scale`` ``[L, N, P, KVH]``, one scale per (token slot,
+  KV head).
 - ``write_kv`` scatters fresh K/V IN PLACE (the reference returns a new
-  pool that jit donation makes in-place; here the mutation is explicit).
-  Padding tokens go to page 0, the garbage page, so duplicate indices are
-  expected there and only there.
+  pool that jit donation makes in-place; here the mutation is explicit),
+  quantizing on write into int8 pools.  Padding tokens go to page 0, the
+  garbage page, so duplicate indices are expected there and only there.
 - ``PageAllocator`` and ``PrefixCache`` are host Python, copied.
 
-Int8 pools (ROADMAP A9) and the host-RAM / tiered page pools (A12, A14) are
-not ported.
+The host-RAM and tiered page pools (ROADMAP A12, A14) are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from helix_tpu_torch.device import torch_dtype
 from helix_tpu_torch.models.common import ModelConfig
+from helix_tpu_torch.ops.quant import quantize_kv
 
 _ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
 
@@ -81,8 +83,8 @@ class CacheConfig:
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """The device page pool.  ``k_scale``/``v_scale`` stay ``None``: int8
-    pools are not ported (ROADMAP A9)."""
+    """The device page pool; ``k_scale``/``v_scale`` are the f32 scale
+    pools of an int8 pool, ``None`` for float pools."""
 
     k_pages: torch.Tensor  # [L, N, P, KVH, D]
     v_pages: torch.Tensor
@@ -92,16 +94,20 @@ class PagedKVCache:
     @classmethod
     def create(cls, model: ModelConfig, cache: CacheConfig,
                device) -> "PagedKVCache":
-        if cache.quantized:
-            raise NotImplementedError(
-                "int8 KV pools are not ported yet (ROADMAP A9)"
-            )
         shape = (model.num_layers, cache.num_pages, cache.page_size,
                  model.num_kv_heads, model.head_dim)
-        dt = torch_dtype(cache.dtype)
+        if not cache.quantized:
+            dt = torch_dtype(cache.dtype)
+            return cls(
+                k_pages=torch.zeros(shape, dtype=dt, device=device),
+                v_pages=torch.zeros(shape, dtype=dt, device=device),
+            )
+        sshape = shape[:-1]
         return cls(
-            k_pages=torch.zeros(shape, dtype=dt, device=device),
-            v_pages=torch.zeros(shape, dtype=dt, device=device),
+            k_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+            v_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
         )
 
     @property
@@ -116,12 +122,18 @@ class PagedKVCache:
         return self.k_pages[layer], self.v_pages[layer]
 
     def carry(self):
-        """The pools as the forward's carry protocol threads them."""
-        return (self.k_pages, self.v_pages)
+        """The pools as the forward's carry protocol threads them, plus
+        the scale pools when quantized."""
+        if self.k_scale is None:
+            return (self.k_pages, self.v_pages)
+        return (self.k_pages, self.v_pages, self.k_scale, self.v_scale)
 
     @classmethod
     def from_carry(cls, carry) -> "PagedKVCache":
-        return cls(k_pages=carry[0], v_pages=carry[1])
+        if len(carry) == 2:
+            return cls(k_pages=carry[0], v_pages=carry[1])
+        return cls(k_pages=carry[0], v_pages=carry[1], k_scale=carry[2],
+                   v_scale=carry[3])
 
 
 def write_kv(
@@ -137,13 +149,23 @@ def write_kv(
     One ``index_copy_`` per pool at the fused token index
     ``page * page_size + offset`` on the flat ``[L, N*P, KVH, D]`` view;
     padding tokens land on garbage page 0, the only page that may receive
-    racing duplicate writes."""
+    racing duplicate writes.  Int8 pools quantize here (``quantize_kv``)
+    and scatter the scale rows into the scale pools at the same index."""
     L, B, S, KVH, D = k_new.shape
     Lp, N, P, _, _ = cache.k_pages.shape
     flat_idx = torch.where(
         valid, pages.long() * P + offsets.long(), torch.zeros_like(pages.long())
     ).reshape(-1)
-    for pool, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+    writes = [(cache.k_pages, k_new), (cache.v_pages, v_new)]
+    if cache.quantized:
+        k_q, k_sc = quantize_kv(k_new)
+        v_q, v_sc = quantize_kv(v_new)
+        writes = [(cache.k_pages, k_q), (cache.v_pages, v_q)]
+        for pool, sc in ((cache.k_scale, k_sc), (cache.v_scale, v_sc)):
+            pool.view(Lp, N * P, KVH).index_copy_(
+                1, flat_idx, sc.reshape(L, B * S, KVH)
+            )
+    for pool, new in writes:
         pool.view(Lp, N * P, KVH, D).index_copy_(
             1, flat_idx, new.reshape(L, B * S, KVH, D).to(pool.dtype)
         )

@@ -16,10 +16,11 @@ draw is computed only for slots whose parameters can reach it, which the
 host knows from ``SamplingParams``.  Greedy (temperature 0) is an exact
 argmax.
 
-Randomness: each sampled slot draws from its own ``torch.Generator``
-seeded from the slot's key (two uint32 words, the engine's host key
-stream).  The draws are NOT threefry's: seeded temperature > 0 streams
-match the reference in distribution, not bit for bit (ROADMAP queue C).
+Randomness: each slot carries a threefry key (two uint32 words);
+``split_keys`` advances it once per live step and every tier of a slot
+draws from the same step key with ``engine/threefry.py``, the reference's
+``jax.random`` bits.  A seeded temperature > 0 request therefore draws
+the tokens the JAX engine draws from the same logits.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from helix_tpu_torch.engine import threefry
 
 TOPK_BOUND = 64
 
@@ -81,33 +84,27 @@ class SamplingState:
         )
 
 
-def key_generator(key, device) -> torch.Generator:
-    """A torch generator seeded from a [2] uint32 key."""
-    seed = (int(key[0]) << 32) | int(key[1])
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def _gumbel_argmax(logits, gen):
-    """One categorical draw per row of ``logits`` [n] via Gumbel-max."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits - torch.log(-torch.log(u)))
-
-
 def sample(
     logits: torch.Tensor,           # [B, V] f32
     state: SamplingState,
-    keys: Optional[np.ndarray] = None,   # [B, 2] u32 per-slot step keys
+    keys=None,                      # [B, 2] u32 per-slot step keys
 ) -> torch.Tensor:
-    """Draw one token per slot (int64 [B]).  Greedy slots take argmax."""
+    """Draw one token per slot (int64 [B]).  Greedy slots take argmax.
+
+    Every tier of row b draws from the same step key ``keys[b]`` with
+    threefry, as ``helix_tpu/engine/sampling.py:sample`` does with
+    ``exact=True``."""
     B, V = logits.shape
     logits = logits.float()
     exact_greedy = torch.argmax(logits, dim=-1)
     sampled_rows = [b for b, p in enumerate(state.params) if p.temperature > 0]
     if not sampled_rows:
         return exact_greedy
+    if keys is None:
+        raise ValueError("sampling at temperature > 0 needs per-slot keys")
     k = min(TOPK_BOUND, V)
     dev = logits.device
+    keys = threefry.as_keys(keys, dev)
     top_logits, top_idx = torch.topk(logits, k, dim=-1)        # desc
     temp = state.temperature.clamp(min=1e-6)[:, None]
     scaled_full = logits / temp
@@ -127,39 +124,53 @@ def sample(
     cat_needed = full_needed & open_ended
     sort_needed = full_needed & ~open_ended
 
+    # a tier's draw is made only for the sampled rows whose parameters
+    # can reach it; each row's draw depends on its own key and logits
+    # alone.  The Gumbel noise of a [k] draw is the first k values of a
+    # [V] draw with the same key (the counters are the element indices),
+    # so one [V]-wide draw per row serves every tier it reaches.
+    params = state.params
+    tier2 = [b for b in sampled_rows
+             if params[b].top_p >= 1.0 and params[b].top_k == 0]
+    tier3 = [b for b in sampled_rows
+             if b not in tier2 and not 0 < params[b].top_k <= k]
+    rows = torch.tensor(sampled_rows, device=dev)
+    g = threefry.gumbel(keys[rows], V if tier2 or tier3 else k)
+    at = {b: i for i, b in enumerate(sampled_rows)}   # row -> row of g
+    draw = torch.argmax(g[:, :k] + masked[rows], dim=-1)
     out = exact_greedy.clone()
-    for b in sampled_rows:
-        p = state.params[b]
-        gen = key_generator(keys[b], dev)
-        tok = top_idx[b, _gumbel_argmax(masked[b], gen)]
-        if p.top_p >= 1.0 and p.top_k == 0:
-            # tier 2 reachable: exact categorical over the whole vocab
-            full = _gumbel_argmax(scaled_full[b], gen)
-            tok = torch.where(cat_needed[b], full, tok)
-        elif not 0 < p.top_k <= k:
-            # tier 3 reachable: full sort + exact nucleus prefix
-            s_logits, s_idx = torch.sort(scaled_full[b], descending=True)
-            p_s = torch.exp(s_logits - log_z[b])
-            cum_s = torch.cumsum(p_s, dim=-1)
-            keep = (cum_s - p_s) < state.top_p[b]
-            limit = p.top_k if p.top_k > 0 else V
-            keep &= torch.arange(V, device=dev) < limit
-            m = torch.where(keep, s_logits, torch.full_like(s_logits, -torch.inf))
-            full = s_idx[_gumbel_argmax(m, gen)]
-            tok = torch.where(sort_needed[b], full, tok)
-        out[b] = tok
+    out[rows] = torch.gather(top_idx[rows], 1, draw[:, None])[:, 0]
+    if tier2:
+        # exact categorical over the whole vocab
+        idx = torch.tensor(tier2, device=dev)
+        gi = torch.tensor([at[b] for b in tier2], device=dev)
+        full = torch.argmax(g[gi] + scaled_full[idx], dim=-1)
+        out[idx] = torch.where(cat_needed[idx], full, out[idx])
+    if tier3:
+        # full sort + exact nucleus prefix
+        idx = torch.tensor(tier3, device=dev)
+        gi = torch.tensor([at[b] for b in tier3], device=dev)
+        s_logits, s_idx = torch.sort(scaled_full[idx], dim=-1,
+                                     descending=True, stable=True)
+        p_s = torch.exp(s_logits - log_z[idx])
+        cum_s = torch.cumsum(p_s, dim=-1)
+        keep = (cum_s - p_s) < state.top_p[idx, None]
+        limit = torch.where(state.top_k[idx] > 0, state.top_k[idx], V)
+        keep &= torch.arange(V, device=dev)[None, :] < limit[:, None]
+        m = torch.where(keep, s_logits, torch.full_like(s_logits, -torch.inf))
+        d = torch.argmax(g[gi] + m, dim=-1)
+        full = torch.gather(s_idx, 1, d[:, None])[:, 0]
+        out[idx] = torch.where(sort_needed[idx], full, out[idx])
     return torch.where(state.temperature == 0.0, exact_greedy, out)
 
 
-def split_keys(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """[B, 2] u32 -> (carry [B, 2], step [B, 2]) on the host, with the
-    engine's deterministic key derivation (``engine._host_split``)."""
-    from helix_tpu_torch.engine.engine import _host_split
-
-    pairs = [_host_split(np.asarray(k, np.uint32)) for k in keys]
-    carry = np.stack([c for c, _ in pairs]) if pairs else keys.copy()
-    step = np.stack([s for _, s in pairs]) if pairs else keys.copy()
-    return carry.astype(np.uint32), step.astype(np.uint32)
+def split_keys(keys) -> tuple[np.ndarray, np.ndarray]:
+    """[B, 2] u32 -> (carry [B, 2], step [B, 2]): ``jax.random.split(k,
+    2)`` of each key, computed on the host (the reference splits on the
+    device; the words are the same)."""
+    carry, step = threefry.split(threefry.as_keys(keys, "cpu"))
+    return (carry.numpy().astype(np.uint32),
+            step.numpy().astype(np.uint32))
 
 
 def apply_penalties(

@@ -9,6 +9,8 @@ flags, so an edited source rebuilds and an unchanged one is reused.
 
 Every wrapper owns one :class:`Kernel`; ``Kernel.launches`` is a plain
 counter the wrapper bumps where it launches the kernel, and nowhere else.
+A second entry point of the same library (another form of the kernel)
+counts its launches apart on a :class:`KernelForm`.
 """
 
 from __future__ import annotations
@@ -72,6 +74,19 @@ class Kernel:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         return fn
+
+
+class KernelForm:
+    """Another form of a :class:`Kernel`: a second entry point of the same
+    library, with its own launch count."""
+
+    def __init__(self, name: str, kernel: Kernel):
+        self.name = name
+        self.kernel = kernel
+        self.launches = 0
+
+    def symbol(self, name: str, argtypes: list):
+        return self.kernel.symbol(name, argtypes)
 
 
 def build_all(kernels) -> float:

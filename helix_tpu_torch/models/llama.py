@@ -26,7 +26,11 @@ import torch
 from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
 from helix_tpu_torch.models.common import ModelConfig
 from helix_tpu_torch.ops.norms import rms_norm
-from helix_tpu_torch.ops.quant import embed_lookup, maybe_dequant_dense
+from helix_tpu_torch.ops.quant import (
+    embed_lookup,
+    matmul_f32,
+    maybe_dequant_dense,
+)
 from helix_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict
@@ -121,7 +125,9 @@ def _to_tensor(a) -> torch.Tensor:
 def params_from_jax(tree) -> Params:
     """Convert a JAX parameter tree (after ``jax.device_get``: nested dicts
     of numpy arrays) into the port's parameter dict of CPU tensors with
-    the same keys, shapes and dtypes.  Move it with ``params_to``."""
+    the same keys, shapes and dtypes; a ``quantize_params`` tree keeps its
+    int8 weights and float32 ``scale`` / ``embed_scale`` leaves.  Move it
+    with ``params_to``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
     return _to_tensor(tree)
@@ -227,14 +233,22 @@ def forward(
 
 
 def project_logits(params: Params, cfg: ModelConfig, h):
-    """Final-norm hidden states -> float32 logits over the vocab.  With
-    bf16 weights the product rounds to bf16 before the cast (the
-    reference accumulates it straight into f32)."""
+    """Final-norm hidden states -> float32 logits over the vocab: the
+    product accumulated in float32 (never rounded to the compute dtype),
+    times the int8 scale in float32 where the table is quantized (tied:
+    ``embed_scale``, untied: ``lm_head.scale``), as
+    ``helix_tpu/models/llama.py:330-344``."""
     if cfg.tie_word_embeddings:
         w_out = params["embed"]["weight"].T
+        out_scale = params["embed"].get("embed_scale")   # [V, 1]
     else:
         w_out = params["lm_head"]["weight"]
-    logits = torch.matmul(h, w_out).float()
+        out_scale = params["lm_head"].get("scale")       # [1, V]
+    if w_out.dtype == torch.int8:
+        w_out = w_out.to(h.dtype)
+    logits = matmul_f32(h, w_out)
+    if out_scale is not None:
+        logits = logits * out_scale.reshape(-1)
     if cfg.logits_soft_cap:
         logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
     return logits

@@ -13,8 +13,10 @@ fresh tokens causally; rows never see each other.
 - ``paged_decode_attention_reference`` — the decode-shaped oracle kept for
   tests.
 
-Tiered residency (``span_lo``/``span_hi``/``cold_*``) and int8 pools are
-not ported: passing them raises ``NotImplementedError`` (ROADMAP A14, A9).
+Int8 pools pass their float32 scale pools as ``k_scale``/``v_scale``:
+history is dequantized in float32 and attended at the compute dtype,
+fresh K/V raw.  Tiered residency (``span_lo``/``span_hi``/``cold_*``) is
+not ported: passing it raises ``NotImplementedError`` (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -44,9 +46,7 @@ def _refuse_unported(kw: dict) -> None:
             "(ROADMAP A14)"
         )
     if given:
-        raise NotImplementedError(
-            f"int8 KV pools ({given}) are not ported yet (ROADMAP A9)"
-        )
+        raise TypeError(f"ragged_paged_attention: unknown arguments {given}")
 
 
 def paged_decode_attention_reference(
@@ -59,6 +59,8 @@ def paged_decode_attention_reference(
     v_new=None,
     *,
     scale: Optional[float] = None,
+    k_scale=None,  # [N, P, KVH] f32 — ONE layer's scale pool (int8 pages)
+    v_scale=None,
 ):
     B, H, D = q.shape
     N, P, KVH, _ = k_pages.shape
@@ -67,8 +69,13 @@ def paged_decode_attention_reference(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     T = maxP * P
     tables = page_tables.long()
-    kg = k_pages[tables].float().reshape(B, T, KVH, D).transpose(1, 2)
-    vg = v_pages[tables].float().reshape(B, T, KVH, D).transpose(1, 2)
+    kg = k_pages[tables].float()
+    vg = v_pages[tables].float()
+    if k_scale is not None:
+        kg = kg * k_scale[tables].float()[..., None]
+        vg = vg * v_scale[tables].float()[..., None]
+    kg = kg.reshape(B, T, KVH, D).transpose(1, 2)
+    vg = vg.reshape(B, T, KVH, D).transpose(1, 2)
     valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
     if k_new is not None:
         kg = torch.cat([kg, k_new[:, :, None, :].float()], dim=2)
@@ -88,7 +95,8 @@ def paged_decode_attention_reference(
 
 def ragged_paged_attention_reference(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
-    *, scale: Optional[float] = None, **unported,
+    *, scale: Optional[float] = None, k_scale=None, v_scale=None,
+    **unported,
 ):
     """Oracle for the ragged contract (resident path of the reference):
     gather every row's pages, one segment-masked softmax over the R
@@ -98,14 +106,14 @@ def ragged_paged_attention_reference(
     _refuse_unported(unported)
     return ragged_paged_attention_plain(
         q, k_new, v_new, k_pages, v_pages, int(layer), t0, q_len, hist,
-        tables, scale=scale,
+        tables, scale=scale, k_scale=k_scale, v_scale=v_scale,
     )
 
 
 def ragged_paged_attention(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
     *, scale: Optional[float] = None, backend: Optional[str] = None,
-    **unported,
+    k_scale=None, v_scale=None, **unported,
 ):
     """THE paged-attention entry point.  Returns ``out [T, H, D]``.
 
@@ -116,8 +124,9 @@ def ragged_paged_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     args = (q, k_new, v_new, k_pages, v_pages, int(layer), t0, q_len, hist,
             tables)
+    kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale)
     if backend is None:
-        return ragged_paged_attention_kernel(*args, scale=scale)
+        return ragged_paged_attention_kernel(*args, **kw)
     if backend == "reference":
-        return ragged_paged_attention_plain(*args, scale=scale)
+        return ragged_paged_attention_plain(*args, **kw)
     raise ValueError(f"unknown paged attention backend {backend!r}")

@@ -10,6 +10,12 @@ row's pages-resident history ``[0, hist[r])`` of pool layer ``layer`` plus
 the row's fresh tokens up to and including itself.  Output ``[T, H, D]``;
 tokens outside every row are left unspecified (the kernel never writes
 them), so callers read live tokens only.
+
+Int8 pools come with float32 scale pools ``k_scale``/``v_scale [L, N, P,
+KVH]`` (the Pallas kernel's ``quantized=True`` form): history is
+dequantized in float32 as ``code * scale``; fresh K/V are attended raw.
+The kernel launches its int8 entry point for them and counts those
+launches apart, on ``K1_INT8``.
 """
 
 from __future__ import annotations
@@ -20,14 +26,16 @@ from typing import Optional
 
 import torch
 
-from helix_tpu_torch.kernels.build import Kernel
+from helix_tpu_torch.kernels.build import Kernel, KernelForm
 from helix_tpu_torch.ops.attention import SUPPORTED_HEAD_DIMS, mha_reference
 
 K1 = Kernel("ragged_paged_attention", "ragged_paged_attention.cu")
+K1_INT8 = KernelForm("ragged_paged_attention_int8", K1)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _K1_ARGS = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P]
+_K1_INT8_ARGS = [_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _P]
 
 
 def _row_of_tokens(t0, q_len, T: int):
@@ -46,12 +54,14 @@ def _row_of_tokens(t0, q_len, T: int):
 
 def ragged_paged_attention_plain(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
-    *, scale: Optional[float] = None,
+    *, scale: Optional[float] = None, k_scale=None, v_scale=None,
 ):
     """K1's plain PyTorch version: the gather-and-mask form of the
     reference oracle.  Gathers every row's full page table, masks history
     past ``hist[r]``, appends the fresh tokens and runs one segment-masked
-    softmax (row identity as segment, absolute positions for causality)."""
+    softmax (row identity as segment, absolute positions for causality).
+    Int8 history is dequantized in float32 and then cast to the compute
+    dtype, as the reference does (``helix_tpu/ops/paged.py:242-246``)."""
     T, H, D = q.shape
     R, maxP = tables.shape
     _, N, P, KVH, _ = k_pages.shape
@@ -62,8 +72,13 @@ def ragged_paged_attention_plain(
     row, q_off = _row_of_tokens(t0, q_len, T)
     q_pos = torch.where(row >= 0, hist[row.clamp(min=0)] + q_off,
                         torch.zeros_like(row))
-    kh = k_pages[layer][tables].to(q.dtype).reshape(1, R * Hs, KVH, D)
-    vh = v_pages[layer][tables].to(q.dtype).reshape(1, R * Hs, KVH, D)
+    kh = k_pages[layer][tables]                    # [R, maxP, P, KVH, D]
+    vh = v_pages[layer][tables]
+    if k_scale is not None:
+        kh = kh.float() * k_scale[layer][tables][..., None]
+        vh = vh.float() * v_scale[layer][tables][..., None]
+    kh = kh.to(q.dtype).reshape(1, R * Hs, KVH, D)
+    vh = vh.to(q.dtype).reshape(1, R * Hs, KVH, D)
     hist_tok = torch.arange(Hs, device=q.device)
     resident = hist_tok[None, :] < hist[:, None]                 # [R, Hs]
     kv_seg_h = torch.where(
@@ -89,16 +104,20 @@ def ragged_paged_attention_plain(
 
 def ragged_paged_attention(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
-    *, scale: Optional[float] = None,
+    *, scale: Optional[float] = None, k_scale=None, v_scale=None,
 ):
     """K1 wrapper.  ``layer`` is a Python int; ``t0``/``q_len``/``hist``
-    ``[R]`` and ``tables [R, maxP]`` are int32 tensors on q's device.
-    CUDA tensors launch the kernel on the current stream and raise on
-    anything it does not take; CPU tensors run the plain version."""
+    ``[R]`` and ``tables [R, maxP]`` are int32 tensors on q's device;
+    ``k_scale``/``v_scale`` come with int8 pools.  CUDA tensors launch the
+    kernel on the current stream and raise on anything it does not take;
+    CPU tensors run the plain version."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("ragged_paged_attention: k_scale and v_scale "
+                         "come together")
     if not q.is_cuda:
         return ragged_paged_attention_plain(
             q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist,
-            tables, scale=scale,
+            tables, scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
     T, H, D = q.shape
     L, N, P, KVH, Dp = k_pages.shape
@@ -114,12 +133,25 @@ def ragged_paged_attention(
             f"pool{tuple(k_pages.shape)} tables{tuple(tables.shape)}"
         )
     dt = q.dtype
+    quantized = k_scale is not None
+    pool_dt = torch.int8 if quantized else dt
     if dt not in _KERNEL_DTYPES or any(
-        x.dtype != dt for x in (k_new, v_new, k_pages, v_pages)
-    ):
+        x.dtype != dt for x in (k_new, v_new)
+    ) or any(x.dtype != pool_dt for x in (k_pages, v_pages)):
         raise TypeError(
             "ragged_paged_attention kernel takes float32 or bfloat16 "
-            "queries, fresh K/V and pools of one dtype (int8 pools: A9)"
+            "queries and fresh K/V, with pools of that dtype or int8 pools "
+            "with their scale pools"
+        )
+    if quantized and (
+        k_scale.shape != (L, N, P, KVH) or v_scale.shape != k_scale.shape
+        or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+    ):
+        raise ValueError(
+            "ragged_paged_attention: scale pools must be float32 "
+            f"[L, N, P, KVH] = {(L, N, P, KVH)}, got "
+            f"{tuple(k_scale.shape)} {k_scale.dtype} / "
+            f"{tuple(v_scale.shape)} {v_scale.dtype}"
         )
     if any(x.dtype != torch.int32 for x in (t0, q_len, hist, tables)):
         raise TypeError("ragged_paged_attention: row metadata must be int32")
@@ -128,23 +160,31 @@ def ragged_paged_attention(
     if not 0 <= int(layer) < L:
         raise ValueError(f"ragged_paged_attention: layer {layer} not in [0, {L})")
     tensors = (q, k_new, v_new, k_pages, v_pages, t0, q_len, hist, tables)
+    if quantized:
+        tensors += (k_scale, v_scale)
     if any(not x.is_cuda or x.device != q.device for x in tensors):
         raise ValueError("ragged_paged_attention: all tensors on one CUDA device")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention: tensors must be contiguous")
     out = torch.empty_like(q)
-    fn = K1.symbol("helix_ragged_paged_attention", _K1_ARGS)
+    pools = [k_pages.data_ptr(), v_pages.data_ptr()]
+    if quantized:
+        form = K1_INT8
+        fn = form.symbol("helix_ragged_paged_attention_int8", _K1_INT8_ARGS)
+        pools += [k_scale.data_ptr(), v_scale.data_ptr()]
+    else:
+        form = K1
+        fn = form.symbol("helix_ragged_paged_attention", _K1_ARGS)
     err = fn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_pages.data_ptr(), v_pages.data_ptr(), t0.data_ptr(),
-        q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(), out.data_ptr(),
-        T, H, KVH, D, N, P, R, maxP, int(layer),
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *pools,
+        t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(),
+        out.data_ptr(), T, H, KVH, D, N, P, R, maxP, int(layer),
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         _KERNEL_DTYPES[dt], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
-            f"ragged_paged_attention kernel launch failed: cuda error {err}"
+            f"{form.name} kernel launch failed: cuda error {err}"
         )
-    K1.launches += 1
+    form.launches += 1
     return out

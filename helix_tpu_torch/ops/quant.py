@@ -1,8 +1,20 @@
-"""Dense projections and embedding lookup (port of the float forms of
-``helix_tpu/ops/quant.py``).
+"""Weight-only int8 quantization, int8 KV codecs, dense projections and
+the embedding lookup (port of ``helix_tpu/ops/quant.py``).
 
-Only float weights are served in this slice.  The int8 weight-only form,
-the single-LoRA graft and the batched multi-LoRA pool raise
+- ``quantize_kv`` / ``dequantize_kv``: symmetric int8 KV with one f32
+  scale per (token slot, KV head), absmax over head_dim.
+- ``quantize_tensor`` / ``quantize_params``: per-output-channel int8
+  weights (reduced over the input axis only, so stacked ``[L, in, out]``
+  layers keep their own scales), per-row scales for the embedding, norms
+  and biases untouched.  Both work one layer (or one column block) at a
+  time on the tensors' device, so no float32 copy of a whole stack
+  exists.
+- ``maybe_dequant_dense``: every projection accumulates in float32,
+  multiplies by the int8 scale and adds the bias in float32, and rounds
+  once to the compute dtype, as the reference's ``dot_general`` with
+  ``preferred_element_type=float32`` does.
+
+The single-LoRA graft and the batched multi-LoRA pool raise
 ``NotImplementedError`` (ROADMAP A13).
 """
 
@@ -10,42 +22,142 @@ from __future__ import annotations
 
 import torch
 
-_LORA_KEYS = ("scale", "lora_a", "lora_pool_a")
+# Floor on KV quantization scales: keeps all-zero (never-written) page
+# slots exactly representable and the dequant multiply finite.
+KV_SCALE_EPS = 1e-8
+_W_SCALE_EPS = 1e-8
+_LORA_KEYS = ("lora_a", "lora_pool_a")
+# float32 elements one quantization step may hold (256 MiB)
+_CHUNK_ELEMS = 1 << 26
+
+
+def quantize_kv(x: torch.Tensor):
+    """``x [..., KVH, D]`` -> (int8 ``[..., KVH, D]``, f32 ``[..., KVH]``):
+    absmax over the trailing head_dim axis only."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=KV_SCALE_EPS)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` (the per-head scale broadcast over
+    head_dim), computed in float32 and cast to ``dtype``."""
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _quantize_columns(wf: torch.Tensor, axis: int):
+    """Codes and scale of a float32 block, absmax reduced over ``axis``."""
+    scale = torch.clamp(wf.abs().amax(dim=axis, keepdim=True) / 127.0,
+                        min=_W_SCALE_EPS)
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_tensor(w: torch.Tensor) -> dict:
+    """Symmetric int8 with per-output-channel (last axis) scales, reduced
+    over the input axis (``ndim - 2``) only.  Returns ``{"weight": int8,
+    "scale": f32}`` with the scale's input axis kept as 1."""
+    lead = w.shape[:-2]
+    n_in, n_out = w.shape[-2:]
+    w3 = w.reshape(-1, n_in, n_out)
+    q3 = torch.empty(w3.shape, dtype=torch.int8, device=w.device)
+    s3 = torch.empty((w3.shape[0], 1, n_out), dtype=torch.float32,
+                     device=w.device)
+    cols = max(1, _CHUNK_ELEMS // max(n_in, 1))
+    for i in range(w3.shape[0]):
+        for c0 in range(0, n_out, cols):
+            c1 = min(n_out, c0 + cols)
+            q3[i, :, c0:c1], s3[i, :, c0:c1] = _quantize_columns(
+                w3[i, :, c0:c1].float(), 0)
+    return {"weight": q3.reshape(w.shape),
+            "scale": s3.reshape(*lead, 1, n_out)}
+
+
+def _quantize_rows(w: torch.Tensor):
+    """Per-row int8 for the embedding table: ``(codes, scale [V, 1])``."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((w.shape[0], 1), dtype=torch.float32,
+                        device=w.device)
+    rows = max(1, _CHUNK_ELEMS // max(w.shape[-1], 1))
+    for r0 in range(0, w.shape[0], rows):
+        r1 = min(w.shape[0], r0 + rows)
+        q[r0:r1], scale[r0:r1] = _quantize_columns(w[r0:r1].float(), -1)
+    return q, scale
+
+
+def quantize_params(params: dict) -> dict:
+    """Quantize every matmul weight of a parameter dict (the reference's
+    ``quantize_params`` walk): ``{"weight"}`` of two or more dims outside
+    a norm becomes ``{"weight": int8, "scale": f32}``; the embedding gets
+    per-row ``embed_scale [V, 1]``.  Returns a new dict; tensors that are
+    not quantized are shared with the input."""
+
+    def walk(tree, path=()):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if (k == "weight" and isinstance(v, torch.Tensor)
+                    and v.ndim >= 2
+                    and not any("norm" in p for p in path)):
+                if path and path[-1] == "embed":
+                    out["weight"], out["embed_scale"] = _quantize_rows(v)
+                else:
+                    qd = quantize_tensor(v)
+                    out["weight"], out["scale"] = qd["weight"], qd["scale"]
+            else:
+                out[k] = walk(v, path + (k,))
+        return out
+
+    return walk(params)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., in] @ w [in, out]`` accumulated and returned in float32,
+    the product never rounded to ``x``'s dtype.  On the card a bf16 GEMM
+    with a float32 output (``torch.mm(..., out_dtype=float32)``); on the
+    CPU a float32 matmul of the upcast operands."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
 
 
 def maybe_dequant_dense(x, p: dict, adapter_ids=None, compute_dtype=None):
-    """``x @ p["weight"] (+ p["bias"])`` with weights stored ``[in, out]``.
-
-    In float32 this matches the reference exactly: one f32 product, the
-    bias added in f32, one rounding.  In bf16 the product ``x @ W`` rounds
-    to bf16 (accumulating in f32 inside the GEMM) BEFORE the bias is added
-    in f32 and rounded again — one extra bf16 rounding over the reference,
-    which accumulates, adds the bias and rounds once.  Only bias-carrying
-    configs (Qwen2) see it; ``tests/test_torch_model.py`` states the bf16
-    tolerance.
-    """
+    """``x @ p["weight"]`` with weights stored ``[in, out]``, float or int8
+    (with ``p["scale"]``), plus ``p["bias"]``; one rounding to the compute
+    dtype.  A float projection without bias is one GEMM in the compute
+    dtype, which accumulates in float32 and rounds once by itself."""
     if adapter_ids is not None or any(k in p for k in _LORA_KEYS):
         raise NotImplementedError(
-            "int8 weights and LoRA adapters are not ported yet (ROADMAP A13)"
+            "LoRA adapters are not ported yet (ROADMAP A13)"
         )
     compute_dtype = compute_dtype or x.dtype
     w = p["weight"]
-    if w.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 weights are not ported yet (ROADMAP A13)"
-        )
-    out = torch.matmul(x, w)
+    scale = p.get("scale")
     b = p.get("bias")
+    if w.dtype == torch.int8:
+        # int8 codes are exact in bf16 and float32
+        w = w.to(x.dtype)
+    elif scale is None and b is None:
+        return torch.matmul(x, w).to(compute_dtype)
+    out = matmul_f32(x, w)
+    if scale is not None:
+        out = out * scale.reshape(-1)
     if b is not None:
-        out = out.float() + b.float()
+        out = out + b.float()
     return out.to(compute_dtype)
 
 
 def embed_lookup(p: dict, tokens, compute_dtype):
-    """Embedding lookup through a float table."""
+    """Embedding lookup through a float or row-quantized table."""
     w = p["weight"]
+    emb = w[tokens]
     if w.dtype == torch.int8:
-        raise NotImplementedError(
-            "row-quantized embeddings are not ported yet (ROADMAP A13)"
-        )
-    return w[tokens].to(compute_dtype)
+        emb = emb.float() * p["embed_scale"][tokens]
+    return emb.to(compute_dtype)

@@ -12,15 +12,20 @@ Tolerances: float32 ``atol 1e-4`` (fp32 online softmax vs one fp32
 softmax, different summation order); bf16 ``atol 1e-5, rtol 2**-7`` per
 element (both sides compute in f32 and round once to bf16, so they may
 differ by one bf16 ulp of the value).
-Attention outputs are compared on live tokens only.
+Attention outputs are compared on live tokens only.  K1's int8 form
+dequantizes history in f32 and never rounds it to bf16; its bf16 cases
+are held to the plain version evaluated in f32 (the same arithmetic) and
+rounded once, under the same one-ulp limit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from helix_tpu_torch.engine import threefry
 from helix_tpu_torch.ops import attention as tatt
 from helix_tpu_torch.ops import paged_kernel as tpk
+from helix_tpu_torch.ops import quant as tquant
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=0),
        torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7)}
@@ -150,3 +155,138 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         tatt.flash_attention(*(torch.zeros(1, 8, 2, 64, device=cuda,
                                            dtype=torch.float16),) * 3)
+
+
+def _ragged_int8(seed, dtype, cuda, D=64, H=8, KVH=2, P=16, L=3, N=96,
+                 maxP=8, R=6):
+    """A ragged case over int8 pools quantized with ``quantize_kv``."""
+    f, i, live = _ragged(seed, L, N, P, KVH, D, H, maxP, R)
+    q, kn, vn, kp, vp = f
+    kq, ks = tquant.quantize_kv(torch.from_numpy(kp))
+    vq, vs = tquant.quantize_kv(torch.from_numpy(vp))
+    fresh = [torch.from_numpy(x).to(cuda, dtype) for x in (q, kn, vn)]
+    pools = [x.to(cuda) for x in (kq, vq)]
+    scales = [x.to(cuda) for x in (ks, vs)]
+    i = [torch.from_numpy(x).to(cuda) for x in i]
+    return fresh, pools, scales, i, torch.from_numpy(live).to(cuda)
+
+
+def _int8_plain(fresh, pools, scales, i, layer):
+    """The plain version in f32 (dequantized history not rounded, like the
+    kernel), rounded once to the query dtype."""
+    f32 = [x.float() for x in fresh]
+    out = tpk.ragged_paged_attention_plain(
+        *f32, *pools, layer, *i, k_scale=scales[0], v_scale=scales[1])
+    return out.to(fresh[0].dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,KVH,P", [(64, 8, 2, 4), (96, 4, 4, 16),
+                                       (128, 8, 2, 16)])
+def test_ragged_kernel_int8_matches_plain(cuda, dtype, D, H, KVH, P):
+    fresh, pools, scales, i, live = _ragged_int8(D + P + 1, dtype, cuda,
+                                                 D=D, H=H, KVH=KVH, P=P)
+    # NaN scales on the garbage page outside every history must not leak
+    for s in scales:
+        s[:, 0] = float("nan")
+    before, before_f = tpk.K1_INT8.launches, tpk.K1.launches
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *i,
+                                     k_scale=scales[0], v_scale=scales[1])
+    assert tpk.K1_INT8.launches == before + 1
+    assert tpk.K1.launches == before_f        # counted apart
+    want = _int8_plain(fresh, pools, scales, i, 1)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+
+
+def _breaks_limit(got, want, dtype):
+    tol = TOL[dtype]
+    lim = tol["atol"] + tol["rtol"] * want.float().abs()
+    return bool(((got.float() - want.float()).abs() > lim).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["hist-1", "hist+1", "scale_roll"])
+def test_ragged_kernel_int8_planted_faults_fail(cuda, fault):
+    """A slot too few or too many, or scales read from the neighbouring
+    slot, must break the per-element limit the kernel is held to."""
+    dtype = torch.bfloat16
+    fresh, pools, scales, i, live = _ragged_int8(5, dtype, cuda, D=128)
+    want = _int8_plain(fresh, pools, scales, i, 1)
+    t0, q_len, hist, tables = i
+    ks, vs = scales
+    if fault == "hist-1":
+        hist = (hist - 1).clamp(min=0)
+    elif fault == "hist+1":
+        hist = hist + 1
+    else:
+        ks = torch.roll(ks, 1, dims=2).contiguous()
+        vs = torch.roll(vs, 1, dims=2).contiguous()
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, t0, q_len, hist,
+                                     tables, k_scale=ks, v_scale=vs)
+    assert _breaks_limit(got[live], want[live], dtype)
+
+
+@pytest.mark.cuda
+def test_ragged_int8_wrapper_refuses_bad_scales(cuda):
+    fresh, pools, scales, i, _ = _ragged_int8(9, torch.float32, cuda)
+    ks, vs = scales
+    bad = {
+        "dtype": (ks.double(), vs.double()),
+        "shape": (ks[:, :, :1], vs[:, :, :1]),
+        "contiguity": (ks.transpose(2, 3).contiguous().transpose(2, 3),
+                       vs.transpose(2, 3).contiguous().transpose(2, 3)),
+        "device": (ks.cpu(), vs.cpu()),
+    }
+    for k, v in bad.values():
+        with pytest.raises((TypeError, ValueError)):
+            tpk.ragged_paged_attention(*fresh, *pools, 0, *i, k_scale=k,
+                                       v_scale=v)
+    with pytest.raises(ValueError, match="together"):
+        tpk.ragged_paged_attention(*fresh, *pools, 0, *i, k_scale=ks)
+    with pytest.raises(TypeError):     # float pools with scales
+        tpk.ragged_paged_attention(*fresh, pools[0].float(),
+                                   pools[1].float(), 0, *i, k_scale=ks,
+                                   v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_dense_rounds_once_on_card(cuda, quantized):
+    """bf16 projections with a bias or an int8 scale accumulate in f32
+    and round once: equal to the f32 product rounded to bf16 within one
+    bf16 ulp (cuBLAS sums in another order than the f32 matmul)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((5, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((96,)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    p = {"bias": b.to(cuda, torch.bfloat16)}
+    if quantized:
+        p.update(tquant.quantize_tensor(w.to(cuda)))
+        want = (x.float() @ p["weight"].float()) * p["scale"].reshape(-1)
+    else:
+        p["weight"] = w.to(cuda, torch.bfloat16)
+        want = x.float() @ p["weight"].float()
+    want = (want + p["bias"].float()).to(torch.bfloat16)
+    got = tquant.maybe_dequant_dense(x, p)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_matches_cpu(cuda):
+    """The sampler's random bits and uniforms do not depend on the
+    device (int64 emulation of uint32 arithmetic)."""
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 2**32, size=(50, 2), dtype=np.uint64)
+    keys = threefry.as_keys(keys.astype(np.uint32), "cpu")
+    for n in (1, 300):
+        np.testing.assert_array_equal(
+            threefry.random_bits(keys.to(cuda), n).cpu().numpy(),
+            threefry.random_bits(keys, n).numpy())
+        torch.testing.assert_close(threefry.uniform(keys.to(cuda), n).cpu(),
+                                   threefry.uniform(keys, n), atol=0, rtol=0)

@@ -9,11 +9,15 @@ caller shape of the unified step: packed prompts + decode, chunked
 prefill, the mixed step, cold vs prefix-hit admission and the fused decode
 window.
 
+The same grid runs with int8 weights (``quantize_params`` in JAX,
+converted) and an int8 KV pool on both sides.
+
 Also here: allocator and prefix-cache invariants (mirroring
 ``tests/test_prefix_cache.py``), the sampler against JAX (greedy, top-k 1,
-tiny top-p and penalties exact; temperature > 0 tiers by a chi-square
-test, since the port's generators do not reproduce threefry's bits), the
-copied dataclasses, and the options this slice refuses.
+tiny top-p and penalties exact; temperature > 0 tiers also by a
+chi-square test against each tier's exact distribution; bit-for-bit
+seeded draws are ``tests/test_torch_sampling.py``), the copied
+dataclasses, and the options this slice refuses.
 """
 
 import dataclasses
@@ -29,6 +33,7 @@ from helix_tpu.engine import engine as jengine
 from helix_tpu.engine import sampling as jsampling
 from helix_tpu.models.common import ModelConfig as JModelConfig
 from helix_tpu.models.llama import init_params as jinit
+from helix_tpu.ops.quant import quantize_params as jquantize
 from helix_tpu_torch.engine import engine as tengine
 from helix_tpu_torch.engine import sampling as tsampling
 from helix_tpu_torch.engine.kv_cache import PageAllocator, PrefixCache
@@ -74,6 +79,16 @@ def weights():
     jcfg = JModelConfig.tiny(dtype="float32")
     jp = jinit(jcfg, jax.random.PRNGKey(7), dtype=jnp.float32)
     tp = params_from_jax(jax.device_get(jp))
+    return jcfg, jp, ModelConfig.tiny(dtype="float32"), tp
+
+
+@pytest.fixture(scope="module")
+def int8_weights():
+    """int8 weights quantized by the reference, converted to the port."""
+    jcfg = JModelConfig.tiny(dtype="float32")
+    jp = jquantize(jinit(jcfg, jax.random.PRNGKey(7), dtype=jnp.float32))
+    tp = params_from_jax(jax.device_get(jp))
+    assert tp["layers"]["wq"]["weight"].dtype == torch.int8
     return jcfg, jp, ModelConfig.tiny(dtype="float32"), tp
 
 
@@ -169,6 +184,60 @@ def test_fused_decode_window(weights):
     assert te.num_decode_device_steps < te.num_decode_tokens
     _, single = _engines(weights)
     assert single.generate(prompts, ts) == got
+
+
+# ---------------------------------------------------------------------------
+# int8 weights + int8 KV pool: greedy token identity against the JAX engine
+# ---------------------------------------------------------------------------
+
+INT8 = dict(kv_cache_dtype="int8")
+
+
+def test_int8_packed_prompts_and_decode(int8_weights):
+    je, te = _engines(int8_weights, **INT8)
+    assert te.cache.quantized and te.cache.k_pages.dtype == torch.int8
+    prompts = [[1, 2, 3, 4, 5], [10, 11, 12], [7, 3]]
+    js, ts = _greedy()
+    assert te.generate(prompts, ts) == je.generate(prompts, js)
+
+
+def test_int8_chunked_prefill(int8_weights):
+    je, te = _engines(int8_weights, **INT8)
+    prompt = [(3 * i) % 29 + 1 for i in range(40)]
+    js, ts = _greedy()
+    assert te.generate([prompt], ts) == je.generate([prompt], js)
+
+
+def test_int8_mixed_step(int8_weights):
+    je, te = _engines(int8_weights, enable_mixed_step=True, **INT8)
+    jmod = type("M", (), {"Request": jengine.Request,
+                          "SamplingParams": jsampling.SamplingParams})
+    tmod = type("M", (), {"Request": tengine.Request,
+                          "SamplingParams": tsampling.SamplingParams})
+    assert _mixed_run(te, tmod) == _mixed_run(je, jmod)
+    assert te.num_mixed_steps == je.num_mixed_steps > 0
+
+
+def test_int8_cold_vs_prefix_hit(int8_weights):
+    je, te = _engines(int8_weights, **INT8)
+    prefix = [(7 * i) % 19 + 1 for i in range(12)]
+    short = prefix + [2, 8]
+    long = prefix + [(11 * i) % 27 + 1 for i in range(20)]
+    js, ts = _greedy()
+    want = [je.generate([p], js) for p in (short, short, long, long)]
+    got = [te.generate([p], ts) for p in (short, short, long, long)]
+    assert got == want
+    assert te.prefix_cache_hits == je.prefix_cache_hits >= 2
+
+
+def test_int8_kv_with_float_weights(weights):
+    """The int8 pool alone (float weights) serves the same tokens as the
+    JAX engine's int8 pool."""
+    je, te = _engines(weights, decode_steps_per_sync=4,
+                      adaptive_sync_max_streams=1, **INT8)
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [9, 8], [3, 3, 3, 3, 3]]
+    js, ts = _greedy(10)
+    assert te.generate(prompts, ts) == je.generate(prompts, js)
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +457,6 @@ def test_copied_dataclasses_match_reference(pair):
     (dict(adapter_pool_slots=2), "A13"),
     (dict(host_pool_bytes=1 << 20), "A12"),
     (dict(ctx_hot_pages=4), "A14"),
-    (dict(kv_cache_dtype="int8"), "A9"),
 ])
 def test_unported_engine_options_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -2,12 +2,19 @@
 decoder's logits against ``helix_tpu.models.llama.forward``.
 
 Same JAX-initialised weights on both sides (through ``params_from_jax``),
-the same tokens and positions.  float32 with ``atol=1e-4`` (two layers of
-float32 matmuls summed in different orders on two libraries); bf16 with
-``atol=2e-2``, because both sides round activations to bf16 after every
-projection but at different points (the port's bf16 ``x @ W`` rounds
-before the bias is added and its vocab projection rounds to bf16 before
-the float32 cast, where the reference accumulates into float32).
+the same tokens and positions; int8 trees are quantized by the
+reference's ``quantize_params`` and converted.  float32 with ``atol=1e-4``
+(two layers of float32 matmuls summed in different orders on two
+libraries).  bf16 with ``atol=5e-3`` (logits of |x| < 1.5 here, whose bf16
+ulp is up to 2**-7): every projection, biased or not, int8 or not, and
+the vocab projection accumulate in float32 and round once on both sides,
+exactly as the op-level tests show; what remains is XLA keeping bf16
+elementwise chains (silu * up, residual adds) in float32 inside a fusion
+where PyTorch rounds each op.  Measured over six seeds: at most 3.2e-3
+(2.2e-3 to 3.2e-3 on Llama and Qwen2; before one rounding per
+projection, up to 3.9e-3 on Qwen2).  The tied, soft-capped gelu config
+has logits up to |x| ~ 1.3 and ~2.5x the difference (up to 8.1e-3 with
+int8 weights), so it is held to twice the limit.
 """
 
 import dataclasses
@@ -21,6 +28,7 @@ import torch
 from helix_tpu.models import llama as jllama
 from helix_tpu.models.common import ModelConfig as JModelConfig
 from helix_tpu.ops.paged import ragged_paged_attention_reference as jragged
+from helix_tpu.ops.quant import quantize_params as jquantize
 from helix_tpu_torch.models import llama as tllama
 from helix_tpu_torch.models.common import ModelConfig
 from helix_tpu_torch.ops.paged import ragged_paged_attention as tragged
@@ -35,7 +43,7 @@ CONFIGS = {
 }
 
 
-def _pair(name, dtype="float32", seed=0):
+def _pair(name, dtype="float32", seed=0, quantized=False):
     over = dict(CONFIGS[name], dtype=dtype)
     jcfg = JModelConfig.tiny(**over)
     cfg = ModelConfig.tiny(**over)
@@ -48,6 +56,8 @@ def _pair(name, dtype="float32", seed=0):
             jp["layers"][nm]["bias"] = jnp.asarray(
                 rng.standard_normal(b.shape) * 0.1, b.dtype
             )
+    if quantized:
+        jp = jquantize(jp)
     return jcfg, cfg, jp, tllama.params_from_jax(jax.device_get(jp))
 
 
@@ -169,13 +179,47 @@ def test_forward_carry_protocol_matches_jax(name):
                                atol=1e-4)
 
 
+BF16_LOGIT_ATOL = 5e-3   # see the module docstring
+
+
 @pytest.mark.parametrize("name", ["llama", "qwen2_bias"])
 def test_forward_bf16_within_stated_tolerance(name):
     jcfg, cfg, jp, tp = _pair(name, dtype="bfloat16")
     tok, pos = _tokens(cfg)
     j_logits, _, t_logits, _ = _prefill_logits(jcfg, cfg, jp, tp, tok, pos)
     np.testing.assert_allclose(t_logits.numpy(),
-                               np.asarray(j_logits, np.float32), atol=2e-2)
+                               np.asarray(j_logits, np.float32),
+                               atol=BF16_LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_forward_int8_weights_matches_jax(name):
+    """The forward on an int8 tree (every projection int8 with f32
+    scales; tied configs project logits through the row-quantized
+    embedding, untied ones through the int8 ``lm_head``) matches the JAX
+    forward on the same quantized tree."""
+    jcfg, cfg, jp, tp = _pair(name, quantized=True)
+    assert tp["layers"]["w_up"]["weight"].dtype == torch.int8
+    assert ("embed_scale" in tp["embed"]) and (
+        cfg.tie_word_embeddings or tp["lm_head"]["weight"].dtype ==
+        torch.int8)
+    tok, pos = _tokens(cfg)
+    j_logits, j_kv, t_logits, t_kv = _prefill_logits(jcfg, cfg, jp, tp,
+                                                     tok, pos)
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               atol=1e-4)
+    for t, j in zip(t_kv, j_kv):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["llama", "qwen2_bias", "tied_softcap"])
+def test_forward_int8_weights_bf16_within_stated_tolerance(name):
+    jcfg, cfg, jp, tp = _pair(name, dtype="bfloat16", quantized=True)
+    tok, pos = _tokens(cfg)
+    j_logits, _, t_logits, _ = _prefill_logits(jcfg, cfg, jp, tp, tok, pos)
+    atol = BF16_LOGIT_ATOL * (2 if cfg.tie_word_embeddings else 1)
+    np.testing.assert_allclose(t_logits.numpy(),
+                               np.asarray(j_logits, np.float32), atol=atol)
 
 
 def test_unported_families_raise():

@@ -23,6 +23,7 @@ from helix_tpu.ops import paged as jpaged
 from helix_tpu.ops import quant as jquant
 from helix_tpu.ops import rope as jrope
 from helix_tpu.ops.paged_kernel import ragged_paged_attention_tpu
+from helix_tpu_torch.device import torch_dtype
 from helix_tpu_torch.engine import kv_cache as tkv
 from helix_tpu_torch.ops import attention as tatt
 from helix_tpu_torch.ops import norms as tnorms
@@ -97,16 +98,50 @@ def test_dense(bias):
     _close(got, want)
 
 
+def _bf16(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+def _from_jax(a):
+    from helix_tpu_torch.models.llama import _to_tensor
+
+    return _to_tensor(np.asarray(a))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["float", "float_bias", "int8",
+                                  "int8_bias"])
+def test_dense_rounds_once_like_reference(dtype, form):
+    """Product in f32, int8 scale and bias in f32, one rounding: equal to
+    the reference bit for bit in both dtypes (the bf16 GEMM of the card
+    is held to the same form in ``tests/test_torch_cuda.py``)."""
+    rng = np.random.default_rng(13)
+    jdt = jnp.dtype(dtype)
+    x = jnp.asarray(rng.standard_normal((4, 7, 64)), jdt)
+    w = jnp.asarray(rng.standard_normal((64, 96)) * 0.1, jdt)
+    p = jquant.quantize_tensor(w) if form.startswith("int8") else {
+        "weight": w}
+    if form.endswith("bias"):
+        p["bias"] = jnp.asarray(rng.standard_normal((96,)), jdt)
+    want = np.asarray(jquant.maybe_dequant_dense(x, p).astype(jnp.float32))
+    got = tquant.maybe_dequant_dense(
+        _from_jax(x), {k: _from_jax(v) for k, v in p.items()})
+    assert got.dtype == torch_dtype(dtype)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 def test_dense_refuses_int8_and_lora():
+    """LoRA forms (single graft and the pool, over float or int8 weights)
+    are not ported (A13); int8 weights alone are served."""
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tquant.maybe_dequant_dense(
-            x, {"weight": torch.zeros(4, 4, dtype=torch.int8)}
-        )
-    with pytest.raises(NotImplementedError, match="A13"):
-        tquant.maybe_dequant_dense(
-            x, {"weight": torch.zeros(4, 4), "lora_a": torch.zeros(4, 2)}
-        )
+    w8 = {"weight": torch.zeros(4, 4, dtype=torch.int8),
+          "scale": torch.ones(1, 4)}
+    assert tquant.maybe_dequant_dense(x, w8).shape == (2, 4)
+    for p in (w8, {"weight": torch.zeros(4, 4)}):
+        with pytest.raises(NotImplementedError, match="A13"):
+            tquant.maybe_dequant_dense(x, {**p, "lora_a": torch.zeros(4, 2)})
+        with pytest.raises(NotImplementedError, match="A13"):
+            tquant.maybe_dequant_dense(x, p, adapter_ids=torch.zeros(2))
 
 
 def test_embed_lookup():
@@ -115,6 +150,94 @@ def test_embed_lookup():
     tok = rng.integers(0, 50, size=(2, 9)).astype(np.int32)
     got = tquant.embed_lookup({"weight": _t(w)}, _t(tok).long(), torch.float32)
     _close(got, jquant.embed_lookup({"weight": w}, tok, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_lookup_row_quantized(dtype):
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((50, 16)).astype(np.float32)
+    jp = jquant.quantize_params({"embed": {"weight": jnp.asarray(w)}})
+    tp = tquant.quantize_params({"embed": {"weight": _t(w)}})
+    tok = rng.integers(0, 50, size=(2, 9)).astype(np.int32)
+    want = jquant.embed_lookup(jp["embed"], tok, jnp.dtype(dtype))
+    got = tquant.embed_lookup(tp["embed"], _t(tok).long(), torch_dtype(dtype))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# int8 codecs
+# ---------------------------------------------------------------------------
+
+
+def test_quantize_kv_matches_jax():
+    """Codes and scales equal to JAX's for the same f32 input (both
+    divide in f32 and round half to even): no last-bit allowance is
+    needed on this input, all-zero slots (scale at KV_SCALE_EPS) and
+    values of widely different magnitudes included."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((3000, 4, 16)).astype(np.float32)
+    x *= rng.random((3000, 4, 1)).astype(np.float32) * 5
+    x[0] = 0.0
+    x[1, 0] = 1e-12
+    jq, js = jquant.quantize_kv(jnp.asarray(x))
+    tq, ts = tquant.quantize_kv(_t(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    assert tquant.KV_SCALE_EPS == jquant.KV_SCALE_EPS
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tquant.dequantize_kv(tq, ts).numpy(),
+        np.asarray(jquant.dequantize_kv(jq, js)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("over", [{}, {"tie_word_embeddings": True},
+                                  {"attention_bias": True, "qk_norm": True}],
+                         ids=["untied", "tied", "bias_qknorm"])
+def test_quantize_params_matches_jax(dtype, over):
+    """Same tree, same int8 codes and f32 scales: per output channel for
+    the [L, in, out] stacks (reduced over the input axis only), per row
+    for the embedding, norms and biases untouched."""
+    import jax
+
+    from helix_tpu.models import llama as jllama
+    from helix_tpu.models.common import ModelConfig as JModelConfig
+    from helix_tpu_torch.models.llama import params_from_jax
+
+    jcfg = JModelConfig.tiny(dtype=dtype, **over)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(2))
+    want = jax.device_get(jquant.quantize_params(jp))
+    got = tquant.quantize_params(params_from_jax(jax.device_get(jp)))
+    flat = jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat) == len(jax.tree_util.tree_leaves(got))
+    for path, leaf in flat:
+        t = got
+        for k in path:
+            t = t[k.key]
+        ref = _from_jax(leaf)
+        assert t.dtype == ref.dtype and t.shape == ref.shape, path
+        assert torch.equal(t, ref), path
+    assert got["layers"]["wq"]["scale"].shape == (
+        jcfg.num_layers, 1, jcfg.num_heads * jcfg.head_dim)
+    assert got["embed"]["embed_scale"].shape == (jcfg.vocab_size, 1)
+
+
+def test_quantize_tensor_chunks_give_the_same_codes(monkeypatch):
+    """Quantizing in column blocks (how a full-width stack is quantized
+    without an f32 copy of it) gives the codes and scales of one pass."""
+    rng = np.random.default_rng(8)
+    w = _t(rng.standard_normal((3, 40, 24)).astype(np.float32))
+    whole = tquant.quantize_tensor(w)
+    monkeypatch.setattr(tquant, "_CHUNK_ELEMS", 40 * 5)
+    blocks = tquant.quantize_tensor(w)
+    for k in ("weight", "scale"):
+        assert torch.equal(whole[k], blocks[k])
+    want = jquant.quantize_tensor(jnp.asarray(w.numpy()))
+    np.testing.assert_array_equal(whole["weight"].numpy(),
+                                  np.asarray(want["weight"]))
+    np.testing.assert_array_equal(whole["scale"].numpy(),
+                                  np.asarray(want["scale"]))
 
 
 # ---------------------------------------------------------------------------
@@ -259,10 +382,25 @@ def test_ragged_nan_garbage_does_not_leak():
 
 
 def test_paged_decode_reference():
+    _paged_decode_case(quantized=False)
+
+
+def test_paged_decode_reference_int8():
+    _paged_decode_case(quantized=True)
+
+
+def _paged_decode_case(quantized):
     rng = np.random.default_rng(9)
     N, P, KVH, D, H, B, maxP = 12, 4, 2, 16, 4, 3, 3
     kp = rng.standard_normal((N, P, KVH, D)).astype(np.float32)
     vp = rng.standard_normal((N, P, KVH, D)).astype(np.float32)
+    kw, tkw = {}, {}
+    if quantized:
+        (kp, ks), (vp, vs) = (
+            [np.array(a) for a in jquant.quantize_kv(jnp.asarray(x))]
+            for x in (kp, vp))
+        kw = dict(k_scale=ks, v_scale=vs)
+        tkw = {n: _t(a) for n, a in kw.items()}
     tables = rng.permutation(np.arange(1, N))[: B * maxP].reshape(B, maxP)
     tables = tables.astype(np.int32)
     lengths = np.array([0, 5, 11], np.int32)
@@ -270,21 +408,105 @@ def test_paged_decode_reference():
     kn = rng.standard_normal((B, KVH, D)).astype(np.float32)
     vn = rng.standard_normal((B, KVH, D)).astype(np.float32)
     want = jpaged.paged_decode_attention_reference(
-        q, kp, vp, tables, lengths, kn, vn
+        q, kp, vp, tables, lengths, kn, vn, **kw
     )
     got = tpaged.paged_decode_attention_reference(
-        _t(q), _t(kp), _t(vp), _t(tables), _t(lengths), _t(kn), _t(vn)
+        _t(q), _t(kp), _t(vp), _t(tables), _t(lengths), _t(kn), _t(vn),
+        **tkw
     )
     _close(got, want)
 
 
 def test_ragged_refuses_tiered_and_int8():
+    """Tiered arguments are not ported (A14); an int8 scale pool comes
+    with its partner or not at all; unknown arguments raise."""
     args = _ragged_case(3)
     targs = tuple(_t(a) if isinstance(a, np.ndarray) else a for a in args)
     with pytest.raises(NotImplementedError, match="A14"):
         tpaged.ragged_paged_attention(*targs, span_lo=targs[8])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpaged.ragged_paged_attention(*targs, k_scale=targs[3])
+    with pytest.raises(ValueError, match="together"):
+        tpaged.ragged_paged_attention(*targs, k_scale=targs[3][..., 0])
+    with pytest.raises(TypeError, match="unknown"):
+        tpaged.ragged_paged_attention(*targs, k_scales=targs[3])
+
+
+def _int8_case(seed, **kw):
+    """A ragged case over int8 pools quantized by the reference."""
+    case = list(_ragged_case(seed, **kw))
+    kq, ks = jquant.quantize_kv(jnp.asarray(case[3]))
+    vq, vs = jquant.quantize_kv(jnp.asarray(case[4]))
+    case[3], case[4] = np.array(kq), np.array(vq)
+    return case, np.array(ks), np.array(vs)
+
+
+@pytest.mark.parametrize("seed", [3, 4, 11])
+def test_ragged_int8_plain_matches_jax_reference(seed):
+    case, ks, vs = _int8_case(seed)
+    q, k_new, v_new, kp, vp, layer, t0, q_len, hist, tables = case
+    jargs = (q, k_new, v_new, kp, vp, jnp.int32(layer), jnp.asarray(t0),
+             jnp.asarray(q_len), jnp.asarray(hist), jnp.asarray(tables))
+    ref = np.asarray(jpaged.ragged_paged_attention_reference(
+        *jargs, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    targs = (_t(q), _t(k_new), _t(v_new), _t(kp), _t(vp), layer, _t(t0),
+             _t(q_len), _t(hist), _t(tables))
+    kw = dict(k_scale=_t(ks), v_scale=_t(vs))
+    live = _live(t0, q_len)
+    for got in (
+        tpk.ragged_paged_attention_plain(*targs, **kw),
+        tpk.ragged_paged_attention(*targs, **kw),
+        tpaged.ragged_paged_attention(*targs, **kw),
+        tpaged.ragged_paged_attention(*targs, backend="reference", **kw),
+        tpaged.ragged_paged_attention_reference(*targs, **kw),
+    ):
+        _close(np.asarray(got)[live], ref[live])
+
+
+def test_ragged_int8_plain_matches_pallas_interpret():
+    """The quantized Pallas kernel in interpret mode (as
+    ``tests/test_engine.py`` runs it) on a verify-width row plus a decode
+    row, f32: in-register dequant of int8 pages equals the port's plain
+    version."""
+    rng = np.random.default_rng(21)
+    KVH, H, D, P, L, N = 2, 4, 128, 4, 3, 16
+    k_f = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    kq, ks = (np.array(a) for a in jquant.quantize_kv(jnp.asarray(k_f)))
+    vq, vs = (np.array(a) for a in jquant.quantize_kv(jnp.asarray(k_f + 0.5)))
+    T = 4
+    q = rng.standard_normal((T, H, D)).astype(np.float32)
+    k_new = rng.standard_normal((T, KVH, D)).astype(np.float32)
+    v_new = rng.standard_normal((T, KVH, D)).astype(np.float32)
+    tables = np.array([[3, 5, 7, 0], [9, 2, 0, 0]], np.int32)
+    t0 = np.array([0, 3], np.int32)
+    q_len = np.array([3, 1], np.int32)       # verify row + decode row
+    hist = np.array([11, 5], np.int32)
+    pallas = ragged_paged_attention_tpu(
+        q, k_new, v_new, kq, vq, jnp.int32(1), t0, q_len, hist, tables,
+        interpret=True, k_scale=ks, v_scale=vs)
+    got = tpk.ragged_paged_attention(
+        _t(q), _t(k_new), _t(v_new), _t(kq), _t(vq), 1, _t(t0),
+        _t(q_len), _t(hist), _t(tables), k_scale=_t(ks), v_scale=_t(vs))
+    _close(got, pallas)
+
+
+def test_ragged_int8_bf16_rounds_history_like_reference():
+    """In bf16 the plain version casts the f32-dequantized history to bf16
+    (the reference oracle's rounding point) before the softmax."""
+    case, ks, vs = _int8_case(4)
+    q, k_new, v_new, kp, vp, layer, t0, q_len, hist, tables = case
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k_new, v_new)]
+    ref = jpaged.ragged_paged_attention_reference(
+        *jb, kp, vp, jnp.int32(layer), jnp.asarray(t0), jnp.asarray(q_len),
+        jnp.asarray(hist), jnp.asarray(tables), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    got = tpk.ragged_paged_attention_plain(
+        *[_from_jax(a) for a in jb], _t(kp), _t(vp), layer, _t(t0),
+        _t(q_len), _t(hist), _t(tables), k_scale=_t(ks), v_scale=_t(vs))
+    live = _live(t0, q_len)
+    # one bf16 ulp of the value (two libraries' f32 softmax sums)
+    np.testing.assert_allclose(
+        got.float().numpy()[live],
+        np.asarray(ref.astype(jnp.float32))[live], rtol=2.0 ** -7,
+        atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -327,3 +549,39 @@ def test_write_kv_matches_jax_outside_garbage_page():
     for g, w in ((got.k_pages, want.k_pages), (got.v_pages, want.v_pages)):
         np.testing.assert_array_equal(g.numpy()[:, 1:],
                                       np.asarray(w)[:, 1:])
+
+
+def test_write_kv_int8_pools_byte_equal_to_jax():
+    """Quantize on write: int8 codes and the f32 scale rows land at the
+    same fused index as in the reference, byte for byte, outside the
+    garbage page (padding writes race there)."""
+    from helix_tpu.models.common import ModelConfig as JModelConfig
+    from helix_tpu_torch.models.common import ModelConfig
+
+    rng = np.random.default_rng(12)
+    jcfg = JModelConfig.tiny(dtype="float32")
+    cc = dict(num_pages=10, page_size=4, max_pages_per_seq=4, dtype="int8")
+    jc = jkv.PagedKVCache.create(jcfg, jkv.CacheConfig(**cc))
+    tc = tkv.PagedKVCache.create(ModelConfig.tiny(dtype="float32"),
+                                 tkv.CacheConfig(**cc), "cpu")
+    assert tc.quantized and tc.k_pages.dtype == torch.int8
+    assert tc.k_scale.shape == tuple(jc.k_scale.shape)
+    assert len(tc.carry()) == 4
+    assert tkv.PagedKVCache.from_carry(tc.carry()).v_scale is tc.v_scale
+    L, KVH, D = jcfg.num_layers, jcfg.num_kv_heads, jcfg.head_dim
+    B, S = 2, 6
+    kn = rng.standard_normal((L, B, S, KVH, D)).astype(np.float32)
+    vn = (kn + 1.0).astype(np.float32)
+    table = np.array([[3, 5, 0, 0], [7, 8, 9, 0]], np.int32)
+    pos = np.array([np.arange(S), np.arange(2, 2 + S)], np.int32)
+    pages, offs = jkv.slot_to_page_offset(pos, table, 4)
+    valid = np.ones((B, S), bool)
+    valid[0, 4:] = False                     # padding -> garbage page 0
+    want = jkv.write_kv(jc, kn, vn, pages, offs, valid)
+    got = tkv.write_kv(tc, _t(kn), _t(vn), _t(np.array(pages)),
+                       _t(np.array(offs)), _t(valid))
+    assert got.k_scale is tc.k_scale          # written in place
+    for g, w in ((got.k_pages, want.k_pages), (got.v_pages, want.v_pages),
+                 (got.k_scale, want.k_scale), (got.v_scale, want.v_scale)):
+        np.testing.assert_array_equal(g.numpy()[:, 1:], np.asarray(w)[:, 1:])
+        assert g.numpy()[:, 1:].tobytes() == np.asarray(w)[:, 1:].tobytes()

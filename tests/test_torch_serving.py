@@ -197,3 +197,48 @@ def test_served_model_refuses_attention_backend_switch():
     with pytest.raises(ValueError, match="attn_backend"):
         cli_main(["serve-node", "--model", MODEL, "--port", "0",
                   "--device", "cpu", "--engine", "attn_backend=reference"])
+
+
+def test_int8_profile_entry_serves_int8_weights_and_kv(tmp_path):
+    """A profile entry with ``quantization: int8`` and ``engine:
+    {kv_cache_dtype: int8}`` (the reference's int8 serving fields) builds
+    int8 weights and an int8 pool, and answers a chat over HTTP."""
+    from helix_tpu_torch.cli import _model_specs
+
+    prof = tmp_path / "p.json"
+    prof.write_text(json.dumps({"models": [{
+        "name": MODEL, "quantization": "int8",
+        "engine": {**ENGINE, "kv_cache_dtype": "int8"},
+        "model_overrides": {"dtype": "float32"},
+    }]}))
+    args = type("A", (), {"profile": str(prof), "engine": None,
+                          "model": None})
+    (spec,) = _model_specs(args)
+    assert spec["quantization"] == "int8"
+    served = build_served_model(device="cpu", seed=3, **spec)
+    registry = ModelRegistry()
+    registry.register(served)
+    httpd = OpenAIServer(registry, inter_token_timeout=60).start()
+    try:
+        eng = served.loop.engine
+        assert eng.params["layers"]["wq"]["weight"].dtype == torch.int8
+        assert eng.cache.quantized
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        # a seeded sampled request reproduces its text (a prompt under one
+        # page: a prefix-cache hit would attend the quantized history, a
+        # legitimately different input)
+        body = {"model": MODEL, "prompt": "hi", "max_tokens": 6,
+                "temperature": 0.8, "seed": 4}
+        status, _, text = _post(url, "/v1/completions", body)
+        again = _post(url, "/v1/completions", body)[2]
+        assert status == 200
+        assert (json.loads(text)["choices"][0]["text"]
+                == json.loads(again)["choices"][0]["text"])
+        assert eng.prefix_cache_hits == 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        registry.unregister(MODEL)
+    with pytest.raises(ValueError, match="quantization"):
+        build_served_model(MODEL, device="cpu", engine=ENGINE,
+                           quantization="int4")
