@@ -8,19 +8,23 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA
-   version, and an ``nvcc`` build of both kernels from ``helix_tpu_torch/
-   csrc/`` (one process per source, started together);
+   version, an ``nvcc`` build of both kernels from ``helix_tpu_torch/
+   csrc/`` (one process per source, started together), and each kernel's
+   registers, local (spill) memory, shared memory per block and blocks
+   per SM at the main path's shapes;
 2. K2 (flash attention), 3. K1 (ragged paged attention) and 3b. K1's
    int8-pool form: each kernel's wrapper on the card at Llama-3-8B
    attention widths (H 32, KVH 8, D 128, bf16; int8 pools quantized by
    the port's ``quantize_kv``) and at the shapes the serving path gives
-   it, held against its plain PyTorch version (per element, one bf16 ulp
-   of the plain value; live tokens only) and shown to fail that check on
-   planted faults (a key too many or too few; for int8, scales read from
-   the neighbouring slot), timed with CUDA events beside the plain
-   version, one PyTorch library call (``scaled_dot_product_attention``,
-   a yardstick the port never calls) and the least time the card could
-   take (``bound_ms``);
+   it, held against its plain PyTorch version on live tokens (per
+   element: K1 to one bf16 ulp of the plain value; K2, which rounds P to
+   bf16 as the TPU kernel does, to ``flash_error_limit``) and shown to
+   fail that check on planted faults (a key too many or too few; for
+   int8, scales read from the neighbouring slot), K1 also with histories
+   at the edges of its split over pages, timed with CUDA events beside
+   the plain version, one PyTorch library call
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   and the least time the card could take (``bound_ms``);
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -81,13 +85,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+# GPU clock cycles of the sleep kernel queued ahead of each timed call
+SLEEP_CYCLES_PER_CALL = 2_000_000
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = True) -> float:
+    """Mean milliseconds per call, CUDA events around ``iters`` calls.
+
+    ``queued``: a sleep kernel first holds the stream while the host
+    enqueues all the calls, so the events bracket the device's work back
+    to back -- the kernel's time, not the rate at which the host issues
+    it (a wrapper's Python checks can take longer than a small kernel).
+    Otherwise the calls are timed as the host issues them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -113,30 +129,32 @@ def max_err(got, want) -> float:
     return err
 
 
-def tol_ratio(got, want) -> float:
-    """Worst |got - want| / (BF16_ATOL + BF16_RTOL |want|): 1 is the limit."""
+def tol_ratio(got, want, limit=None) -> float:
+    """Worst |got - want| / limit: 1 is the limit.  The default limit is
+    one bf16 ulp, BF16_ATOL + BF16_RTOL |want|; K2 passes
+    ``flash_error_limit``'s per-element tensor."""
     got, want = got.float(), want.float()
-    ratio = ((got - want).abs() / (BF16_ATOL + BF16_RTOL * want.abs()))
-    ratio = ratio.max().item()
+    if limit is None:
+        limit = BF16_ATOL + BF16_RTOL * want.abs()
+    ratio = ((got - want).abs() / limit).max().item()
     if not np.isfinite(ratio):
         raise AssertionError("non-finite kernel output on live tokens")
     return ratio
 
 
-def check(label, got, want) -> tuple:
+def check(label, got, want, limit=None) -> tuple:
     """(max_abs_err, worst tolerance ratio); raises past the limit."""
-    err, ratio = max_err(got, want), tol_ratio(got, want)
+    err, ratio = max_err(got, want), tol_ratio(got, want, limit)
     if ratio > 1.0:
         raise AssertionError(
-            f"{label}: error {ratio:.2f}x the limit (max_abs_err {err:.3e}, "
-            f"limit {BF16_ATOL} + {BF16_RTOL} |want|)")
+            f"{label}: error {ratio:.2f}x the limit (max_abs_err {err:.3e})")
     return err, ratio
 
 
-def planted(label, got, want) -> float:
+def planted(label, got, want, limit=None) -> float:
     """A deliberately wrong input must fail ``check``: shows the limit is
     tight enough to see a key too many or too few."""
-    ratio = tol_ratio(got, want)
+    ratio = tol_ratio(got, want, limit)
     if ratio <= 1.0:
         raise AssertionError(
             f"planted fault {label} passed the check ({ratio:.2f}x the "
@@ -160,10 +178,10 @@ def phase_device() -> dict:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     log(f"[device] nvidia-smi: {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {name} count {torch.cuda.device_count()}")
+        f"device {kind} count {torch.cuda.device_count()}")
     t0 = time.monotonic()
     compile_s = build_all([K1, K2])
     log(f"[build] nvcc for both kernels: {compile_s:.1f} s compile, "
@@ -176,6 +194,22 @@ def phase_device() -> dict:
             log(f"[build] {k.name}: {len(regs)} instantiations, at most "
                 f"{max(regs)} registers, spill stores "
                 f"{max(int(s) for s in spills) if spills else 0} bytes")
+        # each instantiation with a stack frame or spills, by name
+        for fn, frame, spill in re.findall(
+                r"Function properties for (\S+)\s+(\d+) bytes stack "
+                r"frame, (\d+) bytes spill stores", k.build_log):
+            if int(frame) or int(spill):
+                log(f"[build]   {fn}: {frame} B stack frame, {spill} B "
+                    "spill stores")
+    infos = kernel_infos()
+    for kname, info in infos.items():
+        log(f"[build] {kname} at the main path's shapes ({DESIGN[kname]}): "
+            f"{info['regs']} registers, {info['spill_bytes']} B local (spill) "
+            "memory, "
+            f"{info['smem_bytes']} B shared memory per block, "
+            f"{info['blocks_per_sm']} blocks per SM")
+        if info["blocks_per_sm"] < 1:
+            raise AssertionError(f"{kname}: a block does not fit an SM")
     # one rounding per projection: a bf16 GEMM with a float32 output
     a = torch.ones((2, 8), device="cuda", dtype=torch.bfloat16)
     out = matmul_f32(a, a.T.contiguous())
@@ -183,7 +217,33 @@ def phase_device() -> dict:
         raise AssertionError("bf16 GEMM with float32 output is wrong")
     log("[device] torch.mm(..., out_dtype=torch.float32) on bf16: "
         "available (one rounding per projection)")
-    return {"smi": smi, "kind": name}
+    return {"smi": smi, "kind": kind, "infos": infos}
+
+
+DESIGN = {
+    "ragged_paged_attention":
+        "split-kv over 512-token page spans, cp.async 3-stage ring, f32 "
+        "CUDA-core math, f32 merge pass",
+    "ragged_paged_attention_int8":
+        "split-kv over 512-token page spans, cp.async 3-stage ring of int8 "
+        "codes + f32 scales, f32 CUDA-core math, f32 merge pass",
+    "flash_attention":
+        "wgmma m64n64k16 (SS) for QK^T + m64n128k16 (RS, P in registers) "
+        "for PV, cp.async 2-stage 128B-swizzled bf16 ring, tile skipping",
+}
+
+
+def kernel_infos() -> dict:
+    """Each kernel's launch resources at the shapes phases 2-4 give it."""
+    from helix_tpu_torch.ops.attention import flash_kernel_info
+    from helix_tpu_torch.ops.paged_kernel import ragged_kernel_info
+
+    return {
+        "ragged_paged_attention": ragged_kernel_info(8, H, KVH, D, 16, 256),
+        "ragged_paged_attention_int8": ragged_kernel_info(
+            8, H, KVH, D, 16, 256, quantized=True),
+        "flash_attention": flash_kernel_info(D),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +257,7 @@ def _k2_case(label, seg_lens, gen):
     from helix_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
+        flash_error_limit,
     )
 
     dev = "cuda"
@@ -217,11 +278,17 @@ def _k2_case(label, seg_lens, gen):
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, **kw)
-    err, ratio = check(f"K2 {label}", got, want)
-    # planted fault: every query loses its own (diagonal) key
+    # P is rounded to bf16 before P.V, as the TPU kernel does: the limit
+    # adds that rounding's bound, 2**-8 plain(q, k, |v|)
+    limit = flash_error_limit(q, k, v, **kw)
+    err, ratio = check(f"K2 {label}", got, want, limit)
+    # planted fault: every query loses its own (diagonal) key; row 0 of
+    # each segment loses its only one
     fault = planted("K2 diagonal key dropped", flash_attention(
-        q, k, v, **{**kw, "kv_positions": pos + 1}), want)
+        q, k, v, **{**kw, "kv_positions": pos + 1}), want, limit)
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10)
+    call_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), 10,
+                      queued=False)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 3, 1)
     # library yardstick: SDPA with the equivalent boolean mask
     qt = q.transpose(1, 2)
@@ -237,11 +304,13 @@ def _k2_case(label, seg_lens, gen):
     pairs = sum(n * (n + 1) // 2 for n in seg_lens)
     b_ms, b_by = bound(4.0 * H * D * pairs, nbytes(q, k, v, got, *meta))
     row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
-               planted_fault_ratio=fault, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               planted_fault_ratio=fault, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
     log(f"[K2] {label}: max_abs_err {err:.3e}, {ratio:.3f}x the limit "
+        "(flash_error_limit) "
         f"(sdpa {lib_err:.3e}; planted fault {fault:.1f}x) kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"{ms:.4f} (as the host issues calls {call_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
         f"bound_ms {b_ms:.4f} ({b_by})")
     return row
 
@@ -317,6 +386,8 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
                 *args, k_scale=rolled[0], v_scale=rolled[1]), want)
         del rolled
     ms = cuda_ms(lambda: ragged_paged_attention(*args, **kw), 20)
+    call_ms = cuda_ms(lambda: ragged_paged_attention(*args, **kw), 20,
+                      queued=False)
     plain_ms = cuda_ms(lambda: ragged_paged_attention_plain(*args, **kw),
                        3, 1)
     # library yardstick: SDPA over each row's gathered (and, for int8,
@@ -364,7 +435,8 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
                        + nbytes(q, kn, vn, got, *meta[:3]))
     row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
                planted_fault_ratio=min(faults.values()),
-               planted_faults=faults, ms=ms, plain_ms=plain_ms,
+               planted_faults=faults, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, **extra)
     bf16_note = ("" if scales is None else
                  f"; vs the bf16 plain version "
@@ -372,7 +444,8 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
     log(f"[{tag}] {label}: max_abs_err {err:.3e}, {ratio:.3f}x the limit"
         f"{bf16_note} (planted faults "
         + ", ".join(f"{k} {v:.1f}x" for k, v in faults.items())
-        + f") kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        + f") kernel_ms {ms:.4f} (as the host issues calls {call_ms:.4f})"
+        f" plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} bound_ms {b_ms:.6f} ({b_by})")
     return row
 
@@ -384,6 +457,15 @@ def _k1_cases(pool, gen, rng, scales=None) -> list:
         _k1_case("mixed 256-token row (hist 512) + 7 decode rows",
                  [256] + [1] * 7,
                  [512] + list(rng.integers(1000, 4000, size=7)),
+                 pool, gen, rng, scales),
+        # the split's edges: hist at a 512-token span boundary and one
+        # either side, and at the pool's full maxP * P = 4096
+        _k1_case("decode 8 rows at split edges",
+                 [1] * 8, [511, 512, 513, 1023, 1025, 4095, 4096, 2048],
+                 pool, gen, rng, scales),
+        _k1_case("mixed two 256-token rows at split edges + 6 decode rows",
+                 [256, 256] + [1] * 6, [511, 513, 512, 4096, 4095, 0, 1,
+                                        1024],
                  pool, gen, rng, scales),
     ]
 
@@ -492,6 +574,38 @@ def _seeded_twice(base) -> str:
             f"seeded temperature {SEEDED['temperature']} request did not "
             f"reproduce: {texts[0]!r} != {texts[1]!r}")
     return texts[0]
+
+
+def _profile_batch(base, prompts) -> dict:
+    """Where a decode-heavy batch's device time goes: 8 concurrent chats
+    of 32 new tokens under ``torch.profiler`` (after the measured batch,
+    so tracing does not touch its tok/s).  Returns the wall time, the
+    device time summed over kernels, the idle share and the kernels that
+    take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            list(ex.map(lambda p: _chat(base, p, 32), prompts))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    by_kernel = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) / 1e3   # ms
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+
+    def share(word):
+        return sum(t for k, t in by_kernel.items() if word in k) / busy_ms
+
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "k1_share": share("ragged_"), "k2_share": share("flash_"),
+            "top": [(k[:70], t) for k, t in top]}
 
 
 def _threefry_cost(eng) -> dict:
@@ -632,15 +746,21 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
         launches = {"ragged_paged_attention": K1.launches,
                     "ragged_paged_attention_int8": K1_INT8.launches,
                     "flash_attention": K2.launches}
+        # the 16 requests' own numbers, before the traced batch
+        ttfts = sorted(eng.recent_ttfts)
+        mixed = eng.num_mixed_steps - mixed0
+        hits = eng.prefix_cache_hits - hits0
+        try:    # the trace informs PERF.md; its absence fails nothing
+            trace = _profile_batch(base, [p.replace("Request", "Traced")
+                                          for p in prompts])
+        except Exception as e:  # noqa: BLE001
+            trace = {"error": repr(e)}
     finally:
         httpd.shutdown()
         httpd.server_close()
         served.loop.stop()
         registry.unregister(MODEL)
-    ttfts = sorted(eng.recent_ttfts)
     ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
-    mixed = eng.num_mixed_steps - mixed0
-    hits = eng.prefix_cache_hits - hits0
     mem["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     draw = _threefry_cost(eng)
     if quantization is None:
@@ -653,6 +773,15 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
         f"the 8-chat batch ({batch_s:.2f} s); mixed steps {mixed}; prefix "
         f"hits {hits}; launches {launches}; device memory peak "
         f"{mem['peak_gib']:.2f} GiB")
+    if "error" in trace:
+        log(f"[{tag}] traced batch: not measured ({trace['error']})")
+    else:
+        log(f"[{tag}] traced 8-chat batch (32 new tokens each): wall "
+            f"{trace['wall_ms']:.1f} ms, device busy "
+            f"{trace['device_busy_ms']:.1f} ms (idle share "
+            f"{trace['idle_share']:.3f}); K1 {trace['k1_share']:.3f} and K2 "
+            f"{trace['k2_share']:.3f} of device time; top kernels (ms): "
+            + "; ".join(f"{k} {t:.1f}" for k, t in trace["top"]))
     log(f"[{tag}] seeded temperature {SEEDED['temperature']} request "
         f"reproduced ({seeded_text.count('<')} tokens: "
         f"{seeded_text[:48]}...); threefry: a sampled step's "
@@ -676,7 +805,7 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "answered": answered,
             "ttft_p50_ms": ttft_p50, "decode_tokens_per_s": decode_tps,
-            "memory": mem, "threefry": draw}
+            "memory": mem, "threefry": draw, "trace": trace}
 
 
 # ---------------------------------------------------------------------------
@@ -739,7 +868,7 @@ def phase_parity(int8: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches) -> dict:
+def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos) -> dict:
     def entry(name, source, replaces, rows):
         head = rows[0]
         return {
@@ -750,6 +879,10 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "smem_bytes": infos[name]["smem_bytes"],
+            "regs": infos[name]["regs"],
+            "blocks_per_sm": infos[name]["blocks_per_sm"],
+            "design": DESIGN[name],
             "cases": rows,
         }
 
@@ -796,10 +929,11 @@ def main(argv=None) -> int:
         }
         phase_parity()
         phase_parity(int8=True)
-    log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches)))
+    log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches,
+                               dev["infos"])))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": dev["kind"],
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

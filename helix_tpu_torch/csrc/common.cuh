@@ -1,5 +1,6 @@
-// Shared helpers for the port's attention kernels: type conversion and
-// the fp32 online-softmax steps both kernels run over shared memory.
+// Shared helpers for the port's attention kernels: type conversion, the
+// fp32 online-softmax steps of K2's float32 form, and the launch-resource
+// query both kernels' info entry points answer with.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -8,6 +9,8 @@
 #include <stdint.h>
 
 namespace helix {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // -0.7 * FLT_MAX, the reference's DEFAULT_MASK_VALUE: exp(mask - m) is
 // exactly 0 once a row has seen one live score.
@@ -67,6 +70,27 @@ __device__ __forceinline__ void accumulate_pv(float* acc, const float* p,
     for (int j = 0; j < n; ++j) a += pi[j] * v[j * D + d];
     acc[e] = a;
   }
+}
+
+// Resources of one kernel at one launch shape: out[0] dynamic shared
+// memory per block (bytes), out[1] registers per thread, out[2] blocks
+// that fit on one SM, out[3] local-memory (spill) bytes per thread.
+template <typename K>
+cudaError_t kernel_info(K kern, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  out[0] = (int)smem;
+  out[1] = attr.numRegs;
+  out[2] = blocks;
+  out[3] = (int)attr.localSizeBytes;
+  return err;
 }
 
 }  // namespace helix

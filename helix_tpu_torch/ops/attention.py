@@ -9,6 +9,9 @@ Port of ``helix_tpu/ops/attention.py``:
   on a CUDA tensor it launches the kernel, on a CPU tensor it runs
   ``flash_attention_plain``.  There is no fallback from the card to the
   plain version.
+- ``flash_error_limit`` — the per-element limit K2's bf16 form is held to
+  against its plain version (it rounds P to bf16 before P·V, as the
+  Pallas kernel does).
 - ``attention`` — the ``backend=`` dispatcher.
 
 Layout at every public function: q ``[B, Sq, H, D]``, k/v
@@ -34,6 +37,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _K2_ARGS = [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P]
+_K2_INFO_ARGS = [_I, _I, _P]
+# per-element limits against the plain version: one bf16 ulp of the value
+# (2**-7 relative), f32 summation-order noise near zero, and the rounding
+# unit of P's bf16 rounding (2**-8)
+BF16_RTOL = 2.0 ** -7
+ERR_ATOL = 1e-5
+P_ROUNDING = 2.0 ** -8
 
 
 def _repeat_kv(k, num_q_heads):
@@ -107,6 +117,36 @@ def flash_attention_plain(
         kv_segment_ids=kv_segment_ids, logits_soft_cap=logits_soft_cap,
         scale=scale,
     )
+
+
+def flash_error_limit(q, k, v, **kw):
+    """Per-element limit on |kernel - plain| for K2's bf16 form, float32,
+    the shape of the output.  ``kw`` are ``flash_attention``'s keywords.
+
+    The kernel rounds each weight p_j to bf16 before the P·V product, as
+    the TPU kernel does (``helix_tpu/ops/attention.py:165-166``), while
+    ``l`` sums the unrounded p_j.  A rounded weight is p_j (1 + d_j) with
+    |d_j| <= u = 2**-8, so the output moves by at most
+    ``u * sum_j p_j |v_j| / l`` -- the plain version run with |v| in place
+    of v.  Beside that term: one bf16 ulp of the plain value (both sides
+    round once to bf16) and 1e-5 of f32 summation-order noise:
+    ``1e-5 + 2**-7 |plain(q, k, v)| + 2**-8 plain(q, k, |v|)``."""
+    plain = flash_attention_plain(q, k, v, **kw).float()
+    spread = flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                   **kw)
+    return ERR_ATOL + BF16_RTOL * plain.abs() + P_ROUNDING * spread
+
+
+def flash_kernel_info(D: int, dtype=torch.bfloat16) -> dict:
+    """Launch resources of the K2 kernel for head dim D (needs the card):
+    shared memory per block, registers, blocks per SM, spills."""
+    info = (ctypes.c_int * 4)()
+    fn = K2.symbol("helix_flash_attention_info", _K2_INFO_ARGS)
+    err = fn(D, _KERNEL_DTYPES[dtype], ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"flash_attention info: cuda error {err}")
+    return dict(smem_bytes=info[0], regs=info[1], blocks_per_sm=info[2],
+                spill_bytes=info[3])
 
 
 def _i32(x, shape, device, default):

@@ -16,6 +16,10 @@ KVH]`` (the Pallas kernel's ``quantized=True`` form): history is
 dequantized in float32 as ``code * scale``; fresh K/V are attended raw.
 The kernel launches its int8 entry point for them and counts those
 launches apart, on ``K1_INT8``.
+
+On the card the history is split over blocks in spans of whole pages
+(``_k1_split``, from host-known shapes only) and the partial softmax
+states are merged in float32; the wrapper allocates that scratch.
 """
 
 from __future__ import annotations
@@ -34,8 +38,36 @@ K1_INT8 = KernelForm("ragged_paged_attention_int8", K1)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_K1_ARGS = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _I, _P]
-_K1_INT8_ARGS = [_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _P]
+_K1_ARGS = [_P] * 12 + [_I] * 11 + [ctypes.c_float, _I, _P]
+_K1_INT8_ARGS = [_P] * 14 + [_I] * 11 + [ctypes.c_float, _I, _P]
+_K1_INFO_ARGS = [_I] * 7 + [_P]
+# history tokens per split block: enough pages to keep a block's copies in
+# flight, few enough that decode rows of 1000-4000 tokens spread over
+# several blocks each
+SPAN_TOKENS = 512
+
+
+def _k1_split(maxP: int, P: int) -> tuple:
+    """``(pages_per_split, n_splits)``: the history axis ``[0, maxP * P)``
+    cut into ``n_splits`` spans of ``pages_per_split`` whole pages (the
+    last may be shorter), from shapes alone -- no look at the row
+    metadata, which would cost a host sync per layer."""
+    pps = max(1, min(maxP, SPAN_TOKENS // P))
+    return pps, -(-maxP // pps)
+
+
+def ragged_kernel_info(T: int, H: int, KVH: int, D: int, P: int, maxP: int,
+                       dtype=torch.bfloat16, quantized: bool = False) -> dict:
+    """Launch resources of K1's split kernel at these shapes (needs the
+    card): shared memory per block, registers, blocks per SM, spills."""
+    info = (ctypes.c_int * 4)()
+    fn = K1.symbol("helix_ragged_paged_attention_info", _K1_INFO_ARGS)
+    err = fn(T, H, KVH, D, _k1_split(maxP, P)[0], _KERNEL_DTYPES[dtype],
+             int(quantized), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention info: cuda error {err}")
+    return dict(smem_bytes=info[0], regs=info[1], blocks_per_sm=info[2],
+                spill_bytes=info[3])
 
 
 def _row_of_tokens(t0, q_len, T: int):
@@ -167,6 +199,11 @@ def ragged_paged_attention(
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention: tensors must be contiguous")
     out = torch.empty_like(q)
+    pps, n_splits = _k1_split(maxP, P)
+    part_ml = torch.empty((n_splits + 1, T, H, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((n_splits + 1, T, H, D), dtype=torch.float32,
+                           device=q.device)
     pools = [k_pages.data_ptr(), v_pages.data_ptr()]
     if quantized:
         form = K1_INT8
@@ -178,7 +215,8 @@ def ragged_paged_attention(
     err = fn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *pools,
         t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), T, H, KVH, D, N, P, R, maxP, int(layer),
+        out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), T, H, KVH,
+        D, N, P, R, maxP, int(layer), pps, n_splits,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         _KERNEL_DTYPES[dt], torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -11,7 +11,9 @@ runs on a machine that has only PyTorch:
 Tolerances: float32 ``atol 1e-4`` (fp32 online softmax vs one fp32
 softmax, different summation order); bf16 ``atol 1e-5, rtol 2**-7`` per
 element (both sides compute in f32 and round once to bf16, so they may
-differ by one bf16 ulp of the value).
+differ by one bf16 ulp of the value), except K2's bf16 form, which rounds
+P to bf16 before P.V as the TPU kernel does and is held to
+``flash_error_limit`` (that ulp plus ``2**-8 plain(q, k, |v|)``).
 Attention outputs are compared on live tokens only.  K1's int8 form
 dequantizes history in f32 and never rounds it to bf16; its bf16 cases
 are held to the plain version evaluated in f32 (the same arithmetic) and
@@ -70,8 +72,22 @@ def test_flash_kernel_matches_plain(cuda, dtype, D, H, KVH, S):
     assert tatt.K2.launches == before + 1
     want = tatt.flash_attention_plain(*args, **kw)
     live = torch.from_numpy(seg > 0).to(cuda)
-    torch.testing.assert_close(got[live].float(), want[live].float(),
-                               **TOL[dtype])
+    if dtype == torch.bfloat16:
+        _within_flash_limit(got, want, tatt.flash_error_limit(*args, **kw),
+                            live)
+    else:
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   **TOL[dtype])
+
+
+def _within_flash_limit(got, want, limit, live=None):
+    """K2's bf16 form rounds P to bf16 before P.V (as the TPU kernel
+    does): held per element to ``flash_error_limit``."""
+    err = (got.float() - want.float()).abs()
+    if live is not None:
+        err, limit = err[live], limit[live]
+    worst = (err / limit).max().item()
+    assert worst <= 1.0, f"{worst:.3f}x flash_error_limit"
 
 
 @pytest.mark.cuda
@@ -81,6 +97,61 @@ def test_flash_kernel_causal_soft_cap(cuda):
     got = tatt.flash_attention(*args, logits_soft_cap=3.0)
     want = tatt.flash_attention_plain(*args, logits_soft_cap=3.0)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _straddling(S, H, KVH, D, seed):
+    """One batch row whose segments straddle the 64-token tile edges."""
+    rng = np.random.default_rng(seed)
+    cuts = [c for c in (60, 70, 127, 129, 190, 250) if c < S] + [S]
+    pos = np.zeros((1, S), np.int32)
+    seg = np.zeros((1, S), np.int32)
+    start = 0
+    for i, c in enumerate(cuts):
+        pos[0, start:c] = np.arange(c - start)
+        seg[0, start:c] = i + 1
+        start = c
+    shapes = ((1, S, H, D), (1, S, KVH, D), (1, S, KVH, D))
+    qkv = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return qkv, pos, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,KVH,S,cap", [
+    (16, 4, 1, 65, None),      # group 4, ragged last tile of one row
+    (96, 8, 2, 200, None),     # 192-byte rows, group 4
+    (128, 8, 8, 129, None),    # group 1
+    (128, 16, 4, 300, 5.0),    # soft cap in bf16
+    (32, 4, 4, 64, 3.0),       # exactly one tile
+])
+def test_flash_kernel_bf16_edges(cuda, D, H, KVH, S, cap):
+    """Segments straddling tile edges, Sq not a multiple of the tile,
+    every head-dim padding class, group 1 and 4, soft cap: within
+    ``flash_error_limit``; positions shifted by one (each query loses its
+    own key) break it."""
+    (q, k, v), pos, seg = _straddling(S, H, KVH, D, seed=S + D)
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v)]
+    t = {n: torch.from_numpy(a).to(cuda) for n, a in
+         (("pos", pos), ("seg", seg))}
+    kw = dict(q_positions=t["pos"], kv_positions=t["pos"],
+              q_segment_ids=t["seg"], kv_segment_ids=t["seg"],
+              logits_soft_cap=cap)
+    got = tatt.flash_attention(*args, **kw)
+    want = tatt.flash_attention_plain(*args, **kw)
+    limit = tatt.flash_error_limit(*args, **kw)
+    _within_flash_limit(got, want, limit)
+    bad = tatt.flash_attention(*args, **{**kw, "kv_positions": t["pos"] + 1})
+    assert ((bad.float() - want.float()).abs() > limit).any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_bf16_causal_no_segments(cuda):
+    """Plain causal attention over several tiles (the causal tile skip)
+    and no segment ids."""
+    (q, k, v), _, _ = _packed(2, 333, 8, 2, 128, seed=12)
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v)]
+    got = tatt.flash_attention(*args)
+    _within_flash_limit(got, tatt.flash_attention_plain(*args),
+                        tatt.flash_error_limit(*args))
 
 
 def _ragged(seed, L, N, P, KVH, D, H, maxP, R):
@@ -199,6 +270,66 @@ def test_ragged_kernel_int8_matches_plain(cuda, dtype, D, H, KVH, P):
     assert torch.isfinite(got[live]).all()
     torch.testing.assert_close(got[live].float(), want[live].float(),
                                **TOL[dtype])
+
+
+def _ragged_edges(P, dtype, cuda, quantized, D=64, H=8, KVH=2):
+    """Rows at the split's edges: hist 0, one span exactly, a span + 1,
+    maxP * P - 1, a span - 1; a q_len 0 row between live rows; decode and
+    multi-token rows."""
+    span = tpk._k1_split(1 << 20, P)[0] * P
+    maxP = span // P + 8
+    hists = [0, span, span + 1, maxP * P - 1, span - 1, 37]
+    q_lens = [1, 3, 0, 1, 5, 17]
+    R, L = len(hists), 2
+    N = R * maxP + 1
+    rng = np.random.default_rng(P + D)
+    kp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    vp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    q_len = np.asarray(q_lens, np.int32)
+    t0 = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int32)
+    T = int(q_len.sum())
+    tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(R, maxP)
+    fresh = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+             .to(cuda, dtype) for sh in ((T, H, D), (T, KVH, D),
+                                         (T, KVH, D))]
+    meta = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(cuda)
+            for x in (t0, q_len, np.asarray(hists), tables)]
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(a, a + n) for a, n in zip(t0, q_len)])).to(cuda)
+    if quantized:
+        kq, ks = tquant.quantize_kv(torch.from_numpy(kp))
+        vq, vs = tquant.quantize_kv(torch.from_numpy(vp))
+        pools = [x.to(cuda) for x in (kq, vq)]
+        kw = dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))
+    else:
+        pools = [torch.from_numpy(x).to(cuda, dtype) for x in (kp, vp)]
+        kw = {}
+    return fresh, pools, meta, kw, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [4, 16])
+def test_ragged_kernel_split_edges(cuda, P, dtype, quantized):
+    """K1 (both pool forms) at the edges of its split over history pages
+    matches the plain version; one history slot too many or too few
+    breaks the limit."""
+    fresh, pools, meta, kw, live = _ragged_edges(P, dtype, cuda, quantized)
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta, **kw)
+    if quantized:
+        want = _int8_plain(fresh, pools, (kw["k_scale"], kw["v_scale"]),
+                           meta, 1)
+    else:
+        want = tpk.ragged_paged_attention_plain(*fresh, *pools, 1, *meta)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    for d in (-1, 1):
+        bad = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta[:2],
+                                         (meta[2] + d).clamp(min=0),
+                                         meta[3], **kw)
+        assert _breaks_limit(bad[live], want[live], dtype)
 
 
 def _breaks_limit(got, want, dtype):

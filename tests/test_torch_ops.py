@@ -298,6 +298,47 @@ def test_flash_attention_plain_matches_pallas_and_reference(seed):
         _close(np.asarray(got)[live], np.asarray(ref)[live])
 
 
+@pytest.mark.parametrize("D", [16, 64])
+def test_flash_error_limit_admits_pallas_bf16_and_catches_a_wrong_key(D):
+    """The Pallas kernel in bf16 rounds P to V's dtype before P.V, as K2's
+    bf16 form does: its output stays within ``flash_error_limit`` of the
+    port's plain version, while dropping each query's own key (row 0 of
+    every segment then has no key at all) breaks that limit."""
+    q, k, v, pos, seg = _packed_case(20 + D, B=1, S=128, H=4, KVH=2, D=D)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [_from_jax(a) for a in jb]
+    kw = dict(q_positions=pos, kv_positions=pos, q_segment_ids=seg,
+              kv_segment_ids=seg)
+    tkw = {n: _t(a) for n, a in kw.items()}
+    live = seg > 0
+    want = tatt.flash_attention_plain(*tb, **tkw).float().numpy()[live]
+    limit = tatt.flash_error_limit(*tb, **tkw).numpy()[live]
+
+    def ratio(kv_positions):
+        got = jatt.flash_attention(
+            *jb, **{**kw, "kv_positions": kv_positions}, block_q=32,
+            block_kv=32, interpret=True)
+        got = np.asarray(got.astype(jnp.float32))[live]
+        return float((np.abs(got - want) / limit).max())
+
+    assert ratio(pos) <= 1.0
+    assert ratio(pos + 1) > 1.0
+
+
+def test_flash_error_limit_is_one_ulp_plus_p_rounding():
+    q, k, v, pos, seg = _packed_case(9)
+    args = [_t(a).bfloat16() for a in (q, k, v)]
+    kw = dict(q_positions=_t(pos), kv_positions=_t(pos))
+    plain = tatt.flash_attention_plain(*args, **kw).float()
+    spread = tatt.flash_attention_plain(
+        *[a.float() for a in args[:2]], args[2].float().abs(), **kw)
+    limit = tatt.flash_error_limit(*args, **kw)
+    assert limit.dtype == torch.float32 and limit.shape == plain.shape
+    torch.testing.assert_close(
+        limit, 1e-5 + 2.0 ** -7 * plain.abs() + 2.0 ** -8 * spread)
+    assert bool((spread >= plain.abs() - 1e-2).all())
+
+
 def test_attention_dispatcher_backends():
     q, k, v, pos, seg = _packed_case(8)
     kw = dict(q_positions=_t(pos), kv_positions=_t(pos))
@@ -360,6 +401,23 @@ def test_ragged_plain_matches_jax_reference_and_pallas(seed):
     ):
         _close(np.asarray(got)[live], ref[live])
         _close(np.asarray(got)[live], pallas[live])
+
+
+@pytest.mark.parametrize("P", [4, 16])
+@pytest.mark.parametrize("maxP", [1, 7, 8, 31, 32, 33, 128, 129, 256, 1000])
+def test_k1_split_covers_the_history_in_whole_pages(P, maxP):
+    """K1's split, picked from shapes alone: spans of whole pages that tile
+    [0, maxP * P) exactly, the last possibly shorter, none empty."""
+    pps, n = tpk._k1_split(maxP, P)
+    assert 1 <= pps <= maxP and n >= 1
+    spans = [(s * pps * P, min((s + 1) * pps * P, maxP * P))
+             for s in range(n)]
+    assert spans[0][0] == 0 and spans[-1][1] == maxP * P
+    for (a, b), (c, _) in zip(spans, spans[1:]):
+        assert b == c
+    for a, b in spans:
+        assert b > a and a % P == 0 and b % P == 0
+    assert pps * P <= max(tpk.SPAN_TOKENS, P)
 
 
 def test_ragged_nan_garbage_does_not_leak():
