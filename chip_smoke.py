@@ -21,7 +21,9 @@ no result line):
    bf16 as the TPU kernel does, to ``flash_error_limit``) and shown to
    fail that check on planted faults (a key too many or too few; for
    int8, scales read from the neighbouring slot), K1 also with histories
-   at the edges of its split over pages, timed with CUDA events beside
+   at the edges of its split over pages and on speculative verify rows
+   (8 rows of 5 tokens, and the spec cell's 16 rows of 5 at its
+   histories on its 3968-page pool), timed with CUDA events beside
    the plain version, one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take (``bound_ms``);
@@ -33,9 +35,29 @@ no result line):
    prefix-cache hit), and one seeded temperature 0.8 request sent twice,
    whose two texts must be identical.  The kernels' launch counters are
    zeroed just before and read just after: both must have run;
+   The 8-chat batch is admitted together (``_gated_batch``), so its
+   shapes do not depend on HTTP timing;
+4a. async: phase 4 again with ``enable_async_loop`` on, in the same
+   call: the 8-chat greedy batch and the seeded request must give the
+   off run's tokens and the pipeline must have dispatched steps ahead;
+   pipelined steps, ``device_idle_ratio()``, the traced batch's idle
+   share and decode tok/s are printed for both;
 4b. the same with int8 weights and an int8 KV pool (the profile fields
    ``quantization: int8`` and ``kv_cache_dtype: int8``), after phase 4
    has freed its engine: K1's int8 form must have run;
+4c. spec: the ``profiles/v5e1-hotswap.yaml`` Llama entry as written
+   (int8 weights and KV, 16 slots, 3968 pages, ``enable_spec_decode``,
+   ``spec_tokens: 4``; its host tier and adapters are not ported): 16
+   chats quoting a passage, all answered, K1-int8 on verify rows, the
+   seeded request reproduced; acceptance ratio, decode tokens per device
+   step and active slot, TTFT, tok/s and memory printed; then the same
+   chats with speculation off, for the share of greedy tokens that agree;
+4d. oracle: 2 layers at full width in float32, greedy and seeded
+   sampled requests without speculation, with a drafter proposing the
+   recorded continuation (same tokens, fewer device steps) and with one
+   proposing wrong tokens (no more device steps; see ``phase_oracle``);
+   then the same with int8 weights and an int8 KV pool, where K1-int8
+   must run the accepted verify rows;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -50,6 +72,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -328,19 +351,27 @@ def phase_k2() -> list:
 # ---------------------------------------------------------------------------
 
 
-def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
+def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None,
+             pool_pages=None):
     """One K1 case.  ``scales``: the int8 pool's (k_scale, v_scale); the
     int8 form is then held to the plain version evaluated in float32 (it
     dequantizes history in f32 without rounding it, like the kernel) and
     rounded once, under the same one-ulp limit; the ratio against the
     bf16 plain version, which rounds the dequantized history to bf16 as
-    the reference oracle does, is printed beside it."""
+    the reference oracle does, is printed beside it.  ``pool_pages``: run
+    on a copy of the pool's first ``pool_pages`` pages (an engine's page
+    count), with tables laid out as the engine's: distinct pages up to
+    each row's history, the garbage page 0 past it."""
     from helix_tpu_torch.ops.paged_kernel import (
         ragged_paged_attention,
         ragged_paged_attention_plain,
     )
 
     dev = "cuda"
+    if pool_pages is not None:
+        pool = tuple(x[:, :pool_pages].contiguous() for x in pool)
+        if scales is not None:
+            scales = tuple(x[:, :pool_pages].contiguous() for x in scales)
     kp, vp = pool
     L, N, P = kp.shape[:3]
     maxP = 256
@@ -349,7 +380,15 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None):
     hists = np.asarray(hists, np.int32)
     t0 = np.concatenate([[0], np.cumsum(q_lens)[:-1]]).astype(np.int32)
     T = int(q_lens.sum())
-    tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(R, maxP)
+    if pool_pages is None:
+        tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(
+            R, maxP)
+    else:
+        walked = -(-(hists + q_lens) // P)
+        perm = rng.permutation(np.arange(1, N))
+        tables = np.zeros((R, maxP), np.int64)
+        for r, (n, a) in enumerate(zip(walked, np.cumsum(walked) - walked)):
+            tables[r, :n] = perm[a:a + n]
     meta = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
             for x in (t0, q_lens, hists, tables)]
     q = torch.randn((T, H, D), generator=gen, device=dev).bfloat16()
@@ -467,6 +506,19 @@ def _k1_cases(pool, gen, rng, scales=None) -> list:
                  [256, 256] + [1] * 6, [511, 513, 512, 4096, 4095, 0, 1,
                                         1024],
                  pool, gen, rng, scales),
+        # speculative verify rows: W = spec_tokens + 1 = 5 tokens, 5 x 4
+        # query heads per KV head = 20 (token, head) rows in one tile
+        _k1_case("verify 8 rows of 5 tokens, hist 1000-4000", [5] * 8,
+                 rng.integers(1000, 4000, size=8), pool, gen, rng, scales),
+        _k1_case("verify 8 rows of 5 tokens at split edges", [5] * 8,
+                 [511, 512, 513, 1023, 1025, 4091, 2047, 2049],
+                 pool, gen, rng, scales),
+        # the spec cell's own shape: 16 slots of 5 tokens (query tiles
+        # numbered across twice the rows) at its histories, on the
+        # v5e1-hotswap entry's 3968-page pool
+        _k1_case("verify 16 rows of 5 tokens, hist 300-450, 3968 pages",
+                 [5] * 16, rng.integers(300, 450, size=16), pool, gen, rng,
+                 scales, pool_pages=3968),
     ]
 
 
@@ -654,38 +706,107 @@ def _rounding_cost(eng) -> dict:
     return {"f32_output_ms": one, "bf16_then_cast_ms": two}
 
 
-def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
+def _gated_batch(base, loop, prompts, max_tokens) -> tuple:
+    """Concurrent chats that the engine admits together and in this
+    order: the loop takes nothing from its inbox until every chat is
+    queued, so the admission waves, and with them every shape the kernels
+    and GEMMs see, do not depend on HTTP timing (two runs then compute the
+    same thing).  Returns (the chats' texts, seconds from the release to
+    the last answer, step records made meanwhile)."""
+    drain = loop._drain_inbox
+    gate = threading.Event()
+    loop._drain_inbox = lambda: drain() if gate.is_set() else None
+    outs, errors = [None] * len(prompts), []
+
+    def send(i):
+        try:
+            outs[i] = _chat(base, prompts[i], max_tokens)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = []
+    try:
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=send, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 120
+            while loop._inbox.qsize() < i + 1 and not errors:
+                if time.monotonic() > deadline:
+                    raise AssertionError("a chat never reached the engine")
+                time.sleep(0.002)
+        rec0 = loop.window.recorded
+        t0 = time.monotonic()
+        gate.set()
+        for t in threads:
+            t.join(600)
+        seconds = time.monotonic() - t0
+    finally:
+        gate.set()
+        loop._drain_inbox = drain
+    if errors:
+        raise errors[0]
+    texts = [o["choices"][0]["message"]["content"] for o in outs]
+    return texts, seconds, loop.window.recorded - rec0
+
+
+def _serve(engine, quantization=None):
+    """A started server for MODEL with random weights on the card:
+    (served, engine, httpd, base url, registry, memory after build)."""
     from helix_tpu_torch.cli import build_served_model
-    from helix_tpu_torch.ops.attention import K2
-    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
     from helix_tpu_torch.serving.openai_api import OpenAIServer
     from helix_tpu_torch.serving.registry import ModelRegistry
 
-    t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
-    engine = dict(max_decode_batch=8, page_size=16, num_pages=4096,
-                  max_pages_per_seq=256, max_prefill_len=512)
-    if kv_cache_dtype:
-        engine["kv_cache_dtype"] = kv_cache_dtype
     served = build_served_model(MODEL, device="cuda", seed=0,
                                 quantization=quantization, engine=engine)
     served.tokenizer = _IdTokenizer(served.tokenizer)
     eng = served.loop.engine
-    cfg = eng.model_cfg
-    tag = f"e2e {label}"
     mem = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
            "kv_pool_gib": sum(nbytes(t) for t in eng.cache.carry()) / 2**30}
-    log(f"[{tag}] {MODEL}: L {cfg.num_layers} E {cfg.hidden_size} H "
-        f"{cfg.num_heads} KVH {cfg.num_kv_heads} D {cfg.head_dim} F "
-        f"{cfg.intermediate_size} V {cfg.vocab_size} {cfg.dtype}, weights "
-        f"{eng.params['layers']['wq']['weight'].dtype}, KV pool "
-        f"{eng.cache.k_pages.dtype} ({mem['kv_pool_gib']:.2f} GiB); built + "
-        f"warmed in {time.monotonic() - t0:.1f} s; device memory "
-        f"{mem['allocated_gib']:.2f} GiB allocated")
     registry = ModelRegistry()
     registry.register(served)
     httpd = OpenAIServer(registry).start("127.0.0.1", 0)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    return served, eng, httpd, base, registry, mem
+
+
+def _unserve(served, httpd, registry) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    served.loop.stop()
+    registry.unregister(MODEL)
+
+
+def _free() -> None:
+    """Return a finished phase's device memory: the loop and its emission
+    stage refer to each other, so the engine goes only with a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None,
+              async_loop=False) -> dict:
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+
+    t0 = time.monotonic()
+    engine = dict(max_decode_batch=8, page_size=16, num_pages=4096,
+                  max_pages_per_seq=256, max_prefill_len=512,
+                  enable_async_loop=async_loop)
+    if kv_cache_dtype:
+        engine["kv_cache_dtype"] = kv_cache_dtype
+    served, eng, httpd, base, registry, mem = _serve(engine, quantization)
+    loop = served.loop
+    cfg = eng.model_cfg
+    tag = f"e2e {label}"
+    log(f"[{tag}] {MODEL}: L {cfg.num_layers} E {cfg.hidden_size} H "
+        f"{cfg.num_heads} KVH {cfg.num_kv_heads} D {cfg.head_dim} F "
+        f"{cfg.intermediate_size} V {cfg.vocab_size} {cfg.dtype}, weights "
+        f"{eng.params['layers']['wq']['weight'].dtype}, KV pool "
+        f"{eng.cache.k_pages.dtype} ({mem['kv_pool_gib']:.2f} GiB), async "
+        f"loop {'on' if async_loop else 'off'}; built + warmed in "
+        f"{time.monotonic() - t0:.1f} s; device memory "
+        f"{mem['allocated_gib']:.2f} GiB allocated")
     answered = 0
     try:
         # the main path starts here: counters to 0
@@ -699,17 +820,18 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
             "max_tokens": 16, "temperature": 0}))
         assert out["object"] == "text_completion", out
         answered += 3
-        # 8 concurrent chats of ~200 prompt tokens, 64 new tokens each
+        # 8 concurrent chats of ~200 prompt tokens, 64 new tokens each,
+        # admitted together
         prompts = [f"Request {i}: " + "summarise the history of the "
                    "printing press in plain words please. " * 3
                    for i in range(8)]
-        dec0 = eng.num_decode_tokens
-        t_b = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            outs = list(ex.map(lambda p: _chat(base, p, 64), prompts))
-        batch_s = time.monotonic() - t_b
+        dec0, piped0 = eng.num_decode_tokens, loop.pipelined_steps
+        batch_texts, batch_s, n_rec = _gated_batch(base, loop, prompts, 64)
         decode_tps = (eng.num_decode_tokens - dec0) / batch_s
-        answered += len(outs)
+        pipelined = loop.pipelined_steps - piped0
+        idle_ratio = loop.window.window_ratio("idle_gap_s", ("wall_s",),
+                                              recent=n_rec)
+        answered += len(batch_texts)
         # a prompt longer than max_prefill_len (chunked), admitted while
         # another request decodes (mixed step), then again (prefix hit)
         long_prompt = "".join(
@@ -756,21 +878,19 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
         except Exception as e:  # noqa: BLE001
             trace = {"error": repr(e)}
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        served.loop.stop()
-        registry.unregister(MODEL)
+        _unserve(served, httpd, registry)
     ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
     mem["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     draw = _threefry_cost(eng)
-    if quantization is None:
+    if quantization is None and not async_loop:
         r2 = _rounding_cost(eng)
         log(f"[{tag}] vocab projection, one rounding (f32-output GEMM) "
             f"{r2['f32_output_ms']:.4f} ms vs bf16 GEMM then cast "
             f"{r2['bf16_then_cast_ms']:.4f} ms, once per decode step")
     log(f"[{tag}] requests answered {answered}; TTFT p50 {ttft_p50:.1f} ms "
         f"over {len(ttfts)} requests; decode {decode_tps:.1f} tok/s over "
-        f"the 8-chat batch ({batch_s:.2f} s); mixed steps {mixed}; prefix "
+        f"the 8-chat batch ({batch_s:.2f} s; pipelined steps {pipelined}, "
+        f"device_idle_ratio {idle_ratio:.3f}); mixed steps {mixed}; prefix "
         f"hits {hits}; launches {launches}; device memory peak "
         f"{mem['peak_gib']:.2f} GiB")
     if "error" in trace:
@@ -801,11 +921,323 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None) -> dict:
         raise AssertionError("no prefix-cache hit")
     if answered != 16:
         raise AssertionError(f"answered {answered} of 16 requests")
-    del served, eng, registry
-    torch.cuda.empty_cache()
+    if async_loop and pipelined <= 0:
+        raise AssertionError("the async loop pipelined no step")
+    del served, eng, registry, loop
+    _free()
     return {"launches": launches, "answered": answered,
             "ttft_p50_ms": ttft_p50, "decode_tokens_per_s": decode_tps,
-            "memory": mem, "threefry": draw, "trace": trace}
+            "memory": mem, "threefry": draw, "trace": trace,
+            "batch_texts": batch_texts, "seeded_text": seeded_text,
+            "pipelined_steps": pipelined, "device_idle_ratio": idle_ratio}
+
+
+def phase_async(off: dict) -> dict:
+    """Phase 4 again with ``enable_async_loop`` on, in the same call: the
+    8-chat greedy batch and the seeded request must give the off run's
+    tokens; the pipeline's numbers are printed beside the off run's."""
+    on = phase_e2e("bf16 async", async_loop=True)
+    for name in ("batch_texts", "seeded_text"):
+        if on[name] != off[name]:
+            raise AssertionError(
+                f"async loop changed the tokens of {name}: "
+                f"{str(on[name])[:200]} != {str(off[name])[:200]}")
+
+    def idle(r):
+        t = r["trace"]
+        return "not measured" if "error" in t else f"{t['idle_share']:.3f}"
+
+    for label, r in (("off", off), ("on", on)):
+        log(f"[async] loop {label}: pipelined_steps {r['pipelined_steps']}, "
+            f"device_idle_ratio() {r['device_idle_ratio']:.3f}, traced "
+            f"batch idle share {idle(r)}, decode "
+            f"{r['decode_tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.1f} ms")
+    log("[async] 8-chat greedy batch and seeded request: identical tokens "
+        "with the loop off and on")
+    return on
+
+
+# the spec phase's chats quote this passage (~300 byte tokens) and ask for
+# it back: prompt-lookup drafting has the passage to draft from
+PASSAGE = (
+    "The printing press came to Mainz around 1450. Johannes Gutenberg "
+    "cast movable type from a lead alloy, pressed oil-based ink onto "
+    "paper with a screw press adapted from wine making, and printed a "
+    "Bible of about 1,280 pages. Within fifty years, presses worked in "
+    "more than two hundred cities, and books became cheap enough for "
+    "merchants, students and craftsmen to own.")
+
+
+def phase_spec() -> dict:
+    """The ``profiles/v5e1-hotswap.yaml`` Llama entry as the profile
+    writes it, with speculative decoding: int8 weights, int8 KV, 16
+    decode slots, 3968 pages of 16, max_prefill_len 2048, spec_tokens 4
+    (``host_pool_bytes`` and ``adapter_pool_slots`` are not ported yet:
+    A12, A13).  16 concurrent chats quote a passage and ask for it back;
+    the seeded request is sent twice."""
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+
+    t0 = time.monotonic()
+    engine = dict(max_decode_batch=16, num_pages=3968, page_size=16,
+                  max_prefill_len=2048, kv_cache_dtype="int8",
+                  enable_spec_decode=True, spec_tokens=4)
+    served, eng, httpd, base, registry, mem = _serve(engine, "int8")
+    tag = "spec"
+    log(f"[{tag}] {MODEL} as the v5e1-hotswap entry: int8 weights, int8 "
+        f"KV ({mem['kv_pool_gib']:.2f} GiB), {engine}; built + warmed in "
+        f"{time.monotonic() - t0:.1f} s; host_pool_bytes (A12) and "
+        "adapter_pool_slots (A13) not ported yet")
+    try:
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        eng.recent_ttfts.clear()
+        c0 = {k: getattr(eng, k) for k in (
+            "num_decode_tokens", "num_decode_device_steps", "num_spec_steps",
+            "num_spec_drafted_tokens", "num_spec_accepted_tokens",
+            "num_device_calls", "num_decode_slot_steps")}
+        prompts = [f"Chat {i}: repeat this passage word for word.\n\n"
+                   f"{PASSAGE}\n\nNow repeat it." for i in range(16)]
+        # each chat's emitted token count when the first verify step
+        # that finds it in a slot is dispatched
+        first_verify = [None] * len(prompts)
+        tail = eng._spec_dispatch_tail
+
+        def spy(drafts, draft_len):
+            for r in eng.slots:
+                if r is not None:
+                    i = int(re.search(r"Chat (\d+):", served.tokenizer._tok
+                                      .decode(r.prompt_tokens)).group(1))
+                    if first_verify[i] is None:
+                        first_verify[i] = len(r.output_tokens)
+            return tail(drafts, draft_len)
+
+        eng._spec_dispatch_tail = spy
+        try:
+            texts, batch_s, _ = _gated_batch(base, served.loop, prompts, 64)
+        finally:
+            eng._spec_dispatch_tail = tail
+        d = {k: getattr(eng, k) - v for k, v in c0.items()}
+        answered = len(texts)
+        ttfts = sorted(eng.recent_ttfts)
+        seeded_text = _seeded_twice(base)
+        torch.cuda.synchronize()
+        launches = {"ragged_paged_attention": K1.launches,
+                    "ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches}
+        ratio = (d["num_spec_accepted_tokens"] / d["num_spec_drafted_tokens"]
+                 if d["num_spec_drafted_tokens"] else 0.0)
+        try:    # the trace informs PERF.md; its absence fails nothing
+            trace = _profile_batch(base, prompts[:8])
+        except Exception as e:  # noqa: BLE001
+            trace = {"error": repr(e)}
+    finally:
+        _unserve(served, httpd, registry)
+    mem["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ttft_p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else float("nan")
+    tps = d["num_decode_tokens"] / batch_s
+    per_step = d["num_decode_tokens"] / max(1, d["num_decode_device_steps"])
+    per_slot = d["num_decode_tokens"] / max(1, d["num_decode_slot_steps"])
+    log(f"[{tag}] answered {answered} of 16 chats; TTFT p50 "
+        f"{ttft_p50:.1f} ms; decode {tps:.1f} tok/s ({batch_s:.2f} s); "
+        f"spec_acceptance_ratio {ratio:.3f} ({d['num_spec_accepted_tokens']}"
+        f" of {d['num_spec_drafted_tokens']} drafted, "
+        f"{d['num_spec_steps']} verify steps); decode tokens per device "
+        f"step and active slot {per_slot:.3f} (all slots: {per_step:.2f}; "
+        f"{d['num_decode_tokens']} tokens, "
+        f"{d['num_decode_device_steps']} device steps, "
+        f"{d['num_device_calls']} unified-step calls); launches {launches};"
+        f" device memory {mem['allocated_gib']:.2f} GiB after build, peak "
+        f"{mem['peak_gib']:.2f} GiB; seeded request reproduced "
+        f"({seeded_text.count('<')} tokens)")
+    if "error" in trace:
+        log(f"[{tag}] traced batch: not measured ({trace['error']})")
+    else:
+        log(f"[{tag}] traced 8 of the chats (32 new tokens each): wall "
+            f"{trace['wall_ms']:.1f} ms, device busy "
+            f"{trace['device_busy_ms']:.1f} ms (idle share "
+            f"{trace['idle_share']:.3f}); K1-int8 {trace['k1_share']:.3f} and "
+            f"K2 {trace['k2_share']:.3f} of device time; top kernels (ms): "
+            + "; ".join(f"{k} {t:.1f}" for k, t in trace["top"]))
+    if answered != 16:
+        raise AssertionError(f"answered {answered} of 16 chats")
+    if launches["ragged_paged_attention_int8"] <= 0:
+        raise AssertionError("K1-int8 never launched on the spec path")
+    if d["num_spec_steps"] <= 0:
+        raise AssertionError("no verify step ran")
+    del served, eng, registry
+    _free()
+    agree = _spec_off_agreement(engine, prompts, texts, first_verify)
+    return {"answered": answered, "ttft_p50_ms": ttft_p50,
+            "decode_tokens_per_s": tps, "acceptance_ratio": ratio,
+            "decode_tokens_per_device_step": per_step,
+            "decode_tokens_per_slot_step": per_slot, "launches": launches,
+            "memory": mem, "spec_off_agreement": agree, "trace": trace, **d}
+
+
+def _spec_off_agreement(engine, prompts, texts_on, first_verify) -> dict:
+    """The same 16 chats on the same weights with speculation off: the
+    share of greedy tokens that agree with the spec-on run, position by
+    position.  Plain steps run their state rows 1 wide with speculation
+    on or off; a verify step runs its GEMMs at M = 16 x 5, where cuBLAS
+    may round otherwise, so near-tied argmaxes of random weights may part
+    after one; printed, not held to a limit (float32 identity is phase
+    4d's and the CPU tests').  Before a chat's first verify step
+    (``first_verify``: its emitted count then, None if none found it)
+    the two runs compute the same shapes, so its tokens up to there must
+    agree."""
+    off = {k: v for k, v in engine.items()
+           if k not in ("enable_spec_decode", "spec_tokens")}
+    served, _eng, httpd, base, registry, _mem = _serve(off, "int8")
+    try:
+        texts_off, _, _ = _gated_batch(base, served.loop, prompts, 64)
+    finally:
+        _unserve(served, httpd, registry)
+    del served, _eng, registry
+    _free()
+    ids = [[re.findall(r"<(\d+)>", t) for t in texts]
+           for texts in (texts_on, texts_off)]
+    same = sum(a == b for on, of in zip(*ids) for a, b in zip(on, of))
+    total = sum(max(len(on), len(of)) for on, of in zip(*ids))
+    whole = sum(on == of for on, of in zip(*ids))
+    parts = [next((j for j, (a, b) in enumerate(zip(on, of)) if a != b),
+                  min(len(on), len(of))) for on, of in zip(*ids)]
+    early = [i for i, (p, v) in enumerate(zip(parts, first_verify))
+             if p < (len(ids[0][i]) if v is None else v)]
+    log(f"[spec] the same chats with speculation off: {same} of {total} "
+        f"greedy tokens agree position by position ({same / total:.3f}); "
+        f"{whole} of {len(texts_on)} chats identical; per chat, first "
+        f"token that differs {parts} and tokens emitted before its first "
+        f"verify step {first_verify}")
+    if early:
+        raise AssertionError(
+            f"chats {early} part from the speculation-off run before "
+            f"their first verify step: plain steps must not change tokens")
+    return {"tokens_agree": same, "tokens": total, "chats_identical": whole,
+            "first_differing_token": parts, "first_verify": first_verify}
+
+
+class _ScriptedDrafter:
+    """Test drafter of the oracle check (not a package feature): proposes
+    ``fn(request id, tokens so far, cap)`` in place of prompt lookup."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def draft(self, req_id, tokens, k):
+        return [int(t) for t in self.fn(req_id, list(tokens), k)]
+
+    def observe(self, *args):
+        pass
+
+    def forget(self, *args):
+        pass
+
+    def disabled_count(self):
+        return 0
+
+
+def phase_oracle(int8: bool = False) -> dict:
+    """Speculation preserves the tokens, at full width and 2 layers in
+    float32: greedy and seeded temperature 0.8 with penalties, run
+    without speculation, then with a drafter that proposes the recorded
+    continuation (every draft accepted: fewer device steps) and with one
+    that proposes a wrong token at every position (every draft rejected:
+    no more device steps).  The oracle run must give the plain run's
+    tokens for both requests, the wrong-drafter run for the greedy one.
+    The seeded request under the wrong drafter keeps the plain tokens up
+    to and including the first verify step's, and no further: as in the
+    reference, a verify call spends one key split at every live position,
+    rejected drafts included, and does not give them back (the reference
+    holds bit identity only with an oracle, ``tests/test_spec_decode.py``;
+    the CPU tests hold the port's key stream to the JAX engine's).  With
+    ``int8`` the weights are quantized on the card and the KV pool is
+    int8, as in the spec cell: K1-int8 must run the accepted verify
+    rows."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.ops.quant import quantize_params
+
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2, dtype="float32")
+    params = init_params(cfg, 2, device="cuda")
+    extra = {}
+    if int8:
+        params = quantize_params(params)
+        extra["kv_cache_dtype"] = "int8"
+    kernel = K1_INT8 if int8 else K1
+    V, k = cfg.vocab_size, 4
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(4, 260, size=300)]
+               for _ in range(2)]
+    n_tok = 1 + 4 * (k + 1)
+    sps = [SamplingParams(temperature=0.0, max_tokens=n_tok),
+           SamplingParams(temperature=0.8, seed=99, presence_penalty=0.3,
+                          frequency_penalty=0.2, max_tokens=n_tok)]
+
+    def run(spec, drafter=None):
+        eng = Engine(cfg, params, EngineConfig(
+            max_decode_batch=8, page_size=16, num_pages=256,
+            max_pages_per_seq=64, max_prefill_len=512,
+            enable_spec_decode=spec, spec_tokens=k, **extra), device="cuda")
+        if drafter is not None:
+            eng.spec = drafter
+        reqs = [Request(id=f"o{i}", prompt_tokens=p, sampling=s)
+                for i, (p, s) in enumerate(zip(prompts, sps))]
+        for r in reqs:
+            eng.add_request(r)
+        kernel.launches = 0
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+        eng.k1_launches = kernel.launches
+        return [r.output_tokens for r in reqs], eng
+
+    base, off = run(False)
+    target = {f"o{i}": prompts[i] + base[i] for i in range(len(prompts))}
+    oracle = _ScriptedDrafter(
+        lambda rid, toks, cap: target[rid][len(toks): len(toks) + cap])
+    wrong = _ScriptedDrafter(
+        lambda rid, toks, cap: [(t + 1) % V for t in
+                                target[rid][len(toks): len(toks) + cap]])
+    got_o, eng_o = run(True, oracle)
+    got_w, eng_w = run(True, wrong)
+    engs = {"off": off, "oracle": eng_o, "wrong": eng_w}
+    steps = {n: e.num_decode_device_steps for n, e in engs.items()}
+    per_slot = {n: e.num_decode_tokens / max(1, e.num_decode_slot_steps)
+                for n, e in engs.items()}
+    seeded_same = next((i for i, (a, b) in enumerate(zip(got_w[1], base[1]))
+                        if a != b), n_tok)
+    name = "K1-int8" if int8 else "K1 (float32)"
+    tag = "oracle int8" if int8 else "oracle"
+    log(f"[{tag}] 2-layer full width f32"
+        + (", int8 weights + int8 KV" if int8 else "")
+        + f", greedy + seeded temperature 0.8 with penalties, {n_tok} "
+        f"tokens each: oracle drafter tokens identical {got_o == base}; "
+        f"wrong drafter greedy tokens identical {got_w[0] == base[0]}, "
+        f"seeded tokens identical for the first {seeded_same}; device "
+        f"steps {steps}; decode tokens per device step and active slot "
+        + ", ".join(f"{n} {v:.3f}" for n, v in per_slot.items())
+        + f"; oracle accepted {eng_o.num_spec_accepted_tokens} of "
+        f"{eng_o.num_spec_drafted_tokens}, wrong accepted "
+        f"{eng_w.num_spec_accepted_tokens} of "
+        f"{eng_w.num_spec_drafted_tokens}; {name} launches: oracle run "
+        f"{eng_o.k1_launches}, wrong run {eng_w.k1_launches}")
+    if eng_o.k1_launches <= 0 or eng_o.num_spec_accepted_tokens <= 0:
+        raise AssertionError(f"{name} ran no accepted verify row")
+    if got_o != base or got_w[0] != base[0] or seeded_same < 2:
+        raise AssertionError(f"speculation changed tokens: off {base}, "
+                             f"oracle {got_o}, wrong {got_w}")
+    if not steps["oracle"] < steps["off"]:
+        raise AssertionError(f"oracle drafter saved no device step: {steps}")
+    if steps["wrong"] > steps["off"]:
+        raise AssertionError(f"wrong drafter cost device steps: {steps}")
+    del params, off, eng_o, eng_w, engs
+    _free()
+    return {"device_steps": steps, "wrong_seeded_same": seeded_same,
+            "tokens_per_slot_step": per_slot}
 
 
 # ---------------------------------------------------------------------------
@@ -919,7 +1351,11 @@ def main(argv=None) -> int:
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
         bf16 = phase_e2e("bf16")
+        phase_async(bf16)
         int8 = phase_e2e("int8", quantization="int8", kv_cache_dtype="int8")
+        phase_spec()
+        phase_oracle()
+        phase_oracle(int8=True)
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],

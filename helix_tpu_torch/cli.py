@@ -15,8 +15,12 @@ list of ``{name, kind, quantization, engine, model_overrides,
 context_length}`` entries, the reference's profile fields.
 ``quantization: int8`` serves int8 weights (``ops.quant.quantize_params``
 on the device, as the reference node agent does); an int8 KV pool is
-``engine: {kv_cache_dtype: int8}``.  Checkpoints and non-chat kinds are not
-ported yet (ROADMAP A3, A17).
+``engine: {kv_cache_dtype: int8}``.  Every ``engine:`` field goes to
+``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens`` and
+``enable_async_loop`` work as in the reference, and fields of modules not
+ported yet (``host_pool_bytes``, ``adapter_pool_slots``) raise naming
+their ROADMAP item.  Checkpoints and non-chat kinds are not ported yet
+(ROADMAP A3, A17).
 """
 
 from __future__ import annotations

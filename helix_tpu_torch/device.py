@@ -4,10 +4,16 @@ Entry points (``Engine``, ``init_params``, the server, ``serve-node``) take
 an explicit ``device`` that defaults to ``"cuda"``.  Asking for the card on
 a machine without one is an error: nothing falls back to the CPU unless the
 caller asked for the CPU.
+
+``upload`` and ``Fetch`` move small host arrays to the device and device
+results to the host without a synchronising call, so the engine can queue
+a step's work and read its results later (the async loop's split of a
+step into dispatch and completion).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -36,3 +42,52 @@ def torch_dtype(name) -> torch.dtype:
         return _DTYPES[str(name)]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without a synchronising
+    copy.  On the card the data is first copied into pinned host memory
+    (so the host may write ``a`` again at once) and the upload is queued
+    on the current stream with ``non_blocking``; PyTorch's pinned-memory
+    cache does not hand that block out again until the upload has run.
+    On the CPU it is a plain copy."""
+    t = torch.from_numpy(np.array(a, copy=True))
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class Fetch:
+    """Device tensors on their way to the host: ``Fetch(tensors)`` queues
+    ONE device-to-host copy of all of them (as int64, into pinned memory
+    on the card) behind the work already on the current stream and
+    records an event; ``wait()`` blocks on that event and returns one
+    numpy array per tensor, in order and shape.  The queued copy reads
+    the tensors as they are when it runs, which is right after the work
+    that made them: later in-place updates do not reach it."""
+
+    def __init__(self, tensors):
+        tensors = list(tensors)
+        self._shapes = [tuple(t.shape) for t in tensors]
+        flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])
+        self._event = None
+        if flat.is_cuda:
+            self._host = torch.empty(flat.shape, dtype=torch.int64,
+                                     pin_memory=True)
+            self._host.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = flat
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        host = self._host.numpy()
+        out, at = [], 0
+        for shape in self._shapes:
+            n = int(np.prod(shape, dtype=np.int64))
+            out.append(host[at:at + n].reshape(shape))
+            at += n
+        return out

@@ -11,11 +11,26 @@ code:
    attention with segment ids), prefix-cache hits and chunk continuations
    (history: kernel K1, ragged paged attention).  One forward, one
    ``write_kv`` scatter, one batched first-token sample.
-2. **State segment** — every decode slot as a one-token row over its paged
-   history (kernel K1).  A row sits the call out (``draft_len`` -1) during
-   admission waves and standalone chunk steps.
+2. **State segment** — every decode slot as a ``W``-token row over its
+   paged history (kernel K1): its last token plus up to ``W - 1``
+   host-drafted speculative tokens (``draft_len`` of them; 0 = a plain
+   decode step, -1 = the slot sits the call out).  ``W`` is
+   ``spec_tokens + 1`` with speculative decoding on, else 1.  Every live
+   position samples with the penalty histogram carried along the drafted
+   prefix; the longest agreeing prefix is kept and positions, last token
+   and histogram roll back on the device (the keys do not: a split is
+   spent at every live position, as in the reference).
 3. **Fused tail** — ``n_extra`` more plain decode steps before the one
    host fetch of the step (``decode_steps_per_sync``).
+
+``step()`` is ``step_complete(step_dispatch())``.  The dispatch half
+admits, builds metadata, uploads it (``device.upload``: pinned copies,
+queued) and queues the device work and its one device-to-host copy
+(``device.Fetch``) without a synchronising call; the completion waits for
+that copy and does every host-visible effect.  ``serving.engine_loop``
+dispatches step N+1 before completing step N when ``pipeline_ready()``
+(plain decode steady state).  A chunk-final first token is not fetched on
+its own: it rides the next decode or verify fetch (``_pending_first``).
 
 Admission packs waiting short prompts into waves, long prompts prefill in
 ``max_prefill_len`` chunks, and while a chunk is in flight the mixed step
@@ -28,9 +43,8 @@ through K1's int8 form.  Params from ``ops.quant.quantize_params`` (int8
 weights) serve through the same path.
 
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
-speculative decoding (A10), the async loop (A11), the host KV tier and
-tiered contexts (A12, A14), adapters (A13), meshes (A15), MoE and mrope
-models (A15, A17).
+the host KV tier and tiered contexts (A12, A14), adapters (A13), meshes
+and the multihost plan plane (A15), MoE and mrope models (A15, A17).
 """
 
 from __future__ import annotations
@@ -45,7 +59,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
+from helix_tpu_torch.device import (
+    DEFAULT_DEVICE,
+    Fetch,
+    resolve_device,
+    torch_dtype,
+    upload,
+)
 from helix_tpu_torch.engine.kv_cache import (
     CacheConfig,
     PageAllocator,
@@ -66,6 +86,7 @@ from helix_tpu_torch.engine.sampling import (
     sample,
     split_keys,
 )
+from helix_tpu_torch.engine.spec import SpecConfig, SpecDecoder
 from helix_tpu_torch.models.common import ModelConfig
 from helix_tpu_torch.models.llama import check_supported, forward, project_logits
 from helix_tpu_torch.ops.attention import attention
@@ -148,8 +169,6 @@ class EngineConfig:
 
     def __post_init__(self):
         unported = [
-            (self.enable_spec_decode, "enable_spec_decode", "A10"),
-            (self.enable_async_loop, "enable_async_loop", "A11"),
             (self.adapter_pool_slots > 0, "adapter_pool_slots > 0", "A13"),
             (self.host_pool_bytes > 0, "host_pool_bytes > 0", "A12"),
             (self.ctx_hot_pages > 0, "ctx_hot_pages > 0", "A14"),
@@ -159,6 +178,11 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig {what} is not ported yet (ROADMAP {item})"
                 )
+        if self.enable_spec_decode and self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens ({self.spec_tokens}) must be >= 1 when "
+                "enable_spec_decode is set"
+            )
         if self.attn_backend not in (None, "reference"):
             raise ValueError(
                 f"attn_backend {self.attn_backend!r}: expected None or "
@@ -221,6 +245,31 @@ class DecodeState:
     active: torch.Tensor        # [B] i64
     token_counts: torch.Tensor  # [B, V] i32 — output-token histogram
     sampling: SamplingState
+
+
+@dataclasses.dataclass
+class PendingStep:
+    """One dispatched-but-not-reconciled device step.
+
+    ``step_dispatch`` queues the device work and returns one of these;
+    ``step_complete`` waits for its ONE device-to-host copy (``fetch``,
+    queued at dispatch) and does the bookkeeping (emits, stop conditions,
+    slot frees).  ``rows`` snapshots the slot occupants at dispatch, so a
+    completion that runs after the slot set changed never attributes
+    tokens to a later occupant: a row whose slot no longer holds the same
+    request discards its tokens, as a fused window's overrun does."""
+
+    kind: str                   # "decode" | "spec" | "mixed"
+    rows: list                  # [(slot_index, Request)] at dispatch
+    fetch: Fetch                # the step's results, on their way to the host
+    n: int = 1                  # fused window size (decode)
+    n_extra: int = 0            # fused tail length (spec)
+    draft_len: Optional[np.ndarray] = None   # [B] (spec)
+    # deferred chunk-final first tokens: [(Request, [R] device tensor)],
+    # copied in this step's fetch instead of their own
+    pending_first: list = dataclasses.field(default_factory=list)
+    st: Optional[dict] = None   # mixed: the in-flight chunking record
+    final: bool = False         # mixed: this chunk completes the prompt
 
 
 class Engine:
@@ -295,19 +344,52 @@ class Engine:
             os.environ.get("HELIX_TOKEN_BUCKETS"),
             self.cache_cfg.page_size, cfg.max_prefill_len,
         )
+        # speculative decoding (engine/spec.py): host-side prompt-lookup
+        # drafter + per-request acceptance EMA; None = off
+        self.spec = (
+            SpecDecoder(SpecConfig(spec_tokens=cfg.spec_tokens))
+            if cfg.enable_spec_decode else None
+        )
+        W = self._spec_width()
         self._inert_rows = np.full((B,), -1, np.int32)   # state rows sit out
         self._zero_rows = np.zeros((B,), np.int32)       # plain decode rows
-        self._s_t0 = torch.arange(B, dtype=torch.int32, device=self.device)
+        # per state-row width (W, and 1 for the fused tail): each row's
+        # first token on the flat axis, and the offsets 0..width-1
+        self._row_t0 = {w: torch.arange(0, B * w, w, dtype=torch.int32,
+                                        device=self.device)
+                        for w in {1, W}}
+        self._offsets = {w: torch.arange(w, device=self.device)
+                         for w in {1, W}}
+        # deferred chunk-final first tokens (their device tensors ride the
+        # next decode/verify fetch), the device-side seeds of their slots
+        # at the next _sync_state, and tokens dispatched but not yet
+        # reconciled per request (the async pipeline's prediction)
+        self._pending_first: list = []           # [(req, [R] tensor)]
+        self._pending_first_ids: set = set()
+        self._pending_token_patches: dict = {}   # slot -> [1] tensor
+        self._inflight_out: dict[str, int] = {}
         # optional observer of every sampled logits tensor:
         # logits_hook(kind, logits) with kind "prefill" ([R, V], each
-        # row's last token) or "decode" ([B, V]); None in serving
+        # row's last token), "decode" ([B, V], each state row's first
+        # position) or, with speculation, "verify" ([B, W, V]); None in
+        # serving
         self.logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None
         # counters (the loop and the bench read these)
         self.num_prefill_tokens = 0
         self.num_decode_tokens = 0
         self.num_decode_device_steps = 0
+        # active slots summed over decode device steps: decode tokens over
+        # this is what a step gives each slot (1 without speculation)
+        self.num_decode_slot_steps = 0
         self.num_mixed_steps = 0
         self.prefix_cache_hits = 0
+        # verify calls issued, drafts proposed, drafts accepted
+        self.num_spec_steps = 0
+        self.num_spec_drafted_tokens = 0
+        self.num_spec_accepted_tokens = 0
+        # unified-step calls issued, and host waits on a device result
+        self.num_device_calls = 0
+        self.num_host_fetches = 0
         self.recent_ttfts: collections.deque = collections.deque(maxlen=200)
 
     # ------------------------------------------------------------------
@@ -380,8 +462,26 @@ class Engine:
 
     def step(self) -> list[tuple[Request, int]]:
         """Admit + prefill waiting requests, then one decode step (or one
-        mixed chunk + decode step).  Returns [(request, token), ...] for
-        the tokens produced this step."""
+        mixed chunk + decode step, or one verify step).  Returns
+        [(request, token), ...] for the tokens produced this step.
+
+        Exactly ``step_complete(step_dispatch())``; a completion that
+        raises rolls the dispatch's predicted advance back first, so a
+        retry decodes from where the host last reconciled."""
+        emitted, pend = self.step_dispatch()
+        if pend is not None:
+            try:
+                self.step_complete(pend, emitted)
+            except Exception:
+                self.discard_pending(pend)
+                raise
+        return emitted
+
+    def step_dispatch(self) -> tuple[list, Optional[PendingStep]]:
+        """The HOST phase of one engine step: admission, plan building,
+        metadata upload and the device work, queued.  Returns
+        ``(emitted_so_far, pending)``.  Nothing here waits for the device
+        except an admission wave's batched first-token fetch."""
         emitted: list[tuple[Request, int]] = []
         self._admit(emitted)
         if self._chunking is not None and self._chunking["req"].finished:
@@ -391,15 +491,131 @@ class Engine:
         )
         if self._chunking is not None and decode_ready \
                 and self.cfg.enable_mixed_step:
-            self._mixed_step(emitted)
-            return emitted
+            return emitted, self._mixed_dispatch()
         if self._chunking is not None:
-            self._chunk_step(emitted)
+            self._chunk_dispatch()
         # a chunk that just completed activates its slot and decodes its
-        # second token this same step
+        # second token this same step; its deferred first token rides
+        # that step's fetch
         if any(self._slot_active(i) for i in range(len(self.slots))):
-            self._decode_step(emitted)
+            # speculate when the drafter has something to verify, else
+            # the plain fused window
+            pend = self._spec_dispatch() if self.spec is not None else None
+            if pend is None:
+                pend = self._decode_dispatch()
+            return emitted, pend
+        # nothing decodable: a deferred first token must still land
+        self._flush_pending_first(emitted)
+        return emitted, None
+
+    def step_complete(self, pend: PendingStep, emitted=None) -> list:
+        """The RECONCILE phase: wait for the step's one fetch, then every
+        host-visible effect.  The async loop calls this after dispatching
+        the next step."""
+        emitted = [] if emitted is None else emitted
+        if pend.kind == "decode":
+            self._decode_complete(pend, emitted)
+        elif pend.kind == "spec":
+            self._spec_complete(pend, emitted)
+        else:
+            self._mixed_complete(pend, emitted)
         return emitted
+
+    def pipeline_ready(self) -> bool:
+        """True when the NEXT dispatch can run against predicted
+        post-step state while a step is in flight: plain fused-decode
+        steady state only.  Admissions, chunked prefill, speculation (its
+        advance depends on acceptance the host has not seen), deferred
+        first tokens and dirty slot state force the synchronous order."""
+        if (
+            self._state_dirty
+            or self._dstate is None
+            or self.waiting
+            or self._chunking is not None
+            or self.spec is not None
+            or self._pending_first
+        ):
+            return False
+        # every active slot needs headroom for one more predicted token;
+        # one that will finish at the reconcile must reconcile first
+        for i, req in enumerate(self.slots):
+            if req is None or not self._slot_active(i):
+                continue
+            pend = self._pending_out(req)
+            if (
+                req.sampling.max_tokens - len(req.output_tokens) - pend <= 0
+                or (req.max_len or self.cache_cfg.max_seq_len)
+                - req.num_tokens - pend <= 0
+            ):
+                return False
+        return True
+
+    def discard_pending(self, pend: PendingStep) -> None:
+        """Forget a dispatch whose completion failed or will never run:
+        host bookkeeping only.  Every slot is marked changed so the next
+        ``_sync_state`` re-uploads the mirrors rather than trusting device
+        state the failed step may have left behind."""
+        if pend.kind == "decode":
+            # roll back the predicted advance: the mirror's last token is
+            # still the last reconciled one, so the retry decodes from
+            # there
+            for i, r in pend.rows:
+                if self.slots[i] is r:
+                    self._positions[i] -= pend.n
+        for _i, r in pend.rows:
+            self._inflight_out.pop(r.id, None)
+        self._pending_token_patches.clear()
+        self._pending_first = []
+        self._pending_first_ids.clear()
+        for req, tok in pend.pending_first:
+            if req.finished or req.slot is None:
+                continue
+            # the chunk call that sampled it succeeded: put it back, so
+            # the retry seeds the slot from it and still emits token #1
+            self._pending_first.append((req, tok))
+            self._pending_first_ids.add(req.id)
+            self._pending_token_patches[req.slot] = tok[:1]
+        self._state_dirty = True
+        self._changed_slots.update(range(len(self.slots)))
+
+    def _pending_out(self, req: Request) -> int:
+        """Tokens of this request dispatched but not reconciled, plus a
+        deferred first token: every budget/headroom read subtracts them."""
+        return self._inflight_out.get(req.id, 0) + (
+            1 if req.id in self._pending_first_ids else 0
+        )
+
+    def _take_pending_first(self) -> list:
+        pf, self._pending_first = self._pending_first, []
+        self._pending_first_ids.clear()
+        return pf
+
+    def _finish_first_emit(self, req: Request, first_token: int,
+                           emitted) -> None:
+        """Deferred chunk-final emit, once its token was fetched with a
+        step's results."""
+        if req.finished:
+            return   # aborted after activation: the token is moot
+        if req.slot is not None:
+            self._last_token[req.slot] = first_token
+            # an unconsumed patch is superseded by the now-true mirror
+            self._pending_token_patches.pop(req.slot, None)
+        self._emit(req, first_token, emitted)
+
+    def _flush_pending_first(self, emitted) -> None:
+        """When no decode fetch of this step will carry the deferred first
+        tokens: fetch them alone."""
+        pf = self._take_pending_first()
+        if not pf:
+            return
+        toks = self._fetch(Fetch([t[:1] for _r, t in pf]))
+        for (req, _t), tok in zip(pf, toks):
+            self._finish_first_emit(req, int(tok[0]), emitted)
+
+    def _fetch(self, fetch: Fetch) -> list:
+        """Wait for a queued device-to-host copy (counted)."""
+        self.num_host_fetches += 1
+        return fetch.wait()
 
     def generate(
         self, prompts: Sequence[Sequence[int]], sampling: SamplingParams
@@ -602,7 +818,7 @@ class Engine:
             batch.append(req)
         flush()
         for wave_plan, wave_batch in waves:
-            first, _, _ = self._ragged_step(
+            first, _, _, _ = self._ragged_step(
                 plan=wave_plan, draft_len=self._inert_rows
             )
             pending.append((wave_batch, first))
@@ -611,9 +827,8 @@ class Engine:
     def _finish_packed_admissions(self, pending: list, emitted) -> None:
         """Fetch every admission wave's first tokens in ONE host round
         trip and complete the per-request bookkeeping."""
-        flat = torch.cat(
-            [t[: len(b)] for b, t in pending]
-        ).tolist()
+        flat = self._fetch(Fetch(
+            [torch.cat([t[: len(b)] for b, t in pending])]))[0]
         now = time.monotonic()
         i = 0
         for batch, _ in pending:
@@ -649,8 +864,13 @@ class Engine:
                  sub, req.sampling)
         return plan, rem, end
 
-    def _finish_chunk(self, st, first_token: int, emitted) -> None:
-        """Prompt fully cached: activate the slot with its first token."""
+    def _finish_chunk(self, st, first_token, emitted) -> None:
+        """Prompt fully cached: activate the slot with its first token.
+
+        ``first_token`` is a host int (the mixed step fetched it with its
+        decode tokens) or the chunk step's [R] device tensor: then the
+        fetch DEFERS -- ``_sync_state`` seeds the slot's device state from
+        the tensor and the emit rides the next decode or verify fetch."""
         req: Request = st["req"]
         self._adopt_prompt_pages(req, st["table"])
         slot = st["slot"]
@@ -659,53 +879,78 @@ class Engine:
         self.recent_ttfts.append(req.first_token_time - req.submit_time)
         self._positions[slot] = len(req.prompt_tokens)
         self._slot_keys[slot] = _host_split(st["key"])[0]
-        self._last_token[slot] = first_token
         self._state_dirty = True
         self._changed_slots.add(slot)
-        self._emit(req, first_token, emitted)
+        if isinstance(first_token, (int, np.integer)):
+            self._last_token[slot] = first_token
+            self._emit(req, int(first_token), emitted)
+            return
+        # deferred: placeholder mirror, device-side patch at the next
+        # _sync_state, emit at the next fetch
+        self._last_token[slot] = 0
+        self._pending_token_patches[slot] = first_token[:1]
+        self._pending_first.append((req, first_token))
+        self._pending_first_ids.add(req.id)
 
-    def _chunk_step(self, emitted) -> None:
+    def _chunk_dispatch(self) -> None:
         """ONE chunk of the in-flight long prefill, decode rows sitting
-        out (the mixed step is off or nothing decodes)."""
+        out (the mixed step is off or nothing decodes).  Fetches nothing:
+        a final chunk's first token defers (``_finish_chunk``)."""
         st = self._chunking
         req: Request = st["req"]
         plan, rem, end = self._chunk_plan(st)
-        first, _, _ = self._ragged_step(plan=plan,
-                                        draft_len=self._inert_rows)
+        first, _, _, _ = self._ragged_step(plan=plan,
+                                           draft_len=self._inert_rows)
         self.num_prefill_tokens += rem
         st["next"] = end
         if end >= len(req.prompt_tokens):
-            self._finish_chunk(st, int(first[0].item()), emitted)
+            self._finish_chunk(st, first, None)
 
-    def _mixed_step(self, emitted) -> None:
+    def _mixed_dispatch(self) -> PendingStep:
         """ONE device step advances every active decode slot one token
         AND the in-flight long prefill one chunk."""
         st = self._chunking
         req: Request = st["req"]
+        if self._state_dirty or self._dstate is None:
+            self._sync_state()
         self._check_headroom(1)
         rows = [
             (i, r) for i, r in enumerate(self.slots)
             if r is not None and self._slot_active(i)
         ]
         plan, rem, end = self._chunk_plan(st)
-        first, sampled, _ = self._ragged_step(plan=plan,
-                                              draft_len=self._zero_rows)
+        first, sampled, _, _ = self._ragged_step(plan=plan,
+                                                 draft_len=self._zero_rows)
         self.num_mixed_steps += 1
         self.num_decode_device_steps += 1
+        self.num_decode_slot_steps += len(rows)
         self.num_prefill_tokens += rem
         st["next"] = end
         final = end >= len(req.prompt_tokens)
-        fetched = torch.cat([sampled, first[:1]] if final else [sampled])
-        fetched = fetched.tolist()
-        for i, r in rows:
+        # a deferred first token re-queued by a failed step can cross
+        # into a mixed step: it rides THIS fetch, or its request would
+        # emit token #2 before token #1
+        pf = self._take_pending_first()
+        return PendingStep(
+            kind="mixed", rows=rows, st=st, final=final, pending_first=pf,
+            fetch=Fetch([sampled[:, 0], first[:1]]
+                        + [t[:1] for _r, t in pf]),
+        )
+
+    def _mixed_complete(self, p: PendingStep, emitted) -> None:
+        next_np, tok_np, *first_np = self._fetch(p.fetch)
+        for (req, _t), t_np in zip(p.pending_first, first_np):
+            self._finish_first_emit(req, int(t_np[0]), emitted)
+        # decode emissions first (the chunking slot is still parked here)
+        for i, r in p.rows:
             if self.slots[i] is not r or r.finished:
                 continue
             self._positions[i] += 1
-            self._last_token[i] = fetched[i]
+            self._last_token[i] = next_np[i]
             self.num_decode_tokens += 1
-            self._emit(r, int(fetched[i]), emitted)
-        if final:
-            self._finish_chunk(st, int(fetched[-1]), emitted)
+            self._emit(r, int(next_np[i]), emitted)
+        if p.final:
+            self._finish_chunk(p.st, int(tok_np[0]), emitted)
 
     # ------------------------------------------------------------------
     # decode
@@ -733,36 +978,41 @@ class Engine:
             counts = torch.zeros((B, V), dtype=torch.int32, device=dev)
         else:
             counts = self._dstate.token_counts
-        fresh = torch.from_numpy(np.nonzero(~keep)[0]).to(dev)
-        counts[fresh] = 0
+        counts.index_fill_(0, upload(np.nonzero(~keep)[0], dev), 0)
         # fresh slots start their histogram with the prefill-sampled first
         # token (it is output token #1 for penalty purposes)
-        seed = np.nonzero(~keep & active)[0]
-        if len(seed):
-            counts.index_put_(
-                (torch.from_numpy(seed).to(dev),
-                 torch.from_numpy(self._last_token[seed]).to(dev)),
-                torch.ones(len(seed), dtype=torch.int32, device=dev),
-                accumulate=True,
-            )
+        seed = (~keep & active).astype(np.int32)
+        if seed.any():
+            counts.scatter_add_(1, upload(self._last_token[:, None], dev),
+                                upload(seed[:, None], dev))
         self._dkeys = np.where(keep[:, None], self._dkeys, self._slot_keys)
         self._active = active
         self._dstate = DecodeState(
-            last_token=torch.from_numpy(self._last_token.copy()).to(dev),
-            positions=torch.from_numpy(self._positions.copy()).to(dev),
-            page_tables=torch.from_numpy(self._page_tables.copy()).to(dev),
-            active=torch.from_numpy(active.astype(np.int64)).to(dev),
+            last_token=upload(self._last_token, dev),
+            positions=upload(self._positions, dev),
+            page_tables=upload(self._page_tables, dev),
+            active=upload(active.astype(np.int64), dev),
             token_counts=counts,
             sampling=sampling,
         )
         self._changed_slots.clear()
         self._state_dirty = False
+        # deferred chunk-final first tokens: the mirror seeded the slot
+        # with a placeholder 0; move that count to the real token and set
+        # the last token from the device tensor
+        for slot, tok in sorted(self._pending_token_patches.items()):
+            counts[slot, 0] -= 1
+            counts[slot].scatter_add_(
+                0, tok.long(), torch.ones(1, dtype=torch.int32, device=dev))
+            self._dstate.last_token[slot:slot + 1] = tok
+        self._pending_token_patches.clear()
 
     def _decode_window(self) -> int:
         """Fused decode steps before the next host sync: 1 while
         admission/chunking work is pending, with few streams, or near a
         slot's token budget / page room; else the largest power of two
-        <= decode_steps_per_sync every active slot can absorb."""
+        <= decode_steps_per_sync every active slot can absorb.  Tokens in
+        flight count against budget and room."""
         n_max = self.cfg.decode_steps_per_sync
         if n_max <= 1 or self._chunking is not None:
             return 1
@@ -777,8 +1027,10 @@ class Engine:
         for i, req in enumerate(self.slots):
             if req is None or not self._slot_active(i):
                 continue
-            budget = req.sampling.max_tokens - len(req.output_tokens)
-            room = (req.max_len or self.cache_cfg.max_seq_len) - req.num_tokens
+            pend = self._pending_out(req)
+            budget = req.sampling.max_tokens - len(req.output_tokens) - pend
+            room = ((req.max_len or self.cache_cfg.max_seq_len)
+                    - req.num_tokens - pend)
             cap = min(cap, budget, room)
         if cap <= 1:
             return 1
@@ -800,22 +1052,205 @@ class Engine:
                     f"{table_cap} — headroom invariant violated"
                 )
 
-    def _decode_step(self, emitted) -> None:
+    # ------------------------------------------------------------------
+    # speculative decoding (engine/spec.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def spec_acceptance_ratio(self) -> float:
+        """Lifetime accepted/drafted ratio (0.0 before any draft)."""
+        d = self.num_spec_drafted_tokens
+        return self.num_spec_accepted_tokens / d if d else 0.0
+
+    def spec_disabled_slots(self) -> int:
+        """Live requests currently EMA-disabled from speculating."""
+        return self.spec.disabled_count() if self.spec is not None else 0
+
+    def _spec_width(self) -> int:
+        """Verify-row token width: spec_tokens + 1 (the bonus position)
+        with speculation on, else 1.  Plain decode and mixed steps run
+        their state rows 1 wide either way: the reference's one width is
+        a compile-time shape, and an eager step has no reason to pay for
+        ``W - 1`` dead positions per row."""
+        return 1 if self.spec is None else self.cfg.spec_tokens + 1
+
+    def _spec_extra_steps(self) -> int:
+        """Fused tail after a verify call: starts from
+        ``_decode_window()`` and halves while any active slot lacks room
+        for ``spec_tokens + 1`` verify positions plus the tail."""
+        n = self._decode_window()
+        if n <= 1:
+            return 0
+        k1 = self.cfg.spec_tokens + 1
+        table_cap = (
+            self.cache_cfg.max_pages_per_seq * self.cache_cfg.page_size
+        )
+        for i, req in enumerate(self.slots):
+            if req is None or not self._slot_active(i):
+                continue
+            pend = self._pending_out(req)
+            h = min(
+                req.sampling.max_tokens - len(req.output_tokens) - pend,
+                (req.max_len or self.cache_cfg.max_seq_len)
+                - req.num_tokens - pend,
+                table_cap - int(self._positions[i]),
+            )
+            while n > 1 and k1 + n - 1 > h:
+                n //= 2
+            if n <= 1:
+                return 0
+        return n - 1
+
+    def _spec_dispatch(self) -> Optional[PendingStep]:
+        """One speculative step: draft per slot on the host, then verify
+        every slot's drafts in ONE device call.  None when no slot drafted
+        anything (the caller then runs the plain fused window)."""
+        k = self.cfg.spec_tokens
+        ps = self.cache_cfg.page_size
+        B = self.cfg.max_decode_batch
+        table_cap = self.cache_cfg.max_pages_per_seq * ps
+        drafts = np.zeros((B, self._spec_width() - 1), np.int32)
+        draft_len = np.zeros((B,), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None or not self._slot_active(i):
+                continue
+            if req.id in self._pending_first_ids:
+                # its host-visible sequence lags the device by the
+                # deferred first token: a draft would condition on the
+                # wrong suffix
+                continue
+            pos = int(self._positions[i])
+            # the verify call writes KV at pos..pos+L: the draft must fit
+            # the slot's pages and its remaining token budget
+            pend = self._pending_out(req)
+            budget = req.sampling.max_tokens - len(req.output_tokens) - pend
+            room = ((req.max_len or self.cache_cfg.max_seq_len)
+                    - req.num_tokens - pend)
+            cap = min(k, budget - 1, room - 1, table_cap - pos - 1)
+            if cap <= 0:
+                continue
+            toks = self.spec.draft(
+                req.id, req.prompt_tokens + req.output_tokens, cap
+            )
+            if not toks:
+                continue
+            # rejected drafts' KV lands only in the slot's PRIVATE page
+            # tail past the last prompt token: the prefix cache shares
+            # only full pages strictly below it, so a rejected draft can
+            # never corrupt KV another request reads
+            plen = len(req.prompt_tokens)
+            n_shared = len(self._shared_pages.get(req.id, ()))
+            assert pos >= plen and n_shared * ps <= max(plen - 1, 0), (
+                f"speculative KV write would touch shared pages: slot "
+                f"{i} at position {pos}, prompt {plen} tokens, "
+                f"{n_shared} shared pages of {ps}"
+            )
+            drafts[i, : len(toks)] = toks
+            draft_len[i] = len(toks)
+        if not draft_len.any():
+            return None
+        return self._spec_dispatch_tail(drafts, draft_len)
+
+    def _spec_dispatch_tail(self, drafts, draft_len) -> PendingStep:
+        """The device half of a spec step: the verify call plus its fused
+        tail, and the fetch of both."""
+        rows = [
+            (i, r) for i, r in enumerate(self.slots)
+            if r is not None and self._slot_active(i)
+        ]
+        n_extra = self._spec_extra_steps()
+        _, sampled, emit, extra = self._ragged_step(
+            drafts=drafts, draft_len=draft_len, n_extra=n_extra,
+        )
+        self.num_spec_steps += 1
+        # ONE device call for verify + tail: with accepted drafts,
+        # decode tokens per device step exceeds 1 per slot
+        self.num_decode_device_steps += 1 + n_extra
+        self.num_decode_slot_steps += (1 + n_extra) * len(rows)
+        pf = self._take_pending_first()
+        return PendingStep(
+            kind="spec", rows=rows, n_extra=n_extra, draft_len=draft_len,
+            pending_first=pf,
+            fetch=Fetch([sampled, emit, *extra] + [t[:1] for _r, t in pf]),
+        )
+
+    def _spec_complete(self, p: PendingStep, emitted) -> None:
+        fetched = self._fetch(p.fetch)
+        sampled_np, emit_np = fetched[0], fetched[1]
+        extra_np = fetched[2:2 + p.n_extra]
+        for (req, _t), tok_np in zip(p.pending_first,
+                                     fetched[2 + p.n_extra:]):
+            self._finish_first_emit(req, int(tok_np[0]), emitted)
+        for i, req in p.rows:
+            if self.slots[i] is not req:
+                continue
+            e = int(emit_np[i])
+            L = int(p.draft_len[i])
+            if L:
+                acc = min(e - 1, L)
+                self.num_spec_drafted_tokens += L
+                self.num_spec_accepted_tokens += acc
+                self.spec.observe(req.id, L, acc)
+            for j in range(e):
+                if self.slots[i] is not req or req.finished:
+                    break   # finished mid-verify: discard the overrun
+                self._positions[i] += 1
+                self._last_token[i] = sampled_np[i, j]
+                self.num_decode_tokens += 1
+                self._emit(req, int(sampled_np[i, j]), emitted)
+        # fused-window tail tokens (finished slots discard the overrun)
+        for s in range(p.n_extra):
+            for i, req in p.rows:
+                if self.slots[i] is not req or req.finished:
+                    continue
+                self._positions[i] += 1
+                self._last_token[i] = extra_np[s][i]
+                self.num_decode_tokens += 1
+                self._emit(req, int(extra_np[s][i]), emitted)
+
+    # ------------------------------------------------------------------
+    # plain decode
+    # ------------------------------------------------------------------
+
+    def _decode_dispatch(self) -> PendingStep:
         n = self._decode_window()
         self._check_headroom(n)
         rows = [
             (i, r) for i, r in enumerate(self.slots)
             if r is not None and self._slot_active(i)
         ]
-        _, sampled, extra = self._ragged_step(draft_len=self._zero_rows,
-                                              n_extra=n - 1)
+        # plain decode IS the unified step without drafts (1-wide rows)
+        _, sampled, _, extra = self._ragged_step(draft_len=self._zero_rows,
+                                                 n_extra=n - 1)
         self.num_decode_device_steps += n
-        toks = torch.stack([sampled, *extra]).tolist()   # ONE host fetch
-        for s in range(n):
-            for i, r in rows:
+        self.num_decode_slot_steps += n * len(rows)
+        # predicted advance: the device moves every dispatched row the
+        # full window, so the position mirror advances now; this is what
+        # lets the async loop build step N+1 before step N's tokens land
+        for i, r in rows:
+            self._positions[i] += n
+            self._inflight_out[r.id] = self._inflight_out.get(r.id, 0) + n
+        pf = self._take_pending_first()
+        return PendingStep(
+            kind="decode", rows=rows, n=n, pending_first=pf,
+            fetch=Fetch([sampled[:, 0], *extra] + [t[:1] for _r, t in pf]),
+        )
+
+    def _decode_complete(self, p: PendingStep, emitted) -> None:
+        fetched = self._fetch(p.fetch)
+        toks = fetched[:p.n]
+        for (req, _t), tok_np in zip(p.pending_first, fetched[p.n:]):
+            self._finish_first_emit(req, int(tok_np[0]), emitted)
+        for _i, r in p.rows:
+            left = self._inflight_out.get(r.id, 0) - p.n
+            if left > 0:
+                self._inflight_out[r.id] = left
+            else:
+                self._inflight_out.pop(r.id, None)
+        for s in range(p.n):
+            for i, r in p.rows:
                 if self.slots[i] is not r or r.finished:
                     continue   # finished mid-window: discard the overrun
-                self._positions[i] += 1
                 self._last_token[i] = toks[s][i]
                 self.num_decode_tokens += 1
                 self._emit(r, int(toks[s][i]), emitted)
@@ -888,68 +1323,114 @@ class Engine:
         )
         return sample(last, sampling, a["keys"])
 
-    def _decode_rows(self, live: np.ndarray) -> torch.Tensor:
-        """One plain decode step over every slot: each live slot is a
-        one-token row over its paged history.  Advances the device state
-        and the host keys of live slots; returns [B] tokens (0 where not
-        live)."""
+    def _state_rows(self, W: int, draft_len, drafts=None):
+        """The state segment at width ``W``: every slot is a ``W``-token
+        row over its paged history, its last token followed by
+        ``drafts [B, W-1]``; positions ``0..draft_len[b]`` are live
+        (``draft_len`` -1: the row sits out, q_len 0).  Samples every live
+        position with the histogram carried along the drafted prefix,
+        keeps the longest prefix agreeing with the drafts and rolls the
+        device state back past it.  ``draft_len`` is host int32 ``[B]``
+        (already -1 where the slot is not active).  Returns ``(sampled
+        [B, W], emit [B])``: emit = accepted drafts + 1 (0 off-row)."""
         st = self._dstate
-        B = len(live)
-        live_t = torch.from_numpy(live).to(self.device)
-        q_len = live_t.to(torch.int32)
+        dev = self.device
+        B = len(draft_len)
+        live = np.arange(W)[None, :] <= draft_len[:, None]       # [B, W]
+        dl_t = upload(draft_len.astype(np.int64), dev)
+        offs = self._offsets[W]
+        live_t = offs[None, :] <= dl_t[:, None]
+        q_len = torch.where(dl_t >= 0, W, 0).to(torch.int32)
         hist = (st.positions * st.active).to(torch.int32)
         tokens = st.last_token[:, None]
-        pos = st.positions[:, None]
-        kacc, vacc = self._kv_buffers(B, 1)
+        if W > 1:
+            drafts_t = upload(drafts.astype(np.int64), dev)
+            tokens = torch.cat([tokens, drafts_t], dim=1)
+        pos = st.positions[:, None] + offs[None, :]
+        kacc, vacc = self._kv_buffers(B, W)
+        t0 = self._row_t0[W]
 
         def s_attn(q, k, v, carry, _pos):
             cache, lyr = carry
             kacc[lyr].copy_(k)
             vacc[lyr].copy_(v)
-            out = self._paged_attn(q, k, v, lyr, self._s_t0, q_len, hist,
+            out = self._paged_attn(q, k, v, lyr, t0, q_len, hist,
                                    st.page_tables)
             return out, cache
 
         logits, _ = forward(self.params, self.model_cfg, tokens, pos,
                             attn_fn=s_attn, carry_caches=self.cache)
-        pages, offs = slot_to_page_offset(pos, st.page_tables,
-                                          self.cache_cfg.page_size)
-        write_kv(self.cache, kacc, vacc, pages, offs, live_t[:, None])
-        logits = logits[:, 0]
+        pages, page_offs = slot_to_page_offset(pos, st.page_tables,
+                                               self.cache_cfg.page_size)
+        write_kv(self.cache, kacc, vacc, pages, page_offs, live_t)
         if self.logits_hook is not None:
-            self.logits_hook("decode", logits)
-        pen = apply_penalties(logits, st.token_counts,
-                              st.sampling.presence, st.sampling.frequency)
-        carry, step = split_keys(self._dkeys)
-        tok = sample(pen, st.sampling, step)
-        # keys advance only at live positions: one split per real step
-        self._dkeys = np.where(live[:, None], carry, self._dkeys)
-        tok = torch.where(live_t, tok, torch.zeros_like(tok))
-        rows = torch.nonzero(live_t)[:, 0]
-        st.token_counts.index_put_(
-            (rows, tok[rows]),
-            torch.ones(len(rows), dtype=torch.int32, device=self.device),
-            accumulate=True,
-        )
-        st.positions += live_t.long()
-        st.last_token = torch.where(live_t, tok, st.last_token)
-        return tok
+            self.logits_hook("decode", logits[:, 0])
+            if W > 1:
+                self.logits_hook("verify", logits)
+        # position by position: penalties see the drafted prefix as
+        # emitted; a key split is spent only at live positions (a plain
+        # step advances each key once) and is NOT rolled back below
+        counts = st.token_counts
+        keys = self._dkeys
+        toks = []
+        for j in range(W):
+            lj = live_t[:, j]
+            pen = apply_penalties(logits[:, j], counts,
+                                  st.sampling.presence, st.sampling.frequency)
+            carry, step = split_keys(keys)
+            tok = torch.where(lj, sample(pen, st.sampling, step), 0)
+            keys = np.where(live[:, j, None], carry, keys)
+            counts.scatter_add_(1, tok[:, None], lj[:, None].to(counts.dtype))
+            toks.append(tok)
+        self._dkeys = keys
+        sampled = torch.stack(toks, dim=1)                        # [B, W]
+        if W > 1:
+            # acceptance: the longest prefix of draws agreeing with the
+            # drafts
+            in_draft = offs[None, : W - 1] < dl_t[:, None]
+            agree = torch.where(in_draft, sampled[:, : W - 1] == drafts_t,
+                                True)
+            prefix = torch.cumprod(agree.to(torch.int64), dim=1)
+            n_acc = (prefix * in_draft).sum(dim=1)
+            emit = torch.where(live_t[:, 0], n_acc + 1, 0)
+            # roll back past the accepted length: the histogram loses the
+            # discarded draws (pad positions drew token 0 and added 0)
+            discard = (offs[None, :] >= emit[:, None]) & live_t
+            counts.scatter_add_(1, sampled, -discard.to(counts.dtype))
+            new_last = sampled.gather(
+                1, (emit - 1).clamp(min=0)[:, None])[:, 0]
+        else:
+            emit = live_t[:, 0].to(torch.int64)
+            new_last = sampled[:, 0]
+        st.last_token = torch.where(emit > 0, new_last, st.last_token)
+        st.positions = st.positions + emit
+        return sampled, emit
 
-    def _ragged_step(self, plan=None, draft_len=None, n_extra: int = 0):
-        """ONE unified device step: the optional prefill plan's rows, the
-        decode-state segment (rows with ``draft_len`` >= 0) and a fused
-        tail of ``n_extra`` plain decode steps.  Returns
-        ``(p_first [R] or None, sampled [B] or None, extra list of [B])``
-        device tensors."""
+    def _ragged_step(self, plan=None, drafts=None, draft_len=None,
+                     n_extra: int = 0):
+        """ONE unified device step, queued: the optional prefill plan's
+        rows, the decode-state segment (rows with ``draft_len`` >= 0, at
+        width ``W = drafts.shape[1] + 1``, 1 without drafts) and a fused
+        tail of ``n_extra`` plain decode steps.  Returns ``(p_first [R] or
+        None, sampled [B, W] or None, emit [B] or None, extra list of
+        [B])`` device tensors."""
         if self._state_dirty or self._dstate is None:
             self._sync_state()
+        W = 1 if drafts is None else drafts.shape[1] + 1
+        if draft_len is None:
+            draft_len = self._inert_rows
+        self.num_device_calls += 1
         p_first = None
         if plan is not None and plan.rows:
             p_first = self._prefill_segment(plan)
-        live = self._active & (np.asarray(draft_len) >= 0)
-        sampled = self._decode_rows(live) if live.any() else None
-        extra = [self._decode_rows(self._active) for _ in range(n_extra)]
-        return p_first, sampled, extra
+        dl = np.where(self._active, draft_len, -1).astype(np.int32)
+        sampled = emit = None
+        if (dl >= 0).any():
+            sampled, emit = self._state_rows(W, dl, drafts)
+        tail_dl = np.where(self._active, 0, -1).astype(np.int32)
+        extra = [self._state_rows(1, tail_dl)[0][:, 0]
+                 for _ in range(n_extra)]
+        return p_first, sampled, emit, extra
 
     # ------------------------------------------------------------------
     # completion
@@ -989,6 +1470,9 @@ class Engine:
         req.finish_reason = reason
         if req.slot is not None:
             self.slots[req.slot] = None
+            # a deferred first token's seed must not reach the slot's
+            # next occupant
+            self._pending_token_patches.pop(req.slot, None)
             self._state_dirty = True
             self._changed_slots.add(req.slot)
             req.slot = None
@@ -998,5 +1482,7 @@ class Engine:
         shared = self._shared_pages.pop(req.id, None)
         if shared and self.prefix_cache is not None:
             self.prefix_cache.release(shared)
+        if self.spec is not None:
+            self.spec.forget(req.id)
         if self.allocator.owns(req.id):
             self.allocator.free(req.id)

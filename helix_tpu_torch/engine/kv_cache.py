@@ -260,8 +260,11 @@ def slot_to_page_offset(slots, page_table, page_size: int):
     """(page, offset) for absolute slot indices given per-seq page tables.
 
     ``slots``: [B, S] absolute token positions; ``page_table``: [B, maxP].
+    Positions past the table (a verify row's padding near the end of a
+    slot's pages) read its last entry; their writes are masked out.
     """
     page_idx = torch.div(slots, page_size, rounding_mode="floor").long()
+    page_idx = page_idx.clamp(max=page_table.shape[-1] - 1)
     offsets = slots % page_size
     pages = torch.gather(page_table, -1, page_idx)
     return pages.to(torch.int32), offsets.to(torch.int32)

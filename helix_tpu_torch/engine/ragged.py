@@ -13,7 +13,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-import torch
+
+from helix_tpu_torch.device import upload
 
 
 def parse_token_buckets(
@@ -144,9 +145,10 @@ class PrefillPlan:
         }
 
     def finalize_device(self, rung: int, device) -> dict:
-        """``finalize`` + the host->device upload of every array (keys,
-        which seed per-row generators on the host, stay numpy)."""
+        """``finalize`` + the host->device upload of every array, queued
+        without a synchronising copy (``device.upload``); the keys, which
+        the sampler takes as host words, stay numpy."""
         out = {}
         for k, v in self.finalize(rung).items():
-            out[k] = v if k == "keys" else torch.from_numpy(v).to(device)
+            out[k] = v if k == "keys" else upload(v, device)
         return out

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from helix_tpu_torch.device import upload
 from helix_tpu_torch.engine import threefry
 
 TOPK_BOUND = 64
@@ -69,17 +70,15 @@ class SamplingState:
     @classmethod
     def from_params(cls, params_list, device="cpu") -> "SamplingState":
         def col(attr, dtype):
-            return torch.tensor(
-                [getattr(p, attr) for p in params_list], dtype=dtype,
-                device=device,
-            )
+            return upload(np.array([getattr(p, attr) for p in params_list],
+                                   dtype=dtype), device)
 
         return cls(
-            temperature=col("temperature", torch.float32),
-            top_p=col("top_p", torch.float32),
-            top_k=col("top_k", torch.int64),
-            presence=col("presence_penalty", torch.float32),
-            frequency=col("frequency_penalty", torch.float32),
+            temperature=col("temperature", np.float32),
+            top_p=col("top_p", np.float32),
+            top_k=col("top_k", np.int64),
+            presence=col("presence_penalty", np.float32),
+            frequency=col("frequency_penalty", np.float32),
             params=tuple(params_list),
         )
 
@@ -134,7 +133,7 @@ def sample(
              if params[b].top_p >= 1.0 and params[b].top_k == 0]
     tier3 = [b for b in sampled_rows
              if b not in tier2 and not 0 < params[b].top_k <= k]
-    rows = torch.tensor(sampled_rows, device=dev)
+    rows = upload(np.array(sampled_rows), dev)
     g = threefry.gumbel(keys[rows], V if tier2 or tier3 else k)
     at = {b: i for i, b in enumerate(sampled_rows)}   # row -> row of g
     draw = torch.argmax(g[:, :k] + masked[rows], dim=-1)
@@ -142,14 +141,14 @@ def sample(
     out[rows] = torch.gather(top_idx[rows], 1, draw[:, None])[:, 0]
     if tier2:
         # exact categorical over the whole vocab
-        idx = torch.tensor(tier2, device=dev)
-        gi = torch.tensor([at[b] for b in tier2], device=dev)
+        idx = upload(np.array(tier2), dev)
+        gi = upload(np.array([at[b] for b in tier2]), dev)
         full = torch.argmax(g[gi] + scaled_full[idx], dim=-1)
         out[idx] = torch.where(cat_needed[idx], full, out[idx])
     if tier3:
         # full sort + exact nucleus prefix
-        idx = torch.tensor(tier3, device=dev)
-        gi = torch.tensor([at[b] for b in tier3], device=dev)
+        idx = upload(np.array(tier3), dev)
+        gi = upload(np.array([at[b] for b in tier3]), dev)
         s_logits, s_idx = torch.sort(scaled_full[idx], dim=-1,
                                      descending=True, stable=True)
         p_s = torch.exp(s_logits - log_z[idx])

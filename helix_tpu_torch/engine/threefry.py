@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from helix_tpu_torch.device import upload
+
 _M32 = 0xFFFF_FFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD1_1BDA
@@ -37,8 +39,7 @@ def as_keys(keys, device) -> torch.Tensor:
     ``device``."""
     if isinstance(keys, torch.Tensor):
         return keys.to(device=device, dtype=torch.int64)
-    arr = np.asarray(keys, np.uint32).astype(np.int64)
-    return torch.from_numpy(arr).to(device)
+    return upload(np.asarray(keys, np.uint32).astype(np.int64), device)
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -85,8 +86,9 @@ def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
     bits = random_bits(keys, n)
     f = ((bits >> 9) | 0x3F80_0000).to(torch.int32).view(torch.float32)
     f = f - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    # 0-dim host tensors: float32 arithmetic without an upload
+    lo = torch.tensor(minval, dtype=torch.float32)
+    hi = torch.tensor(maxval, dtype=torch.float32)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

@@ -18,6 +18,7 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -175,6 +176,15 @@ def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
     return h, (k, v), new_cache
 
 
+@functools.lru_cache(maxsize=16)
+def _inv_freq(head_dim: int, theta: float, scaling, device) -> torch.Tensor:
+    """Rotary inverse frequencies on ``device``, uploaded once per
+    configuration (an upload per forward would be a synchronising copy
+    in every device step)."""
+    return torch.from_numpy(rope_frequencies(head_dim, theta, scaling)).to(
+        device)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -200,9 +210,8 @@ def forward(
     the final-norm hidden states instead.
     """
     check_supported(cfg)
-    inv_freq = torch.from_numpy(
-        rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-    ).to(tokens.device)
+    inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                         tokens.device)
     h = embed_lookup(params["embed"], tokens.long(), torch_dtype(cfg.dtype))
     caches = carry_caches
     ks, vs = [], []

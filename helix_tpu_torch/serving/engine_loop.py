@@ -3,19 +3,34 @@
 Port of the core of ``helix_tpu/serving/engine_loop.py``: one dedicated
 thread owns the ``Engine`` (every device call stays on it); handlers submit
 through a thread-safe inbox and receive per-request ``TokenEvent``s through
-callbacks, called on the engine thread.  A step that raises fails the
-requests in flight with an error event and the loop keeps serving.
+callbacks.  A step that raises fails the requests in flight with an error
+event and the loop keeps serving.
 
-Not ported yet: the scheduler, SLO accounting, flight recorder, admission
-bounds, quarantine bisection, migration and disaggregation.
+With ``EngineConfig.enable_async_loop`` the loop pipelines (the
+reference's ``_run``): it dispatches step N+1 against the engine's
+predicted post-step state while step N runs on the device, then completes
+step N, at most one step in flight.  It does so only where
+``engine.pipeline_ready()`` says the prediction is exact (plain decode
+steady state; never with speculation on); anything else reconciles first
+and runs dispatch -> complete in order.  Emission then goes through a
+bounded off-thread stage (``_EmissionStage``) so subscriber callbacks never
+sit between a completion and the next dispatch.  Every step records its
+time split (host build, device wait, emit, idle gap, wall) in a small
+window; ``device_idle_ratio()`` reads it.
+
+Not ported yet: the scheduler, SLO accounting, admission bounds, the
+quarantine bisection and retry ladder, preemption, migration and drain
+(ROADMAP A7, A12, A15).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import queue
 import threading
+import time
 from typing import Callable, Optional
 
 from helix_tpu_torch.engine.engine import Engine, Request
@@ -23,6 +38,9 @@ from helix_tpu_torch.engine.engine import Engine, Request
 log = logging.getLogger("helix_tpu_torch.engine")
 
 SHUTTING_DOWN = "shutting_down"
+# step records kept for device_idle_ratio() (the reference's flight ring
+# holds 512 and its ratio gauges read the last 256)
+STEP_WINDOW = 256
 
 
 @dataclasses.dataclass
@@ -39,6 +57,94 @@ def _error_event(request_id: str, message: str) -> TokenEvent:
                       finish_reason="error", error=message)
 
 
+class _EmissionStage:
+    """Bounded, ordered, off-critical-path token emission.
+
+    The async loop hands each step's events to this stage so subscriber
+    callbacks never sit between a device completion and the next
+    dispatch.  One worker thread keeps per-request event order; the
+    bounded queue applies backpressure (a full queue blocks the engine
+    thread).  Not started (synchronous loop): ``push`` calls the sink on
+    the caller's thread."""
+
+    def __init__(self, sink: Callable, depth: int = 8):
+        self._sink = sink
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._thread: Optional[threading.Thread] = None
+        self.started = False
+
+    def start(self, name: str = "emit") -> None:
+        self._thread = threading.Thread(
+            target=self._run, name=f"helix-torch-emit-{name}", daemon=True
+        )
+        self.started = True
+        self._thread.start()
+
+    def push(self, events) -> None:
+        if not events:
+            return
+        if not self.started:
+            self._sink(events)
+            return
+        self._q.put(events)   # blocks when full: bounded backpressure
+
+    def flush(self) -> None:
+        """Block until every pushed batch is delivered: the ordering
+        barrier before any terminal event, so an error never overtakes
+        a request's queued tokens."""
+        if self.started:
+            self._q.join()
+
+    def stop(self) -> None:
+        if not self.started:
+            return
+        self._q.put(None)
+        self.started = False
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+
+    def depth(self) -> int:
+        return self._q.qsize()
+
+    def _run(self) -> None:
+        while True:
+            batch = self._q.get()
+            try:
+                if batch is None:
+                    return
+                try:
+                    self._sink(batch)
+                except Exception:  # noqa: BLE001 — a subscriber bug must not kill emission
+                    log.exception("emission stage sink failed")
+            finally:
+                self._q.task_done()
+
+
+class _StepWindow:
+    """The last ``capacity`` per-step time records (the part of the
+    reference's flight recorder that its ratio gauges read)."""
+
+    def __init__(self, capacity: int = STEP_WINDOW):
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self.recorded = 0   # records ever made (a caller's window marker)
+
+    def record(self, rec: dict) -> None:
+        with self._lock:
+            self._ring.append(rec)
+            self.recorded += 1
+
+    def window_ratio(self, num_key: str, den_keys: tuple,
+                     recent: int = STEP_WINDOW) -> float:
+        """Sum of ``num_key`` over the last ``recent`` records divided by
+        the summed ``den_keys`` (0.0 on an empty window)."""
+        with self._lock:
+            recs = list(self._ring)[-recent:]
+        num = float(sum(r.get(num_key, 0) or 0 for r in recs))
+        den = float(sum(r.get(k, 0) or 0 for r in recs for k in den_keys))
+        return num / den if den > 0 else 0.0
+
+
 class EngineLoop:
     def __init__(self, engine: Engine, name: str = "engine"):
         self.engine = engine
@@ -48,6 +154,15 @@ class EngineLoop:
         self._stop = threading.Event()
         self._subscribers: dict[str, Callable[[TokenEvent], None]] = {}
         self._thread: Optional[threading.Thread] = None
+        self.steps = 0
+        self.step_failures = 0
+        self.async_enabled = bool(engine.cfg.enable_async_loop)
+        self.pipelined_steps = 0    # steps dispatched while one was in flight
+        self._emit_stage = _EmissionStage(self._deliver)
+        self.window = _StepWindow()
+        # the last completion's return: a dispatch made with nothing in
+        # flight charges the gap since then as device idle (idle_gap_s)
+        self._device_busy_until = 0.0
 
     def submit(self, req: Request, on_event: Callable[[TokenEvent], None]):
         """Queue a request; ``on_event`` receives its tokens and a final
@@ -66,6 +181,8 @@ class EngineLoop:
         self._wake.set()
 
     def start(self):
+        if self.async_enabled:
+            self._emit_stage.start(self.name)
         self._thread = threading.Thread(
             target=self._run, name=f"helix-torch-engine-{self.name}",
             daemon=True,
@@ -78,6 +195,28 @@ class EngineLoop:
         self._wake.set()
         if join and self._thread is not None:
             self._thread.join(timeout=30)
+
+    def stats(self) -> dict:
+        return {
+            "steps": self.steps,
+            "step_failures": self.step_failures,
+            "async_loop": {
+                "enabled": self.async_enabled,
+                "pipelined_steps": self.pipelined_steps,
+                "device_idle_ratio": round(self.device_idle_ratio(), 4),
+                "emit_queue_depth": self._emit_stage.depth(),
+            },
+        }
+
+    def device_idle_ratio(self) -> float:
+        """Share of recent serving wall time the device had NOTHING
+        dispatched (window ``idle_gap_s`` / ``wall_s``).  A host-side
+        approximation: a gap is charged from the previous completion's
+        return to the next dispatch whenever no step was in flight in
+        between, so pipelined dispatches charge zero.  Unlike the
+        reference, time the loop spent waiting for work is not charged,
+        and a step's wall time includes its gap (the ratio is <= 1)."""
+        return self.window.window_ratio("idle_gap_s", ("wall_s",))
 
     # -- engine thread ------------------------------------------------------
 
@@ -98,44 +237,182 @@ class EngineLoop:
                 continue
             self._subscribers[item.id] = on_event
 
-    def _deliver(self, emitted) -> None:
-        """``[(req, token), ...]`` -> events.  Within one step a finishing
-        request's LAST token carries the finished flag."""
+    def _snapshot_events(self, emitted) -> list:
+        """``[(req, token), ...]`` -> ``[(req, finished, TokenEvent)]``,
+        rendered on the engine thread at emission time: a later step's
+        reconcile may finish the request before the emission stage
+        delivers, and only the token that finished it may say so.  Within
+        one batch a finishing request's LAST entry carries the flag."""
         last = {req.id: idx for idx, (req, _tok) in enumerate(emitted)}
+        events = []
         for idx, (req, token) in enumerate(emitted):
             fin = req.finished and last[req.id] == idx
-            cb = self._subscribers.get(req.id)
-            if cb is None:
-                continue
-            cb(TokenEvent(
+            events.append((req, fin, TokenEvent(
                 request_id=req.id, token_id=token, finished=fin,
                 finish_reason=(
                     req.finish_reason.value
                     if fin and req.finish_reason else None
                 ),
-            ))
+            )))
+        return events
+
+    def _deliver(self, events) -> None:
+        for req, fin, ev in events:
+            cb = self._subscribers.get(req.id)
+            if cb is None:
+                continue
+            cb(ev)
             if fin:
                 self._subscribers.pop(req.id, None)
 
     def _fail_all(self, message: str) -> None:
+        self._emit_stage.flush()
         for rid, cb in list(self._subscribers.items()):
             self.engine.abort(rid)
             cb(_error_event(rid, message))
         self._subscribers.clear()
 
+    def _step_failed(self, e: Exception) -> None:
+        log.error("engine '%s' step %d failed: %s", self.name, self.steps, e,
+                  exc_info=e)
+        self.step_failures += 1
+        self._fail_all(f"engine step failed: {e}")
+
+    def _record(self, kind: str, generated: int, **timing) -> None:
+        self.window.record({"kind": kind, "generated": generated,
+                            **{k: round(v, 6) for k, v in timing.items()}})
+
     def _run(self):
+        # the at-most-one dispatched-but-not-reconciled step; always None
+        # under the synchronous loop
+        inflight = None
+
+        def complete(pend):
+            emitted = self.engine.step_complete(pend)
+            self._device_busy_until = time.monotonic()
+            return emitted
+
+        def reconcile() -> bool:
+            """Complete the in-flight step and drain the emission stage
+            (before the inbox mutates state, or when idle).  False: the
+            completion failed and its requests were failed."""
+            nonlocal inflight
+            if inflight is None:
+                self._emit_stage.flush()
+                return True
+            pend, inflight = inflight, None
+            t0 = time.monotonic()
+            try:
+                emitted = complete(pend)
+            except Exception as e:  # noqa: BLE001 — fail requests, not the loop
+                self.engine.discard_pending(pend)
+                self._step_failed(e)
+                return False
+            dt_wait = time.monotonic() - t0
+            t_emit = time.monotonic()
+            self._emit_stage.push(self._snapshot_events(emitted))
+            # the step's dispatch skipped its record: it lands here
+            self._record(pend.kind, len(emitted), host_build_s=0.0,
+                         device_wait_s=dt_wait,
+                         emit_s=time.monotonic() - t_emit, idle_gap_s=0.0,
+                         wall_s=time.monotonic() - t0, pipelined=1)
+            self._emit_stage.flush()
+            return True
+
         while not self._stop.is_set():
+            if inflight is not None and not self._inbox.empty():
+                # submits and aborts change state the prediction did not
+                # see: reconcile first
+                if not reconcile():
+                    continue
             self._drain_inbox()
             if not self.engine.has_work():
+                if not reconcile():
+                    continue
+                if self.engine.has_work():
+                    continue   # the reconcile advanced work
                 self._wake.wait(0.05)
                 self._wake.clear()
+                # waiting for work is not the host holding the device
+                # back: the next dispatch charges no idle gap for it
+                self._device_busy_until = 0.0
                 continue
+            # the pipeline gate, decided BEFORE the dispatch
+            can_pipe = self.async_enabled and self.engine.pipeline_ready()
+            if inflight is not None and not can_pipe:
+                if not reconcile():
+                    continue
+            t_step = time.monotonic()
+            overlapped = inflight is not None
             try:
-                emitted = self.engine.step()
-            except Exception as e:  # noqa: BLE001 — the loop must survive a bad step
-                log.exception("engine step failed")
-                self._fail_all(f"engine step failed: {e}")
+                emitted, pend = self.engine.step_dispatch()
+            except Exception as e:  # noqa: BLE001 — fail requests, not the loop
+                # the in-flight step is healthy dispatched work: complete
+                # it first so its tokens are not lost
+                if inflight is not None:
+                    prev, inflight = inflight, None
+                    try:
+                        self._emit_stage.push(
+                            self._snapshot_events(complete(prev)))
+                    except Exception:  # noqa: BLE001 — poisoned chain
+                        self.engine.discard_pending(prev)
+                self._step_failed(e)
                 continue
-            self._deliver(emitted)
+            t_built = time.monotonic()
+            kind = pend.kind if pend is not None else "admit"
+            idle_gap, t_wall0 = 0.0, t_step
+            if not overlapped and self._device_busy_until:
+                # nothing was in flight while this step was built: the
+                # device sat idle since the last completion returned (the
+                # step's wall time starts there too)
+                idle_gap = max(0.0, t_built - self._device_busy_until)
+                t_wall0 = min(t_step, self._device_busy_until)
+            prev, inflight = inflight, None
+            dt_wait = 0.0
+            try:
+                if prev is not None:
+                    # step N+1 is queued on the device: fetch step N
+                    t_w = time.monotonic()
+                    emitted = complete(prev) + emitted
+                    prev = None
+                    dt_wait += time.monotonic() - t_w
+                if pend is not None and can_pipe and pend.kind == "decode":
+                    inflight, pend = pend, None
+                    self.pipelined_steps += 1
+                elif pend is not None:
+                    t_w = time.monotonic()
+                    self.engine.step_complete(pend, emitted)
+                    pend = None
+                    dt_wait += time.monotonic() - t_w
+                    self._device_busy_until = time.monotonic()
+            except Exception as e:  # noqa: BLE001 — fail requests, not the loop
+                for p in (prev, pend):
+                    if p is not None:
+                        self.engine.discard_pending(p)
+                inflight = None
+                self._step_failed(e)
+                continue
+            self.steps += 1
+            if inflight is not None and not emitted:
+                # pipeline-fill pass: its numbers land with its completion
+                continue
+            t_emit = time.monotonic()
+            self._emit_stage.push(self._snapshot_events(emitted))
+            self._record(kind, len(emitted), host_build_s=t_built - t_step,
+                         device_wait_s=dt_wait,
+                         emit_s=time.monotonic() - t_emit,
+                         idle_gap_s=idle_gap,
+                         wall_s=time.monotonic() - t_wall0,
+                         pipelined=1 if overlapped else 0)
+        # a step still in flight at shutdown: its tokens reach their
+        # subscribers before the terminal sweep
+        if inflight is not None:
+            try:
+                self._emit_stage.push(
+                    self._snapshot_events(complete(inflight)))
+            except Exception:  # noqa: BLE001 — best effort at shutdown
+                self.engine.discard_pending(inflight)
+        self._emit_stage.flush()
         self._drain_inbox()
         self._fail_all(f"{SHUTTING_DOWN}: engine '{self.name}' stopped")
+        self._emit_stage.stop()

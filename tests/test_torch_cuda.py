@@ -421,3 +421,121 @@ def test_threefry_on_the_card_matches_cpu(cuda):
             threefry.random_bits(keys, n).numpy())
         torch.testing.assert_close(threefry.uniform(keys.to(cuda), n).cpu(),
                                    threefry.uniform(keys, n), atol=0, rtol=0)
+
+
+def _verify_rows(hists, dtype, cuda, quantized, D=64, H=8, KVH=2, P=16,
+                 W=5, pool_pages=None):
+    """The state segment's verify rows as the engine lays them out: row
+    b owns tokens [b W, b W + W) (t0 = b W), every row q_len W except one
+    that sits the call out with q_len 0, histories ``hists``.  With
+    ``pool_pages`` the pool has that many pages and the tables are the
+    engine's: distinct pages up to each row's last token, page 0 past
+    it."""
+    R, L = len(hists), 2
+    maxP = -(-(max(hists) + W) // P)
+    N = R * maxP + 1 if pool_pages is None else pool_pages
+    rng = np.random.default_rng(P + D + len(hists))
+    kp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    vp = rng.standard_normal((L, N, P, KVH, D)).astype(np.float32)
+    q_len = np.full((R,), W, np.int32)
+    q_len[R // 2] = 0
+    t0 = (np.arange(R) * W).astype(np.int32)
+    T = R * W
+    perm = rng.permutation(np.arange(1, N))
+    if pool_pages is None:
+        tables = perm[: R * maxP].reshape(R, maxP)
+    else:
+        tables = np.zeros((R, maxP), np.int64)
+        for r in range(R):
+            n = -(-(hists[r] + W) // P)
+            tables[r, :n] = perm[r * maxP: r * maxP + n]
+    fresh = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+             .to(cuda, dtype) for sh in ((T, H, D), (T, KVH, D),
+                                         (T, KVH, D))]
+    meta = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(cuda)
+            for x in (t0, q_len, np.asarray(hists), tables)]
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(a, a + n) for a, n in zip(t0, q_len)])).to(cuda)
+    if quantized:
+        kq, ks = tquant.quantize_kv(torch.from_numpy(kp))
+        vq, vs = tquant.quantize_kv(torch.from_numpy(vp))
+        pools = [x.to(cuda) for x in (kq, vq)]
+        kw = dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))
+    else:
+        pools = [torch.from_numpy(x).to(cuda, dtype) for x in (kp, vp)]
+        kw = {}
+    return fresh, pools, meta, kw, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hists,D,H,KVH,pool_pages", [
+    ([1000, 1700, 2333, 2900, 3100, 3650, 3999, 1234], 128, 32, 8, None),
+    ([511, 512, 513, 1023, 1025, 4091, 0, 1], 128, 32, 8, None),
+    ([511, 512, 513, 1023, 1025, 4091, 0, 1], 64, 8, 2, None),
+    # the spec cell: 16 slots at its histories on its 3968-page pool
+    ([301, 449, 317, 336, 352, 368, 384, 399, 400, 415, 431, 447, 320,
+      304, 383, 416], 128, 32, 8, 3968),
+])
+def test_ragged_kernel_verify_rows(cuda, hists, D, H, KVH, pool_pages,
+                                   dtype, quantized):
+    """K1 (both pool forms) on speculative verify rows: W = 5 tokens x
+    H/KVH query heads per KV head in one query tile, the fresh causal part
+    on top of histories at and beside the split's edges, and 16 rows (the
+    query tiles are numbered across rows on the device) on an engine-sized
+    pool; one history slot too many or too few breaks the limit."""
+    fresh, pools, meta, kw, live = _verify_rows(hists, dtype, cuda,
+                                                quantized, D=D, H=H, KVH=KVH,
+                                                pool_pages=pool_pages)
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta, **kw)
+    if quantized:
+        want = _int8_plain(fresh, pools, (kw["k_scale"], kw["v_scale"]),
+                           meta, 1)
+    else:
+        want = tpk.ragged_paged_attention_plain(*fresh, *pools, 1, *meta)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    for d in (-1, 1):
+        bad = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta[:2],
+                                         (meta[2] + d).clamp(min=0),
+                                         meta[3], **kw)
+        assert _breaks_limit(bad[live], want[live], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+def test_decode_dispatch_makes_no_synchronising_call(cuda, spec):
+    """A decode (or verify) step's dispatch half queues its work and its
+    one device-to-host copy without a synchronising call: metadata goes up
+    from pinned copies (``device.upload``), results come back through
+    ``device.Fetch``.  Greedy and seeded sampled rows, so the sampler's
+    uploads are covered too."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=4, page_size=16, num_pages=64, max_pages_per_seq=8,
+        max_prefill_len=32, enable_spec_decode=spec, enable_async_loop=True),
+        device=cuda)
+    for i, temp in enumerate((0.0, 0.8, 0.0)):
+        eng.add_request(Request(
+            id=f"s{i}", prompt_tokens=[3, 4, 5, 3, 4, 5, 3, 4][: 5 + i],
+            sampling=SamplingParams(temperature=temp, seed=i,
+                                    max_tokens=40)))
+    for _ in range(3):
+        eng.step()
+    assert not spec or eng.spec is not None
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            emitted, pend = eng.step_dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pend is not None and pend.kind in ("decode", "spec")
+        eng.step_complete(pend, emitted)

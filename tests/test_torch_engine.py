@@ -452,8 +452,6 @@ def test_copied_dataclasses_match_reference(pair):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(enable_spec_decode=True), "A10"),
-    (dict(enable_async_loop=True), "A11"),
     (dict(adapter_pool_slots=2), "A13"),
     (dict(host_pool_bytes=1 << 20), "A12"),
     (dict(ctx_hot_pages=4), "A14"),
