@@ -47,17 +47,30 @@ no result line):
    has freed its engine: K1's int8 form must have run;
 4c. spec: the ``profiles/v5e1-hotswap.yaml`` Llama entry as written
    (int8 weights and KV, 16 slots, 3968 pages, ``enable_spec_decode``,
-   ``spec_tokens: 4``; its host tier and adapters are not ported): 16
-   chats quoting a passage, all answered, K1-int8 on verify rows, the
-   seeded request reproduced; acceptance ratio, decode tokens per device
-   step and active slot, TTFT, tok/s and memory printed; then the same
-   chats with speculation off, for the share of greedy tokens that agree;
+   ``spec_tokens: 4``, its 16 GiB ``host_pool_bytes``; its adapters are
+   not ported): 16 chats quoting a passage, all answered, K1-int8 on
+   verify rows, the seeded request reproduced; acceptance ratio, decode
+   tokens per device step and active slot, TTFT, tok/s and memory
+   printed; then the same chats with speculation off, for the share of
+   greedy tokens that agree;
 4d. oracle: 2 layers at full width in float32, greedy and seeded
    sampled requests without speculation, with a drafter proposing the
    recorded continuation (same tokens, fewer device steps) and with one
    proposing wrong tokens (no more device steps; see ``phase_oracle``);
    then the same with int8 weights and an int8 KV pool, where K1-int8
    must run the accepted verify rows;
+4e. host tier (``phase_host_tier``, ``phase_host_exact``): the same
+   entry at full width spills ~1500-token prefixes to its host tier by
+   overflowing the pool and restores them (checksums equal, tokens equal
+   to the device-resident run, K1-int8 on the restored rows); the
+   ladder preempts by swap and resumes under page pressure
+   (``HELIX_PREEMPT_STALL_SECONDS=0.5``); a streaming chat drains from
+   one server to another over HTTP and resumes there, every token once;
+   at 2 layers in float32, and with int8 weights + KV, greedy and seeded
+   tokens are identical across preempt / resume and export / import.
+   Host-link rates, preempt / resume / encode / decode times, wire size,
+   import-to-first-token and host-pool occupancy are printed, each line
+   with the card's name and power limit;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -74,6 +87,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -969,26 +983,35 @@ PASSAGE = (
     "merchants, students and craftsmen to own.")
 
 
+# the ``profiles/v5e1-hotswap.yaml`` Llama entry's engine block as the
+# profile writes it, less ``adapter_pool_slots`` / ``adapter_rank`` (A13)
+ENTRY = dict(max_decode_batch=16, num_pages=3968, page_size=16,
+             max_prefill_len=2048, kv_cache_dtype="int8",
+             enable_spec_decode=True, spec_tokens=4,
+             host_pool_bytes=17179869184)
+
+
 def phase_spec() -> dict:
     """The ``profiles/v5e1-hotswap.yaml`` Llama entry as the profile
-    writes it, with speculative decoding: int8 weights, int8 KV, 16
-    decode slots, 3968 pages of 16, max_prefill_len 2048, spec_tokens 4
-    (``host_pool_bytes`` and ``adapter_pool_slots`` are not ported yet:
-    A12, A13).  16 concurrent chats quote a passage and ask for it back;
-    the seeded request is sent twice."""
+    writes it (``ENTRY``), with speculative decoding and its 16 GiB host
+    tier: int8 weights, int8 KV, 16 decode slots, 3968 pages of 16,
+    max_prefill_len 2048, spec_tokens 4 (``adapter_pool_slots`` is not
+    ported yet: A13).  16 concurrent chats quote a passage and ask for it
+    back; the seeded request is sent twice."""
     from helix_tpu_torch.ops.attention import K2
     from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
 
     t0 = time.monotonic()
-    engine = dict(max_decode_batch=16, num_pages=3968, page_size=16,
-                  max_prefill_len=2048, kv_cache_dtype="int8",
-                  enable_spec_decode=True, spec_tokens=4)
+    engine = dict(ENTRY)
     served, eng, httpd, base, registry, mem = _serve(engine, "int8")
     tag = "spec"
+    if eng.host_pool is None or eng.host_pool.budget_bytes != \
+            ENTRY["host_pool_bytes"]:
+        raise AssertionError("the entry's host tier was not built")
     log(f"[{tag}] {MODEL} as the v5e1-hotswap entry: int8 weights, int8 "
         f"KV ({mem['kv_pool_gib']:.2f} GiB), {engine}; built + warmed in "
-        f"{time.monotonic() - t0:.1f} s; host_pool_bytes (A12) and "
-        "adapter_pool_slots (A13) not ported yet")
+        f"{time.monotonic() - t0:.1f} s; adapter_pool_slots (A13) not "
+        "ported yet")
     try:
         K1.launches = K1_INT8.launches = K2.launches = 0
         eng.recent_ttfts.clear()
@@ -1241,6 +1264,574 @@ def phase_oracle(int8: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4e. the host KV tier: spill and restore, preemption, migration
+# ---------------------------------------------------------------------------
+
+# H100 SXM host link, PCIe Gen5 x16: 128 GB/s both ways (NVIDIA's data
+# sheet), 64 GB/s each way -- the bound of a copy to or from host memory
+PCIE_BYTES = 64e9
+# int8 Llama-3-8B page: 2 (K, V) x 32 layers x 16 slots x 8 KV heads x
+# (128 codes + one f32 scale), bytes
+PAGE_BYTES_INT8 = 2 * 32 * 16 * 8 * (128 + 4)
+# phase 4e.2's cut of the entry's pool: at 128 pages per sequence its 16
+# slots hold at most 2048 of 3968 pages, so the pool as written never
+# runs out; at 256 pages eleven of its chats fill it
+LADDER_PAGES = 256
+# fill chats of phase 4e.1: each adopts 93 pages; 51 prompts' prefixes
+# (4743 pages) overflow the 3968-page pool by ~800
+N_FILL = 48
+# snapshot_to_wire's document as the shipper posts it (a wrapper below
+# takes the shipper's ``json`` argument)
+_dumps = json.dumps
+
+
+def _ids(text) -> list:
+    return [int(x) for x in re.findall(r"<(\d+)>", text)]
+
+
+def _system_prompt(i) -> str:
+    """~1470 bytes, distinct per i: with the chat template ~1500 tokens
+    of the byte tokenizer."""
+    return f"System prompt {i:03d}. " + "".join(
+        f"Rule {j} of deployment {i}: answer briefly, cite the source. "
+        for j in range(25))
+
+
+def _msgs(i, user="Summarise the rules in one line."):
+    return [{"role": "system", "content": _system_prompt(i)},
+            {"role": "user", "content": user}]
+
+
+def _chat_msgs(base, messages, max_tokens, **extra) -> str:
+    body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0,
+            "messages": messages, **extra}
+    out = json.loads(_post(base + "/v1/chat/completions", body))
+    assert out["choices"][0]["finish_reason"] in ("stop", "length"), out
+    return out["choices"][0]["message"]["content"]
+
+
+def _concurrent(base, bodies, max_tokens, workers=16) -> list:
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(lambda m: _chat_msgs(base, m, max_tokens),
+                           bodies))
+
+
+def _first_verify(eng) -> list:
+    """Spy on ``eng``'s verify dispatches: the returned list receives the
+    emitted-token count of the first occupied slot at each one (phase
+    4e.3 runs one request at a time).  Undo with ``del
+    eng._spec_dispatch_tail``."""
+    seen, tail = [], eng._spec_dispatch_tail
+
+    def spy(drafts, draft_len):
+        seen.extend(len(r.output_tokens) for r in eng.slots[:1]
+                    if r is not None)
+        return tail(drafts, draft_len)
+
+    eng._spec_dispatch_tail = spy
+    return seen
+
+
+def _page_sums(eng, digests) -> list:
+    """Checksums of a prefix's pages where the device prefix cache holds
+    them now (read while the engine is idle)."""
+    return _sums(eng.cache, [eng.prefix_cache._entries[h][0]
+                             for h in digests])
+
+
+def _round_trip(eng, page_ids, scratch, want) -> dict:
+    """One batch of the pool's pages through the host tier and back:
+    gather + ``HostPagePool.put`` (pinned staging copies, queued), the
+    pageable store (``drain_pending``: copy out of staging + checksums),
+    ``restore_pages`` into ``scratch``; bytes checked both ways."""
+    from helix_tpu_torch.engine.kv_cache import (
+        HostPagePool,
+        gather_pages,
+        page_checksum,
+        restore_pages,
+    )
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    hp = HostPagePool(1 << 36, device="cuda")
+    torch.cuda.synchronize()
+    e0, e1, e2 = ev(), ev(), ev()
+    t0 = time.monotonic()
+    e0.record()
+    pages = gather_pages(eng.cache, page_ids)
+    e1.record()
+    for i, p in zip(page_ids, pages):
+        if not hp.put(i, p):
+            raise AssertionError("host tier refused a page")
+    e2.record()
+    del pages
+    torch.cuda.synchronize()
+    d2h_wall = time.monotonic() - t0
+    t1 = time.monotonic()
+    hp.drain_pending()
+    finalize_s = time.monotonic() - t1
+    nbytes = hp.used_bytes
+    entries = [hp.take_restored(i) for i in page_ids]
+    if [page_checksum(e) for e in entries] != want:
+        raise AssertionError("pages changed on their way to the host")
+    targets = list(range(1, len(page_ids) + 1))
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    restore_pages(scratch, targets, entries)
+    torch.cuda.synchronize()
+    h2d_wall = time.monotonic() - t2
+    if _sums(scratch, targets) != want:
+        raise AssertionError("pages changed on their way back")
+    d2h_ms = e1.elapsed_time(e2)
+    return {"bytes": nbytes, "gather_ms": e0.elapsed_time(e1),
+            "d2h_ms": d2h_ms, "d2h_gbps": nbytes / d2h_ms / 1e6,
+            "d2h_wall_ms": d2h_wall * 1e3, "finalize_ms": finalize_s * 1e3,
+            "h2d_wall_ms": h2d_wall * 1e3,
+            "h2d_gbps": nbytes / h2d_wall / 1e9}
+
+
+def _sums(cache, page_ids) -> list:
+    from helix_tpu_torch.engine.kv_cache import gather_pages, page_checksum
+
+    return [page_checksum({f: None if a is None else a.cpu()
+                           for f, a in p.items()})
+            for p in gather_pages(cache, page_ids)]
+
+
+def _link_rates(eng, page_ids) -> dict:
+    """Host-link rates for one batch of pages on an idle engine: two
+    round trips (the first also allocates the pinned staging blocks,
+    which PyTorch's pinned-memory cache keeps for the second) and a bare
+    pinned upload of the same bytes, against the link's data-sheet rate."""
+    from helix_tpu_torch.engine.kv_cache import CacheConfig, PagedKVCache
+
+    cc = eng.cache_cfg
+    scratch = PagedKVCache.create(eng.model_cfg, CacheConfig(
+        num_pages=len(page_ids) + 1, page_size=cc.page_size,
+        max_pages_per_seq=cc.max_pages_per_seq, dtype=cc.dtype), "cuda")
+    want = _sums(eng.cache, page_ids)
+    cold = _round_trip(eng, page_ids, scratch, want)
+    warm = _round_trip(eng, page_ids, scratch, want)
+    stage = torch.empty(warm["bytes"], dtype=torch.uint8, pin_memory=True)
+    h0 = torch.cuda.Event(enable_timing=True)
+    h1 = torch.cuda.Event(enable_timing=True)
+    h0.record()
+    stage.to("cuda", non_blocking=True)
+    h1.record()
+    torch.cuda.synchronize()
+    up_ms = h0.elapsed_time(h1)
+    del scratch
+    return {"pages": len(page_ids), "cold": cold, "warm": warm,
+            "bytes": warm["bytes"], "h2d_pinned_ms": up_ms,
+            "h2d_pinned_gbps": warm["bytes"] / up_ms / 1e6,
+            "bound_ms": warm["bytes"] / PCIE_BYTES * 1e3}
+
+
+def phase_host_tier(smi) -> dict:
+    """4e.1-4e.3 on the v5e1-hotswap entry at full width (``ENTRY``, its
+    16 GiB host tier included), int8 weights and KV:
+
+    1. spill and restore on engine A: three probe chats, each sent
+       twice (cold, then a device prefix hit), then ``N_FILL`` distinct
+       ~1500-token system prompts that overflow the 3968-page pool and
+       push the probes' prefixes to the host, then the probes a third
+       time: their pages come back from the host (restores > 0),
+       checksums equal to those of the device-resident pages, and tokens
+       equal to the device hit's (the same step composition: one chat
+       alone, the same history and rows); K1-int8 must run the restored
+       rows;
+    2. the ladder on engine B (the entry with ``LADDER_PAGES`` pages,
+       ``HELIX_PREEMPT_STALL_SECONDS=0.5``): 14 chats of 200 tokens where
+       11 fit; at least one preemption and one resume, every chat
+       answered, the seeded request reproduced;
+    3. export -> wire -> import over HTTP: a chat streaming from A is
+       drained with a ``PeerShipper`` aimed at B and continued with
+       ``/v1/migrate/resume``; every token exactly once, the stream
+       complete, K1-int8 on the imported rows."""
+    from helix_tpu_torch.engine.kv_cache import PrefixCache
+    from helix_tpu_torch.ops.paged_kernel import K1_INT8
+    from helix_tpu_torch.serving import migration, openai_api
+
+    tag = "host tier"
+    out = {}
+    t0 = time.monotonic()
+    sa, eng_a, httpd_a, base_a, reg_a, mem_a = _serve(dict(ENTRY), "int8")
+    hp = eng_a.host_pool
+    log(f"[{tag}] ({smi}) engine A: the v5e1-hotswap entry {ENTRY}, built in "
+        f"{time.monotonic() - t0:.1f} s, KV pool {mem_a['kv_pool_gib']:.2f} "
+        f"GiB, host tier budget {hp.budget_bytes} B = "
+        f"{hp.budget_bytes // PAGE_BYTES_INT8} int8 pages of "
+        f"{PAGE_BYTES_INT8} B ({hp.budget_bytes / PAGE_BYTES_INT8 / 3968:.2f}"
+        f"x the 3968-page pool)")
+    page = eng_a.cache_cfg.page_bytes(eng_a.model_cfg)
+    if page != PAGE_BYTES_INT8:
+        raise AssertionError(f"int8 page is {page} B, not {PAGE_BYTES_INT8}")
+    sb = httpd_b = reg_b = None
+    try:
+        # -- 4e.1 spill and restore ------------------------------------
+        probes = (0, 1, 2)
+        tok = sa.tokenizer
+        digests = {}
+        for i in probes:
+            ids = tok.apply_chat_template(_msgs(i), add_generation_prompt=True)
+            digests[i] = PrefixCache.page_hashes(ids, 16, (len(ids) - 1) // 16)
+        cold = {i: _ids(_chat_msgs(base_a, _msgs(i), 16)) for i in probes}
+        hit = {i: _ids(_chat_msgs(base_a, _msgs(i), 16)) for i in probes}
+        resident = {i: _page_sums(eng_a, digests[i]) for i in probes}
+        t1 = time.monotonic()
+        _concurrent(base_a, [_msgs(100 + i) for i in range(N_FILL)], 8)
+        fill_s = time.monotonic() - t1
+        on_host = {i: sum(hp.contains(h) for h in digests[i]) for i in probes}
+        spilled, stats_fill = hp.spilled_pages, hp.stats()
+        occupancy = hp.occupancy
+        if spilled <= 0 or not all(on_host.values()):
+            raise AssertionError(f"the probes' prefixes were not spilled: "
+                                 f"{on_host}, {stats_fill}")
+        K1_INT8.launches = 0
+        r0, c0 = hp.restored_pages, eng_a.restore_seconds
+        again = {i: _ids(_chat_msgs(base_a, _msgs(i), 16)) for i in probes}
+        restored = hp.restored_pages - r0
+        k1_restored = K1_INT8.launches
+        back = {i: _page_sums(eng_a, digests[i]) for i in probes}
+        same = {i: again[i] == hit[i] for i in probes}
+        cold_agree = sum(a == b for i in probes
+                         for a, b in zip(cold[i], hit[i]))
+        out["spill"] = dict(spilled_pages=spilled, restored_pages=restored,
+                            host_stats=stats_fill, occupancy=occupancy,
+                            k1_int8_launches=k1_restored)
+        log(f"[{tag}] ({smi}) 4e.1: {N_FILL} fill chats of ~1500 tokens in "
+            f"{fill_s:.1f} s; pages spilled {spilled} "
+            f"({spilled * PAGE_BYTES_INT8} B); host pool {stats_fill}, "
+            f"occupancy {occupancy:.4f}; probes' prefix pages on the host "
+            f"{on_host}; third sends restored {restored} pages in "
+            f"{(eng_a.restore_seconds - c0) * 1e3:.1f} ms of restore "
+            f"(host clock); checksums equal to the device-resident pages: "
+            f"{back == resident}; tokens equal to the device-hit run: "
+            f"{same}; cold vs hit agreement {cold_agree} of "
+            f"{sum(len(hit[i]) for i in probes)}; K1-int8 launches on the "
+            f"restored runs {k1_restored}")
+        if restored <= 0:
+            raise AssertionError("no page was restored from the host")
+        if back != resident:
+            raise AssertionError("restored pages differ from the spilled")
+        if not all(same.values()):
+            raise AssertionError(f"restored-prefix tokens differ from the "
+                                 f"device-resident run: {again} vs {hit}")
+        if k1_restored <= 0:
+            raise AssertionError("K1-int8 did not run the restored rows")
+        if hp.corrupt_pages or hp.alloc_failures:
+            raise AssertionError(f"host tier faults: {hp.stats()}")
+        rates = _link_rates(eng_a, [eng_a.prefix_cache._entries[h][0]
+                                    for h in digests[0]])
+        out["link"] = rates
+        for run in ("cold", "warm"):
+            r = rates[run]
+            log(f"[{tag}] ({smi}) host link, a batch of {rates['pages']} "
+                f"pages ({r['bytes']} B), {run}: device-to-host copies "
+                f"{r['d2h_ms']:.3f} ms = {r['d2h_gbps']:.2f} GB/s (gather "
+                f"{r['gather_ms']:.3f} ms; queued and waited "
+                f"{r['d2h_wall_ms']:.1f} ms; pageable store + checksums "
+                f"{r['finalize_ms']:.1f} ms); restore {r['h2d_wall_ms']:.1f}"
+                f" ms wall = {r['h2d_gbps']:.2f} GB/s (pinned staging copy "
+                f"+ upload + index_copy_)")
+        log(f"[{tag}] ({smi}) host link: bare pinned upload of the batch "
+            f"{rates['h2d_pinned_ms']:.3f} ms = "
+            f"{rates['h2d_pinned_gbps']:.2f} GB/s; bound (PCIe Gen5 x16, "
+            f"64 GB/s each way) {rates['bound_ms']:.3f} ms")
+
+        # -- 4e.2 the ladder on engine B ---------------------------------
+        os.environ["HELIX_PREEMPT_STALL_SECONDS"] = "0.5"
+        os.environ["HELIX_ADMISSION_TIMEOUT"] = "300"
+        try:
+            t1 = time.monotonic()
+            sb, eng_b, httpd_b, base_b, reg_b, _m = _serve(
+                {**ENTRY, "num_pages": LADDER_PAGES}, "int8")
+        finally:
+            os.environ.pop("HELIX_PREEMPT_STALL_SECONDS")
+            os.environ.pop("HELIX_ADMISSION_TIMEOUT")
+        if sb.loop.preempt_stall_seconds != 0.5:
+            raise AssertionError("HELIX_PREEMPT_STALL_SECONDS not read")
+        preempt_s = []
+        preempt = eng_b.preempt
+
+        def timed_preempt(rid):
+            ts = time.monotonic()
+            ok = preempt(rid)
+            preempt_s.append(time.monotonic() - ts)
+            return ok
+
+        eng_b.preempt = timed_preempt
+        chats = [[{"role": "user", "content": f"Chat {i}: " + "tell me "
+                   "about the printing press in plain words. " * 3}]
+                 for i in range(14)]
+        K1_INT8.launches = 0
+        c0 = (eng_b.num_resumes, eng_b.restore_seconds)
+        texts = _concurrent(base_b, chats, 200)
+        st = sb.loop.stats()
+        resumes = eng_b.num_resumes - c0[0]
+        resume_s = eng_b.restore_seconds - c0[1]
+        eng_b.preempt = preempt
+        seeded = _seeded_twice(base_b)
+        out["ladder"] = dict(preemptions=st["preemptions"], resumes=resumes,
+                             answered=len(texts), k1=K1_INT8.launches)
+        log(f"[{tag}] ({smi}) 4e.2: engine B = the entry with {LADDER_PAGES} pages "
+            f"(built in {time.monotonic() - t1:.1f} s with the chats); 14 "
+            f"chats of 200 tokens: answered {len(texts)}, preemptions "
+            f"{st['preemptions']}, resumes {resumes}, parked at the end "
+            f"{st['preempted_parked']}, sheds {st['kv_exhausted_sheds']}; "
+            f"preempt {np.mean(preempt_s) * 1e3 if preempt_s else 0:.1f}"
+            f" ms per request (host clock, {len(preempt_s)} calls), resume "
+            f"{resume_s / max(1, resumes) * 1e3:.1f} ms per request (host "
+            f"clock, restore incl. the queued upload); host pool "
+            f"{st['host_pool']}; K1-int8 launches {K1_INT8.launches}; "
+            f"seeded request reproduced ({seeded.count('<')} tokens)")
+        if len(texts) != 14 or not all(_ids(t) for t in texts):
+            raise AssertionError("a ladder chat went unanswered")
+        if st["preemptions"] < 1 or resumes < 1:
+            raise AssertionError(f"no preemption and resume: {st}")
+        if st["preempted_parked"] or st["kv_exhausted_sheds"]:
+            raise AssertionError(f"ladder left work behind: {st}")
+
+        # -- 4e.3 export -> wire -> import over HTTP ------------------------
+        story = _msgs(0, user="Write a long story about the rules.")
+        # once to adopt the story prompt's own pages, so the reference
+        # run and the drained one are the same full-prefix hit
+        _chat_msgs(base_a, story, 8)
+        verify_a = _first_verify(eng_a)
+        ref = _ids(_chat_msgs(base_a, story, 160))
+        del eng_a._spec_dispatch_tail
+        verify_b = _first_verify(eng_b)
+        wires, clock, b_events = [], {}, []
+        encode, decode, export = [], [], []
+
+        def timed_post(url, json=None, headers=None, timeout=None):
+            wires.append(json)
+            clock["wire_bytes"] = len(_dumps(json))
+            K1_INT8.launches = 0   # A stepped its last; B's work from here
+            clock["post"] = time.monotonic()
+            return migration.http_post(url, json=json, headers=headers,
+                                       timeout=timeout)
+
+        def timed(fn, sink):
+            def wrapper(*a, **kw):
+                ts = time.monotonic()
+                r = fn(*a, **kw)
+                sink.append(time.monotonic() - ts)
+                return r
+            return wrapper
+
+        on_event = migration.ImportedStream.on_event
+
+        def spy(stream, ev):
+            b_events.append((time.monotonic(), ev))
+            on_event(stream, ev)
+
+        patches = [(migration, "snapshot_to_wire",
+                    timed(migration.snapshot_to_wire, encode)),
+                   (openai_api, "wire_to_snapshot",
+                    timed(openai_api.wire_to_snapshot, decode)),
+                   (migration.ImportedStream, "on_event", spy)]
+        saved = [(o, n, getattr(o, n)) for o, n, _f in patches]
+        eng_a.export_request = timed(eng_a.export_request, export)
+        sa.loop.exporter = migration.PeerShipper(
+            targets=[{"id": "engine-b", "address": base_b}], post=timed_post)
+        for o, n, f in patches:
+            setattr(o, n, f)
+        try:
+            got, first = {}, threading.Event()
+
+            def client():
+                body = {"model": MODEL, "max_tokens": 160, "temperature": 0,
+                        "messages": story, "stream": True}
+                req = urllib.request.Request(
+                    base_a + "/v1/chat/completions",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    lines = []
+                    for _ in range(24):
+                        lines.append(r.readline().decode())
+                    first.set()
+                    got["raw"] = "".join(lines) + r.read().decode()
+
+            t = threading.Thread(target=client)
+            t.start()
+            if not first.wait(300):
+                raise AssertionError("the stream on A never started")
+            sa.loop.stop(drain=0.05)
+            t.join(300)
+            frames = [f[6:] for f in got["raw"].split("\n\n")
+                      if f.startswith("data: ")]
+            err = json.loads(frames[-2])["error"]
+            peer = migration.parse_migrated_peer(err["message"])
+            rid = err["message"].split()[2]
+            seen = "".join(json.loads(f)["choices"][0]["delta"].get(
+                "content", "") for f in frames[:-2])
+            with urllib.request.urlopen(urllib.request.Request(
+                    base_b + "/v1/migrate/resume",
+                    data=json.dumps({"request_id": rid,
+                                     "emitted_chars": len(seen)}).encode(),
+                    headers={"Content-Type": "application/json"}),
+                    timeout=600) as r:
+                resumed = [json.loads(f[6:]) for f in
+                           r.read().decode().split("\n\n")
+                           if f.startswith("data: {")]
+        finally:
+            for o, n, f in saved:
+                setattr(o, n, f)
+        k1_import = K1_INT8.launches
+        del eng_b._spec_dispatch_tail
+        eos = set(sa.tokenizer.eos_ids)
+        prior = wires[0]["output_tokens"]
+        b_new = [ev.token_id for _t, ev in b_events if not ev.error]
+        sent = [t for t in prior + b_new if t not in eos]
+        full = _ids(seen + "".join(d.get("delta", "") for d in resumed))
+        agree = sum(a == b for a, b in zip(full, ref))
+        parts = next((j for j, (a, b) in enumerate(zip(full, ref))
+                      if a != b), min(len(full), len(ref)))
+        first_tok_ms = (b_events[0][0] - clock["post"]) * 1e3
+        out["migration"] = dict(peer=peer, tokens=len(full),
+                                wire_bytes=clock["wire_bytes"],
+                                k1_int8_launches=k1_import)
+        log(f"[{tag}] ({smi}) 4e.3: drained A to {peer}: {len(_ids(seen))} tokens "
+            f"streamed from A, snapshot of {len(prior)} emitted tokens and "
+            f"{len(wires[0]['pages'])} pages, wire {clock['wire_bytes']} B; "
+            f"export (gather) {export[0] * 1e3:.1f} ms, encode "
+            f"{encode[0] * 1e3:.1f} ms, decode {decode[0] * 1e3:.1f} ms per "
+            f"snapshot (host clock); import to first token "
+            f"{first_tok_ms:.1f} ms (POST start to B's first event); "
+            f"resumed stream {len(resumed)} frames ending "
+            f"{resumed[-1].get('finish_reason')}; {len(full)} tokens in "
+            f"all, {agree} agree with A's uninterrupted run of the same "
+            f"composition, the first differing at {parts} (verify steps "
+            f"at emitted counts: A's run {verify_a[:6]}, B's continuation "
+            f"{verify_b[:6]}); "
+            f"K1-int8 launches on B's imported rows {k1_import}")
+        if peer != "engine-b" or err.get("code") != "migrated":
+            raise AssertionError(f"no migrated frame: {err}")
+        if _ids(seen) != prior[: len(_ids(seen))]:
+            raise AssertionError("the client saw tokens A never emitted")
+        if full != sent:
+            raise AssertionError("a token was lost or sent twice")
+        if resumed[-1].get("finish_reason") not in ("stop", "length"):
+            raise AssertionError(f"the resumed stream did not finish: "
+                                 f"{resumed[-1]}")
+        if len(full) != len(ref) and resumed[-1]["finish_reason"] == \
+                "length":
+            raise AssertionError(f"{len(full)} tokens, not {len(ref)}")
+        if k1_import <= 0:
+            raise AssertionError("K1-int8 did not run the imported rows")
+    finally:
+        _unserve(sa, httpd_a, reg_a)
+        if sb is not None:
+            _unserve(sb, httpd_b, reg_b)
+    del sa, sb, eng_a, reg_a, reg_b, hp
+    _free()
+    return out
+
+
+def phase_host_exact(smi, int8: bool = False) -> dict:
+    """4e.4: exactness at 2 layers, full width, float32 (and with int8
+    weights + int8 KV): a greedy and a seeded temperature 0.8 request
+    with penalties, each run alone, give the same tokens uninterrupted,
+    across a preempt / resume through the host tier after 10 tokens, and
+    exported after 10 tokens, through the JSON wire, imported into a
+    second engine and continued.  The K1 form of the pool must run the
+    resumed and the imported rows."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.ops.quant import quantize_params
+    from helix_tpu_torch.serving import migration
+
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2, dtype="float32")
+    params = init_params(cfg, 4, device="cuda")
+    extra = {}
+    if int8:
+        params = quantize_params(params)
+        extra["kv_cache_dtype"] = "int8"
+    kernel = K1_INT8 if int8 else K1
+    prompt = [int(t) for t in np.random.default_rng(8).integers(
+        4, 260, size=300)]
+    sps = {"greedy": SamplingParams(temperature=0.0, max_tokens=24),
+           "seeded": SamplingParams(temperature=0.8, seed=99,
+                                    presence_penalty=0.3,
+                                    frequency_penalty=0.2, max_tokens=24)}
+
+    def engine():
+        return Engine(cfg, params, EngineConfig(
+            max_decode_batch=8, page_size=16, num_pages=256,
+            max_pages_per_seq=64, max_prefill_len=512,
+            host_pool_bytes=1 << 30, **extra), device="cuda")
+
+    def start(eng, rid, sp, cut):
+        req = Request(id=rid, prompt_tokens=list(prompt), sampling=sp)
+        eng.add_request(req)
+        while len(req.output_tokens) < cut:
+            eng.step()
+        return req
+
+    def finish(eng, req):
+        while not req.finished:
+            eng.step()
+        return list(req.output_tokens)
+
+    rows = {}
+    for name, sp in sps.items():
+        eng = engine()
+        base = finish(eng, start(eng, "u", sp, 1))
+        eng = engine()
+        req = start(eng, "p", sp, 10)
+        if not eng.preempt("p"):
+            raise AssertionError("preempt refused")
+        kernel.launches = 0
+        swapped = finish(eng, req)
+        resumed_launches = kernel.launches
+        eng = engine()
+        req = start(eng, "x", sp, 10)
+        ts = time.monotonic()
+        snap = eng.export_request("x")
+        wire = json.dumps(migration.snapshot_to_wire(snap))
+        enc_ms = (time.monotonic() - ts) * 1e3
+        eng.abort("x")
+        other = engine()
+        ts = time.monotonic()
+        imp = other.import_request(migration.wire_to_snapshot(
+            json.loads(wire)))
+        dec_ms = (time.monotonic() - ts) * 1e3
+        kernel.launches = 0
+        moved = finish(other, imp)
+        rows[name] = dict(same_swap=swapped == base, same_move=moved == base,
+                          resumed_launches=resumed_launches,
+                          imported_launches=kernel.launches,
+                          wire_bytes=len(wire), export_encode_ms=enc_ms,
+                          decode_import_ms=dec_ms)
+        del eng, other
+    tag = "host exact int8" if int8 else "host exact"
+    kname = "K1-int8" if int8 else "K1 (float32)"
+    log(f"[{tag}] ({smi}) 2 layers full width f32"
+        + (", int8 weights + int8 KV" if int8 else "") + ": "
+        + "; ".join(f"{n}: tokens identical across preempt/resume "
+                    f"{r['same_swap']}, across export/import "
+                    f"{r['same_move']}; {kname} launches on resumed rows "
+                    f"{r['resumed_launches']}, on imported rows "
+                    f"{r['imported_launches']}; wire {r['wire_bytes']} B, "
+                    f"export + encode {r['export_encode_ms']:.1f} ms, "
+                    f"decode + import {r['decode_import_ms']:.1f} ms"
+                    for n, r in rows.items()))
+    for n, r in rows.items():
+        if not (r["same_swap"] and r["same_move"]):
+            raise AssertionError(f"{tag} {n}: tokens changed: {r}")
+        if r["resumed_launches"] <= 0 or r["imported_launches"] <= 0:
+            raise AssertionError(f"{tag} {n}: {kname} did not run the "
+                                 "resumed or imported rows")
+    del params
+    _free()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # 5. parity: kernels vs plain versions inside the engine
 # ---------------------------------------------------------------------------
 
@@ -1356,6 +1947,9 @@ def main(argv=None) -> int:
         phase_spec()
         phase_oracle()
         phase_oracle(int8=True)
+        phase_host_tier(dev["smi"])
+        phase_host_exact(dev["smi"])
+        phase_host_exact(dev["smi"], int8=True)
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],

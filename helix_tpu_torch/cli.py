@@ -16,11 +16,20 @@ context_length}`` entries, the reference's profile fields.
 ``quantization: int8`` serves int8 weights (``ops.quant.quantize_params``
 on the device, as the reference node agent does); an int8 KV pool is
 ``engine: {kv_cache_dtype: int8}``.  Every ``engine:`` field goes to
-``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens`` and
-``enable_async_loop`` work as in the reference, and fields of modules not
-ported yet (``host_pool_bytes``, ``adapter_pool_slots``) raise naming
-their ROADMAP item.  Checkpoints and non-chat kinds are not ported yet
-(ROADMAP A3, A17).
+``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens``,
+``enable_async_loop`` and ``host_pool_bytes`` work as in the reference,
+and fields of modules not ported yet (``adapter_pool_slots``) raise
+naming their ROADMAP item.  Checkpoints and non-chat kinds are not
+ported yet (ROADMAP A3, A17): an entry with a ``checkpoint`` raises
+unless ``--random-weights`` serves it with random weights from
+``--seed``.
+
+The node's operator overrides, as the reference node agent reads them:
+``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
+(0 turns the host tier off), ``HELIX_PREEMPT_STALL_SECONDS`` arms
+preemption by swap after admission has stalled that long, and
+``HELIX_ADMISSION_TIMEOUT`` sheds requests that waited that long for KV
+pages with a typed ``kv_exhausted`` 503.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 
 from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
@@ -74,19 +84,34 @@ def build_served_model(
         )
     dev = resolve_device(device)
     cfg = model_config(name, model_overrides)
-    params = init_params(cfg, seed, device=dev)
-    if quantization == "int8":
-        params = quantize_params(params)
     tok = ByteTokenizer()
     eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
     eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
-    eng = Engine(cfg, params, EngineConfig(**eng_kw), rng_seed=seed,
-                 device=dev)
+    host_env = os.environ.get("HELIX_KV_HOST_POOL_BYTES", "")
+    if host_env:
+        # operator beats profile; 0 turns the host tier off
+        eng_kw["host_pool_bytes"] = int(host_env)
+    # the engine block is checked before the weights are made: an option
+    # not ported yet raises at once, not after minutes of init
+    ecfg = EngineConfig(**eng_kw)
+    params = init_params(cfg, seed, device=dev)
+    if quantization == "int8":
+        params = quantize_params(params)
+    eng = Engine(cfg, params, ecfg, rng_seed=seed, device=dev)
     if warmup:
         eng.warmup()
-    loop = EngineLoop(eng, name=name).start()
+    loop = EngineLoop(
+        eng, name=name,
+        admission_timeout=_env_seconds("HELIX_ADMISSION_TIMEOUT"),
+        preempt_stall_seconds=_env_seconds("HELIX_PREEMPT_STALL_SECONDS"),
+    ).start()
     return ServedModel(name=name, loop=loop, tokenizer=tok,
                        context_length=context_length or eng.max_context_len)
+
+
+def _env_seconds(name: str):
+    v = os.environ.get(name, "")
+    return float(v) if v else None
 
 
 def _parse_kv(items) -> dict:
@@ -123,7 +148,12 @@ def _model_specs(args) -> list[dict]:
     if args.profile:
         specs = []
         for m in _load_profile(args.profile).get("models", []):
-            if m.get("checkpoint"):
+            if m.get("checkpoint") and getattr(args, "random_weights",
+                                               False):
+                log.warning("%s: serving random weights (seed %d) in "
+                            "place of checkpoint %s", m["name"],
+                            getattr(args, "seed", 0), m["checkpoint"])
+            elif m.get("checkpoint"):
                 raise NotImplementedError(
                     f"{m['name']}: checkpoint loading is not ported yet "
                     "(ROADMAP A3)"
@@ -181,6 +211,9 @@ def main(argv=None) -> int:
                    help="EngineConfig field override (repeatable)")
     n.add_argument("--seed", type=int, default=0)
     n.add_argument("--no-warmup", action="store_true")
+    n.add_argument("--random-weights", action="store_true",
+                   help="serve profile entries that name a checkpoint "
+                        "with random weights from --seed")
     n.set_defaults(fn=_cmd_serve_node)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -42,9 +42,17 @@ pools: ``write_kv`` quantizes on write and every history read goes
 through K1's int8 form.  Params from ``ops.quant.quantize_params`` (int8
 weights) serve through the same path.
 
+``host_pool_bytes > 0`` puts a host-RAM tier (``HostPagePool``) under the
+page pool: prefix-cache evictions spill there and restore into fresh
+device pages when a later prompt chains onto them; ``preempt`` swaps a
+decoder's private pages and sampler state out and ``_try_resume`` brings
+it back exactly; ``export_request`` / ``import_request`` move a request
+between engines (of either package) as a checksummed
+``RequestSnapshot``.
+
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
-the host KV tier and tiered contexts (A12, A14), adapters (A13), meshes
-and the multihost plan plane (A15), MoE and mrope models (A15, A17).
+tiered contexts (A14), adapters (A13), meshes and the multihost plan
+plane (A15), MoE and mrope models (A15, A17).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import logging
 import os
 import time
 from typing import Callable, Optional, Sequence
@@ -67,10 +76,15 @@ from helix_tpu_torch.device import (
     upload,
 )
 from helix_tpu_torch.engine.kv_cache import (
+    PAGE_FIELDS,
     CacheConfig,
+    HostPagePool,
     PageAllocator,
     PagedKVCache,
     PrefixCache,
+    gather_pages,
+    page_checksum,
+    restore_pages,
     slot_to_page_offset,
     write_kv,
 )
@@ -170,7 +184,6 @@ class EngineConfig:
     def __post_init__(self):
         unported = [
             (self.adapter_pool_slots > 0, "adapter_pool_slots > 0", "A13"),
-            (self.host_pool_bytes > 0, "host_pool_bytes > 0", "A12"),
             (self.ctx_hot_pages > 0, "ctx_hot_pages > 0", "A14"),
         ]
         for on, what, item in unported:
@@ -272,6 +285,93 @@ class PendingStep:
     final: bool = False         # mixed: this chunk completes the prompt
 
 
+@dataclasses.dataclass
+class PreemptedSeq:
+    """A decoder swapped out to host RAM, parked for exact resume.
+
+    Private page contents live in the host pool under ``("seq", req.id,
+    table_pos)``, pinned against LRU; this record keeps what rebuilds the
+    slot bit for bit: the table layout (shared prefix pages keep their
+    device ids, their refcounts held while parked), the decode position,
+    last token, the evolved sampling key and the output-token histogram.
+    An imported snapshot carries its (already verified) pages inline in
+    ``entries`` instead, so it parks on an engine without a host tier."""
+
+    req: Request
+    table: np.ndarray           # first n_pages entries of the page table
+    private_pos: list           # table indices whose pages were spilled
+    position: int
+    last_token: int
+    mrope_delta: int
+    key: np.ndarray             # evolved per-slot key, [2] uint32
+    counts: np.ndarray          # output-token histogram, [V] int32
+    preempted_at: float = dataclasses.field(default_factory=time.monotonic)
+    entries: Optional[list] = None
+
+
+# ---------------------------------------------------------------------------
+# portable request snapshots: export / migrate / import
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_VERSION = 1
+
+
+class SnapshotError(ValueError):
+    """A snapshot that must not touch the engine: wrong version,
+    incompatible KV geometry, or a failed page checksum.  ``code`` is the
+    typed discriminator HTTP callers see."""
+
+    def __init__(self, message: str, code: str = "snapshot_invalid"):
+        super().__init__(message)
+        self.code = code
+
+
+@dataclasses.dataclass
+class RequestSnapshot:
+    """One in-flight request as a portable object, field for field the
+    reference's ``RequestSnapshot`` (so both packages' wire documents and
+    meta checksums agree): prompt and emitted tokens, the evolved sampler
+    state, the sequence's KV pages in their STORED representation (raw
+    int8 codes + scales for int8 pools) with a blake2b checksum each, and
+    the tenant / trace / class identity.  ``pages`` hold host buffers per
+    field (torch tensors here, numpy arrays in the reference)."""
+
+    version: int
+    model: str
+    request_id: str
+    prompt_tokens: list
+    output_tokens: list
+    sampling: dict              # dataclasses.asdict(SamplingParams)
+    stop_token_ids: list
+    tenant: str
+    trace_id: str
+    sched_class: str
+    max_len: Optional[int]
+    preempt_count: int
+    # None: the request never reached a slot (queued / mid-chunk) and
+    # replays from the prompt
+    position: Optional[int]
+    last_token: Optional[int]
+    mrope_delta: int
+    key: Optional[list]         # evolved sampling key, two uint32 words
+    token_counts: dict          # sparse {token_id: count} histogram
+    page_size: int
+    num_layers: int
+    kv_heads: int
+    head_dim: int
+    kv_dtype: str
+    pages: list                 # [{k, v, k_scale, v_scale}, ...]
+    page_checksums: list        # blake2b hex digest per page
+    # table capacity the importer allocates (>= len(pages)): only pages
+    # holding written KV ship
+    total_pages: int = 0
+    adapter: str = ""
+
+    @property
+    def has_kv(self) -> bool:
+        return self.position is not None and bool(self.pages)
+
+
 class Engine:
     """Single-model serving engine on one device."""
 
@@ -338,6 +438,21 @@ class Engine:
         self._chunking: Optional[dict] = None
         self.prefix_cache = PrefixCache() if cfg.enable_prefix_cache else None
         self._shared_pages: dict[str, list] = {}
+        # host-RAM KV tier: spilled prefix pages + swapped-out decoders,
+        # byte-budgeted; None = tier off (evictions free pages,
+        # preemption unavailable)
+        self.host_pool = (
+            HostPagePool(cfg.host_pool_bytes, device=self.device)
+            if cfg.host_pool_bytes > 0 else None
+        )
+        self.preempted: list[PreemptedSeq] = []   # parked, resume FIFO
+        self._resume_failures: list = []          # (req, reason) for the loop
+        # resumed slots' histograms, re-injected at the next _sync_state
+        self._slot_count_overrides: dict[int, np.ndarray] = {}
+        self._prefetched: set = set()   # digests with queued uploads
+        # orders preempt_for_pressure's candidates when set (a scheduler
+        # hook, not ported: None keeps the builtin pick)
+        self.victim_policy: Optional[Callable[[list], list]] = None
         self._key_base = _splitmix64(0x8E1_1C9 ^ (rng_seed & _M64))
         self._key_nonce = 0
         self._token_ladder = parse_token_buckets(
@@ -382,7 +497,15 @@ class Engine:
         # this is what a step gives each slot (1 without speculation)
         self.num_decode_slot_steps = 0
         self.num_mixed_steps = 0
+        self.num_admitted = 0           # requests claimed into a slot
         self.prefix_cache_hits = 0
+        # host tier: swaps out / in, host-to-device restore seconds, and
+        # snapshots exported / imported
+        self.num_preemptions = 0
+        self.num_resumes = 0
+        self.restore_seconds = 0.0
+        self.num_snapshots_exported = 0
+        self.num_snapshots_imported = 0
         # verify calls issued, drafts proposed, drafts accepted
         self.num_spec_steps = 0
         self.num_spec_drafted_tokens = 0
@@ -440,8 +563,12 @@ class Engine:
             return
         self._finish(req, FinishReason.ABORT)
 
+    def get_request(self, req_id: str) -> Optional[Request]:
+        return self._requests.get(req_id)
+
     def has_work(self) -> bool:
-        return bool(self.waiting) or any(s is not None for s in self.slots)
+        return (bool(self.waiting) or bool(self.preempted)
+                or any(s is not None for s in self.slots))
 
     def warmup(self) -> None:
         """Drive one tiny request through the public path, so the first
@@ -483,6 +610,10 @@ class Engine:
         ``(emitted_so_far, pending)``.  Nothing here waits for the device
         except an admission wave's batched first-token fetch."""
         emitted: list[tuple[Request, int]] = []
+        if self.host_pool is not None:
+            # finalize spills of earlier steps whose copies have landed
+            # (step entry, so every step shape drains)
+            self.host_pool.drain_pending()
         self._admit(emitted)
         if self._chunking is not None and self._chunking["req"].finished:
             self._chunking = None    # aborted mid-prefill
@@ -532,6 +663,7 @@ class Engine:
             or self._dstate is None
             or self.waiting
             or self._chunking is not None
+            or self.preempted
             or self.spec is not None
             or self._pending_first
         ):
@@ -668,19 +800,43 @@ class Engine:
         return req._page_hashes
 
     def _cached_prefix_pages(self, req: Request) -> int:
+        """Resident prefix length in pages: the device chain, then its
+        host-spilled continuation."""
         if self.prefix_cache is None:
             return 0
-        return self.prefix_cache.match_len(self._prompt_hashes(req))
+        hashes = self._prompt_hashes(req)
+        k = self.prefix_cache.match_len(hashes)
+        if self.host_pool is not None:
+            while k < len(hashes) and self.host_pool.contains(hashes[k]):
+                k += 1
+        return k
 
     def _ensure_pages(self, need: int) -> bool:
-        """can_allocate, with prefix-cache LRU eviction as the backstop."""
+        """can_allocate, with prefix-cache LRU eviction as the backstop.
+        With a host tier, eviction SPILLS: the pages' contents demote to
+        host buffers under the chain digest ``match_len`` looks up, so a
+        later prompt sharing the prefix restores them instead of
+        prefilling again."""
         if self.allocator.can_allocate(need):
             return True
         if self.prefix_cache is not None:
-            freed = self.prefix_cache.evict(need - self.allocator.free_pages)
-            if freed:
-                self.allocator.give_back(freed)
+            entries = self.prefix_cache.evict_entries(
+                need - self.allocator.free_pages)
+            if entries:
+                if self.host_pool is not None:
+                    self._spill_prefix_pages(entries)
+                self.allocator.give_back([p for _, p in entries])
         return self.allocator.can_allocate(need)
+
+    def _spill_prefix_pages(self, entries: list) -> None:
+        """Demote evicted prefix pages (``[(digest, page), ...]``) to the
+        host tier.  The gather is queued on the current stream before any
+        later write to the freed pages, and ``put`` queues the copies to
+        the host without waiting.  A page the pool rejects (budget,
+        injected ``alloc_fail``) is lost, as without the tier."""
+        arrays = gather_pages(self.cache, [p for _, p in entries])
+        for (digest, _page), page_arrays in zip(entries, arrays):
+            self.host_pool.put(digest, page_arrays)
 
     def _try_claim(self, req: Request, use_cache: bool = False):
         """Allocate pages + a slot for one waiting request; returns its
@@ -713,11 +869,16 @@ class Engine:
         pages = shared + self.allocator.allocate(req.id, need_new)
         req.slot = slot
         req.admitted_time = time.monotonic()
-        req.cached_tokens = len(shared) * ps
-        if shared:
+        restored = 0
+        if use_cache and self.host_pool is not None and hashes:
+            restored = self._restore_host_prefix(req, hashes, shared, pages)
+        req.cached_tokens = (len(shared) + restored) * ps
+        self.num_admitted += 1
+        if shared or restored:
             self.prefix_cache_hits += 1
         if use_cache and self.prefix_cache is not None:
-            self.prefix_cache.record_claim(len(shared), len(hashes))
+            self.prefix_cache.record_claim(len(shared) + restored,
+                                           len(hashes))
         if shared:
             self._shared_pages.setdefault(req.id, []).extend(shared)
         req.max_len = min(len(pages) * ps, self.max_context_len)
@@ -726,6 +887,64 @@ class Engine:
         table[: len(pages)] = pages
         self._page_tables[slot] = table
         return table
+
+    def _restore_host_prefix(self, req: Request, hashes: list, shared: list,
+                             pages: list) -> int:
+        """Promote the host-resident continuation of the prefix chain
+        into this request's fresh device pages: digests past the device
+        head are claimed from the host pool (checksum-verified; a corrupt
+        or evicted entry ends the chain and the rest prefills), written
+        back in one batch, and re-adopted into the device prefix cache so
+        the next sharer hits on the device."""
+        k = len(shared)
+        entries: list = []
+        digests: list = []
+        while k + len(entries) < min(len(hashes), len(pages)):
+            h = hashes[k + len(entries)]
+            if not self.host_pool.contains(h):
+                break
+            e = self.host_pool.take_restored(h)
+            self._prefetched.discard(h)   # consumed (or dropped corrupt)
+            if e is None:   # corrupt: detected, dropped, the chain ends
+                break
+            entries.append(e)
+            digests.append(h)
+        if not entries:
+            return 0
+        t0 = time.monotonic()
+        targets = pages[k:k + len(entries)]
+        restore_pages(self.cache, targets, entries)
+        self.restore_seconds += time.monotonic() - t0
+        if self.prefix_cache is not None:
+            adopted = self.prefix_cache.adopt(digests, targets)
+            if adopted:
+                # the cache owns them; the request holds one ref until
+                # it finishes
+                self.allocator.detach(req.id, adopted)
+                self._shared_pages.setdefault(req.id, []).extend(adopted)
+        return len(entries)
+
+    def _prefetch_host_prefix(self, req: Request) -> None:
+        """Queue the uploads of the waiting head's host-resident prefix
+        pages while it waits for a slot or pages, so the eventual restore
+        finds them on the device.  One chain at a time: a new head
+        releases the previous head's uploads (they borrow device memory
+        from a pool that is short of it)."""
+        if self.host_pool is None or self.prefix_cache is None:
+            return
+        hashes = self._prompt_hashes(req)
+        k = self.prefix_cache.match_len(hashes)
+        chain = []
+        while k < len(hashes) and self.host_pool.contains(hashes[k]):
+            chain.append(hashes[k])
+            k += 1
+        for stale in self._prefetched - set(chain):
+            self.host_pool.release_device(stale)
+        self._prefetched = set()
+        for h in chain:
+            if not self.host_pool.prefetch(h):
+                break
+            self._prefetched.add(h)
 
     def _admit(self, emitted) -> None:
         # Long prompts that cannot start THIS step (another chunked prefill
@@ -742,6 +961,15 @@ class Engine:
                 self._finish_packed_admissions(pending, emitted)
             if deferred:
                 self.waiting[:0] = deferred
+        if self.preempted:
+            # parked decoders resume AFTER the wait queue had its chance
+            # at the freed pages (they were preempted for that queue)
+            self._try_resume()
+        if not self.waiting and self._prefetched:
+            # the queue emptied without consuming the prefetched chain
+            for h in self._prefetched:
+                self.host_pool.release_device(h)
+            self._prefetched = set()
 
     def _admit_inner(self, deferred: list, pending: list) -> None:
         while self.waiting:
@@ -754,13 +982,17 @@ class Engine:
                 # short prompts — cold and prefix-cache hits — pack into
                 # ONE ragged prefill segment per wave
                 if not self._admit_wave(pending):
-                    return   # resource wait; decode frees pages
+                    # resource wait (decode frees pages): overlap it with
+                    # the uploads the eventual claim will consume
+                    self._prefetch_host_prefix(req)
+                    return
                 continue
             if self._chunking is not None:
                 deferred.append(self.waiting.pop(0))
                 continue
             table = self._try_claim(req, use_cache=True)
             if table is None:
+                self._prefetch_host_prefix(req)
                 return
             self.waiting.pop(0)
             # one chunk per engine step; the slot stays inactive until the
@@ -997,6 +1229,10 @@ class Engine:
         )
         self._changed_slots.clear()
         self._state_dirty = False
+        # resumed slots: the saved histogram replaces the fresh-slot seed
+        for slot, saved in sorted(self._slot_count_overrides.items()):
+            counts[slot].copy_(upload(saved, dev))
+        self._slot_count_overrides.clear()
         # deferred chunk-final first tokens: the mirror seeded the slot
         # with a placeholder 0; move that count to the real token and set
         # the last token from the device tensor
@@ -1051,6 +1287,446 @@ class Engine:
                     f"at position {self._positions[i]} + {n} steps > "
                     f"{table_cap} — headroom invariant violated"
                 )
+
+    # ------------------------------------------------------------------
+    # preemption by swap
+    # ------------------------------------------------------------------
+
+    def _settled(self, req: Request) -> bool:
+        """True when the host mirrors of the request's slot are exact:
+        no dispatched step of it is unreconciled and no deferred first
+        token is on its way.  ``preempt`` and ``export_request`` read
+        ``_positions`` / ``_last_token`` and run only then (the caller
+        reconciles an in-flight step first)."""
+        return (req.id not in self._inflight_out
+                and req.id not in self._pending_first_ids)
+
+    def _slot_sampler_state(self, slot: int) -> tuple:
+        """The slot's evolved key (host) and output-token histogram
+        (fetched from the device), after making the device state
+        current."""
+        if self._state_dirty or self._dstate is None:
+            self._sync_state()
+        key = np.array(self._dkeys[slot], np.uint32)
+        counts = self._dstate.token_counts[slot].to("cpu").numpy()
+        return key, counts.astype(np.int32)
+
+    def preempt(self, req_id: str) -> bool:
+        """Swap a running decoder out to host RAM and park it for exact
+        resume: its private pages and its evolved sampler state (key and
+        histogram) move to the host tier, the slot and pages free, and
+        the request joins ``preempted``.  Shared prefix pages stay on the
+        device with their refcounts held.  False when the request cannot
+        be preempted now (no host tier; unknown, finished, queued or
+        mid-chunk; an unreconciled step or deferred first token) or the
+        host budget cannot take all its pages: then nothing changed."""
+        if self.host_pool is None:
+            return False
+        req = self._requests.get(req_id)
+        if req is None or req.finished or req.slot is None:
+            return False
+        slot = req.slot
+        if not self._slot_active(slot) or not self._settled(req):
+            return False
+        key, counts = self._slot_sampler_state(slot)
+        shared = self._shared_pages.get(req_id, [])
+        owned = self.allocator.seq_pages(req_id)
+        n_pages = len(owned) + len(shared)
+        table = np.array(self._page_tables[slot][:n_pages])
+        private = set(owned)
+        private_pos = [i for i in range(n_pages) if int(table[i]) in private]
+        page_ids = [int(table[i]) for i in private_pos]
+        put_keys = []
+        for pos, arrays in zip(private_pos, gather_pages(self.cache,
+                                                         page_ids)):
+            k = ("seq", req_id, pos)
+            # pinned: prefix spills must never evict a parked decoder's
+            # pages before its resume
+            if not self.host_pool.put(k, arrays, pinned=True):
+                for kk in put_keys:   # roll back: the swap is whole
+                    self.host_pool.discard(kk)
+                return False
+            put_keys.append(k)
+        self.preempted.append(PreemptedSeq(
+            req=req, table=table, private_pos=private_pos,
+            position=int(self._positions[slot]),
+            last_token=int(self._last_token[slot]), mrope_delta=0,
+            key=key, counts=counts,
+        ))
+        if self.allocator.owns(req_id):
+            self.allocator.free(req_id)
+        self.slots[slot] = None
+        req.slot = None
+        self._state_dirty = True
+        self._changed_slots.add(slot)
+        self.num_preemptions += 1
+        logging.getLogger(__name__).info(
+            "preempted request %s: %d private page(s) swapped to host, "
+            "%d shared prefix page(s) kept resident",
+            req_id, len(private_pos), len(shared))
+        return True
+
+    def preempt_for_pressure(self) -> Optional[str]:
+        """Pick and preempt the degradation ladder's victim: through
+        ``victim_policy`` when one is set, else the NEWEST admission,
+        ties to the largest page footprint.  Requests swapped twice
+        already are exempt.  Returns the preempted id, or None."""
+        cands = [
+            (req, i) for i, req in enumerate(self.slots)
+            if req is not None and self._slot_active(i)
+            and req.preempt_count < 2
+        ]
+        if self.victim_policy is not None and cands:
+            try:
+                ordered = list(self.victim_policy([r for r, _i in cands]))
+            except Exception:  # noqa: BLE001 — a policy bug degrades, not kills
+                logging.getLogger(__name__).exception(
+                    "victim_policy failed; falling back to builtin pick")
+                ordered = []
+            for req in ordered:
+                if req.finished or req.slot is None:
+                    continue
+                if self.preempt(req.id):
+                    req.preempt_count += 1
+                    return req.id
+            if ordered:
+                return None
+        while cands:
+            req, i = max(cands, key=lambda c: (
+                c[0].admitted_time or 0.0,
+                len(self.allocator.seq_pages(c[0].id))
+                + len(self._shared_pages.get(c[0].id, ())),
+            ))
+            if self.preempt(req.id):
+                req.preempt_count += 1
+                return req.id
+            cands.remove((req, i))
+        return None
+
+    def _discard_preempted(self, st: PreemptedSeq) -> None:
+        st.entries = None
+        if self.host_pool is None:
+            return   # an imported park: nothing lives in the pool
+        for pos in st.private_pos:
+            self.host_pool.discard(("seq", st.req.id, pos))
+
+    def _try_resume(self) -> None:
+        """Swap parked decoders back in, FIFO, while a slot and pages are
+        free.  Restored pages are the spilled bytes (checksummed both
+        ways) and the key and histogram rejoin the device state, so a
+        greedy or seeded continuation is the unpreempted one, token for
+        token.  A page that fails its checksum aborts the request with
+        ``kv_restore_corrupt`` (``drain_resume_failures``)."""
+        while self.preempted:
+            st = self.preempted[0]
+            req = st.req
+            if req.finished:   # aborted while parked
+                self.preempted.pop(0)
+                self._discard_preempted(st)
+                continue
+            free_slots = [i for i, s in enumerate(self.slots) if s is None]
+            n_private = len(st.private_pos)
+            # _ensure_pages: refcount-0 prefix pages evict (and spill)
+            # for a resume as for an admission
+            if not free_slots or not self._ensure_pages(n_private):
+                return
+            t0 = time.monotonic()
+            if st.entries is not None:
+                entries = st.entries
+            else:
+                # claim + verify every host copy BEFORE touching the
+                # allocator: one corrupt page aborts the whole resume
+                entries = []
+                for pos in st.private_pos:
+                    e = self.host_pool.take_restored(("seq", req.id, pos))
+                    if e is None:
+                        break
+                    entries.append(e)
+                if len(entries) != n_private:
+                    self.preempted.pop(0)
+                    self._discard_preempted(st)
+                    self._resume_failures.append((
+                        req, "kv_restore_corrupt: a swapped-out page failed "
+                        "checksum verification on resume"))
+                    self._finish(req, FinishReason.ABORT)
+                    continue
+            new_pages = self.allocator.allocate(req.id, n_private)
+            # an imported snapshot ships only the written head of its
+            # table: the rest of the fresh pages is written before read
+            restore_pages(self.cache, new_pages[: len(entries)], entries)
+            st.entries = None
+            table = np.array(st.table)
+            for pos, pg in zip(st.private_pos, new_pages):
+                table[pos] = pg
+            slot = free_slots[0]
+            self.slots[slot] = req
+            req.slot = slot
+            row = np.zeros((self.cache_cfg.max_pages_per_seq,), np.int32)
+            row[: len(table)] = table
+            self._page_tables[slot] = row
+            self._positions[slot] = st.position
+            self._last_token[slot] = st.last_token
+            # the key goes back through the host mirror (a changed slot
+            # takes its key from _slot_keys), the histogram through the
+            # override applied at the next _sync_state
+            self._slot_keys[slot] = st.key
+            self._slot_count_overrides[slot] = st.counts
+            self._state_dirty = True
+            self._changed_slots.add(slot)
+            self.num_resumes += 1
+            self.restore_seconds += time.monotonic() - t0
+            self.preempted.pop(0)
+            logging.getLogger(__name__).info(
+                "resumed request %s into slot %d (%d page(s) restored)",
+                req.id, slot, len(entries))
+
+    def drain_resume_failures(self) -> list:
+        """(request, reason) pairs of resumes that failed verification;
+        the engine loop turns them into error events."""
+        out, self._resume_failures = self._resume_failures, []
+        return out
+
+    # ------------------------------------------------------------------
+    # portable request snapshots
+    # ------------------------------------------------------------------
+
+    def _snapshot_pages(self, table, n_pages: int, private_pos=(),
+                        req_id: str = "") -> Optional[tuple]:
+        """The sequence's pages as host tensors in table order, with
+        their checksums: ``private_pos`` pages from the host pool (a
+        parked decoder's, verified at get), the rest gathered from the
+        device.  None when a host copy failed verification."""
+        private = set(private_pos)
+        device_pos = [i for i in range(n_pages) if i not in private]
+        gathered = {}
+        arrays = gather_pages(self.cache, [int(table[i]) for i in device_pos])
+        for pos, page in zip(device_pos, arrays):
+            gathered[pos] = {f: None if a is None else a.to("cpu")
+                             for f, a in page.items()}
+        for pos in sorted(private):
+            host = self.host_pool.get(("seq", req_id, pos))
+            if host is None:
+                return None
+            gathered[pos] = host
+        pages = [gathered[i] for i in range(n_pages)]
+        return pages, [page_checksum(p).hex() for p in pages]
+
+    def _snapshot_base(self, req: Request) -> dict:
+        return {
+            "version": SNAPSHOT_VERSION,
+            "model": self.model_cfg.name,
+            "request_id": req.id,
+            "prompt_tokens": [int(t) for t in req.prompt_tokens],
+            "output_tokens": [int(t) for t in req.output_tokens],
+            "sampling": dataclasses.asdict(req.sampling),
+            "stop_token_ids": [int(t) for t in req.stop_token_ids],
+            "tenant": req.tenant,
+            "trace_id": req.trace_id,
+            "sched_class": req.sched_class,
+            "adapter": req.adapter,
+            "max_len": req.max_len,
+            "preempt_count": req.preempt_count,
+            "page_size": self.cache_cfg.page_size,
+            "num_layers": self.model_cfg.num_layers,
+            "kv_heads": self.model_cfg.num_kv_heads,
+            "head_dim": self.model_cfg.head_dim,
+            "kv_dtype": self.cache_cfg.dtype,
+        }
+
+    def export_request(self, req_id: str) -> Optional[RequestSnapshot]:
+        """A portable snapshot of one live request; mutates nothing.
+
+        - decoding in a slot: every page holding written KV, gathered
+          with checksums, and the evolved key and histogram;
+        - parked: private pages from the host pool, shared ones from the
+          device (or the inline pages of an imported park);
+        - queued or mid-chunk: no KV, replayed from the prompt.
+
+        None when the request cannot be exported (unknown, finished, an
+        unreconciled step or deferred first token, a parked page that
+        failed verification)."""
+        req = self._requests.get(req_id)
+        if req is None or req.finished:
+            return None
+        base = self._snapshot_base(req)
+        parked = next((st for st in self.preempted if st.req is req), None)
+        if parked is not None:
+            if parked.entries is not None:
+                pages = list(parked.entries)
+                checksums = [page_checksum(p).hex() for p in pages]
+            else:
+                snapped = self._snapshot_pages(
+                    parked.table, len(parked.table),
+                    private_pos=parked.private_pos, req_id=req.id)
+                if snapped is None:
+                    return None
+                pages, checksums = snapped
+            base["total_pages"] = len(parked.table)
+            counts = parked.counts
+            state = dict(position=int(parked.position),
+                         last_token=int(parked.last_token),
+                         mrope_delta=int(parked.mrope_delta),
+                         key=[int(parked.key[0]), int(parked.key[1])])
+        elif req.slot is not None and self._slot_active(req.slot):
+            if not self._settled(req):
+                return None
+            slot = req.slot
+            key, counts = self._slot_sampler_state(slot)
+            n_alloc = len(self.allocator.seq_pages(req.id)) + len(
+                self._shared_pages.get(req.id, ()))
+            # only pages holding written KV (slots 0..num_tokens-2: the
+            # newest token's KV lands in the next step) ship
+            ps = self.cache_cfg.page_size
+            n_resident = min(n_alloc, -(-req.num_tokens // ps))
+            pages, checksums = self._snapshot_pages(
+                self._page_tables[slot], n_resident)
+            base["total_pages"] = n_alloc
+            state = dict(position=int(self._positions[slot]),
+                         last_token=int(self._last_token[slot]),
+                         mrope_delta=0, key=[int(key[0]), int(key[1])])
+        else:
+            # queued or mid-chunk: no token emitted, replay is exact
+            base["output_tokens"] = []
+            pages, checksums, counts = [], [], None
+            state = dict(position=None, last_token=None, mrope_delta=0,
+                         key=None)
+        sparse: dict = {}
+        if counts is not None:
+            sparse = {int(i): int(counts[i]) for i in np.nonzero(counts)[0]}
+        self.num_snapshots_exported += 1
+        return RequestSnapshot(**base, **state, token_counts=sparse,
+                               pages=pages, page_checksums=checksums)
+
+    def import_request(self, snap: RequestSnapshot) -> Request:
+        """Re-admit a snapshot on this engine.  Validation comes strictly
+        before mutation: version, KV geometry (page size, layers, heads,
+        head dim, storage dtype), then every page checksum over the
+        stored bytes.  A KV-carrying snapshot parks on ``preempted`` with
+        its pages inline and resumes through ``_try_resume``; one without
+        KV joins the wait queue.  Raises ``SnapshotError`` and touches
+        nothing on any failure."""
+        if snap.version != SNAPSHOT_VERSION:
+            raise SnapshotError(
+                f"snapshot version {snap.version} != engine version "
+                f"{SNAPSHOT_VERSION}", code="snapshot_unsupported")
+        existing = self._requests.get(snap.request_id)
+        if existing is not None and not existing.finished:
+            raise SnapshotError(
+                f"request {snap.request_id!r} is already live here",
+                code="snapshot_duplicate")
+        samp = dict(snap.sampling)
+        samp["stop"] = tuple(samp.get("stop", ()) or ())
+        req = Request(
+            id=snap.request_id, prompt_tokens=list(snap.prompt_tokens),
+            sampling=SamplingParams(**samp),
+            stop_token_ids=tuple(snap.stop_token_ids),
+            output_tokens=list(snap.output_tokens), trace_id=snap.trace_id,
+            tenant=snap.tenant, sched_class=snap.sched_class,
+            adapter=snap.adapter or "",
+            preempt_count=int(snap.preempt_count),
+        )
+        err = self.validate_request(req)
+        if err:
+            raise SnapshotError(err, code="snapshot_invalid")
+        if not snap.has_kv:
+            if snap.output_tokens:
+                raise SnapshotError(
+                    "snapshot carries emitted tokens but no KV state; it "
+                    "cannot be continued exactly", code="snapshot_corrupt")
+            self._requests[req.id] = req
+            self.waiting.append(req)
+            self.num_snapshots_imported += 1
+            return req
+        entries, counts, n_total = self._validate_snapshot_kv(snap, req)
+        limit = min(n_total * self.cache_cfg.page_size, self.max_context_len)
+        req.max_len = min(int(snap.max_len or limit), limit)
+        st = PreemptedSeq(
+            req=req, table=np.zeros((n_total,), np.int32),
+            private_pos=list(range(n_total)), position=int(snap.position),
+            last_token=int(snap.last_token),
+            mrope_delta=int(snap.mrope_delta),
+            key=np.asarray(snap.key, np.uint32), counts=counts,
+            entries=entries,
+        )
+        self._requests[req.id] = req
+        self.preempted.append(st)
+        self.num_snapshots_imported += 1
+        return req
+
+    def _validate_snapshot_kv(self, snap: RequestSnapshot,
+                              req: Request) -> tuple:
+        """Geometry, coverage and every page checksum of a KV-carrying
+        snapshot; returns (entries, histogram, table pages)."""
+        cc = self.cache_cfg
+        mc = self.model_cfg
+        for field, theirs, ours in (
+            ("page_size", snap.page_size, cc.page_size),
+            ("num_layers", snap.num_layers, mc.num_layers),
+            ("kv_heads", snap.kv_heads, mc.num_kv_heads),
+            ("head_dim", snap.head_dim, mc.head_dim),
+            ("kv_dtype", snap.kv_dtype, cc.dtype),
+        ):
+            if theirs != ours:
+                raise SnapshotError(
+                    f"KV geometry mismatch on {field}: snapshot has "
+                    f"{theirs!r}, this engine has {ours!r}",
+                    code="snapshot_incompatible")
+        n = len(snap.pages)
+        if n != len(snap.page_checksums) or n == 0:
+            raise SnapshotError("page/checksum count mismatch",
+                                code="snapshot_corrupt")
+        n_total = max(n, int(snap.total_pages or n))
+        cap = min(cc.max_pages_per_seq, cc.num_pages - 1)
+        if n_total > cap:
+            raise SnapshotError(
+                f"snapshot needs {n_total} pages; this engine caps a "
+                f"sequence at {cap}", code="snapshot_incompatible")
+        # the shipped pages must cover every written KV slot
+        written = max(0, req.num_tokens - 1)
+        if n * cc.page_size < written:
+            raise SnapshotError(
+                f"{n} shipped page(s) cannot cover {written} written KV "
+                "slot(s)", code="snapshot_corrupt")
+        kshape = (mc.num_layers, cc.page_size, mc.num_kv_heads, mc.head_dim)
+        pool_dtype = self.cache.k_pages.dtype
+        entries = []
+        for arrays, digest in zip(snap.pages, snap.page_checksums):
+            entry = {f: arrays.get(f) for f in PAGE_FIELDS}
+            if entry["k"] is None or entry["v"] is None:
+                raise SnapshotError("page missing k/v buffers",
+                                    code="snapshot_corrupt")
+            if tuple(entry["k"].shape) != kshape \
+                    or tuple(entry["v"].shape) != kshape:
+                raise SnapshotError(
+                    f"page shape {tuple(entry['k'].shape)} != pool page "
+                    f"shape {kshape}", code="snapshot_incompatible")
+            if cc.quantized != (entry["k_scale"] is not None):
+                raise SnapshotError(
+                    "snapshot storage mode does not match the pool (int8 "
+                    "scales present/absent)", code="snapshot_incompatible")
+            if any(isinstance(entry[f], torch.Tensor)
+                   and entry[f].dtype != pool_dtype for f in ("k", "v")):
+                raise SnapshotError(
+                    f"page dtype {entry['k'].dtype} != pool dtype "
+                    f"{pool_dtype}", code="snapshot_incompatible")
+            if page_checksum(entry).hex() != digest:
+                raise SnapshotError(
+                    "page failed checksum verification; refusing to "
+                    "restore corrupt KV", code="snapshot_corrupt")
+            entries.append(entry)
+        V = mc.vocab_size
+        counts = np.zeros((V,), np.int32)
+        for tok, cnt in snap.token_counts.items():
+            t = int(tok)
+            if not 0 <= t < V:
+                raise SnapshotError(
+                    f"histogram token id {t} outside vocab {V}",
+                    code="snapshot_incompatible")
+            counts[t] = int(cnt)
+        if snap.key is None or len(snap.key) != 2:
+            raise SnapshotError("missing sampler key",
+                                code="snapshot_corrupt")
+        return entries, counts, n_total
 
     # ------------------------------------------------------------------
     # speculative decoding (engine/spec.py)
@@ -1470,14 +2146,19 @@ class Engine:
         req.finish_reason = reason
         if req.slot is not None:
             self.slots[req.slot] = None
-            # a deferred first token's seed must not reach the slot's
-            # next occupant
+            # a deferred first token's seed, or a resumed histogram, must
+            # not reach the slot's next occupant
             self._pending_token_patches.pop(req.slot, None)
+            self._slot_count_overrides.pop(req.slot, None)
             self._state_dirty = True
             self._changed_slots.add(req.slot)
             req.slot = None
         if req in self.waiting:
             self.waiting.remove(req)
+        for st in list(self.preempted):   # aborted while parked
+            if st.req is req:
+                self.preempted.remove(st)
+                self._discard_preempted(st)
         self._requests.pop(req.id, None)
         shared = self._shared_pages.pop(req.id, None)
         if shared and self.prefix_cache is not None:

@@ -13,22 +13,29 @@ Port of ``helix_tpu/engine/kv_cache.py`` (device tier).
   quantizing on write into int8 pools.  Padding tokens go to page 0, the
   garbage page, so duplicate indices are expected there and only there.
 - ``PageAllocator`` and ``PrefixCache`` are host Python, copied.
+- The host-RAM tier: ``HostPagePool`` holds spilled pages in pageable
+  host memory under a byte budget, ``gather_pages`` / ``restore_pages``
+  move whole pages between the pool and host buffers (one
+  ``index_select`` / ``index_copy_`` per field), ``page_checksum`` is the
+  reference's blake2b digest over the stored bytes.
 
-The host-RAM and tiered page pools (ROADMAP A12, A14) are not ported.
+The tiered long-context pool (ROADMAP A14) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from helix_tpu_torch.device import torch_dtype
+from helix_tpu_torch.device import torch_dtype, upload
 from helix_tpu_torch.models.common import ModelConfig
 from helix_tpu_torch.ops.quant import quantize_kv
+from helix_tpu_torch.testing import faults
 
 _ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
 
@@ -375,3 +382,422 @@ class PrefixCache:
             "misses": self.misses,
             "evicted_pages": self.evicted_pages,
         }
+
+
+# ---------------------------------------------------------------------------
+# Host-RAM page tier: spill instead of die
+# ---------------------------------------------------------------------------
+
+PAGE_FIELDS = ("k", "v", "k_scale", "v_scale")
+# pinned bytes that spills may hold in flight before a spill waits for
+# the oldest copy to land (the staging bound; stored pages are pageable)
+STAGING_BYTES = 512 << 20
+
+
+def raw_bytes(a) -> bytes:
+    """The stored bytes of one page buffer (a torch tensor or a numpy
+    array), C order: a bf16 page is its raw 2-byte words, the bytes the
+    JAX package's numpy arrays hold."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu").contiguous().reshape(-1)
+        return t.view(torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(a).tobytes()
+
+
+def page_checksum(arrays: dict) -> bytes:
+    """blake2b-16 over a page's buffers in the fixed field order ``k, v,
+    k_scale, v_scale`` (the reference's ``page_checksum``): int8 pools
+    checksum raw codes + scale rows, so a restore is verified bit-exact
+    in the stored representation, in either package."""
+    h = hashlib.blake2b(digest_size=16)
+    for field in PAGE_FIELDS:
+        a = arrays.get(field)
+        if a is not None:
+            h.update(raw_bytes(a))
+    return h.digest()
+
+
+def _nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return int(a.nbytes)
+
+
+def _flip_first_byte(a):
+    """A detached copy of ``a`` with its first byte flipped."""
+    if isinstance(a, torch.Tensor):
+        out = a.detach().to("cpu").clone()
+        out.reshape(-1).view(torch.uint8)[0] ^= 0xFF
+        return out
+    out = np.array(a)
+    out.view(np.uint8).reshape(-1)[0] ^= 0xFF
+    return out
+
+
+class _HostPage:
+    """One spilled page.  Until ``HostPagePool._finalize`` runs,
+    ``arrays`` may be pinned staging tensors whose device-to-host copy is
+    still in flight (``event``); finalizing waits for it, copies the page
+    into pageable memory and stamps the checksum."""
+
+    __slots__ = ("key", "arrays", "nbytes", "pinned", "tick", "checksum",
+                 "ready", "device", "event", "staged")
+
+    def __init__(self, key, arrays: dict, nbytes: int, pinned: bool,
+                 tick: int):
+        self.key = key
+        self.arrays = arrays
+        self.nbytes = nbytes
+        self.pinned = pinned
+        self.tick = tick
+        self.checksum: Optional[bytes] = None
+        self.ready = False
+        self.device: Optional[dict] = None   # prefetched device tensors
+        self.event = None                    # the D2H copy's CUDA event
+        self.staged = 0                      # pinned staging bytes held
+
+
+class HostPagePool:
+    """Byte-budgeted host-RAM tier under the device page pool (port of
+    the reference's ``HostPagePool``).
+
+    Two key spaces share one budget: prefix pages keyed by the
+    ``PrefixCache`` chain digest, and a preempted sequence's private
+    pages keyed ``("seq", request_id, table_pos)``.  "Pinned" entries are
+    EXEMPT FROM LRU (a parked decoder's pages must survive until resume
+    or abort); it says nothing about page-locked memory.  Unpinned
+    entries LRU-evict to fit the budget.  Every entry carries a content
+    checksum verified at restore and at prefetch: a corrupt host buffer
+    is dropped and counted, and the caller sees a miss (prefix) or a
+    resume failure (preempted), never wrong KV.
+
+    Device pages move without a synchronising call: ``put`` queues each
+    field's copy into a pinned staging tensor on the current stream (the
+    stream that queued the gather, ahead of any later write to the freed
+    pool page) and records an event; ``drain_pending`` (once per engine
+    step) finalizes the entries whose event has fired.  At most
+    ``STAGING_BYTES`` of staging are in flight: past that a spill first
+    finalizes the oldest entries, waiting for their copies.  The budget
+    itself is pageable memory and never page-locked.  Engine-thread
+    owned; counters are plain ints for other threads to read."""
+
+    def __init__(self, budget_bytes: int, device="cpu"):
+        self.budget_bytes = int(budget_bytes)
+        self.device = torch.device(device)
+        self._entries: dict = {}
+        self._pending: list = []   # keys spilled but not yet finalized
+        self._tick = 0
+        self._bytes = 0
+        self._staged = 0
+        # counters (monotonic)
+        self.spilled_pages = 0      # pages demoted device -> host
+        self.restored_pages = 0     # pages promoted host -> device
+        self.evicted_pages = 0      # unpinned pages LRU-dropped for budget
+        self.corrupt_pages = 0      # checksum failures detected at restore
+        self.alloc_failures = 0     # spills dropped: budget/fault
+
+    # -- occupancy ----------------------------------------------------------
+
+    @property
+    def used_bytes(self) -> int:
+        return self._bytes
+
+    @property
+    def pages(self) -> int:
+        return len(self._entries)
+
+    @property
+    def occupancy(self) -> float:
+        return self._bytes / self.budget_bytes if self.budget_bytes else 0.0
+
+    @property
+    def staged_bytes(self) -> int:
+        return self._staged
+
+    def stats(self) -> dict:
+        return {
+            "pages": len(self._entries),
+            "used_bytes": self._bytes,
+            "budget_bytes": self.budget_bytes,
+            "spilled_pages": self.spilled_pages,
+            "restored_pages": self.restored_pages,
+            "evicted_pages": self.evicted_pages,
+            "corrupt_pages": self.corrupt_pages,
+            "alloc_failures": self.alloc_failures,
+        }
+
+    # -- write side ---------------------------------------------------------
+
+    @staticmethod
+    def _fault(op: str) -> Optional[dict]:
+        inj = faults.active()
+        return inj.host_pool_fault(op) if inj is not None else None
+
+    def put(self, key, arrays: dict, pinned: bool = False) -> bool:
+        """Adopt one page's buffers: device tensors fresh off a gather
+        (their copy to the host is queued here), or host tensors / numpy
+        arrays (kept as they are).  False (counted in ``alloc_failures``)
+        when the page cannot fit."""
+        fault = self._fault("spill")
+        if fault is not None and fault.get("mode") == "alloc_fail":
+            self.alloc_failures += 1
+            return False
+        nbytes = sum(_nbytes(a) for a in arrays.values() if a is not None)
+        old = self._entries.get(key)
+        if old is not None:
+            self._drop(key)
+        if nbytes > self.budget_bytes or not self._evict_for(nbytes):
+            # a failed RE-spill must not destroy the previously valid host
+            # copy (same digest = same content): it fit before and only
+            # evictions happened since
+            if old is not None \
+                    and self._bytes + old.nbytes <= self.budget_bytes:
+                self._entries[key] = old
+                self._bytes += old.nbytes
+                self._staged += old.staged
+            self.alloc_failures += 1
+            return False
+        self._tick += 1
+        e = _HostPage(key, dict(arrays), nbytes, pinned, self._tick)
+        if any(isinstance(a, torch.Tensor) and a.is_cuda
+               for a in arrays.values()):
+            self._stage(e)
+        self._entries[key] = e
+        self._bytes += nbytes
+        self._pending.append(key)
+        self.spilled_pages += 1
+        return True
+
+    def _stage(self, e: _HostPage) -> None:
+        """Queue the page's device-to-host copy into pinned staging."""
+        while self._staged + e.nbytes > STAGING_BYTES:
+            oldest = next((self._entries[k] for k in self._pending
+                           if k in self._entries
+                           and self._entries[k].event is not None), None)
+            if oldest is None:
+                break
+            self._finalize(oldest)
+        staged = {}
+        for f, a in e.arrays.items():
+            if a is None:
+                staged[f] = None
+                continue
+            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host.copy_(a, non_blocking=True)
+            staged[f] = host
+        e.arrays = staged
+        e.event = torch.cuda.Event()
+        e.event.record()
+        e.staged = e.nbytes
+        self._staged += e.nbytes
+
+    def drain_pending(self) -> None:
+        """Finalize spills whose copies have landed (once per engine
+        step): pageable copy + checksum, staging released.  Never waits:
+        an entry whose event has not fired stays pending."""
+        if not self._pending:
+            return
+        keep = []
+        for key in self._pending:
+            e = self._entries.get(key)
+            if e is None or e.ready:
+                continue
+            if e.event is not None and not e.event.query():
+                keep.append(key)
+                continue
+            self._finalize(e, landed=True)
+        self._pending = keep
+
+    def _evict_for(self, nbytes: int) -> bool:
+        """LRU-drop unpinned entries until ``nbytes`` fit; False when the
+        pinned set alone exceeds the headroom."""
+        while self._bytes + nbytes > self.budget_bytes:
+            victims = [e for e in self._entries.values() if not e.pinned]
+            if not victims:
+                return False
+            victim = min(victims, key=lambda e: e.tick)
+            self._drop(victim.key)
+            self.evicted_pages += 1
+        return True
+
+    def _drop(self, key) -> None:
+        e = self._entries.pop(key, None)
+        if e is not None:
+            self._bytes -= e.nbytes
+            self._staged -= e.staged
+
+    def discard(self, key) -> None:
+        """Remove an entry without restore accounting (an aborted
+        preempted request)."""
+        self._drop(key)
+
+    # -- read side ----------------------------------------------------------
+
+    def contains(self, key) -> bool:
+        """Presence only: never waits for an in-flight copy."""
+        return key in self._entries
+
+    def _finalize(self, e: _HostPage, landed: bool = False) -> None:
+        """Pageable copy + checksum; waits for the page's copy unless
+        ``landed`` (its event was seen complete)."""
+        if e.ready:
+            return
+        if e.event is not None:
+            if not landed:
+                e.event.synchronize()
+            # out of the staging block into pageable memory: the budget
+            # is never page-locked
+            e.arrays = {
+                f: None if a is None
+                else torch.empty(a.shape, dtype=a.dtype).copy_(a)
+                for f, a in e.arrays.items()
+            }
+            e.event = None
+            self._staged -= e.staged
+            e.staged = 0
+        e.checksum = page_checksum(e.arrays)
+        e.ready = True
+
+    def get(self, key) -> Optional[dict]:
+        """One page's host buffers for restore, checksum-verified.  None
+        on a miss OR a detected corruption (the entry is dropped and
+        counted)."""
+        e = self._entries.get(key)
+        if e is None:
+            return None
+        fault = self._fault("restore")
+        if fault is not None:
+            if fault.get("mode") == "slow":
+                time.sleep(float(fault.get("delay", 0.05)))
+            elif fault.get("mode") == "corrupt":
+                self._finalize(e)
+                e.arrays = {**e.arrays, "k": _flip_first_byte(e.arrays["k"])}
+        self._finalize(e)
+        if page_checksum(e.arrays) != e.checksum:
+            self._drop(key)
+            self.corrupt_pages += 1
+            return None
+        self._tick += 1
+        e.tick = self._tick
+        return e.arrays
+
+    def prefetch(self, key) -> bool:
+        """Queue the host-to-device upload of a page expected to restore
+        soon (its request is still waiting for a slot or pages), from
+        pinned staging; verified first, so a corrupt page drops here."""
+        e = self._entries.get(key)
+        if e is None:
+            return False
+        if e.device is not None:
+            return True
+        arrays = self.get(key)
+        if arrays is None:
+            return False
+        e.device = {f: None if a is None else _to_device(a, self.device)
+                    for f, a in arrays.items()}
+        return True
+
+    def release_device(self, key) -> None:
+        """Drop a prefetched entry's device tensors (the host copy
+        stays)."""
+        e = self._entries.get(key)
+        if e is not None:
+            e.device = None
+
+    def take_restored(self, key) -> Optional[dict]:
+        """Claim a page for device restore: verified buffers (device
+        tensors when prefetched, else host), removed from the pool and
+        counted as restored."""
+        e = self._entries.get(key)
+        if e is None:
+            return None
+        if e.device is not None:
+            out = e.device
+        else:
+            out = self.get(key)
+            if out is None:
+                return None
+        self._drop(key)
+        self.restored_pages += 1
+        return out
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A host page buffer on ``device``; on the card through pinned
+    staging, queued (``non_blocking``), so the upload is asynchronous."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda":
+        return t.to(device)
+    stage = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    stage.copy_(t)
+    return stage.to(device, non_blocking=True)
+
+
+def gather_pages(cache: PagedKVCache, page_ids: list) -> list:
+    """``page_ids`` out of the device pool as per-page dicts (``[L, P,
+    KVH, D]`` each, scale rows ``[L, P, KVH]`` for int8 pools): one
+    ``index_select`` per field, queued on the current stream, into fresh
+    page-major buffers, so a page freed right after may be rewritten by
+    a later write without touching what was gathered."""
+    if not page_ids:
+        return []
+    idx = upload(np.asarray(page_ids, np.int64), cache.k_pages.device)
+    fields = {"k": cache.k_pages, "v": cache.v_pages,
+              "k_scale": cache.k_scale, "v_scale": cache.v_scale}
+    got = {f: None if pool is None
+           else pool.index_select(1, idx).transpose(0, 1).contiguous()
+           for f, pool in fields.items()}
+    return [{f: None if g is None else g[i] for f, g in got.items()}
+            for i in range(len(page_ids))]
+
+
+def _stack_pages(parts: list, n_pad: int, device: torch.device):
+    """``[L, len(parts) + n_pad, ...]`` on ``device`` from per-page
+    buffers (prefetched device tensors, or host buffers: those go up in
+    one pinned, queued upload); the padding rows are zeros."""
+    first = torch.as_tensor(parts[0])
+    shape = (first.shape[0], len(parts) + n_pad) + tuple(first.shape[1:])
+    out = torch.zeros(shape, dtype=first.dtype, device=device)
+    on_host = []
+    for i, p in enumerate(parts):
+        t = torch.as_tensor(p)
+        if t.device == device:
+            out[:, i].copy_(t)
+        else:
+            on_host.append(i)
+    if on_host:
+        stage = torch.empty((len(on_host),) + tuple(first.shape),
+                            dtype=first.dtype,
+                            pin_memory=device.type == "cuda")
+        for j, i in enumerate(on_host):
+            stage[j].copy_(torch.as_tensor(parts[i]))
+        up = stage.to(device, non_blocking=True)
+        out.index_copy_(1, upload(np.asarray(on_host, np.int64), device),
+                        up.transpose(0, 1))
+    return out
+
+
+def restore_pages(cache: PagedKVCache, page_ids: list,
+                  entries: list) -> PagedKVCache:
+    """Write page contents (from ``HostPagePool.take_restored`` or a
+    snapshot) into pool pages ``page_ids``, in place: one ``index_copy_``
+    per field.  The batch pads to a power of two, as the reference's
+    bucketed scatter does, with the padding rows aimed at garbage page
+    0."""
+    if not page_ids:
+        return cache
+    n = len(page_ids)
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    idx = np.zeros((bucket,), np.int64)   # padding targets garbage page 0
+    idx[:n] = page_ids
+    dev = cache.k_pages.device
+    idx_t = upload(idx, dev)
+    fields = [("k", cache.k_pages), ("v", cache.v_pages)]
+    if cache.quantized:
+        fields += [("k_scale", cache.k_scale), ("v_scale", cache.v_scale)]
+    for f, pool in fields:
+        batch = _stack_pages([e[f] for e in entries], bucket - n, dev)
+        pool.index_copy_(1, idx_t, batch.to(pool.dtype))
+    return cache

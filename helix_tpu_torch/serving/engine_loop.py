@@ -18,9 +18,20 @@ sit between a completion and the next dispatch.  Every step records its
 time split (host build, device wait, emit, idle gap, wall) in a small
 window; ``device_idle_ratio()`` reads it.
 
+The KV-pressure ladder (``_memory_pressure_tick``, once per pass): with
+``preempt_stall_seconds`` set, admission starved that long preempts the
+newest decoder by swap to the host tier; with ``admission_timeout`` set,
+queued or parked requests past it get a typed ``kv_exhausted`` error.
+Both reconcile an in-flight step first, as they read the engine's host
+mirrors.  ``submit_import`` re-admits a migrated-in snapshot on the
+engine thread; ``stop(drain=...)`` stops taking work, keeps stepping
+until the deadline, then ships what is left through ``exporter`` (a
+``PeerShipper``) with a ``migrated ... peer=`` terminal event, and fails
+only what could not ship.
+
 Not ported yet: the scheduler, SLO accounting, admission bounds, the
-quarantine bisection and retry ladder, preemption, migration and drain
-(ROADMAP A7, A12, A15).
+quarantine bisection and retry ladder (ROADMAP A7), the disaggregated
+prefill handoff (A12), multihost (A15).
 """
 
 from __future__ import annotations
@@ -33,11 +44,12 @@ import threading
 import time
 from typing import Callable, Optional
 
-from helix_tpu_torch.engine.engine import Engine, Request
+from helix_tpu_torch.engine.engine import Engine, Request, SnapshotError
 
 log = logging.getLogger("helix_tpu_torch.engine")
 
 SHUTTING_DOWN = "shutting_down"
+KV_EXHAUSTED = "kv_exhausted"
 # step records kept for device_idle_ratio() (the reference's flight ring
 # holds 512 and its ratio gauges read the last 256)
 STEP_WINDOW = 256
@@ -145,13 +157,41 @@ class _StepWindow:
         return num / den if den > 0 else 0.0
 
 
+@dataclasses.dataclass
+class _ImportItem:
+    """An inbox entry carrying a migrated-in snapshot: ``import_request``
+    runs on the engine thread; ``on_result(err, code)`` fires once it
+    settles (None = accepted)."""
+
+    snapshot: object
+    on_event: Callable[[TokenEvent], None]
+    on_result: Optional[Callable] = None
+
+
 class EngineLoop:
-    def __init__(self, engine: Engine, name: str = "engine"):
+    def __init__(self, engine: Engine, name: str = "engine",
+                 admission_timeout: Optional[float] = None,
+                 preempt_stall_seconds: Optional[float] = None):
         self.engine = engine
         self.name = name
+        # the KV-pressure ladder's rungs (None disables one): preempt by
+        # swap once admission has stalled preempt_stall_seconds, typed
+        # kv_exhausted shed once a request has waited admission_timeout
+        self.admission_timeout = admission_timeout
+        self.preempt_stall_seconds = preempt_stall_seconds
+        self._stall_since: Optional[float] = None
+        self._admit_seen = 0        # admissions + resumes at last progress
+        self._last_preempt_at = 0.0
+        self.kv_exhausted_sheds = 0
+        self.shed_requests = 0
         self._inbox: "queue.Queue" = queue.Queue()
         self._wake = threading.Event()
         self._stop = threading.Event()
+        # submit holds it across check + enqueue so stop(drain=...) can
+        # flip _draining atomically against in-flight submits
+        self._admission_lock = threading.RLock()
+        self._draining = False
+        self._drain_deadline = 0.0
         self._subscribers: dict[str, Callable[[TokenEvent], None]] = {}
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
@@ -163,21 +203,56 @@ class EngineLoop:
         # the last completion's return: a dispatch made with nothing in
         # flight charges the gap since then as device idle (idle_gap_s)
         self._device_busy_until = 0.0
+        # drain-deadline migration: wire dict -> accepting peer id (raises
+        # on failure); None sheds survivors instead
+        self.exporter: Optional[Callable[[dict], str]] = None
+        self.migration_failures = 0   # failed exports / ships / imports
 
     def submit(self, req: Request, on_event: Callable[[TokenEvent], None]):
         """Queue a request; ``on_event`` receives its tokens and a final
-        event.  Unservable requests get an error event at once."""
+        event.  Unservable requests, and any while draining, get an error
+        event at once."""
         err = self.engine.validate_request(req)
-        if err is None and self._stop.is_set():
-            err = f"{SHUTTING_DOWN}: engine '{self.name}' is stopping"
         if err:
             on_event(_error_event(req.id, err))
             return
-        self._inbox.put((req, on_event))
+        with self._admission_lock:
+            if self._draining or self._stop.is_set():
+                self.shed_requests += 1
+                on_event(_error_event(
+                    req.id, f"{SHUTTING_DOWN}: engine '{self.name}' is "
+                    "draining"))
+                return
+            self._inbox.put((req, on_event))
         self._wake.set()
 
     def abort(self, request_id: str):
         self._inbox.put((request_id, None))
+        self._wake.set()
+
+    def note_migration_failure(self) -> None:
+        """Count a failed export, ship or import (engine thread, and the
+        server's sweep of unclaimed imports)."""
+        with self._admission_lock:
+            self.migration_failures += 1
+
+    @property
+    def draining(self) -> bool:
+        return self._draining or self._stop.is_set()
+
+    def submit_import(self, snapshot, on_event, on_result=None):
+        """Queue a migrated-in snapshot (any thread).  The engine thread
+        validates it (every page checksum before any mutation) and parks
+        a KV-carrying one until a slot and pages free up;
+        ``on_result(err, code)`` reports the outcome."""
+        with self._admission_lock:
+            if self._draining or self._stop.is_set():
+                if on_result is not None:
+                    on_result(f"{SHUTTING_DOWN}: engine '{self.name}' is "
+                              "draining", "shutting_down")
+                return
+            self._inbox.put((_ImportItem(snapshot, on_event, on_result),
+                             None))
         self._wake.set()
 
     def start(self):
@@ -190,16 +265,47 @@ class EngineLoop:
         self._thread.start()
         return self
 
-    def stop(self, join: bool = True):
+    def stop(self, join: bool = True, drain: float = 0.0):
+        """Stop the engine thread.  With ``drain > 0`` new submissions
+        are shed (``shutting_down``, a 503) while requests in flight keep
+        stepping for up to ``drain`` seconds; at the deadline the
+        survivors ship through ``exporter`` when one is set, and the rest
+        get an error event.  ``join=False`` with a drain leaves the
+        thread to finish on its own."""
+        if drain > 0 and self._thread is not None \
+                and self._thread.is_alive():
+            # the deadline is set before the flag the thread checks
+            self._drain_deadline = time.monotonic() + drain
+            with self._admission_lock:
+                self._draining = True
+            self._wake.set()
+            if not join:
+                return
+            self._thread.join(timeout=drain + 30)
         self._stop.set()
         self._wake.set()
         if join and self._thread is not None:
             self._thread.join(timeout=30)
 
     def stats(self) -> dict:
+        eng = self.engine
         return {
             "steps": self.steps,
             "step_failures": self.step_failures,
+            "shed_requests": self.shed_requests,
+            # KV tiering + preemption by swap
+            "preemptions": eng.num_preemptions,
+            "resumes": eng.num_resumes,
+            "preempted_parked": len(eng.preempted),
+            "kv_exhausted_sheds": self.kv_exhausted_sheds,
+            "host_pool": (eng.host_pool.stats()
+                          if eng.host_pool is not None else None),
+            "migration": {
+                "exported": eng.num_snapshots_exported,
+                "imported": eng.num_snapshots_imported,
+                "failures": self.migration_failures,
+                "draining": self.draining,
+            },
             "async_loop": {
                 "enabled": self.async_enabled,
                 "pipelined_steps": self.pipelined_steps,
@@ -226,6 +332,9 @@ class EngineLoop:
                 item, on_event = self._inbox.get_nowait()
             except queue.Empty:
                 return
+            if isinstance(item, _ImportItem):   # migrated-in snapshot
+                self._handle_import(item)
+                continue
             if on_event is None:   # abort
                 self.engine.abort(item)
                 self._subscribers.pop(item, None)
@@ -236,6 +345,163 @@ class EngineLoop:
                 on_event(_error_event(item.id, str(e)))
                 continue
             self._subscribers[item.id] = on_event
+
+    def _handle_import(self, item: _ImportItem) -> None:
+        """Engine-thread half of ``submit_import``."""
+        rid = getattr(item.snapshot, "request_id", "")
+        try:
+            req = self.engine.import_request(item.snapshot)
+        except SnapshotError as e:
+            self.note_migration_failure()
+            log.warning("engine '%s' rejected snapshot import "
+                        "request_id=%s: %s", self.name, rid, e)
+            if item.on_result is not None:
+                item.on_result(str(e), e.code)
+            return
+        except Exception as e:  # noqa: BLE001 — the thread must survive
+            self.note_migration_failure()
+            log.exception("engine '%s' snapshot import failed "
+                          "request_id=%s", self.name, rid)
+            if item.on_result is not None:
+                item.on_result(str(e), "snapshot_invalid")
+            return
+        self._subscribers[req.id] = item.on_event
+        log.info("engine '%s' imported request_id=%s (%d prior token(s), "
+                 "%d page(s))", self.name, req.id, len(req.output_tokens),
+                 len(getattr(item.snapshot, "pages", ())))
+        if item.on_result is not None:
+            item.on_result(None, None)
+
+    def _active_by_recency(self) -> list:
+        """Unfinished requests with a subscriber, oldest submission first
+        (the subscriber map keeps insertion order)."""
+        reqs = (self.engine.get_request(rid)
+                for rid in list(self._subscribers))
+        return [r for r in reqs if r is not None and not r.finished]
+
+    def _terminal(self, req, message: str) -> None:
+        """End one request with an error event (after the tokens queued
+        before it)."""
+        self.engine.abort(req.id)
+        cb = self._subscribers.pop(req.id, None)
+        if cb:
+            cb(_error_event(req.id, message))
+
+    def _shed_kv_exhausted(self, req, waited: float) -> None:
+        """The typed shed of a request past the admission deadline,
+        queued or parked."""
+        self._emit_stage.flush()
+        msg = (f"{KV_EXHAUSTED}: request waited {waited:.1f}s for KV pages "
+               f"(admission_timeout={self.admission_timeout}s); the engine "
+               "is out of KV capacity, retry later")
+        with self._admission_lock:   # submit() counts sheds too
+            self.kv_exhausted_sheds += 1
+            self.shed_requests += 1
+        log.warning("engine '%s' shedding request_id=%s: %s", self.name,
+                    req.id, msg)
+        self._terminal(req, msg)
+
+    def _pressure_pending(self) -> bool:
+        """Whether the ladder has anything to watch: a waiting queue or a
+        parked decoder (the pipeline never runs ahead of either)."""
+        return bool(self.engine.waiting or self.engine.preempted)
+
+    def _memory_pressure_tick(self) -> None:
+        """The KV-pressure ladder, once per loop pass, with no step in
+        flight.  Admission counts as starved while requests wait and no
+        admission or resume lands.  Past ``preempt_stall_seconds`` the
+        newest (then largest) decoder swaps out to the host tier, one per
+        stall window; past ``admission_timeout`` queued and parked
+        requests get the typed ``kv_exhausted`` shed."""
+        eng = self.engine
+        now = time.monotonic()
+        progress = eng.num_admitted + eng.num_resumes
+        waiting = list(eng.waiting)
+        if progress != self._admit_seen:
+            self._admit_seen = progress
+            self._stall_since = now if waiting else None
+        elif not waiting:
+            self._stall_since = None
+        elif self._stall_since is None:
+            self._stall_since = now
+        if self.admission_timeout is not None:
+            # a queued request sheds only when the stall itself outlived
+            # the deadline: a queue that merely moves slowly is latency,
+            # not KV exhaustion
+            if self._stall_since is not None \
+                    and now - self._stall_since > self.admission_timeout:
+                for r in waiting:
+                    if not r.finished \
+                            and now - r.submit_time > self.admission_timeout:
+                        self._shed_kv_exhausted(r, now - r.submit_time)
+            # a parked decoder that cannot get pages back is KV pressure
+            # by construction
+            for st in list(eng.preempted):
+                waited = now - st.preempted_at
+                if not st.req.finished and waited > self.admission_timeout:
+                    self._shed_kv_exhausted(st.req, waited)
+        if (self.preempt_stall_seconds is not None
+                and self._stall_since is not None
+                and now - self._stall_since > self.preempt_stall_seconds
+                and now - self._last_preempt_at
+                > self.preempt_stall_seconds):
+            victim = eng.preempt_for_pressure()
+            if victim is not None:
+                self._last_preempt_at = now
+                log.warning("engine '%s' admission KV-starved for %.1fs: "
+                            "preempted request_id=%s (swap to host)",
+                            self.name, now - self._stall_since, victim)
+
+    def _deliver_resume_failures(self) -> None:
+        """Error events for parked requests whose swap-in failed
+        verification."""
+        failures = self.engine.drain_resume_failures()
+        if failures:
+            self._emit_stage.flush()
+        for req, msg in failures:
+            log.warning("engine '%s' resume failed for request_id=%s: %s",
+                        self.name, req.id, msg)
+            cb = self._subscribers.pop(req.id, None)
+            if cb:
+                cb(_error_event(req.id, msg))
+
+    def _export_survivors(self) -> int:
+        """Drain-deadline migration: snapshot every unfinished request
+        and ship it through ``exporter``; a shipped request ends here
+        with a ``migrated ... peer=`` event.  What cannot export or ship
+        is left for the ``_fail_all`` that follows.  Runs with no step in
+        flight."""
+        from helix_tpu_torch.serving.migration import (
+            migrated_error,
+            snapshot_to_wire,
+        )
+
+        self._emit_stage.flush()
+        if self.exporter is None:
+            return 0
+        shipped = 0
+        for req in self._active_by_recency():
+            try:
+                snap = self.engine.export_request(req.id)
+            except Exception:  # noqa: BLE001 — degrade to shed
+                log.exception("engine '%s' export failed for request_id=%s",
+                              self.name, req.id)
+                snap = None
+            if snap is None:
+                self.note_migration_failure()
+                continue
+            try:
+                peer = self.exporter(snapshot_to_wire(snap))
+            except Exception as e:  # noqa: BLE001 — degrade to shed
+                self.note_migration_failure()
+                log.warning("engine '%s' could not ship snapshot for "
+                            "request_id=%s: %s", self.name, req.id, e)
+                continue
+            shipped += 1
+            log.info("engine '%s' migrated request_id=%s to peer %s at "
+                     "drain deadline", self.name, req.id, peer)
+            self._terminal(req, migrated_error(req.id, peer))
+        return shipped
 
     def _snapshot_events(self, emitted) -> list:
         """``[(req, token), ...]`` -> ``[(req, finished, TokenEvent)]``,
@@ -326,6 +592,27 @@ class EngineLoop:
                 if not reconcile():
                     continue
             self._drain_inbox()
+            if self._draining:
+                if not reconcile():
+                    continue
+                if not self.engine.has_work():
+                    break
+                if time.monotonic() > self._drain_deadline:
+                    # migrate instead of shed: finish -> ship -> shed
+                    shipped = self._export_survivors()
+                    if shipped:
+                        log.info("engine '%s' exported %d request(s) at "
+                                 "the drain deadline", self.name, shipped)
+                    self._fail_all("drain deadline exceeded at shutdown")
+                    break
+            if self._pressure_pending():
+                # the ladder reads and rewrites the host mirrors (a
+                # preempt saves _positions / _last_token): no step may be
+                # in flight.  The pipeline never runs ahead of a waiting
+                # queue or a parked decoder, so this costs no overlap.
+                if not reconcile():
+                    continue
+                self._memory_pressure_tick()
             if not self.engine.has_work():
                 if not reconcile():
                     continue
@@ -398,6 +685,7 @@ class EngineLoop:
                 continue
             t_emit = time.monotonic()
             self._emit_stage.push(self._snapshot_events(emitted))
+            self._deliver_resume_failures()
             self._record(kind, len(emitted), host_build_s=t_built - t_step,
                          device_wait_s=dt_wait,
                          emit_s=time.monotonic() - t_emit,

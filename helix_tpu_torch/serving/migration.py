@@ -1,0 +1,558 @@
+"""Cross-runner request migration: the wire format and the shipper.
+
+Port of the wire and transport halves of ``helix_tpu/serving/
+migration.py``.  The engine builds and consumes ``RequestSnapshot``s
+(``Engine.export_request`` / ``import_request``); this module owns:
+
+- the **wire format**: a JSON-safe document of a snapshot, page buffers
+  as base64 with dtype and shape, scalar fields under a meta checksum,
+  shipped over ``POST /v1/migrate/import``.  It is the reference's byte
+  for byte, so a snapshot crosses between a JAX runner and a torch
+  runner in either direction: a bf16 page travels as its raw 2-byte
+  words under the dtype string ``"bfloat16"`` and decodes through an
+  int16 view, without ``ml_dtypes``;
+- the **drain shipper** (``PeerShipper``): POSTs a wire snapshot to a
+  peer runner with per-attempt timeouts, capped exponential backoff and
+  a whole-transfer deadline (``urllib``: the card's machine has no
+  ``requests``);
+- the **imported-stream registry** (``ImportedStreams``): a migrated-in
+  request's token events buffer until ``POST /v1/migrate/resume``
+  attaches, or its claim times out.
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+import hashlib
+import json
+import os
+import re
+import threading
+import time
+import urllib.error
+import urllib.request
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from helix_tpu_torch.engine.engine import (
+    SNAPSHOT_VERSION,
+    RequestSnapshot,
+    SnapshotError,
+)
+from helix_tpu_torch.engine.kv_cache import PAGE_FIELDS, raw_bytes
+from helix_tpu_torch.testing import faults
+
+# the trace header a shipping peer forwards (helix_tpu/obs/trace.py)
+TRACE_HEADER = "X-Helix-Trace-Id"
+_TRACE_ID_RE = re.compile(r"[A-Za-z0-9_-]{8,64}")
+
+
+def is_trace_id(value) -> bool:
+    """Whether ``value`` is shaped like an adoptable trace id."""
+    return isinstance(value, str) and bool(_TRACE_ID_RE.fullmatch(value))
+
+
+# every way one ship attempt can end
+XFER_OUTCOMES = ("ok", "unreachable", "rejected", "http_error", "timeout")
+
+
+class XferStats:
+    """Process-wide snapshot-transfer accounting; shippers increment
+    under the lock from their threads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.attempts = {o: 0 for o in XFER_OUTCOMES}
+        self.ship_seconds = 0.0
+        self.shipped_bytes = 0
+        self.shipped_pages = 0
+        self.deadline_exceeded = 0
+
+    def note_attempt(self, outcome: str, seconds: float = 0.0) -> None:
+        with self._lock:
+            if outcome not in self.attempts:
+                outcome = "http_error"
+            self.attempts[outcome] += 1
+            self.ship_seconds += max(0.0, seconds)
+
+    def note_shipped(self, wire: dict) -> None:
+        with self._lock:
+            pages = wire.get("pages") or []
+            self.shipped_pages += len(pages)
+            self.shipped_bytes += sum(
+                len((f or {}).get("b64", ""))
+                for p in pages for f in (p or {}).values()
+                if isinstance(f, dict)
+            )
+
+    def note_deadline(self) -> None:
+        with self._lock:
+            self.deadline_exceeded += 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "attempts": dict(self.attempts),
+                "ship_seconds": self.ship_seconds,
+                "shipped_bytes": self.shipped_bytes,
+                "shipped_pages": self.shipped_pages,
+                "deadline_exceeded": self.deadline_exceeded,
+            }
+
+
+XFER_STATS = XferStats()
+
+# error-message prefix of a request exported instead of shed; the control
+# plane's mid-stream failover reads the peer out of the message
+MIGRATED = "migrated"
+_PEER_RE = re.compile(r"peer=([A-Za-z0-9._:\-]+)")
+
+
+def migrated_error(request_id: str, peer_id: str) -> str:
+    """The terminal event of a drained-and-shipped request."""
+    return f"{MIGRATED}: request {request_id} exported to peer={peer_id}"
+
+
+def parse_migrated_peer(message: str) -> Optional[str]:
+    """The peer runner id of a ``migrated_error`` message, or None."""
+    if not message.startswith(MIGRATED):
+        return None
+    m = _PEER_RE.search(message)
+    return m.group(1) if m else None
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except (TypeError, ValueError):
+        return default
+
+
+def migration_timeout() -> float:
+    """HELIX_MIGRATION_TIMEOUT: the ship deadline at export and the TTL
+    an imported request waits for its stream to be claimed."""
+    return _env_float("HELIX_MIGRATION_TIMEOUT", 30.0)
+
+
+class XferConfig:
+    """Ship retry discipline: a per-attempt timeout, capped exponential
+    backoff between rounds over the targets, and a hard deadline for the
+    whole transfer (``HELIX_XFER_*`` env knobs, as the reference)."""
+
+    def __init__(self, attempt_timeout: Optional[float] = None,
+                 max_attempts: Optional[int] = None,
+                 backoff_base: Optional[float] = None,
+                 backoff_cap: Optional[float] = None,
+                 deadline: Optional[float] = None):
+        def pick(v, env, default):
+            return v if v is not None else _env_float(env, default)
+
+        self.attempt_timeout = pick(attempt_timeout,
+                                    "HELIX_XFER_ATTEMPT_TIMEOUT", 10.0)
+        self.max_attempts = (
+            max_attempts if max_attempts is not None
+            else max(1, int(_env_float("HELIX_XFER_MAX_ATTEMPTS", 3)))
+        )
+        self.backoff_base = pick(backoff_base, "HELIX_XFER_BACKOFF_BASE",
+                                 0.1)
+        self.backoff_cap = pick(backoff_cap, "HELIX_XFER_BACKOFF_CAP", 2.0)
+        self.deadline = pick(deadline, "HELIX_XFER_DEADLINE",
+                             migration_timeout())
+
+
+# ---------------------------------------------------------------------------
+# wire format
+# ---------------------------------------------------------------------------
+
+# RequestSnapshot fields under the meta checksum (all but the pages,
+# which carry digests of their own)
+_META_FIELDS = (
+    "version", "model", "request_id", "prompt_tokens", "output_tokens",
+    "sampling", "stop_token_ids", "tenant", "trace_id", "sched_class",
+    "max_len", "preempt_count", "position", "last_token", "mrope_delta",
+    "key", "token_counts", "page_size", "num_layers", "kv_heads",
+    "head_dim", "kv_dtype", "page_checksums", "total_pages", "adapter",
+)
+# wire dtype name -> (numpy type of the raw words, torch view of them)
+_WIRE_DTYPES = {
+    "float32": (np.float32, torch.float32),
+    "float16": (np.float16, torch.float16),
+    "bfloat16": (np.int16, torch.bfloat16),
+    "int8": (np.int8, torch.int8),
+}
+_TORCH_NAMES = {t: name for name, (_np, t) in _WIRE_DTYPES.items()}
+
+
+def _meta_checksum(doc: dict) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    canon = {k: doc.get(k) for k in _META_FIELDS}
+    if not canon.get("adapter"):
+        # adapter-free snapshots hash as wires from before the key
+        canon.pop("adapter", None)
+    h.update(json.dumps(canon, sort_keys=True, default=str).encode())
+    return h.hexdigest()
+
+
+def _encode_array(a) -> Optional[dict]:
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        dtype = _TORCH_NAMES[a.dtype]
+    else:
+        a = np.ascontiguousarray(a)
+        dtype = str(a.dtype)
+    return {
+        "dtype": dtype,
+        "shape": [int(d) for d in a.shape],
+        "b64": base64.b64encode(raw_bytes(a)).decode("ascii"),
+    }
+
+
+def _decode_array(doc) -> Optional[torch.Tensor]:
+    if doc is None:
+        return None
+    try:
+        np_type, view = _WIRE_DTYPES[doc["dtype"]]
+        raw = base64.b64decode(doc["b64"])
+        a = np.frombuffer(raw, dtype=np_type)
+        a = a.reshape([int(d) for d in doc["shape"]]).copy()
+    except (KeyError, TypeError, ValueError) as e:
+        raise SnapshotError(f"undecodable page buffer: {e!r}",
+                            code="snapshot_corrupt") from e
+    return torch.from_numpy(a).view(view)
+
+
+def snapshot_to_wire(snap: RequestSnapshot) -> dict:
+    """The JSON-safe document of a snapshot: scalar fields verbatim (in
+    the dataclass's field order, as ``dataclasses.asdict`` gives them),
+    page buffers as base64 with dtype and shape, and a meta checksum."""
+    doc = {f.name: getattr(snap, f.name)
+           for f in dataclasses.fields(RequestSnapshot)}
+    doc["sampling"] = dict(snap.sampling)
+    doc["token_counts"] = {str(k): int(v)
+                           for k, v in snap.token_counts.items()}
+    doc["pages"] = [{f: _encode_array(p.get(f)) for f in PAGE_FIELDS}
+                    for p in snap.pages]
+    doc["meta_checksum"] = _meta_checksum(doc)
+    return doc
+
+
+def wire_to_snapshot(doc: dict) -> RequestSnapshot:
+    """Decode and structurally validate one wire document.  Raises
+    ``SnapshotError`` on version, shape or meta-checksum problems; page
+    checksums are verified by the engine, before any mutation."""
+    if not isinstance(doc, dict):
+        raise SnapshotError("snapshot body must be a JSON object")
+    version = doc.get("version")
+    if version != SNAPSHOT_VERSION:
+        raise SnapshotError(
+            f"snapshot version {version!r} != supported {SNAPSHOT_VERSION}",
+            code="snapshot_unsupported")
+    claimed = doc.get("meta_checksum")
+    if not claimed or _meta_checksum(doc) != claimed:
+        raise SnapshotError("snapshot meta checksum mismatch",
+                            code="snapshot_corrupt")
+    counts_doc = doc.get("token_counts") or {}
+    if not isinstance(counts_doc, dict):
+        raise SnapshotError("token_counts must be an object",
+                            code="snapshot_corrupt")
+
+    def opt_int(name):
+        return int(doc[name]) if doc.get(name) is not None else None
+
+    try:
+        token_counts = {int(k): int(v) for k, v in counts_doc.items()}
+        pages = [{f: _decode_array((p or {}).get(f)) for f in PAGE_FIELDS}
+                 for p in doc.get("pages") or []]
+        return RequestSnapshot(
+            version=int(version),
+            model=str(doc.get("model", "")),
+            request_id=str(doc.get("request_id", "")),
+            prompt_tokens=[int(t) for t in doc.get("prompt_tokens", [])],
+            output_tokens=[int(t) for t in doc.get("output_tokens", [])],
+            sampling=dict(doc.get("sampling") or {}),
+            stop_token_ids=[int(t) for t in doc.get("stop_token_ids", [])],
+            tenant=str(doc.get("tenant", "")),
+            trace_id=str(doc.get("trace_id", "")),
+            sched_class=str(doc.get("sched_class", "")),
+            max_len=opt_int("max_len"),
+            preempt_count=int(doc.get("preempt_count", 0)),
+            position=opt_int("position"),
+            last_token=opt_int("last_token"),
+            mrope_delta=int(doc.get("mrope_delta", 0)),
+            key=([int(w) for w in doc["key"]]
+                 if doc.get("key") is not None else None),
+            token_counts=token_counts,
+            page_size=int(doc.get("page_size", 0)),
+            num_layers=int(doc.get("num_layers", 0)),
+            kv_heads=int(doc.get("kv_heads", 0)),
+            head_dim=int(doc.get("head_dim", 0)),
+            kv_dtype=str(doc.get("kv_dtype", "")),
+            pages=pages,
+            page_checksums=[str(s) for s in doc.get("page_checksums", [])],
+            total_pages=int(doc.get("total_pages", 0) or 0),
+            adapter=str(doc.get("adapter", "") or ""),
+        )
+    except (TypeError, ValueError) as e:
+        if isinstance(e, SnapshotError):
+            raise
+        raise SnapshotError(f"malformed snapshot field: {e}",
+                            code="snapshot_corrupt") from e
+
+
+# ---------------------------------------------------------------------------
+# imported-stream registry (runner side)
+# ---------------------------------------------------------------------------
+
+
+class ImportedStream:
+    """Token-event buffer of one migrated-in request: the peer engine
+    resumes it as soon as it has room, usually before the resume call
+    lands, so events buffer until exactly one consumer attaches.  The
+    engine thread calls ``on_event``; an HTTP handler thread calls
+    ``attach``."""
+
+    def __init__(self, request_id: str, model: str, prior_tokens: list,
+                 stop: tuple = (), trace_id: str = ""):
+        self.request_id = request_id
+        self.model = model
+        self.prior_tokens = list(prior_tokens)
+        self.trace_id = trace_id
+        # serving-level stop strings travel with the snapshot
+        self.stop = tuple(s for s in (stop or ()) if s)
+        self.created = time.monotonic()
+        self._lock = threading.Lock()
+        self._backlog: list = []
+        self._consumer: Optional[Callable] = None
+        self.claimed = False
+
+    def on_event(self, ev) -> None:
+        with self._lock:
+            if self._consumer is not None:
+                self._consumer(ev)
+            else:
+                self._backlog.append(ev)
+
+    def attach(self, put: Callable) -> bool:
+        """Claim the stream (once): the backlog goes to ``put`` first,
+        later events follow live.  False: already claimed."""
+        with self._lock:
+            if self.claimed:
+                return False
+            self.claimed = True
+            for ev in self._backlog:
+                put(ev)
+            self._backlog = []
+            self._consumer = put
+            return True
+
+
+class ImportedStreams:
+    """Bounded registry of migrated-in requests awaiting their stream;
+    ``sweep`` returns (and removes) unclaimed entries past the TTL so the
+    caller can abort them."""
+
+    def __init__(self, max_entries: int = 256):
+        self._lock = threading.Lock()
+        self._entries: dict[str, ImportedStream] = {}
+        self.max_entries = max_entries
+
+    def register(self, stream: ImportedStream) -> bool:
+        with self._lock:
+            if len(self._entries) >= self.max_entries:
+                return False
+            self._entries[stream.request_id] = stream
+            return True
+
+    def get(self, request_id: str) -> Optional[ImportedStream]:
+        with self._lock:
+            return self._entries.get(request_id)
+
+    def discard(self, request_id: str) -> None:
+        with self._lock:
+            self._entries.pop(request_id, None)
+
+    def sweep(self, ttl: Optional[float] = None) -> list:
+        if ttl is None:
+            ttl = migration_timeout()
+        now = time.monotonic()
+        with self._lock:
+            dead = [s for s in self._entries.values()
+                    if not s.claimed and now - s.created > ttl]
+            for s in dead:
+                del self._entries[s.request_id]
+            return dead
+
+
+# ---------------------------------------------------------------------------
+# drain shipper
+# ---------------------------------------------------------------------------
+
+
+_dumps = json.dumps   # http_post's ``json`` argument shadows the module
+
+
+class _Response:
+    def __init__(self, status_code: int, body: bytes = b""):
+        self.status_code = status_code
+        self.body = body
+
+
+def http_post(url: str, json=None, headers: Optional[dict] = None,
+              timeout: float = 10.0) -> _Response:
+    """POST a JSON body with ``urllib``; any HTTP status is a response
+    (the ``requests.post`` contract ``PeerShipper`` was written to)."""
+    data = _dumps(json).encode()
+    req = urllib.request.Request(
+        url, data=data, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return _Response(r.status, r.read())
+    except urllib.error.HTTPError as e:
+        return _Response(e.code, e.read())
+
+
+
+def _flip_wire_page(wire: dict, page_idx: int) -> dict:
+    """``wire`` with one byte flipped in page ``page_idx``'s k buffer
+    (the ``transfer`` fault's corrupt mode)."""
+    pages = list(wire.get("pages") or [])
+    if not pages:
+        return wire
+    i = max(0, min(page_idx, len(pages) - 1))
+    page = dict(pages[i])
+    k = dict(page.get("k") or {})
+    raw = bytearray(base64.b64decode(k.get("b64", "") or "AA=="))
+    raw[0] ^= 0xFF
+    k["b64"] = base64.b64encode(bytes(raw)).decode("ascii")
+    page["k"] = k
+    pages[i] = page
+    return {**wire, "pages": pages}
+
+
+class PeerShipper:
+    """Ships wire snapshots to a peer runner (the drain ladder).
+
+    Targets are given (``targets=[{"id", "address", "models"}]``) or
+    fetched once from the control plane's migration-targets endpoint.
+    The call contract is ``EngineLoop.exporter``'s: given a wire dict,
+    return the id of the peer that accepted it, raise on failure.
+    ``post`` / ``clock`` / ``sleep`` are injectable for tests."""
+
+    def __init__(self, control_plane_url: str = "", runner_id: str = "",
+                 runner_token: str = "", targets: Optional[list] = None,
+                 timeout: Optional[float] = None,
+                 config: Optional[XferConfig] = None,
+                 post=None, clock=time.monotonic, sleep=time.sleep,
+                 stats: Optional[XferStats] = None):
+        self.control_plane_url = control_plane_url.rstrip("/")
+        self.runner_id = runner_id
+        self.runner_token = runner_token
+        self._targets = targets
+        self.config = config if config is not None else XferConfig(
+            attempt_timeout=timeout)
+        self.timeout = self.config.attempt_timeout
+        self._post = post if post is not None else http_post
+        self._clock = clock
+        self._sleep = sleep
+        self.stats = stats if stats is not None else XFER_STATS
+
+    def _headers(self) -> dict:
+        return ({"X-Runner-Token": self.runner_token}
+                if self.runner_token else {})
+
+    def _ship_headers(self, wire: dict) -> dict:
+        """The runner token plus the request's trace id, when it is
+        shaped like one (never fabricated)."""
+        h = self._headers()
+        tid = wire.get("trace_id")
+        if is_trace_id(tid):
+            h[TRACE_HEADER] = tid
+        return h
+
+    def targets(self) -> list:
+        if self._targets is not None:
+            return self._targets
+        req = urllib.request.Request(
+            f"{self.control_plane_url}/api/v1/runners/{self.runner_id}/"
+            "migration-targets", headers=self._headers())
+        with urllib.request.urlopen(req,
+                                    timeout=min(self.timeout, 10.0)) as r:
+            doc = json.loads(r.read() or b"{}")
+        self._targets = [t for t in doc.get("targets", [])
+                         if t.get("address")]
+        return self._targets
+
+    def __call__(self, wire: dict) -> str:
+        cfg = self.config
+        model = wire.get("model", "")
+        deadline = self._clock() + cfg.deadline
+        last_err = "no migration target"
+        candidates = [t for t in self.targets()
+                      if not model or model in (t.get("models") or [model])]
+        if not candidates:
+            raise RuntimeError(f"snapshot ship failed: {last_err}")
+
+        def past_deadline():
+            self.stats.note_deadline()
+            return RuntimeError(
+                f"snapshot ship failed: transfer deadline "
+                f"({cfg.deadline:.1f}s) exceeded; last error: {last_err}")
+
+        for attempt in range(cfg.max_attempts):
+            for t in candidates:
+                peer_id = t.get("id", t.get("address", ""))
+                remaining = deadline - self._clock()
+                if remaining <= 0:
+                    raise past_deadline()
+                body = wire
+                inj = faults.active()
+                fault = inj.transfer_fault(peer_id) if inj else None
+                if fault is not None:
+                    if fault["mode"] == "slow":
+                        self._sleep(fault["delay"])
+                    elif fault["mode"] == "corrupt":
+                        body = _flip_wire_page(wire, fault["page"])
+                    elif fault["mode"] == "partial":
+                        pages = list(wire.get("pages") or [])
+                        body = {**wire, "pages": pages[: len(pages) // 2]}
+                    else:   # drop: the peer is unreachable
+                        self.stats.note_attempt("unreachable")
+                        last_err = f"{peer_id}: injected transfer drop"
+                        continue
+                t0 = self._clock()
+                try:
+                    r = self._post(
+                        f"{t['address'].rstrip('/')}/v1/migrate/import",
+                        json=body, headers=self._ship_headers(wire),
+                        timeout=min(cfg.attempt_timeout, remaining))
+                except Exception as e:  # noqa: BLE001 — try the next peer
+                    timed_out = ("timeout" in type(e).__name__.lower()
+                                 or "timed out" in str(e).lower())
+                    self.stats.note_attempt(
+                        "timeout" if timed_out else "unreachable",
+                        self._clock() - t0)
+                    last_err = f"{peer_id}: {e}"
+                    continue
+                dt = self._clock() - t0
+                if r.status_code == 200:
+                    self.stats.note_attempt("ok", dt)
+                    self.stats.note_shipped(body)
+                    return peer_id
+                self.stats.note_attempt(
+                    "rejected" if 400 <= r.status_code < 500
+                    else "http_error", dt)
+                last_err = f"{peer_id}: HTTP {r.status_code}"
+            if attempt + 1 >= cfg.max_attempts:
+                break
+            remaining = deadline - self._clock()
+            if remaining <= 0:
+                raise past_deadline()
+            backoff = min(cfg.backoff_cap,
+                          cfg.backoff_base * (2 ** attempt))
+            self._sleep(min(backoff, remaining))
+        raise RuntimeError(f"snapshot ship failed: {last_err}")

@@ -8,15 +8,27 @@ port needs no web framework:
 - ``POST /v1/chat/completions`` and ``POST /v1/completions``, non-stream
   and SSE (``text/event-stream``: ``data: {...}\\n\\n`` frames ending in
   ``data: [DONE]``), with the reference's JSON fields, stop strings and
-  error shape ``{"error": {"message", "type"[, "code", "request_id"]}}``.
+  error shape ``{"error": {"message", "type"[, "code", "request_id"]}}``;
+  a draining engine answers 503, a ``kv_exhausted`` shed 503 with that
+  code, and a request shipped to a peer at the drain deadline ends its
+  stream with a ``migrated: ... peer=<id>`` error frame (503, code
+  ``migrated``, without a stream);
+- ``POST /v1/migrate/import`` (a wire snapshot from a peer runner, every
+  checksum verified before the engine changes; 422 with a typed code
+  when it is refused) and ``POST /v1/migrate/resume`` (the imported
+  request's stream as neutral SSE deltas: the catch-up text the client
+  has not seen, then live tokens).  Both take ``X-Runner-Token`` when
+  ``HELIX_RUNNER_TOKEN`` is set.
 
-``/metrics``, embeddings, the Anthropic surface and the debug, migration
-and context endpoints wait for later slices (ROADMAP A7).
+``/metrics``, embeddings, the Anthropic surface and the debug and context
+endpoints wait for later slices (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import hmac
 import json
+import os
 import queue
 import threading
 import time
@@ -24,9 +36,18 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from helix_tpu_torch.engine.engine import Request
+from helix_tpu_torch.engine.engine import Request, SnapshotError
 from helix_tpu_torch.engine.sampling import SamplingParams
-from helix_tpu_torch.serving.engine_loop import SHUTTING_DOWN
+from helix_tpu_torch.serving.engine_loop import KV_EXHAUSTED, SHUTTING_DOWN
+from helix_tpu_torch.serving.migration import (
+    MIGRATED,
+    TRACE_HEADER,
+    ImportedStream,
+    ImportedStreams,
+    is_trace_id,
+    migration_timeout,
+    wire_to_snapshot,
+)
 from helix_tpu_torch.serving.registry import ModelRegistry
 from helix_tpu_torch.serving.tokenizer import IncrementalDetokenizer
 
@@ -52,9 +73,17 @@ def _error_body(message: str, etype: str = "invalid_request_error",
 def _engine_error(e: EngineRequestError) -> tuple:
     """(status, body, headers) for an engine error."""
     msg = str(e)
+    if msg.startswith(KV_EXHAUSTED):
+        return 503, _error_body(msg, "overloaded_error", code=KV_EXHAUSTED,
+                                request_id=e.request_id), {"Retry-After": "2"}
     if msg.startswith(SHUTTING_DOWN):
         return 503, _error_body(msg, "overloaded_error",
                                 request_id=e.request_id), {"Retry-After": "5"}
+    if msg.startswith(MIGRATED):
+        # exported to a peer at the drain deadline: the control plane's
+        # failover resumes streams there; others get a typed retry
+        return 503, _error_body(msg, "overloaded_error", code=MIGRATED,
+                                request_id=e.request_id), {"Retry-After": "1"}
     if msg.startswith("inter_token_timeout"):
         return 504, _error_body(msg, "timeout_error",
                                 request_id=e.request_id), {}
@@ -87,6 +116,17 @@ class OpenAIServer:
                  inter_token_timeout: Optional[float] = 600.0):
         self.registry = registry
         self.inter_token_timeout = inter_token_timeout
+        # migrated-in requests whose stream nobody has claimed yet
+        self.imported = ImportedStreams()
+
+    def sweep_imports(self) -> None:
+        """Abort imported requests whose stream was not claimed within
+        the migration timeout: nobody will read them."""
+        for stream in self.imported.sweep():
+            served = self.registry.get(stream.model)
+            if served is not None and served.loop is not None:
+                served.loop.abort(stream.request_id)
+                served.loop.note_migration_failure()
 
     def generate(self, served, prompt_ids, sampling: SamplingParams):
         """Submit to the engine loop; yields ``(delta_text, token_id,
@@ -236,7 +276,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         routes = {"/v1/chat/completions": self._chat,
-                  "/v1/completions": self._completions}
+                  "/v1/completions": self._completions,
+                  "/v1/migrate/import": self._migrate_import,
+                  "/v1/migrate/resume": self._migrate_resume}
         route = routes.get(self.path)
         if route is None:
             self._error(404, f"no route {self.path}", "not_found")
@@ -276,6 +318,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, f"invalid sampling parameters: {e}")
             return
         model = body.get("model", "")
+        if served.loop.draining:
+            # a stream must not answer 200 and then fail in-band
+            self._json(503, _error_body(
+                f"{SHUTTING_DOWN}: engine '{served.name}' is draining",
+                "overloaded_error"), {"Retry-After": "5"})
+            return
         rid = (f"chatcmpl-{uuid.uuid4().hex[:16]}" if chat
                else f"cmpl-{uuid.uuid4().hex[:16]}")
         created = int(time.time())
@@ -334,7 +382,164 @@ class _Handler(BaseHTTPRequestHandler):
                 if finished:
                     break
         except EngineRequestError as e:
-            self._sse(_error_body(str(e), request_id=e.request_id))
+            frame = _error_body(str(e), request_id=e.request_id)
+            if str(e).startswith(MIGRATED):
+                # the control plane resumes the stream on the named peer
+                frame["error"]["code"] = MIGRATED
+            self._sse(frame)
         finally:
             gen.close()
         self._sse("[DONE]")
+
+    # -- migration ----------------------------------------------------------
+
+    def _runner_token_denied(self) -> bool:
+        """Migration is cluster-internal: with ``HELIX_RUNNER_TOKEN`` set
+        the caller must present it (403 otherwise)."""
+        token = os.environ.get("HELIX_RUNNER_TOKEN", "")
+        if token and not hmac.compare_digest(
+                self.headers.get("X-Runner-Token", ""), token):
+            self._error(403, "requires the runner token")
+            return True
+        return False
+
+    def _migrate_import(self, body: dict):
+        """Accept one request snapshot from a peer runner.  It is
+        decoded here and re-admitted on the engine thread, where every
+        page checksum is verified before any allocator change; a refused
+        snapshot answers 422 with its typed code.  The request parks
+        until it has a slot and pages, and its events buffer until
+        ``/v1/migrate/resume`` attaches."""
+        if self._runner_token_denied():
+            return
+        self.api.sweep_imports()
+        try:
+            snap = wire_to_snapshot(body)
+        except SnapshotError as e:
+            self._error(422, str(e), code=e.code)
+            return
+        hdr = self.headers.get(TRACE_HEADER)
+        trace_id = hdr if is_trace_id(hdr) else (
+            snap.trace_id if is_trace_id(snap.trace_id) else "")
+        served = self._served({"model": snap.model})
+        if served is None:
+            return
+        stream = ImportedStream(
+            snap.request_id, snap.model, snap.output_tokens,
+            stop=tuple(snap.sampling.get("stop") or ()), trace_id=trace_id)
+        if not self.api.imported.register(stream):
+            self._json(429, _error_body(
+                "too many unclaimed imported requests", "overloaded_error"),
+                {"Retry-After": "2"})
+            return
+        done = threading.Event()
+        result = {}
+
+        def on_result(err, code):
+            result.update(err=err, code=code)
+            done.set()
+
+        served.loop.submit_import(snap, stream.on_event, on_result=on_result)
+        if not done.wait(migration_timeout()):
+            # the source counts a 504 as a failed ship and may ship
+            # elsewhere: no orphan may keep generating here
+            self.api.imported.discard(snap.request_id)
+            served.loop.abort(snap.request_id)
+            self._error(504, "import was not admitted in time",
+                        "timeout_error")
+            return
+        if result["err"] is not None:
+            self.api.imported.discard(snap.request_id)
+            code = result["code"] or "snapshot_invalid"
+            self._error(503 if code == "shutting_down" else 422,
+                        result["err"], code=code)
+            return
+        self._json(200, {"ok": True, "request_id": snap.request_id,
+                         "model": snap.model,
+                         "prior_tokens": len(snap.output_tokens)})
+
+    def _migrate_resume(self, body: dict):
+        """Attach a client stream to a migrated-in request: neutral SSE
+        frames ``{"request_id", "delta", "finish_reason"}``, first the
+        catch-up text the source emitted past ``emitted_chars`` (what the
+        client already has), then live deltas.  The snapshot's prior
+        tokens seed the detokenizer, so the character arithmetic is
+        exact: every token reaches the client once."""
+        if self._runner_token_denied():
+            return
+        self.api.sweep_imports()
+        rid = str(body.get("request_id", ""))
+        try:
+            emitted_chars = max(0, int(body.get("emitted_chars", 0) or 0))
+        except (TypeError, ValueError):
+            self._error(400, "'emitted_chars' must be an integer")
+            return
+        stream = self.api.imported.get(rid)
+        if stream is None:
+            self._error(404, f"no imported request {rid!r} awaiting resume")
+            return
+        served = self._served({"model": stream.model})
+        if served is None:
+            return
+        q: "queue.Queue" = queue.Queue()
+        if not stream.attach(q.put):
+            self._error(409, f"request {rid!r} was already resumed")
+            return
+        self.api.imported.discard(rid)
+        eos = served.tokenizer.eos_ids
+        detok = IncrementalDetokenizer(served.tokenizer)
+        full = "".join(detok.push(t) for t in stream.prior_tokens
+                       if t not in eos)
+        sent = min(emitted_chars, len(full))
+
+        def stop_hit(scan_from: int):
+            """Earliest stop-string index at or after ``scan_from`` (a
+            stop may span the migration point)."""
+            hits = [full.find(s, max(0, scan_from - len(s)))
+                    for s in stream.stop]
+            hits = [h for h in hits if h >= 0]
+            return min(hits) if hits else None
+
+        def send(delta, finish=None, **extra):
+            self._sse({"request_id": rid, "delta": delta,
+                       "finish_reason": finish, **extra})
+
+        finished = False
+        self._start_sse()
+        try:
+            hit = stop_hit(0)
+            if hit is not None:
+                finished = True
+                served.loop.abort(rid)
+                send(full[sent:hit], "stop")
+            elif len(full) > sent:
+                send(full[sent:], catchup=True)
+                sent = len(full)
+            while not finished:
+                try:
+                    ev = q.get(timeout=self.api.inter_token_timeout)
+                except queue.Empty:
+                    self._sse({"request_id": rid, "error": {
+                        "message": "inter_token_timeout on resumed "
+                                   "stream"}})
+                    break
+                if ev.error:
+                    finished = True
+                    self._sse({"request_id": rid,
+                               "error": {"message": ev.error}})
+                    break
+                prev = len(full)
+                full += "" if ev.token_id in eos else detok.push(ev.token_id)
+                hit = stop_hit(prev)
+                if hit is not None:
+                    finished = True
+                    served.loop.abort(rid)
+                    send(full[min(sent, hit):hit], "stop")
+                    break
+                send(full[sent:], ev.finish_reason if ev.finished else None)
+                sent = len(full)
+                finished = ev.finished
+            self._sse("[DONE]")
+        finally:
+            if not finished:
+                served.loop.abort(rid)

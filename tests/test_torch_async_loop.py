@@ -455,8 +455,8 @@ def test_profile_spec_and_async_fields_serve_over_http(tmp_path):
     """``enable_spec_decode``, ``spec_tokens`` and ``enable_async_loop``
     in a profile entry's ``engine:`` block reach ``EngineConfig`` through
     ``serve-node``'s profile path, and both engines answer over HTTP;
-    ``host_pool_bytes`` and ``adapter_pool_slots`` still raise, naming
-    A12 and A13."""
+    ``host_pool_bytes`` builds the host tier and ``adapter_pool_slots``
+    still raises, naming A13."""
     import json
     import urllib.request
 
@@ -497,8 +497,12 @@ def test_profile_spec_and_async_fields_serve_over_http(tmp_path):
         httpd.server_close()
         for name in registry.names():
             registry.unregister(name)
-    for field, item in (("host_pool_bytes", "A12"),
-                        ("adapter_pool_slots", "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_served_model("tiny-x", device="cpu",
-                               engine={**geo, field: 1 << 20})
+    served = build_served_model("tiny-x", device="cpu", warmup=False,
+                                engine={**geo, "host_pool_bytes": 1 << 20})
+    try:
+        assert served.loop.engine.host_pool.budget_bytes == 1 << 20
+    finally:
+        served.loop.stop()
+    with pytest.raises(NotImplementedError, match="A13"):
+        build_served_model("tiny-x", device="cpu",
+                           engine={**geo, "adapter_pool_slots": 1 << 20})

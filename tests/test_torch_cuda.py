@@ -539,3 +539,146 @@ def test_decode_dispatch_makes_no_synchronising_call(cuda, spec):
             torch.cuda.set_sync_debug_mode(0)
         assert pend is not None and pend.kind in ("decode", "spec")
         eng.step_complete(pend, emitted)
+
+
+# ---------------------------------------------------------------------------
+# the host KV tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _fill_pool(cache, seed):
+    g = torch.Generator(device=cache.k_pages.device).manual_seed(seed)
+    for t in cache.carry():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=t.device))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device))
+
+
+def _page_sums(cache, ids):
+    from helix_tpu_torch.engine import kv_cache as tkv
+
+    return [tkv.page_checksum({f: None if a is None else a.cpu()
+                               for f, a in p.items()})
+            for p in tkv.gather_pages(cache, ids)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_host_tier_round_trip_on_the_card(cuda, kv_dtype):
+    """gather -> pinned device-to-host copy (``HostPagePool.put``) ->
+    pageable store -> pinned host-to-device copy -> ``restore_pages``:
+    the restored pages are the gathered bytes, also when the source pages
+    are overwritten right after the spill was queued (the gather is
+    ordered before the write), and through ``prefetch``."""
+    from helix_tpu_torch.engine import kv_cache as tkv
+    from helix_tpu_torch.models.common import ModelConfig
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    cc = tkv.CacheConfig(num_pages=32, page_size=16, max_pages_per_seq=8,
+                         dtype=kv_dtype)
+    cache = tkv.PagedKVCache.create(cfg, cc, cuda)
+    _fill_pool(cache, 5)
+    ids, targets = [3, 9, 4, 17, 30], [20, 21, 22, 23, 24]
+    want = _page_sums(cache, ids)
+    pool = tkv.HostPagePool(1 << 26, device=cuda)
+    for i, page in zip(ids, tkv.gather_pages(cache, ids)):
+        assert pool.put(("p", i), page)
+    assert pool.staged_bytes > 0
+    idx = torch.tensor(ids, device=cuda)
+    for t in cache.carry():
+        t.index_fill_(1, idx, 0)   # queued after the copies
+    torch.cuda.synchronize()
+    pool.drain_pending()
+    assert pool.staged_bytes == 0
+    entries = [pool.take_restored(("p", i)) for i in ids]
+    assert all(not e["k"].is_cuda and not e["k"].is_pinned()
+               for e in entries)
+    tkv.restore_pages(cache, targets, entries)
+    assert _page_sums(cache, targets) == want
+    # through prefetch: the upload is queued at prefetch time
+    for i, page in zip(targets, tkv.gather_pages(cache, targets)):
+        assert pool.put(("q", i), page)
+    for i in targets:
+        assert pool.prefetch(("q", i))
+    entries = [pool.take_restored(("q", i)) for i in targets]
+    assert all(e["k"].is_cuda for e in entries)
+    tkv.restore_pages(cache, ids, entries)
+    assert _page_sums(cache, ids) == want
+    assert pool.corrupt_pages == 0 and pool.pages == 0
+
+
+@pytest.mark.cuda
+def test_spill_step_makes_no_synchronising_call(cuda):
+    """The dispatch in which an admission evicts prefix pages to the host
+    tier, and the next one, which finalizes the landed copies, make no
+    synchronising call: the gather, the pinned staging copies and their
+    events are all queued."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=4, page_size=16, num_pages=12, max_pages_per_seq=8,
+        max_prefill_len=32, host_pool_bytes=1 << 26), device=cuda)
+
+    def req(rid, prompt, n):
+        return Request(id=rid, prompt_tokens=prompt, sampling=SamplingParams(
+            temperature=0.0, max_tokens=n))
+
+    eng.add_request(req("a", [(7 * i) % 200 + 4 for i in range(40)], 2))
+    while eng.has_work():
+        eng.step()
+    assert eng.prefix_cache.stats["pages"] == 2
+    eng.add_request(req("b", [5] * 10, 60))
+    eng.step()
+    eng.step()
+    # a chunked prompt that needs one page more than is free
+    eng.add_request(req("c", [(11 * i) % 200 + 4 for i in range(40)], 40))
+    spilled = eng.host_pool.spilled_pages
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            emitted, pend = eng.step_dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pend is not None and pend.kind == "mixed"
+        eng.step_complete(pend, emitted)
+    assert eng.host_pool.spilled_pages > spilled
+    assert eng.host_pool.staged_bytes == 0   # finalized in dispatch two
+    while eng.has_work():
+        eng.step()
+
+
+@pytest.mark.cuda
+def test_k1_int8_on_restored_pages_equals_the_originals(cuda):
+    """K1-int8 over pages that went to the host tier and came back into
+    other pool pages gives, bit for bit, its output over the originals."""
+    from helix_tpu_torch.engine import kv_cache as tkv
+
+    fresh, pools, scales, i, _live = _ragged_int8(41, torch.bfloat16, cuda,
+                                                  R=5)
+    cache = tkv.PagedKVCache(k_pages=pools[0], v_pages=pools[1],
+                             k_scale=scales[0], v_scale=scales[1])
+    kw = dict(k_scale=scales[0], v_scale=scales[1])
+    before = tpk.K1_INT8.launches
+    want = tpk.ragged_paged_attention(*fresh, *pools, 1, *i, **kw)
+    tables = i[3].cpu().numpy()
+    used = sorted(set(int(p) for p in tables.reshape(-1)))
+    free = [p for p in range(1, pools[0].shape[1]) if p not in set(used)]
+    assert len(free) >= len(used)
+    pool = tkv.HostPagePool(1 << 28, device=cuda)
+    for p, page in zip(used, tkv.gather_pages(cache, used)):
+        assert pool.put(p, page)
+    entries = [pool.take_restored(p) for p in used]
+    tkv.restore_pages(cache, free[: len(used)], entries)
+    remap = dict(zip(used, free))
+    moved = torch.from_numpy(np.vectorize(remap.get)(tables).astype(
+        np.int32)).to(cuda)
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *i[:3], moved, **kw)
+    assert tpk.K1_INT8.launches == before + 2
+    assert torch.equal(got, want)

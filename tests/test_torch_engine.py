@@ -453,7 +453,7 @@ def test_copied_dataclasses_match_reference(pair):
 
 @pytest.mark.parametrize("flag,item", [
     (dict(adapter_pool_slots=2), "A13"),
-    (dict(host_pool_bytes=1 << 20), "A12"),
+    (dict(host_pool_bytes=1 << 20, ctx_hot_pages=4), "A14"),
     (dict(ctx_hot_pages=4), "A14"),
 ])
 def test_unported_engine_options_raise(flag, item):
