@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phase kernels # build + kernel checks only
+    python3 chip_smoke.py --phase hotswap # those + the hot-swap phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -27,6 +28,11 @@ no result line):
    the plain version, one PyTorch library call
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take (``bound_ms``);
+3c. Phi-3 kernels (``phase_phi3_kernels``): K2 and K1-int8 at
+   Phi-3-mini's widths, group 1 (H = KVH = 32) and head dim 96: K2
+   causal and packed at S 2048, K1-int8 on a 1024-page pool with 16
+   decode rows (histories 500-2000) and a 256-token row beside 15 decode
+   rows, under the same limits, planted faults and timings;
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -71,6 +77,23 @@ no result line):
    Host-link rates, preempt / resume / encode / decode times, wire size,
    import-to-first-token and host-pool occupancy are printed, each line
    with the card's name and power limit;
+4f. hot-swap (``phase_hotswap``): ``profiles/v5e1-hotswap.yaml``'s two
+   models, Llama-3-8B (int8 weights and KV) and Phi-3-mini (bf16
+   weights, int8 KV), both at full width and depth, served one at a time
+   under the profile's 14 GiB budget by the ``ResidencyManager`` that
+   ``serve-node`` builds from a ``residency`` block, behind the OpenAI
+   server (cuts, printed: the Llama entry's ``slo`` and adapters, Phi-3's
+   pool to 1024 pages).  A synchronous load; a swap that evicts the idle
+   model and frees >= 95% of its measured bytes before the next build
+   (K2 and K1-int8 run at D 96); a 503 ``overloaded_error`` for a model
+   asked for while the other is busy, whose reply finishes whole;
+   ``/admin/prefetch``, after which a chat stalls for a small share of
+   the first load and the seeded request gives the first load's tokens;
+   three swap cycles without memory growth; Phi-3's entry as written
+   refused with the reference's ``MemoryError`` text and nothing
+   allocated.  Loads, swaps, estimates against measured bytes and memory
+   before and after each eviction are printed with the card's name and
+   power limit;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -85,7 +108,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
-import gc
 import json
 import os
 import re
@@ -93,6 +115,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -247,6 +270,13 @@ def phase_device() -> dict:
             f"{info['blocks_per_sm']} blocks per SM")
         if info["blocks_per_sm"] < 1:
             raise AssertionError(f"{kname}: a block does not fit an SM")
+    for kname, info in phi3_kernel_infos().items():
+        log(f"[build] {kname} at Phi-3's shapes (H = KVH = 32, D 96): "
+            f"{info['regs']} registers, {info['spill_bytes']} B local "
+            f"(spill) memory, {info['smem_bytes']} B shared memory per "
+            f"block, {info['blocks_per_sm']} blocks per SM")
+        if info["blocks_per_sm"] < 1:
+            raise AssertionError(f"{kname}: a block does not fit an SM")
     # one rounding per projection: a bf16 GEMM with a float32 output
     a = torch.ones((2, 8), device="cuda", dtype=torch.bfloat16)
     out = matmul_f32(a, a.T.contiguous())
@@ -283,20 +313,33 @@ def kernel_infos() -> dict:
     }
 
 
+def phi3_kernel_infos() -> dict:
+    """K1-int8's and K2's launch resources at Phi-3-mini's shapes."""
+    from helix_tpu_torch.ops.attention import flash_kernel_info
+    from helix_tpu_torch.ops.paged_kernel import ragged_kernel_info
+
+    return {
+        "ragged_paged_attention_int8": ragged_kernel_info(
+            16, 32, 32, 96, 16, 256, quantized=True),
+        "flash_attention": flash_kernel_info(96),
+    }
+
+
 # ---------------------------------------------------------------------------
 # 2. K2 flash attention
 # ---------------------------------------------------------------------------
 
 
-def _k2_case(label, seg_lens, gen):
+def _k2_case(label, seg_lens, gen, heads=(H, KVH, D)):
     """One packed batch row: segments of ``seg_lens``, positions restart
-    per segment (one segment = plain causal)."""
+    per segment (one segment = plain causal); ``heads`` = (H, KVH, D)."""
     from helix_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
         flash_error_limit,
     )
 
+    H, KVH, D = heads
     dev = "cuda"
     S = sum(seg_lens)
     i32 = torch.int32
@@ -366,7 +409,7 @@ def phase_k2() -> list:
 
 
 def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None,
-             pool_pages=None):
+             pool_pages=None, heads=(H, KVH, D)):
     """One K1 case.  ``scales``: the int8 pool's (k_scale, v_scale); the
     int8 form is then held to the plain version evaluated in float32 (it
     dequantizes history in f32 without rounding it, like the kernel) and
@@ -375,12 +418,14 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None,
     the reference oracle does, is printed beside it.  ``pool_pages``: run
     on a copy of the pool's first ``pool_pages`` pages (an engine's page
     count), with tables laid out as the engine's: distinct pages up to
-    each row's history, the garbage page 0 past it."""
+    each row's history, the garbage page 0 past it.  ``heads`` = (H,
+    KVH, D)."""
     from helix_tpu_torch.ops.paged_kernel import (
         ragged_paged_attention,
         ragged_paged_attention_plain,
     )
 
+    H, KVH, D = heads
     dev = "cuda"
     if pool_pages is not None:
         pool = tuple(x[:, :pool_pages].contiguous() for x in pool)
@@ -394,9 +439,13 @@ def _k1_case(label, q_lens, hists, pool, gen, rng, scales=None,
     hists = np.asarray(hists, np.int32)
     t0 = np.concatenate([[0], np.cumsum(q_lens)[:-1]]).astype(np.int32)
     T = int(q_lens.sum())
-    if pool_pages is None:
+    if pool_pages is None and R * maxP <= N - 1:
         tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(
             R, maxP)
+    elif pool_pages is None:
+        # more table entries than pages: each row draws its own pages
+        tables = np.stack([rng.permutation(np.arange(1, N))[:maxP]
+                           for _ in range(R)])
     else:
         walked = -(-(hists + q_lens) // P)
         perm = rng.permutation(np.arange(1, N))
@@ -578,6 +627,55 @@ def phase_k1_int8() -> list:
     return rows
 
 
+# Phi-3-mini's attention widths: group 1 (H = KVH = 32), head dim 96
+PHI3_HEADS = (32, 32, 96)
+
+
+def phase_phi3_kernels() -> tuple:
+    """K2 and K1-int8 at Phi-3-mini's shapes, the hot-swap phase's second
+    model: K2 causal and packed at S 2048, bf16 (D 96 is padded to 128
+    for the wgmma tiles); K1-int8 on a 1024-page int8 pool [32, 1024, 16,
+    32, 96] (the hot-swap entry's cut pool) quantized with
+    ``quantize_kv``, 16 decode rows at histories 500-2000 and one
+    256-token row beside 15 decode rows.  With group 1 a query tile holds
+    32 tokens of one head.  Same limits and planted faults as the Llama
+    cases.  Returns (K2 rows, K1-int8 rows)."""
+    from helix_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    H3, KVH3, D3 = PHI3_HEADS
+    k2 = [
+        _k2_case("Phi-3 causal S=2048, H=KVH=32, D=96", [2048], gen,
+                 PHI3_HEADS),
+        _k2_case("Phi-3 packed S=2048, 4 segments, H=KVH=32, D=96",
+                 [520, 480, 560, 488], gen, PHI3_HEADS),
+    ]
+    L, N, P = 32, 1024, 16
+    shape = (L, N, P, KVH3, D3)
+    pools = [torch.empty(shape, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    scales = [torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+              for _ in range(2)]
+    for lyr in range(L):
+        for pool, sc in zip(pools, scales):
+            pool[lyr], sc[lyr] = quantize_kv(torch.randn(
+                shape[1:], generator=gen, device=dev))
+    k1 = [
+        _k1_case("Phi-3 decode 16 rows, hist 500-2000, 1024 pages",
+                 [1] * 16, rng.integers(500, 2000, size=16), tuple(pools),
+                 gen, rng, tuple(scales), heads=PHI3_HEADS),
+        _k1_case("Phi-3 mixed 256-token row (hist 512) + 15 decode rows, "
+                 "1024 pages", [256] + [1] * 15,
+                 [512] + list(rng.integers(500, 2000, size=15)),
+                 tuple(pools), gen, rng, tuple(scales), heads=PHI3_HEADS),
+    ]
+    del pools, scales
+    torch.cuda.empty_cache()
+    return k2, k1
+
+
 # ---------------------------------------------------------------------------
 # 4. end to end over HTTP
 # ---------------------------------------------------------------------------
@@ -592,8 +690,8 @@ def _post(url, body, timeout=600):
         return r.read().decode()
 
 
-def _chat(base, content, max_tokens, stream=False):
-    body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0,
+def _chat(base, content, max_tokens, stream=False, model=MODEL):
+    body = {"model": model, "max_tokens": max_tokens, "temperature": 0,
             "messages": [{"role": "user", "content": content}],
             "stream": stream}
     text = _post(base + "/v1/chat/completions", body)
@@ -794,8 +892,9 @@ def _unserve(served, httpd, registry) -> None:
 def _free() -> None:
     """Return a finished phase's device memory: the loop and its emission
     stage refer to each other, so the engine goes only with a collection."""
-    gc.collect()
-    torch.cuda.empty_cache()
+    from helix_tpu_torch.device import release_device_memory
+
+    release_device_memory()
 
 
 def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None,
@@ -1832,6 +1931,417 @@ def phase_host_exact(smi, int8: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4f. hot-swap: Llama-3-8B and Phi-3-mini under the profile's HBM budget
+# ---------------------------------------------------------------------------
+
+PHI3 = "microsoft/Phi-3-mini-4k-instruct"
+HOTSWAP_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "profiles", "v5e1-hotswap.yaml")
+# Phi-3's pool cut for the card run: as written (2048 pages) the entry's
+# estimate is over the budget, so the reference node can never load it
+PHI3_CUT_PAGES = 1024
+
+
+def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES) -> tuple:
+    """``profiles/v5e1-hotswap.yaml`` with the cuts this port needs: the
+    Llama entry's ``slo`` (A7) and adapters (A13) dropped, and Phi-3's
+    pool cut to ``phi3_pages`` (unless it is None).  Returns (profile,
+    the cuts made)."""
+    from helix_tpu_torch.cli import _load_profile
+
+    prof = _load_profile(HOTSWAP_PROFILE)
+    cuts = []
+    for m in prof["models"]:
+        if "slo" in m:
+            del m["slo"]
+            cuts.append(f"{m['name']}: slo dropped (A7)")
+        for k in ("adapter_pool_slots", "adapter_rank"):
+            if k in m["engine"]:
+                del m["engine"][k]
+                cuts.append(f"{m['name']}: engine.{k} dropped (A13)")
+        if m["name"] == PHI3 and phi3_pages is not None:
+            cuts.append(f"{m['name']}: engine.num_pages "
+                        f"{m['engine']['num_pages']} -> {phi3_pages}")
+            m["engine"]["num_pages"] = phi3_pages
+    return prof, cuts
+
+
+def _node(prof, tmpdir, tag, build):
+    """The profile as ``serve-node --profile <copy> --random-weights``
+    builds it (the cli's own node building, in process), behind a
+    started server: (registry, manager, httpd, base url, copy path)."""
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.serving.openai_api import OpenAIServer
+
+    path = os.path.join(tmpdir, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(prof, f)
+    args = argparse.Namespace(profile=path, engine=None, model=None,
+                              random_weights=True, seed=0)
+    registry = cli.build_registry(
+        cli._model_specs(args, cli._load_profile(path)),
+        prof.get("residency"), device="cuda", seed=0, warmup=True,
+        build=build)
+    httpd = OpenAIServer(registry).start("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    return registry, registry.inner, httpd, base, path
+
+
+def _error_of(base, body, path="/v1/chat/completions") -> tuple:
+    """(status, error body) of a request expected to fail."""
+    try:
+        out = _post(base + path, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+    raise AssertionError(f"expected an error, got 200: {out[:200]}")
+
+
+def _ttft_chat(base, model, content, max_tokens) -> tuple:
+    """A streamed chat: (seconds to the first content frame, token
+    count, finish reason)."""
+    body = {"model": model, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "messages": [{"role": "user",
+                                          "content": content}]}
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    ttft, text, finish = None, "", None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            frame = json.loads(line[6:])
+            if "error" in frame:
+                raise AssertionError(f"stream failed: {frame}")
+            ch = frame["choices"][0]
+            if ch["delta"].get("content") and ttft is None:
+                ttft = time.monotonic() - t0
+            text += ch["delta"].get("content", "")
+            finish = ch["finish_reason"] or finish
+    return ttft, text.count("<"), finish
+
+
+def _seeded(base, model) -> str:
+    out = json.loads(_post(base + "/v1/completions",
+                           {"model": model, **SEEDED}))
+    text = out["choices"][0]["text"]
+    if not text:
+        raise AssertionError(f"{model}: empty seeded completion")
+    return text
+
+
+def _pinned_bytes() -> int:
+    """Bytes of pinned host memory PyTorch's pinned-memory allocator
+    holds (in use and cached)."""
+    return int(torch.cuda.host_memory_stats()["allocated_bytes.current"])
+
+
+def phase_hotswap(smi) -> dict:
+    """The ``v5e1-hotswap`` profile's two models, both at full width and
+    depth with random weights from seed 0, on one card under the
+    profile's 14 GiB budget, one at a time, through the port's
+    ``ResidencyManager`` behind its OpenAI server (``_hotswap_copy``'s
+    cuts).  Steps: (1) 4 chats to Llama, a synchronous load, and a
+    seeded request; (2) 4 chats to Phi-3 while Llama is idle: Llama is
+    evicted, its memory freed before Phi-3's build, K2 and K1-int8 run
+    at D 96; (3) Llama asked for while Phi-3 streams a long reply: 503
+    ``overloaded_error``, the reply finishes whole; (4)
+    ``/admin/prefetch`` of Llama once Phi-3 is idle: the next chat
+    stalls for a small share of step 1's load and the seeded request
+    gives step 1's tokens; (5) three swap cycles: memory with Llama
+    resident within 1% of the first cycle's, pinned host memory not
+    growing; (6) Phi-3's entry as written (2048 pages) on a second node:
+    503 with the reference's ``MemoryError`` text, nothing allocated."""
+    import tempfile
+
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.engine.residency import (
+        estimate_model_bytes,
+        served_model_bytes,
+    )
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+
+    tag = f"[hotswap] ({smi})"
+    gib = 2 ** 30
+    prof, cuts = _hotswap_copy()
+    for c in cuts:
+        log(f"{tag} cut: {c}")
+    budget = prof["residency"]["hbm_budget_bytes"]
+    entries = {m["name"]: m for m in prof["models"]}
+    estimates = {n: estimate_model_bytes(CATALOG[n], m["engine"],
+                                         m.get("quantization"))
+                 for n, m in entries.items()}
+    builds = []     # one record per build: memory at its start, measured
+
+    def build(**kw):
+        rec = {"name": kw["name"], "allocated_at_start":
+               torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        served = build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        rec.update(
+            measured=served_model_bytes(served, headroom=0.0),
+            peak=torch.cuda.max_memory_allocated(),
+            allocated_after=torch.cuda.memory_allocated(),
+            split=served.build_seconds)
+        builds.append(rec)
+        log(f"{tag} built {kw['name']}: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in rec["split"].items())
+            + f" (init includes int8 quantization); memory at build start "
+            f"{rec['allocated_at_start'] / gib:.3f} GiB, after "
+            f"{rec['allocated_after'] / gib:.3f} GiB, peak during build "
+            f"{rec['peak'] / gib:.3f} GiB; weights + pools measured "
+            f"{rec['measured']} B ({rec['measured'] / gib:.3f} GiB; x1.1 "
+            f"= {int(rec['measured'] * 1.1)} B) vs estimate "
+            f"{estimates[kw['name']]} B")
+        return served
+
+    def engine_of(name):
+        return next(m for m in mgr.list() if m.name == name).loop.engine
+
+    def swap_freed(before, name_evicted):
+        """The build after an eviction started with the evicted model's
+        memory given back (>= 95% of its measured bytes)."""
+        measured = max(b["measured"] for b in builds
+                       if b["name"] == name_evicted)
+        freed = before - builds[-1]["allocated_at_start"]
+        if freed < 0.95 * measured:
+            raise AssertionError(
+                f"evicting {name_evicted} freed {freed} B before the next "
+                f"build, under 95% of its {measured} B")
+        return freed
+
+    def chats(model, n, max_tokens=32):
+        prompts = [f"Hot-swap chat {i} for {model.split('/')[0]}: "
+                   "summarise the history of paged attention in a few "
+                   "lines." for i in range(n)]
+        with concurrent.futures.ThreadPoolExecutor(n) as ex:
+            return list(ex.map(lambda p: _ttft_chat(base, model, p,
+                                                    max_tokens), prompts))
+
+    out = {"cuts": cuts, "estimates": estimates}
+    tmpdir = tempfile.mkdtemp(prefix="helix-hotswap-")
+    _free()
+    start_alloc = torch.cuda.memory_allocated()
+    registry, mgr, httpd, base, _ = _node(prof, tmpdir, "hotswap", build)
+    node_b = None
+    try:
+        if mgr.resident_names() or builds:
+            raise AssertionError("the residency node built at start")
+        log(f"{tag} node: {mgr.names()} registered, none resident; budget "
+            f"{budget} B ({budget / gib:.2f} GiB); estimates "
+            + ", ".join(f"{n} {e} B ({e / gib:.2f} GiB)"
+                        for n, e in estimates.items()))
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        # (1) Llama: a synchronous load under the first chats
+        t0 = time.monotonic()
+        r1 = chats(MODEL, 4)
+        wall1 = time.monotonic() - t0
+        st = mgr.stats()
+        load1 = st["load_seconds"][MODEL]
+        seeded1 = _seeded(base, MODEL)
+        llama_launch = {"k1_int8": K1_INT8.launches, "k2": K2.launches}
+        log(f"{tag} (1) 4 chats to Llama: synchronous load "
+            f"load_seconds {load1:.3f} s, swap_seconds "
+            f"{st['swap_seconds'][MODEL]:.3f} s; TTFT "
+            + ", ".join(f"{t:.3f}" for t, _, _ in r1)
+            + f" s; wall {wall1:.2f} s; loads {st['loads']} evictions "
+            f"{st['evictions']}; used {st['used_bytes']} B; launches "
+            f"{llama_launch}; seeded {seeded1.count('<')} tokens")
+        if mgr.resident_names() != [MODEL] or st["loads"] != 1:
+            raise AssertionError(f"step 1: resident {mgr.resident_names()}")
+        # (2) Phi-3 while Llama is idle: evict, free, build
+        before = torch.cuda.memory_allocated()
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        r2 = chats(PHI3, 4)
+        phi_launch = {"k1_int8": K1_INT8.launches, "k2": K2.launches,
+                      "k1_float": K1.launches}
+        after_load = torch.cuda.memory_allocated()
+        freed = swap_freed(before, MODEL)
+        st = mgr.stats()
+        eng = engine_of(PHI3)
+        d_phi = eng.model_cfg.head_dim
+        log(f"{tag} (2) 4 chats to Phi-3 (D {d_phi}, H {eng.model_cfg.num_heads}"
+            f" KVH {eng.model_cfg.num_kv_heads}, V "
+            f"{eng.model_cfg.vocab_size}, weights "
+            f"{eng.params['layers']['wq']['weight'].dtype}, KV "
+            f"{eng.cache.k_pages.dtype}): memory_allocated before the "
+            f"eviction {before / gib:.3f} GiB, after it "
+            f"{builds[-1]['allocated_at_start'] / gib:.3f} GiB (freed "
+            f"{freed} B), after the load {after_load / gib:.3f} GiB; "
+            f"load_seconds {st['load_seconds'][PHI3]:.3f} s; TTFT "
+            + ", ".join(f"{t:.3f}" for t, _, _ in r2)
+            + f" s; evictions {st['evictions']}; launches at D 96 "
+            f"{phi_launch}")
+        if mgr.resident_names() != [PHI3] or st["evictions"] != 1:
+            raise AssertionError(f"step 2: resident {mgr.resident_names()}")
+        if d_phi != 96 or phi_launch["k1_int8"] <= 0 or phi_launch["k2"] <= 0:
+            raise AssertionError(f"step 2: launches {phi_launch} at D {d_phi}")
+        # (3) a busy model is never evicted
+        first = threading.Event()
+        long_out = {}
+
+        def long_reply():
+            body = {"model": PHI3, "max_tokens": 384, "temperature": 0,
+                    "stream": True, "messages": [
+                        {"role": "user", "content": "Write a long story."}]}
+            req = urllib.request.Request(
+                base + "/v1/chat/completions",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                frames = []
+                for raw in r:
+                    line = raw.decode().strip()
+                    if line.startswith("data: "):
+                        frames.append(line[6:])
+                        first.set()
+                long_out["frames"] = frames
+
+        bg = threading.Thread(target=long_reply)
+        bg.start()
+        if not first.wait(300):
+            raise AssertionError("the long Phi-3 reply never started")
+        status, err = _error_of(base, {
+            "model": MODEL, "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "hi"}]})
+        busy_during = engine_of(PHI3).has_work()
+        bg.join(600)
+        frames = long_out.get("frames", [])
+        chunks = [json.loads(f) for f in frames[:-1]]
+        n_long = sum(c["choices"][0]["delta"].get("content", "").count("<")
+                     for c in chunks if "choices" in c)
+        finish = chunks[-1]["choices"][0]["finish_reason"] if chunks else None
+        log(f"{tag} (3) Llama asked for while Phi-3 streams: {status} "
+            f"{err['error']['type']}: {err['error']['message']!r}; Phi-3 "
+            f"busy then {busy_during}; its reply {n_long} tokens, finish "
+            f"{finish}, last frame {frames[-1] if frames else None}")
+        if status != 503 or err["error"]["type"] != "overloaded_error":
+            raise AssertionError(f"step 3: {status} {err}")
+        if frames[-1:] != ["[DONE]"] or finish not in ("length", "stop") \
+                or any("error" in c for c in chunks):
+            raise AssertionError("step 3: the busy model's reply broke")
+        if mgr.resident_names() != [PHI3]:
+            raise AssertionError("step 3: the busy model was evicted")
+        # (4) prefetch Llama once Phi-3 is idle
+        deadline = time.monotonic() + 60
+        while engine_of(PHI3).has_work():
+            if time.monotonic() > deadline:
+                raise AssertionError("Phi-3 never went idle")
+            time.sleep(0.01)
+        before = torch.cuda.memory_allocated()
+        loads0 = mgr.stats()["loads"]
+        t0 = time.monotonic()
+        pre = json.loads(_post(base + "/admin/prefetch", {"model": MODEL}))
+        call_s = time.monotonic() - t0
+        while mgr.stats()["loads"] == loads0:
+            if time.monotonic() > t0 + 300:
+                raise AssertionError("the prefetch never finished")
+            time.sleep(0.01)
+        ready_s = time.monotonic() - t0
+        freed4 = swap_freed(before, PHI3)
+        r4 = chats(MODEL, 1)
+        st = mgr.stats()
+        swap4 = st["swap_seconds"][MODEL]
+        seeded4 = _seeded(base, MODEL)
+        log(f"{tag} (4) /admin/prefetch {pre} in {call_s:.3f} s (the "
+            f"eviction), resident after {ready_s:.3f} s, load_seconds "
+            f"{st['load_seconds'][MODEL]:.3f} s; freed {freed4} B before "
+            f"the build; next Llama chat stalled swap_seconds {swap4:.6f} s "
+            f"({swap4 / load1:.5f} of step 1's load), TTFT {r4[0][0]:.3f} "
+            f"s; seeded tokens equal step 1's: {seeded4 == seeded1}")
+        if pre != {"model": MODEL, "prefetch": "started"}:
+            raise AssertionError(f"step 4: {pre}")
+        if swap4 > 0.1 * load1:
+            raise AssertionError(f"step 4: stalled {swap4:.3f} s")
+        if seeded4 != seeded1:
+            raise AssertionError(
+                f"step 4: seeded tokens changed across the reload: "
+                f"{seeded4[:120]} != {seeded1[:120]}")
+        # (5) three full swap cycles
+        cycles = []
+        for c in range(3):
+            ev0, ld0 = st["evictions"], st["loads"]
+            b_phi = torch.cuda.memory_allocated()
+            chats(PHI3, 1, 8)
+            f_phi = swap_freed(b_phi, MODEL)
+            b_llama = torch.cuda.memory_allocated()
+            chats(MODEL, 1, 8)
+            f_llama = swap_freed(b_llama, PHI3)
+            st = mgr.stats()
+            torch.cuda.synchronize()
+            cycles.append({"allocated": torch.cuda.memory_allocated(),
+                           "reserved": torch.cuda.memory_reserved(),
+                           "pinned": _pinned_bytes(),
+                           "swap_phi3_s": st["swap_seconds"][PHI3],
+                           "swap_llama_s": st["swap_seconds"][MODEL],
+                           "freed": (f_phi, f_llama)})
+            log(f"{tag} (5) cycle {c + 1}: memory_allocated "
+                f"{cycles[-1]['allocated']} B, reserved "
+                f"{cycles[-1]['reserved']} B, pinned host "
+                f"{cycles[-1]['pinned']} B; swaps Phi-3 "
+                f"{cycles[-1]['swap_phi3_s']:.3f} s, Llama "
+                f"{cycles[-1]['swap_llama_s']:.3f} s; freed before each "
+                f"build {f_phi} / {f_llama} B")
+            if (st["evictions"] - ev0, st["loads"] - ld0) != (2, 2):
+                raise AssertionError(f"cycle {c + 1}: {st}")
+        a0 = cycles[0]["allocated"]
+        drift = max(abs(x["allocated"] - a0) for x in cycles) / a0
+        if drift > 0.01:
+            raise AssertionError(f"memory drifted {drift:.4f} over cycles")
+        if cycles[-1]["pinned"] > cycles[0]["pinned"]:
+            raise AssertionError("pinned host memory grew over the cycles")
+        # (6) Phi-3's entry as written, on a second node
+        prof_b, _ = _hotswap_copy(phi3_pages=None)
+        node_b = _node(prof_b, tmpdir, "as-written", build)
+        n_builds = len(builds)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        status, err = _error_of(node_b[3], {
+            "model": PHI3, "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": "hi"}]})
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        est = estimate_model_bytes(CATALOG[PHI3],
+                                   prof_b["models"][1]["engine"])
+        want = (f"cannot fit model '{PHI3}' ({est >> 20} MiB) in HBM budget "
+                f"{budget >> 20} MiB: all resident models busy")
+        log(f"{tag} (6) Phi-3 as written ({est} B = {est / gib:.2f} GiB "
+            f"estimated, budget {budget / gib:.2f} GiB): {status} "
+            f"{err['error']['type']}: {err['error']['message']!r}; "
+            f"memory_allocated {before} -> {after} B; builds "
+            f"{len(builds) - n_builds}")
+        if status != 503 or err["error"] != {"message": want,
+                                             "type": "overloaded_error"}:
+            raise AssertionError(f"step 6: {status} {err}")
+        if after != before or len(builds) != n_builds:
+            raise AssertionError("step 6: the refused model allocated")
+        launches = {"ragged_paged_attention_int8":
+                    llama_launch["k1_int8"] + phi_launch["k1_int8"],
+                    "flash_attention": llama_launch["k2"] + phi_launch["k2"]}
+        out.update(load1=load1, swap4=swap4, cycles=cycles, builds=builds,
+                   launches=launches, phi_launches=phi_launch,
+                   llama_launches=llama_launch)
+    finally:
+        for node in (node_b, (registry, mgr, httpd, base, None)):
+            if node is None:
+                continue
+            node[2].shutdown()
+            node[2].server_close()
+            for name in node[1].resident_names():
+                node[1].evict(name)
+    _free()
+    end_alloc = torch.cuda.memory_allocated()
+    log(f"{tag} memory_allocated at the phase's start {start_alloc} B, at "
+        f"its end {end_alloc} B")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. parity: kernels vs plain versions inside the engine
 # ---------------------------------------------------------------------------
 
@@ -1891,13 +2401,19 @@ def phase_parity(int8: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos) -> dict:
+def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
+                by_path=None) -> dict:
+    """The kernels JSON line: ``launches`` is the count on the first main
+    path that runs the kernel, ``launches_by_path`` each path's own."""
+    by_path = by_path or {}
+
     def entry(name, source, replaces, rows):
         head = rows[0]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches.get(name),
+            "launches_by_path": by_path.get(name, {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1924,8 +2440,10 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
-                    help="'kernels': build + kernel checks only")
+    ap.add_argument("--phase", choices=("all", "kernels", "hotswap"),
+                    default="all",
+                    help="'kernels': build + kernel checks only; "
+                         "'hotswap': those and the hot-swap phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1937,7 +2455,14 @@ def main(argv=None) -> int:
     k2_rows = phase_k2()
     k1_rows = phase_k1()
     k1_int8_rows = phase_k1_int8()
-    launches = {}
+    k2_phi3, k1_int8_phi3 = phase_phi3_kernels()
+    k2_rows += k2_phi3
+    k1_int8_rows += k1_int8_phi3
+    launches, by_path = {}, {}
+    if args.phase == "hotswap":
+        swap = phase_hotswap(dev["smi"])
+        launches = dict(swap["launches"])
+        by_path = {k: {"hotswap": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -1950,6 +2475,7 @@ def main(argv=None) -> int:
         phase_host_tier(dev["smi"])
         phase_host_exact(dev["smi"])
         phase_host_exact(dev["smi"], int8=True)
+        swap = phase_hotswap(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -1957,10 +2483,21 @@ def main(argv=None) -> int:
             "ragged_paged_attention_int8":
                 int8["launches"]["ragged_paged_attention_int8"],
         }
+        by_path = {
+            "ragged_paged_attention": {
+                "bf16": bf16["launches"]["ragged_paged_attention"]},
+            "flash_attention": {
+                "bf16": bf16["launches"]["flash_attention"],
+                "hotswap": swap["launches"]["flash_attention"]},
+            "ragged_paged_attention_int8": {
+                "int8": int8["launches"]["ragged_paged_attention_int8"],
+                "hotswap":
+                    swap["launches"]["ragged_paged_attention_int8"]},
+        }
         phase_parity()
         phase_parity(int8=True)
     log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches,
-                               dev["infos"])))
+                               dev["infos"], by_path)))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,17 +12,30 @@ a seed, served over the OpenAI HTTP surface with the ``ByteTokenizer``.
 
 A profile is JSON (or YAML when ``yaml`` is importable) with a ``models``
 list of ``{name, kind, quantization, engine, model_overrides,
-context_length}`` entries, the reference's profile fields.
-``quantization: int8`` serves int8 weights (``ops.quant.quantize_params``
-on the device, as the reference node agent does); an int8 KV pool is
+context_length, mesh, slo}`` entries, the reference's profile fields,
+and an optional top-level ``residency: {hbm_budget_bytes}`` block.
+``quantization: int8`` serves int8 weights (the reference node agent's
+``quantize_params`` values, made on the device as each weight is drawn);
+an int8 KV pool is
 ``engine: {kv_cache_dtype: int8}``.  Every ``engine:`` field goes to
 ``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens``,
-``enable_async_loop`` and ``host_pool_bytes`` work as in the reference,
-and fields of modules not ported yet (``adapter_pool_slots``) raise
-naming their ROADMAP item.  Checkpoints and non-chat kinds are not
-ported yet (ROADMAP A3, A17): an entry with a ``checkpoint`` raises
-unless ``--random-weights`` serves it with random weights from
-``--seed``.
+``enable_async_loop`` and ``host_pool_bytes`` work as in the reference.
+
+With ``residency`` the node serves its models through an
+``engine.residency.ResidencyManager`` (the reference node agent's
+``_apply_residency``): nothing is built at start, a model loads on its
+first request and evicts the least recently used idle model when the
+budget (``hbm_budget_bytes``, else the card's memory) would overflow;
+``POST /admin/prefetch`` stages one in the background.  Without it every
+entry is built at start.
+
+What is not ported yet is refused at start, before any weights are made,
+naming its ROADMAP item: a ``checkpoint`` (A3) unless
+``--random-weights`` serves it with random weights from ``--seed``, a
+kind other than ``chat`` (A17), an ``slo`` block with or without its
+``sched`` (A7), a ``mesh`` with an axis above 1 (A15; ``{tp: 1}`` is the
+one device), and engine fields of unported modules
+(``adapter_pool_slots``: A13).
 
 The node's operator overrides, as the reference node agent reads them:
 ``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
@@ -39,15 +52,29 @@ import dataclasses
 import json
 import logging
 import os
+import time
 
-from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+import torch
+
+from helix_tpu_torch.device import (
+    DEFAULT_DEVICE,
+    resolve_device,
+    total_device_bytes,
+)
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
+from helix_tpu_torch.engine.residency import (
+    ResidencyManager,
+    estimate_model_bytes,
+)
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
 from helix_tpu_torch.models.llama import init_params
-from helix_tpu_torch.ops.quant import quantize_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
 from helix_tpu_torch.serving.openai_api import OpenAIServer
-from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
+from helix_tpu_torch.serving.registry import (
+    DelegatingRegistry,
+    ModelRegistry,
+    ServedModel,
+)
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer
 
 log = logging.getLogger("helix_tpu_torch")
@@ -71,8 +98,9 @@ def build_served_model(
 ) -> ServedModel:
     """Random-init weights on ``device`` (int8 weights with
     ``quantization="int8"``), an ``Engine`` and a started ``EngineLoop``
-    for one model.  The served path always takes the kernels:
-    ``attn_backend`` is refused here."""
+    for one model; ``build_seconds`` holds the time of each stage (init
+    with its quantization, engine, warmup).  The served path always takes the
+    kernels: ``attn_backend`` is refused here."""
     if "attn_backend" in (engine or {}):
         raise ValueError(
             "attn_backend is for comparisons only; a served model always "
@@ -94,19 +122,33 @@ def build_served_model(
     # the engine block is checked before the weights are made: an option
     # not ported yet raises at once, not after minutes of init
     ecfg = EngineConfig(**eng_kw)
-    params = init_params(cfg, seed, device=dev)
-    if quantization == "int8":
-        params = quantize_params(params)
+    stamps = [_stamp(dev)]
+    # int8: each weight quantized as it is drawn, so the build never
+    # holds the bf16 model (quantize_params of the same draws, to the byte)
+    params = init_params(cfg, seed, device=dev, quantization=quantization)
+    stamps.append(_stamp(dev))
     eng = Engine(cfg, params, ecfg, rng_seed=seed, device=dev)
+    stamps.append(_stamp(dev))
     if warmup:
         eng.warmup()
+    stamps.append(_stamp(dev))
     loop = EngineLoop(
         eng, name=name,
         admission_timeout=_env_seconds("HELIX_ADMISSION_TIMEOUT"),
         preempt_stall_seconds=_env_seconds("HELIX_PREEMPT_STALL_SECONDS"),
     ).start()
+    split = dict(zip(("init", "engine", "warmup"),
+                     (b - a for a, b in zip(stamps, stamps[1:]))))
     return ServedModel(name=name, loop=loop, tokenizer=tok,
-                       context_length=context_length or eng.max_context_len)
+                       context_length=context_length or eng.max_context_len,
+                       build_seconds=split)
+
+
+def _stamp(dev) -> float:
+    """A monotonic time once the device has finished the queued work."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.monotonic()
 
 
 def _env_seconds(name: str):
@@ -143,46 +185,105 @@ def _load_profile(path: str) -> dict:
     return yaml.safe_load(text)
 
 
-def _model_specs(args) -> list[dict]:
+def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
+    """What of profile entry ``m`` is not ported yet, each naming its
+    ROADMAP item (empty: the entry is served)."""
+    out = []
+    if m.get("checkpoint") and not random_weights:
+        out.append("checkpoint loading is not ported yet (ROADMAP A3)")
+    if m.get("kind", "chat") != "chat":
+        out.append(f"kind {m.get('kind')!r} is not ported yet (ROADMAP A17)")
+    if m.get("slo"):
+        out.append("the slo block (SLO accounting and its sched "
+                   "scheduler) is not ported yet (ROADMAP A7)")
+    mesh = m.get("mesh") or {}
+    if any(int(v) > 1 for v in mesh.values()):
+        out.append(f"mesh {mesh} spans more than one device: tensor, "
+                   "sequence, expert and pipeline parallel are not ported "
+                   "yet (ROADMAP A15)")
+    try:
+        EngineConfig(**engine)
+    except NotImplementedError as e:
+        out.append(str(e))
+    return out
+
+
+def _model_specs(args, profile: dict | None = None) -> list[dict]:
+    """One ``build_served_model`` keyword set per model; raises
+    ``NotImplementedError`` listing every unported block of every entry
+    before anything is built."""
     engine = _parse_kv(args.engine)
-    if args.profile:
-        specs = []
-        for m in _load_profile(args.profile).get("models", []):
-            if m.get("checkpoint") and getattr(args, "random_weights",
-                                               False):
-                log.warning("%s: serving random weights (seed %d) in "
-                            "place of checkpoint %s", m["name"],
-                            getattr(args, "seed", 0), m["checkpoint"])
-            elif m.get("checkpoint"):
-                raise NotImplementedError(
-                    f"{m['name']}: checkpoint loading is not ported yet "
-                    "(ROADMAP A3)"
-                )
-            if m.get("kind", "chat") != "chat":
-                raise NotImplementedError(
-                    f"{m['name']}: kind {m.get('kind')!r} is not ported yet "
-                    "(ROADMAP A17)"
-                )
-            specs.append(dict(
-                name=m["name"], quantization=m.get("quantization"),
-                engine={**m.get("engine", {}), **engine},
-                model_overrides=m.get("model_overrides", {}),
-                context_length=m.get("context_length"),
-            ))
-        return specs
-    if not args.model:
-        raise SystemExit("serve-node needs --model or --profile")
-    return [dict(name=n, engine=engine) for n in args.model]
+    if profile is None and args.profile:
+        profile = _load_profile(args.profile)
+    if profile is None:
+        if not args.model:
+            raise SystemExit("serve-node needs --model or --profile")
+        return [dict(name=n, engine=engine) for n in args.model]
+    random_weights = getattr(args, "random_weights", False)
+    specs, refused = [], []
+    for m in profile.get("models", []):
+        eng = {**m.get("engine", {}), **engine}
+        why = _refusals(m, eng, random_weights)
+        if why:
+            refused.append(f"{m['name']}: " + "; ".join(why))
+            continue
+        if m.get("checkpoint"):
+            log.warning("%s: serving random weights (seed %d) in place of "
+                        "checkpoint %s", m["name"], getattr(args, "seed", 0),
+                        m["checkpoint"])
+        specs.append(dict(
+            name=m["name"], quantization=m.get("quantization"), engine=eng,
+            model_overrides=m.get("model_overrides", {}),
+            context_length=m.get("context_length"),
+        ))
+    if refused:
+        raise NotImplementedError("; ".join(refused))
+    return specs
+
+
+def build_registry(specs: list, residency: dict | None = None, *,
+                   device=DEFAULT_DEVICE, seed: int = 0, warmup: bool = True,
+                   build=build_served_model) -> DelegatingRegistry:
+    """The node's registry.  Without ``residency`` every spec is built now
+    (``build(name=..., device=..., seed=..., warmup=..., **spec)``); with
+    it a ``ResidencyManager`` registers every name and builds nothing yet.
+    Its budget is ``hbm_budget_bytes`` or the card's memory, and its
+    estimate takes the catalog config of the name, the entry's engine
+    block and its quantization, as the reference node agent's does."""
+    if not residency:
+        inner = ModelRegistry()
+        for spec in specs:
+            inner.register(build(device=device, seed=seed, warmup=warmup,
+                                 **spec))
+            log.info("serving %s on %s", spec["name"], device)
+        return DelegatingRegistry(inner)
+    by_name = {spec["name"]: spec for spec in specs}
+    budget = int(residency.get("hbm_budget_bytes")
+                 or total_device_bytes(device))
+
+    def build_one(name: str) -> ServedModel:
+        log.info("loading %s on %s", name, device)
+        return build(device=device, seed=seed, warmup=warmup,
+                     **by_name[name])
+
+    def estimate(name: str) -> int:
+        spec = by_name[name]
+        return estimate_model_bytes(model_config(name), spec["engine"],
+                                    spec.get("quantization"))
+
+    mgr = ResidencyManager(budget, build_one, estimate=estimate)
+    for name in by_name:
+        mgr.register_name(name)
+    return DelegatingRegistry(mgr)
 
 
 def _cmd_serve_node(args) -> int:
-    registry = ModelRegistry()
-    for spec in _model_specs(args):
-        registry.register(build_served_model(
-            device=args.device, seed=args.seed, warmup=not args.no_warmup,
-            **spec,
-        ))
-        log.info("serving %s on %s", spec["name"], args.device)
+    profile = _load_profile(args.profile) if args.profile else None
+    specs = _model_specs(args, profile)
+    registry = build_registry(
+        specs, (profile or {}).get("residency"), device=args.device,
+        seed=args.seed, warmup=not args.no_warmup,
+    )
     httpd = OpenAIServer(registry).make_http_server(args.host, args.port)
     print(f"helix_tpu_torch serving {registry.names()} on "
           f"http://{args.host}:{httpd.server_address[1]}", flush=True)

@@ -13,6 +13,8 @@ step into dispatch and completion).
 
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -33,6 +35,22 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             "is False; pass device='cpu' explicitly to run on the CPU"
         )
     return dev
+
+
+def total_device_bytes(device=DEFAULT_DEVICE) -> int:
+    """The card's memory in bytes (``torch.cuda.mem_get_info``): the
+    residency budget when a profile names none (the reference's
+    ``total_hbm_bytes``)."""
+    return int(torch.cuda.mem_get_info(resolve_device(device))[1])
+
+
+def release_device_memory() -> None:
+    """Collect dead tensors (an engine loop and its emission stage refer
+    to each other, so they go only with a collection) and hand the
+    allocator's cached blocks back to the driver."""
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -570,6 +570,16 @@ class Engine:
         return (bool(self.waiting) or bool(self.preempted)
                 or any(s is not None for s in self.slots))
 
+    def release(self) -> None:
+        """Drop the weights, the page pool, the device-side decode state
+        and the host tier (with its pinned staging): an evicted model's
+        memory goes back to the allocator once its loop has stopped,
+        whoever still holds the engine.  Nothing steps it afterwards."""
+        self.params = self.cache = self._dstate = self.host_pool = None
+        self._row_t0, self._offsets = {}, {}
+        self._pending_first, self._pending_token_patches = [], {}
+        self._chunking = None
+
     def warmup(self) -> None:
         """Drive one tiny request through the public path, so the first
         real request pays neither the kernels' build nor the libraries'

@@ -31,6 +31,8 @@ from helix_tpu_torch.ops.quant import (
     embed_lookup,
     matmul_f32,
     maybe_dequant_dense,
+    quantize_rows,
+    quantize_tensor,
 )
 from helix_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -61,12 +63,20 @@ def _act(name: str):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
-                dtype=None) -> Params:
+                dtype=None, quantization=None) -> Params:
     """Random-init the stacked-layer parameter dict ON ``device``: normal
     x 0.02 for projections and embeddings, ones for norms, zeros for
     biases (``llama.py:73-112``).  Draws come from one ``torch.Generator``
     seeded with ``seed`` on that device, layer by layer, so a full-width
-    model never exists in float32 at once."""
+    model never exists in float32 at once.
+
+    ``quantization="int8"`` gives ``quantize_params`` of that dict, equal
+    to the byte, with each weight quantized as soon as it is drawn: the
+    model never exists in ``dtype`` at once either (Llama-3-8B's int8
+    build then peaks near its int8 footprint, not at its bf16 one)."""
+    if quantization not in (None, "int8"):
+        raise ValueError(
+            f"quantization {quantization!r}: expected None or 'int8'")
     check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
@@ -86,18 +96,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
+    def dense(shape, stacked=True):
+        w = normal(shape, stacked)
+        return {"weight": w} if quantization is None else quantize_tensor(w)
+
+    def embed():
+        w = normal((V, E))
+        if quantization is None:
+            return {"weight": w}
+        q, scale = quantize_rows(w)
+        return {"weight": q, "embed_scale": scale}
+
     params = {
-        "embed": {"weight": normal((V, E))},
+        "embed": embed(),
         "layers": {
             "attn_norm": {"weight": ones((L, E))},
             "mlp_norm": {"weight": ones((L, E))},
-            "wq": {"weight": normal((L, E, H * D), True)},
-            "wk": {"weight": normal((L, E, KVH * D), True)},
-            "wv": {"weight": normal((L, E, KVH * D), True)},
-            "wo": {"weight": normal((L, H * D, E), True)},
-            "w_gate": {"weight": normal((L, E, F), True)},
-            "w_up": {"weight": normal((L, E, F), True)},
-            "w_down": {"weight": normal((L, F, E), True)},
+            "wq": dense((L, E, H * D)),
+            "wk": dense((L, E, KVH * D)),
+            "wv": dense((L, E, KVH * D)),
+            "wo": dense((L, H * D, E)),
+            "w_gate": dense((L, E, F)),
+            "w_up": dense((L, E, F)),
+            "w_down": dense((L, F, E)),
         },
         "final_norm": {"weight": ones((E,))},
     }
@@ -110,7 +131,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
         params["layers"]["q_norm"] = {"weight": ones((L, D))}
         params["layers"]["k_norm"] = {"weight": ones((L, D))}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = {"weight": normal((E, V))}
+        params["lm_head"] = dense((E, V), stacked=False)
     return params
 
 

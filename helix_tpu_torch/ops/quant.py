@@ -75,7 +75,7 @@ def quantize_tensor(w: torch.Tensor) -> dict:
             "scale": s3.reshape(*lead, 1, n_out)}
 
 
-def _quantize_rows(w: torch.Tensor):
+def quantize_rows(w: torch.Tensor):
     """Per-row int8 for the embedding table: ``(codes, scale [V, 1])``."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty((w.shape[0], 1), dtype=torch.float32,
@@ -103,7 +103,7 @@ def quantize_params(params: dict) -> dict:
                     and v.ndim >= 2
                     and not any("norm" in p for p in path)):
                 if path and path[-1] == "embed":
-                    out["weight"], out["embed_scale"] = _quantize_rows(v)
+                    out["weight"], out["embed_scale"] = quantize_rows(v)
                 else:
                     qd = quantize_tensor(v)
                     out["weight"], out["scale"] = qd["weight"], qd["scale"]

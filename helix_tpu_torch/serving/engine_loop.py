@@ -237,6 +237,11 @@ class EngineLoop:
             self.migration_failures += 1
 
     @property
+    def stopped(self) -> bool:
+        """The engine thread has exited (or never started)."""
+        return self._thread is None or not self._thread.is_alive()
+
+    @property
     def draining(self) -> bool:
         return self._draining or self._stop.is_set()
 
@@ -315,13 +320,13 @@ class EngineLoop:
         }
 
     def device_idle_ratio(self) -> float:
-        """Share of recent serving wall time the device had NOTHING
-        dispatched (window ``idle_gap_s`` / ``wall_s``).  A host-side
-        approximation: a gap is charged from the previous completion's
-        return to the next dispatch whenever no step was in flight in
-        between, so pipelined dispatches charge zero.  Unlike the
-        reference, time the loop spent waiting for work is not charged,
-        and a step's wall time includes its gap (the ratio is <= 1)."""
+        """The reference's gauge: window ``idle_gap_s`` / ``wall_s``.  A
+        gap is charged from the previous completion's return to the next
+        dispatch whenever no step was in flight in between (pipelined
+        dispatches charge zero), time spent waiting for work included; a
+        step's wall time starts at its own dispatch, so after an idle
+        spell the ratio exceeds 1.  The traced idle share, not this
+        host-side figure, is the device idle share of PERF.md."""
         return self.window.window_ratio("idle_gap_s", ("wall_s",))
 
     # -- engine thread ------------------------------------------------------
@@ -620,9 +625,6 @@ class EngineLoop:
                     continue   # the reconcile advanced work
                 self._wake.wait(0.05)
                 self._wake.clear()
-                # waiting for work is not the host holding the device
-                # back: the next dispatch charges no idle gap for it
-                self._device_busy_until = 0.0
                 continue
             # the pipeline gate, decided BEFORE the dispatch
             can_pipe = self.async_enabled and self.engine.pipeline_ready()
@@ -647,13 +649,12 @@ class EngineLoop:
                 continue
             t_built = time.monotonic()
             kind = pend.kind if pend is not None else "admit"
-            idle_gap, t_wall0 = 0.0, t_step
+            idle_gap = 0.0
             if not overlapped and self._device_busy_until:
                 # nothing was in flight while this step was built: the
-                # device sat idle since the last completion returned (the
-                # step's wall time starts there too)
+                # device sat idle from the last completion's return until
+                # this dispatch landed, waiting for work included
                 idle_gap = max(0.0, t_built - self._device_busy_until)
-                t_wall0 = min(t_step, self._device_busy_until)
             prev, inflight = inflight, None
             dt_wait = 0.0
             try:
@@ -690,7 +691,7 @@ class EngineLoop:
                          device_wait_s=dt_wait,
                          emit_s=time.monotonic() - t_emit,
                          idle_gap_s=idle_gap,
-                         wall_s=time.monotonic() - t_wall0,
+                         wall_s=time.monotonic() - t_step,
                          pipelined=1 if overlapped else 0)
         # a step still in flight at shutdown: its tokens reach their
         # subscribers before the terminal sweep

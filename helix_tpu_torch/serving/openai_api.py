@@ -4,7 +4,15 @@ A subset of ``helix_tpu/serving/openai_api.py`` served by
 ``http.server.ThreadingHTTPServer`` (one thread per connection), so the
 port needs no web framework:
 
-- ``GET /healthz``, ``GET /v1/models``;
+- ``GET /healthz`` (the declared model names), ``GET /v1/models`` (the
+  models the registry holds: with a ``ResidencyManager`` behind it, the
+  resident ones, as in the reference);
+- ``POST /admin/prefetch`` ``{"model"}``: stage a model in the background
+  through the ``ResidencyManager`` behind the registry (200 with
+  ``"prefetch": "started"|"declined"``, 404 for an unknown model, 409
+  without a manager); a request whose model cannot be loaded within the
+  budget (``MemoryError`` from ``registry.get``) answers 503
+  ``overloaded_error`` with the manager's message;
 - ``POST /v1/chat/completions`` and ``POST /v1/completions``, non-stream
   and SSE (``text/event-stream``: ``data: {...}\\n\\n`` frames ending in
   ``data: [DONE]``), with the reference's JSON fields, stop strings and
@@ -48,7 +56,6 @@ from helix_tpu_torch.serving.migration import (
     migration_timeout,
     wire_to_snapshot,
 )
-from helix_tpu_torch.serving.registry import ModelRegistry
 from helix_tpu_torch.serving.tokenizer import IncrementalDetokenizer
 
 
@@ -112,12 +119,19 @@ def sampling_from_body(body: dict) -> SamplingParams:
 class OpenAIServer:
     """Routes OpenAI requests to the registry's engine loops."""
 
-    def __init__(self, registry: ModelRegistry,
+    def __init__(self, registry,
                  inter_token_timeout: Optional[float] = 600.0):
         self.registry = registry
         self.inter_token_timeout = inter_token_timeout
         # migrated-in requests whose stream nobody has claimed yet
         self.imported = ImportedStreams()
+
+    def residency_manager(self):
+        """The ResidencyManager behind the registry, if hot-swap is on."""
+        for cand in (self.registry, getattr(self.registry, "inner", None)):
+            if cand is not None and hasattr(cand, "prefetch"):
+                return cand
+        return None
 
     def sweep_imports(self) -> None:
         """Abort imported requests whose stream was not claimed within
@@ -252,8 +266,15 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.flush()
 
     def _served(self, body: dict):
+        """Resolve the request's model on this handler's thread: with a
+        ResidencyManager behind the registry a synchronous load stalls
+        this request only."""
         model = body.get("model", "")
-        served = self.api.registry.get(model)
+        try:
+            served = self.api.registry.get(model)
+        except MemoryError as e:
+            self._error(503, str(e), "overloaded_error")
+            return None
         if served is None:
             self._error(
                 404,
@@ -277,6 +298,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         routes = {"/v1/chat/completions": self._chat,
                   "/v1/completions": self._completions,
+                  "/admin/prefetch": self._prefetch,
                   "/v1/migrate/import": self._migrate_import,
                   "/v1/migrate/resume": self._migrate_resume}
         route = routes.get(self.path)
@@ -390,6 +412,21 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             gen.close()
         self._sse("[DONE]")
+
+    def _prefetch(self, body: dict):
+        """Stage a model's weights in the background ahead of traffic."""
+        name = body.get("model", "")
+        mgr = self.api.residency_manager()
+        if mgr is None:
+            self._error(
+                409, "no residency manager: profile has no residency block")
+            return
+        if name not in mgr.names():
+            self._error(404, f"unknown model {name!r}")
+            return
+        started = bool(mgr.prefetch(name))
+        self._json(200, {"model": name,
+                         "prefetch": "started" if started else "declined"})
 
     # -- migration ----------------------------------------------------------
 

@@ -1,6 +1,12 @@
 """Model registry: model name -> engine loop + tokenizer (port of
 ``helix_tpu/serving/registry.py``).  Unknown names answer 404 with the
-available list at the HTTP layer."""
+available list at the HTTP layer.
+
+``DelegatingRegistry`` (the reference's, ``helix_tpu/control/
+node_agent.py:440-462``) is the one surface the server and ``serve-node``
+hold: it forwards to a plain ``ModelRegistry`` or to an
+``engine.residency.ResidencyManager``, whose ``get`` loads models on
+demand."""
 
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ class ServedModel:
     created: int = dataclasses.field(default_factory=lambda: int(time.time()))
     owned_by: str = "helix-tpu"
     context_length: Optional[int] = None
+    # seconds of each stage of the build (cli.build_served_model)
+    build_seconds: Optional[dict] = None
 
 
 class ModelRegistry:
@@ -42,3 +50,28 @@ class ModelRegistry:
 
     def list(self) -> list:
         return [self._models[n] for n in self.names()]
+
+
+class DelegatingRegistry:
+    """Stable registry handle over a ``ModelRegistry`` or a
+    ``ResidencyManager`` (``inner``), so the HTTP server takes either."""
+
+    def __init__(self, inner=None):
+        self.inner = inner or ModelRegistry()
+
+    def get(self, name):
+        return self.inner.get(name)
+
+    def names(self):
+        return self.inner.names()
+
+    def list(self):
+        return self.inner.list()
+
+    def register(self, model):
+        return self.inner.register(model)
+
+    def unregister(self, name):
+        if hasattr(self.inner, "unregister"):
+            return self.inner.unregister(name)
+        return self.inner.evict(name)

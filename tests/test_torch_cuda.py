@@ -682,3 +682,68 @@ def test_k1_int8_on_restored_pages_equals_the_originals(cuda):
     got = tpk.ragged_paged_attention(*fresh, *pools, 1, *i[:3], moved, **kw)
     assert tpk.K1_INT8.launches == before + 2
     assert torch.equal(got, want)
+
+
+# Phi-3-mini's attention widths: group 1 (a K1 query tile holds 32 tokens
+# of one head), head dim 96 (K2 pads it to 128 for its wgmma tiles)
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_int8_at_phi3_heads(cuda):
+    """K1-int8 at D 96, H = KVH = 32, short histories and multi-token
+    rows, against the plain version evaluated in f32 (one bf16 ulp)."""
+    fresh, pools, scales, i, live = _ragged_int8(
+        96, torch.bfloat16, cuda, D=96, H=32, KVH=32, P=16, L=2, N=64)
+    before = tpk.K1_INT8.launches
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *i,
+                                     k_scale=scales[0], v_scale=scales[1])
+    assert tpk.K1_INT8.launches == before + 1
+    want = _int8_plain(fresh, pools, scales, i, 1)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_bf16_at_phi3_heads(cuda):
+    """K2's bf16 form at D 96, H = KVH = 32 on packed segments, held to
+    ``flash_error_limit`` on live tokens."""
+    (q, k, v), pos, seg = _packed(1, 200, 32, 32, 96, seed=96)
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, k, v)]
+    kw = dict(q_positions=torch.from_numpy(pos).to(cuda),
+              kv_positions=torch.from_numpy(pos).to(cuda),
+              q_segment_ids=torch.from_numpy(seg).to(cuda),
+              kv_segment_ids=torch.from_numpy(seg).to(cuda))
+    got = tatt.flash_attention(*args, **kw)
+    live = torch.from_numpy(seg > 0).to(cuda)
+    _within_flash_limit(got, tatt.flash_attention_plain(*args, **kw),
+                        tatt.flash_error_limit(*args, **kw), live)
+
+
+@pytest.mark.cuda
+def test_eviction_returns_device_memory(cuda):
+    """A tiny served model (int8 weights and KV, a host tier) built and
+    evicted through the ResidencyManager: after the eviction
+    ``memory_allocated()`` is back at its level before the build.  The
+    first cycle fills what stays cached across builds (the rotary
+    frequencies); the second is held to the byte."""
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.engine.residency import ResidencyManager
+
+    engine = dict(max_decode_batch=2, page_size=16, num_pages=64,
+                  max_pages_per_seq=8, max_prefill_len=64,
+                  kv_cache_dtype="int8", host_pool_bytes=1 << 24)
+    mgr = ResidencyManager(1 << 40, build=lambda name: build_served_model(
+        name, device=cuda, engine=engine, quantization="int8"))
+    mgr.register_name("tiny-evict")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        served = mgr.acquire("tiny-evict")
+        assert torch.cuda.memory_allocated() > before
+        assert served.loop.engine.cache.quantized
+        mgr.evict("tiny-evict")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    assert after == before, (before, after)
+    assert served.loop.stopped and served.loop.engine.params is None

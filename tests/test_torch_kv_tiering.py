@@ -678,32 +678,40 @@ def test_gather_restore_and_checksums_match_the_reference(kv_dtype):
 
 def test_profile_entry_keeps_its_host_pool_bytes():
     """``serve-node --profile profiles/v5e1-hotswap.yaml --random-weights``:
-    the Llama entry's engine block reaches ``EngineConfig`` with its 16
-    GiB ``host_pool_bytes``; only ``adapter_pool_slots`` raises, naming
-    A13.  Without ``--random-weights`` the entry's checkpoint raises,
-    naming A3."""
+    the Llama entry is refused for its ``slo`` (A7) and its
+    ``adapter_pool_slots`` (A13) before any weights are made.  With those
+    blocks cut, its engine block reaches ``EngineConfig`` with its 16 GiB
+    ``host_pool_bytes``, Phi-3's with 8 GiB.  Without
+    ``--random-weights`` the entries' checkpoints raise, naming A3."""
+    import copy
     import os
 
-    from helix_tpu_torch.cli import _model_specs
+    from helix_tpu_torch.cli import _load_profile, _model_specs
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     args = type("A", (), {
         "profile": os.path.join(root, "profiles", "v5e1-hotswap.yaml"),
         "engine": None, "model": None, "random_weights": True, "seed": 0})
-    llama, phi = _model_specs(args)
+    with pytest.raises(NotImplementedError, match="slo.*A7.*"
+                       "adapter_pool_slots.*A13") as e:
+        _model_specs(args)
+    assert "A3" not in str(e.value) and "Phi-3" not in str(e.value)
+    cut = copy.deepcopy(_load_profile(args.profile))
+    llama_entry = cut["models"][0]
+    del llama_entry["slo"]
+    for k in ("adapter_pool_slots", "adapter_rank"):
+        del llama_entry["engine"][k]
+    llama, phi = _model_specs(args, cut)
     assert llama["name"] == "meta-llama/Meta-Llama-3-8B-Instruct"
     assert llama["engine"]["host_pool_bytes"] == 17179869184
-    with pytest.raises(NotImplementedError, match="A13"):
-        tengine.EngineConfig(**llama["engine"])
-    cfg = tengine.EngineConfig(**{k: v for k, v in llama["engine"].items()
-                                  if not k.startswith("adapter_")})
+    cfg = tengine.EngineConfig(**llama["engine"])
     assert cfg.host_pool_bytes == 17179869184 and cfg.enable_spec_decode
     assert tengine.EngineConfig(**phi["engine"]).host_pool_bytes == 1 << 33
     args.random_weights = False
     with pytest.raises(NotImplementedError, match="A3"):
-        _model_specs(args)
-    # the command itself: the entry's engine block is refused for its
-    # adapters (A13) before any weights are made
+        _model_specs(args, cut)
+    # the command itself: the entry is refused for its adapters (A13)
+    # before any weights are made
     from helix_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="adapter_pool_slots.*A13"):
