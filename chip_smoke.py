@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phase kernels # build + kernel checks only
     python3 chip_smoke.py --phase hotswap # those + the hot-swap phase
+    python3 chip_smoke.py --phase adapters # those + the adapter phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -53,8 +54,8 @@ no result line):
    has freed its engine: K1's int8 form must have run;
 4c. spec: the ``profiles/v5e1-hotswap.yaml`` Llama entry as written
    (int8 weights and KV, 16 slots, 3968 pages, ``enable_spec_decode``,
-   ``spec_tokens: 4``, its 16 GiB ``host_pool_bytes``; its adapters are
-   not ported): 16 chats quoting a passage, all answered, K1-int8 on
+   ``spec_tokens: 4``, its 16 GiB ``host_pool_bytes``; its adapter pool
+   is phase 4g's): 16 chats quoting a passage, all answered, K1-int8 on
    verify rows, the seeded request reproduced; acceptance ratio, decode
    tokens per device step and active slot, TTFT, tok/s and memory
    printed; then the same chats with speculation off, for the share of
@@ -94,6 +95,20 @@ no result line):
    allocated.  Loads, swaps, estimates against measured bytes and memory
    before and after each eviction are printed with the card's name and
    power limit;
+4g. adapters (``phase_adapters``, ``phase_adapter_exact``): the same
+   Llama entry with its ``adapter_pool_slots: 8`` and ``adapter_rank:
+   16`` (only ``slo`` cut): 16 adapter-free chats give the same tokens
+   with the pool on and off; adapters published from seeds into the
+   filestore rung are prefetched and served over HTTP as
+   ``model@adapter`` in mixed batches with the base model (tokens unlike
+   the base's, mixed-adapter steps, no page shared across adapters or
+   with the base model), a wave over 11 adapters churns the 7 usable
+   slots without evicting a pinned one, K2 and K1-int8 run adapter rows,
+   a seeded adapter chat reproduces; at 2 layers in float32 a mixed wave
+   equals pool-less engines on merged weights.  Pool and model bytes
+   against the estimates, load times, TTFT and tok/s beside the
+   adapter-free run, a traced mixed batch and the pool GEMMs' cost are
+   printed;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -143,6 +158,22 @@ MODEL = "meta-llama/Meta-Llama-3-8B-Instruct"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _timed(fn):
+    """Log a phase's wall seconds when it returns (the smoke's time
+    budget is shared by every phase)."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        log(f"[time] {fn.__name__}{args if args else ''}: "
+            f"{time.monotonic() - t0:.1f} s")
+        return out
+
+    return run
 
 
 # GPU clock cycles of the sleep kernel queued ahead of each timed call
@@ -227,6 +258,7 @@ def planted(label, got, want, limit=None) -> float:
 # ---------------------------------------------------------------------------
 
 
+@_timed
 def phase_device() -> dict:
     from helix_tpu_torch.kernels.build import build_all
     from helix_tpu_torch.ops.attention import K2
@@ -395,6 +427,7 @@ def _k2_case(label, seg_lens, gen, heads=(H, KVH, D)):
     return row
 
 
+@_timed
 def phase_k2() -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     return [
@@ -585,6 +618,7 @@ def _k1_cases(pool, gen, rng, scales=None) -> list:
     ]
 
 
+@_timed
 def phase_k1() -> list:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -602,6 +636,7 @@ def phase_k1() -> list:
     return rows
 
 
+@_timed
 def phase_k1_int8() -> list:
     """K1's int8 form at the same two cases, on a full-size int8 pool
     (32 layers, 4096 pages) quantized layer by layer with the port's
@@ -631,6 +666,7 @@ def phase_k1_int8() -> list:
 PHI3_HEADS = (32, 32, 96)
 
 
+@_timed
 def phase_phi3_kernels() -> tuple:
     """K2 and K1-int8 at Phi-3-mini's shapes, the hot-swap phase's second
     model: K2 causal and packed at S 2048, bf16 (D 96 is padded to 128
@@ -740,19 +776,21 @@ def _seeded_twice(base) -> str:
     return texts[0]
 
 
-def _profile_batch(base, prompts) -> dict:
+def _profile_batch(base, prompts, models=None) -> dict:
     """Where a decode-heavy batch's device time goes: 8 concurrent chats
     of 32 new tokens under ``torch.profiler`` (after the measured batch,
-    so tracing does not touch its tok/s).  Returns the wall time, the
-    device time summed over kernels, the idle share and the kernels that
-    take the most."""
+    so tracing does not touch its tok/s), chat i to ``models[i]`` when
+    given.  Returns the wall time, the device time summed over kernels,
+    the idle share and the kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
+    models = models or [MODEL] * len(prompts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            list(ex.map(lambda p: _chat(base, p, 32), prompts))
+            list(ex.map(lambda pm: _chat(base, pm[0], 32, model=pm[1]),
+                        zip(prompts, models)))
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     by_kernel = {}
@@ -818,27 +856,36 @@ def _rounding_cost(eng) -> dict:
     return {"f32_output_ms": one, "bf16_then_cast_ms": two}
 
 
-def _gated_batch(base, loop, prompts, max_tokens) -> tuple:
+def _gated_batch(base, loop, prompts, max_tokens, bodies=None) -> tuple:
     """Concurrent chats that the engine admits together and in this
     order: the loop takes nothing from its inbox until every chat is
     queued, so the admission waves, and with them every shape the kernels
     and GEMMs see, do not depend on HTTP timing (two runs then compute the
-    same thing).  Returns (the chats' texts, seconds from the release to
-    the last answer, step records made meanwhile)."""
+    same thing).  ``bodies``: whole chat request bodies (model and
+    messages of each) in place of ``prompts``.  Returns (the chats'
+    texts, seconds from the release to the last answer, step records made
+    meanwhile)."""
     drain = loop._drain_inbox
     gate = threading.Event()
     loop._drain_inbox = lambda: drain() if gate.is_set() else None
-    outs, errors = [None] * len(prompts), []
+    n = len(bodies) if bodies is not None else len(prompts)
+    outs, errors = [None] * n, []
 
     def send(i):
         try:
-            outs[i] = _chat(base, prompts[i], max_tokens)
+            if bodies is None:
+                outs[i] = _chat(base, prompts[i], max_tokens)
+            else:
+                outs[i] = json.loads(_post(
+                    base + "/v1/chat/completions",
+                    {"max_tokens": max_tokens, "temperature": 0,
+                     **bodies[i]}))
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
     threads = []
     try:
-        for i in range(len(prompts)):
+        for i in range(n):
             threads.append(threading.Thread(target=send, args=(i,)))
             threads[-1].start()
             deadline = time.monotonic() + 120
@@ -897,6 +944,7 @@ def _free() -> None:
     release_device_memory()
 
 
+@_timed
 def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None,
               async_loop=False) -> dict:
     from helix_tpu_torch.ops.attention import K2
@@ -1045,6 +1093,7 @@ def phase_e2e(label="bf16", quantization=None, kv_cache_dtype=None,
             "pipelined_steps": pipelined, "device_idle_ratio": idle_ratio}
 
 
+@_timed
 def phase_async(off: dict) -> dict:
     """Phase 4 again with ``enable_async_loop`` on, in the same call: the
     8-chat greedy batch and the seeded request must give the off run's
@@ -1083,20 +1132,22 @@ PASSAGE = (
 
 
 # the ``profiles/v5e1-hotswap.yaml`` Llama entry's engine block as the
-# profile writes it, less ``adapter_pool_slots`` / ``adapter_rank`` (A13)
+# profile writes it, less ``adapter_pool_slots`` / ``adapter_rank``: the
+# phases before 4g measure the entry without its adapter pool
 ENTRY = dict(max_decode_batch=16, num_pages=3968, page_size=16,
              max_prefill_len=2048, kv_cache_dtype="int8",
              enable_spec_decode=True, spec_tokens=4,
              host_pool_bytes=17179869184)
 
 
+@_timed
 def phase_spec() -> dict:
     """The ``profiles/v5e1-hotswap.yaml`` Llama entry as the profile
     writes it (``ENTRY``), with speculative decoding and its 16 GiB host
     tier: int8 weights, int8 KV, 16 decode slots, 3968 pages of 16,
-    max_prefill_len 2048, spec_tokens 4 (``adapter_pool_slots`` is not
-    ported yet: A13).  16 concurrent chats quote a passage and ask for it
-    back; the seeded request is sent twice."""
+    max_prefill_len 2048, spec_tokens 4 (its adapter pool is phase
+    4g's).  16 concurrent chats quote a passage and ask for it back; the
+    seeded request is sent twice."""
     from helix_tpu_torch.ops.attention import K2
     from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
 
@@ -1109,8 +1160,8 @@ def phase_spec() -> dict:
         raise AssertionError("the entry's host tier was not built")
     log(f"[{tag}] {MODEL} as the v5e1-hotswap entry: int8 weights, int8 "
         f"KV ({mem['kv_pool_gib']:.2f} GiB), {engine}; built + warmed in "
-        f"{time.monotonic() - t0:.1f} s; adapter_pool_slots (A13) not "
-        "ported yet")
+        f"{time.monotonic() - t0:.1f} s; without its adapter pool (phase "
+        "4g serves it)")
     try:
         K1.launches = K1_INT8.launches = K2.launches = 0
         eng.recent_ttfts.clear()
@@ -1259,6 +1310,7 @@ class _ScriptedDrafter:
         return 0
 
 
+@_timed
 def phase_oracle(int8: bool = False) -> dict:
     """Speculation preserves the tokens, at full width and 2 layers in
     float32: greedy and seeded temperature 0.8 with penalties, run
@@ -1401,18 +1453,20 @@ def _msgs(i, user="Summarise the rules in one line."):
             {"role": "user", "content": user}]
 
 
-def _chat_msgs(base, messages, max_tokens, **extra) -> str:
-    body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0,
+def _chat_msgs(base, messages, max_tokens, model=MODEL, **extra) -> str:
+    body = {"model": model, "max_tokens": max_tokens, "temperature": 0,
             "messages": messages, **extra}
     out = json.loads(_post(base + "/v1/chat/completions", body))
     assert out["choices"][0]["finish_reason"] in ("stop", "length"), out
     return out["choices"][0]["message"]["content"]
 
 
-def _concurrent(base, bodies, max_tokens, workers=16) -> list:
+def _concurrent(base, bodies, max_tokens, workers=16, models=None) -> list:
+    models = models or [MODEL] * len(bodies)
     with concurrent.futures.ThreadPoolExecutor(workers) as ex:
-        return list(ex.map(lambda m: _chat_msgs(base, m, max_tokens),
-                           bodies))
+        return list(ex.map(
+            lambda mm: _chat_msgs(base, mm[0], max_tokens, model=mm[1]),
+            zip(bodies, models)))
 
 
 def _first_verify(eng) -> list:
@@ -1525,6 +1579,7 @@ def _link_rates(eng, page_ids) -> dict:
             "bound_ms": warm["bytes"] / PCIE_BYTES * 1e3}
 
 
+@_timed
 def phase_host_tier(smi) -> dict:
     """4e.1-4e.3 on the v5e1-hotswap entry at full width (``ENTRY``, its
     16 GiB host tier included), int8 weights and KV:
@@ -1828,6 +1883,7 @@ def phase_host_tier(smi) -> dict:
     return out
 
 
+@_timed
 def phase_host_exact(smi, int8: bool = False) -> dict:
     """4e.4: exactness at 2 layers, full width, float32 (and with int8
     weights + int8 KV): a greedy and a seeded temperature 0.8 request
@@ -1943,10 +1999,11 @@ PHI3_CUT_PAGES = 1024
 
 
 def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES) -> tuple:
-    """``profiles/v5e1-hotswap.yaml`` with the cuts this port needs: the
-    Llama entry's ``slo`` (A7) and adapters (A13) dropped, and Phi-3's
-    pool cut to ``phi3_pages`` (unless it is None).  Returns (profile,
-    the cuts made)."""
+    """``profiles/v5e1-hotswap.yaml`` with the cuts this phase makes: the
+    Llama entry's ``slo`` (A7) and adapter pool dropped (the phase holds
+    the manager to the reference's estimate, which has no pool; phase 4g
+    serves it), and Phi-3's pool cut to ``phi3_pages`` (unless it is
+    None).  Returns (profile, the cuts made)."""
     from helix_tpu_torch.cli import _load_profile
 
     prof = _load_profile(HOTSWAP_PROFILE)
@@ -1958,7 +2015,8 @@ def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES) -> tuple:
         for k in ("adapter_pool_slots", "adapter_rank"):
             if k in m["engine"]:
                 del m["engine"][k]
-                cuts.append(f"{m['name']}: engine.{k} dropped (A13)")
+                cuts.append(f"{m['name']}: engine.{k} dropped (served in "
+                            "phase 4g)")
         if m["name"] == PHI3 and phi3_pages is not None:
             cuts.append(f"{m['name']}: engine.num_pages "
                         f"{m['engine']['num_pages']} -> {phi3_pages}")
@@ -2038,6 +2096,7 @@ def _pinned_bytes() -> int:
     return int(torch.cuda.host_memory_stats()["allocated_bytes.current"])
 
 
+@_timed
 def phase_hotswap(smi) -> dict:
     """The ``v5e1-hotswap`` profile's two models, both at full width and
     depth with random weights from seed 0, on one card under the
@@ -2344,8 +2403,478 @@ def phase_hotswap(smi) -> dict:
 # ---------------------------------------------------------------------------
 # 5. parity: kernels vs plain versions inside the engine
 # ---------------------------------------------------------------------------
+# 4g. multi-LoRA adapters: the v5e1-hotswap Llama entry with its pool
+# ---------------------------------------------------------------------------
+
+# the entry's engine block as the profile writes it, adapters included
+ADAPTER_ENTRY = dict(ENTRY, adapter_pool_slots=8, adapter_rank=16)
+ADAPTER_SCALE = 2.0          # alpha / rank = 32 / 16
+ADAPTER_TARGETS = ("wq", "wk", "wv", "wo")
+# the estimate of the pool's bytes: 32 x 8 x (2 x (4096 x 16 + 16 x 4096)
+# + 2 x (4096 x 16 + 16 x 1024)) x 2 B
+POOL_BYTES_LLAMA = 218_103_808
+N_ADAPTERS = 11              # more than the pool's 7 usable slots
 
 
+def _adapter_tree(cfg, seed, layers=None) -> dict:
+    """A rank-16 LoRA tree from a seed with nonzero ``b`` (a fresh LoRA
+    is the identity): ``a`` N(0, 1/in), ``b`` N(0, 0.05^2), float32."""
+    from helix_tpu_torch.engine.adapters import target_dims
+
+    rng = np.random.default_rng(seed)
+    L = layers or cfg.num_layers
+    out = {}
+    for t in ADAPTER_TARGETS:
+        fan_in, fan_out = target_dims(cfg)[t]
+        out[t] = {"lora_a": (rng.standard_normal((L, fan_in, 16),
+                                                 dtype=np.float32)
+                             / np.float32(np.sqrt(fan_in))),
+                  "lora_b": rng.standard_normal((L, 16, fan_out),
+                                                dtype=np.float32)
+                  * np.float32(0.05)}
+    return out
+
+
+def _merge_adapter(params, tree, scale) -> dict:
+    """A plain merge: every targeted float weight ``w + scale * a @ b``,
+    in float32 on the card (the numerical reference of the pool)."""
+    merged = dict(params)
+    layers = dict(params["layers"])
+    for t, f in tree.items():
+        w = layers[t]["weight"]
+        a = torch.from_numpy(f["lora_a"]).to(w.device)
+        b = torch.from_numpy(f["lora_b"]).to(w.device)
+        layers[t] = {**layers[t],
+                     "weight": (w.float() + scale * (a @ b)).to(w.dtype)}
+    merged["layers"] = layers
+    return merged
+
+
+def _owner_spy(eng) -> dict:
+    """Which adapter prefilled each prefix-cache page, and every
+    admission that acquired a page another adapter (or the base model)
+    prefilled.  Returns the spy's record; undo with ``del
+    eng._try_claim, eng._adopt_prompt_pages``."""
+    rec = {"owner": {}, "foreign": [], "claims": 0}
+    claim, adopt = eng._try_claim, eng._adopt_prompt_pages
+
+    def spy_adopt(req, table):
+        before = set(eng.prefix_cache._entries)
+        adopt(req, table)
+        for h in set(eng.prefix_cache._entries) - before:
+            rec["owner"][h] = req.adapter
+
+    def spy_claim(req, use_cache=False):
+        table = claim(req, use_cache)
+        if table is not None:
+            rec["claims"] += 1
+            by_page = eng.prefix_cache._by_page
+            for pg in eng._shared_pages.get(req.id, []):
+                h = by_page.get(int(pg))
+                if h in rec["owner"] and rec["owner"][h] != req.adapter:
+                    rec["foreign"].append((req.adapter, rec["owner"][h]))
+        return table
+
+    eng._try_claim, eng._adopt_prompt_pages = spy_claim, spy_adopt
+    return rec
+
+
+def _evict_spy(pool) -> list:
+    """Every pool eviction as (adapter id, its refcount then)."""
+    seen, free_slot = [], pool._free_slot_locked
+
+    def spy():
+        before = dict(pool._slot_of)
+        refs = dict(pool._refs)
+        slot = free_slot()
+        for aid in set(before) - set(pool._slot_of):
+            seen.append((aid, refs.get(aid, 0)))
+        return slot
+
+    pool._free_slot_locked = spy
+    return seen
+
+
+def _pool_gemm_cost(eng) -> dict:
+    """What the pool's two GEMMs add to one projection at a decode step
+    (16 rows, two adapters and adapter-free rows): ``maybe_dequant_dense``
+    of layer 0's int8 weights with the pool's delta against without it,
+    per target, CUDA events."""
+    from helix_tpu_torch.models.llama import _layer_params
+    from helix_tpu_torch.ops.quant import maybe_dequant_dense
+
+    p = _layer_params(eng._graft_params()["layers"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.tensor([[0], [1], [2]] * 5 + [[0]], device="cuda")
+    out = {}
+    for t in ADAPTER_TARGETS:
+        fan_in = p[t]["weight"].shape[0]
+        x = torch.randn((16, 1, fan_in), generator=gen,
+                        device="cuda").bfloat16()
+        with_ms = cuda_ms(lambda: maybe_dequant_dense(x, p[t], ids), 50)
+        base_ms = cuda_ms(lambda: maybe_dequant_dense(x, p[t]), 50)
+        out[t] = (with_ms, base_ms)
+    return out
+
+
+@_timed
+def phase_adapters(smi) -> dict:
+    """4g: ``profiles/v5e1-hotswap.yaml``'s Llama entry as written (int8
+    weights and KV, 16 slots, 3968 pages, spec 4, its 16 GiB host tier,
+    ``adapter_pool_slots: 8``, ``adapter_rank: 16``; only its ``slo``,
+    A7, is cut), at full width with random weights, over HTTP:
+
+    1. the same 16 adapter-free chats (one ~1500-token system prompt, four
+       user messages) on the entry without its pool and on the entry
+       with it: identical tokens;
+    2. adapters a1-a3 (from seeds, nonzero ``b``) published by another
+       store into the filestore rung, so each first request waits on a
+       prefetch; 16 chats as ``base``, ``base@a1``, ``base@a2``,
+       ``base@a3`` in turn over the shared system prompt: every chat
+       answered, each adapter's tokens unlike the base model's for the
+       same message, mixed-adapter steps, no adapter row on a page that
+       another adapter or the base model prefilled (per-adapter hit
+       counters and the pages' prefill owners); one mixed decode batch
+       traced;
+    3. a4-a11 published: a wave over all 11 adapters while a request on
+       a1 keeps it pinned: loads and evictions counted, the pinned
+       adapter never evicted, K2 and K1-int8 launched on adapter rows;
+    4. a seeded chat through a1, sent twice.
+    Printed: load seconds, the pool's bytes and the model's measured
+    bytes against the estimates, TTFT p50 and decode tok/s of the mixed
+    and the adapter-free traffic, the traced busy ms, the pool GEMMs'
+    cost per projection."""
+    import tempfile
+
+    from helix_tpu_torch.engine.adapters import AdapterStore, pack_lora_tree
+    from helix_tpu_torch.engine.residency import (
+        estimate_model_bytes,
+        served_model_bytes,
+    )
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1_INT8
+
+    tag = "adapters"
+    out = {}
+    msgs = [[{"role": "system", "content": _system_prompt(900)},
+             {"role": "user", "content": f"Question {q}: which rule comes "
+              "first, and why?"}] for q in range(4)]
+    models = [MODEL, f"{MODEL}@a1", f"{MODEL}@a2", f"{MODEL}@a3"]
+    free_bodies = [{"model": MODEL, "messages": msgs[i // 4]}
+                   for i in range(16)]
+    mixed_bodies = [{"model": models[i % 4], "messages": msgs[i // 4]}
+                    for i in range(16)]
+    log(f"[{tag}] ({smi}) {MODEL} as the v5e1-hotswap entry "
+        f"{ADAPTER_ENTRY}; cut: slo (A7)")
+
+    # -- 1. adapter-free traffic, pool off then on -------------------------
+    served, eng, httpd, base, registry, mem = _serve(dict(ENTRY), "int8")
+    try:
+        eng.recent_ttfts.clear()
+        dec0 = eng.num_decode_tokens
+        texts_off, off_s, _ = _gated_batch(base, served.loop, None, 32,
+                                           bodies=free_bodies)
+        off = dict(ttft_p50_ms=sorted(eng.recent_ttfts)[8] * 1e3,
+                   tps=(eng.num_decode_tokens - dec0) / off_s)
+        bytes_off = served_model_bytes(served, headroom=0.0)
+    finally:
+        _unserve(served, httpd, registry)
+    del served, eng, registry
+    _free()
+
+    root = tempfile.mkdtemp(prefix="helix-adapters-")
+    os.environ["HELIX_FILESTORE_KV_DIR"] = root
+    t0 = time.monotonic()
+    served, eng, httpd, base, registry, mem = _serve(dict(ADAPTER_ENTRY),
+                                                     "int8")
+    build_s = time.monotonic() - t0
+    loop, pool, store = served.loop, eng.adapter_pool, eng.adapter_store
+    cfg = eng.model_cfg
+    try:
+        if pool is None or (pool.slots, pool.rank) != (8, 16):
+            raise AssertionError("the entry's adapter pool was not built")
+        measured = served_model_bytes(served, headroom=0.0)
+        est = estimate_model_bytes(CATALOG[MODEL], ADAPTER_ENTRY, "int8")
+        log(f"[{tag}] built + warmed in {build_s:.1f} s; pool "
+            f"{pool.hbm_bytes()} B (estimate {POOL_BYTES_LLAMA} B) + scales "
+            f"{nbytes(pool._scale)} B; measured weights + KV pools "
+            f"{measured} B (pool off {bytes_off} B), with the pool "
+            f"{measured + pool.hbm_bytes()} B = "
+            f"{(measured + pool.hbm_bytes()) / (measured or 1):.4f}x; "
+            f"estimate_model_bytes {est} B = "
+            f"{(measured + pool.hbm_bytes()) * 1.1 / est - 1:+.4f} over "
+            "with the 10% headroom (the reference's estimate has no pool)")
+        if pool.hbm_bytes() != POOL_BYTES_LLAMA:
+            raise AssertionError(f"pool bytes {pool.hbm_bytes()}")
+        eng.recent_ttfts.clear()
+        dec0 = eng.num_decode_tokens
+        texts_on, on_s, _ = _gated_batch(base, loop, None, 32,
+                                         bodies=free_bodies)
+        on = dict(ttft_p50_ms=sorted(eng.recent_ttfts)[8] * 1e3,
+                  tps=(eng.num_decode_tokens - dec0) / on_s)
+        same_free = sum(a == b for a, b in zip(texts_off, texts_on))
+        log(f"[{tag}] 1. 16 adapter-free chats: identical with the pool "
+            f"on and off in {same_free} of 16; TTFT p50 "
+            f"{off['ttft_p50_ms']:.1f} / {on['ttft_p50_ms']:.1f} ms, decode "
+            f"{off['tps']:.1f} / {on['tps']:.1f} tok/s (off / on)")
+        if same_free != 16:
+            raise AssertionError("adapter-free tokens changed with the pool")
+
+        # -- 2. mixed traffic ----------------------------------------------
+        publisher = AdapterStore(store.model_name, store.dims,
+                                 store.num_layers, store.rank_cap,
+                                 root_dir=store.root)
+        trees = {}
+        t1 = time.monotonic()
+        for i in range(1, 4):
+            trees[f"a{i}"] = _adapter_tree(cfg, 100 + i)
+            publisher.publish(pack_lora_tree(f"a{i}", trees[f"a{i}"],
+                                             ADAPTER_SCALE))
+        pub_s = (time.monotonic() - t1) / 3
+        spy = _owner_spy(eng)
+        K1_INT8.launches = K2.launches = 0
+        rec0, pf0 = loop.window.recorded, store.prefetches
+        hits0 = dict(eng.prefix_hit_tokens_by_adapter)
+        eng.recent_ttfts.clear()
+        dec0 = eng.num_decode_tokens
+        texts_mix, mix_s, n_rec = _gated_batch(base, loop, None, 32,
+                                               bodies=mixed_bodies)
+        mixed = dict(ttft_p50_ms=sorted(eng.recent_ttfts)[8] * 1e3,
+                     tps=(eng.num_decode_tokens - dec0) / mix_s)
+        launch_mix = {"k1_int8": K1_INT8.launches, "k2": K2.launches}
+        recs = loop.window.records(n_rec)
+        distinct = max(r.get("distinct_adapters", 0) for r in recs)
+        hits = {k: v - hits0.get(k, 0)
+                for k, v in eng.prefix_hit_tokens_by_adapter.items()}
+        differ = {models[m].split("@")[-1]: sum(
+            texts_mix[4 * q + m] != texts_mix[4 * q] for q in range(4))
+            for m in (1, 2, 3)}
+        base_same = sum(texts_mix[4 * q] == texts_on[4 * q]
+                        for q in range(4))
+        log(f"[{tag}] 2. a1-a3 published into the filestore rung "
+            f"({pub_s:.2f} s each: {pack_lora_tree('x', trees['a1'], 2.0).nbytes}"
+            f" B of f32 factors, blob + blake2b), prefetches "
+            f"{store.prefetches - pf0}; 16 mixed chats answered "
+            f"{len(texts_mix)}; TTFT p50 {mixed['ttft_p50_ms']:.1f} ms, "
+            f"decode {mixed['tps']:.1f} tok/s ({mix_s:.2f} s) beside the "
+            f"adapter-free run's {on['ttft_p50_ms']:.1f} ms / "
+            f"{on['tps']:.1f} tok/s; max distinct adapters in a step "
+            f"{distinct}; chats unlike the base model's for the same "
+            f"message {differ} (of 4 each); base chats equal to the "
+            f"adapter-free run's {base_same} of 4 (not a check: other "
+            "admission waves, and bf16 GEMMs may round a row otherwise at "
+            f"another row count); prefix-hit tokens per "
+            f"adapter {hits}; admissions {spy['claims']}, pages acquired "
+            f"from another adapter or the base model {len(spy['foreign'])};"
+            f" launches {launch_mix}")
+        if len(texts_mix) != 16:
+            raise AssertionError("a mixed chat was not answered")
+        if any(n != 4 for n in differ.values()):
+            raise AssertionError(f"adapter tokens equal the base's: {differ}")
+        if distinct < 2:
+            raise AssertionError("no mixed-adapter step ran")
+        if spy["foreign"]:
+            raise AssertionError(f"pages shared across adapters: "
+                                 f"{spy['foreign'][:4]}")
+        if store.prefetches - pf0 < 3:
+            raise AssertionError("the cold adapters were not prefetched")
+        traces = {}
+        for label, ms in (("adapter-free", [MODEL] * 8),
+                          ("mixed", [models[i % 4] for i in range(8)])):
+            try:    # the traces inform PERF.md; their absence fails nothing
+                traces[label] = trace = _profile_batch(
+                    base, [f"Traced chat {i}" for i in range(8)], ms)
+            except Exception as e:  # noqa: BLE001
+                traces[label] = trace = {"error": repr(e)}
+            if "error" in trace:
+                log(f"[{tag}] traced {label} batch: not measured "
+                    f"({trace['error']})")
+                continue
+            log(f"[{tag}] traced {label} 8-chat batch (models {ms[:4]}..., "
+                f"32 new tokens): wall {trace['wall_ms']:.1f} ms, device "
+                f"busy {trace['device_busy_ms']:.1f} ms (idle share "
+                f"{trace['idle_share']:.3f}); K1-int8 "
+                f"{trace['k1_share']:.3f}, K2 {trace['k2_share']:.3f}; top "
+                "kernels (ms): " + "; ".join(
+                    f"{k} {t:.1f}" for k, t in trace["top"]))
+
+        # -- 3. a wave over 11 adapters, a1 pinned ---------------------------
+        for i in range(4, N_ADAPTERS + 1):
+            trees[f"a{i}"] = _adapter_tree(cfg, 100 + i)
+            publisher.publish(pack_lora_tree(f"a{i}", trees[f"a{i}"],
+                                             ADAPTER_SCALE))
+        evicted = _evict_spy(pool)
+        st0 = pool.stats()
+        K1_INT8.launches = K2.launches = 0
+        pinned, wave_done = {}, threading.Event()
+
+        def long_a1():
+            # a long stream on a1, read until the wave is over; closing it
+            # then makes the server abort the request at its next frame
+            body = {"model": f"{MODEL}@a1", "max_tokens": 1024,
+                    "temperature": 0, "stream": True, "messages": [
+                        {"role": "user", "content": "Tell a long story."}]}
+            req = urllib.request.Request(
+                base + "/v1/chat/completions",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            frames = 0
+            with urllib.request.urlopen(req, timeout=600) as r:
+                for raw in r:
+                    frames += raw.startswith(b"data: {")
+                    if wave_done.is_set() or raw.startswith(b"data: [DONE]"):
+                        break
+            pinned["out"] = frames
+
+        bg = threading.Thread(target=long_a1)
+        bg.start()
+        deadline = time.monotonic() + 300
+        while pool.stats()["pinned"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        slot_a1 = pool.slot_for("a1")
+        wave = _concurrent(base, [
+            [{"role": "system", "content": _system_prompt(900 + i)},
+             {"role": "user", "content": f"Adapter {i}: one line."}]
+            for i in range(1, N_ADAPTERS + 1)], 16, models=[
+                f"{MODEL}@a{i}" for i in range(1, N_ADAPTERS + 1)])
+        # the stream must outlast the wave, a1 keep its slot through it
+        bg_alive = bg.is_alive()
+        a1_through = pool.slot_for("a1") == slot_a1
+        wave_done.set()
+        bg.join(600)
+        st = pool.stats()
+        launch_wave = {"k1_int8": K1_INT8.launches, "k2": K2.launches}
+        wave_loads, wave_evictions = (st["loads"] - st0["loads"],
+                                      st["evictions"] - st0["evictions"])
+        log(f"[{tag}] 3. {N_ADAPTERS} adapters over 7 usable slots, a1 "
+            f"pinned by a streaming chat ({pinned.get('out')} frames, "
+            f"still running at the wave's end: {bg_alive}): answered "
+            f"{len(wave)}; loads {wave_loads}, "
+            f"evictions {wave_evictions} ({evicted}), a1 kept slot "
+            f"{slot_a1}: {a1_through}; pool {st}; store "
+            f"{store.stats()}; launches on adapter rows {launch_wave}; "
+            f"load seconds per adapter (host, slot write queued) "
+            f"{st['load_seconds'] / max(1, st['loads']):.4f}")
+        if len(wave) != N_ADAPTERS or not pinned.get("out") or not bg_alive:
+            raise AssertionError("a wave chat was not answered, or the "
+                                 "pinning stream ended before the wave")
+        if wave_evictions < N_ADAPTERS - 7 or wave_loads < N_ADAPTERS - 3:
+            raise AssertionError(f"loads {wave_loads}, evictions "
+                                 f"{wave_evictions}")
+        if not a1_through or any(refs > 0 for _aid, refs in evicted):
+            raise AssertionError(f"a pinned adapter was evicted: {evicted}")
+        if launch_wave["k1_int8"] <= 0 or launch_wave["k2"] <= 0:
+            raise AssertionError(f"kernels not launched on adapter rows: "
+                                 f"{launch_wave}")
+
+        # -- 4. seeded through a1, and the costs -----------------------------
+        seeded = [_seeded(base, f"{MODEL}@a1") for _ in range(2)]
+        if seeded[0] != seeded[1]:
+            raise AssertionError("the seeded adapter chat did not reproduce")
+        t2 = time.monotonic()
+        cold = AdapterStore(store.model_name, store.dims, store.num_layers,
+                            store.rank_cap, root_dir=store.root)
+        if cold.get("a5") is None:
+            raise AssertionError("a5's blob did not load")
+        blob_s = time.monotonic() - t2
+        # one load into a slot, the card's work included
+        aid = next(a for a in trees if not pool.resident(a))
+        spec = cold.get(aid)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        slot = pool.acquire(aid, lambda _id: spec)
+        torch.cuda.synchronize()
+        slot_s = time.monotonic() - t3
+        if slot is None:
+            raise AssertionError(f"{aid} did not load into a free slot")
+        pool.release(aid)
+        gemm = _pool_gemm_cost(eng)
+        log(f"[{tag}] 4. seeded chat through a1 reproduced "
+            f"({seeded[0].count('<')} tokens); one adapter from its blob "
+            f"(read + checksum) {blob_s:.3f} s, into a slot with the card's "
+            f"copy {slot_s * 1e3:.2f} ms ({aid}); pool GEMMs per projection at a 16-row decode step, layer 0 "
+            "(with / without the delta, ms): " + "; ".join(
+                f"{t} {a:.4f} / {b:.4f}" for t, (a, b) in gemm.items()))
+        out.update(free_off=off, free_on=on, mixed=mixed, hits=hits,
+                   differ=differ, distinct=distinct, wave_loads=wave_loads,
+                   wave_evictions=wave_evictions, launch_mix=launch_mix,
+                   launch_wave=launch_wave, traces=traces, gemm=gemm,
+                   blob_s=blob_s, slot_s=slot_s, pool_bytes=pool.hbm_bytes(),
+                   measured=measured, estimate=est,
+                   launches={"ragged_paged_attention_int8":
+                             launch_mix["k1_int8"] + launch_wave["k1_int8"],
+                             "flash_attention":
+                             launch_mix["k2"] + launch_wave["k2"]})
+    finally:
+        _unserve(served, httpd, registry)
+        del os.environ["HELIX_FILESTORE_KV_DIR"]
+    del served, eng, registry, loop, pool, store
+    _free()
+    return out
+
+
+@_timed
+def phase_adapter_exact(smi) -> dict:
+    """4g.5: exactness at 2 layers, full width, float32 (as 4e.4): one
+    wave of a base request and requests through a1, a2 and a3 (300-token
+    prompts, one device call per step) gives each request the tokens of a
+    pool-less engine on merged weights (``_merge_adapter``)."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.paged_kernel import K1
+
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2, dtype="float32")
+    params = init_params(cfg, 4, device="cuda")
+    geo = dict(max_decode_batch=8, page_size=16, num_pages=256,
+               max_pages_per_seq=64, max_prefill_len=2048)
+    sp = SamplingParams(temperature=0.0, max_tokens=16)
+    prompts = {aid: [int(t) for t in np.random.default_rng(20 + i).integers(
+        4, 260, size=300)] for i, aid in enumerate(("", "a1", "a2", "a3"))}
+    trees = {aid: _adapter_tree(cfg, 200 + i, layers=2)
+             for i, aid in enumerate(("a1", "a2", "a3"))}
+    eng = Engine(cfg, params, EngineConfig(**geo, adapter_pool_slots=8,
+                                           adapter_rank=16), device="cuda")
+    for aid, tree in trees.items():
+        eng.publish_adapter(aid, tree, ADAPTER_SCALE)
+    reqs = [Request(id=f"x{aid}", prompt_tokens=p, sampling=sp, adapter=aid)
+            for aid, p in prompts.items()]
+    for r in reqs:
+        eng.add_request(r)
+    K1.launches = 0
+    calls0 = eng.num_device_calls
+    while eng.has_work():
+        eng.step()
+    calls = eng.num_device_calls - calls0
+    same = {}
+    for r in reqs:
+        p = params if not r.adapter else _merge_adapter(
+            params, trees[r.adapter], ADAPTER_SCALE)
+        ref = Engine(cfg, p, EngineConfig(**geo), device="cuda")
+        same[r.adapter or "base"] = ref.generate(
+            [prompts[r.adapter]], sp)[0] == r.output_tokens
+        del ref
+    log(f"[adapters exact] ({smi}) 2 layers full width f32, one wave of "
+        f"base + a1-a3 (300-token prompts, 16 tokens): {calls} device calls;"
+        f" tokens equal to the merged-weights engine {same}; K1 (float32) "
+        f"launches {K1.launches}")
+    if not all(same.values()):
+        raise AssertionError(f"pool tokens differ from merged weights: "
+                             f"{same}")
+    if calls != sp.max_tokens:
+        raise AssertionError(f"{calls} device calls for one wave of "
+                             f"{sp.max_tokens} tokens")
+    del eng, params
+    _free()
+    return {"same": same, "calls": calls}
+
+
+# ---------------------------------------------------------------------------
+
+
+@_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
     the kernels and with the plain versions.  Logits are compared while
@@ -2440,10 +2969,12 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "hotswap"),
+    ap.add_argument("--phase",
+                    choices=("all", "kernels", "hotswap", "adapters"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
-                         "'hotswap': those and the hot-swap phase")
+                         "'hotswap' / 'adapters': those and the hot-swap / "
+                         "adapter phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2463,6 +2994,11 @@ def main(argv=None) -> int:
         swap = phase_hotswap(dev["smi"])
         launches = dict(swap["launches"])
         by_path = {k: {"hotswap": n} for k, n in launches.items()}
+    if args.phase == "adapters":
+        ad = phase_adapters(dev["smi"])
+        phase_adapter_exact(dev["smi"])
+        launches = dict(ad["launches"])
+        by_path = {k: {"adapters": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -2476,6 +3012,8 @@ def main(argv=None) -> int:
         phase_host_exact(dev["smi"])
         phase_host_exact(dev["smi"], int8=True)
         swap = phase_hotswap(dev["smi"])
+        ad = phase_adapters(dev["smi"])
+        phase_adapter_exact(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -2488,11 +3026,14 @@ def main(argv=None) -> int:
                 "bf16": bf16["launches"]["ragged_paged_attention"]},
             "flash_attention": {
                 "bf16": bf16["launches"]["flash_attention"],
-                "hotswap": swap["launches"]["flash_attention"]},
+                "hotswap": swap["launches"]["flash_attention"],
+                "adapters": ad["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
-                    swap["launches"]["ragged_paged_attention_int8"]},
+                    swap["launches"]["ragged_paged_attention_int8"],
+                "adapters":
+                    ad["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)

@@ -19,7 +19,9 @@ and an optional top-level ``residency: {hbm_budget_bytes}`` block.
 an int8 KV pool is
 ``engine: {kv_cache_dtype: int8}``.  Every ``engine:`` field goes to
 ``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens``,
-``enable_async_loop`` and ``host_pool_bytes`` work as in the reference.
+``enable_async_loop``, ``host_pool_bytes``, ``adapter_pool_slots`` and
+``adapter_rank`` work as in the reference (adapters are addressed as
+``model@adapter``).
 
 With ``residency`` the node serves its models through an
 ``engine.residency.ResidencyManager`` (the reference node agent's
@@ -34,15 +36,18 @@ naming its ROADMAP item: a ``checkpoint`` (A3) unless
 ``--random-weights`` serves it with random weights from ``--seed``, a
 kind other than ``chat`` (A17), an ``slo`` block with or without its
 ``sched`` (A7), a ``mesh`` with an axis above 1 (A15; ``{tp: 1}`` is the
-one device), and engine fields of unported modules
-(``adapter_pool_slots``: A13).
+one device), an ``adapter`` merged into the weights at apply time (it
+restores a training checkpoint: A18, with the node agent, A7), and engine
+fields of unported modules (``ctx_hot_pages``: A14).
 
 The node's operator overrides, as the reference node agent reads them:
 ``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
 (0 turns the host tier off), ``HELIX_PREEMPT_STALL_SECONDS`` arms
-preemption by swap after admission has stalled that long, and
+preemption by swap after admission has stalled that long,
 ``HELIX_ADMISSION_TIMEOUT`` sheds requests that waited that long for KV
-pages with a typed ``kv_exhausted`` 503.
+pages with a typed ``kv_exhausted`` 503, and
+``HELIX_ADAPTER_POOL_SLOTS`` replaces every engine's
+``adapter_pool_slots`` (0 turns the adapter pool off).
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from helix_tpu_torch.device import (
     resolve_device,
     total_device_bytes,
 )
+from helix_tpu_torch.engine.adapters import adapter_pool_slots_env
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
 from helix_tpu_torch.engine.residency import (
     ResidencyManager,
@@ -119,6 +125,10 @@ def build_served_model(
     if host_env:
         # operator beats profile; 0 turns the host tier off
         eng_kw["host_pool_bytes"] = int(host_env)
+    slots_env = adapter_pool_slots_env()
+    if slots_env is not None:
+        # operator beats profile; 0 turns the adapter pool off
+        eng_kw["adapter_pool_slots"] = slots_env
     # the engine block is checked before the weights are made: an option
     # not ported yet raises at once, not after minutes of init
     ecfg = EngineConfig(**eng_kw)
@@ -196,6 +206,11 @@ def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
     if m.get("slo"):
         out.append("the slo block (SLO accounting and its sched "
                    "scheduler) is not ported yet (ROADMAP A7)")
+    if m.get("adapter"):
+        out.append("an adapter merged into the weights at apply time is "
+                   "not ported yet: it restores a training checkpoint "
+                   "(ROADMAP A18, with the node agent, A7); serve "
+                   "adapters through engine.adapter_pool_slots")
     mesh = m.get("mesh") or {}
     if any(int(v) > 1 for v in mesh.values()):
         out.append(f"mesh {mesh} spans more than one device: tensor, "

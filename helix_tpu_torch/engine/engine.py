@@ -42,6 +42,16 @@ pools: ``write_kv`` quantizes on write and every history read goes
 through K1's int8 form.  Params from ``ops.quant.quantize_params`` (int8
 weights) serve through the same path.
 
+``adapter_pool_slots >= 2`` serves multi-LoRA adapters
+(``engine.adapters``): a request names its adapter (``Request.adapter``,
+``model@adapter`` at the HTTP surface), admission pins it into a slot of
+the engine's ``AdapterPool`` (a cold one defers while the store's
+prefetch loads it), and every row of a device step carries its slot, so
+a mixed-adapter wave is one call; adapter-free rows ride slot 0, the
+zero identity.  An adapter row's prefix-cache pages are keyed by its
+adapter's weights checksum, so no row reuses K/V that another adapter or
+the base model prefilled.
+
 ``host_pool_bytes > 0`` puts a host-RAM tier (``HostPagePool``) under the
 page pool: prefix-cache evictions spill there and restore into fresh
 device pages when a later prompt chains onto them; ``preempt`` swaps a
@@ -51,8 +61,8 @@ between engines (of either package) as a checksummed
 ``RequestSnapshot``.
 
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
-tiered contexts (A14), adapters (A13), meshes and the multihost plan
-plane (A15), MoE and mrope models (A15, A17).
+tiered contexts (A14), meshes and the multihost plan plane (A15), MoE
+and mrope models (A15, A17).
 """
 
 from __future__ import annotations
@@ -74,6 +84,11 @@ from helix_tpu_torch.device import (
     resolve_device,
     torch_dtype,
     upload,
+)
+from helix_tpu_torch.engine.adapters import (
+    AdapterPool,
+    default_adapter_store,
+    pack_lora_tree,
 )
 from helix_tpu_torch.engine.kv_cache import (
     PAGE_FIELDS,
@@ -182,15 +197,11 @@ class EngineConfig:
     ctx_stream_pages: int = 4
 
     def __post_init__(self):
-        unported = [
-            (self.adapter_pool_slots > 0, "adapter_pool_slots > 0", "A13"),
-            (self.ctx_hot_pages > 0, "ctx_hot_pages > 0", "A14"),
-        ]
-        for on, what, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"EngineConfig {what} is not ported yet (ROADMAP {item})"
-                )
+        if self.ctx_hot_pages > 0:
+            raise NotImplementedError(
+                "EngineConfig ctx_hot_pages > 0 is not ported yet "
+                "(ROADMAP A14)"
+            )
         if self.enable_spec_decode and self.spec_tokens < 1:
             raise ValueError(
                 f"spec_tokens ({self.spec_tokens}) must be >= 1 when "
@@ -258,6 +269,7 @@ class DecodeState:
     active: torch.Tensor        # [B] i64
     token_counts: torch.Tensor  # [B, V] i32 — output-token histogram
     sampling: SamplingState
+    adapter_slots: torch.Tensor  # [B] i64 — multi-LoRA pool slot (0 = none)
 
 
 @dataclasses.dataclass
@@ -465,6 +477,28 @@ class Engine:
             SpecDecoder(SpecConfig(spec_tokens=cfg.spec_tokens))
             if cfg.enable_spec_decode else None
         )
+        # multi-LoRA serving (engine/adapters.py): the device pool of
+        # adapter slots and the host/filestore store under it; None = off
+        self.adapter_pool: Optional[AdapterPool] = None
+        self.adapter_store = None
+        self._adapter_refs: dict[str, str] = {}   # req id -> adapter id
+        self._slot_adapters = np.zeros((B,), np.int32)
+        # adapter rows' seeded prefix digests: req id -> (seed, digests)
+        self._adapter_hashes: dict[str, tuple] = {}
+        if cfg.adapter_pool_slots == 1:
+            # slot 0 is the identity, so one slot serves nothing: degrade
+            # to off rather than fail the model's profile
+            logging.getLogger(__name__).warning(
+                "adapter_pool_slots=1 leaves no usable slots (slot 0 is "
+                "the reserved identity): running without an adapter "
+                "pool; set >= 2 to serve adapters")
+        elif cfg.adapter_pool_slots > 1:
+            self.adapter_pool = AdapterPool(
+                model_cfg, cfg.adapter_targets, cfg.adapter_rank,
+                cfg.adapter_pool_slots, dtype=model_cfg.dtype,
+                device=self.device)
+            self.adapter_store = default_adapter_store(model_cfg, cfg)
+        self._grafted_params = None
         W = self._spec_width()
         self._inert_rows = np.full((B,), -1, np.int32)   # state rows sit out
         self._zero_rows = np.zeros((B,), np.int32)       # plain decode rows
@@ -499,6 +533,9 @@ class Engine:
         self.num_mixed_steps = 0
         self.num_admitted = 0           # requests claimed into a slot
         self.prefix_cache_hits = 0
+        # prompt tokens served from the prefix cache, per adapter id ("" =
+        # the base model)
+        self.prefix_hit_tokens_by_adapter: dict[str, int] = {}
         # host tier: swaps out / in, host-to-device restore seconds, and
         # snapshots exported / imported
         self.num_preemptions = 0
@@ -542,10 +579,21 @@ class Engine:
         if not req.prompt_tokens:
             return "empty prompt"
         if req.adapter:
-            return (
-                f"adapter '{req.adapter}' requested but adapters are not "
-                "ported yet (ROADMAP A13)"
-            )
+            if self.adapter_pool is None:
+                return (
+                    f"adapter '{req.adapter}' requested but this engine "
+                    "serves without an adapter pool "
+                    "(EngineConfig.adapter_pool_slots)"
+                )
+            if (
+                self.adapter_store is not None
+                and not self.adapter_pool.resident(req.adapter)
+                and not self.adapter_store.contains(req.adapter)
+            ):
+                return (
+                    f"adapter '{req.adapter}' is not published for "
+                    f"model '{self.model_cfg.name}'"
+                )
         if req.image_embeds is not None:
             return "image input is not ported yet (ROADMAP A17)"
         return None
@@ -576,6 +624,7 @@ class Engine:
         memory goes back to the allocator once its loop has stopped,
         whoever still holds the engine.  Nothing steps it afterwards."""
         self.params = self.cache = self._dstate = self.host_pool = None
+        self.adapter_pool = self._grafted_params = None
         self._row_t0, self._offsets = {}, {}
         self._pending_first, self._pending_token_patches = [], {}
         self._chunking = None
@@ -800,14 +849,27 @@ class Engine:
     def _prompt_hashes(self, req: Request) -> list:
         """Chain digests for the prompt's shareable full pages, capped at
         (plen-1)//ps: the page holding the LAST prompt token is never
-        shared, so sampling always has a token to prefill."""
-        if req._page_hashes is None:
-            ps = self.cache_cfg.page_size
-            cap = (len(req.prompt_tokens) - 1) // ps
-            req._page_hashes = PrefixCache.page_hashes(
-                req.prompt_tokens, ps, cap
-            )
-        return req._page_hashes
+        shared, so sampling always has a token to prefill.  An adapter
+        row's chain is seeded with its adapter's weights checksum
+        (``_adapter_seed``): its pages are shared only with rows of the
+        same weights, in the device cache and the host tier alike."""
+        ps = self.cache_cfg.page_size
+        cap = (len(req.prompt_tokens) - 1) // ps
+        if not req.adapter:
+            if req._page_hashes is None:
+                req._page_hashes = PrefixCache.page_hashes(
+                    req.prompt_tokens, ps, cap
+                )
+            return req._page_hashes
+        seed = self._adapter_seed(req)
+        if seed is None:
+            return []   # weights unknown yet: nothing to share
+        cached = self._adapter_hashes.get(req.id)
+        if cached is None or cached[0] != seed:
+            cached = (seed, PrefixCache.page_hashes(
+                req.prompt_tokens, ps, cap, seed=seed))
+            self._adapter_hashes[req.id] = cached
+        return cached[1]
 
     def _cached_prefix_pages(self, req: Request) -> int:
         """Resident prefix length in pages: the device chain, then its
@@ -848,6 +910,133 @@ class Engine:
         for (digest, _page), page_arrays in zip(entries, arrays):
             self.host_pool.put(digest, page_arrays)
 
+    # ------------------------------------------------------------------
+    # multi-LoRA adapters (engine/adapters.py)
+    # ------------------------------------------------------------------
+
+    def publish_adapter(self, adapter_id: str, lora_params: dict,
+                        scaling: float) -> None:
+        """Publish a trained LoRA tree (``{target: {lora_a [L, in, r],
+        lora_b [L, r, out]}}``) for ``model@adapter_id`` serving:
+        validated against this model's geometry and admitted to the
+        store, servable at once."""
+        if self.adapter_pool is None or self.adapter_store is None:
+            raise ValueError(
+                "adapter serving is off for this engine "
+                "(EngineConfig.adapter_pool_slots)"
+            )
+        self.adapter_store.publish(
+            pack_lora_tree(adapter_id, lora_params, scaling)
+        )
+
+    def _adapter_ready(self, req: Request) -> bool:
+        """Can this request's adapter reach a pool slot this step?
+        Resident or host-resident: yes; otherwise the store's prefetch is
+        (re-)kicked and admission defers, so a cold adapter loads during
+        the queue wait and never blocks a step.  Safe from any thread."""
+        aid = req.adapter
+        if not aid or self.adapter_pool is None:
+            return True
+        if self.adapter_pool.resident(aid):
+            return True
+        if self.adapter_store is None:
+            return False
+        if self.adapter_store.ready(aid):
+            return True
+        self.adapter_store.prefetch(aid)
+        return False
+
+    def ensure_adapter_resident(self, adapter_id: str) -> bool:
+        """Stage an adapter onto the host rung synchronously, so the next
+        admission or resume pins it without deferring."""
+        if not adapter_id or self.adapter_pool is None:
+            return not adapter_id
+        if self.adapter_pool.resident(adapter_id):
+            return True
+        if self.adapter_store is None:
+            return False
+        if self.adapter_store.ready(adapter_id):
+            return True
+        return self.adapter_store.get(adapter_id) is not None
+
+    def _acquire_adapter(self, req: Request) -> Optional[int]:
+        """Pin the request's adapter into a pool slot (idempotent per
+        request: one ref from admission to finish, parked requests
+        included).  None: not loadable this step (cold, or every slot
+        pinned); the caller defers."""
+        aid = req.adapter
+        if not aid:
+            return 0
+        if self.adapter_pool is None:
+            return None
+        if req.id in self._adapter_refs:
+            return self.adapter_pool.slot_for(aid)
+        if self.adapter_store is not None:
+            # host-resident specs only: a filestore read here would stall
+            # every decode in flight; a cold adapter defers instead
+            lookup = self.adapter_store.get_resident
+            gen = self.adapter_store.generation(aid)
+        else:
+            lookup, gen = (lambda _id: None), None
+        slot = self.adapter_pool.acquire(aid, lookup, generation=gen)
+        if slot is not None:
+            self._adapter_refs[req.id] = aid
+        return slot
+
+    def _release_adapter(self, req: Request) -> None:
+        aid = self._adapter_refs.pop(req.id, None)
+        if aid is not None and self.adapter_pool is not None:
+            self.adapter_pool.release(aid)
+
+    def _adapter_seed(self, req: Request) -> Optional[bytes]:
+        """The prefix-chain seed of an adapter row: the checksum of the
+        weights its slot holds once pinned; before that, of the spec the
+        store or the pool holds now (it decides only whether a claim
+        looks the cache up: the claim hashes again after pinning).  None
+        when neither holds the adapter."""
+        aid = req.adapter
+        if req.id in self._adapter_refs:
+            digest = self.adapter_pool.checksum_of(aid)
+        else:
+            spec = (self.adapter_store.get_resident(aid)
+                    if self.adapter_store is not None else None)
+            digest = (spec.checksum if spec is not None
+                      else self.adapter_pool.checksum_of(aid))
+        return bytes.fromhex(digest) if digest else None
+
+    def _graft_params(self):
+        """The model params with the pool's stacked slot tensors merged
+        into each targeted layer entry (shallow dict copies).  Built once:
+        a load writes its slot in place, so the tensors never change."""
+        if self.adapter_pool is None:
+            return self.params
+        if self._grafted_params is None:
+            merged = dict(self.params)
+            layers = dict(merged["layers"])
+            for t, entry in self.adapter_pool.entries().items():
+                layers[t] = {**layers[t], **entry}
+            merged["layers"] = layers
+            self._grafted_params = merged
+        return self._grafted_params
+
+    def _note_adapter_rows(self, plan, draft_len) -> None:
+        """Bank this device call's rows per adapter id (the pool's
+        bounded top-K accounting): host dict math only."""
+        pool = self.adapter_pool
+        if pool is None:
+            return
+        counts: dict = {}
+        if plan is not None:
+            for row in plan.rows:
+                if row.adapter and row.req is not None and row.req.adapter:
+                    aid = row.req.adapter
+                    counts[aid] = counts.get(aid, 0) + 1
+        for i, req in enumerate(self.slots):
+            if req is not None and draft_len[i] >= 0 and req.adapter:
+                counts[req.adapter] = counts.get(req.adapter, 0) + 1
+        if counts:
+            pool.note_rows(counts)
+
     def _try_claim(self, req: Request, use_cache: bool = False):
         """Allocate pages + a slot for one waiting request; returns its
         page table or None when resources are unavailable.  With
@@ -857,6 +1046,16 @@ class Engine:
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
         if not free_slots:
             return None
+        adapter_slot = 0
+        if req.adapter:
+            # pin the adapter into a pool slot before any page or slot
+            # changes (and before the digests, which its weights seed): a
+            # cold adapter defers the whole claim; the ref, once held,
+            # survives queue waits and parks until finish
+            got = self._acquire_adapter(req)
+            if got is None:
+                return None
+            adapter_slot = got
         plen = len(req.prompt_tokens)
         ps = self.cache_cfg.page_size
         maxP = self.cache_cfg.max_pages_per_seq
@@ -886,6 +1085,8 @@ class Engine:
         self.num_admitted += 1
         if shared or restored:
             self.prefix_cache_hits += 1
+            by = self.prefix_hit_tokens_by_adapter
+            by[req.adapter] = by.get(req.adapter, 0) + req.cached_tokens
         if use_cache and self.prefix_cache is not None:
             self.prefix_cache.record_claim(len(shared) + restored,
                                            len(hashes))
@@ -893,6 +1094,7 @@ class Engine:
             self._shared_pages.setdefault(req.id, []).extend(shared)
         req.max_len = min(len(pages) * ps, self.max_context_len)
         self.slots[slot] = req
+        self._slot_adapters[slot] = adapter_slot
         table = np.zeros((maxP,), np.int32)
         table[: len(pages)] = pages
         self._page_tables[slot] = table
@@ -987,6 +1189,12 @@ class Engine:
             if req.finished:
                 self.waiting.pop(0)
                 continue
+            if not self._adapter_ready(req):
+                # cold adapter: its prefetch was just (re-)kicked; set it
+                # aside like a blocked long prompt, so everything behind
+                # it keeps admitting and no step waits on the load
+                deferred.append(self.waiting.pop(0))
+                continue
             needs_chunking = len(req.prompt_tokens) > self.cfg.max_prefill_len
             if not needs_chunking:
                 # short prompts — cold and prefix-cache hits — pack into
@@ -1026,6 +1234,7 @@ class Engine:
         plan = PrefillPlan(ps, maxP, B)
         batch: list = []
         waves: list = []
+        adapter_deferred: list = []
 
         def flush():
             nonlocal plan, batch
@@ -1038,6 +1247,11 @@ class Engine:
             req = self.waiting[0]
             if req.finished:
                 self.waiting.pop(0)
+                continue
+            if not self._adapter_ready(req):
+                # cold adapter mid-wave: defer (prefetch kicked), keep
+                # packing the rest of the queue
+                adapter_deferred.append(self.waiting.pop(0))
                 continue
             plen = len(req.prompt_tokens)
             if plen > C_cap:
@@ -1056,8 +1270,13 @@ class Engine:
             carry, sub = _host_split(self._request_key(req))
             self._slot_keys[req.slot] = carry
             plan.add(req, table, start, rem, req.prompt_tokens[start:plen],
-                     sub, req.sampling)
+                     sub, req.sampling,
+                     adapter=int(self._slot_adapters[req.slot]))
             batch.append(req)
+        if adapter_deferred:
+            # back at the queue head, in order; the next admission pass
+            # checks them again
+            self.waiting[:0] = adapter_deferred
         flush()
         for wave_plan, wave_batch in waves:
             first, _, _, _ = self._ragged_step(
@@ -1103,7 +1322,8 @@ class Engine:
             self.cache_cfg.page_size, self.cache_cfg.max_pages_per_seq, 1
         )
         plan.add(req, st["table"], start, rem, req.prompt_tokens[start:end],
-                 sub, req.sampling)
+                 sub, req.sampling,
+                 adapter=int(self._slot_adapters[st["slot"]]))
         return plan, rem, end
 
     def _finish_chunk(self, st, first_token, emitted) -> None:
@@ -1236,6 +1456,7 @@ class Engine:
             active=upload(active.astype(np.int64), dev),
             token_counts=counts,
             sampling=sampling,
+            adapter_slots=upload(self._slot_adapters.astype(np.int64), dev),
         )
         self._changed_slots.clear()
         self._state_dirty = False
@@ -1366,6 +1587,9 @@ class Engine:
         if self.allocator.owns(req_id):
             self.allocator.free(req_id)
         self.slots[slot] = None
+        # the adapter ref stays parked with the request (re-acquired as
+        # the same slot at resume)
+        self._slot_adapters[slot] = 0
         req.slot = None
         self._state_dirty = True
         self._changed_slots.add(slot)
@@ -1440,6 +1664,17 @@ class Engine:
             # for a resume as for an admission
             if not free_slots or not self._ensure_pages(n_private):
                 return
+            resume_adapter = 0
+            if req.adapter:
+                # a preempted request's ref is still parked (the same
+                # slot comes back); an imported one pins its adapter
+                # here, and a cold one keeps the park waiting while the
+                # prefetch loads it
+                got = self._acquire_adapter(req)
+                if got is None:
+                    self._adapter_ready(req)   # (re-)kick the prefetch
+                    return
+                resume_adapter = got
             t0 = time.monotonic()
             if st.entries is not None:
                 entries = st.entries
@@ -1471,6 +1706,7 @@ class Engine:
             slot = free_slots[0]
             self.slots[slot] = req
             req.slot = slot
+            self._slot_adapters[slot] = resume_adapter
             row = np.zeros((self.cache_cfg.max_pages_per_seq,), np.int32)
             row[: len(table)] = table
             self._page_tables[slot] = row
@@ -1991,9 +2227,10 @@ class Engine:
                 )
             return out, cache
 
-        h, _ = forward(self.params, self.model_cfg, a["tokens"], a["pos"],
-                       attn_fn=p_attn, carry_caches=self.cache,
-                       return_hidden=True)
+        h, _ = forward(self._graft_params(), self.model_cfg, a["tokens"],
+                       a["pos"], attn_fn=p_attn, carry_caches=self.cache,
+                       return_hidden=True,
+                       adapter_ids=a["aids"] if plan.has_adapter else None)
         # pool updated in place (the reference's donated scatter)
         write_kv(self.cache, kacc, vacc, a["pages"], a["offsets"],
                  a["seg"] > 0)
@@ -2044,8 +2281,14 @@ class Engine:
                                    st.page_tables)
             return out, cache
 
-        logits, _ = forward(self.params, self.model_cfg, tokens, pos,
-                            attn_fn=s_attn, carry_caches=self.cache)
+        # every state row carries its slot's adapter (verify rows and the
+        # fused tail alike); no delta when no live row has one
+        aids = None
+        if (self._slot_adapters[draft_len >= 0] != 0).any():
+            aids = st.adapter_slots[:, None].expand(B, W)
+        logits, _ = forward(self._graft_params(), self.model_cfg, tokens,
+                            pos, attn_fn=s_attn, carry_caches=self.cache,
+                            adapter_ids=aids)
         pages, page_offs = slot_to_page_offset(pos, st.page_tables,
                                                self.cache_cfg.page_size)
         write_kv(self.cache, kacc, vacc, pages, page_offs, live_t)
@@ -2110,6 +2353,7 @@ class Engine:
         if plan is not None and plan.rows:
             p_first = self._prefill_segment(plan)
         dl = np.where(self._active, draft_len, -1).astype(np.int32)
+        self._note_adapter_rows(plan, dl)
         sampled = emit = None
         if (dl >= 0).any():
             sampled, emit = self._state_rows(W, dl, drafts)
@@ -2156,6 +2400,7 @@ class Engine:
         req.finish_reason = reason
         if req.slot is not None:
             self.slots[req.slot] = None
+            self._slot_adapters[req.slot] = 0
             # a deferred first token's seed, or a resumed histogram, must
             # not reach the slot's next occupant
             self._pending_token_patches.pop(req.slot, None)
@@ -2175,5 +2420,7 @@ class Engine:
             self.prefix_cache.release(shared)
         if self.spec is not None:
             self.spec.forget(req.id)
+        self._release_adapter(req)
+        self._adapter_hashes.pop(req.id, None)
         if self.allocator.owns(req.id):
             self.allocator.free(req.id)

@@ -284,7 +284,11 @@ class PrefixCache:
     prompt starts with the same pages (``acquire``, refcounted), and return
     to the free list only through LRU eviction of refcount-0 entries.
 
-    Hash chain: h_i = blake2b(h_{i-1} || tokens[i*ps:(i+1)*ps])."""
+    Hash chain: h_i = blake2b(h_{i-1} || tokens[i*ps:(i+1)*ps]), h_{-1}
+    empty; a multi-LoRA adapter row's chain starts from its adapter's
+    weights checksum instead (``seed``), because the adapter changes the
+    page's K/V (the reference chains tokens alone and shares pages across
+    adapters: ROADMAP C)."""
 
     def __init__(self):
         self._entries: dict[bytes, list] = {}   # digest -> [page, refs, tick]
@@ -295,10 +299,13 @@ class PrefixCache:
         self.evicted_pages = 0
 
     @staticmethod
-    def page_hashes(tokens, page_size: int, max_pages: int) -> list:
-        """Chain digests for the first ``max_pages`` FULL pages."""
+    def page_hashes(tokens, page_size: int, max_pages: int,
+                    seed: bytes = b"") -> list:
+        """Chain digests for the first ``max_pages`` FULL pages; ``seed``
+        (empty for adapter-free rows: the reference's digests) starts the
+        chain."""
         out = []
-        prev = b""
+        prev = seed
         for i in range(max_pages):
             chunk = tokens[i * page_size:(i + 1) * page_size]
             if len(chunk) < page_size:

@@ -64,6 +64,7 @@ class PrefillRow:
     key: np.ndarray             # [2] u32 sampling sub-key
     sampling: object            # SamplingParams
     t0: int = 0                 # assigned at finalize
+    adapter: int = 0            # multi-LoRA pool slot (0 = identity)
 
 
 class PrefillPlan:
@@ -85,11 +86,11 @@ class PrefillPlan:
         return len(self.rows) < self.max_rows and self.used + rem <= cap
 
     def add(self, req, table, start: int, rem: int, tokens, key,
-            sampling) -> None:
+            sampling, adapter: int = 0) -> None:
         row = PrefillRow(
             req=req, table=np.asarray(table), start=int(start),
             rem=int(rem), tokens=list(tokens), key=key, sampling=sampling,
-            t0=self.used,
+            t0=self.used, adapter=int(adapter),
         )
         self.rows.append(row)
         self.used += row.rem
@@ -98,12 +99,18 @@ class PrefillPlan:
     def has_hist(self) -> bool:
         return any(r.start > 0 for r in self.rows)
 
+    @property
+    def has_adapter(self) -> bool:
+        return any(r.adapter for r in self.rows)
+
     def finalize(self, rung: int):
         """Device arrays for the unified step's prefill inputs.
 
-        Returns a dict of host arrays: ``tokens/pos/seg/pages/offsets
+        Returns a dict of host arrays: ``tokens/pos/seg/pages/offsets/aids
         [1, rung]``, per-row ``t0/qlen/hist/ends [R]``, ``tables [R,
-        maxP]`` and the rows' sampling keys ``[R, 2]``."""
+        maxP]`` and the rows' sampling keys ``[R, 2]``.  ``aids`` is each
+        token's multi-LoRA pool slot (0 = identity: padding and
+        adapter-free rows add an exact zero delta)."""
         R = self.max_rows
         ps = self.page_size
         tokens = np.zeros((1, rung), np.int32)
@@ -111,6 +118,7 @@ class PrefillPlan:
         seg = np.zeros((1, rung), np.int32)
         pages = np.zeros((1, rung), np.int32)
         offsets = np.zeros((1, rung), np.int32)
+        aids = np.zeros((1, rung), np.int32)
         t0 = np.zeros((R,), np.int32)
         qlen = np.zeros((R,), np.int32)
         hist = np.zeros((R,), np.int32)
@@ -129,6 +137,7 @@ class PrefillPlan:
                 np.minimum(abs_pos // ps, len(row.table) - 1)
             ]
             offsets[0, sl] = abs_pos % ps
+            aids[0, sl] = row.adapter
             t0[j] = row.t0
             qlen[j] = row.rem
             hist[j] = row.start
@@ -139,7 +148,7 @@ class PrefillPlan:
         t0[len(self.rows):] = self.used
         return {
             "tokens": tokens, "pos": pos, "seg": seg,
-            "pages": pages, "offsets": offsets,
+            "pages": pages, "offsets": offsets, "aids": aids,
             "t0": t0, "qlen": qlen, "hist": hist, "ends": ends,
             "tables": tables, "keys": keys,
         }

@@ -168,16 +168,22 @@ def _layer_params(layers: Params, i: int) -> Params:
 
 
 def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
-           attn_fn: AttnFn):
+           attn_fn: AttnFn, adapter_ids=None):
     """One decoder block. h: [B, S, E].  Returns ``(h, (k, v),
     new_cache)``; ``new_cache`` is what a carry-protocol ``attn_fn``
-    returned alongside its output (None for plain attn_fns)."""
+    returned alongside its output (None for plain attn_fns).
+    ``adapter_ids [B, S]`` names each token's multi-LoRA pool slot for
+    every projection (None: no adapter row)."""
     B, S, E = h.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def dense(x, w):
+        return maybe_dequant_dense(x, w, adapter_ids=adapter_ids)
+
     x = rms_norm(h, p["attn_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_offset)
-    q = maybe_dequant_dense(x, p["wq"]).reshape(B, S, H, D)
-    k = maybe_dequant_dense(x, p["wk"]).reshape(B, S, KVH, D)
-    v = maybe_dequant_dense(x, p["wv"]).reshape(B, S, KVH, D)
+    q = dense(x, p["wq"]).reshape(B, S, H, D)
+    k = dense(x, p["wk"]).reshape(B, S, KVH, D)
+    v = dense(x, p["wv"]).reshape(B, S, KVH, D)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
@@ -189,11 +195,11 @@ def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
         attn_out, new_cache = res
     else:
         attn_out = res
-    h = h + maybe_dequant_dense(attn_out.reshape(B, S, H * D), p["wo"])
+    h = h + dense(attn_out.reshape(B, S, H * D), p["wo"])
     x = rms_norm(h, p["mlp_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_offset)
-    gate = maybe_dequant_dense(x, p["w_gate"])
-    up = maybe_dequant_dense(x, p["w_up"])
-    h = h + maybe_dequant_dense(_act(cfg.hidden_act)(gate) * up, p["w_down"])
+    gate = dense(x, p["w_gate"])
+    up = dense(x, p["w_up"])
+    h = h + dense(_act(cfg.hidden_act)(gate) * up, p["w_down"])
     return h, (k, v), new_cache
 
 
@@ -216,6 +222,7 @@ def forward(
     layer_caches=None,   # tuple of tensors with a leading num_layers dim
     carry_caches=None,   # anything; threaded through every layer
     return_hidden: bool = False,
+    adapter_ids=None,    # [B, S] integer: multi-LoRA pool slot per token
 ):
     """Run the decoder.
 
@@ -228,7 +235,9 @@ def forward(
       the call returns ``(logits, caches)``.
 
     Logits are float32 (``project_logits``); ``return_hidden`` returns
-    the final-norm hidden states instead.
+    the final-norm hidden states instead.  ``adapter_ids`` reach every
+    projection (``ops.quant.maybe_dequant_dense``'s pool form, with the
+    ``lora_pool_*`` entries an ``AdapterPool`` grafts into the layers).
     """
     check_supported(cfg)
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
@@ -245,7 +254,7 @@ def forward(
             lc = None
         h, (k, v), new = _layer(
             h, _layer_params(params["layers"], i), lc, cfg, positions,
-            inv_freq, attn_fn,
+            inv_freq, attn_fn, adapter_ids=adapter_ids,
         )
         if carry_caches is not None:
             caches = new

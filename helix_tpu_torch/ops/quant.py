@@ -10,12 +10,10 @@ the embedding lookup (port of ``helix_tpu/ops/quant.py``).
   time on the tensors' device, so no float32 copy of a whole stack
   exists.
 - ``maybe_dequant_dense``: every projection accumulates in float32,
-  multiplies by the int8 scale and adds the bias in float32, and rounds
-  once to the compute dtype, as the reference's ``dot_general`` with
-  ``preferred_element_type=float32`` does.
-
-The single-LoRA graft and the batched multi-LoRA pool raise
-``NotImplementedError`` (ROADMAP A13).
+  multiplies by the int8 scale, adds a single grafted LoRA adapter or
+  the batched multi-LoRA pool's per-token delta and the bias in float32,
+  and rounds once to the compute dtype, as the reference's
+  ``dot_general`` with ``preferred_element_type=float32`` does.
 """
 
 from __future__ import annotations
@@ -26,7 +24,6 @@ import torch
 # slots exactly representable and the dequant multiply finite.
 KV_SCALE_EPS = 1e-8
 _W_SCALE_EPS = 1e-8
-_LORA_KEYS = ("lora_a", "lora_pool_a")
 # float32 elements one quantization step may hold (256 MiB)
 _CHUNK_ELEMS = 1 << 26
 
@@ -130,28 +127,68 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def maybe_dequant_dense(x, p: dict, adapter_ids=None, compute_dtype=None):
     """``x @ p["weight"]`` with weights stored ``[in, out]``, float or int8
-    (with ``p["scale"]``), plus ``p["bias"]``; one rounding to the compute
-    dtype.  A float projection without bias is one GEMM in the compute
+    (with ``p["scale"]``), plus the LoRA forms and ``p["bias"]``; one
+    rounding to the compute dtype.
+
+    - single LoRA (``lora_a [in, r]``, ``lora_b [r, out]``,
+      ``lora_scale``): ``scale * (x @ a) @ b``, the low-rank product
+      rounded once to the compute dtype between the two GEMMs;
+    - the multi-LoRA pool (``lora_pool_a [in, N, r]``, ``lora_pool_b
+      [N, r, out]``, ``lora_pool_scale [N]``, slot 0 the zero identity;
+      ``engine.adapters.AdapterPool``): two dense GEMMs over all N slots,
+      as the reference's einsums.  ``low = x @ a`` viewed ``[in, N r]``
+      in float32; every slot's column block but the token's own
+      (``adapter_ids [..., S]``) zeroed; rounded once; times ``b`` viewed
+      ``[N r, out]`` in float32; times the token's slot scale.  The slot
+      stack is read once per projection, not once per token.  Rows of
+      slot 0 add an exact ``+0.0``.  ``adapter_ids`` None skips the
+      delta (the caller knows no row carries an adapter), not the
+      float32 base product: a pool-grafted projection takes that one
+      GEMM for every row.
+
+    A float projection without bias or LoRA is one GEMM in the compute
     dtype, which accumulates in float32 and rounds once by itself."""
-    if adapter_ids is not None or any(k in p for k in _LORA_KEYS):
-        raise NotImplementedError(
-            "LoRA adapters are not ported yet (ROADMAP A13)"
-        )
     compute_dtype = compute_dtype or x.dtype
     w = p["weight"]
     scale = p.get("scale")
     b = p.get("bias")
+    lora = "lora_a" in p or "lora_pool_a" in p
     if w.dtype == torch.int8:
         # int8 codes are exact in bf16 and float32
         w = w.to(x.dtype)
-    elif scale is None and b is None:
+    elif scale is None and b is None and not lora:
         return torch.matmul(x, w).to(compute_dtype)
     out = matmul_f32(x, w)
     if scale is not None:
         out = out * scale.reshape(-1)
+    if "lora_a" in p:
+        low = matmul_f32(x, p["lora_a"].to(compute_dtype))
+        out = out + p["lora_scale"] * matmul_f32(
+            low.to(compute_dtype), p["lora_b"].to(compute_dtype))
+    if adapter_ids is not None and "lora_pool_a" in p:
+        out = out + _pool_delta(x, p, adapter_ids, compute_dtype)
     if b is not None:
         out = out + b.float()
     return out.to(compute_dtype)
+
+
+def _pool_delta(x, p: dict, adapter_ids, compute_dtype) -> torch.Tensor:
+    """``scale[g] * (x @ A[g]) @ B[g]`` per token, in float32, from the
+    stacked slots (the BGMV of ``maybe_dequant_dense``'s pool form)."""
+    pa = p["lora_pool_a"].to(compute_dtype)     # [in, N, r]
+    pb = p["lora_pool_b"].to(compute_dtype)     # [N, r, out]
+    fan_in, n_slots, r = pa.shape
+    ids = adapter_ids.long()
+    # one-hot by comparison: torch's one_hot checks its range on the
+    # host, a synchronising read on the card
+    onehot = (ids[..., None] == torch.arange(n_slots, device=ids.device)
+              ).to(torch.float32)                                  # [.., S, N]
+    low = matmul_f32(x, pa.reshape(fan_in, n_slots * r))
+    low = (low.unflatten(-1, (n_slots, r)) * onehot[..., None]).flatten(-2)
+    delta = matmul_f32(low.to(compute_dtype),
+                       pb.reshape(n_slots * r, pb.shape[-1]))
+    tok_scale = p["lora_pool_scale"].float()[ids]                  # [.., S]
+    return tok_scale[..., None] * delta
 
 
 def embed_lookup(p: dict, tokens, compute_dtype):

@@ -146,6 +146,11 @@ class _StepWindow:
             self._ring.append(rec)
             self.recorded += 1
 
+    def records(self, recent: int = STEP_WINDOW) -> list:
+        """Copies of the last ``recent`` records, oldest first."""
+        with self._lock:
+            return [dict(r) for r in list(self._ring)[-recent:]]
+
     def window_ratio(self, num_key: str, den_keys: tuple,
                      recent: int = STEP_WINDOW) -> float:
         """Sum of ``num_key`` over the last ``recent`` records divided by
@@ -216,6 +221,11 @@ class EngineLoop:
         if err:
             on_event(_error_event(req.id, err))
             return
+        if req.adapter:
+            # a cold adapter's load starts now, on the submitter's
+            # thread: the engine's readiness gate (thread-safe) kicks the
+            # store's prefetch, so the load overlaps the queue wait
+            self.engine._adapter_ready(req)
         with self._admission_lock:
             if self._draining or self._stop.is_set():
                 self.shed_requests += 1
@@ -317,6 +327,19 @@ class EngineLoop:
                 "device_idle_ratio": round(self.device_idle_ratio(), 4),
                 "emit_queue_depth": self._emit_stage.depth(),
             },
+            # multi-LoRA serving: the device pool and the host/filestore
+            # store under it; None = pool off
+            "adapters": (
+                {**eng.adapter_pool.stats(),
+                 "store": (eng.adapter_store.stats()
+                           if eng.adapter_store is not None else None)}
+                if eng.adapter_pool is not None else None
+            ),
+            # adapters resident in the device pool (0 = pool off)
+            "adapters_resident": (
+                eng.adapter_pool.stats()["resident"]
+                if eng.adapter_pool is not None else 0
+            ),
         }
 
     def device_idle_ratio(self) -> float:
@@ -550,7 +573,12 @@ class EngineLoop:
         self._fail_all(f"engine step failed: {e}")
 
     def _record(self, kind: str, generated: int, **timing) -> None:
+        # distinct adapters sharing the batch: > 1 is a mixed-adapter
+        # device call
+        distinct = len({s.adapter for s in self.engine.slots
+                        if s is not None and s.adapter})
         self.window.record({"kind": kind, "generated": generated,
+                            "distinct_adapters": distinct,
                             **{k: round(v, 6) for k, v in timing.items()}})
 
     def _run(self):

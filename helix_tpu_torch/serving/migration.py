@@ -37,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from helix_tpu_torch.engine.adapters import sanitize_adapter_id
 from helix_tpu_torch.engine.engine import (
     SNAPSHOT_VERSION,
     RequestSnapshot,
@@ -186,6 +187,25 @@ _WIRE_DTYPES = {
 _TORCH_NAMES = {t: name for name, (_np, t) in _WIRE_DTYPES.items()}
 
 
+def _wire_adapter(doc: dict) -> str:
+    """The snapshot's adapter id, sanitised at the wire boundary: the id
+    becomes a filestore path component once the adapter serves.  A
+    present but hostile id refuses the snapshot with the reference's
+    error as its caller sees it: the reference raises ``snapshot_invalid``
+    inside ``wire_to_snapshot``'s field decoding, whose handler wraps
+    every ``ValueError`` as a malformed field."""
+    raw = doc.get("adapter", "") or ""
+    if not raw:
+        return ""
+    adapter = sanitize_adapter_id(str(raw))
+    if not adapter:
+        raise SnapshotError(
+            "malformed snapshot field: snapshot adapter id failed "
+            "sanitisation", code="snapshot_corrupt",
+        )
+    return adapter
+
+
 def _meta_checksum(doc: dict) -> str:
     h = hashlib.blake2b(digest_size=16)
     canon = {k: doc.get(k) for k in _META_FIELDS}
@@ -294,7 +314,7 @@ def wire_to_snapshot(doc: dict) -> RequestSnapshot:
             pages=pages,
             page_checksums=[str(s) for s in doc.get("page_checksums", [])],
             total_pages=int(doc.get("total_pages", 0) or 0),
-            adapter=str(doc.get("adapter", "") or ""),
+            adapter=_wire_adapter(doc),
         )
     except (TypeError, ValueError) as e:
         if isinstance(e, SnapshotError):

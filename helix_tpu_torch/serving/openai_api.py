@@ -6,7 +6,18 @@ port needs no web framework:
 
 - ``GET /healthz`` (the declared model names), ``GET /v1/models`` (the
   models the registry holds: with a ``ResidencyManager`` behind it, the
-  resident ones, as in the reference);
+  resident ones, as in the reference; and each model's published
+  multi-LoRA adapters as bounded ``base@adapter`` entries);
+- ``model@adapter`` addressing on the generation routes: the base model
+  resolves through the registry (a ``ResidencyManager`` loads it), the
+  adapter id is sanitised and must be published on the engine's store
+  (404 otherwise, and for a model without an adapter pool), and its
+  prefetch is kicked;
+- ``POST /v1/adapters`` ``{"model", "name", "checkpoint"[, "scale"]}``
+  (runner-token gated): 400 for a bad name or no checkpoint, 404 / 503
+  for the model, 409 without an adapter pool, and 501 with the store's
+  error, since publishing from a training checkpoint waits for
+  torch-native checkpoints (ROADMAP A18);
 - ``POST /admin/prefetch`` ``{"model"}``: stage a model in the background
   through the ``ResidencyManager`` behind the registry (200 with
   ``"prefetch": "started"|"declined"``, 404 for an unknown model, 409
@@ -44,6 +55,12 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from helix_tpu_torch.engine.adapters import (
+    ADAPTER_SEP,
+    MAX_LISTED_ADAPTERS,
+    sanitize_adapter_id,
+    split_model_adapter,
+)
 from helix_tpu_torch.engine.engine import Request, SnapshotError
 from helix_tpu_torch.engine.sampling import SamplingParams
 from helix_tpu_torch.serving.engine_loop import KV_EXHAUSTED, SHUTTING_DOWN
@@ -142,16 +159,19 @@ class OpenAIServer:
                 served.loop.abort(stream.request_id)
                 served.loop.note_migration_failure()
 
-    def generate(self, served, prompt_ids, sampling: SamplingParams):
+    def generate(self, served, prompt_ids, sampling: SamplingParams,
+                 adapter: str = ""):
         """Submit to the engine loop; yields ``(delta_text, token_id,
         finished, finish_reason)``.  Serving-level stop strings end the
-        stream at the match."""
+        stream at the match.  ``adapter``: a sanitised, published adapter
+        id of the model ("" = the base model)."""
         q: "queue.Queue" = queue.Queue()
         req = Request(
             id=f"req-{uuid.uuid4().hex[:12]}",
             prompt_tokens=list(prompt_ids),
             sampling=sampling,
             stop_token_ids=tuple(served.tokenizer.eos_ids),
+            adapter=adapter,
         )
         served.loop.submit(req, q.put)
         detok = IncrementalDetokenizer(served.tokenizer)
@@ -198,6 +218,15 @@ class OpenAIServer:
             if m.context_length:
                 entry["context_length"] = m.context_length
             data.append(entry)
+            # published adapters: bounded base@adapter entries, served
+            # through the same generation routes
+            store = getattr(getattr(m.loop, "engine", None),
+                            "adapter_store", None)
+            if store is not None:
+                for aid in store.ids(MAX_LISTED_ADAPTERS):
+                    data.append({"id": f"{m.name}{ADAPTER_SEP}{aid}",
+                                 "object": "model", "created": m.created,
+                                 "owned_by": m.owned_by, "parent": m.name})
         return {"object": "list", "data": data}
 
     def handler_class(self):
@@ -269,7 +298,9 @@ class _Handler(BaseHTTPRequestHandler):
         """Resolve the request's model on this handler's thread: with a
         ResidencyManager behind the registry a synchronous load stalls
         this request only."""
-        model = body.get("model", "")
+        return self._lookup(body.get("model", ""))
+
+    def _lookup(self, model: str):
         try:
             served = self.api.registry.get(model)
         except MemoryError as e:
@@ -283,6 +314,50 @@ class _Handler(BaseHTTPRequestHandler):
                 "model_not_found",
             )
         return served
+
+    def _served_generation(self, body: dict) -> tuple:
+        """Resolve a generation target, ``base@adapter`` included (the
+        reference's ``_lookup_generation``): the base model resolves as
+        ``_served`` does; the adapter id is sanitised and must be
+        published on the engine's store (404 otherwise: a hostile id
+        never reaches a path), and its prefetch is kicked.  Returns
+        ``(served, adapter)``, served None once an error was sent."""
+        model = body.get("model", "")
+        base, adapter, ok = split_model_adapter(model)
+        if isinstance(model, str) and ADAPTER_SEP in model:
+            # a model registered under a literal name with '@' keeps
+            # resolving by that name
+            try:
+                lit = self.api.registry.get(model)
+            except MemoryError as e:
+                self._error(503, str(e), "overloaded_error")
+                return None, ""
+            if lit is not None:
+                return lit, ""
+        if not ok:
+            self._error(404, f"model '{model}' not found (invalid adapter "
+                        "id)", "model_not_found")
+            return None, ""
+        served = self._lookup(base)
+        if served is None or not adapter:
+            return served, ""
+        eng = getattr(served.loop, "engine", None)
+        pool = getattr(eng, "adapter_pool", None)
+        store = getattr(eng, "adapter_store", None)
+        if pool is None or store is None:
+            self._error(404, f"model '{base}' does not serve adapters "
+                        "(engine.adapter_pool_slots is off)",
+                        "model_not_found")
+            return None, ""
+        if not (pool.resident(adapter) or store.contains(adapter)):
+            self._error(
+                404, f"adapter '{adapter}' is not published for model "
+                f"'{base}'; available: {store.ids(MAX_LISTED_ADAPTERS)}",
+                "model_not_found")
+            return None, ""
+        if not pool.resident(adapter):
+            store.prefetch(adapter)
+        return served, adapter
 
     # -- routes -----------------------------------------------------------
 
@@ -299,6 +374,7 @@ class _Handler(BaseHTTPRequestHandler):
         routes = {"/v1/chat/completions": self._chat,
                   "/v1/completions": self._completions,
                   "/admin/prefetch": self._prefetch,
+                  "/v1/adapters": self._publish_adapter,
                   "/v1/migrate/import": self._migrate_import,
                   "/v1/migrate/resume": self._migrate_resume}
         route = routes.get(self.path)
@@ -312,7 +388,7 @@ class _Handler(BaseHTTPRequestHandler):
         route(body)
 
     def _chat(self, body: dict):
-        served = self._served(body)
+        served, adapter = self._served_generation(body)
         if served is None:
             return
         messages = body.get("messages")
@@ -322,18 +398,20 @@ class _Handler(BaseHTTPRequestHandler):
         prompt_ids = served.tokenizer.apply_chat_template(
             messages, add_generation_prompt=True
         )
-        self._run(body, served, prompt_ids, chat=True)
+        self._run(body, served, prompt_ids, chat=True, adapter=adapter)
 
     def _completions(self, body: dict):
-        served = self._served(body)
+        served, adapter = self._served_generation(body)
         if served is None:
             return
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
             prompt = prompt[0] if prompt else ""
-        self._run(body, served, served.tokenizer.encode(prompt), chat=False)
+        self._run(body, served, served.tokenizer.encode(prompt), chat=False,
+                  adapter=adapter)
 
-    def _run(self, body: dict, served, prompt_ids, *, chat: bool):
+    def _run(self, body: dict, served, prompt_ids, *, chat: bool,
+             adapter: str = ""):
         try:
             sampling = sampling_from_body(body)
         except (TypeError, ValueError) as e:
@@ -350,7 +428,7 @@ class _Handler(BaseHTTPRequestHandler):
                else f"cmpl-{uuid.uuid4().hex[:16]}")
         created = int(time.time())
         obj = "chat.completion" if chat else "text_completion"
-        gen = self.api.generate(served, prompt_ids, sampling)
+        gen = self.api.generate(served, prompt_ids, sampling, adapter)
         if body.get("stream"):
             self._stream(gen, rid, created, model, obj, chat)
             return
@@ -427,6 +505,48 @@ class _Handler(BaseHTTPRequestHandler):
         started = bool(mgr.prefetch(name))
         self._json(200, {"model": name,
                          "prefetch": "started" if started else "declined"})
+
+    def _publish_adapter(self, body: dict):
+        """Publish a LoRA checkpoint for ``model@name`` serving (the
+        reference's ``POST /v1/adapters``, with its checks and codes)."""
+        if self._runner_token_denied():
+            return
+        base = body.get("model", "")
+        adapter_id = sanitize_adapter_id(body.get("name", ""))
+        ckpt = body.get("checkpoint", "")
+        if not adapter_id:
+            self._error(400, "'name' must be a bounded [A-Za-z0-9._-] "
+                        "adapter id")
+            return
+        if not ckpt or not isinstance(ckpt, str):
+            self._error(400, "'checkpoint' directory is required")
+            return
+        served = self._lookup(base)
+        if served is None:
+            return
+        store = getattr(getattr(served.loop, "engine", None),
+                        "adapter_store", None)
+        if store is None:
+            self._error(409, f"model '{base}' serves without an adapter "
+                        "pool (engine.adapter_pool_slots)")
+            return
+        scale = body.get("scale")
+        try:
+            spec = store.publish_checkpoint(
+                adapter_id, ckpt, float(scale) if scale is not None else None)
+        except NotImplementedError as e:
+            self._error(501, str(e), "not_implemented_error")
+            return
+        except FileNotFoundError as e:
+            self._error(404, str(e))
+            return
+        except (ValueError, TypeError, KeyError) as e:
+            self._error(400, f"adapter rejected: {e}")
+            return
+        self._json(200, {"id": f"{base}{ADAPTER_SEP}{adapter_id}",
+                         "object": "model", "parent": base,
+                         "rank": spec.rank, "scale": spec.scale,
+                         "bytes": spec.nbytes})
 
     # -- migration ----------------------------------------------------------
 

@@ -455,8 +455,8 @@ def test_profile_spec_and_async_fields_serve_over_http(tmp_path):
     """``enable_spec_decode``, ``spec_tokens`` and ``enable_async_loop``
     in a profile entry's ``engine:`` block reach ``EngineConfig`` through
     ``serve-node``'s profile path, and both engines answer over HTTP;
-    ``host_pool_bytes`` builds the host tier and ``adapter_pool_slots``
-    still raises, naming A13."""
+    ``host_pool_bytes`` builds the host tier and ``adapter_pool_slots`` /
+    ``adapter_rank`` build the adapter pool."""
     import json
     import urllib.request
 
@@ -503,6 +503,12 @@ def test_profile_spec_and_async_fields_serve_over_http(tmp_path):
         assert served.loop.engine.host_pool.budget_bytes == 1 << 20
     finally:
         served.loop.stop()
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_served_model("tiny-x", device="cpu",
-                           engine={**geo, "adapter_pool_slots": 1 << 20})
+    served = build_served_model("tiny-x", device="cpu", warmup=False,
+                                engine={**geo, "adapter_pool_slots": 8,
+                                        "adapter_rank": 16})
+    try:
+        pool = served.loop.engine.adapter_pool
+        assert (pool.slots, pool.rank) == (8, 16)
+        assert served.loop.stats()["adapters"]["slots"] == 8
+    finally:
+        served.loop.stop()

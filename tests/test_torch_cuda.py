@@ -408,6 +408,162 @@ def test_dense_rounds_once_on_card(cuda, quantized):
                                **TOL[torch.bfloat16])
 
 
+def _pool_params(dtype, device, quantized, seed=7, fan_in=256, fan_out=96,
+                 n_slots=4, rank=16):
+    """A pool-grafted projection (slot 0 the zero identity) and its
+    per-token slot ids, made on the CPU from a seed."""
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((fan_in, fan_out))
+                         .astype(np.float32) * 0.05)
+    pa = rng.standard_normal((fan_in, n_slots, rank)).astype(np.float32)
+    pb = rng.standard_normal((n_slots, rank, fan_out)).astype(np.float32)
+    pa[:, 0], pb[0] = 0.0, 0.0
+    p = ({**tquant.quantize_tensor(w)} if quantized
+         else {"weight": w.to(dtype)})
+    p.update(lora_pool_a=torch.from_numpy(pa * 0.05).to(dtype),
+             lora_pool_b=torch.from_numpy(pb * 0.05).to(dtype),
+             lora_pool_scale=torch.tensor([0.0, 2.0, 0.5, 1.0]))
+    x = torch.from_numpy(rng.standard_normal((3, 40, fan_in))
+                         .astype(np.float32)).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, n_slots, (3, 40)))
+    return ({k: v.to(device) for k, v in p.items()}, x.to(device),
+            ids.to(device), p, x, ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_pool_form_on_card_matches_cpu(cuda, dtype, quantized):
+    """The multi-LoRA pool form of ``maybe_dequant_dense`` on the card
+    against the same op on the CPU (float32 ``atol 1e-4``; bf16 one bf16
+    ulp): slot 0 rows equal the pool-less projection bit for bit."""
+    p, x, ids, p_cpu, x_cpu, ids_cpu = _pool_params(dtype, cuda, quantized)
+    got = tquant.maybe_dequant_dense(x, p, adapter_ids=ids)
+    want = tquant.maybe_dequant_dense(x_cpu, p_cpu, adapter_ids=ids_cpu)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), **TOL[dtype])
+    base = {k: v for k, v in p.items() if not k.startswith("lora_pool")}
+    zero = ids == 0
+    assert torch.equal(got[zero], tquant.maybe_dequant_dense(x, base)[zero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 80, 300, 2048])
+def test_bf16_gemm_equals_f32_gemm_rounded(cuda, M):
+    """What adapter-free bit-identity with the pool on and off rests on in
+    bf16: a pool-less float projection is one bf16-output GEMM, a
+    pool-grafted one a float32-output GEMM rounded once; cuBLAS gives the
+    same bits at Llama-3-8B's projection shapes."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        w = (torch.randn((k, n), generator=g, device=cuda) * 0.02).bfloat16()
+        x = torch.randn((1, M, k), generator=g, device=cuda).bfloat16()
+        plain = tquant.maybe_dequant_dense(x, {"weight": w})
+        pooled = tquant.matmul_f32(x, w).to(torch.bfloat16)
+        assert torch.equal(plain, pooled), (M, k, n)
+
+
+def _adapter_engine(cuda, slots, **extra):
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=4, page_size=16, num_pages=64, max_pages_per_seq=8,
+        max_prefill_len=32, adapter_pool_slots=slots, adapter_rank=8,
+        **extra), device=cuda)
+    return cfg, eng
+
+
+def _lora_tree(cfg, seed):
+    from helix_tpu_torch.engine.adapters import target_dims
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for t in ("wq", "wk", "wv", "wo"):
+        fan_in, fan_out = target_dims(cfg)[t]
+        out[t] = {"lora_a": rng.standard_normal(
+                      (cfg.num_layers, fan_in, 8)).astype(np.float32) * 0.1,
+                  "lora_b": rng.standard_normal(
+                      (cfg.num_layers, 8, fan_out)).astype(np.float32) * 0.1}
+    return out
+
+
+@pytest.mark.cuda
+def test_adapter_free_tokens_equal_with_pool_on_and_off(cuda):
+    """bf16 on the card: adapter-free greedy tokens with the pool on
+    (alone, and beside an adapter row) equal the pool-less engine's on
+    the same step composition (a base row in the adapter row's place:
+    bf16 GEMMs may round a row otherwise at another row count)."""
+    from helix_tpu_torch.engine.engine import Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+
+    prompts = [[3 + i, 9, 27, 81 % 50, 5 * i + 1] * (i + 2)
+               for i in range(3)]
+    sp = SamplingParams(temperature=0.0, max_tokens=24)
+    _, off = _adapter_engine(cuda, 0)
+    want = off.generate(prompts, sp)
+    cfg, on = _adapter_engine(cuda, 3)
+    assert on.generate(prompts, sp) == want
+    on.publish_adapter("a1", _lora_tree(cfg, 1), 2.0)
+
+    def run(eng, adapter):
+        reqs = [Request(id=f"b{i}", prompt_tokens=p, sampling=sp,
+                        adapter=adapter if i == 0 else "")
+                for i, p in enumerate([prompts[0]] + prompts)]
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        return [r.output_tokens for r in reqs]
+
+    base_rows = run(off, "")
+    got = run(on, "a1")
+    assert got[1:] == base_rows[1:]
+    assert got[0] != base_rows[0]
+
+
+@pytest.mark.cuda
+def test_adapter_load_and_mixed_decode_make_no_synchronising_call(cuda):
+    """A pool load (one slot written in place from pinned uploads) and a
+    decode dispatch whose rows carry two adapters and none queue their
+    work without a synchronising call."""
+    from helix_tpu_torch.engine.engine import Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+
+    cfg, eng = _adapter_engine(cuda, 4)
+    for i in (1, 2, 3):
+        eng.publish_adapter(f"a{i}", _lora_tree(cfg, i), 2.0)
+    pool, store = eng.adapter_pool, eng.adapter_store
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slot = pool.acquire("a3", store.get_resident)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert slot is not None and pool.stats()["loads"] == 1
+    pool.release("a3")
+    for i, aid in enumerate(("a1", "a2", "")):
+        eng.add_request(Request(
+            id=f"r{i}", prompt_tokens=[3, 4, 5, 6, 7][: 3 + i],
+            sampling=SamplingParams(temperature=0.0, max_tokens=40),
+            adapter=aid))
+    for _ in range(2):
+        eng.step()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            emitted, pend = eng.step_dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pend is not None and pend.kind == "decode"
+        eng.step_complete(pend, emitted)
+    rows = pool.rows_applied()
+    assert rows["a1"] > 0 and rows["a2"] > 0
+
+
 @pytest.mark.cuda
 def test_threefry_on_the_card_matches_cpu(cuda):
     """The sampler's random bits and uniforms do not depend on the

@@ -452,7 +452,8 @@ def test_copied_dataclasses_match_reference(pair):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (dict(adapter_pool_slots=2), "A13"),
+    # the adapter fields are served; the unported one is still named
+    (dict(adapter_pool_slots=8, adapter_rank=16, ctx_hot_pages=4), "A14"),
     (dict(host_pool_bytes=1 << 20, ctx_hot_pages=4), "A14"),
     (dict(ctx_hot_pages=4), "A14"),
 ])

@@ -678,11 +678,11 @@ def test_gather_restore_and_checksums_match_the_reference(kv_dtype):
 
 def test_profile_entry_keeps_its_host_pool_bytes():
     """``serve-node --profile profiles/v5e1-hotswap.yaml --random-weights``:
-    the Llama entry is refused for its ``slo`` (A7) and its
-    ``adapter_pool_slots`` (A13) before any weights are made.  With those
-    blocks cut, its engine block reaches ``EngineConfig`` with its 16 GiB
-    ``host_pool_bytes``, Phi-3's with 8 GiB.  Without
-    ``--random-weights`` the entries' checkpoints raise, naming A3."""
+    the Llama entry is refused for its ``slo`` (A7) alone before any
+    weights are made.  With that block cut, its engine block reaches
+    ``EngineConfig`` with its 16 GiB ``host_pool_bytes`` and its 8 adapter
+    slots of rank 16, Phi-3's with 8 GiB.  Without ``--random-weights``
+    the entries' checkpoints raise, naming A3."""
     import copy
     import os
 
@@ -692,29 +692,28 @@ def test_profile_entry_keeps_its_host_pool_bytes():
     args = type("A", (), {
         "profile": os.path.join(root, "profiles", "v5e1-hotswap.yaml"),
         "engine": None, "model": None, "random_weights": True, "seed": 0})
-    with pytest.raises(NotImplementedError, match="slo.*A7.*"
-                       "adapter_pool_slots.*A13") as e:
+    with pytest.raises(NotImplementedError, match="slo.*A7") as e:
         _model_specs(args)
     assert "A3" not in str(e.value) and "Phi-3" not in str(e.value)
+    assert "A13" not in str(e.value)
     cut = copy.deepcopy(_load_profile(args.profile))
     llama_entry = cut["models"][0]
     del llama_entry["slo"]
-    for k in ("adapter_pool_slots", "adapter_rank"):
-        del llama_entry["engine"][k]
     llama, phi = _model_specs(args, cut)
     assert llama["name"] == "meta-llama/Meta-Llama-3-8B-Instruct"
     assert llama["engine"]["host_pool_bytes"] == 17179869184
     cfg = tengine.EngineConfig(**llama["engine"])
     assert cfg.host_pool_bytes == 17179869184 and cfg.enable_spec_decode
+    assert (cfg.adapter_pool_slots, cfg.adapter_rank) == (8, 16)
     assert tengine.EngineConfig(**phi["engine"]).host_pool_bytes == 1 << 33
     args.random_weights = False
     with pytest.raises(NotImplementedError, match="A3"):
         _model_specs(args, cut)
-    # the command itself: the entry is refused for its adapters (A13)
-    # before any weights are made
+    # the command itself: the entry is refused for its slo (A7) before
+    # any weights are made
     from helix_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="adapter_pool_slots.*A13"):
+    with pytest.raises(NotImplementedError, match="slo.*A7"):
         main(["serve-node", "--profile", args.profile, "--random-weights",
               "--device", "cpu", "--port", "0"])
 

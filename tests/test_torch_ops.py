@@ -132,16 +132,32 @@ def test_dense_rounds_once_like_reference(dtype, form):
 
 def test_dense_refuses_int8_and_lora():
     """LoRA forms (single graft and the pool, over float or int8 weights)
-    are not ported (A13); int8 weights alone are served."""
-    x = torch.zeros(2, 4)
-    w8 = {"weight": torch.zeros(4, 4, dtype=torch.int8),
-          "scale": torch.ones(1, 4)}
-    assert tquant.maybe_dequant_dense(x, w8).shape == (2, 4)
-    for p in (w8, {"weight": torch.zeros(4, 4)}):
-        with pytest.raises(NotImplementedError, match="A13"):
-            tquant.maybe_dequant_dense(x, {**p, "lora_a": torch.zeros(4, 2)})
-        with pytest.raises(NotImplementedError, match="A13"):
-            tquant.maybe_dequant_dense(x, p, adapter_ids=torch.zeros(2))
+    are served: each adds its delta in float32 before the one rounding
+    (``tests/test_torch_adapters.py`` holds them to the reference)."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+    w8 = {"weight": torch.from_numpy(
+              rng.integers(-127, 128, (4, 4)).astype(np.int8)),
+          "scale": torch.full((1, 4), 0.01)}
+    wf = {"weight": torch.from_numpy(
+        rng.standard_normal((4, 4)).astype(np.float32))}
+    a = torch.from_numpy(rng.standard_normal((4, 2)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 4)).astype(np.float32))
+    for p in (w8, wf):
+        base = tquant.maybe_dequant_dense(x, p)
+        got = tquant.maybe_dequant_dense(
+            x, {**p, "lora_a": a, "lora_b": b, "lora_scale": 0.5})
+        torch.testing.assert_close(got, base + 0.5 * (x @ a) @ b,
+                                   rtol=0, atol=1e-6)
+        pool = {**p, "lora_pool_a": torch.stack(
+                    [torch.zeros_like(a), a], dim=1),   # [in, N, r]
+                "lora_pool_b": torch.stack([torch.zeros_like(b), b]),
+                "lora_pool_scale": torch.tensor([0.0, 0.5])}
+        got = tquant.maybe_dequant_dense(
+            x, pool, adapter_ids=torch.tensor([0, 1]))
+        torch.testing.assert_close(got[0], base[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], (base + 0.5 * (x @ a) @ b)[1],
+                                   rtol=0, atol=1e-6)
 
 
 def test_embed_lookup():

@@ -15,7 +15,9 @@ Phi-3 family's shapes (group 1, head dim 96).
   return values and error texts.
 - The server: a ``MemoryError`` from the registry answers 503
   ``overloaded_error`` with its text, ``/admin/prefetch`` answers 200,
-  404 and 409; each status and body equals the reference server's.
+  404 and 409; ``model@adapter`` resolution, ``POST /v1/adapters`` and
+  ``/v1/models``' adapter entries; each status and body equals the
+  reference server's.
 - Phi-3-shaped parity (2 layers, H = KVH = 4, D 96, E 384, V 512):
   logits against ``helix_tpu.models.llama.forward``, float32 ``atol
   1e-4``; bf16 ``atol 1.2e-2``: logits up to |x| ~ 1.5, and the bf16
@@ -62,6 +64,7 @@ from helix_tpu_torch.models import llama as tllama
 from helix_tpu_torch.ops.quant import quantize_params as tquantize
 from helix_tpu_torch.serving import engine_loop as tloop
 from helix_tpu_torch.serving import registry as tregistry
+from helix_tpu_torch.serving import tokenizer as ttokenizer
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer
 
@@ -156,9 +159,7 @@ def test_host_tier_pages_match_reference(name, block, budget):
     engine = _engine_blocks()[block]
     jcfg, tcfg = jcommon.CATALOG[name], tcommon.CATALOG[name]
     jcache = jengine.EngineConfig(**engine).cache_config(dtype=jcfg.dtype)
-    tcache = tengine.EngineConfig(**{
-        k: v for k, v in engine.items() if not k.startswith("adapter_")
-    }).cache_config(dtype=tcfg.dtype)
+    tcache = tengine.EngineConfig(**engine).cache_config(dtype=tcfg.dtype)
     assert (tres.host_tier_pages(tcfg, tcache, budget)
             == jres.host_tier_pages(jcfg, jcache, budget))
 
@@ -572,6 +573,136 @@ def test_server_residency_surface_matches_reference():
     assert got["models"] == (200, ["a"])
 
 
+def _adapter_models(loop_mod, reg_mod, tok_mod, mk_engine):
+    """A registry of one package with ``tiny-ad`` (3 adapter slots of
+    rank 4, adapter ``a1`` published) and ``tiny-plain`` (no pool)."""
+    rng = np.random.default_rng(12)
+    cfg = tcommon.ModelConfig.tiny(dtype="float32")
+    dims = {"wq": (cfg.hidden_size, cfg.num_heads * cfg.head_dim),
+            "wo": (cfg.num_heads * cfg.head_dim, cfg.hidden_size)}
+    lora = {t: {"lora_a": rng.standard_normal(
+                    (cfg.num_layers, i, 4)).astype(np.float32) * 0.1,
+                "lora_b": rng.standard_normal(
+                    (cfg.num_layers, 4, o)).astype(np.float32) * 0.1}
+            for t, (i, o) in dims.items()}
+    reg = reg_mod.ModelRegistry()
+    for name, slots in (("tiny-ad", 3), ("tiny-plain", 0)):
+        eng = mk_engine(name, dict(GEOMETRY, adapter_pool_slots=slots,
+                                   adapter_rank=4))
+        if slots:
+            eng.publish_adapter("a1", lora, 2.0)
+        reg.register(reg_mod.ServedModel(
+            name=name, loop=loop_mod.EngineLoop(eng, name).start(),
+            tokenizer=tok_mod.ByteTokenizer()))
+    return reg
+
+
+def _t_engine(name, kw):
+    cfg = tcommon.ModelConfig.tiny(dtype="float32", name=name)
+    return tengine.Engine(cfg, tllama.init_params(cfg, 5, device="cpu"),
+                          tengine.EngineConfig(**kw), device="cpu")
+
+
+def _j_engine(name, kw):
+    cfg = jcommon.ModelConfig.tiny(dtype="float32", name=name)
+    return jengine.Engine(cfg, jllama.init_params(cfg, jax.random.PRNGKey(5)),
+                          jengine.EngineConfig(**kw,
+                                               attn_backend="reference"))
+
+
+def _adapter_surface(registry, start) -> dict:
+    chat = {"max_tokens": 2, "temperature": 0,
+            "messages": [{"role": "user", "content": "hi"}]}
+    base, stop = start(registry)
+    out = {}
+    try:
+        for key, model in (("unknown", "tiny-ad@does-not-exist"),
+                           ("hostile", "tiny-ad@../../etc/passwd"),
+                           ("empty", "tiny-ad@"),
+                           ("no_pool", "tiny-plain@a1"),
+                           ("no_model", "nope@a1")):
+            out[key] = _call(base, "/v1/chat/completions",
+                             {**chat, "model": model})
+        status, body = _call(base, "/v1/chat/completions",
+                             {**chat, "model": "tiny-ad@a1"})
+        out["served"] = (status, body["object"],
+                         body["usage"]["completion_tokens"])
+        status, body = _call(base, "/v1/completions", {
+            "model": "tiny-ad@a1", "prompt": "ab", "max_tokens": 2})
+        out["completion"] = (status, body["object"])
+        for key, body in (
+                ("bad_name", {"model": "tiny-ad", "name": "../evil",
+                              "checkpoint": "/nope"}),
+                ("no_ckpt", {"model": "tiny-ad", "name": "a2"}),
+                ("pub_no_model", {"model": "nope", "name": "a2",
+                                  "checkpoint": "/nope"}),
+                ("pub_no_pool", {"model": "tiny-plain", "name": "a2",
+                                 "checkpoint": "/nope"})):
+            out[key] = _call(base, "/v1/adapters", body)
+        status, body = _call(base, "/v1/models")
+        out["models"] = (status, [(m["id"], m.get("parent"))
+                                  for m in body["data"]])
+    finally:
+        stop()
+        for name in registry.names():
+            registry.unregister(name)
+    return out
+
+
+def test_adapter_http_surface_matches_reference():
+    """``model@adapter`` resolution, ``POST /v1/adapters``' checks and
+    ``/v1/models``' adapter entries: each status and body equals the
+    reference server's."""
+    got = _adapter_surface(_adapter_models(
+        tloop, tregistry, ttokenizer, _t_engine), _port_server)
+    want = _adapter_surface(_adapter_models(
+        jloop, jregistry, jtokenizer, _j_engine), _reference_server)
+    assert got == want
+    for key in ("unknown", "hostile", "empty", "no_pool", "no_model"):
+        assert got[key][0] == 404, key
+    assert "not published" in got["unknown"][1]["error"]["message"]
+    assert "does not serve adapters" in got["no_pool"][1]["error"]["message"]
+    assert got["served"][:2] == (200, "chat.completion")
+    assert got["completion"] == (200, "text_completion")
+    assert got["bad_name"][0] == got["no_ckpt"][0] == 400
+    assert got["pub_no_model"][0] == 404 and got["pub_no_pool"][0] == 409
+    assert got["models"] == (200, [("tiny-ad", None),
+                                   ("tiny-ad@a1", "tiny-ad"),
+                                   ("tiny-plain", None)])
+
+
+def test_adapter_checkpoint_publish_answers_a18(monkeypatch):
+    """A checkpoint publish answers 501 with the store's error (training
+    checkpoints come with A18); the runner token gates the route; an
+    adapter request that reaches a pool-less engine is a 400 with the
+    reference engine's text."""
+    from helix_tpu_torch.serving import openai_api
+
+    reg = _adapter_models(tloop, tregistry, ttokenizer, _t_engine)
+    base, stop = _port_server(reg)
+    try:
+        body = {"model": "tiny-ad", "name": "a2", "checkpoint": "/ckpt"}
+        status, out = _call(base, "/v1/adapters", body)
+        assert status == 501 and "A18" in out["error"]["message"]
+        monkeypatch.setenv("HELIX_RUNNER_TOKEN", "s3cret")
+        assert _call(base, "/v1/adapters", body)[0] == 403
+        plain = reg.get("tiny-plain")
+        gen = OpenAIServer(reg).generate(
+            plain, [1, 2, 3], tsampling.SamplingParams(max_tokens=2),
+            adapter="a1")
+        with pytest.raises(openai_api.EngineRequestError) as e:
+            next(gen)
+        status, err, _ = openai_api._engine_error(e.value)
+        jeng = _j_engine("x", dict(GEOMETRY))
+        assert status == 400 and err["error"]["message"] == \
+            jeng.validate_request(jengine.Request(
+                id="r", prompt_tokens=[1, 2, 3], adapter="a1"))
+    finally:
+        stop()
+        for name in reg.names():
+            reg.unregister(name)
+
+
 def test_delegating_registry_takes_either_store():
     reg = tregistry.DelegatingRegistry()
     m = _t_model("plain")
@@ -653,13 +784,14 @@ def test_mesh_of_one_device_is_served(tmp_path):
 def test_hotswap_profile_as_written_refused_before_weights(no_weights):
     """``serve-node --profile profiles/v5e1-hotswap.yaml
     --random-weights``: the Llama entry's ``slo`` (A7) and
-    ``adapter_pool_slots`` (A13) are refused by name, nothing is built."""
+    is refused by name (A7), nothing is built; its adapter fields are
+    served."""
     with pytest.raises(NotImplementedError) as e:
         cli.main(["serve-node", "--profile", HOTSWAP, "--random-weights",
                   "--device", "cpu", "--port", "0"])
     msg = str(e.value)
     assert msg.startswith("meta-llama/Meta-Llama-3-8B-Instruct: ")
-    assert "A7" in msg and "adapter_pool_slots" in msg and "A13" in msg
+    assert "A7" in msg and "adapter" not in msg and "A13" not in msg
     assert "Phi-3" not in msg
 
 
