@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase kernels # build + kernel checks only
     python3 chip_smoke.py --phase hotswap # those + the hot-swap phase
     python3 chip_smoke.py --phase adapters # those + the adapter phase
+    python3 chip_smoke.py --phase checkpoint # those + the checkpoint phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -109,6 +110,22 @@ no result line):
    against the estimates, load times, TTFT and tok/s beside the
    adapter-free run, a traced mixed batch and the pool GEMMs' cost are
    printed;
+4h. checkpoints (``phase_checkpoint``): the same two models written as
+   HF safetensors checkpoints (Llama-3-8B per projection, Phi-3-mini
+   with fused ``qkv_proj`` / ``gate_up_proj``, bf16 weights of seed 0,
+   each with its fixture ``tokenizer.json`` from ``helix_tpu_torch/
+   testing/tokenizer_fixtures``: 23.7 GB under the system temp dir or
+   ``HELIX_SMOKE_CKPT_DIR``, fsynced, dropped from the page cache and
+   deleted at the end) and served by ``serve-node``'s profile path
+   without ``--random-weights``: the loaded weights equal the as-drawn
+   build of seed 0 byte for byte (int8 Llama, bf16 Phi-3), 8 greedy
+   chats give the as-drawn build's ids, the served tokenizers give the
+   CPU tests' digests, a planted ``<|eot_id|>`` stops a chat, three swap
+   cycles free each model before the next build and a prefetched model's
+   chat barely stalls.  Load seconds cold and warm, read and upload
+   GB/s, the int8 load's device peak against the as-drawn build's, the
+   host's anonymous memory during each load, swap seconds, TTFT and encode
+   times are printed;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -912,8 +929,6 @@ def _serve(engine, quantization=None):
     """A started server for MODEL with random weights on the card:
     (served, engine, httpd, base url, registry, memory after build)."""
     from helix_tpu_torch.cli import build_served_model
-    from helix_tpu_torch.serving.openai_api import OpenAIServer
-    from helix_tpu_torch.serving.registry import ModelRegistry
 
     torch.cuda.reset_peak_memory_stats()
     served = build_served_model(MODEL, device="cuda", seed=0,
@@ -922,11 +937,20 @@ def _serve(engine, quantization=None):
     eng = served.loop.engine
     mem = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
            "kv_pool_gib": sum(nbytes(t) for t in eng.cache.carry()) / 2**30}
+    httpd, base, registry = _start_server(served)
+    return served, eng, httpd, base, registry, mem
+
+
+def _start_server(served):
+    """A started OpenAI server for one served model: (httpd, base url,
+    registry)."""
+    from helix_tpu_torch.serving.openai_api import OpenAIServer
+    from helix_tpu_torch.serving.registry import ModelRegistry
+
     registry = ModelRegistry()
     registry.register(served)
     httpd = OpenAIServer(registry).start("127.0.0.1", 0)
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    return served, eng, httpd, base, registry, mem
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", registry
 
 
 def _unserve(served, httpd, registry) -> None:
@@ -2024,8 +2048,8 @@ def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES) -> tuple:
     return prof, cuts
 
 
-def _node(prof, tmpdir, tag, build):
-    """The profile as ``serve-node --profile <copy> --random-weights``
+def _node(prof, tmpdir, tag, build, random_weights=True):
+    """The profile as ``serve-node --profile <copy> [--random-weights]``
     builds it (the cli's own node building, in process), behind a
     started server: (registry, manager, httpd, base url, copy path)."""
     from helix_tpu_torch import cli
@@ -2035,7 +2059,7 @@ def _node(prof, tmpdir, tag, build):
     with open(path, "w") as f:
         json.dump(prof, f)
     args = argparse.Namespace(profile=path, engine=None, model=None,
-                              random_weights=True, seed=0)
+                              random_weights=random_weights, seed=0)
     registry = cli.build_registry(
         cli._model_specs(args, cli._load_profile(path)),
         prof.get("residency"), device="cuda", seed=0, warmup=True,
@@ -2874,6 +2898,527 @@ def phase_adapter_exact(smi) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 4h. checkpoints: both v5e1-hotswap entries from safetensors files on disk
+# ---------------------------------------------------------------------------
+
+# bf16 weight bytes of the two checkpoints
+CKPT_WEIGHT_BYTES = {MODEL: 16_060_522_496, PHI3: 7_642_159_104}
+# the largest single tensor: Llama-3-8B's bf16 embedding
+LLAMA_EMBED_BYTES = 1_050_673_152
+RSS_RISE_LIMIT = 2 << 30
+CKPT_SPECS = (
+    # name, directory, HF model_type, fused qkv / gate_up, fixture, config
+    (MODEL, "llama3-8b-instruct", "llama", False, "llama3", {}),
+    (PHI3, "phi3-mini", "phi3", True, "phi3", {"sliding_window": 2047}),
+)
+
+
+def _rss_anon() -> int:
+    """The process's anonymous resident bytes: ``RssAnon`` of
+    ``/proc/self/status`` where the kernel reports it, else the sum of
+    ``Anonymous:`` over ``/proc/self/smaps`` (file-backed pages, mapped
+    checkpoint files among them, count in neither)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:"):
+                return int(line.split()[1]) * 1024
+    n = 0
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            if line.startswith("Anonymous:"):
+                n += int(line.split()[1]) * 1024
+    return n
+
+
+def _rss_source() -> str:
+    with open("/proc/self/status") as f:
+        if any(line.startswith("RssAnon:") for line in f):
+            return "RssAnon"
+    return "the Anonymous: lines of /proc/self/smaps"
+
+
+class _Sampled:
+    """Around one call: wall seconds, device memory at its start and its
+    peak (``max_memory_allocated`` after a reset), and the host's
+    anonymous memory (``_rss_anon``) at its start and its peak, sampled
+    every 5 ms by a thread."""
+
+    def __init__(self, fn, records):
+        self.fn, self.records = fn, records
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        rec = {"allocated_at_start": torch.cuda.memory_allocated(),
+               "rss_at_start": _rss_anon()}
+        torch.cuda.reset_peak_memory_stats()
+        peak = [rec["rss_at_start"]]
+        done = threading.Event()
+
+        def sample():
+            while not done.wait(0.005):
+                peak[0] = max(peak[0], _rss_anon())
+
+        th = threading.Thread(target=sample, daemon=True)
+        th.start()
+        t0 = time.monotonic()
+        try:
+            out = self.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            done.set()
+            th.join()
+        rec.update(seconds=time.monotonic() - t0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   rss_peak=max(peak[0], _rss_anon()))
+        rec["rise"] = rec["peak"] - rec["allocated_at_start"]
+        rec["rss_rise"] = rec["rss_peak"] - rec["rss_at_start"]
+        self.records.append(rec)
+        return out
+
+
+def _gbps(nbytes, seconds) -> str:
+    if not seconds:
+        return "not measured"
+    return f"{seconds:.3f} s ({nbytes / seconds / 1e9:.2f} GB/s)"
+
+
+def _drop_cache(paths) -> None:
+    """fsync each file and evict it from the page cache, so the next read
+    comes from the disk."""
+    for p in paths:
+        fd = os.open(p, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _write_checkpoints(root, tag) -> dict:
+    """Llama-3-8B (per projection) and Phi-3-mini (fused) as HF
+    checkpoints of ``init_params(cfg, 0)`` in bf16, each with its fixture
+    ``tokenizer.json``, out of the page cache."""
+    import shutil
+
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
+    from helix_tpu_torch.testing.tokenizer_fixtures import FIXTURES
+
+    out = {}
+    for name, sub, model_type, fused, fixture, extra in CKPT_SPECS:
+        d = os.path.join(root, sub)
+        t0 = time.monotonic()
+        params = init_params(CATALOG[name], 0, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        paths = write_checkpoint(d, CATALOG[name], params,
+                                 model_type=model_type, fused=fused,
+                                 config_extra=extra)
+        paths.append(shutil.copy(
+            os.path.join(FIXTURES[fixture], "tokenizer.json"), d))
+        del params
+        _free()
+        t2 = time.monotonic()
+        _drop_cache(paths)
+        t3 = time.monotonic()
+        tensors = sum(os.path.getsize(p) for p in paths
+                      if p.endswith(".safetensors"))
+        out[name] = {"dir": d, "file_bytes": tensors, "files": len(paths),
+                     "draw_s": t1 - t0, "write_s": t2 - t1,
+                     "fsync_drop_s": t3 - t2}
+        log(f"{tag} wrote {name} to {d}: {len(paths) - 2} safetensors "
+            f"files, {tensors} B (bf16 weights {CKPT_WEIGHT_BYTES[name]} B"
+            f" + headers), fused {fused}; draw on the card {t1 - t0:.2f} s,"
+            f" write {t2 - t1:.2f} s ({tensors / (t2 - t1) / 1e9:.2f} GB/s"
+            f" through the page cache), fsync + drop from the page cache "
+            f"{t3 - t2:.2f} s")
+    return out
+
+
+def _tree_diff(a: dict, b: dict) -> tuple:
+    """(tensors compared, paths that differ) of two parameter trees on
+    the card, layer by layer for stacked tensors."""
+    n, bad = 0, []
+
+    def walk(x, y, path):
+        nonlocal n
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                bad.append((path, sorted(set(x) ^ set(y))))
+                return
+            for k in x:
+                walk(x[k], y[k], path + (k,))
+            return
+        if x.shape != y.shape or x.dtype != y.dtype:
+            bad.append((path, "shape or dtype"))
+            return
+        rows = range(x.shape[0]) if path[0] == "layers" else (None,)
+        for i in rows:
+            n += 1
+            if not torch.equal(x if i is None else x[i],
+                               y if i is None else y[i]):
+                bad.append((path, i))
+
+    walk(a, b, ())
+    return n, bad
+
+
+def _batch(base, loop, eng, model, prompts, max_tokens=32) -> tuple:
+    """An admitted 8-chat greedy batch: (texts, TTFT p50 ms, decode
+    tok/s)."""
+    eng.recent_ttfts.clear()
+    dec0 = eng.num_decode_tokens
+    texts, secs, _ = _gated_batch(base, loop, None, max_tokens, bodies=[
+        {"model": model, "messages": [{"role": "user", "content": p}]}
+        for p in prompts])
+    ttfts = sorted(eng.recent_ttfts)
+    return (texts, ttfts[len(ttfts) // 2] * 1e3,
+            (eng.num_decode_tokens - dec0) / secs)
+
+
+def _stop_side(httpd, served) -> None:
+    """Stop a side server and give its model's memory back."""
+    from helix_tpu_torch.engine.residency import release_served_model
+
+    httpd.shutdown()
+    httpd.server_close()
+    release_served_model(served)
+
+
+@_timed
+def phase_checkpoint(smi) -> dict:
+    """4h: ``profiles/v5e1-hotswap.yaml``'s two models served from HF
+    safetensors checkpoints on disk, at full width and depth, through
+    ``serve-node``'s profile path without ``--random-weights``
+    (``_hotswap_copy``'s cuts, the checkpoint paths pointing at files
+    written here).  Steps:
+
+    1. Llama-3-8B (per projection) and Phi-3-mini (fused) written as bf16
+       checkpoints of ``init_params(cfg, 0)`` with the fixture tokenizers,
+       fsynced and dropped from the page cache;
+    2. each model's first chat loads it (cold: from the disk; Phi-3's
+       evicts Llama); its weights equal the as-drawn build of seed 0 byte
+       for byte (int8 Llama: weight, scale, embed_scale; bf16 Phi-3),
+       compared on the card a layer at a time; 8 greedy chats in one
+       admitted batch give the as-drawn build's ids (same tokenizer);
+       the same batch on the as-drawn build with its ``ByteTokenizer``
+       for TTFT and tok/s; the served tokenizer gives ``DIGESTS`` for the
+       fixed conversation and the ~1500-token prompt, and decodes that
+       prompt back;
+    3. ``<|eot_id|>`` planted as Llama's greedy first token (its lm_head
+       column copied from the token greedy picks, twice the scale) stops
+       a chat with ``finish_reason: stop``;
+    4. three swap cycles between the two models (warm: from the page
+       cache), each eviction freeing >= 95% of the model's measured bytes
+       before the next build, then ``/admin/prefetch``: the next chat
+       stalls < 10% of a synchronous load.
+    Limits: the int8 Llama load's device peak above its start no more
+    than the bf16 embedding above the as-drawn int8 build's; the host's
+    anonymous memory (``_rss_anon``) rising < 2 GiB during every load."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.engine.residency import served_model_bytes
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.serving.tokenizer import HFTokenizer
+    from helix_tpu_torch.testing import tokenizer_fixtures as fx
+
+    tag = f"[checkpoint] ({smi})"
+    gib = 2 ** 30
+    root = os.environ.get("HELIX_SMOKE_CKPT_DIR") or tempfile.gettempdir()
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = sum(CKPT_WEIGHT_BYTES.values())
+    log(f"{tag} checkpoint root {root}: {free} B free, the two "
+        f"checkpoints need {need} B of weights; host anonymous memory "
+        f"read from {_rss_source()}")
+    if free < need * 1.02:
+        raise AssertionError(f"{root} has {free} B free, under {need} B")
+    ckdir = tempfile.mkdtemp(prefix="helix-ckpt-", dir=root)
+    loads, draws, builds = [], [], []
+    real_load, real_init = cli.load_params, cli.init_params
+    cli.load_params = _Sampled(real_load, loads)
+    cli.init_params = _Sampled(real_init, draws)
+    node = None
+    out = {}
+    try:
+        t_phase = time.monotonic()
+        written = _write_checkpoints(ckdir, tag)
+        out["written"] = written
+        prof, cuts = _hotswap_copy()
+        for m in prof["models"]:
+            m["checkpoint"] = written[m["name"]]["dir"]
+        for c in cuts:
+            log(f"{tag} cut: {c}")
+        entries = {m["name"]: m for m in prof["models"]}
+
+        def build(**kw):
+            rec = {"name": kw["name"], "allocated_at_start":
+                   torch.cuda.memory_allocated(), "loads_before": len(loads)}
+            served = cli.build_served_model(**kw)
+            rec.update(measured=served_model_bytes(served, headroom=0.0),
+                       split=served.build_seconds,
+                       stats=served.load_stats, load=loads[-1])
+            served.tokenizer = _IdTokenizer(served.tokenizer)
+            builds.append(rec)
+            ld, st = rec["load"], rec["stats"]
+            n = sum(b["name"] == kw["name"] for b in builds)
+            log(f"{tag} loaded {kw['name']} ({'cold' if n == 1 else 'warm'})"
+                ": " + ", ".join(f"{k} {v:.3f} s"
+                                 for k, v in rec["split"].items())
+                + f"; {st['bytes']} B in {st['blocks']} blocks, host read "
+                f"{_gbps(st['bytes'], st['read_seconds'])}, upload "
+                f"{_gbps(st['bytes'], st['upload_seconds'])} of device "
+                f"time, whole load {_gbps(st['bytes'], st['seconds'])}; "
+                "device "
+                f"memory at the load's start {ld['allocated_at_start']} B, "
+                f"peak {ld['peak']} B (+{ld['rise']} B); host anonymous "
+                f"memory {ld['rss_at_start']} B, peak {ld['rss_peak']} B "
+                f"(+{ld['rss_rise']} B); weights + pools measured "
+                f"{rec['measured']} B")
+            return served
+
+        node = _node(prof, ckdir, "checkpoint", build, random_weights=False)
+        _registry, mgr, _httpd, base, _path = node
+        if mgr.resident_names() or builds:
+            raise AssertionError("the residency node built at start")
+
+        def served_of(name):
+            return next(m for m in mgr.list() if m.name == name)
+
+        launches = {"ragged_paged_attention_int8": 0, "flash_attention": 0}
+
+        def counted(fn, *a, **kw):
+            K1.launches = K1_INT8.launches = K2.launches = 0
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            launches["ragged_paged_attention_int8"] += K1_INT8.launches
+            launches["flash_attention"] += K2.launches
+            if K1.launches:
+                raise AssertionError("K1's float form ran on an int8 pool")
+            return r
+
+        prompts = [f"Checkpoint chat {i}: summarise the history of the "
+                   "printing press in plain words please." for i in range(8)]
+        per_model = {}
+        for name, _sub, _mt, _fused, fixture, _x in CKPT_SPECS:
+            quant = entries[name].get("quantization")
+            evicted = mgr.resident_names()
+            before = torch.cuda.memory_allocated()
+            # (2) the first chat loads the model (cold)
+            t0 = time.monotonic()
+            ttft, _n, _f = counted(_ttft_chat, base, name,
+                                   "Say hello in one line.", 8)
+            first_wall = time.monotonic() - t0
+            st = mgr.stats()
+            rec = {"load_s": st["load_seconds"][name],
+                   "swap_s": st["swap_seconds"][name],
+                   "first_ttft_s": ttft, "first_wall_s": first_wall}
+            if evicted:
+                freed = before - builds[-1]["allocated_at_start"]
+                meas = max(b["measured"] for b in builds
+                           if b["name"] == evicted[0])
+                rec["freed"] = freed
+                if freed < 0.95 * meas:
+                    raise AssertionError(
+                        f"evicting {evicted} freed {freed} B (from {before} "
+                        f"to {builds[-1]['allocated_at_start']} B), under "
+                        f"95% of {meas} B")
+            served = served_of(name)
+            eng = served.loop.engine
+            tok = served.tokenizer._tok
+            # the as-drawn build of the same seed, same engine block
+            _free()
+            ref = cli.build_served_model(
+                name, device="cuda", seed=0, quantization=quant,
+                engine={**entries[name]["engine"],
+                        "eos_token_ids": list(tok.eos_ids)})
+            n_cmp, bad = _tree_diff(eng.params, ref.loop.engine.params)
+            rec["draw"] = draws[-1]
+            log(f"{tag} {name}: loaded weights vs the as-drawn build "
+                f"(seed 0, {quant or 'bf16'}): {n_cmp} tensors compared "
+                f"on the card, layer by layer; differ: {bad[:4]}")
+            if bad or not n_cmp:
+                raise AssertionError(f"{name}: loaded weights differ from "
+                                     f"the as-drawn build at {bad[:8]}")
+            # the 8-chat batch: loaded vs as-drawn with the same tokenizer,
+            # and the as-drawn build's own ByteTokenizer
+            texts_l, ttft_l, tps_l = counted(_batch, base, served.loop, eng,
+                                             name, prompts)
+            byte_tok = ref.tokenizer
+            ref.tokenizer = _IdTokenizer(tok)
+            s_httpd, s_base, _reg = _start_server(ref)
+            try:
+                texts_r, ttft_r, tps_r = _batch(
+                    s_base, ref.loop, ref.loop.engine, name, prompts)
+                ref.tokenizer = _IdTokenizer(byte_tok)
+                _texts_b, ttft_b, tps_b = _batch(
+                    s_base, ref.loop, ref.loop.engine, name, prompts)
+            finally:
+                _stop_side(s_httpd, ref)
+            same = sum(a == b for a, b in zip(texts_l, texts_r))
+            log(f"{tag} {name}: 8-chat batch, loaded vs as-drawn (fixture "
+                f"tokenizer): {same} of 8 identical; TTFT p50 {ttft_l:.1f}"
+                f" / {ttft_r:.1f} ms, decode {tps_l:.1f} / {tps_r:.1f} "
+                f"tok/s; as-drawn with the ByteTokenizer: TTFT p50 "
+                f"{ttft_b:.1f} ms, decode {tps_b:.1f} tok/s")
+            if same != 8:
+                raise AssertionError(f"{name}: {8 - same} of 8 chats differ"
+                                     " between the loaded and the as-drawn"
+                                     " build")
+            del ref
+            _free()
+            # the tokenizer on the served path
+            sp = fx.system_prompt()
+            t0 = time.perf_counter()
+            cold_ids = HFTokenizer(os.path.join(written[name]["dir"],
+                                                "tokenizer.json")).encode(sp)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ids = tok.encode(sp)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            tmpl = fx.digest(tok.apply_chat_template(fx.CONVERSATION))
+            dig = {"template": tmpl, "prompt": fx.digest(ids)}
+            back = tok.decode(ids) == sp
+            log(f"{tag} {name}: fixture {fixture}: template digest "
+                f"{tmpl[:16]}..., prompt {len(ids)} tokens, digest "
+                f"{dig['prompt'][:16]}...; equal to the CPU tests' "
+                f"{dig == fx.DIGESTS[fixture]}; decode(encode(prompt)) == "
+                f"prompt {back}; encode {cold_ms:.2f} ms (first, a new "
+                f"tokenizer) / {warm_ms:.2f} ms (again)")
+            if dig != fx.DIGESTS[fixture] or not back or cold_ids != ids:
+                raise AssertionError(f"{name}: tokenizer digests {dig}")
+            rec.update(same=same, ttft_p50_ms=ttft_l, decode_tps=tps_l,
+                       asdrawn_ttft_p50_ms=ttft_r, asdrawn_tps=tps_r,
+                       byte_ttft_p50_ms=ttft_b, byte_tps=tps_b,
+                       encode_ms=(cold_ms, warm_ms), prompt_tokens=len(ids),
+                       tensors_compared=n_cmp)
+            if name == MODEL:
+                # (3) <|eot_id|> stops a generation
+                eot = tok._special("<|eot_id|>")
+                body = {"model": name, "max_tokens": 8, "temperature": 0,
+                        "messages": [{"role": "user", "content": "hi"}]}
+                r0 = json.loads(_post(base + "/v1/chat/completions", body))
+                t_first = int(r0["choices"][0]["message"]["content"]
+                              .split(">")[0].lstrip("<"))
+                head = eng.params["lm_head"]
+                head["weight"][:, eot] = head["weight"][:, t_first]
+                head["scale"][..., eot] = 2 * head["scale"][..., t_first]
+                r1 = json.loads(_post(base + "/v1/chat/completions", body))
+                fin = (r0["choices"][0]["finish_reason"],
+                       r1["choices"][0]["finish_reason"])
+                log(f"{tag} {name}: <|eot_id|> (id {eot}) planted as the "
+                    f"greedy first token (was {t_first}): finish "
+                    f"{fin[0]!r} before, {fin[1]!r} after; content after "
+                    f"{r1['choices'][0]['message']['content']!r}; usage "
+                    f"{r1['usage']}")
+                if fin != ("length", "stop") or \
+                        r1["usage"]["completion_tokens"] > 1:
+                    raise AssertionError(f"<|eot_id|> did not stop: {fin}")
+                del head
+            per_model[name] = rec
+            # nothing here may keep the model alive past its eviction
+            del served, eng, tok
+        out["models"] = per_model
+        llama_load = next(b for b in builds if b["name"] == MODEL)["load"]
+        llama_draw = per_model[MODEL]["draw"]
+        log(f"{tag} int8 Llama: device peak above the load's start "
+            f"{llama_load['rise']} B ({llama_load['rise'] / gib:.3f} GiB)"
+            f" vs the as-drawn build's {llama_draw['rise']} B "
+            f"({llama_draw['rise'] / gib:.3f} GiB); limit +"
+            f"{LLAMA_EMBED_BYTES} B")
+        if llama_load["rise"] > llama_draw["rise"] + LLAMA_EMBED_BYTES:
+            raise AssertionError("the int8 Llama load peaked above its limit")
+        # (4) three swap cycles, warm, then a prefetch
+        swaps = []
+        for c in range(3):
+            for name in (MODEL, PHI3):
+                other = PHI3 if name == MODEL else MODEL
+                b = torch.cuda.memory_allocated()
+                n0 = len(builds)
+                ttft, _n, _f = counted(_ttft_chat, base, name,
+                                       "Say hello in one line.", 8)
+                if len(builds) != n0 + 1:
+                    raise AssertionError(f"cycle {c + 1}: {name} not built")
+                freed = b - builds[-1]["allocated_at_start"]
+                meas = max(x["measured"] for x in builds
+                           if x["name"] == other)
+                st = mgr.stats()
+                swaps.append({"name": name, "ttft_s": ttft,
+                              "swap_s": st["swap_seconds"][name],
+                              "load_s": st["load_seconds"][name],
+                              "freed": freed, "measured": meas})
+                if freed < 0.95 * meas:
+                    raise AssertionError(f"evicting {other} freed {freed} "
+                                         f"B, under 95% of {meas} B")
+            log(f"{tag} cycle {c + 1}: " + "; ".join(
+                f"{s['name'].split('/')[0]} swap {s['swap_s']:.3f} s (load "
+                f"{s['load_s']:.3f} s), first-chat TTFT {s['ttft_s']:.3f} "
+                f"s, freed {s['freed']} B of {s['measured']} B"
+                for s in swaps[-2:]))
+        # Phi-3 is resident: prefetch Llama, then chat to it
+        warm_sync = min(s["load_s"] for s in swaps if s["name"] == MODEL)
+        loads0 = mgr.stats()["loads"]
+        b = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        pre = json.loads(_post(base + "/admin/prefetch", {"model": MODEL}))
+        while mgr.stats()["loads"] == loads0:
+            if time.monotonic() > t0 + 300:
+                raise AssertionError("the prefetch never finished")
+            time.sleep(0.01)
+        ready = time.monotonic() - t0
+        freed = b - builds[-1]["allocated_at_start"]
+        ttft, _n, _f = counted(_ttft_chat, base, MODEL,
+                               "Say hello in one line.", 8)
+        stall = mgr.stats()["swap_seconds"][MODEL]
+        log(f"{tag} /admin/prefetch {pre}: Llama resident after "
+            f"{ready:.3f} s (freed {freed} B first); its next chat stalled "
+            f"swap_seconds {stall:.6f} s = {stall / warm_sync:.5f} of a "
+            f"synchronous warm load ({warm_sync:.3f} s); TTFT {ttft:.3f} s")
+        if pre != {"model": MODEL, "prefetch": "started"} or \
+                stall > 0.1 * warm_sync:
+            raise AssertionError(f"prefetch: {pre}, stalled {stall} s")
+        first = sorted(s["ttft_s"] for s in swaps)
+        out.update(swaps=swaps, prefetch_stall_s=stall, launches=launches,
+                   builds=builds, loads=loads,
+                   swap_ttft_p50_s=first[len(first) // 2])
+        for ld in loads:
+            if ld["rss_rise"] >= RSS_RISE_LIMIT:
+                raise AssertionError(f"host anonymous memory rose "
+                                     f"{ld['rss_rise']} B during a load")
+        secs = {n: [b["stats"]["seconds"] for b in builds if b["name"] == n]
+                for n in (MODEL, PHI3)}
+        log(f"{tag} summary: load seconds cold / warm (median): "
+            + "; ".join(f"{n.split('/')[0]} {v[0]:.3f} / "
+                        f"{statistics.median(v[1:]):.3f} s ({len(v) - 1} "
+                        "warm)" for n, v in secs.items())
+            + f"; swap seconds cold {per_model[PHI3]['swap_s']:.3f} s, "
+            f"warm {sorted(s['swap_s'] for s in swaps)[len(swaps) // 2]:.3f}"
+            f" s (median of {len(swaps)}); TTFT p50 of the first chat after"
+            f" a swap {out['swap_ttft_p50_s']:.3f} s; host anonymous "
+            "memory's rise per load "
+            f"max {max(ld['rss_rise'] for ld in loads)} B; launches "
+            f"{launches}; phase wall {time.monotonic() - t_phase:.1f} s")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel never ran on the path: "
+                                 f"{launches}")
+    finally:
+        cli.load_params, cli.init_params = real_load, real_init
+        if node is not None:
+            node[2].shutdown()
+            node[2].server_close()
+            for name in node[1].resident_names():
+                node[1].evict(name)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        _free()
+    return out
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -2970,11 +3515,12 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
-                    choices=("all", "kernels", "hotswap", "adapters"),
+                    choices=("all", "kernels", "hotswap", "adapters",
+                             "checkpoint"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
-                         "'hotswap' / 'adapters': those and the hot-swap / "
-                         "adapter phase")
+                         "'hotswap' / 'adapters' / 'checkpoint': those and "
+                         "the hot-swap / adapter / checkpoint phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2999,6 +3545,10 @@ def main(argv=None) -> int:
         phase_adapter_exact(dev["smi"])
         launches = dict(ad["launches"])
         by_path = {k: {"adapters": n} for k, n in launches.items()}
+    if args.phase == "checkpoint":
+        ck = phase_checkpoint(dev["smi"])
+        launches = dict(ck["launches"])
+        by_path = {k: {"checkpoint": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -3014,6 +3564,7 @@ def main(argv=None) -> int:
         swap = phase_hotswap(dev["smi"])
         ad = phase_adapters(dev["smi"])
         phase_adapter_exact(dev["smi"])
+        ck = phase_checkpoint(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -3027,13 +3578,16 @@ def main(argv=None) -> int:
             "flash_attention": {
                 "bf16": bf16["launches"]["flash_attention"],
                 "hotswap": swap["launches"]["flash_attention"],
-                "adapters": ad["launches"]["flash_attention"]},
+                "adapters": ad["launches"]["flash_attention"],
+                "checkpoint": ck["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
                     swap["launches"]["ragged_paged_attention_int8"],
                 "adapters":
-                    ad["launches"]["ragged_paged_attention_int8"]},
+                    ad["launches"]["ragged_paged_attention_int8"],
+                "checkpoint":
+                    ck["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)

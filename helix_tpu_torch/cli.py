@@ -1,9 +1,13 @@
 """Command line of the port: ``python -m helix_tpu_torch serve-node``.
 
-The counterpart of the random-init catalog branch of
-``helix-tpu serve-node``: each model is a catalog architecture (or the tiny
-test config for unknown names) with random weights made on the device from
-a seed, served over the OpenAI HTTP surface with the ``ByteTokenizer``.
+The counterpart of ``helix-tpu serve-node``: a profile entry with a
+``checkpoint:`` directory serves that HF safetensors checkpoint (its
+``config.json``, its weights streamed onto the device by
+``models.loader.load_params``, its ``tokenizer.json`` read by the port's
+own ``HFTokenizer``, whose end-of-turn tokens stop generation); any other
+model is a catalog architecture (or the tiny test config for unknown
+names) with random weights made on the device from a seed and the
+``ByteTokenizer``.  Either is served over the OpenAI HTTP surface.
 
     python -m helix_tpu_torch serve-node \\
         --model meta-llama/Meta-Llama-3-8B-Instruct --port 8000 \\
@@ -31,10 +35,14 @@ budget (``hbm_budget_bytes``, else the card's memory) would overflow;
 ``POST /admin/prefetch`` stages one in the background.  Without it every
 entry is built at start.
 
-What is not ported yet is refused at start, before any weights are made,
-naming its ROADMAP item: a ``checkpoint`` (A3) unless
-``--random-weights`` serves it with random weights from ``--seed``, a
-kind other than ``chat`` (A17), an ``slo`` block with or without its
+``--random-weights`` serves a ``checkpoint:`` entry with random weights
+from ``--seed`` in place of its files.  A checkpoint directory that is
+missing, whose config the port cannot compute (mixture-of-experts: A15;
+mrope: A17; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
+unknown activation) or that disagrees with the entry's
+``model_overrides`` is refused at start.  What is not ported yet is
+refused there too, before any weights are made, naming its ROADMAP
+item: a kind other than ``chat`` (A17), an ``slo`` block with or without its
 ``sched`` (A7), a ``mesh`` with an axis above 1 (A15; ``{tp: 1}`` is the
 one device), an ``adapter`` merged into the weights at apply time (it
 restores a training checkpoint: A18, with the node agent, A7), and engine
@@ -74,6 +82,7 @@ from helix_tpu_torch.engine.residency import (
 )
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
 from helix_tpu_torch.models.llama import init_params
+from helix_tpu_torch.models.loader import load_config, load_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.registry import (
@@ -81,7 +90,7 @@ from helix_tpu_torch.serving.registry import (
     ModelRegistry,
     ServedModel,
 )
-from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+from helix_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
 log = logging.getLogger("helix_tpu_torch")
 
@@ -96,17 +105,40 @@ def model_config(name: str, overrides: dict | None = None) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
+def checkpoint_config(checkpoint: str, name: str,
+                      overrides: dict | None = None) -> ModelConfig:
+    """The config of a checkpoint directory, served as ``name``; raises
+    if the directory is missing, the port cannot compute the config
+    (``NotImplementedError``, naming the ROADMAP item) or a
+    ``model_overrides`` field disagrees with it (``ValueError``: a
+    checkpoint's architecture is fixed by its ``config.json``)."""
+    cfg = load_config(checkpoint, name=name)
+    wrong = {k: (v, getattr(cfg, k, None))
+             for k, v in (overrides or {}).items()
+             if getattr(cfg, k, object()) != v}
+    if wrong:
+        raise ValueError(
+            f"{name}: model_overrides disagree with {checkpoint}/config.json "
+            "(a checkpoint's architecture is fixed by its config): "
+            + ", ".join(f"{k} {v!r} != {c!r}" for k, (v, c) in wrong.items()))
+    return cfg
+
+
 def build_served_model(
     name: str, *, device=DEFAULT_DEVICE, engine: dict | None = None,
     model_overrides: dict | None = None, seed: int = 0,
     context_length: int | None = None, warmup: bool = True,
-    quantization: str | None = None,
+    quantization: str | None = None, checkpoint: str | None = None,
 ) -> ServedModel:
-    """Random-init weights on ``device`` (int8 weights with
-    ``quantization="int8"``), an ``Engine`` and a started ``EngineLoop``
-    for one model; ``build_seconds`` holds the time of each stage (init
-    with its quantization, engine, warmup).  The served path always takes the
-    kernels: ``attn_backend`` is refused here."""
+    """An ``Engine`` and a started ``EngineLoop`` for one model: the
+    weights of ``checkpoint`` (an HF safetensors directory, with its
+    ``tokenizer.json`` when it has one) or random-init weights from
+    ``seed``, on ``device`` (int8 weights with ``quantization="int8"``,
+    quantized as each weight lands or is drawn).  ``build_seconds`` holds
+    the time of each stage (init or load with its quantization, engine,
+    warmup), ``load_stats`` the load's bytes and read / upload seconds.
+    The served path always takes the kernels: ``attn_backend`` is refused
+    here."""
     if "attn_backend" in (engine or {}):
         raise ValueError(
             "attn_backend is for comparisons only; a served model always "
@@ -117,8 +149,13 @@ def build_served_model(
             f"quantization {quantization!r}: expected None or 'int8'"
         )
     dev = resolve_device(device)
-    cfg = model_config(name, model_overrides)
-    tok = ByteTokenizer()
+    if checkpoint:
+        # config, overrides and tokenizer before any weights are made
+        cfg = checkpoint_config(checkpoint, name, model_overrides)
+        tok = load_tokenizer(checkpoint, name)
+    else:
+        cfg = model_config(name, model_overrides)
+        tok = ByteTokenizer()
     eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
     eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
     host_env = os.environ.get("HELIX_KV_HOST_POOL_BYTES", "")
@@ -133,9 +170,18 @@ def build_served_model(
     # not ported yet raises at once, not after minutes of init
     ecfg = EngineConfig(**eng_kw)
     stamps = [_stamp(dev)]
-    # int8: each weight quantized as it is drawn, so the build never
-    # holds the bf16 model (quantize_params of the same draws, to the byte)
-    params = init_params(cfg, seed, device=dev, quantization=quantization)
+    # int8: each weight quantized as it lands or is drawn, so the build
+    # never holds the bf16 model (quantize_params of the same weights, to
+    # the byte)
+    load_stats = None
+    if checkpoint:
+        load_stats = {}
+        cfg, params = load_params(checkpoint, cfg, device=dev,
+                                  quantization=quantization,
+                                  stats=load_stats)
+    else:
+        params = init_params(cfg, seed, device=dev,
+                             quantization=quantization)
     stamps.append(_stamp(dev))
     eng = Engine(cfg, params, ecfg, rng_seed=seed, device=dev)
     stamps.append(_stamp(dev))
@@ -147,11 +193,11 @@ def build_served_model(
         admission_timeout=_env_seconds("HELIX_ADMISSION_TIMEOUT"),
         preempt_stall_seconds=_env_seconds("HELIX_PREEMPT_STALL_SECONDS"),
     ).start()
-    split = dict(zip(("init", "engine", "warmup"),
+    split = dict(zip(("load" if checkpoint else "init", "engine", "warmup"),
                      (b - a for a, b in zip(stamps, stamps[1:]))))
     return ServedModel(name=name, loop=loop, tokenizer=tok,
                        context_length=context_length or eng.max_context_len,
-                       build_seconds=split)
+                       build_seconds=split, load_stats=load_stats)
 
 
 def _stamp(dev) -> float:
@@ -200,7 +246,11 @@ def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
     ROADMAP item (empty: the entry is served)."""
     out = []
     if m.get("checkpoint") and not random_weights:
-        out.append("checkpoint loading is not ported yet (ROADMAP A3)")
+        try:
+            checkpoint_config(m["checkpoint"], m["name"],
+                              m.get("model_overrides"))
+        except (OSError, ValueError, NotImplementedError) as e:
+            out.append(str(e))
     if m.get("kind", "chat") != "chat":
         out.append(f"kind {m.get('kind')!r} is not ported yet (ROADMAP A17)")
     if m.get("slo"):
@@ -242,14 +292,16 @@ def _model_specs(args, profile: dict | None = None) -> list[dict]:
         if why:
             refused.append(f"{m['name']}: " + "; ".join(why))
             continue
-        if m.get("checkpoint"):
+        checkpoint = m.get("checkpoint")
+        if checkpoint and random_weights:
             log.warning("%s: serving random weights (seed %d) in place of "
                         "checkpoint %s", m["name"], getattr(args, "seed", 0),
-                        m["checkpoint"])
+                        checkpoint)
+            checkpoint = None
         specs.append(dict(
             name=m["name"], quantization=m.get("quantization"), engine=eng,
             model_overrides=m.get("model_overrides", {}),
-            context_length=m.get("context_length"),
+            context_length=m.get("context_length"), checkpoint=checkpoint,
         ))
     if refused:
         raise NotImplementedError("; ".join(refused))
@@ -263,8 +315,9 @@ def build_registry(specs: list, residency: dict | None = None, *,
     (``build(name=..., device=..., seed=..., warmup=..., **spec)``); with
     it a ``ResidencyManager`` registers every name and builds nothing yet.
     Its budget is ``hbm_budget_bytes`` or the card's memory, and its
-    estimate takes the catalog config of the name, the entry's engine
-    block and its quantization, as the reference node agent's does."""
+    estimate takes the checkpoint's ``config.json`` (else the catalog
+    config of the name), the entry's engine block and its quantization,
+    as the reference node agent's does."""
     if not residency:
         inner = ModelRegistry()
         for spec in specs:
@@ -283,7 +336,9 @@ def build_registry(specs: list, residency: dict | None = None, *,
 
     def estimate(name: str) -> int:
         spec = by_name[name]
-        return estimate_model_bytes(model_config(name), spec["engine"],
+        cfg = (load_config(spec["checkpoint"], name=name)
+               if spec.get("checkpoint") else model_config(name))
+        return estimate_model_bytes(cfg, spec["engine"],
                                     spec.get("quantization"))
 
     mgr = ResidencyManager(budget, build_one, estimate=estimate)

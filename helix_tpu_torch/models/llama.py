@@ -54,10 +54,15 @@ def check_supported(cfg: ModelConfig) -> None:
         )
 
 
+# the HF ``hidden_act`` names the forward computes (every gelu form is
+# the tanh approximation, as in the reference)
+ACTIVATIONS = ("silu", "gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh")
+
+
 def _act(name: str):
     if name == "silu":
         return torch.nn.functional.silu
-    if name in ("gelu", "gelu_new", "gelu_pytorch_tanh", "gelu_tanh"):
+    if name in ACTIVATIONS:
         return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
     raise ValueError(f"unknown activation {name}")
 

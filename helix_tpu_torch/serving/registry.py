@@ -28,6 +28,9 @@ class ServedModel:
     context_length: Optional[int] = None
     # seconds of each stage of the build (cli.build_served_model)
     build_seconds: Optional[dict] = None
+    # a checkpoint load's bytes and read / upload seconds
+    # (models.loader.load_params)
+    load_stats: Optional[dict] = None
 
 
 class ModelRegistry:

@@ -6,8 +6,10 @@ keeps its own so it imports nothing from the JAX package.
 The reference delegates tokenization to vLLM inside its containers; here the
 engine works on token ids, so the serving layer owns the text boundary:
 
-- ``HFTokenizer`` wraps a local ``tokenizer.json`` (HuggingFace `tokenizers`
-  runtime — no network fetch; checkpoints are mounted like model weights).
+- ``HFTokenizer`` reads a local ``tokenizer.json`` (checkpoints are mounted
+  like model weights; no network fetch) with the port's pure-Python
+  reader, ``serving/tokenizer_json.py``, in place of the reference's
+  ``tokenizers`` runtime: same ids, same text.
 - ``ByteTokenizer`` is a dependency-free UTF-8 byte fallback used by tests
   and as a safety net when a model directory ships no tokenizer.
 - Chat templating implements the Llama-3 instruct wire format natively plus
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import os
 from typing import Optional, Protocol, Sequence
+
+from helix_tpu_torch.serving.tokenizer_json import TokenizerJSON
 
 
 class Tokenizer(Protocol):
@@ -78,18 +82,12 @@ def _content_text(content) -> str:
 
 
 class HFTokenizer:
-    """Wraps a local `tokenizers` fast-tokenizer file."""
+    """A local ``tokenizer.json`` read by the port's own code
+    (``serving/tokenizer_json.py``): the ids and text the ``tokenizers``
+    package gives for the same file, without that package."""
 
     def __init__(self, path: str, model_name: str = ""):
-        try:
-            from tokenizers import Tokenizer as _Tok
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: the `tokenizers` package is needed to load a "
-                "tokenizer.json and is not installed"
-            ) from e
-
-        self._tok = _Tok.from_file(path)
+        self._tok = TokenizerJSON(path)
         self.model_name = model_name
         self._eos_ids = tuple(
             i
@@ -106,14 +104,14 @@ class HFTokenizer:
 
     @property
     def vocab_size(self) -> int:
-        return self._tok.get_vocab_size()
+        return self._tok.vocab_size
 
     @property
     def eos_ids(self) -> tuple:
         return self._eos_ids
 
     def encode(self, text: str) -> list:
-        return self._tok.encode(text, add_special_tokens=False).ids
+        return self._tok.encode(text)
 
     def decode(self, ids: Sequence[int]) -> str:
         return self._tok.decode(list(ids), skip_special_tokens=True)
@@ -168,7 +166,8 @@ class HFTokenizer:
 
 
 def load_tokenizer(model_dir: Optional[str], model_name: str = ""):
-    """HF fast tokenizer if the model dir ships one, else byte fallback."""
+    """The model dir's ``tokenizer.json`` if it ships one, else the byte
+    fallback."""
     if model_dir:
         p = os.path.join(model_dir, "tokenizer.json")
         if os.path.exists(p):

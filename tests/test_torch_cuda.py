@@ -903,3 +903,99 @@ def test_eviction_returns_device_memory(cuda):
         after = torch.cuda.memory_allocated()
     assert after == before, (before, after)
     assert served.loop.stopped and served.loop.engine.params is None
+
+
+def _tiny_checkpoint(tmp_path, fused=False):
+    """A small bf16 HF checkpoint (4 layers, vocab 3072) written from a
+    CPU draw: (dir, config, the tree written)."""
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
+
+    cfg = ModelConfig.tiny(num_layers=4, vocab_size=3072, hidden_size=256,
+                           num_heads=4, num_kv_heads=4 if fused else 2,
+                           head_dim=64, intermediate_size=512)
+    params = init_params(cfg, 5, device="cpu")
+    d = str(tmp_path / "ckpt")
+    write_checkpoint(d, cfg, params, fused=fused,
+                     model_type="phi3" if fused else "llama",
+                     max_shard_bytes=2_000_000)
+    return d, cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_load_equals_quantize_on_card(cuda, tmp_path, monkeypatch,
+                                           fused):
+    """Each weight quantized as it lands on the card (staging blocks cut
+    small, so a projection spans several) equals ``quantize_tensor`` /
+    ``quantize_rows`` of the bf16 load, byte for byte; the bf16 load
+    equals the tree written."""
+    from helix_tpu_torch.models import loader
+
+    monkeypatch.setattr(loader, "STAGE_BYTES", 96 << 10)
+    d, cfg, params = _tiny_checkpoint(tmp_path, fused)
+    _, bf16 = loader.load_params(d, device=cuda)
+    stats = {}
+    _, q8 = loader.load_params(d, device=cuda, quantization="int8",
+                               stats=stats)
+    assert stats["blocks"] > 4 * cfg.num_layers and stats["bytes"] > 0
+    for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        want = tquant.quantize_tensor(bf16["layers"][k]["weight"])
+        assert torch.equal(q8["layers"][k]["weight"], want["weight"]), k
+        assert torch.equal(q8["layers"][k]["scale"], want["scale"]), k
+        assert torch.equal(bf16["layers"][k]["weight"].cpu(),
+                           params["layers"][k]["weight"]), k
+    codes, scale = tquant.quantize_rows(bf16["embed"]["weight"])
+    assert torch.equal(q8["embed"]["weight"], codes)
+    assert torch.equal(q8["embed"]["embed_scale"], scale)
+    want = tquant.quantize_tensor(bf16["lm_head"]["weight"])
+    assert torch.equal(q8["lm_head"]["weight"], want["weight"])
+
+
+@pytest.mark.cuda
+def test_load_makes_no_sync_call_per_layer(cuda, tmp_path, monkeypatch):
+    """A load under ``set_sync_debug_mode("warn")``: the staging ring
+    waits on events (one per block, the copy it needs), and nothing else
+    synchronises; the count of synchronising calls is printed."""
+    import warnings
+
+    from helix_tpu_torch.models import loader
+
+    monkeypatch.setattr(loader, "STAGE_BYTES", 96 << 10)
+    d, cfg, _ = _tiny_checkpoint(tmp_path)
+    loader.load_params(d, device=cuda, quantization="int8")   # warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            stats = {}
+            loader.load_params(d, device=cuda, quantization="int8",
+                               stats=stats)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    print(f"synchronising calls in a load of {cfg.num_layers} layers, "
+          f"{stats['blocks']} blocks: {len(syncs)}")
+    assert len(syncs) == 0, [str(w.message) for w in syncs]
+
+
+@pytest.mark.cuda
+def test_truncated_shard_fails_before_any_upload(cuda, tmp_path):
+    import os
+
+    from helix_tpu_torch.models import loader
+    from helix_tpu_torch.models.st_format import FormatError
+
+    d, _cfg, _ = _tiny_checkpoint(tmp_path)
+    shard = sorted(f for f in os.listdir(d) if f.endswith(".safetensors"))[1]
+    path = os.path.join(d, shard)
+    raw = open(path, "rb").read()
+    open(path, "wb").write(raw[:-1])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(FormatError, match="truncated"):
+        loader.load_params(d, device=cuda, quantization="int8")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

@@ -682,7 +682,8 @@ def test_profile_entry_keeps_its_host_pool_bytes():
     weights are made.  With that block cut, its engine block reaches
     ``EngineConfig`` with its 16 GiB ``host_pool_bytes`` and its 8 adapter
     slots of rank 16, Phi-3's with 8 GiB.  Without ``--random-weights``
-    the entries' checkpoints raise, naming A3."""
+    the entries' checkpoint directories, absent here, are refused before
+    any weights are made."""
     import copy
     import os
 
@@ -707,7 +708,8 @@ def test_profile_entry_keeps_its_host_pool_bytes():
     assert (cfg.adapter_pool_slots, cfg.adapter_rank) == (8, 16)
     assert tengine.EngineConfig(**phi["engine"]).host_pool_bytes == 1 << 33
     args.random_weights = False
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError,
+                       match="llama3-8b-instruct.*does not exist"):
         _model_specs(args, cut)
     # the command itself: the entry is refused for its slo (A7) before
     # any weights are made

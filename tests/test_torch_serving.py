@@ -154,16 +154,25 @@ def test_errors_have_openai_shape(server):
     assert e.value.code == 400
 
 
+# packages the card's machine does not have: the port's modules and
+# chip_smoke.py import none of them
+BANNED = ("jax", "helix_tpu", "safetensors", "tokenizers", "regex",
+          "ml_dtypes")
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, in a fresh interpreter: neither jax nor
-    any helix_tpu module may load."""
+    """Every module of the port, in a fresh interpreter: neither jax, nor
+    any helix_tpu module, nor ``safetensors``, ``tokenizers``, ``regex``
+    or ``ml_dtypes`` may load; ``chip_smoke.py`` imports none of them
+    either (its import statements, read from its source)."""
+    import ast
+
     code = (
         "import pkgutil, sys, importlib, helix_tpu_torch\n"
         "for m in pkgutil.walk_packages(helix_tpu_torch.__path__, "
         "'helix_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
-        " or n == 'helix_tpu' or n.startswith('helix_tpu.')]\n"
+        f"bad = [n for n in sys.modules if n.split('.')[0] in {BANNED!r}]\n"
         "assert not bad, bad\n"
         "print('clean', len([n for n in sys.modules "
         "if n.startswith('helix_tpu_torch')]))\n"
@@ -173,6 +182,14 @@ def test_port_imports_no_jax():
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert "helix_tpu_torch.cli" in names
+    assert not {n for n in names if n.split(".")[0] in BANNED}
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
