@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase hotswap # those + the hot-swap phase
     python3 chip_smoke.py --phase adapters # those + the adapter phase
     python3 chip_smoke.py --phase checkpoint # those + the checkpoint phase
+    python3 chip_smoke.py --phase slo     # those + the scheduler phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -126,6 +127,21 @@ no result line):
    GB/s, the int8 load's device peak against the as-drawn build's, the
    host's anonymous memory during each load, swap seconds, TTFT and encode
    times are printed;
+4i. the scheduler, SLO accounting and /metrics (``phase_slo``): the
+   same Llama entry exactly as the profile writes it, its ``slo`` block
+   with the WFQ ``sched`` included, served by ``serve-node``'s profile
+   path: 8 greedy chats admitted together give the same ids as on a node
+   whose entry drops ``slo`` (both traced); 80 ~1500-token batch requests
+   of tenant ``flood`` get exactly 16 429 ``queue_full`` answers with
+   ``Retry-After: 1`` and 16 interactive chats of tenant ``chat`` none;
+   every chat is admitted before any flood request under WFQ and after
+   them under ``HELIX_SCHED_POLICY=fifo``; the prefill budget, scraped
+   from ``/metrics`` every 0.5 s, stays in [512, 4096]; every scrape
+   parses and matches ``helix_tpu_torch/testing/metric_families.json``;
+   a poisoned request among 8 chats is quarantined alone
+   (``engine_step`` fault), and at 2 layers in float32 the survivors'
+   tokens equal an unpoisoned run's.  Any other engine step failure in
+   the run fails the smoke;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -177,6 +193,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the phase running now, and every engine step failure of the run as
+# (phase, loop name, error): the only ones allowed are phase 4i's planted
+# faults (``main`` checks)
+PHASE = [""]
+STEP_FAILURES: list = []
+
+
 def _timed(fn):
     """Log a phase's wall seconds when it returns (the smoke's time
     budget is shared by every phase)."""
@@ -185,12 +208,40 @@ def _timed(fn):
     @functools.wraps(fn)
     def run(*args, **kwargs):
         t0 = time.monotonic()
-        out = fn(*args, **kwargs)
+        outer, PHASE[0] = PHASE[0], fn.__name__
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            PHASE[0] = outer
         log(f"[time] {fn.__name__}{args if args else ''}: "
             f"{time.monotonic() - t0:.1f} s")
         return out
 
     return run
+
+
+def _watch_step_failures() -> None:
+    """Record every engine step failure with its phase: the loop's retry
+    and quarantine ladder would otherwise serve on past a kernel fault."""
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+
+    handle = EngineLoop._handle_step_failure
+
+    def watched(self, e, *args, **kwargs):
+        STEP_FAILURES.append((PHASE[0], self.name, repr(e)[:300]))
+        return handle(self, e, *args, **kwargs)
+
+    EngineLoop._handle_step_failure = watched
+
+
+def _check_step_failures() -> None:
+    bad = [f for f in STEP_FAILURES
+           if not (f[0] == "phase_slo" and "injected engine-step fault" in f[2])]
+    log(f"[steps] engine step failures: {len(STEP_FAILURES)}, all of them "
+        f"phase 4i's planted faults: {not bad}")
+    if bad:
+        raise AssertionError(f"engine steps failed outside phase 4i's "
+                             f"planted fault: {bad[:5]}")
 
 
 # GPU clock cycles of the sleep kernel queued ahead of each timed call
@@ -2022,20 +2073,23 @@ HOTSWAP_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PHI3_CUT_PAGES = 1024
 
 
-def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES) -> tuple:
+def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES, llama_as_written=False) -> tuple:
     """``profiles/v5e1-hotswap.yaml`` with the cuts this phase makes: the
-    Llama entry's ``slo`` (A7) and adapter pool dropped (the phase holds
-    the manager to the reference's estimate, which has no pool; phase 4g
-    serves it), and Phi-3's pool cut to ``phi3_pages`` (unless it is
-    None).  Returns (profile, the cuts made)."""
+    Llama entry's ``slo`` (served in phase 4i) and adapter pool dropped
+    (the phase holds the manager to the reference's estimate, which has no
+    pool; phase 4g serves it) unless ``llama_as_written``, and Phi-3's pool
+    cut to ``phi3_pages`` (unless it is None).  Returns (profile, the cuts
+    made)."""
     from helix_tpu_torch.cli import _load_profile
 
     prof = _load_profile(HOTSWAP_PROFILE)
     cuts = []
     for m in prof["models"]:
+        if llama_as_written and m["name"] == MODEL:
+            continue
         if "slo" in m:
             del m["slo"]
-            cuts.append(f"{m['name']}: slo dropped (A7)")
+            cuts.append(f"{m['name']}: slo dropped (served in phase 4i)")
         for k in ("adapter_pool_slots", "adapter_rank"):
             if k in m["engine"]:
                 del m["engine"][k]
@@ -3419,6 +3473,548 @@ def phase_checkpoint(smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4i. the scheduler, SLO accounting and /metrics: the Llama entry as written
+# ---------------------------------------------------------------------------
+
+FLOOD, FLOOD_SHED, CHATS = 80, 16, 16
+FLOOD_PROMPT_TOKENS = 1500
+
+
+def _tenant_chat(base, content, max_tokens, tenant, cls) -> dict:
+    """One streamed chat with the tenant and class headers: its status,
+    TTFT, token count and finish reason, or the 429's Retry-After and
+    error body."""
+    body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "messages": [{"role": "user",
+                                          "content": content}]}
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 "X-Helix-Tenant": tenant, "X-Helix-Class": cls})
+    t0 = time.monotonic()
+    out = {"tenant": tenant, "status": 200, "ttft": None, "tokens": 0,
+           "finish": None}
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                frame = json.loads(line[6:])
+                if "error" in frame:
+                    raise AssertionError(f"stream failed: {frame}")
+                ch = frame["choices"][0]
+                if ch["delta"].get("content") and out["ttft"] is None:
+                    out["ttft"] = time.monotonic() - t0
+                out["tokens"] += ch["delta"].get("content", "").count("<")
+                out["finish"] = ch["finish_reason"] or out["finish"]
+    except urllib.error.HTTPError as e:
+        out.update(status=e.code, retry_after=e.headers.get("Retry-After"),
+                   error=json.loads(e.read())["error"])
+    return out
+
+
+def _flood_prompt(i) -> str:
+    """~FLOOD_PROMPT_TOKENS tokens under the byte tokenizer."""
+    head = f"Batch job {i}: summarise this log. "
+    return head + "x" * (FLOOD_PROMPT_TOKENS - len(head) - 40)
+
+
+def _tenant_traffic(base, loop, tag) -> dict:
+    """Phase 4i's contended traffic, with the loop held as ``_gated_batch``
+    holds it: tenant ``flood`` (class ``batch``) submits FLOOD requests of
+    ~1500 tokens one after another, then tenant ``chat`` (class
+    ``interactive``) submits CHATS short chats; then the loop is released.
+    /metrics is scraped every 0.5 s until every request has answered.
+    Returns the answers, the admission order (tenant per confirmed
+    admission), the scrapes and the wall seconds."""
+    drain = loop._drain_inbox
+    gate = threading.Event()
+    loop._drain_inbox = lambda: drain() if gate.is_set() else None
+    order = []
+    note = loop.sched.note_admitted
+
+    def spy(req):
+        order.append(req.tenant)
+        note(req)
+
+    loop.sched.note_admitted = spy
+    answers, threads = [], []
+
+    def send(content, max_tokens, tenant, cls):
+        answers.append(_tenant_chat(base, content, max_tokens, tenant, cls))
+
+    def submit_one(args):
+        n0, a0 = loop._inbox.qsize(), len(answers)
+        threads.append(threading.Thread(target=send, args=args))
+        threads[-1].start()
+        deadline = time.monotonic() + 60
+        while loop._inbox.qsize() == n0 and len(answers) == a0:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: a request was neither queued "
+                                     "nor answered")
+            time.sleep(0.002)
+
+    scrapes, stop = [], threading.Event()
+
+    def scraper():
+        while not stop.is_set():
+            t0 = time.monotonic()
+            text = urllib.request.urlopen(base + "/metrics",
+                                          timeout=60).read().decode()
+            scrapes.append({"ms": (time.monotonic() - t0) * 1e3,
+                            "text": text,
+                            "budget": loop.saturation()[
+                                "prefill_budget_tokens"],
+                            "shrinks": loop.sched.budget_shrinks,
+                            "burn": loop.slo.latency_fast_burn()})
+            stop.wait(0.5)
+
+    try:
+        for i in range(FLOOD):
+            submit_one((_flood_prompt(i), 8, "flood", "batch"))
+        n_flood_answered = len(answers)
+        for i in range(CHATS):
+            submit_one((f"Chat {i}: say hello in one line.", 16, "chat",
+                        "interactive"))
+        scr = threading.Thread(target=scraper)
+        scr.start()
+        t0 = time.monotonic()
+        gate.set()
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+        stop.set()
+        scr.join(60)
+    finally:
+        gate.set()
+        stop.set()
+        loop._drain_inbox = drain
+        loop.sched.note_admitted = note
+    return {"answers": answers, "order": order, "scrapes": scrapes,
+            "wall": wall, "early_answers": n_flood_answered}
+
+
+def _pcts(xs) -> tuple:
+    xs = sorted(xs)
+    if not xs:
+        return (float("nan"), float("nan"))
+    return (xs[len(xs) // 2], xs[min(len(xs) - 1, int(len(xs) * 0.95))])
+
+
+def _traced_batch(base, loop, prompts, max_tokens) -> tuple:
+    """``_gated_batch`` under ``torch.profiler``: (texts, seconds, the
+    device-busy ms summed over kernels, the idle share of the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        texts, secs, _ = _gated_batch(base, loop, prompts, max_tokens)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return texts, secs, busy, 1.0 - busy / (secs * 1e3)
+
+
+# host seconds and batch counts of each loop's SLO notes, by id(loop.slo)
+SLO_NOTES: dict = {}
+
+
+def _time_slo_notes() -> None:
+    """Time every loop's SLO notes from outside the loop: the per-token
+    ``_observe_emit`` (latency histograms, the first-token note) and the
+    per-batch ``note_tokens``, summed per delivery batch."""
+    from helix_tpu_torch.obs.slo import SLOObserver
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+
+    observe, deliver = EngineLoop._observe_emit, EngineLoop._deliver
+    note_tokens = SLOObserver.note_tokens
+
+    def _charge(key, seconds, batches=0):
+        acc = SLO_NOTES.setdefault(key, [0.0, 0])
+        acc[0] += seconds
+        acc[1] += batches
+
+    def timed_observe(self, req, finished):
+        t0 = time.perf_counter()
+        try:
+            return observe(self, req, finished)
+        finally:
+            _charge(id(self.slo), time.perf_counter() - t0)
+
+    def timed_note_tokens(self, tenant, n):
+        t0 = time.perf_counter()
+        try:
+            return note_tokens(self, tenant, n)
+        finally:
+            _charge(id(self), time.perf_counter() - t0)
+
+    def counted_deliver(self, events):
+        _charge(id(self.slo), 0.0, 1)
+        return deliver(self, events)
+
+    EngineLoop._observe_emit = timed_observe
+    EngineLoop._deliver = counted_deliver
+    SLOObserver.note_tokens = timed_note_tokens
+
+
+def _host_snapshot(loop) -> dict:
+    """The loop's scheduler-pass seconds and passes (``stats()``) and its
+    SLO-note seconds and batches (``_time_slo_notes``)."""
+    h = dict(loop.stats()["host_seconds"])
+    h["slo_notes"], h["slo_note_batches"] = SLO_NOTES.get(id(loop.slo),
+                                                          (0.0, 0))
+    return h
+
+
+def _host_us(loop, before: dict) -> dict:
+    """Host µs per scheduler pass and per SLO-note batch since ``before``
+    (a ``_host_snapshot``)."""
+    now = _host_snapshot(loop)
+    passes = now["sched_passes"] - before["sched_passes"]
+    notes = now["slo_note_batches"] - before["slo_note_batches"]
+    return {"sched_pass_us": (now["sched_pass"] - before["sched_pass"])
+            / max(1, passes) * 1e6, "sched_passes": passes,
+            "slo_note_us": (now["slo_notes"] - before["slo_notes"])
+            / max(1, notes) * 1e6, "slo_note_batches": notes}
+
+
+def _metric(text, name, **labels) -> float:
+    want = name + "{" + ",".join(f'{k}="{v}"' for k, v in labels.items())
+    for line in text.splitlines():
+        if line.startswith(want + "}") or line.startswith(want + ","):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"{name} {labels} not in the scrape")
+
+
+def _poisoned_script(loop, mod, prompts, max_tokens, poison=True) -> dict:
+    """8 chats and (with ``poison``) one request whose id contains
+    ``poison`` submitted in process, admitted together; returns
+    ``{id: (tokens, finish_reason, error)}``."""
+    from helix_tpu_torch.engine.engine import Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+
+    drain = loop._drain_inbox
+    gate = threading.Event()
+    loop._drain_inbox = lambda: drain() if gate.is_set() else None
+    out, done = {}, {}
+
+    def collector(rid):
+        toks = []
+
+        def on_event(ev):
+            if ev.token_id >= 0 and not ev.error:
+                toks.append(ev.token_id)
+            if ev.finished:
+                out[rid] = (toks, ev.finish_reason, ev.error)
+                done[rid].set()
+        return on_event
+
+    ids = [f"q-{i}" for i in range(len(prompts))]
+    if poison:
+        ids.append("q-poison")
+    try:
+        for i, rid in enumerate(ids):
+            done[rid] = threading.Event()
+            loop.submit(Request(
+                id=rid, prompt_tokens=list(prompts[i % len(prompts)]),
+                sampling=SamplingParams(temperature=0.0,
+                                        max_tokens=max_tokens)),
+                collector(rid))
+        gate.set()
+        for rid in ids:
+            if not done[rid].wait(300):
+                raise AssertionError(f"{mod}: {rid} never finished")
+    finally:
+        gate.set()
+        loop._drain_inbox = drain
+    return out
+
+
+@_timed
+def phase_slo(smi) -> dict:
+    """The ``v5e1-hotswap`` Llama entry exactly as the profile writes it
+    (int8 weights and KV, 16 slots, 3968 pages, spec 4, the 16 GiB host
+    tier, 8 adapter slots of rank 16, and its ``slo`` block with the WFQ
+    ``sched``), served through ``serve-node``'s profile path with random
+    weights (Phi-3 keeps phase 4f's 1024-page cut).  Steps: (1) the
+    node's served config; (2) 8 greedy chats admitted together give the
+    same ids as on a node whose Llama entry drops ``slo``, both traced;
+    (3) a flood of 80 ~1500-token batch requests from tenant ``flood``:
+    exactly 16 get 429 ``queue_full``, then 16 interactive chats of
+    tenant ``chat`` get none; (4) every chat is admitted before any flood
+    request, every admitted request finishes, the prefill budget stays in
+    [512, 4096], and the same traffic under ``HELIX_SCHED_POLICY=fifo``
+    admits the flood first; (5) a poisoned request among 8 chats is
+    quarantined alone (``helix_quarantine_evictions_total`` 1), and at 2
+    layers in float32 the survivors' tokens equal an unpoisoned run's;
+    (6) every scrape under load parses and each family has the listed
+    name, type and label keys."""
+    import tempfile
+
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+    from helix_tpu_torch.testing import faults
+    from helix_tpu_torch.testing.metric_families import check_scrape
+
+    t_phase = time.monotonic()
+    tag = f"[slo] ({smi})"
+    _time_slo_notes()   # before any loop binds its delivery
+    prof, cuts = _hotswap_copy(llama_as_written=True)
+    for c in cuts:
+        log(f"{tag} cut: {c}")
+
+    def build(**kw):
+        served = build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        return served
+
+    def node(p, name):
+        registry, mgr, httpd, base, _ = _node(p, tmpdir, name, build)
+        served = registry.get(MODEL)   # a synchronous load
+        return mgr, httpd, base, served.loop
+
+    def close(n):
+        mgr, httpd, _base, _loop = n
+        httpd.shutdown()
+        httpd.server_close()
+        for name in mgr.resident_names():
+            mgr.evict(name)
+        _free()
+
+    tmpdir = tempfile.mkdtemp(prefix="helix-slo-")
+    out = {"cuts": cuts}
+    _free()
+    a = node(prof, "slo")
+    b = None
+    try:
+        _mgr, _httpd, base, loop = a
+        eng = loop.engine
+        sc = loop.sched.cfg
+        served_cfg = {
+            "policy": sc.policy, "default_class": sc.default_class,
+            "max_tenant_queue_depth": sc.max_tenant_queue_depth,
+            "prefill_budget_tokens": sc.prefill_budget_tokens,
+            "prefill_budget_min_tokens": sc.prefill_budget_min_tokens,
+            "slo_targets": loop.slo.targets.to_dict(),
+            "engine": {k: getattr(eng.cfg, k) for k in (
+                "max_decode_batch", "num_pages", "kv_cache_dtype",
+                "enable_spec_decode", "spec_tokens", "host_pool_bytes",
+                "adapter_pool_slots", "adapter_rank")},
+            "weights": str(eng.params["layers"]["wq"]["weight"].dtype),
+        }
+        log(f"{tag} (1) served config: {json.dumps(served_cfg)}")
+        if (sc.policy, sc.prefill_budget_tokens, sc.prefill_budget_min_tokens,
+                sc.max_tenant_queue_depth) != ("wfq", 4096, 512, 64):
+            raise AssertionError(f"{tag} served config {served_cfg}")
+        if eng.adapter_pool is None or eng.spec is None \
+                or eng.host_pool is None:
+            raise AssertionError(f"{tag} the entry lost a field")
+        # (2) an uncontended batch: the same ids with slo on and off.
+        # The slo path's launches are counted from 0 over its own runs
+        # (this batch and the flood), never over the no-slo node's.
+        prompts = [f"Chat {i}: tell me about the history of the printing "
+                   "press in a few short lines please." for i in range(8)]
+        h0 = _host_snapshot(loop)
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        on_texts, on_s, on_busy, on_idle = _traced_batch(base, loop,
+                                                         prompts, 32)
+        launches = {"ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches,
+                    "ragged_paged_attention": K1.launches}
+        host = _host_us(loop, h0)
+        b = node(_hotswap_copy()[0], "no-slo")
+        off_texts, off_s, off_busy, off_idle = _traced_batch(
+            b[2], b[3], prompts, 32)
+        close(b)
+        b = None
+        same = sum(x == y for x, y in zip(on_texts, off_texts))
+        log(f"{tag} (2) 8 chats admitted together: ids equal slo on / off "
+            f"{same} of 8; wall {on_s:.3f} / {off_s:.3f} s; traced "
+            f"device-busy {on_busy:.1f} / {off_busy:.1f} ms, idle share "
+            f"{on_idle:.4f} / {off_idle:.4f}; host per step: scheduler pass "
+            f"{host['sched_pass_us']:.1f} us ({host['sched_passes']} "
+            f"passes), SLO notes {host['slo_note_us']:.1f} us "
+            f"({host['slo_note_batches']} batches)")
+        if same != 8:
+            raise AssertionError(f"{tag} the scheduler changed tokens")
+        # (3)-(4) the flood under WFQ
+        h0 = _host_snapshot(loop)
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        wfq = _tenant_traffic(base, loop, tag)
+        launches["ragged_paged_attention_int8"] += K1_INT8.launches
+        launches["flash_attention"] += K2.launches
+        launches["ragged_paged_attention"] += K1.launches
+        host_load = _host_us(loop, h0)
+        # (5) quarantine at full width, in process
+        if loop.step_failures or loop.quarantine_evictions:
+            raise AssertionError(f"{tag} a step failed before the fault")
+        rng = np.random.default_rng(12)
+        qprompts = [[int(t) for t in rng.integers(4, 100_000, size=300)]
+                    for _ in range(8)]
+        faults.arm(seed=1, rules=[{"point": "engine_step",
+                                   "request_id_contains": "poison"}])
+        t_q = time.monotonic()
+        try:
+            q = _poisoned_script(loop, "full width", qprompts, 16)
+        finally:
+            faults.disarm()
+        q_wall = time.monotonic() - t_q
+        text = urllib.request.urlopen(base + "/metrics").read().decode()
+        q_evict = _metric(text, "helix_quarantine_evictions_total",
+                          model=MODEL)
+        q_retry = _metric(text, "helix_step_retries_total", model=MODEL)
+        q_err = q["q-poison"][2] or ""
+        q_fin = sorted({r for k, (_t, r, e) in q.items() if k != "q-poison"})
+        log(f"{tag} (5) quarantine at full width: poisoned request error "
+            f"{q_err[:90]!r}; others finished {q_fin}; "
+            f"helix_quarantine_evictions_total {q_evict:g}, "
+            f"helix_step_retries_total {q_retry:g}; wall {q_wall:.2f} s")
+        if not q_err.startswith("request quarantined: engine step failed "
+                                "while scheduled (") \
+                or q_fin != sorted(set(q_fin) & {"stop", "length"}) \
+                or any(q[k][2] for k in q if k != "q-poison") \
+                or q_evict != 1 or q_retry < 1:
+            raise AssertionError(f"{tag} quarantine: {q_err!r} {q_fin} "
+                                 f"{q_evict} {q_retry}")
+    finally:
+        if b is not None:
+            close(b)
+        close(a)
+    # (4, FIFO) the same traffic with the policy overridden
+    os.environ["HELIX_SCHED_POLICY"] = "fifo"
+    try:
+        c = node(prof, "fifo")
+    finally:
+        del os.environ["HELIX_SCHED_POLICY"]
+    try:
+        if c[3].sched.name != "fifo":
+            raise AssertionError(f"{tag} HELIX_SCHED_POLICY was not read")
+        fifo = _tenant_traffic(c[2], c[3], tag)
+    finally:
+        close(c)
+    # the checks of steps 3, 4 and 6
+    rows = {}
+    for name, run in (("wfq", wfq), ("fifo", fifo)):
+        ans = run["answers"]
+        shed = [x for x in ans if x["status"] == 429]
+        other = [x for x in ans if x["status"] not in (200, 429)]
+        unfinished = [x for x in ans if x["status"] == 200
+                      and x["finish"] not in ("stop", "length")]
+        ttft = {t: _pcts([x["ttft"] for x in ans if x["tenant"] == t
+                          and x["status"] == 200 and x["ttft"]])
+                for t in ("chat", "flood")}
+        order = run["order"]
+        chats_first = (order.index("flood") > max(
+            i for i, t in enumerate(order) if t == "chat"))
+        flood_first = (order.index("chat") > max(
+            i for i, t in enumerate(order) if t == "flood"))
+        rows[name] = dict(shed=len(shed), shed_tenants=sorted(
+            {x["tenant"] for x in shed}), other=other, unfinished=len(
+            unfinished), ttft=ttft, chats_first=chats_first,
+            flood_first=flood_first, wall=run["wall"], shed_example=(
+                shed[0] if shed else None), early=run["early_answers"])
+        log(f"{tag} ({name}) {FLOOD} flood + {CHATS} chat requests: 429s "
+            f"{len(shed)} (tenants {rows[name]['shed_tenants']}, answered "
+            f"before the release {run['early_answers']}), other errors "
+            f"{len(other)}, admitted but unfinished {len(unfinished)}; "
+            f"chat TTFT p50 {ttft['chat'][0]:.3f} s p95 "
+            f"{ttft['chat'][1]:.3f} s, flood TTFT p50 {ttft['flood'][0]:.3f}"
+            f" s p95 {ttft['flood'][1]:.3f} s; every chat admitted before "
+            f"any flood {chats_first}, every flood before any chat "
+            f"{flood_first}; wall {run['wall']:.2f} s")
+    ex = rows["wfq"]["shed_example"]
+    want_msg = ("queue_full: tenant 'flood' already has 64 request(s) "
+                "queued (max_tenant_queue_depth=64)")
+    for name, r in rows.items():
+        if r["shed"] != FLOOD_SHED or r["shed_tenants"] != ["flood"] \
+                or r["other"] or r["unfinished"] or r["early"] != FLOOD_SHED:
+            raise AssertionError(f"{tag} {name}: {r}")
+    if ex["retry_after"] != "1" or ex["error"]["type"] != "overloaded_error" \
+            or ex["error"]["message"] != want_msg:
+        raise AssertionError(f"{tag} 429: {ex}")
+    if not rows["wfq"]["chats_first"] or not rows["fifo"]["flood_first"]:
+        raise AssertionError(f"{tag} admission order: {rows}")
+    budgets = [x["budget"] for x in wfq["scrapes"]]
+    bad = [x for x in wfq["scrapes"] if check_scrape(x["text"])]
+    scrape_ms = _pcts([x["ms"] for x in wfq["scrapes"]])
+    burn_max = max((x["burn"] for x in wfq["scrapes"]), default=0.0)
+    last = wfq["scrapes"][-1]["text"]
+    burns = {w: _metric(last, "helix_slo_burn_rate", model=MODEL,
+                        slo="ttft_p95", window=w) for w in ("fast", "slow")}
+    shrinks = _metric(last, "helix_sched_prefill_budget_shrinks_total",
+                      model=MODEL)
+    grows = _metric(last, "helix_sched_prefill_budget_grows_total",
+                    model=MODEL)
+    runs = []
+    for x in budgets:
+        if runs and runs[-1][0] == x:
+            runs[-1][1] += 1
+        else:
+            runs.append([x, 1])
+    log(f"{tag} (4) prefill budget every 0.5 s under WFQ ({len(budgets)} "
+        f"scrapes, as [value, scrapes] runs): {runs}; TTFT fast burn max "
+        f"{burn_max:.3f} (passed 1: {burn_max > 1.0}); budget shrinks {shrinks:g}, grows {grows:g}; "
+        f"burn at the end: ttft_p95 fast {burns['fast']:.3f} slow "
+        f"{burns['slow']:.3f}; host per step under the flood: scheduler "
+        f"pass {host_load['sched_pass_us']:.1f} us, SLO notes "
+        f"{host_load['slo_note_us']:.1f} us")
+    log(f"{tag} (6) {len(wfq['scrapes'])} scrapes under load: "
+        f"{len(bad)} with a problem; families in the last "
+        f"{len(last.split('# TYPE ')) - 1}; scrape wall p50 "
+        f"{scrape_ms[0]:.1f} ms p95 {scrape_ms[1]:.1f} ms")
+    if bad:
+        raise AssertionError(f"{tag} scrape: {check_scrape(bad[0]['text'])}")
+    if not budgets or any(not 512 <= x <= 4096 for x in budgets):
+        raise AssertionError(f"{tag} budget left [512, 4096]: {budgets}")
+    if launches["ragged_paged_attention_int8"] <= 0 \
+            or launches["flash_attention"] <= 0:
+        raise AssertionError(f"{tag} the kernels did not run: {launches}")
+    # (5, exact) 2 layers in float32: the survivors equal a clean run
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2, dtype="float32")
+    params = init_params(cfg, 2, device="cuda")
+    runs = {}
+    for poison in (False, True):
+        eng2 = Engine(cfg, params, EngineConfig(
+            max_decode_batch=16, page_size=16, num_pages=512,
+            max_pages_per_seq=64, max_prefill_len=2048), device="cuda")
+        loop2 = EngineLoop(eng2, "slo-exact").start()
+        if poison:
+            faults.arm(seed=1, rules=[{"point": "engine_step",
+                                       "request_id_contains": "poison"}])
+        try:
+            runs[poison] = (_poisoned_script(loop2, "f32", qprompts, 16,
+                                             poison=poison),
+                            loop2.quarantine_evictions)
+        finally:
+            faults.disarm()
+            loop2.stop()
+    (clean, _), (dirty, n_evict) = runs[False], runs[True]
+    equal = sum(clean[k][0] == dirty[k][0] for k in clean)
+    log(f"{tag} (5) 2 layers float32: survivors' tokens equal the "
+        f"unpoisoned run's {equal} of {len(clean)}; evictions {n_evict}")
+    if equal != len(clean) or n_evict != 1 \
+            or not (dirty["q-poison"][2] or "").startswith(
+                "request quarantined"):
+        raise AssertionError(f"{tag} f32 survivors differ")
+    del params
+    _free()
+    wall = time.monotonic() - t_phase
+    log(f"{tag} phase wall {wall:.1f} s")
+    out.update(launches=launches, rows=rows, budgets=budgets,
+               burn_max=burn_max, host=host, host_load=host_load,
+               trace={"on": (on_busy, on_idle), "off": (off_busy, off_idle)},
+               scrape_ms=scrape_ms, quarantine_s=q_wall, wall=wall)
+    return out
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -3516,11 +4112,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
-                             "checkpoint"),
+                             "checkpoint", "slo"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
-                         "'hotswap' / 'adapters' / 'checkpoint': those and "
-                         "the hot-swap / adapter / checkpoint phase")
+                         "'hotswap' / 'adapters' / 'checkpoint' / 'slo': "
+                         "those and the hot-swap / adapter / checkpoint / "
+                         "scheduler phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3528,6 +4125,7 @@ def main(argv=None) -> int:
         return 2
     import helix_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    _watch_step_failures()
     dev = phase_device()
     k2_rows = phase_k2()
     k1_rows = phase_k1()
@@ -3549,6 +4147,10 @@ def main(argv=None) -> int:
         ck = phase_checkpoint(dev["smi"])
         launches = dict(ck["launches"])
         by_path = {k: {"checkpoint": n} for k, n in launches.items()}
+    if args.phase == "slo":
+        slo = phase_slo(dev["smi"])
+        launches = {k: n for k, n in slo["launches"].items() if n}
+        by_path = {k: {"slo": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -3565,6 +4167,7 @@ def main(argv=None) -> int:
         ad = phase_adapters(dev["smi"])
         phase_adapter_exact(dev["smi"])
         ck = phase_checkpoint(dev["smi"])
+        slo = phase_slo(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -3579,7 +4182,8 @@ def main(argv=None) -> int:
                 "bf16": bf16["launches"]["flash_attention"],
                 "hotswap": swap["launches"]["flash_attention"],
                 "adapters": ad["launches"]["flash_attention"],
-                "checkpoint": ck["launches"]["flash_attention"]},
+                "checkpoint": ck["launches"]["flash_attention"],
+                "slo": slo["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -3587,10 +4191,12 @@ def main(argv=None) -> int:
                 "adapters":
                     ad["launches"]["ragged_paged_attention_int8"],
                 "checkpoint":
-                    ck["launches"]["ragged_paged_attention_int8"]},
+                    ck["launches"]["ragged_paged_attention_int8"],
+                "slo": slo["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)
+    _check_step_failures()
     log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches,
                                dev["infos"], by_path)))
     log(dev["smi"])

@@ -25,7 +25,14 @@ an int8 KV pool is
 ``EngineConfig`` as it is, so ``enable_spec_decode``, ``spec_tokens``,
 ``enable_async_loop``, ``host_pool_bytes``, ``adapter_pool_slots`` and
 ``adapter_rank`` work as in the reference (adapters are addressed as
-``model@adapter``).
+``model@adapter``).  An entry's ``slo`` block is served as the reference
+node agent serves it: its targets (``ttft_p95_seconds``,
+``queue_wait_p95_seconds``, ``goodput_floor_tps``) drive the loop's burn
+rates, and its ``sched`` sub-block (``serving.sched.SchedConfig.
+from_profile``, with the ``HELIX_SCHED_*`` overrides) picks the
+scheduler: FIFO, or WFQ with strict interactive-over-batch priority,
+per-tenant weights, a per-tenant queue bound and the adaptive prefill
+budget.
 
 With ``residency`` the node serves its models through an
 ``engine.residency.ResidencyManager`` (the reference node agent's
@@ -42,20 +49,23 @@ mrope: A17; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
 unknown activation) or that disagrees with the entry's
 ``model_overrides`` is refused at start.  What is not ported yet is
 refused there too, before any weights are made, naming its ROADMAP
-item: a kind other than ``chat`` (A17), an ``slo`` block with or without its
-``sched`` (A7), a ``mesh`` with an axis above 1 (A15; ``{tp: 1}`` is the
-one device), an ``adapter`` merged into the weights at apply time (it
-restores a training checkpoint: A18, with the node agent, A7), and engine
-fields of unported modules (``ctx_hot_pages``: A14).
+item: a kind other than ``chat`` (A17), a ``mesh`` with an axis above 1
+(A15; ``{tp: 1}`` is the one device), an ``adapter`` merged into the
+weights at apply time (it restores a training checkpoint: A18, with the
+node agent, A7b), and engine fields of unported modules
+(``ctx_hot_pages``: A14).
 
 The node's operator overrides, as the reference node agent reads them:
 ``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
 (0 turns the host tier off), ``HELIX_PREEMPT_STALL_SECONDS`` arms
 preemption by swap after admission has stalled that long,
 ``HELIX_ADMISSION_TIMEOUT`` sheds requests that waited that long for KV
-pages with a typed ``kv_exhausted`` 503, and
+pages with a typed ``kv_exhausted`` 503,
 ``HELIX_ADAPTER_POOL_SLOTS`` replaces every engine's
-``adapter_pool_slots`` (0 turns the adapter pool off).
+``adapter_pool_slots`` (0 turns the adapter pool off),
+``HELIX_MAX_QUEUE_DEPTH`` and ``HELIX_MAX_QUEUED_TOKENS`` bound each
+loop's admission (a 429 ``queue_full`` past them; unbounded when unset)
+and ``HELIX_TENANT_TOP_K`` sets how many tenants get their own series.
 """
 
 from __future__ import annotations
@@ -90,6 +100,7 @@ from helix_tpu_torch.serving.registry import (
     ModelRegistry,
     ServedModel,
 )
+from helix_tpu_torch.serving.sched import SchedConfig
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
 log = logging.getLogger("helix_tpu_torch")
@@ -129,6 +140,7 @@ def build_served_model(
     model_overrides: dict | None = None, seed: int = 0,
     context_length: int | None = None, warmup: bool = True,
     quantization: str | None = None, checkpoint: str | None = None,
+    slo: dict | None = None,
 ) -> ServedModel:
     """An ``Engine`` and a started ``EngineLoop`` for one model: the
     weights of ``checkpoint`` (an HF safetensors directory, with its
@@ -137,7 +149,8 @@ def build_served_model(
     quantized as each weight lands or is drawn).  ``build_seconds`` holds
     the time of each stage (init or load with its quantization, engine,
     warmup), ``load_stats`` the load's bytes and read / upload seconds.
-    The served path always takes the kernels: ``attn_backend`` is refused
+    ``slo``: the entry's ``slo`` block (targets and ``sched``).  The
+    served path always takes the kernels: ``attn_backend`` is refused
     here."""
     if "attn_backend" in (engine or {}):
         raise ValueError(
@@ -190,8 +203,18 @@ def build_served_model(
     stamps.append(_stamp(dev))
     loop = EngineLoop(
         eng, name=name,
-        admission_timeout=_env_seconds("HELIX_ADMISSION_TIMEOUT"),
-        preempt_stall_seconds=_env_seconds("HELIX_PREEMPT_STALL_SECONDS"),
+        # admission bounds and the KV-pressure ladder: operator knobs,
+        # unbounded / off unless set
+        max_queue_depth=_env_bound("HELIX_MAX_QUEUE_DEPTH"),
+        max_queued_tokens=_env_bound("HELIX_MAX_QUEUED_TOKENS"),
+        admission_timeout=_env_bound("HELIX_ADMISSION_TIMEOUT", float),
+        preempt_stall_seconds=_env_bound("HELIX_PREEMPT_STALL_SECONDS",
+                                         float),
+        # the profile's SLO targets and scheduler; HELIX_SCHED_* beat the
+        # profile, HELIX_SLO_BURN_WINDOWS is read inside obs.slo
+        slo_targets=slo,
+        tenant_top_k=_env_bound("HELIX_TENANT_TOP_K"),
+        sched_config=SchedConfig.from_profile(slo),
     ).start()
     split = dict(zip(("load" if checkpoint else "init", "engine", "warmup"),
                      (b - a for a, b in zip(stamps, stamps[1:]))))
@@ -207,9 +230,11 @@ def _stamp(dev) -> float:
     return time.monotonic()
 
 
-def _env_seconds(name: str):
+def _env_bound(name: str, cast=int):
+    """An operator knob read as the reference node agent reads it: unset
+    or empty is None."""
     v = os.environ.get(name, "")
-    return float(v) if v else None
+    return cast(v) if v else None
 
 
 def _parse_kv(items) -> dict:
@@ -253,13 +278,10 @@ def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
             out.append(str(e))
     if m.get("kind", "chat") != "chat":
         out.append(f"kind {m.get('kind')!r} is not ported yet (ROADMAP A17)")
-    if m.get("slo"):
-        out.append("the slo block (SLO accounting and its sched "
-                   "scheduler) is not ported yet (ROADMAP A7)")
     if m.get("adapter"):
         out.append("an adapter merged into the weights at apply time is "
                    "not ported yet: it restores a training checkpoint "
-                   "(ROADMAP A18, with the node agent, A7); serve "
+                   "(ROADMAP A18, with the node agent, A7b); serve "
                    "adapters through engine.adapter_pool_slots")
     mesh = m.get("mesh") or {}
     if any(int(v) > 1 for v in mesh.values()):
@@ -302,6 +324,7 @@ def _model_specs(args, profile: dict | None = None) -> list[dict]:
             name=m["name"], quantization=m.get("quantization"), engine=eng,
             model_overrides=m.get("model_overrides", {}),
             context_length=m.get("context_length"), checkpoint=checkpoint,
+            slo=m.get("slo"),
         ))
     if refused:
         raise NotImplementedError("; ".join(refused))
@@ -355,8 +378,8 @@ def _cmd_serve_node(args) -> int:
         seed=args.seed, warmup=not args.no_warmup,
     )
     httpd = OpenAIServer(registry).make_http_server(args.host, args.port)
-    print(f"helix_tpu_torch serving {registry.names()} on "
-          f"http://{args.host}:{httpd.server_address[1]}", flush=True)
+    print("helix_tpu_torch serving", registry.names(),
+          f"on http://{args.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

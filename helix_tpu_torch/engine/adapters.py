@@ -847,3 +847,77 @@ class AdapterPool:
                 "rows_applied": self.rows_applied_total,
                 "hbm_bytes": self.hbm_bytes(),
             }
+
+
+def collect_adapter_metrics(c, loop, labels: dict) -> None:
+    """Runner-side adapter series for one engine loop (the runner's
+    scrape surface calls it; every ``helix_adapter_*`` name of the port
+    is minted here).  No-op when the engine serves without a pool."""
+    eng = loop.engine
+    pool = eng.adapter_pool
+    if pool is None:
+        return
+    st = pool.stats()
+    c.gauge(
+        "helix_adapter_pool_slots", st["slots"], labels,
+        help="HBM adapter-pool slot capacity (slot 0 = identity)",
+    )
+    c.gauge(
+        "helix_adapter_resident", st["resident"], labels,
+        help="Adapters currently resident in the HBM pool",
+    )
+    c.gauge(
+        "helix_adapter_pool_bytes", st["hbm_bytes"], labels,
+        help="HBM bytes held by the stacked adapter pool",
+    )
+    c.counter(
+        "helix_adapter_loads_total", st["loads"], labels,
+        help="Adapter loads into an HBM pool slot",
+    )
+    c.counter(
+        "helix_adapter_evictions_total", st["evictions"], labels,
+        help="LRU evictions of refcount-0 adapters from the HBM pool",
+    )
+    c.counter(
+        "helix_adapter_load_seconds_total", st["load_seconds"], labels,
+        help="Cumulative host->HBM adapter load time",
+    )
+    for aid, n in sorted(pool.rows_applied().items()):
+        c.counter(
+            "helix_adapter_rows_applied_total", n,
+            {**labels, "adapter": aid},
+            help="Device-step rows served per adapter (top-K bounded "
+                 "+ __other__)",
+        )
+    store = eng.adapter_store
+    if store is None:
+        return
+    sst = store.stats()
+    c.counter(
+        "helix_adapter_publishes_total", sst["publishes"], labels,
+        help="Adapters published (train -> publish -> serve)",
+    )
+    c.counter(
+        "helix_adapter_prefetches_total", sst["prefetches"], labels,
+        help="Async filestore->host adapter prefetches kicked",
+    )
+    c.counter(
+        "helix_adapter_host_evictions_total", sst["host_evictions"],
+        labels,
+        help="Host-tier adapter evictions (filestore-backed only)",
+    )
+    c.counter(
+        "helix_adapter_load_errors_total", sst["load_errors"], labels,
+        help="Corrupt/unreadable adapter blobs dropped at load",
+    )
+    c.gauge(
+        "helix_adapter_host_pool_used_bytes", sst["host_used_bytes"],
+        labels,
+        help="Host-tier bytes held by decoded adapter trees",
+    )
+    c.gauge(
+        "helix_adapter_host_pool_budget_bytes",
+        sst["host_budget_bytes"], labels,
+        help="Host-tier adapter byte budget "
+             "(HELIX_ADAPTER_HOST_POOL_BYTES)",
+    )

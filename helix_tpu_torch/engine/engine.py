@@ -118,11 +118,9 @@ from helix_tpu_torch.engine.sampling import (
 from helix_tpu_torch.engine.spec import SpecConfig, SpecDecoder
 from helix_tpu_torch.models.common import ModelConfig
 from helix_tpu_torch.models.llama import check_supported, forward, project_logits
+from helix_tpu_torch.obs.slo import ANON_TENANT
 from helix_tpu_torch.ops.attention import attention
 from helix_tpu_torch.ops.paged import ragged_paged_attention
-
-# tenant identity of unauthenticated traffic (helix_tpu/obs/slo.py)
-ANON_TENANT = "anonymous"
 
 
 class FinishReason(str, enum.Enum):
@@ -462,9 +460,16 @@ class Engine:
         # resumed slots' histograms, re-injected at the next _sync_state
         self._slot_count_overrides: dict[int, np.ndarray] = {}
         self._prefetched: set = set()   # digests with queued uploads
-        # orders preempt_for_pressure's candidates when set (a scheduler
-        # hook, not ported: None keeps the builtin pick)
+        # scheduler delegation (serving/sched.py), wired by the loop:
+        # on_admit fires once per confirmed admission (_try_claim
+        # success), the fair-share charge point; victim_policy, when set,
+        # orders preempt_for_pressure's candidates (None keeps the builtin
+        # newest-admission/largest-footprint pick); prefill_budget caps
+        # NEW prefill-admission tokens per step (None = unbudgeted)
+        self.on_admit: Optional[Callable[[Request], None]] = None
         self.victim_policy: Optional[Callable[[list], list]] = None
+        self.prefill_budget: Optional[int] = None
+        self._budget_left: Optional[int] = None
         self._key_base = _splitmix64(0x8E1_1C9 ^ (rng_seed & _M64))
         self._key_nonce = 0
         self._token_ladder = parse_token_buckets(
@@ -532,7 +537,12 @@ class Engine:
         self.num_decode_slot_steps = 0
         self.num_mixed_steps = 0
         self.num_admitted = 0           # requests claimed into a slot
-        self.prefix_cache_hits = 0
+        self.num_generated_tokens = 0   # tokens emitted to requests
+        # token-bucket padding of packed prefill segments (the rung
+        # minus the tokens used)
+        self.num_prefill_padding_tokens = 0
+        self.prefix_cache_hits = 0      # admissions that reused a prefix
+        self.prefix_cache_misses = 0    # ... and those that did not
         # prompt tokens served from the prefix cache, per adapter id ("" =
         # the base model)
         self.prefix_hit_tokens_by_adapter: dict[str, int] = {}
@@ -555,6 +565,16 @@ class Engine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+
+    @property
+    def kv_pages_used(self) -> int:
+        """Occupied pages in the pool (prefix-cache-owned pages count as
+        used: they hold live KV); page 0 is excluded from both sides."""
+        return self.allocator.used_pages
+
+    @property
+    def kv_pages_capacity(self) -> int:
+        return max(1, self.cache_cfg.num_pages - 1)
 
     @property
     def max_context_len(self) -> int:
@@ -673,6 +693,9 @@ class Engine:
             # finalize spills of earlier steps whose copies have landed
             # (step entry, so every step shape drains)
             self.host_pool.drain_pending()
+        # per-step prefill-admission budget (the scheduler's feedback
+        # loop): refreshed every step, charged by _try_claim
+        self._budget_left = self.prefill_budget
         self._admit(emitted)
         if self._chunking is not None and self._chunking["req"].finished:
             self._chunking = None    # aborted mid-prefill
@@ -1083,10 +1106,21 @@ class Engine:
             restored = self._restore_host_prefix(req, hashes, shared, pages)
         req.cached_tokens = (len(shared) + restored) * ps
         self.num_admitted += 1
+        if self._budget_left is not None:
+            # charge the uncached prefill work this admission injects
+            self._budget_left -= max(1, plen - req.cached_tokens)
+        if self.on_admit is not None:
+            try:
+                self.on_admit(req)
+            except Exception:  # noqa: BLE001 — policy hooks never fail admission
+                logging.getLogger(__name__).exception(
+                    "on_admit hook failed for request %s", req.id)
         if shared or restored:
             self.prefix_cache_hits += 1
             by = self.prefix_hit_tokens_by_adapter
             by[req.adapter] = by.get(req.adapter, 0) + req.cached_tokens
+        elif self.prefix_cache is not None:
+            self.prefix_cache_misses += 1
         if use_cache and self.prefix_cache is not None:
             self.prefix_cache.record_claim(len(shared) + restored,
                                            len(hashes))
@@ -1185,6 +1219,11 @@ class Engine:
 
     def _admit_inner(self, deferred: list, pending: list) -> None:
         while self.waiting:
+            if self._budget_left is not None and self._budget_left <= 0:
+                # the step's prefill-admission budget is spent: decode
+                # keeps running and the next step gets a fresh budget.  It
+                # starts >= 1, so a step's first admission always proceeds
+                return
             req = self.waiting[0]
             if req.finished:
                 self.waiting.pop(0)
@@ -1243,6 +1282,7 @@ class Engine:
             plan = PrefillPlan(ps, maxP, B)
             batch = []
 
+        admitted_any = False
         while self.waiting:
             req = self.waiting[0]
             if req.finished:
@@ -1258,11 +1298,17 @@ class Engine:
                 break   # long prompt: the outer admission loop chunks it
             if len(batch) >= B:
                 flush()
+            if (admitted_any and self._budget_left is not None
+                    and self._budget_left <= 0):
+                # budget spent mid-wave: close with what fit (a step's
+                # first claim is always admitted)
+                break
             cache_match = self._cached_prefix_pages(req)
             table = self._try_claim(req, use_cache=cache_match > 0)
             if table is None:
                 break
             self.waiting.pop(0)
+            admitted_any = True
             start = req.cached_tokens
             rem = plen - start
             if batch and not plan.fits(rem, C_cap):
@@ -1599,6 +1645,17 @@ class Engine:
             "%d shared prefix page(s) kept resident",
             req_id, len(private_pos), len(shared))
         return True
+
+    def reap_stuck(self, max_queue_seconds: float = 600.0) -> list:
+        """Abort requests stuck in the wait queue beyond a budget (page
+        starvation under a long-running batch).  Returns the aborted
+        requests."""
+        now = time.monotonic()
+        stuck = [r for r in list(self.waiting)
+                 if now - r.submit_time > max_queue_seconds]
+        for r in stuck:
+            self._finish(r, FinishReason.ABORT)
+        return stuck
 
     def preempt_for_pressure(self) -> Optional[str]:
         """Pick and preempt the degradation ladder's victim: through
@@ -2207,6 +2264,7 @@ class Engine:
         """Forward the plan's rows on one flat token axis, persist their
         K/V, sample each row's first token.  Returns [R] int64."""
         rung = bucket_tokens(plan.used, self._token_ladder)
+        self.num_prefill_padding_tokens += max(0, rung - plan.used)
         a = plan.finalize_device(rung, self.device)
         has_hist = plan.has_hist
         kacc, vacc = self._kv_buffers(1, rung)
@@ -2368,6 +2426,7 @@ class Engine:
 
     def _emit(self, req: Request, token: int, emitted: list) -> None:
         req.output_tokens.append(token)
+        self.num_generated_tokens += 1
         emitted.append((req, token))
         stop_ids = set(req.stop_token_ids) | set(self.cfg.eos_token_ids)
         if token in stop_ids:

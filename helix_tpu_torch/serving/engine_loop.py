@@ -1,42 +1,54 @@
 """Engine driver thread: bridges HTTP handler threads to the step loop.
 
-Port of the core of ``helix_tpu/serving/engine_loop.py``: one dedicated
-thread owns the ``Engine`` (every device call stays on it); handlers submit
-through a thread-safe inbox and receive per-request ``TokenEvent``s through
-callbacks.  A step that raises fails the requests in flight with an error
-event and the loop keeps serving.
+Port of ``helix_tpu/serving/engine_loop.py``: one dedicated thread owns
+the ``Engine`` (every device call stays on it); handlers submit through a
+thread-safe inbox and receive per-request ``TokenEvent``s through
+callbacks.
 
-With ``EngineConfig.enable_async_loop`` the loop pipelines (the
-reference's ``_run``): it dispatches step N+1 against the engine's
-predicted post-step state while step N runs on the device, then completes
-step N, at most one step in flight.  It does so only where
-``engine.pipeline_ready()`` says the prediction is exact (plain decode
-steady state; never with speculation on); anything else reconciles first
-and runs dispatch -> complete in order.  Emission then goes through a
-bounded off-thread stage (``_EmissionStage``) so subscriber callbacks never
-sit between a completion and the next dispatch.  Every step records its
-time split (host build, device wait, emit, idle gap, wall) in a small
-window; ``device_idle_ratio()`` reads it.
+Robustness: a failing step does not fail every request in flight.  The
+loop records the failure and retries the same state once (transient
+faults), then quarantines: the requests that have not emitted yet are
+pulled out and bisected back in through re-admitted clones, with a
+control step, and only the culprit gets an error event; a policy victim
+is the last resort (``_handle_step_failure``, ``_quarantine``).
+Admission is bounded (``max_queue_depth``, ``max_queued_tokens`` and the
+scheduler's per-tenant bound), so overload sheds at once with a
+``queue_full`` error (HTTP 429) instead of rotting in the queue.
+
+The scheduler (``serving/sched.py``) owns every ordering, budget and
+victim decision: its pass runs on the engine thread before each dispatch
+(``reorder(engine.waiting)``, then ``engine.prefill_budget``), reading only
+the wait queue and the burn accounts, so it may run with a step in
+flight.  ``obs.slo.SLOObserver`` takes the first-token, token, shed and
+preemption notes (token notes on the emission stage, off the dispatch
+path) and keeps the admission audit; ``obs.flight.FlightRecorder`` keeps
+the per-step records that ``device_idle_ratio()`` and ``padding_ratio()``
+read; ``obs.metrics.EngineLoopObs`` holds the latency histograms; spans
+of traced requests land in ``obs.trace``'s store.
+
+With ``EngineConfig.enable_async_loop`` the loop pipelines: it dispatches
+step N+1 against the engine's predicted post-step state while step N runs
+on the device, then completes step N, at most one step in flight.  It does
+so only where ``engine.pipeline_ready()`` says the prediction is exact
+(plain decode steady state; never with speculation on); anything else
+reconciles first and runs dispatch -> complete in order.  Emission then
+goes through a bounded off-thread stage (``_EmissionStage``).
 
 The KV-pressure ladder (``_memory_pressure_tick``, once per pass): with
-``preempt_stall_seconds`` set, admission starved that long preempts the
-newest decoder by swap to the host tier; with ``admission_timeout`` set,
-queued or parked requests past it get a typed ``kv_exhausted`` error.
-Both reconcile an in-flight step first, as they read the engine's host
-mirrors.  ``submit_import`` re-admits a migrated-in snapshot on the
-engine thread; ``stop(drain=...)`` stops taking work, keeps stepping
-until the deadline, then ships what is left through ``exporter`` (a
-``PeerShipper``) with a ``migrated ... peer=`` terminal event, and fails
-only what could not ship.
+``preempt_stall_seconds`` set, admission starved that long preempts a
+decoder by swap to the host tier (the scheduler's victim under WFQ);
+with ``admission_timeout`` set, queued or parked requests past it get a
+typed ``kv_exhausted`` error.  ``submit_import`` re-admits a migrated-in
+snapshot on the engine thread; ``stop(drain=...)`` stops taking work,
+keeps stepping until the deadline, then ships what is left through
+``exporter`` (a ``PeerShipper``) with a ``migrated ... peer=`` terminal
+event, and fails only what could not ship.
 
-Not ported yet: the scheduler, SLO accounting, admission bounds, the
-quarantine bisection and retry ladder (ROADMAP A7), the disaggregated
-prefill handoff (A12), multihost (A15).
+Not ported yet: the disaggregated prefill handoff (A12), multihost (A15).
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import logging
 import queue
@@ -45,14 +57,28 @@ import time
 from typing import Callable, Optional
 
 from helix_tpu_torch.engine.engine import Engine, Request, SnapshotError
+from helix_tpu_torch.obs import trace as obs_trace
+from helix_tpu_torch.obs.flight import (
+    SATURATION_KEYS,
+    FlightRecorder,
+    RateTracker,
+)
+from helix_tpu_torch.obs.metrics import EngineLoopObs
+from helix_tpu_torch.obs.slo import ANON_TENANT, SLOObserver
+from helix_tpu_torch.serving.sched import (
+    PREEMPT_VICTIM,
+    SHED_VICTIM,
+    TENANT_QUEUE_FULL,
+    make_scheduler,
+)
+from helix_tpu_torch.testing import faults
 
 log = logging.getLogger("helix_tpu_torch.engine")
 
+# error-message prefixes the HTTP layer maps onto statuses (429 / 503)
+QUEUE_FULL = "queue_full"
 SHUTTING_DOWN = "shutting_down"
 KV_EXHAUSTED = "kv_exhausted"
-# step records kept for device_idle_ratio() (the reference's flight ring
-# holds 512 and its ratio gauges read the last 256)
-STEP_WINDOW = 256
 
 
 @dataclasses.dataclass
@@ -73,14 +99,15 @@ class _EmissionStage:
     """Bounded, ordered, off-critical-path token emission.
 
     The async loop hands each step's events to this stage so subscriber
-    callbacks never sit between a device completion and the next
-    dispatch.  One worker thread keeps per-request event order; the
-    bounded queue applies backpressure (a full queue blocks the engine
-    thread).  Not started (synchronous loop): ``push`` calls the sink on
-    the caller's thread."""
+    callbacks and the per-tenant SLO notes never sit between a device
+    completion and the next dispatch.  One worker thread keeps
+    per-request event order; the bounded queue applies backpressure (a
+    full queue blocks the engine thread).  Not started (synchronous
+    loop): ``push`` calls the sink on the caller's thread."""
 
-    def __init__(self, sink: Callable, depth: int = 8):
+    def __init__(self, sink: Callable, obs_hist, depth: int = 8):
         self._sink = sink
+        self._obs = obs_hist
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._thread: Optional[threading.Thread] = None
         self.started = False
@@ -96,7 +123,9 @@ class _EmissionStage:
         if not events:
             return
         if not self.started:
+            t0 = time.monotonic()
             self._sink(events)
+            self._obs.observe(time.monotonic() - t0)
             return
         self._q.put(events)   # blocks when full: bounded backpressure
 
@@ -124,42 +153,14 @@ class _EmissionStage:
             try:
                 if batch is None:
                     return
+                t0 = time.monotonic()
                 try:
                     self._sink(batch)
                 except Exception:  # noqa: BLE001 — a subscriber bug must not kill emission
                     log.exception("emission stage sink failed")
+                self._obs.observe(time.monotonic() - t0)
             finally:
                 self._q.task_done()
-
-
-class _StepWindow:
-    """The last ``capacity`` per-step time records (the part of the
-    reference's flight recorder that its ratio gauges read)."""
-
-    def __init__(self, capacity: int = STEP_WINDOW):
-        self._ring: collections.deque = collections.deque(maxlen=capacity)
-        self._lock = threading.Lock()
-        self.recorded = 0   # records ever made (a caller's window marker)
-
-    def record(self, rec: dict) -> None:
-        with self._lock:
-            self._ring.append(rec)
-            self.recorded += 1
-
-    def records(self, recent: int = STEP_WINDOW) -> list:
-        """Copies of the last ``recent`` records, oldest first."""
-        with self._lock:
-            return [dict(r) for r in list(self._ring)[-recent:]]
-
-    def window_ratio(self, num_key: str, den_keys: tuple,
-                     recent: int = STEP_WINDOW) -> float:
-        """Sum of ``num_key`` over the last ``recent`` records divided by
-        the summed ``den_keys`` (0.0 on an empty window)."""
-        with self._lock:
-            recs = list(self._ring)[-recent:]
-        num = float(sum(r.get(num_key, 0) or 0 for r in recs))
-        den = float(sum(r.get(k, 0) or 0 for r in recs for k in den_keys))
-        return num / den if den > 0 else 0.0
 
 
 @dataclasses.dataclass
@@ -175,10 +176,23 @@ class _ImportItem:
 
 class EngineLoop:
     def __init__(self, engine: Engine, name: str = "engine",
+                 max_queue_seconds: float = 600.0,
+                 max_queue_depth: Optional[int] = None,
+                 max_queued_tokens: Optional[int] = None,
                  admission_timeout: Optional[float] = None,
-                 preempt_stall_seconds: Optional[float] = None):
+                 preempt_stall_seconds: Optional[float] = None,
+                 slo_targets: Optional[dict] = None,
+                 tenant_top_k: Optional[int] = None,
+                 burn_windows: Optional[tuple] = None,
+                 sched_config=None):
         self.engine = engine
         self.name = name
+        self.max_queue_seconds = max_queue_seconds
+        # admission bounds (None = unbounded): depth counts requests
+        # waiting for a slot (inbox + engine wait queue), tokens bound the
+        # queued prefill work
+        self.max_queue_depth = max_queue_depth
+        self.max_queued_tokens = max_queued_tokens
         # the KV-pressure ladder's rungs (None disables one): preempt by
         # swap once admission has stalled preempt_stall_seconds, typed
         # kv_exhausted shed once a request has waited admission_timeout
@@ -188,23 +202,57 @@ class EngineLoop:
         self._admit_seen = 0        # admissions + resumes at last progress
         self._last_preempt_at = 0.0
         self.kv_exhausted_sheds = 0
-        self.shed_requests = 0
         self._inbox: "queue.Queue" = queue.Queue()
-        self._wake = threading.Event()
-        self._stop = threading.Event()
+        self._pending = 0           # submitted, not yet drained to the engine
+        self._pending_tokens = 0
+        # per-tenant inbox depth (admission lock); the per-tenant bound
+        # adds the engine-side wait-queue count on demand
+        self._pending_by_tenant: dict[str, int] = {}
         # submit holds it across check + enqueue so stop(drain=...) can
         # flip _draining atomically against in-flight submits
         self._admission_lock = threading.RLock()
+        self._subscribers: dict[str, Callable[[TokenEvent], None]] = {}
+        self._admit_order: list[str] = []   # request ids, admission order
+        self._wake = threading.Event()
+        self._stop = threading.Event()
         self._draining = False
         self._drain_deadline = 0.0
-        self._subscribers: dict[str, Callable[[TokenEvent], None]] = {}
         self._thread: Optional[threading.Thread] = None
+        self._last_reap = time.monotonic()
+        self._consec_failures = 0
+        self._barren_rounds = 0   # quarantine rounds that found no culprit
+        # serving counters (scraped by /metrics)
         self.steps = 0
         self.step_failures = 0
+        self.step_retries = 0
+        self.quarantine_evictions = 0
+        self.shed_requests = 0
+        self.started_at = time.monotonic()
+        # host seconds of the scheduler pass, and how many ran
+        self.sched_pass_seconds = 0.0
+        self.sched_passes = 0
+        # latency histograms, folded into /metrics with a model label
+        self.obs = EngineLoopObs()
+        # per-step records + anomaly watchdog (GET /v1/debug/flight)
+        self.flight = FlightRecorder()
+        # goodput tokens/s over a trailing window
+        self._tps = RateTracker()
+        # per-tenant SLO accounting, burn rates against the profile's
+        # targets, and the admission audit (GET /v1/debug/admissions)
+        self.slo = SLOObserver(
+            targets=slo_targets, top_k=tenant_top_k, windows=burn_windows
+        )
+        self._trace = obs_trace.default_store()
+        self._first_emit: dict[str, float] = {}   # req id -> first-token t
+        self._last_emit: dict[str, float] = {}    # req id -> last-token t
+        # the scheduler: every ordering / per-tenant-bound / victim
+        # decision.  The FIFO baseline keeps the pre-scheduler order.
+        self.sched = make_scheduler(sched_config)
+        self._sched_active = self.sched.active
         self.async_enabled = bool(engine.cfg.enable_async_loop)
         self.pipelined_steps = 0    # steps dispatched while one was in flight
-        self._emit_stage = _EmissionStage(self._deliver)
-        self.window = _StepWindow()
+        self._emit_stage = _EmissionStage(self._deliver,
+                                          self.obs.emit_seconds)
         # the last completion's return: a dispatch made with nothing in
         # flight charges the gap since then as device idle (idle_gap_s)
         self._device_busy_until = 0.0
@@ -212,12 +260,137 @@ class EngineLoop:
         # on failure); None sheds survivors instead
         self.exporter: Optional[Callable[[dict], str]] = None
         self.migration_failures = 0   # failed exports / ships / imports
+        engine.on_admit = self._note_admit
+        if self._sched_active:
+            engine.victim_policy = self.sched.preempt_order
+
+    @property
+    def window(self) -> FlightRecorder:
+        """The step-record window (the flight recorder)."""
+        return self.flight
+
+    # -- called from any thread --------------------------------------------
+
+    def check_admission(
+        self, prompt_len: int, count_shed: bool = False,
+        tenant: str = ANON_TENANT, trace_id: str = "",
+        request_id: str = "",
+    ) -> Optional[str]:
+        """Would a submit of this size be shed right now?  Returns the
+        error string (``queue_full: ...`` / ``shutting_down: ...`` /
+        ``kv_exhausted: ...``) or None.  HTTP handlers pre-check so a
+        stream gets a clean 429/503 status instead of an SSE error frame;
+        callers that act on the verdict pass ``count_shed=True``, so the
+        counters, the tenant's accounting and the audit record are kept
+        here, in one place."""
+        hit = self._check_admission(prompt_len, tenant)
+        if hit is None:
+            return None
+        reason, err = hit
+        if count_shed:
+            with self._admission_lock:
+                self.shed_requests += 1
+                kv = reason == KV_EXHAUSTED
+                if kv:
+                    self.kv_exhausted_sheds += 1
+            if reason == TENANT_QUEUE_FULL:
+                # the flooding tenant overflowed ITS bounded queue;
+                # everyone else keeps admitting
+                self.sched.note_tenant_shed()
+            self.slo.note_shed(tenant, kv_exhausted=kv)
+            self._audit(reason, tenant=tenant, trace_id=trace_id,
+                        request_id=request_id, detail=err)
+        return err
+
+    def _audit(self, reason: str, tenant: str = ANON_TENANT,
+               trace_id: str = "", request_id: str = "",
+               detail: str = "") -> None:
+        """One admission-decision audit record with the queue state at
+        the moment of the decision (O(1) reads only)."""
+        eng = self.engine
+        self.slo.audit.record(
+            reason, tenant=tenant, trace_id=trace_id,
+            request_id=request_id, detail=detail,
+            queue_depth=self.queue_depth(),
+            kv_pages_free=eng.allocator.free_pages,
+            slots_busy=sum(1 for s in eng.slots if s is not None),
+            preempted_parked=len(eng.preempted),
+        )
+
+    def queue_depth(self) -> int:
+        """Requests awaiting a slot (inbox + engine wait queue): the one
+        queue-depth formula of the bound, the audit, the saturation
+        summary and the flight records."""
+        return self._pending + len(self.engine.waiting)
+
+    def queued_tokens(self) -> int:
+        """Prompt tokens awaiting admission (inbox + engine wait queue):
+        the quantity ``max_queued_tokens`` bounds.  Aborted-while-queued
+        requests do not count."""
+        return self._pending_tokens + sum(
+            len(r.prompt_tokens) for r in list(self.engine.waiting)
+            if not r.finished
+        )
+
+    def _tenant_depth(self, tenant: str) -> int:
+        """Queued requests of ONE tenant (inbox + engine wait queue)."""
+        return self._pending_by_tenant.get(tenant, 0) + sum(
+            1 for r in list(self.engine.waiting)
+            if not r.finished and r.tenant == tenant
+        )
+
+    def _check_admission(self, prompt_len: int,
+                         tenant: str = ANON_TENANT) -> Optional[tuple]:
+        """(audit_reason, error_string) when a submit of this size would
+        be shed right now, else None."""
+        if self._draining or self._stop.is_set():
+            return (SHUTTING_DOWN,
+                    f"{SHUTTING_DOWN}: engine '{self.name}' is draining")
+        # KV-starved fast-fail: admission already stalled past the
+        # deadline, so a new arrival would only age out the same way
+        stall_since = self._stall_since
+        if (self.admission_timeout is not None
+                and stall_since is not None
+                and time.monotonic() - stall_since > self.admission_timeout):
+            return (KV_EXHAUSTED,
+                    f"{KV_EXHAUSTED}: engine '{self.name}' admission has "
+                    f"been KV-starved for "
+                    f"{time.monotonic() - stall_since:.1f}s "
+                    f"(admission_timeout={self.admission_timeout}s)")
+        depth = self.queue_depth()
+        if self.max_queue_depth is not None and depth >= self.max_queue_depth:
+            return (QUEUE_FULL,
+                    f"{QUEUE_FULL}: {depth} request(s) already queued "
+                    f"(max_queue_depth={self.max_queue_depth})")
+        # bounded per-tenant queues: the flooding tenant overflows ITS
+        # queue instead of filling the global bound
+        if self.sched.cfg.max_tenant_queue_depth is not None:
+            td = self._tenant_depth(tenant)
+            if self.sched.tenant_overflow(tenant, td):
+                return (TENANT_QUEUE_FULL,
+                        f"{QUEUE_FULL}: tenant '{tenant}' already has {td} "
+                        f"request(s) queued (max_tenant_queue_depth="
+                        f"{self.sched.cfg.max_tenant_queue_depth})")
+        if self.max_queued_tokens is not None:
+            queued = self.queued_tokens()
+            if queued + prompt_len > self.max_queued_tokens:
+                return (QUEUE_FULL,
+                        f"{QUEUE_FULL}: {queued} tokens queued + "
+                        f"{prompt_len} requested exceeds "
+                        f"max_queued_tokens={self.max_queued_tokens}")
+        return None
 
     def submit(self, req: Request, on_event: Callable[[TokenEvent], None]):
         """Queue a request; ``on_event`` receives its tokens and a final
-        event.  Unservable requests, and any while draining, get an error
-        event at once."""
-        err = self.engine.validate_request(req)
+        event.  Unservable requests, shed ones and any while draining get
+        an error event at once."""
+        # the priority class is resolved once, at the edge
+        if not req.sched_class:
+            req.sched_class = self.sched.cfg.default_class
+        err = self.engine.validate_request(req) or self.check_admission(
+            len(req.prompt_tokens), count_shed=True, tenant=req.tenant,
+            trace_id=req.trace_id, request_id=req.id,
+        )
         if err:
             on_event(_error_event(req.id, err))
             return
@@ -227,12 +400,22 @@ class EngineLoop:
             # store's prefetch, so the load overlaps the queue wait
             self.engine._adapter_ready(req)
         with self._admission_lock:
+            # re-checked under the lock: stop() flips _draining inside it,
+            # so no request slips into the inbox after the terminal sweep
             if self._draining or self._stop.is_set():
                 self.shed_requests += 1
+                self.slo.note_shed(req.tenant)
+                self._audit(SHUTTING_DOWN, tenant=req.tenant,
+                            trace_id=req.trace_id, request_id=req.id,
+                            detail="draining")
                 on_event(_error_event(
                     req.id, f"{SHUTTING_DOWN}: engine '{self.name}' is "
                     "draining"))
                 return
+            self._pending += 1
+            self._pending_tokens += len(req.prompt_tokens)
+            self._pending_by_tenant[req.tenant] = (
+                self._pending_by_tenant.get(req.tenant, 0) + 1)
             self._inbox.put((req, on_event))
         self._wake.set()
 
@@ -303,11 +486,30 @@ class EngineLoop:
             self._thread.join(timeout=30)
 
     def stats(self) -> dict:
+        """Counter snapshot for /metrics (plain reads)."""
         eng = self.engine
         return {
             "steps": self.steps,
             "step_failures": self.step_failures,
+            "step_retries": self.step_retries,
+            "quarantine_evictions": self.quarantine_evictions,
             "shed_requests": self.shed_requests,
+            "prefill_tokens": eng.num_prefill_tokens,
+            "decode_tokens": eng.num_decode_tokens,
+            "generated_tokens": eng.num_generated_tokens,
+            "prefill_padding_tokens": eng.num_prefill_padding_tokens,
+            "prefill_padding_ratio": self.padding_ratio(),
+            "mixed_steps": eng.num_mixed_steps,
+            "spec_steps": eng.num_spec_steps,
+            "spec_drafted_tokens": eng.num_spec_drafted_tokens,
+            "spec_accepted_tokens": eng.num_spec_accepted_tokens,
+            "waiting": len(eng.waiting),
+            "active_slots": sum(1 for s in eng.slots if s is not None),
+            "free_pages": eng.allocator.free_pages,
+            "kv_pages_used": eng.kv_pages_used,
+            "kv_pages_peak": eng.allocator.peak_used,
+            "flight_anomalies": self.flight.anomalies_total,
+            "kv_cache_dtype": eng.cache_cfg.dtype,
             # KV tiering + preemption by swap
             "preemptions": eng.num_preemptions,
             "resumes": eng.num_resumes,
@@ -320,6 +522,15 @@ class EngineLoop:
                 "imported": eng.num_snapshots_imported,
                 "failures": self.migration_failures,
                 "draining": self.draining,
+            },
+            # per-tenant SLO accounting: pooled totals + top-K bounding
+            "tenants": self.slo.stats(),
+            # scheduler policy + per-class admission / victim counters
+            "sched": self.sched.stats(),
+            # host seconds of the scheduler pass
+            "host_seconds": {
+                "sched_pass": round(self.sched_pass_seconds, 6),
+                "sched_passes": self.sched_passes,
             },
             "async_loop": {
                 "enabled": self.async_enabled,
@@ -350,7 +561,49 @@ class EngineLoop:
         step's wall time starts at its own dispatch, so after an idle
         spell the ratio exceeds 1.  The traced idle share, not this
         host-side figure, is the device idle share of PERF.md."""
-        return self.window.window_ratio("idle_gap_s", ("wall_s",))
+        return self.flight.window_ratio("idle_gap_s", ("wall_s",))
+
+    def tokens_per_sec(self) -> float:
+        """Goodput: generated tokens/s over the trailing rate window."""
+        return self._tps.rate(self.engine.num_generated_tokens)
+
+    def padding_ratio(self) -> float:
+        """Prefill padding / (padding + useful prefill) over the flight
+        window."""
+        return self.flight.window_ratio(
+            "padding_tokens", ("padding_tokens", "prefill_tokens"))
+
+    def saturation(self) -> dict:
+        """The compact saturation summary, keyed and ordered as
+        ``obs.flight.SATURATION_KEYS``.  Plain reads, safe from any
+        thread."""
+        eng = self.engine
+        pc = eng.prefix_cache
+        hits = pc.hits if pc is not None else 0
+        misses = pc.misses if pc is not None else 0
+        denom = hits + misses
+        hp = eng.host_pool
+        out = {
+            "kv_occupancy": round(
+                eng.kv_pages_used / eng.kv_pages_capacity, 4),
+            "slots_busy": sum(1 for s in eng.slots if s is not None),
+            "slots_total": len(eng.slots),
+            "queue_depth": self.queue_depth(),
+            "tokens_per_sec": round(self.tokens_per_sec(), 2),
+            "prefix_hit_rate": round(hits / denom, 4) if denom else 0.0,
+            "spec_acceptance_ratio": round(eng.spec_acceptance_ratio, 4),
+            "kv_host_occupancy": round(
+                hp.occupancy if hp is not None else 0.0, 4),
+            "preempted_requests": len(eng.preempted),
+            # the budget this engine runs under (0 = unbudgeted)
+            "prefill_budget_tokens": int(eng.prefill_budget or 0),
+            "adapters_resident": (
+                eng.adapter_pool.stats()["resident"]
+                if eng.adapter_pool is not None else 0),
+            # the cold-middle KV tier is not ported (A14): none demoted
+            "kv_cold_pages": 0,
+        }
+        return {k: out[k] for k in SATURATION_KEYS}
 
     # -- engine thread ------------------------------------------------------
 
@@ -364,23 +617,40 @@ class EngineLoop:
                 self._handle_import(item)
                 continue
             if on_event is None:   # abort
+                # the emission worker may still deliver this request's
+                # queued tokens: let it finish before forgetting
+                self._emit_stage.flush()
                 self.engine.abort(item)
                 self._subscribers.pop(item, None)
+                self._forget_request(item)
                 continue
+            with self._admission_lock:
+                self._pending = max(0, self._pending - 1)
+                self._pending_tokens = max(
+                    0, self._pending_tokens - len(item.prompt_tokens))
+                n = self._pending_by_tenant.get(item.tenant, 0) - 1
+                if n > 0:
+                    self._pending_by_tenant[item.tenant] = n
+                else:
+                    self._pending_by_tenant.pop(item.tenant, None)
             try:
                 self.engine.add_request(item)
-            except ValueError as e:
+            except Exception as e:  # noqa: BLE001 — the thread must survive
                 on_event(_error_event(item.id, str(e)))
                 continue
             self._subscribers[item.id] = on_event
+            self._admit_order.append(item.id)
 
     def _handle_import(self, item: _ImportItem) -> None:
         """Engine-thread half of ``submit_import``."""
         rid = getattr(item.snapshot, "request_id", "")
+        t0 = time.monotonic()
         try:
             req = self.engine.import_request(item.snapshot)
         except SnapshotError as e:
             self.note_migration_failure()
+            self.flight.note_anomaly("import_rejected", request_id=rid,
+                                     detail=str(e)[:200])
             log.warning("engine '%s' rejected snapshot import "
                         "request_id=%s: %s", self.name, rid, e)
             if item.on_result is not None:
@@ -394,40 +664,128 @@ class EngineLoop:
                 item.on_result(str(e), "snapshot_invalid")
             return
         self._subscribers[req.id] = item.on_event
+        self._admit_order.append(req.id)
+        self._trace.record(
+            getattr(item.snapshot, "trace_id", ""), "engine import admit",
+            t0, time.monotonic(), plane="engine", request_id=req.id,
+            prior_tokens=len(req.output_tokens),
+            pages=len(getattr(item.snapshot, "pages", ())))
         log.info("engine '%s' imported request_id=%s (%d prior token(s), "
                  "%d page(s))", self.name, req.id, len(req.output_tokens),
                  len(getattr(item.snapshot, "pages", ())))
         if item.on_result is not None:
             item.on_result(None, None)
 
-    def _active_by_recency(self) -> list:
-        """Unfinished requests with a subscriber, oldest submission first
-        (the subscriber map keeps insertion order)."""
-        reqs = (self.engine.get_request(rid)
-                for rid in list(self._subscribers))
-        return [r for r in reqs if r is not None and not r.finished]
+    def _note_admit(self, req) -> None:
+        """The engine's admission-confirm hook (engine thread, inside
+        ``_try_claim``): the scheduler's class counters and fair-share
+        account are charged on CONFIRMED admissions only."""
+        try:
+            self.sched.note_admitted(req)
+        except Exception:  # noqa: BLE001 — bookkeeping never fails admission
+            log.exception("scheduler note_admitted failed")
 
-    def _terminal(self, req, message: str) -> None:
-        """End one request with an error event (after the tokens queued
-        before it)."""
-        self.engine.abort(req.id)
-        cb = self._subscribers.pop(req.id, None)
-        if cb:
-            cb(_error_event(req.id, message))
+    def _observe_emit(self, req: Request, finished: bool) -> None:
+        """Latency histograms, the first-token SLO note and the engine
+        spans of one emitted token.  ``finished`` is the emission-time
+        snapshot (the live ``req.finished`` may reflect a later step)."""
+        now = time.monotonic()
+        rid = req.id
+        last = self._last_emit.get(rid)
+        if rid not in self._first_emit:
+            self._first_emit[rid] = now
+            admitted = req.admitted_time or now
+            self.obs.queue_wait.observe(max(0.0, admitted - req.submit_time))
+            self.obs.ttft.observe(max(0.0, now - req.submit_time))
+            self.slo.note_first_token(
+                req.tenant, max(0.0, now - req.submit_time),
+                max(0.0, admitted - req.submit_time), len(req.prompt_tokens))
+            if req.trace_id:
+                self._trace.record(req.trace_id, "queue", req.submit_time,
+                                   admitted, plane="engine", request_id=rid)
+                self._trace.record(
+                    req.trace_id, "prefill", admitted, now, plane="engine",
+                    request_id=rid, prompt_tokens=len(req.prompt_tokens),
+                    cached_tokens=req.cached_tokens)
+        elif last is not None:
+            self.obs.inter_token.observe(max(0.0, now - last))
+        self._last_emit[rid] = now
+        if finished:
+            t_first = self._first_emit.pop(rid, now)
+            self._last_emit.pop(rid, None)
+            if req.trace_id:
+                self._trace.record(
+                    req.trace_id, "decode", t_first, now, plane="engine",
+                    request_id=rid, output_tokens=len(req.output_tokens),
+                    finish_reason=(req.finish_reason.value
+                                   if req.finish_reason else None))
+
+    def _forget_request(self, request_id: str) -> None:
+        """Drop per-request emit bookkeeping (abort / evict paths where
+        no finished token event flows)."""
+        self._first_emit.pop(request_id, None)
+        self._last_emit.pop(request_id, None)
+
+    def _emit(self, emitted) -> None:
+        """Snapshot + deliver in one call (the quarantine's synchronous
+        steps)."""
+        self._deliver(self._snapshot_events(emitted))
+
+    def _snapshot_events(self, emitted) -> list:
+        """``[(req, token), ...]`` -> ``[(req, finished, TokenEvent)]``,
+        rendered on the engine thread at emission time: a later step's
+        reconcile may finish the request before the emission stage
+        delivers, and only the token that finished it may say so.  Within
+        one batch a finishing request's LAST entry carries the flag."""
+        last = {req.id: idx for idx, (req, _tok) in enumerate(emitted)}
+        events = []
+        for idx, (req, token) in enumerate(emitted):
+            fin = req.finished and last[req.id] == idx
+            events.append((req, fin, TokenEvent(
+                request_id=req.id, token_id=token, finished=fin,
+                finish_reason=(
+                    req.finish_reason.value
+                    if fin and req.finish_reason else None
+                ),
+            )))
+        return events
+
+    def _deliver(self, events) -> None:
+        # per-tenant token counts go to the accounting once per tenant
+        # per batch, not per token (its lock is shared with scrapes)
+        tenant_tokens: dict = {}
+        for req, fin, ev in events:
+            self._observe_emit(req, fin)
+            tenant_tokens[req.tenant] = tenant_tokens.get(req.tenant, 0) + 1
+            cb = self._subscribers.get(req.id)
+            if cb is None:
+                continue
+            cb(ev)
+            if fin:
+                self._subscribers.pop(req.id, None)
+        for t, n in tenant_tokens.items():
+            self.slo.note_tokens(t, n)
 
     def _shed_kv_exhausted(self, req, waited: float) -> None:
         """The typed shed of a request past the admission deadline,
         queued or parked."""
-        self._emit_stage.flush()
+        self._emit_stage.flush()   # no error frame may overtake tokens
         msg = (f"{KV_EXHAUSTED}: request waited {waited:.1f}s for KV pages "
                f"(admission_timeout={self.admission_timeout}s); the engine "
                "is out of KV capacity, retry later")
+        self.engine.abort(req.id)
         with self._admission_lock:   # submit() counts sheds too
             self.kv_exhausted_sheds += 1
             self.shed_requests += 1
+        self.slo.note_shed(req.tenant, kv_exhausted=True)
+        self._audit(KV_EXHAUSTED, tenant=req.tenant, trace_id=req.trace_id,
+                    request_id=req.id, detail=msg)
         log.warning("engine '%s' shedding request_id=%s: %s", self.name,
                     req.id, msg)
-        self._terminal(req, msg)
+        self._forget_request(req.id)
+        cb = self._subscribers.pop(req.id, None)
+        if cb:
+            cb(_error_event(req.id, msg))
 
     def _pressure_pending(self) -> bool:
         """Whether the ladder has anything to watch: a waiting queue or a
@@ -437,10 +795,11 @@ class EngineLoop:
     def _memory_pressure_tick(self) -> None:
         """The KV-pressure ladder, once per loop pass, with no step in
         flight.  Admission counts as starved while requests wait and no
-        admission or resume lands.  Past ``preempt_stall_seconds`` the
-        newest (then largest) decoder swaps out to the host tier, one per
-        stall window; past ``admission_timeout`` queued and parked
-        requests get the typed ``kv_exhausted`` shed."""
+        admission or resume lands.  Past ``preempt_stall_seconds`` a
+        decoder swaps out to the host tier (the scheduler's victim under
+        WFQ, else the newest then largest), one per stall window; past
+        ``admission_timeout`` queued and parked requests get the typed
+        ``kv_exhausted`` shed."""
         eng = self.engine
         now = time.monotonic()
         progress = eng.num_admitted + eng.num_resumes
@@ -458,10 +817,13 @@ class EngineLoop:
             # not KV exhaustion
             if self._stall_since is not None \
                     and now - self._stall_since > self.admission_timeout:
-                for r in waiting:
-                    if not r.finished \
-                            and now - r.submit_time > self.admission_timeout:
-                        self._shed_kv_exhausted(r, now - r.submit_time)
+                over = [r for r in waiting if not r.finished
+                        and now - r.submit_time > self.admission_timeout]
+                if self._sched_active and len(over) > 1:
+                    # every one sheds, in the policy's victim order
+                    over = self.sched.preempt_order(over)
+                for r in over:
+                    self._shed_kv_exhausted(r, now - r.submit_time)
             # a parked decoder that cannot get pages back is KV pressure
             # by construction
             for st in list(eng.preempted):
@@ -476,6 +838,20 @@ class EngineLoop:
             victim = eng.preempt_for_pressure()
             if victim is not None:
                 self._last_preempt_at = now
+                vreq = eng.get_request(victim)
+                tenant = vreq.tenant if vreq is not None else ANON_TENANT
+                self.slo.note_preemption(tenant)
+                if self._sched_active and vreq is not None:
+                    # the victim came from the policy ladder
+                    self.sched.note_preempt_victim(vreq)
+                    reason = PREEMPT_VICTIM
+                else:
+                    reason = "preempt_by_swap"
+                self._audit(reason, tenant=tenant,
+                            trace_id=getattr(vreq, "trace_id", ""),
+                            request_id=victim,
+                            detail=f"admission KV-starved "
+                                   f"{now - self._stall_since:.1f}s")
                 log.warning("engine '%s' admission KV-starved for %.1fs: "
                             "preempted request_id=%s (swap to host)",
                             self.name, now - self._stall_since, victim)
@@ -489,6 +865,9 @@ class EngineLoop:
         for req, msg in failures:
             log.warning("engine '%s' resume failed for request_id=%s: %s",
                         self.name, req.id, msg)
+            self.flight.note_anomaly("resume_corrupt", request_id=req.id,
+                                     detail=msg[:200])
+            self._forget_request(req.id)
             cb = self._subscribers.pop(req.id, None)
             if cb:
                 cb(_error_event(req.id, msg))
@@ -518,68 +897,168 @@ class EngineLoop:
             if snap is None:
                 self.note_migration_failure()
                 continue
+            t0 = time.monotonic()
             try:
                 peer = self.exporter(snapshot_to_wire(snap))
             except Exception as e:  # noqa: BLE001 — degrade to shed
                 self.note_migration_failure()
+                self._trace.record(req.trace_id, "migrate export ship", t0,
+                                   time.monotonic(), plane="engine",
+                                   request_id=req.id, outcome="failed")
                 log.warning("engine '%s' could not ship snapshot for "
                             "request_id=%s: %s", self.name, req.id, e)
                 continue
             shipped += 1
+            self._trace.record(req.trace_id, "migrate export ship", t0,
+                               time.monotonic(), plane="engine",
+                               request_id=req.id, outcome="shipped",
+                               peer=peer)
             log.info("engine '%s' migrated request_id=%s to peer %s at "
                      "drain deadline", self.name, req.id, peer)
-            self._terminal(req, migrated_error(req.id, peer))
+            self.engine.abort(req.id)
+            self._forget_request(req.id)
+            cb = self._subscribers.pop(req.id, None)
+            if cb:
+                cb(_error_event(req.id, migrated_error(req.id, peer)))
         return shipped
 
-    def _snapshot_events(self, emitted) -> list:
-        """``[(req, token), ...]`` -> ``[(req, finished, TokenEvent)]``,
-        rendered on the engine thread at emission time: a later step's
-        reconcile may finish the request before the emission stage
-        delivers, and only the token that finished it may say so.  Within
-        one batch a finishing request's LAST entry carries the flag."""
-        last = {req.id: idx for idx, (req, _tok) in enumerate(emitted)}
-        events = []
-        for idx, (req, token) in enumerate(emitted):
-            fin = req.finished and last[req.id] == idx
-            events.append((req, fin, TokenEvent(
-                request_id=req.id, token_id=token, finished=fin,
-                finish_reason=(
-                    req.finish_reason.value
-                    if fin and req.finish_reason else None
-                ),
-            )))
-        return events
+    # -- the step-failure ladder ---------------------------------------------
 
-    def _deliver(self, events) -> None:
-        for req, fin, ev in events:
-            cb = self._subscribers.get(req.id)
-            if cb is None:
-                continue
-            cb(ev)
-            if fin:
-                self._subscribers.pop(req.id, None)
+    def _fault_gate(self) -> None:
+        """The (normally disarmed) ``engine_step`` fault point, before
+        every dispatch and every quarantine step."""
+        inj = faults.active()
+        if inj is not None:
+            ids = [r.id for r in self.engine.slots if r is not None] + [
+                r.id for r in self.engine.waiting]
+            inj.maybe_fail_step(self.name, self.steps, ids)
 
-    def _fail_all(self, message: str) -> None:
+    def _step_once(self):
+        """One full synchronous engine step (the quarantine's bisection:
+        no pipelining)."""
+        self._fault_gate()
+        return self.engine.step()
+
+    def _dispatch_once(self):
+        """Host phase of one engine step."""
+        self._fault_gate()
+        return self.engine.step_dispatch()
+
+    def _handle_step_failure(self, e: Exception, dt_step: float,
+                             flight_pre: tuple) -> None:
+        """Record the failure, retry once on the same state, then
+        quarantine."""
         self._emit_stage.flush()
-        for rid, cb in list(self._subscribers.items()):
-            self.engine.abort(rid)
-            cb(_error_event(rid, message))
-        self._subscribers.clear()
-
-    def _step_failed(self, e: Exception) -> None:
-        log.error("engine '%s' step %d failed: %s", self.name, self.steps, e,
-                  exc_info=e)
+        self.obs.step_seconds.observe(dt_step)
+        self._flight_record(dt_step, flight_pre, generated=0, failed=str(e))
         self.step_failures += 1
-        self._fail_all(f"engine step failed: {e}")
+        self._consec_failures += 1
+        scheduled = [r.id for r in self.engine.slots if r is not None]
+        log.warning("engine '%s' step %d failed (consecutive=%d, scheduled "
+                    "request_ids=%s): %s", self.name, self.steps,
+                    self._consec_failures, scheduled, e)
+        if self._consec_failures == 1:
+            # a transient fault clears on an immediate retry of the same
+            # state
+            self.step_retries += 1
+            return
+        log.error("engine '%s' step failed twice: quarantining", self.name,
+                  exc_info=e)
+        self._quarantine(e)
+        self._consec_failures = 0
 
-    def _record(self, kind: str, generated: int, **timing) -> None:
-        # distinct adapters sharing the batch: > 1 is a mixed-adapter
-        # device call
-        distinct = len({s.adapter for s in self.engine.slots
-                        if s is not None and s.adapter})
-        self.window.record({"kind": kind, "generated": generated,
-                            "distinct_adapters": distinct,
-                            **{k: round(v, 6) for k, v in timing.items()}})
+    def _flight_pre(self) -> tuple:
+        """Counter snapshot taken just before a step, so its record
+        carries deltas."""
+        eng = self.engine
+        hp = eng.host_pool
+        return (
+            eng.num_prefill_tokens,
+            eng.num_prefill_padding_tokens,
+            eng.num_decode_tokens,
+            eng.num_admitted,
+            self.quarantine_evictions,
+            eng.num_spec_drafted_tokens,
+            eng.num_spec_accepted_tokens,
+            hp.spilled_pages if hp is not None else 0,
+            hp.restored_pages if hp is not None else 0,
+            eng.num_preemptions,
+            eng.num_resumes,
+        )
+
+    def _flight_record(self, duration: float, pre: tuple, generated: int,
+                       failed: Optional[str] = None,
+                       timing: Optional[dict] = None) -> None:
+        eng = self.engine
+        p0, pad0, d0, a0, q0, sd0, sa0, sp0, rs0, pe0, re0 = pre
+        hp = eng.host_pool
+        prefill = eng.num_prefill_tokens - p0
+        decode = eng.num_decode_tokens - d0
+        if failed is not None:
+            kind = "failed"
+        elif prefill and decode:
+            kind = "mixed"
+        elif prefill:
+            kind = "prefill"
+        elif decode:
+            kind = "decode"
+        else:
+            kind = "idle"
+        rec = {
+            "step": self.steps,
+            "ts": time.time(),
+            "duration": duration,
+            "kind": kind,
+            "slots_busy": sum(1 for s in eng.slots if s is not None),
+            "slots_total": len(eng.slots),
+            "queue_depth": self.queue_depth(),
+            "kv_pages_used": eng.kv_pages_used,
+            "kv_pages_free": eng.allocator.free_pages,
+            "prefill_tokens": prefill,
+            "padding_tokens": eng.num_prefill_padding_tokens - pad0,
+            "decode_tokens": decode,
+            "generated_tokens": generated,
+            "admissions": eng.num_admitted - a0,
+            "evictions": self.quarantine_evictions - q0,
+            "spec_drafted": eng.num_spec_drafted_tokens - sd0,
+            "spec_accepted": eng.num_spec_accepted_tokens - sa0,
+            "spilled_pages": (hp.spilled_pages - sp0) if hp is not None else 0,
+            "restored_pages": (
+                (hp.restored_pages - rs0) if hp is not None else 0),
+            "preemptions": eng.num_preemptions - pe0,
+            "resumes": eng.num_resumes - re0,
+            "host_pool_pages": hp.pages if hp is not None else 0,
+            # the scheduler's prefill-admission budget in force this step
+            # (0 = unbudgeted)
+            "prefill_budget_tokens": int(eng.prefill_budget or 0),
+            # distinct tenants / adapters sharing this step's batch
+            "distinct_tenants": len({s.tenant for s in eng.slots
+                                     if s is not None}),
+            "distinct_adapters": len({s.adapter for s in eng.slots
+                                      if s is not None and s.adapter}),
+        }
+        if timing:
+            # the step's time split: host build / device wait / emit, and
+            # the device-idle gap it charged
+            rec.update(timing)
+        if failed is not None:
+            rec["anomaly"] = "step_failure"
+            rec["error"] = failed[:200]
+        self.flight.record_step(rec)
+        # a goodput sample while the engine works (throttled inside)
+        self._tps.rate(eng.num_generated_tokens)
+
+    def _sched_pass(self) -> None:
+        """The scheduler pass (engine thread, the wait queue's owner):
+        rewrite the queue into dispatch order and refresh the per-step
+        prefill budget from the live latency burn.  It reads only the
+        wait queue and the burn accounts, so it is safe with a step in
+        flight and makes no device call."""
+        t0 = time.perf_counter()
+        self.sched.reorder(self.engine.waiting)
+        self.engine.prefill_budget = self.sched.prefill_budget(self.slo)
+        self.sched_pass_seconds += time.perf_counter() - t0
+        self.sched_passes += 1
 
     def _run(self):
         # the at-most-one dispatched-but-not-reconciled step; always None
@@ -594,27 +1073,35 @@ class EngineLoop:
         def reconcile() -> bool:
             """Complete the in-flight step and drain the emission stage
             (before the inbox mutates state, or when idle).  False: the
-            completion failed and its requests were failed."""
+            completion failed and the failure ladder ran."""
             nonlocal inflight
             if inflight is None:
                 self._emit_stage.flush()
                 return True
             pend, inflight = inflight, None
+            pre = self._flight_pre()
             t0 = time.monotonic()
             try:
                 emitted = complete(pend)
             except Exception as e:  # noqa: BLE001 — fail requests, not the loop
                 self.engine.discard_pending(pend)
-                self._step_failed(e)
+                self._handle_step_failure(e, time.monotonic() - t0, pre)
                 return False
             dt_wait = time.monotonic() - t0
             t_emit = time.monotonic()
             self._emit_stage.push(self._snapshot_events(emitted))
             # the step's dispatch skipped its record: it lands here
-            self._record(pend.kind, len(emitted), host_build_s=0.0,
-                         device_wait_s=dt_wait,
-                         emit_s=time.monotonic() - t_emit, idle_gap_s=0.0,
-                         wall_s=time.monotonic() - t0, pipelined=1)
+            self._flight_record(dt_wait, pre, generated=len(emitted),
+                                timing={
+                                    "host_build_s": 0.0,
+                                    "device_wait_s": round(dt_wait, 6),
+                                    "emit_s": round(
+                                        time.monotonic() - t_emit, 6),
+                                    "idle_gap_s": 0.0,
+                                    "wall_s": round(
+                                        time.monotonic() - t0, 6),
+                                    "pipelined": 1,
+                                })
             self._emit_stage.flush()
             return True
 
@@ -638,6 +1125,17 @@ class EngineLoop:
                                  "the drain deadline", self.name, shipped)
                     self._fail_all("drain deadline exceeded at shutdown")
                     break
+            if time.monotonic() - self._last_reap > 10.0:
+                self._last_reap = time.monotonic()
+                reaped = self.engine.reap_stuck(self.max_queue_seconds)
+                if reaped:
+                    self._emit_stage.flush()
+                for req in reaped:
+                    self._forget_request(req.id)
+                    cb = self._subscribers.pop(req.id, None)
+                    if cb:
+                        cb(_error_event(req.id,
+                                        "request timed out in queue"))
             if self._pressure_pending():
                 # the ladder reads and rewrites the host mirrors (a
                 # preempt saves _positions / _last_token): no step may be
@@ -654,29 +1152,46 @@ class EngineLoop:
                 self._wake.wait(0.05)
                 self._wake.clear()
                 continue
+            if self._sched_active:
+                self._sched_pass()
             # the pipeline gate, decided BEFORE the dispatch
-            can_pipe = self.async_enabled and self.engine.pipeline_ready()
+            can_pipe = (self.async_enabled and not self._draining
+                        and self.engine.pipeline_ready())
             if inflight is not None and not can_pipe:
                 if not reconcile():
                     continue
             t_step = time.monotonic()
+            flight_pre = self._flight_pre()
             overlapped = inflight is not None
             try:
-                emitted, pend = self.engine.step_dispatch()
+                emitted, pend = self._dispatch_once()
             except Exception as e:  # noqa: BLE001 — fail requests, not the loop
                 # the in-flight step is healthy dispatched work: complete
-                # it first so its tokens are not lost
+                # it first so its tokens are not lost, and record it
                 if inflight is not None:
                     prev, inflight = inflight, None
+                    pre_prev = self._flight_pre()
+                    t0_prev = time.monotonic()
                     try:
-                        self._emit_stage.push(
-                            self._snapshot_events(complete(prev)))
+                        prev_emitted = complete(prev)
                     except Exception:  # noqa: BLE001 — poisoned chain
                         self.engine.discard_pending(prev)
-                self._step_failed(e)
+                    else:
+                        self._emit_stage.push(
+                            self._snapshot_events(prev_emitted))
+                        dt_prev = time.monotonic() - t0_prev
+                        self._flight_record(
+                            dt_prev, pre_prev, generated=len(prev_emitted),
+                            timing={"host_build_s": 0.0,
+                                    "device_wait_s": round(dt_prev, 6),
+                                    "emit_s": 0.0, "idle_gap_s": 0.0,
+                                    "wall_s": round(dt_prev, 6),
+                                    "pipelined": 1})
+                self._handle_step_failure(e, time.monotonic() - t_step,
+                                          flight_pre)
                 continue
             t_built = time.monotonic()
-            kind = pend.kind if pend is not None else "admit"
+            dt_build = t_built - t_step
             idle_gap = 0.0
             if not overlapped and self._device_busy_until:
                 # nothing was in flight while this step was built: the
@@ -706,21 +1221,32 @@ class EngineLoop:
                     if p is not None:
                         self.engine.discard_pending(p)
                 inflight = None
-                self._step_failed(e)
+                self._handle_step_failure(e, time.monotonic() - t_step,
+                                          flight_pre)
                 continue
+            dt_step = time.monotonic() - t_step
+            self.obs.step_seconds.observe(dt_step)
+            self.obs.host_build.observe(dt_build)
+            self._consec_failures = 0
+            self._barren_rounds = 0
             self.steps += 1
             if inflight is not None and not emitted:
                 # pipeline-fill pass: its numbers land with its completion
                 continue
             t_emit = time.monotonic()
             self._emit_stage.push(self._snapshot_events(emitted))
+            dt_emit = time.monotonic() - t_emit
             self._deliver_resume_failures()
-            self._record(kind, len(emitted), host_build_s=t_built - t_step,
-                         device_wait_s=dt_wait,
-                         emit_s=time.monotonic() - t_emit,
-                         idle_gap_s=idle_gap,
-                         wall_s=time.monotonic() - t_step,
-                         pipelined=1 if overlapped else 0)
+            self._flight_record(dt_step, flight_pre, generated=len(emitted),
+                                timing={
+                                    "host_build_s": round(dt_build, 6),
+                                    "device_wait_s": round(dt_wait, 6),
+                                    "emit_s": round(dt_emit, 6),
+                                    "idle_gap_s": round(idle_gap, 6),
+                                    "wall_s": round(
+                                        time.monotonic() - t_step, 6),
+                                    "pipelined": 1 if overlapped else 0,
+                                })
         # a step still in flight at shutdown: its tokens reach their
         # subscribers before the terminal sweep
         if inflight is not None:
@@ -733,3 +1259,190 @@ class EngineLoop:
         self._drain_inbox()
         self._fail_all(f"{SHUTTING_DOWN}: engine '{self.name}' stopped")
         self._emit_stage.stop()
+
+    # -- poisoned-request quarantine ------------------------------------------
+
+    def _active_by_recency(self) -> list:
+        """Unfinished submitted requests, oldest admission first."""
+        out = []
+        for rid in self._admit_order:
+            req = self.engine.get_request(rid)
+            if req is not None and not req.finished:
+                out.append(req)
+        # prune finished ids so the order list does not grow unboundedly
+        self._admit_order = [r.id for r in out]
+        return out
+
+    def _evict_victim(self, cands: list, msg: str) -> None:
+        """Shed ONE of ``cands`` (oldest admission first): the scheduler
+        picks the victim (the policy ladder under WFQ, the newest under
+        the FIFO baseline), and the decision is audited."""
+        victim = self.sched.pick_shed_victim(cands)
+        if victim is None:
+            return
+        if self._sched_active:
+            self.sched.note_shed_victim(victim)
+            self._audit(SHED_VICTIM, tenant=victim.tenant,
+                        trace_id=victim.trace_id, request_id=victim.id,
+                        detail=f"policy victim among {len(cands)} "
+                               "candidate(s)")
+        self._evict(victim, msg)
+
+    def _evict(self, req, msg: str) -> None:
+        self._emit_stage.flush()   # no error frame may overtake tokens
+        self.engine.abort(req.id)
+        self.quarantine_evictions += 1
+        self._note_quarantine(req, msg,
+                              self._first_emit.get(req.id, time.monotonic()))
+
+    def _note_quarantine(self, req, msg: str, span_start: float) -> None:
+        """The anomaly, audit, log and span of one quarantine eviction,
+        then the request's error event."""
+        self.flight.note_anomaly("quarantine", request_id=req.id,
+                                 detail=msg[:200])
+        self._audit("quarantine", tenant=req.tenant, trace_id=req.trace_id,
+                    request_id=req.id, detail=msg)
+        log.warning("engine '%s' evicting request_id=%s trace_id=%s: %s",
+                    self.name, req.id, req.trace_id or "-", msg)
+        if req.trace_id:
+            self._trace.record(req.trace_id, "quarantine", span_start,
+                               time.monotonic(), plane="engine",
+                               request_id=req.id, reason=msg)
+        self._forget_request(req.id)
+        cb = self._subscribers.pop(req.id, None)
+        if cb:
+            cb(_error_event(req.id, msg))
+
+    @staticmethod
+    def _clone_for_readmit(req) -> Request:
+        """A fresh Request (same id, so subscribers stay valid) for a
+        quarantined request that never emitted a token, to re-prefill it
+        from scratch during bisection."""
+        return Request(
+            id=req.id,
+            prompt_tokens=list(req.prompt_tokens),
+            sampling=req.sampling,
+            stop_token_ids=req.stop_token_ids,
+            image_embeds=req.image_embeds,
+            image_positions=req.image_positions,
+            positions3=req.positions3,
+            mrope_delta=req.mrope_delta,
+            trace_id=req.trace_id,
+            tenant=req.tenant,
+            sched_class=req.sched_class,
+            adapter=req.adapter,
+        )
+
+    def _trial(self, group: list) -> bool:
+        """Re-admit ``group`` (clones) and step until each member emits or
+        finishes.  True: the group is clean (members left running);
+        False: a step failed, members re-aborted (subscribers kept)."""
+        clones = []
+        for req in group:
+            clone = self._clone_for_readmit(req)
+            try:
+                self.engine.add_request(clone)
+            except Exception as e:  # noqa: BLE001 — validation changed?
+                self._evict(clone, f"engine rejected request: {e}")
+                continue
+            clones.append(clone)
+        if not clones:
+            return True
+        # admission + every prefill chunk + slack: no unbounded spin if a
+        # clone can never reach its first token
+        chunk = max(1, self.engine.cfg.max_prefill_len)
+        budget = 8 + sum(len(c.prompt_tokens) // chunk + 1 for c in clones)
+        for _ in range(budget):
+            try:
+                emitted = self._step_once()
+            except Exception:  # noqa: BLE001 — the culprit is in this group
+                for c in clones:
+                    self.engine.abort(c.id)
+                return False
+            self.steps += 1
+            self._emit(emitted)
+            if all(c.finished or c.output_tokens for c in clones):
+                return True
+        return True   # budget spent without a failure: call it clean
+
+    def _quarantine(self, err: Exception) -> None:
+        """The step failed twice on the same state: blame the most
+        recently admitted request(s) instead of failing everyone.
+
+        Requests that have not emitted a token yet (the usual poison: a
+        prompt whose prefill trips the fault) can be re-prefilled safely,
+        so they are pulled out and bisected back in; only the subset whose
+        re-admission still fails the step is evicted.  A control step
+        with the suspects removed guards the other direction: if the fault
+        persists without them, it lives in an emitting request, the
+        suspects are re-admitted untouched and one policy victim is shed
+        instead."""
+        self._emit_stage.flush()   # bisection emits directly from here
+        active = self._active_by_recency()
+        suspects = [r for r in active if not r.output_tokens]
+        emitting = [r for r in active if r.output_tokens]
+        if suspects:
+            for r in suspects:
+                self.engine.abort(r.id)   # keep subscribers: clones re-emit
+            if emitting and self.engine.has_work():
+                # control step: suspects out, only the emitting set runs;
+                # a failure here exonerates the suspects
+                try:
+                    emitted = self._step_once()
+                    self.steps += 1
+                    self._emit(emitted)
+                except Exception:  # noqa: BLE001 — the fault is in the batch
+                    for r in suspects:
+                        try:
+                            self.engine.add_request(
+                                self._clone_for_readmit(r))
+                        except Exception as e:  # noqa: BLE001
+                            self._evict(r, f"engine rejected request: {e}")
+                    self._evict_victim(
+                        emitting, "evicted after repeated engine step "
+                        f"failures ({err})")
+                    return
+            culprits: list = []
+            stack = [suspects]
+            while stack:
+                group = stack.pop()
+                if self._trial(group):
+                    continue
+                if len(group) == 1:
+                    culprits.append(group[0])
+                    continue
+                mid = len(group) // 2
+                stack.append(group[:mid])    # older half
+                stack.append(group[mid:])    # newer half tested first
+            for r in culprits:
+                self.quarantine_evictions += 1
+                now = time.monotonic()
+                self._note_quarantine(
+                    r, "request quarantined: engine step failed while "
+                    f"scheduled ({err})", now)
+            if culprits:
+                self._barren_rounds = 0
+                return
+            # every suspect came back clean: the fault was transient (one
+            # more chance) or it lives in an emitting request (shed a
+            # policy victim next round)
+            self._barren_rounds += 1
+            if self._barren_rounds < 2:
+                return
+        if active:
+            self._evict_victim(
+                active, f"evicted after repeated engine step failures ({err})")
+
+    def _fail_all(self, message: str) -> None:
+        self._emit_stage.flush()   # no error frame may overtake tokens
+        for req in self._active_by_recency():
+            self.engine.abort(req.id)
+            self._forget_request(req.id)
+            cb = self._subscribers.pop(req.id, None)
+            if cb:
+                cb(_error_event(req.id, message))
+        # subscribers whose request the engine no longer holds
+        for rid, cb in list(self._subscribers.items()):
+            self.engine.abort(rid)
+            cb(_error_event(rid, message))
+        self._subscribers.clear()

@@ -44,16 +44,19 @@ from helix_tpu_torch.engine.engine import (
     SnapshotError,
 )
 from helix_tpu_torch.engine.kv_cache import PAGE_FIELDS, raw_bytes
+from helix_tpu_torch.obs.trace import TRACE_HEADER, is_trace_id
 from helix_tpu_torch.testing import faults
 
-# the trace header a shipping peer forwards (helix_tpu/obs/trace.py)
-TRACE_HEADER = "X-Helix-Trace-Id"
-_TRACE_ID_RE = re.compile(r"[A-Za-z0-9_-]{8,64}")
-
-
-def is_trace_id(value) -> bool:
-    """Whether ``value`` is shaped like an adoptable trace id."""
-    return isinstance(value, str) and bool(_TRACE_ID_RE.fullmatch(value))
+# the migration and transfer series, minted by this module only (the
+# reference's names)
+MIGRATIONS_EXPORTED = "helix_migrations_exported_total"
+MIGRATIONS_IMPORTED = "helix_migrations_imported_total"
+MIGRATION_FAILURES = "helix_migration_failures_total"
+MIGRATION_DRAIN_STATE = "helix_migration_drain_state"
+XFER_ATTEMPTS = "helix_xfer_attempts_total"
+XFER_SHIP_SECONDS = "helix_xfer_ship_seconds_total"
+XFER_SHIPPED_BYTES = "helix_xfer_shipped_bytes_total"
+XFER_DEADLINE_EXCEEDED = "helix_xfer_deadline_exceeded_total"
 
 
 # every way one ship attempt can end
@@ -105,6 +108,50 @@ class XferStats:
 
 
 XFER_STATS = XferStats()
+
+
+def collect_xfer(c) -> None:
+    """Runner-side KV-transfer series (the OpenAI server's scrape-time
+    collector calls it)."""
+    snap = XFER_STATS.snapshot()
+    for outcome, n in sorted(snap["attempts"].items()):
+        c.counter(
+            XFER_ATTEMPTS, n, {"outcome": outcome},
+            help="KV snapshot ship attempts by outcome",
+        )
+    c.counter(
+        XFER_SHIP_SECONDS, snap["ship_seconds"],
+        help="Cumulative wall time spent shipping KV snapshots",
+    )
+    c.counter(
+        XFER_SHIPPED_BYTES, snap["shipped_bytes"],
+        help="Wire bytes of successfully shipped KV snapshots",
+    )
+    c.counter(
+        XFER_DEADLINE_EXCEEDED, snap["deadline_exceeded"],
+        help="Ships abandoned at the total transfer deadline",
+    )
+
+
+def collect_runner_migration(c, loop, labels: dict) -> None:
+    """Runner-side migration series for one engine loop (plain reads)."""
+    eng = loop.engine
+    c.counter(
+        MIGRATIONS_EXPORTED, eng.num_snapshots_exported, labels,
+        help="Request snapshots exported for cross-runner migration",
+    )
+    c.counter(
+        MIGRATIONS_IMPORTED, eng.num_snapshots_imported, labels,
+        help="Request snapshots imported from a peer runner",
+    )
+    c.counter(
+        MIGRATION_FAILURES, loop.migration_failures, labels,
+        help="Failed exports/ships/imports (request shed instead)",
+    )
+    c.gauge(
+        MIGRATION_DRAIN_STATE, 1 if loop.draining else 0, labels,
+        help="1 while this engine loop is draining (shutdown ladder)",
+    )
 
 # error-message prefix of a request exported instead of shed; the control
 # plane's mid-stream failover reads the peer out of the message

@@ -39,8 +39,29 @@ port needs no web framework:
   has not seen, then live tokens).  Both take ``X-Runner-Token`` when
   ``HELIX_RUNNER_TOKEN`` is set.
 
-``/metrics``, embeddings, the Anthropic surface and the debug and context
-endpoints wait for later slices (ROADMAP A7).
+- ``GET /metrics``: Prometheus text rendered by the port's registry
+  (``obs.metrics``), with the reference's ``_collect_metrics`` series
+  (names, types and label sets) wherever the port has the quantity: the
+  engine, loop, saturation, prefix-cache, host-tier and preemption
+  series, the loop's latency histograms, the tenant and SLO series
+  (``obs.slo``), the scheduler's (``serving.sched``), the residency
+  manager's, the adapters' (``engine.adapters``), the migration and
+  transfer series (``serving.migration``) and the trace-loss counter
+  (``obs.trace``).  ``helix_mfu_estimate`` needs ``HELIX_PEAK_FLOPS``
+  (the card's peak FLOP/s); without it the gauge is left out;
+- ``GET /v1/debug/traces``, ``/v1/debug/traces/{trace_id}`` (``?format=
+  chrome`` for Chrome ``trace_event`` JSON), ``/v1/debug/flight`` and
+  ``/v1/debug/admissions`` (``?model=``, ``?recent=``), with the
+  reference's JSON shapes, runner-token gated like migration;
+- tenant and class: ``X-Helix-Tenant`` (``obs.slo.sanitize_tenant``) and
+  ``X-Helix-Class`` (``serving.sched.sanitize_class``) ride onto the
+  ``Request``, and ``X-Helix-Trace-Id`` is adopted (or minted) and echoed
+  on errors; a request the engine loop would shed is answered before any
+  stream starts: ``queue_full`` 429 with ``Retry-After: 1``, a draining
+  engine 503, a KV-starved one 503 ``kv_exhausted``.
+
+Embeddings, the Anthropic surface, ``/logs``, ``/admin/profiler`` and the
+context endpoints wait for later slices (ROADMAP A7b, A14, A17).
 """
 
 from __future__ import annotations
@@ -51,6 +72,7 @@ import os
 import queue
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -58,21 +80,37 @@ from typing import Optional
 from helix_tpu_torch.engine.adapters import (
     ADAPTER_SEP,
     MAX_LISTED_ADAPTERS,
+    collect_adapter_metrics,
     sanitize_adapter_id,
     split_model_adapter,
 )
 from helix_tpu_torch.engine.engine import Request, SnapshotError
+from helix_tpu_torch.engine.residency import model_param_count
 from helix_tpu_torch.engine.sampling import SamplingParams
-from helix_tpu_torch.serving.engine_loop import KV_EXHAUSTED, SHUTTING_DOWN
+from helix_tpu_torch.obs.metrics import Collector, Registry
+from helix_tpu_torch.obs.slo import ANON_TENANT, TENANT_HEADER, sanitize_tenant
+from helix_tpu_torch.obs.trace import (
+    TRACE_HEADER,
+    adopt_trace_id,
+    collect_trace_metrics,
+    default_store,
+    is_trace_id,
+)
+from helix_tpu_torch.serving.engine_loop import (
+    KV_EXHAUSTED,
+    QUEUE_FULL,
+    SHUTTING_DOWN,
+)
 from helix_tpu_torch.serving.migration import (
     MIGRATED,
-    TRACE_HEADER,
     ImportedStream,
     ImportedStreams,
-    is_trace_id,
+    collect_runner_migration,
+    collect_xfer,
     migration_timeout,
     wire_to_snapshot,
 )
+from helix_tpu_torch.serving.sched import CLASS_HEADER, sanitize_class
 from helix_tpu_torch.serving.tokenizer import IncrementalDetokenizer
 
 
@@ -85,18 +123,26 @@ class EngineRequestError(Exception):
 
 
 def _error_body(message: str, etype: str = "invalid_request_error",
-                code: str = "", request_id: str = "") -> dict:
+                code: str = "", request_id: str = "",
+                trace_id: str = "") -> dict:
     err: dict = {"message": message, "type": etype}
     if code:
         err["code"] = code
+    if trace_id:
+        err["trace_id"] = trace_id
     if request_id:
         err["request_id"] = request_id
     return {"error": err}
 
 
 def _engine_error(e: EngineRequestError) -> tuple:
-    """(status, body, headers) for an engine error."""
+    """(status, body, headers) for an engine error: shed load is a 429
+    with ``Retry-After``, a drain or KV exhaustion a 503, an engine
+    timeout a 504, anything else a 400."""
     msg = str(e)
+    if msg.startswith(QUEUE_FULL):
+        return 429, _error_body(msg, "overloaded_error",
+                                request_id=e.request_id), {"Retry-After": "1"}
     if msg.startswith(KV_EXHAUSTED):
         return 503, _error_body(msg, "overloaded_error", code=KV_EXHAUSTED,
                                 request_id=e.request_id), {"Retry-After": "2"}
@@ -133,6 +179,15 @@ def sampling_from_body(body: dict) -> SamplingParams:
     )
 
 
+def _peak_flops() -> float:
+    """Peak device FLOP/s for the MFU denominator: ``HELIX_PEAK_FLOPS``
+    when the operator sets it, else 0 (the gauge is left out)."""
+    try:
+        return float(os.environ.get("HELIX_PEAK_FLOPS", "") or 0.0)
+    except ValueError:
+        return 0.0
+
+
 class OpenAIServer:
     """Routes OpenAI requests to the registry's engine loops."""
 
@@ -142,6 +197,12 @@ class OpenAIServer:
         self.inter_token_timeout = inter_token_timeout
         # migrated-in requests whose stream nobody has claimed yet
         self.imported = ImportedStreams()
+        self.started = time.monotonic()
+        self.traces = default_store()
+        # the /metrics surface: every series comes from scrape-time
+        # collection over the live engines
+        self.obs = Registry()
+        self.obs.register_callback(self._collect_metrics)
 
     def residency_manager(self):
         """The ResidencyManager behind the registry, if hot-swap is on."""
@@ -160,18 +221,25 @@ class OpenAIServer:
                 served.loop.note_migration_failure()
 
     def generate(self, served, prompt_ids, sampling: SamplingParams,
-                 adapter: str = ""):
+                 adapter: str = "", tenant: str = ANON_TENANT,
+                 sched_class: str = "", trace_id: str = "",
+                 request_id: str = ""):
         """Submit to the engine loop; yields ``(delta_text, token_id,
         finished, finish_reason)``.  Serving-level stop strings end the
         stream at the match.  ``adapter``: a sanitised, published adapter
-        id of the model ("" = the base model)."""
+        id of the model ("" = the base model); ``tenant`` /
+        ``sched_class``: the sanitised identity headers ("" class = the
+        profile's default)."""
         q: "queue.Queue" = queue.Queue()
         req = Request(
-            id=f"req-{uuid.uuid4().hex[:12]}",
+            id=request_id or f"req-{uuid.uuid4().hex[:12]}",
             prompt_tokens=list(prompt_ids),
             sampling=sampling,
             stop_token_ids=tuple(served.tokenizer.eos_ids),
             adapter=adapter,
+            tenant=tenant,
+            sched_class=sched_class,
+            trace_id=trace_id,
         )
         served.loop.submit(req, q.put)
         detok = IncrementalDetokenizer(served.tokenizer)
@@ -209,6 +277,170 @@ class OpenAIServer:
         finally:
             if not req.finished:
                 served.loop.abort(req.id)
+
+    # -- /metrics -----------------------------------------------------------
+
+    def render_metrics(self) -> str:
+        return self.obs.render()
+
+    def _collect_metrics(self, c: Collector) -> None:
+        """Scrape-time collection from every live engine (per-model
+        labels) and the residency manager: the reference's series, read
+        off plain counters of the engine thread's state."""
+        c.gauge("helix_uptime_seconds", time.monotonic() - self.started,
+                help="Runner process uptime")
+        collect_xfer(c)
+        collect_trace_metrics(c, self.traces)
+        for m in self.registry.list():
+            if m.loop is None:
+                continue
+            loop, eng = m.loop, m.loop.engine
+            lbl = {"model": m.name}
+            c.counter("helix_engine_steps", loop.steps, lbl)
+            c.counter("helix_prefill_tokens_total", eng.num_prefill_tokens,
+                      lbl)
+            c.counter("helix_decode_tokens_total", eng.num_decode_tokens,
+                      lbl)
+            c.counter("helix_mixed_steps_total", eng.num_mixed_steps, lbl)
+            c.counter("helix_spec_drafted_tokens_total",
+                      eng.num_spec_drafted_tokens, lbl)
+            c.counter("helix_spec_accepted_tokens_total",
+                      eng.num_spec_accepted_tokens, lbl)
+            c.gauge("helix_spec_acceptance_ratio",
+                    eng.spec_acceptance_ratio, lbl)
+            c.gauge("helix_spec_disabled_slots", eng.spec_disabled_slots(),
+                    lbl)
+            c.gauge("helix_waiting_requests", len(eng.waiting), lbl)
+            c.gauge("helix_active_slots",
+                    sum(1 for s in eng.slots if s is not None), lbl)
+            c.gauge("helix_free_pages", eng.allocator.free_pages, lbl)
+            c.counter("helix_step_failures_total", loop.step_failures, lbl)
+            c.counter("helix_step_retries_total", loop.step_retries, lbl)
+            c.counter("helix_quarantine_evictions_total",
+                      loop.quarantine_evictions, lbl)
+            c.counter("helix_shed_requests_total", loop.shed_requests, lbl)
+            c.counter("helix_pipelined_steps_total", loop.pipelined_steps,
+                      lbl)
+            c.gauge("helix_device_idle_ratio",
+                    round(loop.device_idle_ratio(), 4), lbl)
+            loop.obs.collect(c, lbl)
+            self._collect_saturation(c, loop, eng, lbl)
+            loop.slo.collect(c, lbl)
+            loop.sched.collect(c, lbl)
+            collect_runner_migration(c, loop, lbl)
+            collect_adapter_metrics(c, loop, lbl)
+            pc = eng.prefix_cache
+            if pc is not None:
+                st = pc.stats
+                c.gauge("helix_prefix_cache_pages", st["pages"], lbl)
+                c.counter("helix_prefix_cache_hit_pages_total", st["hits"],
+                          lbl)
+                c.counter("helix_prefix_cache_miss_pages_total",
+                          st["misses"], lbl)
+                c.counter("helix_prefix_cache_hits_total",
+                          eng.prefix_cache_hits, lbl)
+                c.counter("helix_prefix_cache_misses_total",
+                          eng.prefix_cache_misses, lbl)
+                c.counter("helix_prefix_cache_evicted_pages_total",
+                          st.get("evicted_pages", 0), lbl)
+            s = []
+            for _ in range(3):
+                # the engine thread appends concurrently; a mutation
+                # during the copy raises, so retry on a fresh one
+                try:
+                    s = sorted(eng.recent_ttfts)
+                    break
+                except RuntimeError:
+                    continue
+            if s:
+                c.gauge("helix_ttft_p50_seconds", s[len(s) // 2], lbl)
+                c.gauge("helix_ttft_p95_seconds",
+                        s[min(len(s) - 1, int(len(s) * 0.95))], lbl)
+        mgr = self.residency_manager()
+        if mgr is not None:
+            st = mgr.stats()
+            c.counter("helix_residency_loads_total", st["loads"])
+            c.counter("helix_residency_evictions_total", st["evictions"])
+            c.gauge("helix_residency_used_bytes", st["used_bytes"])
+            c.gauge("helix_residency_budget_bytes",
+                    st.get("budget_bytes", 0))
+            for name, secs in sorted(st["swap_seconds"].items()):
+                c.gauge("helix_model_swap_seconds", secs, {"model": name})
+            for name, secs in sorted(st["load_seconds"].items()):
+                c.gauge("helix_model_load_seconds", secs, {"model": name})
+
+    def _collect_saturation(self, c: Collector, loop, eng,
+                            lbl: dict) -> None:
+        """Per-model capacity gauges: KV occupancy and its high-water
+        mark, decode-slot use, queue depth and queued tokens, goodput,
+        padding waste, the host tier and preemption, and the MFU estimate
+        when ``HELIX_PEAK_FLOPS`` is set."""
+        sat = loop.saturation()
+        c.gauge("helix_kv_pages_used", eng.kv_pages_used, lbl)
+        c.gauge("helix_kv_pages_capacity", eng.kv_pages_capacity, lbl)
+        c.gauge("helix_kv_pages_used_peak", eng.allocator.peak_used, lbl)
+        c.gauge("helix_kv_occupancy_ratio", sat["kv_occupancy"], lbl)
+        c.gauge("helix_decode_slots_busy", sat["slots_busy"], lbl)
+        c.gauge("helix_decode_slots_capacity", sat["slots_total"], lbl)
+        c.gauge("helix_decode_slot_utilization",
+                sat["slots_busy"] / max(1, sat["slots_total"]), lbl)
+        c.gauge("helix_queue_depth", sat["queue_depth"], lbl)
+        c.gauge("helix_queued_tokens", loop.queued_tokens(), lbl)
+        c.counter("helix_generated_tokens_total", eng.num_generated_tokens,
+                  lbl)
+        c.counter("helix_prefill_padding_tokens_total",
+                  eng.num_prefill_padding_tokens, lbl)
+        c.gauge("helix_prefill_padding_ratio", loop.padding_ratio(), lbl)
+        c.gauge("helix_goodput_tokens_per_second", sat["tokens_per_sec"],
+                lbl)
+        c.gauge("helix_prefix_cache_hit_ratio", sat["prefix_hit_rate"], lbl)
+        c.counter("helix_flight_anomalies_total",
+                  loop.flight.anomalies_total, lbl)
+        hp = eng.host_pool
+        if hp is not None:
+            c.counter("helix_kv_spilled_pages_total", hp.spilled_pages, lbl)
+            c.counter("helix_kv_restored_pages_total", hp.restored_pages,
+                      lbl)
+            c.counter("helix_kv_host_evicted_pages_total", hp.evicted_pages,
+                      lbl)
+            c.counter("helix_kv_host_corrupt_pages_total", hp.corrupt_pages,
+                      lbl)
+            c.counter("helix_kv_host_alloc_failures_total",
+                      hp.alloc_failures, lbl)
+            c.gauge("helix_kv_host_pool_pages", hp.pages, lbl)
+            c.gauge("helix_kv_host_pool_used_bytes", hp.used_bytes, lbl)
+            c.gauge("helix_kv_host_pool_budget_bytes", hp.budget_bytes, lbl)
+            c.gauge("helix_kv_host_occupancy_ratio", hp.occupancy, lbl)
+            c.counter("helix_kv_restore_seconds_total", eng.restore_seconds,
+                      lbl)
+        c.counter("helix_preemptions_total", eng.num_preemptions, lbl)
+        c.counter("helix_resumes_total", eng.num_resumes, lbl)
+        c.gauge("helix_preempted_requests", len(eng.preempted), lbl)
+        c.counter("helix_kv_exhausted_sheds_total", loop.kv_exhausted_sheds,
+                  lbl)
+        peak = _peak_flops()
+        if peak > 0:
+            # decode-side MFU estimate: each generated token moves ~2
+            # FLOPs per parameter
+            c.gauge("helix_mfu_estimate",
+                    sat["tokens_per_sec"] * 2
+                    * model_param_count(eng.model_cfg) / peak, lbl)
+
+    def debug_flight(self, want: str = "", recent: int = 64) -> dict:
+        out = {}
+        for m in self.registry.list():
+            if m.loop is None or (want and m.name != want):
+                continue
+            out[m.name] = m.loop.flight.snapshot(recent=recent)
+        return out
+
+    def debug_admissions(self, want: str = "", recent: int = 64) -> dict:
+        out = {}
+        for m in self.registry.list():
+            if m.loop is None or (want and m.name != want):
+                continue
+            out[m.name] = m.loop.slo.audit.snapshot(recent=recent)
+        return out
 
     def models_body(self) -> dict:
         data = []
@@ -274,6 +506,31 @@ class _Handler(BaseHTTPRequestHandler):
     def _error(self, status: int, message: str,
                etype: str = "invalid_request_error", code: str = ""):
         self._json(status, _error_body(message, etype, code))
+
+    def _text(self, status: int, text: str,
+              ctype: str = "text/plain; version=0.0.4; charset=utf-8"):
+        data = text.encode()
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _trace_id(self) -> str:
+        """The request's end-to-end trace identity: the caller's
+        ``X-Helix-Trace-Id`` when it is shaped like one, else minted."""
+        return adopt_trace_id(self.headers.get(TRACE_HEADER))
+
+    def _tenant(self) -> str:
+        """The request's tenant (``X-Helix-Tenant``), sanitised: a
+        malformed value or a claim on ``__other__`` lands under
+        ``anonymous``; the top-K accounting bounds the series count."""
+        return sanitize_tenant(self.headers.get(TENANT_HEADER, ""))
+
+    def _sched_class(self) -> str:
+        """The request's priority class (``X-Helix-Class``), sanitised to
+        the known names; "" defers to the profile's default class."""
+        return sanitize_class(self.headers.get(CLASS_HEADER, ""))
 
     def _body(self) -> Optional[dict]:
         n = int(self.headers.get("Content-Length") or 0)
@@ -362,13 +619,60 @@ class _Handler(BaseHTTPRequestHandler):
     # -- routes -----------------------------------------------------------
 
     def do_GET(self):
-        if self.path == "/healthz":
+        url = urllib.parse.urlsplit(self.path)
+        path = url.path
+        query = dict(urllib.parse.parse_qsl(url.query))
+        if path == "/healthz":
             self._json(200, {"status": "ok",
                              "models": self.api.registry.names()})
-        elif self.path == "/v1/models":
+        elif path == "/v1/models":
             self._json(200, self.api.models_body())
+        elif path == "/metrics":
+            self._text(200, self.api.render_metrics())
+        elif path.startswith("/v1/debug/"):
+            self._debug(path[len("/v1/debug/"):], query)
         else:
             self._error(404, f"no route {self.path}", "not_found")
+
+    def _debug(self, route: str, query: dict):
+        """The debug routes, runner-token gated: traces (ids, one trace
+        as JSON or ``?format=chrome``), the flight recorders and the
+        admission audits (``?model=``, ``?recent=``)."""
+        if self._runner_token_denied():
+            return
+        if route == "traces":
+            self._json(200, {"traces": self.api.traces.ids()[-100:]})
+            return
+        if route.startswith("traces/"):
+            tid = route[len("traces/"):]
+            doc = (self.api.traces.chrome_trace(tid)
+                   if query.get("format") == "chrome"
+                   else self.api.traces.get(tid))
+            if doc is None:
+                self._error(404, f"unknown trace {tid!r}")
+                return
+            self._json(200, doc)
+            return
+        if route not in ("flight", "admissions"):
+            self._error(404, f"no route {self.path}", "not_found")
+            return
+        cap = 512 if route == "flight" else 256
+        want = query.get("model", "")
+        try:
+            recent = max(1, min(int(query.get("recent", 64)), cap))
+        except ValueError:
+            self._error(400, "recent must be an integer")
+            return
+        if route == "flight":
+            out = self.api.debug_flight(want, recent)
+            missing = f"model {want!r} has no engine flight recorder"
+        else:
+            out = self.api.debug_admissions(want, recent)
+            missing = f"model {want!r} has no admission audit"
+        if want and not out:
+            self._error(404, missing)
+            return
+        self._json(200, {"models": out})
 
     def do_POST(self):
         routes = {"/v1/chat/completions": self._chat,
@@ -418,17 +722,23 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, f"invalid sampling parameters: {e}")
             return
         model = body.get("model", "")
-        if served.loop.draining:
-            # a stream must not answer 200 and then fail in-band
-            self._json(503, _error_body(
-                f"{SHUTTING_DOWN}: engine '{served.name}' is draining",
-                "overloaded_error"), {"Retry-After": "5"})
+        tid, tenant = self._trace_id(), self._tenant()
+        # shed before any response header: a stream must not answer 200
+        # and then fail in-band
+        err = served.loop.check_admission(len(prompt_ids), count_shed=True,
+                                          tenant=tenant, trace_id=tid)
+        if err is not None:
+            status, body_, headers = _engine_error(EngineRequestError(err))
+            body_["error"]["trace_id"] = tid
+            self._json(status, body_, {**headers, TRACE_HEADER: tid})
             return
         rid = (f"chatcmpl-{uuid.uuid4().hex[:16]}" if chat
                else f"cmpl-{uuid.uuid4().hex[:16]}")
         created = int(time.time())
         obj = "chat.completion" if chat else "text_completion"
-        gen = self.api.generate(served, prompt_ids, sampling, adapter)
+        gen = self.api.generate(served, prompt_ids, sampling, adapter,
+                                tenant=tenant, sched_class=self._sched_class(),
+                                trace_id=tid)
         if body.get("stream"):
             self._stream(gen, rid, created, model, obj, chat)
             return
@@ -442,7 +752,8 @@ class _Handler(BaseHTTPRequestHandler):
                     break
         except EngineRequestError as e:
             status, err, headers = _engine_error(e)
-            self._json(status, err, headers)
+            err["error"]["trace_id"] = tid
+            self._json(status, err, {**headers, TRACE_HEADER: tid})
             return
         text = "".join(parts)
         choice = (

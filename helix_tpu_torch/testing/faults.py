@@ -1,12 +1,19 @@
-"""Deterministic fault injection for the host KV tier and snapshot ships.
+"""Deterministic fault injection for engine steps, the host KV tier and
+snapshot ships.
 
 The port's own copy of the parts of ``helix_tpu/testing/faults.py`` that
-its serving path calls: the ``host_pool`` point (``HostPagePool`` spills
-and restores) and the ``transfer`` point (``migration.PeerShipper``).
-Every hook is a no-op unless an injector is armed, programmatically
-(``arm``) or through the ``HELIX_FAULTS`` environment variable.
+its serving path calls: the ``engine_step`` point (the engine loop's
+``_fault_gate`` before every dispatch), the ``host_pool`` point
+(``HostPagePool`` spills and restores) and the ``transfer`` point
+(``migration.PeerShipper``).  Every hook is a no-op unless an injector is
+armed, programmatically (``arm``) or through the ``HELIX_FAULTS``
+environment variable.
 
 Rule shapes (dicts, JSON-friendly for the env var)::
+
+    {"point": "engine_step", "request_id_contains": "poison"}
+    {"point": "engine_step", "engine": "m", "on_step": 5, "times": 1}
+    {"point": "engine_step", "mode": "slow", "delay": 0.2}
 
     {"point": "host_pool", "op": "restore", "mode": "slow", "delay": 0.2}
     {"point": "host_pool", "op": "restore", "mode": "corrupt", "times": 1}
@@ -15,7 +22,11 @@ Rule shapes (dicts, JSON-friendly for the env var)::
     {"point": "transfer", "peer": "*", "mode": "corrupt", "page": 3}
     {"point": "transfer", "mode": "partial", "times": 1}
 
-``host_pool`` modes: ``slow`` models a saturated host-device link,
+``engine_step`` raises ``FaultInjected`` when the rule matches the step
+(``request_id_contains``: a poisoned request, failing every step that
+schedules it; ``on_step``: one step number); ``mode: slow`` sleeps
+``delay`` seconds instead (a straggling device call).  ``host_pool``
+modes: ``slow`` models a saturated host-device link,
 ``corrupt`` flips a byte the checksum must catch, ``alloc_fail`` a spill
 that host-RAM pressure rejects.  ``transfer`` modes: ``drop`` an
 unreachable peer, ``slow`` a saturated link, ``corrupt`` one flipped byte
@@ -35,9 +46,14 @@ import json
 import os
 import random
 import threading
+import time
 from typing import Optional
 
 ENV_VAR = "HELIX_FAULTS"
+
+
+class FaultInjected(RuntimeError):
+    """Raised by an armed ``engine_step`` rule."""
 
 
 class FaultInjector:
@@ -73,6 +89,48 @@ class FaultInjector:
                 if self._try_fire(idx, rule):
                     return rule
         return None
+
+    def maybe_fail_step(
+        self, engine_name: str, step_no: int, request_ids: list
+    ) -> None:
+        """Raise ``FaultInjected`` if an ``engine_step`` rule matches this
+        step; ``mode: "slow"`` rules sleep ``delay`` seconds instead.
+        ``request_ids`` are the requests the step would touch (slots +
+        waiting), so a ``request_id_contains`` rule models a poisoned
+        request: the step fails every time that request is scheduled and
+        recovers the moment it is evicted."""
+        slow = 0.0
+        raise_msg = None
+        with self._lock:
+            for idx, rule in enumerate(self.rules):
+                if rule.get("point") != "engine_step":
+                    continue
+                if rule.get("engine", "*") not in ("*", engine_name):
+                    continue
+                frag = rule.get("request_id_contains")
+                if frag is not None and not any(
+                    frag in rid for rid in request_ids
+                ):
+                    continue
+                on_step = rule.get("on_step")
+                if on_step is not None and step_no != on_step:
+                    continue
+                if not self._try_fire(idx, rule):
+                    continue
+                if rule.get("mode") == "slow":
+                    slow += float(rule.get("delay", 0.1))
+                    continue
+                raise_msg = (
+                    f"injected engine-step fault (engine={engine_name}, "
+                    f"step={step_no}, rule={idx})"
+                )
+                break
+        if slow > 0:
+            # outside the lock; a slow rule that consumed its `times`
+            # budget still slows the step even when a raising rule fired
+            time.sleep(slow)
+        if raise_msg is not None:
+            raise FaultInjected(raise_msg)
 
     def host_pool_fault(self, op: str) -> Optional[dict]:
         """The fault for one host-pool operation, or None.  ``op`` is

@@ -999,3 +999,110 @@ def test_truncated_shard_fails_before_any_upload(cuda, tmp_path):
         loader.load_params(d, device=cuda, quantization="int8")
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# the scheduler, the prefill budget and the SLO notes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True])
+def test_sched_pass_dispatch_and_slo_notes_make_no_synchronising_call(
+        cuda, spec):
+    """With WFQ, a prefill budget and the SLO observer on, the engine
+    loop's scheduler pass, a decode (or verify) dispatch and the SLO
+    notes of an emitted batch queue no synchronising call."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=4, page_size=16, num_pages=64, max_pages_per_seq=8,
+        max_prefill_len=32, enable_spec_decode=spec, enable_async_loop=True,
+        kv_cache_dtype="int8"), device=cuda)
+    slo = {"ttft_p95_seconds": 2.0, "queue_wait_p95_seconds": 1.0,
+           "sched": {"policy": "wfq", "prefill_budget_tokens": 64,
+                     "prefill_budget_min_tokens": 16,
+                     "max_tenant_queue_depth": 8}}
+    loop = EngineLoop(eng, "sync", slo_targets=slo, sched_config=slo)
+    for i, (tenant, cls) in enumerate((("a", "batch"), ("b", "interactive"),
+                                       ("a", "interactive"))):
+        loop.submit(Request(
+            id=f"s{i}", prompt_tokens=[3, 4, 5, 3, 4, 5, 3, 4][: 5 + i],
+            sampling=SamplingParams(temperature=0.0, max_tokens=40),
+            tenant=tenant, sched_class=cls), lambda ev: None)
+    loop._drain_inbox()
+    delivered = 0
+    for _ in range(3):
+        loop._sched_pass()
+        events = loop._snapshot_events(eng.step())
+        loop._deliver(events)
+        delivered += len(events)
+    assert eng.prefill_budget == 64 and not eng.waiting
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop._sched_pass()
+            emitted, pend = eng.step_dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert pend is not None and pend.kind in ("decode", "spec")
+        eng.step_complete(pend, emitted)
+        events = loop._snapshot_events(emitted)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop._deliver(events)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        delivered += len(events)
+    notes = loop.slo.stats()
+    assert notes["requests"] == 3
+    assert notes["generated_tokens"] == delivered > 3
+    assert loop.sched_passes == 7
+
+
+@pytest.mark.cuda
+def test_one_page_budget_admits_one_request_per_step(cuda):
+    """A prefill budget of one page still admits one request per step (the
+    step's first claim always admits).  The budget's shorter waves run
+    K2 on cold waves and K1-int8 on the mixed steps of a chunked prompt,
+    and the tokens equal the plain versions' under the same budget."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(dtype="float32", vocab_size=512)
+    params = init_params(cfg, 2, device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [[int(x) for x in rng.integers(2, 500, size=n)]
+               for n in (40, 23, 200, 37, 16)]
+    runs = []
+    for backend in (None, "reference"):
+        eng = Engine(cfg, params, EngineConfig(
+            max_decode_batch=4, page_size=16, num_pages=256,
+            max_pages_per_seq=32, max_prefill_len=64,
+            kv_cache_dtype="int8", attn_backend=backend), device=cuda)
+        eng.prefill_budget = 16
+        reqs = [Request(id=f"b{i}", prompt_tokens=p, sampling=SamplingParams(
+            temperature=0.0, max_tokens=12)) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.add_request(r)
+        tpk.K1_INT8.launches = tatt.K2.launches = 0
+        per_step = []
+        while eng.has_work():
+            a0 = eng.num_admitted
+            eng.step()
+            per_step.append(eng.num_admitted - a0)
+        runs.append(([r.output_tokens for r in reqs], per_step,
+                     tpk.K1_INT8.launches, tatt.K2.launches,
+                     eng.num_mixed_steps))
+    (toks, per_step, k1, k2, mixed), (ptoks, *_rest) = runs
+    assert max(per_step) == 1 and sum(per_step) == len(prompts)
+    assert k1 > 0 and k2 > 0 and mixed > 0
+    assert toks == ptoks

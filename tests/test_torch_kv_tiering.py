@@ -678,30 +678,22 @@ def test_gather_restore_and_checksums_match_the_reference(kv_dtype):
 
 def test_profile_entry_keeps_its_host_pool_bytes():
     """``serve-node --profile profiles/v5e1-hotswap.yaml --random-weights``:
-    the Llama entry is refused for its ``slo`` (A7) alone before any
-    weights are made.  With that block cut, its engine block reaches
-    ``EngineConfig`` with its 16 GiB ``host_pool_bytes`` and its 8 adapter
-    slots of rank 16, Phi-3's with 8 GiB.  Without ``--random-weights``
-    the entries' checkpoint directories, absent here, are refused before
-    any weights are made."""
-    import copy
+    both entries pass, the Llama entry with its ``slo`` block (A7).  Its
+    engine block reaches ``EngineConfig`` with its 16 GiB
+    ``host_pool_bytes`` and its 8 adapter slots of rank 16, Phi-3's with
+    8 GiB.  Without ``--random-weights`` the entries' checkpoint
+    directories, absent here, are refused before any weights are made."""
     import os
 
-    from helix_tpu_torch.cli import _load_profile, _model_specs
+    from helix_tpu_torch.cli import _model_specs
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     args = type("A", (), {
         "profile": os.path.join(root, "profiles", "v5e1-hotswap.yaml"),
         "engine": None, "model": None, "random_weights": True, "seed": 0})
-    with pytest.raises(NotImplementedError, match="slo.*A7") as e:
-        _model_specs(args)
-    assert "A3" not in str(e.value) and "Phi-3" not in str(e.value)
-    assert "A13" not in str(e.value)
-    cut = copy.deepcopy(_load_profile(args.profile))
-    llama_entry = cut["models"][0]
-    del llama_entry["slo"]
-    llama, phi = _model_specs(args, cut)
+    llama, phi = _model_specs(args)
     assert llama["name"] == "meta-llama/Meta-Llama-3-8B-Instruct"
+    assert llama["slo"]["sched"]["policy"] == "wfq"
     assert llama["engine"]["host_pool_bytes"] == 17179869184
     cfg = tengine.EngineConfig(**llama["engine"])
     assert cfg.host_pool_bytes == 17179869184 and cfg.enable_spec_decode
@@ -710,14 +702,7 @@ def test_profile_entry_keeps_its_host_pool_bytes():
     args.random_weights = False
     with pytest.raises(NotImplementedError,
                        match="llama3-8b-instruct.*does not exist"):
-        _model_specs(args, cut)
-    # the command itself: the entry is refused for its slo (A7) before
-    # any weights are made
-    from helix_tpu_torch.cli import main
-
-    with pytest.raises(NotImplementedError, match="slo.*A7"):
-        main(["serve-node", "--profile", args.profile, "--random-weights",
-              "--device", "cpu", "--port", "0"])
+        _model_specs(args)
 
 
 def test_node_overrides_reach_engine_and_loop(monkeypatch):

@@ -64,6 +64,7 @@ from helix_tpu_torch.models import llama as tllama
 from helix_tpu_torch.ops.quant import quantize_params as tquantize
 from helix_tpu_torch.serving import engine_loop as tloop
 from helix_tpu_torch.serving import registry as tregistry
+from helix_tpu_torch.serving import sched as tsched
 from helix_tpu_torch.serving import tokenizer as ttokenizer
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -754,11 +755,23 @@ def no_weights(monkeypatch):
     {"ttft_p95_seconds": 2.0},
     {"ttft_p95_seconds": 2.0, "sched": {"policy": "wfq"}},
 ])
-def test_slo_block_raises_naming_a7(tmp_path, no_weights, slo):
+def test_slo_block_raises_naming_a7(tmp_path, slo):
+    """The slo block (ROADMAP A7) is served now: no refusal; the entry's
+    targets reach the loop's SLO observer and its ``sched`` block picks
+    the scheduler, as the reference node agent's ``_make_engine_loop``
+    does.  (The name dates from when the port refused the block.)"""
     path = _write(tmp_path, {"models": [_entry(slo=slo)]})
-    with pytest.raises(NotImplementedError, match="tiny-a: .*slo.*A7"):
-        cli.main(["serve-node", "--profile", path, "--device", "cpu",
-                  "--port", "0"])
+    (spec,) = cli._model_specs(_args(path))
+    assert spec["slo"] == slo
+    reg = cli.build_registry([spec], device="cpu", warmup=False)
+    try:
+        loop = reg.get("tiny-a").loop
+        assert loop.slo.targets.ttft_p95_seconds == 2.0
+        want = slo.get("sched", {}).get("policy", "fifo")
+        assert loop.sched.name == want
+        assert loop.sched.active == (want == "wfq")
+    finally:
+        reg.unregister("tiny-a")
 
 
 @pytest.mark.parametrize("mesh", [{"tp": 2}, {"tp": 1, "sp": 4},
@@ -783,16 +796,20 @@ def test_mesh_of_one_device_is_served(tmp_path):
 
 def test_hotswap_profile_as_written_refused_before_weights(no_weights):
     """``serve-node --profile profiles/v5e1-hotswap.yaml
-    --random-weights``: the Llama entry's ``slo`` (A7) and
-    is refused by name (A7), nothing is built; its adapter fields are
-    served."""
-    with pytest.raises(NotImplementedError) as e:
-        cli.main(["serve-node", "--profile", HOTSWAP, "--random-weights",
-                  "--device", "cpu", "--port", "0"])
-    msg = str(e.value)
-    assert msg.startswith("meta-llama/Meta-Llama-3-8B-Instruct: ")
-    assert "A7" in msg and "adapter" not in msg and "A13" not in msg
-    assert "Phi-3" not in msg
+    --random-weights`` gets past ``_model_specs`` with nothing refused
+    and nothing built: the Llama entry keeps its ``slo`` block with its
+    WFQ ``sched`` (A7) and its adapter fields; Phi-3 has no ``slo``.
+    (The name dates from when the port refused the profile as written.)"""
+    llama, phi = cli._model_specs(_args(HOTSWAP))
+    assert llama["name"] == "meta-llama/Meta-Llama-3-8B-Instruct"
+    assert llama["slo"]["ttft_p95_seconds"] == 2.0
+    assert llama["slo"]["sched"]["policy"] == "wfq"
+    assert llama["engine"]["adapter_pool_slots"] == 8
+    assert "Phi-3" in phi["name"] and phi["slo"] is None
+    cfg = tsched.SchedConfig.from_profile(llama["slo"])
+    assert (cfg.policy, cfg.max_tenant_queue_depth,
+            cfg.prefill_budget_tokens, cfg.prefill_budget_min_tokens) == (
+                "wfq", 64, 4096, 512)
 
 
 def test_residency_profile_builds_the_manager_lazily(tmp_path):
