@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase adapters # those + the adapter phase
     python3 chip_smoke.py --phase checkpoint # those + the checkpoint phase
     python3 chip_smoke.py --phase slo     # those + the scheduler phase
+    python3 chip_smoke.py --phase node    # those + the node-agent phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -142,6 +143,21 @@ no result line):
    (``engine_step`` fault), and at 2 layers in float32 the survivors'
    tokens equal an unpoisoned run's.  Any other engine step failure in
    the run fails the smoke;
+4j. the node agent (``phase_node_agent``): ``serve-node --runner-id a
+   --control-plane <stub>`` in process against a stand-in control plane
+   (``helix_tpu_torch/testing/control_stub.py``): the card's inventory
+   against the profile as written (refused: it asks for a ``tpu`` chip)
+   and its ``{vendor: nvidia}`` copy; the assigned Llama entry as written
+   applied (``loading`` -> ``running``), its heartbeat (the card, exactly
+   ``SATURATION_KEYS``, tenants, ``model@a1``); 8 chats with the
+   agent-free node's ids (phase 4i's), ``/v1/messages``; a diff re-apply
+   that adds Phi-3 under a running Llama stream and one that drops it
+   (>= 95% of its bytes freed); ``/admin/profiler`` (a trace naming
+   K1-int8 and K2, 409, 403), ``/logs``, ``/api/v1/state``; a drain on
+   the stub's request that ships 9 streams to node B, every token once,
+   the seeded stream as undrained; a drained ``serve-node`` process
+   exits 0.  Apply seconds, heartbeat gaps, the heartbeat body's host
+   µs, drain seconds and tok/s with and without a capture are printed;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -844,6 +860,20 @@ def _seeded_twice(base) -> str:
     return texts[0]
 
 
+def _kernel_ms(prof) -> dict:
+    """Device milliseconds per kernel name of a finished
+    ``torch.profiler`` capture: the device events ``key_averages()`` sums
+    as ``self_device_time_total``, read from the capture's raw activity
+    records without building its event tree (seconds of host time per
+    100k events)."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_hidden_event", lambda: False)():
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return out
+
+
 def _profile_batch(base, prompts, models=None) -> dict:
     """Where a decode-heavy batch's device time goes: 8 concurrent chats
     of 32 new tokens under ``torch.profiler`` (after the measured batch,
@@ -861,11 +891,7 @@ def _profile_batch(base, prompts, models=None) -> dict:
                         zip(prompts, models)))
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    by_kernel = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0) / 1e3   # ms
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + t
+    by_kernel = _kernel_ms(prof)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
 
@@ -976,14 +1002,17 @@ def _gated_batch(base, loop, prompts, max_tokens, bodies=None) -> tuple:
     return texts, seconds, loop.window.recorded - rec0
 
 
-def _serve(engine, quantization=None):
-    """A started server for MODEL with random weights on the card:
-    (served, engine, httpd, base url, registry, memory after build)."""
+def _serve(engine, quantization=None, layers=None):
+    """A started server for MODEL with random weights on the card, at
+    ``layers`` of its depth when given: (served, engine, httpd, base
+    url, registry, memory after build)."""
     from helix_tpu_torch.cli import build_served_model
 
     torch.cuda.reset_peak_memory_stats()
-    served = build_served_model(MODEL, device="cuda", seed=0,
-                                quantization=quantization, engine=engine)
+    served = build_served_model(
+        MODEL, device="cuda", seed=0, quantization=quantization,
+        engine=engine,
+        model_overrides={"num_layers": layers} if layers else None)
     served.tokenizer = _IdTokenizer(served.tokenizer)
     eng = served.loop.engine
     mem = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
@@ -1496,9 +1525,12 @@ def phase_oracle(int8: bool = False) -> dict:
 # H100 SXM host link, PCIe Gen5 x16: 128 GB/s both ways (NVIDIA's data
 # sheet), 64 GB/s each way -- the bound of a copy to or from host memory
 PCIE_BYTES = 64e9
-# int8 Llama-3-8B page: 2 (K, V) x 32 layers x 16 slots x 8 KV heads x
-# (128 codes + one f32 scale), bytes
-PAGE_BYTES_INT8 = 2 * 32 * 16 * 8 * (128 + 4)
+# phase 4e runs the entry at full width and 16 of Llama-3-8B's 32 layers:
+# a depth cut that makes room for phase 4j within the smoke's time
+HOST_TIER_LAYERS = 16
+# its int8 page: 2 (K, V) x 16 layers x 16 slots x 8 KV heads x (128
+# codes + one f32 scale), bytes
+PAGE_BYTES_INT8 = 2 * HOST_TIER_LAYERS * 16 * 8 * (128 + 4)
 # phase 4e.2's cut of the entry's pool: at 128 pages per sequence its 16
 # slots hold at most 2048 of 3968 pages, so the pool as written never
 # runs out; at 256 pages eleven of its chats fill it
@@ -1656,8 +1688,9 @@ def _link_rates(eng, page_ids) -> dict:
 
 @_timed
 def phase_host_tier(smi) -> dict:
-    """4e.1-4e.3 on the v5e1-hotswap entry at full width (``ENTRY``, its
-    16 GiB host tier included), int8 weights and KV:
+    """4e.1-4e.3 on the v5e1-hotswap entry at full width and
+    ``HOST_TIER_LAYERS`` of its 32 layers (``ENTRY``, its 16 GiB host
+    tier included), int8 weights and KV:
 
     1. spill and restore on engine A: three probe chats, each sent
        twice (cold, then a device prefix hit), then ``N_FILL`` distinct
@@ -1683,9 +1716,11 @@ def phase_host_tier(smi) -> dict:
     tag = "host tier"
     out = {}
     t0 = time.monotonic()
-    sa, eng_a, httpd_a, base_a, reg_a, mem_a = _serve(dict(ENTRY), "int8")
+    sa, eng_a, httpd_a, base_a, reg_a, mem_a = _serve(
+        dict(ENTRY), "int8", layers=HOST_TIER_LAYERS)
     hp = eng_a.host_pool
-    log(f"[{tag}] ({smi}) engine A: the v5e1-hotswap entry {ENTRY}, built in "
+    log(f"[{tag}] ({smi}) engine A: the v5e1-hotswap entry {ENTRY} at "
+        f"{HOST_TIER_LAYERS} of 32 layers (a depth cut), built in "
         f"{time.monotonic() - t0:.1f} s, KV pool {mem_a['kv_pool_gib']:.2f} "
         f"GiB, host tier budget {hp.budget_bytes} B = "
         f"{hp.budget_bytes // PAGE_BYTES_INT8} int8 pages of "
@@ -1773,7 +1808,8 @@ def phase_host_tier(smi) -> dict:
         try:
             t1 = time.monotonic()
             sb, eng_b, httpd_b, base_b, reg_b, _m = _serve(
-                {**ENTRY, "num_pages": LADDER_PAGES}, "int8")
+                {**ENTRY, "num_pages": LADDER_PAGES}, "int8",
+                layers=HOST_TIER_LAYERS)
         finally:
             os.environ.pop("HELIX_PREEMPT_STALL_SECONDS")
             os.environ.pop("HELIX_ADMISSION_TIMEOUT")
@@ -2104,23 +2140,24 @@ def _hotswap_copy(phi3_pages=PHI3_CUT_PAGES, llama_as_written=False) -> tuple:
 
 def _node(prof, tmpdir, tag, build, random_weights=True):
     """The profile as ``serve-node --profile <copy> [--random-weights]``
-    builds it (the cli's own node building, in process), behind a
-    started server: (registry, manager, httpd, base url, copy path)."""
+    builds it (``cli.make_node`` in process, with no control plane: the
+    node agent applies the profile, each entry through ``build``, which
+    takes ``cli.build_served_model``'s keywords), behind a started
+    server: (registry, manager, httpd, base url, copy path)."""
     from helix_tpu_torch import cli
-    from helix_tpu_torch.serving.openai_api import OpenAIServer
 
     path = os.path.join(tmpdir, f"{tag}.json")
     with open(path, "w") as f:
         json.dump(prof, f)
-    args = argparse.Namespace(profile=path, engine=None, model=None,
-                              random_weights=random_weights, seed=0)
-    registry = cli.build_registry(
-        cli._model_specs(args, cli._load_profile(path)),
-        prof.get("residency"), device="cuda", seed=0, warmup=True,
-        build=build)
-    httpd = OpenAIServer(registry).start("127.0.0.1", 0)
+    agent, httpd = cli.make_node(
+        _node_args(None, tag, path, random_weights=random_weights),
+        build_model=build)
+    if agent.state.status != "running":
+        httpd.server_close()
+        raise AssertionError(f"{tag}: the apply failed: {agent.state.error}")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    return registry, registry.inner, httpd, base, path
+    return agent.registry, agent.registry.inner, httpd, base, path
 
 
 def _error_of(base, body, path="/v1/chat/completions") -> tuple:
@@ -3479,6 +3516,9 @@ def phase_checkpoint(smi) -> dict:
 
 FLOOD, FLOOD_SHED, CHATS = 80, 16, 16
 FLOOD_PROMPT_TOKENS = 1500
+# the uncontended 8-chat batch of phases 4i and 4j
+NODE_PROMPTS = [f"Chat {i}: tell me about the history of the printing "
+                "press in a few short lines please." for i in range(8)]
 
 
 def _tenant_chat(base, content, max_tokens, tenant, cls) -> dict:
@@ -3612,9 +3652,7 @@ def _traced_batch(base, loop, prompts, max_tokens) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         texts, secs, _ = _gated_batch(base, loop, prompts, max_tokens)
         torch.cuda.synchronize()
-    busy = sum(getattr(e, "self_device_time_total", 0.0) / 1e3
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(_kernel_ms(prof).values())
     return texts, secs, busy, 1.0 - busy / (secs * 1e3)
 
 
@@ -3820,8 +3858,7 @@ def phase_slo(smi) -> dict:
         # (2) an uncontended batch: the same ids with slo on and off.
         # The slo path's launches are counted from 0 over its own runs
         # (this batch and the flood), never over the no-slo node's.
-        prompts = [f"Chat {i}: tell me about the history of the printing "
-                   "press in a few short lines please." for i in range(8)]
+        prompts = NODE_PROMPTS
         h0 = _host_snapshot(loop)
         K1.launches = K1_INT8.launches = K2.launches = 0
         on_texts, on_s, on_busy, on_idle = _traced_batch(base, loop,
@@ -4011,7 +4048,812 @@ def phase_slo(smi) -> dict:
     out.update(launches=launches, rows=rows, budgets=budgets,
                burn_max=burn_max, host=host, host_load=host_load,
                trace={"on": (on_busy, on_idle), "off": (off_busy, off_idle)},
-               scrape_ms=scrape_ms, quarantine_s=q_wall, wall=wall)
+               scrape_ms=scrape_ms, quarantine_s=q_wall, wall=wall,
+               chat_prompts=prompts, chat_texts=on_texts)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4j. the node agent: heartbeats, apply, diff re-apply, drain, the routes
+# ---------------------------------------------------------------------------
+
+# the drain wave: 8 greedy streams and one seeded one, long enough to be
+# in flight when the drain's window (HELIX_DRAIN_SECONDS) closes
+DRAIN_TOKENS = 200
+WITNESS_TOKENS = 400      # the drain's witness at 2 layers
+DRAIN_WINDOW_S = "1"
+
+
+def _node_args(stub_url, runner_id, profile=None,
+               random_weights=True) -> argparse.Namespace:
+    """``serve-node --runner-id <id> [--control-plane <stub>]
+    --heartbeat-interval 1 [--random-weights] [--profile <path>]`` on the
+    card."""
+    return argparse.Namespace(
+        profile=profile, model=None, runner_id=runner_id, host="127.0.0.1",
+        port=0, control_plane=stub_url, heartbeat_interval=1.0,
+        advertise=None, device="cuda", engine=None, seed=0, no_warmup=False,
+        random_weights=random_weights, tunnel=False)
+
+
+def _stream_client(base, body, peers=None) -> dict:
+    """A streamed chat read to its end.  A ``migrated ... peer=`` frame
+    is followed, when ``peers`` maps the peer's id to its address, by
+    ``/v1/migrate/resume`` there with the characters already seen.
+    Returns the text seen from ``base``, the resumed text, the finish
+    reason, the peer, the engine request id and the error frames."""
+    req = urllib.request.Request(
+        base + "/v1/chat/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    out = {"seen": "", "finish": None, "errors": [], "resumed": "",
+           "peer": None, "request_id": None}
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            frame = json.loads(line[6:])
+            if "error" in frame:
+                out["errors"].append(frame["error"])
+                continue
+            ch = frame["choices"][0]
+            out["seen"] += ch["delta"].get("content", "")
+            out["finish"] = ch["finish_reason"] or out["finish"]
+    from helix_tpu_torch.serving.migration import parse_migrated_peer
+
+    err = next((e for e in out["errors"] if e.get("code") == "migrated"),
+               None)
+    if err is None or peers is None:
+        return out
+    out["peer"] = parse_migrated_peer(err["message"])
+    out["request_id"] = err["request_id"]
+    with urllib.request.urlopen(urllib.request.Request(
+            peers[out["peer"]] + "/v1/migrate/resume",
+            data=json.dumps({"request_id": err["request_id"],
+                             "emitted_chars": len(out["seen"])}).encode(),
+            headers={"Content-Type": "application/json"}),
+            timeout=900) as r:
+        frames = [json.loads(f[6:]) for f in r.read().decode().split("\n\n")
+                  if f.startswith("data: {")]
+    out["resumed"] = "".join(f.get("delta", "") for f in frames)
+    out["finish"] = frames[-1].get("finish_reason")
+    return out
+
+
+def _status_of(url, body, token=None) -> int:
+    """The HTTP status of a POST (with ``X-Runner-Token`` when given)."""
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["X-Runner-Token"] = token
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=json.dumps(body).encode(), headers=headers),
+                timeout=600) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _gated_streams(base, loop, bodies, peers=None) -> tuple:
+    """``_gated_batch`` for streamed chats (``_stream_client``): the loop
+    admits every stream together and in order.  Returns (the clients'
+    results, their errors, their threads, the release time); the clients
+    run on until their streams end."""
+    drain = loop._drain_inbox
+    gate = threading.Event()
+    loop._drain_inbox = lambda: drain() if gate.is_set() else None
+    outs, errors = [None] * len(bodies), []
+
+    def send(i):
+        try:
+            outs[i] = _stream_client(base, bodies[i], peers)
+        except Exception as e:  # noqa: BLE001 — re-raised by the caller
+            errors.append(e)
+
+    threads = []
+    try:
+        for i in range(len(bodies)):
+            threads.append(threading.Thread(target=send, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 120
+            while loop._inbox.qsize() < i + 1 and not errors:
+                if time.monotonic() > deadline:
+                    raise AssertionError("a stream never reached the engine")
+                time.sleep(0.002)
+        t0 = time.monotonic()
+        gate.set()
+    finally:
+        gate.set()
+        loop._drain_inbox = drain
+    return outs, errors, threads, t0
+
+
+def _drain_wave(stub, rid, agent, agent_b, bodies, drained,
+                lead_s=2.0) -> dict:
+    """``bodies`` streamed undrained on node B (``agent_b``), then in
+    flight on node ``rid`` (``agent``, which polls its assignment) when,
+    ``lead_s`` after their release, the stub answers its poll with
+    ``drain: true``: the survivors ship to B (the stub's migration
+    targets) and each client resumes there.  Both nodes first serve one
+    short chat, so the chat template's first page is a prefix-cache hit
+    on both.  ``drained`` is the list ``agent.on_drain`` appends to.
+    Returns the drain's readings: when the draining heartbeat and B's
+    first import came, snapshots shipped, the streams migrated whole
+    with every token once (4e.3's check), those that ended on A before
+    the deadline as undrained, those lost, the seeded (last) stream's
+    agreement with the undrained wave, the greedy streams equal to it
+    and each one's (first difference, tokens made on A)."""
+    from helix_tpu_torch.serving import migration
+
+    loop = agent.registry.get(MODEL).loop
+    loop_b = agent_b.registry.get(MODEL).loop
+    for ag in (agent, agent_b):
+        _chat(ag.address, "warm the template page", 4)
+    outs, errs, threads, _t0 = _gated_streams(agent_b.address, loop_b,
+                                              bodies)
+    for t in threads:
+        t.join(900)
+    if errs:
+        raise errs[0]
+    undrained = [o["seen"] for o in outs]
+    # the drained wave: spies on A's wires and B's imports
+    wires, b_events, b_first = {}, {}, []
+    to_wire = migration.snapshot_to_wire
+    on_event = migration.ImportedStream.on_event
+    submit_import = loop_b.submit_import
+
+    def spy_wire(snap):
+        w = to_wire(snap)
+        wires[w["request_id"]] = w
+        return w
+
+    def spy_event(stream, ev):
+        b_events.setdefault(stream.request_id, []).append(ev)
+        on_event(stream, ev)
+
+    def spy_import(*a, **kw):
+        b_first.append(time.monotonic())
+        return submit_import(*a, **kw)
+
+    migration.snapshot_to_wire = spy_wire
+    migration.ImportedStream.on_event = spy_event
+    loop_b.submit_import = spy_import
+    os.environ["HELIX_DRAIN_SECONDS"] = DRAIN_WINDOW_S
+    try:
+        peers = {t["id"]: t["address"]
+                 for t in stub._targets(rid)["targets"]}
+        outs, errs, threads, t_rel = _gated_streams(agent.address, loop,
+                                                    bodies, peers)
+        while time.monotonic() - t_rel < lead_s:
+            time.sleep(0.05)
+        t_req, t_req_wall = time.monotonic(), time.time()
+        stub.request_drain(rid)
+        for t in threads:
+            t.join(900)
+        if errs:
+            raise errs[0]
+        deadline = time.monotonic() + 300
+        while not drained and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        migration.snapshot_to_wire = to_wire
+        migration.ImportedStream.on_event = on_event
+        loop_b.submit_import = submit_import
+        os.environ.pop("HELIX_DRAIN_SECONDS", None)
+    time.sleep(1.0)
+    announce = next(((t, b) for t, b in stub.heartbeats(rid)
+                     if t > t_req and b["draining"]), None)
+    eos = set(loop.engine.cfg.eos_token_ids)
+    migrated, finished, lost = 0, 0, []
+    for i, o in enumerate(outs):
+        req_id = o.get("request_id")
+        if req_id is None:
+            # ended on A before the deadline: whole, as undrained
+            if not o["errors"] and o["finish"] in ("stop", "length") \
+                    and o["seen"] == undrained[i]:
+                finished += 1
+            else:
+                lost.append(i)
+            continue
+        prior = [t for t in wires[req_id]["output_tokens"] if t not in eos]
+        new = [ev.token_id for ev in b_events.get(req_id, ())
+               if not ev.error and ev.token_id not in eos]
+        seen_ids, full = _ids(o["seen"]), _ids(o["seen"] + o["resumed"])
+        o["prior"] = len(prior)
+        if seen_ids == prior[:len(seen_ids)] and full == prior + new \
+                and o["finish"] in ("stop", "length"):
+            migrated += 1
+        else:
+            lost.append(i)
+
+    def first_diff(o, u):
+        a, b = _ids(o["seen"] + o["resumed"]), _ids(u)
+        return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+
+    return {
+        "announce_s": announce[0] - t_req if announce else float("nan"),
+        "announced": announce is not None and announce[1]["draining"],
+        "deadline_s": (announce[1]["drain_deadline_ts"] - t_req_wall
+                       if announce else float("nan")),
+        "announce_before_import": bool(announce and b_first
+                                       and announce[0] <= b_first[0]),
+        "first_import_s": b_first[0] - t_req if b_first else float("nan"),
+        "shipped": sum(st.get("exported", 0)
+                       for st in agent._drain_stats.values()),
+        "migrated": migrated, "finished": finished, "lost": lost,
+        "n": len(outs),
+        "seeded_equal": _ids(outs[-1]["seen"] + outs[-1]["resumed"])
+        == _ids(undrained[-1]),
+        "seeded_diff": (first_diff(outs[-1], undrained[-1]),
+                        outs[-1].get("prior")),
+        "greedy_equal": sum(o["seen"] + o["resumed"] == u for o, u in
+                            zip(outs[:-1], undrained[:-1])),
+        "greedy_diffs": [(first_diff(o, u), o.get("prior"))
+                         for o, u in zip(outs[:-1], undrained[:-1])],
+        "drain_s": drained[0] - t_req if drained else float("nan"),
+        "on_drain": len(drained),
+    }
+
+
+def _drain_line(d) -> str:
+    """One log line of ``_drain_wave``'s readings."""
+    return (f"the draining heartbeat {d['announce_s']:.3f} s after the "
+            f"request (draining {d['announced']}, deadline "
+            f"+{d['deadline_s']:.3f} s), first import on B "
+            f"{d['first_import_s']:.3f} s after it; snapshots shipped "
+            f"{d['shipped']}; streams migrated to B whole, every token "
+            f"once: {d['migrated']}, ended on A before the deadline as "
+            f"undrained: {d['finished']}, of {d['n']} (lost {d['lost']}); "
+            f"the seeded stream equals the undrained wave's "
+            f"{d['seeded_equal']} ((first difference, tokens made on A) "
+            f"{d['seeded_diff']}); greedy streams equal to it "
+            f"{d['greedy_equal']} of {d['n'] - 1} ({d['greedy_diffs']}); "
+            f"on_drain calls {d['on_drain']}; drain {d['drain_s']:.2f} s "
+            "(request to on_drain)")
+
+
+def _drain_held(d) -> bool:
+    """The drain's demands: draining announced with a future deadline
+    before any snapshot landed on B, nothing lost, every stream that did
+    not end on A shipped and migrated whole, ``on_drain`` once."""
+    return (d["announced"] and d["deadline_s"] > 0
+            and d["announce_before_import"] and not d["lost"]
+            and d["migrated"] > 0 and d["shipped"] == d["migrated"]
+            and d["on_drain"] == 1)
+
+
+def _apply_and_watch(stub, base, rid, prof, name) -> dict:
+    """Assign ``prof`` to ``rid`` and wait for its heartbeat to say
+    ``running`` under ``name``, reading ``/api/v1/state`` meanwhile.
+    Returns the statuses the state route showed, the apply seconds (from
+    the poll that answered the profile to the first ``running`` beat,
+    which goes out one interval after the apply ends, and to the state
+    route's first ``running``) and the longest gap between heartbeats
+    over the apply."""
+    t_assign = time.monotonic()
+    stub.assign(rid, prof)
+    states, t_state_run = [], None
+    deadline = time.monotonic() + 600
+    while time.monotonic() < deadline:
+        doc = json.loads(urllib.request.urlopen(
+            base + "/api/v1/state", timeout=60).read())
+        st = doc["profile"]["status"] if doc["profile"]["name"] == name \
+            else "assigning"
+        if not states or states[-1] != st:
+            states.append(st)
+            if st == "running":
+                t_state_run = time.monotonic()
+        beats = [(t, b) for t, b in stub.heartbeats(rid) if t > t_assign
+                 and b["profile"]["name"] == name
+                 and b["profile"]["status"] in ("running", "failed")]
+        if beats:
+            break
+        time.sleep(0.05)
+    else:
+        raise AssertionError(f"{rid}: {name} was never applied")
+    t_run, body = beats[0]
+    if body["profile"]["status"] != "running":
+        raise AssertionError(f"{rid}: {name} failed: "
+                             f"{body['profile']['error'][:400]}")
+    seen = [t for t, pname, _d in stub.polls[rid]
+            if t > t_assign and pname == name][0]
+    times = [t for t, _b in stub.heartbeats(rid)]
+    gaps = [b - a for a, b in zip(times, times[1:])
+            if b >= seen and a <= t_run]
+    return {"states": states, "apply_s": t_run - seen,
+            "state_s": (t_state_run or t_run) - seen,
+            "max_gap_s": max(gaps, default=0.0), "beat": body}
+
+
+@_timed
+def phase_node_agent(smi, agent_free=None) -> dict:
+    """The node agent (A7b) at full width on one card, against a
+    stand-in control plane (``helix_tpu_torch/testing/control_stub.py``,
+    the reference's runner endpoints on the standard library): (1) the
+    card's inventory refuses ``profiles/v5e1-hotswap.yaml`` as written
+    (a ``tpu`` chip) and fits its copy with ``{vendor: nvidia, chips:
+    1}``; (2) node A (``serve-node --runner-id a --control-plane <stub>``,
+    no profile, 1 s heartbeats) applies ``node-1``, the Llama entry as
+    written (int8, spec 4, the 16 GiB host tier, 8 adapter slots of rank
+    16, ``slo`` with WFQ): ``/api/v1/state`` goes ``loading`` ->
+    ``running``, the heartbeat carries the card and exactly
+    ``SATURATION_KEYS``; (3) 8 greedy chats admitted together give the
+    agent-free node's ids (phase 4i's, or a node built here under
+    ``--phase node``), a seeded request twice the same text,
+    ``/v1/messages`` the chat's text, tenant traffic a ``tenants`` block
+    of ``TENANT_KEYS`` and an adapter ``model@a1`` in ``adapters``; (4)
+    ``node-2`` adds Phi-3-mini (bf16, 1024 pages as 4f cuts it) while a
+    Llama stream runs across the apply and ends whole, the Llama loop is
+    the same object, Phi-3 answers, and ``node-3`` drops Phi-3 with >=
+    95% of its measured bytes freed; (6) ``/admin/profiler`` for 2 s
+    during a chat wave gives a trace naming K1-int8 and K2, a second
+    capture meanwhile 409, no token 403, ``/logs`` holds the agent's
+    build line, ``/api/v1/state`` equals a heartbeat body but for ``ts``
+    and ``disk``; (5) node B (the same entry and seed, host tier cut)
+    heartbeats; 9 streams (8 greedy, 1 seeded) in flight on A when the
+    stub answers A's poll with ``drain: true``: A's next heartbeat says
+    ``draining`` before any snapshot ships, the survivors ship to B, each
+    client's text is A's emitted tokens and B's new ones, every token
+    once (the seeded stream's agreement with the undrained wave is
+    recorded), ``on_drain`` runs once; a ``serve-node`` process drained
+    by the stub exits 0; and the same drain between two nodes at 2
+    layers in float32 with a float32 KV pool (the witness) gives 8 of 8
+    greedy streams equal to the undrained wave's.  Recorded: apply
+    seconds, the longest heartbeat gap in an apply, host µs per
+    heartbeat body with 16 slots busy, drain seconds and snapshots
+    shipped, decode tok/s with and without a capture, and the K1-int8 /
+    K2 launches from node A's start to the end of its drain."""
+    import logging
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.control.profile import (
+        ServingProfile,
+        check_compatibility,
+    )
+    from helix_tpu_torch.device import detect_accelerators
+    from helix_tpu_torch.engine.residency import release_served_model
+    from helix_tpu_torch.obs.flight import SATURATION_KEYS
+    from helix_tpu_torch.obs.slo import TENANT_KEYS
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.testing.control_stub import ControlStub
+
+    t_phase = time.monotonic()
+    tag = f"[node] ({smi})"
+    out = {}
+    # serve-node's log level (``python -m helix_tpu_torch`` sets INFO)
+    logging.getLogger("helix_tpu_torch").setLevel(logging.INFO)
+    tmpdir = tempfile.mkdtemp(prefix="helix-node-")
+    stub = ControlStub().start()
+    # the exit of a drained serve-node process, started now to overlap
+    # its start-up (a tiny model: the exit path is what it shows)
+    sub_env = {**os.environ, "HELIX_DRAIN_SECONDS": "0.5"}
+    stub.assign("c", {"name": "exit-1", "requirement": {
+        "vendor": "nvidia", "chips": 1}, "models": [{
+            "name": "tiny-chat", "engine": {
+                "max_decode_batch": 2, "num_pages": 64,
+                "max_pages_per_seq": 16, "max_prefill_len": 64}}]})
+    sub_log = open(os.path.join(tmpdir, "serve-node-c.log"), "w+")
+    sub = subprocess.Popen(
+        [sys.executable, "-m", "helix_tpu_torch", "serve-node", "--device",
+         "cuda", "--port", "0", "--host", "127.0.0.1", "--runner-id", "c",
+         "--control-plane", stub.url, "--heartbeat-interval", "0.5"],
+        stdout=sub_log, stderr=subprocess.STDOUT, text=True, env=sub_env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    # (1) compatibility
+    with open(HOTSWAP_PROFILE) as f:
+        written = ServingProfile.from_yaml(f.read())
+    inv = [a.to_dict() for a in detect_accelerators()]
+    doc = cli._load_profile(HOTSWAP_PROFILE)
+    llama = next(m for m in doc["models"] if m["name"] == MODEL)
+    phi = next(m for m in doc["models"] if m["name"] == PHI3)
+    phi["engine"]["num_pages"] = PHI3_CUT_PAGES
+
+    def profile(name, models):
+        return {"name": name, "requirement": {"vendor": "nvidia",
+                                              "chips": 1},
+                "models": models}
+
+    node1 = profile("node-1", [llama])
+    node2 = profile("node-2", [llama, phi])
+    node3 = profile("node-3", [llama])
+    v_written = [v.to_dict() for v in check_compatibility(written, inv)]
+    v_copy = [v.to_dict() for v in check_compatibility(
+        ServingProfile.from_dict(node2), inv)]
+    log(f"{tag} (1) inventory {json.dumps(inv)}; as written: "
+        f"{v_written}; the nvidia copy: {v_copy}")
+    if v_written != [{"constraint": "chips", "want": ">=1 tpu",
+                      "have": "0"}] or v_copy:
+        raise AssertionError(f"{tag} compatibility {v_written} {v_copy}")
+    cuts = [f"node-2/{PHI3}: engine.num_pages 2048 -> {PHI3_CUT_PAGES}",
+            "node-b: engine.host_pool_bytes -> 0 (two 16 GiB pinned tiers "
+            "are not needed to show the drain)",
+            "the exit check's serve-node process serves tiny-chat"]
+    for c in cuts:
+        log(f"{tag} cut: {c}")
+
+    def build(**kw):
+        served = cli.build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        return served
+
+    # the node without a control plane (serve-node --profile): phase
+    # 4i's, or built here
+    if agent_free is None:
+        reg, _mgr, httpd0, base0, _ = _node(node1, tmpdir, "agent-free",
+                                            build)
+        loop0 = reg.get(MODEL).loop
+        free_texts, _s, free_busy, _i = _traced_batch(base0, loop0,
+                                                      NODE_PROMPTS, 32)
+        httpd0.shutdown()
+        httpd0.server_close()
+        served0 = reg.get(MODEL)
+        reg.unregister(MODEL)
+        release_served_model(served0)
+        del loop0, reg, served0
+        agent_free = {"texts": free_texts, "busy_ms": free_busy,
+                      "from": "built here"}
+    # (2) node A applies its assignment; the phase's launches count
+    # from here
+    K1.launches = K1_INT8.launches = K2.launches = 0
+    args_a = _node_args(stub.url, "a")
+    agent, httpd = cli.make_node(args_a, build_model=build)
+    drained = []
+    agent.on_drain = lambda: drained.append(time.monotonic())
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = agent.address
+    b_side = None
+    try:
+        stub.wait_for("a", lambda b: True, 60)
+        a1 = _apply_and_watch(stub, base, "a", node1, "node-1")
+        beat = a1["beat"]
+        acc = beat["accelerators"][0]
+        _free_b, total = torch.cuda.mem_get_info()
+        log(f"{tag} (2) node-1: state route {a1['states']}; heartbeat "
+            f"statuses {[b['profile']['status'] for _t, b in stub.heartbeats('a')][:4]}...; "
+            f"apply {a1['apply_s']:.2f} s, longest heartbeat gap "
+            f"{a1['max_gap_s']:.2f} s (state route running after "
+            f"{a1['state_s']:.2f} s); accelerators[0] "
+            f"{json.dumps(acc)}")
+        if a1["states"][-2:] != ["loading", "running"] \
+                or acc["vendor"] != "nvidia" \
+                or acc["device_kind"] != torch.cuda.get_device_name(0) \
+                or acc["total_memory_bytes"] != total \
+                or list(beat["saturation"]) != list(SATURATION_KEYS) \
+                or beat["profile"]["models"] != [MODEL]:
+            raise AssertionError(f"{tag} node-1 heartbeat {beat}")
+        loop = agent.registry.get(MODEL).loop
+        eng = loop.engine
+        if eng.adapter_pool is None or eng.spec is None \
+                or eng.host_pool is None or loop.sched.name != "wfq":
+            raise AssertionError(f"{tag} the entry lost a field")
+        # (3) traffic
+        texts, secs, busy, idle = _traced_batch(base, loop, NODE_PROMPTS, 32)
+        same = sum(a == b for a, b in zip(texts, agent_free["texts"]))
+        seeded = [_seeded(base, MODEL) for _ in range(2)]
+        msg_body = {"model": MODEL, "max_tokens": 16, "temperature": 0,
+                    "messages": [{"role": "user",
+                                  "content": "Say something short."}]}
+        # the first chat caches the prompt's pages; the three compared
+        # after it all start from that prefix-cache hit (a cold prefill
+        # is other bf16 arithmetic)
+        _post(base + "/v1/chat/completions", msg_body)
+        chat_text = json.loads(_post(base + "/v1/chat/completions",
+                                     msg_body))["choices"][0]["message"][
+            "content"]
+        msg = json.loads(_post(base + "/v1/messages", msg_body))
+        raw = _post(base + "/v1/messages", {**msg_body, "stream": True})
+        events = [blk.split("\n") for blk in raw.strip().split("\n\n")]
+        stream_text = "".join(
+            json.loads(d[6:])["delta"]["text"] for n, d in events
+            if n == "event: content_block_delta")
+        log(f"{tag} (3) 8 chats admitted together: ids equal the "
+            f"agent-free node's ({agent_free['from']}) {same} of 8; traced "
+            f"device-busy {busy:.1f} ms (agent-free "
+            f"{agent_free['busy_ms']:.1f} ms), idle share {idle:.4f}, wall "
+            f"{secs:.3f} s; seeded twice equal {seeded[0] == seeded[1]}; "
+            f"/v1/messages text equals the chat's: non-stream "
+            f"{msg['content'][0]['text'] == chat_text}, stream "
+            f"{stream_text == chat_text} ({events[-1][0]}, stop "
+            f"{msg['stop_reason']})")
+        if same != 8 or seeded[0] != seeded[1] \
+                or msg["content"][0]["text"] != chat_text \
+                or stream_text != chat_text or not chat_text \
+                or events[0][0] != "event: message_start" \
+                or events[-1][0] != "event: message_stop":
+            raise AssertionError(f"{tag} traffic through the agent")
+        for i, tenant in enumerate(("acme", "beta", "acme")):
+            req = urllib.request.Request(
+                base + "/v1/chat/completions",
+                data=json.dumps({**msg_body, "messages": [{
+                    "role": "user", "content": f"tenant chat {i}"}]})
+                .encode(),
+                headers={"Content-Type": "application/json",
+                         "X-Helix-Tenant": tenant})
+            urllib.request.urlopen(req, timeout=600).read()
+        eng.publish_adapter("a1", _adapter_tree(eng.model_cfg, 31),
+                            ADAPTER_SCALE)
+        _chat(base, "an adapter chat", 8, model=f"{MODEL}@a1")
+        t_traffic = time.monotonic()
+        beat = stub.wait_for("a", lambda b: b["tenants"] and b["adapters"],
+                             30, after=t_traffic)
+        keys = {k for e in beat["tenants"]["top"] for k in e}
+        log(f"{tag} (3) tenants block {json.dumps(beat['tenants'])[:300]}; "
+            f"adapters {beat['adapters']}")
+        if not keys <= set(TENANT_KEYS) | {"tenant"} \
+                or not {"acme", "beta"} <= {
+                    e["tenant"] for e in beat["tenants"]["top"]} \
+                or beat["adapters"] != [f"{MODEL}@a1"]:
+            raise AssertionError(f"{tag} heartbeat blocks {beat}")
+        # (4) diff re-apply: Phi-3 added while a Llama stream runs
+        across = {}
+        t_stream = threading.Thread(target=lambda: across.update(
+            _stream_client(base, {**msg_body, "max_tokens": 150, "messages": [
+                {"role": "user", "content": "a stream across the apply"}]})))
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t_stream.start()
+        a2 = _apply_and_watch(stub, base, "a", node2, "node-2")
+        t_stream.join(600)
+        mem1 = torch.cuda.memory_allocated()
+        same_loop = agent.registry.get(MODEL).loop is loop
+        phi_chat = _chat(base, "Hello Phi", 16, model=PHI3)
+        a3 = _apply_and_watch(stub, base, "a", node3, "node-3")
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        phi_bytes, freed = mem1 - mem0, mem1 - mem2
+        log(f"{tag} (4) node-2: apply {a2['apply_s']:.2f} s (state route "
+            f"{a2['state_s']:.2f} s), longest "
+            f"heartbeat gap {a2['max_gap_s']:.2f} s, Llama loop kept "
+            f"{same_loop}, the stream across the apply ended "
+            f"{across.get('finish')} with {across.get('seen', '').count('<')}"
+            f" tokens and errors {across.get('errors')}; Phi-3 answered "
+            f"({phi_chat['usage']['completion_tokens']} tokens); node-3: "
+            f"apply {a3['apply_s']:.2f} s (state route {a3['state_s']:.2f} "
+            f"s), Phi-3 measured "
+            f"{phi_bytes / 2**30:.3f} GiB, freed {freed / 2**30:.3f} GiB "
+            f"({freed / max(1, phi_bytes):.4f}); models "
+            f"{agent.registry.names()}")
+        if not same_loop or agent.registry.get(MODEL).loop is not loop \
+                or across.get("finish") not in ("stop", "length") \
+                or across.get("errors") or freed < 0.95 * phi_bytes \
+                or phi_bytes <= 0 or agent.registry.names() != [MODEL]:
+            raise AssertionError(f"{tag} diff re-apply")
+        # (6) logs, state, the profiler
+        logs = json.loads(urllib.request.urlopen(
+            base + "/logs?tail=50", timeout=60).read())["logs"]
+        build_lines = [e["line"] for e in logs if "runner a: model " in
+                       e["line"] and " built in " in e["line"]]
+        os.environ["HELIX_TRACE_FEDERATION"] = "0"
+        try:
+            t_state = time.monotonic()
+            state = json.loads(urllib.request.urlopen(
+                base + "/api/v1/state", timeout=60).read())
+            nxt = stub.wait_for("a", lambda b: True, 30, after=t_state)
+        finally:
+            del os.environ["HELIX_TRACE_FEDERATION"]
+        for d in (state, nxt):
+            for k in ("ts", "disk"):
+                d.pop(k)
+            # wall-clock rates move between the two reads
+            d["saturation"].pop("tokens_per_sec")
+            for e in (d["tenants"] or {}).get("top", []):
+                e.pop("goodput_tps")
+        log(f"{tag} (6) /logs?tail=50: {len(logs)} lines, the agent's build "
+            f"lines {build_lines}; /api/v1/state equals the next heartbeat "
+            f"body (ts, disk and the tok/s rate aside) {state == nxt}")
+        if not build_lines or state != nxt:
+            raise AssertionError(f"{tag} logs / state")
+        wave = [f"Wave {i}: describe a lighthouse in a few lines." for i in
+                range(8)]
+        _t, off_s, _r = _gated_batch(base, loop, wave, 64)
+        off_tps = 8 * 64 / off_s
+        os.environ["HELIX_RUNNER_TOKEN"] = "smoke-token"
+        cap = {}
+        try:
+            def capture():
+                req = urllib.request.Request(
+                    base + "/admin/profiler",
+                    data=json.dumps({"seconds": 2}).encode(),
+                    headers={"Content-Type": "application/json",
+                             "X-Runner-Token": "smoke-token"})
+                t0 = time.monotonic()
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    cap.update(json.loads(r.read()))
+                cap["wall_s"] = time.monotonic() - t0
+
+            k2_before = K2.launches
+            t_cap = threading.Thread(target=capture)
+            t_cap.start()
+            deadline = time.monotonic() + 60
+            while not httpd.RequestHandlerClass.api._profiler_lock.locked():
+                if time.monotonic() > deadline:
+                    raise AssertionError("the capture never started")
+                time.sleep(0.01)
+            busy_code = _status_of(base + "/admin/profiler",
+                                   {"seconds": 1}, "smoke-token")
+            anon_code = _status_of(base + "/admin/profiler",
+                                   {"seconds": 1})
+            wave2 = [f"Wave {i}: describe a harbour in a few lines." for i
+                     in range(8)]
+            # a chat's first page is the template's, cached by now, and a
+            # prefill segment with any row that has history runs K1 for
+            # all: a cold completion admitted on its own, once the wave
+            # decodes, is K2's prefill
+            def cold_probe():
+                time.sleep(0.5)
+                _post(base + "/v1/completions", {
+                    "model": MODEL, "max_tokens": 8, "temperature": 0,
+                    "prompt": "Capture probe: a cold prompt of some forty "
+                              "bytes or more, unlike any before it."})
+
+            cold = threading.Thread(target=cold_probe)
+            cold.start()
+            _t, on_s, _r = _gated_batch(base, loop, wave2, 64)
+            cold.join(600)
+            k2_wave = K2.launches - k2_before
+            t_cap.join(600)
+        finally:
+            del os.environ["HELIX_RUNNER_TOKEN"]
+        on_tps = 8 * 64 / on_s
+        with open(os.path.join(cap["log_dir"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernel_events = sum(e.get("cat") == "kernel" for e in events)
+        attn_names = sorted(n[:120] for n in names if "flash" in n.lower()
+                            or "ragged" in n.lower())
+        k1_int8_names = sorted(n for n in names if "ragged_split_kernel" in n
+                               and "signed char" in n)
+        k2_names = sorted(n for n in names if "flash_" in n and "kernel" in n)
+        trace_mb = os.path.getsize(os.path.join(cap["log_dir"],
+                                                "trace.json")) / 2**20
+        log(f"{tag} (6) /admin/profiler 2 s: {cap.get('log_dir')} "
+            f"({trace_mb:.1f} MiB, reply after {cap.get('wall_s', 0):.2f} "
+            f"s); trace kernels K1-int8 {[n[:60] for n in k1_int8_names]}, "
+            f"K2 {[n[:60] for n in k2_names]}; a second capture meanwhile "
+            f"{busy_code}, without the token {anon_code}; decode tok/s of "
+            f"8 chats x 64 tokens without a capture {off_tps:.1f}, during "
+            f"one {on_tps:.1f}; K2 launches during the wave {k2_wave}; "
+            f"kernel events {kernel_events}; attention names {attn_names}")
+        if busy_code != 409 or anon_code != 403 or not k1_int8_names \
+                or not k2_names or cap.get("seconds") != 2:
+            raise AssertionError(f"{tag} profiler")
+        # host µs of one heartbeat body with 16 slots busy
+        hb_us = []
+        sixteen = [f"Busy {i}: count slowly to fifty." for i in range(16)]
+        res16 = {}
+        t16 = threading.Thread(target=lambda: res16.update(
+            r=_gated_batch(base, loop, sixteen, 48)))
+        t16.start()
+        deadline = time.monotonic() + 120
+        while sum(s is not None for s in eng.slots) < 16:
+            if time.monotonic() > deadline:
+                raise AssertionError("16 slots never busy")
+            time.sleep(0.005)
+        busy16 = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            body16 = agent.heartbeat_payload()
+            hb_us.append((time.perf_counter() - t0) * 1e6)
+            busy16.append(body16["saturation"]["slots_busy"])
+            time.sleep(0.01)
+        t16.join(600)
+        hb_p50, hb_p95 = _pcts(hb_us)
+        idle_us = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            agent.heartbeat_payload()
+            idle_us.append((time.perf_counter() - t0) * 1e6)
+        idle_p50, idle_p95 = _pcts(idle_us)
+        log(f"{tag} (7) heartbeat body with 16 slots busy "
+            f"({min(busy16)}-{max(busy16)} seen): host {hb_p50:.1f} us p50, "
+            f"{hb_p95:.1f} us p95 over {len(hb_us)} builds; idle "
+            f"{idle_p50:.1f} us p50, {idle_p95:.1f} us p95")
+        # (5) the drain to node B
+        node_b = profile("node-b", [{**llama, "engine": {
+            **llama["engine"], "host_pool_bytes": 0}}])
+        path_b = os.path.join(tmpdir, "node-b.json")
+        with open(path_b, "w") as f:
+            json.dump(node_b, f)
+        agent_b, httpd_b = cli.make_node(_node_args(stub.url, "b", path_b),
+                                         build_model=build)
+        threading.Thread(target=httpd_b.serve_forever, daemon=True).start()
+        b_side = (agent_b, httpd_b)
+        stub.wait_for("b", lambda b: b["profile"]["status"] == "running",
+                      300)
+        bodies = [{"model": MODEL, "max_tokens": DRAIN_TOKENS,
+                   "temperature": 0, "messages": [{
+                       "role": "user", "content": f"Drain {i}: tell a long "
+                       "story about a lighthouse keeper."}]}
+                  for i in range(8)]
+        bodies.append({"model": MODEL, "max_tokens": DRAIN_TOKENS,
+                       "temperature": 0.8, "seed": 4321, "messages": [{
+                           "role": "user", "content": "Drain seeded: a long "
+                           "story."}]})
+        dr = _drain_wave(stub, "a", agent, agent_b, bodies, drained)
+        log(f"{tag} (5) drain: " + _drain_line(dr))
+        # the seeded stream's equality is recorded, not demanded: its keys
+        # are spent per drafted position and the acceptance EMA that
+        # decides the drafts is not in the snapshot (ROADMAP C)
+        if not _drain_held(dr):
+            raise AssertionError(f"{tag} drain: {dr}")
+        stub.wait_for("c", lambda b: b["profile"]["status"] == "running",
+                      300)
+        stub.request_drain("c")
+        rc = sub.wait(timeout=300)
+        log(f"{tag} (5) serve-node process drained by the stub: exit code "
+            f"{rc}")
+        sub_log.seek(0)
+        sub_out = sub_log.read()
+        if rc != 0 or "control plane requested drain" not in sub_out:
+            raise AssertionError(f"{tag} serve-node exited {rc}: "
+                                 f"{sub_out[-2000:]}")
+        launches = {"ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches,
+                    "ragged_paged_attention": K1.launches}
+        log(f"{tag} (7) launches over the phase {launches}")
+        if launches["ragged_paged_attention_int8"] <= 0 \
+                or launches["flash_attention"] <= 0:
+            raise AssertionError(f"{tag} the kernels did not run")
+        out.update(launches=launches, cuts=cuts, apply=[a1, a2, a3],
+                   busy_ms=busy, idle=idle, hb_us=(hb_p50, hb_p95),
+                   drain=dr, tps=(off_tps, on_tps))
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+        sub_log.close()
+        for ag, hd in ((agent, httpd),) + ((b_side,) if b_side else ()):
+            ag.stop()
+            hd.shutdown()
+            hd.server_close()
+        stub.stop()
+        _free()
+    # (5) the drain's witness: the same wave and drain at 2 layers in
+    # float32 with a float32 KV pool (speculation on, as the entry has
+    # it).  There nothing rounds tiny differences of B's other batch
+    # shapes into other tokens, so every greedy stream must equal the
+    # undrained one: a difference at full depth in bf16 with int8 KV is
+    # then that arithmetic, not a token lost or repeated by the drain
+    # (a 2-layer step is short: the streams are longer and the drain
+    # comes sooner, so that they are still running when it does)
+    wit = profile("witness", [{
+        **llama, "model_overrides": {"num_layers": 2, "dtype": "float32"},
+        "engine": {**{k: v for k, v in llama["engine"].items()
+                      if k != "kv_cache_dtype"}, "host_pool_bytes": 0}}])
+    path_w = os.path.join(tmpdir, "witness.json")
+    with open(path_w, "w") as f:
+        json.dump(wit, f)
+    stub = ControlStub().start()
+    stub.assign("wa", wit)
+    pair, w_drained = [], []
+    try:
+        for rid, path in (("wa", None), ("wb", path_w)):
+            ag, hd = cli.make_node(_node_args(stub.url, rid, path),
+                                   build_model=build)
+            threading.Thread(target=hd.serve_forever, daemon=True).start()
+            pair.append((ag, hd))
+            stub.wait_for(rid, lambda b: b["profile"]["status"] == "running",
+                          300)
+        pair[0][0].on_drain = lambda: w_drained.append(time.monotonic())
+        wd = _drain_wave(stub, "wa", pair[0][0], pair[1][0],
+                         [{**b, "max_tokens": WITNESS_TOKENS}
+                          for b in bodies], w_drained, lead_s=0.5)
+        log(f"{tag} (5) witness, 2 layers float32, float32 KV: "
+            + _drain_line(wd))
+        if not _drain_held(wd) or wd["greedy_equal"] != len(bodies) - 1:
+            raise AssertionError(f"{tag} the drain's witness: {wd}")
+        out["witness"] = wd
+    finally:
+        for ag, hd in pair:
+            ag.stop()
+            hd.shutdown()
+            hd.server_close()
+        stub.stop()
+        _free()
+    log(f"{tag} phase wall {time.monotonic() - t_phase:.1f} s")
     return out
 
 
@@ -4112,12 +4954,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
-                             "checkpoint", "slo"),
+                             "checkpoint", "slo", "node"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
-                         "'hotswap' / 'adapters' / 'checkpoint' / 'slo': "
-                         "those and the hot-swap / adapter / checkpoint / "
-                         "scheduler phase")
+                         "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
+                         "'node': those and the hot-swap / adapter / "
+                         "checkpoint / scheduler / node-agent phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4151,6 +4993,10 @@ def main(argv=None) -> int:
         slo = phase_slo(dev["smi"])
         launches = {k: n for k, n in slo["launches"].items() if n}
         by_path = {k: {"slo": n} for k, n in launches.items()}
+    if args.phase == "node":
+        node = phase_node_agent(dev["smi"])
+        launches = {k: n for k, n in node["launches"].items() if n}
+        by_path = {k: {"node": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -4168,6 +5014,9 @@ def main(argv=None) -> int:
         phase_adapter_exact(dev["smi"])
         ck = phase_checkpoint(dev["smi"])
         slo = phase_slo(dev["smi"])
+        node = phase_node_agent(dev["smi"], agent_free={
+            "texts": slo["chat_texts"], "busy_ms": slo["trace"]["on"][0],
+            "from": "phase 4i"})
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -4183,7 +5032,8 @@ def main(argv=None) -> int:
                 "hotswap": swap["launches"]["flash_attention"],
                 "adapters": ad["launches"]["flash_attention"],
                 "checkpoint": ck["launches"]["flash_attention"],
-                "slo": slo["launches"]["flash_attention"]},
+                "slo": slo["launches"]["flash_attention"],
+                "node": node["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -4192,7 +5042,8 @@ def main(argv=None) -> int:
                     ad["launches"]["ragged_paged_attention_int8"],
                 "checkpoint":
                     ck["launches"]["ragged_paged_attention_int8"],
-                "slo": slo["launches"]["ragged_paged_attention_int8"]},
+                "slo": slo["launches"]["ragged_paged_attention_int8"],
+                "node": node["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)

@@ -13,6 +13,19 @@ names) with random weights made on the device from a seed and the
         --model meta-llama/Meta-Llama-3-8B-Instruct --port 8000 \\
         [--device cuda] [--engine max_prefill_len=512 ...]
     python -m helix_tpu_torch serve-node --profile profile.json
+    python -m helix_tpu_torch serve-node --runner-id a \\
+        --control-plane http://cp:8080 [--heartbeat-interval 30] \\
+        [--advertise http://this-node:8000]
+
+The node is run by the node agent (``control.node_agent.NodeAgent``),
+which owns the registry: ``--profile`` (or ``--model``) is applied at
+start; with ``--control-plane`` the agent heartbeats its inventory,
+profile state and saturation there, and without a profile it waits for
+one to be assigned (the assignment poll; a drain request there drains the
+node to a peer and ends the process).  SIGTERM and SIGINT drain every
+engine for ``HELIX_DRAIN_SECONDS``, ship the survivors to a peer the
+control plane names, and exit 0.  ``--tunnel`` (a reverse tunnel for a
+node behind NAT) is not ported yet (ROADMAP A7c).
 
 A profile is JSON (or YAML when ``yaml`` is importable) with a ``models``
 list of ``{name, kind, quantization, engine, model_overrides,
@@ -50,14 +63,20 @@ unknown activation) or that disagrees with the entry's
 ``model_overrides`` is refused at start.  What is not ported yet is
 refused there too, before any weights are made, naming its ROADMAP
 item: a kind other than ``chat`` (A17), a ``mesh`` with an axis above 1
-(A15; ``{tp: 1}`` is the one device), an ``adapter`` merged into the
-weights at apply time (it restores a training checkpoint: A18, with the
-node agent, A7b), and engine fields of unported modules
-(``ctx_hot_pages``: A14).
+(A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
+``adapter`` merged into the weights at apply time (it restores a training
+checkpoint: A18), and engine fields of unported modules
+(``ctx_hot_pages``: A14).  A profile assigned by the control plane with
+such an entry fails its apply with that text (``status: failed``).
 
 The node's operator overrides, as the reference node agent reads them:
 ``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
-(0 turns the host tier off), ``HELIX_PREEMPT_STALL_SECONDS`` arms
+(0 turns the host tier off), ``HELIX_SPEC_TOKENS``,
+``HELIX_ASYNC_LOOP``, ``HELIX_MAX_PAGES_PER_SEQ`` and
+``HELIX_CTX_HOT_PAGES`` replace the engine fields they name (see
+``_operator_overrides``), an entry's ``context_length`` caps its requests
+(``max_model_len``, with the page tables to hold it),
+``HELIX_PREEMPT_STALL_SECONDS`` arms
 preemption by swap after admission has stalled that long,
 ``HELIX_ADMISSION_TIMEOUT`` sheds requests that waited that long for KV
 pages with a typed ``kv_exhausted`` 503,
@@ -75,31 +94,24 @@ import dataclasses
 import json
 import logging
 import os
+import signal
+import sys
+import threading
 import time
 
 import torch
 
-from helix_tpu_torch.device import (
-    DEFAULT_DEVICE,
-    resolve_device,
-    total_device_bytes,
-)
+from helix_tpu_torch.control.profile import ProfileModel, ServingProfile
+from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from helix_tpu_torch.engine.adapters import adapter_pool_slots_env
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
-from helix_tpu_torch.engine.residency import (
-    ResidencyManager,
-    estimate_model_bytes,
-)
+from helix_tpu_torch.engine.residency import estimate_model_bytes
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
 from helix_tpu_torch.models.llama import init_params
 from helix_tpu_torch.models.loader import load_config, load_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
 from helix_tpu_torch.serving.openai_api import OpenAIServer
-from helix_tpu_torch.serving.registry import (
-    DelegatingRegistry,
-    ModelRegistry,
-    ServedModel,
-)
+from helix_tpu_torch.serving.registry import ServedModel
 from helix_tpu_torch.serving.sched import SchedConfig
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
@@ -171,14 +183,16 @@ def build_served_model(
         tok = ByteTokenizer()
     eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
     eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
-    host_env = os.environ.get("HELIX_KV_HOST_POOL_BYTES", "")
-    if host_env:
-        # operator beats profile; 0 turns the host tier off
-        eng_kw["host_pool_bytes"] = int(host_env)
-    slots_env = adapter_pool_slots_env()
-    if slots_env is not None:
-        # operator beats profile; 0 turns the adapter pool off
-        eng_kw["adapter_pool_slots"] = slots_env
+    if context_length and "max_model_len" not in eng_kw:
+        # the profile's context_length caps requests there, and one
+        # sequence's page table must be able to hold it
+        eng_kw["max_model_len"] = context_length
+        need = -(-context_length // eng_kw.get("page_size", 16))
+        if eng_kw.get("max_pages_per_seq", 128) < need:
+            eng_kw["max_pages_per_seq"] = need
+        if eng_kw.get("num_pages", 2048) < need + 1:
+            eng_kw["num_pages"] = need + 1
+    _operator_overrides(eng_kw)
     # the engine block is checked before the weights are made: an option
     # not ported yet raises at once, not after minutes of init
     ecfg = EngineConfig(**eng_kw)
@@ -201,26 +215,63 @@ def build_served_model(
     if warmup:
         eng.warmup()
     stamps.append(_stamp(dev))
-    loop = EngineLoop(
-        eng, name=name,
-        # admission bounds and the KV-pressure ladder: operator knobs,
-        # unbounded / off unless set
-        max_queue_depth=_env_bound("HELIX_MAX_QUEUE_DEPTH"),
-        max_queued_tokens=_env_bound("HELIX_MAX_QUEUED_TOKENS"),
-        admission_timeout=_env_bound("HELIX_ADMISSION_TIMEOUT", float),
-        preempt_stall_seconds=_env_bound("HELIX_PREEMPT_STALL_SECONDS",
-                                         float),
-        # the profile's SLO targets and scheduler; HELIX_SCHED_* beat the
-        # profile, HELIX_SLO_BURN_WINDOWS is read inside obs.slo
-        slo_targets=slo,
-        tenant_top_k=_env_bound("HELIX_TENANT_TOP_K"),
-        sched_config=SchedConfig.from_profile(slo),
-    ).start()
+    loop = make_engine_loop(eng, name, slo)
     split = dict(zip(("load" if checkpoint else "init", "engine", "warmup"),
                      (b - a for a, b in zip(stamps, stamps[1:]))))
     return ServedModel(name=name, loop=loop, tokenizer=tok,
                        context_length=context_length or eng.max_context_len,
                        build_seconds=split, load_stats=load_stats)
+
+
+def _operator_overrides(eng_kw: dict) -> None:
+    """The node operator's engine knobs, which beat every profile entry
+    (the reference node agent's): ``HELIX_SPEC_TOKENS`` (>0 turns
+    speculation on with that many drafts, 0 off), ``HELIX_ASYNC_LOOP``
+    (truthy on, 0 / false / no / off off), ``HELIX_MAX_PAGES_PER_SEQ``,
+    ``HELIX_CTX_HOT_PAGES`` (tiered context, A14: refused above 0),
+    ``HELIX_KV_HOST_POOL_BYTES`` (0 turns the host tier off) and
+    ``HELIX_ADAPTER_POOL_SLOTS`` (0 turns the adapter pool off)."""
+    env = os.environ.get
+    if env("HELIX_SPEC_TOKENS", ""):
+        n = int(env("HELIX_SPEC_TOKENS"))
+        eng_kw["spec_tokens"] = max(n, 1)
+        eng_kw["enable_spec_decode"] = n > 0
+    if env("HELIX_ASYNC_LOOP", ""):
+        eng_kw["enable_async_loop"] = env("HELIX_ASYNC_LOOP").strip() \
+            .lower() not in ("0", "false", "no", "off")
+    if env("HELIX_MAX_PAGES_PER_SEQ", ""):
+        eng_kw["max_pages_per_seq"] = max(1, int(env(
+            "HELIX_MAX_PAGES_PER_SEQ")))
+    if env("HELIX_CTX_HOT_PAGES", ""):
+        eng_kw["ctx_hot_pages"] = max(0, int(env("HELIX_CTX_HOT_PAGES")))
+    slots_env = adapter_pool_slots_env()
+    if slots_env is not None:
+        eng_kw["adapter_pool_slots"] = slots_env
+    if env("HELIX_KV_HOST_POOL_BYTES", ""):
+        eng_kw["host_pool_bytes"] = int(env("HELIX_KV_HOST_POOL_BYTES"))
+
+
+def make_engine_loop(eng: Engine, name: str,
+                     slo: dict | None = None) -> EngineLoop:
+    """The started ``EngineLoop`` of one served engine (the reference
+    node agent's ``_make_engine_loop``): the admission bounds and the
+    KV-pressure ladder are operator knobs (``HELIX_MAX_QUEUE_DEPTH``,
+    ``HELIX_MAX_QUEUED_TOKENS``, ``HELIX_ADMISSION_TIMEOUT``,
+    ``HELIX_PREEMPT_STALL_SECONDS``; unbounded / off unless set), the SLO
+    targets and scheduler come from the entry's ``slo`` block
+    (``HELIX_SCHED_*`` beat it; ``HELIX_SLO_BURN_WINDOWS`` is read inside
+    ``obs.slo``) and ``HELIX_TENANT_TOP_K`` bounds the tenant series."""
+    return EngineLoop(
+        eng, name=name,
+        max_queue_depth=_env_bound("HELIX_MAX_QUEUE_DEPTH"),
+        max_queued_tokens=_env_bound("HELIX_MAX_QUEUED_TOKENS"),
+        admission_timeout=_env_bound("HELIX_ADMISSION_TIMEOUT", float),
+        preempt_stall_seconds=_env_bound("HELIX_PREEMPT_STALL_SECONDS",
+                                         float),
+        slo_targets=slo,
+        tenant_top_k=_env_bound("HELIX_TENANT_TOP_K"),
+        sched_config=SchedConfig.from_profile(slo),
+    ).start()
 
 
 def _stamp(dev) -> float:
@@ -254,40 +305,46 @@ def _load_profile(path: str) -> dict:
     with open(path) as f:
         text = f.read()
     try:
-        return json.loads(text)
+        doc = json.loads(text)
     except ValueError:
-        pass
-    try:
-        import yaml
-    except ImportError:
-        raise SystemExit(
-            f"{path}: not JSON, and PyYAML is not installed for YAML"
-        ) from None
-    return yaml.safe_load(text)
+        try:
+            import yaml
+        except ImportError:
+            raise SystemExit(
+                f"{path}: not JSON, and PyYAML is not installed for YAML"
+            ) from None
+        doc = yaml.safe_load(text)
+    if isinstance(doc, dict) and "name" not in doc:
+        # a profile file without a name is named after the file
+        doc["name"] = os.path.splitext(os.path.basename(path))[0]
+    return doc
 
 
-def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
+def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     """What of profile entry ``m`` is not ported yet, each naming its
     ROADMAP item (empty: the entry is served)."""
     out = []
-    if m.get("checkpoint") and not random_weights:
+    if m.checkpoint and not random_weights:
         try:
-            checkpoint_config(m["checkpoint"], m["name"],
-                              m.get("model_overrides"))
+            checkpoint_config(m.checkpoint, m.name, m.model_overrides)
         except (OSError, ValueError, NotImplementedError) as e:
             out.append(str(e))
-    if m.get("kind", "chat") != "chat":
-        out.append(f"kind {m.get('kind')!r} is not ported yet (ROADMAP A17)")
-    if m.get("adapter"):
+    if m.kind != "chat":
+        out.append(f"kind {m.kind!r} is not ported yet (ROADMAP A17)")
+    if m.adapter:
         out.append("an adapter merged into the weights at apply time is "
                    "not ported yet: it restores a training checkpoint "
-                   "(ROADMAP A18, with the node agent, A7b); serve "
-                   "adapters through engine.adapter_pool_slots")
-    mesh = m.get("mesh") or {}
-    if any(int(v) > 1 for v in mesh.values()):
+                   "(ROADMAP A18); serve adapters through "
+                   "engine.adapter_pool_slots")
+    mesh = {k: v for k, v in m.mesh.to_dict().items()
+            if v != (0 if k == "device_offset" else 1)}
+    if m.mesh.num_devices > 1 or m.mesh.device_offset > 0:
         out.append(f"mesh {mesh} spans more than one device: tensor, "
                    "sequence, expert and pipeline parallel are not ported "
                    "yet (ROADMAP A15)")
+    if m.multihost:
+        out.append(f"multihost {m.multihost} serving is not ported yet "
+                   "(ROADMAP A15)")
     try:
         EngineConfig(**engine)
     except NotImplementedError as e:
@@ -295,10 +352,40 @@ def _refusals(m: dict, engine: dict, random_weights: bool) -> list:
     return out
 
 
-def _model_specs(args, profile: dict | None = None) -> list[dict]:
-    """One ``build_served_model`` keyword set per model; raises
-    ``NotImplementedError`` listing every unported block of every entry
-    before anything is built."""
+def model_specs(profile: ServingProfile, engine: dict | None = None,
+                random_weights: bool = False, seed: int = 0) -> list[dict]:
+    """One ``build_served_model`` keyword set per model of ``profile``
+    (``engine``: ``EngineConfig`` fields that beat every entry's);
+    raises ``NotImplementedError`` listing every unported block of every
+    entry before anything is built."""
+    engine = engine or {}
+    specs, refused = [], []
+    for m in profile.models:
+        eng = {**m.engine, **engine}
+        why = _refusals(m, eng, random_weights)
+        if why:
+            refused.append(f"{m.name}: " + "; ".join(why))
+            continue
+        checkpoint = m.checkpoint
+        if checkpoint and random_weights:
+            log.warning("%s: serving random weights (seed %d) in place of "
+                        "checkpoint %s", m.name, seed, checkpoint)
+            checkpoint = None
+        specs.append(dict(
+            name=m.name, quantization=m.quantization, engine=eng,
+            model_overrides=dict(m.model_overrides),
+            context_length=m.context_length, checkpoint=checkpoint,
+            slo=dict(m.slo) or None,
+        ))
+    if refused:
+        raise NotImplementedError("; ".join(refused))
+    return specs
+
+
+def _model_specs(args, profile=None) -> list[dict]:
+    """``model_specs`` of the command line: ``--model`` names, or the
+    profile (a ``ServingProfile``, a profile document, or
+    ``--profile``'s file)."""
     engine = _parse_kv(args.engine)
     if profile is None and args.profile:
         profile = _load_profile(args.profile)
@@ -306,88 +393,111 @@ def _model_specs(args, profile: dict | None = None) -> list[dict]:
         if not args.model:
             raise SystemExit("serve-node needs --model or --profile")
         return [dict(name=n, engine=engine) for n in args.model]
-    random_weights = getattr(args, "random_weights", False)
-    specs, refused = [], []
-    for m in profile.get("models", []):
-        eng = {**m.get("engine", {}), **engine}
-        why = _refusals(m, eng, random_weights)
-        if why:
-            refused.append(f"{m['name']}: " + "; ".join(why))
-            continue
-        checkpoint = m.get("checkpoint")
-        if checkpoint and random_weights:
-            log.warning("%s: serving random weights (seed %d) in place of "
-                        "checkpoint %s", m["name"], getattr(args, "seed", 0),
-                        checkpoint)
-            checkpoint = None
-        specs.append(dict(
-            name=m["name"], quantization=m.get("quantization"), engine=eng,
-            model_overrides=m.get("model_overrides", {}),
-            context_length=m.get("context_length"), checkpoint=checkpoint,
-            slo=m.get("slo"),
-        ))
-    if refused:
-        raise NotImplementedError("; ".join(refused))
-    return specs
+    if not isinstance(profile, ServingProfile):
+        profile = ServingProfile.from_dict(profile)
+    return model_specs(profile, engine,
+                       getattr(args, "random_weights", False),
+                       getattr(args, "seed", 0))
 
 
-def build_registry(specs: list, residency: dict | None = None, *,
-                   device=DEFAULT_DEVICE, seed: int = 0, warmup: bool = True,
-                   build=build_served_model) -> DelegatingRegistry:
-    """The node's registry.  Without ``residency`` every spec is built now
-    (``build(name=..., device=..., seed=..., warmup=..., **spec)``); with
-    it a ``ResidencyManager`` registers every name and builds nothing yet.
-    Its budget is ``hbm_budget_bytes`` or the card's memory, and its
-    estimate takes the checkpoint's ``config.json`` (else the catalog
-    config of the name), the entry's engine block and its quantization,
-    as the reference node agent's does."""
-    if not residency:
-        inner = ModelRegistry()
-        for spec in specs:
-            inner.register(build(device=device, seed=seed, warmup=warmup,
-                                 **spec))
-            log.info("serving %s on %s", spec["name"], device)
-        return DelegatingRegistry(inner)
-    by_name = {spec["name"]: spec for spec in specs}
-    budget = int(residency.get("hbm_budget_bytes")
-                 or total_device_bytes(device))
+def spec_bytes(spec: dict) -> int:
+    """The residency estimate of one spec: the checkpoint's
+    ``config.json`` (else the catalog config of the name), the entry's
+    engine block and its quantization, as the reference node agent's."""
+    name = spec["name"]
+    cfg = (load_config(spec["checkpoint"], name=name)
+           if spec.get("checkpoint") else model_config(name))
+    return estimate_model_bytes(cfg, spec["engine"], spec.get("quantization"))
 
-    def build_one(name: str) -> ServedModel:
-        log.info("loading %s on %s", name, device)
-        return build(device=device, seed=seed, warmup=warmup,
-                     **by_name[name])
 
-    def estimate(name: str) -> int:
-        spec = by_name[name]
-        cfg = (load_config(spec["checkpoint"], name=name)
-               if spec.get("checkpoint") else model_config(name))
-        return estimate_model_bytes(cfg, spec["engine"],
-                                    spec.get("quantization"))
+def make_node(args, build_model=None):
+    """The node ``serve-node`` runs, not yet serving: (agent, HTTP
+    server).  The agent (``control.node_agent.NodeAgent``) owns the
+    registry; ``--profile`` (or ``--model`` names) is applied now, after
+    every entry's refusals were checked (``NotImplementedError`` before
+    anything is built); with ``--control-plane`` the heartbeat starts,
+    polling for an assigned profile when none was given.  The server
+    answers ``GET /api/v1/state`` with the agent's heartbeat body.
+    ``build_model``: the agent's builder of one profile entry, with
+    ``build_served_model``'s keywords (the default)."""
+    from helix_tpu_torch.control.node_agent import NodeAgent
 
-    mgr = ResidencyManager(budget, build_one, estimate=estimate)
-    for name in by_name:
-        mgr.register_name(name)
-    return DelegatingRegistry(mgr)
+    resolve_device(args.device)
+    engine = _parse_kv(args.engine)
+    profile = None
+    if args.profile:
+        profile = ServingProfile.from_dict(_load_profile(args.profile))
+    elif args.model:
+        profile = ServingProfile(
+            name="serve-node",
+            models=tuple(ProfileModel(name=n) for n in args.model))
+    if profile is not None:
+        model_specs(profile, engine, args.random_weights, args.seed)
+    agent = NodeAgent(
+        args.runner_id, build_model=build_model,
+        heartbeat_url=args.control_plane,
+        heartbeat_interval=args.heartbeat_interval,
+        device=args.device, seed=args.seed, warmup=not args.no_warmup,
+        random_weights=args.random_weights, engine=engine)
+    httpd = OpenAIServer(agent.registry, state=agent.heartbeat_payload) \
+        .make_http_server(args.host, args.port)
+    agent.address = (args.advertise
+                     or f"http://127.0.0.1:{httpd.server_address[1]}")
+    if profile is not None:
+        agent.apply_profile(profile)
+    if args.control_plane and agent.state.status != "failed":
+        agent.start_heartbeat(poll_assignment=profile is None)
+    return agent, httpd
 
 
 def _cmd_serve_node(args) -> int:
-    profile = _load_profile(args.profile) if args.profile else None
-    specs = _model_specs(args, profile)
-    registry = build_registry(
-        specs, (profile or {}).get("residency"), device=args.device,
-        seed=args.seed, warmup=not args.no_warmup,
-    )
-    httpd = OpenAIServer(registry).make_http_server(args.host, args.port)
-    print("helix_tpu_torch serving", registry.names(),
+    if args.tunnel:
+        print("serve-node: --tunnel (a reverse tunnel to the control "
+              "plane) needs a websocket client and is not ported yet "
+              "(ROADMAP A7c)", file=sys.stderr)
+        return 2
+    agent, httpd = make_node(args)
+    if agent.state.status == "failed":
+        httpd.server_close()
+        agent.stop()
+        if agent.apply_exception is not None:
+            raise agent.apply_exception
+        print(f"profile apply failed: {agent.state.error}", file=sys.stderr)
+        return 1
+    shutdown: list = []
+
+    def graceful():
+        # drain on this thread, then stop the server: shutdown() from
+        # the thread that runs serve_forever would deadlock
+        try:
+            agent.graceful_shutdown()
+        finally:
+            httpd.shutdown()
+
+    def on_signal(signum, frame):
+        if not shutdown:
+            t = threading.Thread(target=graceful, name="helix-shutdown",
+                                 daemon=True)
+            shutdown.append(t)
+            t.start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, on_signal)
+        except ValueError:
+            pass   # not the main thread (embedded use)
+    # a drain the control plane asked for ends the process as SIGTERM does
+    agent.on_drain = lambda: os.kill(os.getpid(), signal.SIGTERM)
+    print("helix_tpu_torch node", args.runner_id, "serving",
+          agent.registry.names(),
           f"on http://{args.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
     finally:
+        for t in shutdown:
+            t.join()
         httpd.server_close()
-        for name in registry.names():
-            registry.unregister(name)
+        agent.stop()
     return 0
 
 
@@ -397,9 +507,17 @@ def main(argv=None) -> int:
     n = sub.add_parser("serve-node", help="serve models over OpenAI HTTP")
     n.add_argument("--model", action="append",
                    help="catalog model name (repeatable)")
-    n.add_argument("--profile", help="profile file (JSON, or YAML)")
+    n.add_argument("--profile", help="profile file (JSON, or YAML) to "
+                                     "apply at start")
+    n.add_argument("--runner-id", default="node-0")
     n.add_argument("--host", default="0.0.0.0")
     n.add_argument("--port", type=int, default=8000)
+    n.add_argument("--control-plane", help="control plane base URL")
+    n.add_argument("--heartbeat-interval", type=float, default=30.0)
+    n.add_argument("--advertise",
+                   help="address the control plane dials back")
+    n.add_argument("--tunnel", action="store_true",
+                   help="not ported yet (ROADMAP A7c)")
     n.add_argument("--device", default=DEFAULT_DEVICE)
     n.add_argument("--engine", action="append", metavar="KEY=VALUE",
                    help="EngineConfig field override (repeatable)")

@@ -13,7 +13,9 @@ step into dispatch and completion).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,6 +44,71 @@ def total_device_bytes(device=DEFAULT_DEVICE) -> int:
     residency budget when a profile names none (the reference's
     ``total_hbm_bytes``)."""
     return int(torch.cuda.mem_get_info(resolve_device(device))[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratorStatus:
+    """Per-device status record of the heartbeat's ``accelerators`` list:
+    the reference's fields and ``to_dict()`` (``helix_tpu/device/
+    detect.py``), so the control plane's ``check_compatibility`` reads a
+    card's record as it reads a TPU chip's."""
+
+    index: int
+    vendor: str                  # "nvidia" | "cpu"
+    arch: str                    # "h100" | ... | "cpu"
+    device_kind: str             # torch.cuda.get_device_name
+    total_memory_bytes: int
+    used_memory_bytes: int
+    free_memory_bytes: int
+    core_on_chip: int = 1
+    process_index: int = 0
+    coords: Optional[tuple] = None
+    driver: str = ""             # CUDA version of the torch build
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["coords"] = list(self.coords) if self.coords is not None else None
+        return d
+
+
+# substrings of the device name -> canonical architecture, as the
+# reference's ``tpu_generation`` maps a device kind to "v5e"
+_GPU_ARCHS = ("h200", "h100", "h800", "gh200", "a100", "a800", "l40s", "l40",
+              "l4", "b200", "b100")
+
+
+def gpu_arch(device_name: str) -> str:
+    name = device_name.lower()
+    for needle in _GPU_ARCHS:
+        if needle in name:
+            return needle
+    return "unknown"
+
+
+def detect_accelerators(device=DEFAULT_DEVICE) -> list:
+    """The node's accelerator inventory.  On the card: one record per
+    visible CUDA device, ``vendor`` ``nvidia``, ``arch`` from the name,
+    total / used / free bytes from ``torch.cuda.mem_get_info`` (used is
+    the card's whole use, other processes included) and the CUDA version
+    as ``driver``.  With ``device="cpu"`` the reference's record of the
+    CPU backend: one device, vendor and arch ``cpu``, no memory figure."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [AcceleratorStatus(
+            index=0, vendor="cpu", arch="cpu", device_kind="cpu",
+            total_memory_bytes=0, used_memory_bytes=0, free_memory_bytes=0,
+            driver=f"torch-{torch.__version__}")]
+    out = []
+    for i in range(torch.cuda.device_count()):
+        free, total = torch.cuda.mem_get_info(i)
+        name = torch.cuda.get_device_name(i)
+        out.append(AcceleratorStatus(
+            index=i, vendor="nvidia", arch=gpu_arch(name), device_kind=name,
+            total_memory_bytes=int(total),
+            used_memory_bytes=int(total - free),
+            free_memory_bytes=int(free),
+            driver=f"cuda-{torch.version.cuda}"))
+    return out
 
 
 def release_device_memory() -> None:

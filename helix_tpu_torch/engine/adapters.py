@@ -72,6 +72,9 @@ MAX_LISTED_ADAPTERS = 32
 ADAPTER_TOP_K = 8
 OTHER_ADAPTER = "__other__"
 
+# bound on the heartbeat's adapter-residency block
+MAX_RESIDENCY_ENTRIES = 128
+
 
 def sanitize_adapter_id(value) -> str:
     """Bound a caller-supplied adapter id to the shapes that may mint a
@@ -921,3 +924,22 @@ def collect_adapter_metrics(c, loop, labels: dict) -> None:
         help="Host-tier adapter byte budget "
              "(HELIX_ADAPTER_HOST_POOL_BYTES)",
     )
+
+
+def adapter_residency_summary(models) -> list:
+    """The heartbeat's adapter-residency block: bounded, sorted
+    ``model@adapter`` ids resident in any live engine's device pool (the
+    control plane's adapter-affinity signal).  ``models``: the node
+    agent's lock-free live-model snapshot."""
+    out = []
+    for m in models:
+        loop = getattr(m, "loop", None)
+        pool = getattr(getattr(loop, "engine", None), "adapter_pool", None)
+        if pool is None:
+            continue
+        name = getattr(m, "name", "")
+        for aid in pool.resident_ids():
+            out.append(f"{name}{ADAPTER_SEP}{aid}")
+            if len(out) >= MAX_RESIDENCY_ENTRIES:
+                return sorted(out)
+    return sorted(out)

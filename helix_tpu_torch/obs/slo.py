@@ -842,3 +842,59 @@ class SLOObserver:
             "audit_recorded": self.audit.recorded,
             "targets": self.targets.to_dict(),
         }
+
+
+def merge_rollups(rollups: list, top_k: int = 8) -> dict:
+    """Merge per-engine rollups into the node's heartbeat ``tenants``
+    block (the reference's, runner side): counters and goodput sum, burn
+    rates and p95s take the worst, then the merged set is bounded again
+    to ``top_k`` + the ``__other__`` fold (sums conserved)."""
+    merged: dict[str, dict] = {}
+    demotions = 0
+    for roll in rollups:
+        if not isinstance(roll, dict):
+            continue
+        demotions += int(roll.get("demotions", 0) or 0)
+        for entry in roll.get("top", []) or []:
+            t = entry.get("tenant")
+            if not isinstance(t, str):
+                continue
+            cur = merged.get(t)
+            if cur is None:
+                merged[t] = {k: entry.get(k, 0) for k in TENANT_KEYS}
+                merged[t]["tenant"] = t
+                continue
+            for k in _SUMMED:
+                cur[k] = cur.get(k, 0) + entry.get(k, 0)
+            for k in (
+                "ttft_p95_seconds", "queue_wait_p95_seconds",
+                "burn_rate_fast", "burn_rate_slow",
+            ):
+                cur[k] = max(cur.get(k, 0.0), entry.get(k, 0.0))
+    ranked = sorted(
+        merged.values(),
+        key=lambda e: (-e.get("generated_tokens", 0),
+                       -e.get("requests", 0), e["tenant"]),
+    )
+    # the fold bucket always merges last regardless of volume
+    other = [e for e in ranked if e["tenant"] == OTHER_TENANT]
+    ranked = [e for e in ranked if e["tenant"] != OTHER_TENANT]
+    keep, overflow = ranked[:top_k], ranked[top_k:]
+    fold = other[0] if other else None
+    for e in overflow:
+        if fold is None:
+            fold = {k: 0 for k in TENANT_KEYS}
+            fold["tenant"] = OTHER_TENANT
+        for k in _SUMMED:
+            fold[k] = fold.get(k, 0) + e.get(k, 0)
+        for k in ("burn_rate_fast", "burn_rate_slow"):
+            fold[k] = max(fold.get(k, 0.0), e.get(k, 0.0))
+    if fold is not None:
+        keep = keep + [fold]
+    # tracked counts distinct tenant ids across the inputs
+    return {"top": keep, "tracked": len(merged) - len(other),
+            "demotions": demotions}
+
+
+_SUMMED = ("prompt_tokens", "generated_tokens", "requests", "sheds",
+           "kv_exhausted", "preemptions", "goodput_tps")

@@ -10,13 +10,19 @@ Chrome ``trace_event`` format (load in ``chrome://tracing`` / Perfetto).
 Recording is a no-op for requests without a trace id, so the engine
 path pays one truthiness check when tracing is unused.
 
-The federation half (span export in the heartbeat, the control plane's
-stitched store) waits for the node agent (ROADMAP A7b).
+Federation, runner side: with ``HELIX_TRACE_FEDERATION`` on (the
+default) the node agent turns on the store's export ring, and each
+heartbeat carries up to ``HELIX_TRACE_EXPORT_BATCH`` completed spans in
+the reference's wire shape (``span_to_wire``) to the control plane, which
+stitches them per trace.  The ring holds ``HELIX_TRACE_BUFFER`` spans; an
+overflow drops the oldest unsent span and counts it in
+``helix_trace_dropped_spans_total``.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import re
 import threading
 import time
@@ -38,6 +44,36 @@ _WALL0 = time.time()
 # stable Chrome-trace pids per plane so cross-plane spans of one request
 # line up as separate process tracks
 _PLANE_PIDS = {"control": 1, "runner": 2, "engine": 3}
+
+
+# -- federation knobs: the export rides the heartbeat, so its cadence is
+# the node agent's heartbeat interval
+
+
+def federation_enabled() -> bool:
+    """``HELIX_TRACE_FEDERATION``: runners push completed spans to the
+    control plane inside the heartbeat (default on)."""
+    return os.environ.get("HELIX_TRACE_FEDERATION", "1").lower() not in (
+        "0", "false", "off", ""
+    )
+
+
+def _int_env(name: str, default: int, lo: int, hi: int) -> int:
+    try:
+        return max(lo, min(int(os.environ.get(name, default)), hi))
+    except (TypeError, ValueError):
+        return default
+
+
+def export_batch() -> int:
+    """``HELIX_TRACE_EXPORT_BATCH``: most spans per heartbeat push."""
+    return _int_env("HELIX_TRACE_EXPORT_BATCH", 256, 1, 4096)
+
+
+def export_buffer() -> int:
+    """``HELIX_TRACE_BUFFER``: the pending-export ring's size."""
+    return _int_env("HELIX_TRACE_BUFFER", 2048, 16, 65536)
+
 
 def mono_to_wall(mono: float) -> float:
     return _WALL0 + (mono - _MONO0)
@@ -100,6 +136,31 @@ class TraceStore:
         )
         self._lock = threading.Lock()
         self.dropped_spans = 0   # spans lost to the per-trace cap (global)
+        # pending-export ring (federation): None until enable_export(); a
+        # bounded deque, so a dead heartbeat loop cannot grow memory
+        self._export: Optional[collections.deque] = None
+        self.export_dropped = 0  # spans lost to export-ring overflow
+
+    def enable_export(self, cap: Optional[int] = None) -> None:
+        """Start buffering completed spans for the heartbeat.  Spans
+        recorded before this call are not exported."""
+        with self._lock:
+            if self._export is None:
+                self._export = collections.deque(
+                    maxlen=cap or export_buffer()
+                )
+
+    def drain_export(self, limit: Optional[int] = None) -> list:
+        """Pop up to ``limit`` pending wire spans (oldest first) for the
+        next heartbeat; ``[]`` when export is off."""
+        n = limit if limit is not None else export_batch()
+        out: list = []
+        with self._lock:
+            if self._export is None:
+                return out
+            while self._export and len(out) < n:
+                out.append(self._export.popleft())
+        return out
 
     def record(self, trace_id: str, name: str, start: float, end: float,
                plane: str = "", **attrs) -> None:
@@ -123,6 +184,10 @@ class TraceStore:
                 self.dropped_spans += 1
                 entry[1] += 1
             entry[0].append(span)
+            if self._export is not None:
+                if len(self._export) == self._export.maxlen:
+                    self.export_dropped += 1
+                self._export.append(span_to_wire(span))
 
     def ids(self) -> list:
         with self._lock:
@@ -181,6 +246,19 @@ class TraceStore:
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
+def span_to_wire(span: Span) -> dict:
+    """One completed span in the federation wire shape (wall clock)."""
+    start = mono_to_wall(span.start)
+    return {
+        "trace_id": span.trace_id,
+        "name": span.name,
+        "plane": span.plane,
+        "start_unix": start,
+        "end_unix": start + max(0.0, span.end - span.start),
+        "attrs": {k: str(v) for k, v in span.attrs.items()},
+    }
+
+
 # -- metric minting ----------------------------------------------------
 #
 # Every helix_trace_* series of the port is minted HERE and only here;
@@ -192,7 +270,7 @@ def collect_trace_metrics(c, store: Optional[TraceStore] = None) -> None:
     st = store if store is not None else default_store()
     c.counter(
         "helix_trace_dropped_spans_total",
-        st.dropped_spans,
+        st.dropped_spans + st.export_dropped,
         help="Spans lost to the per-trace cap or the export ring",
     )
 

@@ -185,6 +185,12 @@ def migration_timeout() -> float:
     return _env_float("HELIX_MIGRATION_TIMEOUT", 30.0)
 
 
+def drain_seconds() -> float:
+    """HELIX_DRAIN_SECONDS: the graceful-shutdown drain window before
+    survivors are exported (the node agent's SIGTERM path)."""
+    return _env_float("HELIX_DRAIN_SECONDS", 10.0)
+
+
 class XferConfig:
     """Ship retry discipline: a per-attempt timeout, capped exponential
     backoff between rounds over the targets, and a hard deadline for the

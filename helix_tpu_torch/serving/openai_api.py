@@ -60,8 +60,21 @@ port needs no web framework:
   stream starts: ``queue_full`` 429 with ``Retry-After: 1``, a draining
   engine 503, a KV-starved one 503 ``kv_exhausted``.
 
-Embeddings, the Anthropic surface, ``/logs``, ``/admin/profiler`` and the
-context endpoints wait for later slices (ROADMAP A7b, A14, A17).
+- ``POST /v1/messages``: the Anthropic Messages surface (``system``,
+  ``messages``, ``max_tokens``, ``temperature``, ``top_p``, ``top_k``,
+  ``stop_sequences``), non-stream and SSE (``event: <name>`` frames from
+  ``message_start`` to ``message_stop``), with the reference's JSON;
+- ``GET /logs?tail=N``: the node's log ring (``serving.logbuf``);
+- ``POST /admin/profiler`` ``{"seconds"}`` (runner-token gated): one
+  ``torch.profiler`` capture at a time (409 while one runs) of the host
+  and, on the card, the CUDA activity, exported as a Chrome trace into a
+  directory minted under ``HELIX_PROFILER_DIR`` or the temp dir;
+  answers ``{"log_dir", "seconds"}``;
+- ``GET /api/v1/state``: the node agent's heartbeat body, when the server
+  was given one (``state=``).
+
+Embeddings and the context endpoints wait for later slices (ROADMAP A14,
+A17).
 """
 
 from __future__ import annotations
@@ -96,6 +109,7 @@ from helix_tpu_torch.obs.trace import (
     default_store,
     is_trace_id,
 )
+from helix_tpu_torch.serving.logbuf import install as install_logbuf
 from helix_tpu_torch.serving.engine_loop import (
     KV_EXHAUSTED,
     QUEUE_FULL,
@@ -192,9 +206,14 @@ class OpenAIServer:
     """Routes OpenAI requests to the registry's engine loops."""
 
     def __init__(self, registry,
-                 inter_token_timeout: Optional[float] = 600.0):
+                 inter_token_timeout: Optional[float] = 600.0,
+                 state=None):
         self.registry = registry
         self.inter_token_timeout = inter_token_timeout
+        # the node agent's heartbeat body for GET /api/v1/state
+        self.state = state
+        self.logbuf = install_logbuf()
+        self._profiler_lock = threading.Lock()
         # migrated-in requests whose stream nobody has claimed yet
         self.imported = ImportedStreams()
         self.started = time.monotonic()
@@ -631,6 +650,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._text(200, self.api.render_metrics())
         elif path.startswith("/v1/debug/"):
             self._debug(path[len("/v1/debug/"):], query)
+        elif path == "/logs":
+            try:
+                n = max(1, min(int(query.get("tail", 200)), 2000))
+            except ValueError:
+                self._error(400, "tail must be an integer")
+                return
+            self._json(200, {"logs": self.api.logbuf.tail(n)})
+        elif path == "/api/v1/state" and self.api.state is not None:
+            self._json(200, self.api.state())
         else:
             self._error(404, f"no route {self.path}", "not_found")
 
@@ -680,7 +708,9 @@ class _Handler(BaseHTTPRequestHandler):
                   "/admin/prefetch": self._prefetch,
                   "/v1/adapters": self._publish_adapter,
                   "/v1/migrate/import": self._migrate_import,
-                  "/v1/migrate/resume": self._migrate_resume}
+                  "/v1/migrate/resume": self._migrate_resume,
+                  "/v1/messages": self._messages,
+                  "/admin/profiler": self._profiler}
         route = routes.get(self.path)
         if route is None:
             self._error(404, f"no route {self.path}", "not_found")
@@ -723,14 +753,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         model = body.get("model", "")
         tid, tenant = self._trace_id(), self._tenant()
-        # shed before any response header: a stream must not answer 200
-        # and then fail in-band
-        err = served.loop.check_admission(len(prompt_ids), count_shed=True,
-                                          tenant=tenant, trace_id=tid)
-        if err is not None:
-            status, body_, headers = _engine_error(EngineRequestError(err))
-            body_["error"]["trace_id"] = tid
-            self._json(status, body_, {**headers, TRACE_HEADER: tid})
+        if self._shed(served, prompt_ids, tid, tenant):
             return
         rid = (f"chatcmpl-{uuid.uuid4().hex[:16]}" if chat
                else f"cmpl-{uuid.uuid4().hex[:16]}")
@@ -751,9 +774,7 @@ class _Handler(BaseHTTPRequestHandler):
                     finish = reason or "stop"
                     break
         except EngineRequestError as e:
-            status, err, headers = _engine_error(e)
-            err["error"]["trace_id"] = tid
-            self._json(status, err, {**headers, TRACE_HEADER: tid})
+            self._engine_error_reply(e, tid)
             return
         text = "".join(parts)
         choice = (
@@ -769,6 +790,22 @@ class _Handler(BaseHTTPRequestHandler):
                       "completion_tokens": n,
                       "total_tokens": len(prompt_ids) + n},
         })
+
+    def _shed(self, served, prompt_ids, tid: str, tenant: str) -> bool:
+        """Answer a request the loop would shed (429 / 503) before any
+        response header: a stream must not answer 200 and then fail
+        in-band.  True when it was answered."""
+        err = served.loop.check_admission(len(prompt_ids), count_shed=True,
+                                          tenant=tenant, trace_id=tid)
+        if err is None:
+            return False
+        self._engine_error_reply(EngineRequestError(err), tid)
+        return True
+
+    def _engine_error_reply(self, e: EngineRequestError, tid: str) -> None:
+        status, body, headers = _engine_error(e)
+        body["error"]["trace_id"] = tid
+        self._json(status, body, {**headers, TRACE_HEADER: tid})
 
     def _stream(self, gen, rid, created, model, obj, chat):
         self._start_sse()
@@ -801,6 +838,142 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             gen.close()
         self._sse("[DONE]")
+
+    def _messages(self, body: dict):
+        """The Anthropic Messages surface over the same engine path as
+        chat (the reference's ``anthropic_messages``)."""
+        served, adapter = self._served_generation(body)
+        if served is None:
+            return
+        model = body.get("model", "")
+        messages = list(body.get("messages", []))
+        if body.get("system"):
+            messages = [{"role": "system", "content": body["system"]}] \
+                + messages
+        try:
+            sampling = SamplingParams(
+                temperature=float(body.get("temperature", 1.0)),
+                top_p=float(body.get("top_p", 1.0)),
+                top_k=int(body.get("top_k", 0)),
+                max_tokens=int(body.get("max_tokens", 256)),
+                stop=tuple(body.get("stop_sequences", []) or []),
+            )
+        except (TypeError, ValueError) as e:
+            self._error(400, f"invalid sampling parameters: {e}")
+            return
+        tid, tenant = self._trace_id(), self._tenant()
+        prompt_ids = served.tokenizer.apply_chat_template(
+            messages, add_generation_prompt=True)
+        if self._shed(served, prompt_ids, tid, tenant):
+            return
+        rid = f"msg_{uuid.uuid4().hex[:20]}"
+        gen = self.api.generate(served, prompt_ids, sampling, adapter,
+                                tenant=tenant, sched_class=self._sched_class(),
+                                trace_id=tid)
+        n, stop_reason, parts = 0, "end_turn", []
+        if not body.get("stream"):
+            try:
+                for delta, _tok, finished, reason in gen:
+                    parts.append(delta)
+                    n += 1
+                    if finished:
+                        stop_reason = ("max_tokens" if reason == "length"
+                                       else "end_turn")
+                        break
+            except EngineRequestError as e:
+                self._engine_error_reply(e, tid)
+                return
+            self._json(200, {
+                "id": rid, "type": "message", "role": "assistant",
+                "model": model,
+                "content": [{"type": "text", "text": "".join(parts)}],
+                "stop_reason": stop_reason,
+                "usage": {"input_tokens": len(prompt_ids),
+                          "output_tokens": n},
+            }, {TRACE_HEADER: tid})
+            return
+
+        def ev(name, obj):
+            self.wfile.write(
+                f"event: {name}\ndata: {json.dumps(obj)}\n\n".encode())
+            self.wfile.flush()
+
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header(TRACE_HEADER, tid)
+        self.end_headers()
+        ev("message_start", {"type": "message_start", "message": {
+            "id": rid, "type": "message", "role": "assistant",
+            "model": model, "content": [],
+            "usage": {"input_tokens": len(prompt_ids), "output_tokens": 0}}})
+        ev("content_block_start", {"type": "content_block_start", "index": 0,
+                                   "content_block": {"type": "text",
+                                                     "text": ""}})
+        try:
+            for delta, _tok, finished, reason in gen:
+                n += 1
+                if delta:
+                    ev("content_block_delta", {
+                        "type": "content_block_delta", "index": 0,
+                        "delta": {"type": "text_delta", "text": delta}})
+                if finished:
+                    stop_reason = ("max_tokens" if reason == "length"
+                                   else "end_turn")
+                    break
+        except EngineRequestError as e:
+            err_frame = {"message": str(e), "trace_id": tid}
+            if e.request_id:
+                err_frame["request_id"] = e.request_id
+            ev("error", {"type": "error", "error": err_frame})
+        finally:
+            gen.close()
+        ev("content_block_stop", {"type": "content_block_stop", "index": 0})
+        ev("message_delta", {"type": "message_delta",
+                             "delta": {"stop_reason": stop_reason},
+                             "usage": {"output_tokens": n}})
+        ev("message_stop", {"type": "message_stop"})
+
+    def _profiler(self, body: dict):
+        """One ``torch.profiler`` capture of ``seconds`` (0.01-60) of the
+        live node: the host's operators and, on the card, every CUDA
+        kernel, written as ``trace.json`` (Chrome trace) into a fresh
+        directory under ``HELIX_PROFILER_DIR`` (else the temp dir); the
+        client never picks the path.  Runner-token gated; 409 while a
+        capture runs."""
+        if self._runner_token_denied():
+            return
+        try:
+            seconds = min(max(float(body.get("seconds", 2.0)), 0.01), 60.0)
+        except (TypeError, ValueError):
+            self._error(400, "'seconds' must be a number")
+            return
+        if not self.api._profiler_lock.acquire(blocking=False):
+            self._error(409, "a profiler capture is already running",
+                        "overloaded_error")
+            return
+        try:
+            import tempfile
+
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            base = os.environ.get("HELIX_PROFILER_DIR") or None
+            d = tempfile.mkdtemp(prefix="helix-torch-profile-", dir=base)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            try:
+                time.sleep(seconds)
+            finally:
+                prof.stop()
+            prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        except Exception as e:  # noqa: BLE001 — profiler not available
+            self._error(501, f"torch profiler capture failed: {e}")
+            return
+        finally:
+            self.api._profiler_lock.release()
+        self._json(200, {"log_dir": d, "seconds": seconds})
 
     def _prefetch(self, body: dict):
         """Stage a model's weights in the background ahead of traffic."""
@@ -862,8 +1035,9 @@ class _Handler(BaseHTTPRequestHandler):
     # -- migration ----------------------------------------------------------
 
     def _runner_token_denied(self) -> bool:
-        """Migration is cluster-internal: with ``HELIX_RUNNER_TOKEN`` set
-        the caller must present it (403 otherwise)."""
+        """Migration, the debug routes and the profiler are
+        cluster-internal: with ``HELIX_RUNNER_TOKEN`` set the caller must
+        present it (403 otherwise, as in the reference)."""
         token = os.environ.get("HELIX_RUNNER_TOKEN", "")
         if token and not hmac.compare_digest(
                 self.headers.get("X-Runner-Token", ""), token):

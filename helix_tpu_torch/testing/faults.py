@@ -4,8 +4,9 @@ snapshot ships.
 The port's own copy of the parts of ``helix_tpu/testing/faults.py`` that
 its serving path calls: the ``engine_step`` point (the engine loop's
 ``_fault_gate`` before every dispatch), the ``host_pool`` point
-(``HostPagePool`` spills and restores) and the ``transfer`` point
-(``migration.PeerShipper``).  Every hook is a no-op unless an injector is
+(``HostPagePool`` spills and restores), the ``transfer`` point
+(``migration.PeerShipper``) and the ``saturation`` point (the node
+agent's heartbeat summary).  Every hook is a no-op unless an injector is
 armed, programmatically (``arm``) or through the ``HELIX_FAULTS``
 environment variable.
 
@@ -21,6 +22,7 @@ Rule shapes (dicts, JSON-friendly for the env var)::
     {"point": "transfer", "peer": "r2", "mode": "drop", "times": 1}
     {"point": "transfer", "peer": "*", "mode": "corrupt", "page": 3}
     {"point": "transfer", "mode": "partial", "times": 1}
+    {"point": "saturation", "runner": "r1", "set": {"kv_occupancy": 0.99}}
 
 ``engine_step`` raises ``FaultInjected`` when the rule matches the step
 (``request_id_contains``: a poisoned request, failing every step that
@@ -32,6 +34,9 @@ that host-RAM pressure rejects.  ``transfer`` modes: ``drop`` an
 unreachable peer, ``slow`` a saturated link, ``corrupt`` one flipped byte
 in one page (the importer's checksum must reject it), ``partial`` a
 truncated page list (its coverage check must reject it).
+``saturation`` sets keys of one runner's heartbeat saturation summary
+(the agent keeps only ``SATURATION_KEYS``), so routing under saturation
+is testable without filling a pool.
 
 ``times`` caps how often a rule fires (omit for unlimited); ``p`` gates
 each match through one seeded ``random.Random`` (omit for always), so a
@@ -151,6 +156,15 @@ class FaultInjector:
         return {"mode": rule.get("mode", "drop"),
                 "delay": float(rule.get("delay", 0.05)),
                 "page": int(rule.get("page", 0))}
+
+    def saturation_override(self, runner_id: str) -> Optional[dict]:
+        """Keys to set in ``runner_id``'s heartbeat saturation summary,
+        or None."""
+        rule = self._match("saturation", "runner", runner_id)
+        if rule is None:
+            return None
+        over = rule.get("set")
+        return dict(over) if isinstance(over, dict) else None
 
 
 _INSTANCE: Optional[FaultInjector] = None

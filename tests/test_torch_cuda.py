@@ -1106,3 +1106,77 @@ def test_one_page_budget_admits_one_request_per_step(cuda):
     assert max(per_step) == 1 and sum(per_step) == len(prompts)
     assert k1 > 0 and k2 > 0 and mixed > 0
     assert toks == ptoks
+
+
+# ---------------------------------------------------------------------------
+# the node agent on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_detect_accelerators_on_the_card(cuda):
+    from helix_tpu_torch.device import detect_accelerators, total_device_bytes
+
+    recs = detect_accelerators()
+    assert [a.index for a in recs] == list(range(torch.cuda.device_count()))
+    a = recs[0]
+    _free, total = torch.cuda.mem_get_info(0)
+    assert a.vendor == "nvidia"
+    assert a.device_kind == torch.cuda.get_device_name(0)
+    assert a.total_memory_bytes == total
+    assert a.used_memory_bytes + a.free_memory_bytes == total
+    assert a.driver == f"cuda-{torch.version.cuda}"
+    if "H100" in a.device_kind:
+        assert a.arch == "h100"
+    assert total_device_bytes() == total
+    assert a.to_dict()["coords"] is None
+
+
+@pytest.mark.cuda
+def test_heartbeat_payload_makes_no_synchronising_call(cuda):
+    """The agent's heartbeat body, built while a step of a live engine
+    (WFQ, an adapter pool, int8 KV) is in flight, queues no
+    synchronising call: the saturation, tenant and adapter blocks are
+    host counters and the inventory is ``cudaMemGetInfo``."""
+    from helix_tpu_torch.control.node_agent import NodeAgent
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.obs.flight import SATURATION_KEYS
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+    from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=16, page_size=16, num_pages=256,
+        max_pages_per_seq=8, max_prefill_len=64, kv_cache_dtype="int8",
+        adapter_pool_slots=3, adapter_rank=8), device=cuda)
+    slo = {"ttft_p95_seconds": 2.0, "sched": {"policy": "wfq"}}
+    loop = EngineLoop(eng, "hb", slo_targets=slo, sched_config=slo)
+    reg = ModelRegistry()
+    reg.register(ServedModel(name="hb", loop=loop, tokenizer=ByteTokenizer()))
+    agent = NodeAgent("card", registry=reg, device=cuda)
+    for i in range(16):
+        loop.submit(Request(
+            id=f"h{i}", prompt_tokens=[3 + i, 4, 5, 6, 7],
+            sampling=SamplingParams(temperature=0.0, max_tokens=64),
+            tenant=f"t{i % 3}"), lambda ev: None)
+    loop._drain_inbox()
+    for _ in range(3):
+        loop._sched_pass()
+        loop._deliver(loop._snapshot_events(eng.step()))
+    emitted, pend = eng.step_dispatch()
+    assert pend is not None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        body = agent.heartbeat_payload()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng.step_complete(pend, emitted)
+    assert list(body["saturation"]) == list(SATURATION_KEYS)
+    assert body["saturation"]["slots_busy"] == 16
+    assert body["accelerators"][0]["vendor"] == "nvidia"
+    assert {e["tenant"] for e in body["tenants"]["top"]} == {"t0", "t1",
+                                                             "t2"}

@@ -40,6 +40,8 @@ from helix_tpu.models import loader as jloader
 from helix_tpu.ops.quant import quantize_params as jquantize
 from helix_tpu.ops.rope import rope_frequencies as jrope
 from helix_tpu_torch import cli
+from helix_tpu_torch.control.node_agent import NodeAgent
+from helix_tpu_torch.control.profile import ServingProfile
 from helix_tpu_torch.engine import engine as tengine
 from helix_tpu_torch.engine import sampling as tsampling
 from helix_tpu_torch.models import llama as tllama
@@ -500,8 +502,11 @@ def test_serve_node_profile_serves_a_checkpoint(tmp_path):
                           "model": None, "random_weights": False, "seed": 0})
     (spec,) = cli._model_specs(args)
     assert spec["checkpoint"] == d
-    reg = cli.build_registry([spec], {"hbm_budget_bytes": 1 << 40},
-                             device="cpu", warmup=False)
+    agent = NodeAgent("t", device="cpu", warmup=False)
+    state = agent.apply_profile(ServingProfile.from_dict(
+        cli._load_profile(str(prof))))
+    assert state.status == "running", state.error
+    reg = agent.registry
     try:
         jcfg = jloader.load_config(d, name="my-model")
         from helix_tpu.engine.residency import estimate_model_bytes

@@ -524,8 +524,11 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "importlib.import_module('helix_tpu_torch.serving.sched')\n"
         "importlib.import_module('helix_tpu_torch.serving.openai_api')\n"
         "importlib.import_module('helix_tpu_torch.testing.metric_families')\n"
+        "for m in ('control.profile', 'control.node_agent', "
+        "'serving.logbuf', 'cli', 'testing.control_stub'):\n"
+        "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'helix_tpu', 'aiohttp')]\n"
+        "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -56,6 +56,8 @@ from helix_tpu.serving import engine_loop as jloop
 from helix_tpu.serving import registry as jregistry
 from helix_tpu.serving import tokenizer as jtokenizer
 from helix_tpu_torch import cli
+from helix_tpu_torch.control import node_agent as tagent
+from helix_tpu_torch.control.profile import ServingProfile
 from helix_tpu_torch.engine import engine as tengine
 from helix_tpu_torch.engine import residency as tres
 from helix_tpu_torch.engine import sampling as tsampling
@@ -737,6 +739,18 @@ def _write(tmp_path, profile) -> str:
     return str(p)
 
 
+def _applied(profile_path, build_model=None):
+    """The registry of a node agent that applied the profile at
+    ``profile_path`` as ``serve-node --profile <path> --random-weights``
+    does, on the CPU without warmup."""
+    agent = tagent.NodeAgent("t", build_model=build_model, device="cpu",
+                             warmup=False, random_weights=True)
+    state = agent.apply_profile(ServingProfile.from_dict(
+        cli._load_profile(profile_path)))
+    assert state.status == "running", state.error
+    return agent.registry
+
+
 def _entry(name="tiny-a", **extra):
     return {"name": name, "model_overrides": {"dtype": "float32"},
             "engine": dict(GEOMETRY), **extra}
@@ -763,7 +777,7 @@ def test_slo_block_raises_naming_a7(tmp_path, slo):
     path = _write(tmp_path, {"models": [_entry(slo=slo)]})
     (spec,) = cli._model_specs(_args(path))
     assert spec["slo"] == slo
-    reg = cli.build_registry([spec], device="cpu", warmup=False)
+    reg = _applied(path)
     try:
         loop = reg.get("tiny-a").loop
         assert loop.slo.targets.ttft_p95_seconds == 2.0
@@ -786,8 +800,7 @@ def test_mesh_beyond_one_device_raises_naming_a15(tmp_path, no_weights,
 
 def test_mesh_of_one_device_is_served(tmp_path):
     path = _write(tmp_path, {"models": [_entry(mesh={"tp": 1})]})
-    (spec,) = cli._model_specs(_args(path))
-    reg = cli.build_registry([spec], device="cpu", warmup=False)
+    reg = _applied(path)
     try:
         assert reg.names() == ["tiny-a"] and reg.get("tiny-a") is not None
     finally:
@@ -827,9 +840,7 @@ def test_residency_profile_builds_the_manager_lazily(tmp_path):
         built.append(kw["name"])
         return cli.build_served_model(**kw)
 
-    specs = cli._model_specs(_args(path))
-    reg = cli.build_registry(specs, profile["residency"], device="cpu",
-                             warmup=False, build=build)
+    reg = _applied(path, build_model=build)
     mgr = reg.inner
     assert isinstance(mgr, tres.ResidencyManager)
     assert mgr.budget == 1 << 40 and built == []
@@ -847,9 +858,10 @@ def test_residency_profile_builds_the_manager_lazily(tmp_path):
 
 
 def test_residency_budget_defaults_to_the_card(tmp_path, monkeypatch):
-    monkeypatch.setattr(cli, "total_device_bytes", lambda device: 12345)
-    reg = cli.build_registry([dict(name="tiny-a", engine=dict(GEOMETRY))],
-                             {"other": 1}, device="cpu", warmup=False)
+    monkeypatch.setattr(tagent, "total_device_bytes", lambda device: 12345)
+    reg = _applied(_write(tmp_path, {
+        "residency": {"other": 1},
+        "models": [dict(name="tiny-a", engine=dict(GEOMETRY))]}))
     assert reg.inner.budget == 12345 and reg.inner.resident_names() == []
 
 
