@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase checkpoint # those + the checkpoint phase
     python3 chip_smoke.py --phase slo     # those + the scheduler phase
     python3 chip_smoke.py --phase node    # those + the node-agent phase
+    python3 chip_smoke.py --phase tunnel  # those + the tunnel phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -158,6 +159,19 @@ no result line):
    the seeded stream as undrained; a drained ``serve-node`` process
    exits 0.  Apply seconds, heartbeat gaps, the heartbeat body's host
    µs, drain seconds and tok/s with and without a capture are printed;
+4k. the reverse tunnel and embeddings (``phase_tunnel``): every request
+   through the stub's tunnel to ``serve-node --tunnel`` nodes (no TCP
+   listener): node T (that wiring in process) is assigned the Llama
+   entry beside ``BAAI/bge-base-en-v1.5`` (``kind: embedding``, a
+   float32 bge-base checkpoint of seed 0 and a 30522-entry WordPiece
+   tokenizer written in the phase); 64 texts of 8-512 tokens embedded
+   and held to the CPU's plain path, a 64 x 512 batch timed, the entry's
+   bytes beside the reference's 256 MiB estimate; 8 greedy chats through
+   the tunnel with the ids of the same 8 sent direct to the unix socket;
+   a websocket closed mid-stream by the stub (the runner re-dials, the
+   slot frees, no traceback); process S (``python -m helix_tpu_torch
+   serve-node --tunnel``) gives T's vectors and exits 0 on SIGTERM with
+   4 streams in flight, each ended whole;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -171,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -950,54 +965,72 @@ def _rounding_cost(eng) -> dict:
     return {"f32_output_ms": one, "bf16_then_cast_ms": two}
 
 
-def _gated_batch(base, loop, prompts, max_tokens, bodies=None) -> tuple:
-    """Concurrent chats that the engine admits together and in this
-    order: the loop takes nothing from its inbox until every chat is
-    queued, so the admission waves, and with them every shape the kernels
-    and GEMMs see, do not depend on HTTP timing (two runs then compute the
-    same thing).  ``bodies``: whole chat request bodies (model and
-    messages of each) in place of ``prompts``.  Returns (the chats'
-    texts, seconds from the release to the last answer, step records made
-    meanwhile)."""
+@contextlib.contextmanager
+def _held_inbox(loop):
+    """The loop takes nothing from its inbox until the yielded release
+    is called (or the block ends)."""
     drain = loop._drain_inbox
     gate = threading.Event()
     loop._drain_inbox = lambda: drain() if gate.is_set() else None
-    n = len(bodies) if bodies is not None else len(prompts)
-    outs, errors = [None] * n, []
+    try:
+        yield gate.set
+    finally:
+        gate.set()
+        loop._drain_inbox = drain
 
-    def send(i):
+
+def _gated_calls(loop, n, call, wait=True) -> tuple:
+    """``call(i)`` for i < n on threads, each sending one request, that
+    the engine admits together and in this order: the loop takes nothing
+    from its inbox until every request is queued, so the admission waves,
+    and with them every shape the kernels and GEMMs see, do not depend on
+    HTTP timing (two runs then compute the same thing).  With ``wait``
+    the calls are joined and the first error raised; else they run on.
+    Returns (results, errors, threads, the release time)."""
+    outs, errors, threads = [None] * n, [], []
+
+    def run(i):
         try:
-            if bodies is None:
-                outs[i] = _chat(base, prompts[i], max_tokens)
-            else:
-                outs[i] = json.loads(_post(
-                    base + "/v1/chat/completions",
-                    {"max_tokens": max_tokens, "temperature": 0,
-                     **bodies[i]}))
-        except Exception as e:  # noqa: BLE001 — re-raised below
+            outs[i] = call(i)
+        except Exception as e:  # noqa: BLE001 — re-raised or returned
             errors.append(e)
 
-    threads = []
-    try:
+    with _held_inbox(loop) as release:
         for i in range(n):
-            threads.append(threading.Thread(target=send, args=(i,)))
+            threads.append(threading.Thread(target=run, args=(i,)))
             threads[-1].start()
             deadline = time.monotonic() + 120
             while loop._inbox.qsize() < i + 1 and not errors:
                 if time.monotonic() > deadline:
-                    raise AssertionError("a chat never reached the engine")
+                    raise AssertionError("a request never reached the "
+                                         "engine")
                 time.sleep(0.002)
-        rec0 = loop.window.recorded
         t0 = time.monotonic()
-        gate.set()
-        for t in threads:
-            t.join(600)
-        seconds = time.monotonic() - t0
-    finally:
-        gate.set()
-        loop._drain_inbox = drain
-    if errors:
+        release()
+        if wait:
+            for t in threads:
+                t.join(600)
+    if wait and errors:
         raise errors[0]
+    return outs, errors, threads, t0
+
+
+def _gated_batch(base, loop, prompts, max_tokens, bodies=None) -> tuple:
+    """Concurrent chats admitted together (``_gated_calls``).  ``bodies``:
+    whole chat request bodies (model and messages of each) in place of
+    ``prompts``.  Returns (the chats' texts, seconds from the release to
+    the last answer, step records made meanwhile)."""
+    def send(i):
+        if bodies is None:
+            return _chat(base, prompts[i], max_tokens)
+        return json.loads(_post(
+            base + "/v1/chat/completions",
+            {"max_tokens": max_tokens, "temperature": 0, **bodies[i]}))
+
+    rec0 = loop.window.recorded
+    n = len(bodies) if bodies is not None else len(prompts)
+    outs, _e, _t, t0 = _gated_calls(loop, n, send)
+    seconds = time.monotonic() - t0
     texts = [o["choices"][0]["message"]["content"] for o in outs]
     return texts, seconds, loop.window.recorded - rec0
 
@@ -3569,9 +3602,6 @@ def _tenant_traffic(base, loop, tag) -> dict:
     /metrics is scraped every 0.5 s until every request has answered.
     Returns the answers, the admission order (tenant per confirmed
     admission), the scrapes and the wall seconds."""
-    drain = loop._drain_inbox
-    gate = threading.Event()
-    loop._drain_inbox = lambda: drain() if gate.is_set() else None
     order = []
     note = loop.sched.note_admitted
 
@@ -3612,25 +3642,24 @@ def _tenant_traffic(base, loop, tag) -> dict:
             stop.wait(0.5)
 
     try:
-        for i in range(FLOOD):
-            submit_one((_flood_prompt(i), 8, "flood", "batch"))
-        n_flood_answered = len(answers)
-        for i in range(CHATS):
-            submit_one((f"Chat {i}: say hello in one line.", 16, "chat",
-                        "interactive"))
-        scr = threading.Thread(target=scraper)
-        scr.start()
-        t0 = time.monotonic()
-        gate.set()
-        for t in threads:
-            t.join(600)
-        wall = time.monotonic() - t0
-        stop.set()
-        scr.join(60)
+        with _held_inbox(loop) as release:
+            for i in range(FLOOD):
+                submit_one((_flood_prompt(i), 8, "flood", "batch"))
+            n_flood_answered = len(answers)
+            for i in range(CHATS):
+                submit_one((f"Chat {i}: say hello in one line.", 16,
+                            "chat", "interactive"))
+            scr = threading.Thread(target=scraper)
+            scr.start()
+            t0 = time.monotonic()
+            release()
+            for t in threads:
+                t.join(600)
+            wall = time.monotonic() - t0
+            stop.set()
+            scr.join(60)
     finally:
-        gate.set()
         stop.set()
-        loop._drain_inbox = drain
         loop.sched.note_admitted = note
     return {"answers": answers, "order": order, "scrapes": scrapes,
             "wall": wall, "early_answers": n_flood_answered}
@@ -3734,9 +3763,6 @@ def _poisoned_script(loop, mod, prompts, max_tokens, poison=True) -> dict:
     from helix_tpu_torch.engine.engine import Request
     from helix_tpu_torch.engine.sampling import SamplingParams
 
-    drain = loop._drain_inbox
-    gate = threading.Event()
-    loop._drain_inbox = lambda: drain() if gate.is_set() else None
     out, done = {}, {}
 
     def collector(rid):
@@ -3753,7 +3779,7 @@ def _poisoned_script(loop, mod, prompts, max_tokens, poison=True) -> dict:
     ids = [f"q-{i}" for i in range(len(prompts))]
     if poison:
         ids.append("q-poison")
-    try:
+    with _held_inbox(loop) as release:
         for i, rid in enumerate(ids):
             done[rid] = threading.Event()
             loop.submit(Request(
@@ -3761,13 +3787,10 @@ def _poisoned_script(loop, mod, prompts, max_tokens, poison=True) -> dict:
                 sampling=SamplingParams(temperature=0.0,
                                         max_tokens=max_tokens)),
                 collector(rid))
-        gate.set()
+        release()
         for rid in ids:
             if not done[rid].wait(300):
                 raise AssertionError(f"{mod}: {rid} never finished")
-    finally:
-        gate.set()
-        loop._drain_inbox = drain
     return out
 
 
@@ -4135,40 +4158,6 @@ def _status_of(url, body, token=None) -> int:
         return e.code
 
 
-def _gated_streams(base, loop, bodies, peers=None) -> tuple:
-    """``_gated_batch`` for streamed chats (``_stream_client``): the loop
-    admits every stream together and in order.  Returns (the clients'
-    results, their errors, their threads, the release time); the clients
-    run on until their streams end."""
-    drain = loop._drain_inbox
-    gate = threading.Event()
-    loop._drain_inbox = lambda: drain() if gate.is_set() else None
-    outs, errors = [None] * len(bodies), []
-
-    def send(i):
-        try:
-            outs[i] = _stream_client(base, bodies[i], peers)
-        except Exception as e:  # noqa: BLE001 — re-raised by the caller
-            errors.append(e)
-
-    threads = []
-    try:
-        for i in range(len(bodies)):
-            threads.append(threading.Thread(target=send, args=(i,)))
-            threads[-1].start()
-            deadline = time.monotonic() + 120
-            while loop._inbox.qsize() < i + 1 and not errors:
-                if time.monotonic() > deadline:
-                    raise AssertionError("a stream never reached the engine")
-                time.sleep(0.002)
-        t0 = time.monotonic()
-        gate.set()
-    finally:
-        gate.set()
-        loop._drain_inbox = drain
-    return outs, errors, threads, t0
-
-
 def _drain_wave(stub, rid, agent, agent_b, bodies, drained,
                 lead_s=2.0) -> dict:
     """``bodies`` streamed undrained on node B (``agent_b``), then in
@@ -4190,8 +4179,9 @@ def _drain_wave(stub, rid, agent, agent_b, bodies, drained,
     loop_b = agent_b.registry.get(MODEL).loop
     for ag in (agent, agent_b):
         _chat(ag.address, "warm the template page", 4)
-    outs, errs, threads, _t0 = _gated_streams(agent_b.address, loop_b,
-                                              bodies)
+    outs, errs, threads, _t0 = _gated_calls(
+        loop_b, len(bodies),
+        lambda i: _stream_client(agent_b.address, bodies[i]), wait=False)
     for t in threads:
         t.join(900)
     if errs:
@@ -4223,8 +4213,10 @@ def _drain_wave(stub, rid, agent, agent_b, bodies, drained,
     try:
         peers = {t["id"]: t["address"]
                  for t in stub._targets(rid)["targets"]}
-        outs, errs, threads, t_rel = _gated_streams(agent.address, loop,
-                                                    bodies, peers)
+        outs, errs, threads, t_rel = _gated_calls(
+            loop, len(bodies),
+            lambda i: _stream_client(agent.address, bodies[i], peers),
+            wait=False)
         while time.monotonic() - t_rel < lead_s:
             time.sleep(0.05)
         t_req, t_req_wall = time.monotonic(), time.time()
@@ -4324,9 +4316,10 @@ def _drain_held(d) -> bool:
             and d["on_drain"] == 1)
 
 
-def _apply_and_watch(stub, base, rid, prof, name) -> dict:
+def _apply_and_watch(stub, base, rid, prof, name, get_state=None) -> dict:
     """Assign ``prof`` to ``rid`` and wait for its heartbeat to say
-    ``running`` under ``name``, reading ``/api/v1/state`` meanwhile.
+    ``running`` under ``name``, reading ``/api/v1/state`` meanwhile
+    (``get_state()`` in place of ``base``'s route when given).
     Returns the statuses the state route showed, the apply seconds (from
     the poll that answered the profile to the first ``running`` beat,
     which goes out one interval after the apply ends, and to the state
@@ -4337,8 +4330,9 @@ def _apply_and_watch(stub, base, rid, prof, name) -> dict:
     states, t_state_run = [], None
     deadline = time.monotonic() + 600
     while time.monotonic() < deadline:
-        doc = json.loads(urllib.request.urlopen(
-            base + "/api/v1/state", timeout=60).read())
+        doc = get_state() if get_state is not None else json.loads(
+            urllib.request.urlopen(base + "/api/v1/state", timeout=60)
+            .read())
         st = doc["profile"]["status"] if doc["profile"]["name"] == name \
             else "assigning"
         if not states or states[-1] != st:
@@ -4857,6 +4851,535 @@ def phase_node_agent(smi, agent_free=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4k. the reverse tunnel and the embedding entry
+# ---------------------------------------------------------------------------
+
+BGE = "BAAI/bge-base-en-v1.5"
+BGE_TEXTS = 64           # one request of texts, 8-512 tokens
+BGE_TIMED = (64, 512)    # the timed batch: rows x tokens
+BGE_CPU_ROWS = 16        # texts held to the CPU's plain path
+# card vs the CPU's plain path, float32, TF32 off: per component of the
+# unit vectors, and the least cosine.  The same texts with TF32 on (the
+# control) must break a limit: the limits tell the two apart
+BGE_ABS_TOL = 1e-5
+BGE_COS_MIN = 0.999999
+SIGTERM_STREAMS, SIGTERM_TOKENS = 4, 64
+# the caller that stops reading: tokens asked for, and the most the
+# engine may make before the hang-up aborts the request
+CLOSE_TOKENS, CLOSE_MAX_MADE = 400, 100
+
+
+def _bge_texts(tok, n=BGE_TEXTS, lo=8, hi=512) -> list:
+    """``n`` texts whose token counts under ``tok`` spread evenly over
+    [lo, hi]: words of the fixtures' system prompt, added while the count
+    stays within the target (a word's pieces do not depend on its
+    neighbours under BERT's pre-tokenizer)."""
+    from helix_tpu_torch.testing.tokenizer_fixtures import system_prompt
+
+    words = system_prompt(60).split()
+    counts = [len(tok.encode(w)) for w in words]
+    out = []
+    for target in np.linspace(lo, hi, n).round().astype(int):
+        picked, have, i = [], 0, 0
+        while have < target:
+            w, c = words[i % len(words)], counts[i % len(words)]
+            i += 1
+            if have + c > target:
+                continue
+            picked.append(w)
+            have += c
+        out.append(" ".join(picked))
+    return out
+
+
+def _sse_frames(raw: bytes) -> list:
+    return [json.loads(x[6:]) for x in raw.split(b"\n\n")
+            if x.startswith(b"data: {")]
+
+
+def _tunnel_stream(stub, rid, body, out=None) -> dict:
+    """A streamed chat through the stub's tunnel to ``rid``: the frames,
+    when the first chunk came, the chunks (OP_BODY frames) received and
+    the tunnel's error, if any (``out`` is filled as they come)."""
+    from helix_tpu_torch.control.tunnel import TunnelClosed
+
+    out = {} if out is None else out
+    out.update(frames=[], first=None, chunks=0, error=None)
+    try:
+        status, _h, chunks = stub.tunnel_request(
+            rid, "POST", "/v1/chat/completions",
+            {"Content-Type": "application/json"},
+            json.dumps({**body, "stream": True}).encode())
+        if status != 200:
+            raise AssertionError(f"tunnel chat answered {status}")
+        for c in chunks:
+            out["chunks"] += 1
+            if out["first"] is None:
+                out["first"] = time.monotonic()
+            out["frames"] += _sse_frames(c)
+    except TunnelClosed as e:
+        out["error"] = str(e)
+    return out
+
+
+def _unix_stream(path, body) -> dict:
+    """The same chat direct to the node's unix socket."""
+    from helix_tpu_torch.control.tunnel import UnixHTTPConnection
+
+    out = {"frames": [], "first": None, "chunks": 0, "error": None}
+    conn = UnixHTTPConnection(path)
+    try:
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps({**body, "stream": True}).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        raw = b""
+        while True:
+            c = r.read1(1 << 16)
+            if not c:
+                break
+            out["chunks"] += 1
+            if out["first"] is None:
+                out["first"] = time.monotonic()
+            raw += c
+        out["frames"] = _sse_frames(raw)
+    finally:
+        conn.close()
+    return out
+
+
+def _vec_gap(got, want) -> tuple:
+    """(max abs, least cosine) of two stacks of vectors."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) \
+        / np.linalg.norm(want, axis=1)
+    return float(np.abs(got - want).max()), float(cos.min())
+
+
+def _closed_early(stub, rid, loop, body) -> tuple:
+    """A stream through the stub's tunnel whose caller stops after the
+    first chunk, which sends ``OP_CLOSE`` with the tunnel up: (tokens the
+    engine made for it, seconds from the close until every slot was
+    free)."""
+    made: dict = {}
+    submit = loop.submit
+
+    def counting(req, on_event, *a, **kw):
+        made[req.id] = 0
+
+        def ev(e):
+            if e.token_id >= 0 and not e.error:
+                made[req.id] += 1
+            on_event(e)
+        return submit(req, ev, *a, **kw)
+
+    eng = loop.engine
+    loop.submit = counting
+    try:
+        status, _h, chunks = stub.tunnel_request(
+            rid, "POST", "/v1/chat/completions",
+            {"Content-Type": "application/json"}, json.dumps(body).encode())
+        if status != 200:
+            raise AssertionError(f"the stream answered {status}")
+        next(chunks)
+        chunks.close()
+        t0 = time.monotonic()
+        while (any(r is not None for r in eng.slots) or eng.waiting) \
+                and time.monotonic() - t0 < 60:
+            time.sleep(0.01)
+        close_s = time.monotonic() - t0
+    finally:
+        loop.submit = submit
+    if len(made) != 1:
+        raise AssertionError(f"requests submitted: {made}")
+    return next(iter(made.values())), close_s
+
+
+def _ids_of(frames) -> list:
+    """Token ids of a stream's frames (``_IdTokenizer`` writes ``<id>``)."""
+    text = "".join(f["choices"][0]["delta"].get("content", "")
+                   for f in frames)
+    return [int(x) for x in re.findall(r"<(\d+)>", text)]
+
+
+def _tunnel_json(stub, rid, method, path, body=None) -> tuple:
+    status, _h, chunks = stub.tunnel_request(
+        rid, method, path, {"Content-Type": "application/json"},
+        json.dumps(body).encode() if body is not None else b"")
+    return status, json.loads(b"".join(chunks) or b"{}")
+
+
+@_timed
+def phase_tunnel(smi) -> dict:
+    """4k: ``serve-node --tunnel`` and the embedding entry, every request
+    through the stand-in control plane's reverse tunnel
+    (``testing/control_stub.py``: the runner endpoint ``/api/v1/runners/
+    {id}/tunnel`` and ``tunnel_request``).  (1) A bge-base checkpoint
+    (``EncoderConfig``'s defaults: 30522 x 768, 12 layers, 12 heads,
+    3072, 512 positions, float32, seed 0) with the 30522-entry synthetic
+    WordPiece ``tokenizer.json`` is written to a temporary directory.
+    (2) Node T (``cli.make_node`` + ``cli.make_tunnel``: serve-node
+    ``--tunnel``'s own wiring, in process so its kernel counts are read)
+    is assigned the ``v5e1-hotswap`` Llama entry as 4j serves it (its
+    checkpoint path dropped: random weights from seed 0, as
+    ``--random-weights``) and ``BAAI/bge-base-en-v1.5`` from that
+    checkpoint, ``kind: embedding``, ``engine: {max_batch: 64}``; the
+    poll-to-``running`` apply and the tunnel's dials are printed.  (4) 64
+    texts of 8-512 tokens in one ``/v1/embeddings`` request: max abs and
+    least cosine against the plain path on the CPU with the same weights
+    (16 of them; the same 16 on the card with TF32 on, the control, must
+    break a limit), a 64 x 512 batch timed (median ms, texts/s, tokens/s),
+    the entry's bytes beside the reference's 256 MiB estimate.  (5) 8
+    greedy chats through the tunnel and the same 8 direct to the unix
+    socket, each batch admitted together: ids equal, time to the first
+    SSE frame, frames and chunks per stream; K1-int8 and K2 must run.
+    (6) A caller stops reading after its first chunk (``OP_CLOSE``, the
+    tunnel up): the engine aborts the request long before its
+    max_tokens, with no new dial.  The stub closes the websocket
+    mid-stream: its caller gets the
+    error, the runner dials again, the next chat answers, the slot frees
+    and the server's ``handle_error`` (a traceback) never runs.  (7)
+    ``python -m helix_tpu_torch serve-node --tunnel`` (process S, its
+    host tier off, ``HELIX_DRAIN_SECONDS=60``) serves the same profile:
+    the 64 texts give T's vectors, then SIGTERM with 4 streams in flight:
+    each ends with its ``finish_reason`` (or a ``migrated`` frame), one
+    frame per token, and the process exits 0 with no traceback."""
+    import logging
+    import signal
+    import statistics
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.engine.residency import served_model_bytes, tree_bytes
+    from helix_tpu_torch.models import bge
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+    from helix_tpu_torch.serving.tokenizer import load_tokenizer
+    from helix_tpu_torch.testing.control_stub import ControlStub
+    from helix_tpu_torch.testing.hf_checkpoint import write_encoder_checkpoint
+    from helix_tpu_torch.testing.tokenizer_fixtures import bert_tokenizer_json
+
+    t_phase = time.monotonic()
+    tag = f"[tunnel] ({smi})"
+    out = {}
+    logging.getLogger("helix_tpu_torch").setLevel(logging.INFO)
+    tmpdir = tempfile.mkdtemp(prefix="helix-tunnel-")
+    stub = ControlStub().start()
+    # process S starts now, so its start-up overlaps T's work
+    sub_log = open(os.path.join(tmpdir, "serve-node-s.log"), "w+")
+    sub = subprocess.Popen(
+        [sys.executable, "-m", "helix_tpu_torch", "serve-node", "--tunnel",
+         "--control-plane", stub.url, "--runner-id", "s", "--device",
+         "cuda", "--heartbeat-interval", "0.5"],
+        stdout=sub_log, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "HELIX_KV_HOST_POOL_BYTES": "0",
+             "HELIX_DRAIN_SECONDS": "60"},
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    agent = httpd = tunnel = None
+    try:
+        # (1) the bge-base checkpoint
+        t0 = time.monotonic()
+        ecfg = bge.EncoderConfig(name=BGE)
+        ckpt = os.path.join(tmpdir, "bge-base-en-v1.5")
+        drawn = bge.init_params(ecfg, seed=0, device="cpu")
+        write_encoder_checkpoint(ckpt, ecfg, drawn)
+        with open(os.path.join(ckpt, "tokenizer.json"), "w",
+                  encoding="utf-8") as f:
+            f.write(bert_tokenizer_json(ecfg.vocab_size))
+        n_params = tree_bytes(drawn) // 4
+        log(f"{tag} (1) checkpoint {ckpt}: {n_params} parameters, "
+            f"{os.path.getsize(os.path.join(ckpt, 'model.safetensors'))} B "
+            f"float32, 30522-entry WordPiece tokenizer.json, written in "
+            f"{time.monotonic() - t0:.2f} s")
+        del drawn
+        doc = cli._load_profile(HOTSWAP_PROFILE)
+        llama = {k: v for k, v in next(
+            m for m in doc["models"] if m["name"] == MODEL).items()
+            if k != "checkpoint"}
+        prof = {"name": "tunnel-1",
+                "requirement": {"vendor": "nvidia", "chips": 1},
+                "models": [llama, {"name": BGE, "checkpoint": ckpt,
+                                   "kind": "embedding",
+                                   "engine": {"max_batch": 64}}]}
+        log(f"{tag} cuts: the Llama entry's checkpoint path dropped "
+            "(random weights from seed 0, as --random-weights); process S "
+            "with HELIX_KV_HOST_POOL_BYTES=0 (a second 16 GiB pinned tier "
+            "is not needed to show the exit)")
+        stub.assign("s", prof)
+
+        # (2) node T
+        def build(**kw):
+            served = cli.build_served_model(**kw)
+            if served.loop is not None:
+                served.tokenizer = _IdTokenizer(served.tokenizer)
+            return served
+
+        args = _node_args(stub.url, "t", random_weights=False)
+        args.tunnel = True
+        args.unix_socket = os.path.join(tmpdir, "t.sock")
+        agent, httpd = cli.make_node(args, build_model=build)
+        traces = []
+        httpd.handle_error = lambda request, address: traces.append(address)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        tunnel = cli.make_tunnel(args, agent, httpd).start()
+        stub.wait_for("t", lambda b: b["address"] == "", 60)
+
+        def state():
+            return _tunnel_json(stub, "t", "GET", "/api/v1/state")[1]
+
+        a1 = _apply_and_watch(stub, None, "t", prof, "tunnel-1",
+                              get_state=state)
+        log(f"{tag} (2) node T: apply (poll -> running beat) "
+            f"{a1['apply_s']:.2f} s, state route {a1['states']}, longest "
+            f"heartbeat gap {a1['max_gap_s']:.2f} s; heartbeat address "
+            f"{a1['beat']['address']!r}, models "
+            f"{a1['beat']['profile']['models']}; tunnel dials "
+            f"{tunnel.connects} (stub {stub.dials.get('t')})")
+        if a1["beat"]["address"] != "" or tunnel.connects != 1:
+            raise AssertionError(f"{tag} node T's heartbeat or dial")
+        served_e = agent.registry.get(BGE)
+        runner = served_e.embedder
+        loop = agent.registry.get(MODEL).loop
+
+        # (4) embeddings
+        tok = load_tokenizer(ckpt, BGE)
+        texts = _bge_texts(tok)
+        lens = [len(tok.encode(t)) for t in texts]
+        t0 = time.monotonic()
+        status, edoc = _tunnel_json(stub, "t", "POST", "/v1/embeddings",
+                                    {"model": BGE, "input": texts})
+        e_s = time.monotonic() - t0
+        if status != 200:
+            raise AssertionError(f"{tag} embeddings answered {status}: "
+                                 f"{edoc}")
+        vecs = np.array([d["embedding"] for d in edoc["data"]], np.float32)
+        pick = list(range(0, BGE_TEXTS, BGE_TEXTS // BGE_CPU_ROWS))
+        t0 = time.monotonic()
+        # one row per forward: no padding for the CPU to compute
+        on_cpu = runner.to("cpu")
+        on_cpu.max_batch = 1
+        plain = on_cpu.embed_texts([texts[i] for i in pick])
+        del on_cpu
+        cpu_s = time.monotonic() - t0
+        diff, cos = _vec_gap(vecs[pick], plain)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            c_diff, c_cos = _vec_gap(
+                runner.embed_texts([texts[i] for i in pick]), plain)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        norms = np.linalg.norm(vecs, axis=1)
+        log(f"{tag} (4) /v1/embeddings: {len(texts)} texts of "
+            f"{min(lens)}-{max(lens)} tokens in {e_s * 1e3:.1f} ms through "
+            f"the tunnel, shape {vecs.shape}, |v| in [{norms.min():.6f}, "
+            f"{norms.max():.6f}], usage {edoc['usage']}; {len(pick)} of "
+            f"them against the CPU's plain path ({cpu_s:.1f} s): max abs "
+            f"{diff:.3e} (limit {BGE_ABS_TOL}), least cosine {cos:.10f} "
+            f"(limit {BGE_COS_MIN}), allow_tf32 {tf32}; the control with "
+            f"TF32 on: max abs {c_diff:.3e}, least cosine {c_cos:.10f}")
+        if vecs.shape != (BGE_TEXTS, 768) or not np.isfinite(vecs).all() \
+                or tf32 or diff > BGE_ABS_TOL or cos < BGE_COS_MIN \
+                or edoc["usage"]["prompt_tokens"] != sum(lens):
+            raise AssertionError(f"{tag} embeddings disagree")
+        if c_diff <= BGE_ABS_TOL and c_cos >= BGE_COS_MIN:
+            raise AssertionError(f"{tag} the limits pass TF32's vectors")
+        rows = [list(r) for r in np.random.default_rng(1).integers(
+            1000, ecfg.vocab_size, BGE_TIMED)]
+        runner.embed_tokens(rows)
+        times = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            runner.embed_tokens(rows)
+            times.append(time.monotonic() - t0)
+        med = statistics.median(times)
+        held = tree_bytes(runner.params)
+        log(f"{tag} (4) a {BGE_TIMED[0]} x {BGE_TIMED[1]} batch: median "
+            f"{med * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} "
+            f"(wall, host copies in), {BGE_TIMED[0] / med:.1f} texts/s, "
+            f"{BGE_TIMED[0] * BGE_TIMED[1] / med:.0f} tokens/s; the entry "
+            f"holds {held} B on the card (served_model_bytes "
+            f"{served_model_bytes(served_e)} with 10% headroom) against "
+            f"the reference's estimate {cli.EMBEDDING_ESTIMATE_BYTES} B")
+        out["embed"] = {"max_abs": diff, "cos_min": cos,
+                        "tf32_max_abs": c_diff, "tf32_cos_min": c_cos,
+                        "median_ms":
+                        med * 1e3, "texts_s": BGE_TIMED[0] / med,
+                        "tokens_s": BGE_TIMED[0] * BGE_TIMED[1] / med,
+                        "bytes": held}
+
+        # (5) chats through the tunnel, then direct; launches from here
+        bodies = [{"model": MODEL, "max_tokens": 32, "temperature": 0,
+                   "messages": [{"role": "user", "content": p}]}
+                  for p in NODE_PROMPTS]
+        # the first wave through the tunnel prefills cold (K2); the next
+        # two, through the tunnel and direct, start from the same cached
+        # prompt pages (int8 KV: a hit reads quantized history), so their
+        # shapes and inputs are the same
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        first = _gated_calls(
+            loop, 8, lambda i: _tunnel_stream(stub, "t", bodies[i]))[0]
+        tun, _e, _t, t_rel = _gated_calls(
+            loop, 8, lambda i: _tunnel_stream(stub, "t", bodies[i]))
+        direct, _e, _t, d_rel = _gated_calls(
+            loop, 8, lambda i: _unix_stream(args.unix_socket, bodies[i]))
+        launches = {"ragged_paged_attention": K1.launches,
+                    "ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches}
+        same = sum(_ids_of(a["frames"]) == _ids_of(b["frames"])
+                   and len(_ids_of(a["frames"])) > 0
+                   for a, b in zip(tun, direct))
+        ttf = [(o["first"] - t_rel) * 1e3 for o in tun]
+        ttf_d = [(o["first"] - d_rel) * 1e3 for o in direct]
+        cold = sum(_ids_of(a["frames"]) == _ids_of(b["frames"])
+                   for a, b in zip(first, tun))
+        log(f"{tag} (5) 8 greedy chats x 32 in 3 waves (tunnel cold, "
+            f"tunnel, direct): ids equal through the tunnel and direct: "
+            f"{same} of 8 (the cold wave's equal the next: {cold} of 8, "
+            f"recorded); first SSE frame p50 "
+            f"{statistics.median(ttf):.1f} ms through the tunnel, "
+            f"{statistics.median(ttf_d):.1f} ms direct (from the "
+            f"release); frames per stream {[len(o['frames']) for o in tun]}"
+            f", chunks per stream through the tunnel "
+            f"{[o['chunks'] for o in tun]}; launches {launches}")
+        if same != 8 or launches["ragged_paged_attention_int8"] <= 0 \
+                or launches["flash_attention"] <= 0:
+            raise AssertionError(f"{tag} chats or launches: {same} "
+                                 f"{launches}")
+        out["chats"] = {"same": same, "cold_same": cold,
+                        "ttf_ms": statistics.median(ttf),
+                        "ttf_direct_ms": statistics.median(ttf_d)}
+        out["launches"] = launches
+
+        # (6) the caller stops reading (OP_CLOSE, the tunnel stays up),
+        # then the stub hangs up mid-stream
+        dials = stub.dials["t"]
+        eng = loop.engine
+        made, close_s = _closed_early(stub, "t", loop, {
+            **bodies[3], "max_tokens": CLOSE_TOKENS, "stream": True})
+        freed = all(r is None for r in eng.slots) and not eng.waiting
+        log(f"{tag} (6) the caller stopped after its first chunk (OP_CLOSE"
+            f"): the engine made {made} of {CLOSE_TOKENS} tokens (limit "
+            f"{CLOSE_MAX_MADE}), slots freed {freed} after {close_s:.2f} "
+            f"s; dials {stub.dials['t']} (was {dials}), connects "
+            f"{tunnel.connects}; server tracebacks {len(traces)}")
+        if not 0 < made <= CLOSE_MAX_MADE or not freed \
+                or stub.dials["t"] != dials or tunnel.connects != 1 \
+                or traces:
+            raise AssertionError(f"{tag} OP_CLOSE did not abort")
+        out["op_close"] = {"made": made, "freed_s": close_s}
+        from helix_tpu_torch.control.tunnel import TunnelClosed
+
+        status, _h, chunks = stub.tunnel_request(
+            "t", "POST", "/v1/chat/completions", {}, json.dumps(
+                {**bodies[1], "max_tokens": 400, "stream": True}).encode())
+        next(chunks)
+        stub.drop_tunnel("t")
+        caller = None
+        try:
+            for _c in chunks:
+                pass
+        except TunnelClosed as e:
+            caller = str(e)
+        t0 = time.monotonic()
+        while stub.dials.get("t", 0) < dials + 1 \
+                and time.monotonic() - t0 < 30:
+            time.sleep(0.05)
+        redial = time.monotonic() - t0
+        status, after = _tunnel_json(stub, "t", "POST",
+                                     "/v1/chat/completions",
+                                     {**bodies[2], "max_tokens": 8})
+        t1 = time.monotonic()
+        while (any(r is not None for r in eng.slots) or eng.waiting) \
+                and time.monotonic() - t1 < 30:
+            time.sleep(0.05)
+        freed = all(r is None for r in eng.slots) and not eng.waiting
+        log(f"{tag} (6) the stub closed the websocket mid-stream: the "
+            f"caller got {caller!r}; the runner dialed again after "
+            f"{redial:.2f} s (dials {dials} -> {stub.dials['t']}, "
+            f"connects {tunnel.connects}); the next chat {status} with "
+            f"{after.get('usage', {}).get('completion_tokens')} tokens; "
+            f"slots freed {freed}; server tracebacks {len(traces)}")
+        if caller is None or stub.dials["t"] != dials + 1 \
+                or status != 200 or not freed or traces:
+            raise AssertionError(f"{tag} the hang-up")
+
+        # (7) process S: the same vectors, then SIGTERM mid-stream
+        stub.wait_for("s", lambda b: b["profile"]["name"] == "tunnel-1"
+                      and b["profile"]["status"] in ("running", "failed"),
+                      300)
+        if stub.last("s")["profile"]["status"] != "running":
+            raise AssertionError(f"{tag} process S: "
+                                 f"{stub.last('s')['profile']['error']}")
+        status, sdoc = _tunnel_json(stub, "s", "POST", "/v1/embeddings",
+                                    {"model": BGE, "input": texts})
+        svecs = np.array([d["embedding"] for d in sdoc["data"]], np.float32)
+        s_diff = float(np.abs(svecs - vecs).max())
+        results = [{} for _ in range(SIGTERM_STREAMS)]
+        body = {"model": MODEL, "max_tokens": SIGTERM_TOKENS,
+                "temperature": 0,
+                "messages": [{"role": "user", "content": "Tell a story."}]}
+        threads = [threading.Thread(target=_tunnel_stream,
+                                    args=(stub, "s", body, results[i]))
+                   for i in range(SIGTERM_STREAMS)]
+        for t in threads:
+            t.start()
+        # every stream has its first frame before the signal
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 120 and not all(
+                r.get("first") for r in results):
+            time.sleep(0.005)
+        sub.send_signal(signal.SIGTERM)
+        t_sig = time.monotonic()
+        for t in threads:
+            t.join(300)
+        rc = sub.wait(300)
+        exit_s = time.monotonic() - t_sig
+        sub_log.seek(0)
+        s_text = sub_log.read()
+        ends = []
+        for r in results:
+            fr = r["frames"]
+            fin = fr[-1]["choices"][0].get("finish_reason") if fr and \
+                "choices" in fr[-1] else None
+            mig = any(f.get("error", {}).get("code") == "migrated"
+                      for f in fr)
+            tokens = sum(1 for f in fr if "choices" in f)
+            whole = (mig or fin == "stop"
+                     or (fin == "length" and tokens == SIGTERM_TOKENS))
+            ends.append((fin, mig, tokens, r["error"], whole))
+        log(f"{tag} (7) process S: 64 vectors against T's max abs "
+            f"{s_diff:.3e}; SIGTERM with {SIGTERM_STREAMS} streams in "
+            f"flight: (finish_reason, migrated, frames, error, whole) "
+            f"{ends}; "
+            f"exit code {rc} after {exit_s:.2f} s; tracebacks in its "
+            f"output {s_text.count('Traceback')}")
+        if status != 200 or s_diff > 1e-5 or rc != 0 \
+                or "Traceback" in s_text or any(
+                    e[3] is not None or not e[4] or e[2] > SIGTERM_TOKENS
+                    for e in ends):
+            raise AssertionError(f"{tag} process S:\n{s_text[-3000:]}")
+        out["sigterm"] = {"exit": rc, "ends": ends, "exit_s": exit_s}
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+        sub_log.close()
+        if tunnel is not None:
+            tunnel.stop(join=True)
+        if agent is not None:
+            agent.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        stub.stop()
+        import shutil
+
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        _free()
+    log(f"{tag} phase wall {time.monotonic() - t_phase:.1f} s")
+    return out
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -4954,12 +5477,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
-                             "checkpoint", "slo", "node"),
+                             "checkpoint", "slo", "node", "tunnel"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
-                         "'node': those and the hot-swap / adapter / "
-                         "checkpoint / scheduler / node-agent phase")
+                         "'node' / 'tunnel': those and the hot-swap / "
+                         "adapter / checkpoint / scheduler / node-agent / "
+                         "tunnel and embedding phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4997,6 +5521,10 @@ def main(argv=None) -> int:
         node = phase_node_agent(dev["smi"])
         launches = {k: n for k, n in node["launches"].items() if n}
         by_path = {k: {"node": n} for k, n in launches.items()}
+    if args.phase == "tunnel":
+        tun = phase_tunnel(dev["smi"])
+        launches = {k: n for k, n in tun["launches"].items() if n}
+        by_path = {k: {"tunnel": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -5017,6 +5545,7 @@ def main(argv=None) -> int:
         node = phase_node_agent(dev["smi"], agent_free={
             "texts": slo["chat_texts"], "busy_ms": slo["trace"]["on"][0],
             "from": "phase 4i"})
+        tun = phase_tunnel(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -5033,7 +5562,8 @@ def main(argv=None) -> int:
                 "adapters": ad["launches"]["flash_attention"],
                 "checkpoint": ck["launches"]["flash_attention"],
                 "slo": slo["launches"]["flash_attention"],
-                "node": node["launches"]["flash_attention"]},
+                "node": node["launches"]["flash_attention"],
+                "tunnel": tun["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -5043,7 +5573,9 @@ def main(argv=None) -> int:
                 "checkpoint":
                     ck["launches"]["ragged_paged_attention_int8"],
                 "slo": slo["launches"]["ragged_paged_attention_int8"],
-                "node": node["launches"]["ragged_paged_attention_int8"]},
+                "node": node["launches"]["ragged_paged_attention_int8"],
+                "tunnel":
+                    tun["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)

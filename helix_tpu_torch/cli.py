@@ -16,6 +16,8 @@ names) with random weights made on the device from a seed and the
     python -m helix_tpu_torch serve-node --runner-id a \\
         --control-plane http://cp:8080 [--heartbeat-interval 30] \\
         [--advertise http://this-node:8000]
+    python -m helix_tpu_torch serve-node --runner-id a --tunnel \\
+        --control-plane http://cp:8080 [--unix-socket /run/helix.sock]
 
 The node is run by the node agent (``control.node_agent.NodeAgent``),
 which owns the registry: ``--profile`` (or ``--model``) is applied at
@@ -24,8 +26,13 @@ profile state and saturation there, and without a profile it waits for
 one to be assigned (the assignment poll; a drain request there drains the
 node to a peer and ends the process).  SIGTERM and SIGINT drain every
 engine for ``HELIX_DRAIN_SECONDS``, ship the survivors to a peer the
-control plane names, and exit 0.  ``--tunnel`` (a reverse tunnel for a
-node behind NAT) is not ported yet (ROADMAP A7c).
+control plane names, and exit 0.  ``--tunnel`` serves a node behind
+NAT: no TCP listener, the OpenAI surface on a unix socket (``--unix-socket``,
+else ``openai.sock`` in a new ``helix-node-*`` temporary directory), an
+outbound reverse tunnel to ``--control-plane`` (``control.tunnel``) that
+carries the control plane's requests to it, and a heartbeat that
+advertises no address; the tunnel stays up through the drain and closes
+after it.
 
 A profile is JSON (or YAML when ``yaml`` is importable) with a ``models``
 list of ``{name, kind, quantization, engine, model_overrides,
@@ -55,14 +62,26 @@ budget (``hbm_budget_bytes``, else the card's memory) would overflow;
 ``POST /admin/prefetch`` stages one in the background.  Without it every
 entry is built at start.
 
+An entry with ``kind: embedding`` is an encoder (``models.bge``) behind
+``/v1/embeddings``: its checkpoint's weights and ``tokenizer.json`` (the
+byte tokenizer without one), else the reference's tiny encoder with
+random weights from ``--seed``, in float32, ``engine: {max_batch}`` rows
+per forward; it has no engine loop.  A profile entry's ``engine:
+{attn_backend: reference}`` (the reference's switch to its attention
+without Pallas, for the CPU) is dropped with a log line: the port's
+served path always goes through the kernels' wrappers, which run their
+plain versions on CPU tensors.
+
 ``--random-weights`` serves a ``checkpoint:`` entry with random weights
 from ``--seed`` in place of its files.  A checkpoint directory that is
 missing, whose config the port cannot compute (mixture-of-experts: A15;
-mrope: A17; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
+mrope: A17b; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
 unknown activation) or that disagrees with the entry's
 ``model_overrides`` is refused at start.  What is not ported yet is
 refused there too, before any weights are made, naming its ROADMAP
-item: a kind other than ``chat`` (A17), a ``mesh`` with an axis above 1
+item: a ``vision`` or ``vision-embedding`` kind (A17b), a profile ``role:
+prefill`` or ``HELIX_POOL_ROLE=prefill`` (the disaggregated prefill
+handoff, A12), a ``mesh`` with an axis above 1
 (A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
 ``adapter`` merged into the weights at apply time (it restores a training
 checkpoint: A18), and engine fields of unported modules
@@ -96,17 +115,20 @@ import logging
 import os
 import signal
 import sys
+import tempfile
 import threading
 import time
 
 import torch
 
-from helix_tpu_torch.control.profile import ProfileModel, ServingProfile
+from helix_tpu_torch.control.profile import (
+    ProfileModel, ServingProfile, pool_role)
 from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from helix_tpu_torch.engine.adapters import adapter_pool_slots_env
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
 from helix_tpu_torch.engine.residency import estimate_model_bytes
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
+from helix_tpu_torch.models.bge import EmbeddingRunner
 from helix_tpu_torch.models.llama import init_params
 from helix_tpu_torch.models.loader import load_config, load_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
@@ -116,6 +138,11 @@ from helix_tpu_torch.serving.sched import SchedConfig
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
 log = logging.getLogger("helix_tpu_torch")
+
+# the reference node agent's flat reservation for an embedding entry
+# (``helix_tpu/control/node_agent.py:648``): below bge-base's own 435.6 MB
+# of float32 weights, kept as the reference has it (ROADMAP C)
+EMBEDDING_ESTIMATE_BYTES = 1 << 28
 
 
 def model_config(name: str, overrides: dict | None = None) -> ModelConfig:
@@ -152,7 +179,7 @@ def build_served_model(
     model_overrides: dict | None = None, seed: int = 0,
     context_length: int | None = None, warmup: bool = True,
     quantization: str | None = None, checkpoint: str | None = None,
-    slo: dict | None = None,
+    slo: dict | None = None, kind: str = "chat",
 ) -> ServedModel:
     """An ``Engine`` and a started ``EngineLoop`` for one model: the
     weights of ``checkpoint`` (an HF safetensors directory, with its
@@ -163,7 +190,14 @@ def build_served_model(
     warmup), ``load_stats`` the load's bytes and read / upload seconds.
     ``slo``: the entry's ``slo`` block (targets and ``sched``).  The
     served path always takes the kernels: ``attn_backend`` is refused
-    here."""
+    here.  ``kind="embedding"`` builds an encoder instead
+    (``build_embedding_model``)."""
+    if kind == "embedding":
+        return build_embedding_model(
+            name, device=device, engine=engine, seed=seed,
+            checkpoint=checkpoint, context_length=context_length)
+    if kind != "chat":
+        raise ValueError(f"kind {kind!r}: expected 'chat' or 'embedding'")
     if "attn_backend" in (engine or {}):
         raise ValueError(
             "attn_backend is for comparisons only; a served model always "
@@ -221,6 +255,27 @@ def build_served_model(
     return ServedModel(name=name, loop=loop, tokenizer=tok,
                        context_length=context_length or eng.max_context_len,
                        build_seconds=split, load_stats=load_stats)
+
+
+def build_embedding_model(
+    name: str, *, device=DEFAULT_DEVICE, engine: dict | None = None,
+    seed: int = 0, checkpoint: str | None = None,
+    context_length: int | None = None,
+) -> ServedModel:
+    """An embedding entry (the reference node agent's ``kind:
+    embedding`` build): a ``models.bge.EmbeddingRunner`` on ``device``,
+    from ``checkpoint`` (with its ``tokenizer.json``) or the tiny
+    encoder with random weights from ``seed``; no engine loop."""
+    dev = resolve_device(device)
+    tok = load_tokenizer(checkpoint, name)
+    t0 = _stamp(dev)
+    entry = ProfileModel(name=name, kind="embedding", checkpoint=checkpoint,
+                         engine=dict(engine or {}))
+    embedder = EmbeddingRunner.build(entry, tok, device=dev, seed=seed)
+    return ServedModel(name=name, loop=None, tokenizer=tok, kind="embedding",
+                       embedder=embedder, context_length=context_length,
+                       build_seconds={"load" if checkpoint else "init":
+                                      _stamp(dev) - t0})
 
 
 def _operator_overrides(eng_kw: dict) -> None:
@@ -324,13 +379,17 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     """What of profile entry ``m`` is not ported yet, each naming its
     ROADMAP item (empty: the entry is served)."""
     out = []
-    if m.checkpoint and not random_weights:
+    if m.kind not in ("chat", "embedding"):
+        out.append(f"kind {m.kind!r} is not ported yet (ROADMAP A17b)")
+    if m.checkpoint and not random_weights and m.kind == "chat":
         try:
             checkpoint_config(m.checkpoint, m.name, m.model_overrides)
         except (OSError, ValueError, NotImplementedError) as e:
             out.append(str(e))
-    if m.kind != "chat":
-        out.append(f"kind {m.kind!r} is not ported yet (ROADMAP A17)")
+    if m.checkpoint and not random_weights and m.kind == "embedding" \
+            and not os.path.isfile(os.path.join(m.checkpoint,
+                                                "config.json")):
+        out.append(f"{m.checkpoint}/config.json: no such file")
     if m.adapter:
         out.append("an adapter merged into the weights at apply time is "
                    "not ported yet: it restores a training checkpoint "
@@ -345,11 +404,22 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     if m.multihost:
         out.append(f"multihost {m.multihost} serving is not ported yet "
                    "(ROADMAP A15)")
-    try:
-        EngineConfig(**engine)
-    except NotImplementedError as e:
-        out.append(str(e))
+    if m.kind == "chat":
+        try:
+            EngineConfig(**engine)
+        except NotImplementedError as e:
+            out.append(str(e))
     return out
+
+
+def role_refusal(profile_role: str) -> str:
+    """The refusal of a pool role the port does not serve ("" when
+    served), read as the node agent reads it (``profile.pool_role``)."""
+    if pool_role(profile_role) == "prefill":
+        return ("role 'prefill': the disaggregated prefill handoff (the "
+                "snapshot shipped to a decode peer) is not ported yet "
+                "(ROADMAP A12); serve the node as decode or mixed")
+    return ""
 
 
 def model_specs(profile: ServingProfile, engine: dict | None = None,
@@ -360,8 +430,18 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
     entry before anything is built."""
     engine = engine or {}
     specs, refused = [], []
+    role = role_refusal(profile.role)
+    if role:
+        refused.append(role)
     for m in profile.models:
-        eng = {**m.engine, **engine}
+        eng = dict(m.engine)
+        if m.kind == "chat" and eng.get("attn_backend") == "reference":
+            # the reference's CPU switch: the port's wrappers already run
+            # their plain versions on CPU tensors, the kernels on the card
+            log.info("%s: engine.attn_backend 'reference' is not applied: "
+                     "the served path runs the kernels' wrappers", m.name)
+            del eng["attn_backend"]
+        eng.update(engine)
         why = _refusals(m, eng, random_weights)
         if why:
             refused.append(f"{m.name}: " + "; ".join(why))
@@ -371,6 +451,11 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
             log.warning("%s: serving random weights (seed %d) in place of "
                         "checkpoint %s", m.name, seed, checkpoint)
             checkpoint = None
+        if m.kind == "embedding":
+            specs.append(dict(name=m.name, kind="embedding", engine=eng,
+                              context_length=m.context_length,
+                              checkpoint=checkpoint))
+            continue
         specs.append(dict(
             name=m.name, quantization=m.quantization, engine=eng,
             model_overrides=dict(m.model_overrides),
@@ -404,6 +489,8 @@ def spec_bytes(spec: dict) -> int:
     """The residency estimate of one spec: the checkpoint's
     ``config.json`` (else the catalog config of the name), the entry's
     engine block and its quantization, as the reference node agent's."""
+    if spec.get("kind") == "embedding":
+        return EMBEDDING_ESTIMATE_BYTES
     name = spec["name"]
     cfg = (load_config(spec["checkpoint"], name=name)
            if spec.get("checkpoint") else model_config(name))
@@ -419,7 +506,11 @@ def make_node(args, build_model=None):
     polling for an assigned profile when none was given.  The server
     answers ``GET /api/v1/state`` with the agent's heartbeat body.
     ``build_model``: the agent's builder of one profile entry, with
-    ``build_served_model``'s keywords (the default)."""
+    ``build_served_model``'s keywords (the default).  With ``--tunnel``
+    the server is a unix-socket server (``--unix-socket``, else
+    ``openai.sock`` in a new ``helix-node-*`` temporary directory) and the
+    agent advertises no address: the control plane reaches the node
+    through the tunnel (``make_tunnel``)."""
     from helix_tpu_torch.control.node_agent import NodeAgent
 
     resolve_device(args.device)
@@ -439,10 +530,17 @@ def make_node(args, build_model=None):
         heartbeat_interval=args.heartbeat_interval,
         device=args.device, seed=args.seed, warmup=not args.no_warmup,
         random_weights=args.random_weights, engine=engine)
-    httpd = OpenAIServer(agent.registry, state=agent.heartbeat_payload) \
-        .make_http_server(args.host, args.port)
-    agent.address = (args.advertise
-                     or f"http://127.0.0.1:{httpd.server_address[1]}")
+    server = OpenAIServer(agent.registry, state=agent.heartbeat_payload)
+    if getattr(args, "tunnel", False):
+        path = getattr(args, "unix_socket", None) or os.path.join(
+            tempfile.mkdtemp(prefix="helix-node-"), "openai.sock")
+        httpd = server.make_unix_server(path)
+        # the control plane dispatches through the reverse tunnel
+        agent.address = ""
+    else:
+        httpd = server.make_http_server(args.host, args.port)
+        agent.address = (args.advertise
+                         or f"http://127.0.0.1:{httpd.server_address[1]}")
     if profile is not None:
         agent.apply_profile(profile)
     if args.control_plane and agent.state.status != "failed":
@@ -450,28 +548,51 @@ def make_node(args, build_model=None):
     return agent, httpd
 
 
+def make_tunnel(args, agent, httpd):
+    """The reverse tunnel of a ``--tunnel`` node (not started): dials
+    ``--control-plane`` as ``--runner-id`` with the agent's runner token
+    and carries its requests to the unix socket ``httpd`` serves."""
+    from helix_tpu_torch.control.tunnel import TunnelAgent
+
+    return TunnelAgent(args.runner_id, args.control_plane,
+                       unix_socket=httpd.server_address,
+                       runner_token=agent.runner_token)
+
+
+def _close_server(httpd) -> None:
+    httpd.server_close()
+    if isinstance(httpd.server_address, str):
+        try:
+            os.unlink(httpd.server_address)
+        except OSError:
+            pass
+
+
 def _cmd_serve_node(args) -> int:
-    if args.tunnel:
-        print("serve-node: --tunnel (a reverse tunnel to the control "
-              "plane) needs a websocket client and is not ported yet "
-              "(ROADMAP A7c)", file=sys.stderr)
+    if args.tunnel and not args.control_plane:
+        print("serve-node: --tunnel requires --control-plane (the tunnel "
+              "dials out to it)", file=sys.stderr)
         return 2
     agent, httpd = make_node(args)
     if agent.state.status == "failed":
-        httpd.server_close()
+        _close_server(httpd)
         agent.stop()
         if agent.apply_exception is not None:
             raise agent.apply_exception
         print(f"profile apply failed: {agent.state.error}", file=sys.stderr)
         return 1
     shutdown: list = []
+    tunnel = make_tunnel(args, agent, httpd) if args.tunnel else None
 
     def graceful():
-        # drain on this thread, then stop the server: shutdown() from
-        # the thread that runs serve_forever would deadlock
+        # drain on this thread (through the tunnel, still up), then stop
+        # the tunnel and the server: shutdown() from the thread that
+        # runs serve_forever would deadlock
         try:
             agent.graceful_shutdown()
         finally:
+            if tunnel is not None:
+                tunnel.stop()
             httpd.shutdown()
 
     def on_signal(signum, frame):
@@ -488,15 +609,22 @@ def _cmd_serve_node(args) -> int:
             pass   # not the main thread (embedded use)
     # a drain the control plane asked for ends the process as SIGTERM does
     agent.on_drain = lambda: os.kill(os.getpid(), signal.SIGTERM)
+    if tunnel is not None:
+        where = (f"on unix socket {httpd.server_address}; tunnelling to "
+                 f"{args.control_plane}")
+        tunnel.start()
+    else:
+        where = f"on http://{args.host}:{httpd.server_address[1]}"
     print("helix_tpu_torch node", args.runner_id, "serving",
-          agent.registry.names(),
-          f"on http://{args.host}:{httpd.server_address[1]}", flush=True)
+          agent.registry.names(), where, flush=True)
     try:
         httpd.serve_forever()
     finally:
         for t in shutdown:
             t.join()
-        httpd.server_close()
+        if tunnel is not None:
+            tunnel.stop(join=True)
+        _close_server(httpd)
         agent.stop()
     return 0
 
@@ -517,7 +645,10 @@ def main(argv=None) -> int:
     n.add_argument("--advertise",
                    help="address the control plane dials back")
     n.add_argument("--tunnel", action="store_true",
-                   help="not ported yet (ROADMAP A7c)")
+                   help="no listening TCP port: serve on a unix socket and "
+                        "dial an outbound reverse tunnel to the control "
+                        "plane (NAT'd nodes)")
+    n.add_argument("--unix-socket", help="socket path for --tunnel mode")
     n.add_argument("--device", default=DEFAULT_DEVICE)
     n.add_argument("--engine", action="append", metavar="KEY=VALUE",
                    help="EngineConfig field override (repeatable)")

@@ -26,10 +26,14 @@ survivors to the peers the control plane names at
 
 HTTP goes through ``urllib``.  What the port does not have yet is sent as
 the reference sends an idle block: ``multihost`` (ROADMAP A15), ``canary``
-(A19) and ``ctx`` (A14) are ``{}``.  A profile entry the port cannot
-serve (a kind other than ``chat``, an adapter merged at apply, a mesh
-over more than one device, unported engine fields) fails the apply with
-the refusal's text before anything is built.
+(A19) and ``ctx`` (A14) are ``{}``.  A ``kind: embedding`` entry is an
+encoder with no engine loop (``cli.build_embedding_model``): it counts in
+the registry, the heartbeat's model list and the residency estimate (the
+reference's flat 256 MiB), not in the saturation summary.  A profile the
+port cannot serve (a vision kind, ``role: prefill`` or
+``HELIX_POOL_ROLE=prefill``, an adapter merged at apply, a mesh over more
+than one device, unported engine fields) fails the apply with the
+refusal's text before anything is built.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import urllib.request
 from typing import Callable, Optional
 
 from helix_tpu_torch import cli
-from helix_tpu_torch.control.profile import ServingProfile
+from helix_tpu_torch.control.profile import ServingProfile, pool_role
 from helix_tpu_torch.device import (
     DEFAULT_DEVICE,
     detect_accelerators,
@@ -388,10 +392,7 @@ class NodeAgent:
 
     def pool_role(self) -> str:
         """HELIX_POOL_ROLE beats the applied profile's ``role``."""
-        env = os.environ.get("HELIX_POOL_ROLE", "").strip().lower()
-        if env in ("prefill", "decode", "mixed"):
-            return env
-        return self.profile_role or "mixed"
+        return pool_role(self.profile_role)
 
     def heartbeat_payload(self) -> dict:
         """The reference's heartbeat body, key for key."""

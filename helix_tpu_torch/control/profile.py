@@ -28,6 +28,7 @@ on a TPU) and the least device memory.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 
@@ -154,6 +155,18 @@ class ProfileRequirement:
         return dataclasses.asdict(self)
 
 
+POOL_ROLES = ("prefill", "decode", "mixed")
+
+
+def pool_role(profile_role: str = "mixed") -> str:
+    """The node's disaggregated pool role: ``HELIX_POOL_ROLE`` beats the
+    profile's ``role``."""
+    env = os.environ.get("HELIX_POOL_ROLE", "").strip().lower()
+    if env in POOL_ROLES:
+        return env
+    return profile_role or "mixed"
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingProfile:
     name: str
@@ -175,7 +188,7 @@ class ServingProfile:
     @classmethod
     def from_dict(cls, d: dict) -> "ServingProfile":
         role = str(d.get("role", "mixed") or "mixed").strip().lower()
-        if role not in ("prefill", "decode", "mixed"):
+        if role not in POOL_ROLES:
             raise ValueError(
                 f"profile role must be prefill|decode|mixed, got {role!r}"
             )

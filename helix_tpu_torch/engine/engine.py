@@ -62,7 +62,7 @@ between engines (of either package) as a checksummed
 
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
 tiered contexts (A14), meshes and the multihost plan plane (A15), MoE
-and mrope models (A15, A17).
+and mrope models (A15, A17b).
 """
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ class Request:
     prompt_tokens: list
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     stop_token_ids: tuple = ()
-    # --- multimodal (not ported: ROADMAP A17) ---
+    # --- multimodal (not ported: ROADMAP A17b) ---
     image_embeds: Optional[object] = None
     image_positions: Optional[list] = None
     positions3: Optional[object] = None
@@ -615,7 +615,7 @@ class Engine:
                     f"model '{self.model_cfg.name}'"
                 )
         if req.image_embeds is not None:
-            return "image input is not ported yet (ROADMAP A17)"
+            return "image input is not ported yet (ROADMAP A17b)"
         return None
 
     def add_request(self, req: Request) -> None:

@@ -111,13 +111,19 @@ def served_model_bytes(m: ServedModel, headroom: float = 0.10) -> int:
         eng = m.loop.engine
         total += tree_bytes(eng.params)
         total += tree_bytes(eng.cache.carry())  # pools + int8 scale pools
+    elif m.embedder is not None:
+        total += tree_bytes(m.embedder.params)
     return int(total * (1 + headroom))
 
 
 def release_served_model(m: ServedModel) -> None:
     """Stop ``m``'s loop, wait for its engine thread to let go, drop the
-    engine's tensors and collect: the memory is free when this returns."""
+    engine's tensors and collect: the memory is free when this returns.
+    An embedder (no loop) drops its weights."""
     if m.loop is None:
+        if m.embedder is not None:
+            m.embedder.params = None
+            release_device_memory()
         return
     m.loop.stop(join=True)
     if not m.loop.stopped:

@@ -13,7 +13,7 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
   ``carry_caches`` threads the whole pool and the attention function
   mutates it in place (jit donation in the reference).
 - Mixture-of-experts and mrope (vision) configs are not ported:
-  ROADMAP A15 and A17.
+  ROADMAP A15 and A17b.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: mrope (vision) models are not ported yet "
-            "(ROADMAP A17)"
+            "(ROADMAP A17b)"
         )
 
 

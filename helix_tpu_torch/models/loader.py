@@ -21,7 +21,7 @@ the model in its compute dtype.
 
 What the port cannot compute is refused when the config is read, before
 anything is allocated, naming the ROADMAP item: mixture-of-experts (A15),
-mrope / Qwen2-VL (A17), an activation ``models.llama`` lacks, and a
+mrope / Qwen2-VL (A17b), an activation ``models.llama`` lacks, and a
 ``rope_scaling`` other than ``llama3``, which the reference loads and
 then serves as unscaled rope (ROADMAP C).  A ``sliding_window`` is logged
 and not applied: the reference's config drops it too (ROADMAP C).
@@ -62,7 +62,7 @@ def unsupported(hf: dict) -> list:
     rs = hf.get("rope_scaling") or {}
     if hf.get("model_type") == "qwen2_vl" or "mrope_section" in rs:
         out.append(f"model_type {hf.get('model_type')!r} with mrope "
-                   "(vision) is not ported yet (ROADMAP A17)")
+                   "(vision) is not ported yet (ROADMAP A17b)")
     act = hf.get("hidden_act", "silu")
     if act not in ACTIVATIONS:
         out.append(f"hidden_act {act!r} is not computed by the port "

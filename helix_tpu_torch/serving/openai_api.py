@@ -73,16 +73,31 @@ port needs no web framework:
 - ``GET /api/v1/state``: the node agent's heartbeat body, when the server
   was given one (``state=``).
 
-Embeddings and the context endpoints wait for later slices (ROADMAP A14,
-A17).
+- ``POST /v1/embeddings``: text inputs of an embedding model
+  (``kind="embedding"``, a ``models.bge.EmbeddingRunner``), with the
+  reference's JSON and ``usage`` block; a model of another kind answers
+  404 "is not an embedding model", a dict input without ``image`` 400,
+  an ``{"image": ...}`` input 400 "cannot embed images" (vision
+  embedders: ROADMAP A17b).  The generation routes answer an embedding
+  model 404 as the reference does (chat: "is an embedding model"; the
+  others: "does not serve generation");
+
+A client that hangs up mid-response (a broken pipe or a reset) ends its
+request as the engine's abort does, with one log line and no traceback.
+``make_unix_server`` serves the same routes on a unix socket (the
+reverse tunnel's local side, ``control.tunnel``).
+
+The context endpoints wait for a later slice (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import hmac
 import json
+import logging
 import os
 import queue
+import socketserver
 import threading
 import time
 import urllib.parse
@@ -126,6 +141,10 @@ from helix_tpu_torch.serving.migration import (
 )
 from helix_tpu_torch.serving.sched import CLASS_HEADER, sanitize_class
 from helix_tpu_torch.serving.tokenizer import IncrementalDetokenizer
+
+log = logging.getLogger(__name__)
+# the client went away: the request ends, the server goes on
+HANGUP = (BrokenPipeError, ConnectionResetError)
 
 
 class EngineRequestError(Exception):
@@ -494,6 +513,11 @@ class OpenAIServer:
         httpd.daemon_threads = True
         return httpd
 
+    def make_unix_server(self, path: str) -> "UnixHTTPServer":
+        """The same routes on a unix socket at ``path`` (no TCP
+        listener): what ``serve-node --tunnel`` serves."""
+        return UnixHTTPServer(path, self.handler_class())
+
     def start(self, host: str = "127.0.0.1", port: int = 0):
         """Serve on a background thread; returns the HTTP server (its
         ``server_address`` holds the bound port; ``shutdown()`` stops
@@ -502,6 +526,19 @@ class OpenAIServer:
         threading.Thread(target=httpd.serve_forever, daemon=True,
                          name="helix-torch-http").start()
         return httpd
+
+
+class UnixHTTPServer(socketserver.ThreadingMixIn,
+                     socketserver.UnixStreamServer):
+    """``ThreadingHTTPServer`` on an ``AF_UNIX`` socket."""
+
+    daemon_threads = True
+
+    def server_bind(self):
+        # a socket file left by an earlier run
+        if os.path.exists(self.server_address):
+            os.unlink(self.server_address)
+        super().server_bind()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -637,7 +674,20 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- routes -----------------------------------------------------------
 
+    def _hung_up(self, e: Exception) -> None:
+        """The client went away mid-response: whatever stream it had was
+        closed (and its request aborted) on the way out; log one line."""
+        self.close_connection = True
+        log.info("client hung up on %s %s (%s)", self.command, self.path,
+                 type(e).__name__)
+
     def do_GET(self):
+        try:
+            self._get()
+        except HANGUP as e:
+            self._hung_up(e)
+
+    def _get(self):
         url = urllib.parse.urlsplit(self.path)
         path = url.path
         query = dict(urllib.parse.parse_qsl(url.query))
@@ -703,8 +753,17 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {"models": out})
 
     def do_POST(self):
+        try:
+            self._post()
+        except HANGUP as e:
+            # a stream's generator was closed on the way out (its request
+            # aborted): no traceback for a client that left
+            self._hung_up(e)
+
+    def _post(self):
         routes = {"/v1/chat/completions": self._chat,
                   "/v1/completions": self._completions,
+                  "/v1/embeddings": self._embeddings,
                   "/admin/prefetch": self._prefetch,
                   "/v1/adapters": self._publish_adapter,
                   "/v1/migrate/import": self._migrate_import,
@@ -721,9 +780,25 @@ class _Handler(BaseHTTPRequestHandler):
             return
         route(body)
 
+    def _require_loop(self, served, model: str) -> bool:
+        """Generation needs an engine loop: an embedding model answers 404
+        (the reference's ``_require_loop`` text).  True once answered."""
+        if served.loop is not None:
+            return False
+        self._error(404, f"'{model}' does not serve generation",
+                    "model_not_found")
+        return True
+
     def _chat(self, body: dict):
         served, adapter = self._served_generation(body)
         if served is None:
+            return
+        model = body.get("model", "")
+        if served.kind == "embedding":
+            tid = self._trace_id()
+            self._json(404, _error_body(
+                f"model '{model}' is an embedding model", "model_not_found",
+                trace_id=tid), {TRACE_HEADER: tid})
             return
         messages = body.get("messages")
         if not messages:
@@ -736,7 +811,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _completions(self, body: dict):
         served, adapter = self._served_generation(body)
-        if served is None:
+        model = body.get("model", "")
+        if served is None or self._require_loop(served, model):
             return
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
@@ -843,9 +919,9 @@ class _Handler(BaseHTTPRequestHandler):
         """The Anthropic Messages surface over the same engine path as
         chat (the reference's ``anthropic_messages``)."""
         served, adapter = self._served_generation(body)
-        if served is None:
-            return
         model = body.get("model", "")
+        if served is None or self._require_loop(served, model):
+            return
         messages = list(body.get("messages", []))
         if body.get("system"):
             messages = [{"role": "system", "content": body["system"]}] \
@@ -932,6 +1008,49 @@ class _Handler(BaseHTTPRequestHandler):
                              "delta": {"stop_reason": stop_reason},
                              "usage": {"output_tokens": n}})
         ev("message_stop", {"type": "message_stop"})
+
+    def _embeddings(self, body: dict):
+        """Text embeddings (the reference's ``embeddings``, key for key):
+        each input encoded once (no special tokens), embedded in chunks
+        of the runner's ``max_batch``, ``usage`` the untruncated token
+        count."""
+        model = body.get("model", "")
+        served = self._lookup(model)
+        if served is None:
+            return
+        if served.kind != "embedding":
+            self._error(404, f"'{model}' is not an embedding model",
+                        "model_not_found")
+            return
+        inputs = body.get("input", [])
+        if isinstance(inputs, (str, dict)):
+            inputs = [inputs]
+        bad = [x for x in inputs if isinstance(x, dict) and "image" not in x]
+        if bad:
+            self._error(400, "dict inputs must be {\"image\": <url/base64>}; "
+                        f"got keys {sorted(bad[0])}")
+            return
+        if any(isinstance(x, dict) for x in inputs):
+            # image entries need a vision-embedding model (ROADMAP A17b)
+            self._error(400, f"'{model}' cannot embed images; serve a "
+                        "vision-embedding model")
+            return
+        try:
+            ids = [served.tokenizer.encode(t) for t in inputs]
+            vectors = served.embedder.embed_tokens(ids)
+        except Exception as e:  # noqa: BLE001 — answered 500, as aiohttp
+            log.exception("embedding request for %r failed", model)
+            self._error(500, f"embedding failed: {type(e).__name__}: {e}",
+                        "server_error")
+            return
+        n = sum(len(t) for t in ids)
+        self._json(200, {
+            "object": "list", "model": model,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": list(map(float, v))}
+                     for i, v in enumerate(vectors)],
+            "usage": {"prompt_tokens": n, "total_tokens": n},
+        })
 
     def _profiler(self, body: dict):
         """One ``torch.profiler`` capture of ``seconds`` (0.01-60) of the
@@ -1064,7 +1183,7 @@ class _Handler(BaseHTTPRequestHandler):
         trace_id = hdr if is_trace_id(hdr) else (
             snap.trace_id if is_trace_id(snap.trace_id) else "")
         served = self._served({"model": snap.model})
-        if served is None:
+        if served is None or self._require_loop(served, snap.model):
             return
         stream = ImportedStream(
             snap.request_id, snap.model, snap.output_tokens,

@@ -1,6 +1,7 @@
-"""Model registry: model name -> engine loop + tokenizer (port of
-``helix_tpu/serving/registry.py``).  Unknown names answer 404 with the
-available list at the HTTP layer.
+"""Model registry: model name -> engine loop (or embedder) + tokenizer
+(port of ``helix_tpu/serving/registry.py``).  Unknown names answer 404
+with the available list at the HTTP layer.  An embedding model
+(``kind="embedding"``) has an ``embedder`` and no ``loop``.
 
 ``DelegatingRegistry`` (the reference's, ``helix_tpu/control/
 node_agent.py:440-462``) is the one surface the server and ``serve-node``
@@ -20,9 +21,9 @@ from helix_tpu_torch.serving.engine_loop import EngineLoop
 @dataclasses.dataclass
 class ServedModel:
     name: str
-    loop: EngineLoop
+    loop: Optional[EngineLoop]
     tokenizer: object
-    kind: str = "chat"
+    kind: str = "chat"           # chat | embedding
     created: int = dataclasses.field(default_factory=lambda: int(time.time()))
     owned_by: str = "helix-tpu"
     context_length: Optional[int] = None
@@ -31,6 +32,8 @@ class ServedModel:
     # a checkpoint load's bytes and read / upload seconds
     # (models.loader.load_params)
     load_stats: Optional[dict] = None
+    # models.bge.EmbeddingRunner for kind == "embedding" (loop is None)
+    embedder: object = None
 
 
 class ModelRegistry:

@@ -11,19 +11,34 @@ Llama-2 / Phi-3 families use:
   leftmost-longest match (special tokens inside user text included, as
   ``tokenizers`` does), those marked ``normalized`` in the normalized
   text;
-- normalizers ``NFC``, ``Prepend``, ``Replace`` (string pattern) and
-  ``Sequence``;
+- normalizers ``NFC``, ``Prepend``, ``Replace`` (string pattern),
+  ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
+  ``strip_accents``, ``lowercase``) and ``Sequence``;
 - pre-tokenizers ``Split`` (regex, ``Isolated``), ``ByteLevel`` (with and
-  without its own regex, ``add_prefix_space``), ``Metaspace`` and
-  ``Sequence``;
+  without its own regex, ``add_prefix_space``), ``Metaspace``,
+  ``BertPreTokenizer`` and ``Sequence``;
 - the ``BPE`` model: merges by rank, ``ignore_merges``, ``byte_fallback``,
-  ``fuse_unk`` and ``unk_token``;
+  ``fuse_unk`` and ``unk_token``; the ``WordPiece`` model (BERT's:
+  greedy longest-match-first, ``continuing_subword_prefix``,
+  ``unk_token``, ``max_input_chars_per_word``);
 - decoders ``ByteLevel``, ``Replace``, ``ByteFallback``, ``Fuse``,
-  ``Strip``, ``Metaspace`` and ``Sequence``.
+  ``Strip``, ``Metaspace``, ``WordPiece`` (``prefix``, ``cleanup``) and
+  ``Sequence``.
 
 Any other component or flag raises ``NotImplementedError`` naming it.
-The post-processor is not read: it adds tokens only when special tokens
-are asked for, which the serving path never does.
+The post-processor (a BERT file's ``TemplateProcessing`` among them) is
+not read: it adds tokens only when special tokens are asked for, which
+the serving path never does (the reference encodes with
+``add_special_tokens=False``).
+
+The BERT components follow the ``tokenizers`` runtime, not Python's
+string methods: a control character is a ``Cc``, ``Cf`` or ``Co`` one
+but tab, newline and carriage return (dropped with NUL and U+FFFD before
+white space becomes a space; an unassigned code point stays), white
+space is Unicode ``White_Space``, the CJK blocks are the runtime's
+(``0x2B920``, not BERT's ``0x2B820``), case folds character by
+character (no final-sigma rule), and punctuation is ASCII punctuation or
+a ``P*`` category.
 
 The Split patterns use ``\\p{L}`` and ``\\p{N}``, which the standard ``re``
 module lacks (and ``[^\\W\\d_]`` is wrong for ``No`` / ``Nl`` characters
@@ -192,6 +207,13 @@ def _refuse(kind: str, spec) -> None:
                               "implemented by the port's tokenizer")
 
 
+def _known(kind: str, spec: dict, fields) -> None:
+    """Refuse a field of ``spec`` outside ``fields`` (and ``type``)."""
+    for k in spec:
+        if k != "type" and k not in fields:
+            _refuse(f"{kind} flag", k)
+
+
 def _string_pattern(spec: dict, kind: str) -> str:
     pat = spec.get("pattern") or {}
     if set(pat) != {"String"}:
@@ -222,7 +244,90 @@ def _normalizer(spec):
     if t == "Replace":
         old, new = _string_pattern(spec, "Replace normalizer"), spec["content"]
         return lambda s: s.replace(old, new)
+    if t == "BertNormalizer":
+        return _bert_normalizer(spec)
     _refuse("normalizer", t)
+
+
+# the runtime's CJK blocks (``normalizers/bert.rs``: 0x2B920, where
+# BERT's own table says 0x2B820)
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+        (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF),
+        (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _is_cjk(c: str) -> bool:
+    cp = ord(c)
+    return any(a <= cp <= b for a, b in _CJK)
+
+
+def _bert_dropped(c: str) -> bool:
+    """What ``clean_text`` drops: NUL, U+FFFD and control characters
+    (``Cc``, ``Cf`` and ``Co`` but tab, newline and carriage return; an
+    unassigned ``Cn`` code point stays)."""
+    if c in "\t\n\r":
+        return False
+    return c in "\x00\ufffd" or unicodedata.category(c) in ("Cc", "Cf",
+                                                               "Co")
+
+
+def _bert_normalizer(spec: dict):
+    _known("normalizer 'BertNormalizer'", spec, (
+        "clean_text", "handle_chinese_chars", "strip_accents", "lowercase"))
+    clean = spec.get("clean_text", True)
+    chinese = spec.get("handle_chinese_chars", True)
+    lower = spec.get("lowercase", True)
+    strip = spec.get("strip_accents")
+    strip = lower if strip is None else strip
+
+    def bert(s):
+        if clean:
+            s = "".join(" " if c in _WHITE else c for c in s
+                        if not _bert_dropped(c))
+        if chinese:
+            s = "".join(f" {c} " if _is_cjk(c) else c for c in s)
+        if strip:
+            s = "".join(c for c in unicodedata.normalize("NFD", s)
+                        if unicodedata.category(c) != "Mn")
+        if lower:
+            s = "".join(c.lower() for c in s)
+        return s
+    return bert
+
+
+_ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+def _is_bert_punct(c: str) -> bool:
+    return c in _ASCII_PUNCT or unicodedata.category(c)[0] == "P"
+
+
+def _bert_pre_tokenize(splits):
+    """White space removed, each punctuation character isolated; empty
+    pieces dropped."""
+    out = []
+    for s, at in splits:
+        first = True
+        word = []
+
+        def flush():
+            nonlocal first
+            if word:
+                out.append(("".join(word), at and first))
+                first = False
+                word.clear()
+
+        for c in s:
+            if c in _WHITE:
+                flush()
+            elif _is_bert_punct(c):
+                flush()
+                word.append(c)
+                flush()
+            else:
+                word.append(c)
+        flush()
+    return out
 
 
 # --- pre-tokenizers: [(str, at_start)] -> [(str, at_start)] --------------
@@ -290,6 +395,8 @@ def _pre_tokenizer(spec):
                         out.append((s[a:b], at and k == 0))
             return out
         return metaspace
+    if t == "BertPreTokenizer":
+        return _bert_pre_tokenize
     _refuse("pre-tokenizer", t)
 
 
@@ -368,16 +475,90 @@ def _decoder(spec):
         return lambda tokens: [
             tok.replace(rep, "" if (k == 0 and first) else " ")
             for k, tok in enumerate(tokens)]
+    if t == "WordPiece":
+        _known("decoder 'WordPiece'", spec, ("prefix", "cleanup"))
+        prefix, cleanup = spec.get("prefix", "##"), spec.get("cleanup", True)
+
+        def wordpiece(tokens):
+            out = []
+            for k, tok in enumerate(tokens):
+                if k:
+                    tok = (tok.replace(prefix, "", 1)
+                           if tok.startswith(prefix) else " " + tok)
+                out.append(_cleanup(tok) if cleanup else tok)
+            return out
+        return wordpiece
     _refuse("decoder", t)
 
 
-# --- the BPE model -------------------------------------------------------
+# the WordPiece decoder's ``cleanup`` (``decoders/wordpiece.rs``)
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+            (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+            (" do not", " don't"), (" 's", "'s"), (" 've", "'ve"),
+            (" 're", "'re"))
+
+
+def _cleanup(tok: str) -> str:
+    for old, new in _CLEANUP:
+        tok = tok.replace(old, new)
+    return tok
+
+
+# --- the models ------------------------------------------------------------
+
+
+def _model(spec: dict):
+    t = spec.get("type")
+    if t == "BPE":
+        return _BPE(spec)
+    if t == "WordPiece":
+        return _WordPiece(spec)
+    _refuse("model", t)
+
+
+class _WordPiece:
+    """BERT's model: each word split greedily into the longest vocab
+    entry first, later pieces looked up with the continuing prefix; a
+    word with a piece outside the vocab, or longer than
+    ``max_input_chars_per_word`` characters, is the unknown token."""
+
+    def __init__(self, spec: dict):
+        _known("model 'WordPiece'", spec, (
+            "unk_token", "continuing_subword_prefix",
+            "max_input_chars_per_word", "vocab"))
+        self.vocab = dict(spec["vocab"])
+        self.prefix = spec.get("continuing_subword_prefix", "##")
+        self.max_chars = int(spec.get("max_input_chars_per_word", 100))
+        unk = spec.get("unk_token", "[UNK]")
+        if unk not in self.vocab:
+            raise ValueError(f"tokenizer.json: unk_token {unk!r} is not in "
+                             "the vocab")
+        self.unk_id = self.vocab[unk]
+
+    def tokenize(self, word: str) -> list:
+        if not word:
+            return []
+        if len(word) > self.max_chars:
+            return [self.unk_id]
+        out, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end]
+                tid = self.vocab.get(self.prefix + piece if start
+                                     else piece)
+                if tid is not None:
+                    out.append(tid)
+                    break
+                end -= 1
+            if end == start:
+                return [self.unk_id]
+            start = end
+        return out
 
 
 class _BPE:
     def __init__(self, spec: dict):
-        if spec.get("type") != "BPE":
-            _refuse("model", spec.get("type"))
         for flag in ("dropout", "continuing_subword_prefix",
                      "end_of_word_suffix"):
             if spec.get(flag):
@@ -491,7 +672,7 @@ class TokenizerJSON:
     def __init__(self, path: str):
         with open(path, encoding="utf-8") as f:
             spec = json.load(f)
-        self.model = _BPE(spec["model"])
+        self.model = _model(spec["model"])
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
         self.decode_chain = _decoder(spec.get("decoder"))

@@ -10,6 +10,12 @@ projections back in HF's ``[out, in]`` layout under HF names
 when there is more than one.  The files are what the ``safetensors``
 package writes and reads; tensors go to disk one layer at a time, so a
 parameter tree on the card is never copied to the host whole.
+
+``write_encoder_checkpoint(model_dir, cfg, params)`` does the same for a
+``models.bge`` encoder: a BERT ``config.json`` and one
+``model.safetensors`` under HF BERT names (``bert.`` before each with
+``prefix="bert."``), with a pooler as a BERT export has one (the loaders
+do not read it).
 """
 
 from __future__ import annotations
@@ -117,7 +123,20 @@ def write_checkpoint(model_dir: str, cfg: ModelConfig, params: dict, *,
     device) as an HF checkpoint in ``model_dir``; returns the paths of
     the files written (``config.json`` first)."""
     os.makedirs(model_dir, exist_ok=True)
-    tensors = _hf_tensors(cfg, params, fused)
+    path = os.path.join(model_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(hf_config(cfg, model_type, **(config_extra or {})), f,
+                  indent=2)
+    return [path] + _write_safetensors(
+        model_dir, _hf_tensors(cfg, params, fused), max_shard_bytes)
+
+
+def _write_safetensors(model_dir: str, tensors: list,
+                       max_shard_bytes: int = MAX_SHARD_BYTES) -> list:
+    """``(name, shape, dtype, make)`` tensors (``make()`` gives a CPU
+    tensor) as safetensors shards of at most ``max_shard_bytes`` in
+    ``model_dir``, with the index when there is more than one; returns
+    the paths written."""
     metas = [(name, shape, dtype, math.prod(shape) * dtype.itemsize)
              for name, shape, dtype, _make in tensors]
     shards, cur, cur_bytes = [], [], 0
@@ -131,10 +150,7 @@ def write_checkpoint(model_dir: str, cfg: ModelConfig, params: dict, *,
     names = (["model.safetensors"] if len(shards) == 1 else
              [f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
               for k in range(len(shards))])
-    paths = [os.path.join(model_dir, "config.json")]
-    with open(paths[0], "w") as f:
-        json.dump(hf_config(cfg, model_type, **(config_extra or {})), f,
-                  indent=2)
+    paths = []
     weight_map = {}
     for fname, idx in zip(names, shards):
         header, at = {}, 0
@@ -169,3 +185,62 @@ def write_checkpoint(model_dir: str, cfg: ModelConfig, params: dict, *,
                        "weight_map": weight_map}, f, indent=2)
         paths.append(path)
     return paths
+
+
+def encoder_hf_config(cfg) -> dict:
+    """A BERT ``config.json`` for a ``models.bge.EncoderConfig``."""
+    return {"architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "intermediate_size": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "type_vocab_size": cfg.type_vocab_size,
+            "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu",
+            "torch_dtype": cfg.dtype}
+
+
+def write_encoder_checkpoint(model_dir: str, cfg, params: dict, *,
+                             prefix: str = "") -> list:
+    """Write a ``models.bge`` parameter tree as an HF BERT checkpoint;
+    returns the paths written (``config.json`` first)."""
+    os.makedirs(model_dir, exist_ok=True)
+    emb, lay = params["embed"], params["layers"]
+    out = []
+
+    def plain(name, view):
+        out.append((prefix + name, tuple(view.shape), view.dtype,
+                    lambda: view.detach().cpu()))
+
+    def linear(name, w, b):
+        # [in, out] -> HF's [out, in]
+        out.append((prefix + name + ".weight", tuple(w.shape)[::-1],
+                    w.dtype, lambda: w.detach().t().contiguous().cpu()))
+        plain(name + ".bias", b)
+
+    plain("embeddings.word_embeddings.weight", emb["word"])
+    plain("embeddings.position_embeddings.weight", emb["position"])
+    plain("embeddings.token_type_embeddings.weight", emb["token_type"])
+    plain("embeddings.LayerNorm.weight", emb["norm"]["weight"])
+    plain("embeddings.LayerNorm.bias", emb["norm"]["bias"])
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        for ours, theirs in (("wq", "attention.self.query"),
+                             ("wk", "attention.self.key"),
+                             ("wv", "attention.self.value"),
+                             ("wo", "attention.output.dense"),
+                             ("w_in", "intermediate.dense"),
+                             ("w_out", "output.dense")):
+            linear(p + theirs, lay[ours]["weight"][i], lay[ours]["bias"][i])
+        for ours, theirs in (("attn_norm", "attention.output.LayerNorm"),
+                             ("mlp_norm", "output.LayerNorm")):
+            plain(p + theirs + ".weight", lay[ours]["weight"][i])
+            plain(p + theirs + ".bias", lay[ours]["bias"][i])
+    E = cfg.hidden_size
+    pooler = torch.zeros((E, E), dtype=emb["word"].dtype)
+    plain("pooler.dense.weight", pooler)
+    plain("pooler.dense.bias", pooler[0])
+    path = os.path.join(model_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(encoder_hf_config(cfg), f, indent=2)
+    return [path] + _write_safetensors(model_dir, out)

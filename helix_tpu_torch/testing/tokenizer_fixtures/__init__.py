@@ -1,4 +1,4 @@
-"""Two small ``tokenizer.json`` fixtures and the constants their checks
+"""Three small ``tokenizer.json`` fixtures and the constants their checks
 share (test scaffolding, not served code).
 
 - ``llama3/tokenizer.json``: Llama-3 style: ``Split`` with the Llama-3
@@ -10,6 +10,13 @@ share (test scaffolding, not served code).
   over the 256 ``<0x00>`` ... ``<0xFF>`` tokens of the model's vocab and
   ``fuse_unk``, the decoder sequence ``Replace``, ``ByteFallback``,
   ``Fuse``, ``Strip``, and Phi-3's chat tokens.
+- ``bert/tokenizer.json``: BERT / bge style: ``BertNormalizer``
+  (lower case, accents stripped, CJK spaced), ``BertPreTokenizer``, the
+  ``WordPiece`` model (``##`` pieces, ``[UNK]``, 100 characters a word),
+  the ``WordPiece`` decoder, ``TemplateProcessing`` and BERT's five
+  special tokens.  ``bert_tokenizer_json(vocab_size)`` pads its vocab
+  with BERT's ``[unusedN]`` entries to a real vocab's size (30522 for
+  bge-base), without ``tokenizers``.
 
 Both are trained with the ``tokenizers`` package on source files of the
 reference package (which does not change) by ``build_fixture``; a CPU
@@ -29,7 +36,8 @@ import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = {"llama3": os.path.join(HERE, "llama3"),
-            "phi3": os.path.join(HERE, "phi3")}
+            "phi3": os.path.join(HERE, "phi3"),
+            "bert": os.path.join(HERE, "bert")}
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 # training text: sources of the reference package, which stays unchanged
 CORPUS = (
@@ -47,6 +55,7 @@ LLAMA3_SPECIALS = (
     "<|end_header_id|>", "<|reserved_special_token_4|>", "<|eot_id|>",
 )
 PHI3_SPECIALS = ("<unk>", "<s>", "</s>")
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
 PHI3_CHAT = ("<|endoftext|>", "<|assistant|>", "<|placeholder1|>",
              "<|placeholder2|>", "<|placeholder3|>", "<|placeholder4|>",
              "<|system|>", "<|end|>", "<|placeholder5|>",
@@ -110,6 +119,61 @@ def _corpus() -> list:
     return lines
 
 
+def _build_bert() -> str:
+    """A WordPiece vocab counted from the corpus (``tokenizers``' own
+    WordPiece trainer breaks ties in hash order, so its files differ run
+    to run): the specials, every character alone and as a ``##`` piece,
+    then the most frequent words, word beginnings and ``##`` word endings
+    (ties by the string) up to ``VOCAB_SIZE``."""
+    from collections import Counter
+
+    from tokenizers import (
+        Tokenizer,
+        decoders,
+        models,
+        normalizers,
+        pre_tokenizers,
+        processors,
+    )
+
+    norm = normalizers.BertNormalizer()
+    pre = pre_tokenizers.BertPreTokenizer()
+    words: Counter = Counter()
+    for line in _corpus():
+        words.update(w for w, _ in pre.pre_tokenize_str(
+            norm.normalize_str(line)))
+
+    def top(counter, n):
+        return [w for w, _ in sorted(counter.items(),
+                                     key=lambda kv: (-kv[1], kv[0]))][:n]
+
+    heads: Counter = Counter()
+    tails: Counter = Counter()
+    for w, n in words.items():
+        for k in range(2, len(w) - 1):
+            heads[w[:k]] += n
+            tails["##" + w[k:]] += n
+    chars = sorted({c for w in words for c in w})
+    vocab = list(BERT_SPECIALS) + chars + ["##" + c for c in chars]
+    multi = Counter({w: c for w, c in words.items() if len(w) > 1})
+    for group in (top(multi, 1400), top(heads, 400), top(tails, len(tails))):
+        for w in group:
+            if len(vocab) >= VOCAB_SIZE:
+                break
+            if w not in vocab:
+                vocab.append(w)
+    tok = Tokenizer(models.WordPiece(
+        {w: i for i, w in enumerate(vocab)}, unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer()
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.decoder = decoders.WordPiece()
+    tok.add_special_tokens(list(BERT_SPECIALS))
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", pair="[CLS] $A [SEP] $B:1 [SEP]:1",
+        special_tokens=[(t, tok.token_to_id(t)) for t in ("[CLS]", "[SEP]")])
+    return tok.to_str()
+
+
 def build_fixture(kind: str) -> str:
     """The text of fixture ``kind``'s ``tokenizer.json``, trained now
     with the ``tokenizers`` package (imported here: the port's runtime
@@ -127,6 +191,8 @@ def build_fixture(kind: str) -> str:
 
     from helix_tpu_torch.serving.tokenizer_json import LLAMA3_PATTERN
 
+    if kind == "bert":
+        return _build_bert()
     if kind == "llama3":
         tok = Tokenizer(models.BPE(ignore_merges=True))
         tok.pre_tokenizer = pre_tokenizers.Sequence([
@@ -187,3 +253,20 @@ def write_fixtures(out: dict | None = None) -> dict:
         with open(paths[kind], "w", encoding="utf-8") as f:
             f.write(build_fixture(kind))
     return paths
+
+
+def bert_tokenizer_json(vocab_size: int = 30522) -> str:
+    """The committed ``bert`` fixture with its vocab padded by
+    ``[unused0]``, ``[unused1]``, ... to ``vocab_size`` entries (as BERT's
+    own vocab reserves them); the text BERT's pre-tokenizer makes never
+    reaches them, so the ids of any text are the fixture's."""
+    with open(os.path.join(FIXTURES["bert"], "tokenizer.json"),
+              encoding="utf-8") as f:
+        spec = json.load(f)
+    vocab = spec["model"]["vocab"]
+    if vocab_size < len(vocab):
+        raise ValueError(f"vocab_size {vocab_size} < the fixture's "
+                         f"{len(vocab)}")
+    for i in range(vocab_size - len(vocab)):
+        vocab[f"[unused{i}]"] = len(vocab)
+    return json.dumps(spec, ensure_ascii=False)

@@ -1180,3 +1180,108 @@ def test_heartbeat_payload_makes_no_synchronising_call(cuda):
     assert body["accelerators"][0]["vendor"] == "nvidia"
     assert {e["tenant"] for e in body["tenants"]["top"]} == {"t0", "t1",
                                                              "t2"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooling", ["cls", "mean"])
+def test_encoder_on_the_card_equals_its_cpu_path(cuda, pooling):
+    """``models.bge.forward`` on the card against the same weights on the
+    CPU, float32 (TF32 off: the default): max abs <= 1e-5 per component
+    of the unit vectors, ragged rows padded under the mask."""
+    from helix_tpu_torch.models import bge
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = bge.EncoderConfig(num_layers=2, pooling=pooling)
+    params = bge.init_params(cfg, seed=4, device="cpu")
+    on_card = bge.EmbeddingRunner(cfg, params, None,
+                                  max_batch=8).to(cuda)
+    on_cpu = bge.EmbeddingRunner(cfg, params, None, max_batch=8)
+    rng = np.random.default_rng(5)
+    rows = [list(rng.integers(0, cfg.vocab_size, n))
+            for n in (8, 33, 100, 512, 700, 1, 64, 250, 17)]
+    got, want = on_card.embed_tokens(rows), on_cpu.embed_tokens(rows)
+    assert got.shape == want.shape == (9, 768)
+    assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_unix_server_and_tunnel_round_trip_on_the_card(cuda, tmp_path):
+    """A tiny chat model and a tiny encoder on the card behind the unix
+    server and the port's tunnel, driven through the stand-in control
+    plane: an SSE chat's frames equal a direct chat's, the embeddings
+    equal the encoder's own output, and a dropped tunnel re-dials."""
+    import json
+    import threading
+    import time
+
+    from helix_tpu_torch.control.tunnel import TunnelAgent, UnixHTTPConnection
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.models import bge
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.serving.engine_loop import EngineLoop
+    from helix_tpu_torch.serving.openai_api import OpenAIServer
+    from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+    from helix_tpu_torch.testing.control_stub import ControlStub
+
+    tok = ByteTokenizer()
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    eng = Engine(cfg, init_params(cfg, 0, device=cuda), EngineConfig(
+        max_decode_batch=4, page_size=16, num_pages=64, max_pages_per_seq=8,
+        max_prefill_len=64, eos_token_ids=tok.eos_ids), device=cuda)
+    loop = EngineLoop(eng, "chat").start()
+    ecfg = bge.EncoderConfig.tiny()
+    embedder = bge.EmbeddingRunner(
+        ecfg, bge.init_params(ecfg, seed=1, device=cuda), tok, max_batch=4)
+    reg = ModelRegistry()
+    reg.register(ServedModel(name="chat", loop=loop, tokenizer=tok))
+    reg.register(ServedModel(name="enc", loop=None, tokenizer=tok,
+                             kind="embedding", embedder=embedder))
+    path = str(tmp_path / "node.sock")
+    httpd = OpenAIServer(reg).make_unix_server(path)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    stub = ControlStub().start()
+    agent = TunnelAgent("card", stub.url, unix_socket=path,
+                        reconnect_delay=0.2).start()
+    body = {"model": "chat", "max_tokens": 8, "temperature": 0,
+            "stream": True, "messages": [{"role": "user", "content": "hi"}]}
+
+    def frames(raw):
+        return [{k: v for k, v in json.loads(x[6:]).items()
+                 if k not in ("id", "created")}
+                for x in raw.split(b"\n\n") if x.startswith(b"data: {")]
+
+    try:
+        status, _h, chunks = stub.tunnel_request(
+            "card", "POST", "/v1/chat/completions", {},
+            json.dumps(body).encode())
+        tunneled = b"".join(chunks)
+        conn = UnixHTTPConnection(path)
+        conn.request("POST", "/v1/chat/completions",
+                     body=json.dumps(body).encode())
+        direct = conn.getresponse().read()
+        conn.close()
+        assert status == 200 and frames(tunneled) == frames(direct)
+        status, _h, chunks = stub.tunnel_request(
+            "card", "POST", "/v1/embeddings", {},
+            json.dumps({"model": "enc", "input": ["a", "bc"]}).encode())
+        doc = json.loads(b"".join(chunks))
+        want = embedder.embed_texts(["a", "bc"])
+        got = np.array([d["embedding"] for d in doc["data"]])
+        assert status == 200 and np.abs(got - want).max() == 0.0
+        stub.drop_tunnel("card")
+        deadline = time.monotonic() + 10
+        while agent.connects < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        status, _h, chunks = stub.tunnel_request(
+            "card", "POST", "/v1/chat/completions", {},
+            json.dumps(body).encode())
+        assert status == 200 and frames(b"".join(chunks)) == frames(direct)
+        assert agent.connects == 2
+    finally:
+        agent.stop(join=True)
+        stub.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        loop.stop(join=True)

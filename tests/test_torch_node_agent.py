@@ -16,9 +16,11 @@
   ``merge_rollups`` of the engines' rollups and passes the reference's
   ``validate_tenant_rollup`` unchanged, the adapters block passes
   ``validate_adapter_block`` unchanged.  ``dev-tiny`` as written is
-  refused (``tiny-embed``, A17) with nothing built; an invalid profile
-  fails with the reference's text; a diff re-apply keeps the kept model's
-  loop object and frees the dropped one.
+  served (its chat and embedding entries, through the agent's own
+  builder); a vision entry (A17b) and ``role: prefill`` (A12) are refused
+  with nothing built; an invalid profile fails with the reference's
+  text; a diff re-apply keeps the kept model's loop object and frees the
+  dropped one.
 - **Through the reference control plane** (aiohttp, in process): the port
   runner (``cli.make_node``) heartbeats, polls and applies an assigned
   profile; a streamed greedy chat routed to it and to a JAX runner gives
@@ -60,6 +62,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
@@ -535,19 +538,96 @@ def test_apply_and_heartbeat_equal_reference(weights, monkeypatch):
 
 
 def test_refused_profile_fails_before_anything_is_built(weights):
-    path = os.path.join(ROOT, "profiles", "dev-tiny.yaml")
-    with open(path) as f:
-        prof = tprofile.ServingProfile.from_yaml(f.read())
+    """A profile with a vision kind (not ported: A17b) fails its apply by
+    name, every entry checked before anything is built."""
+    with open(os.path.join(ROOT, "profiles", "dev-tiny.yaml")) as f:
+        doc = yaml.safe_load(f)
+    doc["models"].append({"name": "tiny-vembed", "kind": "vision-embedding"})
+    prof = tprofile.ServingProfile.from_dict(doc)
     built = []
     agent = tagent.NodeAgent("r1", build_model=_port_build(weights, built),
                              device="cpu")
     state = agent.apply_profile(prof)
     assert state.status == "failed" and built == []
-    assert "tiny-embed: kind 'embedding' is not ported yet (ROADMAP A17)" \
-        in state.error
-    assert "tiny-chat" not in state.error   # the chat entry is served
+    assert ("tiny-vembed: kind 'vision-embedding' is not ported yet "
+            "(ROADMAP A17b)") in state.error
+    # the chat and the embedding entries are served
+    assert "tiny-chat" not in state.error and "tiny-embed" not in state.error
     assert agent.registry.names() == []
     assert isinstance(agent.apply_exception, NotImplementedError)
+
+
+def test_dev_tiny_as_written_serves_both_entries():
+    """``profiles/dev-tiny.yaml`` as written, through the agent's own
+    builder (``cli.build_served_model``) on the CPU: the chat entry with
+    every engine field (its ``attn_backend: reference`` dropped: the
+    wrappers run their plain versions on CPU tensors) and the embedding
+    entry (the reference's tiny encoder); the heartbeat lists both,
+    saturation counts the chat engine's slots only, and both answer."""
+    with open(os.path.join(ROOT, "profiles", "dev-tiny.yaml")) as f:
+        prof = tprofile.ServingProfile.from_yaml(f.read())
+    agent = tagent.NodeAgent("r1", device="cpu", warmup=False)
+    try:
+        state = agent.apply_profile(prof)
+        assert state.status == "running", state.error
+        assert state.models == ["tiny-chat", "tiny-embed"]
+        embed = agent.registry.get("tiny-embed")
+        assert embed.kind == "embedding" and embed.loop is None
+        assert embed.embedder.max_batch == 32
+        chat = agent.registry.get("tiny-chat")
+        ecfg = chat.loop.engine.cfg
+        assert (ecfg.enable_spec_decode, ecfg.spec_tokens,
+                ecfg.host_pool_bytes, ecfg.adapter_pool_slots,
+                ecfg.attn_backend) == (True, 4, 16777216, 3, None)
+        beat = agent.heartbeat_payload()
+        assert beat["profile"]["models"] == ["tiny-chat", "tiny-embed"]
+        assert beat["saturation"]["slots_total"] == 2
+        api = OpenAIServer(agent.registry)
+        httpd = api.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            status, out = _post(url + "/v1/embeddings", {
+                "model": "tiny-embed", "input": ["dev", "profile"]})
+            assert status == 200
+            vecs = np.array([d["embedding"] for d in json.loads(out)["data"]])
+            assert vecs.shape == (2, 32)
+            assert np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-5)
+            status, out = _post(url + "/v1/chat/completions", {
+                "model": "tiny-chat", "max_tokens": 4, "temperature": 0,
+                "messages": [{"role": "user", "content": "hi"}]})
+            assert status == 200, out
+        finally:
+            httpd.shutdown()
+    finally:
+        agent.stop()
+
+
+@pytest.mark.parametrize("how", ["profile", "env"])
+def test_prefill_role_is_refused_at_apply(weights, monkeypatch, how):
+    """``role: prefill`` (or ``HELIX_POOL_ROLE=prefill``) would join the
+    prefill pool without the disaggregated handoff: refused by name
+    (A12), nothing built; ``decode`` and ``mixed`` stay served."""
+    path = os.path.join(ROOT, "profiles", "dev-tiny-prefill.yaml")
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    if how == "env":
+        doc.pop("role")
+        monkeypatch.setenv("HELIX_POOL_ROLE", "prefill")
+    built = []
+    agent = tagent.NodeAgent("r1", build_model=_port_build(weights, built),
+                             device="cpu")
+    state = agent.apply_profile(tprofile.ServingProfile.from_dict(doc))
+    assert state.status == "failed" and built == []
+    assert "role 'prefill'" in state.error and "ROADMAP A12" in state.error
+    for role in ("decode", "mixed"):
+        monkeypatch.delenv("HELIX_POOL_ROLE", raising=False)
+        doc["role"] = role
+        agent = tagent.NodeAgent("r1", build_model=_port_build(weights),
+                                 device="cpu")
+        state = agent.apply_profile(tprofile.ServingProfile.from_dict(doc))
+        assert state.status == "running", state.error
+        assert agent.pool_role() == role
+        agent.stop()
 
 
 def test_invalid_profile_fails_with_reference_text(weights):
@@ -1167,5 +1247,8 @@ def test_serve_node_exits_zero_after_its_drain(how):
 
 
 def test_tunnel_is_refused_by_name(capsys):
+    """``--tunnel`` is served (``tests/test_torch_tunnel.py``); without
+    ``--control-plane`` to dial it is refused with the reference's
+    text."""
     assert cli.main(["serve-node", "--tunnel", "--device", "cpu"]) == 2
-    assert "A7c" in capsys.readouterr().err
+    assert "--tunnel requires --control-plane" in capsys.readouterr().err

@@ -525,7 +525,10 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "importlib.import_module('helix_tpu_torch.serving.openai_api')\n"
         "importlib.import_module('helix_tpu_torch.testing.metric_families')\n"
         "for m in ('control.profile', 'control.node_agent', "
-        "'serving.logbuf', 'cli', 'testing.control_stub'):\n"
+        "'serving.logbuf', 'cli', 'testing.control_stub', "
+        "'control.tunnel', 'control.websocket', 'models.bge', "
+        "'serving.tokenizer_json', 'testing.hf_checkpoint', "
+        "'testing.tokenizer_fixtures'):\n"
         "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"

@@ -259,3 +259,80 @@ def test_int8_profile_entry_serves_int8_weights_and_kv(tmp_path):
     with pytest.raises(ValueError, match="quantization"):
         build_served_model(MODEL, device="cpu", engine=ENGINE,
                            quantization="int4")
+
+
+def test_client_hang_up_frees_the_slot_without_a_traceback(caplog):
+    """A client that reads one SSE frame and closes its socket: the
+    server's next write fails, the stream's generator is closed (the
+    request aborted, its slot freed) and one line is logged; the
+    server's ``handle_error`` (socketserver's traceback) is never
+    called."""
+    import logging
+    import socket
+    import time
+
+    served = build_served_model(MODEL, device="cpu", engine=ENGINE,
+                                model_overrides={"dtype": "float32"}, seed=3)
+    registry = ModelRegistry()
+    registry.register(served)
+    httpd = OpenAIServer(registry, inter_token_timeout=60).start()
+    errors = []
+    httpd.handle_error = lambda request, address: errors.append(address)
+    body = json.dumps({"model": MODEL, "max_tokens": 200, "temperature": 0,
+                       "stream": True, "messages": [
+                           {"role": "user", "content": "a long answer"}]})
+    try:
+        with caplog.at_level(logging.INFO,
+                             logger="helix_tpu_torch.serving.openai_api"):
+            s = socket.create_connection(httpd.server_address, timeout=30)
+            s.sendall((f"POST /v1/chat/completions HTTP/1.1\r\n"
+                       f"Host: x\r\nContent-Type: application/json\r\n"
+                       f"Content-Length: {len(body)}\r\n\r\n{body}").encode())
+            got = b""
+            while b"data: " not in got:
+                got += s.recv(4096)
+            s.close()
+            eng = served.loop.engine
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline and (
+                    any(r is not None for r in eng.slots) or eng.waiting
+                    or not any("hung up" in r.message
+                               for r in caplog.records)):
+                time.sleep(0.02)
+        assert all(r is None for r in eng.slots) and not eng.waiting
+        hung = [r for r in caplog.records if "hung up" in r.message]
+        assert len(hung) == 1 and "/v1/chat/completions" in \
+            hung[0].getMessage()
+        assert errors == []
+        # the server goes on answering
+        status, _, text = _post(
+            f"http://127.0.0.1:{httpd.server_address[1]}",
+            "/v1/chat/completions",
+            {"model": MODEL, "max_tokens": 3, "temperature": 0,
+             "messages": [{"role": "user", "content": "hi"}]})
+        assert status == 200
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        registry.unregister(MODEL)
+
+
+def test_profile_attn_backend_reference_is_dropped_not_refused(tmp_path):
+    """A profile entry's ``attn_backend: reference`` (the reference's
+    switch to its attention without Pallas, for the CPU, as
+    ``profiles/dev-tiny.yaml`` writes it) is dropped: the served path
+    always runs the kernels' wrappers.  Asked of ``build_served_model``
+    or ``--engine`` it stays refused (above)."""
+    from helix_tpu_torch.cli import _model_specs
+
+    prof = tmp_path / "p.json"
+    prof.write_text(json.dumps({"name": "p", "models": [{
+        "name": MODEL, "engine": {**ENGINE, "attn_backend": "reference"}}]}))
+    args = type("A", (), {"engine": None, "profile": str(prof), "model": None,
+                          "random_weights": False, "seed": 0})()
+    (spec,) = _model_specs(args)
+    assert spec["engine"] == ENGINE
+    args.engine = ["attn_backend=reference"]
+    (spec,) = _model_specs(args)
+    with pytest.raises(ValueError, match="attn_backend"):
+        build_served_model(device="cpu", **spec)

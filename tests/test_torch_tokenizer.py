@@ -1,8 +1,10 @@
 """The port's pure-Python ``tokenizer.json`` reader against the
 ``tokenizers`` package (0.22), on the CPU.
 
-Files: the two committed fixtures (``helix_tpu_torch/testing/
-tokenizer_fixtures``: Llama-3 style and Phi-3 / Llama-2 style), and
+Files: the three committed fixtures (``helix_tpu_torch/testing/
+tokenizer_fixtures``: Llama-3 style, Phi-3 / Llama-2 style and BERT /
+bge style, WordPiece), the BERT fixture padded to bge-base's 30522
+entries, and
 files built here with ``tokenizers``: Qwen-2 style (NFC, the Qwen
 pattern, ByteLevel, ChatML specials), GPT-2 style (ByteLevel's own regex
 with ``add_prefix_space``) and Metaspace style.  Encode ids, and decode
@@ -113,7 +115,7 @@ def pairs(files):
             for k, p in files.items()}
 
 
-KINDS = ["llama3", "phi3", "qwen2", "gpt2", "metaspace"]
+KINDS = ["llama3", "phi3", "qwen2", "gpt2", "metaspace", "bert"]
 
 
 def _same(ref, port, text):
@@ -317,8 +319,14 @@ REFUSED = {
         pre_tokenizer={"type": "Whitespace"}),
     "Split pattern": lambda s: _split(s, pattern={"Regex": r"\w+"}),
     "Split pre-tokenizer": lambda s: _split(s, behavior="Removed"),
+    # WordPiece is read; a field its decoder does not have is refused
     "decoder 'WordPiece'": lambda s: s.update(decoder={
-        "type": "WordPiece", "prefix": "##", "cleanup": True}),
+        "type": "WordPiece", "prefix": "##", "cleanup": True,
+        "continuing_subword_prefix": "##"}),
+    "normalizer 'BertNormalizer' flag": lambda s: s.update(normalizer={
+        "type": "BertNormalizer", "lowercase": True, "nfkc": True}),
+    "pre-tokenizer 'WhitespaceSplit'": lambda s: s.update(
+        pre_tokenizer={"type": "WhitespaceSplit"}),
 }
 
 
@@ -345,3 +353,75 @@ def test_long_word_merges_in_order(pairs):
     text = fx.system_prompt() * 3
     assert len(port.encode(text)) > 4000
     _same(ref, port, text)
+
+
+# BERT's components: accents (composed and combining), CJK inside and
+# just outside the runtime's blocks, ASCII punctuation that Unicode
+# calls a symbol, Unicode punctuation, control and format characters,
+# NUL and U+FFFD, white space of every kind, unknown sub-words, and a
+# word past max_input_chars_per_word (100)
+BERT_TEXTS = [
+    "Héllo, WORLD! Crème brûlée à la café; naïve façade.",
+    "e\u0301 o\u0308 A\u030a combining marks",
+    "世界和平 日本語のテキスト 𫠟𫠠 𫤟𫤠 한국어",
+    "$5 + 3 = <8> ^_^ `code` |pipe| ~tilde~ @at #hash %pct &amp *star",
+    "«quotes» „low“ ‘single’ — dash – ¿qué? ¡sí! … ·",
+    "tab\tnew\nline\r\nret \x00nul \ufffdrep \x1c\x1f\x7f\x85 "
+    "\u200b\u200d\u2060zero \ufeffbom \u00a0nbsp \u3000ideo",
+    "zxqvkj qqqq unknownsubwordsxyz embeddingsx ##hash [CLS] x [SEP]",
+    "pneumonoultramicroscopicsilicovolcanoconiosis" * 3,
+    "a" * 100 + " " + "b" * 101,
+    "ΟΔΟΣ Σσς İstanbul ß ﬀ Ⅻ ½ ² ＡＢＣ",
+    "don't do not I'm we've they're it's ' quoted ' n't",
+    "",
+    "   ",
+]
+_BERT_PIECES = ["Héllo", "e\u0301", "世界", "𫠠", "𫤠", "$", "<", "^", "`",
+                "|", "«", "—", "¿", "…", "\t", "\n", "\x00", "\ufffd",
+                "\x1c", "\x85", "\u200b", "\u3000", " ", "  ", "zxqv",
+                "embed", "##", "[CLS]", "[MASK]", "Σ", "İ", "ß", "'", ".",
+                "don't", "x" * 101, "ＡＢ", "1.5", "²", "\u0378", "\ue000",
+                "\U0002b81f"]
+
+
+def test_wordpiece_equals_tokenizers(pairs):
+    ref, port = pairs["bert"]
+    spec = json.load(open(os.path.join(fx.FIXTURES["bert"],
+                                       "tokenizer.json"), encoding="utf-8"))
+    assert spec["model"]["type"] == "WordPiece"
+    assert spec["normalizer"]["type"] == "BertNormalizer"
+    assert spec["pre_tokenizer"]["type"] == "BertPreTokenizer"
+    assert spec["post_processor"]["type"] == "TemplateProcessing"
+    unk = ref.token_to_id("[UNK]")
+    for text in BERT_TEXTS:
+        ids = _same(ref, port, text)
+        # special tokens are never added (the reference encodes with
+        # add_special_tokens=False)
+        assert ref.token_to_id("[CLS]") not in ids or "[CLS]" in text
+    assert unk in port.encode("a" * 101) == [unk]
+    assert port.encode("a" * 100) != [unk]
+
+
+@settings(max_examples=200, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(st.lists(st.sampled_from(_BERT_PIECES), max_size=16))
+def test_wordpiece_hypothesis_strings(pairs, pieces):
+    ref, port = pairs["bert"]
+    _same(ref, port, "".join(pieces))
+
+
+def test_bert_fixture_padded_to_bge_base_vocab(tmp_path):
+    """The 30522-entry file phase 4k serves (written by the port's own
+    code, no ``tokenizers`` needed): ``tokenizers`` reads it, and the
+    port's ids equal its ids (and the unpadded fixture's)."""
+    text = fx.bert_tokenizer_json(30522)
+    path = tmp_path / "tokenizer.json"
+    path.write_text(text, encoding="utf-8")
+    ref, port = Tokenizer.from_file(str(path)), tj.TokenizerJSON(str(path))
+    small = tj.TokenizerJSON(os.path.join(fx.FIXTURES["bert"],
+                                          "tokenizer.json"))
+    assert ref.get_vocab_size() == port.vocab_size == 30522
+    for t in BERT_TEXTS + [fx.system_prompt()]:
+        assert _same(ref, port, t) == small.encode(t)
+    with pytest.raises(ValueError):
+        fx.bert_tokenizer_json(100)
