@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase slo     # those + the scheduler phase
     python3 chip_smoke.py --phase node    # those + the node-agent phase
     python3 chip_smoke.py --phase tunnel  # those + the tunnel phase
+    python3 chip_smoke.py --phase disagg  # those + the disagg phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -172,6 +173,16 @@ no result line):
    slot frees, no traceback); process S (``python -m helix_tpu_torch
    serve-node --tunnel``) gives T's vectors and exits 0 on SIGTERM with
    4 streams in flight, each ended whole;
+4l. the disaggregated prefill handoff and the persistent KV filestore
+   (``phase_disagg``): node P (the Llama entry with ``role: prefill``)
+   and node D (``role: decode``) on one filestore directory; 8 greedy
+   chats over a shared ~1500-token system prompt handed from P to D
+   through the stub's plan (every token once, the counters up by 8),
+   the same 8 colocated on D, a dropped and a corrupt transfer served
+   whole on P, P's blobs, a restarted node restoring the shared prompt
+   from disk against a cold node, a torn blob recomputed; the same at 2
+   layers in float32 with handoff = colocated and warm = cold demanded;
+   K2 and K1-int8 launches per node;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -3751,7 +3762,8 @@ def _host_us(loop, before: dict) -> dict:
 def _metric(text, name, **labels) -> float:
     want = name + "{" + ",".join(f'{k}="{v}"' for k, v in labels.items())
     for line in text.splitlines():
-        if line.startswith(want + "}") or line.startswith(want + ","):
+        if line.startswith(want + "}") or line.startswith(want + ",") \
+                or (not labels and line.startswith(name + " ")):
             return float(line.rsplit(" ", 1)[1])
     raise AssertionError(f"{name} {labels} not in the scrape")
 
@@ -5380,6 +5392,621 @@ def phase_tunnel(smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4l. the disaggregated prefill handoff and the persistent KV filestore
+# ---------------------------------------------------------------------------
+
+DISAGG_CHATS = 8
+DISAGG_TOKENS = 32            # new tokens per chat at full depth
+DISAGG_WITNESS_TOKENS = 64    # at 2 layers in float32
+# the restarted node's chat: the wave's system prompt, a user turn no chat
+# of the wave had
+DISAGG_RESTART_TURN = 10
+DISAGG_SOLO_TURN = 11
+
+
+def _disagg_msgs(i):
+    """Chat ``i`` of 4l: the one shared ~1500-token system prompt
+    (``_system_prompt(0)``) and a user turn of its own."""
+    return _msgs(0, f"Question {i}: what does rule {i} ask for?")
+
+
+@contextlib.contextmanager
+def _launches_by_thread(*forms):
+    """Attribute every launch the kernel counters ``forms`` count to the
+    thread that made it (each node's engine thread: 4l runs its nodes in
+    one process).  Yields ``{(counter name, thread): launches}``;
+    each counter still counts every launch as its wrapper adds it."""
+    counts: dict = {}
+    swapped = []
+
+    def attributed(base, name):
+        def get(self):
+            return self.__dict__["_launch_n"]
+
+        def put(self, v):
+            d = v - self.__dict__.get("_launch_n", 0)
+            self.__dict__["_launch_n"] = v
+            if d > 0:
+                # keyed by the thread object, which the dict keeps alive:
+                # an ident is reused once its thread has ended
+                key = (name, threading.current_thread())
+                counts[key] = counts.get(key, 0) + d
+
+        return type(base.__name__, (base,), {"launches": property(get, put)})
+
+    for form in forms:
+        base = type(form)
+        form.__dict__["_launch_n"] = form.__dict__.pop("launches")
+        form.__class__ = attributed(base, form.name)
+        swapped.append((form, base))
+    try:
+        yield counts
+    finally:
+        for form, base in swapped:
+            n = form.__dict__.pop("_launch_n")
+            form.__class__ = base
+            form.launches = n
+
+
+def _ttft_msgs(base, body) -> tuple:
+    """A streamed chat of ``body``: (seconds to the first content frame,
+    the text, the finish reason)."""
+    req = urllib.request.Request(
+        base + "/v1/chat/completions",
+        data=json.dumps({"model": MODEL, **body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    ttft, text, finish = None, "", None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            frame = json.loads(line[6:])
+            if "error" in frame:
+                raise AssertionError(f"stream failed: {frame}")
+            ch = frame["choices"][0]
+            if ch["delta"].get("content") and ttft is None:
+                ttft = time.monotonic() - t0
+            text += ch["delta"].get("content", "")
+            finish = ch["finish_reason"] or finish
+    return ttft, text, finish
+
+
+def _timed_calls(obj, name, log_to: list) -> None:
+    """Wrap ``obj.<name>`` (an instance attribute from then on) so each
+    call appends (seconds, its positional arguments) to ``log_to``."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        t0 = time.monotonic()
+        try:
+            return fn(*a, **kw)
+        finally:
+            log_to.append((time.monotonic() - t0, a))
+
+    setattr(obj, name, run)
+
+
+def _disagg_run(tag, profs, build, max_tokens, full) -> dict:
+    """One run of 4l on ``profs`` (``p``, ``d`` and ``w``: the prefill,
+    decode and restarted nodes' profiles), in process against the stub:
+    (1) P and D apply their profiles; (2) the handoff wave and the same 8
+    chats colocated on D; (3, ``full`` only) the degrade rungs; (4) the
+    filestore: P's blobs, P stopped, a restarted node W on the directory
+    against a cold node C without it, and (``full`` only) a fresh node X
+    after a blob was torn.  Returns the readings and each node's engine
+    thread, for the launch counts."""
+    import glob
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.engine.kv_cache import PrefixCache
+    from helix_tpu_torch.serving import migration
+    from helix_tpu_torch.serving.kv_filestore import KVFilestore
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+    from helix_tpu_torch.testing import faults
+    from helix_tpu_torch.testing.control_stub import ControlStub
+
+    out = {"threads": {}}
+    fsdir = tempfile.mkdtemp(prefix="helix-kvfs-")
+    tmpdir = tempfile.mkdtemp(prefix="helix-disagg-")
+    os.environ["HELIX_FILESTORE_KV_DIR"] = fsdir
+    stub = ControlStub().start()
+    live: dict = {}      # node -> (stop, its HTTP server)
+    agents: dict = {}
+    bodies = [{"messages": _disagg_msgs(i), "temperature": 0,
+               "max_tokens": max_tokens} for i in range(DISAGG_CHATS)]
+
+    def stop(rid):
+        halt, httpd = live.pop(rid)
+        halt()
+        httpd.shutdown()
+        httpd.server_close()
+
+    def start_node(rid, prof, dir_on=True):
+        """A node serving ``prof`` (serve-node --profile's wiring, no
+        control plane), with or without the filestore directory."""
+        if dir_on:
+            os.environ["HELIX_FILESTORE_KV_DIR"] = fsdir
+        else:
+            os.environ.pop("HELIX_FILESTORE_KV_DIR", None)
+        m0 = torch.cuda.memory_allocated()
+        reg, _mgr, httpd, base, _p = _node(prof, tmpdir, rid, build)
+        os.environ["HELIX_FILESTORE_KV_DIR"] = fsdir
+        loop = reg.get(MODEL).loop
+        out["threads"][rid] = loop._thread
+        live[rid] = (lambda: reg.unregister(MODEL), httpd)
+        return loop, base, torch.cuda.memory_allocated() - m0
+
+    try:
+        # (1) P and D through the stub's assignment poll
+        mem = {}
+        for rid in ("p", "d"):
+            m0 = torch.cuda.memory_allocated()
+            agent, httpd = cli.make_node(_node_args(stub.url, rid),
+                                         build_model=build)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            live[rid] = (agent.stop, httpd)
+            agents[rid] = agent
+            stub.wait_for(rid, lambda b: True, 60)
+            _apply_and_watch(stub, agent.address, rid, profs[rid],
+                             profs[rid]["name"])
+            mem[rid] = torch.cuda.memory_allocated() - m0
+            out["threads"][rid] = agent.registry.get(MODEL).loop._thread
+        agent_p, agent_d = agents.pop("p"), agents.pop("d")
+        lp = agent_p.registry.get(MODEL).loop
+        ld = agent_d.registry.get(MODEL).loop
+        roles = (stub.last("p")["role"], stub.last("d")["role"])
+        fs_p = lp.engine.kv_filestore
+        log(f"{tag} (1) nodes: P role {roles[0]}, D role {roles[1]}; "
+            f"device bytes P {mem['p']}, D {mem['d']} (together "
+            f"{torch.cuda.memory_allocated()}); P's host tier "
+            f"{lp.engine.cfg.host_pool_bytes} B, D's "
+            f"{ld.engine.cfg.host_pool_bytes} B; filestore {fsdir} "
+            f"(namespace {fs_p.namespace if fs_p else None})")
+        if roles != ("prefill", "decode") or fs_p is None \
+                or ld.engine.kv_filestore is None:
+            raise AssertionError(f"{tag} roles {roles} / filestore "
+                                 f"{fs_p}")
+        # (2) the handoff wave, with spies on P's export and D's imports
+        writes, puts = [], []
+        _timed_calls(fs_p.store, "write", writes)
+        _timed_calls(fs_p, "put", puts)
+        exports = []
+        _timed_calls(lp.engine, "export_prefill", exports)
+        base_p = agent_p.address
+        eos = set(lp.engine.cfg.eos_token_ids)
+
+        def handoffs(n, body_of):
+            """``n`` chats through the stub's plan, admitted together on
+            P, spied: (the plan's outputs, the counters' rises, per
+            handoff readings, the number delivered exactly once)."""
+            wires, d_import, d_events = {}, {}, {}
+            to_wire = migration.snapshot_to_wire
+            on_event = migration.ImportedStream.on_event
+            submit_import = ld.submit_import
+
+            def spy_wire(snap):
+                t0 = time.monotonic()
+                w = to_wire(snap)
+                wires[w["request_id"]] = (w, time.monotonic() - t0)
+                return w
+
+            def spy_event(stream, ev):
+                d_events.setdefault(stream.request_id, []).append(
+                    (time.monotonic(), ev))
+                on_event(stream, ev)
+
+            def spy_import(snap, *a, **kw):
+                d_import[snap.request_id] = time.monotonic()
+                return submit_import(snap, *a, **kw)
+
+            def scrape():
+                return _metric(urllib.request.urlopen(
+                    base_p + "/metrics", timeout=60).read().decode(),
+                    "helix_xfer_prefill_handoffs_total")
+
+            m0, x0 = scrape(), migration.XFER_STATS.snapshot()
+            st0 = (lp.stats()["migration"], ld.stats()["migration"])
+            migration.snapshot_to_wire = spy_wire
+            migration.ImportedStream.on_event = spy_event
+            ld.submit_import = spy_import
+            try:
+                outs, _e, _t, _t0 = _gated_calls(
+                    lp, n, lambda i: stub.disagg_request(
+                        MODEL, body_of(i), "p", "d"))
+            finally:
+                migration.snapshot_to_wire = to_wire
+                migration.ImportedStream.on_event = on_event
+                ld.submit_import = submit_import
+            x1 = migration.XFER_STATS.snapshot()
+            st1 = (lp.stats()["migration"], ld.stats()["migration"])
+            n_ok = max(1, x1["attempts"]["ok"] - x0["attempts"]["ok"])
+            rise = {"prefill_exports": st1[0]["prefill_exports"]
+                    - st0[0]["prefill_exports"],
+                    "imported": st1[1]["imported"] - st0[1]["imported"],
+                    "handoffs_metric": scrape() - m0,
+                    "ship_s": (x1["ship_seconds"] - x0["ship_seconds"])
+                    / n_ok,
+                    "wire_b64_bytes": (x1["shipped_bytes"]
+                                       - x0["shipped_bytes"]) / n_ok}
+            once, per = 0, []
+            for o in outs:
+                rid = o["request_id"]
+                if rid not in wires:
+                    per.append(None)
+                    continue
+                wire, enc_s = wires[rid]
+                prior = [t for t in wire["output_tokens"] if t not in eos]
+                evs = d_events.get(rid, [])
+                new = [ev.token_id for _t, ev in evs
+                       if not ev.error and ev.token_id not in eos]
+                if _ids(o["text"]) == prior + new and not o["errors"] \
+                        and o["finish"] in ("stop", "length"):
+                    once += 1
+                exp_s = next(s for s, a in exports if a[0] == rid)
+                per.append({"export_ms": 1e3 * (exp_s + enc_s),
+                            "pages": len(wire["pages"]),
+                            "import_to_first_ms": (
+                                1e3 * (evs[0][0] - d_import[rid])
+                                if evs and rid in d_import
+                                else float("nan")),
+                            "ttft_s": o["ttft_s"]})
+            rise["wire_json_bytes"] = (len(json.dumps(
+                next(iter(wires.values()))[0])) if wires else 0)
+            return outs, rise, per, once
+
+        def colocated(n, body_of):
+            """The same chats on D, admitted together, D's filestore
+            tier off (so that P's chats alone write the blobs)."""
+            fs_d, ld.engine.kv_filestore = ld.engine.kv_filestore, None
+            try:
+                got, _e, _t, _t0 = _gated_calls(
+                    ld, n, lambda i: _ttft_msgs(agent_d.address,
+                                                body_of(i)))
+            finally:
+                ld.engine.kv_filestore = fs_d
+            return got
+
+        outs, rise, per, once = handoffs(DISAGG_CHATS, lambda i: bodies[i])
+        colo = colocated(DISAGG_CHATS, lambda i: bodies[i])
+        rungs = [o["rung"] for o in outs]
+        wave = {**rise, "rungs": rungs, "once": once, "per": per,
+                "equal_colocated": sum(_ids(o["text"]) == _ids(c[1])
+                                       for o, c in zip(outs, colo)),
+                "ttft_handoff": _pcts([o["ttft_s"] for o in outs]),
+                "ttft_colocated": _pcts([c[0] for c in colo])}
+        out["wave"] = wave
+        pcts = {k: _pcts([q[k] for q in per if q])
+                for k in ("export_ms", "import_to_first_ms")}
+        log(f"{tag} (2) handoff wave of {DISAGG_CHATS} (admitted together "
+            f"on P): rungs {rungs}; every token once (client = P's "
+            f"emitted + D's new) {once} of {DISAGG_CHATS}; P "
+            f"prefill_exports +{wave['prefill_exports']}, D imported "
+            f"+{wave['imported']}, helix_xfer_prefill_handoffs_total "
+            f"+{wave['handoffs_metric']:.0f} on P's /metrics; per "
+            f"handoff: engine-thread export (gather, blake2b, encode) ms "
+            f"p50/p95 {pcts['export_ms'][0]:.1f}/{pcts['export_ms'][1]:.1f},"
+            f" pages {per[0]['pages'] if per[0] else '?'}, wire "
+            f"{wave['wire_json_bytes']} B JSON ({wave['wire_b64_bytes']:.0f}"
+            f" B of base64 pages), ship {wave['ship_s']:.3f} s, D's import "
+            f"to first token ms p50/p95 "
+            f"{pcts['import_to_first_ms'][0]:.1f}/"
+            f"{pcts['import_to_first_ms'][1]:.1f}; client TTFT p50/p95 "
+            f"through the handoff {wave['ttft_handoff'][0]:.3f}/"
+            f"{wave['ttft_handoff'][1]:.3f} s, colocated on D "
+            f"{wave['ttft_colocated'][0]:.3f}/"
+            f"{wave['ttft_colocated'][1]:.3f} s; ids equal to colocated "
+            f"(recorded) {wave['equal_colocated']} of {DISAGG_CHATS}")
+        if rungs != ["handoff"] * DISAGG_CHATS or once != DISAGG_CHATS \
+                or wave["prefill_exports"] != DISAGG_CHATS \
+                or wave["imported"] != DISAGG_CHATS \
+                or wave["handoffs_metric"] != DISAGG_CHATS:
+            raise AssertionError(f"{tag} handoff wave {wave}")
+        # one chat alone (its system prompt cached on both nodes): the
+        # handoff's costs without seven others contending for the host
+        solo_body = {"messages": _disagg_msgs(DISAGG_SOLO_TURN),
+                     "temperature": 0, "max_tokens": max_tokens}
+        s_outs, s_rise, s_per, s_once = handoffs(1, lambda i: solo_body)
+        s_colo = colocated(1, lambda i: solo_body)
+        solo = {**s_rise, "once": s_once, "rung": s_outs[0]["rung"],
+                **(s_per[0] or {}), "ttft_colocated": s_colo[0][0],
+                "equal_colocated": _ids(s_outs[0]["text"])
+                == _ids(s_colo[0][1])}
+        out["solo"] = solo
+        log(f"{tag} (2) one chat alone, its system prompt cached on P and "
+            f"D: rung {solo['rung']}, every token once {s_once == 1}; "
+            f"engine-thread export {solo.get('export_ms', float('nan')):.1f}"
+            f" ms, ship {solo['ship_s']:.3f} s, D's import to first token "
+            f"{solo.get('import_to_first_ms', float('nan')):.1f} ms; client "
+            f"TTFT through the handoff {solo.get('ttft_s') or float('nan'):.3f}"
+            f" s, colocated on D {solo['ttft_colocated']:.3f} s; ids equal "
+            f"(recorded) {solo['equal_colocated']}")
+        if solo["rung"] != "handoff" or s_once != 1:
+            raise AssertionError(f"{tag} solo handoff {solo}")
+        # (3) the degrade rungs: every ship attempt dropped, then every
+        # one corrupt; each stream is served whole on P
+        if full:
+            out["rungs"] = {}
+            for k, rule in enumerate(({"mode": "drop"},
+                                      {"mode": "corrupt", "page": 0})):
+                body = {"messages": _disagg_msgs(DISAGG_CHATS + k),
+                        "temperature": 0, "max_tokens": max_tokens}
+                d0 = (ld.engine.allocator.free_pages,
+                      ld.stats()["migration"]["imported"],
+                      ld.migration_failures)
+                x0 = migration.XFER_STATS.snapshot()
+                faults.arm(seed=0, rules=[{"point": "transfer",
+                                           "peer": "d", **rule}])
+                try:
+                    o = stub.disagg_request(MODEL, body, "p", "d")
+                finally:
+                    faults.disarm()
+                x1 = migration.XFER_STATS.snapshot()
+                d1 = (ld.engine.allocator.free_pages,
+                      ld.stats()["migration"]["imported"],
+                      ld.migration_failures)
+                att = {a: x1["attempts"][a] - x0["attempts"][a]
+                       for a in x1["attempts"]}
+                r = {"rung": o["rung"], "errors": o["errors"],
+                     "finish": o["finish"], "tokens": len(_ids(o["text"])),
+                     "attempts": att, "d_before": d0, "d_after": d1,
+                     "d_idle": not ld.engine.has_work()}
+                out["rungs"][rule["mode"]] = r
+                log(f"{tag} (3) transfer {rule['mode']} on every attempt: "
+                    f"rung {r['rung']}, {r['tokens']} tokens, finish "
+                    f"{r['finish']}, errors {r['errors']}; ship attempts "
+                    f"{ {a: n for a, n in att.items() if n} }; D (free "
+                    f"pages, imported, migration failures) {d0} -> {d1}, "
+                    f"idle {r['d_idle']}")
+                want_fail = 0 if rule["mode"] == "drop" else \
+                    att.get("rejected", 0)
+                if r["rung"] != "prefill_local" or r["errors"] \
+                        or r["finish"] not in ("stop", "length") \
+                        or r["tokens"] == 0 or d1[:2] != d0[:2] \
+                        or d1[2] - d0[2] != want_fail \
+                        or not r["d_idle"] \
+                        or att["ok"] != 0 or (att["unreachable"] if
+                                              rule["mode"] == "drop"
+                                              else att["rejected"]) == 0:
+                    raise AssertionError(f"{tag} degrade rung {r}")
+        # (4) the filestore: P's blobs, then P stops
+        fs_p.flush(300)
+        blobs = glob.glob(os.path.join(fsdir, KVFilestore.OWNER,
+                                       fs_p.namespace, "*", "*.json"))
+        sizes = [os.path.getsize(b) for b in blobs]
+        raw_page = lp.engine.cache_cfg.page_bytes(lp.engine.model_cfg)
+        w_bytes = sum(len(a[2]) for _s, a in writes)
+        fst = fs_p.stats()
+        w_s = sum(s for s, _a in writes)
+        put_ms = _pcts([1e3 * s for s, _a in puts])
+        log(f"{tag} (4) P's filestore after the flush: {len(blobs)} blobs, "
+            f"{np.mean(sizes):.0f} B per page as JSON (raw page "
+            f"{raw_page} B); stats {fst}; {len(writes)} disk writes (blobs "
+            f"and the usage ledger) of {w_bytes} B in {w_s:.3f} s, "
+            f"{w_bytes / max(w_s, 1e-9) / 1e6:.1f} MB/s; the writer's put "
+            f"(copy off the card, blake2b, encode, write) ms p50/p95 "
+            f"{put_ms[0]:.1f}/{put_ms[1]:.1f} over {len(puts)} calls")
+        out["filestore"] = {"blobs": len(blobs),
+                            "bytes_per_page": float(np.mean(sizes)),
+                            "raw_page": raw_page, "stats": fst,
+                            "write_s": w_s, "write_bytes": w_bytes,
+                            "put_ms": put_ms}
+        if not blobs or fst["stores"] < len(blobs) or fst["corrupt"]:
+            raise AssertionError(f"{tag} filestore {fst}")
+        t_stop = time.monotonic()
+        drain = agent_p.graceful_shutdown(drain=0.5)
+        _halt, httpd_p = live.pop("p")
+        httpd_p.shutdown()
+        httpd_p.server_close()
+        log(f"{tag} (4) P stopped through serve-node's SIGTERM path "
+            f"(graceful_shutdown, in process) in "
+            f"{time.monotonic() - t_stop:.2f} s: {drain}")
+        stop("d")
+        del lp, ld, agent_p, agent_d, fs_p
+        _free()
+        # the restarted node W on the directory, the cold node C without
+        tok = ByteTokenizer()
+        body = {"messages": _disagg_msgs(DISAGG_RESTART_TURN),
+                "temperature": 0, "max_tokens": max_tokens}
+        ids_w = tok.apply_chat_template(body["messages"],
+                                        add_generation_prompt=True)
+        ids_0 = tok.apply_chat_template(bodies[0]["messages"],
+                                        add_generation_prompt=True)
+        common = next((j for j, (a, b) in enumerate(zip(ids_w, ids_0))
+                       if a != b), min(len(ids_w), len(ids_0)))
+        ps = profs["w"]["models"][0]["engine"]["page_size"]
+        shared_pages = common // ps
+        lw, base_w, mem_w = start_node("w", profs["w"])
+        gets = []
+        _timed_calls(lw.engine.kv_filestore, "get", gets)
+        ttft_w, text_w, fin_w = _ttft_msgs(base_w, body)
+        ew = lw.engine
+        rs = {"restored": ew.filestore_restored_pages,
+              "hits": ew.kv_filestore.hits,
+              "read_ms_per_page": 1e3 * sum(s for s, _d in gets)
+              / max(1, len(gets)),
+              "restore_ms_per_page": 1e3 * ew.restore_seconds
+              / max(1, ew.filestore_restored_pages)}
+        stop("w")
+        del lw, ew
+        _free()
+        lc, base_c, _m = start_node("c", {**profs["w"], "name": "cold"},
+                                    dir_on=False)
+        cold_armed = lc.engine.kv_filestore is not None
+        ttft_c, text_c, _f = _ttft_msgs(base_c, body)
+        stop("c")
+        del lc
+        _free()
+        rs.update(ttft_warm=ttft_w, ttft_cold=ttft_c,
+                  equal=_ids(text_w) == _ids(text_c),
+                  shared_pages=shared_pages)
+        out["restart"] = rs
+        log(f"{tag} (4) restarted node W on the directory (device bytes "
+            f"{mem_w}): filestore_restored_pages {rs['restored']} (the "
+            f"shared prompt's full pages: {shared_pages}), hits "
+            f"{rs['hits']}, blob read + verify {rs['read_ms_per_page']:.2f} "
+            f"ms and restore {rs['restore_ms_per_page']:.3f} ms per page; "
+            f"TTFT warm {ttft_w:.3f} s against a cold node without the "
+            f"directory {ttft_c:.3f} s; greedy ids equal the cold node's "
+            f"{rs['equal']} ({'demanded' if not full else 'recorded'})")
+        if rs["restored"] < shared_pages or rs["hits"] < shared_pages \
+                or fin_w not in ("stop", "length") or cold_armed \
+                or (not full and not rs["equal"]):
+            raise AssertionError(f"{tag} restart {rs}")
+        if full:
+            # tear the chain's first blob: a fresh node X counts it
+            # corrupt, deletes it, recomputes the prompt and answers
+            first = PrefixCache.page_hashes(ids_w, ps,
+                                            (len(ids_w) - 1) // ps)[0].hex()
+            ns = next(iter(os.listdir(os.path.join(fsdir,
+                                                   KVFilestore.OWNER))))
+            path = os.path.join(fsdir, KVFilestore.OWNER, ns, first[:2],
+                                first + ".json")
+            with open(path, "r+b") as f:
+                f.truncate(os.path.getsize(path) // 2)
+            lx, base_x, _m = start_node("x", {**profs["w"],
+                                              "name": "torn"})
+            _t, text_x, fin_x = _ttft_msgs(base_x, body)
+            fx = lx.engine.kv_filestore
+            fx.flush(120)
+            tr = {"corrupt": fx.corrupt,
+                  "restored": lx.engine.filestore_restored_pages,
+                  "stores": fx.stores, "finish": fin_x,
+                  "rewritten": KVFilestore(fsdir, ns).get(first)
+                  is not None,
+                  "equal_cold": _ids(text_x) == _ids(text_c)}
+            stop("x")
+            del lx, fx
+            _free()
+            out["torn"] = tr
+            log(f"{tag} (4) first blob of the chain torn in half: fresh "
+                f"node X counted corrupt {tr['corrupt']}, restored "
+                f"{tr['restored']} pages, recomputed and answered "
+                f"({tr['finish']}), wrote {tr['stores']} blobs (the torn "
+                f"one again, verifying: {tr['rewritten']}); ids equal the "
+                f"cold node's {tr['equal_cold']}")
+            if tr["corrupt"] != 1 or tr["restored"] != 0 \
+                    or tr["finish"] not in ("stop", "length") \
+                    or not tr["rewritten"]:
+                raise AssertionError(f"{tag} torn blob {tr}")
+    finally:
+        os.environ.pop("HELIX_FILESTORE_KV_DIR", None)
+        for rid in list(live):
+            stop(rid)
+        stub.stop()
+        _free()
+    return out
+
+
+@_timed
+def phase_disagg(smi) -> dict:
+    """4l: the disaggregated prefill handoff and the persistent KV
+    filestore tier (A12), in process against the stand-in control plane
+    (``testing/control_stub.py``, whose ``disagg_request`` plays the
+    reference control plane's one handoff attempt).  Node P applies the
+    ``v5e1-hotswap`` Llama entry as written with ``role: prefill``, node
+    D the same entry and seed with ``role: decode`` (speculation on, as
+    written; its host tier cut), both with one ``HELIX_FILESTORE_KV_DIR``.
+    (2) 8 greedy streamed chats over one ~1500-token system prompt go
+    through the handoff, admitted together on P: each is exported at its
+    first token, shipped to D and resumed there; every token reaches the
+    client once (P's emitted tokens, then D's new ones), P's
+    ``prefill_exports``, D's ``imported`` and
+    ``helix_xfer_prefill_handoffs_total`` rise by 8; the same 8 are then
+    sent colocated to D (admitted together, its filestore tier off), and
+    their ids' agreement is recorded (bf16 ids depend on the batch shape:
+    ROADMAP C).  (3) A transfer dropped on every attempt, and a page
+    corrupted on every attempt: each stream is served whole on P, D's
+    pool and queue unchanged, both rungs counted.  (4) P's writer is
+    flushed (blobs, bytes per page, write MB/s), P stops through
+    serve-node's SIGTERM path, a restarted node W on the directory
+    restores the shared prompt's pages from disk (TTFT against a cold
+    node C without it), and after the chain's first blob is torn a fresh
+    node X counts it corrupt, recomputes and answers.  (5) The same wave
+    and restart at 2 layers in float32 (the witness): handoff and
+    colocated ids 8 of 8 equal, warm equal to cold.  (6) K2 and K1-int8
+    launches on P, on D and on the restarted node, from their engine
+    threads."""
+    import logging
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+
+    tag = f"[disagg] ({smi})"
+    logging.getLogger("helix_tpu_torch").setLevel(logging.INFO)
+    doc = cli._load_profile(HOTSWAP_PROFILE)
+    llama = next(m for m in doc["models"] if m["name"] == MODEL)
+
+    def profile(name, role, entry):
+        return {"name": name, "role": role,
+                "requirement": {"vendor": "nvidia", "chips": 1},
+                "models": [entry]}
+
+    cut = {**llama, "engine": {**llama["engine"], "host_pool_bytes": 0}}
+    profs = {"p": profile("disagg-p", "prefill", llama),
+             "d": profile("disagg-d", "decode", cut),
+             "w": profile("disagg-w", "prefill", llama)}
+    wit_entry = {**llama,
+                 "model_overrides": {"num_layers": 2, "dtype": "float32"},
+                 "engine": {**{k: v for k, v in llama["engine"].items()
+                               if k != "kv_cache_dtype"},
+                            "host_pool_bytes": 0}}
+    wit = {"p": profile("wit-p", "prefill", wit_entry),
+           "d": profile("wit-d", "decode", wit_entry),
+           "w": profile("wit-w", "prefill", wit_entry)}
+    log(f"{tag} cut: node D's engine.host_pool_bytes -> 0 (P keeps its "
+        "16 GiB tier; two are not needed for the handoff)")
+    from helix_tpu_torch.engine.residency import estimate_model_bytes
+    from helix_tpu_torch.models.common import CATALOG
+
+    est = estimate_model_bytes(CATALOG[MODEL], llama["engine"], "int8",
+                               headroom=0.0)
+    log(f"{tag} memory reckoned before the builds: a node holds "
+        f"{est} B (int8 weights and 3968 int8 pages of 1,081,344 B, the "
+        f"reference's estimate without headroom); P and D together "
+        f"{2 * est} B of the card's {torch.cuda.mem_get_info()[1]} B")
+
+    def build(**kw):
+        served = cli.build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        return served
+
+    K1.launches = K1_INT8.launches = K2.launches = 0
+    with _launches_by_thread(K1, K1_INT8, K2) as by_thread:
+        full = _disagg_run(tag, profs, build, DISAGG_TOKENS, full=True)
+        launches = {"ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches,
+                    "ragged_paged_attention": K1.launches}
+        node_launches = {
+            rid: {name: by_thread.get((name, thread), 0)
+                  for name in ("ragged_paged_attention_int8",
+                               "flash_attention")}
+            for rid, thread in full["threads"].items()}
+    log(f"{tag} (6) launches over the full-width run {launches}; by "
+        f"node's engine thread {node_launches}")
+    for rid in ("p", "d", "w"):
+        if node_launches[rid]["ragged_paged_attention_int8"] <= 0:
+            raise AssertionError(f"{tag} K1-int8 never ran on {rid}")
+    for rid in ("p", "d"):
+        if node_launches[rid]["flash_attention"] <= 0:
+            raise AssertionError(f"{tag} K2 never ran on {rid}")
+    witness = _disagg_run(tag + " witness, 2 layers float32", wit, build,
+                          DISAGG_WITNESS_TOKENS, full=False)
+    if witness["wave"]["equal_colocated"] != DISAGG_CHATS:
+        raise AssertionError(f"{tag} witness: handoff ids equal to "
+                             f"colocated {witness['wave']['equal_colocated']}"
+                             f" of {DISAGG_CHATS}")
+    log(f"{tag} (5) witness: handoff ids equal to colocated "
+        f"{witness['wave']['equal_colocated']} of {DISAGG_CHATS}; warm "
+        f"equal to cold {witness['restart']['equal']}")
+    return {"launches": launches, "nodes": node_launches, "full": full,
+            "witness": witness}
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -5477,13 +6104,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
-                             "checkpoint", "slo", "node", "tunnel"),
+                             "checkpoint", "slo", "node", "tunnel",
+                             "disagg"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
-                         "'node' / 'tunnel': those and the hot-swap / "
-                         "adapter / checkpoint / scheduler / node-agent / "
-                         "tunnel and embedding phase")
+                         "'node' / 'tunnel' / 'disagg': those and the "
+                         "hot-swap / adapter / checkpoint / scheduler / "
+                         "node-agent / tunnel and embedding / disagg "
+                         "handoff and filestore phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5525,6 +6154,10 @@ def main(argv=None) -> int:
         tun = phase_tunnel(dev["smi"])
         launches = {k: n for k, n in tun["launches"].items() if n}
         by_path = {k: {"tunnel": n} for k, n in launches.items()}
+    if args.phase == "disagg":
+        dis = phase_disagg(dev["smi"])
+        launches = {k: n for k, n in dis["launches"].items() if n}
+        by_path = {k: {"disagg": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -5546,6 +6179,7 @@ def main(argv=None) -> int:
             "texts": slo["chat_texts"], "busy_ms": slo["trace"]["on"][0],
             "from": "phase 4i"})
         tun = phase_tunnel(dev["smi"])
+        dis = phase_disagg(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -5563,7 +6197,8 @@ def main(argv=None) -> int:
                 "checkpoint": ck["launches"]["flash_attention"],
                 "slo": slo["launches"]["flash_attention"],
                 "node": node["launches"]["flash_attention"],
-                "tunnel": tun["launches"]["flash_attention"]},
+                "tunnel": tun["launches"]["flash_attention"],
+                "disagg": dis["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -5575,7 +6210,9 @@ def main(argv=None) -> int:
                 "slo": slo["launches"]["ragged_paged_attention_int8"],
                 "node": node["launches"]["ragged_paged_attention_int8"],
                 "tunnel":
-                    tun["launches"]["ragged_paged_attention_int8"]},
+                    tun["launches"]["ragged_paged_attention_int8"],
+                "disagg":
+                    dis["launches"]["ragged_paged_attention_int8"]},
         }
         phase_parity()
         phase_parity(int8=True)

@@ -79,9 +79,8 @@ mrope: A17b; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
 unknown activation) or that disagrees with the entry's
 ``model_overrides`` is refused at start.  What is not ported yet is
 refused there too, before any weights are made, naming its ROADMAP
-item: a ``vision`` or ``vision-embedding`` kind (A17b), a profile ``role:
-prefill`` or ``HELIX_POOL_ROLE=prefill`` (the disaggregated prefill
-handoff, A12), a ``mesh`` with an axis above 1
+item: a ``vision`` or ``vision-embedding`` kind (A17b), a ``mesh`` with an
+axis above 1
 (A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
 ``adapter`` merged into the weights at apply time (it restores a training
 checkpoint: A18), and engine fields of unported modules
@@ -104,6 +103,17 @@ pages with a typed ``kv_exhausted`` 503,
 ``HELIX_MAX_QUEUE_DEPTH`` and ``HELIX_MAX_QUEUED_TOKENS`` bound each
 loop's admission (a 429 ``queue_full`` past them; unbounded when unset)
 and ``HELIX_TENANT_TOP_K`` sets how many tenants get their own series.
+
+A profile's ``role`` (``prefill | decode | mixed``; ``HELIX_POOL_ROLE``
+beats it) goes out in the heartbeat, where the control plane reads it: a
+prefill node is sent streamed prompts marked for the disaggregated
+handoff (``X-Helix-Disagg``) and ships each request's KV to the decode
+node the request names as soon as its first token exists
+(``OpenAIServer``).  ``HELIX_FILESTORE_KV_DIR`` arms every chat engine's
+persistent KV tier (``serving.kv_filestore``): full prefix pages are
+written through to that directory and restored from it, across restarts
+and across the nodes that share it (``HELIX_FILESTORE_KV_QUOTA_BYTES``
+caps each tenant's writes).
 """
 
 from __future__ import annotations
@@ -121,8 +131,7 @@ import time
 
 import torch
 
-from helix_tpu_torch.control.profile import (
-    ProfileModel, ServingProfile, pool_role)
+from helix_tpu_torch.control.profile import ProfileModel, ServingProfile
 from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from helix_tpu_torch.engine.adapters import adapter_pool_slots_env
 from helix_tpu_torch.engine.engine import Engine, EngineConfig
@@ -132,6 +141,10 @@ from helix_tpu_torch.models.bge import EmbeddingRunner
 from helix_tpu_torch.models.llama import init_params
 from helix_tpu_torch.models.loader import load_config, load_params
 from helix_tpu_torch.serving.engine_loop import EngineLoop
+from helix_tpu_torch.serving.kv_filestore import (
+    filestore_for_engine,
+    kv_filestore_dir,
+)
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.registry import ServedModel
 from helix_tpu_torch.serving.sched import SchedConfig
@@ -249,6 +262,13 @@ def build_served_model(
     if warmup:
         eng.warmup()
     stamps.append(_stamp(dev))
+    fs_dir = kv_filestore_dir()
+    if fs_dir:
+        # the persistent KV tier, the ladder's bottom rung (the reference
+        # node agent arms it whenever the variable is set): full prefix
+        # pages persist across restarts and are shared with the nodes on
+        # the same directory
+        eng.kv_filestore = filestore_for_engine(fs_dir, cfg, eng.cache_cfg)
     loop = make_engine_loop(eng, name, slo)
     split = dict(zip(("load" if checkpoint else "init", "engine", "warmup"),
                      (b - a for a, b in zip(stamps, stamps[1:]))))
@@ -412,16 +432,6 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     return out
 
 
-def role_refusal(profile_role: str) -> str:
-    """The refusal of a pool role the port does not serve ("" when
-    served), read as the node agent reads it (``profile.pool_role``)."""
-    if pool_role(profile_role) == "prefill":
-        return ("role 'prefill': the disaggregated prefill handoff (the "
-                "snapshot shipped to a decode peer) is not ported yet "
-                "(ROADMAP A12); serve the node as decode or mixed")
-    return ""
-
-
 def model_specs(profile: ServingProfile, engine: dict | None = None,
                 random_weights: bool = False, seed: int = 0) -> list[dict]:
     """One ``build_served_model`` keyword set per model of ``profile``
@@ -430,9 +440,6 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
     entry before anything is built."""
     engine = engine or {}
     specs, refused = [], []
-    role = role_refusal(profile.role)
-    if role:
-        refused.append(role)
     for m in profile.models:
         eng = dict(m.engine)
         if m.kind == "chat" and eng.get("attn_backend") == "reference":

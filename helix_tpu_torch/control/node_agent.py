@@ -30,10 +30,13 @@ the reference sends an idle block: ``multihost`` (ROADMAP A15), ``canary``
 encoder with no engine loop (``cli.build_embedding_model``): it counts in
 the registry, the heartbeat's model list and the residency estimate (the
 reference's flat 256 MiB), not in the saturation summary.  A profile the
-port cannot serve (a vision kind, ``role: prefill`` or
-``HELIX_POOL_ROLE=prefill``, an adapter merged at apply, a mesh over more
-than one device, unported engine fields) fails the apply with the
-refusal's text before anything is built.
+port cannot serve (a vision kind, an adapter merged at apply, a mesh
+over more than one device, unported engine fields) fails the apply with
+the refusal's text before anything is built.  The profile's pool role
+(``prefill | decode | mixed``, ``HELIX_POOL_ROLE`` beating it) is
+heartbeated as ``role``; a prefill node hands each marked stream to a
+decode node (``serving.openai_api``), and ``HELIX_FILESTORE_KV_DIR`` arms
+each engine's persistent KV tier at build (``cli.build_served_model``).
 """
 
 from __future__ import annotations

@@ -58,7 +58,12 @@ device pages when a later prompt chains onto them; ``preempt`` swaps a
 decoder's private pages and sampler state out and ``_try_resume`` brings
 it back exactly; ``export_request`` / ``import_request`` move a request
 between engines (of either package) as a checksummed
-``RequestSnapshot``.
+``RequestSnapshot``; ``export_prefill`` is that export at the first
+token, the disaggregated prefill handoff.  ``kv_filestore`` (a
+``serving.kv_filestore.KVFilestore``, wired after construction) is the
+rung below the host tier: fresh full prompt pages write through to disk
+and a later prompt chaining onto them restores them from there, after a
+restart too.
 
 Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
 tiered contexts (A14), meshes and the multihost plan plane (A15), MoE
@@ -455,6 +460,11 @@ class Engine:
             HostPagePool(cfg.host_pool_bytes, device=self.device)
             if cfg.host_pool_bytes > 0 else None
         )
+        # the persistent filestore KV tier (``serving/kv_filestore``), the
+        # ladder's bottom rung, wired after construction (the node's
+        # builder arms it from HELIX_FILESTORE_KV_DIR); None = tier off
+        self.kv_filestore = None
+        self.filestore_restored_pages = 0
         self.preempted: list[PreemptedSeq] = []   # parked, resume FIFO
         self._resume_failures: list = []          # (req, reason) for the loop
         # resumed slots' histograms, re-injected at the next _sync_state
@@ -553,6 +563,7 @@ class Engine:
         self.restore_seconds = 0.0
         self.num_snapshots_exported = 0
         self.num_snapshots_imported = 0
+        self.num_prefill_exports = 0    # disaggregated prefill handoffs
         # verify calls issued, drafts proposed, drafts accepted
         self.num_spec_steps = 0
         self.num_spec_drafted_tokens = 0
@@ -895,14 +906,17 @@ class Engine:
         return cached[1]
 
     def _cached_prefix_pages(self, req: Request) -> int:
-        """Resident prefix length in pages: the device chain, then its
-        host-spilled continuation."""
+        """Resident prefix length in pages: the device chain, its
+        host-spilled continuation, then the filestore rung's."""
         if self.prefix_cache is None:
             return 0
         hashes = self._prompt_hashes(req)
         k = self.prefix_cache.match_len(hashes)
         if self.host_pool is not None:
             while k < len(hashes) and self.host_pool.contains(hashes[k]):
+                k += 1
+        if self.kv_filestore is not None:
+            while k < len(hashes) and self.kv_filestore.contains(hashes[k]):
                 k += 1
         return k
 
@@ -1104,6 +1118,12 @@ class Engine:
         restored = 0
         if use_cache and self.host_pool is not None and hashes:
             restored = self._restore_host_prefix(req, hashes, shared, pages)
+        if use_cache and self.kv_filestore is not None and hashes:
+            # the rung below the host tier: the chain's continuation may
+            # survive on disk across restarts; a missing or corrupt blob
+            # ends the chain and the rest prefills
+            restored += self._restore_filestore_prefix(
+                req, hashes, len(shared) + restored, pages)
         req.cached_tokens = (len(shared) + restored) * ps
         self.num_admitted += 1
         if self._budget_left is not None:
@@ -1166,6 +1186,38 @@ class Engine:
             if adopted:
                 # the cache owns them; the request holds one ref until
                 # it finishes
+                self.allocator.detach(req.id, adopted)
+                self._shared_pages.setdefault(req.id, []).extend(adopted)
+        return len(entries)
+
+    def _restore_filestore_prefix(self, req: Request, hashes: list, k: int,
+                                  pages: list) -> int:
+        """Promote the filestore-resident continuation of the prefix chain
+        (digests past position ``k``) into this request's fresh device
+        pages, as ``_restore_host_prefix`` does for the host tier: every
+        blob is checksum-verified by ``KVFilestore.get`` before the pool
+        is touched, a missing or corrupt one ends the chain, and the
+        restored pages re-adopt into the device prefix cache so the next
+        sharer hits on the device."""
+        entries: list = []
+        digests: list = []
+        while k + len(entries) < min(len(hashes), len(pages)):
+            h = hashes[k + len(entries)]
+            e = self.kv_filestore.get(h)
+            if e is None:   # a miss or a corrupt blob: the chain ends
+                break
+            entries.append(e)
+            digests.append(h)
+        if not entries:
+            return 0
+        t0 = time.monotonic()
+        targets = pages[k:k + len(entries)]
+        restore_pages(self.cache, targets, entries)
+        self.restore_seconds += time.monotonic() - t0
+        self.filestore_restored_pages += len(entries)
+        if self.prefix_cache is not None:
+            adopted = self.prefix_cache.adopt(digests, targets)
+            if adopted:
                 self.allocator.detach(req.id, adopted)
                 self._shared_pages.setdefault(req.id, []).extend(adopted)
         return len(entries)
@@ -1900,6 +1952,26 @@ class Engine:
         return RequestSnapshot(**base, **state, token_counts=sparse,
                                pages=pages, page_checksums=checksums)
 
+    def export_prefill(self, req_id: str) -> Optional[RequestSnapshot]:
+        """The disaggregated prefill handoff: a snapshot of a request
+        whose prefill has completed (its first token sampled, every
+        prompt page written), for a decode peer to import and continue
+        exactly.  None when the prefill has not finished (a peer replaying
+        the prompt would be cheaper than shipping), when the request
+        cannot be exported now (``export_request``: an unreconciled step
+        or deferred first token; the loop reconciles before it calls
+        this), or when the export carries no KV.  Mutates nothing: the
+        caller aborts the local request only once the ship is confirmed,
+        so a failed transfer degrades to local decode."""
+        req = self._requests.get(req_id)
+        if req is None or req.finished or not req.output_tokens:
+            return None
+        snap = self.export_request(req_id)
+        if snap is None or not snap.has_kv:
+            return None
+        self.num_prefill_exports += 1
+        return snap
+
     def import_request(self, snap: RequestSnapshot) -> Request:
         """Re-admit a snapshot on this engine.  Validation comes strictly
         before mutation: version, KV geometry (page size, layers, heads,
@@ -2453,6 +2525,35 @@ class Engine:
         if adopted:
             self.allocator.detach(req.id, adopted)
             self._shared_pages.setdefault(req.id, []).extend(adopted)
+        if self.kv_filestore is not None:
+            # write-through to the persistent rung: freshly prefilled full
+            # pages persist, so a restarted node (or a decode node on the
+            # shared directory) serves this prefix without prefilling it
+            self._store_filestore_pages(req, fresh_hashes, fresh_pages)
+
+    def _store_filestore_pages(self, req: Request, hashes: list,
+                               pages: list) -> None:
+        """Persist freshly prefilled full prefix pages: one gather of the
+        not-yet-stored subset into fresh buffers, queued on the current
+        stream after the prefill that wrote them, and an event recorded
+        behind it; the store's writer thread waits on the event, then
+        copies, checksums, encodes and writes (``put_async``)."""
+        want = [(h, p) for h, p in zip(hashes, pages)
+                if not self.kv_filestore.contains(h)]
+        if not want:
+            return
+        try:
+            arrays = gather_pages(self.cache, [p for _h, p in want])
+            ready = None
+            if self.cache.k_pages.is_cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+            for (h, _p), page_arrays in zip(want, arrays):
+                self.kv_filestore.put_async(h, page_arrays,
+                                            tenant=req.tenant, ready=ready)
+        except Exception:  # noqa: BLE001 — the tier degrades, never fails
+            logging.getLogger(__name__).exception(
+                "KV filestore write-through failed for request %s", req.id)
 
     def _finish(self, req: Request, reason: FinishReason) -> None:
         req.finished = True

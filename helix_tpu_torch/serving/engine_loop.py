@@ -44,7 +44,14 @@ keeps stepping until the deadline, then ships what is left through
 ``exporter`` (a ``PeerShipper``) with a ``migrated ... peer=`` terminal
 event, and fails only what could not ship.
 
-Not ported yet: the disaggregated prefill handoff (A12), multihost (A15).
+The disaggregated prefill handoff: a handler stages an export before it
+submits (``stage_disagg_export``); once the request's first token exists
+the engine thread reconciles any step in flight, snapshots the request
+(``Engine.export_prefill``), encodes the wire and hands it to the
+handler's callback, which ships it off this thread (``_disagg_tick``).
+The request keeps decoding here until the handler confirms the ship.
+
+Not ported yet: multihost (A15).
 """
 
 from __future__ import annotations
@@ -260,6 +267,13 @@ class EngineLoop:
         # on failure); None sheds survivors instead
         self.exporter: Optional[Callable[[dict], str]] = None
         self.migration_failures = 0   # failed exports / ships / imports
+        # staged disaggregated prefill exports: request id -> callback;
+        # the staged ids whose request has reached the engine, and those
+        # whose finishing token was emitted
+        self._disagg_cb: dict[str, Callable] = {}
+        self._disagg_live: set = set()
+        self._disagg_done: set = set()
+        self.disagg_exports = 0       # prefill snapshots handed to a handler
         engine.on_admit = self._note_admit
         if self._sched_active:
             engine.victim_policy = self.sched.preempt_order
@@ -453,6 +467,77 @@ class EngineLoop:
                              None))
         self._wake.set()
 
+    def stage_disagg_export(self, request_id: str, on_snapshot) -> None:
+        """Stage the disaggregated prefill export of ``request_id`` (call
+        before ``submit``, so the first token cannot race the staging):
+        once its prefill has completed the engine thread fires
+        ``on_snapshot(kind, wire)`` exactly once, ``kind`` being
+        ``"snapshot"`` (the wire attached; the request keeps decoding
+        here until the caller confirms the ship and aborts it),
+        ``"completed"`` (it finished before the export: serve the
+        buffered events), ``"local"`` (the export was refused or failed:
+        it goes on here) or ``"gone"`` (it vanished before the export)."""
+        self._disagg_cb[request_id] = on_snapshot
+
+    def unstage_disagg_export(self, request_id: str) -> None:
+        """Withdraw a staged export (the handler timed out or chose to
+        serve locally)."""
+        self._disagg_cb.pop(request_id, None)
+        self._disagg_live.discard(request_id)
+        self._disagg_done.discard(request_id)
+
+    def _handoff_work(self) -> bool:
+        """True when a staged export can act: its request reached the
+        engine and has a token, finished or vanished.  The loop then
+        reconciles any step in flight before ``_disagg_tick``: the export
+        gathers pages and reads the slot's sampler state, and
+        ``export_request`` refuses a request with an unreconciled step."""
+        for rid in list(self._disagg_cb):
+            if rid not in self._disagg_live:
+                continue   # staged, its submit not drained yet
+            req = self.engine.get_request(rid)
+            if req is None or req.finished or req.output_tokens:
+                return True
+        return False
+
+    def _disagg_tick(self) -> None:
+        """Engine-thread half of the handoff: export every staged request
+        whose prefill completed, encode its wire and hand it to the
+        callback; the handler ships it off this thread.  A request waits
+        here until its submit has reached the engine (the engine forgets
+        a finished request, so "not found" means gone only after that)."""
+        from helix_tpu_torch.serving.migration import snapshot_to_wire
+
+        for rid, cb in list(self._disagg_cb.items()):
+            if rid not in self._disagg_live:
+                continue
+            req = self.engine.get_request(rid)
+            if req is None or req.finished:
+                done = rid in self._disagg_done
+                self.unstage_disagg_export(rid)
+                cb("completed" if done else "gone", None)
+                continue
+            if not req.output_tokens:
+                continue   # still queued or prefilling
+            self.unstage_disagg_export(rid)
+            t0 = time.monotonic()
+            try:
+                snap = self.engine.export_prefill(rid)
+                wire = snapshot_to_wire(snap) if snap is not None else None
+            except Exception:  # noqa: BLE001 — degrade to local serving
+                log.exception("engine '%s' prefill export failed for "
+                              "request_id=%s", self.name, rid)
+                wire = None
+            if wire is None:
+                cb("local", None)
+                continue
+            self.disagg_exports += 1
+            self._trace.record(req.trace_id, "disagg export", t0,
+                               time.monotonic(), plane="engine",
+                               request_id=rid,
+                               pages=len(wire.get("pages") or ()))
+            cb("snapshot", wire)
+
     def start(self):
         if self.async_enabled:
             self._emit_stage.start(self.name)
@@ -522,7 +607,13 @@ class EngineLoop:
                 "imported": eng.num_snapshots_imported,
                 "failures": self.migration_failures,
                 "draining": self.draining,
+                # disaggregated prefill handoffs
+                "prefill_exports": eng.num_prefill_exports,
+                "disagg_exports": self.disagg_exports,
             },
+            # the persistent filestore KV tier; None = tier off
+            "filestore": (eng.kv_filestore.stats()
+                          if eng.kv_filestore is not None else None),
             # per-tenant SLO accounting: pooled totals + top-K bounding
             "tenants": self.slo.stats(),
             # scheduler policy + per-class admission / victim counters
@@ -638,6 +729,8 @@ class EngineLoop:
             except Exception as e:  # noqa: BLE001 — the thread must survive
                 on_event(_error_event(item.id, str(e)))
                 continue
+            if item.id in self._disagg_cb:
+                self._disagg_live.add(item.id)
             self._subscribers[item.id] = on_event
             self._admit_order.append(item.id)
 
@@ -741,6 +834,8 @@ class EngineLoop:
         events = []
         for idx, (req, token) in enumerate(emitted):
             fin = req.finished and last[req.id] == idx
+            if fin and req.id in self._disagg_cb:
+                self._disagg_done.add(req.id)
             events.append((req, fin, TokenEvent(
                 request_id=req.id, token_id=token, finished=fin,
                 finish_reason=(
@@ -1144,6 +1239,10 @@ class EngineLoop:
                 if not reconcile():
                     continue
                 self._memory_pressure_tick()
+            if self._disagg_cb and self._handoff_work():
+                if not reconcile():
+                    continue
+                self._disagg_tick()
             if not self.engine.has_work():
                 if not reconcile():
                     continue

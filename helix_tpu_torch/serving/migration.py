@@ -11,10 +11,11 @@ migration.py``.  The engine builds and consumes ``RequestSnapshot``s
   runner in either direction: a bf16 page travels as its raw 2-byte
   words under the dtype string ``"bfloat16"`` and decodes through an
   int16 view, without ``ml_dtypes``;
-- the **drain shipper** (``PeerShipper``): POSTs a wire snapshot to a
-  peer runner with per-attempt timeouts, capped exponential backoff and
-  a whole-transfer deadline (``urllib``: the card's machine has no
-  ``requests``);
+- the **shipper** (``PeerShipper``): POSTs a wire snapshot to a peer
+  runner with per-attempt timeouts, capped exponential backoff and a
+  whole-transfer deadline (``urllib``: the card's machine has no
+  ``requests``), for the drain and for the disaggregated prefill handoff
+  (the ``DISAGG_*`` headers; ``helix_xfer_prefill_handoffs_total``);
 - the **imported-stream registry** (``ImportedStreams``): a migrated-in
   request's token events buffer until ``POST /v1/migrate/resume``
   attaches, or its claim times out.
@@ -57,6 +58,7 @@ XFER_ATTEMPTS = "helix_xfer_attempts_total"
 XFER_SHIP_SECONDS = "helix_xfer_ship_seconds_total"
 XFER_SHIPPED_BYTES = "helix_xfer_shipped_bytes_total"
 XFER_DEADLINE_EXCEEDED = "helix_xfer_deadline_exceeded_total"
+XFER_PREFILL_HANDOFFS = "helix_xfer_prefill_handoffs_total"
 
 
 # every way one ship attempt can end
@@ -74,6 +76,7 @@ class XferStats:
         self.shipped_bytes = 0
         self.shipped_pages = 0
         self.deadline_exceeded = 0
+        self.prefill_handoffs = 0
 
     def note_attempt(self, outcome: str, seconds: float = 0.0) -> None:
         with self._lock:
@@ -82,7 +85,7 @@ class XferStats:
             self.attempts[outcome] += 1
             self.ship_seconds += max(0.0, seconds)
 
-    def note_shipped(self, wire: dict) -> None:
+    def note_shipped(self, wire: dict, prefill: bool = False) -> None:
         with self._lock:
             pages = wire.get("pages") or []
             self.shipped_pages += len(pages)
@@ -91,6 +94,8 @@ class XferStats:
                 for p in pages for f in (p or {}).values()
                 if isinstance(f, dict)
             )
+            if prefill:
+                self.prefill_handoffs += 1
 
     def note_deadline(self) -> None:
         with self._lock:
@@ -104,6 +109,7 @@ class XferStats:
                 "shipped_bytes": self.shipped_bytes,
                 "shipped_pages": self.shipped_pages,
                 "deadline_exceeded": self.deadline_exceeded,
+                "prefill_handoffs": self.prefill_handoffs,
             }
 
 
@@ -130,6 +136,10 @@ def collect_xfer(c) -> None:
     c.counter(
         XFER_DEADLINE_EXCEEDED, snap["deadline_exceeded"],
         help="Ships abandoned at the total transfer deadline",
+    )
+    c.counter(
+        XFER_PREFILL_HANDOFFS, snap["prefill_handoffs"],
+        help="Disaggregated prefill snapshots shipped to a decode peer",
     )
 
 
@@ -170,6 +180,14 @@ def parse_migrated_peer(message: str) -> Optional[str]:
         return None
     m = _PEER_RE.search(message)
     return m.group(1) if m else None
+
+
+# the disaggregated handoff's headers: the control plane marks a dispatch
+# prefill-only and names the decode peer the snapshot ships to
+# (runner-token gated on the runner, like /v1/migrate/*)
+DISAGG_HEADER = "X-Helix-Disagg"
+DISAGG_PEER_ID_HEADER = "X-Helix-Disagg-Peer"
+DISAGG_PEER_ADDR_HEADER = "X-Helix-Disagg-Peer-Addr"
 
 
 def _env_float(name: str, default: float) -> float:
@@ -508,7 +526,9 @@ def _flip_wire_page(wire: dict, page_idx: int) -> dict:
 
 
 class PeerShipper:
-    """Ships wire snapshots to a peer runner (the drain ladder).
+    """Ships wire snapshots to a peer runner (the drain ladder, and with
+    ``prefill=True`` the disaggregated prefill handoff, counted in
+    ``prefill_handoffs``).
 
     Targets are given (``targets=[{"id", "address", "models"}]``) or
     fetched once from the control plane's migration-targets endpoint.
@@ -521,7 +541,7 @@ class PeerShipper:
                  timeout: Optional[float] = None,
                  config: Optional[XferConfig] = None,
                  post=None, clock=time.monotonic, sleep=time.sleep,
-                 stats: Optional[XferStats] = None):
+                 stats: Optional[XferStats] = None, prefill: bool = False):
         self.control_plane_url = control_plane_url.rstrip("/")
         self.runner_id = runner_id
         self.runner_token = runner_token
@@ -533,6 +553,7 @@ class PeerShipper:
         self._clock = clock
         self._sleep = sleep
         self.stats = stats if stats is not None else XFER_STATS
+        self.prefill = prefill
 
     def _headers(self) -> dict:
         return ({"X-Runner-Token": self.runner_token}
@@ -614,7 +635,7 @@ class PeerShipper:
                 dt = self._clock() - t0
                 if r.status_code == 200:
                     self.stats.note_attempt("ok", dt)
-                    self.stats.note_shipped(body)
+                    self.stats.note_shipped(body, prefill=self.prefill)
                     return peer_id
                 self.stats.note_attempt(
                     "rejected" if 400 <= r.status_code < 500

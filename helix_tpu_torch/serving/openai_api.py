@@ -37,7 +37,13 @@ port needs no web framework:
   when it is refused) and ``POST /v1/migrate/resume`` (the imported
   request's stream as neutral SSE deltas: the catch-up text the client
   has not seen, then live tokens).  Both take ``X-Runner-Token`` when
-  ``HELIX_RUNNER_TOKEN`` is set.
+  ``HELIX_RUNNER_TOKEN`` is set;
+- the disaggregated prefill handoff: a streamed chat or completion that
+  carries ``X-Helix-Disagg`` (and the runner token, when one is set) is
+  prefilled here and, at its first token, shipped to the decode peer
+  that ``X-Helix-Disagg-Peer`` / ``-Peer-Addr`` name; the stream then
+  ends with the ``migrated ... peer=<id>`` frame, or is served here
+  whole when the export or the ship fails (``_disagg_prefill``);
 
 - ``GET /metrics``: Prometheus text rendered by the port's registry
   (``obs.metrics``), with the reference's ``_collect_metrics`` series
@@ -46,7 +52,8 @@ port needs no web framework:
   series, the loop's latency histograms, the tenant and SLO series
   (``obs.slo``), the scheduler's (``serving.sched``), the residency
   manager's, the adapters' (``engine.adapters``), the migration and
-  transfer series (``serving.migration``) and the trace-loss counter
+  transfer series (``serving.migration``), the filestore tier's
+  (``serving.kv_filestore``) and the trace-loss counter
   (``obs.trace``).  ``helix_mfu_estimate`` needs ``HELIX_PEAK_FLOPS``
   (the card's peak FLOP/s); without it the gauge is left out;
 - ``GET /v1/debug/traces``, ``/v1/debug/traces/{trace_id}`` (``?format=
@@ -130,12 +137,19 @@ from helix_tpu_torch.serving.engine_loop import (
     QUEUE_FULL,
     SHUTTING_DOWN,
 )
+from helix_tpu_torch.serving.kv_filestore import collect_filestore_kv
 from helix_tpu_torch.serving.migration import (
+    DISAGG_HEADER,
+    DISAGG_PEER_ADDR_HEADER,
+    DISAGG_PEER_ID_HEADER,
     MIGRATED,
     ImportedStream,
     ImportedStreams,
+    PeerShipper,
+    XferConfig,
     collect_runner_migration,
     collect_xfer,
+    migrated_error,
     migration_timeout,
     wire_to_snapshot,
 )
@@ -280,12 +294,19 @@ class OpenAIServer:
             trace_id=trace_id,
         )
         served.loop.submit(req, q.put)
+        yield from self.token_stream(served, req, sampling, q.get)
+
+    def token_stream(self, served, req: Request, sampling: SamplingParams,
+                     next_event):
+        """The ``generate`` tuples of a submitted request whose events
+        ``next_event(timeout)`` returns (raising ``queue.Empty`` past the
+        timeout); the request is aborted if the stream ends before it."""
         detok = IncrementalDetokenizer(served.tokenizer)
         emitted_len = 0
         try:
             while True:
                 try:
-                    ev = q.get(timeout=self.inter_token_timeout)
+                    ev = next_event(self.inter_token_timeout)
                 except queue.Empty:
                     served.loop.abort(req.id)
                     raise EngineRequestError(
@@ -366,6 +387,7 @@ class OpenAIServer:
             loop.slo.collect(c, lbl)
             loop.sched.collect(c, lbl)
             collect_runner_migration(c, loop, lbl)
+            collect_filestore_kv(c, loop, lbl)
             collect_adapter_metrics(c, loop, lbl)
             pc = eng.prefix_cache
             if pc is not None:
@@ -835,6 +857,15 @@ class _Handler(BaseHTTPRequestHandler):
                else f"cmpl-{uuid.uuid4().hex[:16]}")
         created = int(time.time())
         obj = "chat.completion" if chat else "text_completion"
+        if (self.headers.get(DISAGG_HEADER) and body.get("stream")
+                and self._runner_token_ok()):
+            # the control plane marked this dispatch prefill-only and
+            # named a decode peer; a non-stream body ignores the header
+            # and is served here
+            self._disagg_prefill(served, model, prompt_ids, sampling,
+                                 rid, created, obj, chat, tid, tenant,
+                                 adapter)
+            return
         gen = self.api.generate(served, prompt_ids, sampling, adapter,
                                 tenant=tenant, sched_class=self._sched_class(),
                                 trace_id=tid)
@@ -866,6 +897,167 @@ class _Handler(BaseHTTPRequestHandler):
                       "completion_tokens": n,
                       "total_tokens": len(prompt_ids) + n},
         })
+
+    def _disagg_prefill(self, served, model, prompt_ids, sampling, rid,
+                        created, obj, chat, tid, tenant, adapter) -> None:
+        """The disaggregated prefill handoff, runner side (the
+        reference's ``_disagg_prefill``, on this handler's thread).  The
+        request is submitted as an ordinary stream with its export
+        staged; once its first token exists the engine thread snapshots
+        it and the wire comes back here, where it ships to the decode
+        peer the headers name with the ``HELIX_XFER_*`` retry, backoff
+        and deadline discipline.  Every rung falls back one step, and
+        none leaves a stream stuck or wrong:
+
+        - the ship is confirmed: the local request is aborted and the
+          answer is the single ``migrated ... peer=<id>`` frame the
+          control plane resumes on the peer;
+        - the ship failed (the peer unreachable, the snapshot rejected as
+          corrupt, the deadline passed): the request never stopped
+          decoding here, and the stream is served from here, whole;
+        - the export was refused, or the prefill outran the deadline: the
+          request is served here;
+        - it finished before the export: its buffered events are the
+          stream."""
+        peer_id = self.headers.get(DISAGG_PEER_ID_HEADER, "")
+        peer_addr = self.headers.get(DISAGG_PEER_ADDR_HEADER, "")
+        loop = served.loop
+        traces = self.api.traces
+        itt = self.api.inter_token_timeout
+        itt = float("inf") if itt is None else itt
+        q: "queue.Queue" = queue.Queue()
+        req = Request(
+            id=f"req-{uuid.uuid4().hex[:12]}",
+            prompt_tokens=list(prompt_ids), sampling=sampling,
+            stop_token_ids=tuple(served.tokenizer.eos_ids),
+            adapter=adapter, tenant=tenant,
+            sched_class=self._sched_class(), trace_id=tid)
+        t_plan = time.monotonic()
+        if peer_addr:
+            loop.stage_disagg_export(
+                req.id, lambda kind, wire: q.put(("export", kind, wire)))
+        loop.submit(req, lambda ev: q.put(("ev", ev)))
+        traces.record(tid, "disagg handoff plan", t_plan, time.monotonic(),
+                      plane="runner", request_id=req.id,
+                      peer=peer_id or peer_addr or "(none)",
+                      staged=bool(peer_addr))
+        xfer = XferConfig()
+        deadline = time.monotonic() + xfer.deadline
+        last_event = time.monotonic()
+        buffered: list = []
+        t_wait = time.monotonic()
+        outcome, wire = (None, None) if peer_addr else ("local", None)
+        while outcome is None:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                # the prefill did not complete inside the transfer
+                # deadline: serve here, never a stuck handoff
+                loop.unstage_disagg_export(req.id)
+                outcome = "local"
+                break
+            try:
+                item = q.get(timeout=min(remaining, itt))
+            except queue.Empty:
+                loop.unstage_disagg_export(req.id)
+                if time.monotonic() - last_event < itt:
+                    # the transfer deadline cut the wait short, not a
+                    # wedged engine: serve here
+                    outcome = "local"
+                    break
+                loop.abort(req.id)
+                self._engine_error_reply(EngineRequestError(
+                    f"inter_token_timeout: no engine event for {itt:.0f}s; "
+                    f"request {req.id} aborted", request_id=req.id), tid)
+                return
+            last_event = time.monotonic()
+            if item[0] == "export":
+                kind = item[1]
+                if kind == "gone":
+                    self._json(502, _error_body(
+                        f"request {req.id} vanished before the prefill "
+                        "handoff", "overloaded_error", code="disagg_failed",
+                        trace_id=tid), {TRACE_HEADER: tid})
+                    return
+                outcome = kind if kind in ("snapshot", "completed") \
+                    else "local"
+                wire = item[2]
+                continue
+            ev = item[1]
+            if ev.error:
+                loop.unstage_disagg_export(req.id)
+                self._engine_error_reply(
+                    EngineRequestError(ev.error, request_id=req.id), tid)
+                return
+            buffered.append(ev)
+            if ev.finished:
+                loop.unstage_disagg_export(req.id)
+                outcome = "completed"
+        if peer_addr:
+            traces.record(tid, "disagg prefill wait", t_wait,
+                          time.monotonic(), plane="runner",
+                          request_id=req.id, outcome=outcome)
+        if outcome == "snapshot":
+            # the ship spends what is left of the one transfer deadline
+            # (prefill wait, every attempt and backoff)
+            shipper = PeerShipper(
+                runner_token=os.environ.get("HELIX_RUNNER_TOKEN", ""),
+                targets=[{"id": peer_id or peer_addr, "address": peer_addr,
+                          "models": [model]}],
+                config=XferConfig(
+                    attempt_timeout=xfer.attempt_timeout,
+                    max_attempts=xfer.max_attempts,
+                    backoff_base=xfer.backoff_base,
+                    backoff_cap=xfer.backoff_cap,
+                    deadline=max(0.0, deadline - time.monotonic())),
+                prefill=True)
+            peer, ship_err = None, ""
+            t_ship = time.monotonic()
+            try:
+                peer = shipper(wire)
+            except Exception as e:  # noqa: BLE001 — degrade to local serving
+                ship_err = str(e)
+            traces.record(tid, "disagg ship", t_ship, time.monotonic(),
+                          plane="runner", request_id=req.id,
+                          peer=peer or peer_id or peer_addr,
+                          outcome="confirmed" if peer is not None
+                          else "failed")
+            if peer is not None:
+                # confirmed: tear the local request down and hand the
+                # stream to the control plane's resume
+                loop.abort(req.id)
+                now = time.monotonic()
+                traces.record(tid, "disagg migrated frame", now, now,
+                              plane="runner", request_id=req.id, peer=peer)
+                err = {"message": migrated_error(req.id, peer),
+                       "code": MIGRATED, "request_id": req.id}
+                if tid:
+                    err["trace_id"] = tid
+                self._start_sse()
+                self._sse({"error": err})
+                self._sse("[DONE]")
+                return
+            log.warning("disagg ship for request %s to %s failed (%s): "
+                        "serving locally", req.id, peer_id or peer_addr,
+                        ship_err[:200])
+        if peer_addr and outcome != "completed":
+            # a fallback rung: name it, so the timeline says why the
+            # decode peer never appears
+            now = time.monotonic()
+            traces.record(tid, "disagg fallback rung", now, now,
+                          plane="runner", request_id=req.id,
+                          rung=("ship_failed" if outcome == "snapshot"
+                                else "prefill_local"))
+
+        def next_event(timeout):
+            while not buffered:
+                item = q.get(timeout=timeout)
+                if item[0] == "ev":   # a late export sentinel is moot
+                    return item[1]
+            return buffered.pop(0)
+
+        self._stream(self.api.token_stream(served, req, sampling,
+                                           next_event),
+                     rid, created, model, obj, chat)
 
     def _shed(self, served, prompt_ids, tid: str, tenant: str) -> bool:
         """Answer a request the loop would shed (429 / 503) before any
@@ -1153,16 +1345,20 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- migration ----------------------------------------------------------
 
+    def _runner_token_ok(self) -> bool:
+        """The caller presents ``HELIX_RUNNER_TOKEN`` (or none is set)."""
+        token = os.environ.get("HELIX_RUNNER_TOKEN", "")
+        return not token or hmac.compare_digest(
+            self.headers.get("X-Runner-Token", ""), token)
+
     def _runner_token_denied(self) -> bool:
         """Migration, the debug routes and the profiler are
         cluster-internal: with ``HELIX_RUNNER_TOKEN`` set the caller must
         present it (403 otherwise, as in the reference)."""
-        token = os.environ.get("HELIX_RUNNER_TOKEN", "")
-        if token and not hmac.compare_digest(
-                self.headers.get("X-Runner-Token", ""), token):
-            self._error(403, "requires the runner token")
-            return True
-        return False
+        if self._runner_token_ok():
+            return False
+        self._error(403, "requires the runner token")
+        return True
 
     def _migrate_import(self, body: dict):
         """Accept one request snapshot from a peer runner.  It is

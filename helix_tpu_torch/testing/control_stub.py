@@ -27,7 +27,16 @@ installed:
   tunnel waits up to ``GRACE`` seconds for its dial, as the hub's queued
   dials do, and ``TunnelClosed`` is raised when none comes or the tunnel
   drops.
-  ``drop_tunnel(id)`` closes the runner's websocket from this side.
+  ``drop_tunnel(id)`` closes the runner's websocket from this side;
+- the disaggregated handoff plan (the reference control plane's one
+  handoff attempt per streamed request): ``disagg_request(model, body,
+  prefill_id, decode_id)`` sends a streamed request to the prefill node
+  with ``X-Helix-Disagg`` and the decode node's id and address; on a
+  ``migrated ... peer=`` frame it resumes the stream on the peer through
+  ``/v1/migrate/resume``, and on any other failure of the attempt before
+  a token was forwarded it dispatches the request to the decode node as
+  an ordinary stream.  It returns the client's text and frames and the
+  rung taken (``handoff``, ``prefill_local`` or ``fallback``).
 
     stub = ControlStub().start()        # stub.url: http://127.0.0.1:<port>
     stub.assign("a", profile_dict)
@@ -39,9 +48,12 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import queue
 import threading
 import time
+import urllib.error
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -56,6 +68,12 @@ from helix_tpu_torch.control.tunnel import (
     TunnelClosed,
     pack_frame,
     unpack_frame,
+)
+from helix_tpu_torch.serving.migration import (
+    DISAGG_HEADER,
+    DISAGG_PEER_ADDR_HEADER,
+    DISAGG_PEER_ID_HEADER,
+    parse_migrated_peer,
 )
 
 _PREFIX = "/api/v1/runners/"
@@ -201,6 +219,123 @@ class ControlStub:
             time.sleep(0.05)
         raise TimeoutError(f"no heartbeat of {runner_id!r} matched within "
                            f"{timeout:.0f}s")
+
+    def address(self, runner_id: str) -> str:
+        """The address ``runner_id`` advertised in its last heartbeat."""
+        body = self.last(runner_id) or {}
+        if not body.get("address"):
+            raise KeyError(f"runner {runner_id!r} advertised no address")
+        return body["address"].rstrip("/")
+
+    # -- the disaggregated handoff plan -------------------------------------
+
+    @staticmethod
+    def _sse(url: str, body: dict, headers: dict, timeout: float) -> tuple:
+        """The JSON frames of one streamed POST (``[DONE]`` left out) and
+        the arrival time (``time.monotonic()``) of the first frame that
+        carries text, or None; raises ``urllib.error.URLError`` /
+        ``OSError`` on a failed dispatch and ``HTTPError`` on a status
+        other than 200."""
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", **headers})
+        frames, t_text = [], None
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: {"):
+                    continue
+                frames.append(json.loads(line[6:]))
+                if t_text is None and ControlStub._text([frames[-1]])[0]:
+                    t_text = time.monotonic()
+        return frames, t_text
+
+    @staticmethod
+    def _text(frames: list) -> tuple:
+        """(text, finish reason, error frames) of OpenAI chunk frames or
+        of ``/v1/migrate/resume``'s ``{"delta", "finish_reason"}``
+        frames."""
+        text, finish, errors = "", None, []
+        for f in frames:
+            if "error" in f:
+                errors.append(f["error"])
+                continue
+            if "choices" not in f:
+                text += f.get("delta", "") or ""
+                finish = f.get("finish_reason") or finish
+                continue
+            ch = f["choices"][0]
+            delta = ch.get("delta")
+            text += (delta.get("content", "") if delta is not None
+                     else ch.get("text", "")) or ""
+            finish = ch.get("finish_reason") or finish
+        return text, finish, errors
+
+    def disagg_request(self, model: str, body: dict, prefill_id: str,
+                       decode_id: str, path: str = "/v1/chat/completions",
+                       timeout: float = 600.0) -> dict:
+        """One streamed request through the handoff plan: ``{"rung",
+        "text", "finish", "frames", "errors", "peer", "request_id",
+        "prior_text", "attempt_error", "ttft_s"}``.  ``prior_text`` is
+        what the prefill node streamed before its ``migrated`` frame;
+        ``attempt_error`` the failure that sent the request to the
+        fallback dispatch; ``ttft_s`` the seconds from the dispatch to
+        the first frame with text the client got."""
+        body = {**body, "model": model, "stream": True}
+        peer_addr = self.address(decode_id)
+        token = os.environ.get("HELIX_RUNNER_TOKEN", "")
+        auth = {"X-Runner-Token": token} if token else {}
+        out = {"rung": None, "text": "", "finish": None, "frames": [],
+               "errors": [], "peer": None, "request_id": None,
+               "prior_text": "", "attempt_error": None, "ttft_s": None}
+        t0 = time.monotonic()
+
+        def since(t):
+            return None if t is None else t - t0
+
+        try:
+            frames, t_text = self._sse(
+                self.address(prefill_id) + path, body,
+                {**auth, DISAGG_HEADER: "prefill",
+                 DISAGG_PEER_ID_HEADER: decode_id,
+                 DISAGG_PEER_ADDR_HEADER: peer_addr}, timeout)
+        except (OSError, ValueError) as e:
+            frames, out["attempt_error"] = None, repr(e)
+        if frames is not None:
+            text, finish, errors = self._text(frames)
+            migrated = next((e for e in errors if parse_migrated_peer(
+                str(e.get("message", "")))), None)
+            if migrated is not None:
+                peer = parse_migrated_peer(migrated["message"])
+                try:
+                    target = self.address(peer)
+                except KeyError:
+                    target = peer_addr
+                resumed, t_res = self._sse(target + "/v1/migrate/resume", {
+                    "request_id": migrated.get("request_id", ""),
+                    "emitted_chars": len(text)}, auth, timeout)
+                more, finish, errors = self._text(resumed)
+                out.update(rung="handoff", peer=peer,
+                           request_id=migrated.get("request_id"),
+                           prior_text=text, frames=frames + resumed,
+                           text=text + more, finish=finish, errors=errors,
+                           ttft_s=since(t_text if t_text is not None
+                                        else t_res))
+                return out
+            if not errors or text:
+                # served on the prefill node; once tokens reached the
+                # client, the attempt's error is the client's
+                out.update(rung="prefill_local", text=text, finish=finish,
+                           frames=frames, errors=errors,
+                           ttft_s=since(t_text))
+                return out
+            out["attempt_error"] = errors[0].get("message", "")
+        frames, t_text = self._sse(self.address(decode_id) + path, body,
+                                   auth, timeout)
+        text, finish, errors = self._text(frames)
+        out.update(rung="fallback", text=text, finish=finish, frames=frames,
+                   errors=errors, ttft_s=since(t_text))
+        return out
 
     # -- the runner endpoints ---------------------------------------------
 

@@ -840,6 +840,87 @@ def test_k1_int8_on_restored_pages_equals_the_originals(cuda):
     assert torch.equal(got, want)
 
 
+# ---------------------------------------------------------------------------
+# the filestore tier and the prefill handoff on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_filestore_writer_reads_the_gathered_bytes(cuda, tmp_path, kv_dtype):
+    """The engine's write-through: pages gathered on the engine's stream,
+    an event recorded behind the gather, the writer thread waiting on it
+    before its device-to-host copy.  The pages are overwritten on the
+    card right after (queued behind the gather, before the writer reads):
+    every blob holds the pre-overwrite bytes."""
+    from helix_tpu_torch.engine import kv_cache as tkv
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.serving.kv_filestore import KVFilestore
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    cc = tkv.CacheConfig(num_pages=32, page_size=16, max_pages_per_seq=8,
+                         dtype=kv_dtype)
+    cache = tkv.PagedKVCache.create(cfg, cc, cuda)
+    _fill_pool(cache, 11)
+    ids = [2, 7, 13, 29]
+    want = _page_sums(cache, ids)
+    fs = KVFilestore(str(tmp_path), "card")
+    gathered = tkv.gather_pages(cache, ids)
+    ready = torch.cuda.Event()
+    ready.record()
+    # a long kernel keeps the stream busy so the overwrite is still
+    # queued when the writer starts
+    torch.cuda._sleep(50_000_000)
+    idx = torch.tensor(ids, device=cuda)
+    for t in cache.carry():
+        t.index_fill_(1, idx, 0)
+    for i, page in zip(ids, gathered):
+        fs.put_async(f"{i:032x}", page, tenant="t", ready=ready)
+    fs.flush(60)
+    assert fs.stores == len(ids)
+    got = [tkv.page_checksum(fs.get(f"{i:032x}")) for i in ids]
+    assert got == want
+    assert _page_sums(cache, ids) != want   # the overwrite did land
+
+
+@pytest.mark.cuda
+def test_export_prefill_on_an_int8_pool_imports_on_a_second_engine(cuda):
+    """``export_prefill`` at the first token on the card (int8 weights and
+    KV), through the wire, imported by a second engine on the card: the
+    checksums the export stamped verify there, and the imported request
+    continues to its end."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.kv_cache import page_checksum
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.serving import migration
+
+    cfg = ModelConfig.tiny(dtype="bfloat16")
+    params = init_params(cfg, 0, device=cuda, quantization="int8")
+    ecfg = EngineConfig(max_decode_batch=4, page_size=16, num_pages=64,
+                        max_pages_per_seq=16, max_prefill_len=64,
+                        kv_cache_dtype="int8")
+    a, b = (Engine(cfg, params, ecfg, device=cuda) for _ in range(2))
+    req = Request(id="h", prompt_tokens=[(5 * i) % 200 + 4 for i in range(90)],
+                  sampling=SamplingParams(temperature=0.0, max_tokens=12))
+    a.add_request(req)
+    while not req.output_tokens:
+        a.step()
+    snap = a.export_prefill("h")
+    assert snap is not None and snap.has_kv and a.num_prefill_exports == 1
+    wire = migration.snapshot_to_wire(snap)
+    back = migration.wire_to_snapshot(wire)
+    assert [page_checksum(p).hex() for p in back.pages] == \
+        snap.page_checksums
+    cont = b.import_request(back)
+    while not cont.finished:
+        b.step()
+    assert cont.output_tokens[:len(snap.output_tokens)] == snap.output_tokens
+    assert len(cont.output_tokens) == 12
+    assert b.num_snapshots_imported == 1
+
+
 # Phi-3-mini's attention widths: group 1 (a K1 query tile holds 32 tokens
 # of one head), head dim 96 (K2 pads it to 128 for its wgmma tiles)
 

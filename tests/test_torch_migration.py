@@ -450,6 +450,33 @@ def test_peer_shipper_with_injected_post():
     assert migration.parse_migrated_peer("shutting_down: x") is None
 
 
+@pytest.mark.parametrize("prefill", [False, True], ids=["drain", "handoff"])
+def test_xfer_stats_and_handoff_counter_equal_reference(prefill):
+    """``PeerShipper(prefill=True)`` counts a shipped snapshot as a
+    disaggregated prefill handoff, as the reference's does; the drain
+    shipper does not.  The stats snapshots of both packages agree key for
+    key over the same ship, and so do the handoff headers' names."""
+    wire = {"model": "m", "pages": [{"k": {"b64": "AAAA"}, "v": None}]}
+    snaps = []
+    for mod in (migration, jmigration):
+        stats = mod.XferStats()
+        ship = mod.PeerShipper(
+            targets=[{"id": "d", "address": "http://d:1"}],
+            post=lambda url, json=None, headers=None, timeout=None:
+            _Resp(200), stats=stats, prefill=prefill,
+            config=mod.XferConfig(max_attempts=1))
+        assert ship(wire) == "d"
+        snaps.append(stats.snapshot())
+    snaps[0]["ship_seconds"] = snaps[1]["ship_seconds"] = 0.0
+    assert snaps[0] == snaps[1]
+    assert snaps[0]["prefill_handoffs"] == (1 if prefill else 0)
+    assert (migration.DISAGG_HEADER, migration.DISAGG_PEER_ID_HEADER,
+            migration.DISAGG_PEER_ADDR_HEADER) == (
+        jmigration.DISAGG_HEADER, jmigration.DISAGG_PEER_ID_HEADER,
+        jmigration.DISAGG_PEER_ADDR_HEADER)
+    assert migration.XFER_PREFILL_HANDOFFS == jmigration.XFER_PREFILL_HANDOFFS
+
+
 # ---------------------------------------------------------------------------
 # two port servers: drain A, resume on B
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@
   ``validate_tenant_rollup`` unchanged, the adapters block passes
   ``validate_adapter_block`` unchanged.  ``dev-tiny`` as written is
   served (its chat and embedding entries, through the agent's own
-  builder); a vision entry (A17b) and ``role: prefill`` (A12) are refused
-  with nothing built; an invalid profile fails with the reference's
+  builder), and so are ``dev-tiny-prefill`` and ``dev-tiny-decode`` (each
+  heartbeats its role; ``HELIX_FILESTORE_KV_DIR`` arms the engine's
+  filestore tier); a vision entry (A17b) is refused with nothing built; an invalid profile fails with the reference's
   text; a diff re-apply keeps the kept model's loop object and frees the
   dropped one.
 - **Through the reference control plane** (aiohttp, in process): the port
@@ -88,6 +89,7 @@ from helix_tpu_torch.models.llama import params_from_jax
 from helix_tpu_torch.obs import slo as tslo
 from helix_tpu_torch.obs import trace as ttrace
 from helix_tpu_torch.obs.flight import SATURATION_KEYS
+from helix_tpu_torch.serving import kv_filestore as tkvfs
 from helix_tpu_torch.serving.openai_api import OpenAIServer
 from helix_tpu_torch.serving.registry import ModelRegistry, ServedModel
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -602,31 +604,53 @@ def test_dev_tiny_as_written_serves_both_entries():
         agent.stop()
 
 
-@pytest.mark.parametrize("how", ["profile", "env"])
-def test_prefill_role_is_refused_at_apply(weights, monkeypatch, how):
-    """``role: prefill`` (or ``HELIX_POOL_ROLE=prefill``) would join the
-    prefill pool without the disaggregated handoff: refused by name
-    (A12), nothing built; ``decode`` and ``mixed`` stay served."""
-    path = os.path.join(ROOT, "profiles", "dev-tiny-prefill.yaml")
-    with open(path) as f:
+@pytest.mark.parametrize("how", ["prefill", "decode", "env"])
+def test_disagg_profiles_as_written_serve_their_role(monkeypatch, tmp_path,
+                                                    how):
+    """``profiles/dev-tiny-prefill.yaml`` and ``dev-tiny-decode.yaml`` as
+    written, through the agent's own builder on the CPU: each is served,
+    heartbeats its role (``HELIX_POOL_ROLE=prefill`` beating a profile
+    without one), and with ``HELIX_FILESTORE_KV_DIR`` set its engine's
+    filestore tier is armed on that directory with the engine's geometry
+    namespace, as the reference's node agent arms it."""
+    name = "decode" if how == "decode" else "prefill"
+    with open(os.path.join(ROOT, "profiles",
+                           f"dev-tiny-{name}.yaml")) as f:
         doc = yaml.safe_load(f)
     if how == "env":
         doc.pop("role")
         monkeypatch.setenv("HELIX_POOL_ROLE", "prefill")
-    built = []
-    agent = tagent.NodeAgent("r1", build_model=_port_build(weights, built),
-                             device="cpu")
-    state = agent.apply_profile(tprofile.ServingProfile.from_dict(doc))
-    assert state.status == "failed" and built == []
-    assert "role 'prefill'" in state.error and "ROADMAP A12" in state.error
-    for role in ("decode", "mixed"):
-        monkeypatch.delenv("HELIX_POOL_ROLE", raising=False)
-        doc["role"] = role
-        agent = tagent.NodeAgent("r1", build_model=_port_build(weights),
-                                 device="cpu")
+    monkeypatch.setenv("HELIX_FILESTORE_KV_DIR", str(tmp_path))
+    agent = tagent.NodeAgent("r1", device="cpu", warmup=False)
+    try:
         state = agent.apply_profile(tprofile.ServingProfile.from_dict(doc))
         assert state.status == "running", state.error
-        assert agent.pool_role() == role
+        assert agent.pool_role() == name
+        assert agent.heartbeat_payload()["role"] == name
+        eng = agent.registry.get("tiny-chat").loop.engine
+        assert eng.cfg.enable_spec_decode == (name == "decode")
+        fs = eng.kv_filestore
+        assert fs is not None
+        assert fs.store.root == os.path.realpath(str(tmp_path))
+        assert fs.namespace == tkvfs.KVFilestore.namespace_for(
+            "tiny-chat", eng.cache_cfg.page_size, eng.model_cfg.num_layers,
+            eng.model_cfg.num_kv_heads, eng.model_cfg.head_dim,
+            eng.cache_cfg.dtype)
+        api = OpenAIServer(agent.registry)
+        httpd = api.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            status, out = _post(url + "/v1/chat/completions", {
+                "model": "tiny-chat", "max_tokens": 4, "temperature": 0,
+                "messages": [{"role": "user",
+                              "content": "a prompt long enough to fill "
+                                         "a few pages"}]})
+            assert status == 200, out
+            fs.flush()
+            assert fs.stores > 0
+        finally:
+            httpd.shutdown()
+    finally:
         agent.stop()
 
 

@@ -33,6 +33,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 
 import jax
@@ -47,6 +48,7 @@ from helix_tpu.obs import flight as jflight
 from helix_tpu.obs import metrics as jmetrics
 from helix_tpu.obs import trace as jtrace
 from helix_tpu.serving import engine_loop as jloop
+from helix_tpu.serving import kv_filestore as jkvfs
 from helix_tpu.serving import openai_api as jopenai
 from helix_tpu.serving import registry as jregistry
 from helix_tpu_torch.engine import engine as tengine
@@ -56,6 +58,7 @@ from helix_tpu_torch.obs import flight as tflight
 from helix_tpu_torch.obs import metrics as tmetrics
 from helix_tpu_torch.obs import trace as ttrace
 from helix_tpu_torch.serving import engine_loop as tloop
+from helix_tpu_torch.serving import kv_filestore as tkvfs
 from helix_tpu_torch.serving import openai_api as topenai
 from helix_tpu_torch.serving import registry as tregistry
 from helix_tpu_torch.serving import sched as tsched
@@ -366,6 +369,12 @@ def build_scrapes():
     tl = tloop.EngineLoop(tengine.Engine(
         tcfg, tp, tengine.EngineConfig(**GEOMETRY), device="cpu"), "m",
         slo_targets=SLO, sched_config=SLO).start()
+    # the filestore tier armed on both, so its series are in both scrapes
+    for loop, mod in ((jl, jkvfs), (tl, tkvfs)):
+        eng = loop.engine
+        eng.kv_filestore = mod.filestore_for_engine(
+            tempfile.mkdtemp(prefix="helix-obs-fs-"), eng.model_cfg,
+            eng.cache_cfg)
     try:
         _drive(jl, jengine)
         _drive(tl, tengine)
@@ -410,9 +419,12 @@ def test_metrics_families_match_the_reference(scrapes):
     # the port does not have yet (ROADMAP lists each with its item)
     missing = set(ref) - set(got)
     assert all(n.startswith(("helix_ctx_", "helix_moe_",
-                             "helix_compiled_step_shapes",
-                             "helix_xfer_prefill_handoffs"))
+                             "helix_compiled_step_shapes"))
                for n in missing), sorted(missing)
+    # the disaggregated handoff's counter and the filestore tier's series
+    assert "helix_xfer_prefill_handoffs_total" in got
+    fs = {n for n in ref if n.startswith("helix_filestore_kv_")}
+    assert len(fs) == 7 and fs <= set(got)
 
 
 def test_metric_families_list_is_the_reference_shape(scrapes):
@@ -528,7 +540,8 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "'serving.logbuf', 'cli', 'testing.control_stub', "
         "'control.tunnel', 'control.websocket', 'models.bge', "
         "'serving.tokenizer_json', 'testing.hf_checkpoint', "
-        "'testing.tokenizer_fixtures'):\n"
+        "'testing.tokenizer_fixtures', 'serving.kv_filestore', "
+        "'control.filestore'):\n"
         "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"
