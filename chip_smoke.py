@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase node    # those + the node-agent phase
     python3 chip_smoke.py --phase tunnel  # those + the tunnel phase
     python3 chip_smoke.py --phase disagg  # those + the disagg phase
+    python3 chip_smoke.py --phase context # those + the tiered context phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -39,6 +40,14 @@ no result line):
    causal and packed at S 2048, K1-int8 on a 1024-page pool with 16
    decode rows (histories 500-2000) and a 256-token row beside 15 decode
    rows, under the same limits, planted faults and timings;
+3d. K1's cold form (``phase_k1_cold``): K1 and K1-int8 on tiered rows at
+   the entry's widths (H 32, KVH 8, D 128, P 16): 4 decode and 4 verify
+   rows of 5 at histories 6000-8000, each with a page-aligned ~5000-token
+   middle demoted (table entries zeroed, its pages packed into a slab of
+   64-token chunks, one chunk owned by no row), beside 8 resident rows;
+   held to the plain version and to the resident call on the same
+   values, and three planted faults must fail (a chunk's owner moved,
+   ``span_lo`` one page late, one cold scale negated);
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -183,6 +192,16 @@ no result line):
    from disk against a cold node, a torn blob recomputed; the same at 2
    layers in float32 with handoff = colocated and warm = cold demanded;
    K2 and K1-int8 launches per node;
+4m. tiered long context and the context-caching API
+   (``phase_context``): the Llama entry through serve-node's profile
+   path with ``HELIX_CTX_HOT_PAGES=32``: a wave of ~7,880-token chats
+   tiered and resident (every token once, the tiered peak of pool pages
+   at most half the resident one, re-stages, TTFT, tok/s, traced idle
+   share, one cold-form launch per tiered attention call and no plain
+   op), ``POST`` / ``GET /v1/context`` with 8 chats through the handle,
+   a 429 and a 404, ``helix_ctx_*`` at ``/metrics``; at 2 layers in
+   float32 tiered = resident, handle = written out, and a corrupt cold
+   page ends its stream with the ``ColdPageError`` text;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -201,6 +220,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -276,14 +296,19 @@ def _watch_step_failures() -> None:
     EngineLoop._handle_step_failure = watched
 
 
+# the step failures phase 4m(c)'s corrupt cold page causes, as recorded
+CORRUPT_PAGE_FAILURES: list = []
+
+
 def _check_step_failures() -> None:
     bad = [f for f in STEP_FAILURES
-           if not (f[0] == "phase_slo" and "injected engine-step fault" in f[2])]
+           if not (f[0] == "phase_slo" and "injected engine-step fault" in f[2])
+           and f not in CORRUPT_PAGE_FAILURES]
     log(f"[steps] engine step failures: {len(STEP_FAILURES)}, all of them "
-        f"phase 4i's planted faults: {not bad}")
+        f"phases 4i's and 4m's planted faults: {not bad}")
     if bad:
-        raise AssertionError(f"engine steps failed outside phase 4i's "
-                             f"planted fault: {bad[:5]}")
+        raise AssertionError(f"engine steps failed outside phases 4i's and "
+                             f"4m's planted faults: {bad[:5]}")
 
 
 # GPU clock cycles of the sleep kernel queued ahead of each timed call
@@ -439,6 +464,13 @@ DESIGN = {
     "flash_attention":
         "wgmma m64n64k16 (SS) for QK^T + m64n128k16 (RS, P in registers) "
         "for PV, cp.async 2-stage 128B-swizzled bf16 ring, tile skipping",
+    "ragged_paged_attention_cold":
+        "K1's split with the demoted span masked out of the history parts "
+        "and the staged cold chunks as more parts (part j folds the chunks "
+        "c = j mod n its row owns), f32 merge over a per-row part list",
+    "ragged_paged_attention_int8_cold":
+        "the cold form over int8 pools and int8 cold chunks with their f32 "
+        "scales, dequantized in registers",
 }
 
 
@@ -452,6 +484,10 @@ def kernel_infos() -> dict:
         "ragged_paged_attention_int8": ragged_kernel_info(
             8, H, KVH, D, 16, 256, quantized=True),
         "flash_attention": flash_kernel_info(D),
+        "ragged_paged_attention_cold": ragged_kernel_info(
+            8, H, KVH, D, 16, 512, cold=True),
+        "ragged_paged_attention_int8_cold": ragged_kernel_info(
+            8, H, KVH, D, 16, 512, quantized=True, cold=True),
     }
 
 
@@ -820,6 +856,245 @@ def phase_phi3_kernels() -> tuple:
     del pools, scales
     torch.cuda.empty_cache()
     return k2, k1
+
+
+# ---------------------------------------------------------------------------
+# 3d. K1's cold form (tiered rows)
+# ---------------------------------------------------------------------------
+
+COLD_STREAM_PAGES = 4        # the engine's default ctx_stream_pages
+COLD_MAXP = 512              # the entry's 8192-token page tables
+
+
+def _k1_cold_layout(rng, P=16):
+    """Rows of phase 3d: 4 tiered decode rows and 4 tiered verify rows of
+    5 at histories 6000-8000, each with a page-aligned middle span of
+    ~5000 tokens demoted, beside 8 resident decode rows at 1000-8000.
+    Returns (q_lens, hists, spans [(lo, hi) tokens, (0, 0) resident])."""
+    q_lens = [1] * 4 + [5] * 4 + [1] * 8
+    hists = list(rng.integers(6000, 8000, size=8)) \
+        + list(rng.integers(1000, 8000, size=8))
+    spans = []
+    for r, h in enumerate(hists):
+        if r >= 8:
+            spans.append((0, 0))
+            continue
+        lo = int(rng.integers(8, 32)) * P
+        hi = lo + (5000 // P) * P
+        assert hi <= h - 32 * P          # the hot tail stays resident
+        spans.append((lo, hi))
+    return (np.asarray(q_lens, np.int32), np.asarray(hists, np.int32),
+            spans)
+
+
+def _k1_cold_case(label, pools, gen, rng, scales=None) -> dict:
+    """One call of K1's cold form on the layout of ``_k1_cold_layout``.
+
+    The resident tables give every history page its own pool page; the
+    tiered tables zero each span's entries (page 0, as the engine's
+    demotion leaves them) and the span's pages are packed into a slab of
+    ``COLD_STREAM_PAGES``-page chunks, one padding chunk owned by no row
+    at the end.  The kernel is held to its plain version (int8: the plain
+    version in f32, rounded once) under the one-ulp limit, and to the
+    resident call of the kernel on the same values; three planted faults
+    must fail the check: a chunk's owner moved to another row,
+    ``span_lo`` one page late, one cold scale negated (int8)."""
+    from helix_tpu_torch.ops.paged_kernel import (
+        _k1_cold_parts,
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    dev = "cuda"
+    kp, vp = pools
+    L, N, P = kp.shape[:3]
+    q_lens, hists, spans = _k1_cold_layout(rng, P)
+    R, maxP = len(q_lens), COLD_MAXP
+    t0 = np.concatenate([[0], np.cumsum(q_lens)[:-1]]).astype(np.int32)
+    T = int(q_lens.sum())
+    walked = -(-(hists + q_lens) // P)
+    perm = rng.permutation(np.arange(1, N))
+    assert walked.sum() <= N - 1
+    full = np.zeros((R, maxP), np.int32)
+    for r, (n, a) in enumerate(zip(walked, np.cumsum(walked) - walked)):
+        full[r, :n] = perm[a:a + n]
+    tiered = full.copy()
+    lo = np.array([s[0] for s in spans], np.int32)
+    hi = np.array([s[1] for s in spans], np.int32)
+    owners, lens, chunk_pages = [], [], []
+    for r in range(R):
+        if hi[r] <= lo[r]:
+            continue
+        tiered[r, lo[r] // P:hi[r] // P] = 0
+        for c0 in range(lo[r] // P, hi[r] // P, COLD_STREAM_PAGES):
+            pg = list(full[r, c0:min(c0 + COLD_STREAM_PAGES, hi[r] // P)])
+            owners.append(r)
+            lens.append(len(pg) * P)
+            chunk_pages.append(pg)
+    owners.append(-1)                          # a chunk with no owner
+    lens.append(COLD_STREAM_PAGES * P)
+    chunk_pages.append(list(perm[-COLD_STREAM_PAGES:]))
+    nC, Ct = len(owners), COLD_STREAM_PAGES * P
+
+    def slab(pool):
+        idx = np.zeros((nC, COLD_STREAM_PAGES), np.int64)
+        for c, pg in enumerate(chunk_pages):
+            idx[c, :len(pg)] = pg
+        got = pool[:, torch.from_numpy(idx).to(dev)]   # [L, nC, S, P, ...]
+        got = got.reshape((L, nC, Ct) + tuple(pool.shape[3:]))
+        for c, pg in enumerate(chunk_pages):
+            got[:, c, len(pg) * P:] = 0
+        return got.contiguous()
+
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+    meta = [up(x) for x in (t0, q_lens, hists)]
+    q = torch.randn((T, H, D), generator=gen, device=dev).bfloat16()
+    kn = torch.randn((T, KVH, D), generator=gen, device=dev).bfloat16()
+    vn = torch.randn((T, KVH, D), generator=gen, device=dev).bfloat16()
+    layer = L - 1
+    kw = {} if scales is None else dict(k_scale=scales[0],
+                                        v_scale=scales[1])
+    cold = dict(span_lo=up(lo), span_hi=up(hi), cold_k=slab(kp),
+                cold_v=slab(vp), cold_row=up(owners), cold_len=up(lens))
+    if scales is not None:
+        cold.update(cold_k_scale=slab(scales[0]),
+                    cold_v_scale=slab(scales[1]))
+    args = (q, kn, vn, kp, vp, layer, *meta, up(tiered))
+    resident_args = (q, kn, vn, kp, vp, layer, *meta, up(full))
+    tag = "K1-tiered" if scales is None else "K1-int8-tiered"
+    got = ragged_paged_attention(*args, **kw, **cold)
+    torch.cuda.synchronize()
+    if scales is None:
+        want = ragged_paged_attention_plain(*args, **kw, **cold)
+    else:
+        want = ragged_paged_attention_plain(
+            q.float(), kn.float(), vn.float(), *args[3:], **kw,
+            **cold).bfloat16()
+    err, ratio = check(f"{tag} {label}", got, want)
+    resident = ragged_paged_attention(*resident_args, **kw)
+    err_res, ratio_res = check(f"{tag} {label} vs the resident call", got,
+                               resident)
+    faults = {}
+    moved = cold["cold_row"].clone()
+    moved[0] = 1                                # row 0's chunk -> row 1
+    faults["owner_moved"] = planted(
+        f"{tag} owner moved", ragged_paged_attention(
+            *args, **kw, **dict(cold, cold_row=moved)), want)
+    late = cold["span_lo"].clone()
+    late[:8] += P
+    faults["span_lo_late"] = planted(
+        f"{tag} span_lo one page late", ragged_paged_attention(
+            *args, **kw, **dict(cold, span_lo=late)), want)
+    if scales is not None:
+        flipped = cold["cold_k_scale"].clone()
+        flipped[layer, 0, 0] *= -1
+        fv = cold["cold_v_scale"].clone()
+        fv[layer, 0, 0] *= -1
+        faults["scale_flipped"] = planted(
+            f"{tag} one cold scale negated", ragged_paged_attention(
+                *args, **kw, **dict(cold, cold_k_scale=flipped,
+                                    cold_v_scale=fv)), want)
+    ms = cuda_ms(lambda: ragged_paged_attention(*args, **kw, **cold), 20)
+    resident_ms = cuda_ms(
+        lambda: ragged_paged_attention(*resident_args, **kw), 20)
+    plain_ms = cuda_ms(
+        lambda: ragged_paged_attention_plain(*args, **kw, **cold), 2, 1)
+    # library yardstick: SDPA over each row's gathered resident history
+    Sq = int(q_lens.max())
+    Skv = int((hists + q_lens).max())
+    qb = torch.zeros((R, H, Sq, D), device=dev, dtype=torch.bfloat16)
+    kb = torch.zeros((R, H, Skv, D), device=dev, dtype=torch.bfloat16)
+    vb = torch.zeros_like(kb)
+    mask = torch.zeros((R, 1, Sq, Skv), device=dev, dtype=torch.bool)
+    for r in range(R):
+        n, h, s = int(q_lens[r]), int(hists[r]), int(t0[r])
+        pages = torch.from_numpy(full[r]).to(dev).long()
+        kh = kp[layer][pages].reshape(-1, KVH, D)[:h]
+        vh = vp[layer][pages].reshape(-1, KVH, D)[:h]
+        if scales is not None:
+            kh = kh.float() * scales[0][layer][pages].reshape(
+                -1, KVH)[:h, :, None]
+            vh = vh.float() * scales[1][layer][pages].reshape(
+                -1, KVH)[:h, :, None]
+        kh, vh = kh.bfloat16(), vh.bfloat16()
+        k_all = torch.cat([kh, kn[s:s + n]]).repeat_interleave(H // KVH, 1)
+        v_all = torch.cat([vh, vn[s:s + n]]).repeat_interleave(H // KVH, 1)
+        qb[r, :, :n] = q[s:s + n].transpose(0, 1)
+        kb[r, :, :h + n] = k_all.transpose(0, 1)
+        vb[r, :, :h + n] = v_all.transpose(0, 1)
+        qi = torch.arange(n, device=dev)[:, None] + h
+        mask[r, 0, :n] = torch.arange(Skv, device=dev)[None, :] <= qi
+        mask[r, 0, n:, 0] = True
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qb, kb, vb, attn_mask=mask), 20)
+    del qb, kb, vb, mask
+    # bytes: every history token once, hot from the pool and cold from
+    # the slab (the owned chunks' live tokens), per token and KV head
+    # K and V (int8: codes + one f32 scale each); the hot pages' table
+    # entries, the row metadata and the chunk owners / lengths; q, fresh
+    # K/V and out.  Operations: 4 H D per (query, key) pair.
+    per_tok = 2 * KVH * D * kp.element_size()
+    if scales is not None:
+        per_tok += 2 * KVH * 4
+    cold_tok = int((hi - lo).sum())
+    hot_pages = int(sum(-(-int(h) // P) for h in hists)) - cold_tok // P
+    fresh_pairs = int(sum(n * (n + 1) // 2 for n in q_lens))
+    flops = 4.0 * H * D * (int((q_lens * hists).sum()) + fresh_pairs)
+    b_ms, b_by = bound(flops, int(hists.sum()) * per_tok + hot_pages * 4
+                       + 4 * (2 * nC + 5 * R)
+                       + nbytes(q, kn, vn, got))
+    row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
+               max_abs_err_vs_resident=err_res,
+               tol_ratio_vs_resident=ratio_res,
+               planted_fault_ratio=min(faults.values()),
+               planted_faults=faults, ms=ms, resident_ms=resident_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, chunks=nC, chunk_tokens=Ct,
+               cold_parts=_k1_cold_parts(nC, maxP, P), cold_tokens=cold_tok)
+    log(f"[{tag}] {label}: {nC} chunks of {Ct} tokens "
+        f"({cold_tok} cold tokens over 8 tiered rows), max_abs_err "
+        f"{err:.3e}, {ratio:.3f}x the limit; vs the resident call "
+        f"{ratio_res:.3f}x (planted faults "
+        + ", ".join(f"{k} {v:.1f}x" for k, v in faults.items())
+        + f") kernel_ms {ms:.4f} resident_ms {resident_ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.6f} "
+        f"({b_by})")
+    return row
+
+
+@_timed
+def phase_k1_cold() -> tuple:
+    """K1 and K1-int8's cold form at the entry's widths (H 32, KVH 8, D
+    128, P 16) on 4-layer pools of 8192 pages (bf16, and int8 quantized
+    with ``quantize_kv``): the rows of ``_k1_cold_layout``.  Returns
+    (K1-tiered rows, K1-int8-tiered rows)."""
+    from helix_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    L, N, P = 4, 8192, 16
+    shape = (L, N, P, KVH, D)
+    kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    rows = [_k1_cold_case("4 decode + 4 verify rows tiered, hist "
+                          "6000-8000, ~5000 cold each, + 8 resident",
+                          (kp, vp), gen, np.random.default_rng(13))]
+    del kp, vp
+    pools = [torch.empty(shape, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    scales = [torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+              for _ in range(2)]
+    for lyr in range(L):
+        for pool, sc in zip(pools, scales):
+            pool[lyr], sc[lyr] = quantize_kv(torch.randn(
+                shape[1:], generator=gen, device=dev))
+    rows_int8 = [_k1_cold_case(
+        "4 decode + 4 verify rows tiered, hist 6000-8000, ~5000 cold "
+        "each, + 8 resident", tuple(pools), gen,
+        np.random.default_rng(14), tuple(scales))]
+    del pools, scales
+    torch.cuda.empty_cache()
+    return rows, rows_int8
 
 
 # ---------------------------------------------------------------------------
@@ -1569,10 +1844,10 @@ def phase_oracle(int8: bool = False) -> dict:
 # H100 SXM host link, PCIe Gen5 x16: 128 GB/s both ways (NVIDIA's data
 # sheet), 64 GB/s each way -- the bound of a copy to or from host memory
 PCIE_BYTES = 64e9
-# phase 4e runs the entry at full width and 16 of Llama-3-8B's 32 layers:
-# a depth cut that makes room for phase 4j within the smoke's time
-HOST_TIER_LAYERS = 16
-# its int8 page: 2 (K, V) x 16 layers x 16 slots x 8 KV heads x (128
+# phase 4e runs the entry at full width and 8 of Llama-3-8B's 32 layers:
+# a depth cut that makes room for phases 4j and 4m within the smoke's time
+HOST_TIER_LAYERS = 8
+# its int8 page: 2 (K, V) x 8 layers x 16 slots x 8 KV heads x (128
 # codes + one f32 scale), bytes
 PAGE_BYTES_INT8 = 2 * HOST_TIER_LAYERS * 16 * 8 * (128 + 4)
 # phase 4e.2's cut of the entry's pool: at 128 pages per sequence its 16
@@ -6007,6 +6282,479 @@ def phase_disagg(smi) -> dict:
             "witness": witness}
 
 
+# ---------------------------------------------------------------------------
+# 4m. tiered long context and the context-caching API
+# ---------------------------------------------------------------------------
+
+CTX_HOT_PAGES = 32
+# (a)'s wave: 4 chats, not 8 -- with 8 the whole-middle re-stages took
+# 109 s of host time and the phase ran past ~180 s on the card (PERF.md)
+CTX_CHATS = 4
+CTX_API_CHATS = 8            # (b)'s chats carrying context_id
+CTX_PROMPT_BYTES = 7850      # ~7880 tokens with the chat template
+CTX_NEW_TOKENS = 32
+CTX_PREFIX_BYTES = 6000      # (b)'s context
+CTX_TENANT_CAP = 8000        # HELIX_CTX_TENANT_TOKENS in (b)
+
+
+def _ctx_text(rng, n) -> str:
+    return "".join(chr(c) for c in rng.integers(97, 123, size=n))
+
+
+def _ctx_node(tag, entry, tiered, tmpdir, build):
+    """A node serving ``entry`` through serve-node's profile path, with
+    the operator's ``HELIX_CTX_HOT_PAGES`` set to ``CTX_HOT_PAGES``
+    (``tiered``) or 0, and ``HELIX_MAX_PAGES_PER_SEQ`` to the model's
+    8192-token context (the entry names no ``context_length``, so its
+    tables would stop at the engine's default 128 pages)."""
+    os.environ["HELIX_CTX_HOT_PAGES"] = str(CTX_HOT_PAGES if tiered else 0)
+    os.environ["HELIX_MAX_PAGES_PER_SEQ"] = str(8192 // 16)
+    try:
+        prof = {"name": tag, "requirement": {"vendor": "nvidia", "chips": 1},
+                "models": [entry]}
+        registry, mgr, httpd, base, _path = _node(prof, tmpdir, tag, build)
+    finally:
+        del os.environ["HELIX_CTX_HOT_PAGES"]
+        del os.environ["HELIX_MAX_PAGES_PER_SEQ"]
+    return registry.get(MODEL), mgr, httpd, base
+
+
+def _ctx_close(served, httpd) -> None:
+    _stop_side(httpd, served)
+    _free()
+
+
+def _ctx_wave(base, loop, prompts, max_tokens) -> dict:
+    """``prompts`` as streamed chats admitted together: TTFTs, texts
+    (token ids), seconds, every chat answered with every token once."""
+    def send(i):
+        body = {"model": MODEL, "max_tokens": max_tokens, "temperature": 0,
+                "stream": True,
+                "messages": [{"role": "user", "content": prompts[i]}]}
+        req = urllib.request.Request(
+            base + "/v1/chat/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.monotonic()
+        ttft, text, finish, frames = None, "", None, 0
+        with urllib.request.urlopen(req, timeout=900) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                frame = json.loads(line[6:])
+                if "error" in frame:
+                    raise AssertionError(f"stream failed: {frame}")
+                ch = frame["choices"][0]
+                piece = ch["delta"].get("content", "")
+                if piece:
+                    frames += 1
+                    ttft = time.monotonic() - t0 if ttft is None else ttft
+                text += piece
+                finish = ch["finish_reason"] or finish
+        return ttft, text, finish, frames, time.monotonic() - t0
+
+    outs, _e, _t, t0 = _gated_calls(loop, len(prompts), send)
+    seconds = time.monotonic() - t0
+    for i, (_ttft, text, finish, frames, _s) in enumerate(outs):
+        n = text.count("<")
+        if frames != n or not (n == max_tokens or finish == "stop"):
+            raise AssertionError(
+                f"chat {i}: {n} tokens in {frames} frames, finish {finish}")
+    ttfts = sorted(o[0] for o in outs)
+    toks = sum(o[1].count("<") for o in outs)
+    decode_s = max(o[4] for o in outs) - ttfts[0]
+    return {"texts": [o[1] for o in outs], "ttft_p50": ttfts[len(ttfts) // 2],
+            "ttfts": ttfts, "seconds": seconds,
+            "decode_tok_s": (toks - len(outs)) / max(decode_s, 1e-9)}
+
+
+def _ctx_counts(eng) -> dict:
+    return {"demoted": eng.num_ctx_demoted_pages,
+            "chunks": eng.num_ctx_stream_chunks,
+            "restages": eng.num_ctx_restages,
+            "restage_bytes": eng.ctx_restage_bytes,
+            "restage_s": eng.ctx_restage_seconds}
+
+
+def _ctx_phase(tag, entry, build, tmpdir, full: bool) -> dict:
+    """(a) and (b) of phase 4m on ``entry``; ``full``: at full width (the
+    measured run) or the 2-layer float32 witness, which also demands
+    equal ids and plants a corrupt cold page."""
+    from helix_tpu_torch.ops.paged_kernel import (
+        K1_COLD,
+        K1_INT8,
+        K1_INT8_COLD,
+    )
+    from helix_tpu_torch.ops import paged_kernel
+    from helix_tpu_torch.testing import faults
+
+    rng = np.random.default_rng(41)
+    prompts = [_ctx_text(rng, CTX_PROMPT_BYTES) for _ in range(CTX_CHATS)]
+    cold_forms = (K1_COLD, K1_INT8_COLD)
+    out = {}
+    # (a) the wave, tiered, then the same wave on the same entry resident
+    waves = {}
+    for tiered in (True, False):
+        served, mgr, httpd, base = _ctx_node(
+            f"ctx-{'tiered' if tiered else 'resident'}"
+            f"{'' if full else '-2l'}", entry, tiered, tmpdir, build)
+        loop = served.loop
+        eng = loop.engine
+        eng.allocator.peak_used = eng.allocator.used_pages
+        c0 = _ctx_counts(eng)
+        for f in cold_forms:
+            f.launches = 0
+        plain_calls = [0]
+        plain = paged_kernel.ragged_paged_attention_plain
+
+        def counted(*a, **k):
+            plain_calls[0] += 1
+            return plain(*a, **k)
+
+        paged_kernel.ragged_paged_attention_plain = counted
+        tiered_calls = [0]
+        attn = eng._paged_attn
+
+        def spy(*a, **k):
+            if (len(a) > 8 and a[8] is not None) or k.get("cold"):
+                tiered_calls[0] += 1
+            return attn(*a, **k)
+
+        eng._paged_attn = spy
+        rec0 = loop.window.recorded
+        prof = None
+        try:
+            if full and tiered:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    wave = _ctx_wave(base, loop, prompts, CTX_NEW_TOKENS)
+                    torch.cuda.synchronize()
+            else:
+                wave = _ctx_wave(base, loop, prompts, CTX_NEW_TOKENS)
+        finally:
+            paged_kernel.ragged_paged_attention_plain = plain
+            eng._paged_attn = attn
+        c1 = _ctx_counts(eng)
+        d = {k: c1[k] - c0[k] for k in c0}
+        wave.update(d, peak_pages=eng.allocator.peak_used,
+                    cold_launches=sum(f.launches for f in cold_forms),
+                    forms={f.name: f.launches for f in cold_forms},
+                    tiered_attn_calls=tiered_calls[0],
+                    plain_calls=plain_calls[0])
+        flight = loop.flight.records(recent=4096)
+        wave["flight_cold_max"] = max(
+            (r.get("kv_cold_pages", 0) for r in flight), default=0)
+        wave["flight_chunks"] = sum(r.get("ctx_stream_chunks", 0)
+                                    for r in flight)
+        wave["steps"] = loop.window.recorded - rec0
+        if prof is not None:
+            busy = sum(_kernel_ms(prof).values())
+            wave["busy_ms"] = busy
+            wave["idle_share"] = 1.0 - busy / (wave["seconds"] * 1e3)
+        waves["tiered" if tiered else "resident"] = wave
+        if tiered:
+            if wave["demoted"] <= 0 or wave["chunks"] <= 0:
+                raise AssertionError(f"{tag} nothing demoted or streamed")
+            if wave["cold_launches"] <= 0 or wave["plain_calls"]:
+                raise AssertionError(
+                    f"{tag} cold launches {wave['cold_launches']}, plain "
+                    f"op calls {wave['plain_calls']}")
+            if wave["cold_launches"] != wave["tiered_attn_calls"]:
+                raise AssertionError(
+                    f"{tag} {wave['cold_launches']} cold launches for "
+                    f"{wave['tiered_attn_calls']} tiered attention calls")
+            if wave["flight_chunks"] <= 0 or wave["flight_cold_max"] <= 0:
+                raise AssertionError(f"{tag} the flight record shows no "
+                                     "cold pages")
+            log(f"{tag} (a) restages (chunks, bytes, s, of which read "
+                "back and verified, of which packed): "
+                + ", ".join(f"({n}, {b}, {s:.3f}, {v:.3f}, {p:.3f})"
+                            for n, b, s, v, p in
+                            list(eng.ctx_restage_log)[-d["restages"]:]))
+            # (c) the corrupt cold page, witness only
+            if not full:
+                out["corrupt"] = _ctx_corrupt(tag, base, eng, prompts[0])
+            # (b) the context-caching API on the tiered node
+            out["context"] = _ctx_api(tag, base, loop, eng, rng, full)
+        elif not full:
+            # the witness: context chats inline on the resident node
+            out["context_inline"] = _ctx_inline(base, loop, out["context"])
+        _ctx_close(served, httpd)
+    t, r = waves["tiered"], waves["resident"]
+    same = sum(a == b for a, b in zip(t["texts"], r["texts"]))
+    # tokens each tiered chat shares with its resident run before they
+    # part
+    agree = [next((i for i, (x, y) in enumerate(zip(a.split(">"),
+                                                    b.split(">")))
+                   if x != y), a.count("<"))
+             for a, b in zip(t["texts"], r["texts"])]
+    out.update(waves=waves, equal=same, agree=agree)
+    log(f"{tag} (a) {CTX_CHATS} chats of ~{CTX_PROMPT_BYTES} tokens, "
+        f"{CTX_NEW_TOKENS} new each: tiered demoted {t['demoted']} pages, "
+        f"streamed {t['chunks']} chunks, {t['restages']} re-stages "
+        f"({t['restage_bytes'] / 1e9:.3f} GB, {t['restage_s']:.3f} s); "
+        f"peak pool pages tiered {t['peak_pages']} vs resident "
+        f"{r['peak_pages']}; TTFT p50 {t['ttft_p50']:.3f} s vs "
+        f"{r['ttft_p50']:.3f} s; decode {t['decode_tok_s']:.1f} vs "
+        f"{r['decode_tok_s']:.1f} tok/s; wave {t['seconds']:.2f} s vs "
+        f"{r['seconds']:.2f} s; kv_cold_pages in the flight record up to "
+        f"{t['flight_cold_max']}; cold launches {t['cold_launches']} = "
+        f"tiered attention calls {t['tiered_attn_calls']}, plain op calls "
+        f"{t['plain_calls']}; tiered ids equal to resident {same} of "
+        f"{CTX_CHATS} (tokens shared before they part: {agree})"
+        + (f"; traced busy {t['busy_ms']:.1f} ms, idle share "
+           f"{t['idle_share']:.3f}" if "busy_ms" in t else ""))
+    if 2 * t["peak_pages"] > r["peak_pages"]:
+        raise AssertionError(f"{tag} tiered peak {t['peak_pages']} is more "
+                             f"than half the resident {r['peak_pages']}")
+    if not full:
+        if same != CTX_CHATS:
+            raise AssertionError(f"{tag} tiered ids equal resident {same} "
+                                 f"of {CTX_CHATS}")
+        ci = out["context_inline"]
+        log(f"{tag} (c) completions through the handle equal the prompts "
+            f"written out {ci['equal']} of {CTX_API_CHATS}")
+        if ci["equal"] != CTX_API_CHATS:
+            raise AssertionError(f"{tag} context completions equal inline "
+                                 f"{ci['equal']} of {CTX_API_CHATS}")
+    return out
+
+
+def _ctx_corrupt(tag, base, eng, prompt) -> dict:
+    """A streamed chat alone; once it has emitted tokens, its next cold
+    read finds a page corrupted: the stream must end in an error naming
+    the cold page (the loop retries, the page is gone, the request is
+    evicted), not run to its end."""
+    from helix_tpu_torch.testing import faults
+
+    body = {"model": MODEL, "max_tokens": 64, "temperature": 0,
+            "stream": True, "messages": [{"role": "user",
+                                          "content": prompt}]}
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    c0 = eng.host_pool.corrupt_pages
+    f0 = len(STEP_FAILURES)
+    n, error = 0, None
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                frame = json.loads(line[6:])
+                if "error" in frame:
+                    error = frame["error"]["message"]
+                    break
+                n += frame["choices"][0]["delta"].get("content",
+                                                      "").count("<")
+                if n and faults.active() is None:
+                    faults.arm(rules=[{"point": "host_pool",
+                                       "op": "restore", "mode": "corrupt",
+                                       "times": 1}])
+    finally:
+        faults.disarm()
+    corrupt = eng.host_pool.corrupt_pages - c0
+    planted = STEP_FAILURES[f0:]
+    CORRUPT_PAGE_FAILURES.extend(f for f in planted if "ColdPageError" in f[2])
+    if error is None or "cold KV page" not in error or corrupt < 1 \
+            or len(CORRUPT_PAGE_FAILURES) != len(planted):
+        raise AssertionError(f"{tag} corrupt cold page: {n} tokens, error "
+                             f"{error!r}, corrupt pages {corrupt}")
+    log(f"{tag} (c) corrupt cold page: the stream ended after {n} of 64 "
+        f"tokens with {error[:200]!r}; corrupt pages counted {corrupt}")
+    return {"tokens": n, "error": error, "corrupt_pages": corrupt}
+
+
+def _ctx_turns(rng) -> list:
+    return [f"Question {i}: " + _ctx_text(rng, 40)
+            for i in range(CTX_API_CHATS)]
+
+
+def _ctx_api(tag, base, loop, eng, rng, full) -> dict:
+    """(b): a ~6000-token context created twice (the second ``cached``),
+    listed, then 8 chats carrying its ``context_id`` (admitted together),
+    a quota 429, an unknown handle's 404 and the ``helix_ctx_*``
+    series."""
+    prefix = [{"role": "system", "content": _ctx_text(rng, CTX_PREFIX_BYTES)}]
+    body = {"model": MODEL, "messages": prefix}
+    t0 = time.monotonic()
+    first = json.loads(_post(base + "/v1/context", body))
+    create_s = time.monotonic() - t0
+    again = json.loads(_post(base + "/v1/context", body))
+    if first["cached"] or not again["cached"] or again["id"] != first["id"]:
+        raise AssertionError(f"{tag} create {first} then {again}")
+    listed = json.loads(urllib.request.urlopen(base + "/v1/context",
+                                               timeout=60).read())
+    if first["id"] not in [e["id"] for e in listed["data"]]:
+        raise AssertionError(f"{tag} the handle is not listed: {listed}")
+    turns = _ctx_turns(rng)
+    hits0 = eng.prefix_hit_tokens_by_adapter.get("", 0)
+
+    def send(i):
+        t = time.monotonic()
+        got = json.loads(_post(base + "/v1/chat/completions", {
+            "model": MODEL, "max_tokens": 16, "temperature": 0,
+            "context_id": first["id"],
+            "messages": [{"role": "user", "content": turns[i]}]}))
+        return got, time.monotonic() - t
+
+    outs, _e, _t, _t0 = _gated_calls(loop, CTX_API_CHATS, send)
+    # the engine's TTFT of each chat (submit to first token)
+    ttfts = sorted(list(eng.recent_ttfts)[-CTX_API_CHATS:])
+    hit_tokens = eng.prefix_hit_tokens_by_adapter.get("", 0) - hits0
+    full_pages = (first["tokens"] - 1) // 16
+    usage = [o[0]["usage"]["prompt_tokens"] for o in outs]
+    if any(u <= first["tokens"] for u in usage):
+        raise AssertionError(f"{tag} usage does not charge the span: "
+                             f"{usage}")
+    if hit_tokens < CTX_API_CHATS * full_pages * 16:
+        raise AssertionError(f"{tag} prefix-hit tokens {hit_tokens} < "
+                             f"{CTX_API_CHATS} x {full_pages} pages x 16")
+    lat = sorted(o[1] for o in outs)
+    status, err = _error_of(base, {
+        "model": MODEL, "context_id": "ctx-" + "0" * 24,
+        "messages": [{"role": "user", "content": "hi"}]})
+    if status != 404 or err["error"].get("code") != "context_not_found":
+        raise AssertionError(f"{tag} unknown handle: {status} {err}")
+    status_q, err_q = _error_of(base, {
+        "model": MODEL, "messages": [{"role": "system", "content":
+                                      _ctx_text(rng, 3000)}]},
+        path="/v1/context")
+    if status_q != 429 or err_q["error"].get("code") != \
+            "context_quota_exceeded":
+        raise AssertionError(f"{tag} quota: {status_q} {err_q}")
+    metrics = urllib.request.urlopen(base + "/metrics",
+                                     timeout=60).read().decode()
+    ctx_lines = [ln for ln in metrics.splitlines()
+                 if ln.startswith("helix_ctx_")]
+    vals = {ln.split()[0]: float(ln.split()[1]) for ln in ctx_lines}
+    if vals.get("helix_ctx_hits_total", 0) < CTX_API_CHATS or \
+            vals.get("helix_ctx_quota_rejects_total", 0) < 1 or \
+            vals.get("helix_ctx_misses_total", 0) < 1:
+        raise AssertionError(f"{tag} helix_ctx_* {vals}")
+    texts = [o[0]["choices"][0]["message"]["content"] for o in outs]
+    extra = {}
+    if not full:
+        # the witness: a text prefix as another tenant's context, and 8
+        # completions through its handle (held to the same prompts
+        # written out on the resident node)
+        text_prefix = _ctx_text(rng, CTX_PREFIX_BYTES)
+        req = urllib.request.Request(
+            base + "/v1/context", data=json.dumps(
+                {"model": MODEL, "prompt": text_prefix}).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Helix-Tenant": "witness"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            handle = json.loads(r.read())["id"]
+        extra = {"text_prefix": text_prefix, "completions":
+                 _ctx_completions(base, loop, text_prefix, turns, handle)}
+    log(f"{tag} (b) context {first['id']} of {first['tokens']} tokens: "
+        f"create {create_s:.3f} s, again cached, listed; {CTX_API_CHATS} "
+        f"chats with context_id: prefix-hit tokens {hit_tokens} (>= "
+        f"{CTX_API_CHATS} "
+        f"x {full_pages} pages x 16), usage prompt_tokens {usage}, TTFT "
+        f"p50 {ttfts[len(ttfts) // 2]:.3f} s and latency p50 "
+        f"{lat[len(lat) // 2]:.3f} s (16 tokens each) vs the create's "
+        f"{create_s:.3f} s; 404 {err['error']['code']}, 429 "
+        f"{err_q['error']['code']}; /metrics {vals}")
+    return {"id": first["id"], "prefix": prefix, "turns": turns,
+            "texts": texts, "create_s": create_s, "hit_tokens": hit_tokens,
+            "latency_p50": lat[len(lat) // 2],
+            "ttft_p50": ttfts[len(ttfts) // 2], "metrics": vals, **extra}
+
+
+def _ctx_completions(base, loop, prefix, turns, context_id=None) -> list:
+    """Completions of ``prefix + turn`` (the byte tokenizer encodes by
+    concatenation), the prefix by ``context_id`` when given, else written
+    out; admitted together.  Their texts (token ids)."""
+    def send(i):
+        body = {"model": MODEL, "max_tokens": 16, "temperature": 0,
+                "prompt": turns[i] if context_id else prefix + turns[i]}
+        if context_id:
+            body["context_id"] = context_id
+        got = json.loads(_post(base + "/v1/completions", body))
+        return got["choices"][0]["text"]
+
+    texts, _e, _t, _t0 = _gated_calls(loop, len(turns), send)
+    return texts
+
+
+def _ctx_inline(base, loop, ctx) -> dict:
+    """The witness's context completions again with the prefix written
+    out (no handle) on the resident node: their ids against the
+    handle's."""
+    texts = _ctx_completions(base, loop, ctx["text_prefix"], ctx["turns"])
+    return {"equal": sum(a == b for a, b in zip(texts, ctx["completions"]))}
+
+
+@_timed
+def phase_context(smi) -> dict:
+    """4m: tiered long context and the context-caching API on the
+    ``v5e1-hotswap`` Llama entry as written, served through serve-node's
+    profile path with ``HELIX_CTX_HOT_PAGES=32`` and
+    ``HELIX_MAX_PAGES_PER_SEQ=512`` (32 layers, int8 weights and KV, 3968
+    pages, its 16 GiB host tier, speculation on).
+    (a) ``CTX_CHATS`` (4) streamed chats of distinct ~7,880-token
+    prompts, 32 new tokens each, admitted together, then the same wave on
+    the entry with tiering off: every chat answered with every token once; demoted pages, cold
+    chunks streamed, slab re-stages (count, bytes, seconds, each one),
+    peak pool pages (the tiered peak at most half the resident one), TTFT
+    p50, decode tok/s, the tiered wave's traced device busy time and idle
+    share, ``kv_cold_pages`` from the flight record; every tiered
+    attention call launches K1's cold form, the plain op never runs.
+    Tiered ids against resident are recorded (bf16 with int8 KV depends
+    on the shapes: ROADMAP C).  (b) ``POST /v1/context`` of a ~6000-token
+    prefix twice (the same id, ``cached: true``), ``GET`` listing it, 8
+    chats with ``context_id`` (prefix-hit tokens, ``usage``, latency
+    against the create's), a 429 past ``HELIX_CTX_TENANT_TOKENS``, an
+    unknown handle's 404, ``helix_ctx_*`` at ``/metrics``.  (c) the same
+    at 2 layers in float32, where tiered ids must equal resident (all of
+    the wave), 8 completions through a text context's handle must equal
+    the same prompts written out on the resident node, and a corrupt cold
+    page must end its stream with the ``ColdPageError`` text."""
+    import tempfile
+
+    from helix_tpu_torch import cli
+
+    tag = f"[context] ({smi})"
+    doc = cli._load_profile(HOTSWAP_PROFILE)
+    llama = next(m for m in doc["models"] if m["name"] == MODEL)
+    wit = {**llama, "model_overrides": {"num_layers": 2,
+                                        "dtype": "float32"},
+           "engine": {k: v for k, v in llama["engine"].items()
+                      if k != "kv_cache_dtype"}}
+
+    def build(**kw):
+        served = cli.build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        return served
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="helix-ctx-")
+    try:
+        for key, entry, full in (("full", llama, True),
+                                 ("witness", wit, False)):
+            fs = os.path.join(tmp, f"fs-{key}")
+            os.environ["HELIX_FILESTORE_KV_DIR"] = fs
+            os.environ["HELIX_CTX_TENANT_TOKENS"] = str(CTX_TENANT_CAP)
+            try:
+                res[key] = _ctx_phase(
+                    tag + ("" if full else " witness, 2 layers float32"),
+                    entry, build, tmp, full)
+            finally:
+                del os.environ["HELIX_FILESTORE_KV_DIR"]
+                del os.environ["HELIX_CTX_TENANT_TOKENS"]
+    finally:
+        # the filestore writers may still close files: a best effort
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(res["full"]["waves"]["tiered"]["forms"])
+    for name, n in res["witness"]["waves"]["tiered"]["forms"].items():
+        launches[name] = launches[name] or n
+    return {"launches": launches, "result": res}
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -6064,7 +6812,7 @@ def phase_parity(int8: bool = False) -> dict:
 
 
 def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
-                by_path=None) -> dict:
+                by_path=None, cold_rows=(), cold_int8_rows=()) -> dict:
     """The kernels JSON line: ``launches`` is the count on the first main
     path that runs the kernel, ``launches_by_path`` each path's own."""
     by_path = by_path or {}
@@ -6097,6 +6845,14 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
         entry("flash_attention",
               "helix_tpu_torch/csrc/flash_attention.cu",
               "helix_tpu/ops/attention.py:258", k2_rows),
+        entry("ragged_paged_attention_cold",
+              "helix_tpu_torch/csrc/ragged_paged_attention.cu",
+              "helix_tpu/ops/paged.py:132 (tiered; no Pallas form)",
+              cold_rows),
+        entry("ragged_paged_attention_int8_cold",
+              "helix_tpu_torch/csrc/ragged_paged_attention.cu",
+              "helix_tpu/ops/paged.py:132 (tiered, int8; no Pallas form)",
+              cold_int8_rows),
     ]}
 
 
@@ -6105,14 +6861,15 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
-                             "disagg"),
+                             "disagg", "context"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
-                         "'node' / 'tunnel' / 'disagg': those and the "
-                         "hot-swap / adapter / checkpoint / scheduler / "
-                         "node-agent / tunnel and embedding / disagg "
-                         "handoff and filestore phase")
+                         "'node' / 'tunnel' / 'disagg' / 'context': those "
+                         "and the hot-swap / adapter / checkpoint / "
+                         "scheduler / node-agent / tunnel and embedding / "
+                         "disagg handoff and filestore / tiered context "
+                         "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6128,6 +6885,7 @@ def main(argv=None) -> int:
     k2_phi3, k1_int8_phi3 = phase_phi3_kernels()
     k2_rows += k2_phi3
     k1_int8_rows += k1_int8_phi3
+    cold_rows, cold_int8_rows = phase_k1_cold()
     launches, by_path = {}, {}
     if args.phase == "hotswap":
         swap = phase_hotswap(dev["smi"])
@@ -6158,6 +6916,10 @@ def main(argv=None) -> int:
         dis = phase_disagg(dev["smi"])
         launches = {k: n for k, n in dis["launches"].items() if n}
         by_path = {k: {"disagg": n} for k, n in launches.items()}
+    if args.phase == "context":
+        ctx = phase_context(dev["smi"])
+        launches = dict(ctx["launches"])
+        by_path = {k: {"context": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -6180,12 +6942,17 @@ def main(argv=None) -> int:
             "from": "phase 4i"})
         tun = phase_tunnel(dev["smi"])
         dis = phase_disagg(dev["smi"])
+        ctx = phase_context(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
             "flash_attention": bf16["launches"]["flash_attention"],
             "ragged_paged_attention_int8":
                 int8["launches"]["ragged_paged_attention_int8"],
+            "ragged_paged_attention_int8_cold":
+                ctx["launches"]["ragged_paged_attention_int8_cold"],
+            "ragged_paged_attention_cold":
+                ctx["launches"]["ragged_paged_attention_cold"],
         }
         by_path = {
             "ragged_paged_attention": {
@@ -6213,12 +6980,19 @@ def main(argv=None) -> int:
                     tun["launches"]["ragged_paged_attention_int8"],
                 "disagg":
                     dis["launches"]["ragged_paged_attention_int8"]},
+            "ragged_paged_attention_int8_cold": {
+                "context":
+                    ctx["launches"]["ragged_paged_attention_int8_cold"]},
+            "ragged_paged_attention_cold": {
+                "context witness, 2 layers float32":
+                    ctx["launches"]["ragged_paged_attention_cold"]},
         }
         phase_parity()
         phase_parity(int8=True)
     _check_step_failures()
     log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches,
-                               dev["infos"], by_path)))
+                               dev["infos"], by_path, cold_rows,
+                               cold_int8_rows)))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,8 +83,7 @@ item: a ``vision`` or ``vision-embedding`` kind (A17b), a ``mesh`` with an
 axis above 1
 (A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
 ``adapter`` merged into the weights at apply time (it restores a training
-checkpoint: A18), and engine fields of unported modules
-(``ctx_hot_pages``: A14).  A profile assigned by the control plane with
+checkpoint: A18).  A profile assigned by the control plane with
 such an entry fails its apply with that text (``status: failed``).
 
 The node's operator overrides, as the reference node agent reads them:
@@ -303,7 +302,8 @@ def _operator_overrides(eng_kw: dict) -> None:
     (the reference node agent's): ``HELIX_SPEC_TOKENS`` (>0 turns
     speculation on with that many drafts, 0 off), ``HELIX_ASYNC_LOOP``
     (truthy on, 0 / false / no / off off), ``HELIX_MAX_PAGES_PER_SEQ``,
-    ``HELIX_CTX_HOT_PAGES`` (tiered context, A14: refused above 0),
+    ``HELIX_CTX_HOT_PAGES`` (tiered context: the hot tail in pages, 0
+    off),
     ``HELIX_KV_HOST_POOL_BYTES`` (0 turns the host tier off) and
     ``HELIX_ADAPTER_POOL_SLOTS`` (0 turns the adapter pool off)."""
     env = os.environ.get

@@ -25,8 +25,10 @@ survivors to the peers the control plane names at
 ``.../migration-targets``) and then calls ``on_drain``.
 
 HTTP goes through ``urllib``.  What the port does not have yet is sent as
-the reference sends an idle block: ``multihost`` (ROADMAP A15), ``canary``
-(A19) and ``ctx`` (A14) are ``{}``.  A ``kind: embedding`` entry is an
+the reference sends an idle block: ``multihost`` (ROADMAP A15) and
+``canary`` (A19) are ``{}``.  The ``ctx`` block is the context cache's
+``stats_block`` (``serving.context_cache``) on the node's filestore
+root.  A ``kind: embedding`` entry is an
 encoder with no engine loop (``cli.build_embedding_model``): it counts in
 the registry, the heartbeat's model list and the residency estimate (the
 reference's flat 256 MiB), not in the saturation summary.  A profile the
@@ -68,6 +70,8 @@ from helix_tpu_torch.engine.residency import (
 from helix_tpu_torch.obs import trace as obs_trace
 from helix_tpu_torch.obs.flight import SATURATION_KEYS
 from helix_tpu_torch.obs.slo import merge_rollups, tenant_top_k_from_env
+from helix_tpu_torch.serving.context_cache import context_cache_for
+from helix_tpu_torch.serving.kv_filestore import kv_filestore_dir
 from helix_tpu_torch.serving.migration import (
     PeerShipper,
     drain_seconds,
@@ -393,6 +397,16 @@ class NodeAgent:
         except Exception:  # noqa: BLE001 — heartbeat must never die
             return {}
 
+    def ctx_summary(self) -> dict:
+        """The heartbeat's context-cache block: handle and token counts
+        and the create / hit / miss / quota counters of the registry the
+        HTTP surface serves (the per-root instance of
+        ``context_cache_for``); {} while it is empty and idle."""
+        try:
+            return context_cache_for(kv_filestore_dir()).stats_block()
+        except Exception:  # noqa: BLE001 — heartbeat must never die
+            return {}
+
     def pool_role(self) -> str:
         """HELIX_POOL_ROLE beats the applied profile's ``role``."""
         return pool_role(self.profile_role)
@@ -416,14 +430,13 @@ class NodeAgent:
             "saturation": self.saturation_summary(),
             "tenants": self.tenant_summary(),
             "adapters": self.adapter_summary(),
-            # multi-host serving (A15), canaries (A19) and the context
-            # cache (A14) are not ported: each block is the reference's
-            # idle block
+            # multi-host serving (A15) and canaries (A19) are not ported:
+            # each block is the reference's idle block
             "multihost": {},
             "role": self.pool_role(),
             "traces": self.trace_summary(),
             "canary": {},
-            "ctx": {},
+            "ctx": self.ctx_summary(),
             "draining": self.draining,
             "drain_deadline_ts": self.drain_deadline_ts,
             "disk": {"total": disk.total, "used": disk.used,

@@ -63,6 +63,23 @@
 // int8 pool moves 2*D + 8 bytes per history token and KV head (264 B at
 // D=128) where a bf16 pool moves 4*D (512 B).
 
+// The cold form (tiered KV residency, ROADMAP B4).  The Pallas kernel
+// has no tiered entry point: the reference routes tiered calls to its XLA
+// oracle (helix_tpu/ops/paged.py:132-186, 255-310).  Here they are more
+// parts of the same split-and-merge.  Each row r may carry a demoted span
+// [span_lo[r], span_hi[r]) of its history, whose table entries point at
+// page 0: history keys inside it are masked and staged as 0, and a
+// history part wholly inside it exits.  The span's K/V arrive instead as
+// a staged slab of chunks cold_k/cold_v [L, nC, Ct, KVH, D] (int8 codes
+// with f32 scales [L, nC, Ct, KVH]); chunk c belongs to row cold_row[c]
+// (-1: nobody) and holds cold_len[c] tokens.  Cold part j of a query
+// tile (one of n_cold parts, after the fresh part) attends every chunk c
+// = j (mod n_cold) that its row owns, no causal mask (cold tokens precede
+// every query), folding them into one (m, l, acc); pass 2 merges the
+// row's valid history, fresh and cold parts, which it lists in shared
+// memory.  Cold K/V dequantize as hot history does.  Bound: bytes again,
+// the slab's chunks of the rows in the call read once per KV head.
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -191,13 +208,36 @@ struct Span {
   int tok0;             // first token of the tile, row-relative
   int rows;             // live (token, head) rows of the tile
   int group;
+  int clo, chi;         // demoted keys [clo, chi), masked (cold form)
 };
+
+// The cold form's arguments (all device pointers; unused otherwise).
+struct Cold {
+  const int* span_lo;   // [R]
+  const int* span_hi;   // [R]
+  const void* k;        // [L, nC, Ct, KVH, D], the pool's element type
+  const void* v;
+  const float* ks;      // [L, nC, Ct, KVH] (int8 pools)
+  const float* vs;
+  const int* row;       // [nC] owning row, -1 = none
+  const int* len;       // [nC] live tokens of the chunk
+  int nC, Ct, n_cold;
+};
+
+// Does cold part j of row r own a live chunk?
+__device__ __forceinline__ bool cold_part_live(const Cold& cold, int j,
+                                               int r) {
+  for (int c = j; c < cold.nC; c += cold.n_cold)
+    if (cold.row[c] == r && cold.len[c] > 0) return true;
+  return false;
+}
 
 // Pass-1 attention of the block's query rows over keys [kbeg, kend),
 // staged through the ring.  E is the staged element type; `row_of(pos)`
 // gives the K row of key position pos (V is the same offset in its pool),
 // `scale_of(pos)` its scale-pool index (int8 pools only).
-template <int D, typename E, bool kQuant, typename RowOf, typename ScaleOf>
+template <int D, typename E, bool kQuant, bool kSpan, typename RowOf,
+          typename ScaleOf>
 __device__ __forceinline__ void attend(
     uint8_t* sm, const K1Smem& L, const Span& sp, const E* kbase,
     const E* vbase, const float* kscale, const float* vscale, RowOf row_of,
@@ -219,7 +259,8 @@ __device__ __forceinline__ void attend(
       const int rem = e - which * kKeys * kPieces;
       const int j = rem / kPieces, pc = rem - j * kPieces;
       const int pos = key0 + j;
-      const bool ok = pos < sp.kend;
+      bool ok = pos < sp.kend;
+      if constexpr (kSpan) ok = ok && (pos < sp.clo || pos >= sp.chi);
       const size_t row = ok ? row_of(pos) : 0;
       const E* src = (which ? vbase : kbase) + row * D + pc * (16 / sizeof(E));
       uint8_t* dst = st + (which ? kKeys * L.kstride + j * L.vstride
@@ -230,7 +271,8 @@ __device__ __forceinline__ void attend(
       if (tid < 2 * kKeys) {
         const int j = tid & (kKeys - 1);
         const int pos = key0 + j;
-        const bool ok = pos < sp.kend;
+        bool ok = pos < sp.kend;
+        if constexpr (kSpan) ok = ok && (pos < sp.clo || pos >= sp.chi);
         const size_t si = ok ? scale_of(pos) : 0;
         cp_async4(st + L.scales + tid * 4, (tid < kKeys ? kscale : vscale) + si,
                   ok ? 4 : 0);
@@ -284,6 +326,7 @@ __device__ __forceinline__ void attend(
       if (k < nr) {
         const int i = warp + kWarps * k;
         bool ok = key < sp.kend;
+        if constexpr (kSpan) ok = ok && (key < sp.clo || key >= sp.chi);
         if (sp.fresh) ok = ok && key <= sp.tok0 + i / sp.group;
         const float x = ok ? sc[k] * ks * sl2 : kMaskValue;
         const float mn = fmaxf(m[k], warp_maxf(x));
@@ -327,8 +370,9 @@ __device__ __forceinline__ void attend(
 }
 
 // Pass 1.  T: query / fresh K/V type; TP: pool element type (T, or int8_t
-// with the scale pools).  grid (tiles_bound * parts, KVH).
-template <typename T, typename TP, int D>
+// with the scale pools).  grid (tiles_bound * parts, KVH); the cold form
+// (kCold) has cold.n_cold more parts.
+template <typename T, typename TP, int D, bool kCold>
 __global__ void __launch_bounds__(kThreads)
 ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                     const T* __restrict__ v_new, const TP* __restrict__ k_pages,
@@ -341,10 +385,10 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                     float* __restrict__ part_ml, float* __restrict__ part_acc,
                     int T_tokens, int H, int KVH, int N, int P, int R,
                     int maxP, int layer, int pps, int n_splits,
-                    float scale) {
+                    float scale, const Cold cold) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   constexpr int kEs = sizeof(T) > sizeof(TP) ? sizeof(T) : sizeof(TP);
-  const int parts = n_splits + 1;
+  const int parts = n_splits + 1 + (kCold ? cold.n_cold : 0);
   const int part = blockIdx.x % parts;
   const int g = blockIdx.y;
   const int group = H / KVH;
@@ -356,7 +400,19 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int hr = hist[r];
   const int span = pps * P;
   const bool fresh = part == n_splits;
-  if (!fresh && part * span >= hr) return;   // span past the history
+  const bool cold_part = kCold && part > n_splits;
+  int clo = 0, chi = 0;
+  if constexpr (kCold) {
+    clo = cold.span_lo[r];
+    chi = cold.span_hi[r];
+    if (cold_part && !cold_part_live(cold, part - n_splits - 1, r)) return;
+    if (!fresh && !cold_part) {
+      const int kb = part * span;
+      const int ke = part == n_splits - 1 ? hr : min(hr, kb + span);
+      if (kb < hr && kb >= clo && ke <= chi) return;   // wholly demoted
+    }
+  }
+  if (!fresh && !cold_part && part * span >= hr) return;   // past the history
   const int ntok = min(qb, ql - tok0);
   const int base = t0[r];
 
@@ -368,7 +424,9 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   sp.tok0 = tok0;
   sp.rows = ntok * group;
   sp.group = group;
-  if (fresh) {
+  sp.clo = clo;
+  sp.chi = chi;
+  if (fresh || cold_part) {
     sp.kbeg = 0;
     sp.kend = tok0 + ntok;   // the tile's last token sees keys up to itself
   } else {
@@ -394,7 +452,7 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
   int* table_s = reinterpret_cast<int*>(sm + L.table);
   const int page0 = part * pps;
-  if (!fresh) {
+  if (!fresh && !cold_part) {
     const int npg = min(pps, maxP - page0);
     for (int i = tid; i < npg; i += kThreads)
       table_s[i] = min(max(tables[(size_t)r * maxP + page0 + i], 0), N - 1);
@@ -412,16 +470,30 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const float sl2 = scale * kLog2e;
   if (fresh) {
     auto row_of = [=](int pos) { return (size_t)(base + pos) * KVH + g; };
-    attend<D, T, false>(sm, L, sp, k_new, v_new, nullptr, nullptr, row_of,
-                        row_of, sl2, m, l, acc);
+    attend<D, T, false, false>(sm, L, sp, k_new, v_new, nullptr, nullptr,
+                               row_of, row_of, sl2, m, l, acc);
+  } else if (cold_part) {
+    // every live chunk of this row that falls to part j, in order
+    for (int c = part - n_splits - 1; c < cold.nC; c += cold.n_cold) {
+      if (cold.row[c] != r || cold.len[c] <= 0) continue;
+      Span sc = sp;
+      sc.kend = min(cold.len[c], cold.Ct);
+      const size_t row0 = ((size_t)layer * cold.nC + c) * cold.Ct;
+      auto row_of = [=](int pos) { return (row0 + pos) * KVH + g; };
+      __syncthreads();   // the previous chunk's ring is read out
+      attend<D, TP, kQuant, false>(
+          sm, L, sc, static_cast<const TP*>(cold.k),
+          static_cast<const TP*>(cold.v), cold.ks, cold.vs, row_of, row_of,
+          sl2, m, l, acc);
+    }
   } else {
     const size_t slot0 = (size_t)layer * N * P;   // first slot of the layer
     auto slot_of = [=](int pos) {
       const int idx = min(pos / P, maxP - 1) - page0;
       return (slot0 + (size_t)table_s[idx] * P + pos % P) * KVH + g;
     };
-    attend<D, TP, kQuant>(sm, L, sp, k_pages, v_pages, k_scale, v_scale,
-                          slot_of, slot_of, sl2, m, l, acc);
+    attend<D, TP, kQuant, kCold>(sm, L, sp, k_pages, v_pages, k_scale,
+                                 v_scale, slot_of, slot_of, sl2, m, l, acc);
   }
 
   // partial (m, l, acc) per query row
@@ -450,14 +522,16 @@ ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 // (max and weights), then 4 outputs each.
 constexpr int kMergeThreads = 256;
 
-template <typename T, int D>
+// The cold form lists the valid parts of its row in shared memory
+// (flags, then the list), 2 * (n_splits + 1 + n_cold) ints.
+template <typename T, int D, bool kCold>
 __global__ void __launch_bounds__(kMergeThreads)
 ragged_merge_kernel(const float* __restrict__ part_ml,
                     const float* __restrict__ part_acc,
                     const int* __restrict__ t0, const int* __restrict__ q_len,
                     const int* __restrict__ hist, T* __restrict__ out,
                     int T_tokens, int H, int KVH, int R, int span,
-                    int n_splits) {
+                    int n_splits, const Cold cold) {
   const int group = H / KVH;
   const int qb = tile_tokens(group);
   int r, qtile;
@@ -468,15 +542,52 @@ ragged_merge_kernel(const float* __restrict__ part_ml,
   const int base = t0[r], hr = hist[r];
   // valid parts: the history spans that start below hist, then the fresh
   // part (index n_splits), which every token has
+  extern __shared__ int merge_sm[];
   int nh = 0;
-  while (nh < n_splits && nh * span < hr) ++nh;
-  const int np = nh + 1;
+  int np;
+  const int* plist = nullptr;
+  if constexpr (kCold) {
+    const int total = n_splits + 1 + cold.n_cold;
+    int* flags = merge_sm;
+    int* list = merge_sm + total;
+    int* s_np = list + total;
+    const int clo = cold.span_lo[r], chi = cold.span_hi[r];
+    for (int p = threadIdx.x; p < total; p += kMergeThreads) {
+      bool ok;
+      if (p < n_splits) {
+        const int kb = p * span;
+        const int ke = p == n_splits - 1 ? hr : min(hr, kb + span);
+        ok = kb < hr && !(kb >= clo && ke <= chi);
+      } else if (p == n_splits) {
+        ok = true;
+      } else {
+        ok = cold_part_live(cold, p - n_splits - 1, r);
+      }
+      flags[p] = ok;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int p = 0; p < total; ++p)
+        if (flags[p]) list[n++] = p;
+      *s_np = n;
+    }
+    __syncthreads();
+    np = *s_np;
+    plist = list;
+  } else {
+    while (nh < n_splits && nh * span < hr) ++nh;
+    np = nh + 1;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int pair = warp; pair < ntok * group; pair += kMergeThreads / 32) {
     const size_t t = base + tok0 + pair / group;
     const int hh = g * group + pair % group;
     auto at = [&](int p) {
-      return ((size_t)(p < nh ? p : n_splits) * T_tokens + t) * H + hh;
+      if constexpr (kCold)
+        return ((size_t)plist[p] * T_tokens + t) * H + hh;
+      else
+        return ((size_t)(p < nh ? p : n_splits) * T_tokens + t) * H + hh;
     };
     float mx = -INFINITY;
     for (int p = lane; p < np; p += 32) mx = fmaxf(mx, part_ml[2 * at(p)]);
@@ -511,7 +622,7 @@ ragged_merge_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <typename T, typename TP, int D>
+template <typename T, typename TP, int D, bool kCold>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* k_pages, const void* v_pages,
                    const float* k_scale, const float* v_scale, const int* t0,
@@ -519,36 +630,41 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* out, float* part_ml, float* part_acc, int T_tokens,
                    int H, int KVH, int N, int P, int R, int maxP, int layer,
                    int pps, int n_splits, float scale, cudaStream_t stream,
-                   int* info) {
+                   int* info, const Cold& cold) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   constexpr int kEs = sizeof(T) > sizeof(TP) ? sizeof(T) : sizeof(TP);
   const int group = H / KVH;
   if (group > kMaxRows || pps <= 0 || n_splits <= 0)
     return cudaErrorInvalidValue;
+  if (kCold && (cold.nC <= 0 || cold.Ct <= 0 || cold.n_cold <= 0))
+    return cudaErrorInvalidValue;
   const int qb = tile_tokens(group);
   const K1Smem L(qb * group, D, pps, kEs, kQuant);
-  auto kern = ragged_split_kernel<T, TP, D>;
+  auto kern = ragged_split_kernel<T, TP, D, kCold>;
   if (info) return kernel_info(kern, kThreads, L.total, info);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
   const int tiles = tiles_bound(T_tokens, qb, R);
-  const dim3 grid(tiles * (n_splits + 1), KVH);
+  const int parts = n_splits + 1 + (kCold ? cold.n_cold : 0);
+  const dim3 grid(tiles * parts, KVH);
   kern<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<const TP*>(k_pages),
       static_cast<const TP*>(v_pages), k_scale, v_scale, t0, q_len, hist,
       tables, part_ml, part_acc, T_tokens, H, KVH, N, P, R, maxP, layer,
-      pps, n_splits, scale);
+      pps, n_splits, scale, cold);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ragged_merge_kernel<T, D><<<dim3(tiles, KVH), kMergeThreads, 0, stream>>>(
-      part_ml, part_acc, t0, q_len, hist, static_cast<T*>(out), T_tokens, H,
-      KVH, R, pps * P, n_splits);
+  const size_t merge_smem = kCold ? sizeof(int) * (2 * parts + 1) : 0;
+  ragged_merge_kernel<T, D, kCold>
+      <<<dim3(tiles, KVH), kMergeThreads, merge_smem, stream>>>(
+          part_ml, part_acc, t0, q_len, hist, static_cast<T*>(out),
+          T_tokens, H, KVH, R, pps * P, n_splits, cold);
   return cudaGetLastError();
 }
 
-template <typename T, typename TP>
+template <typename T, typename TP, bool kCold>
 cudaError_t dispatch_d(int D, const void* q, const void* k_new,
                        const void* v_new, const void* k_pages,
                        const void* v_pages, const float* k_scale,
@@ -557,13 +673,13 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_new,
                        float* part_ml, float* part_acc, int n_tokens, int H,
                        int KVH, int N, int P, int R, int maxP, int layer,
                        int pps, int n_splits, float scale, cudaStream_t s,
-                       int* info) {
+                       int* info, const Cold& cold) {
 #define HELIX_K1_CASE(DIM)                                                  \
   case DIM:                                                                 \
-    return launch<T, TP, DIM>(q, k_new, v_new, k_pages, v_pages, k_scale,  \
-                              v_scale, t0, q_len, hist, tables, out,        \
-                              part_ml, part_acc, n_tokens, H, KVH, N, P, R, \
-                              maxP, layer, pps, n_splits, scale, s, info);
+    return launch<T, TP, DIM, kCold>(                                       \
+        q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0, q_len,     \
+        hist, tables, out, part_ml, part_acc, n_tokens, H, KVH, N, P, R,    \
+        maxP, layer, pps, n_splits, scale, s, info, cold);
   switch (D) {
     HELIX_K1_CASE(16)
     HELIX_K1_CASE(32)
@@ -576,7 +692,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k_new,
 #undef HELIX_K1_CASE
 }
 
-template <typename TP>
+template <typename TP, bool kCold = false>
 cudaError_t dispatch(int dtype, int D, const void* q, const void* k_new,
                      const void* v_new, const void* k_pages,
                      const void* v_pages, const float* k_scale,
@@ -584,23 +700,24 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k_new,
                      const int* hist, const int* tables, void* out,
                      float* part_ml, float* part_acc, int T, int H, int KVH,
                      int N, int P, int R, int maxP, int layer, int pps,
-                     int n_splits, float scale, cudaStream_t s, int* info) {
+                     int n_splits, float scale, cudaStream_t s, int* info,
+                     const Cold& cold = Cold{}) {
   if (H % KVH != 0) return cudaErrorInvalidValue;
   if (dtype == 0) {
     using TPf = typename std::conditional<std::is_same<TP, int8_t>::value,
                                           int8_t, float>::type;
-    return dispatch_d<float, TPf>(D, q, k_new, v_new, k_pages, v_pages,
-                                  k_scale, v_scale, t0, q_len, hist, tables,
-                                  out, part_ml, part_acc, T, H, KVH, N, P, R,
-                                  maxP, layer, pps, n_splits, scale, s, info);
+    return dispatch_d<float, TPf, kCold>(
+        D, q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0, q_len,
+        hist, tables, out, part_ml, part_acc, T, H, KVH, N, P, R, maxP,
+        layer, pps, n_splits, scale, s, info, cold);
   }
   if (dtype == 1) {
     using TPb = typename std::conditional<std::is_same<TP, int8_t>::value,
                                           int8_t, __nv_bfloat16>::type;
-    return dispatch_d<__nv_bfloat16, TPb>(
+    return dispatch_d<__nv_bfloat16, TPb, kCold>(
         D, q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0, q_len,
         hist, tables, out, part_ml, part_acc, T, H, KVH, N, P, R, maxP,
-        layer, pps, n_splits, scale, s, info);
+        layer, pps, n_splits, scale, s, info, cold);
   }
   return cudaErrorInvalidValue;
 }
@@ -654,11 +771,26 @@ extern "C" int helix_ragged_paged_attention_int8(
 
 // Launch resources of pass 1 (the split kernel) at these shapes: info[4] =
 // shared memory per block (bytes), registers per thread, blocks per SM,
-// spill bytes per thread.
+// spill bytes per thread.  cold: of the cold form's split kernel.
 extern "C" int helix_ragged_paged_attention_info(int T, int H, int KVH,
                                                  int D, int pages_per_split,
                                                  int dtype, int quantized,
-                                                 int* info) {
+                                                 int cold, int* info) {
+  if (cold) {
+    const helix::Cold c{nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, 1, 1, 1};
+    if (quantized)
+      return static_cast<int>(helix::dispatch<int8_t, true>(
+          dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr, T, H, KVH, 1, 1, 1, 1, 0, pages_per_split, 1, 1.f,
+          nullptr, info, c));
+    return static_cast<int>(helix::dispatch<void, true>(
+        dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr, T, H, KVH, 1, 1, 1, 1, 0, pages_per_split, 1, 1.f,
+        nullptr, info, c));
+  }
   if (quantized)
     return static_cast<int>(helix::dispatch<int8_t>(
         dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -669,4 +801,61 @@ extern "C" int helix_ragged_paged_attention_info(int T, int H, int KVH,
       dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, T, H,
       KVH, 1, 1, 1, 1, 0, pages_per_split, 1, 1.f, nullptr, info));
+}
+
+// The cold form (tiered rows): the arguments of helix_ragged_paged_attention
+// plus span_lo/span_hi [R] int32, the staged slab cold_k/cold_v [L, nC,
+// Ct, KVH, D] of the pool's dtype, cold_row/cold_len [nC] int32, and
+// n_cold cold parts; part_ml/part_acc hold n_splits + 1 + n_cold parts.
+extern "C" int helix_ragged_paged_attention_cold(
+    const void* q, const void* k_new, const void* v_new, const void* k_pages,
+    const void* v_pages, const void* t0, const void* q_len, const void* hist,
+    const void* tables, const void* span_lo, const void* span_hi,
+    const void* cold_k, const void* cold_v, const void* cold_row,
+    const void* cold_len, void* out, void* part_ml, void* part_acc, int T,
+    int H, int KVH, int D, int N, int P, int R, int maxP, int layer,
+    int pages_per_split, int n_splits, int nC, int Ct, int n_cold,
+    float scale, int dtype, void* stream) {
+  if (T <= 0 || R <= 0) return cudaSuccess;
+  const helix::Cold cold{static_cast<const int*>(span_lo),
+                         static_cast<const int*>(span_hi), cold_k, cold_v,
+                         nullptr, nullptr,
+                         static_cast<const int*>(cold_row),
+                         static_cast<const int*>(cold_len), nC, Ct, n_cold};
+  return static_cast<int>(helix::dispatch<void, true>(
+      dtype, D, q, k_new, v_new, k_pages, v_pages, nullptr, nullptr,
+      static_cast<const int*>(t0), static_cast<const int*>(q_len),
+      static_cast<const int*>(hist), static_cast<const int*>(tables), out,
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc), T, H, KVH,
+      N, P, R, maxP, layer, pages_per_split, n_splits, scale,
+      static_cast<cudaStream_t>(stream), nullptr, cold));
+}
+
+// The cold form of the int8 entry point: int8 slab codes with their f32
+// scale slabs cold_k_scale/cold_v_scale [L, nC, Ct, KVH].
+extern "C" int helix_ragged_paged_attention_int8_cold(
+    const void* q, const void* k_new, const void* v_new, const void* k_pages,
+    const void* v_pages, const void* k_scale, const void* v_scale,
+    const void* t0, const void* q_len, const void* hist, const void* tables,
+    const void* span_lo, const void* span_hi, const void* cold_k,
+    const void* cold_v, const void* cold_k_scale, const void* cold_v_scale,
+    const void* cold_row, const void* cold_len, void* out, void* part_ml,
+    void* part_acc, int T, int H, int KVH, int D, int N, int P, int R,
+    int maxP, int layer, int pages_per_split, int n_splits, int nC, int Ct,
+    int n_cold, float scale, int dtype, void* stream) {
+  if (T <= 0 || R <= 0) return cudaSuccess;
+  const helix::Cold cold{static_cast<const int*>(span_lo),
+                         static_cast<const int*>(span_hi), cold_k, cold_v,
+                         static_cast<const float*>(cold_k_scale),
+                         static_cast<const float*>(cold_v_scale),
+                         static_cast<const int*>(cold_row),
+                         static_cast<const int*>(cold_len), nC, Ct, n_cold};
+  return static_cast<int>(helix::dispatch<int8_t, true>(
+      dtype, D, q, k_new, v_new, k_pages, v_pages,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(t0), static_cast<const int*>(q_len),
+      static_cast<const int*>(hist), static_cast<const int*>(tables), out,
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc), T, H, KVH,
+      N, P, R, maxP, layer, pages_per_split, n_splits, scale,
+      static_cast<cudaStream_t>(stream), nullptr, cold));
 }

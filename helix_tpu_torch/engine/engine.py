@@ -65,9 +65,21 @@ rung below the host tier: fresh full prompt pages write through to disk
 and a later prompt chaining onto them restores them from there, after a
 restart too.
 
-Outside this slice, and refused loudly by ``EngineConfig`` / ``Engine``:
-tiered contexts (A14), meshes and the multihost plan plane (A15), MoE
-and mrope models (A15, A17b).
+``ctx_hot_pages > 0`` (with a host tier) turns on tiered KV residency
+for long contexts: a row needing more than ``ctx_hot_pages +
+ctx_stream_pages`` pages past its cached prefix admits with only its
+first dispatch's pages, grows its table step by step, and demotes every
+full page behind its hot tail to the host tier (pinned, checksummed).
+Each step stages the demoted middles of all tiered rows as one slab of
+``ctx_stream_pages``-page chunks on the device (rebuilt whenever the
+demoted spans change) and attends them through K1's cold form, so a
+long chat holds about ``ctx_hot_pages`` pool pages.  A corrupt or
+missing cold page raises ``ColdPageError``.  ``ctx_pin`` rows (context
+cache creation) stay resident; a tiered row is neither preempted nor
+exported.
+
+Outside this slice, and refused loudly by ``Engine``: meshes and the
+multihost plan plane (A15), MoE and mrope models (A15, A17b).
 """
 
 from __future__ import annotations
@@ -98,6 +110,7 @@ from helix_tpu_torch.engine.adapters import (
 from helix_tpu_torch.engine.kv_cache import (
     PAGE_FIELDS,
     CacheConfig,
+    ColdPageError,
     HostPagePool,
     PageAllocator,
     PagedKVCache,
@@ -170,9 +183,7 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """The reference's ``EngineConfig``: same fields, same defaults.
-    Options outside this slice raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them."""
+    """The reference's ``EngineConfig``: same fields, same defaults."""
 
     max_decode_batch: int = 8
     page_size: int = 16
@@ -200,11 +211,6 @@ class EngineConfig:
     ctx_stream_pages: int = 4
 
     def __post_init__(self):
-        if self.ctx_hot_pages > 0:
-            raise NotImplementedError(
-                "EngineConfig ctx_hot_pages > 0 is not ported yet "
-                "(ROADMAP A14)"
-            )
         if self.enable_spec_decode and self.spec_tokens < 1:
             raise ValueError(
                 f"spec_tokens ({self.spec_tokens}) must be >= 1 when "
@@ -460,6 +466,37 @@ class Engine:
             HostPagePool(cfg.host_pool_bytes, device=self.device)
             if cfg.host_pool_bytes > 0 else None
         )
+        # tiered KV residency: demoted cold-middle pages live in the host
+        # pool keyed ("ctx", req_id, page_idx); each tiered slot keeps a
+        # ledger {lo, hi, top, rid, table} -- [lo, hi) the demoted page
+        # span (zeroed in the table), top the high-water of allocated
+        # pages.  _cold_staged holds the staged chunk slab between steps.
+        if cfg.ctx_hot_pages > 0:
+            if self.host_pool is None:
+                raise ValueError(
+                    "ctx_hot_pages > 0 requires host_pool_bytes > 0: "
+                    "demoted cold pages live in the host page pool")
+            if model_cfg.mrope_sections is not None:
+                raise ValueError(
+                    "tiered KV residency is not supported for mrope (VL) "
+                    "models")
+            if cfg.ctx_stream_pages < 1:
+                raise ValueError(
+                    f"ctx_stream_pages ({cfg.ctx_stream_pages}) must be "
+                    ">= 1")
+        self._tiered: dict[int, dict] = {}
+        self._cold_staged: Optional[dict] = None
+        self._cold_retired: list = []   # (host buffers, event) in flight
+        self.num_ctx_stream_chunks = 0
+        self.num_ctx_demoted_pages = 0
+        # slab re-stages: count, bytes uploaded, host seconds, and the
+        # recent ones as (chunks, bytes, seconds, of which reading back
+        # and verifying, of which packing)
+        self.num_ctx_restages = 0
+        self.ctx_restage_bytes = 0
+        self.ctx_restage_seconds = 0.0
+        self.ctx_restage_log: collections.deque = collections.deque(
+            maxlen=512)
         # the persistent filestore KV tier (``serving/kv_filestore``), the
         # ladder's bottom rung, wired after construction (the node's
         # builder arms it from HELIX_FILESTORE_KV_DIR); None = tier off
@@ -588,9 +625,9 @@ class Engine:
         return max(1, self.cache_cfg.num_pages - 1)
 
     @property
-    def max_context_len(self) -> int:
-        """Hard prompt+generation limit: the profile's max_model_len capped
-        by per-sequence page capacity and the physical pool."""
+    def _resident_context_cap(self) -> int:
+        """The limit of a fully resident row: the profile's max_model_len
+        capped by per-sequence page capacity and the physical pool."""
         cap = min(
             self.cache_cfg.max_seq_len,
             (self.cache_cfg.num_pages - 1) * self.cache_cfg.page_size,
@@ -598,6 +635,19 @@ class Engine:
         if self.cfg.max_model_len is not None:
             cap = min(cap, self.cfg.max_model_len)
         return cap
+
+    @property
+    def max_context_len(self) -> int:
+        """Hard prompt+generation limit.  With tiered residency on
+        (``ctx_hot_pages > 0`` and a host tier) the physical-pool term
+        drops: only the hot tail must fit the pool, so the page-table
+        width (and the profile's max_model_len) bounds it."""
+        if self.cfg.ctx_hot_pages > 0 and self.host_pool is not None:
+            cap = self.cache_cfg.max_seq_len
+            if self.cfg.max_model_len is not None:
+                cap = min(cap, self.cfg.max_model_len)
+            return cap
+        return self._resident_context_cap
 
     def validate_request(self, req: Request) -> Optional[str]:
         """Admission pre-check, safe from any thread; None = acceptable."""
@@ -656,6 +706,7 @@ class Engine:
         whoever still holds the engine.  Nothing steps it afterwards."""
         self.params = self.cache = self._dstate = self.host_pool = None
         self.adapter_pool = self._grafted_params = None
+        self._cold_staged, self._cold_retired = None, []
         self._row_t0, self._offsets = {}, {}
         self._pending_first, self._pending_token_patches = [], {}
         self._chunking = None
@@ -688,6 +739,8 @@ class Engine:
         emitted, pend = self.step_dispatch()
         if pend is not None:
             try:
+                # stage the next step's cold chunks while this one runs
+                self.prefetch_cold()
                 self.step_complete(pend, emitted)
             except Exception:
                 self.discard_pending(pend)
@@ -759,6 +812,9 @@ class Engine:
             or self.preempted
             or self.spec is not None
             or self._pending_first
+            # tiered slots demote between steps: the gathers must follow
+            # a reconciled step
+            or self._tiered
         ):
             return False
         # every active slot needs headroom for one more predicted token;
@@ -1100,13 +1156,33 @@ class Engine:
         need = min(self.allocator.pages_needed(limit, ps), maxP)
         hashes: list = []
         shared: list = []
+        k = 0
         if use_cache and self.prefix_cache is not None:
             hashes = self._prompt_hashes(req)
             k = self.prefix_cache.match_len(hashes)
-            if not self._ensure_pages(need - k):
+        # tiered residency: a row longer than its cached prefix + hot tail
+        # + one stream chunk admits with only its FIRST dispatch's pages;
+        # ctx_pin rows (context creation) stay resident, and so must fit
+        # the pool as on an engine without tiering
+        tiered_on = self.cfg.ctx_hot_pages > 0 and self.host_pool is not None
+        tiered = (tiered_on and not req.ctx_pin and need > k
+                  + self.cfg.ctx_hot_pages + self.cfg.ctx_stream_pages)
+        if tiered_on and not tiered:
+            limit = min(limit, self._resident_context_cap)
+            need = min(self.allocator.pages_needed(limit, ps), maxP)
+        need_now = need
+        if tiered:
+            # the first chunk of a long prompt, else the prompt and one
+            # decode token (a wave dispatches before any prep pass)
+            first = min(limit, self.cfg.max_prefill_len
+                        if plen > self.cfg.max_prefill_len else plen + 1)
+            need_now = min(need, max(k, self.allocator.pages_needed(first,
+                                                                    ps)))
+        if use_cache and self.prefix_cache is not None:
+            if not self._ensure_pages(need_now - k):
                 return None
             shared = self.prefix_cache.acquire(hashes)
-        need_new = need - len(shared)
+        need_new = need_now - len(shared)
         if not self._ensure_pages(need_new):
             if shared:
                 self.prefix_cache.release(shared)
@@ -1146,12 +1222,25 @@ class Engine:
                                            len(hashes))
         if shared:
             self._shared_pages.setdefault(req.id, []).extend(shared)
-        req.max_len = min(len(pages) * ps, self.max_context_len)
+        # a tiered row keeps the logical limit: its table grows lazily
+        req.max_len = (limit if tiered
+                       else min(len(pages) * ps, self.max_context_len))
         self.slots[slot] = req
         self._slot_adapters[slot] = adapter_slot
         table = np.zeros((maxP,), np.int32)
         table[: len(pages)] = pages
         self._page_tables[slot] = table
+        if tiered:
+            # lo == hi == the cached prefix: a shared head never demotes.
+            # ``table`` is the object prefill plans alias, so growth and
+            # demotion reach plans already built.  The slot's position
+            # mirror starts at what is written, not the previous
+            # occupant's, since the residency pass reads it.
+            self._positions[slot] = req.cached_tokens
+            self._tiered[slot] = {
+                "lo": req.cached_tokens // ps, "hi": req.cached_tokens // ps,
+                "top": len(pages), "rid": req.id, "table": table,
+            }
         return table
 
     def _restore_host_prefix(self, req: Request, hashes: list, shared: list,
@@ -1579,7 +1668,8 @@ class Engine:
         <= decode_steps_per_sync every active slot can absorb.  Tokens in
         flight count against budget and room."""
         n_max = self.cfg.decode_steps_per_sync
-        if n_max <= 1 or self._chunking is not None:
+        if n_max <= 1 or self._chunking is not None or self._cold_active():
+            # tiered steps stay single-token, as in the reference
             return 1
         n_active = sum(
             1 for i in range(len(self.slots)) if self._slot_active(i)
@@ -1616,6 +1706,260 @@ class Engine:
                     f"at position {self._positions[i]} + {n} steps > "
                     f"{table_cap} — headroom invariant violated"
                 )
+
+
+    # ------------------------------------------------------------------
+    # tiered KV residency: the streamed cold middle
+    # ------------------------------------------------------------------
+
+    @property
+    def kv_cold_pages(self) -> int:
+        """Demoted cold-middle pages held in the host tier across all
+        tiered slots."""
+        return sum(led["hi"] - led["lo"] for led in self._tiered.values())
+
+    def _cold_active(self) -> bool:
+        """True when a tiered slot has a non-empty demoted span."""
+        return any(led["hi"] > led["lo"] for led in self._tiered.values())
+
+    def _ensure_tiered_pages(self, slot: int, led: dict,
+                             upto_tokens: int) -> None:
+        """Grow a tiered slot's table to cover ``upto_tokens`` written
+        positions: fresh pages at the high-water mark, in the ledger's
+        aliased table and the engine's mirror."""
+        ps = self.cache_cfg.page_size
+        need = min(self.allocator.pages_needed(upto_tokens, ps),
+                   self.cache_cfg.max_pages_per_seq)
+        if need <= led["top"]:
+            return
+        n_new = need - led["top"]
+        if not self._ensure_pages(n_new):
+            raise MemoryError(
+                f"tiered slot {slot} cannot grow its page table by "
+                f"{n_new} page(s) -- device pool exhausted even after "
+                "cold demotion")
+        for i, pg in enumerate(self.allocator.allocate(led["rid"], n_new)):
+            led["table"][led["top"] + i] = pg
+            self._page_tables[slot][led["top"] + i] = pg
+        led["top"] = need
+        # tables re-upload; the slot is NOT marked changed, so its device
+        # key stream and histogram survive
+        self._state_dirty = True
+
+    def _demote_slot(self, slot: int, led: dict, written: int) -> None:
+        """Move the pages wholly below ``written - ctx_hot_pages *
+        page_size`` to the host tier (pinned: they are the only copy) and
+        zero their table entries.  The gather queues after every step
+        that wrote them, and the freed pages are written only by steps
+        queued after it."""
+        ps = self.cache_cfg.page_size
+        target = min(written // ps - self.cfg.ctx_hot_pages,
+                     self.cache_cfg.max_pages_per_seq)
+        if target <= led["hi"]:
+            return
+        idxs = list(range(led["hi"], target))
+        page_ids = [int(led["table"][i]) for i in idxs]
+        arrays = gather_pages(self.cache, page_ids)
+        for idx, page, page_arrays in zip(idxs, page_ids, arrays):
+            if not self.host_pool.put(("ctx", led["rid"], idx), page_arrays,
+                                      pinned=True):
+                break   # host budget full: keep the rest resident
+            self.allocator.detach(led["rid"], [page])
+            self.allocator.give_back([page])
+            led["table"][idx] = 0
+            self._page_tables[slot][idx] = 0
+            led["hi"] = idx + 1
+            self.num_ctx_demoted_pages += 1
+            self._state_dirty = True
+
+    def _tiered_written(self, slot: int) -> int:
+        """KV positions written for a tiered slot: the chunk cursor while
+        it prefills, else its position mirror."""
+        st = self._chunking
+        if st is not None and st["slot"] == slot:
+            return int(st["next"])
+        return int(self._positions[slot])
+
+    def _tiered_prep(self, n_extra: int) -> None:
+        """The residency pass of one dispatch: demote what fell behind
+        each tiered slot's hot tail, then grow its table over this step's
+        writes (demotion first frees the pages growth claims)."""
+        for slot in sorted(self._tiered):
+            req = self.slots[slot]
+            if req is None:
+                continue
+            led = self._tiered[slot]
+            written = self._tiered_written(slot)
+            st = self._chunking
+            if st is not None and st["slot"] == slot:
+                upto = min(len(req.prompt_tokens),
+                           written + self.cfg.max_prefill_len)
+            else:
+                upto = written + self._spec_width() + int(n_extra)
+            upto = min(upto, req.max_len or self.cache_cfg.max_seq_len,
+                       self.cache_cfg.max_seq_len)
+            self._demote_slot(slot, led, written)
+            self._ensure_tiered_pages(slot, led, upto)
+
+    def _cold_spans(self) -> list:
+        """``(slot, rid, lo, hi)`` of every tiered slot with a demoted
+        span, ascending by slot: the staging order, so the chunk fold is
+        deterministic."""
+        return [(slot, led["rid"], led["lo"], led["hi"])
+                for slot, led in sorted(self._tiered.items())
+                if led["hi"] > led["lo"] and self.slots[slot] is not None]
+
+    def _refresh_cold_staged(self) -> Optional[dict]:
+        """The staged cold slab of the current demoted spans, rebuilt
+        when they changed: every span's pages read back from the host
+        tier (each checksum verified; a corrupt or missing page raises
+        ``ColdPageError``), packed into ``[L, nC, Ct, KVH, D]`` chunks of
+        ``ctx_stream_pages`` pages in pinned memory and uploaded in one
+        queued copy.  The pinned buffers stay alive
+        until an event behind the copy has passed."""
+        spans = self._cold_spans()
+        if not spans:
+            self._retire_cold_staged()
+            return None
+        key = tuple((rid, lo, hi) for _s, rid, lo, hi in spans)
+        staged = self._cold_staged
+        if staged is not None and staged["key"] == key:
+            return staged
+        t_start = time.monotonic()
+        self._retire_cold_staged()
+        sp = self.cfg.ctx_stream_pages
+        ps = self.cache_cfg.page_size
+        chunks = []   # (rid, [page keys]) per chunk
+        for _slot, rid, lo, hi in spans:
+            for c0 in range(lo, hi, sp):
+                chunks.append((rid, [("ctx", rid, i)
+                                     for i in range(c0, min(c0 + sp, hi))]))
+        keys = [k for _rid, ks in chunks for k in ks]
+        got = [self.host_pool.get(k) for k in keys]
+        t_verified = time.monotonic()
+        for k, e in zip(keys, got):
+            if e is None:
+                raise ColdPageError(
+                    f"cold KV page {k[2]} of request {k[1]} failed "
+                    "checksum verification on restore -- refusing to "
+                    "attend corrupt history")
+        pages = dict(zip(keys, got))
+        cuda = self.device.type == "cuda"
+        fields = ["k", "v"] + (["k_scale", "v_scale"]
+                               if self.cache_cfg.quantized else [])
+        first = {f: torch.as_tensor(got[0][f]) for f in fields}
+        nC, Ct = len(chunks), sp * ps
+        host = {f: torch.empty((t.shape[0], nC, Ct) + tuple(t.shape[2:]),
+                               dtype=t.dtype, pin_memory=cuda)
+                for f, t in first.items()}
+
+        # each span's chunks are consecutive: one [L, tokens, ...] view of
+        # them per field, its pages copied in order, the tail zeroed
+        c0 = 0
+        for _slot, rid, lo, hi in spans:
+            n_ch = -(-(hi - lo) // sp)
+            for f, slab in host.items():
+                region = slab[:, c0:c0 + n_ch].flatten(1, 2)
+                for i, idx in enumerate(range(lo, hi)):
+                    region[:, i * ps:(i + 1) * ps].copy_(
+                        torch.as_tensor(pages[("ctx", rid, idx)][f]))
+                region[:, (hi - lo) * ps:].zero_()
+            c0 += n_ch
+        t_filled = time.monotonic()
+        dev = {f: t.to(self.device, non_blocking=True)
+               for f, t in host.items()}
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+        nbytes = sum(t.numel() * t.element_size() for t in host.values())
+        self._cold_staged = {
+            "key": key, "owners": tuple(rid for rid, _ks in chunks),
+            "lens": np.array([len(ks) * ps for _rid, ks in chunks],
+                             np.int32),
+            "host": host, "event": event, "k": dev["k"], "v": dev["v"],
+            "ks": dev.get("k_scale"), "vs": dev.get("v_scale"),
+        }
+        t_end = time.monotonic()
+        self.num_ctx_restages += 1
+        self.ctx_restage_bytes += nbytes
+        self.ctx_restage_seconds += t_end - t_start
+        self.ctx_restage_log.append(
+            (nC, nbytes, t_end - t_start, t_verified - t_start,
+             t_filled - t_verified))
+        return self._cold_staged
+
+    def _retire_cold_staged(self) -> None:
+        """Drop the staged slab; its pinned host buffers are kept until
+        the event behind their upload has passed."""
+        self._cold_retired = [(h, ev) for h, ev in self._cold_retired
+                              if not ev.query()]
+        staged, self._cold_staged = self._cold_staged, None
+        if staged is not None and staged["event"] is not None:
+            self._cold_retired.append((staged["host"], staged["event"]))
+
+    def _finalize_cold(self, staged: dict, plan) -> Optional[tuple]:
+        """Bind the staged slab to this dispatch's two row axes: each
+        chunk's owner as a prefill-plan row and as a state row (its slot),
+        and each row's demoted token span.  A chunk owned by neither keeps
+        row -1.  Returns ``(prefill_cold, state_cold)`` keyword dicts for
+        the op, or None when nothing in this dispatch attends cold
+        history."""
+        ps = self.cache_cfg.page_size
+        B = len(self.slots)
+        n_rows = plan.max_rows if plan is not None and plan.rows else 0
+        rid_prow = ({r.req.id: j for j, r in enumerate(plan.rows)
+                     if r.req is not None} if n_rows else {})
+        nC = len(staged["owners"])
+        prow = np.full((nC,), -1, np.int32)
+        srow = np.full((nC,), -1, np.int32)
+        p_lo = np.zeros((n_rows,), np.int32)
+        p_hi = np.zeros((n_rows,), np.int32)
+        s_lo = np.zeros((B,), np.int32)
+        s_hi = np.zeros((B,), np.int32)
+        slot_of = {}
+        for slot, rid, lo, hi in self._cold_spans():
+            slot_of[rid] = slot
+            j = rid_prow.get(rid)
+            if j is not None:
+                p_lo[j], p_hi[j] = lo * ps, hi * ps
+            if self._slot_active(slot):
+                s_lo[slot], s_hi[slot] = lo * ps, hi * ps
+        for c, rid in enumerate(staged["owners"]):
+            slot = slot_of.get(rid)
+            if slot is None:
+                continue
+            j = rid_prow.get(rid)
+            if j is not None:
+                prow[c] = j
+            if self._slot_active(slot):
+                srow[c] = slot
+        if not (prow >= 0).any() and not (srow >= 0).any():
+            return None
+        self.num_ctx_stream_chunks += nC
+        dev = self.device
+        slab = dict(cold_k=staged["k"], cold_v=staged["v"],
+                    cold_k_scale=staged["ks"], cold_v_scale=staged["vs"],
+                    cold_len=upload(staged["lens"], dev))
+        p_cold = (dict(slab, cold_row=upload(prow, dev),
+                       span_lo=upload(p_lo, dev), span_hi=upload(p_hi, dev))
+                  if (prow >= 0).any() else None)
+        s_cold = (dict(slab, cold_row=upload(srow, dev),
+                       span_lo=upload(s_lo, dev), span_hi=upload(s_hi, dev))
+                  if (srow >= 0).any() else None)
+        return p_cold, s_cold
+
+    def prefetch_cold(self) -> None:
+        """Demote and stage for the NEXT dispatch while the current step
+        is in flight (``step`` and the loop call it between dispatch and
+        complete): the gathers queue behind the step on the stream."""
+        if not self._tiered:
+            return
+        for slot in sorted(self._tiered):
+            if self.slots[slot] is not None:
+                self._demote_slot(slot, self._tiered[slot],
+                                  self._tiered_written(slot))
+        self._refresh_cold_staged()
 
     # ------------------------------------------------------------------
     # preemption by swap
@@ -1656,6 +2000,11 @@ class Engine:
             return False
         slot = req.slot
         if not self._slot_active(slot) or not self._settled(req):
+            return False
+        if slot in self._tiered:
+            # its cold pages already live in the host tier under ("ctx",
+            # ...) keys: a swap would spill twice and a resume could not
+            # rebuild the demoted table; the ladder sheds instead
             return False
         key, counts = self._slot_sampler_state(slot)
         shared = self._shared_pages.get(req_id, [])
@@ -1902,6 +2251,10 @@ class Engine:
         failed verification)."""
         req = self._requests.get(req_id)
         if req is None or req.finished:
+            return None
+        if req.slot is not None and req.slot in self._tiered:
+            # its demoted pages are in this engine's host tier only: a
+            # snapshot gathered from the device table would carry holes
             return None
         base = self._snapshot_base(req)
         parked = next((st for st in self.preempted if st.req is req), None)
@@ -2310,10 +2663,12 @@ class Engine:
     # the unified ragged device step
     # ------------------------------------------------------------------
 
-    def _paged_attn(self, q, k, v, lyr, t0, q_len, hist, tables):
+    def _paged_attn(self, q, k, v, lyr, t0, q_len, hist, tables,
+                    cold: Optional[dict] = None):
         """One ragged-op call from inside a forward: flatten the token
         grid onto the op's flat row axis (int8 pools bring their scale
-        pools, as the reference's ``_ragged_attn_call``)."""
+        pools, tiered rows their demoted spans and the staged cold slab,
+        as the reference's ``_ragged_attn_call``)."""
         Bq, Sq, H, D = q.shape
         KVH = k.shape[-2]
         out = ragged_paged_attention(
@@ -2321,7 +2676,7 @@ class Engine:
             v.reshape(Bq * Sq, KVH, D), self.cache.k_pages,
             self.cache.v_pages, lyr, t0, q_len, hist, tables,
             backend=self.cfg.attn_backend, k_scale=self.cache.k_scale,
-            v_scale=self.cache.v_scale,
+            v_scale=self.cache.v_scale, **(cold or {}),
         )
         return out.reshape(Bq, Sq, H, D)
 
@@ -2332,13 +2687,14 @@ class Engine:
         return (torch.empty(shape, dtype=dt, device=self.device),
                 torch.empty(shape, dtype=dt, device=self.device))
 
-    def _prefill_segment(self, plan: PrefillPlan) -> torch.Tensor:
+    def _prefill_segment(self, plan: PrefillPlan,
+                         cold: Optional[dict] = None) -> torch.Tensor:
         """Forward the plan's rows on one flat token axis, persist their
         K/V, sample each row's first token.  Returns [R] int64."""
         rung = bucket_tokens(plan.used, self._token_ladder)
         self.num_prefill_padding_tokens += max(0, rung - plan.used)
         a = plan.finalize_device(rung, self.device)
-        has_hist = plan.has_hist
+        has_hist = plan.has_hist or cold is not None
         kacc, vacc = self._kv_buffers(1, rung)
 
         def p_attn(q, k, v, carry, pos):
@@ -2347,7 +2703,7 @@ class Engine:
             vacc[lyr].copy_(v)
             if has_hist:
                 out = self._paged_attn(q, k, v, lyr, a["t0"], a["qlen"],
-                                       a["hist"], a["tables"])
+                                       a["hist"], a["tables"], cold)
             else:
                 # cold rows only: packed self-attention, no pool reads
                 out = attention(
@@ -2376,7 +2732,8 @@ class Engine:
         )
         return sample(last, sampling, a["keys"])
 
-    def _state_rows(self, W: int, draft_len, drafts=None):
+    def _state_rows(self, W: int, draft_len, drafts=None,
+                    cold: Optional[dict] = None):
         """The state segment at width ``W``: every slot is a ``W``-token
         row over its paged history, its last token followed by
         ``drafts [B, W-1]``; positions ``0..draft_len[b]`` are live
@@ -2408,7 +2765,7 @@ class Engine:
             kacc[lyr].copy_(k)
             vacc[lyr].copy_(v)
             out = self._paged_attn(q, k, v, lyr, t0, q_len, hist,
-                                   st.page_tables)
+                                   st.page_tables, cold)
             return out, cache
 
         # every state row carries its slot's adapter (verify rows and the
@@ -2472,23 +2829,34 @@ class Engine:
         width ``W = drafts.shape[1] + 1``, 1 without drafts) and a fused
         tail of ``n_extra`` plain decode steps.  Returns ``(p_first [R] or
         None, sampled [B, W] or None, emit [B] or None, extra list of
-        [B])`` device tensors."""
+        [B])`` device tensors.  Tiered rows first run the residency pass
+        (before the state upload, so the tables it changes go up) and
+        bind the staged cold slab."""
+        if self._tiered:
+            self._tiered_prep(n_extra)
         if self._state_dirty or self._dstate is None:
             self._sync_state()
+        p_cold = s_cold = None
+        if self._tiered:
+            staged = self._refresh_cold_staged()
+            if staged is not None:
+                bound = self._finalize_cold(staged, plan)
+                if bound is not None:
+                    p_cold, s_cold = bound
         W = 1 if drafts is None else drafts.shape[1] + 1
         if draft_len is None:
             draft_len = self._inert_rows
         self.num_device_calls += 1
         p_first = None
         if plan is not None and plan.rows:
-            p_first = self._prefill_segment(plan)
+            p_first = self._prefill_segment(plan, p_cold)
         dl = np.where(self._active, draft_len, -1).astype(np.int32)
         self._note_adapter_rows(plan, dl)
         sampled = emit = None
         if (dl >= 0).any():
-            sampled, emit = self._state_rows(W, dl, drafts)
+            sampled, emit = self._state_rows(W, dl, drafts, s_cold)
         tail_dl = np.where(self._active, 0, -1).astype(np.int32)
-        extra = [self._state_rows(1, tail_dl)[0][:, 0]
+        extra = [self._state_rows(1, tail_dl, cold=s_cold)[0][:, 0]
                  for _ in range(n_extra)]
         return p_first, sampled, emit, extra
 
@@ -2511,8 +2879,9 @@ class Engine:
     def _adopt_prompt_pages(self, req: Request, table) -> None:
         """Hand a fully resident prompt's fresh full pages to the prefix
         cache (detached from the allocator so teardown cannot free them
-        from under a later sharer)."""
-        if self.prefix_cache is None:
+        from under a later sharer).  Not for a tiered row: its prompt
+        pages may already be in the host tier."""
+        if self.prefix_cache is None or req.slot in self._tiered:
             return
         hashes = self._prompt_hashes(req)
         ps = self.cache_cfg.page_size
@@ -2559,6 +2928,12 @@ class Engine:
         req.finished = True
         req.finish_reason = reason
         if req.slot is not None:
+            led = self._tiered.pop(req.slot, None)
+            if led is not None:
+                # its cold pages and any slab holding them go
+                for idx in range(led["lo"], led["hi"]):
+                    self.host_pool.discard(("ctx", led["rid"], idx))
+                self._retire_cold_staged()
             self.slots[req.slot] = None
             self._slot_adapters[req.slot] = 0
             # a deferred first token's seed, or a resumed histogram, must

@@ -19,7 +19,10 @@ Port of ``helix_tpu/engine/kv_cache.py`` (device tier).
   ``index_select`` / ``index_copy_`` per field), ``page_checksum`` is the
   reference's blake2b digest over the stored bytes.
 
-The tiered long-context pool (ROADMAP A14) is not ported.
+Tiered residency keeps a long row's demoted pages in the same host pool
+(pinned entries keyed ``("ctx", request_id, page_index)``), read back
+page by page through ``HostPagePool.get``; a page that fails verification
+there is a ``ColdPageError`` for its request.
 """
 
 from __future__ import annotations
@@ -411,6 +414,15 @@ def raw_bytes(a) -> bytes:
     return np.ascontiguousarray(a).tobytes()
 
 
+def _raw_view(a):
+    """The stored bytes of a page buffer as a buffer object: a view of a
+    host tensor (no copy), else ``raw_bytes``."""
+    if isinstance(a, torch.Tensor) and a.device.type == "cpu" \
+            and a.is_contiguous():
+        return a.detach().reshape(-1).view(torch.uint8).numpy()
+    return raw_bytes(a)
+
+
 def page_checksum(arrays: dict) -> bytes:
     """blake2b-16 over a page's buffers in the fixed field order ``k, v,
     k_scale, v_scale`` (the reference's ``page_checksum``): int8 pools
@@ -420,8 +432,17 @@ def page_checksum(arrays: dict) -> bytes:
     for field in PAGE_FIELDS:
         a = arrays.get(field)
         if a is not None:
-            h.update(raw_bytes(a))
+            h.update(_raw_view(a))
     return h.digest()
+
+
+class ColdPageError(RuntimeError):
+    """A tiered sequence's demoted cold-middle page failed checksum
+    verification (or vanished from the host pool) at stream time (the
+    reference's ``ColdPageError``).  A cold page has no recompute path
+    mid-decode -- the tokens it holds were already conditioned on -- so
+    the only safe outcome is a typed failure for its request, never
+    attention over wrong KV."""
 
 
 def _nbytes(a) -> int:

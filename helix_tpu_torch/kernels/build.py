@@ -27,10 +27,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "helix_tpu_torch"
+# --split-compile=0: optimise a source's kernels on every core (K1's one
+# file holds 60 instantiations)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--split-compile=0",
 )
 
 _BUILD_LOCK = threading.Lock()

@@ -1,6 +1,6 @@
 """Ragged paged attention: the op every device-step caller goes through.
 
-Port of ``helix_tpu/ops/paged.py`` (resident path).  The contract is the
+Port of ``helix_tpu/ops/paged.py``.  The contract is the
 reference's: a flat query axis ``[T, H, D]`` carved into rows by
 ``t0``/``q_len``, each row attending its pages-resident history
 ``[0, hist[r])`` (through ``tables[r]``, pool layer ``layer``) plus its own
@@ -15,8 +15,10 @@ fresh tokens causally; rows never see each other.
 
 Int8 pools pass their float32 scale pools as ``k_scale``/``v_scale``:
 history is dequantized in float32 and attended at the compute dtype,
-fresh K/V raw.  Tiered residency (``span_lo``/``span_hi``/``cold_*``) is
-not ported: passing it raises ``NotImplementedError`` (ROADMAP A14).
+fresh K/V raw.  Tiered residency passes each row's demoted history span
+``span_lo``/``span_hi`` and the staged cold chunks ``cold_*``: the span
+leaves the hot gather and the chunks' online-softmax stats merge in (on
+the card, K1's cold form).
 """
 
 from __future__ import annotations
@@ -28,25 +30,22 @@ import torch
 
 from helix_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
 from helix_tpu_torch.ops.paged_kernel import (
+    TIERED_ARGS,
     _row_of_tokens,  # noqa: F401  (re-exported: the reference's home)
     ragged_paged_attention as ragged_paged_attention_kernel,
     ragged_paged_attention_plain,
 )
 
-_TIERED = ("span_lo", "span_hi", "cold_k", "cold_v", "cold_row", "cold_len",
-           "cold_k_scale", "cold_v_scale")
+_TIERED = TIERED_ARGS + ("cold_k_scale", "cold_v_scale")
 
 
-def _refuse_unported(kw: dict) -> None:
-    given = sorted(k for k, v in kw.items() if v is not None)
-    tiered = [k for k in given if k in _TIERED]
-    if tiered:
-        raise NotImplementedError(
-            f"tiered cold-middle attention ({tiered}) is not ported yet "
-            "(ROADMAP A14)"
-        )
-    if given:
-        raise TypeError(f"ragged_paged_attention: unknown arguments {given}")
+def _tiered_kw(kw: dict) -> dict:
+    """The tiered keyword arguments; any other name is refused."""
+    unknown = sorted(k for k in kw if k not in _TIERED)
+    if unknown:
+        raise TypeError(f"ragged_paged_attention: unknown arguments "
+                        f"{unknown}")
+    return kw
 
 
 def paged_decode_attention_reference(
@@ -96,35 +95,35 @@ def paged_decode_attention_reference(
 def ragged_paged_attention_reference(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
     *, scale: Optional[float] = None, k_scale=None, v_scale=None,
-    **unported,
+    **tiered,
 ):
-    """Oracle for the ragged contract (resident path of the reference):
-    gather every row's pages, one segment-masked softmax over the R
-    histories + the fresh tokens.  Masked positions sit at
-    ``DEFAULT_MASK_VALUE`` so the fixed ``maxP`` gather width cannot
-    perturb live sums."""
-    _refuse_unported(unported)
+    """Oracle for the ragged contract: gather every row's pages, one
+    segment-masked softmax over the R histories + the fresh tokens
+    (tiered rows: the cold chunks' stats first, then that block's, one
+    combine).  Masked positions sit at ``DEFAULT_MASK_VALUE`` so the
+    fixed ``maxP`` gather width cannot perturb live sums."""
     return ragged_paged_attention_plain(
         q, k_new, v_new, k_pages, v_pages, int(layer), t0, q_len, hist,
         tables, scale=scale, k_scale=k_scale, v_scale=v_scale,
+        **_tiered_kw(tiered),
     )
 
 
 def ragged_paged_attention(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
     *, scale: Optional[float] = None, backend: Optional[str] = None,
-    k_scale=None, v_scale=None, **unported,
+    k_scale=None, v_scale=None, **tiered,
 ):
     """THE paged-attention entry point.  Returns ``out [T, H, D]``.
 
     ``backend`` ``None``: the K1 wrapper (the CUDA kernel on the card, its
-    plain version on the CPU).  ``"reference"``: the plain version on any
-    device, for comparisons."""
-    _refuse_unported(unported)
+    cold form for tiered calls, its plain version on the CPU).
+    ``"reference"``: the plain version on any device, for comparisons."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     args = (q, k_new, v_new, k_pages, v_pages, int(layer), t0, q_len, hist,
             tables)
-    kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale)
+    kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale,
+              **_tiered_kw(tiered))
     if backend is None:
         return ragged_paged_attention_kernel(*args, **kw)
     if backend == "reference":

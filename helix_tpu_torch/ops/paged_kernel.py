@@ -20,6 +20,14 @@ launches apart, on ``K1_INT8``.
 On the card the history is split over blocks in spans of whole pages
 (``_k1_split``, from host-known shapes only) and the partial softmax
 states are merged in float32; the wrapper allocates that scratch.
+
+Tiered rows (``span_lo``/``span_hi`` and the staged cold slab
+``cold_*``, the reference's tiered arguments) launch the kernel's cold
+form, counted on ``K1_COLD`` / ``K1_INT8_COLD``: the demoted span leaves
+the hot history and the slab's chunks are ``_k1_cold_parts`` more parts
+of the same merge.  The Pallas kernel has no such form (the reference
+runs its XLA oracle for tiered calls); the port never runs the plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -31,16 +39,28 @@ from typing import Optional
 import torch
 
 from helix_tpu_torch.kernels.build import Kernel, KernelForm
-from helix_tpu_torch.ops.attention import SUPPORTED_HEAD_DIMS, mha_reference
+from helix_tpu_torch.ops.attention import (
+    DEFAULT_MASK_VALUE,
+    SUPPORTED_HEAD_DIMS,
+    mha_reference,
+)
 
 K1 = Kernel("ragged_paged_attention", "ragged_paged_attention.cu")
 K1_INT8 = KernelForm("ragged_paged_attention_int8", K1)
+K1_COLD = KernelForm("ragged_paged_attention_cold", K1)
+K1_INT8_COLD = KernelForm("ragged_paged_attention_int8_cold", K1)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _K1_ARGS = [_P] * 12 + [_I] * 11 + [ctypes.c_float, _I, _P]
 _K1_INT8_ARGS = [_P] * 14 + [_I] * 11 + [ctypes.c_float, _I, _P]
-_K1_INFO_ARGS = [_I] * 7 + [_P]
+_K1_INFO_ARGS = [_I] * 8 + [_P]
+_K1_COLD_ARGS = [_P] * 18 + [_I] * 14 + [ctypes.c_float, _I, _P]
+_K1_INT8_COLD_ARGS = [_P] * 22 + [_I] * 14 + [ctypes.c_float, _I, _P]
+# the tiered arguments every tiered call carries (int8 pools add the
+# cold scales)
+TIERED_ARGS = ("span_lo", "span_hi", "cold_k", "cold_v", "cold_row",
+               "cold_len")
 # history tokens per split block: enough pages to keep a block's copies in
 # flight, few enough that decode rows of 1000-4000 tokens spread over
 # several blocks each
@@ -56,14 +76,24 @@ def _k1_split(maxP: int, P: int) -> tuple:
     return pps, -(-maxP // pps)
 
 
+def _k1_cold_parts(nC: int, maxP: int, P: int) -> int:
+    """Cold parts of a tiered call: part j folds the chunks ``c = j (mod
+    n)`` its row owns.  Enough parts that a row's full table of cold
+    tokens spreads at about ``SPAN_TOKENS`` a part, never more than
+    chunks; shapes alone decide."""
+    return max(1, min(nC, -(-maxP * P // SPAN_TOKENS)))
+
+
 def ragged_kernel_info(T: int, H: int, KVH: int, D: int, P: int, maxP: int,
-                       dtype=torch.bfloat16, quantized: bool = False) -> dict:
-    """Launch resources of K1's split kernel at these shapes (needs the
-    card): shared memory per block, registers, blocks per SM, spills."""
+                       dtype=torch.bfloat16, quantized: bool = False,
+                       cold: bool = False) -> dict:
+    """Launch resources of K1's split kernel (``cold``: of its cold form)
+    at these shapes (needs the card): shared memory per block, registers,
+    blocks per SM, spills."""
     info = (ctypes.c_int * 4)()
     fn = K1.symbol("helix_ragged_paged_attention_info", _K1_INFO_ARGS)
     err = fn(T, H, KVH, D, _k1_split(maxP, P)[0], _KERNEL_DTYPES[dtype],
-             int(quantized), ctypes.addressof(info))
+             int(quantized), int(cold), ctypes.addressof(info))
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention info: cuda error {err}")
     return dict(smem_bytes=info[0], regs=info[1], blocks_per_sm=info[2],
@@ -84,16 +114,68 @@ def _row_of_tokens(t0, q_len, T: int):
     return torch.where(in_row, cand, torch.full_like(cand, -1)), t - start
 
 
+def _merge_stats(m1, l1, a1, m2, l2, a2):
+    """Combine two online-softmax states ``(m, l, acc)`` (the reference's
+    ``helix_tpu/parallel/ring_attention.py::_merge_stats``)."""
+    m = torch.maximum(m1, m2)
+    e1 = torch.exp(m1 - m)
+    e2 = torch.exp(m2 - m)
+    return m, l1 * e1 + l2 * e2, a1 * e1 + a2 * e2
+
+
+def _cold_chunk_stats(q, row, cold_k, cold_v, cold_row, cold_len, *,
+                      scale, k_scale=None, v_scale=None):
+    """Online-softmax stats of the flat queries against ONE layer's staged
+    cold chunks ``cold_k``/``cold_v [nC, Ct, KVH, D]`` (int8 codes with
+    ``k_scale``/``v_scale [nC, Ct, KVH]``), folded in ascending chunk
+    order (the reference's ``_cold_chunk_stats``).  Chunk c is seen only
+    by tokens of row ``cold_row[c]`` (-1: nobody), over its first
+    ``cold_len[c]`` tokens, with no causal mask: cold tokens precede
+    every query.  Returns float32 ``(m, l [H, T, 1], acc [H, T, D])``."""
+    T, H, D = q.shape
+    KVH = cold_k.shape[2]
+    qf = q.float()
+    acc = torch.zeros((H, T, D), dtype=torch.float32, device=q.device)
+    l = torch.zeros((H, T, 1), dtype=torch.float32, device=q.device)
+    m = torch.full_like(l, -math.inf)
+    key = torch.arange(cold_k.shape[1], device=q.device)
+    for c in range(cold_k.shape[0]):
+        ck, cv = cold_k[c], cold_v[c]
+        if k_scale is not None:
+            ck = ck.float() * k_scale[c][..., None]
+            cv = cv.float() * v_scale[c][..., None]
+        ck = ck.to(q.dtype).float().repeat_interleave(H // KVH, dim=1)
+        cv = cv.to(q.dtype).float().repeat_interleave(H // KVH, dim=1)
+        s = torch.einsum("qhd,khd->hqk", qf, ck) * scale
+        ok = (row[:, None] == cold_row[c]) & (row[:, None] >= 0)
+        ok = ok & (key[None, :] < cold_len[c])
+        s = torch.where(ok[None], s, torch.full_like(s, DEFAULT_MASK_VALUE))
+        bm = s.amax(dim=-1, keepdim=True)
+        bp = torch.exp(s - bm)
+        bl = bp.sum(dim=-1, keepdim=True)
+        bacc = torch.einsum("hqk,khd->hqd", bp, cv)
+        m, l, acc = _merge_stats(m, l, acc, bm, bl, bacc)
+    return m, l, acc
+
+
 def ragged_paged_attention_plain(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
     *, scale: Optional[float] = None, k_scale=None, v_scale=None,
+    span_lo=None, span_hi=None, cold_k=None, cold_v=None, cold_row=None,
+    cold_len=None, cold_k_scale=None, cold_v_scale=None,
 ):
     """K1's plain PyTorch version: the gather-and-mask form of the
     reference oracle.  Gathers every row's full page table, masks history
     past ``hist[r]``, appends the fresh tokens and runs one segment-masked
     softmax (row identity as segment, absolute positions for causality).
     Int8 history is dequantized in float32 and then cast to the compute
-    dtype, as the reference does (``helix_tpu/ops/paged.py:242-246``)."""
+    dtype, as the reference does (``helix_tpu/ops/paged.py:242-246``).
+
+    Tiered rows (``helix_tpu/ops/paged.py:188-310``): history tokens in
+    ``[span_lo[r], span_hi[r])`` leave the hot mask (their table entries
+    point at page 0) and are attended from the staged cold chunks
+    ``cold_k``/``cold_v [L, nC, Ct, KVH, D]`` instead: the chunks' stats
+    first, in ascending order, then the hot + fresh block, one combine."""
     T, H, D = q.shape
     R, maxP = tables.shape
     _, N, P, KVH, _ = k_pages.shape
@@ -113,6 +195,10 @@ def ragged_paged_attention_plain(
     vh = vh.to(q.dtype).reshape(1, R * Hs, KVH, D)
     hist_tok = torch.arange(Hs, device=q.device)
     resident = hist_tok[None, :] < hist[:, None]                 # [R, Hs]
+    if span_lo is not None:
+        cold = ((hist_tok[None, :] >= span_lo.long()[:, None])
+                & (hist_tok[None, :] < span_hi.long()[:, None]))
+        resident = resident & ~cold
     kv_seg_h = torch.where(
         resident, torch.arange(1, R + 1, device=q.device)[:, None], 0
     ).reshape(1, R * Hs)
@@ -126,30 +212,72 @@ def ragged_paged_attention_plain(
     # history, tokens outside every row) would still poison the sum
     v_all = torch.where((kv_seg > 0)[..., None, None], v_all,
                         torch.zeros_like(v_all))
-    out = mha_reference(
-        q[None], k_all, v_all, causal=True, q_positions=q_pos[None],
-        kv_positions=kv_pos, q_segment_ids=seg_fresh[None],
-        kv_segment_ids=kv_seg, scale=scale,
+    if cold_k is None:
+        out = mha_reference(
+            q[None], k_all, v_all, causal=True, q_positions=q_pos[None],
+            kv_positions=kv_pos, q_segment_ids=seg_fresh[None],
+            kv_segment_ids=kv_seg, scale=scale,
+        )
+        return out[0]
+    cm, cl, cacc = _cold_chunk_stats(
+        q, row, cold_k[layer], cold_v[layer], cold_row.long(),
+        cold_len.long(), scale=scale,
+        k_scale=None if cold_k_scale is None else cold_k_scale[layer],
+        v_scale=None if cold_v_scale is None else cold_v_scale[layer],
     )
-    return out[0]
+    kf = k_all[0].float().repeat_interleave(H // KVH, dim=1)
+    vf = v_all[0].float().repeat_interleave(H // KVH, dim=1)
+    s = torch.einsum("qhd,khd->hqk", q.float(), kf) * scale
+    mask = (q_pos[:, None] >= kv_pos) & (seg_fresh[:, None] == kv_seg)
+    s = torch.where(mask[None], s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    hm = s.amax(dim=-1, keepdim=True)
+    hp = torch.exp(s - hm)
+    m, l, acc = _merge_stats(cm, cl, cacc, hm, hp.sum(dim=-1, keepdim=True),
+                             torch.einsum("hqk,khd->hqd", hp, vf))
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).transpose(0, 1).to(q.dtype)
 
 
 def ragged_paged_attention(
     q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist, tables,
     *, scale: Optional[float] = None, k_scale=None, v_scale=None,
+    span_lo=None, span_hi=None, cold_k=None, cold_v=None, cold_row=None,
+    cold_len=None, cold_k_scale=None, cold_v_scale=None,
 ):
     """K1 wrapper.  ``layer`` is a Python int; ``t0``/``q_len``/``hist``
     ``[R]`` and ``tables [R, maxP]`` are int32 tensors on q's device;
-    ``k_scale``/``v_scale`` come with int8 pools.  CUDA tensors launch the
-    kernel on the current stream and raise on anything it does not take;
+    ``k_scale``/``v_scale`` come with int8 pools, and the tiered
+    arguments (``span_lo``/``span_hi [R]``, ``cold_k``/``cold_v [L, nC,
+    Ct, KVH, D]``, ``cold_row``/``cold_len [nC]``, with int8 pools
+    ``cold_k_scale``/``cold_v_scale [L, nC, Ct, KVH]``) all together or
+    not at all.  CUDA tensors launch the kernel (its cold form for tiered
+    calls) on the current stream and raise on anything it does not take;
     CPU tensors run the plain version."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("ragged_paged_attention: k_scale and v_scale "
                          "come together")
+    cold = dict(zip(TIERED_ARGS, (span_lo, span_hi, cold_k, cold_v,
+                                  cold_row, cold_len)))
+    tiered = any(x is not None for x in cold.values())
+    cold_scales = (cold_k_scale, cold_v_scale)
+    if tiered and (
+        any(x is None for x in cold.values())
+        or any((x is None) != (k_scale is None) for x in cold_scales)
+    ):
+        raise ValueError(
+            "ragged_paged_attention: the tiered arguments come together "
+            "(span_lo, span_hi, cold_k, cold_v, cold_row, cold_len, and "
+            "cold_k_scale / cold_v_scale with int8 pools)")
+    if not tiered and any(x is not None for x in cold_scales):
+        raise ValueError("ragged_paged_attention: cold scales without a "
+                         "cold slab")
     if not q.is_cuda:
         return ragged_paged_attention_plain(
             q, k_new, v_new, k_pages, v_pages, layer, t0, q_len, hist,
             tables, scale=scale, k_scale=k_scale, v_scale=v_scale,
+            span_lo=span_lo, span_hi=span_hi, cold_k=cold_k, cold_v=cold_v,
+            cold_row=cold_row, cold_len=cold_len, cold_k_scale=cold_k_scale,
+            cold_v_scale=cold_v_scale,
         )
     T, H, D = q.shape
     L, N, P, KVH, Dp = k_pages.shape
@@ -194,12 +322,24 @@ def ragged_paged_attention(
     tensors = (q, k_new, v_new, k_pages, v_pages, t0, q_len, hist, tables)
     if quantized:
         tensors += (k_scale, v_scale)
+    if tiered:
+        _check_cold(cold, cold_scales, quantized, pool_dt, R, L, KVH, D)
+        tensors += tuple(cold.values())
+        if quantized:
+            tensors += cold_scales
     if any(not x.is_cuda or x.device != q.device for x in tensors):
         raise ValueError("ragged_paged_attention: all tensors on one CUDA device")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("ragged_paged_attention: tensors must be contiguous")
     out = torch.empty_like(q)
     pps, n_splits = _k1_split(maxP, P)
+    sc = float(scale if scale is not None else 1.0 / math.sqrt(D))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if tiered:
+        return _launch_cold(q, k_new, v_new, k_pages, v_pages, k_scale,
+                            v_scale, t0, q_len, hist, tables, cold,
+                            cold_scales, out, int(layer), pps, n_splits, sc,
+                            stream)
     part_ml = torch.empty((n_splits + 1, T, H, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((n_splits + 1, T, H, D), dtype=torch.float32,
@@ -216,9 +356,88 @@ def ragged_paged_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *pools,
         t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(),
         out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), T, H, KVH,
-        D, N, P, R, maxP, int(layer), pps, n_splits,
-        float(scale if scale is not None else 1.0 / math.sqrt(D)),
-        _KERNEL_DTYPES[dt], torch.cuda.current_stream(q.device).cuda_stream,
+        D, N, P, R, maxP, int(layer), pps, n_splits, sc,
+        _KERNEL_DTYPES[dt], stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"{form.name} kernel launch failed: cuda error {err}"
+        )
+    form.launches += 1
+    return out
+
+
+def _check_cold(cold: dict, cold_scales: tuple, quantized: bool, pool_dt,
+                R: int, L: int, KVH: int, D: int) -> None:
+    """Shapes and dtypes of the tiered arguments the cold form takes."""
+    ck = cold["cold_k"]
+    if ck.dim() != 5:
+        raise ValueError("ragged_paged_attention: cold_k must be [L, nC, "
+                         f"Ct, KVH, D], got {tuple(ck.shape)}")
+    nC, Ct = ck.shape[1], ck.shape[2]
+    if (
+        tuple(ck.shape) != (L, nC, Ct, KVH, D)
+        or cold["cold_v"].shape != ck.shape
+        or any(cold[k].shape != (R,) for k in ("span_lo", "span_hi"))
+        or any(cold[k].shape != (nC,) for k in ("cold_row", "cold_len"))
+        or nC < 1 or Ct < 1
+    ):
+        raise ValueError(
+            "ragged_paged_attention: inconsistent tiered shapes "
+            + str({k: tuple(v.shape) for k, v in cold.items()}))
+    if any(cold[k].dtype != torch.int32
+           for k in ("span_lo", "span_hi", "cold_row", "cold_len")):
+        raise TypeError("ragged_paged_attention: tiered row metadata must "
+                        "be int32")
+    if ck.dtype != pool_dt or cold["cold_v"].dtype != pool_dt:
+        raise TypeError("ragged_paged_attention: the cold slab has the "
+                        "pool's dtype")
+    if quantized and any(
+        x.shape != (L, nC, Ct, KVH) or x.dtype != torch.float32
+        for x in cold_scales
+    ):
+        raise ValueError("ragged_paged_attention: cold scales must be "
+                         f"float32 [L, nC, Ct, KVH] = {(L, nC, Ct, KVH)}")
+
+
+def _launch_cold(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0,
+                 q_len, hist, tables, cold: dict, cold_scales: tuple, out,
+                 layer: int, pps: int, n_splits: int, scale: float,
+                 stream) -> torch.Tensor:
+    """Launch K1's cold form (checked by the caller): scratch for the
+    history, fresh and cold parts, then the entry point of the pool's
+    type."""
+    T, H, D = q.shape
+    _, N, P, KVH, _ = k_pages.shape
+    R, maxP = tables.shape
+    nC, Ct = cold["cold_k"].shape[1:3]
+    n_cold = _k1_cold_parts(nC, maxP, P)
+    parts = n_splits + 1 + n_cold
+    part_ml = torch.empty((parts, T, H, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((parts, T, H, D), dtype=torch.float32,
+                           device=q.device)
+    ptr = {k: v.data_ptr() for k, v in cold.items()}
+    head = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr()]
+    rows = [t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(),
+            tables.data_ptr(), ptr["span_lo"], ptr["span_hi"],
+            ptr["cold_k"], ptr["cold_v"]]
+    if k_scale is not None:
+        form = K1_INT8_COLD
+        fn = form.symbol("helix_ragged_paged_attention_int8_cold",
+                         _K1_INT8_COLD_ARGS)
+        args = (head + [k_scale.data_ptr(), v_scale.data_ptr()] + rows
+                + [x.data_ptr() for x in cold_scales])
+    else:
+        form = K1_COLD
+        fn = form.symbol("helix_ragged_paged_attention_cold", _K1_COLD_ARGS)
+        args = head + rows
+    err = fn(
+        *args, ptr["cold_row"], ptr["cold_len"], out.data_ptr(),
+        part_ml.data_ptr(), part_acc.data_ptr(), T, H, KVH, D, N, P, R,
+        maxP, layer, pps, n_splits, nC, Ct, n_cold, scale,
+        _KERNEL_DTYPES[q.dtype], stream,
     )
     if err != 0:
         raise RuntimeError(

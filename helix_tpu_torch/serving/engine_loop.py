@@ -691,8 +691,9 @@ class EngineLoop:
             "adapters_resident": (
                 eng.adapter_pool.stats()["resident"]
                 if eng.adapter_pool is not None else 0),
-            # the cold-middle KV tier is not ported (A14): none demoted
-            "kv_cold_pages": 0,
+            # tiered residency: cold-middle pages demoted to the host
+            # tier, how much admitted context lives past the pool
+            "kv_cold_pages": int(eng.kv_cold_pages),
         }
         return {k: out[k] for k in SATURATION_KEYS}
 
@@ -1079,13 +1080,14 @@ class EngineLoop:
             hp.restored_pages if hp is not None else 0,
             eng.num_preemptions,
             eng.num_resumes,
+            eng.num_ctx_stream_chunks,
         )
 
     def _flight_record(self, duration: float, pre: tuple, generated: int,
                        failed: Optional[str] = None,
                        timing: Optional[dict] = None) -> None:
         eng = self.engine
-        p0, pad0, d0, a0, q0, sd0, sa0, sp0, rs0, pe0, re0 = pre
+        p0, pad0, d0, a0, q0, sd0, sa0, sp0, rs0, pe0, re0, cs0 = pre
         hp = eng.host_pool
         prefill = eng.num_prefill_tokens - p0
         decode = eng.num_decode_tokens - d0
@@ -1123,6 +1125,10 @@ class EngineLoop:
             "preemptions": eng.num_preemptions - pe0,
             "resumes": eng.num_resumes - re0,
             "host_pool_pages": hp.pages if hp is not None else 0,
+            # tiered residency: cold chunks streamed through attention
+            # this step, and the cold-page gauge
+            "ctx_stream_chunks": eng.num_ctx_stream_chunks - cs0,
+            "kv_cold_pages": int(eng.kv_cold_pages),
             # the scheduler's prefill-admission budget in force this step
             # (0 = unbudgeted)
             "prefill_budget_tokens": int(eng.prefill_budget or 0),
@@ -1311,6 +1317,9 @@ class EngineLoop:
                     self.pipelined_steps += 1
                 elif pend is not None:
                     t_w = time.monotonic()
+                    # stage the next step's cold chunks while this step
+                    # still runs: the gathers queue behind it
+                    self.engine.prefetch_cold()
                     self.engine.step_complete(pend, emitted)
                     pend = None
                     dt_wait += time.monotonic() - t_w

@@ -94,7 +94,15 @@ request as the engine's abort does, with one log line and no traceback.
 ``make_unix_server`` serves the same routes on a unix socket (the
 reverse tunnel's local side, ``control.tunnel``).
 
-The context endpoints wait for a later slice (ROADMAP A14).
+- the context-caching API (``serving.context_cache``): ``POST
+  /v1/context`` (``{"model", "messages" | "prompt"}``) prefills the
+  prefix once as a pinned one-token greedy request and answers its
+  content-addressed handle (``"cached": true`` when it already existed;
+  429 ``overloaded_error`` / ``context_quota_exceeded`` past the
+  tenant's ``HELIX_CTX_TENANT_TOKENS``); ``GET /v1/context`` lists the
+  handles; ``context_id`` on a chat or completion prepends the span
+  (404 ``context_not_found`` for an unknown handle), ``usage`` charging
+  the whole span.
 """
 
 from __future__ import annotations
@@ -137,7 +145,15 @@ from helix_tpu_torch.serving.engine_loop import (
     QUEUE_FULL,
     SHUTTING_DOWN,
 )
-from helix_tpu_torch.serving.kv_filestore import collect_filestore_kv
+from helix_tpu_torch.serving.context_cache import (
+    collect_ctx_metrics,
+    context_cache_for,
+    context_handle,
+)
+from helix_tpu_torch.serving.kv_filestore import (
+    collect_filestore_kv,
+    kv_filestore_dir,
+)
 from helix_tpu_torch.serving.migration import (
     DISAGG_HEADER,
     DISAGG_PEER_ADDR_HEADER,
@@ -251,6 +267,9 @@ class OpenAIServer:
         self.imported = ImportedStreams()
         self.started = time.monotonic()
         self.traces = default_store()
+        # the context-cache registry, shared with the node agent's
+        # heartbeat through the filestore root
+        self.ctx_cache = context_cache_for(kv_filestore_dir())
         # the /metrics surface: every series comes from scrape-time
         # collection over the live engines
         self.obs = Registry()
@@ -275,13 +294,14 @@ class OpenAIServer:
     def generate(self, served, prompt_ids, sampling: SamplingParams,
                  adapter: str = "", tenant: str = ANON_TENANT,
                  sched_class: str = "", trace_id: str = "",
-                 request_id: str = ""):
+                 request_id: str = "", ctx_pin: bool = False):
         """Submit to the engine loop; yields ``(delta_text, token_id,
         finished, finish_reason)``.  Serving-level stop strings end the
         stream at the match.  ``adapter``: a sanitised, published adapter
         id of the model ("" = the base model); ``tenant`` /
         ``sched_class``: the sanitised identity headers ("" class = the
-        profile's default)."""
+        profile's default); ``ctx_pin``: keep the request fully resident
+        (a context creation)."""
         q: "queue.Queue" = queue.Queue()
         req = Request(
             id=request_id or f"req-{uuid.uuid4().hex[:12]}",
@@ -292,6 +312,7 @@ class OpenAIServer:
             tenant=tenant,
             sched_class=sched_class,
             trace_id=trace_id,
+            ctx_pin=ctx_pin,
         )
         served.loop.submit(req, q.put)
         yield from self.token_stream(served, req, sampling, q.get)
@@ -350,6 +371,7 @@ class OpenAIServer:
                 help="Runner process uptime")
         collect_xfer(c)
         collect_trace_metrics(c, self.traces)
+        collect_ctx_metrics(c, self.ctx_cache)
         for m in self.registry.list():
             if m.loop is None:
                 continue
@@ -718,6 +740,9 @@ class _Handler(BaseHTTPRequestHandler):
                              "models": self.api.registry.names()})
         elif path == "/v1/models":
             self._json(200, self.api.models_body())
+        elif path == "/v1/context":
+            self._json(200, {"object": "list",
+                             "data": self.api.ctx_cache.entries()})
         elif path == "/metrics":
             self._text(200, self.api.render_metrics())
         elif path.startswith("/v1/debug/"):
@@ -791,6 +816,7 @@ class _Handler(BaseHTTPRequestHandler):
                   "/v1/migrate/import": self._migrate_import,
                   "/v1/migrate/resume": self._migrate_resume,
                   "/v1/messages": self._messages,
+                  "/v1/context": self._context_create,
                   "/admin/profiler": self._profiler}
         route = routes.get(self.path)
         if route is None:
@@ -826,10 +852,11 @@ class _Handler(BaseHTTPRequestHandler):
         if not messages:
             self._error(400, "'messages' is required")
             return
-        prompt_ids = served.tokenizer.apply_chat_template(
-            messages, add_generation_prompt=True
-        )
-        self._run(body, served, prompt_ids, chat=True, adapter=adapter)
+        prompt_ids = self._with_context(
+            body, served.tokenizer.apply_chat_template(
+                messages, add_generation_prompt=True))
+        if prompt_ids is not None:
+            self._run(body, served, prompt_ids, chat=True, adapter=adapter)
 
     def _completions(self, body: dict):
         served, adapter = self._served_generation(body)
@@ -839,8 +866,107 @@ class _Handler(BaseHTTPRequestHandler):
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
             prompt = prompt[0] if prompt else ""
-        self._run(body, served, served.tokenizer.encode(prompt), chat=False,
-                  adapter=adapter)
+        prompt_ids = self._with_context(body,
+                                        served.tokenizer.encode(prompt))
+        if prompt_ids is not None:
+            self._run(body, served, prompt_ids, chat=False, adapter=adapter)
+
+    def _error_traced(self, status: int, message: str, tid: str,
+                      etype: str = "invalid_request_error",
+                      code: str = "") -> None:
+        """An error carrying the trace id in its body and header (the
+        reference's ``_error(..., trace_id=)``)."""
+        self._json(status, _error_body(message, etype, code, trace_id=tid),
+                   {TRACE_HEADER: tid})
+
+    def _with_context(self, body: dict, prompt_ids):
+        """The prompt with the span of its ``context_id`` in front (the
+        reference's ``_resolve_context``), or None once an error was sent:
+        400 for a handle that is not a string, 404 ``context_not_found``
+        for an unknown or unreadable one."""
+        ctx_id = body.get("context_id", "")
+        if not ctx_id:
+            return prompt_ids
+        if not isinstance(ctx_id, str):
+            self._error_traced(400, "'context_id' must be a string",
+                               self._trace_id())
+            return None
+        cached = self.api.ctx_cache.get(ctx_id)
+        if cached is None:
+            self._error_traced(
+                404, f"context '{ctx_id}' not found (expired, evicted, or "
+                "never created on this runner)", self._trace_id(),
+                code="context_not_found")
+            return None
+        return list(cached) + list(prompt_ids)
+
+    def _context_create(self, body: dict):
+        """``POST /v1/context`` (the reference's ``create_context``): the
+        prefix runs through the engine once as a one-token greedy
+        request with ``ctx_pin`` (fully resident, so the prefix cache
+        adopts every page), then its handle registers."""
+        served, adapter = self._served_generation(body)
+        if served is None:
+            return
+        model = body.get("model", "")
+        tid, tenant = self._trace_id(), self._tenant()
+        if served.kind == "embedding":
+            self._error_traced(404, f"model '{model}' is an embedding model",
+                               tid, "model_not_found")
+            return
+        if self._require_loop(served, model):
+            return
+        messages, prompt = body.get("messages"), body.get("prompt")
+        if messages:
+            # no generation prompt: the span is a prefix later turns extend
+            prompt_ids = served.tokenizer.apply_chat_template(
+                messages, add_generation_prompt=False)
+        elif isinstance(prompt, list) and all(isinstance(t, int)
+                                              for t in prompt):
+            prompt_ids = list(prompt)
+        elif isinstance(prompt, str) and prompt:
+            prompt_ids = served.tokenizer.encode(prompt)
+        else:
+            self._error_traced(400, "'messages' or 'prompt' is required",
+                               tid)
+            return
+        if not prompt_ids:
+            self._error_traced(400, "context prefix is empty", tid)
+            return
+        cache = self.api.ctx_cache
+        handle = context_handle(prompt_ids)
+        answer = {"id": handle, "object": "context",
+                  "created": int(time.time()), "model": model,
+                  "tokens": len(prompt_ids)}
+        if cache.contains(handle):
+            # already pinned: no prefill, no new charge
+            self._json(200, {**answer, "cached": True}, {TRACE_HEADER: tid})
+            return
+        if not cache.admit(tenant, len(prompt_ids)):
+            self._error_traced(
+                429, f"tenant '{tenant}' is over its context-cache token "
+                f"quota ({cache.tenant_token_cap} tokens)", tid,
+                "overloaded_error", code="context_quota_exceeded")
+            return
+        if self._shed(served, prompt_ids, tid, tenant):
+            return
+        t0 = time.monotonic()
+        try:
+            for _d, _t, finished, _r in self.api.generate(
+                    served, prompt_ids,
+                    SamplingParams(temperature=0.0, max_tokens=1), adapter,
+                    tenant=tenant, trace_id=tid, ctx_pin=True):
+                if finished:
+                    break
+        except EngineRequestError as e:
+            self._engine_error_reply(e, tid)
+            return
+        handle = cache.put(prompt_ids, tenant=tenant)
+        self.api.traces.record(
+            tid, "context create", t0, time.monotonic(), plane="runner",
+            model=model, prompt_tokens=len(prompt_ids), handle=handle,
+            tenant=tenant)
+        self._json(200, {**answer, "cached": False}, {TRACE_HEADER: tid})
 
     def _run(self, body: dict, served, prompt_ids, *, chat: bool,
              adapter: str = ""):

@@ -1366,3 +1366,181 @@ def test_unix_server_and_tunnel_round_trip_on_the_card(cuda, tmp_path):
         httpd.shutdown()
         httpd.server_close()
         loop.stop(join=True)
+
+
+# ---------------------------------------------------------------------------
+# K1's cold form and tiered residency on the card
+# ---------------------------------------------------------------------------
+
+
+def _cold_case(seed, dtype, quantized, L=2, N=512, P=16, KVH=2, D=128, H=8,
+               maxP=64, Ct=64):
+    """Tiered decode and verify rows beside resident ones, page-aligned
+    spans (one from page 0), a chunk owned by no row: the tiered call's
+    arguments and the resident call's tables on the same values."""
+    rng = np.random.default_rng(seed)
+    q_len = np.array([1, 5, 1, 3, 1, 5], np.int32)
+    hist = np.array([900, 700, 400, 1000, 600, 850], np.int32)
+    spans = [(64, 640), (0, 480), (0, 0), (160, 896), (0, 0), (32, 96)]
+    R = len(q_len)
+    t0 = np.concatenate([[0], np.cumsum(q_len)[:-1]]).astype(np.int32)
+    T = int(q_len.sum())
+    tables = rng.permutation(np.arange(1, N))[: R * maxP].reshape(R, maxP)
+    tables = tables.astype(np.int32)
+    dev = torch.device("cuda")
+    kp = torch.from_numpy(rng.standard_normal((L, N, P, KVH, D))).float()
+    vp = torch.from_numpy(rng.standard_normal((L, N, P, KVH, D))).float()
+    kw = {}
+    if quantized:
+        (kp, ks), (vp, vs) = tquant.quantize_kv(kp), tquant.quantize_kv(vp)
+        kw = dict(k_scale=ks.to(dev), v_scale=vs.to(dev))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    kp, vp = kp.to(dev), vp.to(dev)
+    owners, lens, idx = [], [], []
+    tiered = tables.copy()
+    for r, (lo, hi) in enumerate(spans):
+        tiered[r, lo // P:hi // P] = 0
+        for a in range(lo // P, hi // P, Ct // P):
+            pg = tables[r, a:min(a + Ct // P, hi // P)]
+            owners.append(r)
+            lens.append(len(pg) * P)
+            idx.append(np.pad(pg, (0, Ct // P - len(pg))))
+    owners.append(-1)
+    lens.append(Ct)
+    idx.append(tables[2, :Ct // P])
+    nC = len(owners)
+    gather = torch.from_numpy(np.stack(idx).astype(np.int64)).to(dev)
+
+    def slab(pool):
+        out = pool[:, gather].reshape((L, nC, Ct) + tuple(pool.shape[3:]))
+        for c, n in enumerate(lens):
+            out[:, c, n:] = 0
+        return out.contiguous()
+
+    up = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)  # noqa: E731
+    cold = dict(span_lo=up([s[0] for s in spans]),
+                span_hi=up([s[1] for s in spans]), cold_k=slab(kp),
+                cold_v=slab(vp), cold_row=up(owners), cold_len=up(lens))
+    if quantized:
+        cold.update(cold_k_scale=slab(kw["k_scale"]),
+                    cold_v_scale=slab(kw["v_scale"]))
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(s)).to(dev, dtype)
+                 for s in ((T, H, D), (T, KVH, D), (T, KVH, D)))
+    head = (q, kn, vn, kp, vp, 1, up(t0), up(q_len), up(hist))
+    live = torch.from_numpy(np.concatenate(
+        [np.arange(s, s + n) for s, n in zip(t0, q_len)])).to(dev)
+    return head, up(tiered), up(tables), kw, cold, live
+
+
+def _check_cold_form(dtype, quantized, D=128):
+    """K1's cold form against the plain version (int8: evaluated in f32,
+    rounded once) and against the resident call on the same values; a
+    chunk's owner moved is caught."""
+    head, tiered, full, kw, cold, live = _cold_case(7, dtype, quantized,
+                                                    D=D)
+    form = tpk.K1_INT8_COLD if quantized else tpk.K1_COLD
+    before = form.launches
+    got = tpk.ragged_paged_attention(*head, tiered, **kw, **cold)
+    assert form.launches == before + 1
+    if quantized:
+        q, kn, vn, *rest = head
+        want = tpk.ragged_paged_attention_plain(
+            q.float(), kn.float(), vn.float(), *rest, tiered, **kw,
+            **cold).to(dtype)
+    else:
+        want = tpk.ragged_paged_attention_plain(*head, tiered, **kw, **cold)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    resident = tpk.ragged_paged_attention(*head, full, **kw)
+    torch.testing.assert_close(got[live].float(), resident[live].float(),
+                               **TOL[dtype])
+    moved = cold["cold_row"].clone()
+    moved[0] = 1
+    wrong = tpk.ragged_paged_attention(*head, tiered, **kw,
+                                       **dict(cold, cold_row=moved))
+    assert (wrong[live].float() - want[live].float()).abs().max() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_cold_form(cuda, dtype, quantized):
+    """K1's cold form at head dim 128 (the served Llama's)."""
+    _check_cold_form(dtype, quantized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 96])
+def test_ragged_kernel_cold_form_head_dims(cuda, head_dim, quantized):
+    """K1's cold form at every other head dim the resident form takes."""
+    _check_cold_form(torch.bfloat16, quantized, D=head_dim)
+
+
+def _tiered_engines(cuda, kv_dtype):
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params
+
+    # the tiny model's head dim 16: the cold form takes every K1 head dim
+    cfg = ModelConfig.tiny(vocab_size=256, dtype="float32")
+    params = init_params(cfg, 0, device=cuda)
+    geom = dict(max_decode_batch=2, page_size=16, num_pages=128,
+                max_pages_per_seq=64, max_prefill_len=64,
+                kv_cache_dtype=kv_dtype)
+    tier = dict(host_pool_bytes=64 << 20, ctx_hot_pages=2,
+                ctx_stream_pages=2)
+    return (Engine(cfg, params, EngineConfig(**geom), device=cuda),
+            Engine(cfg, params, EngineConfig(**geom, **tier), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_tiered_engine_launches_the_cold_form(cuda, kv_dtype):
+    """A tiered engine on the card: the resident engine's tokens, one
+    launch of K1's cold form per tiered layer-step (every attention call
+    that carries cold chunks), the plain version never; a tiered decode
+    step's dispatch makes no synchronising call."""
+    from helix_tpu_torch.engine.engine import Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+
+    resident, tiered = _tiered_engines(cuda, kv_dtype)
+    prompt = [((i * 37) % 200) + 4 for i in range(600)]
+    sp = SamplingParams(temperature=0.0, max_tokens=24)
+    want = resident.generate([prompt], sp)[0]
+    form = tpk.K1_INT8_COLD if kv_dtype == "int8" else tpk.K1_COLD
+    calls = [0]
+    attn = tiered._paged_attn
+
+    def spy(*a, **k):
+        if len(a) > 8 and a[8] is not None:
+            calls[0] += 1
+        return attn(*a, **k)
+
+    tiered._paged_attn = spy
+    plain = tpk.ragged_paged_attention_plain
+    tpk.ragged_paged_attention_plain = None   # the card never runs it
+    before = form.launches
+    try:
+        req = Request(id="t", prompt_tokens=prompt, sampling=sp)
+        tiered.add_request(req)
+        while tiered.num_ctx_demoted_pages == 0 or len(req.output_tokens) < 4:
+            tiered.step()
+        for _ in range(4):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                emitted, pend = tiered.step_dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert pend is not None and pend.kind == "decode"
+            tiered.step_complete(pend, emitted)
+        while tiered.has_work():
+            tiered.step()
+    finally:
+        tpk.ragged_paged_attention_plain = plain
+    assert req.output_tokens == want
+    assert tiered.num_ctx_demoted_pages > 0 and calls[0] > 0
+    assert form.launches - before == calls[0]

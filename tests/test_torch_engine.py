@@ -452,14 +452,30 @@ def test_copied_dataclasses_match_reference(pair):
 
 
 @pytest.mark.parametrize("flag,item", [
-    # the adapter fields are served; the unported one is still named
-    (dict(adapter_pool_slots=8, adapter_rank=16, ctx_hot_pages=4), "A14"),
-    (dict(host_pool_bytes=1 << 20, ctx_hot_pages=4), "A14"),
-    (dict(ctx_hot_pages=4), "A14"),
+    # tiered residency beside an adapter pool: accepted, as the reference
+    # accepts it
+    (dict(adapter_pool_slots=8, adapter_rank=16, ctx_hot_pages=4,
+          host_pool_bytes=1 << 20), None),
+    (dict(host_pool_bytes=1 << 20, ctx_hot_pages=4, ctx_stream_pages=0),
+     "ctx_stream_pages"),
+    (dict(ctx_hot_pages=4), "host_pool_bytes"),
 ])
-def test_unported_engine_options_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tengine.EngineConfig(**flag)
+def test_unported_engine_options_raise(weights, flag, item):
+    """The reference's construction checks of tiered residency, case for
+    case against the JAX engine: a host tier is required and
+    ``ctx_stream_pages >= 1``."""
+    jcfg, jp, cfg, tp = weights
+    kw = {**GEOMETRY, **flag}
+    if item is None:
+        jengine.Engine(jcfg, jp, jengine.EngineConfig(**kw))
+        eng = tengine.Engine(cfg, tp, tengine.EngineConfig(**kw),
+                             device="cpu")
+        assert eng.max_context_len == eng.cache_cfg.max_seq_len
+        return
+    with pytest.raises(ValueError, match=item):
+        jengine.Engine(jcfg, jp, jengine.EngineConfig(**kw))
+    with pytest.raises(ValueError, match=item):
+        tengine.Engine(cfg, tp, tengine.EngineConfig(**kw), device="cpu")
 
 
 def test_unported_models_and_mesh_raise(weights):

@@ -418,9 +418,11 @@ def test_metrics_families_match_the_reference(scrapes):
     # what the reference mints and the port leaves out: the quantities
     # the port does not have yet (ROADMAP lists each with its item)
     missing = set(ref) - set(got)
-    assert all(n.startswith(("helix_ctx_", "helix_moe_",
-                             "helix_compiled_step_shapes"))
+    assert all(n.startswith(("helix_moe_", "helix_compiled_step_shapes"))
                for n in missing), sorted(missing)
+    # the context cache's series
+    ctx = {n for n in ref if n.startswith("helix_ctx_")}
+    assert len(ctx) == 7 and ctx <= set(got)
     # the disaggregated handoff's counter and the filestore tier's series
     assert "helix_xfer_prefill_handoffs_total" in got
     fs = {n for n in ref if n.startswith("helix_filestore_kv_")}
@@ -541,7 +543,8 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "'control.tunnel', 'control.websocket', 'models.bge', "
         "'serving.tokenizer_json', 'testing.hf_checkpoint', "
         "'testing.tokenizer_fixtures', 'serving.kv_filestore', "
-        "'control.filestore'):\n"
+        "'control.filestore', 'serving.context_cache', 'ops.paged', "
+        "'engine.engine'):\n"
         "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"

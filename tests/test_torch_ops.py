@@ -492,11 +492,32 @@ def _paged_decode_case(quantized):
 
 
 def test_ragged_refuses_tiered_and_int8():
-    """Tiered arguments are not ported (A14); an int8 scale pool comes
-    with its partner or not at all; unknown arguments raise."""
+    """Tiered arguments run (the span leaves the hot history, the cold
+    chunks merge in) and match the reference's oracle; they come
+    together; an int8 scale pool comes with its partner or not at all;
+    unknown arguments raise."""
     args = _ragged_case(3)
     targs = tuple(_t(a) if isinstance(a, np.ndarray) else a for a in args)
-    with pytest.raises(NotImplementedError, match="A14"):
+    q, k_new, v_new, kp, vp, layer, t0, q_len, hist, tables = args
+    rng = np.random.default_rng(3)
+    L, _, P, KVH, D = kp.shape
+    R = len(hist)
+    span_lo = (hist // 4).astype(np.int32)
+    span_hi = (hist // 2).astype(np.int32)
+    cold = dict(
+        span_lo=span_lo, span_hi=span_hi,
+        cold_k=rng.standard_normal((L, 3, 8, KVH, D)).astype(np.float32),
+        cold_v=rng.standard_normal((L, 3, 8, KVH, D)).astype(np.float32),
+        cold_row=np.array([0, -1, R - 1], np.int32),
+        cold_len=np.array([8, 8, 5], np.int32))
+    want = np.asarray(jpaged.ragged_paged_attention_reference(
+        *args[:5], jnp.int32(layer), *args[6:],
+        **{k: jnp.asarray(v) for k, v in cold.items()}))
+    got = tpaged.ragged_paged_attention(
+        *targs, **{k: _t(v) for k, v in cold.items()})
+    live = _live(t0, q_len)
+    _close(got.numpy()[live], want[live], atol=1e-6)
+    with pytest.raises(ValueError, match="together"):
         tpaged.ragged_paged_attention(*targs, span_lo=targs[8])
     with pytest.raises(ValueError, match="together"):
         tpaged.ragged_paged_attention(*targs, k_scale=targs[3][..., 0])
