@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase tunnel  # those + the tunnel phase
     python3 chip_smoke.py --phase disagg  # those + the disagg phase
     python3 chip_smoke.py --phase context # those + the tiered context phase
+    python3 chip_smoke.py --phase vision  # those + the Qwen2-VL phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -48,6 +49,11 @@ no result line):
    held to the plain version and to the resident call on the same
    values, and three planted faults must fail (a chunk's owner moved,
    ``span_lo`` one page late, one cold scale negated);
+3e. Qwen2-VL kernels (``phase_vl_kernels``): K2 as the VL single-shot
+   prefill calls it (causal, B 1, S 2048 and 4096 with a validity
+   segment over 1,275 / 3,100 prompt tokens) and K1 with 8 decode rows
+   at histories 1,300-4,000 on a 4096-page pool, at Qwen2-VL-7B's group 7
+   (H 28, KVH 4, D 128), under the same limits, faults and timings;
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -202,6 +208,16 @@ no result line):
    a 429 and a 404, ``helix_ctx_*`` at ``/metrics``; at 2 layers in
    float32 tiered = resident, handle = written out, and a corrupt cold
    page ends its stream with the ``ColdPageError`` text;
+4n. vision (``phase_vision``): ``profiles/v5e8-llama3-plus-embed.yaml``'s
+   ``Qwen/Qwen2-VL-7B-Instruct`` entry (only its mesh cut to ``{tp: 1}``)
+   from a 16.6 GB bf16 checkpoint of seed 0 written here: 8 chats with
+   PNG images of 224x224 to 1280x960 (one with two, one text only)
+   answered whole with K1 and K2 launched and traced, a seeded image chat
+   reproduced, the reference's 400s, a ``vision-embedding`` entry on the
+   same checkpoint embedding 16 mixed inputs in order, and the 2-layer
+   float32 witness (image embeddings against the CPU, TF32 breaking the
+   limit, greedy ids 8 of 8); host ms per image, tower ms per size, TTFT,
+   tok/s, idle share and the entry's bytes are printed;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -508,9 +524,12 @@ def phi3_kernel_infos() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _k2_case(label, seg_lens, gen, heads=(H, KVH, D)):
+def _k2_case(label, seg_lens, gen, heads=(H, KVH, D), valid=None):
     """One packed batch row: segments of ``seg_lens``, positions restart
-    per segment (one segment = plain causal); ``heads`` = (H, KVH, D)."""
+    per segment (one segment = plain causal); ``heads`` = (H, KVH, D).
+    ``valid``: the VL single-shot prefill's form instead, one bucket of
+    ``seg_lens[0]`` tokens at positions 0..S-1 whose first ``valid`` are
+    the prompt (segment 1) and the rest padding (segment 0)."""
     from helix_tpu_torch.ops.attention import (
         flash_attention,
         flash_attention_plain,
@@ -521,16 +540,20 @@ def _k2_case(label, seg_lens, gen, heads=(H, KVH, D)):
     dev = "cuda"
     S = sum(seg_lens)
     i32 = torch.int32
-    pos = torch.cat([torch.arange(n, dtype=i32) for n in seg_lens])
-    pos = pos[None].to(dev)
-    seg = torch.cat([torch.full((n,), i + 1, dtype=i32) for i, n in
-                     enumerate(seg_lens)])[None].to(dev)
+    if valid is None:
+        pos = torch.cat([torch.arange(n, dtype=i32) for n in seg_lens])
+        seg = torch.cat([torch.full((n,), i + 1, dtype=i32) for i, n in
+                         enumerate(seg_lens)])
+    else:
+        pos = torch.arange(S, dtype=i32)
+        seg = (pos < valid).to(i32)
+    pos, seg = pos[None].to(dev), seg[None].to(dev)
     q = torch.randn((1, S, H, D), generator=gen, device=dev).bfloat16()
     k = torch.randn((1, S, KVH, D), generator=gen, device=dev).bfloat16()
     v = torch.randn((1, S, KVH, D), generator=gen, device=dev).bfloat16()
     kw = dict(q_positions=pos, kv_positions=pos)
     meta = [pos, pos]
-    if len(seg_lens) > 1:
+    if len(seg_lens) > 1 or valid is not None:
         kw.update(q_segment_ids=seg, kv_segment_ids=seg)
         meta += [seg, seg]
     got = flash_attention(q, k, v, **kw)
@@ -559,7 +582,8 @@ def _k2_case(label, seg_lens, gen, heads=(H, KVH, D)):
     lib_err = max_err(lib_out.transpose(1, 2), want)
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt,
                                       attn_mask=mask[None, None]), 10)
-    pairs = sum(n * (n + 1) // 2 for n in seg_lens)
+    runs = seg_lens if valid is None else [valid, S - valid]
+    pairs = sum(n * (n + 1) // 2 for n in runs)
     b_ms, b_by = bound(4.0 * H * D * pairs, nbytes(q, k, v, got, *meta))
     row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
                planted_fault_ratio=fault, ms=ms, call_ms=call_ms,
@@ -854,6 +878,46 @@ def phase_phi3_kernels() -> tuple:
                  tuple(pools), gen, rng, tuple(scales), heads=PHI3_HEADS),
     ]
     del pools, scales
+    torch.cuda.empty_cache()
+    return k2, k1
+
+
+# Qwen2-VL-7B's attention widths: group 7 (H 28, KVH 4), head dim 128
+VL_HEADS = (28, 4, 128)
+
+
+@_timed
+def phase_vl_kernels() -> tuple:
+    """3e. K2 and K1 at Qwen2-VL-7B's shapes (phase 4n's model): group 7,
+    not a power of two (K1's query tile then holds 4 tokens x 7 heads =
+    28 of its 32 rows; K2's grid spans 28 heads).  K2 as the VL
+    single-shot prefill calls it: causal, B 1, at the power-of-two
+    buckets the prompts take (S 2048 with 1,275 prompt tokens, a
+    1,280x960 chat; S 4096 with 3,100), a validity segment over the
+    prompt; K1 with 8 decode rows at histories 1,300-4,000 on a bf16 pool
+    of 4096 pages [28, 4096, 16, 4, 128] (the profile entry's).  Same
+    limits, planted faults and timings as the Llama cases.  Returns (K2
+    rows, K1 rows)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.default_rng(8)
+    k2 = [
+        _k2_case("Qwen2-VL causal S=2048 (1275 valid), H=28, KVH=4",
+                 [2048], gen, VL_HEADS, valid=1275),
+        _k2_case("Qwen2-VL causal S=4096 (3100 valid), H=28, KVH=4",
+                 [4096], gen, VL_HEADS, valid=3100),
+    ]
+    L, N, P = 28, 4096, 16
+    shape = (L, N, P, VL_HEADS[1], VL_HEADS[2])
+    kp = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    for lyr in range(L):
+        kp[lyr].normal_(generator=gen)
+        vp[lyr].normal_(generator=gen)
+    k1 = [_k1_case("Qwen2-VL decode 8 rows, hist 1300-4000, group 7",
+                   [1] * 8, rng.integers(1300, 4000, size=8), (kp, vp),
+                   gen, rng, heads=VL_HEADS)]
+    del kp, vp
     torch.cuda.empty_cache()
     return k2, k1
 
@@ -5852,6 +5916,7 @@ def _disagg_run(tag, profs, build, max_tokens, full) -> dict:
         exports = []
         _timed_calls(lp.engine, "export_prefill", exports)
         base_p = agent_p.address
+        sample = {}     # the first handoff's wire, for (2)'s codec costs
         eos = set(lp.engine.cfg.eos_token_ids)
 
         def handoffs(n, body_of):
@@ -5867,6 +5932,7 @@ def _disagg_run(tag, profs, build, max_tokens, full) -> dict:
                 t0 = time.monotonic()
                 w = to_wire(snap)
                 wires[w["request_id"]] = (w, time.monotonic() - t0)
+                sample.setdefault("wire", w)
                 return w
 
             def spy_event(stream, ev):
@@ -6001,6 +6067,15 @@ def _disagg_run(tag, profs, build, max_tokens, full) -> dict:
             f"(recorded) {solo['equal_colocated']}")
         if solo["rung"] != "handoff" or s_once != 1:
             raise AssertionError(f"{tag} solo handoff {solo}")
+        if full:
+            codec = out["codec"] = _codec_costs(sample.pop("wire"))
+            log(f"{tag} (2) one handoff's wire codec on this host, the "
+                f"engines idle (best of 3): serialise "
+                f"{codec['json_bytes_ms']:.1f} ms (json.dumps "
+                f"{codec['dumps_ms']:.1f}), parse with the "
+                f"page decode {codec['json_loads_ms']:.1f} ms (json.loads "
+                f"{codec['loads_ms']:.1f}), encode (snapshot_to_wire) "
+                f"{codec['encode_ms']:.1f} ms; bytes and pages equal")
         # (3) the degrade rungs: every ship attempt dropped, then every
         # one corrupt; each stream is served whole on P
         if full:
@@ -6176,6 +6251,40 @@ def _disagg_run(tag, profs, build, max_tokens, full) -> dict:
     return out
 
 
+def _codec_costs(wire: dict, reps: int = 3) -> dict:
+    """Host ms of one wire's serialise, parse with the page decode, and
+    encode, best of ``reps``: the port's ``json_bytes`` / ``json_loads``
+    against ``json.dumps`` / ``json.loads`` on the same document, whose
+    bytes and decoded pages must agree."""
+    from helix_tpu_torch.serving import migration
+
+    def best(fn):
+        dts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = fn()
+            dts.append(time.perf_counter() - t0)
+        return got, 1e3 * min(dts)
+
+    text, dumps_ms = best(lambda: json.dumps(wire).encode())
+    fast, bytes_ms = best(lambda: migration.json_bytes(wire))
+    if fast != text:
+        raise AssertionError("json_bytes differs from json.dumps")
+    del fast
+    want, loads_ms = best(
+        lambda: migration.wire_to_snapshot(json.loads(text)))
+    got, fast_ms = best(
+        lambda: migration.wire_to_snapshot(migration.json_loads(text)))
+    if any((a[f] is None) != (b[f] is None) or (
+            a[f] is not None and not torch.equal(a[f], b[f]))
+           for a, b in zip(got.pages, want.pages) for f in a):
+        raise AssertionError("json_loads decoded other pages")
+    _w, encode_ms = best(lambda: migration.snapshot_to_wire(got))
+    return {"dumps_ms": dumps_ms, "json_bytes_ms": bytes_ms,
+            "loads_ms": loads_ms, "json_loads_ms": fast_ms,
+            "encode_ms": encode_ms, "bytes": len(text)}
+
+
 @_timed
 def phase_disagg(smi) -> dict:
     """4l: the disaggregated prefill handoff and the persistent KV
@@ -6287,6 +6396,11 @@ def phase_disagg(smi) -> dict:
 # ---------------------------------------------------------------------------
 
 CTX_HOT_PAGES = 32
+# the measured run's depth: 8 of the entry's 32 layers, a cut for the
+# smoke's time limit (at 32 the tiered wave's re-stages took 97-105 s and
+# the phase 190 s of a 967 s smoke, PERF.md); widths, pages and the host
+# tier stay the entry's
+CTX_LAYERS = 8
 # (a)'s wave: 4 chats, not 8 -- with 8 the whole-middle re-stages took
 # 109 s of host time and the phase ran past ~180 s on the card (PERF.md)
 CTX_CHATS = 4
@@ -6692,10 +6806,10 @@ def _ctx_inline(base, loop, ctx) -> dict:
 @_timed
 def phase_context(smi) -> dict:
     """4m: tiered long context and the context-caching API on the
-    ``v5e1-hotswap`` Llama entry as written, served through serve-node's
-    profile path with ``HELIX_CTX_HOT_PAGES=32`` and
-    ``HELIX_MAX_PAGES_PER_SEQ=512`` (32 layers, int8 weights and KV, 3968
-    pages, its 16 GiB host tier, speculation on).
+    ``v5e1-hotswap`` Llama entry at ``CTX_LAYERS`` (8) of its 32 layers,
+    served through serve-node's profile path with
+    ``HELIX_CTX_HOT_PAGES=32`` and ``HELIX_MAX_PAGES_PER_SEQ=512`` (int8
+    weights and KV, 3968 pages, its 16 GiB host tier, speculation on).
     (a) ``CTX_CHATS`` (4) streamed chats of distinct ~7,880-token
     prompts, 32 new tokens each, admitted together, then the same wave on
     the entry with tiering off: every chat answered with every token once; demoted pages, cold
@@ -6720,8 +6834,11 @@ def phase_context(smi) -> dict:
 
     tag = f"[context] ({smi})"
     doc = cli._load_profile(HOTSWAP_PROFILE)
-    llama = next(m for m in doc["models"] if m["name"] == MODEL)
-    wit = {**llama, "model_overrides": {"num_layers": 2,
+    written = next(m for m in doc["models"] if m["name"] == MODEL)
+    llama = {**written, "model_overrides": {"num_layers": CTX_LAYERS}}
+    log(f"{tag} cut: the measured run at {CTX_LAYERS} of 32 layers (a "
+        f"depth cut for the smoke's time limit)")
+    wit = {**written, "model_overrides": {"num_layers": 2,
                                         "dtype": "float32"},
            "engine": {k: v for k, v in llama["engine"].items()
                       if k != "kv_cache_dtype"}}
@@ -6753,6 +6870,557 @@ def phase_context(smi) -> dict:
     for name, n in res["witness"]["waves"]["tiered"]["forms"].items():
         launches[name] = launches[name] or n
     return {"launches": launches, "result": res}
+
+
+# ---------------------------------------------------------------------------
+# 4n. Qwen2-VL vision serving
+# ---------------------------------------------------------------------------
+
+VL_MODEL = "Qwen/Qwen2-VL-7B-Instruct"
+VL_EMBED = "Qwen/Qwen2-VL-7B-Instruct:vision-embedding"
+VL_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "profiles", "v5e8-llama3-plus-embed.yaml")
+# (height, width) of the generated images: 1280x960 resizes to 840x1148,
+# 4,920 patches and 1,230 image tokens
+VL_SIZES = ((224, 224), (448, 448), (480, 640), (960, 1280))
+VL_TOKENS = 64
+VL_WITNESS_TOKENS = 16
+VL_WITNESS_LAYERS = 2
+# the profile entry's 128-page tables stop at 2048 tokens, below its
+# max_prefill_len 4096: the operator knob widens them so a prompt past
+# max_prefill_len meets the VL refusal, as phase 4m widens its entry's
+VL_MAX_PAGES_PER_SEQ = "512"
+
+
+def _vl_configs(layers=None, dtype="bfloat16") -> tuple:
+    """Qwen/Qwen2-VL-7B-Instruct's text and vision configs, from its
+    public config.json; ``layers`` cuts both towers' depth."""
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.qwen2_vl import VisionConfig
+
+    text = ModelConfig(
+        vocab_size=152064, hidden_size=3584, num_layers=layers or 28,
+        num_heads=28, num_kv_heads=4, head_dim=128,
+        intermediate_size=18944, rope_theta=1e6, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, attention_bias=True,
+        max_position_embeddings=32768, mrope_sections=(16, 24, 24),
+        dtype=dtype, name=VL_MODEL)
+    vision = VisionConfig(depth=layers or 32, embed_dim=1280,
+                          hidden_size=3584, num_heads=16, mlp_ratio=4,
+                          patch_size=14, spatial_merge_size=2,
+                          temporal_patch_size=2)
+    return text, vision
+
+
+def _vl_entry(checkpoint, kind="vision", name=VL_MODEL) -> dict:
+    """The profile's Qwen2-VL entry with only its mesh cut to ``{tp: 1}``
+    (and its checkpoint path pointing at the written one)."""
+    from helix_tpu_torch.cli import _load_profile
+
+    doc = _load_profile(VL_PROFILE)
+    (entry,) = [m for m in doc["models"] if m["name"] == VL_MODEL]
+    return {**entry, "name": name, "kind": kind, "mesh": {"tp": 1},
+            "checkpoint": checkpoint}
+
+
+def _vl_spec(entry) -> dict:
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.control.profile import ServingProfile
+
+    (spec,) = cli.model_specs(ServingProfile.from_dict(
+        {"name": "vl", "models": [entry]}))
+    return spec
+
+
+def _png_url(png: bytes) -> str:
+    import base64
+
+    return "data:image/png;base64," + base64.b64encode(png).decode()
+
+
+def _vl_chats(pngs, model=VL_MODEL) -> list:
+    """The 8 chats of the wave: one image each at the four sizes, two
+    more at 224 and 1280x960 (other images), two images in one chat,
+    and one of text only."""
+    def img(k):
+        return {"type": "image_url", "image_url": {"url": _png_url(pngs[k])}}
+
+    parts = [[img(0)], [img(1)], [img(2)], [img(3)], [img(4)], [img(5)],
+             [img(1), img(2)], []]
+    out = []
+    for i, p in enumerate(parts):
+        text = {"type": "text", "text": f"Chat {i}: describe what you see "
+                                        "in one line."}
+        out.append({"model": model, "messages": [
+            {"role": "user", "content": [text] + p if p else text["text"]}]})
+    return out
+
+
+def _vl_images(rng) -> list:
+    from helix_tpu_torch.testing.png import random_png
+
+    sizes = list(VL_SIZES) + [(224, 224), (960, 1280)]
+    return [random_png(rng, h, w) for h, w in sizes]
+
+
+def _host_image_ms(pngs, vcfg) -> list:
+    """Host milliseconds per image size: PNG decode, the bicubic resize
+    alone, and patchify (the resize, normalise and patch order), 3 runs
+    each, the least."""
+    from helix_tpu_torch.serving.vision import (
+        decode_image,
+        patchify,
+        resize_bicubic,
+        smart_resize,
+    )
+
+    out = []
+    for (h, w), png in zip(VL_SIZES, pngs):
+        best = [float("inf")] * 3
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = decode_image(png)
+            t1 = time.perf_counter()
+            h2, w2 = smart_resize(h, w, vcfg.patch_size
+                                  * vcfg.spatial_merge_size)
+            resize_bicubic(img, w2, h2)
+            t2 = time.perf_counter()
+            patches, grid = patchify(img)
+            t3 = time.perf_counter()
+            best = [min(a, b) for a, b in zip(best, (
+                t1 - t0, t2 - t1, t3 - t2))]
+        out.append({"size": f"{h}x{w}", "resized": f"{h2}x{w2}",
+                    "patches": int(patches.shape[0]),
+                    "decode_ms": best[0] * 1e3, "resize_ms": best[1] * 1e3,
+                    "patchify_ms": best[2] * 1e3})
+    return out
+
+
+def _tower_ms(runner, pngs) -> list:
+    """Device milliseconds of the vision tower per image size (CUDA
+    events, mean of 3 after one warm call) and its peak memory rise."""
+    from helix_tpu_torch.models.qwen2_vl import vision_forward
+    from helix_tpu_torch.serving.vision import decode_image, patchify
+
+    out = []
+    for (h, w), png in zip(VL_SIZES, pngs):
+        patches, grid = patchify(decode_image(png))
+        x = torch.from_numpy(patches).to("cuda")
+
+        def run():
+            with torch.no_grad():
+                return vision_forward(runner.vparams, runner.vcfg, x, [grid])
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, 3, warmup=1, queued=False)
+        out.append({"size": f"{h}x{w}", "patches": int(patches.shape[0]),
+                    "tower_ms": ms, "peak_rise_gib":
+                    (torch.cuda.max_memory_allocated() - base) / 2**30})
+    return out
+
+
+def _vl_ids(text) -> list:
+    return [int(t) for t in re.findall(r"<(\d+)>", text)]
+
+
+# the witness's max-abs limit on image embeddings: phase 4k's 1e-5, or
+# this many times the CPU's own float32 spread where that is larger.  The
+# tower's outputs are not unit vectors (values up to ~7.5 at 2 layers,
+# where 4k's vectors are ~0.05), and the same float32 function summed in
+# another order already moves them by a few 1e-6: the spread is measured
+# by running the CPU's tower with its residual width permuted
+# (``_permuted_vision_params``), which reorders every reduction over it
+# and changes nothing else.  The card's GEMMs block the sums in yet other
+# orders, each about as far from exact
+VL_SPREAD_FACTOR = 4.0
+
+
+def _permuted_vision_params(vp, vcfg, seed=0) -> dict:
+    """The tower's parameters with its residual width E permuted by a
+    seeded permutation: the same function (outputs equal in exact
+    arithmetic), every sum over E taken in another order."""
+    E = vcfg.embed_dim
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(E))
+    full = torch.cat([perm + j * E
+                      for j in range(vcfg.spatial_merge_size**2)])
+    b = vp["blocks"]
+    m = vp["merger"]
+
+    def cols(d):
+        return {"weight": d["weight"][..., perm], "bias": d["bias"][..., perm]}
+
+    return {
+        "patch_embed": {"weight": vp["patch_embed"]["weight"][:, perm]},
+        "blocks": {
+            "norm1": cols(b["norm1"]), "norm2": cols(b["norm2"]),
+            "qkv": {"weight": b["qkv"]["weight"][:, perm],
+                    "bias": b["qkv"]["bias"]},
+            "proj": cols(b["proj"]),
+            "fc1": {"weight": b["fc1"]["weight"][:, perm],
+                    "bias": b["fc1"]["bias"]},
+            "fc2": cols(b["fc2"]),
+        },
+        "merger": {"ln_q": cols(m["ln_q"]),
+                   "mlp0": {"weight": m["mlp0"]["weight"][full],
+                            "bias": m["mlp0"]["bias"]},
+                   "mlp2": m["mlp2"]},
+    }
+
+
+def _vl_witness(pngs, smi) -> dict:
+    """4n's float32 witness: the entry at 2 layers of both towers in
+    float32 (TF32 off), random weights of seed 0 on the card and the same
+    weights copied to the CPU; each of the 8 chats prepared by both
+    runners (image embeddings held to max abs <= 1e-5, or 4x the CPU's
+    own float32 spread where larger (``VL_SPREAD_FACTOR``: the CPU tower
+    with its residual width permuted against it), and least
+    cosine >= 0.999999; the same on the card with TF32 on, the control,
+    must break a limit) and decoded greedily: on the card by a server of
+    the entry that gets the 8 chats at once (each one's tower launched on
+    its handler thread while the engine thread steps the others), on the
+    CPU by one engine; the ids must agree 8 of 8."""
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.llama import init_params, params_to
+    from helix_tpu_torch.models.qwen2_vl import init_vision_params
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.serving.registry import ServedModel
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+    from helix_tpu_torch.serving.vision import VisionRunner
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, vcfg = _vl_configs(VL_WITNESS_LAYERS, "float32")
+    params = init_params(cfg, 0, device="cuda")
+    vparams = init_vision_params(vcfg, 1, device="cuda")
+    cpu_params, cpu_vparams = params_to(params, "cpu"), params_to(
+        vparams, "cpu")
+    ids = dict(image_pad_id=264, vision_start_id=265, vision_end_id=266)
+    tok = ByteTokenizer()
+    chats = _vl_chats(pngs)
+    ecfg = EngineConfig(**_vl_entry(None)["engine"])
+    eos = set(tok.eos_ids)
+    # the card: the 8 chats sent at once to a server of the entry, each
+    # prepared (the tower launched) on its handler thread while the
+    # engine thread steps the chats admitted before it
+    runner = VisionRunner(vcfg, vparams, **ids)
+    served = ServedModel(
+        name=VL_MODEL, loop=cli.make_engine_loop(
+            Engine(cfg, params, ecfg, device="cuda"), VL_MODEL),
+        tokenizer=_IdTokenizer(tok), kind="vision", vision=runner)
+    httpd, base, registry = _start_server(served)
+    k0 = (K1.launches, K2.launches)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            outs = list(ex.map(lambda c: json.loads(_post(
+                base + "/v1/chat/completions",
+                {**c, "max_tokens": VL_WITNESS_TOKENS, "temperature": 0})),
+                chats))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        served.loop.stop()
+        registry.unregister(VL_MODEL)
+    runs = {"card": {
+        "fields": [runner.prepare(c["messages"], tok) for c in chats],
+        "ids": [_vl_ids(o["choices"][0]["message"]["content"])
+                for o in outs],
+        "launches": (K1.launches - k0[0], K2.launches - k0[1])}}
+    # the CPU: the same chats in one engine, stepped to the end (a chat
+    # without images takes the chat template, as the server gives it)
+    cpu_runner = VisionRunner(vcfg, cpu_vparams, **ids)
+    fields = [cpu_runner.prepare(c["messages"], tok) for c in chats]
+    prompts = [f if f["image_embeds"] is not None else {
+        "prompt_tokens": tok.apply_chat_template(c["messages"])}
+        for f, c in zip(fields, chats)]
+    eng = Engine(cfg, cpu_params, ecfg, device="cpu")
+    reqs = [Request(id=f"w{i}", stop_token_ids=tuple(eos),
+                    sampling=SamplingParams(temperature=0.0,
+                                            max_tokens=VL_WITNESS_TOKENS),
+                    **f) for i, f in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    while eng.has_work():
+        eng.step()
+    runs["cpu"] = {"fields": fields, "ids": [
+        [t for t in r.output_tokens if t not in eos] for r in reqs]}
+    del eng, served
+    embeds = [(a["image_embeds"], b["image_embeds"]) for a, b in zip(
+        runs["card"]["fields"], runs["cpu"]["fields"])
+        if a["image_embeds"] is not None]
+    got = np.concatenate([a.cpu().numpy() for a, _ in embeds])
+    want = np.concatenate([b.numpy() for _, b in embeds])
+    diff, cos = _vec_gap(got, want)
+    # the CPU's own float32 spread on the same images
+    permuted = VisionRunner(vcfg, _permuted_vision_params(cpu_vparams, vcfg),
+                            **ids)
+    alt = np.concatenate([f["image_embeds"].numpy() for f in (
+        permuted.prepare(c["messages"], tok) for c in chats)
+        if f["image_embeds"] is not None])
+    spread = float(np.abs(alt - want).max())
+    abs_limit = max(BGE_ABS_TOL, VL_SPREAD_FACTOR * spread)
+    # the control: the card's tower with TF32 on
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        runner = VisionRunner(vcfg, vparams, **ids)
+        ctl = np.concatenate([runner.prepare(c["messages"], tok)[
+            "image_embeds"].cpu().numpy() for c in chats
+            if runs["cpu"]["fields"][chats.index(c)]["image_embeds"]
+            is not None])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    c_diff, c_cos = _vec_gap(ctl, want)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    agree = sum(a == b for a, b in zip(runs["card"]["ids"],
+                                       runs["cpu"]["ids"]))
+    log(f"[vision witness] {smi}: 2 layers float32, {len(got)} image "
+        f"tokens (values up to {np.abs(want).max():.2f}): the CPU's own "
+        f"spread {spread:.3e} (its residual width permuted), "
+        f"card vs CPU max abs {diff:.3e} (limit {abs_limit:.3e}), "
+        f"least cosine {cos:.10f} (limit {BGE_COS_MIN}); TF32 on (control) "
+        f"max abs {c_diff:.3e}, least cosine {c_cos:.10f}; greedy ids "
+        f"{agree}/8 equal to the CPU run; card launches K1 "
+        f"{runs['card']['launches'][0]}, K2 {runs['card']['launches'][1]}")
+    if not (diff <= abs_limit and cos >= BGE_COS_MIN):
+        raise AssertionError("vision witness: the card's image embeddings "
+                             "are past the limits")
+    if c_diff <= abs_limit and c_cos >= BGE_COS_MIN:
+        raise AssertionError("vision witness: TF32's embeddings pass the "
+                             "limits")
+    if agree != 8:
+        raise AssertionError(f"vision witness: {agree}/8 greedy id lists "
+                             "equal the CPU run's")
+    if min(runs["card"]["launches"]) <= 0:
+        raise AssertionError("vision witness: a kernel did not run")
+    del params, vparams, cpu_params, cpu_vparams
+    _free()
+    return {"max_abs": diff, "abs_limit": abs_limit, "cpu_spread": spread,
+            "min_cos": cos, "control_max_abs": c_diff,
+            "control_min_cos": c_cos, "ids_equal": agree}
+
+
+@_timed
+def phase_vision(smi) -> dict:
+    """4n: ``profiles/v5e8-llama3-plus-embed.yaml``'s Qwen2-VL entry
+    (``kind: vision``, its engine block; only ``mesh`` cut to ``{tp:
+    1}``) at full width and depth: a random-init bf16 Qwen2-VL-7B-Instruct
+    checkpoint of seed 0 written here in HF names (removed at the end),
+    served through ``cli.model_specs`` / ``build_served_model`` beside a
+    tiny text chat model and a tiny text encoder, and the same checkpoint
+    as a ``kind: vision-embedding`` entry.  Demands: the 8-chat image
+    wave (admitted together) answered whole, K1 and K2 launched in it and
+    named by the traced wave; a seeded image chat reproduced; the
+    reference's 400s (a text model given an image, a JPEG, a prompt past
+    max_prefill_len); 16 mixed inputs embedded in order as unit vectors;
+    the text encoder's image 400; the 2-layer float32 witness
+    (``_vl_witness``).  Records host ms per image (decode, resize,
+    patchify), tower ms per size, TTFT p50 with an image and text-only,
+    the wave's tok/s, traced device-busy ms and idle share, the entry's
+    bytes against the reference's estimate."""
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.engine.residency import served_model_bytes
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.models.qwen2_vl import init_vision_params
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.serving.openai_api import OpenAIServer
+    from helix_tpu_torch.serving.registry import ModelRegistry
+    from helix_tpu_torch.testing.hf_checkpoint import (
+        write_qwen2_vl_checkpoint,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    pngs = _vl_images(rng)
+    root = os.environ.get("HELIX_SMOKE_CKPT_DIR") or tempfile.gettempdir()
+    ckpt = tempfile.mkdtemp(prefix="helix-qwen2vl-", dir=root)
+    old_env = os.environ.get("HELIX_MAX_PAGES_PER_SEQ")
+    os.environ["HELIX_MAX_PAGES_PER_SEQ"] = VL_MAX_PAGES_PER_SEQ
+    registry = httpd = None
+    try:
+        cfg, vcfg = _vl_configs()
+        t0 = time.monotonic()
+        params = init_params(cfg, 0, device="cuda")
+        vparams = init_vision_params(vcfg, 1, device="cuda",
+                                     dtype="bfloat16")
+        files = write_qwen2_vl_checkpoint(ckpt, cfg, params, vcfg, vparams)
+        ck_bytes = sum(os.path.getsize(f) for f in files)
+        write_s = time.monotonic() - t0
+        del params, vparams
+        _free()
+        entry = _vl_entry(ckpt)
+        spec = _vl_spec(entry)
+        t0 = time.monotonic()
+        served = cli.build_served_model(device="cuda", seed=0, **spec)
+        build_s = time.monotonic() - t0
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        eng, loop = served.loop.engine, served.loop
+        measured = served_model_bytes(served)
+        estimate = cli.spec_bytes(spec)
+        text_model = cli.build_served_model(
+            "tiny-chat", device="cuda", seed=0, warmup=False,
+            engine=dict(max_decode_batch=2, num_pages=64,
+                        max_prefill_len=256))
+        text_enc = cli.build_served_model("tiny-embed", device="cuda",
+                                          kind="embedding")
+        registry = ModelRegistry()
+        for m in (served, text_model, text_enc):
+            registry.register(m)
+        httpd = OpenAIServer(registry).start("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        log(f"[vision] {smi}: checkpoint {ck_bytes / 1e9:.2f} GB written in "
+            f"{write_s:.1f} s; served in {build_s:.1f} s "
+            f"({served.build_seconds}); entry bytes measured "
+            f"{measured / 2**30:.3f} GiB vs the reference's estimate "
+            f"{estimate / 2**30:.3f} GiB (text tower only: the vision "
+            "tower is not counted, ROADMAP C)")
+
+        host = _host_image_ms(pngs, vcfg)
+        for r in host:
+            log(f"[vision] host {r['size']} -> {r['resized']} "
+                f"({r['patches']} patches): decode {r['decode_ms']:.1f} ms, "
+                f"resize {r['resize_ms']:.1f} ms, patchify (resize "
+                f"included) {r['patchify_ms']:.1f} ms")
+        tower = _tower_ms(served.vision, pngs)
+        for r in tower:
+            log(f"[vision] {smi}: tower {r['size']} ({r['patches']} "
+                f"patches): {r['tower_ms']:.2f} ms on the device, peak "
+                f"+{r['peak_rise_gib']:.2f} GiB")
+
+        chats = _vl_chats(pngs)
+        K1.launches = K2.launches = 0
+        texts, secs, _ = _gated_batch(base, loop, None, VL_TOKENS,
+                                      bodies=chats)
+        launches = {"ragged_paged_attention": K1.launches,
+                    "flash_attention": K2.launches}
+        n_ids = [len(_vl_ids(t)) for t in texts]
+        log(f"[vision] {smi}: 8 chats (6 with images, one with two, one "
+            f"text only) x {VL_TOKENS} tokens in {secs:.2f} s, "
+            f"{sum(n_ids) / secs:.1f} tok/s; launches {launches}")
+        if n_ids != [VL_TOKENS] * 8:
+            raise AssertionError(f"vision wave: token counts {n_ids}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"vision wave: launches {launches}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            texts2, secs2, _ = _gated_batch(base, loop, None, VL_TOKENS,
+                                            bodies=chats)
+            torch.cuda.synchronize()
+        by_kernel = _kernel_ms(prof)
+        busy = sum(by_kernel.values())
+        names = " ".join(by_kernel)
+        same = sum(a == b for a, b in zip(texts, texts2))
+        log(f"[vision] {smi}: traced wave {secs2:.2f} s, device busy "
+            f"{busy:.1f} ms, idle share {1 - busy / (secs2 * 1e3):.3f}; "
+            f"K1 {sum(t for k, t in by_kernel.items() if 'ragged_' in k):.1f}"
+            f" ms, K2 {sum(t for k, t in by_kernel.items() if 'flash_' in k):.1f}"
+            f" ms; ids equal to the untraced wave {same}/8")
+        if "ragged_split_kernel" not in names or "flash_" not in names:
+            raise AssertionError("vision trace does not name K1 and K2")
+
+        seeded = {"model": VL_MODEL, "max_tokens": 24, "temperature": 0.8,
+                  "seed": 1234, "messages": chats[1]["messages"]}
+        outs = [json.loads(_post(base + "/v1/chat/completions", seeded))[
+            "choices"][0]["message"]["content"] for _ in range(2)]
+        if not outs[0] or outs[0] != outs[1]:
+            raise AssertionError(f"seeded image chat: {outs}")
+
+        img_ttft, txt_ttft = [], []
+        for i in range(4):
+            img_ttft.append(_ttft_msgs(base, {**chats[i % 4],
+                                              "max_tokens": 4,
+                                              "temperature": 0})[0])
+            txt_ttft.append(_ttft_msgs(base, {**chats[7], "max_tokens": 4,
+                                              "temperature": 0})[0])
+        log(f"[vision] {smi}: TTFT p50 with an image (224..1280x960) "
+            f"{_pcts(img_ttft)[0] * 1e3:.1f} ms, text only "
+            f"{_pcts(txt_ttft)[0] * 1e3:.1f} ms")
+
+        # the reference's 400s
+        st, err = _error_of(base, {**chats[0], "model": "tiny-chat"})
+        want = "model 'tiny-chat' does not accept image input"
+        if st != 400 or err["error"]["message"] != want:
+            raise AssertionError(f"text model given an image: {st} {err}")
+        jpeg = {"type": "image_url", "image_url": {
+            "url": "data:image/jpeg;base64,/9j/4AAQSkZJRgABAQAAAQABAAD/"}}
+        st, err = _error_of(base, {"model": VL_MODEL, "messages": [
+            {"role": "user", "content": [jpeg]}]})
+        msg = err["error"]["message"]
+        if st != 400 or not msg.startswith("image processing failed: "
+                                           "JPEG") or "A17c" not in msg:
+            raise AssertionError(f"JPEG: {st} {err}")
+        long_text = "lorem ipsum " * 360
+        st, err = _error_of(base, {"model": VL_MODEL, "max_tokens": 4,
+                                   "messages": [{"role": "user",
+                                                 "content": long_text}]})
+        n_long = len(served.tokenizer.apply_chat_template(
+            [{"role": "user", "content": long_text}]))
+        want = (f"vision prompt ({n_long} tokens) exceeds max_prefill_len "
+                f"{eng.cfg.max_prefill_len}")
+        if want not in json.dumps(err):
+            raise AssertionError(f"long VL prompt: {st} {err}")
+        log(f"[vision] 400s: {want!r} ({st}), the JPEG's A17c text, the text "
+            "model's image refusal")
+
+        # the vision-embedding entry on the same checkpoint
+        espec = _vl_spec(_vl_entry(ckpt, "vision-embedding", VL_EMBED))
+        embed_served = cli.build_served_model(device="cuda", seed=0,
+                                              **espec)
+        registry.register(embed_served)
+        inputs = []
+        for i in range(8):
+            inputs += [f"query {i}: a picture of something",
+                       {"image": _png_url(pngs[i % len(pngs)])}]
+        t0 = time.monotonic()
+        out = json.loads(_post(base + "/v1/embeddings",
+                               {"model": VL_EMBED, "input": inputs}))
+        embed_s = time.monotonic() - t0
+        vecs = np.asarray([d["embedding"] for d in out["data"]])
+        runner = embed_served.embedder
+        want_vecs = np.empty_like(vecs)
+        want_vecs[0::2] = runner.embed_texts(inputs[0::2])
+        want_vecs[1::2] = runner.embed_images([x["image"] for x in
+                                               inputs[1::2]])
+        norms = np.linalg.norm(vecs, axis=1)
+        gap = float(np.abs(vecs - want_vecs).max())
+        if [d["index"] for d in out["data"]] != list(range(16)) or \
+                np.abs(norms - 1).max() > 1e-5 or gap > 1e-6:
+            raise AssertionError(f"vision embeddings: norms {norms}, gap "
+                                 f"{gap}")
+        st, err = _error_of(base, {"model": "tiny-embed",
+                                   "input": [inputs[1]]}, "/v1/embeddings")
+        if st != 400 or "cannot embed images" not in err["error"]["message"]:
+            raise AssertionError(f"text encoder given an image: {st} {err}")
+        log(f"[vision] {smi}: 16 mixed inputs embedded in {embed_s:.2f} s "
+            f"in order (max |norm - 1| {np.abs(norms - 1).max():.2e}, "
+            f"order gap {gap:.1e}); the text encoder's image 400")
+        registry.unregister(VL_EMBED)
+        embed_served.embedder.params = embed_served.embedder.vparams = None
+        del embed_served, runner
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if registry is not None:
+            for name in registry.names():
+                registry.unregister(name)
+        if old_env is None:
+            os.environ.pop("HELIX_MAX_PAGES_PER_SEQ", None)
+        else:
+            os.environ["HELIX_MAX_PAGES_PER_SEQ"] = old_env
+        shutil.rmtree(ckpt, ignore_errors=True)
+    served = text_model = text_enc = eng = loop = None
+    _free()
+    witness = _vl_witness(pngs, smi)
+    return {"launches": launches, "host": host, "tower": tower,
+            "witness": witness, "ttft_image": img_ttft,
+            "ttft_text": txt_ttft, "busy_ms": busy}
 
 
 @_timed
@@ -6861,7 +7529,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
-                             "disagg", "context"),
+                             "disagg", "context", "vision"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
@@ -6885,6 +7553,9 @@ def main(argv=None) -> int:
     k2_phi3, k1_int8_phi3 = phase_phi3_kernels()
     k2_rows += k2_phi3
     k1_int8_rows += k1_int8_phi3
+    k2_vl, k1_vl = phase_vl_kernels()
+    k2_rows += k2_vl
+    k1_rows += k1_vl
     cold_rows, cold_int8_rows = phase_k1_cold()
     launches, by_path = {}, {}
     if args.phase == "hotswap":
@@ -6920,6 +7591,10 @@ def main(argv=None) -> int:
         ctx = phase_context(dev["smi"])
         launches = dict(ctx["launches"])
         by_path = {k: {"context": n} for k, n in launches.items()}
+    if args.phase == "vision":
+        vis = phase_vision(dev["smi"])
+        launches = dict(vis["launches"])
+        by_path = {k: {"vision": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -6943,6 +7618,7 @@ def main(argv=None) -> int:
         tun = phase_tunnel(dev["smi"])
         dis = phase_disagg(dev["smi"])
         ctx = phase_context(dev["smi"])
+        vis = phase_vision(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -6956,7 +7632,8 @@ def main(argv=None) -> int:
         }
         by_path = {
             "ragged_paged_attention": {
-                "bf16": bf16["launches"]["ragged_paged_attention"]},
+                "bf16": bf16["launches"]["ragged_paged_attention"],
+                "vision": vis["launches"]["ragged_paged_attention"]},
             "flash_attention": {
                 "bf16": bf16["launches"]["flash_attention"],
                 "hotswap": swap["launches"]["flash_attention"],
@@ -6965,7 +7642,8 @@ def main(argv=None) -> int:
                 "slo": slo["launches"]["flash_attention"],
                 "node": node["launches"]["flash_attention"],
                 "tunnel": tun["launches"]["flash_attention"],
-                "disagg": dis["launches"]["flash_attention"]},
+                "disagg": dis["launches"]["flash_attention"],
+                "vision": vis["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":

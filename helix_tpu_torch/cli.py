@@ -62,6 +62,18 @@ budget (``hbm_budget_bytes``, else the card's memory) would overflow;
 ``POST /admin/prefetch`` stages one in the background.  Without it every
 entry is built at start.
 
+An entry with ``kind: vision`` serves Qwen2-VL chats (the reference
+node agent's build): the text tower through the engine and loop as a
+chat entry, the vision tower beside it in a
+``serving.vision.VisionRunner`` that the server runs on image parts; a
+Qwen2-VL checkpoint (``models.qwen2_vl.load_qwen2_vl``), else the
+reference's tiny mrope text tower (``mrope_sections (2, 3, 3)``) and tiny
+vision tower with random weights from ``--seed`` and ``--seed + 1``.  The
+image token ids are the tokenizer's ``<|image_pad|>``,
+``<|vision_start|>`` and ``<|vision_end|>``, else the reference's 264,
+265 and 266.  ``kind: vision-embedding`` pools the same towers behind
+``/v1/embeddings`` (``models.vision_embed``), with no engine loop.
+
 An entry with ``kind: embedding`` is an encoder (``models.bge``) behind
 ``/v1/embeddings``: its checkpoint's weights and ``tokenizer.json`` (the
 byte tokenizer without one), else the reference's tiny encoder with
@@ -75,12 +87,11 @@ plain versions on CPU tensors.
 ``--random-weights`` serves a ``checkpoint:`` entry with random weights
 from ``--seed`` in place of its files.  A checkpoint directory that is
 missing, whose config the port cannot compute (mixture-of-experts: A15;
-mrope: A17b; a ``rope_scaling`` other than ``llama3``: ROADMAP C; an
+a ``rope_scaling`` other than ``llama3`` or mrope: ROADMAP C; an
 unknown activation) or that disagrees with the entry's
 ``model_overrides`` is refused at start.  What is not ported yet is
 refused there too, before any weights are made, naming its ROADMAP
-item: a ``vision`` or ``vision-embedding`` kind (A17b), a ``mesh`` with an
-axis above 1
+item: a ``mesh`` with an axis above 1
 (A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
 ``adapter`` merged into the weights at apply time (it restores a training
 checkpoint: A18).  A profile assigned by the control plane with
@@ -138,7 +149,11 @@ from helix_tpu_torch.engine.residency import estimate_model_bytes
 from helix_tpu_torch.models.common import CATALOG, ModelConfig
 from helix_tpu_torch.models.bge import EmbeddingRunner
 from helix_tpu_torch.models.llama import init_params
-from helix_tpu_torch.models.loader import load_config, load_params
+from helix_tpu_torch.models.loader import (
+    load_config,
+    load_params,
+    read_hf_config,
+)
 from helix_tpu_torch.serving.engine_loop import EngineLoop
 from helix_tpu_torch.serving.kv_filestore import (
     filestore_for_engine,
@@ -150,6 +165,11 @@ from helix_tpu_torch.serving.sched import SchedConfig
 from helix_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 
 log = logging.getLogger("helix_tpu_torch")
+
+# the reference node agent's image token ids without a tokenizer that
+# names them (``helix_tpu/control/node_agent.py:126-130``)
+IMAGE_PAD_ID, VISION_START_ID, VISION_END_ID = 260 + 4, 260 + 5, 260 + 6
+KINDS = ("chat", "embedding", "vision", "vision-embedding")
 
 # the reference node agent's flat reservation for an embedding entry
 # (``helix_tpu/control/node_agent.py:648``): below bge-base's own 435.6 MB
@@ -203,13 +223,20 @@ def build_served_model(
     ``slo``: the entry's ``slo`` block (targets and ``sched``).  The
     served path always takes the kernels: ``attn_backend`` is refused
     here.  ``kind="embedding"`` builds an encoder instead
-    (``build_embedding_model``)."""
+    (``build_embedding_model``), ``kind="vision-embedding"`` the vision
+    pooling worker (``build_vision_embedding_model``); ``kind="vision"``
+    is a chat entry whose weights are a Qwen2-VL model's, its vision
+    tower served beside the engine (``ServedModel.vision``)."""
     if kind == "embedding":
         return build_embedding_model(
             name, device=device, engine=engine, seed=seed,
             checkpoint=checkpoint, context_length=context_length)
-    if kind != "chat":
-        raise ValueError(f"kind {kind!r}: expected 'chat' or 'embedding'")
+    if kind == "vision-embedding":
+        return build_vision_embedding_model(
+            name, device=device, seed=seed, checkpoint=checkpoint,
+            context_length=context_length)
+    if kind not in ("chat", "vision"):
+        raise ValueError(f"kind {kind!r}: expected one of {KINDS}")
     if "attn_backend" in (engine or {}):
         raise ValueError(
             "attn_backend is for comparisons only; a served model always "
@@ -227,6 +254,11 @@ def build_served_model(
     else:
         cfg = model_config(name, model_overrides)
         tok = ByteTokenizer()
+    if kind == "vision" and not checkpoint:
+        # the reference's tiny mrope text tower (its overrides unread)
+        cfg = ModelConfig.tiny(name=name, attention_bias=True,
+                               mrope_sections=(2, 3, 3),
+                               vocab_size=max(tok.vocab_size, 512))
     eng_kw = {"eos_token_ids": tok.eos_ids, **(engine or {})}
     eng_kw["eos_token_ids"] = tuple(eng_kw["eos_token_ids"])
     if context_length and "max_model_len" not in eng_kw:
@@ -246,9 +278,12 @@ def build_served_model(
     # int8: each weight quantized as it lands or is drawn, so the build
     # never holds the bf16 model (quantize_params of the same weights, to
     # the byte)
-    load_stats = None
-    if checkpoint:
-        load_stats = {}
+    load_stats = {} if checkpoint else None
+    vision = None
+    if kind == "vision":
+        cfg, params, vision = _vision_weights(
+            cfg, tok, checkpoint, dev, seed, quantization, load_stats)
+    elif checkpoint:
         cfg, params = load_params(checkpoint, cfg, device=dev,
                                   quantization=quantization,
                                   stats=load_stats)
@@ -271,9 +306,73 @@ def build_served_model(
     loop = make_engine_loop(eng, name, slo)
     split = dict(zip(("load" if checkpoint else "init", "engine", "warmup"),
                      (b - a for a, b in zip(stamps, stamps[1:]))))
-    return ServedModel(name=name, loop=loop, tokenizer=tok,
+    return ServedModel(name=name, loop=loop, tokenizer=tok, kind=kind,
                        context_length=context_length or eng.max_context_len,
-                       build_seconds=split, load_stats=load_stats)
+                       build_seconds=split, load_stats=load_stats,
+                       vision=vision)
+
+
+def _special(tok, token: str, default: int) -> int:
+    """The tokenizer's id of a special token, else ``default`` (the
+    reference node agent's ``special``)."""
+    fn = getattr(tok, "_special", None)
+    v = fn(token) if fn else None
+    return v if v is not None else default
+
+
+def _vision_weights(cfg: ModelConfig, tok, checkpoint, dev, seed: int,
+                    quantization, stats) -> tuple:
+    """``(cfg, text params, VisionRunner)`` of a ``kind: vision`` entry:
+    both towers of ``checkpoint`` on ``dev`` (the text tower quantized as
+    it lands with ``quantization="int8"``), else ``cfg``'s text tower and
+    the tiny vision tower with random weights from ``seed`` and ``seed +
+    1``."""
+    from helix_tpu_torch.models.qwen2_vl import (
+        VisionConfig,
+        init_vision_params,
+        load_qwen2_vl,
+    )
+    from helix_tpu_torch.serving.vision import VisionRunner
+
+    if checkpoint:
+        loaded, vcfg, params = load_qwen2_vl(
+            checkpoint, device=dev, quantization=quantization, stats=stats)
+        cfg = dataclasses.replace(loaded, name=cfg.name)
+        vparams = params.pop("visual")
+    else:
+        params = init_params(cfg, seed, device=dev,
+                             quantization=quantization)
+        vcfg = VisionConfig.tiny(hidden_size=cfg.hidden_size)
+        vparams = init_vision_params(vcfg, seed + 1, device=dev)
+    runner = VisionRunner(
+        vcfg, vparams,
+        image_pad_id=_special(tok, "<|image_pad|>", IMAGE_PAD_ID),
+        vision_start_id=_special(tok, "<|vision_start|>", VISION_START_ID),
+        vision_end_id=_special(tok, "<|vision_end|>", VISION_END_ID))
+    return cfg, params, runner
+
+
+def build_vision_embedding_model(
+    name: str, *, device=DEFAULT_DEVICE, seed: int = 0,
+    checkpoint: str | None = None, context_length: int | None = None,
+) -> ServedModel:
+    """A ``kind: vision-embedding`` entry (the reference node agent's
+    build): a ``models.vision_embed.VisionEmbeddingRunner`` on
+    ``device``, both towers of a Qwen2-VL ``checkpoint`` or the tiny
+    ones with random weights from ``seed``; no engine loop."""
+    from helix_tpu_torch.models.vision_embed import VisionEmbeddingRunner
+
+    dev = resolve_device(device)
+    tok = load_tokenizer(checkpoint, name)
+    t0 = _stamp(dev)
+    entry = ProfileModel(name=name, kind="vision-embedding",
+                         checkpoint=checkpoint)
+    embedder = VisionEmbeddingRunner.build(entry, tok, device=dev, seed=seed)
+    return ServedModel(name=name, loop=None, tokenizer=tok,
+                       kind="vision-embedding", embedder=embedder,
+                       context_length=context_length,
+                       build_seconds={"load" if checkpoint else "init":
+                                      _stamp(dev) - t0})
 
 
 def build_embedding_model(
@@ -399,9 +498,11 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     """What of profile entry ``m`` is not ported yet, each naming its
     ROADMAP item (empty: the entry is served)."""
     out = []
-    if m.kind not in ("chat", "embedding"):
-        out.append(f"kind {m.kind!r} is not ported yet (ROADMAP A17b)")
-    if m.checkpoint and not random_weights and m.kind == "chat":
+    if m.kind not in KINDS:
+        out.append(f"kind {m.kind!r} is not served (known: "
+                   f"{', '.join(KINDS)})")
+    if m.checkpoint and not random_weights and m.kind in (
+            "chat", "vision", "vision-embedding"):
         try:
             checkpoint_config(m.checkpoint, m.name, m.model_overrides)
         except (OSError, ValueError, NotImplementedError) as e:
@@ -424,7 +525,7 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     if m.multihost:
         out.append(f"multihost {m.multihost} serving is not ported yet "
                    "(ROADMAP A15)")
-    if m.kind == "chat":
+    if m.kind in ("chat", "vision"):
         try:
             EngineConfig(**engine)
         except NotImplementedError as e:
@@ -442,7 +543,8 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
     specs, refused = [], []
     for m in profile.models:
         eng = dict(m.engine)
-        if m.kind == "chat" and eng.get("attn_backend") == "reference":
+        if m.kind in ("chat", "vision") \
+                and eng.get("attn_backend") == "reference":
             # the reference's CPU switch: the port's wrappers already run
             # their plain versions on CPU tensors, the kernels on the card
             log.info("%s: engine.attn_backend 'reference' is not applied: "
@@ -463,12 +565,19 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
                               context_length=m.context_length,
                               checkpoint=checkpoint))
             continue
+        if m.kind == "vision-embedding":
+            specs.append(dict(name=m.name, kind="vision-embedding",
+                              engine=eng, context_length=m.context_length,
+                              checkpoint=checkpoint))
+            continue
         specs.append(dict(
             name=m.name, quantization=m.quantization, engine=eng,
             model_overrides=dict(m.model_overrides),
             context_length=m.context_length, checkpoint=checkpoint,
             slo=dict(m.slo) or None,
         ))
+        if m.kind == "vision":
+            specs[-1]["kind"] = "vision"
     if refused:
         raise NotImplementedError("; ".join(refused))
     return specs
@@ -499,8 +608,16 @@ def spec_bytes(spec: dict) -> int:
     if spec.get("kind") == "embedding":
         return EMBEDDING_ESTIMATE_BYTES
     name = spec["name"]
-    cfg = (load_config(spec["checkpoint"], name=name)
-           if spec.get("checkpoint") else model_config(name))
+    if spec.get("kind") in ("vision", "vision-embedding"):
+        # the reference's figure: its plain load_config of the text tower
+        # (bf16, no bias), the catalog or tiny config without a
+        # checkpoint; the vision tower is not counted (ROADMAP C)
+        cfg = (ModelConfig.from_hf_config(read_hf_config(
+            spec["checkpoint"]), name=name) if spec.get("checkpoint")
+            else model_config(name))
+    else:
+        cfg = (load_config(spec["checkpoint"], name=name)
+               if spec.get("checkpoint") else model_config(name))
     return estimate_model_bytes(cfg, spec["engine"], spec.get("quantization"))
 
 

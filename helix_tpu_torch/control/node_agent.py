@@ -28,11 +28,14 @@ HTTP goes through ``urllib``.  What the port does not have yet is sent as
 the reference sends an idle block: ``multihost`` (ROADMAP A15) and
 ``canary`` (A19) are ``{}``.  The ``ctx`` block is the context cache's
 ``stats_block`` (``serving.context_cache``) on the node's filestore
-root.  A ``kind: embedding`` entry is an
+root.  A ``kind: vision`` entry is a chat engine with its vision tower
+beside it; its residency estimate is the reference's, the text tower's
+config only (the vision tower's bytes are not counted: ROADMAP C).  A
+``kind: embedding`` entry is an
 encoder with no engine loop (``cli.build_embedding_model``): it counts in
 the registry, the heartbeat's model list and the residency estimate (the
 reference's flat 256 MiB), not in the saturation summary.  A profile the
-port cannot serve (a vision kind, an adapter merged at apply, a mesh
+port cannot serve (an adapter merged at apply, a mesh
 over more than one device, unported engine fields) fails the apply with
 the refusal's text before anything is built.  The profile's pool role
 (``prefill | decode | mixed``, ``HELIX_POOL_ROLE`` beating it) is

@@ -78,8 +78,19 @@ missing cold page raises ``ColdPageError``.  ``ctx_pin`` rows (context
 cache creation) stay resident; a tiered row is neither preempted nor
 exported.
 
+An mrope model (the Qwen2-VL text tower, ``models.qwen2_vl``) serves
+the reference's VL path: a request carries its spliced image embeddings
+(``image_embeds`` at ``image_positions``), its three M-RoPE position
+streams (``positions3``) and the decode offset ``mrope_delta``; its
+prompt prefills alone in ONE bucketed call through K2 (``_prefill``:
+never packed into a wave, never chunked, never from the prefix cache)
+and its decode rows rotate by ``position + mrope_delta`` on all three
+streams.  Speculation and the adapter pool are logged off for such a
+model, tiered residency is refused, and a request with image state is
+never exported.
+
 Outside this slice, and refused loudly by ``Engine``: meshes and the
-multihost plan plane (A15), MoE and mrope models (A15, A17b).
+multihost plan plane (A15), MoE models (A15).
 """
 
 from __future__ import annotations
@@ -139,6 +150,7 @@ from helix_tpu_torch.models.llama import check_supported, forward, project_logit
 from helix_tpu_torch.obs.slo import ANON_TENANT
 from helix_tpu_torch.ops.attention import attention
 from helix_tpu_torch.ops.paged import ragged_paged_attention
+from helix_tpu_torch.ops.quant import embed_lookup
 
 
 class FinishReason(str, enum.Enum):
@@ -153,7 +165,9 @@ class Request:
     prompt_tokens: list
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     stop_token_ids: tuple = ()
-    # --- multimodal (not ported: ROADMAP A17b) ---
+    # --- multimodal (VL models): image embeddings spliced at the prompt
+    # indices image_positions, the M-RoPE streams [3, S] and the decode
+    # offset of every stream past the prompt ---
     image_embeds: Optional[object] = None
     image_positions: Optional[list] = None
     positions3: Optional[object] = None
@@ -244,6 +258,15 @@ _M64 = (1 << 64) - 1
 _SEED_DOMAIN = 0xA076_1D64_78BD_642F  # seeded-request key domain
 
 
+def _bucket(n: int, lo: int, hi: int) -> int:
+    """The reference's prefill bucket: the power-of-two multiple of
+    ``lo`` that holds ``n``, at most ``hi``."""
+    b = lo
+    while b < n:
+        b *= 2
+    return min(b, hi)
+
+
 def _splitmix64(x: int) -> int:
     x = (x + 0x9E37_79B9_7F4A_7C15) & _M64
     z = ((x ^ (x >> 30)) * 0xBF58_476D_1CE4_E5B9) & _M64
@@ -279,6 +302,7 @@ class DecodeState:
     token_counts: torch.Tensor  # [B, V] i32 — output-token histogram
     sampling: SamplingState
     adapter_slots: torch.Tensor  # [B] i64 — multi-LoRA pool slot (0 = none)
+    mrope_delta: torch.Tensor   # [B] i64 — VL decode position offset
 
 
 @dataclasses.dataclass
@@ -450,6 +474,7 @@ class Engine:
         self._page_tables = np.zeros(
             (B, self.cache_cfg.max_pages_per_seq), np.int32
         )
+        self._mrope_delta = np.zeros((B,), np.int64)    # VL rows' offsets
         self._slot_keys = np.zeros((B, 2), np.uint32)   # admission carry keys
         self._dkeys = np.zeros((B, 2), np.uint32)       # evolving step keys
         self._active = np.zeros((B,), bool)             # as of the last sync
@@ -524,11 +549,17 @@ class Engine:
             self.cache_cfg.page_size, cfg.max_prefill_len,
         )
         # speculative decoding (engine/spec.py): host-side prompt-lookup
-        # drafter + per-request acceptance EMA; None = off
-        self.spec = (
-            SpecDecoder(SpecConfig(spec_tokens=cfg.spec_tokens))
-            if cfg.enable_spec_decode else None
-        )
+        # drafter + per-request acceptance EMA; None = off.  An mrope
+        # model's verify rows would need three streams per drafted
+        # position: off with a warning, as in the reference
+        is_mrope = model_cfg.mrope_sections is not None
+        self.spec = None
+        if cfg.enable_spec_decode and is_mrope:
+            logging.getLogger(__name__).warning(
+                "speculative decoding is not supported for mrope (VL) "
+                "models — running plain decode")
+        elif cfg.enable_spec_decode:
+            self.spec = SpecDecoder(SpecConfig(spec_tokens=cfg.spec_tokens))
         # multi-LoRA serving (engine/adapters.py): the device pool of
         # adapter slots and the host/filestore store under it; None = off
         self.adapter_pool: Optional[AdapterPool] = None
@@ -537,7 +568,11 @@ class Engine:
         self._slot_adapters = np.zeros((B,), np.int32)
         # adapter rows' seeded prefix digests: req id -> (seed, digests)
         self._adapter_hashes: dict[str, tuple] = {}
-        if cfg.adapter_pool_slots == 1:
+        if cfg.adapter_pool_slots > 0 and is_mrope:
+            logging.getLogger(__name__).warning(
+                "batched multi-LoRA serving is not supported for mrope "
+                "(VL) models — running without an adapter pool")
+        elif cfg.adapter_pool_slots == 1:
             # slot 0 is the identity, so one slot serves nothing: degrade
             # to off rather than fail the model's profile
             logging.getLogger(__name__).warning(
@@ -657,6 +692,14 @@ class Engine:
                 f"prompt ({plen} tokens) exceeds the model context limit "
                 f"{self.max_context_len}"
             )
+        if (self.model_cfg.mrope_sections is not None
+                and plen > self.cfg.max_prefill_len):
+            # VL prefill is single-shot (the image splice's shapes); text
+            # prompts prefill in chunks
+            return (
+                f"vision prompt ({plen} tokens) exceeds max_prefill_len "
+                f"{self.cfg.max_prefill_len}"
+            )
         if not req.prompt_tokens:
             return "empty prompt"
         if req.adapter:
@@ -675,8 +718,6 @@ class Engine:
                     f"adapter '{req.adapter}' is not published for "
                     f"model '{self.model_cfg.name}'"
                 )
-        if req.image_embeds is not None:
-            return "image input is not ported yet (ROADMAP A17b)"
         return None
 
     def add_request(self, req: Request) -> None:
@@ -716,7 +757,10 @@ class Engine:
         real request pays neither the kernels' build nor the libraries'
         first-call set-up.  (The reference also walks its token-bucket
         ladder to compile every shape; eager execution has nothing to
-        compile per shape.)"""
+        compile per shape.)  A VL model skips it, as the reference does:
+        its prefill shapes depend on the image buckets."""
+        if self.model_cfg.mrope_sections is not None:
+            return
         req = Request(
             id="__warmup__",
             prompt_tokens=[0] * min(4, self.cache_cfg.page_size),
@@ -1342,7 +1386,7 @@ class Engine:
         deferred: list[Request] = []
         pending: list = []   # (batch, first-token tensor) per wave
         try:
-            self._admit_inner(deferred, pending)
+            self._admit_inner(deferred, pending, emitted)
         finally:
             if pending:
                 self._finish_packed_admissions(pending, emitted)
@@ -1358,7 +1402,7 @@ class Engine:
                 self.host_pool.release_device(h)
             self._prefetched = set()
 
-    def _admit_inner(self, deferred: list, pending: list) -> None:
+    def _admit_inner(self, deferred: list, pending: list, emitted) -> None:
         while self.waiting:
             if self._budget_left is not None and self._budget_left <= 0:
                 # the step's prefill-admission budget is spent: decode
@@ -1376,6 +1420,15 @@ class Engine:
                 deferred.append(self.waiting.pop(0))
                 continue
             needs_chunking = len(req.prompt_tokens) > self.cfg.max_prefill_len
+            if self.model_cfg.mrope_sections is not None:
+                # VL prompts (validated <= max_prefill_len) prefill alone,
+                # single-shot, never from the prefix cache
+                table = self._try_claim(req, use_cache=False)
+                if table is None:
+                    return   # resource wait; decode will free pages
+                self.waiting.pop(0)
+                self._admit_vl(req, table, emitted)
+                continue
             if not needs_chunking:
                 # short prompts — cold and prefix-cache hits — pack into
                 # ONE ragged prefill segment per wave
@@ -1402,6 +1455,97 @@ class Engine:
             }
             self._state_dirty = True
             self._changed_slots.add(req.slot)
+
+    def _admit_vl(self, req: Request, table, emitted) -> None:
+        """Prefill one admitted VL prompt and activate its slot (a VL
+        engine admits nothing through waves)."""
+        slot = req.slot
+        first_token = self._prefill(req, table, slot)
+        req.first_token_time = time.monotonic()
+        self.recent_ttfts.append(req.first_token_time - req.submit_time)
+        self._positions[slot] = len(req.prompt_tokens)
+        self._mrope_delta[slot] = req.mrope_delta
+        self._last_token[slot] = first_token
+        self._state_dirty = True
+        self._changed_slots.add(slot)
+        self._emit(req, first_token, emitted)
+
+    def _prefill(self, req: Request, table, slot: int) -> int:
+        """VL (mrope) single-shot prefill (the reference's ``_prefill``
+        with ``_build_prefill_fn_mrope``): the prompt padded to a
+        power-of-two bucket of at most ``max_prefill_len``, its embeddings
+        with the image rows spliced in, one forward whose attention is
+        kernel K2 (causal by sequence index, a validity segment masking
+        the padding), the K/V scattered into the slot's pages and the
+        first token sampled with the request's key split.  Returns the
+        token (one host fetch)."""
+        ps = self.cache_cfg.page_size
+        plen = len(req.prompt_tokens)
+        bucket = _bucket(max(plen, ps), ps, self.cfg.max_prefill_len)
+        dev = self.device
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :plen] = req.prompt_tokens
+        self.num_prefill_padding_tokens += bucket - plen
+        carry, sub = _host_split(self._request_key(req))
+        self._slot_keys[slot] = carry
+        pos3 = np.zeros((3, 1, bucket), np.int64)
+        if req.positions3 is not None:
+            pos3[:, 0, :plen] = np.asarray(req.positions3)[:, :plen]
+        else:
+            pos3[:, 0, :plen] = np.arange(plen)[None]
+        tokens_t = upload(tokens, dev)
+        embeds = self._splice_embeds(req, tokens_t, bucket)
+        pos = torch.arange(bucket, device=dev)[None]
+        valid = pos < plen
+        seg = valid.to(torch.int32)
+        kacc, vacc = self._kv_buffers(1, bucket)
+
+        def attn_fn(q, k, v, carry_cache, p):
+            cache, lyr = carry_cache
+            kacc[lyr].copy_(k)
+            vacc[lyr].copy_(v)
+            out = attention(q, k, v, causal=True, q_positions=p,
+                            kv_positions=p, q_segment_ids=seg,
+                            kv_segment_ids=seg,
+                            backend=self.cfg.attn_backend)
+            return out, cache
+
+        from helix_tpu_torch.models.qwen2_vl import text_forward_mrope
+
+        h, _ = text_forward_mrope(
+            self.params, self.model_cfg, tokens_t, upload(pos3, dev),
+            attn_fn=attn_fn, carry_caches=self.cache, input_embeds=embeds,
+            seq_positions=pos, return_hidden=True)
+        table_t = upload(np.asarray(table, np.int32)[None], dev)
+        pages, offsets = slot_to_page_offset(pos, table_t, ps)
+        write_kv(self.cache, kacc, vacc, pages, offsets, valid)
+        last = project_logits(self.params, self.model_cfg, h[0, plen - 1:plen])
+        if self.logits_hook is not None:
+            self.logits_hook("prefill", last)
+        sampling = SamplingState.from_params([req.sampling], device=dev)
+        token = sample(last, sampling, np.asarray([sub], np.uint32))
+        self.num_device_calls += 1
+        self.num_prefill_tokens += plen
+        return int(self._fetch(Fetch([token]))[0][0])
+
+    def _splice_embeds(self, req: Request, tokens_t, bucket: int):
+        """The prompt's embeddings ``[1, bucket, E]`` with the image rows
+        written at ``image_positions``.  As the reference's ``mode="drop"``
+        scatter, an index past the bucket writes nothing: out-of-range
+        rows are masked out, never wrapped."""
+        cfg = self.model_cfg
+        emb = embed_lookup(self.params["embed"], tokens_t,
+                           torch_dtype(cfg.dtype))
+        if req.image_embeds is None:
+            return emb
+        img = torch.as_tensor(req.image_embeds).to(device=self.device,
+                                                   dtype=emb.dtype)
+        idx = np.asarray(req.image_positions, np.int64)[: img.shape[0]]
+        keep = np.nonzero((idx >= 0) & (idx < bucket))[0]
+        if len(keep) < img.shape[0]:
+            img = img.index_select(0, upload(keep, self.device))
+        emb[0].index_copy_(0, upload(idx[keep], self.device), img)
+        return emb
 
     def _admit_wave(self, pending: list) -> int:
         """Claim as many waiting short prompts as fit one ragged prefill
@@ -1644,6 +1788,7 @@ class Engine:
             token_counts=counts,
             sampling=sampling,
             adapter_slots=upload(self._slot_adapters.astype(np.int64), dev),
+            mrope_delta=upload(self._mrope_delta, dev),
         )
         self._changed_slots.clear()
         self._state_dirty = False
@@ -2028,8 +2173,8 @@ class Engine:
         self.preempted.append(PreemptedSeq(
             req=req, table=table, private_pos=private_pos,
             position=int(self._positions[slot]),
-            last_token=int(self._last_token[slot]), mrope_delta=0,
-            key=key, counts=counts,
+            last_token=int(self._last_token[slot]),
+            mrope_delta=int(self._mrope_delta[slot]), key=key, counts=counts,
         ))
         if self.allocator.owns(req_id):
             self.allocator.free(req_id)
@@ -2169,6 +2314,7 @@ class Engine:
             row[: len(table)] = table
             self._page_tables[slot] = row
             self._positions[slot] = st.position
+            self._mrope_delta[slot] = st.mrope_delta
             self._last_token[slot] = st.last_token
             # the key goes back through the host mirror (a changed slot
             # takes its key from _slot_keys), the histogram through the
@@ -2246,11 +2392,14 @@ class Engine:
           device (or the inline pages of an imported park);
         - queued or mid-chunk: no KV, replayed from the prompt.
 
-        None when the request cannot be exported (unknown, finished, an
-        unreconciled step or deferred first token, a parked page that
+        None when the request cannot be exported (unknown, finished, VL
+        -- its image state is bound to this engine, as in the reference --,
+        an unreconciled step or deferred first token, a parked page that
         failed verification)."""
         req = self._requests.get(req_id)
         if req is None or req.finished:
+            return None
+        if req.image_embeds is not None or req.positions3 is not None:
             return None
         if req.slot is not None and req.slot in self._tiered:
             # its demoted pages are in this engine's host tier only: a
@@ -2291,7 +2440,8 @@ class Engine:
             base["total_pages"] = n_alloc
             state = dict(position=int(self._positions[slot]),
                          last_token=int(self._last_token[slot]),
-                         mrope_delta=0, key=[int(key[0]), int(key[1])])
+                         mrope_delta=int(self._mrope_delta[slot]),
+                         key=[int(key[0]), int(key[1])])
         else:
             # queued or mid-chunk: no token emitted, replay is exact
             base["output_tokens"] = []
@@ -2691,6 +2841,10 @@ class Engine:
                          cold: Optional[dict] = None) -> torch.Tensor:
         """Forward the plan's rows on one flat token axis, persist their
         K/V, sample each row's first token.  Returns [R] int64."""
+        if self.model_cfg.mrope_sections is not None:
+            raise ValueError(
+                "mrope prompts prefill through the VL single-shot path "
+                "(Engine._prefill), never the ragged prefill segment")
         rung = bucket_tokens(plan.used, self._token_ladder)
         self.num_prefill_padding_tokens += max(0, rung - plan.used)
         a = plan.finalize_device(rung, self.device)
@@ -2773,9 +2927,14 @@ class Engine:
         aids = None
         if (self._slot_adapters[draft_len >= 0] != 0).any():
             aids = st.adapter_slots[:, None].expand(B, W)
+        # past the prompt a VL row's three M-RoPE streams advance together
+        # at its constant offset from the sequence index
+        pos3 = None
+        if self.model_cfg.mrope_sections is not None:
+            pos3 = (pos + st.mrope_delta[:, None])[None].expand(3, B, W)
         logits, _ = forward(self._graft_params(), self.model_cfg, tokens,
                             pos, attn_fn=s_attn, carry_caches=self.cache,
-                            adapter_ids=aids)
+                            adapter_ids=aids, positions3=pos3)
         pages, page_offs = slot_to_page_offset(pos, st.page_tables,
                                                self.cache_cfg.page_size)
         write_kv(self.cache, kacc, vacc, pages, page_offs, live_t)

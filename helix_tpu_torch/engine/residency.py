@@ -105,7 +105,8 @@ def host_tier_pages(model_cfg, cache_cfg, host_budget_bytes: int) -> int:
 
 
 def served_model_bytes(m: ServedModel, headroom: float = 0.10) -> int:
-    """Footprint of a live ServedModel: weights + KV pages (+headroom)."""
+    """Footprint of a live ServedModel: weights + KV pages (+headroom);
+    a vision model's tower counts beside its text tower."""
     total = 0
     if m.loop is not None:
         eng = m.loop.engine
@@ -113,6 +114,9 @@ def served_model_bytes(m: ServedModel, headroom: float = 0.10) -> int:
         total += tree_bytes(eng.cache.carry())  # pools + int8 scale pools
     elif m.embedder is not None:
         total += tree_bytes(m.embedder.params)
+        total += tree_bytes(getattr(m.embedder, "vparams", None) or {})
+    if m.vision is not None:
+        total += tree_bytes(m.vision.vparams)
     return int(total * (1 + headroom))
 
 
@@ -123,6 +127,8 @@ def release_served_model(m: ServedModel) -> None:
     if m.loop is None:
         if m.embedder is not None:
             m.embedder.params = None
+            if hasattr(m.embedder, "vparams"):
+                m.embedder.vparams = None
             release_device_memory()
         return
     m.loop.stop(join=True)
@@ -132,6 +138,8 @@ def release_served_model(m: ServedModel) -> None:
                     m.name)
         return
     m.loop.engine.release()
+    if m.vision is not None:
+        m.vision.vparams = None
     release_device_memory()
 
 

@@ -12,8 +12,9 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
   protocols: ``layer_caches`` hands each layer its per-layer views,
   ``carry_caches`` threads the whole pool and the attention function
   mutates it in place (jit donation in the reference).
-- Mixture-of-experts and mrope (vision) configs are not ported:
-  ROADMAP A15 and A17b.
+- Mixture-of-experts configs are not ported (ROADMAP A15).  An mrope
+  config (the Qwen2-VL text tower) runs only with its three position
+  streams (``positions3``, ``models.qwen2_vl.text_forward_mrope``).
 """
 
 from __future__ import annotations
@@ -46,11 +47,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mixture-of-experts models are not ported yet "
             "(ROADMAP A15)"
-        )
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mrope (vision) models are not ported yet "
-            "(ROADMAP A17b)"
         )
 
 
@@ -173,12 +169,14 @@ def _layer_params(layers: Params, i: int) -> Params:
 
 
 def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
-           attn_fn: AttnFn, adapter_ids=None):
+           attn_fn: AttnFn, adapter_ids=None, positions3=None):
     """One decoder block. h: [B, S, E].  Returns ``(h, (k, v),
     new_cache)``; ``new_cache`` is what a carry-protocol ``attn_fn``
     returned alongside its output (None for plain attn_fns).
     ``adapter_ids [B, S]`` names each token's multi-LoRA pool slot for
-    every projection (None: no adapter row)."""
+    every projection (None: no adapter row).  ``positions3 [3, B, S]``
+    rotates q / k with M-RoPE (mrope configs); ``positions`` still
+    reach the attention."""
     B, S, E = h.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -192,8 +190,14 @@ def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
-    q = apply_rope(q, positions, inv_freq)
-    k = apply_rope(k, positions, inv_freq)
+    if positions3 is not None:
+        from helix_tpu_torch.models.qwen2_vl import apply_mrope
+
+        q = apply_mrope(q, positions3, inv_freq, cfg.mrope_sections)
+        k = apply_mrope(k, positions3, inv_freq, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
     res = attn_fn(q, k, v, layer_cache, positions)
     new_cache = None
     if isinstance(res, tuple):
@@ -228,6 +232,8 @@ def forward(
     carry_caches=None,   # anything; threaded through every layer
     return_hidden: bool = False,
     adapter_ids=None,    # [B, S] integer: multi-LoRA pool slot per token
+    positions3=None,     # [3, B, S] integer: M-RoPE streams (mrope configs)
+    input_embeds=None,   # [B, S, E]: in place of the token embeddings
 ):
     """Run the decoder.
 
@@ -243,11 +249,22 @@ def forward(
     the final-norm hidden states instead.  ``adapter_ids`` reach every
     projection (``ops.quant.maybe_dequant_dense``'s pool form, with the
     ``lora_pool_*`` entries an ``AdapterPool`` grafts into the layers).
+    An mrope config needs ``positions3`` (the reference's
+    ``text_forward_mrope``, which also takes ``input_embeds``: the image
+    splice).
     """
     check_supported(cfg)
+    if (cfg.mrope_sections is None) != (positions3 is None):
+        raise ValueError(
+            f"{cfg.name}: mrope configs rotate by positions3 "
+            "(models.qwen2_vl.text_forward_mrope), other configs never")
     inv_freq = _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
                          tokens.device)
-    h = embed_lookup(params["embed"], tokens.long(), torch_dtype(cfg.dtype))
+    if input_embeds is None:
+        h = embed_lookup(params["embed"], tokens.long(),
+                         torch_dtype(cfg.dtype))
+    else:
+        h = input_embeds.to(torch_dtype(cfg.dtype))
     caches = carry_caches
     ks, vs = [], []
     for i in range(cfg.num_layers):
@@ -260,6 +277,7 @@ def forward(
         h, (k, v), new = _layer(
             h, _layer_params(params["layers"], i), lc, cfg, positions,
             inv_freq, attn_fn, adapter_ids=adapter_ids,
+            positions3=positions3,
         )
         if carry_caches is not None:
             caches = new

@@ -19,11 +19,19 @@ and output column, per embedding row): the bytes equal
 ``quantize_params`` of the unquantized load, and the device never holds
 the model in its compute dtype.
 
+A Qwen2-VL checkpoint (``model_type: qwen2_vl``) gives its text tower
+here, an mrope Qwen-2 config with the reference's ``attention_bias`` and
+the checkpoint's dtype, under either HF naming (``model.`` or
+``model.language_model.``); ``load_params(..., vision=VisionConfig)``
+(``models.qwen2_vl.load_qwen2_vl``) streams its vision tower too
+(``visual.`` or ``model.visual.``), into ``params["visual"]``, never
+quantized.
+
 What the port cannot compute is refused when the config is read, before
 anything is allocated, naming the ROADMAP item: mixture-of-experts (A15),
-mrope / Qwen2-VL (A17b), an activation ``models.llama`` lacks, and a
-``rope_scaling`` other than ``llama3``, which the reference loads and
-then serves as unscaled rope (ROADMAP C).  A ``sliding_window`` is logged
+an activation ``models.llama`` lacks, and a ``rope_scaling`` other than
+``llama3`` or mrope, which the reference loads and then serves as
+unscaled rope (ROADMAP C).  A ``sliding_window`` is logged
 and not applied: the reference's config drops it too (ROADMAP C).
 """
 
@@ -60,9 +68,6 @@ def unsupported(hf: dict) -> list:
                    "mixture-of-experts models are not ported yet "
                    "(ROADMAP A15)")
     rs = hf.get("rope_scaling") or {}
-    if hf.get("model_type") == "qwen2_vl" or "mrope_section" in rs:
-        out.append(f"model_type {hf.get('model_type')!r} with mrope "
-                   "(vision) is not ported yet (ROADMAP A17b)")
     act = hf.get("hidden_act", "silu")
     if act not in ACTIVATIONS:
         out.append(f"hidden_act {act!r} is not computed by the port "
@@ -91,8 +96,20 @@ def load_config(model_dir: str, name: str | None = None) -> ModelConfig:
     why = unsupported(hf)
     if why:
         raise NotImplementedError(f"{model_dir}: " + "; ".join(why))
-    return ModelConfig.from_hf_config(
-        hf, name=name or os.path.basename(os.path.normpath(model_dir)))
+    name = name or os.path.basename(os.path.normpath(model_dir))
+    if hf.get("model_type") != "qwen2_vl":
+        return ModelConfig.from_hf_config(hf, name=name)
+    # the reference's load_qwen2_vl: a Qwen-2 text tower with its qkv
+    # bias, in the checkpoint's dtype
+    cfg = ModelConfig.from_hf_config({**hf, "model_type": "qwen2"},
+                                     name=name)
+    dtype = hf.get("torch_dtype") or hf.get("dtype") or "float32"
+    return dataclasses.replace(cfg, attention_bias=True, dtype=str(dtype))
+
+
+# where HF has put a Qwen2-VL checkpoint's tensors across versions (the
+# reference's lookup order, ``qwen2_vl.py:390-398``)
+VL_PREFIXES = ("model.", "", "model.language_model.", "language_model.")
 
 
 @dataclasses.dataclass
@@ -105,11 +122,12 @@ class _Dest:
     scale: torch.Tensor | None = None
 
 
-def _plan(cfg: ModelConfig, st: SafetensorsDir) -> tuple:
+def _plan(cfg: ModelConfig, st: SafetensorsDir, vision=None) -> tuple:
     """``(layout, items)``: the destination tree's shapes and kinds, and
     one ``(HF name, row0, row1, dest path, layer, first dest row)`` per
     piece of an HF tensor; every HF shape is checked here, before
-    anything is allocated."""
+    anything is allocated.  ``vision`` (a ``VisionConfig``) adds the
+    Qwen2-VL vision tower under ``("visual", ...)``."""
     L, E, H, KVH, D, F, V = (
         cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
         cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
@@ -129,7 +147,18 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir) -> tuple:
     }
     items = []
 
+    vl = cfg.mrope_sections is not None
+
+    def resolve(name):
+        # text names are written with the ``model.`` prefix; a Qwen2-VL
+        # checkpoint may hold them under any of the reference's prefixes
+        if not vl or name in st:
+            return name
+        bare = name.removeprefix("model.")
+        return next((p + bare for p in VL_PREFIXES if p + bare in st), name)
+
     def add(name, path, layer=None, rows=None, at=0, hf_shape=None):
+        name = resolve(name)
         if name not in st:
             raise KeyError(f"checkpoint has no tensor {name!r}")
         shape = st.shape(name)
@@ -140,14 +169,14 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir) -> tuple:
         items.append((name, r0, r1, path, layer, at))
 
     pfx = "model.layers.{}."
-    fused_qkv = f"{pfx.format(0)}self_attn.qkv_proj.weight" in st
-    fused_mlp = f"{pfx.format(0)}mlp.gate_up_proj.weight" in st
+    fused_qkv = resolve(f"{pfx.format(0)}self_attn.qkv_proj.weight") in st
+    fused_mlp = resolve(f"{pfx.format(0)}mlp.gate_up_proj.weight") in st
     add("model.embed_tokens.weight", ("embed",), hf_shape=(V, E))
     add("model.norm.weight", ("final_norm",), hf_shape=(E,))
     widths = (("wq", "q_proj", H * D), ("wk", "k_proj", KVH * D),
               ("wv", "v_proj", KVH * D))
     bias = (cfg.attention_bias
-            and f"{pfx.format(0)}self_attn.q_proj.bias" in st)
+            and resolve(f"{pfx.format(0)}self_attn.q_proj.bias") in st)
     for i in range(L):
         p = pfx.format(i)
         add(p + "input_layernorm.weight", ("layers", "attn_norm"), i,
@@ -194,10 +223,63 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir) -> tuple:
     if not cfg.tie_word_embeddings:
         layout[("lm_head",)] = ("linear", (E, V))
         # some checkpoints tie implicitly: the head is the embedding's
-        head = ("lm_head.weight" if "lm_head.weight" in st
-                else "model.embed_tokens.weight")
+        head = next((n for n in ("model.lm_head.weight", "lm_head.weight")
+                     if n in st and (vl or n == "lm_head.weight")),
+                    "model.embed_tokens.weight")
         add(head, ("lm_head",), hf_shape=(V, E))
+    if vision is not None:
+        _plan_vision(vision, layout, add)
     return layout, items
+
+
+def _plan_vision(vc, layout: dict, add) -> None:
+    """The vision tower's destinations and HF tensors (``visual.`` names,
+    resolved like the text tower's): ``patch_embed.proj`` is a conv3d
+    whose ``[E, C, Tp, P, P]`` weight is the ``[patch_dim, E]`` matmul,
+    each block's ``attn.qkv`` / ``attn.proj`` / ``mlp.fc1`` / ``mlp.fc2``
+    with bias and its two layer norms, the merger's ``ln_q`` and its
+    ``mlp.0`` / ``mlp.2``."""
+    Lv, E = vc.depth, vc.embed_dim
+    F = E * vc.mlp_ratio
+    M = E * vc.spatial_merge_size**2
+    v = ("visual",)
+    layout[v + ("patch_embed",)] = ("linear", (vc.patch_dim, E))
+    add("model.visual.patch_embed.proj.weight", v + ("patch_embed",),
+        hf_shape=(E, vc.in_channels, vc.temporal_patch_size,
+                  vc.patch_size, vc.patch_size))
+    blocks = (("qkv", "attn.qkv", E, 3 * E), ("proj", "attn.proj", E, E),
+              ("fc1", "mlp.fc1", E, F), ("fc2", "mlp.fc2", F, E))
+    for ours, _theirs, n_in, n_out in blocks:
+        layout[v + ("blocks", ours)] = ("linear", (Lv, n_in, n_out))
+        layout[v + ("blocks", ours, "bias")] = ("vector", (Lv, n_out))
+    for norm in ("norm1", "norm2"):
+        layout[v + ("blocks", norm)] = ("vector", (Lv, E))
+        layout[v + ("blocks", norm, "bias")] = ("vector", (Lv, E))
+    for i in range(Lv):
+        p = f"model.visual.blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            add(p + norm + ".weight", v + ("blocks", norm), i,
+                hf_shape=(E,))
+            add(p + norm + ".bias", v + ("blocks", norm, "bias"), i,
+                hf_shape=(E,))
+        for ours, theirs, n_in, n_out in blocks:
+            add(p + theirs + ".weight", v + ("blocks", ours), i,
+                hf_shape=(n_out, n_in))
+            add(p + theirs + ".bias", v + ("blocks", ours, "bias"), i,
+                hf_shape=(n_out,))
+    m = v + ("merger",)
+    layout[m + ("ln_q",)] = ("vector", (E,))
+    layout[m + ("ln_q", "bias")] = ("vector", (E,))
+    add("model.visual.merger.ln_q.weight", m + ("ln_q",), hf_shape=(E,))
+    add("model.visual.merger.ln_q.bias", m + ("ln_q", "bias"),
+        hf_shape=(E,))
+    for ours, k, n_out in (("mlp0", 0, M), ("mlp2", 2, vc.hidden_size)):
+        layout[m + (ours,)] = ("linear", (M, n_out))
+        layout[m + (ours, "bias")] = ("vector", (n_out,))
+        add(f"model.visual.merger.mlp.{k}.weight", m + (ours,),
+            hf_shape=(n_out, M))
+        add(f"model.visual.merger.mlp.{k}.bias", m + (ours, "bias"),
+            hf_shape=(n_out,))
 
 
 def _allocate(layout: dict, dtype, device, quantized: bool) -> tuple:
@@ -212,7 +294,7 @@ def _allocate(layout: dict, dtype, device, quantized: bool) -> tuple:
             node["bias"] = t
             dests[path] = _Dest("vector", t)
             continue
-        if kind == "vector" or not quantized:
+        if kind == "vector" or not quantized or path[0] == "visual":
             t = torch.empty(shape, dtype=dtype, device=device)
             node["weight"] = t
             dests[path] = _Dest(kind, t)
@@ -245,7 +327,8 @@ def _put(dest: _Dest, layer, at: int, x: torch.Tensor) -> None:
             t[at:at + n], dest.scale[at:at + n] = _quantize_columns(
                 x.float(), -1)
     elif dest.scale is None:
-        t[:, at:at + n] = x.t()
+        # a conv weight's trailing dims flatten into the input axis
+        t[:, at:at + n] = x.reshape(n, -1).t()
     else:
         s = dest.scale if layer is None else dest.scale[layer]
         t[:, at:at + n], s[:, at:at + n] = _quantize_columns(
@@ -254,13 +337,15 @@ def _put(dest: _Dest, layer, at: int, x: torch.Tensor) -> None:
 
 def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
                 device=DEFAULT_DEVICE, dtype=None, quantization=None,
-                stats: dict | None = None) -> tuple:
+                stats: dict | None = None, vision=None) -> tuple:
     """``(cfg, params)`` of a checkpoint directory, ``params`` on
     ``device`` in ``dtype`` (default the config's), int8 projections and
     embedding with ``quantization="int8"``.  ``stats``, if given, gets
     the bytes read and the seconds of the host read (mapped file to the
     staging buffer, page faults included), of the uploads (device time,
-    on the card) and of the whole load."""
+    on the card) and of the whole load.  ``vision``: a Qwen2-VL
+    checkpoint's ``VisionConfig``, whose tower lands in
+    ``params["visual"]`` in ``dtype``, never quantized."""
     if quantization not in (None, "int8"):
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
@@ -278,7 +363,7 @@ def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
                     "config does (ROADMAP C)", cfg.name, window)
     t_start = time.monotonic()
     with SafetensorsDir(model_dir) as st:
-        layout, items = _plan(cfg, st)
+        layout, items = _plan(cfg, st, vision)
         params, dests = _allocate(layout, dt, dev, quantization == "int8")
         got = _stream(st, items, dests, dt, dev)
     if stats is not None:

@@ -156,7 +156,13 @@ def maybe_dequant_dense(x, p: dict, adapter_ids=None, compute_dtype=None):
     if w.dtype == torch.int8:
         # int8 codes are exact in bf16 and float32
         w = w.to(x.dtype)
-    elif scale is None and b is None and not lora:
+    elif w.dtype != x.dtype:
+        # mixed operands (the vision tower's float32 activations on bf16
+        # weights) promote as the reference's dot_general does: both to
+        # the wider type, the result in the activations' dtype
+        wide = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(wide), w.to(wide)
+    if w.dtype != torch.int8 and scale is None and b is None and not lora:
         return torch.matmul(x, w).to(compute_dtype)
     out = matmul_f32(x, w)
     if scale is not None:

@@ -54,7 +54,12 @@ import torch
 
 from helix_tpu_torch.control.filestore import Filestore
 from helix_tpu_torch.engine.kv_cache import PAGE_FIELDS, page_checksum
-from helix_tpu_torch.serving.migration import _decode_array, _encode_array
+from helix_tpu_torch.serving.migration import (
+    _decode_array,
+    _encode_array,
+    json_bytes,
+    json_loads,
+)
 
 log = logging.getLogger("helix_tpu_torch.kv_filestore")
 
@@ -193,7 +198,7 @@ class KVFilestore:
             self._known.discard(d)
             return None
         try:
-            doc = json.loads(raw)
+            doc = json_loads(raw)
             entry = {f: _decode_array((doc.get("page") or {}).get(f))
                      for f in PAGE_FIELDS}
             if entry["k"] is None or entry["v"] is None:
@@ -230,7 +235,7 @@ class KVFilestore:
                 "checksum": page_checksum(host).hex(),
                 "page": {f: _encode_array(host[f]) for f in PAGE_FIELDS},
             }
-            raw = json.dumps(doc).encode()
+            raw = json_bytes(doc)
             with self._lock:
                 if self.quota_bytes and (self._usage.get(tenant, 0)
                                          + len(raw) > self.quota_bytes):

@@ -24,11 +24,13 @@ migration.py``.  The engine builds and consumes ``RequestSnapshot``s
 from __future__ import annotations
 
 import base64
+import binascii
 import dataclasses
 import hashlib
 import json
 import os
 import re
+import secrets
 import threading
 import time
 import urllib.error
@@ -44,7 +46,7 @@ from helix_tpu_torch.engine.engine import (
     RequestSnapshot,
     SnapshotError,
 )
-from helix_tpu_torch.engine.kv_cache import PAGE_FIELDS, raw_bytes
+from helix_tpu_torch.engine.kv_cache import PAGE_FIELDS, _raw_view
 from helix_tpu_torch.obs.trace import TRACE_HEADER, is_trace_id
 from helix_tpu_torch.testing import faults
 
@@ -287,6 +289,20 @@ def _meta_checksum(doc: dict) -> str:
     return h.hexdigest()
 
 
+class _Buffer(dict):
+    """One page buffer's JSON member (``dtype``, ``shape``, ``b64``) with
+    the bytes behind its base64 text, valid while ``b64`` is still the
+    string ``text`` they came with: ``ascii``, the text's own bytes,
+    which ``json_bytes`` writes verbatim (the alphabet needs no JSON
+    escape), or ``raw``, the decoded bytes that ``json_loads`` read and
+    ``_decode_array`` takes."""
+
+    text = ascii = raw = None
+
+    def current(self) -> bool:
+        return self.get("b64") is self.text
+
+
 def _encode_array(a) -> Optional[dict]:
     if a is None:
         return None
@@ -295,11 +311,113 @@ def _encode_array(a) -> Optional[dict]:
     else:
         a = np.ascontiguousarray(a)
         dtype = str(a.dtype)
-    return {
-        "dtype": dtype,
-        "shape": [int(d) for d in a.shape],
-        "b64": base64.b64encode(raw_bytes(a)).decode("ascii"),
-    }
+    b64 = base64.b64encode(_raw_view(a))
+    buf = _Buffer(dtype=dtype, shape=[int(d) for d in a.shape],
+                  b64=b64.decode("ascii"))
+    buf.text, buf.ascii = buf["b64"], b64
+    return buf
+
+
+def json_bytes(doc) -> bytes:
+    """``json.dumps(doc).encode()``, byte for byte, with the base64 text
+    of page buffers (``_encode_array``'s) written verbatim instead of
+    through the encoder's escape scan, which costs more than the base64
+    itself on a wire of ~100 MB of pages (one interpreter's lock serves
+    every handoff and decode step on a node)."""
+    parts: list = []
+    _json_parts(doc, parts)
+    return b"".join(parts)
+
+
+def _json_parts(v, out: list) -> None:
+    if isinstance(v, dict) and type(v) in (dict, _Buffer) \
+            and all(type(k) is str for k in v):
+        verbatim = type(v) is _Buffer and v.ascii is not None \
+            and v.current()
+        out.append(b"{")
+        for i, (k, x) in enumerate(v.items()):
+            out += (b", " if i else b"", json.dumps(k).encode(), b": ")
+            if verbatim and k == "b64":
+                out += (b'"', v.ascii, b'"')
+            else:
+                _json_parts(x, out)
+        out.append(b"}")
+    elif type(v) in (list, tuple) and any(
+            type(x) in (dict, _Buffer, list, tuple) for x in v):
+        out.append(b"[")
+        for i, x in enumerate(v):
+            if i:
+                out.append(b", ")
+            _json_parts(x, out)
+        out.append(b"]")
+    else:
+        out.append(json.dumps(v).encode())
+
+
+_B64_MEMBER = b'"b64": "'
+
+
+def json_loads(data: bytes):
+    """``json.loads(data)``, with the base64 text of every page buffer (a
+    ``"b64": "..."`` member, as ``json_bytes`` writes it) cut out before
+    the parse and decoded, so the parser's string scan never runs over
+    the ~100 MB of pages.  Each such member's object comes back as a
+    ``_Buffer`` equal to the parser's, holding the decoded bytes.  The
+    whole document goes through ``json.loads`` instead when a cut text is
+    not plain base64 (the decoded length proves every character but the
+    trailing padding was of the alphabet, so the parser would have read
+    the same string) or a cut is not a whole ``b64`` string member."""
+    nonce = "\x00" + secrets.token_hex(8) + ":"
+    view = memoryview(data)
+    cuts, skeleton, pos = [], [], 0
+    while True:
+        i = data.find(_B64_MEMBER, pos)
+        if i < 0:
+            break
+        start = i + len(_B64_MEMBER)
+        end = data.find(b'"', start)
+        if end < 0:
+            return json.loads(data)
+        tail = data[max(start, end - 2):end]
+        pad = len(tail) - len(tail.rstrip(b"="))
+        try:
+            raw = binascii.a2b_base64(view[start:end])
+        except (binascii.Error, ValueError):
+            return json.loads(data)
+        if (end - start) % 4 or len(raw) != (end - start) // 4 * 3 - pad:
+            return json.loads(data)
+        skeleton += (view[pos:start],
+                     json.dumps(nonce + str(len(cuts)))[1:-1].encode())
+        cuts.append((start, end, raw))
+        pos = end
+    if not cuts:
+        return json.loads(data)
+    skeleton.append(view[pos:])
+    doc = json.loads(b"".join(skeleton))
+    # each cut must read back as the whole ``b64`` member of an object:
+    # every index once (an unguessable nonce, so no text forges one)
+    sites, stack = [], [(None, None, doc)]
+    while stack:
+        parent, key, v = stack.pop()
+        if isinstance(v, (dict, list)):
+            stack += ((v, k, x) for k, x in (
+                v.items() if isinstance(v, dict) else enumerate(v)))
+        tag = v.get("b64") if isinstance(v, dict) else None
+        if isinstance(tag, str) and tag.startswith(nonce):
+            sites.append((parent, key, v, tag[len(nonce):]))
+    if sorted(int(t) if t.isdigit() else -1
+              for *_pkv, t in sites) != list(range(len(cuts))):
+        return json.loads(data)
+    for parent, key, v, t in reversed(sites):   # inner members first
+        start, end, raw = cuts[int(t)]
+        buf = _Buffer(v)
+        buf["b64"] = buf.text = str(view[start:end], "ascii")
+        buf.raw = raw
+        if parent is None:
+            doc = buf
+        else:
+            parent[key] = buf
+    return doc
 
 
 def _decode_array(doc) -> Optional[torch.Tensor]:
@@ -307,7 +425,9 @@ def _decode_array(doc) -> Optional[torch.Tensor]:
         return None
     try:
         np_type, view = _WIRE_DTYPES[doc["dtype"]]
-        raw = base64.b64decode(doc["b64"])
+        raw = doc.raw if type(doc) is _Buffer and doc.current() else None
+        if raw is None:
+            raw = base64.b64decode(doc["b64"])
         a = np.frombuffer(raw, dtype=np_type)
         a = a.reshape([int(d) for d in doc["shape"]]).copy()
     except (KeyError, TypeError, ValueError) as e:
@@ -483,9 +603,6 @@ class ImportedStreams:
 # ---------------------------------------------------------------------------
 
 
-_dumps = json.dumps   # http_post's ``json`` argument shadows the module
-
-
 class _Response:
     def __init__(self, status_code: int, body: bytes = b""):
         self.status_code = status_code
@@ -496,7 +613,7 @@ def http_post(url: str, json=None, headers: Optional[dict] = None,
               timeout: float = 10.0) -> _Response:
     """POST a JSON body with ``urllib``; any HTTP status is a response
     (the ``requests.post`` contract ``PeerShipper`` was written to)."""
-    data = _dumps(json).encode()
+    data = json_bytes(json)
     req = urllib.request.Request(
         url, data=data, method="POST",
         headers={"Content-Type": "application/json", **(headers or {})})

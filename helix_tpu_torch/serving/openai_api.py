@@ -82,12 +82,22 @@ port needs no web framework:
 
 - ``POST /v1/embeddings``: text inputs of an embedding model
   (``kind="embedding"``, a ``models.bge.EmbeddingRunner``), with the
-  reference's JSON and ``usage`` block; a model of another kind answers
+  reference's JSON and ``usage`` block; text and ``{"image": <url /
+  base64>}`` inputs of a vision-embedding model
+  (``kind="vision-embedding"``, a ``models.vision_embed.
+  VisionEmbeddingRunner``), in order; a model of another kind answers
   404 "is not an embedding model", a dict input without ``image`` 400,
-  an ``{"image": ...}`` input 400 "cannot embed images" (vision
-  embedders: ROADMAP A17b).  The generation routes answer an embedding
-  model 404 as the reference does (chat: "is an embedding model"; the
-  others: "does not serve generation");
+  an ``{"image": ...}`` input to a text embedder 400 "cannot embed
+  images".  The generation routes answer an embedding model 404 as the
+  reference does (chat: "is an embedding model"; the others: "does not
+  serve generation");
+- image parts in a chat (``{"type": "image_url" | "image"}``): a
+  ``kind="vision"`` model's ``VisionRunner.prepare`` runs on the
+  handler's thread (the tower on the card, off the engine thread) and
+  the request carries its image state; any other model answers 400
+  "does not accept image input", a failed decode or resize 400 "image
+  processing failed: ..." (the reference's texts).  Such a request is
+  never handed off to a decode peer;
 
 A client that hangs up mid-response (a broken pipe or a reset) ends its
 request as the engine's abort does, with one log line and no traceback.
@@ -165,6 +175,7 @@ from helix_tpu_torch.serving.migration import (
     XferConfig,
     collect_runner_migration,
     collect_xfer,
+    json_loads,
     migrated_error,
     migration_timeout,
     wire_to_snapshot,
@@ -294,14 +305,16 @@ class OpenAIServer:
     def generate(self, served, prompt_ids, sampling: SamplingParams,
                  adapter: str = "", tenant: str = ANON_TENANT,
                  sched_class: str = "", trace_id: str = "",
-                 request_id: str = "", ctx_pin: bool = False):
+                 request_id: str = "", ctx_pin: bool = False,
+                 extra: Optional[dict] = None):
         """Submit to the engine loop; yields ``(delta_text, token_id,
         finished, finish_reason)``.  Serving-level stop strings end the
         stream at the match.  ``adapter``: a sanitised, published adapter
         id of the model ("" = the base model); ``tenant`` /
         ``sched_class``: the sanitised identity headers ("" class = the
         profile's default); ``ctx_pin``: keep the request fully resident
-        (a context creation)."""
+        (a context creation); ``extra``: a VL request's image fields
+        (``VisionRunner.prepare``)."""
         q: "queue.Queue" = queue.Queue()
         req = Request(
             id=request_id or f"req-{uuid.uuid4().hex[:12]}",
@@ -313,6 +326,7 @@ class OpenAIServer:
             sched_class=sched_class,
             trace_id=trace_id,
             ctx_pin=ctx_pin,
+            **(extra or {}),
         )
         served.loop.submit(req, q.put)
         yield from self.token_stream(served, req, sampling, q.get)
@@ -635,7 +649,7 @@ class _Handler(BaseHTTPRequestHandler):
     def _body(self) -> Optional[dict]:
         n = int(self.headers.get("Content-Length") or 0)
         try:
-            body = json.loads(self.rfile.read(n) or b"{}")
+            body = json_loads(self.rfile.read(n) or b"{}")
         except (ValueError, UnicodeDecodeError):
             return None
         return body if isinstance(body, dict) else None
@@ -848,15 +862,38 @@ class _Handler(BaseHTTPRequestHandler):
                 f"model '{model}' is an embedding model", "model_not_found",
                 trace_id=tid), {TRACE_HEADER: tid})
             return
+        if self._require_loop(served, model):
+            return
         messages = body.get("messages")
         if not messages:
             self._error(400, "'messages' is required")
             return
-        prompt_ids = self._with_context(
-            body, served.tokenizer.apply_chat_template(
-                messages, add_generation_prompt=True))
+        has_images = any(
+            isinstance(m.get("content"), list)
+            and any(p.get("type") in ("image_url", "image")
+                    for p in m["content"])
+            for m in messages)
+        extra = None
+        if has_images:
+            tid = self._trace_id()
+            if served.vision is None:
+                self._error_traced(
+                    400, f"model '{model}' does not accept image input", tid)
+                return
+            try:
+                extra = served.vision.prepare(messages, served.tokenizer)
+            except Exception as e:  # noqa: BLE001 — bad image data etc.
+                self._error_traced(400, f"image processing failed: {e}",
+                                   tid)
+                return
+            prompt_ids = extra.pop("prompt_tokens")
+        else:
+            prompt_ids = served.tokenizer.apply_chat_template(
+                messages, add_generation_prompt=True)
+        prompt_ids = self._with_context(body, prompt_ids)
         if prompt_ids is not None:
-            self._run(body, served, prompt_ids, chat=True, adapter=adapter)
+            self._run(body, served, prompt_ids, chat=True, adapter=adapter,
+                      extra=extra)
 
     def _completions(self, body: dict):
         served, adapter = self._served_generation(body)
@@ -969,7 +1006,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {**answer, "cached": False}, {TRACE_HEADER: tid})
 
     def _run(self, body: dict, served, prompt_ids, *, chat: bool,
-             adapter: str = ""):
+             adapter: str = "", extra: Optional[dict] = None):
         try:
             sampling = sampling_from_body(body)
         except (TypeError, ValueError) as e:
@@ -984,7 +1021,7 @@ class _Handler(BaseHTTPRequestHandler):
         created = int(time.time())
         obj = "chat.completion" if chat else "text_completion"
         if (self.headers.get(DISAGG_HEADER) and body.get("stream")
-                and self._runner_token_ok()):
+                and extra is None and self._runner_token_ok()):
             # the control plane marked this dispatch prefill-only and
             # named a decode peer; a non-stream body ignores the header
             # and is served here
@@ -994,7 +1031,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         gen = self.api.generate(served, prompt_ids, sampling, adapter,
                                 tenant=tenant, sched_class=self._sched_class(),
-                                trace_id=tid)
+                                trace_id=tid, extra=extra)
         if body.get("stream"):
             self._stream(gen, rid, created, model, obj, chat)
             return
@@ -1336,7 +1373,7 @@ class _Handler(BaseHTTPRequestHandler):
         served = self._lookup(model)
         if served is None:
             return
-        if served.kind != "embedding":
+        if served.kind not in ("embedding", "vision-embedding"):
             self._error(404, f"'{model}' is not an embedding model",
                         "model_not_found")
             return
@@ -1348,10 +1385,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(400, "dict inputs must be {\"image\": <url/base64>}; "
                         f"got keys {sorted(bad[0])}")
             return
-        if any(isinstance(x, dict) for x in inputs):
-            # image entries need a vision-embedding model (ROADMAP A17b)
+        has_images = any(isinstance(x, dict) for x in inputs)
+        if has_images and served.kind != "vision-embedding":
             self._error(400, f"'{model}' cannot embed images; serve a "
                         "vision-embedding model")
+            return
+        if served.kind == "vision-embedding":
+            self._vision_embeddings(served, model, inputs, has_images)
             return
         try:
             ids = [served.tokenizer.encode(t) for t in inputs]
@@ -1362,6 +1402,31 @@ class _Handler(BaseHTTPRequestHandler):
                         "server_error")
             return
         n = sum(len(t) for t in ids)
+        self._json(200, {
+            "object": "list", "model": model,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": list(map(float, v))}
+                     for i, v in enumerate(vectors)],
+            "usage": {"prompt_tokens": n, "total_tokens": n},
+        })
+
+    def _vision_embeddings(self, served, model: str, inputs: list,
+                           has_images: bool) -> None:
+        """A vision-embedding model's ``/v1/embeddings`` (the reference's:
+        text only through ``embed_texts``, with images ``embed_mixed`` in
+        order; ``usage`` counts the text inputs' tokens).  A failure
+        answers 500, as the reference's unhandled error does."""
+        runner = served.embedder
+        try:
+            vectors = (runner.embed_mixed(inputs) if has_images
+                       else runner.embed_texts(inputs))
+        except Exception as e:  # noqa: BLE001 — answered 500, as aiohttp
+            log.exception("embedding request for %r failed", model)
+            self._error(500, f"embedding failed: {type(e).__name__}: {e}",
+                        "server_error")
+            return
+        n = sum(len(served.tokenizer.encode(t)) for t in inputs
+                if isinstance(t, str))
         self._json(200, {
             "object": "list", "model": model,
             "data": [{"object": "embedding", "index": i,

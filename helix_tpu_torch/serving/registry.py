@@ -1,7 +1,10 @@
 """Model registry: model name -> engine loop (or embedder) + tokenizer
 (port of ``helix_tpu/serving/registry.py``).  Unknown names answer 404
 with the available list at the HTTP layer.  An embedding model
-(``kind="embedding"``) has an ``embedder`` and no ``loop``.
+(``kind="embedding"``) has an ``embedder`` and no ``loop``; a vision
+chat model (``kind="vision"``) has a ``loop`` and a ``vision`` runner
+(``serving.vision.VisionRunner``); a vision embedder
+(``kind="vision-embedding"``) an ``embedder`` and no ``loop``.
 
 ``DelegatingRegistry`` (the reference's, ``helix_tpu/control/
 node_agent.py:440-462``) is the one surface the server and ``serve-node``
@@ -23,7 +26,7 @@ class ServedModel:
     name: str
     loop: Optional[EngineLoop]
     tokenizer: object
-    kind: str = "chat"           # chat | embedding
+    kind: str = "chat"   # chat | embedding | vision | vision-embedding
     created: int = dataclasses.field(default_factory=lambda: int(time.time()))
     owned_by: str = "helix-tpu"
     context_length: Optional[int] = None
@@ -32,8 +35,10 @@ class ServedModel:
     # a checkpoint load's bytes and read / upload seconds
     # (models.loader.load_params)
     load_stats: Optional[dict] = None
-    # models.bge.EmbeddingRunner for kind == "embedding" (loop is None)
+    # models.bge.EmbeddingRunner for kind == "embedding", models.
+    # vision_embed.VisionEmbeddingRunner for "vision-embedding" (loop None)
     embedder: object = None
+    vision: object = None        # VisionRunner for kind == "vision"
 
 
 class ModelRegistry:

@@ -11,6 +11,13 @@ when there is more than one.  The files are what the ``safetensors``
 package writes and reads; tensors go to disk one layer at a time, so a
 parameter tree on the card is never copied to the host whole.
 
+``write_qwen2_vl_checkpoint(model_dir, cfg, params, vcfg, vparams)`` writes
+a Qwen2-VL export: ``model_type: qwen2_vl`` with its ``vision_config``,
+mrope ``rope_scaling`` and image token ids, the text tower under
+``model.language_model.`` and the vision tower under ``model.visual.``
+(``naming="new"``, transformers >= 4.52) or under ``model.`` and
+``visual.`` (``naming="old"``), ``lm_head.weight`` in both.
+
 ``write_encoder_checkpoint(model_dir, cfg, params)`` does the same for a
 ``models.bge`` encoder: a BERT ``config.json`` and one
 ``model.safetensors`` under HF BERT names (``bert.`` before each with
@@ -185,6 +192,91 @@ def _write_safetensors(model_dir: str, tensors: list,
                        "weight_map": weight_map}, f, indent=2)
         paths.append(path)
     return paths
+
+
+# Qwen/Qwen2-VL-7B-Instruct's image token ids (its config.json)
+QWEN2_VL_TOKEN_IDS = {"image_token_id": 151655, "video_token_id": 151656,
+                      "vision_start_token_id": 151652,
+                      "vision_end_token_id": 151653}
+
+
+def qwen2_vl_hf_config(cfg: ModelConfig, vcfg, token_ids=None) -> dict:
+    """``config.json`` of a Qwen2-VL export (text fields at the top, as
+    both packages' loaders read them)."""
+    out = hf_config(cfg, "qwen2_vl")
+    out["architectures"] = ["Qwen2VLForConditionalGeneration"]
+    out["rope_scaling"] = {"type": "mrope",
+                           "mrope_section": list(cfg.mrope_sections)}
+    out["vision_config"] = {
+        "depth": vcfg.depth, "embed_dim": vcfg.embed_dim,
+        "hidden_size": vcfg.hidden_size, "num_heads": vcfg.num_heads,
+        "mlp_ratio": vcfg.mlp_ratio, "in_chans": vcfg.in_channels,
+        "in_channels": vcfg.in_channels, "patch_size": vcfg.patch_size,
+        "spatial_merge_size": vcfg.spatial_merge_size,
+        "temporal_patch_size": vcfg.temporal_patch_size,
+    }
+    out.update(token_ids or QWEN2_VL_TOKEN_IDS)
+    return out
+
+
+def _vision_tensors(vcfg, vparams: dict, prefix: str) -> list:
+    """The vision tower's HF tensors under ``prefix`` (``visual.`` or
+    ``model.visual.``), HF layouts, one block's at a time."""
+    out = []
+    E = vcfg.embed_dim
+
+    def plain(name, view):
+        out.append((prefix + name, tuple(view.shape), view.dtype,
+                    lambda: view.contiguous().cpu()))
+
+    def linear(name, w, shape=None):
+        hf = tuple(w.shape)[::-1] if shape is None else shape
+        out.append((prefix + name, hf, w.dtype,
+                    lambda: w.t().contiguous().reshape(hf).cpu()))
+
+    linear("patch_embed.proj.weight", vparams["patch_embed"]["weight"],
+           (E, vcfg.in_channels, vcfg.temporal_patch_size, vcfg.patch_size,
+            vcfg.patch_size))
+    blk = vparams["blocks"]
+    for i in range(vcfg.depth):
+        p = f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            plain(p + norm + ".weight", blk[norm]["weight"][i])
+            plain(p + norm + ".bias", blk[norm]["bias"][i])
+        for ours, theirs in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            linear(p + theirs + ".weight", blk[ours]["weight"][i])
+            plain(p + theirs + ".bias", blk[ours]["bias"][i])
+    m = vparams["merger"]
+    plain("merger.ln_q.weight", m["ln_q"]["weight"])
+    plain("merger.ln_q.bias", m["ln_q"]["bias"])
+    for ours, k in (("mlp0", 0), ("mlp2", 2)):
+        linear(f"merger.mlp.{k}.weight", m[ours]["weight"])
+        plain(f"merger.mlp.{k}.bias", m[ours]["bias"])
+    return out
+
+
+def write_qwen2_vl_checkpoint(model_dir: str, cfg: ModelConfig, params: dict,
+                              vcfg, vparams: dict, *, naming: str = "new",
+                              max_shard_bytes: int = MAX_SHARD_BYTES,
+                              token_ids: dict | None = None) -> list:
+    """Write a Qwen2-VL text tower (``params``, an ``init_params`` tree of
+    an mrope config with qkv bias) and vision tower (``vparams``, an
+    ``init_vision_params`` tree) as an HF checkpoint; returns the paths
+    written (``config.json`` first)."""
+    if naming not in ("new", "old"):
+        raise ValueError(f"naming {naming!r}: expected 'new' or 'old'")
+    text_pfx, vis_pfx = (("model.language_model.", "model.visual.")
+                         if naming == "new" else ("model.", "visual."))
+    text = [(n if n == "lm_head.weight" else text_pfx + n[len("model."):],
+             *rest) for n, *rest in _hf_tensors(cfg, params, False)]
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(qwen2_vl_hf_config(cfg, vcfg, token_ids), f, indent=2)
+    return [path] + _write_safetensors(
+        model_dir, text + _vision_tensors(vcfg, vparams, vis_pfx),
+        max_shard_bytes)
 
 
 def encoder_hf_config(cfg) -> dict:

@@ -1544,3 +1544,161 @@ def test_tiered_engine_launches_the_cold_form(cuda, kv_dtype):
     assert req.output_tokens == want
     assert tiered.num_ctx_demoted_pages > 0 and calls[0] > 0
     assert form.launches - before == calls[0]
+
+
+# ---------------------------------------------------------------------------
+# Qwen2-VL: group 7 (H 28, KVH 4), the vision tower, the VL engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,valid", [(256, 200), (1024, 640), (2048, 1275)])
+def test_flash_kernel_group7_vl_prefill(cuda, dtype, S, valid):
+    """K2 as the VL single-shot prefill calls it at Qwen2-VL-7B's widths:
+    B 1, H 28 over KVH 4 (group 7), D 128, causal by sequence index, a
+    validity segment over the prompt and padding to the bucket; one key
+    too few breaks the limit."""
+    rng = np.random.default_rng(S + valid)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(cuda, dtype) for sh in ((1, S, 28, 128), (1, S, 4, 128),
+                                           (1, S, 4, 128)))
+    pos = torch.arange(S, device=cuda)[None]
+    seg = (pos < valid).to(torch.int32)
+    kw = dict(causal=True, q_positions=pos, kv_positions=pos,
+              q_segment_ids=seg, kv_segment_ids=seg)
+    got = tatt.flash_attention(q, k, v, **kw)
+    want = tatt.flash_attention_plain(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        limit = tatt.flash_error_limit(q, k, v, **kw)
+        _within_flash_limit(got, want, limit)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        limit = TOL[dtype]["atol"] + 0 * want.float()
+    bad = tatt.flash_attention(q, k, v, **{**kw, "kv_positions": pos + 1})
+    assert ((bad.float() - want.float()).abs() > limit).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_group7_matches_plain(cuda, dtype):
+    """K1 at group 7 (28 of a query tile's 32 rows: 4 tokens x 7 heads)
+    on ragged rows of 0-19 tokens over paged histories."""
+    f, i, live = _ragged(77, 2, 160, 16, 4, 128, 28, 16, 8)
+    f = [torch.from_numpy(x).to(cuda, dtype) for x in f]
+    i = [torch.from_numpy(x).to(cuda) for x in i]
+    got = tpk.ragged_paged_attention(*f, 1, *i)
+    want = tpk.ragged_paged_attention_plain(*f, 1, *i)
+    live = torch.from_numpy(live).to(cuda)
+    assert torch.isfinite(got[live]).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 5])
+def test_ragged_kernel_group7_decode_and_verify(cuda, dtype, quantized, W):
+    """K1 (both pool forms) at group 7 on decode rows (W 1) and verify
+    rows (W 5: 4 tokens of 7 heads per query tile, a row across two
+    tiles) at histories beside the split's edges; a history slot too
+    many or too few breaks the limit."""
+    hists = [1300, 511, 512, 513, 2047, 3999, 1, 2600]
+    fresh, pools, meta, kw, live = _verify_rows(
+        hists, dtype, cuda, quantized, D=128, H=28, KVH=4, W=W)
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta, **kw)
+    if quantized:
+        want = _int8_plain(fresh, pools, (kw["k_scale"], kw["v_scale"]),
+                           meta, 1)
+    else:
+        want = tpk.ragged_paged_attention_plain(*fresh, *pools, 1, *meta)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    for d in (-1, 1):
+        bad = tpk.ragged_paged_attention(*fresh, *pools, 1, *meta[:2],
+                                         (meta[2] + d).clamp(min=0),
+                                         meta[3], **kw)
+        assert _breaks_limit(bad[live], want[live], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["float32", "bfloat16"])
+def test_vision_tower_on_card_matches_cpu(cuda, weights):
+    """The Qwen2-VL-7B tower at full width and 2 blocks, float32
+    activations (TF32 off) on float32 or bf16 weights, two images in one
+    call: card against the same code on CPU tensors (float32 summation
+    order, atol 1e-4 on values up to ~6)."""
+    from helix_tpu_torch.models import qwen2_vl as vl
+    from helix_tpu_torch.models.llama import params_to
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    vc = vl.VisionConfig(depth=2)
+    vp = vl.init_vision_params(vc, 3, device="cpu", dtype=weights)
+    grid = np.array([[1, 16, 20], [1, 8, 8]])
+    patches = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (int(grid.prod(axis=1).sum()), vc.patch_dim)).astype(np.float32))
+    want = vl.vision_forward(vp, vc, patches, grid)
+    got = vl.vision_forward(params_to(vp, cuda), vc, patches.to(cuda), grid)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_vl_engine_on_card_matches_cpu(cuda):
+    """A tiny Qwen2-VL text tower (mrope 2/3/3, group 2) in float32 on the
+    card and on the CPU: a one-image prompt, a two-image prompt and a
+    text-only prompt decode the same greedy ids; K2 ran the single-shot
+    prefills and K1 the decode rows."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models import qwen2_vl as vl
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params, params_to
+
+    cfg = ModelConfig.tiny(dtype="float32", attention_bias=True,
+                           mrope_sections=(2, 3, 3), vocab_size=300)
+    params = init_params(cfg, 5, device="cpu")
+    vc = vl.VisionConfig.tiny(hidden_size=cfg.hidden_size)
+    vp = vl.init_vision_params(vc, 6, device="cpu")
+    rng = np.random.default_rng(7)
+    specs = []
+    for grid, text in (([[1, 4, 4]], [1, 2]), ([[1, 4, 4], [1, 2, 4]], [3]),
+                       (None, [5, 6, 7, 8])):
+        ids = list(text)
+        if grid is not None:
+            for g in grid:
+                ids += [265] + [264] * (g[1] * g[2] // 4) + [266]
+            n = int(np.prod(np.array(grid), axis=1).sum())
+            emb = vl.vision_forward(vp, vc, torch.from_numpy(
+                rng.standard_normal((n, vc.patch_dim)).astype(np.float32)),
+                np.array(grid))
+        else:
+            emb = None
+        pos3, delta = vl.mrope_positions(ids, None if grid is None
+                                         else np.array(grid), 264)
+        specs.append(dict(prompt_tokens=ids + [9], positions3=np.concatenate(
+            [pos3, pos3[:, -1:] + 1], axis=1), mrope_delta=delta,
+            image_embeds=emb, image_positions=None if emb is None else
+            [i for i, t in enumerate(ids) if t == 264]))
+    ecfg = EngineConfig(max_decode_batch=4, page_size=4, num_pages=64,
+                        max_pages_per_seq=16, max_prefill_len=64)
+    outs = []
+    before = (tpk.K1.launches, tatt.K2.launches)
+    for dev, p in (("cpu", params), ("cuda", params_to(params, cuda))):
+        eng = Engine(cfg, p, ecfg, device=dev)
+        reqs = []
+        for i, s in enumerate(specs):
+            f = dict(s)
+            if f["image_embeds"] is not None:
+                f["image_embeds"] = f["image_embeds"].to(dev)
+            reqs.append(Request(id=f"r{i}", sampling=SamplingParams(
+                temperature=0.0, max_tokens=8), **f))
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        outs.append([r.output_tokens for r in reqs])
+    assert outs[0] == outs[1]
+    assert tpk.K1.launches > before[0] and tatt.K2.launches > before[1]
+

@@ -479,12 +479,19 @@ def test_unported_engine_options_raise(weights, flag, item):
 
 
 def test_unported_models_and_mesh_raise(weights):
+    """Meshes and MoE stay refused (A15).  An mrope config, refused until
+    A17b, now builds: its prompts take the VL single-shot prefill and
+    never the ragged prefill segment (``tests/test_torch_engine_vl.py``
+    holds it to the JAX engine)."""
     *_, cfg, tp = weights
     ecfg = tengine.EngineConfig(**GEOMETRY)
     with pytest.raises(NotImplementedError, match="A15"):
         tengine.Engine(cfg, tp, ecfg, mesh=object(), device="cpu")
-    for over, item in (({"num_experts": 4}, "A15"),
-                       ({"mrope_sections": (2, 3, 3)}, "A17")):
-        with pytest.raises(NotImplementedError, match=item):
-            tengine.Engine(dataclasses.replace(cfg, **over), tp, ecfg,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="A15"):
+        tengine.Engine(dataclasses.replace(cfg, num_experts=4), tp, ecfg,
+                       device="cpu")
+    vl = tengine.Engine(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)),
+                        tp, ecfg, device="cpu")
+    out = vl.generate([[1, 2, 3]], tsampling.SamplingParams(
+        temperature=0.0, max_tokens=2))
+    assert len(out[0]) == 2 and vl.num_prefill_padding_tokens == 4 - 3

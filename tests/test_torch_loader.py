@@ -14,8 +14,9 @@
   (float32, ``atol 1e-4``: two libraries summing float32 matmuls in
   different orders, as ``tests/test_torch_model.py``); greedy tokens of
   the port's ``Engine`` equal the JAX ``Engine``'s.
-- The refusals (MoE, mrope, an unknown activation, rope scalings other
-  than ``llama3``) and ``serve-node``'s checkpoint path.
+- The refusals (MoE, an unknown activation, rope scalings other than
+  ``llama3``), the mrope configs that load since A17b, and
+  ``serve-node``'s checkpoint path.
 """
 
 import dataclasses
@@ -412,10 +413,6 @@ def _config_dir(tmp_path, **fields):
 
 @pytest.mark.parametrize("fields,match", [
     ({"num_local_experts": 8, "num_experts_per_tok": 2}, "A15"),
-    ({"model_type": "qwen2_vl",
-      "rope_scaling": {"type": "mrope", "mrope_section": [2, 3, 3]}}, "A17"),
-    ({"rope_scaling": {"type": "default", "mrope_section": [2, 3, 3]}},
-     "A17"),
     ({"hidden_act": "relu2"}, "hidden_act 'relu2'"),
 ] + [({"rope_scaling": rs}, f"rope_scaling type '{k}'.*ROADMAP C")
      for k, rs in ROPE_SCALINGS.items()])
@@ -431,6 +428,24 @@ def test_unsupported_configs_refused_before_any_weights(tmp_path, fields,
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["serve-node", "--profile", str(prof), "--device", "cpu",
                   "--port", "0"])
+
+
+@pytest.mark.parametrize("fields,attention_bias", [
+    ({"model_type": "qwen2_vl",
+      "rope_scaling": {"type": "mrope", "mrope_section": [2, 3, 3]}}, True),
+    ({"rope_scaling": {"type": "default", "mrope_section": [2, 3, 3]}},
+     False),
+])
+def test_mrope_configs_load(tmp_path, fields, attention_bias):
+    """The two mrope configs refused until A17b: a Qwen2-VL directory's
+    config is its text tower (the reference's ``load_qwen2_vl``: qkv
+    bias, the checkpoint's dtype), another family's keeps its own
+    fields; both rotate by M-RoPE."""
+    d = _config_dir(tmp_path, **fields)
+    cfg = tloader.load_config(d)
+    assert cfg.mrope_sections == (2, 3, 3) and cfg.rope_scaling is None
+    assert cfg.attention_bias == attention_bias
+    assert tloader.unsupported(json.load(open(f"{d}/config.json"))) == []
 
 
 def test_reference_loads_longrope_and_serves_it_unscaled(tmp_path):

@@ -316,6 +316,76 @@ def test_snapshots_cross_between_jax_and_the_port(weights, kv_dtype, samp):
         json.loads(wire_t)["pages"][0]["k"]["dtype"]
 
 
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8", "bfloat16"])
+def test_wire_codec_is_json_byte_for_byte(weights, kv_dtype):
+    """``json_bytes`` writes the bytes ``json.dumps(...).encode()`` writes
+    and ``json_loads`` reads what ``json.loads`` reads, for the port's and
+    the reference's wires, a wire with a flipped page (plain dicts) and a
+    filestore blob; the decoded pages are the same tensors, and the port's
+    own wire takes the fast path (each page buffer comes back holding its
+    decoded bytes)."""
+    snap = _snapshot(weights) if kv_dtype == "auto" else _export_at(
+        tengine, tsampling, _port(weights, kv_cache_dtype=kv_dtype), "c",
+        GREEDY, 4)[0]
+    wire = migration.snapshot_to_wire(snap)
+    ref = jmigration.snapshot_to_wire(jmigration.wire_to_snapshot(
+        json.loads(json.dumps(wire))))
+    blob = {"namespace": "n", "tenant": "t\u00e9", "checksum": "00",
+            "page": {f: migration._encode_array(snap.pages[0][f])
+                     for f in snap.pages[0]}}
+    for doc in (wire, ref, jmigration._flip_wire_page(wire, 0), blob,
+                {**wire, "tenant": '"b64": "QUJD"\n\u2028'}):
+        text = json.dumps(doc).encode()
+        assert migration.json_bytes(doc) == text
+        back = migration.json_loads(text)
+        assert back == json.loads(text)
+    # a member rewritten after the encode is written from its new text
+    moved = migration.snapshot_to_wire(snap)
+    moved["pages"][0]["k"]["b64"] = wire["pages"][1]["k"]["b64"]
+    assert migration.json_bytes(moved) == json.dumps(moved).encode()
+    fast = migration.json_loads(migration.json_bytes(wire))
+    bufs = [p[f] for p in fast["pages"] for f in p if p[f] is not None]
+    assert bufs and all(type(b) is migration._Buffer and b.current()
+                        and b.raw is not None for b in bufs)
+    got = migration.wire_to_snapshot(fast)
+    want = migration.wire_to_snapshot(json.loads(json.dumps(wire)))
+    for a, b in zip(got.pages, want.pages):
+        for f in a:
+            assert (a[f] is None and b[f] is None) or (
+                a[f].dtype == b[f].dtype and torch.equal(a[f], b[f]))
+    # a member mutated after the read is decoded from its new text
+    fast["pages"][0]["k"]["b64"] = json.loads(json.dumps(wire))[
+        "pages"][1]["k"]["b64"]
+    assert torch.equal(migration._decode_array(fast["pages"][0]["k"]),
+                       want.pages[1]["k"])
+
+
+@pytest.mark.parametrize("text", [
+    b'{"b64": "QUJD"}', b'{"b64": ""}', b'{"b64": "QQ=="}',
+    b'{"b64": "QUI="}', b'{"b64": "===="}', b'{"b64": "AB=C"}',
+    b'{"b64": "QQ==QUJD"}', b'{"b64": "QQ==\nAAA"}', b'{"b64": "QU\nJD"}',
+    b'{"b64": "QU\x01J"}', b'{"b64": "QUJ\xc3\xa9"}', b'{"b64": "Q\\u0051=="}',
+    b'{"x\\"b64": "QUJD"}', b'{"b64": "QUJD", "y": ["b64"]}',
+    b'[{"b64": "QUJD"}]', b'{"b64": "QUJD"',
+    b'{"a": {"b64": "QUJD"}, "b64": "QUJD"}',
+    b'{"a": [{"c": {"b64": "QUJD"}, "b64": "QUJD"}], "b64": "QUJD"}',
+    b'\xef\xbb\xbf{"b64": "QUJD"}', b'{"b64": "QUJD", "b": "\\u0000"}',
+    b'{"b64": "QUJD", "s": "\\u0000' + b'0' * 16 + b':0"}',
+    b'{"b64": "QUJD" "b64": "QUJD"}', b'{"b64":"QUJD"}'])
+def test_json_loads_is_json_loads_on_hostile_text(text):
+    """Texts that are not plain base64 in a whole ``b64`` string member
+    (control characters, escapes, misplaced padding, a key that merely
+    ends in ``b64``, invalid JSON) read as ``json.loads`` reads them,
+    or raise what it raises."""
+    try:
+        want = json.loads(text)
+    except ValueError as e:
+        with pytest.raises(type(e)):
+            migration.json_loads(text)
+        return
+    assert migration.json_loads(text) == want
+
+
 def test_import_with_speculation_matches_reference(weights):
     """Speculation on at both ends: an imported request starts with
     fresh drafter state on the importer, in both packages, so tokens and

@@ -223,11 +223,22 @@ def test_forward_int8_weights_bf16_within_stated_tolerance(name):
 
 
 def test_unported_families_raise():
-    for over, item in (({"num_experts": 4}, "A15"),
-                       ({"mrope_sections": (2, 3, 3)}, "A17")):
-        cfg = ModelConfig.tiny(**over)
-        with pytest.raises(NotImplementedError, match=item):
-            tllama.init_params(cfg, device="cpu")
+    """MoE stays refused (A15).  An mrope config (refused until A17b)
+    initialises, and its forward runs only with the three M-RoPE
+    streams."""
+    with pytest.raises(NotImplementedError, match="A15"):
+        tllama.init_params(ModelConfig.tiny(num_experts=4), device="cpu")
+    cfg = ModelConfig.tiny(mrope_sections=(2, 3, 3), dtype="float32")
+    params = tllama.init_params(cfg, device="cpu")
+    tok = torch.tensor([[1, 2, 3]])
+    with pytest.raises(ValueError, match="positions3"):
+        tllama.forward(params, cfg, tok, torch.arange(3)[None],
+                       attn_fn=tllama.prefill_attn_fn)
+    logits, _ = tllama.forward(
+        params, cfg, tok, torch.arange(3)[None],
+        attn_fn=tllama.prefill_attn_fn,
+        positions3=torch.arange(3)[None, None].expand(3, 1, 3))
+    assert logits.shape == (1, 3, cfg.vocab_size)
 
 
 def test_catalog_and_from_hf_config_match_reference():

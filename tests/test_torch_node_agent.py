@@ -19,7 +19,8 @@
   served (its chat and embedding entries, through the agent's own
   builder), and so are ``dev-tiny-prefill`` and ``dev-tiny-decode`` (each
   heartbeats its role; ``HELIX_FILESTORE_KV_DIR`` arms the engine's
-  filestore tier); a vision entry (A17b) is refused with nothing built; an invalid profile fails with the reference's
+  filestore tier); an entry with an adapter merged at apply (A18) is
+  refused with nothing built; an invalid profile fails with the reference's
   text; a diff re-apply keeps the kept model's loop object and frees the
   dropped one.
 - **Through the reference control plane** (aiohttp, in process): the port
@@ -540,19 +541,21 @@ def test_apply_and_heartbeat_equal_reference(weights, monkeypatch):
 
 
 def test_refused_profile_fails_before_anything_is_built(weights):
-    """A profile with a vision kind (not ported: A17b) fails its apply by
-    name, every entry checked before anything is built."""
+    """A profile with an entry the port refuses (an adapter merged at
+    apply: A18; a vision kind until A17b) fails its apply by name, every
+    entry checked before anything is built."""
     with open(os.path.join(ROOT, "profiles", "dev-tiny.yaml")) as f:
         doc = yaml.safe_load(f)
-    doc["models"].append({"name": "tiny-vembed", "kind": "vision-embedding"})
+    doc["models"].append({"name": "tiny-vembed", "kind": "vision-embedding",
+                          "adapter": "/ckpt/lora"})
     prof = tprofile.ServingProfile.from_dict(doc)
     built = []
     agent = tagent.NodeAgent("r1", build_model=_port_build(weights, built),
                              device="cpu")
     state = agent.apply_profile(prof)
     assert state.status == "failed" and built == []
-    assert ("tiny-vembed: kind 'vision-embedding' is not ported yet "
-            "(ROADMAP A17b)") in state.error
+    assert ("tiny-vembed: an adapter merged into the weights at apply "
+            "time is not ported yet") in state.error
     # the chat and the embedding entries are served
     assert "tiny-chat" not in state.error and "tiny-embed" not in state.error
     assert agent.registry.names() == []

@@ -555,3 +555,47 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_port_imports_and_serves_images_with_heavy_packages_blocked():
+    """Every module of the port, and ``chip_smoke.py``, import with
+    ``jax``, ``helix_tpu``, ``PIL``, ``transformers``, ``aiohttp``,
+    ``safetensors``, ``tokenizers`` and ``ml_dtypes`` made unimportable
+    (the card's machine lacks most of them); the VL path then decodes a
+    PNG, resizes, patchifies and runs a tiny tower and prompt there."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "BLOCKED = ('jax', 'jaxlib', 'helix_tpu', 'PIL', 'transformers', "
+        "'aiohttp', 'safetensors', 'tokenizers', 'ml_dtypes')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import helix_tpu_torch\n"
+        "for m in pkgutil.walk_packages(helix_tpu_torch.__path__, "
+        "'helix_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "import numpy as np\n"
+        "from helix_tpu_torch.models import qwen2_vl as vl\n"
+        "from helix_tpu_torch.serving import vision\n"
+        "from helix_tpu_torch.serving.tokenizer import ByteTokenizer\n"
+        "from helix_tpu_torch.testing.png import random_png\n"
+        "import base64\n"
+        "url = 'data:image/png;base64,' + base64.b64encode(random_png("
+        "np.random.default_rng(0), 40, 60)).decode()\n"
+        "vc = vl.VisionConfig.tiny(hidden_size=64)\n"
+        "r = vision.VisionRunner(vc, vl.init_vision_params(vc, 0, "
+        "device='cpu'), image_pad_id=264)\n"
+        "out = r.prepare([{'role': 'user', 'content': [{'type': "
+        "'image_url', 'image_url': {'url': url}}]}], ByteTokenizer())\n"
+        "assert out['image_embeds'].shape[1] == 64\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

@@ -422,6 +422,9 @@ def test_runner_token_required_on_tunnel_when_auth_on():
                                     runner_token="sekrit",
                                     reconnect_delay=0.2).start()
         assert _wait(lambda: cp.tunnels.connected("n"))
+        # the control plane registers the tunnel as it answers the
+        # handshake, before the agent has read that answer and counted it
+        assert _wait(lambda: agent.connects >= 1)
         assert agent.connects == 1
         agent.stop(join=True)
     finally:
