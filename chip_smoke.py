@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase disagg  # those + the disagg phase
     python3 chip_smoke.py --phase context # those + the tiered context phase
     python3 chip_smoke.py --phase vision  # those + the Qwen2-VL phase
+    python3 chip_smoke.py --phase moe     # those + the Mixtral phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -189,8 +190,9 @@ no result line):
    serve-node --tunnel``) gives T's vectors and exits 0 on SIGTERM with
    4 streams in flight, each ended whole;
 4l. the disaggregated prefill handoff and the persistent KV filestore
-   (``phase_disagg``): node P (the Llama entry with ``role: prefill``)
-   and node D (``role: decode``) on one filestore directory; 8 greedy
+   (``phase_disagg``): node P (the Llama entry with ``role: prefill``,
+   at 16 of its 32 layers for the smoke's time) and node D (``role:
+   decode``) on one filestore directory; 8 greedy
    chats over a shared ~1500-token system prompt handed from P to D
    through the stub's plan (every token once, the counters up by 8),
    the same 8 colocated on D, a dropped and a corrupt transfer served
@@ -209,8 +211,9 @@ no result line):
    float32 tiered = resident, handle = written out, and a corrupt cold
    page ends its stream with the ``ColdPageError`` text;
 4n. vision (``phase_vision``): ``profiles/v5e8-llama3-plus-embed.yaml``'s
-   ``Qwen/Qwen2-VL-7B-Instruct`` entry (only its mesh cut to ``{tp: 1}``)
-   from a 16.6 GB bf16 checkpoint of seed 0 written here: 8 chats with
+   ``Qwen/Qwen2-VL-7B-Instruct`` entry (its mesh cut to ``{tp: 1}``; at
+   14 of its 28 text layers and 32 vision blocks for the smoke's time)
+   from a bf16 checkpoint of seed 0 written here: 8 chats with
    PNG images of 224x224 to 1280x960 (one with two, one text only)
    answered whole with K1 and K2 launched and traced, a seeded image chat
    reproduced, the reference's 400s, a ``vision-embedding`` entry on the
@@ -218,6 +221,18 @@ no result line):
    float32 witness (image embeddings against the CPU, TF32 breaking the
    limit, greedy ids 8 of 8); host ms per image, tower ms per size, TTFT,
    tok/s, idle share and the entry's bytes are printed;
+4o. mixture of experts (``phase_moe``): ``profiles/v5e8-mixtral.yaml``'s
+   ``mistralai/Mixtral-8x7B-Instruct-v0.1`` entry (int8 weights of seed
+   0 at full width and depth, 46.7 B parameters; its mesh cut to one
+   device, speculation asked for and logged off) through serve-node's
+   profile path: 8 chats of 64 tokens (one chunked, one a prefix-cache
+   hit) answered whole with K1 and K2 launched, the seeded chat twice
+   the same, ``helix_moe_dropped_tokens_total`` at ``/metrics``, a traced
+   wave (the int8 expert casts named); the build's seconds and peak and
+   the measured bytes beside the reference's estimate; then at 2 layers
+   in float32 with a lowered capacity factor the card's ids and prefill
+   drops equal the CPU's (TF32 breaks the logit limit), and a 2-layer
+   HF-named checkpoint loads int8 byte-equal to the as-drawn build;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -3899,6 +3914,19 @@ def phase_checkpoint(smi) -> dict:
 
 FLOOD, FLOOD_SHED, CHATS = 80, 16, 16
 FLOOD_PROMPT_TOKENS = 1500
+# phases 4i and 4j serve the Llama entry at 16 of its 32 layers, a depth
+# cut for the smoke's time limit since phase 4o joined it (4i took 63-82 s
+# and 4j 112-154 s at 32); 4j compares its ids with 4i's, so both cut
+NODE_LAYERS = 16
+
+
+def _node_depth(prof: dict) -> dict:
+    """``prof`` with its Llama entry cut to ``NODE_LAYERS``."""
+    for m in prof["models"]:
+        if m["name"] == MODEL:
+            m["model_overrides"] = {**m.get("model_overrides", {}),
+                                    "num_layers": NODE_LAYERS}
+    return prof
 # the uncontended 8-chat batch of phases 4i and 4j
 NODE_PROMPTS = [f"Chat {i}: tell me about the history of the printing "
                 "press in a few short lines please." for i in range(8)]
@@ -4180,6 +4208,9 @@ def phase_slo(smi) -> dict:
     tag = f"[slo] ({smi})"
     _time_slo_notes()   # before any loop binds its delivery
     prof, cuts = _hotswap_copy(llama_as_written=True)
+    _node_depth(prof)
+    cuts.append(f"{MODEL}: {NODE_LAYERS} of 32 layers (a depth cut for the "
+                "smoke's time limit)")
     for c in cuts:
         log(f"{tag} cut: {c}")
 
@@ -4241,7 +4272,7 @@ def phase_slo(smi) -> dict:
                     "flash_attention": K2.launches,
                     "ragged_paged_attention": K1.launches}
         host = _host_us(loop, h0)
-        b = node(_hotswap_copy()[0], "no-slo")
+        b = node(_node_depth(_hotswap_copy()[0]), "no-slo")
         off_texts, off_s, off_busy, off_idle = _traced_batch(
             b[2], b[3], prompts, 32)
         close(b)
@@ -4793,6 +4824,7 @@ def phase_node_agent(smi, agent_free=None) -> dict:
         written = ServingProfile.from_yaml(f.read())
     inv = [a.to_dict() for a in detect_accelerators()]
     doc = cli._load_profile(HOTSWAP_PROFILE)
+    _node_depth(doc)
     llama = next(m for m in doc["models"] if m["name"] == MODEL)
     phi = next(m for m in doc["models"] if m["name"] == PHI3)
     phi["engine"]["num_pages"] = PHI3_CUT_PAGES
@@ -4816,7 +4848,9 @@ def phase_node_agent(smi, agent_free=None) -> dict:
     cuts = [f"node-2/{PHI3}: engine.num_pages 2048 -> {PHI3_CUT_PAGES}",
             "node-b: engine.host_pool_bytes -> 0 (two 16 GiB pinned tiers "
             "are not needed to show the drain)",
-            "the exit check's serve-node process serves tiny-chat"]
+            "the exit check's serve-node process serves tiny-chat",
+            f"{MODEL}: {NODE_LAYERS} of 32 layers (a depth cut for the "
+            "smoke's time limit)"]
     for c in cuts:
         log(f"{tag} cut: {c}")
 
@@ -5736,7 +5770,10 @@ def phase_tunnel(smi) -> dict:
 # ---------------------------------------------------------------------------
 
 DISAGG_CHATS = 8
-DISAGG_TOKENS = 32            # new tokens per chat at full depth
+DISAGG_TOKENS = 32            # new tokens per chat at the measured depth
+# the measured run's depth: 16 of the entry's 32 layers, a cut for the
+# smoke's time limit since phase 4o joined it (4l took 69-100 s at 32)
+DISAGG_LAYERS = 16
 DISAGG_WITNESS_TOKENS = 64    # at 2 layers in float32
 # the restarted node's chat: the wave's system prompt, a user turn no chat
 # of the wave had
@@ -6330,11 +6367,15 @@ def phase_disagg(smi) -> dict:
                 "requirement": {"vendor": "nvidia", "chips": 1},
                 "models": [entry]}
 
+    written = llama
+    llama = {**written, "model_overrides": {"num_layers": DISAGG_LAYERS}}
+    log(f"{tag} cut: the measured run at {DISAGG_LAYERS} of 32 layers (a "
+        "depth cut for the smoke's time limit)")
     cut = {**llama, "engine": {**llama["engine"], "host_pool_bytes": 0}}
     profs = {"p": profile("disagg-p", "prefill", llama),
              "d": profile("disagg-d", "decode", cut),
              "w": profile("disagg-w", "prefill", llama)}
-    wit_entry = {**llama,
+    wit_entry = {**written,
                  "model_overrides": {"num_layers": 2, "dtype": "float32"},
                  "engine": {**{k: v for k, v in llama["engine"].items()
                                if k != "kv_cache_dtype"},
@@ -6347,8 +6388,9 @@ def phase_disagg(smi) -> dict:
     from helix_tpu_torch.engine.residency import estimate_model_bytes
     from helix_tpu_torch.models.common import CATALOG
 
-    est = estimate_model_bytes(CATALOG[MODEL], llama["engine"], "int8",
-                               headroom=0.0)
+    est = estimate_model_bytes(
+        dataclasses.replace(CATALOG[MODEL], num_layers=DISAGG_LAYERS),
+        llama["engine"], "int8", headroom=0.0)
     log(f"{tag} memory reckoned before the builds: a node holds "
         f"{est} B (int8 weights and 3968 int8 pages of 1,081,344 B, the "
         f"reference's estimate without headroom); P and D together "
@@ -6396,11 +6438,11 @@ def phase_disagg(smi) -> dict:
 # ---------------------------------------------------------------------------
 
 CTX_HOT_PAGES = 32
-# the measured run's depth: 8 of the entry's 32 layers, a cut for the
+# the measured run's depth: 4 of the entry's 32 layers, a cut for the
 # smoke's time limit (at 32 the tiered wave's re-stages took 97-105 s and
-# the phase 190 s of a 967 s smoke, PERF.md); widths, pages and the host
-# tier stay the entry's
-CTX_LAYERS = 8
+# the phase 190 s of a 967 s smoke; 8 until phase 4o joined it, PERF.md);
+# widths, pages and the host tier stay the entry's
+CTX_LAYERS = 4
 # (a)'s wave: 4 chats, not 8 -- with 8 the whole-middle re-stages took
 # 109 s of host time and the phase ran past ~180 s on the card (PERF.md)
 CTX_CHATS = 4
@@ -6806,7 +6848,7 @@ def _ctx_inline(base, loop, ctx) -> dict:
 @_timed
 def phase_context(smi) -> dict:
     """4m: tiered long context and the context-caching API on the
-    ``v5e1-hotswap`` Llama entry at ``CTX_LAYERS`` (8) of its 32 layers,
+    ``v5e1-hotswap`` Llama entry at ``CTX_LAYERS`` (4) of its 32 layers,
     served through serve-node's profile path with
     ``HELIX_CTX_HOT_PAGES=32`` and ``HELIX_MAX_PAGES_PER_SEQ=512`` (int8
     weights and KV, 3968 pages, its 16 GiB host tier, speculation on).
@@ -6885,7 +6927,13 @@ VL_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 VL_SIZES = ((224, 224), (448, 448), (480, 640), (960, 1280))
 VL_TOKENS = 64
 VL_WITNESS_TOKENS = 16
-VL_WITNESS_LAYERS = 2
+# one layer of each tower: the witness's CPU half took 61-77 s at 2
+# (a depth cut for the smoke's time since phase 4o joined it)
+VL_WITNESS_LAYERS = 1
+# the measured run's depth: 14 of the text tower's 28 layers and 14 of
+# the vision tower's 32 blocks, a cut for the smoke's time limit since
+# phase 4o joined it (4n took 117-132 s at full depth)
+VL_LAYERS = 14
 # the profile entry's 128-page tables stop at 2048 tokens, below its
 # max_prefill_len 4096: the operator knob widens them so a prompt past
 # max_prefill_len meets the VL refusal, as phase 4m widens its entry's
@@ -7070,15 +7118,15 @@ def _permuted_vision_params(vp, vcfg, seed=0) -> dict:
 
 
 def _vl_witness(pngs, smi) -> dict:
-    """4n's float32 witness: the entry at 2 layers of both towers in
-    float32 (TF32 off), random weights of seed 0 on the card and the same
-    weights copied to the CPU; each of the 8 chats prepared by both
-    runners (image embeddings held to max abs <= 1e-5, or 4x the CPU's
-    own float32 spread where larger (``VL_SPREAD_FACTOR``: the CPU tower
-    with its residual width permuted against it), and least
-    cosine >= 0.999999; the same on the card with TF32 on, the control,
-    must break a limit) and decoded greedily: on the card by a server of
-    the entry that gets the 8 chats at once (each one's tower launched on
+    """4n's float32 witness: the entry at ``VL_WITNESS_LAYERS`` (1) of both
+    towers in float32 (TF32 off), random weights of seed 0 on the card
+    and the same weights copied to the CPU; each of the 8 chats prepared
+    by both runners (image embeddings held to max abs <= 1e-5, or 4x the
+    CPU's own float32 spread where larger (``VL_SPREAD_FACTOR``: the CPU
+    tower with its residual width permuted against it), and least cosine
+    >= 0.999999; the same on the card with TF32 on, the control, must
+    break a limit) and decoded greedily: on the card by a server of the
+    entry that gets the 8 chats at once (each one's tower launched on
     its handler thread while the engine thread steps the others), on the
     CPU by one engine; the ids must agree 8 of 8."""
     from helix_tpu_torch import cli
@@ -7177,7 +7225,8 @@ def _vl_witness(pngs, smi) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = tf32
     agree = sum(a == b for a, b in zip(runs["card"]["ids"],
                                        runs["cpu"]["ids"]))
-    log(f"[vision witness] {smi}: 2 layers float32, {len(got)} image "
+    log(f"[vision witness] {smi}: {VL_WITNESS_LAYERS} layer(s) float32, "
+        f"{len(got)} image "
         f"tokens (values up to {np.abs(want).max():.2f}): the CPU's own "
         f"spread {spread:.3e} (its residual width permuted), "
         f"card vs CPU max abs {diff:.3e} (limit {abs_limit:.3e}), "
@@ -7244,7 +7293,10 @@ def phase_vision(smi) -> dict:
     os.environ["HELIX_MAX_PAGES_PER_SEQ"] = VL_MAX_PAGES_PER_SEQ
     registry = httpd = None
     try:
-        cfg, vcfg = _vl_configs()
+        cfg, vcfg = _vl_configs(VL_LAYERS)
+        log(f"[vision] cut: the measured run at {VL_LAYERS} of 28 text "
+            f"layers and {VL_LAYERS} of 32 vision blocks (a depth cut for "
+            "the smoke's time limit)")
         t0 = time.monotonic()
         params = init_params(cfg, 0, device="cuda")
         vparams = init_vision_params(vcfg, 1, device="cuda",
@@ -7423,6 +7475,383 @@ def phase_vision(smi) -> dict:
             "ttft_text": txt_ttft, "busy_ms": busy}
 
 
+# ---------------------------------------------------------------------------
+# 4o. mixture of experts: the v5e8-mixtral entry on one card
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "mistralai/Mixtral-8x7B-Instruct-v0.1"
+MOE_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "profiles", "v5e8-mixtral.yaml")
+MOE_TOKENS = 64
+# the long chat's bytes, past the entry's max_prefill_len 2048: two chunks
+MOE_LONG_BYTES = 2300
+MOE_SHARED_BYTES = 600         # the system prompt a primer and chat 1 share
+MOE_WITNESS_LAYERS = 2
+MOE_WITNESS_TOKENS = 8
+# the witness's capacity factor: the entry's 1.5 lowered until its
+# prefills drop assignments
+MOE_WITNESS_FACTOR = 0.5
+# the witness's limit on first-token logits, card against CPU, both
+# float32: the two sum in other orders (~1e-5 apart); TF32's 10-bit
+# mantissa moves a 4096-term logit by ~4e-4
+MOE_LOGIT_TOL = 1e-4
+MOE_CKPT_LAYERS = 2
+
+
+def _moe_profile() -> tuple:
+    """``profiles/v5e8-mixtral.yaml`` with this phase's changes: the mesh
+    cut to one device, the requirement copied for nvidia, and speculation
+    asked for on the entry (the engine must log it off).  Returns
+    (profile, the changes)."""
+    from helix_tpu_torch.cli import _load_profile
+
+    doc = _load_profile(MOE_PROFILE)
+    (entry,) = doc["models"]
+    changes = [f"mesh {entry['mesh']} -> {{'tp': 1}}",
+               f"requirement {doc['requirement']} -> "
+               "{'vendor': 'nvidia', 'chips': 1}",
+               "engine.enable_spec_decode true, spec_tokens 4 added (logged "
+               "off for MoE)"]
+    entry = {**entry, "mesh": {"tp": 1},
+             "engine": {**entry["engine"], "enable_spec_decode": True,
+                        "spec_tokens": 4}}
+    return ({"name": doc["name"], "requirement": {"vendor": "nvidia",
+                                                  "chips": 1},
+             "models": [entry]}, changes)
+
+
+def _moe_chats(rng, tag="") -> list:
+    """The 8-chat wave: chat 0 past max_prefill_len (chunked), chat 1 on
+    the primer's system prompt (a prefix-cache hit), six short ones."""
+    shared = _ctx_text(np.random.default_rng(77), MOE_SHARED_BYTES)
+    out = []
+    for i in range(8):
+        if i == 0:
+            msgs = [{"role": "user",
+                     "content": _ctx_text(rng, MOE_LONG_BYTES)}]
+        elif i == 1:
+            msgs = [{"role": "system", "content": shared},
+                    {"role": "user", "content": f"{tag}Question B."}]
+        else:
+            msgs = [{"role": "user", "content": f"{tag}Chat {i}: "
+                     + _ctx_text(rng, int(rng.integers(20, 400)))}]
+        out.append({"model": MOE_MODEL, "messages": msgs})
+    return out
+
+
+def _moe_witness(smi) -> dict:
+    """4o(b): the entry at 2 layers in float32 (full widths, TF32 off,
+    ``expert_capacity_factor`` 0.5), random weights of seed 0 on the card
+    and the same weights copied to the CPU; 8 prompts of 30-300 tokens
+    decoded greedily (``MOE_WITNESS_TOKENS``) by one engine on each: ids
+    8 of 8, prefill drops
+    (> 0) equal, first-token logits within ``MOE_LOGIT_TOL``; the card
+    again with TF32 on (the control) must break that limit."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params, params_to
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(
+        CATALOG[MOE_MODEL], num_layers=MOE_WITNESS_LAYERS, dtype="float32",
+        expert_capacity_factor=MOE_WITNESS_FACTOR)
+    prof, _ = _moe_profile()
+    engine = {k: v for k, v in prof["models"][0]["engine"].items()
+              if k not in ("enable_spec_decode", "spec_tokens")}
+    ecfg = EngineConfig(**engine)
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(5)
+    prompts = [tok.apply_chat_template([{"role": "user", "content":
+               _ctx_text(rng, n)}]) for n in (10, 25, 40, 70, 100, 160,
+                                              220, 280)]
+    sp = SamplingParams(temperature=0.0, max_tokens=MOE_WITNESS_TOKENS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    params = init_params(cfg, 0, device="cuda")
+    cpu_params = params_to(params, "cpu")
+
+    def run(dev, p):
+        eng = Engine(cfg, p, ecfg, device=dev)
+        firsts = []
+        eng.logits_hook = lambda kind, x: firsts.append(
+            x.float().cpu()) if kind == "prefill" else None
+        k0 = (K1.launches, K2.launches)
+        t0 = time.monotonic()
+        ids = eng.generate(prompts, sp)
+        secs = time.monotonic() - t0
+        eng._drain_moe_drops()
+        out = {"ids": ids, "drops": eng.moe_dropped_tokens,
+               "logits": torch.cat(firsts), "seconds": secs,
+               "launches": (K1.launches - k0[0], K2.launches - k0[1])}
+        eng.release()
+        return out
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = run("cuda", params)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        ctl = run("cuda", params)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = run("cpu", cpu_params)
+    err = float((card["logits"] - cpu["logits"]).abs().max())
+    c_err = float((ctl["logits"] - cpu["logits"]).abs().max())
+    agree = sum(a == b for a, b in zip(card["ids"], cpu["ids"]))
+    c_agree = sum(a == b for a, b in zip(ctl["ids"], cpu["ids"]))
+    log(f"[moe witness] {smi}: {MOE_WITNESS_LAYERS} layers float32, "
+        f"capacity factor {MOE_WITNESS_FACTOR}, 8 prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens x "
+        f"{MOE_WITNESS_TOKENS}: greedy ids {agree}/8 equal to the CPU's; "
+        f"prefill drops card {card['drops']} / CPU {cpu['drops']}; "
+        f"first-token logits max abs {err:.3e} (limit {MOE_LOGIT_TOL:.0e}, "
+        f"values up to {float(cpu['logits'].abs().max()):.2f}); TF32 on "
+        f"(control) {c_err:.3e}, ids {c_agree}/8, drops {ctl['drops']}; "
+        f"card {card['seconds']:.2f} s, CPU {cpu['seconds']:.2f} s; card "
+        f"launches K1 {card['launches'][0]}, K2 {card['launches'][1]}")
+    if agree != 8:
+        raise AssertionError(f"moe witness: {agree}/8 greedy id lists equal "
+                             "the CPU's")
+    if card["drops"] != cpu["drops"] or cpu["drops"] <= 0:
+        raise AssertionError(f"moe witness: drops {card['drops']} / "
+                             f"{cpu['drops']}")
+    if not err <= MOE_LOGIT_TOL:
+        raise AssertionError(f"moe witness: logits differ by {err}")
+    if c_err <= MOE_LOGIT_TOL:
+        raise AssertionError("moe witness: TF32's logits pass the limit")
+    if min(card["launches"]) <= 0:
+        raise AssertionError(f"moe witness: launches {card['launches']}")
+    del params, cpu_params
+    _free()
+    return {"ids_equal": agree, "drops": card["drops"], "max_abs": err,
+            "control_max_abs": c_err, "control_ids_equal": c_agree}
+
+
+def _moe_checkpoint(smi) -> dict:
+    """4o(c): a 2-layer full-width Mixtral checkpoint in HF names
+    (``block_sparse_moe.gate``, ``experts.{e}.w1|w2|w3``), bf16 of seed 0,
+    written under the temp dir (or ``HELIX_SMOKE_CKPT_DIR``) and loaded
+    with ``quantization="int8"``: byte-equal to the as-drawn int8
+    build."""
+    import tempfile
+
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.models.loader import load_params
+    from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
+
+    cfg = dataclasses.replace(CATALOG[MOE_MODEL], num_layers=MOE_CKPT_LAYERS)
+    root = os.environ.get("HELIX_SMOKE_CKPT_DIR") or tempfile.gettempdir()
+    d = tempfile.mkdtemp(prefix="helix-mixtral-", dir=root)
+    try:
+        params = init_params(cfg, 0, device="cuda")
+        t0 = time.monotonic()
+        files = write_checkpoint(d, cfg, params, model_type="mixtral")
+        write_s = time.monotonic() - t0
+        ck_bytes = sum(os.path.getsize(f) for f in files)
+        del params
+        _free()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        got_cfg, got = load_params(d, device="cuda", quantization="int8",
+                                   stats=stats)
+        rise = torch.cuda.max_memory_allocated() - base
+        want = init_params(cfg, 0, device="cuda", quantization="int8")
+        n, bad = _tree_diff(got, want)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[moe checkpoint] {smi}: {MOE_CKPT_LAYERS} layers at full width, "
+        f"{ck_bytes / 1e9:.2f} GB bf16 in {len(files) - 1} files written in "
+        f"{write_s:.1f} s; int8 load {stats['seconds']:.1f} s (read "
+        f"{_gbps(stats['bytes'], stats['read_seconds'])}, upload "
+        f"{_gbps(stats['bytes'], stats['upload_seconds'])}), device rise "
+        f"{rise / 2**30:.2f} GiB; {n} tensors (per layer) against the "
+        f"as-drawn int8 build, {len(bad)} differ; experts "
+        f"{got_cfg.num_experts}")
+    if bad or got_cfg.num_experts != 8:
+        raise AssertionError(f"moe checkpoint: {bad[:5]}")
+    del got, want
+    _free()
+    return {"bytes": ck_bytes, "write_s": write_s, "load_s": stats["seconds"],
+            "tensors": n}
+
+
+@_timed
+def phase_moe(smi) -> dict:
+    """4o: ``profiles/v5e8-mixtral.yaml``'s entry,
+    ``mistralai/Mixtral-8x7B-Instruct-v0.1`` (32 layers, 8 experts, top 2,
+    E 4096, F 14336, H 32, KVH 8, D 128, V 32000) with int8 weights of
+    seed 0 at full width and depth, through serve-node's profile path
+    (``cli.make_node``, ``--random-weights``) with the mesh cut to one
+    device and speculation asked for.  (a) a primer chat, then 8 chats of
+    64 tokens admitted together (one past max_prefill_len, chunked; one
+    on the primer's system prompt, a prefix-cache hit): all answered
+    whole, K1 and K2 launched; the seeded chat twice, the same text;
+    ``/metrics`` parsed with ``helix_moe_dropped_tokens_total``; the
+    speculation warning logged, no verify step; a traced wave of 8 fresh
+    chats (busy ms, idle share, the largest kernels with the int8 casts,
+    K1 / K2 named).  Printed: the build's seconds and device peak, the
+    entry's measured bytes beside the reference's estimate (ROADMAP C),
+    TTFT p50, decode tok/s.  (b) the 2-layer float32 witness
+    (``_moe_witness``).  (c) the 2-layer checkpoint (``_moe_checkpoint``)."""
+    import logging
+    import tempfile
+
+    from helix_tpu_torch import cli
+    from helix_tpu_torch.control.profile import ServingProfile
+    from helix_tpu_torch.engine.residency import served_model_bytes
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.testing.metric_families import check_scrape
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = f"[moe] ({smi})"
+    prof, changes = _moe_profile()
+    log(f"{tag} the profile's entry as written, changed: "
+        + "; ".join(changes))
+    (spec,) = cli.model_specs(ServingProfile.from_dict(prof),
+                              random_weights=True)
+    estimate = cli.spec_bytes(spec)
+    warned = []
+
+    class _Warnings(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    handler = _Warnings(level=logging.WARNING)
+    eng_log = logging.getLogger("helix_tpu_torch.engine.engine")
+    eng_log.addHandler(handler)
+
+    def build(**kw):
+        served = cli.build_served_model(**kw)
+        served.tokenizer = _IdTokenizer(served.tokenizer)
+        return served
+
+    tmp = tempfile.mkdtemp(prefix="helix-moe-")
+    httpd = served = None
+    try:
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        registry, _mgr, httpd, base, _path = _node(prof, tmp, "moe", build)
+        build_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        served = registry.get(MOE_MODEL)
+        loop, eng = served.loop, served.loop.engine
+        measured = served_model_bytes(served, headroom=0.0)
+        weights = measured - sum(nbytes(t) for t in eng.cache.carry())
+        log(f"{tag} built in {build_s:.1f} s ({served.build_seconds}), "
+            f"device peak {peak / 2**30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+            f"; weights {weights / 1e9:.2f} GB, with the pool "
+            f"{measured / 1e9:.2f} GB (x1.1 {measured * 1.1 / 1e9:.2f} GB) "
+            f"against the reference's estimate {estimate / 1e9:.2f} GB "
+            "(one FFN per layer: ROADMAP C)")
+        spec_warned = [w for w in warned if "not supported for MoE" in w]
+        if eng.spec is not None or not spec_warned:
+            raise AssertionError(f"speculation on an MoE entry: {warned}")
+
+        rng = np.random.default_rng(0)
+        chats = _moe_chats(rng)
+        primer = {"model": MOE_MODEL, "messages": [
+            chats[1]["messages"][0],
+            {"role": "user", "content": "Question A."}]}
+        ttft0, _t, _f = _ttft_msgs(base, {**primer, "max_tokens": 4,
+                                          "temperature": 0})
+        hits0 = eng.prefix_cache.hits
+        mixed0, chunk_tokens0 = eng.num_mixed_steps, eng.num_prefill_tokens
+        K1.launches = K2.launches = 0
+        texts, secs, _ = _gated_batch(base, loop, None, MOE_TOKENS,
+                                      bodies=chats)
+        launches = {"ragged_paged_attention": K1.launches,
+                    "flash_attention": K2.launches}
+        n_ids = [len(_vl_ids(t)) for t in texts]
+        hits = eng.prefix_cache.hits - hits0
+        log(f"{tag} 8 chats (chat 0 past max_prefill_len, chat 1 on the "
+            f"primer's prefix) x {MOE_TOKENS}"
+            f" tokens in {secs:.2f} s, {sum(n_ids) / secs:.1f} tok/s; "
+            f"prefix-hit pages {hits}, mixed steps "
+            f"{eng.num_mixed_steps - mixed0}, prefill tokens "
+            f"{eng.num_prefill_tokens - chunk_tokens0}; spec steps "
+            f"{eng.num_spec_steps}; launches {launches}")
+        if n_ids != [MOE_TOKENS] * 8:
+            raise AssertionError(f"moe wave: token counts {n_ids}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"moe wave: launches {launches}")
+        if hits <= 0 or eng.num_mixed_steps - mixed0 <= 0:
+            raise AssertionError("moe wave: no prefix hit or no chunk "
+                                 "beside decode rows")
+        if eng.num_spec_steps:
+            raise AssertionError("moe wave: a verify step ran")
+
+        seeded = [_seeded(base, MOE_MODEL) for _ in range(2)]
+        if seeded[0] != seeded[1]:
+            raise AssertionError(f"seeded moe chat: {seeded}")
+        ttfts = [ttft0] + [_ttft_msgs(base, {
+            "model": MOE_MODEL, "max_tokens": 4, "temperature": 0,
+            "messages": [{"role": "user", "content": f"TTFT {i}: "
+                          + _ctx_text(rng, 200)}]})[0] for i in range(4)]
+        ttft_p50 = _pcts(ttfts)[0]
+        text = urllib.request.urlopen(base + "/metrics").read().decode()
+        problems = check_scrape(text)
+        drops = _metric(text, "helix_moe_dropped_tokens_total",
+                        model=MOE_MODEL)
+        if problems:
+            raise AssertionError(f"moe /metrics: {problems[:3]}")
+        log(f"{tag} seeded chat twice: identical ({len(_vl_ids(seeded[0]))} "
+            f"ids); TTFT p50 {ttft_p50 * 1e3:.1f} ms over {len(ttfts)} "
+            f"chats; /metrics parses, helix_moe_dropped_tokens_total "
+            f"{drops:.0f} (engine {eng.moe_dropped_tokens}); speculation "
+            f"warned: {spec_warned[0]!r}")
+
+        fresh = _moe_chats(np.random.default_rng(9), "traced ")
+        dec0 = eng.num_decode_tokens
+        k0 = (K1.launches, K2.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            _t2, secs2, _ = _gated_batch(base, loop, None, 32,
+                                         bodies=fresh)
+            torch.cuda.synchronize()
+        traced_launches = (K1.launches - k0[0], K2.launches - k0[1])
+        by_kernel = _kernel_ms(trace)
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        copy_ms = sum(t for k, t in by_kernel.items() if "direct_copy" in k)
+        k1_ms = sum(t for k, t in by_kernel.items() if "ragged_" in k)
+        k2_ms = sum(t for k, t in by_kernel.items() if "flash_" in k)
+        log(f"{tag} traced wave of 8 fresh chats x 32 tokens: {secs2:.2f} s, "
+            f"{(eng.num_decode_tokens - dec0) / secs2:.1f} decode tok/s, "
+            f"device busy {busy:.1f} ms, idle share "
+            f"{1 - busy / (secs2 * 1e3):.3f}; direct_copy (int8 casts) "
+            f"{copy_ms:.1f} ms, K1 {k1_ms:.1f} ms ({traced_launches[0]} "
+            f"launches), K2 {k2_ms:.1f} ms ({traced_launches[1]}); "
+            "largest: " + "; ".join(f"{k[:60]} {t:.1f}" for k, t in top))
+        if k1_ms <= 0 or k2_ms <= 0 or min(traced_launches) <= 0:
+            raise AssertionError("moe trace does not name K1 and K2")
+        result = {"launches": launches, "build_s": build_s,
+                  "peak_gib": peak / 2**30, "measured": measured,
+                  "estimate": estimate, "tok_s": sum(n_ids) / secs,
+                  "ttft_p50": ttft_p50, "busy_ms": busy,
+                  "idle": 1 - busy / (secs2 * 1e3), "copy_ms": copy_ms}
+    finally:
+        eng_log.removeHandler(handler)
+        if served is not None:
+            _stop_side(httpd, served)
+        elif httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    served = eng = loop = registry = None
+    _free()
+    result["witness"] = _moe_witness(smi)
+    result["checkpoint"] = _moe_checkpoint(smi)
+    return result
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -7529,7 +7958,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
-                             "disagg", "context", "vision"),
+                             "disagg", "context", "vision", "moe"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
@@ -7595,6 +8024,10 @@ def main(argv=None) -> int:
         vis = phase_vision(dev["smi"])
         launches = dict(vis["launches"])
         by_path = {k: {"vision": n} for k, n in launches.items()}
+    if args.phase == "moe":
+        moe = phase_moe(dev["smi"])
+        launches = dict(moe["launches"])
+        by_path = {k: {"moe": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -7619,6 +8052,7 @@ def main(argv=None) -> int:
         dis = phase_disagg(dev["smi"])
         ctx = phase_context(dev["smi"])
         vis = phase_vision(dev["smi"])
+        moe = phase_moe(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -7633,7 +8067,8 @@ def main(argv=None) -> int:
         by_path = {
             "ragged_paged_attention": {
                 "bf16": bf16["launches"]["ragged_paged_attention"],
-                "vision": vis["launches"]["ragged_paged_attention"]},
+                "vision": vis["launches"]["ragged_paged_attention"],
+                "moe": moe["launches"]["ragged_paged_attention"]},
             "flash_attention": {
                 "bf16": bf16["launches"]["flash_attention"],
                 "hotswap": swap["launches"]["flash_attention"],
@@ -7643,7 +8078,8 @@ def main(argv=None) -> int:
                 "node": node["launches"]["flash_attention"],
                 "tunnel": tun["launches"]["flash_attention"],
                 "disagg": dis["launches"]["flash_attention"],
-                "vision": vis["launches"]["flash_attention"]},
+                "vision": vis["launches"]["flash_attention"],
+                "moe": moe["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":

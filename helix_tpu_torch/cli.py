@@ -86,13 +86,15 @@ plain versions on CPU tensors.
 
 ``--random-weights`` serves a ``checkpoint:`` entry with random weights
 from ``--seed`` in place of its files.  A checkpoint directory that is
-missing, whose config the port cannot compute (mixture-of-experts: A15;
-a ``rope_scaling`` other than ``llama3`` or mrope: ROADMAP C; an
-unknown activation) or that disagrees with the entry's
-``model_overrides`` is refused at start.  What is not ported yet is
-refused there too, before any weights are made, naming its ROADMAP
-item: a ``mesh`` with an axis above 1
-(A15; ``{tp: 1}`` is the one device), a ``multihost`` block (A15), an
+missing, whose config the port cannot compute (a ``rope_scaling``
+other than ``llama3`` or mrope: ROADMAP C; an unknown activation) or
+that disagrees with the entry's ``model_overrides`` is refused at start.
+A Mixtral entry (``num_local_experts`` in its checkpoint's config, or
+the catalog's ``mistralai/Mixtral-8x7B-Instruct-v0.1``) is a chat entry
+like any other: its engine takes the reference's MoE rules.  What is not
+ported yet is refused at start too, before any weights are made, naming
+its ROADMAP item: a ``mesh`` with an axis above 1 (A15b; ``{tp: 1}`` is
+the one device), a ``multihost`` block (A15b), an
 ``adapter`` merged into the weights at apply time (it restores a training
 checkpoint: A18).  A profile assigned by the control plane with
 such an entry fails its apply with that text (``status: failed``).
@@ -521,10 +523,10 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
     if m.mesh.num_devices > 1 or m.mesh.device_offset > 0:
         out.append(f"mesh {mesh} spans more than one device: tensor, "
                    "sequence, expert and pipeline parallel are not ported "
-                   "yet (ROADMAP A15)")
+                   "yet (ROADMAP A15b)")
     if m.multihost:
         out.append(f"multihost {m.multihost} serving is not ported yet "
-                   "(ROADMAP A15)")
+                   "(ROADMAP A15b)")
     if m.kind in ("chat", "vision"):
         try:
             EngineConfig(**engine)

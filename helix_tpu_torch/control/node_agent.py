@@ -25,7 +25,7 @@ survivors to the peers the control plane names at
 ``.../migration-targets``) and then calls ``on_drain``.
 
 HTTP goes through ``urllib``.  What the port does not have yet is sent as
-the reference sends an idle block: ``multihost`` (ROADMAP A15) and
+the reference sends an idle block: ``multihost`` (ROADMAP A15b) and
 ``canary`` (A19) are ``{}``.  The ``ctx`` block is the context cache's
 ``stats_block`` (``serving.context_cache``) on the node's filestore
 root.  A ``kind: vision`` entry is a chat engine with its vision tower
@@ -254,7 +254,7 @@ class NodeAgent:
                     if flight is not None:
                         flight.reset_baseline()
                 # (the reference keeps multi-host followers out of this
-                # list; the port refuses a multihost entry, A15)
+                # list; the port refuses a multihost entry, A15b)
                 self.state.models = sorted(specs)
             except Exception as e:  # noqa: BLE001 — reported via status
                 self.apply_exception = e
@@ -433,7 +433,7 @@ class NodeAgent:
             "saturation": self.saturation_summary(),
             "tenants": self.tenant_summary(),
             "adapters": self.adapter_summary(),
-            # multi-host serving (A15) and canaries (A19) are not ported:
+            # multi-host serving (A15b) and canaries (A19) are not ported:
             # each block is the reference's idle block
             "multihost": {},
             "role": self.pool_role(),

@@ -37,7 +37,7 @@ class MeshSpec:
     """Named-axis layout over a number of devices (the reference's
     ``helix_tpu/device/mesh.py`` dataclass).  The port serves one device:
     a spec with an axis above 1 or a device offset is refused at build
-    (ROADMAP A15)."""
+    (ROADMAP A15b)."""
 
     dp: int = 1
     fsdp: int = 1
@@ -75,7 +75,7 @@ class ProfileModel:
     context_length: Optional[int] = None
     # architecture overrides for random-init models
     model_overrides: dict = dataclasses.field(default_factory=dict)
-    # multi-host lockstep serving: {} = single host (A15)
+    # multi-host lockstep serving: {} = single host (A15b)
     multihost: dict = dataclasses.field(default_factory=dict)
     # SLO targets and the scheduler's ``sched`` block (obs/slo.py,
     # serving/sched.py)

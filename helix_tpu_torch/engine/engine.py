@@ -89,8 +89,18 @@ streams.  Speculation and the adapter pool are logged off for such a
 model, tiered residency is refused, and a request with image state is
 never exported.
 
+A mixture-of-experts model (Mixtral, ``models.moe``) serves under the
+reference's MoE rules: admission packs one request per prefill call (the
+experts' capacity is shared by the call's tokens, so batch-mates would
+perturb each other's routing), the prefill segment routes the tokens of
+its bucket that are not padding (the capacity follows the bucket), the
+state segment routes its live rows (decode is dropless), speculation is
+logged off, and prefill capacity drops are queued as device scalars and
+folded into ``moe_dropped_tokens`` where a fetch has already synced.
+An adapter pool on such a model serves its attention targets.
+
 Outside this slice, and refused loudly by ``Engine``: meshes and the
-multihost plan plane (A15), MoE models (A15).
+multihost plan plane (ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -146,7 +156,7 @@ from helix_tpu_torch.engine.sampling import (
 )
 from helix_tpu_torch.engine.spec import SpecConfig, SpecDecoder
 from helix_tpu_torch.models.common import ModelConfig
-from helix_tpu_torch.models.llama import check_supported, forward, project_logits
+from helix_tpu_torch.models.llama import forward, project_logits
 from helix_tpu_torch.obs.slo import ANON_TENANT
 from helix_tpu_torch.ops.attention import attention
 from helix_tpu_torch.ops.paged import ragged_paged_attention
@@ -430,11 +440,10 @@ class Engine:
         *,
         device=DEFAULT_DEVICE,
     ):
-        check_supported(model_cfg)
         if mesh is not None:
             raise NotImplementedError(
-                "meshes (tensor/sequence/pipeline parallel) are not ported "
-                "yet (ROADMAP A15)"
+                "meshes (tensor/sequence/expert/pipeline parallel) are not "
+                "ported yet (ROADMAP A15b)"
             )
         self.device = resolve_device(device)
         w = params["embed"]["weight"]
@@ -527,6 +536,11 @@ class Engine:
         # builder arms it from HELIX_FILESTORE_KV_DIR); None = tier off
         self.kv_filestore = None
         self.filestore_restored_pages = 0
+        # MoE prefill routing assignments dropped to capacity overflow:
+        # device scalars queue un-fetched and fold in where a fetch has
+        # synced (``_drain_moe_drops``)
+        self._moe_dropped = 0
+        self._moe_drop_handles: list = []
         self.preempted: list[PreemptedSeq] = []   # parked, resume FIFO
         self._resume_failures: list = []          # (req, reason) for the loop
         # resumed slots' histograms, re-injected at the next _sync_state
@@ -551,13 +565,15 @@ class Engine:
         # speculative decoding (engine/spec.py): host-side prompt-lookup
         # drafter + per-request acceptance EMA; None = off.  An mrope
         # model's verify rows would need three streams per drafted
-        # position: off with a warning, as in the reference
+        # position, and an MoE model's experts would share their capacity
+        # across a verify row (routing unlike plain decode): off with a
+        # warning, as in the reference
         is_mrope = model_cfg.mrope_sections is not None
         self.spec = None
-        if cfg.enable_spec_decode and is_mrope:
+        if cfg.enable_spec_decode and (is_mrope or model_cfg.num_experts):
             logging.getLogger(__name__).warning(
-                "speculative decoding is not supported for mrope (VL) "
-                "models — running plain decode")
+                "speculative decoding is not supported for %s models — "
+                "running plain decode", "mrope (VL)" if is_mrope else "MoE")
         elif cfg.enable_spec_decode:
             self.spec = SpecDecoder(SpecConfig(spec_tokens=cfg.spec_tokens))
         # multi-LoRA serving (engine/adapters.py): the device pool of
@@ -936,6 +952,7 @@ class Engine:
         toks = self._fetch(Fetch([t[:1] for _r, t in pf]))
         for (req, _t), tok in zip(pf, toks):
             self._finish_first_emit(req, int(tok[0]), emitted)
+        self._drain_moe_drops()   # the fetch above synced the device
 
     def _fetch(self, fetch: Fetch) -> list:
         """Wait for a queued device-to-host copy (counted)."""
@@ -1555,6 +1572,10 @@ class Engine:
         ps = self.cache_cfg.page_size
         maxP = self.cache_cfg.max_pages_per_seq
         B = self.cfg.max_decode_batch
+        # MoE: one request per call (the experts' capacity is shared by
+        # the call's tokens); the calls still go out in one wave with one
+        # batched token fetch
+        max_pack = 1 if self.model_cfg.num_experts > 0 else B
         plan = PrefillPlan(ps, maxP, B)
         batch: list = []
         waves: list = []
@@ -1581,7 +1602,7 @@ class Engine:
             plen = len(req.prompt_tokens)
             if plen > C_cap:
                 break   # long prompt: the outer admission loop chunks it
-            if len(batch) >= B:
+            if len(batch) >= max_pack:
                 flush()
             if (admitted_any and self._budget_left is not None
                     and self._budget_left <= 0):
@@ -1621,6 +1642,7 @@ class Engine:
         trip and complete the per-request bookkeeping."""
         flat = self._fetch(Fetch(
             [torch.cat([t[: len(b)] for b, t in pending])]))[0]
+        self._drain_moe_drops()   # the fetch above synced the device
         now = time.monotonic()
         i = 0
         for batch, _ in pending:
@@ -1639,6 +1661,27 @@ class Engine:
                 )
                 self._adopt_prompt_pages(req, self._page_tables[slot])
                 self._emit(req, first_token, emitted)
+
+    def _drain_moe_drops(self) -> None:
+        """Fold the queued drop counts into ``moe_dropped_tokens`` in one
+        copy.  Called right after a fetch has waited for the device, so
+        the copy waits for nothing."""
+        if not self._moe_drop_handles:
+            return
+        handles, self._moe_drop_handles = self._moe_drop_handles, []
+        n = int(Fetch([torch.stack(handles).sum()]).wait()[0])
+        if n <= 0:
+            return
+        self._moe_dropped += n
+        logging.getLogger(__name__).info(
+            "moe prefill dropped %d routing assignments to capacity "
+            "overflow (engine total %d)", n, self._moe_dropped)
+
+    @property
+    def moe_dropped_tokens(self) -> int:
+        """MoE prefill routing assignments dropped to expert capacity, as
+        of the last drain (a plain int: the metrics thread reads it)."""
+        return self._moe_dropped
 
     def _chunk_plan(self, st) -> tuple:
         """ONE ragged row for the in-flight long prefill's next chunk; its
@@ -1676,6 +1719,7 @@ class Engine:
         self._changed_slots.add(slot)
         if isinstance(first_token, (int, np.integer)):
             self._last_token[slot] = first_token
+            self._drain_moe_drops()   # the caller's fetch synced the device
             self._emit(req, int(first_token), emitted)
             return
         # deferred: placeholder mirror, device-side patch at the next
@@ -1734,6 +1778,8 @@ class Engine:
         next_np, tok_np, *first_np = self._fetch(p.fetch)
         for (req, _t), t_np in zip(p.pending_first, first_np):
             self._finish_first_emit(req, int(t_np[0]), emitted)
+        if p.pending_first:
+            self._drain_moe_drops()   # the fetch above synced the device
         # decode emissions first (the chunking slot is still parked here)
         for i, r in p.rows:
             if self.slots[i] is not r or r.finished:
@@ -2795,6 +2841,8 @@ class Engine:
         toks = fetched[:p.n]
         for (req, _t), tok_np in zip(p.pending_first, fetched[p.n:]):
             self._finish_first_emit(req, int(tok_np[0]), emitted)
+        if p.pending_first:
+            self._drain_moe_drops()   # the fetch above synced the device
         for _i, r in p.rows:
             left = self._inflight_out.get(r.id, 0) - p.n
             if left > 0:
@@ -2867,13 +2915,20 @@ class Engine:
                 )
             return out, cache
 
-        h, _ = forward(self._graft_params(), self.model_cfg, a["tokens"],
-                       a["pos"], attn_fn=p_attn, carry_caches=self.cache,
-                       return_hidden=True,
-                       adapter_ids=a["aids"] if plan.has_adapter else None)
+        # the MoE capacity follows the whole bucket, padding included;
+        # padding takes none of it (the reference's moe_token_mask)
+        valid = a["seg"] > 0
+        is_moe = self.model_cfg.num_experts > 0
+        h, _, *stats = forward(
+            self._graft_params(), self.model_cfg, a["tokens"], a["pos"],
+            attn_fn=p_attn, carry_caches=self.cache, return_hidden=True,
+            adapter_ids=a["aids"] if plan.has_adapter else None,
+            moe_token_mask=valid, return_moe_stats=is_moe)
+        if is_moe:
+            # queued unread: a read here would wait for the call
+            self._moe_drop_handles.append(stats[0]["dropped"])
         # pool updated in place (the reference's donated scatter)
-        write_kv(self.cache, kacc, vacc, a["pages"], a["offsets"],
-                 a["seg"] > 0)
+        write_kv(self.cache, kacc, vacc, a["pages"], a["offsets"], valid)
         last = project_logits(self.params, self.model_cfg,
                               h[0, a["ends"].long()])          # [R, V]
         if self.logits_hook is not None:
@@ -2934,7 +2989,8 @@ class Engine:
             pos3 = (pos + st.mrope_delta[:, None])[None].expand(3, B, W)
         logits, _ = forward(self._graft_params(), self.model_cfg, tokens,
                             pos, attn_fn=s_attn, carry_caches=self.cache,
-                            adapter_ids=aids, positions3=pos3)
+                            adapter_ids=aids, positions3=pos3,
+                            moe_token_mask=live_t)
         pages, page_offs = slot_to_page_offset(pos, st.page_tables,
                                                self.cache_cfg.page_size)
         write_kv(self.cache, kacc, vacc, pages, page_offs, live_t)

@@ -56,7 +56,11 @@ def tree_bytes(tree) -> int:
 
 
 def model_param_count(model_cfg) -> int:
-    """Architectural parameter count from a config (dense-path weights)."""
+    """Architectural parameter count from a config (dense-path weights).
+    For an MoE config this is the reference's active-per-token shape:
+    one FFN per layer, no router, so Mixtral-8x7B counts 7.24 B of its
+    46.70 B and an entry's estimate falls short of its footprint by the
+    other experts (ROADMAP C: the reference's fault, kept)."""
     c = model_cfg
     embed = c.vocab_size * c.hidden_size
     per_layer = (

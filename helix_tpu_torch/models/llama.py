@@ -12,9 +12,13 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
   protocols: ``layer_caches`` hands each layer its per-layer views,
   ``carry_caches`` threads the whole pool and the attention function
   mutates it in place (jit donation in the reference).
-- Mixture-of-experts configs are not ported (ROADMAP A15).  An mrope
-  config (the Qwen2-VL text tower) runs only with its three position
-  streams (``positions3``, ``models.qwen2_vl.text_forward_mrope``).
+- A mixture-of-experts config (Mixtral) replaces the dense FFN by a
+  router ``[L, E, X]`` and expert stacks ``[L, X, E, F]`` / ``[L, X, F,
+  E]`` (``models.moe``); ``forward`` takes the reference's
+  ``moe_token_mask`` and returns the drop count with
+  ``return_moe_stats``.  An mrope config (the Qwen2-VL text tower) runs
+  only with its three position streams (``positions3``,
+  ``models.qwen2_vl.text_forward_mrope``).
 """
 
 from __future__ import annotations
@@ -39,15 +43,6 @@ from helix_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict
 AttnFn = Callable[..., Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model families outside this slice of the port."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts models are not ported yet "
-            "(ROADMAP A15)"
-        )
 
 
 # the HF ``hidden_act`` names the forward computes (every gelu form is
@@ -78,7 +73,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
     if quantization not in (None, "int8"):
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -87,19 +81,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
         cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
     )
 
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).mul_(0.02).to(dt)
+
     def normal(shape, stacked=False):
         out = torch.empty(shape, dtype=dt, device=dev)
         for part in (out if stacked else (out,)):
-            part.copy_(torch.randn(part.shape, generator=gen, device=dev,
-                                   dtype=torch.float32).mul_(0.02))
+            part.copy_(draw(part.shape))
         return out
 
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
     def dense(shape, stacked=True):
-        w = normal(shape, stacked)
-        return {"weight": w} if quantization is None else quantize_tensor(w)
+        if quantization is None:
+            return {"weight": normal(shape, stacked)}
+        if not stacked:
+            return quantize_tensor(normal(shape))
+        # layer by layer: the stack never exists in ``dt`` at once (an
+        # expert stack of Mixtral is 30 GB in bf16)
+        q = torch.empty(shape, dtype=torch.int8, device=dev)
+        s = torch.empty((*shape[:-2], 1, shape[-1]), dtype=torch.float32,
+                        device=dev)
+        for i in range(shape[0]):
+            qd = quantize_tensor(draw(shape[1:]))
+            q[i], s[i] = qd["weight"], qd["scale"]
+        return {"weight": q, "scale": s}
 
     def embed():
         w = normal((V, E))
@@ -117,12 +125,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
             "wk": dense((L, E, KVH * D)),
             "wv": dense((L, E, KVH * D)),
             "wo": dense((L, H * D, E)),
-            "w_gate": dense((L, E, F)),
-            "w_up": dense((L, E, F)),
-            "w_down": dense((L, F, E)),
         },
         "final_norm": {"weight": ones((E,))},
     }
+    layers = params["layers"]
+    if cfg.num_experts > 0:
+        # Mixtral: a router and expert-stacked SwiGLU in place of the
+        # dense FFN, in the reference's layout (``llama.py:91-103``)
+        X = cfg.num_experts
+        layers["router"] = dense((L, E, X))
+        layers["experts"] = {
+            "w_gate": dense((L, X, E, F)),
+            "w_up": dense((L, X, E, F)),
+            "w_down": dense((L, X, F, E)),
+        }
+    else:
+        layers["w_gate"] = dense((L, E, F))
+        layers["w_up"] = dense((L, E, F))
+        layers["w_down"] = dense((L, F, E))
     if cfg.attention_bias:
         for nm, width in (("wq", H * D), ("wk", KVH * D), ("wv", KVH * D)):
             params["layers"][nm]["bias"] = torch.zeros(
@@ -165,18 +185,24 @@ def params_to(params: Params, device) -> Params:
 
 
 def _layer_params(layers: Params, i: int) -> Params:
-    return {k: {kk: vv[i] for kk, vv in v.items()} for k, v in layers.items()}
+    """Layer ``i``'s slice of every stacked weight (nested: the experts)."""
+    if isinstance(layers, dict):
+        return {k: _layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
 
 
 def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
-           attn_fn: AttnFn, adapter_ids=None, positions3=None):
+           attn_fn: AttnFn, adapter_ids=None, positions3=None,
+           moe_token_mask=None):
     """One decoder block. h: [B, S, E].  Returns ``(h, (k, v),
-    new_cache)``; ``new_cache`` is what a carry-protocol ``attn_fn``
-    returned alongside its output (None for plain attn_fns).
-    ``adapter_ids [B, S]`` names each token's multi-LoRA pool slot for
-    every projection (None: no adapter row).  ``positions3 [3, B, S]``
-    rotates q / k with M-RoPE (mrope configs); ``positions`` still
-    reach the attention."""
+    new_cache, moe_dropped)``; ``new_cache`` is what a carry-protocol
+    ``attn_fn`` returned alongside its output (None for plain attn_fns),
+    ``moe_dropped`` the MoE layer's int32 drop count (None for a dense
+    FFN).  ``adapter_ids [B, S]`` names each token's multi-LoRA pool slot
+    for every projection (None: no adapter row; an MoE FFN takes none).
+    ``positions3 [3, B, S]`` rotates q / k with M-RoPE (mrope configs);
+    ``positions`` still reach the attention.  ``moe_token_mask [B, S]``:
+    the tokens the router may place (``models.moe.moe_ffn``)."""
     B, S, E = h.shape
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -206,10 +232,23 @@ def _layer(h, p: Params, layer_cache, cfg: ModelConfig, positions, inv_freq,
         attn_out = res
     h = h + dense(attn_out.reshape(B, S, H * D), p["wo"])
     x = rms_norm(h, p["mlp_norm"]["weight"], cfg.rms_norm_eps, cfg.norm_offset)
+    act = _act(cfg.hidden_act)
+    if cfg.num_experts > 0:
+        from helix_tpu_torch.models.moe import moe_ffn
+
+        router = p["router"]["weight"]
+        if router.dtype == torch.int8:
+            # dequantised in float32: rounding the router through bf16
+            # could flip a near-tied top-k choice (``llama.py:210-216``)
+            router = router.float() * p["router"]["scale"].float()
+        out, dropped = moe_ffn(x, router, p["experts"], cfg, act,
+                               token_mask=moe_token_mask,
+                               return_dropped=True)
+        return h + out, (k, v), new_cache, dropped
     gate = dense(x, p["w_gate"])
     up = dense(x, p["w_up"])
-    h = h + dense(_act(cfg.hidden_act)(gate) * up, p["w_down"])
-    return h, (k, v), new_cache
+    h = h + dense(act(gate) * up, p["w_down"])
+    return h, (k, v), new_cache, None
 
 
 @functools.lru_cache(maxsize=16)
@@ -234,6 +273,8 @@ def forward(
     adapter_ids=None,    # [B, S] integer: multi-LoRA pool slot per token
     positions3=None,     # [3, B, S] integer: M-RoPE streams (mrope configs)
     input_embeds=None,   # [B, S, E]: in place of the token embeddings
+    moe_token_mask=None,     # [B, S] bool: tokens the MoE router places
+    return_moe_stats: bool = False,  # also {"dropped": int32 over layers}
 ):
     """Run the decoder.
 
@@ -251,9 +292,11 @@ def forward(
     ``lora_pool_*`` entries an ``AdapterPool`` grafts into the layers).
     An mrope config needs ``positions3`` (the reference's
     ``text_forward_mrope``, which also takes ``input_embeds``: the image
-    splice).
+    splice).  An MoE config routes only the tokens of ``moe_token_mask``
+    (padding and rows sitting out take no expert capacity);
+    ``return_moe_stats`` appends ``{"dropped": ...}``, the int32 device
+    sum of every layer's capacity drops (0 for a dense model).
     """
-    check_supported(cfg)
     if (cfg.mrope_sections is None) != (positions3 is None):
         raise ValueError(
             f"{cfg.name}: mrope configs rotate by positions3 "
@@ -266,7 +309,7 @@ def forward(
     else:
         h = input_embeds.to(torch_dtype(cfg.dtype))
     caches = carry_caches
-    ks, vs = [], []
+    ks, vs, drops = [], [], []
     for i in range(cfg.num_layers):
         if carry_caches is not None:
             lc = (caches, i)
@@ -274,11 +317,13 @@ def forward(
             lc = tuple(c[i] for c in layer_caches)
         else:
             lc = None
-        h, (k, v), new = _layer(
+        h, (k, v), new, dropped = _layer(
             h, _layer_params(params["layers"], i), lc, cfg, positions,
             inv_freq, attn_fn, adapter_ids=adapter_ids,
-            positions3=positions3,
+            positions3=positions3, moe_token_mask=moe_token_mask,
         )
+        if dropped is not None:
+            drops.append(dropped)
         if carry_caches is not None:
             caches = new
         else:
@@ -289,9 +334,13 @@ def forward(
     out_cache = caches if carry_caches is not None else (
         torch.stack(ks), torch.stack(vs)
     )
-    if return_hidden:
-        return h, out_cache
-    return project_logits(params, cfg, h), out_cache
+    out = (h if return_hidden else project_logits(params, cfg, h),
+           out_cache)
+    if return_moe_stats:
+        dropped = (torch.stack(drops).sum(dtype=torch.int32) if drops
+                   else torch.zeros((), dtype=torch.int32, device=h.device))
+        out += ({"dropped": dropped},)
+    return out
 
 
 def project_logits(params: Params, cfg: ModelConfig, h):

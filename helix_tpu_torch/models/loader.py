@@ -27,8 +27,15 @@ the checkpoint's dtype, under either HF naming (``model.`` or
 (``visual.`` or ``model.visual.``), into ``params["visual"]``, never
 quantized.
 
+A Mixtral checkpoint (``num_local_experts``) gives the MoE layout: each
+layer's ``block_sparse_moe.gate`` as ``router [L, E, X]`` and its
+``block_sparse_moe.experts.{e}.w1`` / ``w3`` / ``w2`` as the gate, up and
+down stacks ``[L, X, ...]``, streamed and quantized like the other
+projections (an int8 router and expert stacks keep per-(layer, expert)
+output-channel scales, as ``quantize_params`` gives them).
+
 What the port cannot compute is refused when the config is read, before
-anything is allocated, naming the ROADMAP item: mixture-of-experts (A15),
+anything is allocated, naming the ROADMAP item:
 an activation ``models.llama`` lacks, and a ``rope_scaling`` other than
 ``llama3`` or mrope, which the reference loads and then serves as
 unscaled rope (ROADMAP C).  A ``sliding_window`` is logged
@@ -47,7 +54,7 @@ import torch
 
 from helix_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
 from helix_tpu_torch.models.common import ModelConfig
-from helix_tpu_torch.models.llama import ACTIVATIONS, check_supported
+from helix_tpu_torch.models.llama import ACTIVATIONS
 from helix_tpu_torch.models.st_format import SafetensorsDir
 from helix_tpu_torch.ops.quant import _quantize_columns
 
@@ -63,10 +70,6 @@ def unsupported(hf: dict) -> list:
     """What of HF config ``hf`` the port cannot compute, each naming its
     ROADMAP item (empty: loadable)."""
     out = []
-    if int(hf.get("num_local_experts") or 0) > 0:
-        out.append(f"num_local_experts {hf['num_local_experts']}: "
-                   "mixture-of-experts models are not ported yet "
-                   "(ROADMAP A15)")
     rs = hf.get("rope_scaling") or {}
     act = hf.get("hidden_act", "silu")
     if act not in ACTIVATIONS:
@@ -125,9 +128,10 @@ class _Dest:
 def _plan(cfg: ModelConfig, st: SafetensorsDir, vision=None) -> tuple:
     """``(layout, items)``: the destination tree's shapes and kinds, and
     one ``(HF name, row0, row1, dest path, layer, first dest row)`` per
-    piece of an HF tensor; every HF shape is checked here, before
-    anything is allocated.  ``vision`` (a ``VisionConfig``) adds the
-    Qwen2-VL vision tower under ``("visual", ...)``."""
+    piece of an HF tensor (``layer`` indexes the stack's leading axes:
+    ``(layer, expert)`` for an expert stack); every HF shape is checked
+    here, before anything is allocated.  ``vision`` (a ``VisionConfig``)
+    adds the Qwen2-VL vision tower under ``("visual", ...)``."""
     L, E, H, KVH, D, F, V = (
         cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
         cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
@@ -141,10 +145,17 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir, vision=None) -> tuple:
         ("layers", "wk"): ("linear", (L, E, KVH * D)),
         ("layers", "wv"): ("linear", (L, E, KVH * D)),
         ("layers", "wo"): ("linear", (L, H * D, E)),
-        ("layers", "w_gate"): ("linear", (L, E, F)),
-        ("layers", "w_up"): ("linear", (L, E, F)),
-        ("layers", "w_down"): ("linear", (L, F, E)),
     }
+    X = cfg.num_experts
+    if X > 0:
+        layout[("layers", "router")] = ("linear", (L, E, X))
+        layout[("layers", "experts", "w_gate")] = ("linear", (L, X, E, F))
+        layout[("layers", "experts", "w_up")] = ("linear", (L, X, E, F))
+        layout[("layers", "experts", "w_down")] = ("linear", (L, X, F, E))
+    else:
+        layout[("layers", "w_gate")] = ("linear", (L, E, F))
+        layout[("layers", "w_up")] = ("linear", (L, E, F))
+        layout[("layers", "w_down")] = ("linear", (L, F, E))
     items = []
 
     vl = cfg.mrope_sections is not None
@@ -197,7 +208,18 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir, vision=None) -> tuple:
             at += w
         add(p + "self_attn.o_proj.weight", ("layers", "wo"), i,
             hf_shape=(E, H * D))
-        if fused_mlp:
+        if X > 0:
+            # HF Mixtral: w1 = gate, w3 = up, w2 = down
+            moe = p + "block_sparse_moe."
+            add(moe + "gate.weight", ("layers", "router"), i,
+                hf_shape=(X, E))
+            for e in range(X):
+                for ours, theirs, shape in (("w_gate", "w1", (F, E)),
+                                            ("w_up", "w3", (F, E)),
+                                            ("w_down", "w2", (E, F))):
+                    add(moe + f"experts.{e}.{theirs}.weight",
+                        ("layers", "experts", ours), (i, e), hf_shape=shape)
+        elif fused_mlp:
             add(p + "mlp.gate_up_proj.weight", ("layers", "w_gate"), i,
                 rows=(0, F), hf_shape=(2 * F, E))
             add(p + "mlp.gate_up_proj.weight", ("layers", "w_up"), i,
@@ -207,8 +229,9 @@ def _plan(cfg: ModelConfig, st: SafetensorsDir, vision=None) -> tuple:
                 hf_shape=(F, E))
             add(p + "mlp.up_proj.weight", ("layers", "w_up"), i,
                 hf_shape=(F, E))
-        add(p + "mlp.down_proj.weight", ("layers", "w_down"), i,
-            hf_shape=(E, F))
+        if X == 0:
+            add(p + "mlp.down_proj.weight", ("layers", "w_down"), i,
+                hf_shape=(E, F))
         if cfg.qk_norm:
             add(p + "self_attn.q_norm.weight", ("layers", "q_norm"), i,
                 hf_shape=(D,))
@@ -350,7 +373,6 @@ def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
     cfg = cfg or load_config(model_dir)
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     name = str(dt).removeprefix("torch.")

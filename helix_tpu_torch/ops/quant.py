@@ -14,6 +14,8 @@ the embedding lookup (port of ``helix_tpu/ops/quant.py``).
   the batched multi-LoRA pool's per-token delta and the bias in float32,
   and rounds once to the compute dtype, as the reference's
   ``dot_general`` with ``preferred_element_type=float32`` does.
+- ``expert_dense``: the MoE layer's batched product over stacked
+  ``[X, in, out]`` expert weights, float32 out, per-expert int8 scales.
 """
 
 from __future__ import annotations
@@ -123,6 +125,30 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                        out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+def expert_dense(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The per-expert product over stacked weights (the reference's
+    ``models/moe.py`` ``_expert_dense``): ``x [X, C, in] @ p["weight"]
+    [X, in, out]``, float or int8, accumulated and returned in float32,
+    times the int8 output-channel scale ``p["scale"] [X, 1, out]`` in
+    float32.  The result is never rounded to ``x``'s dtype.  On the card a
+    batched GEMM with a float32 output (``torch.bmm(..., out_dtype=
+    float32)``); on the CPU a float32 product of the upcast operands."""
+    w = p["weight"]
+    if w.dtype == torch.int8:
+        # int8 codes are exact in bf16 and float32
+        w = w.to(x.dtype)
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        out = torch.bmm(x, w)
+    elif x.is_cuda and x.dtype == w.dtype:
+        out = torch.bmm(x, w, out_dtype=torch.float32)
+    else:
+        out = torch.bmm(x.float(), w.float())
+    scale = p.get("scale")
+    if scale is not None:
+        out = out * scale.float()
+    return out
 
 
 def maybe_dequant_dense(x, p: dict, adapter_ids=None, compute_dtype=None):

@@ -51,7 +51,7 @@ the engine thread reconciles any step in flight, snapshots the request
 handler's callback, which ships it off this thread (``_disagg_tick``).
 The request keeps decoding here until the handler confirms the ship.
 
-Not ported yet: multihost (A15).
+Not ported yet: multihost (A15b).
 """
 
 from __future__ import annotations
@@ -585,6 +585,7 @@ class EngineLoop:
             "prefill_padding_tokens": eng.num_prefill_padding_tokens,
             "prefill_padding_ratio": self.padding_ratio(),
             "mixed_steps": eng.num_mixed_steps,
+            "moe_dropped_tokens": eng.moe_dropped_tokens,
             "spec_steps": eng.num_spec_steps,
             "spec_drafted_tokens": eng.num_spec_drafted_tokens,
             "spec_accepted_tokens": eng.num_spec_accepted_tokens,

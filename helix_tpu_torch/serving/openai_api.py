@@ -397,6 +397,10 @@ class OpenAIServer:
             c.counter("helix_decode_tokens_total", eng.num_decode_tokens,
                       lbl)
             c.counter("helix_mixed_steps_total", eng.num_mixed_steps, lbl)
+            # MoE prefill routing assignments dropped to expert capacity
+            # (their tokens rode the residual stream)
+            c.counter("helix_moe_dropped_tokens_total",
+                      eng.moe_dropped_tokens, lbl)
             c.counter("helix_spec_drafted_tokens_total",
                       eng.num_spec_drafted_tokens, lbl)
             c.counter("helix_spec_accepted_tokens_total",

@@ -5,7 +5,10 @@ tree (test scaffolding, not served code).
 export of the same model holds: ``config.json`` with HF field names,
 projections back in HF's ``[out, in]`` layout under HF names
 (``model.layers.{i}.self_attn.q_proj.weight``, ...), Phi-3's fused
-``qkv_proj`` / ``gate_up_proj`` with ``fused=True``, and shards of at most
+``qkv_proj`` / ``gate_up_proj`` with ``fused=True``, a Mixtral tree's
+router and experts as ``block_sparse_moe.gate`` and
+``block_sparse_moe.experts.{e}.w1|w2|w3`` (``model_type="mixtral"``), and
+shards of at most
 ``max_shard_bytes`` (HF's 5 GB) with a ``model.safetensors.index.json``
 when there is more than one.  The files are what the ``safetensors``
 package writes and reads; tensors go to disk one layer at a time, so a
@@ -48,7 +51,8 @@ def hf_config(cfg: ModelConfig, model_type: str = "llama",
         "architectures": [{"llama": "LlamaForCausalLM",
                            "phi3": "Phi3ForCausalLM",
                            "qwen2": "Qwen2ForCausalLM",
-                           "qwen3": "Qwen3ForCausalLM"}.get(
+                           "qwen3": "Qwen3ForCausalLM",
+                           "mixtral": "MixtralForCausalLM"}.get(
                                model_type, "LlamaForCausalLM")],
         "model_type": model_type,
         "vocab_size": cfg.vocab_size,
@@ -68,6 +72,9 @@ def hf_config(cfg: ModelConfig, model_type: str = "llama",
         "max_position_embeddings": cfg.max_position_embeddings,
         "torch_dtype": cfg.dtype,
     }
+    if cfg.num_experts > 0:
+        out["num_local_experts"] = cfg.num_experts
+        out["num_experts_per_tok"] = cfg.num_experts_per_tok
     out.update(extra)
     return out
 
@@ -109,6 +116,17 @@ def _hf_tensors(cfg: ModelConfig, params: dict, fused: bool) -> list:
         if "q_norm" in lay:
             plain(p + "self_attn.q_norm.weight", lay["q_norm"]["weight"][i])
             plain(p + "self_attn.k_norm.weight", lay["k_norm"]["weight"][i])
+        if "experts" in lay:
+            # Mixtral: the router, then each expert's w1 / w2 / w3
+            moe = p + "block_sparse_moe."
+            linear(moe + "gate.weight", [lay["router"]["weight"][i]])
+            ex = lay["experts"]
+            for e in range(cfg.num_experts):
+                for hf, ours in (("w1", "w_gate"), ("w2", "w_down"),
+                                 ("w3", "w_up")):
+                    linear(moe + f"experts.{e}.{hf}.weight",
+                           [ex[ours]["weight"][i, e]])
+            continue
         gate, up = lay["w_gate"]["weight"][i], lay["w_up"]["weight"][i]
         if fused:
             linear(p + "mlp.gate_up_proj.weight", [gate, up])

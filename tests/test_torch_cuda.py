@@ -1702,3 +1702,113 @@ def test_vl_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1]
     assert tpk.K1.launches > before[0] and tatt.K2.launches > before[1]
 
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (Mixtral): the layer and the engine's dispatch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quantized", [("float32", False),
+                                             ("bfloat16", True)])
+def test_moe_layer_on_card_matches_cpu(cuda, dtype, quantized):
+    """``moe_ffn`` on the card against its CPU path on the same inputs
+    (8 experts, top 2, E 512, F 1024): a prefill shape whose capacity
+    factor drops assignments and a decode shape (dropless), drop counts
+    equal; float32 (TF32 off) within 1e-5.  int8 experts on bf16
+    activations: ``act(gate) * up`` rounds to bf16 before ``w_down``, and
+    the card's GEMM sums its float32 product in another order than the
+    CPU, so now and then an intermediate lands one bf16 ulp away and
+    moves the outputs of its token by up to ``|w_down| * ulp`` (seen:
+    1.2e-4 of values up to ~1.3).  They are held to one bf16 ulp of the
+    value plus ``2**-10 * max |value|``.  A token masked out takes no
+    capacity on either side."""
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.moe import moe_ffn
+
+    X, E, F = 8, 512, 1024
+    cfg = ModelConfig.tiny(num_experts=X, expert_capacity_factor=0.75,
+                           dtype=dtype)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(13)
+    router = torch.from_numpy((rng.standard_normal((E, X)) * 0.05)
+                              .astype(np.float32))
+    mats = {k: {"weight": torch.from_numpy(
+        (rng.standard_normal(s) * 0.03).astype(np.float32)).to(dt)}
+        for k, s in (("w_gate", (X, E, F)), ("w_up", (X, E, F)),
+                     ("w_down", (X, F, E)))}
+    if quantized:
+        mats = {k: tquant.quantize_tensor(v["weight"]) for k, v in mats.items()}
+    on_card = {k: {kk: vv.to(cuda) for kk, vv in v.items()}
+               for k, v in mats.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for B, S in ((1, 256), (16, 1)):
+            x = torch.from_numpy(rng.standard_normal((B, S, E)).astype(
+                np.float32)).to(dt)
+            mask = torch.ones((B, S), dtype=torch.bool)
+            mask[0, -3:] = False
+            act = torch.nn.functional.silu
+            want, wd = moe_ffn(x, router, mats, cfg, act, token_mask=mask,
+                               return_dropped=True)
+            got, gd = moe_ffn(x.to(cuda), router.to(cuda), on_card, cfg,
+                              act, token_mask=mask.to(cuda),
+                              return_dropped=True)
+            assert int(gd) == int(wd)
+            assert (int(wd) > 0) == (S > 1)
+            tol = (dict(atol=2.0 ** -10 * float(want.float().abs().max()),
+                        rtol=2.0 ** -7) if quantized
+                   else dict(atol=1e-5, rtol=0))
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       **tol)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_moe_prefill_and_decode_dispatch_make_no_synchronising_call(cuda):
+    """An MoE engine's mixed step (a long prompt's chunk through the
+    experts beside decode rows) and its decode steps queue their work
+    without a synchronising call: the capacity comes from shapes, the
+    drop counts queue as device scalars.  Its ids equal the CPU's
+    (float32), and the drops drained at the end are the CPU's."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params, params_to
+
+    cfg = ModelConfig.tiny(num_experts=4, expert_capacity_factor=0.5,
+                           dtype="float32")
+    params = init_params(cfg, 3, device="cpu")
+    ecfg = EngineConfig(max_decode_batch=4, page_size=16, num_pages=64,
+                        max_pages_per_seq=8, max_prefill_len=32)
+    prompts = [[3, 4, 5, 6, 7], [(i * 7) % 200 + 1 for i in range(90)]]
+    outs = []
+    for dev, p in (("cpu", params), ("cuda", params_to(params, cuda))):
+        eng = Engine(cfg, p, ecfg, device=dev)
+        reqs = [Request(id=f"m{i}", prompt_tokens=pr, sampling=SamplingParams(
+            temperature=0.0, max_tokens=12)) for i, pr in enumerate(prompts)]
+        eng.add_request(reqs[0])
+        eng.step()
+        eng.add_request(reqs[1])
+        kinds = []
+        while eng.has_work():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                emitted, pend = eng.step_dispatch()
+            finally:
+                if dev == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+            if pend is not None:
+                kinds.append(pend.kind)
+                eng.step_complete(pend, emitted)
+        eng._drain_moe_drops()
+        assert "mixed" in kinds and "decode" in kinds
+        outs.append(([r.output_tokens for r in reqs],
+                     eng.moe_dropped_tokens))
+    assert outs[1] == outs[0]
+    assert outs[0][1] > 0

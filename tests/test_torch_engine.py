@@ -479,17 +479,15 @@ def test_unported_engine_options_raise(weights, flag, item):
 
 
 def test_unported_models_and_mesh_raise(weights):
-    """Meshes and MoE stay refused (A15).  An mrope config, refused until
-    A17b, now builds: its prompts take the VL single-shot prefill and
-    never the ragged prefill segment (``tests/test_torch_engine_vl.py``
-    holds it to the JAX engine)."""
+    """Meshes stay refused (A15b).  An mrope config, refused until A17b,
+    now builds: its prompts take the VL single-shot prefill and never the
+    ragged prefill segment (``tests/test_torch_engine_vl.py`` holds it to
+    the JAX engine).  MoE models, refused until A15a, are held to the JAX
+    engine in ``tests/test_torch_moe.py``."""
     *_, cfg, tp = weights
     ecfg = tengine.EngineConfig(**GEOMETRY)
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(NotImplementedError, match="A15b"):
         tengine.Engine(cfg, tp, ecfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tengine.Engine(dataclasses.replace(cfg, num_experts=4), tp, ecfg,
-                       device="cpu")
     vl = tengine.Engine(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)),
                         tp, ecfg, device="cpu")
     out = vl.generate([[1, 2, 3]], tsampling.SamplingParams(

@@ -412,7 +412,6 @@ def _config_dir(tmp_path, **fields):
 
 
 @pytest.mark.parametrize("fields,match", [
-    ({"num_local_experts": 8, "num_experts_per_tok": 2}, "A15"),
     ({"hidden_act": "relu2"}, "hidden_act 'relu2'"),
 ] + [({"rope_scaling": rs}, f"rope_scaling type '{k}'.*ROADMAP C")
      for k, rs in ROPE_SCALINGS.items()])

@@ -223,11 +223,12 @@ def test_forward_int8_weights_bf16_within_stated_tolerance(name):
 
 
 def test_unported_families_raise():
-    """MoE stays refused (A15).  An mrope config (refused until A17b)
-    initialises, and its forward runs only with the three M-RoPE
-    streams."""
-    with pytest.raises(NotImplementedError, match="A15"):
-        tllama.init_params(ModelConfig.tiny(num_experts=4), device="cpu")
+    """An mrope config (refused until A17b) initialises, and its forward
+    runs only with the three M-RoPE streams.  An MoE config (refused
+    until A15a) initialises in the reference's layout
+    (``tests/test_torch_moe.py`` holds its forward to the JAX package)."""
+    moe = tllama.init_params(ModelConfig.tiny(num_experts=4), device="cpu")
+    assert "experts" in moe["layers"] and "w_gate" not in moe["layers"]
     cfg = ModelConfig.tiny(mrope_sections=(2, 3, 3), dtype="float32")
     params = tllama.init_params(cfg, device="cpu")
     tok = torch.tensor([[1, 2, 3]])

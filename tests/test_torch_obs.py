@@ -418,8 +418,10 @@ def test_metrics_families_match_the_reference(scrapes):
     # what the reference mints and the port leaves out: the quantities
     # the port does not have yet (ROADMAP lists each with its item)
     missing = set(ref) - set(got)
-    assert all(n.startswith(("helix_moe_", "helix_compiled_step_shapes"))
+    assert all(n.startswith("helix_compiled_step_shapes")
                for n in missing), sorted(missing)
+    # the MoE drop counter (A15a)
+    assert "helix_moe_dropped_tokens_total" in got
     # the context cache's series
     ctx = {n for n in ref if n.startswith("helix_ctx_")}
     assert len(ctx) == 7 and ctx <= set(got)
@@ -544,7 +546,7 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "'serving.tokenizer_json', 'testing.hf_checkpoint', "
         "'testing.tokenizer_fixtures', 'serving.kv_filestore', "
         "'control.filestore', 'serving.context_cache', 'ops.paged', "
-        "'engine.engine'):\n"
+        "'engine.engine', 'models.moe'):\n"
         "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"
@@ -562,7 +564,8 @@ def test_port_imports_and_serves_images_with_heavy_packages_blocked():
     ``jax``, ``helix_tpu``, ``PIL``, ``transformers``, ``aiohttp``,
     ``safetensors``, ``tokenizers`` and ``ml_dtypes`` made unimportable
     (the card's machine lacks most of them); the VL path then decodes a
-    PNG, resizes, patchifies and runs a tiny tower and prompt there."""
+    PNG, resizes, patchifies and runs a tiny tower and prompt there, and
+    a tiny MoE layer runs."""
     code = (
         "import sys, importlib, pkgutil\n"
         "BLOCKED = ('jax', 'jaxlib', 'helix_tpu', 'PIL', 'transformers', "
@@ -591,6 +594,18 @@ def test_port_imports_and_serves_images_with_heavy_packages_blocked():
         "out = r.prepare([{'role': 'user', 'content': [{'type': "
         "'image_url', 'image_url': {'url': url}}]}], ByteTokenizer())\n"
         "assert out['image_embeds'].shape[1] == 64\n"
+        "import torch\n"
+        "from helix_tpu_torch.models import moe\n"
+        "from helix_tpu_torch.models.common import ModelConfig\n"
+        "mc = ModelConfig.tiny(num_experts=4, dtype='float32')\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "ex = {k: {'weight': torch.randn(s, generator=g)} for k, s in "
+        "(('w_gate', (4, 64, 128)), ('w_up', (4, 64, 128)), "
+        "('w_down', (4, 128, 64)))}\n"
+        "y, d = moe.moe_ffn(torch.randn(1, 6, 64, generator=g), "
+        "torch.randn(64, 4, generator=g), ex, mc, torch.nn.functional.silu, "
+        "return_dropped=True)\n"
+        "assert y.shape == (1, 6, 64) and int(d) >= 0\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
