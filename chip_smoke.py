@@ -13,13 +13,15 @@
     python3 chip_smoke.py --phase context # those + the tiered context phase
     python3 chip_smoke.py --phase vision  # those + the Qwen2-VL phase
     python3 chip_smoke.py --phase moe     # those + the Mixtral phase
+    python3 chip_smoke.py --phase train   # those + the LoRA SFT phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA
-   version, an ``nvcc`` build of both kernels from ``helix_tpu_torch/
-   csrc/`` (one process per source, started together), and each kernel's
+   version, an ``nvcc`` build of the three kernel sources from
+   ``helix_tpu_torch/csrc/`` (one process per source, started together),
+   and each kernel's
    registers, local (spill) memory, shared memory per block and blocks
    per SM at the main path's shapes;
 2. K2 (flash attention), 3. K1 (ragged paged attention) and 3b. K1's
@@ -55,6 +57,20 @@ no result line):
    segment over 1,275 / 3,100 prompt tokens) and K1 with 8 decode rows
    at histories 1,300-4,000 on a 4096-page pool, at Qwen2-VL-7B's group 7
    (H 28, KVH 4, D 128), under the same limits, faults and timings;
+2b. K2-backward (``phase_k2_backward``): the training shapes (B 8, S
+   1024, H 32, KVH 8, D 128, bf16, segments and positions as
+   ``pack_examples`` lays chats out), a small float32 case and a
+   soft-capped case (cap 2).  K2's forward with its LSE at each: the
+   output against the plain version per element (``flash_error_limit``
+   in bf16, 1e-5 + 1e-5 |want| in float32; a dropped diagonal key must
+   break it), the LSE against ``torch.logsumexp`` of the plain version's
+   scores.  ``flash_attention_backward`` against autograd through the
+   plain version (``flash_backward_plain``) per element within
+   ``flash_backward_error_limit``; planted defects (a query head against
+   the wrong KV head, the causal mask dropped, Delta left out, the cap's
+   derivative dropped) must break it.  Both timed beside their plain
+   versions, SDPA with the same boolean mask (forward; forward and
+   backward: a yardstick the port never calls) and their bounds;
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -233,6 +249,23 @@ no result line):
    in float32 with a lowered capacity factor the card's ids and prefill
    drops equal the CPU's (TF32 breaks the logit limit), and a 2-layer
    HF-named checkpoint loads int8 byte-equal to the as-drawn build;
+4p. LoRA SFT (``phase_train``): ``meta-llama/Meta-Llama-3-8B-Instruct``
+   at full width and depth in bf16 (random weights, seed 0) trained by
+   ``SFTTrainer`` (rank 16, alpha 32 on wq, wk, wv, wo) for
+   ``TRAIN_STEPS`` steps of 8 x 1024 tokens packed from chat rows written
+   in the phase and tokenized with the Llama-3 fixture tokenizer: the loss
+   must fall; every attention forward launches K2 and every backward
+   K2-backward (counts zeroed just before the run); step ms, tokens/s,
+   peak memory and one traced step's idle share are printed.  The
+   checkpoint is saved, an engine with an adapter pool is built over the
+   same base tensors, the checkpoint is published through ``POST
+   /v1/adapters`` and 8 chats to ``model@sft`` are answered, each unlike
+   the base model's.  Then the 2-layer float32 witness at full width:
+   three steps on the card and on the CPU from the same adapter agree
+   within ``TRAIN_LOSS_RTOL`` / the parameter limit, TF32 (the control)
+   breaks it, and the witness adapter's greedy tokens through the pool
+   equal those of the build that merges it at apply (the profile's
+   ``adapter:`` field);
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -254,6 +287,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -427,7 +461,7 @@ def planted(label, got, want, limit=None) -> float:
 @_timed
 def phase_device() -> dict:
     from helix_tpu_torch.kernels.build import build_all
-    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.attention import K2, K2B
     from helix_tpu_torch.ops.paged_kernel import K1
     from helix_tpu_torch.ops.quant import matmul_f32
 
@@ -441,10 +475,10 @@ def phase_device() -> dict:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
     t0 = time.monotonic()
-    compile_s = build_all([K1, K2])
-    log(f"[build] nvcc for both kernels: {compile_s:.1f} s compile, "
-        f"{time.monotonic() - t0:.1f} s incl. load")
-    for k in (K1, K2):
+    compile_s = build_all([K1, K2, K2B])
+    log(f"[build] nvcc for the three kernel sources: {compile_s:.1f} s "
+        f"compile, {time.monotonic() - t0:.1f} s incl. load")
+    for k in (K1, K2, K2B):
         regs = [int(w) for w in re.findall(r"Used (\d+) registers",
                                            k.build_log)]
         spills = re.findall(r"(\d+) bytes spill stores", k.build_log)
@@ -502,12 +536,20 @@ DESIGN = {
     "ragged_paged_attention_int8_cold":
         "the cold form over int8 pools and int8 cold chunks with their f32 "
         "scales, dequantized in registers",
+    "flash_attention_backward":
+        "Delta pre-pass; dK/dV per (64-key tile, KV head) over the group's "
+        "heads and query tiles, dQ per (64-query tile, head); f32 CUDA-core "
+        "FMA on 4x4 register blocks, P recomputed from K2's LSE, tile "
+        "skipping, no atomics",
 }
 
 
 def kernel_infos() -> dict:
     """Each kernel's launch resources at the shapes phases 2-4 give it."""
-    from helix_tpu_torch.ops.attention import flash_kernel_info
+    from helix_tpu_torch.ops.attention import (
+        flash_backward_kernel_info,
+        flash_kernel_info,
+    )
     from helix_tpu_torch.ops.paged_kernel import ragged_kernel_info
 
     return {
@@ -519,6 +561,8 @@ def kernel_infos() -> dict:
             8, H, KVH, D, 16, 512, cold=True),
         "ragged_paged_attention_int8_cold": ragged_kernel_info(
             8, H, KVH, D, 16, 512, quantized=True, cold=True),
+        # the dK/dV kernel (the dQ kernel is printed beside it)
+        "flash_attention_backward": flash_backward_kernel_info(D)["dkdv"],
     }
 
 
@@ -3914,10 +3958,11 @@ def phase_checkpoint(smi) -> dict:
 
 FLOOD, FLOOD_SHED, CHATS = 80, 16, 16
 FLOOD_PROMPT_TOKENS = 1500
-# phases 4i and 4j serve the Llama entry at 16 of its 32 layers, a depth
-# cut for the smoke's time limit since phase 4o joined it (4i took 63-82 s
-# and 4j 112-154 s at 32); 4j compares its ids with 4i's, so both cut
-NODE_LAYERS = 16
+# phases 4i and 4j serve the Llama entry at 8 of its 32 layers, a depth
+# cut for the smoke's time limit (4i took 63-82 s and 4j 112-154 s at 32;
+# at 16, since phase 4o joined, 50 s and 120 s in a whole run of 1079 s
+# once phase 4p had joined); 4j compares its ids with 4i's, so both cut
+NODE_LAYERS = 8
 
 
 def _node_depth(prof: dict) -> dict:
@@ -5006,12 +5051,20 @@ def phase_node_agent(smi, agent_free=None) -> dict:
             base + "/logs?tail=50", timeout=60).read())["logs"]
         build_lines = [e["line"] for e in logs if "runner a: model " in
                        e["line"] and " built in " in e["line"]]
+        # the accelerators block reads the whole card's memory, and the
+        # serve-node process started with the phase shares the card: its
+        # start-up must be over before two reads are compared
+        stub.wait_for("c", lambda b: b["profile"]["status"] == "running",
+                      300)
         os.environ["HELIX_TRACE_FEDERATION"] = "0"
         try:
             t_state = time.monotonic()
             state = json.loads(urllib.request.urlopen(
                 base + "/api/v1/state", timeout=60).read())
-            nxt = stub.wait_for("a", lambda b: True, 30, after=t_state)
+            # the first body built after the state route's: one built
+            # before it can still arrive after t_state
+            nxt = stub.wait_for("a", lambda b: b["ts"] > state["ts"], 30,
+                                after=t_state)
         finally:
             del os.environ["HELIX_TRACE_FEDERATION"]
         for d in (state, nxt):
@@ -5025,7 +5078,13 @@ def phase_node_agent(smi, agent_free=None) -> dict:
             f"lines {build_lines}; /api/v1/state equals the next heartbeat "
             f"body (ts, disk and the tok/s rate aside) {state == nxt}")
         if not build_lines or state != nxt:
-            raise AssertionError(f"{tag} logs / state")
+            differ = {k: [state.get(k), nxt.get(k)]
+                      for k in sorted(set(state) | set(nxt))
+                      if state.get(k) != nxt.get(k)}
+            raise AssertionError(
+                f"{tag} logs / state: {len(logs)} log lines, build lines "
+                f"{build_lines}; state route != heartbeat in "
+                f"{json.dumps(differ)[:3000]}")
         wave = [f"Wave {i}: describe a lighthouse in a few lines." for i in
                 range(8)]
         _t, off_s, _r = _gated_batch(base, loop, wave, 64)
@@ -7852,6 +7911,560 @@ def phase_moe(smi) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# 2b. K2-backward (training)
+# ---------------------------------------------------------------------------
+
+# H100 SXM data sheet: float32 outside the tensor cores
+PEAK_F32_FLOPS = 67e12
+# the training batch of phase 4p (the CLI's defaults)
+TRAIN_B, TRAIN_S = 8, 1024
+# K2's LSE against torch.logsumexp of the plain version's scores: an f32
+# online softmax against one f32 softmax
+LSE_ATOL = 1e-4
+
+
+def _chat_layout(B, S, rng, lo=100, hi=500) -> tuple:
+    """Positions and segment ids of B rows of S tokens as
+    ``training.data.pack_examples`` packs chats of lo-hi tokens
+    (positions restart per segment, padding segment 0 at position 0)."""
+    from helix_tpu_torch.training.data import SFTExample, pack_examples
+
+    lens = rng.integers(lo, hi, size=4 * B * S // lo)
+    exs = [SFTExample(input_ids=[1] * int(n), loss_mask=[1] * int(n))
+           for n in lens]
+    b = next(pack_examples(exs, B, S, shuffle_seed=0))
+    return b.positions, b.segment_ids
+
+
+def _live_pairs(pos, seg) -> int:
+    """(query, key) pairs K2's mask keeps, per head: same segment,
+    query position >= key position."""
+    total = 0
+    for b in range(pos.shape[0]):
+        for s_id in np.unique(seg[b]):
+            p = np.sort(pos[b][seg[b] == s_id])
+            total += int(np.searchsorted(p, p, side="right").sum())
+    return total
+
+
+def _k2b_planted(fault, q, k, v, out, lse, dout, kw):
+    """K2-backward with one defect planted through its inputs, to be held
+    against the plain version of the true inputs: every query head read
+    against the next KV head (k and v rolled over their heads), the
+    causal mask dropped, Delta left out (O = 0); the cap's derivative,
+    which no input can drop (P is recomputed from the capped scores),
+    through the wrapper's check-only switch."""
+    from helix_tpu_torch.ops.attention import flash_attention_backward
+
+    if fault == "wrong_kv_head":
+        k, v = k.roll(1, dims=2), v.roll(1, dims=2)
+    if fault == "no_causal":
+        kw = {**kw, "causal": False}
+    if fault == "no_delta":
+        out = torch.zeros_like(out)
+    return flash_attention_backward(
+        q, k, v, out, lse, dout, **kw,
+        _drop_cap_derivative=fault == "no_cap_derivative")
+
+
+def _k2b_case(label, B, S, heads, dtype, gen, rng, cap=None, faults=()):
+    """K2 with its LSE and K2-backward on one packed batch.  K2's output
+    is held to the plain version per element (``flash_error_limit`` in
+    bf16, 1e-5 + 1e-5 |want| in f32) and a dropped diagonal key must
+    break that; its LSE to ``torch.logsumexp`` within ``LSE_ATOL``.
+    K2-backward is held to the plain version per element within
+    ``flash_backward_error_limit``, each planted fault breaking it.
+    Returns (K2 row, K2-backward row), each timed beside its plain
+    version, SDPA with the same mask (uncapped cases) and its bound."""
+    from helix_tpu_torch.ops.attention import (
+        ERR_ATOL,
+        F32_RTOL,
+        flash_attention_backward,
+        flash_attention_lse,
+        flash_attention_lse_plain,
+        flash_backward_error_limit,
+        flash_backward_plain,
+        flash_error_limit,
+    )
+
+    Hh, KVHh, Dh = heads
+    dev = "cuda"
+    pos, seg = _chat_layout(B, S, rng)
+    pos_t = torch.from_numpy(pos).to(dev)
+    seg_t = torch.from_numpy(seg).to(dev)
+    q = torch.randn((B, S, Hh, Dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KVHh, Dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KVHh, Dh), generator=gen, device=dev).to(dtype)
+    dout = torch.randn((B, S, Hh, Dh), generator=gen, device=dev).to(dtype)
+    kw = dict(q_positions=pos_t, kv_positions=pos_t, q_segment_ids=seg_t,
+              kv_segment_ids=seg_t, logits_soft_cap=cap)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    # K2's forward at this shape: output and LSE
+    out_want, lse_want = flash_attention_lse_plain(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        fwd_lim = flash_error_limit(q, k, v, **kw)
+    else:
+        fwd_lim = ERR_ATOL + F32_RTOL * out_want.float().abs()
+    fwd_err, fwd_ratio = check(f"K2 forward {label}", out, out_want,
+                               fwd_lim)
+    fwd_fault = planted(
+        f"K2 forward {label} diagonal key dropped",
+        flash_attention_lse(q, k, v, **{**kw, "kv_positions": pos_t + 1})[0],
+        out_want, fwd_lim)
+    del out_want, fwd_lim
+    lse_err = (lse - lse_want).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"K2 LSE {label}: {lse_err:.3e} > {LSE_ATOL}")
+    del lse_want
+    # K2-backward
+    got = flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    want = flash_backward_plain(q, k, v, dout, **kw)
+    limits = flash_backward_error_limit(q, k, v, dout, want, **kw)
+    errs, ratios = zip(*(check(f"K2-backward {label} {n}", g, w, lim)
+                         for n, g, w, lim in zip(("dq", "dk", "dv"), got,
+                                                 want, limits)))
+    fault_ratio = {}
+    for f in faults:
+        bad = _k2b_planted(f, q, k, v, out, lse, dout, kw)
+        fault_ratio[f] = max(tol_ratio(b, w, lim)
+                             for b, w, lim in zip(bad, want, limits))
+        if not fault_ratio[f] > 1.0:
+            raise AssertionError(
+                f"planted fault {f} passed the K2-backward check "
+                f"({fault_ratio[f]:.2f}x the limit): the limit is too loose")
+    del want, limits
+    ms = cuda_ms(lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                  **kw), 5)
+    fwd_ms = cuda_ms(lambda: flash_attention_lse(q, k, v, **kw), 5)
+    plain_ms = cuda_ms(lambda: flash_backward_plain(q, k, v, dout, **kw),
+                       2, 1)
+    fwd_plain_ms = cuda_ms(lambda: flash_attention_lse_plain(q, k, v, **kw),
+                           2, 1)
+    library_ms = fwd_library_ms = None
+    if cap is None:
+        # library yardstick: SDPA (forward; forward + backward) with the
+        # same mask
+        G = Hh // KVHh
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt = k.repeat_interleave(G, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        vt = v.repeat_interleave(G, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        go = dout.transpose(1, 2)
+        mask = ((pos_t[:, :, None] >= pos_t[:, None, :])
+                & (seg_t[:, :, None] == seg_t[:, None, :]))[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib():
+            o = sdpa(qt, kt, vt, attn_mask=mask)
+            torch.autograd.grad(o, (qt, kt, vt), go)
+
+        def lib_fwd():
+            with torch.no_grad():
+                sdpa(qt, kt, vt, attn_mask=mask)
+
+        library_ms = cuda_ms(lib, 5)
+        fwd_library_ms = cuda_ms(lib_fwd, 5)
+    pairs = _live_pairs(pos, seg)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+    def bound_of(flops, nbytes_):
+        t_ops, t_bytes = flops / peak * 1e3, nbytes_ / PEAK_BYTES * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else \
+            (t_bytes, "bytes")
+
+    meta_bytes = 4 * B * S * 4      # four int32 [B, S] position / segment rows
+    # forward: QK^T and PV, 4 D FLOPs per live (query, key, head); q, k, v
+    # and the meta read once, O and the LSE written once
+    fb_ms, fb_by = bound_of(4.0 * Dh * Hh * pairs,
+                            nbytes(q, k, v, out, lse) + meta_bytes)
+    # backward: dP, dV, dQ, dK, 8 D FLOPs per live (query, key, head); q,
+    # k, v, O, dO, the LSE and the meta read once, the gradients written once
+    b_ms, b_by = bound_of(8.0 * Dh * Hh * pairs,
+                          nbytes(q, k, v, out, dout, lse, *got) + meta_bytes)
+    fwd_row = dict(case=f"{label} (forward with LSE)", max_abs_err=fwd_err,
+                   tol_ratio=fwd_ratio, planted_fault_ratio=fwd_fault,
+                   lse_max_abs_err=lse_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                   library_ms=fwd_library_ms, bound_ms=fb_ms,
+                   bound_by=fb_by, live_pairs=pairs)
+    row = dict(case=label, max_abs_err=max(errs), tol_ratio=max(ratios),
+               planted_fault_ratio=fault_ratio, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               live_pairs=pairs)
+
+    def fmt(x):
+        return "None" if x is None else f"{x:.4f}"
+
+    log(f"[K2 forward with LSE] {label}: max_abs_err {fwd_err:.3e}, "
+        f"{fwd_ratio:.3f}x the limit ("
+        + ("flash_error_limit" if dtype == torch.bfloat16
+           else "1e-5 + 1e-5 |want|")
+        + f"); LSE {lse_err:.3e}; planted fault {fwd_fault:.1f}x; kernel_ms "
+        f"{fwd_ms:.4f} plain_ms {fwd_plain_ms:.4f} library_ms "
+        f"{fmt(fwd_library_ms)} bound_ms {fb_ms:.4f} ({fb_by}; {pairs} "
+        "live pairs a head)")
+    log(f"[K2-backward] {label}: max_abs_err {max(errs):.3e}, "
+        f"{max(ratios):.3f}x the limit (flash_backward_error_limit; dq/dk/dv "
+        f"{', '.join(f'{r:.3f}' for r in ratios)}); "
+        f"planted faults {json.dumps(fault_ratio)}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {fmt(library_ms)} "
+        f"bound_ms {b_ms:.4f} ({b_by}; {pairs} live pairs a head)")
+    return fwd_row, row
+
+
+@_timed
+def phase_k2_backward() -> tuple:
+    """2b: K2 with its LSE and K2-backward at the training shape, in
+    float32 and soft-capped.  Returns (K2 rows, K2-backward rows)."""
+    from helix_tpu_torch.ops.attention import flash_backward_kernel_info
+
+    for which, info in flash_backward_kernel_info(D).items():
+        log(f"[build] flash_attention_backward {which} kernel at D {D}: "
+            f"{info['regs']} registers, {info['spill_bytes']} B local "
+            f"(spill) memory, {info['smem_bytes']} B shared memory per "
+            f"block, {info['blocks_per_sm']} blocks per SM")
+        if info["blocks_per_sm"] < 1:
+            raise AssertionError(f"K2-backward {which}: a block does not "
+                                 "fit an SM")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.default_rng(6)
+    pairs = [
+        _k2b_case(f"train: B {TRAIN_B} S {TRAIN_S} H 32 KVH 8 D 128 bf16, "
+                  "packed chats", TRAIN_B, TRAIN_S, (H, KVH, D),
+                  torch.bfloat16, gen, rng,
+                  faults=("wrong_kv_head", "no_causal", "no_delta")),
+        _k2b_case("float32: B 2 S 300 H 8 KVH 2 D 64, packed", 2, 300,
+                  (8, 2, 64), torch.float32, gen, rng,
+                  faults=("wrong_kv_head", "no_causal", "no_delta")),
+        _k2b_case("soft cap 2.0: B 2 S 512 H 32 KVH 8 D 128 bf16, packed",
+                  2, 512, (H, KVH, D), torch.bfloat16, gen, rng, cap=2.0,
+                  faults=("wrong_kv_head", "no_causal", "no_delta",
+                          "no_cap_derivative")),
+    ]
+    _free()
+    return [f for f, _ in pairs], [b for _, b in pairs]
+
+
+# ---------------------------------------------------------------------------
+# 4p. LoRA SFT at full width, publish, serve
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20
+# peak learning rate: AdamW moves each adapter entry by up to lr a step;
+# at 1e-3 a 1024-token batch's loss fell 0.75 in one step in a probe
+# (random weights), far past the step-to-step noise of the data
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+TRAIN_ROWS = 400          # chat rows of the phase's JSONL
+TRAIN_CHATS = 8
+TRAIN_NEW_TOKENS = 32
+# the 2-layer float32 witness: card vs CPU, 3 steps of 2 x 256 tokens,
+# the same sums in other orders on both sides:
+# - each step's loss within 1e-6 relative (a mean of ~500 float32 token
+#   losses: ~1e-7 apart);
+# - the adapters' update (end - start) within 2% of its L2 norm.  Not per
+#   element, nor Adam's moments: Adam's first step of an entry is
+#   lr g / (|g| + eps), +-lr, so an entry whose gradient lies inside the
+#   two sides' summation noise may step the other way (2 lr), and the next
+#   step's gradients see that; k such entries among the N = 852k of two
+#   layers move the norm by ~2 sqrt(k / N), 2% at ~90 of them.
+# TF32 (10-bit GEMM inputs, ~1e-3 relative) must break one of them.
+TRAIN_WITNESS = dict(batch=2, seq=256, steps=3)
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_UPDATE_RTOL = 2e-2
+TRAIN_WORDS = (
+    "the model serves each request on one card while the adapter learns "
+    "a short house style for replies tokens stream back through the "
+    "engine and the scheduler keeps every tenant within its budget so a "
+    "chat stays fast when the batch is full").split()
+
+
+def _train_rows(rng, n) -> list:
+    """Chat rows of the phase's JSONL: a system prompt, a user turn of
+    8-40 words and an assistant turn of 40-300 words."""
+    def words(lo, hi):
+        return " ".join(rng.choice(TRAIN_WORDS, int(rng.integers(lo, hi))))
+
+    return [{"messages": [
+        {"role": "system", "content": "You are a helpful assistant."},
+        {"role": "user", "content": words(8, 40)},
+        {"role": "assistant", "content": words(40, 300)}]}
+        for _ in range(n)]
+
+
+def _update_gap(got: dict, want: dict, start: dict) -> float:
+    """||got - want|| / ||want - start|| over every adapter entry: the
+    relative L2 gap of the two sides' updates."""
+    num = den = 0.0
+    for t in want:
+        for n in want[t]:
+            g, w = got[t][n].float().cpu(), want[t][n].float().cpu()
+            num += float(((g - w) ** 2).sum())
+            den += float(((w - start[t][n].float()) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _train_witness(smi, examples, tmpdir) -> dict:
+    """4p.3: 2 layers at full width in float32: three trainer steps on
+    the card and on the CPU from the same adapter (TF32 off, the default)
+    agree within the limits above; TF32 on (the control) breaks them.
+    Then the card's witness adapter, saved, gives the same greedy tokens
+    through the adapter pool (``POST /v1/adapters``' store path) as the
+    build that merges it at apply (``build_served_model(adapter=...)``,
+    the profile's ``adapter:``)."""
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig, Request
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params, params_to
+    from helix_tpu_torch.training.checkpoint import save_checkpoint
+    from helix_tpu_torch.training.data import pack_examples
+    from helix_tpu_torch.training.lora import init_lora_params
+    from helix_tpu_torch.training.sft import SFTConfig, SFTTrainer
+
+    w = TRAIN_WITNESS
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=2, dtype="float32")
+    params = init_params(cfg, 3, device="cuda")
+    conf = SFTConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                     total_steps=w["steps"], batch_size=w["batch"],
+                     seq_len=w["seq"])
+    batch = next(pack_examples(examples, w["batch"], w["seq"],
+                               shuffle_seed=0))
+    start = init_lora_params(cfg, conf.lora, 0, device="cpu")
+
+    def run(p, dev):
+        tr = SFTTrainer(cfg, p, conf)
+        tr.lora_params = {t: {n: x.to(dev).clone() for n, x in f.items()}
+                          for t, f in start.items()}
+        t0 = time.monotonic()
+        losses = [tr.train_step(batch) for _ in range(w["steps"])]
+        return losses, tr.lora_params, time.monotonic() - t0
+
+    card_l, card_p, card_s = run(params, "cuda")
+    cpu_l, cpu_p, cpu_s = run(params_to(params, "cpu"), "cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf_l, tf_p, _ = run(params, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def gaps(losses, lora):
+        return (max(abs(x - y) / abs(y) for x, y in zip(losses, cpu_l)),
+                _update_gap(lora, cpu_p, start))
+
+    def within(g):
+        return g[0] <= TRAIN_LOSS_RTOL and g[1] <= TRAIN_UPDATE_RTOL
+
+    f32_gaps, tf_gaps = gaps(card_l, card_p), gaps(tf_l, tf_p)
+    log(f"[train witness] ({smi}) 2 layers full width f32, {w['steps']} "
+        f"steps of {w['batch']} x {w['seq']}: losses card {card_l} cpu "
+        f"{cpu_l}; loss gap {f32_gaps[0]:.3e} (limit {TRAIN_LOSS_RTOL} "
+        f"relative), update gap {f32_gaps[1]:.3e} (limit "
+        f"{TRAIN_UPDATE_RTOL}); TF32 (the control) {tf_gaps[0]:.3e}, "
+        f"{tf_gaps[1]:.3e}; card {card_s:.2f} s, cpu {cpu_s:.2f} s")
+    if not within(f32_gaps):
+        raise AssertionError(f"card trainer differs from the CPU's: "
+                             f"{f32_gaps}")
+    if within(tf_gaps):
+        raise AssertionError("TF32 (the control) stayed within the "
+                             "witness limits: they cannot see a rounding")
+    ck = os.path.join(tmpdir, "witness")
+    save_checkpoint(ck, w["steps"], card_p, {"count": w["steps"]},
+                    lora_scaling=conf.lora.scaling)
+    geo = dict(max_decode_batch=4, page_size=16, num_pages=256,
+               max_pages_per_seq=64, max_prefill_len=512,
+               eos_token_ids=(1,))
+    pooled = Engine(cfg, params, EngineConfig(**geo, adapter_pool_slots=2,
+                                              adapter_rank=16),
+                    device="cuda")
+    pooled.adapter_store.publish_checkpoint("w", ck)
+    merged = build_served_model(
+        MODEL, device="cuda", seed=3, warmup=False, engine=geo,
+        model_overrides={"num_layers": 2, "dtype": "float32"}, adapter=ck)
+    merged.loop.stop()
+    sp = SamplingParams(temperature=0.0, max_tokens=16)
+
+    def greedy(eng, prompt, adapter=""):
+        r = Request(id=f"w{adapter}{len(prompt)}", prompt_tokens=prompt,
+                    sampling=sp, adapter=adapter)
+        eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+        return r.output_tokens
+
+    prompts = [list(e.input_ids[:48]) for e in examples[:4]]
+    same = [greedy(pooled, p, "w") == greedy(merged.loop.engine, p)
+            for p in prompts]
+    moved = sum(greedy(pooled, p) != greedy(merged.loop.engine, p)
+                for p in prompts)
+    log(f"[train witness] f32 greedy tokens through the pool = the "
+        f"merge-at-apply build: {sum(same)} of {len(same)}; the base "
+        f"model's differ in {moved} of {len(prompts)}")
+    if not all(same):
+        raise AssertionError(f"pool tokens differ from the merge-at-apply "
+                             f"build: {same}")
+    del pooled, merged, params
+    _free()
+    return {"gaps": f32_gaps, "tf32_gaps": tf_gaps,
+            "pool_equals_merged": sum(same)}
+
+
+@_timed
+def phase_train(smi) -> dict:
+    """4p: LoRA SFT of Llama-3-8B at full width, publish, serve; then the
+    2-layer float32 witness (``_train_witness``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from helix_tpu_torch.cli import make_engine_loop
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.ops.attention import K2, K2B
+    from helix_tpu_torch.serving.registry import ServedModel
+    from helix_tpu_torch.serving.tokenizer import HFTokenizer
+    from helix_tpu_torch.testing.tokenizer_fixtures import FIXTURES
+    from helix_tpu_torch.training.checkpoint import save_checkpoint
+    from helix_tpu_torch.training.data import load_jsonl, pack_examples
+    from helix_tpu_torch.training.sft import SFTConfig, SFTTrainer
+
+    tmpdir = tempfile.mkdtemp(prefix="helix-train-")
+    rng = np.random.default_rng(16)
+    try:
+        tok = HFTokenizer(os.path.join(FIXTURES["llama3"], "tokenizer.json"),
+                          MODEL)
+        data = os.path.join(tmpdir, "chats.jsonl")
+        with open(data, "w") as f:
+            for row in _train_rows(rng, TRAIN_ROWS):
+                f.write(json.dumps(row) + "\n")
+        t0 = time.monotonic()
+        examples = load_jsonl(data, tok)
+        tok_s = time.monotonic() - t0
+        cfg = CATALOG[MODEL]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, 0, device="cuda")
+        conf = SFTConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                         seq_len=TRAIN_S)
+        trainer = SFTTrainer(cfg, params, conf)
+
+        def batches():
+            epoch = 0
+            while True:
+                yield from pack_examples(examples, TRAIN_B, TRAIN_S,
+                                         shuffle_seed=epoch)
+                epoch += 1
+
+        live = []        # non-padding tokens of each step's batch
+
+        def counted():
+            for b in batches():
+                live.append(int((b.segment_ids > 0).sum()))
+                yield b
+
+        stamps, trace = [time.monotonic()], {}
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def on_step(n):
+            stamps.append(time.monotonic())
+            if n == TRAIN_STEPS - 1:       # trace the last step alone
+                prof.__enter__()
+                trace["t0"] = time.monotonic()
+            elif n == TRAIN_STEPS:
+                prof.__exit__(None, None, None)
+                trace["wall_ms"] = (stamps[-1] - trace["t0"]) * 1e3
+
+        K2.launches = K2B.launches = 0
+        history = trainer.train(counted(), log_every=1, on_step=on_step,
+                                on_log=lambda m: log(f"[train] {m}"))
+        launches = {"flash_attention": K2.launches,
+                    "flash_attention_backward": K2B.launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = sum(_kernel_ms(prof).values())
+        idle = 1.0 - busy / trace["wall_ms"]
+        steps = np.diff(stamps)
+        # the first step warms up cuBLAS, the traced (last) one runs slower
+        steady = range(1, TRAIN_STEPS - 1)
+        step_ms = float(np.median([steps[i] for i in steady])) * 1e3
+        live_tps = float(np.median([live[i] / steps[i] for i in steady]))
+        log(f"[train] ({smi}) {MODEL} full width, {cfg.num_layers} layers, "
+            f"bf16, LoRA r {conf.lora.rank} alpha {conf.lora.alpha} on "
+            f"{'/'.join(conf.lora.targets)}: {TRAIN_STEPS} steps of "
+            f"{TRAIN_B} x {TRAIN_S} ({len(examples)} chats tokenized in "
+            f"{tok_s:.2f} s); loss {history[0]:.4f} -> {history[-1]:.4f}; "
+            f"step ms median {step_ms:.1f} (first {steps[0] * 1e3:.1f}), "
+            f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s "
+            f"({live_tps:.0f} live); peak {peak:.2f} GiB; one traced step "
+            f"{trace['wall_ms']:.1f} ms, device busy {busy:.1f} ms, idle "
+            f"share {idle:.3f}; launches {launches}")
+        want = TRAIN_STEPS * cfg.num_layers
+        if launches != {"flash_attention": want,
+                        "flash_attention_backward": want}:
+            raise AssertionError(f"training launches {launches}: every "
+                                 f"attention forward and backward of "
+                                 f"{TRAIN_STEPS} steps x {cfg.num_layers} "
+                                 "layers must launch K2 and K2-backward")
+        if not history[-1] < history[0]:
+            raise AssertionError(f"the loss did not fall: {history}")
+        ck = os.path.join(tmpdir, "sft")
+        save_checkpoint(ck, trainer.step_num, trainer.lora_params,
+                        trainer.opt_state, lora_scaling=conf.lora.scaling)
+        del trainer
+        _free()
+
+        # 4p.2: the same base tensors served with an adapter pool
+        eng = Engine(cfg, params, EngineConfig(
+            max_decode_batch=TRAIN_CHATS, page_size=16, num_pages=2048,
+            max_pages_per_seq=128, max_prefill_len=1024,
+            adapter_pool_slots=8, adapter_rank=16,
+            eos_token_ids=tuple(tok.eos_ids)), device="cuda")
+        served = ServedModel(name=MODEL, loop=make_engine_loop(eng, MODEL),
+                             tokenizer=_IdTokenizer(tok),
+                             context_length=eng.max_context_len)
+        httpd, base, registry = _start_server(served)
+        try:
+            t0 = time.monotonic()
+            pub = json.loads(_post(base + "/v1/adapters", {
+                "model": MODEL, "name": "sft", "checkpoint": ck}))
+            pub_s = time.monotonic() - t0
+            if (pub["id"], pub["object"], pub["parent"], pub["rank"],
+                    pub["scale"]) != (f"{MODEL}@sft", "model", MODEL, 16,
+                                      conf.lora.scaling):
+                raise AssertionError(f"publish answered {pub}")
+            bodies = [{"model": f"{MODEL}@sft", "messages": [
+                {"role": "system", "content": "You are a helpful assistant."},
+                {"role": "user", "content": " ".join(
+                    rng.choice(TRAIN_WORDS, 12))}]}
+                for _ in range(TRAIN_CHATS)]
+            tuned, t_s, _ = _gated_batch(base, served.loop, None,
+                                         TRAIN_NEW_TOKENS, bodies=bodies)
+            plain, p_s, _ = _gated_batch(
+                base, served.loop, None, TRAIN_NEW_TOKENS,
+                bodies=[{**b, "model": MODEL} for b in bodies])
+        finally:
+            _unserve(served, httpd, registry)
+        differ = sum(a != b for a, b in zip(tuned, plain))
+        log(f"[train] POST /v1/adapters {pub_s * 1e3:.1f} ms ({pub}); "
+            f"{TRAIN_CHATS} chats to {MODEL}@sft in {t_s:.2f} s, "
+            f"{sum(len(t) > 0 for t in tuned)} answered, {differ} unlike "
+            f"the base model's ({p_s:.2f} s)")
+        if not all(tuned) or differ != TRAIN_CHATS:
+            raise AssertionError(f"adapter chats: {sum(map(bool, tuned))} "
+                                 f"answered, {differ} unlike the base's")
+        del eng, served, params
+        _free()
+        witness = _train_witness(smi, examples, tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return {"launches": launches, "loss": history, "step_ms": step_ms,
+            "peak_gib": peak, "idle_share": idle, "witness": witness}
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -7909,7 +8522,8 @@ def phase_parity(int8: bool = False) -> dict:
 
 
 def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
-                by_path=None, cold_rows=(), cold_int8_rows=()) -> dict:
+                by_path=None, cold_rows=(), cold_int8_rows=(),
+                k2b_rows=()) -> dict:
     """The kernels JSON line: ``launches`` is the count on the first main
     path that runs the kernel, ``launches_by_path`` each path's own."""
     by_path = by_path or {}
@@ -7950,6 +8564,11 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
               "helix_tpu_torch/csrc/ragged_paged_attention.cu",
               "helix_tpu/ops/paged.py:132 (tiered, int8; no Pallas form)",
               cold_int8_rows),
+        entry("flash_attention_backward",
+              "helix_tpu_torch/csrc/flash_attention_bwd.cu",
+              "helix_tpu/ops/attention.py:258 (its gradient: no Pallas "
+              "backward, JAX differentiates it, helix_tpu/training/"
+              "sft.py:102)", k2b_rows),
     ]}
 
 
@@ -7958,15 +8577,17 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
-                             "disagg", "context", "vision", "moe"),
+                             "disagg", "context", "vision", "moe",
+                             "train"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
-                         "'node' / 'tunnel' / 'disagg' / 'context': those "
-                         "and the hot-swap / adapter / checkpoint / "
-                         "scheduler / node-agent / tunnel and embedding / "
-                         "disagg handoff and filestore / tiered context "
-                         "phase")
+                         "'node' / 'tunnel' / 'disagg' / 'context' / "
+                         "'vision' / 'moe' / 'train': those and the "
+                         "hot-swap / adapter / checkpoint / scheduler / "
+                         "node-agent / tunnel and embedding / disagg "
+                         "handoff and filestore / tiered context / "
+                         "Qwen2-VL / Mixtral / LoRA SFT phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7986,6 +8607,8 @@ def main(argv=None) -> int:
     k2_rows += k2_vl
     k1_rows += k1_vl
     cold_rows, cold_int8_rows = phase_k1_cold()
+    k2_train, k2b_rows = phase_k2_backward()
+    k2_rows += k2_train
     launches, by_path = {}, {}
     if args.phase == "hotswap":
         swap = phase_hotswap(dev["smi"])
@@ -8028,6 +8651,10 @@ def main(argv=None) -> int:
         moe = phase_moe(dev["smi"])
         launches = dict(moe["launches"])
         by_path = {k: {"moe": n} for k, n in launches.items()}
+    if args.phase == "train":
+        tr = phase_train(dev["smi"])
+        launches = dict(tr["launches"])
+        by_path = {k: {"train": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -8053,6 +8680,7 @@ def main(argv=None) -> int:
         ctx = phase_context(dev["smi"])
         vis = phase_vision(dev["smi"])
         moe = phase_moe(dev["smi"])
+        tr = phase_train(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -8063,6 +8691,8 @@ def main(argv=None) -> int:
                 ctx["launches"]["ragged_paged_attention_int8_cold"],
             "ragged_paged_attention_cold":
                 ctx["launches"]["ragged_paged_attention_cold"],
+            "flash_attention_backward":
+                tr["launches"]["flash_attention_backward"],
         }
         by_path = {
             "ragged_paged_attention": {
@@ -8079,7 +8709,8 @@ def main(argv=None) -> int:
                 "tunnel": tun["launches"]["flash_attention"],
                 "disagg": dis["launches"]["flash_attention"],
                 "vision": vis["launches"]["flash_attention"],
-                "moe": moe["launches"]["flash_attention"]},
+                "moe": moe["launches"]["flash_attention"],
+                "train": tr["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -8100,13 +8731,15 @@ def main(argv=None) -> int:
             "ragged_paged_attention_cold": {
                 "context witness, 2 layers float32":
                     ctx["launches"]["ragged_paged_attention_cold"]},
+            "flash_attention_backward": {
+                "train": tr["launches"]["flash_attention_backward"]},
         }
         phase_parity()
         phase_parity(int8=True)
     _check_step_failures()
     log(json.dumps(kernel_line(k1_rows, k1_int8_rows, k2_rows, launches,
                                dev["infos"], by_path, cold_rows,
-                               cold_int8_rows)))
+                               cold_int8_rows, k2b_rows)))
     log(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

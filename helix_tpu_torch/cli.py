@@ -1,4 +1,5 @@
-"""Command line of the port: ``python -m helix_tpu_torch serve-node``.
+"""Command line of the port: ``python -m helix_tpu_torch serve-node``
+and ``python -m helix_tpu_torch sft``.
 
 The counterpart of ``helix-tpu serve-node``: a profile entry with a
 ``checkpoint:`` directory serves that HF safetensors checkpoint (its
@@ -18,6 +19,24 @@ names) with random weights made on the device from a seed and the
         [--advertise http://this-node:8000]
     python -m helix_tpu_torch serve-node --runner-id a --tunnel \\
         --control-plane http://cp:8080 [--unix-socket /run/helix.sock]
+    python -m helix_tpu_torch sft --data chats.jsonl \\
+        --model meta-llama/Meta-Llama-3-8B-Instruct --output ckpt/ \\
+        [--checkpoint hf-dir] [--steps 100] [--device cuda]
+
+``sft`` is the reference's ``helix-tpu sft`` on one device: LoRA
+adapters (rank ``--rank``, alpha ``--alpha``, on wq, wk, wv and wo) on a
+frozen base, the checkpoint's weights and tokenizer or the catalog
+architecture with random weights from seed 0 and the byte tokenizer,
+trained on the JSONL rows (``{"messages": [...]}`` or ``{"prompt",
+"completion"}``) packed into ``--batch-size`` x ``--seq-len`` batches
+(``training.sft.SFTTrainer``), one JSON line every ``--log-every``
+steps, an adapter checkpoint under ``--output`` every ``--save-every``
+steps and at the end (``--resume`` continues from its latest).  It runs
+on the card unless ``--device cpu`` is given.  ``--coordinator``,
+``--num-hosts`` and ``--host-rank`` (training over several hosts) are
+refused (ROADMAP A15b).  A saved checkpoint serves without a restart
+through ``POST /v1/adapters`` (the multi-LoRA pool, ``model@name``) or
+merged at profile-apply time by an entry's ``adapter:`` field.
 
 The node is run by the node agent (``control.node_agent.NodeAgent``),
 which owns the registry: ``--profile`` (or ``--model``) is applied at
@@ -94,10 +113,14 @@ the catalog's ``mistralai/Mixtral-8x7B-Instruct-v0.1``) is a chat entry
 like any other: its engine takes the reference's MoE rules.  What is not
 ported yet is refused at start too, before any weights are made, naming
 its ROADMAP item: a ``mesh`` with an axis above 1 (A15b; ``{tp: 1}`` is
-the one device), a ``multihost`` block (A15b), an
-``adapter`` merged into the weights at apply time (it restores a training
-checkpoint: A18).  A profile assigned by the control plane with
-such an entry fails its apply with that text (``status: failed``).
+the one device) and a ``multihost`` block (A15b).  A profile assigned by
+the control plane with such an entry fails its apply with that text
+(``status: failed``).  A chat or vision entry's ``adapter:`` (a
+``sft --output`` directory) is restored and grafted into its weights at
+build (``training.lora.merge_lora_into_params``), applied at
+``adapter_scale`` or else the scale it was trained at; an embedding
+entry's is ignored with a log line, as the reference node agent ignores
+it.
 
 The node's operator overrides, as the reference node agent reads them:
 ``HELIX_KV_HOST_POOL_BYTES`` replaces every engine's ``host_pool_bytes``
@@ -213,7 +236,8 @@ def build_served_model(
     model_overrides: dict | None = None, seed: int = 0,
     context_length: int | None = None, warmup: bool = True,
     quantization: str | None = None, checkpoint: str | None = None,
-    slo: dict | None = None, kind: str = "chat",
+    slo: dict | None = None, kind: str = "chat", adapter: str | None = None,
+    adapter_scale: float | None = None,
 ) -> ServedModel:
     """An ``Engine`` and a started ``EngineLoop`` for one model: the
     weights of ``checkpoint`` (an HF safetensors directory, with its
@@ -228,7 +252,9 @@ def build_served_model(
     (``build_embedding_model``), ``kind="vision-embedding"`` the vision
     pooling worker (``build_vision_embedding_model``); ``kind="vision"``
     is a chat entry whose weights are a Qwen2-VL model's, its vision
-    tower served beside the engine (``ServedModel.vision``)."""
+    tower served beside the engine (``ServedModel.vision``).  ``adapter``
+    (a LoRA training checkpoint directory) is merged into the weights
+    (``merge_adapter``)."""
     if kind == "embedding":
         return build_embedding_model(
             name, device=device, engine=engine, seed=seed,
@@ -292,6 +318,8 @@ def build_served_model(
     else:
         params = init_params(cfg, seed, device=dev,
                              quantization=quantization)
+    if adapter:
+        params = merge_adapter(params, adapter, adapter_scale, dev)
     stamps.append(_stamp(dev))
     eng = Engine(cfg, params, ecfg, rng_seed=seed, device=dev)
     stamps.append(_stamp(dev))
@@ -312,6 +340,18 @@ def build_served_model(
                        context_length=context_length or eng.max_context_len,
                        build_seconds=split, load_stats=load_stats,
                        vision=vision)
+
+
+def merge_adapter(params: dict, adapter: str, scale, device) -> dict:
+    """The profile's merge-at-apply adapter (the reference node agent's
+    ``adapter:`` branch): the latest step of the LoRA checkpoint under
+    ``adapter`` grafted into ``params`` on ``device``, at ``scale`` or
+    else the checkpoint's (``training.checkpoint.restore_adapter``)."""
+    from helix_tpu_torch.training.checkpoint import restore_adapter
+    from helix_tpu_torch.training.lora import merge_lora_into_params
+
+    lora, scale = restore_adapter(adapter, scale, device=device)
+    return merge_lora_into_params(params, lora, scale)
 
 
 def _special(tok, token: str, default: int) -> int:
@@ -513,11 +553,6 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
             and not os.path.isfile(os.path.join(m.checkpoint,
                                                 "config.json")):
         out.append(f"{m.checkpoint}/config.json: no such file")
-    if m.adapter:
-        out.append("an adapter merged into the weights at apply time is "
-                   "not ported yet: it restores a training checkpoint "
-                   "(ROADMAP A18); serve adapters through "
-                   "engine.adapter_pool_slots")
     mesh = {k: v for k, v in m.mesh.to_dict().items()
             if v != (0 if k == "device_offset" else 1)}
     if m.mesh.num_devices > 1 or m.mesh.device_offset > 0:
@@ -562,6 +597,10 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
             log.warning("%s: serving random weights (seed %d) in place of "
                         "checkpoint %s", m.name, seed, checkpoint)
             checkpoint = None
+        if m.adapter and m.kind in ("embedding", "vision-embedding"):
+            log.warning("%s: adapter %s is not applied to a %s entry (as "
+                        "the reference node agent)", m.name, m.adapter,
+                        m.kind)
         if m.kind == "embedding":
             specs.append(dict(name=m.name, kind="embedding", engine=eng,
                               context_length=m.context_length,
@@ -580,6 +619,9 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
         ))
         if m.kind == "vision":
             specs[-1]["kind"] = "vision"
+        if m.adapter:
+            specs[-1].update(adapter=m.adapter,
+                             adapter_scale=m.adapter_scale)
     if refused:
         raise NotImplementedError("; ".join(refused))
     return specs
@@ -755,6 +797,71 @@ def _cmd_serve_node(args) -> int:
     return 0
 
 
+def _cmd_sft(args) -> int:
+    """LoRA SFT on one device: the reference's ``helix-tpu sft``
+    (``helix_tpu/cli.py`` ``_cmd_sft``), its flags and JSON lines."""
+    from helix_tpu_torch.training.checkpoint import (
+        resume_trainer,
+        save_checkpoint,
+    )
+    from helix_tpu_torch.training.data import load_jsonl, pack_examples
+    from helix_tpu_torch.training.lora import LoraConfig
+    from helix_tpu_torch.training.sft import SFTConfig, SFTTrainer
+
+    multi = [f"--{n.replace('_', '-')}" for n in
+             ("coordinator", "num_hosts", "host_rank")
+             if getattr(args, n) is not None]
+    if multi:
+        raise SystemExit(f"sft: {', '.join(multi)}: training over several "
+                         "hosts is not ported yet (ROADMAP A15b)")
+    dev = resolve_device(args.device)
+    tokenizer = load_tokenizer(args.checkpoint, args.model)
+    if args.checkpoint:
+        model_cfg, params = load_params(args.checkpoint, device=dev)
+    else:
+        model_cfg = CATALOG.get(args.model) or ModelConfig.tiny(
+            name=args.model)
+        params = init_params(model_cfg, 0, device=dev)
+    cfg = SFTConfig(
+        lora=LoraConfig(rank=args.rank, alpha=args.alpha),
+        learning_rate=args.lr,
+        total_steps=args.steps,
+        batch_size=args.batch_size,
+        seq_len=args.seq_len,
+    )
+    trainer = SFTTrainer(model_cfg, params, cfg)
+    if args.resume and args.output:
+        if resume_trainer(trainer, args.output):
+            print(f"resumed from step {trainer.step_num}")
+    examples = load_jsonl(args.data, tokenizer)
+    print(f"loaded {len(examples)} examples")
+
+    def batches():
+        epoch = 0
+        while True:
+            yield from pack_examples(examples, cfg.batch_size, cfg.seq_len,
+                                     shuffle_seed=epoch)
+            epoch += 1
+
+    def on_log(m):
+        print(json.dumps(m), flush=True)
+
+    def on_step(step):
+        if args.output and step % args.save_every == 0:
+            save_checkpoint(args.output, trainer.step_num,
+                            trainer.lora_params, trainer.opt_state,
+                            lora_scaling=trainer.cfg.lora.scaling)
+
+    trainer.train(batches(), log_every=args.log_every, on_log=on_log,
+                  on_step=on_step)
+    if args.output:
+        save_checkpoint(args.output, trainer.step_num, trainer.lora_params,
+                        trainer.opt_state,
+                        lora_scaling=trainer.cfg.lora.scaling)
+        print(f"saved adapters to {args.output}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="helix_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -784,5 +891,26 @@ def main(argv=None) -> int:
                    help="serve profile entries that name a checkpoint "
                         "with random weights from --seed")
     n.set_defaults(fn=_cmd_serve_node)
+    t = sub.add_parser("sft", help="LoRA supervised fine-tune from JSONL")
+    t.add_argument("--data", required=True, help="JSONL dataset path")
+    t.add_argument("--model", default="tiny", help="catalogue model name")
+    t.add_argument("--checkpoint",
+                   help="HF checkpoint dir (weights+tokenizer)")
+    t.add_argument("--output", help="adapter checkpoint dir")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--rank", type=int, default=16)
+    t.add_argument("--alpha", type=float, default=32.0)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--steps", type=int, default=100)
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--seq-len", type=int, default=1024)
+    t.add_argument("--save-every", type=int, default=50)
+    t.add_argument("--log-every", type=int, default=10)
+    t.add_argument("--device", default=DEFAULT_DEVICE)
+    t.add_argument("--coordinator", default=None,
+                   help="refused: several hosts are ROADMAP A15b")
+    t.add_argument("--num-hosts", type=int, default=None)
+    t.add_argument("--host-rank", type=int, default=None)
+    t.set_defaults(fn=_cmd_sft)
     args = p.parse_args(argv)
     return args.fn(args)

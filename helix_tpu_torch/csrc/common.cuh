@@ -11,6 +11,7 @@
 namespace helix {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // -0.7 * FLT_MAX, the reference's DEFAULT_MASK_VALUE: exp(mask - m) is
 // exactly 0 once a row has seen one live score.

@@ -50,6 +50,13 @@
 //   form keeps the first design unchanged: shared-memory FMA loops, one
 //   block per (64-query tile, head, batch row), KV tiles of 32, the same
 //   causal tile skip.
+//
+// Both forms also write each row's log-sum-exp, f32 [B, H, Sq] in natural
+// log units, when the caller passes an ``lse`` pointer (training: the
+// backward kernel, flash_attention_bwd.cu, recomputes P = exp(S - lse)
+// from it).  Serving calls pass null and only test the pointer in the
+// epilogue.  A row that saw no live key writes +inf, so the backward
+// gives it P = 0 and zero gradients.
 
 #include <limits.h>
 
@@ -81,9 +88,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ qpos,
              const int* __restrict__ kpos, const int* __restrict__ qseg,
-             const int* __restrict__ kseg, T* __restrict__ out, int Sq,
-             int Skv, int H, int KVH, int causal, float scale,
-             float soft_cap) {
+             const int* __restrict__ kseg, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Skv, int H, int KVH,
+             int causal, float scale, float soft_cap) {
   constexpr int DP = D + 1;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kBQ;
@@ -181,13 +188,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float o = l == 0.f ? 0.f : acc_s[e] / l;
     out[(((size_t)b * Sq + q0 + i) * H + h) * D + d] = from_float<T>(o);
   }
+  if (lse != nullptr) {
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const float m = m_s[i], l = l_s[i];
+      lse[((size_t)b * H + h) * Sq + q0 + i] =
+          (m > 0.5f * kMaskValue && l > 0.f) ? m + logf(l) : INFINITY;
+    }
+  }
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, const int* qseg,
-                       const int* kseg, void* out, int B, int Sq, int Skv,
-                       int H, int KVH, int causal, float scale,
+                       const int* kseg, void* out, float* lse, int B, int Sq,
+                       int Skv, int H, int KVH, int causal, float scale,
                        float soft_cap, cudaStream_t stream, int* info) {
   const size_t smem = flash_smem_bytes<D>();
   auto kern = flash_kernel<float, D>;
@@ -199,7 +213,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), qpos, kpos, qseg, kseg,
-      static_cast<float*>(out), Sq, Skv, H, KVH, causal, scale, soft_cap);
+      static_cast<float*>(out), lse, Sq, Skv, H, KVH, causal, scale,
+      soft_cap);
   return cudaGetLastError();
 }
 
@@ -268,8 +283,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ v,
                    const int* __restrict__ qpos, const int* __restrict__ kpos,
                    const int* __restrict__ qseg, const int* __restrict__ kseg,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                   int KVH, int D, int causal, float scale, float soft_cap) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int Sq, int Skv, int H, int KVH, int D, int causal,
+                   float scale, float soft_cap) {
   using S = WgSmem<DP>;
   constexpr int kTB = S::kTileBytes;
   constexpr int kChunks = DP / 8;
@@ -503,6 +519,18 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   l1 = quad_sum(l1);
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m and l are in log2 units (exp2 with log2 e folded into the scale)
+    const size_t o = ((size_t)b * H + h) * Sq + q0;
+    if (ok0)
+      lse[o + r0] = (m0 > 0.5f * kMaskValue && l0 > 0.f)
+                        ? (m0 + log2f(l0)) * kLn2
+                        : INFINITY;
+    if (ok1)
+      lse[o + r1] = (m1 > 0.5f * kMaskValue && l1 > 0.f)
+                        ? (m1 + log2f(l1)) * kLn2
+                        : INFINITY;
+  }
 #pragma unroll
   for (int c = 0; c < DP / 8; ++c) {
     const int col = c * 8 + ((lane & 3) << 1);
@@ -527,9 +555,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const int* qpos, const int* kpos, const int* qseg,
-                        const int* kseg, void* out, int B, int Sq, int Skv,
-                        int H, int KVH, int D, int causal, float scale,
-                        float soft_cap, cudaStream_t stream, int* info) {
+                        const int* kseg, void* out, float* lse, int B, int Sq,
+                        int Skv, int H, int KVH, int D, int causal,
+                        float scale, float soft_cap, cudaStream_t stream,
+                        int* info) {
   const int nkt = (Skv + kTile - 1) / kTile;
   const size_t smem = WgSmem<DP>::kAlloc + (size_t)nkt * sizeof(int4);
   auto kern = flash_wgmma_kernel<DP>;
@@ -542,32 +571,34 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), qpos, kpos, qseg, kseg,
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KVH, D, causal, scale,
-      soft_cap);
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, KVH, D, causal,
+      scale, soft_cap);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
                      const void* v, const int* qpos, const int* kpos,
-                     const int* qseg, const int* kseg, void* out, int B,
-                     int Sq, int Skv, int H, int KVH, int causal,
+                     const int* qseg, const int* kseg, void* out, float* lse,
+                     int B, int Sq, int Skv, int H, int KVH, int causal,
                      float scale, float soft_cap, cudaStream_t s,
                      int* info) {
   if (dtype == 1) {
     if (D != 16 && D != 32 && D != 64 && D != 96 && D != 128)
       return cudaErrorInvalidValue;
     if (D <= 64)
-      return launch_bf16<64>(q, k, v, qpos, kpos, qseg, kseg, out, B, Sq,
-                             Skv, H, KVH, D, causal, scale, soft_cap, s,
+      return launch_bf16<64>(q, k, v, qpos, kpos, qseg, kseg, out, lse, B,
+                             Sq, Skv, H, KVH, D, causal, scale, soft_cap, s,
                              info);
-    return launch_bf16<128>(q, k, v, qpos, kpos, qseg, kseg, out, B, Sq, Skv,
-                            H, KVH, D, causal, scale, soft_cap, s, info);
+    return launch_bf16<128>(q, k, v, qpos, kpos, qseg, kseg, out, lse, B,
+                            Sq, Skv, H, KVH, D, causal, scale, soft_cap, s,
+                            info);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
 #define HELIX_K2_CASE(DIM)                                                 \
   case DIM:                                                                \
-    return launch_f32<DIM>(q, k, v, qpos, kpos, qseg, kseg, out, B, Sq,   \
-                           Skv, H, KVH, causal, scale, soft_cap, s, info);
+    return launch_f32<DIM>(q, k, v, qpos, kpos, qseg, kseg, out, lse, B,  \
+                           Sq, Skv, H, KVH, causal, scale, soft_cap, s,     \
+                           info);
   switch (D) {
     HELIX_K2_CASE(16)
     HELIX_K2_CASE(32)
@@ -586,19 +617,21 @@ cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
 // dtype: 0 = float32, 1 = bfloat16.  q/out [B, Sq, H, D], k/v
 // [B, Skv, KVH, D], qpos/qseg [B, Sq] and kpos/kseg [B, Skv] int32, all
 // contiguous device memory; qseg/kseg may both be null (no segments).
+// lse: null (serving), or f32 [B, H, Sq] for each row's log-sum-exp.
 // soft_cap <= 0 disables the cap.
 extern "C" int helix_flash_attention(
     const void* q, const void* k, const void* v, const void* qpos,
-    const void* kpos, const void* qseg, const void* kseg, void* out, int B,
-    int Sq, int Skv, int H, int KVH, int D, int causal, float scale,
-    float soft_cap, int dtype, void* stream) {
+    const void* kpos, const void* qseg, const void* kseg, void* out,
+    void* lse, int B, int Sq, int Skv, int H, int KVH, int D, int causal,
+    float scale, float soft_cap, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return cudaSuccess;
   if (Skv <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
   return static_cast<int>(helix::dispatch(
       D, dtype, q, k, v, static_cast<const int*>(qpos),
       static_cast<const int*>(kpos), static_cast<const int*>(qseg),
-      static_cast<const int*>(kseg), out, B, Sq, Skv, H, KVH, causal, scale,
-      soft_cap, static_cast<cudaStream_t>(stream), nullptr));
+      static_cast<const int*>(kseg), out, static_cast<float*>(lse), B, Sq,
+      Skv, H, KVH, causal, scale, soft_cap,
+      static_cast<cudaStream_t>(stream), nullptr));
 }
 
 // The launch resources of the kernel the call above would launch for
@@ -607,5 +640,5 @@ extern "C" int helix_flash_attention(
 extern "C" int helix_flash_attention_info(int D, int dtype, int* info) {
   return static_cast<int>(helix::dispatch(
       D, dtype, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, 1, 1, 1, 1, 1, 1, 1.f, 0.f, nullptr, info));
+      nullptr, nullptr, nullptr, 1, 1, 1, 1, 1, 1, 1.f, 0.f, nullptr, info));
 }

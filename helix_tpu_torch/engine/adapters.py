@@ -27,12 +27,10 @@ are ``[L, N, in, r]``): a layer's ``[in, N, r]`` slice is then a view of
 with no copy per projection.  ``b`` is ``[L, N, r, out]`` as in the
 reference.
 
-Not ported yet: ``AdapterStore.publish_checkpoint`` (the reference
-restores an orbax SFT checkpoint; torch-native checkpoints come with
-training, ROADMAP A18), and the metric and heartbeat helpers
-(``collect_adapter_metrics``, ``adapter_residency_summary``,
-``validate_adapter_block``), which come with ``/metrics`` and the node
-agent (A7).
+``AdapterStore.publish_checkpoint`` publishes a LoRA training checkpoint
+(``training.checkpoint``, the port's torch-native format, as ``python -m
+helix_tpu_torch sft --output`` writes it): train, publish, serve without
+a restart.
 """
 
 from __future__ import annotations
@@ -339,13 +337,18 @@ class AdapterStore:
 
     def publish_checkpoint(self, adapter_id: str, ckpt_dir: str,
                            scale: Optional[float] = None) -> AdapterSpec:
-        """The reference restores an orbax LoRA SFT checkpoint here; the
-        port has no checkpoint format yet."""
-        raise NotImplementedError(
-            "publishing an adapter from a training checkpoint is not "
-            "ported yet: torch-native checkpoints come with training "
-            "(ROADMAP A18)"
-        )
+        """Publish a LoRA SFT checkpoint (the latest step under
+        ``ckpt_dir``): restore, pack, validate, admit.  The scale is
+        ``scale``, else the checkpoint's ``lora_scaling`` (1.0 when that is
+        0).  ``FileNotFoundError`` when there is no checkpoint there,
+        ``ValueError`` when it is not a LoRA checkpoint or does not fit
+        this model."""
+        from helix_tpu_torch.training.checkpoint import restore_adapter
+
+        lora, scaling = restore_adapter(ckpt_dir, scale)
+        spec = pack_lora_tree(adapter_id, lora, scaling)
+        self.publish(spec)
+        return spec
 
     # -- host rung ---------------------------------------------------------
 

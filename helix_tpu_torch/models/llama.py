@@ -176,6 +176,16 @@ def params_from_jax(tree) -> Params:
     return _to_tensor(tree)
 
 
+def lora_from_jax(tree) -> dict:
+    """A JAX LoRA tree (``helix_tpu.training.lora.init_lora_params``'s
+    ``{target: {"lora_a", "lora_b"}}``, after ``jax.device_get``) as the
+    port's adapter dict of CPU tensors, dtypes kept: so the port's
+    trainer and the reference's start from the same adapter."""
+    return {t: {"lora_a": _to_tensor(f["lora_a"]),
+                "lora_b": _to_tensor(f["lora_b"])}
+            for t, f in tree.items()}
+
+
 def params_to(params: Params, device) -> Params:
     """The parameter dict with every tensor moved to ``device``."""
     dev = resolve_device(device)

@@ -121,10 +121,48 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MatmulF32Fn.apply(x, w)
+        return _mm_f32(x, w)
     return torch.matmul(x.float(), w.float())
+
+
+def _mm_f32(x, w):
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _MatmulF32Fn(torch.autograd.Function):
+    """``matmul_f32`` on the card under autograd (training): the forward
+    is the float32-output GEMM, the backward ``_matmul_f32_vjp``.  On the
+    CPU autograd differentiates the float32 matmul, which is the same
+    formula."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _matmul_f32_vjp(x, w, g, ctx.needs_input_grad)
+
+
+def _matmul_f32_vjp(x, w, g, needs=(True, True)):
+    """``(gx, gw)`` of ``matmul_f32(x, w)`` for the float32 cotangent
+    ``g``, as JAX transposes ``dot_general(x, w,
+    preferred_element_type=float32)``: ``g`` stays float32 (where the
+    output feeds float32 arithmetic, as the logits do the loss, it is not
+    a bf16 value), each gradient is a float32 GEMM of it with the other
+    operand upcast, rounded once to that operand's dtype."""
+    gx = gw = None
+    if needs[0]:
+        gx = torch.matmul(g, w.float().T).to(x.dtype)
+    if needs[1]:
+        gw = (x.reshape(-1, x.shape[-1]).float().T
+              @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+    return gx, gw
 
 
 def expert_dense(x: torch.Tensor, p: dict) -> torch.Tensor:

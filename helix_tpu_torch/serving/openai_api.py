@@ -14,10 +14,12 @@ port needs no web framework:
   (404 otherwise, and for a model without an adapter pool), and its
   prefetch is kicked;
 - ``POST /v1/adapters`` ``{"model", "name", "checkpoint"[, "scale"]}``
-  (runner-token gated): 400 for a bad name or no checkpoint, 404 / 503
-  for the model, 409 without an adapter pool, and 501 with the store's
-  error, since publishing from a training checkpoint waits for
-  torch-native checkpoints (ROADMAP A18);
+  (runner-token gated): publishes a LoRA training checkpoint
+  (``training.checkpoint``) for ``model@name`` serving, 200 with
+  ``{"id": "model@name", "object": "model", "parent": model, ...}``;
+  400 for a bad name, no checkpoint or a directory that is not a LoRA
+  checkpoint for this model, 404 for a missing checkpoint and (or 503)
+  for the model, 409 without an adapter pool;
 - ``POST /admin/prefetch`` ``{"model"}``: stage a model in the background
   through the ``ResidencyManager`` behind the registry (200 with
   ``"prefetch": "started"|"declined"``, 404 for an unknown model, 409
@@ -1524,9 +1526,6 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             spec = store.publish_checkpoint(
                 adapter_id, ckpt, float(scale) if scale is not None else None)
-        except NotImplementedError as e:
-            self._error(501, str(e), "not_implemented_error")
-            return
         except FileNotFoundError as e:
             self._error(404, str(e))
             return

@@ -334,11 +334,34 @@ def test_blobs_read_across_packages(base, tmp_path, writer):
         assert store.get("blob1") is None and store.load_errors == 1
 
 
-def test_publish_checkpoint_names_a18(base):
+def test_publish_checkpoint_names_a18(base, tmp_path):
+    """Publishing from a LoRA training checkpoint (ROADMAP A18): the
+    port's ``publish_checkpoint`` of a checkpoint the port's trainer
+    format holds gives the spec the reference packs from the same tree
+    (checksum equal), at the checkpoint's scale (0 read as 1.0, an
+    explicit scale first), and writes it through to a filestore blob the
+    reference's store reads; a missing checkpoint is FileNotFoundError."""
+    from helix_tpu_torch.training.checkpoint import save_checkpoint
+
     _, _, cfg, _ = base
-    store, _ = _stores(cfg, "")
-    with pytest.raises(NotImplementedError, match="A18"):
-        store.publish_checkpoint("a", "/nope")
+    lora = _lora(cfg, 17)
+    tree = {t: {n: torch.from_numpy(x) for n, x in f.items()}
+            for t, f in lora.items()}
+    root = str(tmp_path / "adapters")
+    t_store, _ = _stores(cfg, root)
+    for scaling, scale, want in ((1.5, None, 1.5), (0.0, None, 1.0),
+                                 (1.5, 0.25, 0.25)):
+        ckpt = str(tmp_path / f"ck{scaling}")
+        save_checkpoint(ckpt, 4, tree, {"count": 4}, lora_scaling=scaling)
+        spec = t_store.publish_checkpoint("sft", ckpt, scale)
+        ref = jad.pack_lora_tree("sft", lora, want)
+        assert spec.scale == want and spec.rank == ref.rank == 4
+        assert spec.checksum == jad._spec_checksum(ref)
+    _, j_read = _stores(cfg, root)
+    got = j_read.get("sft")
+    assert got is not None and got.checksum == spec.checksum
+    with pytest.raises(FileNotFoundError):
+        t_store.publish_checkpoint("a", str(tmp_path / "nope"))
 
 
 def test_default_store_root_matches_reference(base, tmp_path, monkeypatch):

@@ -1812,3 +1812,233 @@ def test_moe_prefill_and_decode_dispatch_make_no_synchronising_call(cuda):
                      eng.moe_dropped_tokens))
     assert outs[1] == outs[0]
     assert outs[0][1] > 0
+
+
+# ---------------------------------------------------------------------------
+# K2-backward, K2's LSE and the autograd Function (training)
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(cuda, dtype, B, S, H, KVH, D, seed, cap=None):
+    """Packed rows (positions restart per segment, padding at the end),
+    q/k/v/dO in ``dtype`` on the card, and the keywords."""
+    (q, k, v), pos, seg = _packed(B, S, H, KVH, D, seed=seed)
+    g = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(
+        np.float32)
+    args = [torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v)]
+    dout = torch.from_numpy(g).to(cuda, dtype)
+    t = {n: torch.from_numpy(a).to(cuda) for n, a in
+         (("pos", pos), ("seg", seg))}
+    kw = dict(q_positions=t["pos"], kv_positions=t["pos"],
+              q_segment_ids=t["seg"], kv_segment_ids=t["seg"],
+              logits_soft_cap=cap)
+    return args, dout, kw
+
+
+def _grad_ratios(got, want, limits):
+    return [((g.float() - w.float()).abs() / lim).max().item()
+            for g, w, lim in zip(got, want, limits)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H,KVH,S,cap", [
+    (128, 8, 8, 150, None),    # group 1, ragged last tile
+    (128, 8, 2, 200, None),    # group 4
+    (128, 14, 2, 130, 2.5),    # group 7, soft cap
+    (64, 8, 2, 97, None),
+    (96, 4, 1, 70, 4.0),       # group 4 at one KV head, padded head dim
+    (16, 4, 4, 64, None),      # exactly one tile
+    (32, 8, 2, 129, None),
+])
+def test_flash_backward_matches_plain(cuda, dtype, D, H, KVH, S, cap):
+    """K2-backward's dq / dk / dv against autograd through the plain
+    version on the same inputs (f32 arithmetic both), per element within
+    ``flash_backward_error_limit`` (its docstring derives it: f32
+    summation noise, the Delta the kernel takes from K2's own O, one
+    rounding)."""
+    args, dout, kw = _bwd_inputs(cuda, dtype, 2, S, H, KVH, D,
+                                 seed=D + S + H, cap=cap)
+    out, lse = tatt.flash_attention_lse(*args, **kw)
+    before = tatt.K2B.launches
+    got = tatt.flash_attention_backward(*args, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert tatt.K2B.launches == before + 1
+    want = tatt.flash_backward_plain(*args, dout, **kw)
+    limits = tatt.flash_backward_error_limit(*args, dout, want, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+    ratios = _grad_ratios(got, want, limits)
+    assert max(ratios) <= 1.0, dict(zip(("dq", "dk", "dv"), ratios))
+
+
+def _planted_backward(fault, args, out, lse, dout, kw):
+    """K2-backward with one defect planted through its inputs, to be held
+    against the plain version of the true inputs: every query head read
+    against the next KV head (k and v rolled over their heads), the
+    causal mask dropped, Delta left out (O = 0); the cap's derivative,
+    which no input can drop, through the wrapper's check-only switch."""
+    q, k, v = args
+    if fault == "wrong_kv_head":
+        k, v = k.roll(1, dims=2), v.roll(1, dims=2)
+    if fault == "no_causal":
+        kw = {**kw, "causal": False}
+    if fault == "no_delta":
+        out = torch.zeros_like(out)
+    return tatt.flash_attention_backward(
+        q, k, v, out, lse, dout, **kw,
+        _drop_cap_derivative=fault == "no_cap_derivative")
+
+
+BACKWARD_FAULTS = ("wrong_kv_head", "no_causal", "no_delta",
+                   "no_cap_derivative")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", BACKWARD_FAULTS)
+def test_flash_backward_planted_faults_fail(cuda, dtype, fault):
+    """Each planted defect breaks the limit the real kernel keeps: a query
+    head read against the wrong KV head, the causal mask dropped, Delta
+    left out, the cap's derivative dropped."""
+    args, dout, kw = _bwd_inputs(cuda, dtype, 2, 160, 8, 2, 128, seed=5,
+                                 cap=2.0)
+    out, lse = tatt.flash_attention_lse(*args, **kw)
+    want = tatt.flash_backward_plain(*args, dout, **kw)
+    limits = tatt.flash_backward_error_limit(*args, dout, want, **kw)
+    good = tatt.flash_attention_backward(*args, out, lse, dout, **kw)
+    assert max(_grad_ratios(good, want, limits)) <= 1.0
+    bad = _planted_backward(fault, args, out, lse, dout, kw)
+    assert max(_grad_ratios(bad, want, limits)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_matches_logsumexp(cuda, dtype):
+    """K2's LSE output against ``torch.logsumexp`` of the plain version's
+    masked logits (atol 1e-4: an f32 online softmax against one f32
+    softmax); a row with no live key is +inf; the output equals the
+    serving call's, which writes no LSE."""
+    args, _, kw = _bwd_inputs(cuda, dtype, 2, 200, 8, 2, 128, seed=9,
+                              cap=None)
+    out, lse = tatt.flash_attention_lse(*args, **kw)
+    _, want = tatt.flash_attention_lse_plain(*args, **kw)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=0)
+    assert torch.equal(out, tatt.flash_attention(*args, **kw))
+    # queries placed before every key: rows 0-4 see no live key
+    S = args[0].shape[1]
+    qpos = torch.arange(S, device=cuda)[None].expand(2, S)
+    masked = dict(q_positions=qpos, kv_positions=qpos + 5)
+    _, lse2 = tatt.flash_attention_lse(*args, **masked)
+    _, want2 = tatt.flash_attention_lse_plain(*args, **masked)
+    assert torch.isinf(lse2[:, :, :5]).all()
+    assert torch.isinf(want2[:, :, :5]).all()
+    torch.testing.assert_close(lse2[:, :, 5:], want2[:, :, 5:], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_forward_equals_serving_call(cuda, dtype):
+    """Under grad, ``flash_attention`` goes through ``FlashAttentionFn``:
+    its output is bit-equal to the serving call's, K2 counts one launch
+    each, and backward launches K2-backward once with the gradients of
+    the direct call."""
+    args, dout, kw = _bwd_inputs(cuda, dtype, 2, 150, 8, 2, 128, seed=11)
+    with torch.no_grad():
+        served = tatt.flash_attention(*args, **kw)
+    leaves = [a.clone().requires_grad_() for a in args]
+    k2, k2b = tatt.K2.launches, tatt.K2B.launches
+    out = tatt.flash_attention(*leaves, **kw)
+    assert tatt.K2.launches == k2 + 1 and torch.equal(out, served)
+    out.backward(dout)
+    assert tatt.K2B.launches == k2b + 1
+    o2, lse = tatt.flash_attention_lse(*args, **kw)
+    direct = tatt.flash_attention_backward(*args, o2, lse, dout, **kw)
+    for leaf, d in zip(leaves, direct):
+        assert torch.equal(leaf.grad, d)
+
+
+@pytest.mark.cuda
+def test_matmul_f32_gradients_on_card(cuda):
+    """``matmul_f32`` under autograd on bf16 operands: the float32-output
+    GEMM forward; the input and weight gradients taken from the float32
+    cotangent, as the CPU path and JAX's transpose take them.  The
+    cotangent is 256 + N(0, 1), whose bf16 rounding keeps nothing of the
+    noise, against x with paired rows and w with paired columns that
+    cancel the 256 exactly: the gradients are the noise's alone.  Held to
+    float64 products rounded once to bf16, per element within one bf16
+    ulp, 1e-5 + 2**-7 |want|, plus the float32 sum's order bound, n u
+    sum |terms| <= 2**-16 sum |terms| for n <= 256 terms; the cotangent
+    rounded to bf16 first lands far outside that."""
+    rng = np.random.default_rng(4)
+    xh = rng.standard_normal((60, 256)).astype(np.float32)
+    wh = rng.standard_normal((256, 48)).astype(np.float32) * 0.05
+    x64 = torch.from_numpy(np.concatenate([xh, -xh])).bfloat16().double()
+    w64 = torch.from_numpy(np.concatenate([wh, -wh], 1)).bfloat16().double()
+    g = torch.from_numpy(256.0 + rng.standard_normal((120, 96)).astype(
+        np.float32))
+    x = x64.to(cuda, torch.bfloat16).reshape(3, 40, 256).requires_grad_()
+    w = w64.to(cuda, torch.bfloat16).requires_grad_()
+    out = tquant.matmul_f32(x, w)
+    assert out.dtype == torch.float32
+    out.backward(g.to(cuda).reshape(3, 40, 96))
+    g64, g16 = g.double(), g.bfloat16().double()
+    cases = ((x.grad.reshape(120, 256), g64 @ w64.T,
+              g64.abs() @ w64.abs().T, g16 @ w64.T),
+             (w.grad, x64.T @ g64, x64.abs().T @ g64.abs(), x64.T @ g16))
+    for got, exact, mag, coarse in cases:
+        assert got.dtype == torch.bfloat16
+        want = exact.to(torch.bfloat16).double()
+        limit = 1e-5 + 2.0 ** -7 * want.abs() + 2.0 ** -16 * mag
+        assert ((got.double().cpu() - want).abs() <= limit).all()
+        assert ((coarse - want).abs() > limit).any()
+
+
+@pytest.mark.cuda
+def test_trainer_steps_on_card_match_cpu(cuda):
+    """Three LoRA SFT steps of a 2-layer float32 model on the card (K2 and
+    K2-backward through ``FlashAttentionFn``, TF32 off) against the same
+    steps on the CPU (autograd through the plain version), as
+    ``chip_smoke.py``'s witness holds them: each loss within 1e-6
+    relative and the adapters' update within 2% of its L2 norm (Adam's
+    first step of an entry is +-lr, so an entry whose gradient lies
+    inside the summation noise may step the other way, and the next
+    step's gradients see it: no per-element limit holds)."""
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params, params_to
+    from helix_tpu_torch.training import sft as tsft
+    from helix_tpu_torch.training.data import SFTExample, pack_examples
+    from helix_tpu_torch.training.lora import init_lora_params
+
+    cfg = ModelConfig.tiny(dtype="float32", hidden_size=256, num_heads=8,
+                           num_kv_heads=2, head_dim=32, intermediate_size=512,
+                           vocab_size=512)
+    params = init_params(cfg, 2, device="cpu")
+    rng = np.random.default_rng(8)
+    exs = [SFTExample(input_ids=[int(x) for x in rng.integers(4, 500, n)],
+                      loss_mask=[int(x) for x in rng.random(n) < 0.7])
+           for n in rng.integers(20, 90, 10)]
+    batch = next(pack_examples(exs, 2, 160, shuffle_seed=0))
+    conf = tsft.SFTConfig(learning_rate=5e-3, warmup_steps=1, total_steps=3,
+                          batch_size=2, seq_len=160)
+    start = init_lora_params(cfg, conf.lora, 0, device="cpu")
+    runs = []
+    k2, k2b = tatt.K2.launches, tatt.K2B.launches
+    for p, dev in ((params, "cpu"), (params_to(params, cuda), cuda)):
+        tr = tsft.SFTTrainer(cfg, p, conf)
+        tr.lora_params = {t: {n: x.to(dev).clone() for n, x in f.items()}
+                          for t, f in start.items()}
+        losses = [tr.train_step(batch) for _ in range(3)]
+        runs.append((losses, tr.lora_params))
+    assert tatt.K2.launches - k2 == 3 * cfg.num_layers
+    assert tatt.K2B.launches - k2b == 3 * cfg.num_layers
+    (lc, pc), (lg, pg) = runs
+    for a, b in zip(lg, lc):
+        assert abs(a - b) <= 1e-6 * abs(b), (lg, lc)
+    num = den = 0.0
+    for t in pc:
+        for n in pc[t]:
+            num += float(((pg[t][n].cpu() - pc[t][n]) ** 2).sum())
+            den += float(((pc[t][n] - start[t][n]) ** 2).sum())
+    assert (num / den) ** 0.5 <= 2e-2

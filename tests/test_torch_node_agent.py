@@ -19,8 +19,10 @@
   served (its chat and embedding entries, through the agent's own
   builder), and so are ``dev-tiny-prefill`` and ``dev-tiny-decode`` (each
   heartbeats its role; ``HELIX_FILESTORE_KV_DIR`` arms the engine's
-  filestore tier); an entry with an adapter merged at apply (A18) is
-  refused with nothing built; an invalid profile fails with the reference's
+  filestore tier); an entry the port refuses (a vision-embedding entry
+  on a mesh, A15b) fails the apply with nothing built, while an adapter
+  merged at apply (A18) reaches the build function; an invalid profile
+  fails with the reference's
   text; a diff re-apply keeps the kept model's loop object and frees the
   dropped one.
 - **Through the reference control plane** (aiohttp, in process): the port
@@ -541,25 +543,37 @@ def test_apply_and_heartbeat_equal_reference(weights, monkeypatch):
 
 
 def test_refused_profile_fails_before_anything_is_built(weights):
-    """A profile with an entry the port refuses (an adapter merged at
-    apply: A18; a vision kind until A17b) fails its apply by name, every
-    entry checked before anything is built."""
+    """A profile with an entry the port refuses (a vision-embedding entry
+    on a two-device mesh: A15b) fails its apply by name, every entry
+    checked before anything is built.  An ``adapter:`` is no longer
+    refused (A18): a chat entry's reaches the build function with its
+    ``adapter_scale``, and a vision-embedding entry's is dropped, as the
+    reference node agent ignores it."""
     with open(os.path.join(ROOT, "profiles", "dev-tiny.yaml")) as f:
         doc = yaml.safe_load(f)
+    doc["models"][0].update(adapter="/ckpt/lora", adapter_scale=0.5)
     doc["models"].append({"name": "tiny-vembed", "kind": "vision-embedding",
-                          "adapter": "/ckpt/lora"})
+                          "adapter": "/ckpt/lora", "mesh": {"tp": 2}})
+    doc["requirement"]["chips"] = 2
     prof = tprofile.ServingProfile.from_dict(doc)
     built = []
     agent = tagent.NodeAgent("r1", build_model=_port_build(weights, built),
                              device="cpu")
     state = agent.apply_profile(prof)
     assert state.status == "failed" and built == []
-    assert ("tiny-vembed: an adapter merged into the weights at apply "
-            "time is not ported yet") in state.error
+    assert ("tiny-vembed: mesh {'tp': 2} spans more than one device"
+            in state.error)
     # the chat and the embedding entries are served
     assert "tiny-chat" not in state.error and "tiny-embed" not in state.error
+    assert "adapter" not in state.error
     assert agent.registry.names() == []
     assert isinstance(agent.apply_exception, NotImplementedError)
+    del doc["models"][-1]["mesh"]
+    specs = {sp["name"]: sp for sp in cli.model_specs(
+        tprofile.ServingProfile.from_dict(doc))}
+    assert (specs["tiny-chat"]["adapter"],
+            specs["tiny-chat"]["adapter_scale"]) == ("/ckpt/lora", 0.5)
+    assert "adapter" not in specs["tiny-vembed"]
 
 
 def test_dev_tiny_as_written_serves_both_entries():

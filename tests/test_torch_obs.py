@@ -546,10 +546,12 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
         "'serving.tokenizer_json', 'testing.hf_checkpoint', "
         "'testing.tokenizer_fixtures', 'serving.kv_filestore', "
         "'control.filestore', 'serving.context_cache', 'ops.paged', "
-        "'engine.engine', 'models.moe'):\n"
+        "'engine.engine', 'models.moe', 'training', 'training.sft', "
+        "'training.lora', 'training.data', 'training.checkpoint'):\n"
         "    importlib.import_module('helix_tpu_torch.' + m)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests')]\n"
+        "('jax', 'jaxlib', 'helix_tpu', 'aiohttp', 'requests', 'optax', "
+        "'orbax')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -560,16 +562,18 @@ def test_obs_and_sched_import_without_jax_or_aiohttp():
 
 
 def test_port_imports_and_serves_images_with_heavy_packages_blocked():
-    """Every module of the port, and ``chip_smoke.py``, import with
-    ``jax``, ``helix_tpu``, ``PIL``, ``transformers``, ``aiohttp``,
-    ``safetensors``, ``tokenizers`` and ``ml_dtypes`` made unimportable
+    """Every module of the port (the training package too), and
+    ``chip_smoke.py``, import with ``jax``, ``helix_tpu``, ``PIL``,
+    ``transformers``, ``aiohttp``, ``safetensors``, ``tokenizers``,
+    ``ml_dtypes``, ``optax`` and ``orbax`` made unimportable
     (the card's machine lacks most of them); the VL path then decodes a
     PNG, resizes, patchifies and runs a tiny tower and prompt there, and
     a tiny MoE layer runs."""
     code = (
         "import sys, importlib, pkgutil\n"
         "BLOCKED = ('jax', 'jaxlib', 'helix_tpu', 'PIL', 'transformers', "
-        "'aiohttp', 'safetensors', 'tokenizers', 'ml_dtypes')\n"
+        "'aiohttp', 'safetensors', 'tokenizers', 'ml_dtypes', 'optax', "
+        "'orbax')\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"

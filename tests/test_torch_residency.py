@@ -46,6 +46,7 @@ import pytest
 import torch
 import yaml
 
+from helix_tpu.engine import adapters as jad
 from helix_tpu.engine import engine as jengine
 from helix_tpu.engine import residency as jres
 from helix_tpu.engine import sampling as jsampling
@@ -674,19 +675,49 @@ def test_adapter_http_surface_matches_reference():
                                    ("tiny-plain", None)])
 
 
-def test_adapter_checkpoint_publish_answers_a18(monkeypatch):
-    """A checkpoint publish answers 501 with the store's error (training
-    checkpoints come with A18); the runner token gates the route; an
-    adapter request that reaches a pool-less engine is a 400 with the
-    reference engine's text."""
+def test_adapter_checkpoint_publish_answers_a18(monkeypatch, tmp_path):
+    """``POST /v1/adapters`` publishes a LoRA training checkpoint (the
+    port's format, ROADMAP A18): 200 with the reference's body, the
+    adapter listed in ``/v1/models`` and served; a missing checkpoint is
+    a 404 with the reference store's text; the runner token gates the
+    route; an adapter request that reaches a pool-less engine is a 400
+    with the reference engine's text."""
     from helix_tpu_torch.serving import openai_api
+    from helix_tpu_torch.training.checkpoint import save_checkpoint
 
+    rng = np.random.default_rng(21)
+    cfg = tcommon.ModelConfig.tiny(dtype="float32")
+    E, HD = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    tree = {t: {"lora_a": torch.from_numpy(rng.standard_normal(
+                    (cfg.num_layers, i, 4)).astype(np.float32) * 0.1),
+                "lora_b": torch.from_numpy(rng.standard_normal(
+                    (cfg.num_layers, 4, o)).astype(np.float32) * 0.1)}
+            for t, (i, o) in (("wq", (E, HD)), ("wo", (HD, E)))}
+    ckpt = str(tmp_path / "sft")
+    save_checkpoint(ckpt, 7, tree, {"count": 7}, lora_scaling=2.0)
     reg = _adapter_models(tloop, tregistry, ttokenizer, _t_engine)
     base, stop = _port_server(reg)
     try:
-        body = {"model": "tiny-ad", "name": "a2", "checkpoint": "/ckpt"}
+        body = {"model": "tiny-ad", "name": "a2", "checkpoint": ckpt}
         status, out = _call(base, "/v1/adapters", body)
-        assert status == 501 and "A18" in out["error"]["message"]
+        assert status == 200, out
+        assert out == {"id": "tiny-ad@a2", "object": "model",
+                       "parent": "tiny-ad", "rank": 4, "scale": 2.0,
+                       "bytes": sum(int(f[n].numel()) * 4 for f in
+                                    tree.values() for n in f)}
+        ids = [m["id"] for m in _call(base, "/v1/models")[1]["data"]]
+        assert "tiny-ad@a2" in ids
+        status, out = _call(base, "/v1/chat/completions", {
+            "model": "tiny-ad@a2", "max_tokens": 2, "temperature": 0,
+            "messages": [{"role": "user", "content": "hi"}]})
+        assert status == 200 and out["usage"]["completion_tokens"] == 2
+        missing = str(tmp_path / "none")
+        status, out = _call(base, "/v1/adapters",
+                            {**body, "checkpoint": missing})
+        with pytest.raises(FileNotFoundError) as ref:
+            jad.AdapterStore("tiny-ad", {}, 2, 4).publish_checkpoint(
+                "a2", missing)
+        assert status == 404 and out["error"]["message"] == str(ref.value)
         monkeypatch.setenv("HELIX_RUNNER_TOKEN", "s3cret")
         assert _call(base, "/v1/adapters", body)[0] == 403
         plain = reg.get("tiny-plain")
