@@ -68,9 +68,12 @@ no result line):
    plain version (``flash_backward_plain``) per element within
    ``flash_backward_error_limit``; planted defects (a query head against
    the wrong KV head, the causal mask dropped, Delta left out, the cap's
-   derivative dropped) must break it.  Both timed beside their plain
-   versions, SDPA with the same boolean mask (forward; forward and
-   backward: a yardstick the port never calls) and their bounds;
+   derivative dropped) must break it; in bf16 that limit carries the
+   rounding of P and dS to bf16 before their tensor-core products.  Both
+   timed beside their plain versions, SDPA with the same boolean mask
+   (forward; backward alone on a retained graph; forward and backward: a
+   yardstick the port never calls) and their bounds; both kernels'
+   resources logged for both dtypes (the bf16 form must not spill);
 4. end to end: ``meta-llama/Meta-Llama-3-8B-Instruct`` at full width and
    depth in bf16 with random weights made on the card, served by the
    port's engine, loop and OpenAI HTTP server; chat (plain and SSE),
@@ -256,7 +259,9 @@ no result line):
    in the phase and tokenized with the Llama-3 fixture tokenizer: the loss
    must fall; every attention forward launches K2 and every backward
    K2-backward (counts zeroed just before the run); step ms, tokens/s,
-   peak memory and one traced step's idle share are printed.  The
+   peak memory and one traced step's idle share are printed, with the
+   traced step's K2-backward kernels by name and their device ms (its
+   bf16 dK/dV and dQ kernels and the Delta pre-pass must be there).  The
    checkpoint is saved, an engine with an adapter pool is built over the
    same base tensors, the checkpoint is published through ``POST
    /v1/adapters`` and 8 chats to ``model@sft`` are answered, each unlike
@@ -537,10 +542,13 @@ DESIGN = {
         "the cold form over int8 pools and int8 cold chunks with their f32 "
         "scales, dequantized in registers",
     "flash_attention_backward":
-        "Delta pre-pass; dK/dV per (64-key tile, KV head) over the group's "
-        "heads and query tiles, dQ per (64-query tile, head); f32 CUDA-core "
-        "FMA on 4x4 register blocks, P recomputed from K2's LSE, tile "
-        "skipping, no atomics",
+        "Delta pre-pass; bf16: an exact tile map (the OR / AND of each tile "
+        "pair's masks), then wgmma, dK/dV per (64-key tile, KV head) over "
+        "the group's heads and query tiles (S^T, dP^T SS; dV += P^T dO, "
+        "dK += dS^T Q RS with P^T / dS^T rounded to bf16 in registers), "
+        "dQ per (64-query tile, head) recomputing S and dP (dQ += dS K RS), "
+        "cp.async 2-stage 128B-swizzled rings, no atomics; f32: CUDA-core "
+        "FMA on 4x4 register blocks, range tile skipping",
 }
 
 
@@ -8043,10 +8051,11 @@ def _k2b_case(label, B, S, heads, dtype, gen, rng, cap=None, faults=()):
                        2, 1)
     fwd_plain_ms = cuda_ms(lambda: flash_attention_lse_plain(q, k, v, **kw),
                            2, 1)
-    library_ms = fwd_library_ms = None
+    library_ms = fwd_library_ms = fwd_bwd_library_ms = None
     if cap is None:
-        # library yardstick: SDPA (forward; forward + backward) with the
-        # same mask
+        # library yardstick: SDPA with the same mask -- its backward alone
+        # (autograd on a retained graph: the function K2-backward
+        # computes), its forward, and the two together
         G = Hh // KVHh
         qt = q.transpose(1, 2).detach().requires_grad_()
         kt = k.repeat_interleave(G, 2).transpose(1, 2).detach() \
@@ -8066,8 +8075,15 @@ def _k2b_case(label, B, S, heads, dtype, gen, rng, cap=None, faults=()):
             with torch.no_grad():
                 sdpa(qt, kt, vt, attn_mask=mask)
 
-        library_ms = cuda_ms(lib, 5)
+        o_lib = sdpa(qt, kt, vt, attn_mask=mask)
+
+        def lib_bwd():
+            torch.autograd.grad(o_lib, (qt, kt, vt), go, retain_graph=True)
+
+        fwd_bwd_library_ms = cuda_ms(lib, 5)
         fwd_library_ms = cuda_ms(lib_fwd, 5)
+        library_ms = cuda_ms(lib_bwd, 5)
+        del o_lib
     pairs = _live_pairs(pos, seg)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
 
@@ -8092,8 +8108,9 @@ def _k2b_case(label, B, S, heads, dtype, gen, rng, cap=None, faults=()):
                    bound_by=fb_by, live_pairs=pairs)
     row = dict(case=label, max_abs_err=max(errs), tol_ratio=max(ratios),
                planted_fault_ratio=fault_ratio, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-               live_pairs=pairs)
+               library_ms=library_ms,
+               library_fwd_bwd_ms=fwd_bwd_library_ms, bound_ms=b_ms,
+               bound_by=b_by, live_pairs=pairs)
 
     def fmt(x):
         return "None" if x is None else f"{x:.4f}"
@@ -8110,7 +8127,8 @@ def _k2b_case(label, B, S, heads, dtype, gen, rng, cap=None, faults=()):
         f"{max(ratios):.3f}x the limit (flash_backward_error_limit; dq/dk/dv "
         f"{', '.join(f'{r:.3f}' for r in ratios)}); "
         f"planted faults {json.dumps(fault_ratio)}; kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {fmt(library_ms)} "
+        f"plain_ms {plain_ms:.4f} library_ms {fmt(library_ms)} (SDPA "
+        f"backward alone; forward + backward {fmt(fwd_bwd_library_ms)}) "
         f"bound_ms {b_ms:.4f} ({b_by}; {pairs} live pairs a head)")
     return fwd_row, row
 
@@ -8121,14 +8139,21 @@ def phase_k2_backward() -> tuple:
     float32 and soft-capped.  Returns (K2 rows, K2-backward rows)."""
     from helix_tpu_torch.ops.attention import flash_backward_kernel_info
 
-    for which, info in flash_backward_kernel_info(D).items():
-        log(f"[build] flash_attention_backward {which} kernel at D {D}: "
-            f"{info['regs']} registers, {info['spill_bytes']} B local "
-            f"(spill) memory, {info['smem_bytes']} B shared memory per "
-            f"block, {info['blocks_per_sm']} blocks per SM")
-        if info["blocks_per_sm"] < 1:
-            raise AssertionError(f"K2-backward {which}: a block does not "
-                                 "fit an SM")
+    for dtype, form in ((torch.bfloat16, "bf16 (wgmma)"),
+                        (torch.float32, "float32 (FMA)")):
+        for which, info in flash_backward_kernel_info(
+                D, dtype, S=TRAIN_S).items():
+            log(f"[build] flash_attention_backward {form} {which} kernel at "
+                f"D {D}, S {TRAIN_S}: {info['regs']} registers, "
+                f"{info['spill_bytes']} B local (spill) memory, "
+                f"{info['smem_bytes']} B shared memory per block, "
+                f"{info['blocks_per_sm']} blocks per SM")
+            if info["blocks_per_sm"] < 1:
+                raise AssertionError(f"K2-backward {form} {which}: a block "
+                                     "does not fit an SM")
+            if dtype == torch.bfloat16 and info["spill_bytes"]:
+                raise AssertionError(f"K2-backward {form} {which} spills "
+                                     f"{info['spill_bytes']} B")
     gen = torch.Generator(device="cuda").manual_seed(6)
     rng = np.random.default_rng(6)
     pairs = [
@@ -8385,8 +8410,18 @@ def phase_train(smi) -> dict:
         launches = {"flash_attention": K2.launches,
                     "flash_attention_backward": K2B.launches}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        busy = sum(_kernel_ms(prof).values())
+        by_kernel = _kernel_ms(prof)
+        busy = sum(by_kernel.values())
         idle = 1.0 - busy / trace["wall_ms"]
+        # K2-backward's kernels in the traced step, by name
+        k2b_ms = {n: t for n, t in by_kernel.items() if "flash_bwd_" in n}
+        for n, t in sorted(k2b_ms.items(), key=lambda kv: -kv[1]):
+            log(f"[train] traced step: {t:.3f} ms in {n[:90]}")
+        for form in ("flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_delta_kernel"):
+            if not any(form in n for n in k2b_ms):
+                raise AssertionError(f"the traced step ran no {form}: "
+                                     f"{sorted(k2b_ms)}")
         steps = np.diff(stamps)
         # the first step warms up cuBLAS, the traced (last) one runs slower
         steady = range(1, TRAIN_STEPS - 1)
@@ -8401,7 +8436,8 @@ def phase_train(smi) -> dict:
             f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s "
             f"({live_tps:.0f} live); peak {peak:.2f} GiB; one traced step "
             f"{trace['wall_ms']:.1f} ms, device busy {busy:.1f} ms, idle "
-            f"share {idle:.3f}; launches {launches}")
+            f"share {idle:.3f}, K2-backward {sum(k2b_ms.values()):.1f} ms "
+            f"of it; launches {launches}")
         want = TRAIN_STEPS * cfg.num_layers
         if launches != {"flash_attention": want,
                         "flash_attention_backward": want}:
@@ -8462,7 +8498,8 @@ def phase_train(smi) -> dict:
     finally:
         shutil.rmtree(tmpdir, ignore_errors=True)
     return {"launches": launches, "loss": history, "step_ms": step_ms,
-            "peak_gib": peak, "idle_share": idle, "witness": witness}
+            "peak_gib": peak, "idle_share": idle,
+            "k2_backward_traced_ms": k2b_ms, "witness": witness}
 
 
 @_timed

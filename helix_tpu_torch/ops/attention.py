@@ -17,8 +17,10 @@ Port of ``helix_tpu/ops/attention.py``:
 - ``flash_attention_backward`` — the wrapper of K2-backward
   (``csrc/flash_attention_bwd.cu``; the reference has no Pallas backward:
   JAX differentiates through ``attention``): dq, dk, dv from q, k, v, O,
-  the LSE and dO.  ``flash_backward_error_limit`` is its per-element
-  limit against autograd through the plain version.
+  the LSE and dO; its bf16 form runs on the tensor cores and rounds P and
+  dS to bf16 before their products, its f32 form does not.
+  ``flash_backward_error_limit`` is its per-element limit against
+  autograd through the plain version.
 - ``FlashAttentionFn`` — the ``torch.autograd.Function`` that joins the
   two: ``flash_attention`` takes it on a CUDA tensor whenever grad is on
   and an input requires it (training), and the plain launch otherwise
@@ -50,11 +52,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _K2_ARGS = [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P]
 _K2_INFO_ARGS = [_I, _I, _P]
-_K2B_ARGS = [_P] * 14 + [_I] * 7 + [_F, _F, _I, _I, _P]
-_K2B_INFO_ARGS = [_I, _I, _I, _P]
+_K2B_ARGS = [_P] * 15 + [_I] * 7 + [_F, _F, _I, _I, _P]
+_K2B_INFO_ARGS = [_I, _I, _I, _I, _P]
 # per-element limits against the plain version: one bf16 ulp of the value
 # (2**-7 relative), f32 summation-order noise near zero, and the rounding
-# unit of P's bf16 rounding (2**-8)
+# unit of P's (and K2-backward's dS's) bf16 rounding (2**-8)
 BF16_RTOL = 2.0 ** -7
 ERR_ATOL = 1e-5
 P_ROUNDING = 2.0 ** -8
@@ -277,6 +279,10 @@ def _launch_k2_backward(q, k, v, out, lse, dout, meta, causal, scale,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the bf16 form's tile map: a byte per (query tile, key tile), twice
+    tiles = (torch.empty(2 * B * -(-Sq // 64) * -(-Skv // 64),
+                         dtype=torch.uint8, device=q.device)
+             if q.dtype == torch.bfloat16 else None)
     fn = K2B.symbol("helix_flash_attention_backward", _K2B_ARGS)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -284,6 +290,7 @@ def _launch_k2_backward(q, k, v, out, lse, dout, meta, causal, scale,
         None if qseg is None else qseg.data_ptr(),
         None if kseg is None else kseg.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        None if tiles is None else tiles.data_ptr(),
         B, Sq, Skv, H, KVH, D, int(bool(causal)), _scale_of(scale, D),
         float(logits_soft_cap or 0.0), _KERNEL_DTYPES[q.dtype],
         int(drop_cap_derivative),
@@ -444,10 +451,31 @@ def flash_backward_error_limit(q, k, v, dout, want, **kw):
       Delta_i is off by at most e_i = sum_d |dO_id| limO_id, which moves
       dq_i by scale e_i sum_j P_ij |cap'_ij| |k_j| and dk_j by
       scale sum_i P_ij |cap'_ij| e_i |q_i|;
+    - in bf16 only, the rounding of P and dS to bf16 before their
+      products (the tensor cores take no f32 operand).  A rounded factor
+      is x (1 + d) with |d| <= u = ``P_ROUNDING`` (2**-8), so dV =
+      sum_i P_ij dO_i moves by at most u sum_i P_ij |dO_i| = u mag_v, and
+      dK_j = sum_i dS_ij q_i by at most u sum_i |dS_ij| |q_i| <= u mag_k
+      (|dS| <= P (|dO| |V|^T + |Delta|) |cap'| scale, the triangle
+      inequality on dP), dQ likewise by u mag_q.  dS itself is formed in
+      f32 from the unrounded P, so the two roundings do not compound;
     - the final rounding: one bf16 ulp (2**-7 |want|) in bf16, and
       ``F32_RTOL |want|`` in f32.
 
-    So ``limit = ERR_ATOL + rtol |want| + GRAD_NOISE mag + delta_term``."""
+    So ``limit = ERR_ATOL + rtol |want| + GRAD_NOISE mag + delta_term``,
+    plus ``P_ROUNDING mag`` in bf16 (``flash_backward_error_terms`` gives
+    the two parts apart)."""
+    base, rounding = flash_backward_error_terms(q, k, v, dout, want, **kw)
+    if rounding is None:
+        return base
+    return tuple(b + r for b, r in zip(base, rounding))
+
+
+def flash_backward_error_terms(q, k, v, dout, want, **kw):
+    """The two parts of ``flash_backward_error_limit``: ``(base,
+    rounding)``, ``base`` the float32 limit's terms at these inputs and
+    ``rounding`` the bf16 form's ``P_ROUNDING * (mag_q, mag_k, mag_v)``
+    (None for float32 inputs, whose limit is ``base`` alone)."""
     B, Sq, H, D = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -485,19 +513,24 @@ def flash_backward_error_limit(q, k, v, dout, want, **kw):
     extra_k = group_sum(torch.einsum("bhqk,bqhd->bkhd", pe, qf.abs()))
     rtol = BF16_RTOL if bf16 else F32_RTOL
     dq, dk, dv = (w.float() for w in want)
-    return (ERR_ATOL + rtol * dq.abs() + GRAD_NOISE * mag_q + extra_q,
+    base = (ERR_ATOL + rtol * dq.abs() + GRAD_NOISE * mag_q + extra_q,
             ERR_ATOL + rtol * dk.abs() + GRAD_NOISE * mag_k + extra_k,
             ERR_ATOL + rtol * dv.abs() + GRAD_NOISE * mag_v)
+    rounding = (tuple(P_ROUNDING * m for m in (mag_q, mag_k, mag_v))
+                if bf16 else None)
+    return base, rounding
 
 
-def flash_backward_kernel_info(D: int, dtype=torch.bfloat16) -> dict:
+def flash_backward_kernel_info(D: int, dtype=torch.bfloat16,
+                               S: int = 1024) -> dict:
     """Launch resources of K2-backward's dK/dV kernel and dQ kernel for
-    head dim D (needs the card), as ``flash_kernel_info``'s."""
+    head dim D at sequence length S (needs the card), as
+    ``flash_kernel_info``'s."""
     fn = K2B.symbol("helix_flash_attention_backward_info", _K2B_INFO_ARGS)
     out = {}
     for which, name in ((0, "dkdv"), (1, "dq")):
         info = (ctypes.c_int * 4)()
-        err = fn(D, _KERNEL_DTYPES[dtype], which, ctypes.addressof(info))
+        err = fn(D, _KERNEL_DTYPES[dtype], which, S, ctypes.addressof(info))
         if err != 0:
             raise RuntimeError(
                 f"flash_attention_backward info: cuda error {err}")

@@ -13,7 +13,10 @@ softmax, different summation order); bf16 ``atol 1e-5, rtol 2**-7`` per
 element (both sides compute in f32 and round once to bf16, so they may
 differ by one bf16 ulp of the value), except K2's bf16 form, which rounds
 P to bf16 before P.V as the TPU kernel does and is held to
-``flash_error_limit`` (that ulp plus ``2**-8 plain(q, k, |v|)``).
+``flash_error_limit`` (that ulp plus ``2**-8 plain(q, k, |v|)``), and
+K2-backward, held to ``flash_backward_error_limit`` (its bf16 form adds
+``2**-8`` of each gradient's term magnitudes for rounding P and dS to
+bf16 before their products).
 Attention outputs are compared on live tokens only.  K1's int8 form
 dequantizes history in f32 and never rounds it to bf16; its bf16 cases
 are held to the plain version evaluated in f32 (the same arithmetic) and
@@ -1910,6 +1913,50 @@ def test_flash_backward_planted_faults_fail(cuda, dtype, fault):
     assert max(_grad_ratios(good, want, limits)) <= 1.0
     bad = _planted_backward(fault, args, out, lse, dout, kw)
     assert max(_grad_ratios(bad, want, limits)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bit-equal dq, dk and dv: no
+    atomics, every sum in a fixed order (the bf16 form recomputes S and dP
+    in its dQ kernel rather than accumulate dQ across blocks)."""
+    args, dout, kw = _bwd_inputs(cuda, dtype, 2, 200, 8, 2, 128, seed=13,
+                                 cap=2.0)
+    out, lse = tatt.flash_attention_lse(*args, **kw)
+    first = tatt.flash_attention_backward(*args, out, lse, dout, **kw)
+    second = tatt.flash_attention_backward(*args, out, lse, dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_backward_full_heads(cuda):
+    """K2-backward's bf16 form at Llama-3-8B's full head count (B 1, S
+    1024, H 32 / KVH 8, D 128, packed rows): within the limit per
+    element, as at the smaller shapes."""
+    args, dout, kw = _bwd_inputs(cuda, torch.bfloat16, 1, 1024, 32, 8, 128,
+                                 seed=17)
+    out, lse = tatt.flash_attention_lse(*args, **kw)
+    got = tatt.flash_attention_backward(*args, out, lse, dout, **kw)
+    want = tatt.flash_backward_plain(*args, dout, **kw)
+    limits = tatt.flash_backward_error_limit(*args, dout, want, **kw)
+    ratios = _grad_ratios(got, want, limits)
+    assert max(ratios) <= 1.0, dict(zip(("dq", "dk", "dv"), ratios))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", tatt.SUPPORTED_HEAD_DIMS)
+def test_flash_backward_kernel_resources(cuda, D):
+    """Both kernels of the bf16 form keep every value in registers (0
+    spill bytes) and fit an SM at the training length; the float32 form's
+    fit too."""
+    for dtype in (torch.bfloat16, torch.float32):
+        info = tatt.flash_backward_kernel_info(D, dtype, S=1024)
+        for which, r in info.items():
+            assert r["blocks_per_sm"] >= 1, (dtype, which, r)
+            if dtype == torch.bfloat16:
+                assert r["spill_bytes"] == 0, (which, r)
 
 
 @pytest.mark.cuda
