@@ -19,7 +19,7 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA
-   version, an ``nvcc`` build of the three kernel sources from
+   version, an ``nvcc`` build of the four kernel sources from
    ``helix_tpu_torch/csrc/`` (one process per source, started together),
    and each kernel's
    registers, local (spill) memory, shared memory per block and blocks
@@ -51,7 +51,9 @@ no result line):
    64-token chunks, one chunk owned by no row), beside 8 resident rows;
    held to the plain version and to the resident call on the same
    values, and three planted faults must fail (a chunk's owner moved,
-   ``span_lo`` one page late, one cold scale negated);
+   ``span_lo`` one page late, one cold scale negated); two launches
+   bit-equal; timed beside the resident call, SDPA and the CUDA-core
+   form's recorded time, which the tensor-core form must beat;
 3e. Qwen2-VL kernels (``phase_vl_kernels``): K2 as the VL single-shot
    prefill calls it (causal, B 1, S 2048 and 4096 with a validity
    segment over 1,275 / 3,100 prompt tokens) and K1 with 8 decode rows
@@ -153,15 +155,16 @@ no result line):
    HF safetensors checkpoints (Llama-3-8B per projection, Phi-3-mini
    with fused ``qkv_proj`` / ``gate_up_proj``, bf16 weights of seed 0,
    each with its fixture ``tokenizer.json`` from ``helix_tpu_torch/
-   testing/tokenizer_fixtures``: 23.7 GB under the system temp dir or
-   ``HELIX_SMOKE_CKPT_DIR``, fsynced, dropped from the page cache and
-   deleted at the end) and served by ``serve-node``'s profile path
+   testing/tokenizer_fixtures``, both at ``CKPT_LAYERS`` (2) of 32
+   layers, full width: 3.8 GB under the system temp dir or
+   ``HELIX_SMOKE_CKPT_DIR``, deleted at the end) and served by
+   ``serve-node``'s profile path
    without ``--random-weights``: the loaded weights equal the as-drawn
    build of seed 0 byte for byte (int8 Llama, bf16 Phi-3), 8 greedy
    chats give the as-drawn build's ids, the served tokenizers give the
    CPU tests' digests, a planted ``<|eot_id|>`` stops a chat, three swap
    cycles free each model before the next build and a prefetched model's
-   chat barely stalls.  Load seconds cold and warm, read and upload
+   chat barely stalls.  Load seconds first and again, read and upload
    GB/s, the int8 load's device peak against the as-drawn build's, the
    host's anonymous memory during each load, swap seconds, TTFT and encode
    times are printed;
@@ -467,7 +470,7 @@ def planted(label, got, want, limit=None) -> float:
 def phase_device() -> dict:
     from helix_tpu_torch.kernels.build import build_all
     from helix_tpu_torch.ops.attention import K2, K2B
-    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_COLD
     from helix_tpu_torch.ops.quant import matmul_f32
 
     smi = subprocess.run(
@@ -480,10 +483,10 @@ def phase_device() -> dict:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
     t0 = time.monotonic()
-    compile_s = build_all([K1, K2, K2B])
-    log(f"[build] nvcc for the three kernel sources: {compile_s:.1f} s "
+    compile_s = build_all([K1, K1_COLD, K2, K2B])
+    log(f"[build] nvcc for the four kernel sources: {compile_s:.1f} s "
         f"compile, {time.monotonic() - t0:.1f} s incl. load")
-    for k in (K1, K2, K2B):
+    for k in (K1, K1_COLD, K2, K2B):
         regs = [int(w) for w in re.findall(r"Used (\d+) registers",
                                            k.build_log)]
         spills = re.findall(r"(\d+) bytes spill stores", k.build_log)
@@ -535,12 +538,18 @@ DESIGN = {
         "wgmma m64n64k16 (SS) for QK^T + m64n128k16 (RS, P in registers) "
         "for PV, cp.async 2-stage 128B-swizzled bf16 ring, tile skipping",
     "ragged_paged_attention_cold":
-        "K1's split with the demoted span masked out of the history parts "
-        "and the staged cold chunks as more parts (part j folds the chunks "
-        "c = j mod n its row owns), f32 merge over a per-row part list",
+        "bf16: a pre-pass lists each row's live work on the device (fresh, "
+        "hot pieces of <= 512 keys, cold parts of 8 chunks); a fixed grid "
+        "of 4-warp blocks takes (query tile, item, KV head) units from a "
+        "counter, streams each unit's keys through a 3-stage cp.async ring "
+        "of 64 keys, mma.sync m16n8k16 for QK^T and PV (ldmatrix / "
+        "ldmatrix.trans, swizzled tiles), f32 softmax on the fragments, P "
+        "as two bf16 terms; f32 merge over the row's slots; float32 "
+        "queries: the CUDA-core split of K1's source",
     "ragged_paged_attention_int8_cold":
-        "the cold form over int8 pools and int8 cold chunks with their f32 "
-        "scales, dequantized in registers",
+        "the cold form over int8 pools and chunks: codes staged raw, "
+        "widened to bf16 in shared memory, K scale on the f32 score, V "
+        "scale folded into P",
     "flash_attention_backward":
         "Delta pre-pass; bf16: an exact tile map (the OR / AND of each tile "
         "pair's masks), then wgmma, dK/dV per (64-key tile, KV head) over "
@@ -995,6 +1004,10 @@ def phase_vl_kernels() -> tuple:
 
 COLD_STREAM_PAGES = 4        # the engine's default ctx_stream_pages
 COLD_MAXP = 512              # the entry's 8192-token page tables
+# the CUDA-core cold form's device ms on this case before the tensor-core
+# redesign (PERF.md, one H100 80GB HBM3 at 700 W): the yardstick the
+# redesign must beat, printed beside this run's times
+COLD_CUDA_CORE_MS = {"K1-tiered": 0.6320, "K1-int8-tiered": 0.6840}
 
 
 def _k1_cold_layout(rng, P=16):
@@ -1029,9 +1042,12 @@ def _k1_cold_case(label, pools, gen, rng, scales=None) -> dict:
     version in f32, rounded once) under the one-ulp limit, and to the
     resident call of the kernel on the same values; three planted faults
     must fail the check: a chunk's owner moved to another row,
-    ``span_lo`` one page late, one cold scale negated (int8)."""
+    ``span_lo`` one page late, one cold scale negated (int8).  Two
+    launches must give the same bits, and the form must beat the
+    CUDA-core form's recorded time (``COLD_CUDA_CORE_MS``)."""
     from helix_tpu_torch.ops.paged_kernel import (
-        _k1_cold_parts,
+        _k1_cold_slots,
+        ragged_kernel_info,
         ragged_paged_attention,
         ragged_paged_attention_plain,
     )
@@ -1094,7 +1110,10 @@ def _k1_cold_case(label, pools, gen, rng, scales=None) -> dict:
     resident_args = (q, kn, vn, kp, vp, layer, *meta, up(full))
     tag = "K1-tiered" if scales is None else "K1-int8-tiered"
     got = ragged_paged_attention(*args, **kw, **cold)
+    again = ragged_paged_attention(*args, **kw, **cold)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag} {label}: two launches differ")
     if scales is None:
         want = ragged_paged_attention_plain(*args, **kw, **cold)
     else:
@@ -1174,22 +1193,33 @@ def _k1_cold_case(label, pools, gen, rng, scales=None) -> dict:
     b_ms, b_by = bound(flops, int(hists.sum()) * per_tok + hot_pages * 4
                        + 4 * (2 * nC + 5 * R)
                        + nbytes(q, kn, vn, got))
+    info = ragged_kernel_info(T, H, KVH, D, P, maxP,
+                              quantized=scales is not None, cold=True, R=R)
     row = dict(case=label, max_abs_err=err, tol_ratio=ratio,
                max_abs_err_vs_resident=err_res,
                tol_ratio_vs_resident=ratio_res,
                planted_fault_ratio=min(faults.values()),
                planted_faults=faults, ms=ms, resident_ms=resident_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by, chunks=nC, chunk_tokens=Ct,
-               cold_parts=_k1_cold_parts(nC, maxP, P), cold_tokens=cold_tok)
+               bound_by=b_by, bound_fraction=b_ms / ms,
+               cuda_core_ms_recorded=COLD_CUDA_CORE_MS[tag], chunks=nC,
+               chunk_tokens=Ct, slots=_k1_cold_slots(maxP, P),
+               cold_tokens=cold_tok, bitwise_repeat=True, resources=info)
     log(f"[{tag}] {label}: {nC} chunks of {Ct} tokens "
         f"({cold_tok} cold tokens over 8 tiered rows), max_abs_err "
         f"{err:.3e}, {ratio:.3f}x the limit; vs the resident call "
         f"{ratio_res:.3f}x (planted faults "
         + ", ".join(f"{k} {v:.1f}x" for k, v in faults.items())
-        + f") kernel_ms {ms:.4f} resident_ms {resident_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.6f} "
-        f"({b_by})")
+        + f"); two launches bit-equal; kernel_ms {ms:.4f} (the CUDA-core "
+        f"form's recorded {COLD_CUDA_CORE_MS[tag]:.4f}) resident_ms "
+        f"{resident_ms:.4f} plain_ms {plain_ms:.4f} library_ms (SDPA) "
+        f"{library_ms:.4f} bound_ms {b_ms:.6f} ({b_by}), {b_ms / ms:.3f} of "
+        f"the bound; main kernel {info['regs']} registers, "
+        f"{info['spill_bytes']} B spills, {info['smem_bytes']} B shared "
+        f"memory, {info['blocks_per_sm']} blocks per SM")
+    if ms >= COLD_CUDA_CORE_MS[tag]:
+        raise AssertionError(f"{tag} {label}: {ms:.4f} ms, not below the "
+                             f"CUDA-core form's {COLD_CUDA_CORE_MS[tag]}")
     return row
 
 
@@ -3443,8 +3473,10 @@ def phase_adapter_exact(smi) -> dict:
 # 4h. checkpoints: both v5e1-hotswap entries from safetensors files on disk
 # ---------------------------------------------------------------------------
 
-# bf16 weight bytes of the two checkpoints
-CKPT_WEIGHT_BYTES = {MODEL: 16_060_522_496, PHI3: 7_642_159_104}
+# the checkpoints' depth: 2 of the entries' 32 layers at full width, a
+# depth cut for the smoke's time limit (at 32 the phase took 79.2 s of an
+# 876 s smoke, 33.4 s of it writing and syncing 23.7 GB; ROADMAP P3)
+CKPT_LAYERS = 2
 # the largest single tensor: Llama-3-8B's bf16 embedding
 LLAMA_EMBED_BYTES = 1_050_673_152
 RSS_RISE_LIMIT = 2 << 30
@@ -3524,25 +3556,23 @@ def _gbps(nbytes, seconds) -> str:
     return f"{seconds:.3f} s ({nbytes / seconds / 1e9:.2f} GB/s)"
 
 
-def _drop_cache(paths) -> None:
-    """fsync each file and evict it from the page cache, so the next read
-    comes from the disk."""
-    for p in paths:
-        fd = os.open(p, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
-        finally:
-            os.close(fd)
+def _ckpt_config(name):
+    """The entry's model at ``CKPT_LAYERS`` layers, full width."""
+    from helix_tpu_torch.models.common import CATALOG
+
+    return dataclasses.replace(CATALOG[name], num_layers=CKPT_LAYERS)
 
 
 def _write_checkpoints(root, tag) -> dict:
-    """Llama-3-8B (per projection) and Phi-3-mini (fused) as HF
-    checkpoints of ``init_params(cfg, 0)`` in bf16, each with its fixture
-    ``tokenizer.json``, out of the page cache."""
+    """Llama-3-8B (per projection) and Phi-3-mini (fused) at
+    ``CKPT_LAYERS`` layers as HF checkpoints of ``init_params(cfg, 0)`` in
+    bf16, each with its fixture ``tokenizer.json``.  They stay in the page
+    cache: the card's machine does not evict a file's pages on request
+    (``posix_fadvise(DONTNEED)`` after an fsync left the first load as
+    fast as the later ones), so every load reads warm."""
     import shutil
 
-    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.engine.residency import tree_bytes
     from helix_tpu_torch.models.llama import init_params
     from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
     from helix_tpu_torch.testing.tokenizer_fixtures import FIXTURES
@@ -3551,30 +3581,28 @@ def _write_checkpoints(root, tag) -> dict:
     for name, sub, model_type, fused, fixture, extra in CKPT_SPECS:
         d = os.path.join(root, sub)
         t0 = time.monotonic()
-        params = init_params(CATALOG[name], 0, device="cuda")
+        cfg = _ckpt_config(name)
+        params = init_params(cfg, 0, device="cuda")
+        weight_bytes = tree_bytes(params)
         torch.cuda.synchronize()
         t1 = time.monotonic()
-        paths = write_checkpoint(d, CATALOG[name], params,
-                                 model_type=model_type, fused=fused,
-                                 config_extra=extra)
+        paths = write_checkpoint(d, cfg, params, model_type=model_type,
+                                 fused=fused, config_extra=extra)
         paths.append(shutil.copy(
             os.path.join(FIXTURES[fixture], "tokenizer.json"), d))
         del params
         _free()
         t2 = time.monotonic()
-        _drop_cache(paths)
-        t3 = time.monotonic()
         tensors = sum(os.path.getsize(p) for p in paths
                       if p.endswith(".safetensors"))
         out[name] = {"dir": d, "file_bytes": tensors, "files": len(paths),
-                     "draw_s": t1 - t0, "write_s": t2 - t1,
-                     "fsync_drop_s": t3 - t2}
-        log(f"{tag} wrote {name} to {d}: {len(paths) - 2} safetensors "
-            f"files, {tensors} B (bf16 weights {CKPT_WEIGHT_BYTES[name]} B"
-            f" + headers), fused {fused}; draw on the card {t1 - t0:.2f} s,"
+                     "draw_s": t1 - t0, "write_s": t2 - t1}
+        log(f"{tag} wrote {name} ({CKPT_LAYERS} layers) to {d}: "
+            f"{len(paths) - 2} safetensors files, {tensors} B (bf16 "
+            f"weights {weight_bytes} B + headers), fused {fused}; draw on "
+            f"the card {t1 - t0:.2f} s,"
             f" write {t2 - t1:.2f} s ({tensors / (t2 - t1) / 1e9:.2f} GB/s"
-            f" through the page cache), fsync + drop from the page cache "
-            f"{t3 - t2:.2f} s")
+            f" through the page cache)")
     return out
 
 
@@ -3631,15 +3659,18 @@ def _stop_side(httpd, served) -> None:
 @_timed
 def phase_checkpoint(smi) -> dict:
     """4h: ``profiles/v5e1-hotswap.yaml``'s two models served from HF
-    safetensors checkpoints on disk, at full width and depth, through
+    safetensors checkpoints on disk, at full width and ``CKPT_LAYERS`` (2)
+    of their 32 layers (a depth cut for the smoke's time), through
     ``serve-node``'s profile path without ``--random-weights``
     (``_hotswap_copy``'s cuts, the checkpoint paths pointing at files
-    written here).  Steps:
+    written here, the residency budget cut to 1.2x the larger model's
+    estimate so that each swap still evicts).  Steps:
 
     1. Llama-3-8B (per projection) and Phi-3-mini (fused) written as bf16
        checkpoints of ``init_params(cfg, 0)`` with the fixture tokenizers,
-       fsynced and dropped from the page cache;
-    2. each model's first chat loads it (cold: from the disk; Phi-3's
+       left in the page cache (the card's machine does not evict on
+       request: every load reads warm);
+    2. each model's first chat loads it (first; Phi-3's
        evicts Llama); its weights equal the as-drawn build of seed 0 byte
        for byte (int8 Llama: weight, scale, embed_scale; bf16 Phi-3),
        compared on the card a layer at a time; 8 greedy chats in one
@@ -3663,7 +3694,10 @@ def phase_checkpoint(smi) -> dict:
     import tempfile
 
     from helix_tpu_torch import cli
-    from helix_tpu_torch.engine.residency import served_model_bytes
+    from helix_tpu_torch.engine.residency import (
+        model_param_count,
+        served_model_bytes,
+    )
     from helix_tpu_torch.ops.attention import K2
     from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
     from helix_tpu_torch.serving.tokenizer import HFTokenizer
@@ -3674,7 +3708,11 @@ def phase_checkpoint(smi) -> dict:
     root = os.environ.get("HELIX_SMOKE_CKPT_DIR") or tempfile.gettempdir()
     os.makedirs(root, exist_ok=True)
     free = shutil.disk_usage(root).free
-    need = sum(CKPT_WEIGHT_BYTES.values())
+    need = sum(2 * model_param_count(_ckpt_config(n)) for n, *_ in CKPT_SPECS)
+    log(f"{tag} cut: both checkpoints at {CKPT_LAYERS} of 32 layers, full "
+        "width (a depth cut for the smoke's time limit), and the residency "
+        "budget to 1.2x the larger model's estimate, so each swap still "
+        "evicts")
     log(f"{tag} checkpoint root {root}: {free} B free, the two "
         f"checkpoints need {need} B of weights; host anonymous memory "
         f"read from {_rss_source()}")
@@ -3694,6 +3732,16 @@ def phase_checkpoint(smi) -> dict:
         prof, cuts = _hotswap_copy()
         for m in prof["models"]:
             m["checkpoint"] = written[m["name"]]["dir"]
+        # room for the larger model with a fifth to spare (a prefetch
+        # holds it to its measured bytes and headroom), never for both
+        ests = [cli.spec_bytes(m) for m in prof["models"]]
+        budget = int(1.2 * max(ests))
+        if budget >= sum(ests):
+            raise AssertionError(f"budget {budget} B holds both models: "
+                                 f"{ests}")
+        cuts.append(f"residency.hbm_budget_bytes "
+                    f"{prof['residency']['hbm_budget_bytes']} -> {budget}")
+        prof["residency"]["hbm_budget_bytes"] = budget
         for c in cuts:
             log(f"{tag} cut: {c}")
         entries = {m["name"]: m for m in prof["models"]}
@@ -3709,7 +3757,7 @@ def phase_checkpoint(smi) -> dict:
             builds.append(rec)
             ld, st = rec["load"], rec["stats"]
             n = sum(b["name"] == kw["name"] for b in builds)
-            log(f"{tag} loaded {kw['name']} ({'cold' if n == 1 else 'warm'})"
+            log(f"{tag} loaded {kw['name']} ({'first' if n == 1 else 'again'})"
                 ": " + ", ".join(f"{k} {v:.3f} s"
                                  for k, v in rec["split"].items())
                 + f"; {st['bytes']} B in {st['blocks']} blocks, host read "
@@ -3751,7 +3799,7 @@ def phase_checkpoint(smi) -> dict:
             quant = entries[name].get("quantization")
             evicted = mgr.resident_names()
             before = torch.cuda.memory_allocated()
-            # (2) the first chat loads the model (cold)
+            # (2) the first chat loads the model
             t0 = time.monotonic()
             ttft, _n, _f = counted(_ttft_chat, base, name,
                                    "Say hello in one line.", 8)
@@ -3777,6 +3825,7 @@ def phase_checkpoint(smi) -> dict:
             _free()
             ref = cli.build_served_model(
                 name, device="cuda", seed=0, quantization=quant,
+                model_overrides={"num_layers": CKPT_LAYERS},
                 engine={**entries[name]["engine"],
                         "eos_token_ids": list(tok.eos_ids)})
             n_cmp, bad = _tree_diff(eng.params, ref.loop.engine.params)
@@ -3934,12 +3983,12 @@ def phase_checkpoint(smi) -> dict:
                                      f"{ld['rss_rise']} B during a load")
         secs = {n: [b["stats"]["seconds"] for b in builds if b["name"] == n]
                 for n in (MODEL, PHI3)}
-        log(f"{tag} summary: load seconds cold / warm (median): "
+        log(f"{tag} summary: load seconds first / again (median): "
             + "; ".join(f"{n.split('/')[0]} {v[0]:.3f} / "
                         f"{statistics.median(v[1:]):.3f} s ({len(v) - 1} "
-                        "warm)" for n, v in secs.items())
-            + f"; swap seconds cold {per_model[PHI3]['swap_s']:.3f} s, "
-            f"warm {sorted(s['swap_s'] for s in swaps)[len(swaps) // 2]:.3f}"
+                        "again)" for n, v in secs.items())
+            + f"; swap seconds first {per_model[PHI3]['swap_s']:.3f} s, "
+            f"again {sorted(s['swap_s'] for s in swaps)[len(swaps) // 2]:.3f}"
             f" s (median of {len(swaps)}); TTFT p50 of the first chat after"
             f" a swap {out['swap_ttft_p50_s']:.3f} s; host anonymous "
             "memory's rise per load "
@@ -6672,9 +6721,15 @@ def _ctx_phase(tag, entry, build, tmpdir, full: bool) -> dict:
                                     for r in flight)
         wave["steps"] = loop.window.recorded - rec0
         if prof is not None:
-            busy = sum(_kernel_ms(prof).values())
+            by_kernel = _kernel_ms(prof)
+            busy = sum(by_kernel.values())
             wave["busy_ms"] = busy
             wave["idle_share"] = 1.0 - busy / (wave["seconds"] * 1e3)
+            # the cold form by name: its pre-pass, main and merge kernels
+            wave["cold_kernel_ms"] = {
+                name: sum(t for k, t in by_kernel.items() if name in k)
+                for name in ("cold_worklist_kernel", "cold_attend_kernel",
+                             "cold_merge_kernel")}
         waves["tiered" if tiered else "resident"] = wave
         if tiered:
             if wave["demoted"] <= 0 or wave["chunks"] <= 0:
@@ -6690,6 +6745,19 @@ def _ctx_phase(tag, entry, build, tmpdir, full: bool) -> dict:
             if wave["flight_chunks"] <= 0 or wave["flight_cold_max"] <= 0:
                 raise AssertionError(f"{tag} the flight record shows no "
                                      "cold pages")
+            if "cold_kernel_ms" in wave:
+                ck = wave["cold_kernel_ms"]
+                log(f"{tag} (a) K1-int8-tiered traced by name at "
+                    f"{CTX_LAYERS} layers: "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in ck.items())
+                    + f", {sum(ck.values()):.3f} ms in all "
+                    f"({sum(ck.values()) / wave['busy_ms']:.4f} of the "
+                    f"wave's device busy time) over "
+                    f"{wave['forms']['ragged_paged_attention_int8_cold']} "
+                    "launches")
+                if min(ck.values()) <= 0:
+                    raise AssertionError(f"{tag} the trace misses a cold "
+                                         f"kernel: {ck}")
             log(f"{tag} (a) restages (chunks, bytes, s, of which read "
                 "back and verified, of which packed): "
                 + ", ".join(f"({n}, {b}, {s:.3f}, {v:.3f}, {p:.3f})"
@@ -8594,11 +8662,11 @@ def kernel_line(k1_rows, k1_int8_rows, k2_rows, launches, infos,
               "helix_tpu_torch/csrc/flash_attention.cu",
               "helix_tpu/ops/attention.py:258", k2_rows),
         entry("ragged_paged_attention_cold",
-              "helix_tpu_torch/csrc/ragged_paged_attention.cu",
+              "helix_tpu_torch/csrc/ragged_paged_attention_cold.cu",
               "helix_tpu/ops/paged.py:132 (tiered; no Pallas form)",
               cold_rows),
         entry("ragged_paged_attention_int8_cold",
-              "helix_tpu_torch/csrc/ragged_paged_attention.cu",
+              "helix_tpu_torch/csrc/ragged_paged_attention_cold.cu",
               "helix_tpu/ops/paged.py:132 (tiered, int8; no Pallas form)",
               cold_int8_rows),
         entry("flash_attention_backward",

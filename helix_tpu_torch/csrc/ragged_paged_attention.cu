@@ -63,7 +63,9 @@
 // int8 pool moves 2*D + 8 bytes per history token and KV head (264 B at
 // D=128) where a bf16 pool moves 4*D (512 B).
 
-// The cold form (tiered KV residency, ROADMAP B4).  The Pallas kernel
+// The cold form (tiered KV residency, ROADMAP B4), float32 queries only:
+// bf16 tiered calls run the tensor-core form of
+// ragged_paged_attention_cold.cu.  The Pallas kernel
 // has no tiered entry point: the reference routes tiered calls to its XLA
 // oracle (helix_tpu/ops/paged.py:132-186, 255-310).  Here they are more
 // parts of the same split-and-merge.  Each row r may carry a demoted span
@@ -711,13 +713,16 @@ cudaError_t dispatch(int dtype, int D, const void* q, const void* k_new,
         hist, tables, out, part_ml, part_acc, T, H, KVH, N, P, R, maxP,
         layer, pps, n_splits, scale, s, info, cold);
   }
-  if (dtype == 1) {
-    using TPb = typename std::conditional<std::is_same<TP, int8_t>::value,
-                                          int8_t, __nv_bfloat16>::type;
-    return dispatch_d<__nv_bfloat16, TPb, kCold>(
-        D, q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0, q_len,
-        hist, tables, out, part_ml, part_acc, T, H, KVH, N, P, R, maxP,
-        layer, pps, n_splits, scale, s, info, cold);
+  // bf16 cold calls run ragged_paged_attention_cold.cu's tensor-core form
+  if constexpr (!kCold) {
+    if (dtype == 1) {
+      using TPb = typename std::conditional<std::is_same<TP, int8_t>::value,
+                                            int8_t, __nv_bfloat16>::type;
+      return dispatch_d<__nv_bfloat16, TPb, kCold>(
+          D, q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0, q_len,
+          hist, tables, out, part_ml, part_acc, T, H, KVH, N, P, R, maxP,
+          layer, pps, n_splits, scale, s, info, cold);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -807,6 +812,8 @@ extern "C" int helix_ragged_paged_attention_info(int T, int H, int KVH,
 // plus span_lo/span_hi [R] int32, the staged slab cold_k/cold_v [L, nC,
 // Ct, KVH, D] of the pool's dtype, cold_row/cold_len [nC] int32, and
 // n_cold cold parts; part_ml/part_acc hold n_splits + 1 + n_cold parts.
+// dtype 0 only: bf16 tiered calls go to helix_ragged_paged_attention_
+// cold_bf16 (ragged_paged_attention_cold.cu).
 extern "C" int helix_ragged_paged_attention_cold(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const void* t0, const void* q_len, const void* hist,

@@ -2045,15 +2045,18 @@ class Engine:
                 for f, t in first.items()}
 
         # each span's chunks are consecutive: one [L, tokens, ...] view of
-        # them per field, its pages copied in order, the tail zeroed
+        # them per field, its pages stacked into it in order by one numpy
+        # copy (their bytes: bf16 has no numpy type), the tail zeroed
         c0 = 0
         for _slot, rid, lo, hi in spans:
             n_ch = -(-(hi - lo) // sp)
             for f, slab in host.items():
                 region = slab[:, c0:c0 + n_ch].flatten(1, 2)
-                for i, idx in enumerate(range(lo, hi)):
-                    region[:, i * ps:(i + 1) * ps].copy_(
-                        torch.as_tensor(pages[("ctx", rid, idx)][f]))
+                dst = region[:, :(hi - lo) * ps].unflatten(1, (hi - lo, ps))
+                np.stack([torch.as_tensor(pages[("ctx", rid, idx)][f])
+                          .contiguous().view(torch.uint8).numpy()
+                          for idx in range(lo, hi)], axis=1,
+                         out=dst.view(torch.uint8).numpy())
                 region[:, (hi - lo) * ps:].zero_()
             c0 += n_ch
         t_filled = time.monotonic()

@@ -26,6 +26,20 @@ pre-pass and the epilogue remain).  Each kernel's device time per call is
 read with ``torch.profiler`` at the training shape ``chip_smoke.py``
 times it at: B 8 x S 1024 rows packed from 100-500-token chats, H 32 /
 KVH 8, D 128, bf16.
+
+    python -m helix_tpu_torch.kernels.ablate k1c  # K1's bf16 cold form
+
+``k1c`` builds ``csrc/ragged_paged_attention_cold.cu`` five ways:
+``full``; ``no_mma`` without the ``mma.sync`` products (empty asm keeps
+their operands live); ``no_copies`` without the key stream's cp.async
+copies; ``no_softmax`` without the softmax math (no max, shuffles or
+``exp2``: P is the masked score); ``no_widen`` without the int8 codes'
+widening to bf16.  Each kernel's device time per call (the pre-pass,
+the main kernel, the merge) is read with ``torch.profiler`` on phase
+3d's tiered layout of ``chip_smoke.py`` (4 decode and 4 verify rows of 5
+at histories 6000-8000 with ~5000 keys each demoted into 64-key chunks,
+8 resident decode rows, H 32 / KVH 8, D 128, 16-token pages), bf16 and
+int8 pools.
 """
 
 from __future__ import annotations
@@ -63,6 +77,34 @@ K2B_CUTS = {
          "    (void)tile; (void)p; (void)ok;   // cut: no copies")],
     "loop_off": [("  while (j < nkt) {", "  while (false && j < nkt) {"),
                  ("  while (g < G) {", "  while (false && g < G) {")],
+}
+
+
+K1C_CUTS = {
+    "no_mma": [(
+        '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "\n'
+        '      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, '
+        '{%0, %1, %2, %3};\\n"',
+        '""   // cut: no products')],
+    "no_copies": [
+        ("          cp_async16(stg + j * D + pc * 16, ksrc, live ? 16 : 0);",
+         "          (void)ksrc;   // cut: no copies"),
+        ("          cp_async16(stg + L.raw_v + j * D + pc * 16, vsrc, "
+         "live ? 16 : 0);", "          (void)vsrc;"),
+        ("          cp_async16(stg + TL::off(j, pc), ksrc, live ? 16 : 0);",
+         "          (void)ksrc;   // cut: no copies"),
+        ("          cp_async16(stg + (kRing ? L.raw_v : L.tile) + "
+         "TL::off(j, pc),\n                     vsrc, live ? 16 : 0);",
+         "          (void)vsrc;")],
+    "no_softmax": [
+        ("      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));\n"
+         "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));\n", ""),
+        ("      const float alpha = fast_exp2(st.m[mt][h] - mn);",
+         "      const float alpha = 1.f;   // cut: no softmax math"),
+        ("          p[j] = fast_exp2(x[nt][j] - mn);",
+         "          p[j] = x[nt][j];")],
+    "no_widen": [("        widen<D>(stg, sm + L.cbuf, L);",
+                  "        (void)0;   // cut: no widening")],
 }
 
 
@@ -180,6 +222,92 @@ def k2_backward() -> int:
     return 0
 
 
+def _cold_case(rng, int8: bool):
+    """Phase 3d's tiered call (``chip_smoke._k1_cold_case``'s layout)."""
+    from helix_tpu_torch.ops.quant import quantize_kv
+
+    H, KVH, D, P, N, maxP, pages = 32, 8, 128, 16, 8192, 512, 4
+    q_lens = np.array([1] * 4 + [5] * 4 + [1] * 8, np.int32)
+    hists = np.concatenate([rng.integers(6000, 8000, 8),
+                            rng.integers(1000, 8000, 8)]).astype(np.int32)
+    R, T = len(q_lens), int(q_lens.sum())
+    t0 = np.concatenate([[0], np.cumsum(q_lens)[:-1]]).astype(np.int32)
+    walked = -(-(hists + q_lens) // P)
+    perm = rng.permutation(np.arange(1, N))
+    tables = np.zeros((R, maxP), np.int32)
+    for r, (n, a) in enumerate(zip(walked, np.cumsum(walked) - walked)):
+        tables[r, :n] = perm[a:a + n]
+    lo = np.zeros(R, np.int32)
+    hi = np.zeros(R, np.int32)
+    lo[:8] = rng.integers(8, 32, 8) * P
+    hi[:8] = lo[:8] + (5000 // P) * P
+    owners, lens, idx = [], [], []
+    for r in range(8):
+        for c0 in range(lo[r] // P, hi[r] // P, pages):
+            pg = list(tables[r, c0:min(c0 + pages, hi[r] // P)])
+            owners.append(r)
+            lens.append(len(pg) * P)
+            idx.append(pg + [0] * (pages - len(pg)))
+        tables[r, lo[r] // P:hi[r] // P] = 0
+    owners.append(-1)
+    lens.append(pages * P)
+    idx.append(list(perm[-pages:]))
+    gather = torch.from_numpy(np.asarray(idx, np.int64)).cuda()
+    shape = (1, N, P, KVH, D)
+    pools = [torch.randn(shape, device="cuda") for _ in range(2)]
+    kw = {}
+    if int8:
+        (kp, ks), (vp, vs) = (quantize_kv(x) for x in pools)
+        kw = dict(k_scale=ks, v_scale=vs)
+        pools = [kp, vp]
+    else:
+        pools = [x.bfloat16() for x in pools]
+
+    def slab(pool):
+        return pool[:, gather].reshape(
+            (1, len(owners), pages * P) + tuple(pool.shape[3:])).contiguous()
+
+    def up(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).cuda()
+
+    cold = dict(span_lo=up(lo), span_hi=up(hi), cold_k=slab(pools[0]),
+                cold_v=slab(pools[1]), cold_row=up(owners),
+                cold_len=up(lens))
+    if int8:
+        cold.update(cold_k_scale=slab(kw["k_scale"]),
+                    cold_v_scale=slab(kw["v_scale"]))
+    q = torch.randn((T, H, D), device="cuda").bfloat16()
+    kv = torch.randn((T, KVH, D), device="cuda").bfloat16()
+    return ((q, kv, kv.clone(), *pools, 0, up(t0), up(q_lens), up(hists),
+             up(tables)), {**kw, **cold})
+
+
+def k1_cold() -> int:
+    """K1's bf16 cold form, full and cut, on phase 3d's layout."""
+    libs = _build(build.BUILD_DIR / "ablate_k1c",
+                  "ragged_paged_attention_cold.cu", K1C_CUTS)
+    rng = np.random.default_rng(13)
+    names = ("cold_worklist_kernel", "cold_attend_kernel",
+             "cold_merge_kernel")
+    print(torch.cuda.get_device_name(0))
+    for int8 in (False, True):
+        args, kw = _cold_case(rng, int8)
+        for name, lib in libs.items():
+            if name == "no_widen" and not int8:
+                continue
+            pk.K1_COLD._lib = lib
+            t = _kernel_ms(lambda: pk.ragged_paged_attention(*args, **kw),
+                           names)
+            print(f"K1-{'int8-' if int8 else ''}tiered {name}: device ms "
+                  "per call " + ", ".join(
+                      f"{n.split('_kernel')[0]} {v:.4f}"
+                      for n, v in t.items())
+                  + f", total {sum(t.values()):.4f}")
+        del args, kw
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     import sys
 
@@ -188,6 +316,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["k2b"]:
         return k2_backward()
+    if argv[:1] == ["k1c"]:
+        return k1_cold()
     libs = _build(build.BUILD_DIR / "ablate")
     rng = np.random.default_rng(1)
     pool = [torch.randn((2, 4096, 16, 8, 128), device="cuda").bfloat16()

@@ -22,12 +22,17 @@ On the card the history is split over blocks in spans of whole pages
 states are merged in float32; the wrapper allocates that scratch.
 
 Tiered rows (``span_lo``/``span_hi`` and the staged cold slab
-``cold_*``, the reference's tiered arguments) launch the kernel's cold
-form, counted on ``K1_COLD`` / ``K1_INT8_COLD``: the demoted span leaves
-the hot history and the slab's chunks are ``_k1_cold_parts`` more parts
-of the same merge.  The Pallas kernel has no such form (the reference
-runs its XLA oracle for tiered calls); the port never runs the plain
-version on the card.
+``cold_*``, the reference's tiered arguments) launch K1's cold form,
+counted on ``K1_COLD`` / ``K1_INT8_COLD``.  bf16 queries run
+``csrc/ragged_paged_attention_cold.cu`` on the tensor cores: a pre-pass
+lists each row's live work on the device (``k1_cold_worklist`` is its
+plain version), the main kernel attends one (query tile, item, KV head)
+unit at a time and a merge combines a row's ``_k1_cold_slots`` slots.
+float32 queries run the CUDA-core cold form of K1's own source, where the
+demoted span leaves the hot history and the slab's chunks are
+``_k1_cold_parts`` more parts of the same merge.  The Pallas kernel has
+no such form (the reference runs its XLA oracle for tiered calls); the
+port never runs the plain version on the card.
 """
 
 from __future__ import annotations
@@ -47,8 +52,11 @@ from helix_tpu_torch.ops.attention import (
 
 K1 = Kernel("ragged_paged_attention", "ragged_paged_attention.cu")
 K1_INT8 = KernelForm("ragged_paged_attention_int8", K1)
-K1_COLD = KernelForm("ragged_paged_attention_cold", K1)
-K1_INT8_COLD = KernelForm("ragged_paged_attention_int8_cold", K1)
+# the cold form: its bf16 entry points are this source's; float32 calls
+# launch the CUDA-core form in K1's source and count here too
+K1_COLD = Kernel("ragged_paged_attention_cold",
+                 "ragged_paged_attention_cold.cu")
+K1_INT8_COLD = KernelForm("ragged_paged_attention_int8_cold", K1_COLD)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +65,10 @@ _K1_INT8_ARGS = [_P] * 14 + [_I] * 11 + [ctypes.c_float, _I, _P]
 _K1_INFO_ARGS = [_I] * 8 + [_P]
 _K1_COLD_ARGS = [_P] * 18 + [_I] * 14 + [ctypes.c_float, _I, _P]
 _K1_INT8_COLD_ARGS = [_P] * 22 + [_I] * 14 + [ctypes.c_float, _I, _P]
+_K1C_BF16_ARGS = [_P] * 19 + [_I] * 13 + [ctypes.c_float, _P]
+_K1C_INT8_ARGS = [_P] * 23 + [_I] * 13 + [ctypes.c_float, _P]
+_K1C_WORKLIST_ARGS = [_P] * 6 + [_I] * 7 + [_P]
+_K1C_INFO_ARGS = [_I] * 3 + [_P]
 # the tiered arguments every tiered call carries (int8 pools add the
 # cold scales)
 TIERED_ARGS = ("span_lo", "span_hi", "cold_k", "cold_v", "cold_row",
@@ -84,16 +96,104 @@ def _k1_cold_parts(nC: int, maxP: int, P: int) -> int:
     return max(1, min(nC, -(-maxP * P // SPAN_TOKENS)))
 
 
+# a cold part's chunks, at most (the kernel's window of pages / chunks)
+_K1C_WINDOW = 128
+# the pre-pass's item kinds
+COLD_FRESH, COLD_HOT, COLD_CHUNKS = 0, 1, 2
+
+
+def _k1_cold_slots(maxP: int, P: int) -> int:
+    """Scratch slots per (token, head) of the bf16 cold form: a bound on a
+    row's work items whatever its layout -- the fresh part, the hot
+    ranges' pieces (at most ``maxP P / SPAN_TOKENS + 2``) and at least one
+    cold part -- from shapes alone."""
+    return -(-maxP * P // SPAN_TOKENS) + 4
+
+
+def k1_cold_worklist(hist, span_lo, span_hi, cold_row, cold_len, maxP: int,
+                     P: int, Ct: int) -> list:
+    """The plain version of the bf16 cold form's pre-pass: per row, its
+    items ``(kind, a, b)`` in slot order and its owned chunks.
+
+    Slot 0 is the fresh part (``COLD_FRESH``); then the hot keys ``[0,
+    lo)`` and ``[hi, h)`` (``h`` = hist clamped to the table's ``maxP P``
+    keys, the demoted span clamped into ``[0, h)``, empty when ``lo >=
+    hi``), each cut into equal pieces of at most ``SPAN_TOKENS`` keys
+    (``COLD_HOT``, key range ``[a, b)``); then the row's chunks with
+    ``cold_len > 0``, ascending, in parts of ``SPAN_TOKENS // Ct`` of them
+    (more if the row would pass its ``_k1_cold_slots`` slots;
+    ``COLD_CHUNKS``, ``[a, b)`` into the owned list)."""
+    K = _k1_cold_slots(maxP, P)
+    cpp = max(1, min(SPAN_TOKENS // Ct, _K1C_WINDOW))
+    rows = []
+    for r in range(len(hist)):
+        owned = [c for c in range(len(cold_row))
+                 if int(cold_row[c]) == r and int(cold_len[c]) > 0]
+        h = min(max(int(hist[r]), 0), maxP * P)
+        lo, hi = int(span_lo[r]), int(span_hi[r])
+        if lo >= hi:
+            lo = hi = h
+        else:
+            lo = min(max(lo, 0), h)
+            hi = min(max(hi, lo), h)
+        items = [(COLD_FRESH, 0, 0)]
+        for a, b in ((0, lo), (hi, h)):
+            n = -(-(b - a) // SPAN_TOKENS)
+            items += [(COLD_HOT, a + (b - a) * i // n,
+                       a + (b - a) * (i + 1) // n) for i in range(n)]
+        if owned:
+            per = max(cpp, -(-len(owned) // (K - len(items))))
+            items += [(COLD_CHUNKS, p, min(len(owned), p + per))
+                      for p in range(0, len(owned), per)]
+        rows.append((items, owned))
+    return rows
+
+
+def k1_cold_worklist_device(hist, span_lo, span_hi, cold_row, cold_len,
+                            maxP: int, P: int, Ct: int) -> list:
+    """The bf16 cold form's pre-pass alone on the card, read back in
+    ``k1_cold_worklist``'s form (for the card tests)."""
+    R, nC = hist.shape[0], cold_row.shape[0]
+    K = _k1_cold_slots(maxP, P)
+    work = torch.full((4 * R * K + R + R * nC + 1,), -1, dtype=torch.int32,
+                      device=hist.device)
+    fn = K1_COLD.symbol("helix_ragged_paged_attention_cold_worklist",
+                        _K1C_WORKLIST_ARGS)
+    err = fn(hist.data_ptr(), span_lo.data_ptr(), span_hi.data_ptr(),
+             cold_row.data_ptr(), cold_len.data_ptr(), work.data_ptr(), R, P,
+             maxP, nC, Ct, K, SPAN_TOKENS,
+             torch.cuda.current_stream(hist.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cold work list: cuda error {err}")
+    w = work.cpu().tolist()
+    row_n = w[4 * R * K:4 * R * K + R]
+    chunks = w[4 * R * K + R:]
+    rows = []
+    for r in range(R):
+        items = [tuple(w[4 * (r * K + k):4 * (r * K + k) + 3])
+                 for k in range(row_n[r])]
+        n_own = max([b for kind, _a, b in items if kind == COLD_CHUNKS],
+                    default=0)
+        rows.append((items, chunks[r * nC:r * nC + n_own]))
+    return rows
+
+
 def ragged_kernel_info(T: int, H: int, KVH: int, D: int, P: int, maxP: int,
                        dtype=torch.bfloat16, quantized: bool = False,
-                       cold: bool = False) -> dict:
-    """Launch resources of K1's split kernel (``cold``: of its cold form)
-    at these shapes (needs the card): shared memory per block, registers,
-    blocks per SM, spills."""
+                       cold: bool = False, R: int = 16) -> dict:
+    """Launch resources of K1's split kernel (``cold``: of its cold form;
+    in bf16 the tensor-core kernel's main pass for ``R`` rows) at these
+    shapes (needs the card): shared memory per block, registers, blocks
+    per SM, spills."""
     info = (ctypes.c_int * 4)()
-    fn = K1.symbol("helix_ragged_paged_attention_info", _K1_INFO_ARGS)
-    err = fn(T, H, KVH, D, _k1_split(maxP, P)[0], _KERNEL_DTYPES[dtype],
-             int(quantized), int(cold), ctypes.addressof(info))
+    if cold and dtype == torch.bfloat16:
+        fn = K1_COLD.symbol("helix_ragged_paged_attention_cold_bf16_info",
+                            _K1C_INFO_ARGS)
+        err = fn(D, int(quantized), R, ctypes.addressof(info))
+    else:
+        fn = K1.symbol("helix_ragged_paged_attention_info", _K1_INFO_ARGS)
+        err = fn(T, H, KVH, D, _k1_split(maxP, P)[0], _KERNEL_DTYPES[dtype],
+                 int(quantized), int(cold), ctypes.addressof(info))
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention info: cuda error {err}")
     return dict(smem_bytes=info[0], regs=info[1], blocks_per_sm=info[2],
@@ -404,13 +504,17 @@ def _launch_cold(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0,
                  q_len, hist, tables, cold: dict, cold_scales: tuple, out,
                  layer: int, pps: int, n_splits: int, scale: float,
                  stream) -> torch.Tensor:
-    """Launch K1's cold form (checked by the caller): scratch for the
-    history, fresh and cold parts, then the entry point of the pool's
-    type."""
+    """Launch K1's cold form (checked by the caller): the tensor-core form
+    for bf16 queries, else the CUDA-core form's scratch for the history,
+    fresh and cold parts, then the entry point of the pool's type."""
     T, H, D = q.shape
     _, N, P, KVH, _ = k_pages.shape
     R, maxP = tables.shape
     nC, Ct = cold["cold_k"].shape[1:3]
+    if q.dtype == torch.bfloat16:
+        return _launch_cold_bf16(q, k_new, v_new, k_pages, v_pages, k_scale,
+                                 v_scale, t0, q_len, hist, tables, cold,
+                                 cold_scales, out, layer, scale, stream)
     n_cold = _k1_cold_parts(nC, maxP, P)
     parts = n_splits + 1 + n_cold
     part_ml = torch.empty((parts, T, H, 2), dtype=torch.float32,
@@ -425,19 +529,65 @@ def _launch_cold(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale, t0,
             ptr["cold_k"], ptr["cold_v"]]
     if k_scale is not None:
         form = K1_INT8_COLD
-        fn = form.symbol("helix_ragged_paged_attention_int8_cold",
-                         _K1_INT8_COLD_ARGS)
+        fn = K1.symbol("helix_ragged_paged_attention_int8_cold",
+                       _K1_INT8_COLD_ARGS)
         args = (head + [k_scale.data_ptr(), v_scale.data_ptr()] + rows
                 + [x.data_ptr() for x in cold_scales])
     else:
         form = K1_COLD
-        fn = form.symbol("helix_ragged_paged_attention_cold", _K1_COLD_ARGS)
+        fn = K1.symbol("helix_ragged_paged_attention_cold", _K1_COLD_ARGS)
         args = head + rows
     err = fn(
         *args, ptr["cold_row"], ptr["cold_len"], out.data_ptr(),
         part_ml.data_ptr(), part_acc.data_ptr(), T, H, KVH, D, N, P, R,
         maxP, layer, pps, n_splits, nC, Ct, n_cold, scale,
         _KERNEL_DTYPES[q.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"{form.name} kernel launch failed: cuda error {err}"
+        )
+    form.launches += 1
+    return out
+
+
+def _launch_cold_bf16(q, k_new, v_new, k_pages, v_pages, k_scale, v_scale,
+                      t0, q_len, hist, tables, cold: dict, cold_scales: tuple,
+                      out, layer: int, scale: float, stream) -> torch.Tensor:
+    """Launch the tensor-core cold form: ``_k1_cold_slots`` slots of
+    (m, l, acc) per (token, head) and the pre-pass's int32 work list
+    (items, per-row counts, owned chunks, the unit counter) as scratch."""
+    T, H, D = q.shape
+    _, N, P, KVH, _ = k_pages.shape
+    R, maxP = tables.shape
+    nC, Ct = cold["cold_k"].shape[1:3]
+    K = _k1_cold_slots(maxP, P)
+    part_ml = torch.empty((K, T, H, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((K, T, H, D), dtype=torch.float32,
+                           device=q.device)
+    work = torch.empty((4 * R * K + R + R * nC + 1,), dtype=torch.int32,
+                       device=q.device)
+    ptr = {k: v.data_ptr() for k, v in cold.items()}
+    head = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr()]
+    rows = [t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(),
+            tables.data_ptr(), ptr["span_lo"], ptr["span_hi"],
+            ptr["cold_k"], ptr["cold_v"]]
+    if k_scale is not None:
+        form = K1_INT8_COLD
+        fn = form.symbol("helix_ragged_paged_attention_int8_cold_bf16",
+                         _K1C_INT8_ARGS)
+        args = (head + [k_scale.data_ptr(), v_scale.data_ptr()] + rows
+                + [x.data_ptr() for x in cold_scales])
+    else:
+        form = K1_COLD
+        fn = form.symbol("helix_ragged_paged_attention_cold_bf16",
+                         _K1C_BF16_ARGS)
+        args = head + rows
+    err = fn(
+        *args, ptr["cold_row"], ptr["cold_len"], out.data_ptr(),
+        part_ml.data_ptr(), part_acc.data_ptr(), work.data_ptr(), T, H, KVH,
+        D, N, P, R, maxP, layer, nC, Ct, K, SPAN_TOKENS, scale, stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -1377,10 +1377,13 @@ def test_unix_server_and_tunnel_round_trip_on_the_card(cuda, tmp_path):
 
 
 def _cold_case(seed, dtype, quantized, L=2, N=512, P=16, KVH=2, D=128, H=8,
-               maxP=64, Ct=64):
+               maxP=64, Ct=64, edge=False):
     """Tiered decode and verify rows beside resident ones, page-aligned
-    spans (one from page 0), a chunk owned by no row: the tiered call's
-    arguments and the resident call's tables on the same values."""
+    spans (one from page 0, leaving only the hot tail), a chunk owned by
+    no row: the tiered call's arguments and the resident call's tables on
+    the same values.  ``edge``: also chunks with ``cold_len`` 0 among the
+    others (one of them a resident row's, which owns no live chunk) and a
+    tiered row whose chunks are all empty."""
     rng = np.random.default_rng(seed)
     q_len = np.array([1, 5, 1, 3, 1, 5], np.int32)
     hist = np.array([900, 700, 400, 1000, 600, 850], np.int32)
@@ -1412,6 +1415,14 @@ def _cold_case(seed, dtype, quantized, L=2, N=512, P=16, KVH=2, D=128, H=8,
     owners.append(-1)
     lens.append(Ct)
     idx.append(tables[2, :Ct // P])
+    if edge:
+        # empty chunks: row 0's among its own, row 2 (resident), and
+        # row 5's only chunk emptied -- its span then holds no keys at all
+        for at, r in ((3, 0), (len(owners) - 1, 2)):
+            owners.insert(at, r)
+            lens.insert(at, 0)
+            idx.insert(at, tables[r, :Ct // P])
+        lens[owners.index(5)] = 0
     nC = len(owners)
     gather = torch.from_numpy(np.stack(idx).astype(np.int64)).to(dev)
 
@@ -1436,16 +1447,29 @@ def _cold_case(seed, dtype, quantized, L=2, N=512, P=16, KVH=2, D=128, H=8,
     return head, up(tiered), up(tables), kw, cold, live
 
 
-def _check_cold_form(dtype, quantized, D=128):
+def _check_cold_form(dtype, quantized, D=128, H=8, KVH=2, edge=False):
     """K1's cold form against the plain version (int8: evaluated in f32,
     rounded once) and against the resident call on the same values; a
-    chunk's owner moved is caught."""
-    head, tiered, full, kw, cold, live = _cold_case(7, dtype, quantized,
-                                                    D=D)
+    chunk's owner moved is caught.  bf16: two launches give the same
+    bits, and the pre-pass's work list on the card is the plain one."""
+    head, tiered, full, kw, cold, live = _cold_case(
+        7, dtype, quantized, D=D, H=H, KVH=KVH, edge=edge)
     form = tpk.K1_INT8_COLD if quantized else tpk.K1_COLD
     before = form.launches
     got = tpk.ragged_paged_attention(*head, tiered, **kw, **cold)
     assert form.launches == before + 1
+    if dtype == torch.bfloat16:
+        again = tpk.ragged_paged_attention(*head, tiered, **kw, **cold)
+        assert torch.equal(got[live], again[live])
+        lists = [cold["span_lo"], cold["span_hi"], cold["cold_row"],
+                 cold["cold_len"]]
+        maxP, P = tiered.shape[1], head[3].shape[2]
+        Ct = cold["cold_k"].shape[2]
+        want_list = tpk.k1_cold_worklist(
+            head[8].cpu().numpy(), *(x.cpu().numpy() for x in lists), maxP,
+            P, Ct)
+        assert tpk.k1_cold_worklist_device(head[8], *lists, maxP, P,
+                                           Ct) == want_list
     if quantized:
         q, kn, vn, *rest = head
         want = tpk.ragged_paged_attention_plain(
@@ -1457,7 +1481,9 @@ def _check_cold_form(dtype, quantized, D=128):
     torch.testing.assert_close(got[live].float(), want[live].float(),
                                **TOL[dtype])
     resident = tpk.ragged_paged_attention(*head, full, **kw)
-    torch.testing.assert_close(got[live].float(), resident[live].float(),
+    # edge: row 5 (the last 5 tokens) has no staged keys for its span
+    same = live[:-5] if edge else live
+    torch.testing.assert_close(got[same].float(), resident[same].float(),
                                **TOL[dtype])
     moved = cold["cold_row"].clone()
     moved[0] = 1
@@ -1480,6 +1506,28 @@ def test_ragged_kernel_cold_form(cuda, dtype, quantized):
 def test_ragged_kernel_cold_form_head_dims(cuda, head_dim, quantized):
     """K1's cold form at every other head dim the resident form takes."""
     _check_cold_form(torch.bfloat16, quantized, D=head_dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("H,KVH", [(2, 2), (8, 2), (16, 2)])
+def test_ragged_kernel_cold_form_edges_and_groups(cuda, H, KVH, quantized):
+    """The bf16 cold form at groups 1, 4 and 8 on the edge layouts: empty
+    chunks among the live ones, a resident row owning only an empty
+    chunk, a tiered row whose chunks are all empty."""
+    _check_cold_form(torch.bfloat16, quantized, H=H, KVH=KVH, edge=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 96, 128])
+def test_ragged_kernel_cold_form_resources(cuda, head_dim, quantized):
+    """The bf16 cold form's main kernel spills nothing and fits at least
+    one block per SM at every head dim."""
+    info = tpk.ragged_kernel_info(8, 32, 8, head_dim, 16, 512,
+                                  quantized=quantized, cold=True)
+    assert info["spill_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 def _tiered_engines(cuda, kv_dtype):
