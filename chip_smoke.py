@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phase vision  # those + the Qwen2-VL phase
     python3 chip_smoke.py --phase moe     # those + the Mixtral phase
     python3 chip_smoke.py --phase train   # those + the LoRA SFT phase
+    python3 chip_smoke.py --phase tp      # those + the tensor-parallel phase
 
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
@@ -274,6 +275,32 @@ no result line):
    breaks it, and the witness adapter's greedy tokens through the pool
    equal those of the build that merges it at apply (the profile's
    ``adapter:`` field);
+3f. tp kernels (``phase_tp_kernels``): K2 and K1-int8 at a tp 4 shard of
+   Llama-3-8B (H 8, KVH 2, D 128): K2 on a packed wave of two 1536-token
+   prompts, K1-int8 with 32 decode rows and a 1024-token chunk row beside
+   31 on a shard's int8 pool of 15,872 pages, under the same limits,
+   faults and timings;
+4q. tensor parallel on one host (``phase_tp``): (a) the
+   ``profiles/v5e8-llama3-plus-embed.yaml`` Llama entry (its engine block
+   and ``context_length`` as written: 32 slots, 15,872 int8 pages,
+   prefill 4096, the async loop) at full width and depth, bf16 weights of
+   seed 0, built by ``build_served_model`` with a tp 4 mesh over an
+   explicit device list (cards 0-3 when four are visible, else card 0
+   four times; printed as ``tp_cards``) behind the OpenAI server: 16
+   chats of ~1500 tokens and 64 new tokens answered, the seeded request
+   twice the same, TTFT p50 and decode tok/s beside a tp 1 engine on the
+   same traffic in the same call, each card's bytes within 5% of its
+   shards' share of weights + pool (no card but the first above its
+   shards), K1-int8 and K2 launches = shards x layers x attention
+   forwards (counters, and per card from a traced wave), each card's
+   traced idle share, and one 4096-token prefill chunk split into
+   compute and its 64 sums; ``nvidia-smi topo -m`` printed; (b) the
+   profile cut to that entry (``{vendor: nvidia, chips: 4}``) through
+   ``serve-node``'s profile path: on four cards served over cards 0-3,
+   8 chats answered, K1 and K2 traced on every card; on fewer refused
+   with the reference's ``slice_devices`` text, nothing built; (c) 2
+   layers at full width in float32, TF32 off, tp 4 against tp 1 on the
+   same weights: 8 of 8 greedy streams equal;
 5. parity: the engine at full width and 2 layers, kernels vs plain
    versions on the same weights, logits compared within a bf16
    tolerance, in bf16 and with int8 weights and KV.
@@ -8570,6 +8597,617 @@ def phase_train(smi) -> dict:
             "k2_backward_traced_ms": k2b_ms, "witness": witness}
 
 
+# ---------------------------------------------------------------------------
+# 3f / 4q. tensor parallel on one host
+# ---------------------------------------------------------------------------
+
+# a tp 4 shard of Llama-3-8B's attention: 8 query heads, 2 KV heads
+TP = 4
+TP_HEADS = (H // TP, KVH // TP, D)
+TP_PROFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "profiles", "v5e8-llama3-plus-embed.yaml")
+# the profile's Llama entry's engine block and context length as written
+TP_ENTRY = dict(max_decode_batch=32, num_pages=15872, page_size=16,
+                max_prefill_len=4096, kv_cache_dtype="int8",
+                enable_async_loop=True)
+TP_CONTEXT = 8192
+TP_CHATS = 16
+TP_PROMPT_TOKENS = 1500
+TP_NEW_TOKENS = 64
+TP_TRACE_CHATS, TP_TRACE_TOKENS = 4, 16
+TP_WITNESS_LAYERS = 2
+TP_WITNESS_TOKENS = 32
+TP_SUM_REPS = 3
+MEM_TOL = 0.05               # a card's bytes against its shards' share
+MEM_SLACK = 64 << 20         # what a card but the first may hold beyond
+
+
+@_timed
+def phase_tp_kernels() -> tuple:
+    """3f. K2 and K1-int8 at a tp 4 shard's shape (H 8, KVH 2, D 128,
+    group 4), as phase 4q's engine calls them on each card: K2 on a cold
+    prefill wave of two ~1500-token prompts (packed, S 3072); K1-int8
+    with 32 decode rows at histories 1,500-1,564 and a 1,024-token chunk
+    row (history 2,048) beside 31 decode rows, on a shard's int8 pool of
+    the entry's 15,872 pages [32, 15872, 16, 2, 128].  Same limits,
+    planted faults and timings as the full-width cases.  Returns (K2
+    rows, K1-int8 rows)."""
+    from helix_tpu_torch.ops.quant import quantize_kv
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rng = np.random.default_rng(19)
+    k2 = [_k2_case("tp 4 shard: packed S=3072, 2 prompts of 1536, H=8, "
+                   "KVH=2", [1536, 1536], gen, TP_HEADS)]
+    L, N, P = 32, TP_ENTRY["num_pages"], 16
+    shape = (L, N, P, TP_HEADS[1], TP_HEADS[2])
+    pools = [torch.empty(shape, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    scales = [torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+              for _ in range(2)]
+    for lyr in range(L):
+        for pool, sc in zip(pools, scales):
+            pool[lyr], sc[lyr] = quantize_kv(torch.randn(
+                shape[1:], generator=gen, device=dev))
+    k1 = [
+        _k1_case("tp 4 shard: decode 32 rows, hist 1500-1564, 15872 "
+                 "pages, H=8, KVH=2", [1] * 32,
+                 rng.integers(1500, 1564, size=32), tuple(pools), gen,
+                 rng, tuple(scales), heads=TP_HEADS),
+        _k1_case("tp 4 shard: 1024-token chunk (hist 2048) + 31 decode "
+                 "rows, 15872 pages", [1024] + [1] * 31,
+                 [2048] + list(rng.integers(1500, 1564, size=31)),
+                 tuple(pools), gen, rng, tuple(scales), heads=TP_HEADS),
+    ]
+    del pools, scales
+    torch.cuda.empty_cache()
+    return k2, k1
+
+
+def _tp_devices() -> list:
+    """Cards 0-3 when four are visible, else card 0 four times (each
+    entry one shard)."""
+    n = torch.cuda.device_count()
+    if n >= TP:
+        return [torch.device("cuda", i) for i in range(TP)]
+    return [torch.device("cuda", 0)] * TP
+
+
+def _tp_prompts(n=TP_CHATS, seed=41) -> list:
+    """``n`` chats of ~TP_PROMPT_TOKENS byte-tokenizer tokens, distinct
+    from their first page (no two share a prefix-cache page)."""
+    rng = np.random.default_rng(seed)
+    words = ["press", "ink", "type", "paper", "guild", "folio", "quire",
+             "platen", "forme", "serif", "vellum", "matrix"]
+    out = []
+    for i in range(n):
+        text = f"Chat {i}: {rng.integers(10**8)} "
+        while len(text) < TP_PROMPT_TOKENS - 40:
+            text += words[int(rng.integers(len(words)))] + " "
+        out.append(text)
+    return out
+
+
+def _card_bytes(devs) -> dict:
+    return {d.index: torch.cuda.memory_allocated(d) for d in set(devs)}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return nbytes(tree)
+
+
+def _whole_bytes(cfg) -> int:
+    """The unsharded dense model's bf16 weight bytes, from its shapes:
+    the embedding and ``lm_head``, every layer's two norms and seven
+    projections, the final norm."""
+    E, V, F = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layer = 2 * E + E * q + 2 * E * kv + q * E + 3 * E * F
+    heads = V * E * (1 if cfg.tie_word_embeddings else 2)
+    return 2 * (heads + cfg.num_layers * layer + E)
+
+
+def _rounded(ms: dict) -> dict:
+    return {k: round(v, 1) for k, v in ms.items()}
+
+
+def _kind_of(name: str) -> str:
+    """A device event's class: K1's split kernel, K2, a GEMM, a copy or
+    other (K1's merge pass among them)."""
+    low = name.lower()
+    if "ragged_split_kernel" in name:
+        return "k1"
+    if "flash_kernel" in name or "flash_wgmma_kernel" in name:
+        return "k2"
+    if "memcpy" in low:
+        return "copy"
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _card_trace(prof, wall_ms: float) -> tuple:
+    """Per card of a ``torch.profiler`` capture: the device-busy ms (each
+    event's duration summed; a copy beside a kernel counts twice), its
+    split by ``_kind_of``, the K1 (``ragged_split_kernel``) and K2
+    (``flash_``) kernels run, and the idle share of ``wall_ms``; with the
+    host's CUDA runtime calls, total ms by name."""
+    cards, host = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            if name.startswith("cuda"):
+                host[name] = host.get(name, 0.0) + e.duration_ns() / 1e6
+            continue
+        c = cards.setdefault(e.device_index(), {
+            "busy_ms": 0.0, "k1": 0, "k2": 0,
+            "ms": {k: 0.0 for k in ("gemm", "k1", "k2", "copy", "other")}})
+        ms = e.duration_ns() / 1e6
+        kind = _kind_of(name)
+        c["busy_ms"] += ms
+        c["ms"][kind] += ms
+        # one K1 launch = one split kernel (and its merge pass); one K2
+        # launch = one flash kernel
+        if kind in ("k1", "k2"):
+            c[kind] += 1
+    for c in cards.values():
+        c["idle_share"] = 1.0 - c["busy_ms"] / wall_ms
+    return cards, host
+
+
+def _tp_trace(base, eng, devs, prompts) -> dict:
+    """``prompts`` (TP_TRACE_TOKENS new tokens each) under
+    ``torch.profiler``: per card, the device-busy ms, the idle share of
+    the wall, and the K1 and K2 kernels it ran; with the engine's
+    attention forwards meanwhile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a0 = dict(eng.attn_forwards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+            list(ex.map(lambda p: _chat(base, p, TP_TRACE_TOKENS), prompts))
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+        wall = (time.monotonic() - t0) * 1e3
+    cards, _host = _card_trace(prof, wall)
+    calls = {k: eng.attn_forwards.get(k, 0) - a0.get(k, 0)
+             for k in ("k1", "k2")}
+    return {"wall_ms": wall, "cards": cards, "attn_forwards": calls}
+
+
+def _tp_chunk_split(eng, devs) -> dict:
+    """One cold 4096-token prefill chunk through ``forward_sharded``
+    (K2 on every shard, hidden states only; ``forward`` at tp 1, when
+    ``devs`` is None), timed whole on the host's clock with every card
+    synchronised, against the same 64 sums of ``[4096, 4096]`` float32
+    partials alone: compute = whole - sums.  Then one chunk under
+    ``torch.profiler``: each card's busy ms by kind and idle share, the
+    host's ms until the forward returned (its issue time, a layer's share
+    of it) and its CUDA runtime calls by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from helix_tpu_torch.models.llama import (
+        forward,
+        forward_sharded,
+        prefill_attn_fn,
+    )
+    from helix_tpu_torch.parallel import collectives
+
+    cfg, mesh = eng.model_cfg, eng.mesh
+    devs = devs or [eng.device]
+    S = TP_ENTRY["max_prefill_len"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tok = torch.randint(4, cfg.vocab_size, (1, S), generator=gen,
+                        device=devs[0])
+    pos = torch.arange(S, device=devs[0])[None]
+    segs = [torch.ones((1, S), dtype=torch.int32, device=d) for d in devs]
+
+    def attn_of(seg):
+        return lambda q, k, v, c, p: (prefill_attn_fn(
+            q, k, v, None, p, segment_ids=seg), c[0])
+
+    def sync():
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+
+    def whole():
+        if mesh is None:
+            forward(eng.params, cfg, tok, pos, return_hidden=True,
+                    attn_fn=lambda q, k, v, c, p: prefill_attn_fn(
+                        q, k, v, None, p, segment_ids=segs[0]))
+            return
+        forward_sharded(eng.params, cfg, tok, pos,
+                        attn_fns=[attn_of(s) for s in segs],
+                        carry_caches=[None] * len(devs), mesh=mesh,
+                        return_hidden=True)
+
+    parts = [torch.randn((1, S, cfg.hidden_size), generator=gen,
+                         device="cuda").to(d) for d in devs]
+
+    def sums():
+        for _ in range(2 * cfg.num_layers):
+            collectives.all_reduce(parts, devs, torch.bfloat16)
+
+    def timed(fn):
+        fn()
+        sync()
+        out = []
+        for _ in range(TP_SUM_REPS):
+            t0 = time.monotonic()
+            fn()
+            sync()
+            out.append((time.monotonic() - t0) * 1e3)
+        return sorted(out)[len(out) // 2]
+
+    out = {"chunk_ms": timed(whole),
+           "sums_ms": timed(sums) if mesh is not None else 0.0}
+    out["compute_ms"] = out["chunk_ms"] - out["sums_ms"]
+    out["sums_share"] = out["sums_ms"] / out["chunk_ms"]
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        whole()
+        issued = time.monotonic()
+        sync()
+        wall = (time.monotonic() - t0) * 1e3
+    cards, host = _card_trace(prof, wall)
+    top = dict(sorted(host.items(), key=lambda kv: -kv[1])[:5])
+    out["trace"] = {"wall_ms": wall, "issue_ms": (issued - t0) * 1e3,
+                    "host_ms_per_layer": (issued - t0) * 1e3
+                    / cfg.num_layers, "cards": cards, "host_calls_ms": top}
+    return out
+
+
+def _tp_run(tag, devs, prompts, smi) -> dict:
+    """The entry served (tp 4 over ``devs``, or tp 1 when ``devs`` is
+    None) behind the OpenAI server: the 16-chat wave admitted together,
+    the seeded request twice, the traced wave and (tp 4) the chunk's
+    split.  Per card: bytes after the build against the shards' share."""
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1, K1_INT8
+
+    _free()
+    cards = sorted(set(devs or [torch.device("cuda", 0)]),
+                   key=lambda d: d.index)
+    before = _card_bytes(cards)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    mesh = build_mesh(MeshSpec(tp=TP), devs) if devs else None
+    t0 = time.monotonic()
+    served = build_served_model(
+        MODEL, device="cuda", seed=0, engine=dict(TP_ENTRY),
+        context_length=TP_CONTEXT, mesh=mesh)
+    build_s = time.monotonic() - t0
+    served.tokenizer = _IdTokenizer(served.tokenizer)
+    eng, loop = served.loop.engine, served.loop
+    httpd, base, registry = _start_server(served)
+    grew = {i: b - before[i] for i, b in _card_bytes(cards).items()}
+    peak = {d.index: torch.cuda.max_memory_allocated(d) for d in cards}
+    cfg = CATALOG[MODEL]
+    whole = _whole_bytes(cfg) + eng.cache_cfg.total_bytes(cfg)
+    shards = eng.params if devs else [eng.params]
+    pools = eng.caches
+    per_card = {}
+    for tree, pool in zip(shards, pools):
+        i = pool.k_pages.device.index
+        per_card[i] = per_card.get(i, 0) + _tree_bytes(tree) + sum(
+            nbytes(t) for t in pool.carry())
+    n = len(shards)
+    share = {i: whole * sum(1 for p in pools if p.k_pages.device.index
+                            == i) / n for i in per_card}
+    log(f"[{tag}] built {'tp ' + str(TP) if devs else 'tp 1'} over "
+        f"{[str(d) for d in (devs or cards)]} in {build_s:.1f} s; whole "
+        f"model {whole / 1e9:.3f} GB (weights + pool); per card: "
+        + "; ".join(f"cuda:{i} grew {grew[i] / 1e9:.3f} GB, its shards "
+                    f"{per_card[i] / 1e9:.3f} GB, share {share[i] / 1e9:.3f}"
+                    f" GB ({grew[i] / share[i]:.4f}x), build peak "
+                    f"{peak[i] / 1e9:.2f} GB" for i in sorted(grew))
+        + f" ({smi})")
+    try:
+        K1.launches = K1_INT8.launches = K2.launches = 0
+        a0 = dict(eng.attn_forwards)
+        c0 = eng.num_decode_tokens
+        eng.recent_ttfts.clear()
+        texts, batch_s, _ = _gated_batch(base, loop, prompts,
+                                         TP_NEW_TOKENS)
+        ttfts = sorted(eng.recent_ttfts)
+        decode_tokens = eng.num_decode_tokens - c0
+        seeded = _seeded_twice(base)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        launches = {"ragged_paged_attention": K1.launches,
+                    "ragged_paged_attention_int8": K1_INT8.launches,
+                    "flash_attention": K2.launches}
+        calls = {k: eng.attn_forwards.get(k, 0) - a0.get(k, 0)
+                 for k in ("k1", "k2")}
+        # fresh prompts: the traced wave runs K2 as well as K1
+        trace = _tp_trace(base, eng, devs or cards,
+                          _tp_prompts(TP_TRACE_CHATS, seed=42))
+        chunk = _tp_chunk_split(eng, devs)
+    finally:
+        _unserve(served, httpd, registry)
+    out = {"texts": texts, "answered": sum(1 for t in texts if t),
+           "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3 if ttfts
+           else float("nan"),
+           "decode_tok_s": decode_tokens / batch_s, "batch_s": batch_s,
+           "seeded": seeded, "launches": launches, "attn_forwards": calls,
+           "trace": trace, "chunk": chunk, "grew": grew,
+           "per_card": per_card, "share": share, "peak": peak,
+           "build_s": build_s, "layers": cfg.num_layers, "shards": n}
+    del served, eng, loop, registry
+    _free()
+    return out
+
+
+def _tp_witness(devs, smi) -> dict:
+    """(c) 2 layers at full width in float32 (TF32 off), the same
+    weights: tp 4 over ``devs`` against tp 1 on the card, 8 chats of
+    40-700 tokens (one chunked), greedy ids demanded equal."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params, param_logical_axes
+    from helix_tpu_torch.parallel.sharding import shard_params
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(CATALOG[MODEL],
+                                  num_layers=TP_WITNESS_LAYERS,
+                                  dtype="float32")
+        params = init_params(cfg, 0, device="cuda")
+        ecfg = dict(max_decode_batch=8, page_size=16, num_pages=512,
+                    max_pages_per_seq=64, max_prefill_len=512)
+        rng = np.random.default_rng(43)
+        prompts = [[int(x) for x in rng.integers(4, 120000, n)]
+                   for n in (40, 700, 90, 300, 17, 450, 260, 128)]
+        s = SamplingParams(temperature=0.0, max_tokens=TP_WITNESS_TOKENS)
+        one = Engine(cfg, params, EngineConfig(**ecfg), device="cuda")
+        want = one.generate(prompts, s)
+        del one
+        mesh = build_mesh(MeshSpec(tp=TP), devs)
+        shards = shard_params(params, mesh, param_logical_axes(cfg))
+        del params
+        tp = Engine(cfg, shards, EngineConfig(**ecfg), mesh=mesh)
+        got = tp.generate(prompts, s)
+        del tp, shards
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"[tp witness] {TP_WITNESS_LAYERS} layers at full width, float32, "
+        f"TF32 off: tp {TP} over {[str(d) for d in devs]} against tp 1: "
+        f"{same} of {len(prompts)} greedy streams of {TP_WITNESS_TOKENS} "
+        f"tokens equal ({smi})")
+    _free()
+    if same != len(prompts):
+        raise AssertionError(f"tp witness: {same} of {len(prompts)} greedy "
+                             "streams equal to tp 1")
+    return {"equal": same, "of": len(prompts)}
+
+
+def _tp_profile_cut() -> tuple:
+    """The v5e8 profile cut to its Llama entry as written, for nvidia
+    cards: (profile dict, cuts)."""
+    from helix_tpu_torch.cli import _load_profile
+
+    prof = _load_profile(TP_PROFILE)
+    cuts = [f"dropped {m['name']}" for m in prof["models"]
+            if m["name"] != MODEL]
+    prof["models"] = [m for m in prof["models"] if m["name"] == MODEL]
+    cuts.append(f"requirement {prof['requirement']} -> "
+                f"{{'vendor': 'nvidia', 'chips': {TP}}}")
+    prof["requirement"] = {"vendor": "nvidia", "chips": TP}
+    return prof, cuts
+
+
+def _tp_node(smi, tmpdir) -> dict:
+    """(b) ``serve-node --profile <cut> --random-weights`` in process
+    (``cli.make_node``): on four cards the entry is served tensor
+    parallel over cards 0-3, 8 chats are answered and the trace shows K1
+    and K2 on every card; on fewer the apply fails with the reference's
+    ``slice_devices`` text and nothing is built."""
+    from helix_tpu_torch import cli
+
+    prof, cuts = _tp_profile_cut()
+    path = os.path.join(tmpdir, "tp-node.json")
+    with open(path, "w") as f:
+        json.dump(prof, f)
+    n = torch.cuda.device_count()
+    before = torch.cuda.memory_allocated(0)
+    agent, httpd = cli.make_node(_node_args(None, "tp-node", path))
+    serving = False
+    try:
+        if n < TP:
+            want = (f"MeshSpec wants devices [0, {TP}) but only {n} "
+                    "devices are visible")
+            ok = (agent.state.status == "failed"
+                  and want in agent.state.error
+                  and agent.registry.names() == []
+                  and torch.cuda.memory_allocated(0) == before)
+            log(f"[tp node] {n} card(s) visible: the cut profile "
+                f"({'; '.join(cuts)}) is refused with the reference's "
+                f"text {want!r}: {ok} (status {agent.state.status}, nothing "
+                "built)")
+            if not ok:
+                raise AssertionError(f"tp node: expected the refusal, got "
+                                     f"{agent.state.status}: "
+                                     f"{agent.state.error[:300]}")
+            return {"refused": True}
+        if agent.state.status != "running":
+            raise AssertionError(f"tp node: apply failed: "
+                                 f"{agent.state.error}")
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        serving = True
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        served = agent.registry.get(MODEL)
+        eng = served.loop.engine
+        devs = list(eng.mesh.devices)
+        outs = _concurrent(base, [[{"role": "user", "content": p}]
+                                  for p in _tp_prompts(8)], 32)
+        trace = _tp_trace(base, eng, devs, _tp_prompts(TP_TRACE_CHATS,
+                                                       seed=43))
+        L = eng.model_cfg.num_layers
+        calls = trace["attn_forwards"]
+        log(f"[tp node] the cut profile ({'; '.join(cuts)}) applied over "
+            f"{[str(d) for d in devs]}: {len(outs)} of 8 chats answered; "
+            "traced per card: " + "; ".join(
+                f"cuda:{i} K1 {c['k1']} K2 {c['k2']} busy "
+                f"{c['busy_ms']:.1f} ms idle {c['idle_share']:.3f}"
+                for i, c in sorted(trace["cards"].items()))
+            + f" (attention forwards {calls}) ({smi})")
+        bad = [i for i in range(TP)
+               if trace["cards"].get(i, {}).get("k1", 0) != L * calls["k1"]
+               or trace["cards"].get(i, {}).get("k2", 0) != L * calls["k2"]]
+        if len(outs) != 8 or bad:
+            raise AssertionError(f"tp node: {len(outs)} of 8 answered; "
+                                 f"cards with launches unlike L x calls: "
+                                 f"{bad}")
+        return {"refused": False, "trace": trace}
+    finally:
+        agent.stop()
+        if serving:
+            httpd.shutdown()
+        httpd.server_close()
+        agent.apply_profile(None)
+        _free()
+
+
+def _tp_links(devs) -> dict:
+    """Between the first card and each other one (``nvidia-smi topo -m``
+    may not run in a sandbox): whether it has peer access, and the rate
+    of a 256 MiB copy each way (CUDA events on the sending card, the
+    median of 5)."""
+    out = {}
+    first = devs[0]
+    for d in sorted(set(devs[1:]) - {first}, key=lambda d: d.index):
+        row = {"peer": torch.cuda.can_device_access_peer(first.index,
+                                                         d.index)}
+        for a, b in ((first, d), (d, first)):
+            src = torch.empty(256 << 20, dtype=torch.uint8, device=a)
+            dst = torch.empty_like(src, device=b)
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize(a)
+                torch.cuda.synchronize(b)
+                t0 = time.monotonic()
+                dst.copy_(src)
+                torch.cuda.synchronize(a)
+                torch.cuda.synchronize(b)
+                times.append(time.monotonic() - t0)
+            row[f"{a.index}->{b.index} GB/s"] = round(
+                src.numel() / sorted(times[1:])[2] / 1e9, 1)
+        out[f"cuda:{first.index}-cuda:{d.index}"] = row
+    return out
+
+
+@_timed
+def phase_tp(smi) -> dict:
+    """4q. Tensor parallel on one host: ``profiles/v5e8-llama3-plus-
+    embed.yaml``'s Llama entry at tp 4 (see the module docstring)."""
+    devs = _tp_devices()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    log(f"[tp] tp_cards {[str(d) for d in devs]} "
+        f"({torch.cuda.device_count()} visible); nvidia-smi topo -m:\n"
+        + topo)
+    links = _tp_links(devs)
+    prompts = _tp_prompts()
+    run4 = _tp_run("tp a", devs, prompts, smi)
+    run1 = _tp_run("tp a, tp 1", None, prompts, smi)
+    L, n = run4["layers"], run4["shards"]
+    agree = sum(a == b for a, b in zip(run4["texts"], run1["texts"]))
+    tok_same = tok_all = 0
+    for a, b in zip(run4["texts"], run1["texts"]):
+        ta, tb = re.findall(r"<\d+>", a), re.findall(r"<\d+>", b)
+        tok_all += len(tb)
+        k = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 min(len(ta), len(tb)))
+        tok_same += k
+    ch = run4["chunk"]
+    log(f"[tp a] tp {TP}: answered {run4['answered']} of {TP_CHATS} chats "
+        f"of ~{TP_PROMPT_TOKENS} tokens x {TP_NEW_TOKENS}; TTFT p50 "
+        f"{run4['ttft_p50_ms']:.1f} ms (tp 1 {run1['ttft_p50_ms']:.1f}); "
+        f"decode {run4['decode_tok_s']:.1f} tok/s (tp 1 "
+        f"{run1['decode_tok_s']:.1f}, ratio "
+        f"{run4['decode_tok_s'] / run1['decode_tok_s']:.3f}); wave "
+        f"{run4['batch_s']:.2f} s (tp 1 {run1['batch_s']:.2f}); seeded "
+        f"request reproduced ({run4['seeded'].count('<')} tokens); bf16 "
+        f"greedy streams equal to tp 1's: {agree} of {TP_CHATS} (recorded, "
+        f"not demanded; the common prefix holds {tok_same} of {tok_all} "
+        f"tokens); launches {run4['launches']}, attention forwards "
+        f"{run4['attn_forwards']}; traced {TP_TRACE_CHATS} chats x "
+        f"{TP_TRACE_TOKENS}: wall {run4['trace']['wall_ms']:.1f} ms, per "
+        "card " + "; ".join(
+            f"cuda:{i} K1 {c['k1']} K2 {c['k2']} busy {c['busy_ms']:.1f} ms "
+            f"idle {c['idle_share']:.3f}"
+            for i, c in sorted(run4["trace"]["cards"].items()))
+        + f" (tp 1: busy {run1['trace']['cards'][0]['busy_ms']:.1f} ms, idle "
+        f"{run1['trace']['cards'][0]['idle_share']:.3f}); one "
+        f"{TP_ENTRY['max_prefill_len']}-token prefill chunk "
+        f"{ch['chunk_ms']:.1f} ms = compute {ch['compute_ms']:.1f} + "
+        f"{2 * L} sums {ch['sums_ms']:.1f} ms ({ch['sums_share']:.3f}; "
+        f"tp 1 {run1['chunk']['chunk_ms']:.1f} ms, traced: wall "
+        f"{run1['chunk']['trace']['wall_ms']:.1f}, issued in "
+        f"{run1['chunk']['trace']['issue_ms']:.1f} ms, busy "
+        f"{_rounded(run1['chunk']['trace']['cards'][0]['ms'])}); "
+        f"traced chunk: wall {ch['trace']['wall_ms']:.1f} ms, the host "
+        f"issued it in {ch['trace']['issue_ms']:.1f} ms "
+        f"({ch['trace']['host_ms_per_layer']:.2f} ms a layer), host CUDA "
+        f"calls (ms) {_rounded(ch['trace']['host_calls_ms'])}, per card "
+        + "; ".join(
+            f"cuda:{i} busy {c['busy_ms']:.1f} ms {_rounded(c['ms'])} idle "
+            f"{c['idle_share']:.3f}"
+            for i, c in sorted(ch["trace"]["cards"].items()))
+        + f"; links {links} ({smi})")
+    problems = []
+    if run4["answered"] != TP_CHATS or run1["answered"] != TP_CHATS:
+        problems.append(f"answered {run4['answered']} / {run1['answered']}"
+                        f" of {TP_CHATS}")
+    # the counters over the wave and the seeded pair: every forward ran
+    # every layer on every shard
+    want_k1 = n * L * run4["attn_forwards"]["k1"]
+    want_k2 = n * L * run4["attn_forwards"]["k2"]
+    if run4["launches"]["ragged_paged_attention_int8"] != want_k1 \
+            or run4["launches"]["flash_attention"] != want_k2 \
+            or want_k1 <= 0 or want_k2 <= 0:
+        problems.append(f"launches {run4['launches']} against shards x "
+                        f"layers x forwards {want_k1} / {want_k2}")
+    # the profiler's per-card counts: each card = its shards x layers x
+    # the traced attention forwards
+    calls = run4["trace"]["attn_forwards"]
+    for i, c in run4["trace"]["cards"].items():
+        k = sum(1 for d in devs if d.index == i)
+        if c["k1"] != k * L * calls["k1"] or c["k2"] != k * L * calls["k2"]:
+            problems.append(f"cuda:{i} traced K1 {c['k1']} / K2 {c['k2']} "
+                            f"against {k} x {L} x {calls}")
+    for i, g in run4["grew"].items():
+        if abs(g - run4["share"][i]) > MEM_TOL * run4["share"][i]:
+            problems.append(f"cuda:{i} grew {g} B, not within "
+                            f"{MEM_TOL:.0%} of its share "
+                            f"{run4['share'][i]:.0f} B")
+        if i != devs[0].index and g > run4["per_card"][i] + MEM_SLACK:
+            problems.append(f"cuda:{i} holds {g} B beyond its shards "
+                            f"{run4['per_card'][i]} B")
+    if problems:
+        raise AssertionError("tp a: " + "; ".join(problems))
+    with tempfile.TemporaryDirectory(prefix="helix-tp-") as tmp:
+        node = _tp_node(smi, tmp)
+    witness = _tp_witness(devs, smi)
+    return {"launches": run4["launches"], "run4": run4, "run1": run1,
+            "node": node, "witness": witness, "links": links}
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -8683,16 +9321,17 @@ def main(argv=None) -> int:
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
                              "disagg", "context", "vision", "moe",
-                             "train"),
+                             "train", "tp"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
                          "'node' / 'tunnel' / 'disagg' / 'context' / "
-                         "'vision' / 'moe' / 'train': those and the "
+                         "'vision' / 'moe' / 'train' / 'tp': those and the "
                          "hot-swap / adapter / checkpoint / scheduler / "
                          "node-agent / tunnel and embedding / disagg "
                          "handoff and filestore / tiered context / "
-                         "Qwen2-VL / Mixtral / LoRA SFT phase")
+                         "Qwen2-VL / Mixtral / LoRA SFT / tensor-parallel "
+                         "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -8714,6 +9353,9 @@ def main(argv=None) -> int:
     cold_rows, cold_int8_rows = phase_k1_cold()
     k2_train, k2b_rows = phase_k2_backward()
     k2_rows += k2_train
+    k2_tp, k1_int8_tp = phase_tp_kernels()
+    k2_rows += k2_tp
+    k1_int8_rows += k1_int8_tp
     launches, by_path = {}, {}
     if args.phase == "hotswap":
         swap = phase_hotswap(dev["smi"])
@@ -8760,6 +9402,10 @@ def main(argv=None) -> int:
         tr = phase_train(dev["smi"])
         launches = dict(tr["launches"])
         by_path = {k: {"train": n} for k, n in launches.items()}
+    if args.phase == "tp":
+        tpr = phase_tp(dev["smi"])
+        launches = {k: n for k, n in tpr["launches"].items() if n}
+        by_path = {k: {"tp": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -8786,6 +9432,7 @@ def main(argv=None) -> int:
         vis = phase_vision(dev["smi"])
         moe = phase_moe(dev["smi"])
         tr = phase_train(dev["smi"])
+        tpr = phase_tp(dev["smi"])
         launches = {
             "ragged_paged_attention":
                 bf16["launches"]["ragged_paged_attention"],
@@ -8815,7 +9462,8 @@ def main(argv=None) -> int:
                 "disagg": dis["launches"]["flash_attention"],
                 "vision": vis["launches"]["flash_attention"],
                 "moe": moe["launches"]["flash_attention"],
-                "train": tr["launches"]["flash_attention"]},
+                "train": tr["launches"]["flash_attention"],
+                "tp": tpr["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {
                 "int8": int8["launches"]["ragged_paged_attention_int8"],
                 "hotswap":
@@ -8829,7 +9477,8 @@ def main(argv=None) -> int:
                 "tunnel":
                     tun["launches"]["ragged_paged_attention_int8"],
                 "disagg":
-                    dis["launches"]["ragged_paged_attention_int8"]},
+                    dis["launches"]["ragged_paged_attention_int8"],
+                "tp": tpr["launches"]["ragged_paged_attention_int8"]},
             "ragged_paged_attention_int8_cold": {
                 "context":
                     ctx["launches"]["ragged_paged_attention_int8_cold"]},

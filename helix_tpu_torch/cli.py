@@ -110,10 +110,19 @@ other than ``llama3`` or mrope: ROADMAP C; an unknown activation) or
 that disagrees with the entry's ``model_overrides`` is refused at start.
 A Mixtral entry (``num_local_experts`` in its checkpoint's config, or
 the catalog's ``mistralai/Mixtral-8x7B-Instruct-v0.1``) is a chat entry
-like any other: its engine takes the reference's MoE rules.  What is not
+like any other: its engine takes the reference's MoE rules.  An entry's
+``mesh: {tp: n, device_offset: k}`` is realised over the node's devices
+``k .. k + n - 1`` (``device.mesh.build_mesh``; the reference's
+``ValueError`` when fewer are visible): a chat entry with ``tp`` above 1
+is served tensor parallel by one engine over those devices (its random
+weights made on the first and sharded by ``parallel.sharding``, its
+checkpoint loaded shard by shard), any
+other entry is committed to the slice's first device.  What is not
 ported yet is refused at start too, before any weights are made, naming
-its ROADMAP item: a ``mesh`` with an axis above 1 (A15b; ``{tp: 1}`` is
-the one device) and a ``multihost`` block (A15b).  A profile assigned by
+its ROADMAP item: a mesh axis other than ``tp`` above 1, and on a mesh a
+vision entry, an adapter and the engine options of
+``engine.engine.mesh_refusals`` (A15b's later parts), and a
+``multihost`` block (A15b).  A profile assigned by
 the control plane with such an entry fails its apply with that text
 (``status: failed``).  A chat or vision entry's ``adapter:`` (a
 ``sft --output`` directory) is restored and grafted into its weights at
@@ -237,7 +246,7 @@ def build_served_model(
     context_length: int | None = None, warmup: bool = True,
     quantization: str | None = None, checkpoint: str | None = None,
     slo: dict | None = None, kind: str = "chat", adapter: str | None = None,
-    adapter_scale: float | None = None,
+    adapter_scale: float | None = None, mesh=None,
 ) -> ServedModel:
     """An ``Engine`` and a started ``EngineLoop`` for one model: the
     weights of ``checkpoint`` (an HF safetensors directory, with its
@@ -254,7 +263,12 @@ def build_served_model(
     is a chat entry whose weights are a Qwen2-VL model's, its vision
     tower served beside the engine (``ServedModel.vision``).  ``adapter``
     (a LoRA training checkpoint directory) is merged into the weights
-    (``merge_adapter``)."""
+    (``merge_adapter``).  ``mesh`` (a ``device.mesh.Mesh``, as the node
+    agent realises an entry's ``mesh:`` block): a chat entry with ``tp``
+    above 1 is served tensor parallel over it, any other entry on its
+    first device (``device`` is then not read)."""
+    if mesh is not None and (mesh.size == 1 or kind != "chat"):
+        device, mesh = mesh.devices[0], None
     if kind == "embedding":
         return build_embedding_model(
             name, device=device, engine=engine, seed=seed,
@@ -302,7 +316,8 @@ def build_served_model(
     # the engine block is checked before the weights are made: an option
     # not ported yet raises at once, not after minutes of init
     ecfg = EngineConfig(**eng_kw)
-    stamps = [_stamp(dev)]
+    devs = mesh.devices if mesh is not None else (dev,)
+    stamps = [_stamp(*devs)]
     # int8: each weight quantized as it lands or is drawn, so the build
     # never holds the bf16 model (quantize_params of the same weights, to
     # the byte)
@@ -314,20 +329,25 @@ def build_served_model(
     elif checkpoint:
         cfg, params = load_params(checkpoint, cfg, device=dev,
                                   quantization=quantization,
-                                  stats=load_stats)
+                                  stats=load_stats, mesh=mesh)
+    elif mesh is not None:
+        params = init_sharded(cfg, seed, mesh, quantization)
     else:
         params = init_params(cfg, seed, device=dev,
                              quantization=quantization)
     if adapter:
         params = merge_adapter(params, adapter, adapter_scale, dev)
-    stamps.append(_stamp(dev))
-    eng = Engine(cfg, params, ecfg, rng_seed=seed, device=dev)
-    stamps.append(_stamp(dev))
+    stamps.append(_stamp(*devs))
+    eng = Engine(cfg, params, ecfg, mesh=mesh, rng_seed=seed, device=dev)
+    stamps.append(_stamp(*devs))
     if warmup:
         eng.warmup()
-    stamps.append(_stamp(dev))
+    stamps.append(_stamp(*devs))
     fs_dir = kv_filestore_dir()
-    if fs_dir:
+    if fs_dir and mesh is not None:
+        log.warning("%s: the KV filestore is not armed on a mesh (ROADMAP "
+                    "A15b: export / import on a mesh)", name)
+    elif fs_dir:
         # the persistent KV tier, the ladder's bottom rung (the reference
         # node agent arms it whenever the variable is set): full prefix
         # pages persist across restarts and are shared with the nodes on
@@ -340,6 +360,24 @@ def build_served_model(
                        context_length=context_length or eng.max_context_len,
                        build_seconds=split, load_stats=load_stats,
                        vision=vision)
+
+
+def init_sharded(cfg: ModelConfig, seed: int, mesh, quantization=None):
+    """Random weights of ``seed`` sharded over ``mesh``: one tree per
+    shard (``parallel.sharding.shard_params`` by ``param_logical_axes``,
+    int8 by ``quantized_logical_axes``), the shards joined equal to
+    ``init_params(cfg, seed)`` byte for byte.  Drawn whole on the mesh's
+    first device, then sharded and dropped."""
+    from helix_tpu_torch.models.llama import param_logical_axes
+    from helix_tpu_torch.ops.quant import quantized_logical_axes
+    from helix_tpu_torch.parallel.sharding import shard_params
+
+    whole = init_params(cfg, seed, device=mesh.devices[0],
+                        quantization=quantization)
+    axes = param_logical_axes(cfg)
+    if quantization == "int8":
+        axes = quantized_logical_axes(axes)
+    return shard_params(whole, mesh, axes)
 
 
 def merge_adapter(params: dict, adapter: str, scale, device) -> dict:
@@ -490,10 +528,11 @@ def make_engine_loop(eng: Engine, name: str,
     ).start()
 
 
-def _stamp(dev) -> float:
-    """A monotonic time once the device has finished the queued work."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _stamp(*devs) -> float:
+    """A monotonic time once the devices have finished the queued work."""
+    for dev in devs:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return time.monotonic()
 
 
@@ -553,12 +592,12 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
             and not os.path.isfile(os.path.join(m.checkpoint,
                                                 "config.json")):
         out.append(f"{m.checkpoint}/config.json: no such file")
-    mesh = {k: v for k, v in m.mesh.to_dict().items()
-            if v != (0 if k == "device_offset" else 1)}
-    if m.mesh.num_devices > 1 or m.mesh.device_offset > 0:
-        out.append(f"mesh {mesh} spans more than one device: tensor, "
-                   "sequence, expert and pipeline parallel are not ported "
-                   "yet (ROADMAP A15b)")
+    if m.mesh.num_devices > 1 and m.kind == "chat":
+        out += _mesh_refusals(m, engine, random_weights)
+    elif m.mesh.num_devices > 1 and m.kind == "vision":
+        out.append("a vision entry on a mesh (its text tower sharded, its "
+                   "vision tower whole on the first device) is not ported "
+                   "yet (ROADMAP A15b: vision on a mesh)")
     if m.multihost:
         out.append(f"multihost {m.multihost} serving is not ported yet "
                    "(ROADMAP A15b)")
@@ -568,6 +607,27 @@ def _refusals(m: ProfileModel, engine: dict, random_weights: bool) -> list:
         except NotImplementedError as e:
             out.append(str(e))
     return out
+
+
+def _mesh_refusals(m: ProfileModel, engine: dict,
+                   random_weights: bool) -> list:
+    """What of a chat entry's ``mesh`` is not served yet (an adapter
+    merged at apply, the engine options and models of
+    ``engine.engine.mesh_refusals``)."""
+    from helix_tpu_torch.engine.engine import mesh_refusals
+
+    out = []
+    if m.adapter:
+        out.append("an adapter merged at apply on a mesh is not ported "
+                   "yet (ROADMAP A15b: adapters on a mesh)")
+    try:
+        ecfg = EngineConfig(**engine)
+        cfg = (checkpoint_config(m.checkpoint, m.name, m.model_overrides)
+               if m.checkpoint and not random_weights
+               else model_config(m.name, m.model_overrides))
+    except (OSError, TypeError, ValueError, NotImplementedError):
+        return out      # reported by the engine block's or checkpoint's check
+    return out + mesh_refusals(ecfg, cfg, m.mesh)
 
 
 def model_specs(profile: ServingProfile, engine: dict | None = None,
@@ -601,21 +661,25 @@ def model_specs(profile: ServingProfile, engine: dict | None = None,
             log.warning("%s: adapter %s is not applied to a %s entry (as "
                         "the reference node agent)", m.name, m.adapter,
                         m.kind)
+        # the entry's device slice, realised by the node agent at build
+        placed = ({"mesh": m.mesh.to_dict()}
+                  if m.mesh.num_devices > 1 or m.mesh.device_offset > 0
+                  else {})
         if m.kind == "embedding":
             specs.append(dict(name=m.name, kind="embedding", engine=eng,
                               context_length=m.context_length,
-                              checkpoint=checkpoint))
+                              checkpoint=checkpoint, **placed))
             continue
         if m.kind == "vision-embedding":
             specs.append(dict(name=m.name, kind="vision-embedding",
                               engine=eng, context_length=m.context_length,
-                              checkpoint=checkpoint))
+                              checkpoint=checkpoint, **placed))
             continue
         specs.append(dict(
             name=m.name, quantization=m.quantization, engine=eng,
             model_overrides=dict(m.model_overrides),
             context_length=m.context_length, checkpoint=checkpoint,
-            slo=dict(m.slo) or None,
+            slo=dict(m.slo) or None, **placed,
         ))
         if m.kind == "vision":
             specs[-1]["kind"] = "vision"

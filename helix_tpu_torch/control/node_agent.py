@@ -34,10 +34,16 @@ config only (the vision tower's bytes are not counted: ROADMAP C).  A
 ``kind: embedding`` entry is an
 encoder with no engine loop (``cli.build_embedding_model``): it counts in
 the registry, the heartbeat's model list and the residency estimate (the
-reference's flat 256 MiB), not in the saturation summary.  A profile the
-port cannot serve (an adapter merged at apply, a mesh
-over more than one device, unported engine fields) fails the apply with
-the refusal's text before anything is built.  The profile's pool role
+reference's flat 256 MiB), not in the saturation summary.  An entry's
+``mesh:`` is realised over the node's devices (``devices``, the visible
+cards by default; the reference's ``helix_tpu/control/node_agent.py:
+44-65``): a chat entry with ``tp`` above 1 is one tensor-parallel engine
+over its slice, an embedding (or any entry of one device) is committed
+to its slice's first device, and a slice past the visible devices fails
+the apply with the reference's text.  A profile the port cannot serve
+(an adapter merged at apply, a mesh axis or option of a later A15b
+part, unported engine fields) fails the apply with the refusal's text
+before anything is built.  The profile's pool role
 (``prefill | decode | mixed``, ``HELIX_POOL_ROLE`` beating it) is
 heartbeated as ``role``; a prefill node hands each marked stream to a
 decode node (``serving.openai_api``), and ``HELIX_FILESTORE_KV_DIR`` arms
@@ -59,12 +65,17 @@ import urllib.request
 from typing import Callable, Optional
 
 from helix_tpu_torch import cli
-from helix_tpu_torch.control.profile import ServingProfile, pool_role
+from helix_tpu_torch.control.profile import (
+    MeshSpec,
+    ServingProfile,
+    pool_role,
+)
 from helix_tpu_torch.device import (
     DEFAULT_DEVICE,
     detect_accelerators,
     total_device_bytes,
 )
+from helix_tpu_torch.device.mesh import build_mesh, visible_devices
 from helix_tpu_torch.engine.adapters import adapter_residency_summary
 from helix_tpu_torch.engine.residency import (
     ResidencyManager,
@@ -118,7 +129,9 @@ class NodeAgent:
     keyword set (``engine``: fields that beat every entry's;
     ``random_weights``: a ``checkpoint`` drawn from ``seed`` instead) by
     ``build_model(device=, seed=, warmup=, **spec)``, which takes
-    ``cli.build_served_model``'s keywords and is that by default."""
+    ``cli.build_served_model``'s keywords and is that by default (an
+    entry's ``mesh`` arrives realised over ``devices``, as a
+    ``device.mesh.Mesh``)."""
 
     def __init__(
         self,
@@ -135,6 +148,7 @@ class NodeAgent:
         warmup: bool = True,
         random_weights: bool = False,
         engine: Optional[dict] = None,
+        devices: Optional[list] = None,
     ):
         self.runner_id = runner_id
         # where the control plane reaches this node's OpenAI surface
@@ -144,6 +158,9 @@ class NodeAgent:
         # the exception of the last failed apply (serve-node raises it)
         self.apply_exception: Optional[BaseException] = None
         self.device = device
+        # the devices a profile's ``mesh:`` slices are cut from
+        self.devices = (list(devices) if devices is not None
+                        else visible_devices(device))
         self.seed = seed
         self.random_weights = random_weights
         self.warmup = warmup
@@ -178,6 +195,9 @@ class NodeAgent:
     def _build(self, spec: dict) -> ServedModel:
         """One ``cli.model_specs`` keyword set built on this node."""
         t0 = time.monotonic()
+        if "mesh" in spec:
+            spec = {**spec, "mesh": build_mesh(
+                MeshSpec.from_dict(spec["mesh"]), self.devices)}
         served = self._build_model(device=self.device, seed=self.seed,
                                    warmup=self.warmup, **spec)
         log.info("runner %s: model %s built in %.1fs (profile %s)",

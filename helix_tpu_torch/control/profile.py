@@ -35,9 +35,10 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Named-axis layout over a number of devices (the reference's
-    ``helix_tpu/device/mesh.py`` dataclass).  The port serves one device:
-    a spec with an axis above 1 or a device offset is refused at build
-    (ROADMAP A15b)."""
+    ``helix_tpu/device/mesh.py`` dataclass; ``device.mesh.build_mesh``
+    realises it).  The port serves ``tp`` and ``device_offset``; any
+    other axis above 1 is refused at build (ROADMAP A15b's later
+    parts)."""
 
     dp: int = 1
     fsdp: int = 1
@@ -50,6 +51,10 @@ class MeshSpec:
     @property
     def num_devices(self) -> int:
         return self.dp * self.fsdp * self.pp * self.ep * self.sp * self.tp
+
+    def axis_sizes(self) -> dict:
+        return {"dp": self.dp, "fsdp": self.fsdp, "pp": self.pp,
+                "ep": self.ep, "sp": self.sp, "tp": self.tp}
 
     @classmethod
     def from_dict(cls, d: dict) -> "MeshSpec":

@@ -9,6 +9,9 @@ caller asked for the CPU.
 results to the host without a synchronising call, so the engine can queue
 a step's work and read its results later (the async loop's split of a
 step into dispatch and completion).
+
+``device.mesh`` realises a profile's ``mesh:`` block over the node's
+devices (tensor parallel on one host).
 """
 
 from __future__ import annotations
@@ -161,8 +164,9 @@ class Fetch:
             self._host = torch.empty(flat.shape, dtype=torch.int64,
                                      pin_memory=True)
             self._host.copy_(flat, non_blocking=True)
+            # recorded on the tensors' card, whichever is current
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(flat.device))
         else:
             self._host = flat
 

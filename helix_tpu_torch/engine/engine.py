@@ -99,8 +99,23 @@ logged off, and prefill capacity drops are queued as device scalars and
 folded into ``moe_dropped_tokens`` where a fetch has already synced.
 An adapter pool on such a model serves its attention targets.
 
-Outside this slice, and refused loudly by ``Engine``: meshes and the
-multihost plan plane (ROADMAP A15b).
+``mesh`` (a ``device.mesh.Mesh`` of ``tp`` shards, the reference's
+``Engine(mesh=...)``) serves tensor parallel on one host, one process
+driving every shard: ``params`` is one tree per shard
+(``parallel.sharding.shard_params``), the page pool holds each shard's
+``KVH / n`` KV heads on its device (``PagedKVCache.create_sharded``),
+every step runs each layer on every shard through
+``models.llama.forward_sharded`` (K1 and K2 on each shard's heads, two
+float32 sums per layer), the step's metadata is copied to every shard's
+device, and the sampler runs on the first device on the gathered logits.
+Page ids, the allocator and the prefix cache are those of one device.  A
+mesh engine refuses by name what a later part of ROADMAP A15b serves
+(``mesh_refusals``): axes other than ``tp``, speculation, the host tier,
+tiered context, the adapter pool, MoE and mrope models, and export /
+import.
+
+Outside this slice, and refused loudly by ``Engine``: the multihost plan
+plane (ROADMAP A15b).
 """
 
 from __future__ import annotations
@@ -156,7 +171,12 @@ from helix_tpu_torch.engine.sampling import (
 )
 from helix_tpu_torch.engine.spec import SpecConfig, SpecDecoder
 from helix_tpu_torch.models.common import ModelConfig
-from helix_tpu_torch.models.llama import forward, project_logits
+from helix_tpu_torch.models.llama import (
+    forward,
+    forward_sharded,
+    project_logits,
+    project_logits_sharded,
+)
 from helix_tpu_torch.obs.slo import ANON_TENANT
 from helix_tpu_torch.ops.attention import attention
 from helix_tpu_torch.ops.paged import ragged_paged_attention
@@ -427,8 +447,56 @@ class RequestSnapshot:
         return self.position is not None and bool(self.pages)
 
 
+def mesh_refusals(cfg: EngineConfig, model_cfg: ModelConfig,
+                  mesh_spec) -> list:
+    """What a mesh of ``mesh_spec`` (a ``MeshSpec``) cannot serve yet of
+    this engine and model, each naming its ROADMAP item (empty: served).
+    ``Engine`` raises them; the node checks a profile with them before
+    anything is built."""
+    out = []
+    other = {a: n for a, n in mesh_spec.axis_sizes().items()
+             if a != "tp" and n > 1}
+    if other:
+        out.append(f"mesh axes {other}: only tp is served on a mesh "
+                   "(ROADMAP A15b: dp / fsdp / pp / ep / sp)")
+    if mesh_spec.tp <= 1:
+        return out
+    if model_cfg.mrope_sections is not None:
+        out.append("a vision (mrope) model on a mesh is not ported yet "
+                   "(ROADMAP A15b: vision on a mesh)")
+    if model_cfg.num_experts > 0:
+        out.append("a mixture-of-experts model on a mesh is not ported "
+                   "yet (ROADMAP A15b: MoE on a mesh)")
+    if cfg.enable_spec_decode:
+        out.append("speculative decoding on a mesh is not ported yet "
+                   "(ROADMAP A15b: speculation on a mesh)")
+    if cfg.host_pool_bytes > 0:
+        out.append("the host KV tier on a mesh is not ported yet "
+                   "(ROADMAP A15b: host tier and tiered context on a "
+                   "mesh)")
+    if cfg.ctx_hot_pages > 0:
+        out.append("tiered context on a mesh is not ported yet (ROADMAP "
+                   "A15b: host tier and tiered context on a mesh)")
+    if cfg.adapter_pool_slots > 1:
+        out.append("the adapter pool on a mesh is not ported yet "
+                   "(ROADMAP A15b: adapters on a mesh)")
+    for what, n in (("heads", model_cfg.num_heads),
+                    ("KV heads", model_cfg.num_kv_heads),
+                    ("FFN columns", model_cfg.intermediate_size),
+                    ("vocabulary rows", model_cfg.vocab_size)):
+        if n % mesh_spec.tp:
+            out.append(f"{model_cfg.name}: {n} {what} do not divide "
+                       f"over tp {mesh_spec.tp}")
+    return out
+
+
+_EXPORT_ON_MESH = ("export and import of requests on a mesh are not "
+                   "ported yet (ROADMAP A15b: export / import on a mesh)")
+
+
 class Engine:
-    """Single-model serving engine on one device."""
+    """Single-model serving engine on one device, or tensor parallel
+    over the devices of one host (``mesh``)."""
 
     def __init__(
         self,
@@ -440,17 +508,32 @@ class Engine:
         *,
         device=DEFAULT_DEVICE,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "meshes (tensor/sequence/expert/pipeline parallel) are not "
-                "ported yet (ROADMAP A15b)"
-            )
+            why = mesh_refusals(cfg, model_cfg, mesh.spec)
+            if why:
+                raise NotImplementedError("; ".join(why))
+            # the first shard's device takes the sampler, the step's
+            # state and the host's uploads
+            device = mesh.devices[0]
+            if not isinstance(params, (list, tuple)) \
+                    or len(params) != mesh.size:
+                raise ValueError(
+                    f"a mesh of {mesh.size} shards takes one parameter "
+                    "tree per shard (parallel.sharding.shard_params)")
+            for tree, dev in zip(params, mesh.devices):
+                if tree["embed"]["weight"].device != torch.device(dev):
+                    raise ValueError(
+                        f"a shard's params live on "
+                        f"{tree['embed']['weight'].device}, its mesh "
+                        f"device is {dev}")
         self.device = resolve_device(device)
-        w = params["embed"]["weight"]
-        if w.device.type != self.device.type:
-            raise ValueError(
-                f"params live on {w.device}, engine device is {self.device}"
-            )
+        if mesh is None:
+            w = params["embed"]["weight"]
+            if w.device.type != self.device.type:
+                raise ValueError(
+                    f"params live on {w.device}, engine device is "
+                    f"{self.device}")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.params = params
@@ -468,8 +551,11 @@ class Engine:
                 f"unsupported kv_cache_dtype {cfg.kv_cache_dtype!r}"
             )
         self.cache_cfg = cfg.cache_config(dtype=model_cfg.dtype)
-        self.cache = PagedKVCache.create(model_cfg, self.cache_cfg,
-                                         self.device)
+        # one page pool per shard (one on one device)
+        self.caches = ([PagedKVCache.create(model_cfg, self.cache_cfg,
+                                            self.device)] if mesh is None
+                       else PagedKVCache.create_sharded(
+                           model_cfg, self.cache_cfg, mesh))
         self.allocator = PageAllocator(
             self.cache_cfg.num_pages, self.cache_cfg.max_pages_per_seq
         )
@@ -659,6 +745,10 @@ class Engine:
         # unified-step calls issued, and host waits on a device result
         self.num_device_calls = 0
         self.num_host_fetches = 0
+        # forwards by attention kind: "k1" (rows over the paged history)
+        # and "k2" (cold packed prompts); each runs every layer on every
+        # shard
+        self.attn_forwards: collections.Counter = collections.Counter()
         self.recent_ttfts: collections.deque = collections.deque(maxlen=200)
 
     # ------------------------------------------------------------------
@@ -756,12 +846,23 @@ class Engine:
         return (bool(self.waiting) or bool(self.preempted)
                 or any(s is not None for s in self.slots))
 
+    @property
+    def cache(self) -> Optional[PagedKVCache]:
+        """The page pool on one device (``caches[0]``; None once
+        released).  A mesh has one pool per shard, in ``caches`` only."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "this path reads the one device's page pool; a mesh has "
+                "one per shard (ROADMAP A15b)")
+        return self.caches[0] if self.caches else None
+
     def release(self) -> None:
         """Drop the weights, the page pool, the device-side decode state
         and the host tier (with its pinned staging): an evicted model's
         memory goes back to the allocator once its loop has stopped,
         whoever still holds the engine.  Nothing steps it afterwards."""
-        self.params = self.cache = self._dstate = self.host_pool = None
+        self.params = self._dstate = self.host_pool = None
+        self.caches = []
         self.adapter_pool = self._grafted_params = None
         self._cold_staged, self._cold_retired = None, []
         self._row_t0, self._offsets = {}, {}
@@ -1515,7 +1616,7 @@ class Engine:
         pos = torch.arange(bucket, device=dev)[None]
         valid = pos < plen
         seg = valid.to(torch.int32)
-        kacc, vacc = self._kv_buffers(1, bucket)
+        (kacc, vacc), = self._kv_buffers(1, bucket)
 
         def attn_fn(q, k, v, carry_cache, p):
             cache, lyr = carry_cache
@@ -2065,7 +2166,7 @@ class Engine:
         event = None
         if cuda:
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
         nbytes = sum(t.numel() * t.element_size() for t in host.values())
         self._cold_staged = {
             "key": key, "owners": tuple(rid for rid, _ks in chunks),
@@ -2433,7 +2534,8 @@ class Engine:
         }
 
     def export_request(self, req_id: str) -> Optional[RequestSnapshot]:
-        """A portable snapshot of one live request; mutates nothing.
+        """A portable snapshot of one live request; mutates nothing
+        (refused on a mesh, ROADMAP A15b).
 
         - decoding in a slot: every page holding written KV, gathered
           with checksums, and the evolved key and histogram;
@@ -2445,6 +2547,8 @@ class Engine:
         -- its image state is bound to this engine, as in the reference --,
         an unreconciled step or deferred first token, a parked page that
         failed verification)."""
+        if self.mesh is not None:
+            raise NotImplementedError(_EXPORT_ON_MESH)
         req = self._requests.get(req_id)
         if req is None or req.finished:
             return None
@@ -2532,6 +2636,8 @@ class Engine:
         its pages inline and resumes through ``_try_resume``; one without
         KV joins the wait queue.  Raises ``SnapshotError`` and touches
         nothing on any failure."""
+        if self.mesh is not None:
+            raise NotImplementedError(_EXPORT_ON_MESH)
         if snap.version != SNAPSHOT_VERSION:
             raise SnapshotError(
                 f"snapshot version {snap.version} != engine version "
@@ -2864,29 +2970,68 @@ class Engine:
     # the unified ragged device step
     # ------------------------------------------------------------------
 
-    def _paged_attn(self, q, k, v, lyr, t0, q_len, hist, tables,
+    def _paged_attn(self, cache, q, k, v, lyr, t0, q_len, hist, tables,
                     cold: Optional[dict] = None):
-        """One ragged-op call from inside a forward: flatten the token
-        grid onto the op's flat row axis (int8 pools bring their scale
-        pools, tiered rows their demoted spans and the staged cold slab,
-        as the reference's ``_ragged_attn_call``)."""
+        """One ragged-op call from inside a forward on ``cache`` (the
+        pool, or a shard's): flatten the token grid onto the op's flat
+        row axis (int8 pools bring their scale pools, tiered rows their
+        demoted spans and the staged cold slab, as the reference's
+        ``_ragged_attn_call``)."""
         Bq, Sq, H, D = q.shape
         KVH = k.shape[-2]
         out = ragged_paged_attention(
             q.reshape(Bq * Sq, H, D), k.reshape(Bq * Sq, KVH, D),
-            v.reshape(Bq * Sq, KVH, D), self.cache.k_pages,
-            self.cache.v_pages, lyr, t0, q_len, hist, tables,
-            backend=self.cfg.attn_backend, k_scale=self.cache.k_scale,
-            v_scale=self.cache.v_scale, **(cold or {}),
+            v.reshape(Bq * Sq, KVH, D), cache.k_pages,
+            cache.v_pages, lyr, t0, q_len, hist, tables,
+            backend=self.cfg.attn_backend, k_scale=cache.k_scale,
+            v_scale=cache.v_scale, **(cold or {}),
         )
         return out.reshape(Bq, Sq, H, D)
 
-    def _kv_buffers(self, B: int, S: int):
+    def _kv_buffers(self, B: int, S: int) -> list:
+        """A forward's fresh K/V, ``[L, B, S, KVH, D]`` twice, per shard
+        (one pair on one device; a shard's own KV heads on its device)."""
         cfg = self.model_cfg
-        shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
         dt = torch_dtype(cfg.dtype)
-        return (torch.empty(shape, dtype=dt, device=self.device),
-                torch.empty(shape, dtype=dt, device=self.device))
+        out = []
+        for cache in self.caches:
+            shape = (cfg.num_layers, B, S, cache.k_pages.shape[3],
+                     cfg.head_dim)
+            dev = cache.k_pages.device
+            out.append((torch.empty(shape, dtype=dt, device=dev),
+                        torch.empty(shape, dtype=dt, device=dev)))
+        return out
+
+    def _replicas(self, tensors: dict) -> list:
+        """``tensors`` (on the engine's device) once per shard, each dict
+        on its shard's device: the step's metadata reaching every card
+        (one dict where there is one device)."""
+        if self.mesh is None:
+            return [tensors]
+        return [tensors if torch.device(d) == self.device else
+                {k: t.to(d, non_blocking=True) for k, t in tensors.items()}
+                for d in self.mesh.devices]
+
+    def _forward(self, tokens, pos, attn_fns: list, **kw):
+        """The model forward with one attention function per shard:
+        ``models.llama.forward`` on one device (the pool as its carry),
+        ``forward_sharded`` over a mesh (the hidden state or the logits
+        on the first device)."""
+        if self.mesh is None:
+            return forward(self._graft_params(), self.model_cfg, tokens,
+                           pos, attn_fn=attn_fns[0],
+                           carry_caches=self.caches[0], **kw)
+        return forward_sharded(self.params, self.model_cfg, tokens, pos,
+                               attn_fns=attn_fns, carry_caches=self.caches,
+                               mesh=self.mesh, **kw)
+
+    def _project(self, h):
+        """Final-norm hidden rows -> float32 logits (gathered on the
+        first device over a mesh)."""
+        if self.mesh is None:
+            return project_logits(self.params, self.model_cfg, h)
+        return project_logits_sharded(self.params, self.model_cfg, h,
+                                      self.mesh)
 
     def _prefill_segment(self, plan: PrefillPlan,
                          cold: Optional[dict] = None) -> torch.Tensor:
@@ -2900,40 +3045,50 @@ class Engine:
         self.num_prefill_padding_tokens += max(0, rung - plan.used)
         a = plan.finalize_device(rung, self.device)
         has_hist = plan.has_hist or cold is not None
-        kacc, vacc = self._kv_buffers(1, rung)
+        self.attn_forwards["k1" if has_hist else "k2"] += 1
+        bufs = self._kv_buffers(1, rung)
+        metas = self._replicas({k: a[k] for k in (
+            "t0", "qlen", "hist", "tables", "seg", "pages", "offsets")})
 
-        def p_attn(q, k, v, carry, pos):
-            cache, lyr = carry
-            kacc[lyr].copy_(k)
-            vacc[lyr].copy_(v)
-            if has_hist:
-                out = self._paged_attn(q, k, v, lyr, a["t0"], a["qlen"],
-                                       a["hist"], a["tables"], cold)
-            else:
-                # cold rows only: packed self-attention, no pool reads
-                out = attention(
-                    q, k, v, causal=True, q_positions=pos,
-                    kv_positions=pos, q_segment_ids=a["seg"],
-                    kv_segment_ids=a["seg"], backend=self.cfg.attn_backend,
-                )
-            return out, cache
+        def p_attn_of(kacc, vacc, m):
+            def p_attn(q, k, v, carry, pos):
+                cache, lyr = carry
+                kacc[lyr].copy_(k)
+                vacc[lyr].copy_(v)
+                if has_hist:
+                    out = self._paged_attn(cache, q, k, v, lyr, m["t0"],
+                                           m["qlen"], m["hist"],
+                                           m["tables"], cold)
+                else:
+                    # cold rows only: packed self-attention, no pool reads
+                    out = attention(
+                        q, k, v, causal=True, q_positions=pos,
+                        kv_positions=pos, q_segment_ids=m["seg"],
+                        kv_segment_ids=m["seg"],
+                        backend=self.cfg.attn_backend,
+                    )
+                return out, cache
+            return p_attn
 
+        attn_fns = [p_attn_of(*kv, m) for kv, m in zip(bufs, metas)]
         # the MoE capacity follows the whole bucket, padding included;
         # padding takes none of it (the reference's moe_token_mask)
         valid = a["seg"] > 0
-        is_moe = self.model_cfg.num_experts > 0
-        h, _, *stats = forward(
-            self._graft_params(), self.model_cfg, a["tokens"], a["pos"],
-            attn_fn=p_attn, carry_caches=self.cache, return_hidden=True,
-            adapter_ids=a["aids"] if plan.has_adapter else None,
-            moe_token_mask=valid, return_moe_stats=is_moe)
-        if is_moe:
+        kw = {}
+        if self.mesh is None:
+            kw = dict(adapter_ids=a["aids"] if plan.has_adapter else None,
+                      moe_token_mask=valid,
+                      return_moe_stats=self.model_cfg.num_experts > 0)
+        h, _, *stats = self._forward(a["tokens"], a["pos"], attn_fns,
+                                     return_hidden=True, **kw)
+        if stats:
             # queued unread: a read here would wait for the call
             self._moe_drop_handles.append(stats[0]["dropped"])
-        # pool updated in place (the reference's donated scatter)
-        write_kv(self.cache, kacc, vacc, a["pages"], a["offsets"], valid)
-        last = project_logits(self.params, self.model_cfg,
-                              h[0, a["ends"].long()])          # [R, V]
+        # pools updated in place (the reference's donated scatter)
+        for cache, (kacc, vacc), m in zip(self.caches, bufs, metas):
+            write_kv(cache, kacc, vacc, m["pages"], m["offsets"],
+                     m["seg"] > 0)
+        last = self._project(h[0, a["ends"].long()])          # [R, V]
         if self.logits_hook is not None:
             self.logits_hook("prefill", last[: len(plan.rows)])
         greedy = SamplingParams(temperature=0.0)
@@ -2969,16 +3124,25 @@ class Engine:
             drafts_t = upload(drafts.astype(np.int64), dev)
             tokens = torch.cat([tokens, drafts_t], dim=1)
         pos = st.positions[:, None] + offs[None, :]
-        kacc, vacc = self._kv_buffers(B, W)
-        t0 = self._row_t0[W]
+        self.attn_forwards["k1"] += 1
+        bufs = self._kv_buffers(B, W)
+        pages, page_offs = slot_to_page_offset(pos, st.page_tables,
+                                               self.cache_cfg.page_size)
+        metas = self._replicas({
+            "t0": self._row_t0[W], "qlen": q_len, "hist": hist,
+            "tables": st.page_tables, "pages": pages, "offsets": page_offs,
+            "live": live_t})
 
-        def s_attn(q, k, v, carry, _pos):
-            cache, lyr = carry
-            kacc[lyr].copy_(k)
-            vacc[lyr].copy_(v)
-            out = self._paged_attn(q, k, v, lyr, t0, q_len, hist,
-                                   st.page_tables, cold)
-            return out, cache
+        def s_attn_of(kacc, vacc, m):
+            def s_attn(q, k, v, carry, _pos):
+                cache, lyr = carry
+                kacc[lyr].copy_(k)
+                vacc[lyr].copy_(v)
+                out = self._paged_attn(cache, q, k, v, lyr, m["t0"],
+                                       m["qlen"], m["hist"], m["tables"],
+                                       cold)
+                return out, cache
+            return s_attn
 
         # every state row carries its slot's adapter (verify rows and the
         # fused tail alike); no delta when no live row has one
@@ -2990,13 +3154,14 @@ class Engine:
         pos3 = None
         if self.model_cfg.mrope_sections is not None:
             pos3 = (pos + st.mrope_delta[:, None])[None].expand(3, B, W)
-        logits, _ = forward(self._graft_params(), self.model_cfg, tokens,
-                            pos, attn_fn=s_attn, carry_caches=self.cache,
-                            adapter_ids=aids, positions3=pos3,
-                            moe_token_mask=live_t)
-        pages, page_offs = slot_to_page_offset(pos, st.page_tables,
-                                               self.cache_cfg.page_size)
-        write_kv(self.cache, kacc, vacc, pages, page_offs, live_t)
+        attn_fns = [s_attn_of(*kv, m) for kv, m in zip(bufs, metas)]
+        kw = {}
+        if self.mesh is None:
+            kw = dict(adapter_ids=aids, positions3=pos3,
+                      moe_token_mask=live_t)
+        logits, _ = self._forward(tokens, pos, attn_fns, **kw)
+        for cache, (kacc, vacc), m in zip(self.caches, bufs, metas):
+            write_kv(cache, kacc, vacc, m["pages"], m["offsets"], m["live"])
         if self.logits_hook is not None:
             self.logits_hook("decode", logits[:, 0])
             if W > 1:
@@ -3134,7 +3299,8 @@ class Engine:
             ready = None
             if self.cache.k_pages.is_cuda:
                 ready = torch.cuda.Event()
-                ready.record()
+                ready.record(torch.cuda.current_stream(
+                    self.cache.k_pages.device))
             for (h, _p), page_arrays in zip(want, arrays):
                 self.kv_filestore.put_async(h, page_arrays,
                                             tenant=req.tenant, ready=ready)

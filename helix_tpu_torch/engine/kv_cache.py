@@ -103,9 +103,12 @@ class PagedKVCache:
 
     @classmethod
     def create(cls, model: ModelConfig, cache: CacheConfig,
-               device) -> "PagedKVCache":
+               device, kv_heads: Optional[int] = None) -> "PagedKVCache":
+        """Zeroed pools on ``device``; ``kv_heads``: the KV heads this
+        pool holds (a tensor-parallel shard's ``KVH / n``), all of the
+        model's by default."""
         shape = (model.num_layers, cache.num_pages, cache.page_size,
-                 model.num_kv_heads, model.head_dim)
+                 kv_heads or model.num_kv_heads, model.head_dim)
         if not cache.quantized:
             dt = torch_dtype(cache.dtype)
             return cls(
@@ -123,6 +126,24 @@ class PagedKVCache:
     @property
     def num_layers(self):
         return self.k_pages.shape[0]
+
+    @classmethod
+    def create_sharded(cls, model: ModelConfig, cache: CacheConfig,
+                       mesh) -> list:
+        """The pool of a tensor-parallel mesh, sharded over
+        ``cache_heads`` as the reference shards it
+        (``parallel.sharding.POOL_AXES``; ``helix_tpu/engine/
+        kv_cache.py:123-165``): one pool per shard on its device, holding
+        that shard's ``KVH / n`` KV heads ``[L, N, P, KVH / n, D]``
+        (int8: with its scales ``[L, N, P, KVH / n]``).  Page ids are
+        global: page p of every shard holds page p's tokens."""
+        from helix_tpu_torch.parallel.sharding import POOL_AXES, shard_block
+
+        shape = (model.num_layers, cache.num_pages, cache.page_size,
+                 model.num_kv_heads, model.head_dim)
+        return [cls.create(model, cache, d,
+                           shard_block(shape, POOL_AXES, mesh, i)[3][1])
+                for i, d in enumerate(mesh.devices)]
 
     @property
     def quantized(self) -> bool:
@@ -606,6 +627,7 @@ class HostPagePool:
                 break
             self._finalize(oldest)
         staged = {}
+        src = None
         for f, a in e.arrays.items():
             if a is None:
                 staged[f] = None
@@ -613,9 +635,10 @@ class HostPagePool:
             host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
             host.copy_(a, non_blocking=True)
             staged[f] = host
+            src = a.device
         e.arrays = staged
         e.event = torch.cuda.Event()
-        e.event.record()
+        e.event.record(torch.cuda.current_stream(src))
         e.staged = e.nbytes
         self._staged += e.nbytes
 

@@ -114,8 +114,9 @@ def served_model_bytes(m: ServedModel, headroom: float = 0.10) -> int:
     total = 0
     if m.loop is not None:
         eng = m.loop.engine
-        total += tree_bytes(eng.params)
-        total += tree_bytes(eng.cache.carry())  # pools + int8 scale pools
+        total += tree_bytes(eng.params)     # one tree a shard on a mesh
+        # pools + int8 scale pools, one per shard
+        total += tree_bytes([pool.carry() for pool in eng.caches])
     elif m.embedder is not None:
         total += tree_bytes(m.embedder.params)
         total += tree_bytes(getattr(m.embedder, "vparams", None) or {})

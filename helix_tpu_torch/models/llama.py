@@ -19,6 +19,11 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
   ``return_moe_stats``.  An mrope config (the Qwen2-VL text tower) runs
   only with its three position streams (``positions3``,
   ``models.qwen2_vl.text_forward_mrope``).
+- ``forward_sharded`` is the Megatron tensor-parallel forward over a
+  ``device.mesh.Mesh``: one parameter tree per shard
+  (``parallel.sharding.shard_params`` by ``param_logical_axes``), each
+  card computing its own heads, FFN columns and vocabulary rows, two
+  float32 sums per layer (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from helix_tpu_torch.ops.quant import (
     quantize_tensor,
 )
 from helix_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from helix_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_reduce,
+    replicate,
+)
 
 Params = dict
 AttnFn = Callable[..., Any]
@@ -154,6 +164,49 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense((E, V), stacked=False)
     return params
+
+
+def param_logical_axes(cfg: ModelConfig) -> Any:
+    """Tree of logical-axis tuples matching ``init_params`` (copied from
+    ``helix_tpu/models/llama.py:115-159``): the leading stacked-layer
+    axis is "layers" on every weight; column-parallel projections (wq,
+    wk, wv, w_gate, w_up) shard their output axis, row-parallel ones
+    (wo, w_down) their input axis, the embedding and ``lm_head`` their
+    vocabulary."""
+    lax_ = {
+        "attn_norm": {"weight": ("layers", None)},
+        "mlp_norm": {"weight": ("layers", None)},
+        "wq": {"weight": ("layers", "embed", "heads")},
+        "wk": {"weight": ("layers", "embed", "kv_heads")},
+        "wv": {"weight": ("layers", "embed", "kv_heads")},
+        "wo": {"weight": ("layers", "heads", "embed")},
+        "w_gate": {"weight": ("layers", "embed", "mlp")},
+        "w_up": {"weight": ("layers", "embed", "mlp")},
+        "w_down": {"weight": ("layers", "mlp", "embed")},
+    }
+    if cfg.num_experts > 0:
+        del lax_["w_gate"], lax_["w_up"], lax_["w_down"]
+        lax_["router"] = {"weight": ("layers", "embed", None)}
+        lax_["experts"] = {
+            "w_gate": {"weight": ("layers", "expert", "embed", "mlp")},
+            "w_up": {"weight": ("layers", "expert", "embed", "mlp")},
+            "w_down": {"weight": ("layers", "expert", "mlp", "embed")},
+        }
+    if cfg.attention_bias:
+        lax_["wq"]["bias"] = ("layers", "heads")
+        lax_["wk"]["bias"] = ("layers", "kv_heads")
+        lax_["wv"]["bias"] = ("layers", "kv_heads")
+    if cfg.qk_norm:
+        lax_["q_norm"] = {"weight": ("layers", None)}
+        lax_["k_norm"] = {"weight": ("layers", None)}
+    axes = {
+        "embed": {"weight": ("vocab", "embed")},
+        "layers": lax_,
+        "final_norm": {"weight": (None,)},
+    }
+    if not cfg.tie_word_embeddings:
+        axes["lm_head"] = {"weight": ("embed", "vocab")}
+    return axes
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -373,6 +426,142 @@ def project_logits(params: Params, cfg: ModelConfig, h):
     if cfg.logits_soft_cap:
         logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
     return logits
+
+
+def _embed_part(p: dict, tokens, index: int) -> torch.Tensor:
+    """Shard ``index``'s float32 share of the embedding lookup: its own
+    vocabulary rows looked up, zeros for tokens another shard holds (the
+    sum over shards is then exact: one term is not zero)."""
+    w = p["weight"]
+    rows = w.shape[0]
+    local = tokens - index * rows
+    mine = (local >= 0) & (local < rows)
+    at = local.clamp(0, rows - 1)
+    emb = w[at].float()
+    if w.dtype == torch.int8:
+        emb = emb * p["embed_scale"][at]
+    return torch.where(mine[..., None], emb, 0.0)
+
+
+def _row_partial(x, p: dict) -> torch.Tensor:
+    """A row-parallel shard's float32 product ``x @ W_shard``, never
+    rounded: the int8 scale and the bias apply after the sum."""
+    w = p["weight"]
+    if w.dtype == torch.int8:
+        w = w.to(x.dtype)
+    return matmul_f32(x, w)
+
+
+def _row_epilogue(p: dict):
+    """The float32 epilogue of a row-parallel projection's sum on the
+    first device: that shard's copy of the (whole) output-channel scale
+    and bias, as ``maybe_dequant_dense`` applies them; None when there
+    is neither."""
+    scale, bias = p.get("scale"), p.get("bias")
+    if scale is None and bias is None:
+        return None
+
+    def epilogue(acc):
+        if scale is not None:
+            acc = acc * scale.reshape(-1)
+        if bias is not None:
+            acc = acc + bias.float()
+        return acc
+
+    return epilogue
+
+
+def forward_sharded(
+    shards: list,
+    cfg: ModelConfig,
+    tokens,              # [B, S] integer, on the mesh's first device
+    positions,           # [B, S] integer
+    *,
+    attn_fns: list,
+    carry_caches: list,
+    mesh,
+    return_hidden: bool = False,
+):
+    """The decoder tensor parallel over ``mesh`` (Megatron layout), the
+    carry protocol of ``forward`` per shard.
+
+    - ``shards[i]``: shard i's parameter tree on ``mesh.devices[i]``
+      (``shard_params(params, mesh, param_logical_axes(cfg))``).
+    - The embedding lookup is vocabulary-sharded: each shard looks up
+      its own rows, zeros elsewhere, and the float32 shares are summed.
+    - Column-parallel wq / wk / wv / w_gate / w_up: shard i computes its
+      ``H / n`` query heads, ``KVH / n`` KV heads and ``F / n`` FFN
+      columns.  ``attn_fns[i](q, k, v, (carry_caches[i], layer), pos)``
+      returns ``(out, cache)`` on shard i's heads.
+    - Row-parallel wo / w_down: each shard's product stays float32, the
+      partials are summed in shard order and rounded once to the compute
+      dtype (``parallel.collectives.all_reduce``), the int8 scale and
+      bias applied to the sum.  The hidden state is the same on every
+      shard.
+    - The logits are vocabulary-sharded float32 products gathered on the
+      first device (``project_logits_sharded``); ``return_hidden``
+      returns the first device's final-norm hidden states instead.
+
+    Returns ``(logits or hidden, caches)``.  Dense Llama-family configs
+    only: an MoE or mrope config is refused (ROADMAP A15b)."""
+    if cfg.num_experts > 0 or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts and mrope (VL) models on a "
+            "mesh are not ported yet (ROADMAP A15b)")
+    devs = list(mesh.devices)
+    n = len(devs)
+    dt = torch_dtype(cfg.dtype)
+    Hs, KVHs, D = cfg.num_heads // n, cfg.num_kv_heads // n, cfg.head_dim
+    toks = replicate(tokens.long(), devs)
+    pos = replicate(positions, devs)
+    inv = [_inv_freq(D, cfg.rope_theta, cfg.rope_scaling, d) for d in devs]
+    eps, off = cfg.rms_norm_eps, cfg.norm_offset
+    act = _act(cfg.hidden_act)
+    h = all_reduce([_embed_part(shards[i]["embed"], toks[i], i)
+                    for i in range(n)], devs, dt)
+    caches = list(carry_caches)
+    for lyr in range(cfg.num_layers):
+        ps = [_layer_params(t["layers"], lyr) for t in shards]
+        parts = []
+        for i, p in enumerate(ps):
+            B, S, _ = h[i].shape
+            x = rms_norm(h[i], p["attn_norm"]["weight"], eps, off)
+            q = maybe_dequant_dense(x, p["wq"]).reshape(B, S, Hs, D)
+            k = maybe_dequant_dense(x, p["wk"]).reshape(B, S, KVHs, D)
+            v = maybe_dequant_dense(x, p["wv"]).reshape(B, S, KVHs, D)
+            if cfg.qk_norm:
+                q = rms_norm(q, p["q_norm"]["weight"], eps)
+                k = rms_norm(k, p["k_norm"]["weight"], eps)
+            q = apply_rope(q, pos[i], inv[i])
+            k = apply_rope(k, pos[i], inv[i])
+            out, caches[i] = attn_fns[i](q, k, v, (caches[i], lyr), pos[i])
+            parts.append(_row_partial(out.reshape(B, S, Hs * D), p["wo"]))
+        o = all_reduce(parts, devs, dt, _row_epilogue(ps[0]["wo"]))
+        h = [a + b for a, b in zip(h, o)]
+        parts = []
+        for i, p in enumerate(ps):
+            x = rms_norm(h[i], p["mlp_norm"]["weight"], eps, off)
+            gate = maybe_dequant_dense(x, p["w_gate"])
+            up = maybe_dequant_dense(x, p["w_up"])
+            parts.append(_row_partial(act(gate) * up, p["w_down"]))
+        o = all_reduce(parts, devs, dt, _row_epilogue(ps[0]["w_down"]))
+        h = [a + b for a, b in zip(h, o)]
+    h = [rms_norm(x, t["final_norm"]["weight"], eps, off)
+         for x, t in zip(h, shards)]
+    if return_hidden:
+        return h[0], caches
+    return project_logits_sharded(shards, cfg, h, mesh), caches
+
+
+def project_logits_sharded(shards: list, cfg: ModelConfig, h, mesh):
+    """Final-norm hidden states -> float32 logits over the vocabulary,
+    on the mesh's first device: each shard projects onto its own
+    vocabulary rows (``project_logits`` of its tree), the shards'
+    float32 logits concatenated.  ``h``: one tensor per shard, or one
+    tensor on the first device (copied to the others)."""
+    hs = h if isinstance(h, list) else replicate(h, mesh.devices)
+    return all_gather([project_logits(t, cfg, x)
+                       for t, x in zip(shards, hs)], dim=-1)
 
 
 def prefill_attn_fn(q, k, v, layer_cache, positions, *, segment_ids=None,

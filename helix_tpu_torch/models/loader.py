@@ -27,6 +27,14 @@ the checkpoint's dtype, under either HF naming (``model.`` or
 (``visual.`` or ``model.visual.``), into ``params["visual"]``, never
 quantized.
 
+On a tensor-parallel mesh (``load_params(..., mesh=)``) the load gives
+one tree per shard, each on its shard's device, equal to
+``parallel.sharding.shard_params`` of the whole load byte for byte: each
+block of HF rows is staged on the mesh's first device, cast (and
+quantized, over the whole input axis, so a row-parallel weight keeps
+the whole scale), and each shard's part of it is copied into that
+shard's tensors.  No device ever holds the whole model.
+
 A Mixtral checkpoint (``num_local_experts``) gives the MoE layout: each
 layer's ``block_sparse_moe.gate`` as ``router [L, E, X]`` and its
 ``block_sparse_moe.experts.{e}.w1`` / ``w3`` / ``w2`` as the gate, up and
@@ -335,10 +343,98 @@ def _allocate(layout: dict, dtype, device, quantized: bool) -> tuple:
     return params, dests
 
 
-def _put(dest: _Dest, layer, at: int, x: torch.Tensor) -> None:
+@dataclasses.dataclass
+class _ShardedDest:
+    """A destination cut over a mesh: one ``_Dest`` a shard, the whole
+    tensor's shape, and the logical axes of its tensor and its scale."""
+    kind: str
+    shards: list
+    shape: tuple
+    axes: tuple
+    scale_axes: tuple | None
+    mesh: object
+
+
+def _axes_of(axes_tree, path) -> tuple:
+    """``(tensor axes, scale axes or None)`` of a layout path."""
+    node = axes_tree
+    for k in path[:-1] if path[-1] == "bias" else path:
+        node = node[k]
+    if path[-1] == "bias":
+        return node["bias"], None
+    return node["weight"], node.get("scale", node.get("embed_scale"))
+
+
+def _allocate_sharded(layout: dict, dtype, mesh, quantized: bool,
+                      axes_tree) -> tuple:
+    """One empty parameter tree per shard of ``mesh`` (each tensor its
+    shard's block, on its device) and the destinations by path."""
+    from helix_tpu_torch.parallel.sharding import shard_block
+
+    trees, per_shard = [], []
+    for i, dev in enumerate(mesh.devices):
+        cut = {path: (kind, tuple(n for _s, n in shard_block(
+            shape, _axes_of(axes_tree, path)[0], mesh, i)))
+            for path, (kind, shape) in layout.items()}
+        tree, dests = _allocate(cut, dtype, dev, quantized)
+        trees.append(tree)
+        per_shard.append(dests)
+    dests = {path: _ShardedDest(kind, [d[path] for d in per_shard], shape,
+                                *_axes_of(axes_tree, path), mesh)
+             for path, (kind, shape) in layout.items()}
+    return trees, dests
+
+
+def _put_sharded(sd: _ShardedDest, layer, at: int, x) -> None:
+    """``_put`` over a mesh: the block's values (cast, or codes and
+    scales quantized over the whole input axis) computed once where the
+    block was staged, and each shard's part copied into its tensors."""
+    from helix_tpu_torch.parallel.sharding import shard_block
+
+    n = x.shape[0]
+    quantized = sd.shards[0].scale is not None
+    if sd.kind == "vector":
+        parts = [("tensor", (at,), x)]
+    elif sd.kind == "rows" and quantized:
+        q, sc = _quantize_columns(x.float(), -1)
+        parts = [("tensor", (at, 0), q), ("scale", (at, 0), sc)]
+    elif sd.kind == "rows":
+        parts = [("tensor", (at, 0), x)]
+    elif quantized:
+        q, sc = _quantize_columns(x.t().float(), 0)
+        parts = [("tensor", (0, at), q), ("scale", (0, at), sc)]
+    else:
+        parts = [("tensor", (0, at), x.reshape(n, -1).t())]
+    lead = 0 if layer is None else len(layer) if isinstance(
+        layer, tuple) else 1
+    for field, starts, v in parts:
+        axes, full = sd.axes, sd.shape
+        if field == "scale":
+            axes = sd.scale_axes
+            full = ((full[0], 1) if sd.kind == "rows"
+                    else (*full[:-2], 1, full[-1]))
+        for i, dest in enumerate(sd.shards):
+            t = getattr(dest, field)
+            t = t if layer is None else t[layer]
+            src, dst = v, t
+            block = shard_block(full, axes, sd.mesh, i)[lead:]
+            for dim, ((lo, size), a) in enumerate(zip(block, starts)):
+                s0 = max(a, lo)
+                s1 = min(a + v.shape[dim], lo + size)
+                if s0 >= s1:
+                    break
+                src = src.narrow(dim, s0 - a, s1 - s0)
+                dst = dst.narrow(dim, s0 - lo, s1 - s0)
+            else:
+                dst.copy_(src)
+
+
+def _put(dest, layer, at: int, x: torch.Tensor) -> None:
     """Write HF rows ``x`` (in the compute dtype, on the device) into
     ``dest`` from its row / column ``at``; quantized destinations get the
     codes and scales ``quantize_tensor`` / ``quantize_rows`` give."""
+    if isinstance(dest, _ShardedDest):
+        return _put_sharded(dest, layer, at, x)
     t = dest.tensor if layer is None else dest.tensor[layer]
     n = x.shape[0]
     if dest.kind == "vector":
@@ -360,7 +456,8 @@ def _put(dest: _Dest, layer, at: int, x: torch.Tensor) -> None:
 
 def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
                 device=DEFAULT_DEVICE, dtype=None, quantization=None,
-                stats: dict | None = None, vision=None) -> tuple:
+                stats: dict | None = None, vision=None,
+                mesh=None) -> tuple:
     """``(cfg, params)`` of a checkpoint directory, ``params`` on
     ``device`` in ``dtype`` (default the config's), int8 projections and
     embedding with ``quantization="int8"``.  ``stats``, if given, gets
@@ -368,12 +465,20 @@ def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
     staging buffer, page faults included), of the uploads (device time,
     on the card) and of the whole load.  ``vision``: a Qwen2-VL
     checkpoint's ``VisionConfig``, whose tower lands in
-    ``params["visual"]`` in ``dtype``, never quantized."""
+    ``params["visual"]`` in ``dtype``, never quantized.  ``mesh`` (a
+    ``device.mesh.Mesh``; ``device`` is then not read): one tree per
+    shard by ``models.llama.param_logical_axes`` (int8:
+    ``ops.quant.quantized_logical_axes``), staged on its first device."""
     if quantization not in (None, "int8"):
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
     cfg = cfg or load_config(model_dir)
-    dev = resolve_device(device)
+    if mesh is not None and (vision is not None or cfg.num_experts):
+        raise NotImplementedError(
+            f"{cfg.name}: loading a vision or mixture-of-experts "
+            "checkpoint onto a mesh is not ported yet (ROADMAP A15b: "
+            "vision on a mesh, MoE on a mesh)")
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     dt = torch_dtype(dtype or cfg.dtype)
     name = str(dt).removeprefix("torch.")
     if cfg.dtype != name:
@@ -386,7 +491,18 @@ def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
     t_start = time.monotonic()
     with SafetensorsDir(model_dir) as st:
         layout, items = _plan(cfg, st, vision)
-        params, dests = _allocate(layout, dt, dev, quantization == "int8")
+        if mesh is None:
+            params, dests = _allocate(layout, dt, dev,
+                                      quantization == "int8")
+        else:
+            from helix_tpu_torch.models.llama import param_logical_axes
+            from helix_tpu_torch.ops.quant import quantized_logical_axes
+
+            axes = param_logical_axes(cfg)
+            if quantization == "int8":
+                axes = quantized_logical_axes(axes)
+            params, dests = _allocate_sharded(
+                layout, dt, mesh, quantization == "int8", axes)
         got = _stream(st, items, dests, dt, dev)
     if stats is not None:
         stats.update(got, seconds=time.monotonic() - t_start)
@@ -413,6 +529,9 @@ def _stream(st: SafetensorsDir, items: list, dests: dict, dt,
         stage = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
                  for _ in range(2)]
         free = [None, None]        # event: the slot's upload has run
+        # the uploads run on ``dev``'s stream, which need not be the
+        # current device's: the events are recorded there
+        stream = torch.cuda.current_stream(dev)
     read_s, nbytes = 0.0, 0
     for k, (_fname, _off, name, c0, c1, path, layer,
             at) in enumerate(blocks):
@@ -429,9 +548,9 @@ def _stream(st: SafetensorsDir, items: list, dests: dict, dt,
             g = torch.empty(src.nbytes, dtype=torch.uint8, device=dev)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
+            ev0.record(stream)
             g.copy_(flat, non_blocking=True)
-            ev1.record()
+            ev1.record(stream)
             free[slot] = ev1
             timing.append((ev0, ev1))
             x = g.view(src.dtype).view(src.shape)

@@ -245,15 +245,16 @@ def _launch_k2(q, k, v, meta, causal, scale, logits_soft_cap, want_lse):
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     fn = K2.symbol("helix_flash_attention", _K2_ARGS)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-        kpos.data_ptr(), None if qseg is None else qseg.data_ptr(),
-        None if kseg is None else kseg.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        B, Sq, Skv, H, KVH, D, int(bool(causal)), _scale_of(scale, D),
-        float(logits_soft_cap or 0.0), _KERNEL_DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):   # the launcher's device
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), None if qseg is None else qseg.data_ptr(),
+            None if kseg is None else kseg.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Sq, Skv, H, KVH, D, int(bool(causal)), _scale_of(scale, D),
+            float(logits_soft_cap or 0.0), _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cuda error {err}")
     K2.launches += 1
@@ -284,18 +285,19 @@ def _launch_k2_backward(q, k, v, out, lse, dout, meta, causal, scale,
                          dtype=torch.uint8, device=q.device)
              if q.dtype == torch.bfloat16 else None)
     fn = K2B.symbol("helix_flash_attention_backward", _K2B_ARGS)
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
-        None if qseg is None else qseg.data_ptr(),
-        None if kseg is None else kseg.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        None if tiles is None else tiles.data_ptr(),
-        B, Sq, Skv, H, KVH, D, int(bool(causal)), _scale_of(scale, D),
-        float(logits_soft_cap or 0.0), _KERNEL_DTYPES[q.dtype],
-        int(drop_cap_derivative),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):   # the launcher's device
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            None if qseg is None else qseg.data_ptr(),
+            None if kseg is None else kseg.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            None if tiles is None else tiles.data_ptr(),
+            B, Sq, Skv, H, KVH, D, int(bool(causal)), _scale_of(scale, D),
+            float(logits_soft_cap or 0.0), _KERNEL_DTYPES[q.dtype],
+            int(drop_cap_derivative),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"flash_attention_backward kernel launch failed: cuda error {err}")

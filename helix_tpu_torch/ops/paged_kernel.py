@@ -159,10 +159,11 @@ def k1_cold_worklist_device(hist, span_lo, span_hi, cold_row, cold_len,
                       device=hist.device)
     fn = K1_COLD.symbol("helix_ragged_paged_attention_cold_worklist",
                         _K1C_WORKLIST_ARGS)
-    err = fn(hist.data_ptr(), span_lo.data_ptr(), span_hi.data_ptr(),
-             cold_row.data_ptr(), cold_len.data_ptr(), work.data_ptr(), R, P,
-             maxP, nC, Ct, K, SPAN_TOKENS,
-             torch.cuda.current_stream(hist.device).cuda_stream)
+    with torch.cuda.device(hist.device):
+        err = fn(hist.data_ptr(), span_lo.data_ptr(), span_hi.data_ptr(),
+                 cold_row.data_ptr(), cold_len.data_ptr(), work.data_ptr(),
+                 R, P, maxP, nC, Ct, K, SPAN_TOKENS,
+                 torch.cuda.current_stream(hist.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cold work list: cuda error {err}")
     w = work.cpu().tolist()
@@ -434,37 +435,42 @@ def ragged_paged_attention(
     out = torch.empty_like(q)
     pps, n_splits = _k1_split(maxP, P)
     sc = float(scale if scale is not None else 1.0 / math.sqrt(D))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if tiered:
-        return _launch_cold(q, k_new, v_new, k_pages, v_pages, k_scale,
-                            v_scale, t0, q_len, hist, tables, cold,
-                            cold_scales, out, int(layer), pps, n_splits, sc,
-                            stream)
-    part_ml = torch.empty((n_splits + 1, T, H, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((n_splits + 1, T, H, D), dtype=torch.float32,
-                           device=q.device)
-    pools = [k_pages.data_ptr(), v_pages.data_ptr()]
-    if quantized:
-        form = K1_INT8
-        fn = form.symbol("helix_ragged_paged_attention_int8", _K1_INT8_ARGS)
-        pools += [k_scale.data_ptr(), v_scale.data_ptr()]
-    else:
-        form = K1
-        fn = form.symbol("helix_ragged_paged_attention", _K1_ARGS)
-    err = fn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *pools,
-        t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), T, H, KVH,
-        D, N, P, R, maxP, int(layer), pps, n_splits, sc,
-        _KERNEL_DTYPES[dt], stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"{form.name} kernel launch failed: cuda error {err}"
+    # the C launcher sets its shared-memory limit on, and sizes its
+    # grid for, the current device: make q's card current
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if tiered:
+            return _launch_cold(q, k_new, v_new, k_pages, v_pages,
+                                k_scale, v_scale, t0, q_len, hist, tables,
+                                cold, cold_scales, out, int(layer), pps,
+                                n_splits, sc, stream)
+        part_ml = torch.empty((n_splits + 1, T, H, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((n_splits + 1, T, H, D), dtype=torch.float32,
+                               device=q.device)
+        pools = [k_pages.data_ptr(), v_pages.data_ptr()]
+        if quantized:
+            form = K1_INT8
+            fn = form.symbol("helix_ragged_paged_attention_int8",
+                             _K1_INT8_ARGS)
+            pools += [k_scale.data_ptr(), v_scale.data_ptr()]
+        else:
+            form = K1
+            fn = form.symbol("helix_ragged_paged_attention", _K1_ARGS)
+        err = fn(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), *pools,
+            t0.data_ptr(), q_len.data_ptr(), hist.data_ptr(),
+            tables.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), T, H, KVH, D, N, P, R, maxP, int(layer),
+            pps, n_splits, sc,
+            _KERNEL_DTYPES[dt], stream,
         )
-    form.launches += 1
-    return out
+        if err != 0:
+            raise RuntimeError(
+                f"{form.name} kernel launch failed: cuda error {err}"
+            )
+        form.launches += 1
+        return out
 
 
 def _check_cold(cold: dict, cold_scales: tuple, quantized: bool, pool_dt,

@@ -113,6 +113,36 @@ def quantize_params(params: dict) -> dict:
     return walk(params)
 
 
+def quantized_logical_axes(axes_tree):
+    """A logical-axes tree of the float layout (``models.llama.
+    param_logical_axes``) as one matching ``quantize_params``' output
+    (copied from ``helix_tpu/ops/quant.py:110-146``): each quantized
+    ``weight`` gains a ``scale`` whose contraction axes are replicated
+    and whose output-channel axis keeps the weight's sharding (a
+    column-parallel scale shards with its columns, a row-parallel one is
+    whole on every shard and applies after the sum); the embedding
+    gains a per-row ``embed_scale`` sharded like the vocabulary."""
+
+    def walk(tree, path=()):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if (k == "weight" and isinstance(v, tuple) and len(v) >= 2
+                    and not any("norm" in p for p in path)):
+                out["weight"] = v
+                if path and path[-1] == "embed":
+                    out["embed_scale"] = (v[0], None)
+                else:
+                    out["scale"] = tuple(a if i == len(v) - 1 else None
+                                         for i, a in enumerate(v))
+            else:
+                out[k] = walk(v, path + (k,))
+        return out
+
+    return walk(axes_tree)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., in] @ w [in, out]`` accumulated and returned in float32,
     the product never rounded to ``x``'s dtype.  On the card a bf16 GEMM

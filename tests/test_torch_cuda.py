@@ -2137,3 +2137,218 @@ def test_trainer_steps_on_card_match_cpu(cuda):
             num += float(((pg[t][n].cpu() - pc[t][n]) ** 2).sum())
             den += float(((pc[t][n] - start[t][n]) ** 2).sum())
     assert (num / den) ** 0.5 <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel: the kernels at a shard's shape on every card, the sums
+# ---------------------------------------------------------------------------
+
+
+def _card(cuda, index):
+    n = torch.cuda.device_count()
+    if index >= n:
+        pytest.skip(f"needs {index + 1} cards: {n} visible")
+    return torch.device("cuda", index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1, 2, 3])
+def test_shard_shape_kernels_on_every_card(cuda, index):
+    """K1-int8 and K2 at a tp 4 shard of Llama-3-8B (H 8, KVH 2, D 128,
+    bf16) on card ``index`` while the current device stays card 0:
+    within their limits, counted, and a planted fault (one history slot
+    too many; each query's own key dropped) breaks the limit."""
+    card = _card(cuda, index)
+    assert torch.cuda.current_device() == 0
+    fresh, pools, scales, i, live = _ragged_int8(
+        40 + index, torch.bfloat16, card, D=128, H=8, KVH=2)
+    before = tpk.K1_INT8.launches
+    got = tpk.ragged_paged_attention(*fresh, *pools, 1, *i,
+                                     k_scale=scales[0], v_scale=scales[1])
+    assert tpk.K1_INT8.launches == before + 1 and got.device == card
+    want = _int8_plain(fresh, pools, scales, i, 1)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[torch.bfloat16])
+    bad = tpk.ragged_paged_attention(*fresh, *pools, 1, *i[:2], i[2] + 1,
+                                     i[3], k_scale=scales[0],
+                                     v_scale=scales[1])
+    assert _breaks_limit(bad[live], want[live], torch.bfloat16)
+    (q, k, v), pos, seg = _packed(2, 300, 8, 2, 128, seed=index)
+    args = [torch.from_numpy(x).to(card, torch.bfloat16) for x in (q, k, v)]
+    t = {n: torch.from_numpy(a).to(card) for n, a in
+         (("pos", pos), ("seg", seg))}
+    kw = dict(q_positions=t["pos"], kv_positions=t["pos"],
+              q_segment_ids=t["seg"], kv_segment_ids=t["seg"])
+    before = tatt.K2.launches
+    got = tatt.flash_attention(*args, **kw)
+    assert tatt.K2.launches == before + 1 and got.device == card
+    want = tatt.flash_attention_plain(*args, **kw)
+    limit = tatt.flash_error_limit(*args, **kw)
+    live2 = t["seg"] > 0
+    _within_flash_limit(got, want, limit, live2)
+    bad = tatt.flash_attention(*args, **{**kw, "kv_positions": t["pos"] + 1})
+    assert ((bad.float() - want.float()).abs() > limit)[live2].any()
+    torch.cuda.synchronize(card)
+    assert torch.cuda.current_device() == 0
+
+
+def _sum_devices(cuda):
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(4)] if n >= 4
+            else [torch.device("cuda", 0)] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 4096])
+def test_f32_sum_bit_equal_on_every_card(cuda, rows):
+    """The row-parallel sum over 4 shards (cards 0-3 when four are
+    visible, else card 0 four times): every card gets the same bf16
+    bits, those of the float32 partials added in shard order and rounded
+    once."""
+    from helix_tpu_torch.parallel import collectives
+
+    devs = _sum_devices(cuda)
+    gen = torch.Generator().manual_seed(rows)
+    host = [torch.randn((rows, 512), generator=gen) for _ in devs]
+    parts = [h.to(d) for h, d in zip(host, devs)]
+    got = collectives.all_reduce(parts, devs, torch.bfloat16)
+    want = (((host[0] + host[1]) + host[2]) + host[3]).bfloat16()
+    for g, d in zip(got, devs):
+        assert g.device == d
+        assert torch.equal(g.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_tp4_engine_greedy_equals_tp1_on_card(cuda):
+    """A 2-layer float32 engine at tp 4 (cards 0-3, else card 0 four
+    times) gives the tp 1 engine's greedy ids on the card (TF32 off),
+    with K1 and K2 launched once per shard per layer per forward."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import (
+        init_params,
+        param_logical_axes,
+    )
+    from helix_tpu_torch.parallel.sharding import shard_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(dtype="float32", hidden_size=512, num_heads=16,
+                           num_kv_heads=4, head_dim=32, intermediate_size=1024,
+                           vocab_size=1024)
+    params = init_params(cfg, 3, device=cuda)
+    ecfg = dict(max_decode_batch=8, page_size=16, num_pages=256,
+                max_pages_per_seq=16, max_prefill_len=64)
+    rng = np.random.default_rng(2)
+    prompts = [[int(x) for x in rng.integers(4, 1000, n)]
+               for n in (5, 40, 90, 17, 130, 3, 64, 77)]
+    s = SamplingParams(temperature=0.0, max_tokens=12)
+    one = Engine(cfg, params, EngineConfig(**ecfg), device=cuda)
+    want = one.generate(prompts, s)
+    mesh = build_mesh(MeshSpec(tp=4), _sum_devices(cuda))
+    tp = Engine(cfg, shard_params(params, mesh, param_logical_axes(cfg)),
+                EngineConfig(**ecfg), mesh=mesh)
+    k1, k2 = tpk.K1.launches, tatt.K2.launches
+    got = tp.generate(prompts, s)
+    assert got == want
+    calls = tp.attn_forwards
+    assert tpk.K1.launches - k1 == 4 * cfg.num_layers * calls["k1"]
+    assert tatt.K2.launches - k2 == 4 * cfg.num_layers * calls["k2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantization", [None, "int8"])
+def test_checkpoint_loads_shard_by_shard_on_card(cuda, tmp_path,
+                                                 quantization):
+    """``load_params(..., mesh=)`` on the card (cards 0-3, else card 0
+    four times): every shard equals ``shard_params`` of the whole load
+    on the card, byte for byte, and lies on its shard's card."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params, param_logical_axes
+    from helix_tpu_torch.models.loader import load_params
+    from helix_tpu_torch.parallel.sharding import shard_params
+    from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", num_heads=8, num_kv_heads=4)
+    write_checkpoint(str(tmp_path), cfg, init_params(cfg, 4, device="cpu"),
+                     max_shard_bytes=40_000)
+    lcfg, whole = load_params(str(tmp_path), device=cuda,
+                              quantization=quantization)
+    mesh = build_mesh(MeshSpec(tp=4), _sum_devices(cuda))
+    _, shards = load_params(str(tmp_path), quantization=quantization,
+                            mesh=mesh)
+    axes = param_logical_axes(lcfg)
+    if quantization:
+        axes = tquant.quantized_logical_axes(axes)
+    want = shard_params(whole, mesh, axes)
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+
+    for i, dev in enumerate(mesh.devices):
+        got = dict(leaves(shards[i]))
+        for path, t in leaves(want[i]):
+            assert got[path].device == dev, path
+            assert torch.equal(got[path].view(torch.uint8) if
+                               got[path].dtype == torch.bfloat16
+                               else got[path],
+                               t.view(torch.uint8) if t.dtype ==
+                               torch.bfloat16 else t), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2])
+def test_checkpoint_loads_onto_a_later_card(cuda, tmp_path, monkeypatch, tp):
+    """A checkpoint loaded onto a slice that starts at card 1 (``tp`` 1:
+    the card a tp 1 entry at ``device_offset: 1`` loads onto; ``tp`` 2:
+    a mesh over cards 1-2) while card 0 stays current, through many small
+    double-buffered staging blocks: each shard equals ``shard_params`` of
+    the whole load on card 0, byte for byte."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.models import loader
+    from helix_tpu_torch.models.common import ModelConfig
+    from helix_tpu_torch.models.llama import init_params, param_logical_axes
+    from helix_tpu_torch.parallel.sharding import shard_params
+    from helix_tpu_torch.testing.hf_checkpoint import write_checkpoint
+
+    _card(cuda, tp)                 # cards 0 .. tp must be visible
+    monkeypatch.setattr(loader, "STAGE_BYTES", 16 << 10)
+    cfg = ModelConfig.tiny(dtype="bfloat16", num_heads=8, num_kv_heads=4,
+                           hidden_size=256, intermediate_size=1024,
+                           vocab_size=4096)
+    write_checkpoint(str(tmp_path), cfg, init_params(cfg, 6, device="cpu"),
+                     max_shard_bytes=400_000)
+    lcfg, whole = loader.load_params(str(tmp_path), device=cuda)
+    mesh = build_mesh(MeshSpec(tp=tp, device_offset=1))
+    assert torch.cuda.current_device() == 0
+    stats = {}
+    if tp == 1:
+        _, got = loader.load_params(str(tmp_path), device=mesh.devices[0],
+                                    stats=stats)
+        shards = [got]
+    else:
+        _, shards = loader.load_params(str(tmp_path), mesh=mesh,
+                                       stats=stats)
+    assert torch.cuda.current_device() == 0
+    assert stats["blocks"] > 100, stats
+    want = shard_params(whole, mesh, param_logical_axes(lcfg))
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+
+    for i, dev in enumerate(mesh.devices):
+        got = dict(leaves(shards[i]))
+        for path, t in leaves(want[i]):
+            assert got[path].device == dev, path
+            assert torch.equal(got[path].view(torch.uint8),
+                               t.view(torch.uint8)), path

@@ -479,15 +479,20 @@ def test_unported_engine_options_raise(weights, flag, item):
 
 
 def test_unported_models_and_mesh_raise(weights):
-    """Meshes stay refused (A15b).  An mrope config, refused until A17b,
-    now builds: its prompts take the VL single-shot prefill and never the
-    ragged prefill segment (``tests/test_torch_engine_vl.py`` holds it to
-    the JAX engine).  MoE models, refused until A15a, are held to the JAX
-    engine in ``tests/test_torch_moe.py``."""
+    """A mesh axis other than ``tp`` stays refused (A15b's later parts;
+    tensor parallel is ``tests/test_torch_tp.py``).  An mrope config,
+    refused until A17b, now builds: its prompts take the VL single-shot
+    prefill and never the ragged prefill segment
+    (``tests/test_torch_engine_vl.py`` holds it to the JAX engine).  MoE
+    models, refused until A15a, are held to the JAX engine in
+    ``tests/test_torch_moe.py``."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+
     *_, cfg, tp = weights
     ecfg = tengine.EngineConfig(**GEOMETRY)
+    mesh = build_mesh(MeshSpec(dp=2), [torch.device("cpu")] * 2)
     with pytest.raises(NotImplementedError, match="A15b"):
-        tengine.Engine(cfg, tp, ecfg, mesh=object(), device="cpu")
+        tengine.Engine(cfg, [tp, tp], ecfg, mesh=mesh)
     vl = tengine.Engine(dataclasses.replace(cfg, mrope_sections=(2, 3, 3)),
                         tp, ecfg, device="cpu")
     out = vl.generate([[1, 2, 3]], tsampling.SamplingParams(

@@ -543,17 +543,19 @@ def test_apply_and_heartbeat_equal_reference(weights, monkeypatch):
 
 
 def test_refused_profile_fails_before_anything_is_built(weights):
-    """A profile with an entry the port refuses (a vision-embedding entry
-    on a two-device mesh: A15b) fails its apply by name, every entry
-    checked before anything is built.  An ``adapter:`` is no longer
-    refused (A18): a chat entry's reaches the build function with its
-    ``adapter_scale``, and a vision-embedding entry's is dropped, as the
-    reference node agent ignores it."""
+    """A profile with an entry the port refuses (a vision entry on a
+    two-device mesh: A15b, vision on a mesh) fails its apply by name,
+    every entry checked before anything is built.  An ``adapter:`` is no
+    longer refused (A18): a chat entry's reaches the build function with
+    its ``adapter_scale``, and a vision-embedding entry's is dropped, as
+    the reference node agent ignores it."""
     with open(os.path.join(ROOT, "profiles", "dev-tiny.yaml")) as f:
         doc = yaml.safe_load(f)
     doc["models"][0].update(adapter="/ckpt/lora", adapter_scale=0.5)
     doc["models"].append({"name": "tiny-vembed", "kind": "vision-embedding",
-                          "adapter": "/ckpt/lora", "mesh": {"tp": 2}})
+                          "adapter": "/ckpt/lora"})
+    doc["models"].append({"name": "tiny-vl", "kind": "vision",
+                          "mesh": {"tp": 2}})
     doc["requirement"]["chips"] = 2
     prof = tprofile.ServingProfile.from_dict(doc)
     built = []
@@ -561,14 +563,15 @@ def test_refused_profile_fails_before_anything_is_built(weights):
                              device="cpu")
     state = agent.apply_profile(prof)
     assert state.status == "failed" and built == []
-    assert ("tiny-vembed: mesh {'tp': 2} spans more than one device"
-            in state.error)
+    assert ("tiny-vl: a vision entry on a mesh" in state.error
+            and "ROADMAP A15b: vision on a mesh" in state.error)
     # the chat and the embedding entries are served
     assert "tiny-chat" not in state.error and "tiny-embed" not in state.error
+    assert "tiny-vembed" not in state.error
     assert "adapter" not in state.error
     assert agent.registry.names() == []
     assert isinstance(agent.apply_exception, NotImplementedError)
-    del doc["models"][-1]["mesh"]
+    del doc["models"][-1]
     specs = {sp["name"]: sp for sp in cli.model_specs(
         tprofile.ServingProfile.from_dict(doc))}
     assert (specs["tiny-chat"]["adapter"],

@@ -819,10 +819,12 @@ def test_slo_block_raises_naming_a7(tmp_path, slo):
         reg.unregister("tiny-a")
 
 
-@pytest.mark.parametrize("mesh", [{"tp": 2}, {"tp": 1, "sp": 4},
+@pytest.mark.parametrize("mesh", [{"tp": 2, "pp": 2}, {"tp": 1, "sp": 4},
                                   {"dp": 8}])
 def test_mesh_beyond_one_device_raises_naming_a15(tmp_path, no_weights,
                                                   mesh):
+    """A mesh axis other than ``tp`` is refused by name (A15b's later
+    parts); ``tp`` alone is served (``tests/test_torch_tp.py``)."""
     path = _write(tmp_path, {"models": [_entry(mesh=mesh)]})
     with pytest.raises(NotImplementedError, match="mesh.*A15"):
         cli.main(["serve-node", "--profile", path, "--device", "cpu",
