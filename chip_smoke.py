@@ -214,7 +214,7 @@ no result line):
    4 streams in flight, each ended whole;
 4l. the disaggregated prefill handoff and the persistent KV filestore
    (``phase_disagg``): node P (the Llama entry with ``role: prefill``,
-   at 16 of its 32 layers for the smoke's time) and node D (``role:
+   at 8 of its 32 layers for the smoke's time) and node D (``role:
    decode``) on one filestore directory; 8 greedy
    chats over a shared ~1500-token system prompt handed from P to D
    through the stub's plan (every token once, the counters up by 8),
@@ -235,7 +235,7 @@ no result line):
    page ends its stream with the ``ColdPageError`` text;
 4n. vision (``phase_vision``): ``profiles/v5e8-llama3-plus-embed.yaml``'s
    ``Qwen/Qwen2-VL-7B-Instruct`` entry (its mesh cut to ``{tp: 1}``; at
-   14 of its 28 text layers and 32 vision blocks for the smoke's time)
+   7 of its 28 text layers and 7 of its 32 vision blocks, for time)
    from a bf16 checkpoint of seed 0 written here: 8 chats with
    PNG images of 224x224 to 1280x960 (one with two, one text only)
    answered whole with K1 and K2 launched and traced, a seeded image chat
@@ -278,12 +278,37 @@ no result line):
 3f. tp kernels (``phase_tp_kernels``): K2 and K1-int8 at a tp 4 shard of
    Llama-3-8B (H 8, KVH 2, D 128): K2 on a packed wave of two 1536-token
    prompts, K1-int8 with 32 decode rows and a 1024-token chunk row beside
-   31 on a shard's int8 pool of 15,872 pages, under the same limits,
+   31 on a shard's int8 pool of 15,872 pages; then K2 and K1 (float pool)
+   at a tp 2 shard of Mixtral-8x7B (H 16, KVH 4, D 128): K2 on one
+   2048-token chunk, K1 with 16 decode rows and a 252-token chunk row
+   beside 15 on a shard's bf16 pool of 4096 pages; under the same limits,
    faults and timings;
+4r. mixture of experts on a mesh (``phase_ep``, run after 4o, whose
+   model it releases first): (a) ``profiles/v5e8-mixtral.yaml``'s entry
+   (int8 weights of seed 0, bf16 KV, 16 slots, 4096 pages, prefill 2048)
+   with its mesh ``{ep: 4, tp: 2}`` cut to ``{ep: 2, tp: 2}`` (both axes
+   kept) over cards 0-3, else card 0 four times, built by
+   ``build_served_model(mesh=)`` (drawn a layer at a time into the
+   shards) behind the OpenAI server: 4o's primer and 8 chats x 64 tokens
+   answered, the seeded request twice the same, each card's bytes within
+   5% of its shards' trees and pools, K1 and K2 launches = shards x
+   layers x attention forwards (counters, and per card from a traced
+   wave of 8 fresh chats x 8 tokens with each card's busy ms, idle share
+   and ``direct_copy`` ms), ``helix_moe_dropped_tokens_total`` at
+   ``/metrics`` = the engine's count; TTFT p50, decode tok/s and the bf16
+   streams beside 4o's tp 1 run (recorded); (b) the profile cut to that
+   entry (``{vendor: nvidia, chips: 4}``) through ``serve-node``'s
+   profile path: on four cards served over cards 0-3, 8 chats answered,
+   K1 and K2 traced on every card; on fewer refused with the reference's
+   ``slice_devices`` text, nothing built; (c) 2 layers at full width in
+   float32, TF32 off, capacity factor 0.5, the mesh against one card on
+   the same weights: 8 of 8 greedy streams, drops (> 0) equal,
+   first-token logits within 1e-4;
 4q. tensor parallel on one host (``phase_tp``): (a) the
    ``profiles/v5e8-llama3-plus-embed.yaml`` Llama entry (its engine block
    and ``context_length`` as written: 32 slots, 15,872 int8 pages,
-   prefill 4096, the async loop) at full width and depth, bf16 weights of
+   prefill 4096, the async loop) at full width and 16 of its 32 layers
+   (a depth cut for the smoke's time since 4r joined it), bf16 weights of
    seed 0, built by ``build_served_model`` with a tp 4 mesh over an
    explicit device list (cards 0-3 when four are visible, else card 0
    four times; printed as ``tp_cards``) behind the OpenAI server: 16
@@ -5914,9 +5939,10 @@ def phase_tunnel(smi) -> dict:
 
 DISAGG_CHATS = 8
 DISAGG_TOKENS = 32            # new tokens per chat at the measured depth
-# the measured run's depth: 16 of the entry's 32 layers, a cut for the
-# smoke's time limit since phase 4o joined it (4l took 69-100 s at 32)
-DISAGG_LAYERS = 16
+# the measured run's depth: 8 of the entry's 32 layers, a cut for the
+# smoke's time limit (4l took 69-100 s at 32; 16 since phase 4o joined
+# it, 8 since 4r did: 63.1 s at 16)
+DISAGG_LAYERS = 8
 DISAGG_WITNESS_TOKENS = 64    # at 2 layers in float32
 # the restarted node's chat: the wave's system prompt, a user turn no chat
 # of the wave had
@@ -7092,10 +7118,11 @@ VL_WITNESS_TOKENS = 16
 # one layer of each tower: the witness's CPU half took 61-77 s at 2
 # (a depth cut for the smoke's time since phase 4o joined it)
 VL_WITNESS_LAYERS = 1
-# the measured run's depth: 14 of the text tower's 28 layers and 14 of
-# the vision tower's 32 blocks, a cut for the smoke's time limit since
-# phase 4o joined it (4n took 117-132 s at full depth)
-VL_LAYERS = 14
+# the measured run's depth: 7 of the text tower's 28 layers and 7 of the
+# vision tower's 32 blocks, a cut for the smoke's time limit (4n took
+# 117-132 s at full depth; 14 since phase 4o joined it, 7 since 4r did:
+# 99.0 s at 14)
+VL_LAYERS = 7
 # the profile entry's 128-page tables stop at 2048 tokens, below its
 # max_prefill_len 4096: the operator knob widens them so a prompt past
 # max_prefill_len meets the VL refusal, as phase 4m widens its entry's
@@ -7995,6 +8022,7 @@ def phase_moe(smi) -> dict:
         if k1_ms <= 0 or k2_ms <= 0 or min(traced_launches) <= 0:
             raise AssertionError("moe trace does not name K1 and K2")
         result = {"launches": launches, "build_s": build_s,
+                  "texts": texts,
                   "peak_gib": peak / 2**30, "measured": measured,
                   "estimate": estimate, "tok_s": sum(n_ids) / secs,
                   "ttft_p50": ttft_p50, "busy_ms": busy,
@@ -8611,6 +8639,9 @@ TP_ENTRY = dict(max_decode_batch=32, num_pages=15872, page_size=16,
                 max_prefill_len=4096, kv_cache_dtype="int8",
                 enable_async_loop=True)
 TP_CONTEXT = 8192
+# the measured runs' depth: 16 of the entry's 32 layers, a cut for the
+# smoke's time limit since phase 4r joined it (4q took 52-71 s at 32)
+TP_LAYERS = 16
 TP_CHATS = 16
 TP_PROMPT_TOKENS = 1500
 TP_NEW_TOKENS = 64
@@ -8618,6 +8649,9 @@ TP_TRACE_CHATS, TP_TRACE_TOKENS = 4, 16
 TP_WITNESS_LAYERS = 2
 TP_WITNESS_TOKENS = 32
 TP_SUM_REPS = 3
+# a tp 2 shard of Mixtral-8x7B's attention (phase 4r): 16 query heads, 4
+# KV heads
+EP_HEADS = (32 // 2, 8 // 2, 128)
 MEM_TOL = 0.05               # a card's bytes against its shards' share
 MEM_SLACK = 64 << 20         # what a card but the first may hold beyond
 
@@ -8629,9 +8663,14 @@ def phase_tp_kernels() -> tuple:
     prefill wave of two ~1500-token prompts (packed, S 3072); K1-int8
     with 32 decode rows at histories 1,500-1,564 and a 1,024-token chunk
     row (history 2,048) beside 31 decode rows, on a shard's int8 pool of
-    the entry's 15,872 pages [32, 15872, 16, 2, 128].  Same limits,
-    planted faults and timings as the full-width cases.  Returns (K2
-    rows, K1-int8 rows)."""
+    the entry's 15,872 pages [32, 15872, 16, 2, 128].  Then K2 and K1
+    (float pool) at a tp 2 shard of Mixtral (H 16, KVH 4, D 128, group
+    4), as phase 4r calls them: K2 on one 2048-token chunk, K1 with 16
+    decode rows at histories 100-2,400 and a 252-token chunk (history
+    2,048) beside 15 decode rows, on a shard's bf16 pool of the entry's
+    4096 pages [32, 4096, 16, 4, 128].  Same limits, planted faults and
+    timings as the full-width cases.  Returns (K2 rows, K1-int8 rows, K1
+    rows)."""
     from helix_tpu_torch.ops.quant import quantize_kv
 
     dev = "cuda"
@@ -8661,7 +8700,30 @@ def phase_tp_kernels() -> tuple:
     ]
     del pools, scales
     torch.cuda.empty_cache()
-    return k2, k1
+    # a tp 2 shard of Mixtral-8x7B (phase 4r): K2 on one prompt's chunk
+    # (MoE prefills one request a call), K1 on the entry's bf16 pool
+    k2.append(_k2_case("Mixtral tp 2 shard: causal S=2048 (one chunk), "
+                       "H=16, KVH=4", [2048], gen, EP_HEADS))
+    L, N = 32, 4096
+    shape = (L, N, P, EP_HEADS[1], EP_HEADS[2])
+    kp = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    for lyr in range(L):
+        kp[lyr].normal_(generator=gen)
+        vp[lyr].normal_(generator=gen)
+    k1_float = [
+        _k1_case("Mixtral tp 2 shard: decode 16 rows, hist 100-2400, 4096 "
+                 "pages, H=16, KVH=4", [1] * 16,
+                 rng.integers(100, 2400, size=16), (kp, vp), gen, rng,
+                 heads=EP_HEADS),
+        _k1_case("Mixtral tp 2 shard: 252-token chunk (hist 2048) + 15 "
+                 "decode rows, 4096 pages", [252] + [1] * 15,
+                 [2048] + list(rng.integers(100, 700, size=15)), (kp, vp),
+                 gen, rng, heads=EP_HEADS),
+    ]
+    del kp, vp
+    torch.cuda.empty_cache()
+    return k2, k1, k1_float
 
 
 def _tp_devices() -> list:
@@ -8732,8 +8794,9 @@ def _card_trace(prof, wall_ms: float) -> tuple:
     """Per card of a ``torch.profiler`` capture: the device-busy ms (each
     event's duration summed; a copy beside a kernel counts twice), its
     split by ``_kind_of``, the K1 (``ragged_split_kernel``) and K2
-    (``flash_``) kernels run, and the idle share of ``wall_ms``; with the
-    host's CUDA runtime calls, total ms by name."""
+    (``flash_``) kernels run, the ``direct_copy`` ms (the int8 weight
+    casts) and the idle share of ``wall_ms``; with the host's CUDA
+    runtime calls, total ms by name."""
     cards, host = {}, {}
     for e in prof.profiler.kineto_results.events():
         if getattr(e, "is_hidden_event", lambda: False)():
@@ -8744,12 +8807,15 @@ def _card_trace(prof, wall_ms: float) -> tuple:
                 host[name] = host.get(name, 0.0) + e.duration_ns() / 1e6
             continue
         c = cards.setdefault(e.device_index(), {
-            "busy_ms": 0.0, "k1": 0, "k2": 0,
+            "busy_ms": 0.0, "k1": 0, "k2": 0, "direct_copy_ms": 0.0,
             "ms": {k: 0.0 for k in ("gemm", "k1", "k2", "copy", "other")}})
         ms = e.duration_ns() / 1e6
         kind = _kind_of(name)
         c["busy_ms"] += ms
         c["ms"][kind] += ms
+        if "direct_copy" in name:
+            # the int8 -> bf16 weight casts (among "other")
+            c["direct_copy_ms"] += ms
         # one K1 launch = one split kernel (and its merge pass); one K2
         # launch = one flash kernel
         if kind in ("k1", "k2"):
@@ -8759,8 +8825,8 @@ def _card_trace(prof, wall_ms: float) -> tuple:
     return cards, host
 
 
-def _tp_trace(base, eng, devs, prompts) -> dict:
-    """``prompts`` (TP_TRACE_TOKENS new tokens each) under
+def _tp_trace(base, eng, devs, prompts, model=MODEL) -> dict:
+    """``prompts`` (TP_TRACE_TOKENS new tokens each, to ``model``) under
     ``torch.profiler``: per card, the device-busy ms, the idle share of
     the wall, and the K1 and K2 kernels it ran; with the engine's
     attention forwards meanwhile."""
@@ -8771,7 +8837,8 @@ def _tp_trace(base, eng, devs, prompts) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
-            list(ex.map(lambda p: _chat(base, p, TP_TRACE_TOKENS), prompts))
+            list(ex.map(lambda p: _chat(base, p, TP_TRACE_TOKENS,
+                                        model=model), prompts))
         for d in set(devs):
             torch.cuda.synchronize(d)
         wall = (time.monotonic() - t0) * 1e3
@@ -8886,14 +8953,15 @@ def _tp_run(tag, devs, prompts, smi) -> dict:
     t0 = time.monotonic()
     served = build_served_model(
         MODEL, device="cuda", seed=0, engine=dict(TP_ENTRY),
-        context_length=TP_CONTEXT, mesh=mesh)
+        context_length=TP_CONTEXT, mesh=mesh,
+        model_overrides={"num_layers": TP_LAYERS})
     build_s = time.monotonic() - t0
     served.tokenizer = _IdTokenizer(served.tokenizer)
     eng, loop = served.loop.engine, served.loop
     httpd, base, registry = _start_server(served)
     grew = {i: b - before[i] for i, b in _card_bytes(cards).items()}
     peak = {d.index: torch.cuda.max_memory_allocated(d) for d in cards}
-    cfg = CATALOG[MODEL]
+    cfg = dataclasses.replace(CATALOG[MODEL], num_layers=TP_LAYERS)
     whole = _whole_bytes(cfg) + eng.cache_cfg.total_bytes(cfg)
     shards = eng.params if devs else [eng.params]
     pools = eng.caches
@@ -9004,7 +9072,10 @@ def _tp_profile_cut() -> tuple:
     prof = _load_profile(TP_PROFILE)
     cuts = [f"dropped {m['name']}" for m in prof["models"]
             if m["name"] != MODEL]
-    prof["models"] = [m for m in prof["models"] if m["name"] == MODEL]
+    prof["models"] = [{**m, "model_overrides": {
+        **m.get("model_overrides", {}), "num_layers": TP_LAYERS}}
+        for m in prof["models"] if m["name"] == MODEL]
+    cuts.append(f"num_layers {TP_LAYERS} of 32 (a depth cut for time)")
     cuts.append(f"requirement {prof['requirement']} -> "
                 f"{{'vendor': 'nvidia', 'chips': {TP}}}")
     prof["requirement"] = {"vendor": "nvidia", "chips": TP}
@@ -9208,6 +9279,380 @@ def phase_tp(smi) -> dict:
             "node": node, "witness": witness, "links": links}
 
 
+# ---------------------------------------------------------------------------
+# 4r. mixture of experts on a mesh: the v5e8-mixtral entry over {ep: 2, tp: 2}
+# ---------------------------------------------------------------------------
+
+# the profile's {ep: 4, tp: 2} cut to four shards that keep both axes: the
+# attention sums over each tp group and the MoE layer's over the whole
+# mesh run on real cards, and one card holds it as [cuda:0] * 4
+EP_SPEC = {"ep": 2, "tp": 2}
+EP_TRACE_TOKENS = 8
+EP_WITNESS_TOKENS = 8
+
+
+def _ep_entry() -> tuple:
+    """``profiles/v5e8-mixtral.yaml``'s entry with its mesh cut to
+    ``EP_SPEC``: (entry, the cut profile for four cards, the changes)."""
+    from helix_tpu_torch.cli import _load_profile
+
+    doc = _load_profile(MOE_PROFILE)
+    (entry,) = doc["models"]
+    changes = [f"mesh {entry['mesh']} -> {EP_SPEC}",
+               f"requirement {doc['requirement']} -> "
+               "{'vendor': 'nvidia', 'chips': 4}"]
+    entry = {**entry, "mesh": dict(EP_SPEC)}
+    prof = {"name": doc["name"], "requirement": {"vendor": "nvidia",
+                                                 "chips": 4},
+            "models": [entry]}
+    return entry, prof, changes
+
+
+def _ep_per_card(eng) -> dict:
+    """Each card's shards: the bytes of their parameter trees and pools,
+    and how many shards it holds."""
+    out = {}
+    for tree, pool in zip(eng.params, eng.caches):
+        i = pool.k_pages.device.index
+        b, n = out.get(i, (0, 0))
+        out[i] = (b + _tree_bytes(tree) + sum(nbytes(t)
+                                              for t in pool.carry()), n + 1)
+    return out
+
+
+def _ep_run(smi, devs) -> dict:
+    """(a) The entry at ``EP_SPEC`` over ``devs`` behind the OpenAI server
+    (``cli.build_served_model(mesh=)``, int8 weights of seed 0 drawn a
+    layer at a time into the shards): 4o's primer and 8 chats x
+    ``MOE_TOKENS`` admitted together, the seeded request twice, 4o's
+    TTFT chats, ``/metrics``, then a traced wave of 8 fresh chats x
+    ``EP_TRACE_TOKENS``.  Per card: bytes after the build against its
+    shards' trees and pools."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from helix_tpu_torch.cli import build_served_model
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.ops.attention import K2
+    from helix_tpu_torch.ops.paged_kernel import K1
+    from helix_tpu_torch.testing.metric_families import check_scrape
+
+    entry, _prof, changes = _ep_entry()
+    _free()
+    cards = sorted(set(devs), key=lambda d: d.index)
+    before = _card_bytes(cards)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    mesh = build_mesh(MeshSpec(**EP_SPEC), devs)
+    t0 = time.monotonic()
+    served = build_served_model(
+        MOE_MODEL, device="cuda", seed=0, engine=dict(entry["engine"]),
+        quantization=entry.get("quantization"),
+        context_length=entry.get("context_length"), mesh=mesh)
+    build_s = time.monotonic() - t0
+    served.tokenizer = _IdTokenizer(served.tokenizer)
+    eng, loop = served.loop.engine, served.loop
+    httpd, base, _registry = _start_server(served)
+    grew = {i: b - before[i] for i, b in _card_bytes(cards).items()}
+    peak = {d.index: torch.cuda.max_memory_allocated(d) for d in cards}
+    per_card = _ep_per_card(eng)
+    experts = sum(_tree_bytes(t["layers"]["experts"]) for t in eng.params)
+    log(f"[ep a] the entry ({'; '.join(changes)}) built over "
+        f"{[str(d) for d in devs]} in {build_s:.1f} s "
+        f"({served.build_seconds}); expert stacks {experts / 1e9:.3f} GB in "
+        "all; per card: " + "; ".join(
+            f"cuda:{i} grew {grew[i] / 1e9:.3f} GB, its {per_card[i][1]} "
+            f"shards {per_card[i][0] / 1e9:.3f} GB ("
+            f"{grew[i] / per_card[i][0]:.4f}x), build peak "
+            f"{peak[i] / 1e9:.2f} GB" for i in sorted(grew)) + f" ({smi})")
+    try:
+        rng = np.random.default_rng(0)
+        chats = _moe_chats(rng)
+        primer = {"model": MOE_MODEL, "messages": [
+            chats[1]["messages"][0],
+            {"role": "user", "content": "Question A."}]}
+        ttft0, _t, _f = _ttft_msgs(base, {**primer, "max_tokens": 4,
+                                          "temperature": 0})
+        hits0, mixed0 = eng.prefix_cache.hits, eng.num_mixed_steps
+        K1.launches = K2.launches = 0
+        a0 = dict(eng.attn_forwards)
+        texts, secs, _ = _gated_batch(base, loop, None, MOE_TOKENS,
+                                      bodies=chats)
+        n_ids = [len(_vl_ids(t)) for t in texts]
+        seeded = [_seeded(base, MOE_MODEL) for _ in range(2)]
+        for d in cards:
+            torch.cuda.synchronize(d)
+        launches = {"ragged_paged_attention": K1.launches,
+                    "flash_attention": K2.launches}
+        calls = {k: eng.attn_forwards.get(k, 0) - a0.get(k, 0)
+                 for k in ("k1", "k2")}
+        hits = eng.prefix_cache.hits - hits0
+        mixed = eng.num_mixed_steps - mixed0
+        ttfts = [ttft0] + [_ttft_msgs(base, {
+            "model": MOE_MODEL, "max_tokens": 4, "temperature": 0,
+            "messages": [{"role": "user", "content": f"TTFT {i}: "
+                          + _ctx_text(rng, 200)}]})[0] for i in range(4)]
+        text = urllib.request.urlopen(base + "/metrics").read().decode()
+        problems = check_scrape(text)
+        drops = _metric(text, "helix_moe_dropped_tokens_total",
+                        model=MOE_MODEL)
+        engine_drops = eng.moe_dropped_tokens
+        fresh = _moe_chats(np.random.default_rng(9), "traced ")
+        k0 = (K1.launches, K2.launches)
+        a1 = dict(eng.attn_forwards)
+        dec0 = eng.num_decode_tokens
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            _t2, secs2, _ = _gated_batch(base, loop, None, EP_TRACE_TOKENS,
+                                         bodies=fresh)
+            for d in cards:
+                torch.cuda.synchronize(d)
+        traced, _host = _card_trace(trace, secs2 * 1e3)
+        traced_calls = {k: eng.attn_forwards.get(k, 0) - a1.get(k, 0)
+                        for k in ("k1", "k2")}
+        traced_launches = (K1.launches - k0[0], K2.launches - k0[1])
+        traced_tok_s = (eng.num_decode_tokens - dec0) / secs2
+    finally:
+        _stop_side(httpd, served)
+    out = {"texts": texts, "n_ids": n_ids, "batch_s": secs,
+           "tok_s": sum(n_ids) / secs, "ttft_p50": _pcts(ttfts)[0],
+           "seeded": seeded, "launches": launches, "calls": calls,
+           "hits": hits, "mixed": mixed, "metric_drops": drops,
+           "engine_drops": engine_drops, "scrape_problems": problems,
+           "trace": {"wall_ms": secs2 * 1e3, "cards": traced,
+                     "calls": traced_calls, "launches": traced_launches,
+                     "decode_tok_s": traced_tok_s},
+           "grew": grew, "per_card": per_card, "peak": peak,
+           "build_s": build_s, "layers": eng.model_cfg.num_layers,
+           "shards": mesh.size}
+    del served, eng, loop
+    _free()
+    return out
+
+
+def _ep_node(smi, tmpdir) -> dict:
+    """(b) ``serve-node --profile <cut> --random-weights`` in process
+    (``cli.make_node``): on four cards the entry at ``EP_SPEC`` is served
+    over cards 0-3 and 8 chats are answered with K1 / K2 on every card;
+    on fewer the apply fails with the reference's ``slice_devices`` text
+    and nothing is built."""
+    from helix_tpu_torch import cli
+
+    _entry, prof, cuts = _ep_entry()
+    path = os.path.join(tmpdir, "ep-node.json")
+    with open(path, "w") as f:
+        json.dump(prof, f)
+    n = torch.cuda.device_count()
+    before = torch.cuda.memory_allocated(0)
+    agent, httpd = cli.make_node(_node_args(None, "ep-node", path))
+    serving = False
+    try:
+        if n < 4:
+            want = (f"MeshSpec wants devices [0, 4) but only {n} devices "
+                    "are visible")
+            ok = (agent.state.status == "failed"
+                  and want in agent.state.error
+                  and agent.registry.names() == []
+                  and torch.cuda.memory_allocated(0) == before)
+            log(f"[ep node] {n} card(s) visible: the cut profile "
+                f"({'; '.join(cuts)}) is refused with the reference's text "
+                f"{want!r}: {ok} (status {agent.state.status}, nothing "
+                "built)")
+            if not ok:
+                raise AssertionError(f"ep node: expected the refusal, got "
+                                     f"{agent.state.status}: "
+                                     f"{agent.state.error[:300]}")
+            return {"refused": True}
+        if agent.state.status != "running":
+            raise AssertionError(f"ep node: apply failed: "
+                                 f"{agent.state.error}")
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        serving = True
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        eng = agent.registry.get(MOE_MODEL).loop.engine
+        devs = list(eng.mesh.devices)
+        outs = _concurrent(base, [[{"role": "user", "content": p}]
+                                  for p in _tp_prompts(8, seed=44)], 16,
+                           models=[MOE_MODEL] * 8)
+        trace = _tp_trace(base, eng, devs, _tp_prompts(TP_TRACE_CHATS,
+                                                       seed=45),
+                          model=MOE_MODEL)
+        L = eng.model_cfg.num_layers
+        calls = trace["attn_forwards"]
+        log(f"[ep node] the cut profile ({'; '.join(cuts)}) applied over "
+            f"{[str(d) for d in devs]} (mesh {eng.mesh.shape}): {len(outs)} "
+            "of 8 chats answered; traced per card: " + "; ".join(
+                f"cuda:{i} K1 {c['k1']} K2 {c['k2']} busy "
+                f"{c['busy_ms']:.1f} ms idle {c['idle_share']:.3f}"
+                for i, c in sorted(trace["cards"].items()))
+            + f" (attention forwards {calls}) ({smi})")
+        bad = [i for i in range(4)
+               if trace["cards"].get(i, {}).get("k1", 0) != L * calls["k1"]
+               or trace["cards"].get(i, {}).get("k2", 0) != L * calls["k2"]]
+        if len(outs) != 8 or bad:
+            raise AssertionError(f"ep node: {len(outs)} of 8 answered; "
+                                 f"cards with launches unlike L x calls: "
+                                 f"{bad}")
+        return {"refused": False, "trace": trace}
+    finally:
+        agent.stop()
+        if serving:
+            httpd.shutdown()
+        httpd.server_close()
+        agent.apply_profile(None)
+        _free()
+
+
+def _ep_witness(devs, smi) -> dict:
+    """(c) The entry at 2 layers in float32 (full widths, TF32 off,
+    ``expert_capacity_factor`` ``MOE_WITNESS_FACTOR``), random weights of
+    seed 0 drawn whole on the card and again into ``EP_SPEC``'s shards
+    over ``devs``: 8 prompts of 30-300 tokens decoded greedily by the
+    single-card engine and the mesh engine: ids 8 of 8, prefill drops
+    (> 0) equal, first-token logits within ``MOE_LOGIT_TOL``."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.common import CATALOG
+    from helix_tpu_torch.models.llama import init_params
+    from helix_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(
+        CATALOG[MOE_MODEL], num_layers=MOE_WITNESS_LAYERS, dtype="float32",
+        expert_capacity_factor=MOE_WITNESS_FACTOR)
+    entry, _prof, _c = _ep_entry()
+    ecfg = EngineConfig(**entry["engine"])
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(5)
+    prompts = [tok.apply_chat_template([{"role": "user", "content":
+               _ctx_text(rng, n)}]) for n in (10, 25, 40, 70, 100, 160,
+                                              220, 280)]
+    sp = SamplingParams(temperature=0.0, max_tokens=EP_WITNESS_TOKENS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    mesh = build_mesh(MeshSpec(**EP_SPEC), devs)
+
+    def run(make):
+        eng = make()
+        firsts = []
+        eng.logits_hook = lambda kind, x: firsts.append(
+            x.float().cpu()) if kind == "prefill" else None
+        t0 = time.monotonic()
+        ids = eng.generate(prompts, sp)
+        secs = time.monotonic() - t0
+        eng._drain_moe_drops()
+        out = {"ids": ids, "drops": eng.moe_dropped_tokens,
+               "logits": torch.cat(firsts), "seconds": secs}
+        eng.release()
+        return out
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        one = run(lambda: Engine(cfg, init_params(cfg, 0, device="cuda"),
+                                 ecfg, device="cuda"))
+        _free()
+        ep = run(lambda: Engine(cfg, init_params(cfg, 0, mesh=mesh), ecfg,
+                                mesh=mesh))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float((ep["logits"] - one["logits"]).abs().max())
+    agree = sum(a == b for a, b in zip(ep["ids"], one["ids"]))
+    log(f"[ep witness] {MOE_WITNESS_LAYERS} layers float32, TF32 off, "
+        f"capacity factor {MOE_WITNESS_FACTOR}: {EP_SPEC} over "
+        f"{[str(d) for d in devs]} against one card, 8 prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens x "
+        f"{EP_WITNESS_TOKENS}: greedy ids {agree}/8 equal; prefill drops "
+        f"mesh {ep['drops']} / one card {one['drops']}; first-token logits "
+        f"max abs {err:.3e} (limit {MOE_LOGIT_TOL:.0e}); mesh "
+        f"{ep['seconds']:.2f} s, one card {one['seconds']:.2f} s ({smi})")
+    _free()
+    if agree != 8:
+        raise AssertionError(f"ep witness: {agree}/8 greedy id lists equal")
+    if ep["drops"] != one["drops"] or one["drops"] <= 0:
+        raise AssertionError(f"ep witness: drops {ep['drops']} / "
+                             f"{one['drops']}")
+    if not err <= MOE_LOGIT_TOL:
+        raise AssertionError(f"ep witness: logits differ by {err}")
+    return {"ids_equal": agree, "drops": ep["drops"], "max_abs": err}
+
+
+@_timed
+def phase_ep(smi, moe=None) -> dict:
+    """4r. Mixture of experts on a mesh: ``profiles/v5e8-mixtral.yaml``'s
+    entry (int8, bf16 KV, 16 slots, 4096 pages, prefill 2048) at
+    ``EP_SPEC`` over cards 0-3, or ``[cuda:0] * 4`` on one card: (a)
+    ``_ep_run``, held to every chat answered, the seeded request
+    reproduced, each card's bytes within ``MEM_TOL`` of its shards, K1 /
+    K2 launches = shards x layers x attention forwards (in all and per
+    card in the trace), ``helix_moe_dropped_tokens_total`` = the engine's
+    count; recorded beside ``moe`` (phase 4o's tp 1 run, when it ran in
+    this call): TTFT p50, decode tok/s, the bf16 streams equal to 4o's;
+    (b) ``_ep_node``; (c) ``_ep_witness``."""
+    devs = _tp_devices()
+    run = _ep_run(smi, devs)
+    L, n = run["layers"], run["shards"]
+    tr = run["trace"]
+    ref = ""
+    if moe is not None:
+        same = sum(a == b for a, b in zip(run["texts"], moe["texts"]))
+        ref = (f" (4o, tp 1 on one card: TTFT p50 "
+               f"{moe['ttft_p50'] * 1e3:.1f} ms, {moe['tok_s']:.1f} tok/s, "
+               f"traced idle {moe['idle']:.3f}, direct_copy "
+               f"{moe['copy_ms']:.1f} ms of 8 x 32 tokens); bf16 streams "
+               f"equal to 4o's: {same} of 8 (recorded, not demanded)")
+    log(f"[ep a] {EP_SPEC} over {[str(d) for d in devs]}: 8 chats "
+        f"answered with {run['n_ids']} tokens in {run['batch_s']:.2f} s, "
+        f"{run['tok_s']:.1f} tok/s, TTFT p50 {run['ttft_p50'] * 1e3:.1f} ms"
+        f"{ref}; prefix-hit pages {run['hits']}, mixed steps {run['mixed']};"
+        f" seeded request reproduced ({len(_vl_ids(run['seeded'][0]))} "
+        f"ids); launches {run['launches']}, attention forwards "
+        f"{run['calls']}; /metrics helix_moe_dropped_tokens_total "
+        f"{run['metric_drops']:.0f} (engine {run['engine_drops']}); traced "
+        f"8 chats x {EP_TRACE_TOKENS}: wall {tr['wall_ms']:.1f} ms, "
+        f"{tr['decode_tok_s']:.1f} decode tok/s, per card " + "; ".join(
+            f"cuda:{i} K1 {c['k1']} K2 {c['k2']} busy {c['busy_ms']:.1f} ms "
+            f"{_rounded(c['ms'])}, direct_copy {c['direct_copy_ms']:.1f} ms,"
+            f" idle {c['idle_share']:.3f}"
+            for i, c in sorted(tr["cards"].items()))
+        + f" (attention forwards {tr['calls']}) ({smi})")
+    problems = []
+    if run["n_ids"] != [MOE_TOKENS] * 8:
+        problems.append(f"token counts {run['n_ids']}")
+    if run["seeded"][0] != run["seeded"][1] or not run["seeded"][0]:
+        problems.append("the seeded request did not reproduce")
+    if run["hits"] <= 0 or run["mixed"] <= 0:
+        problems.append("no prefix hit or no chunk beside decode rows")
+    want = {"ragged_paged_attention": n * L * run["calls"]["k1"],
+            "flash_attention": n * L * run["calls"]["k2"]}
+    if run["launches"] != want or min(want.values()) <= 0:
+        problems.append(f"launches {run['launches']} against shards x "
+                        f"layers x forwards {want}")
+    for i, c in tr["cards"].items():
+        k = sum(1 for d in devs if d.index == i)
+        if c["k1"] != k * L * tr["calls"]["k1"] \
+                or c["k2"] != k * L * tr["calls"]["k2"]:
+            problems.append(f"cuda:{i} traced K1 {c['k1']} / K2 {c['k2']} "
+                            f"against {k} x {L} x {tr['calls']}")
+    if tr["launches"] != (n * L * tr["calls"]["k1"],
+                          n * L * tr["calls"]["k2"]):
+        problems.append(f"traced launches {tr['launches']}")
+    for i, g in run["grew"].items():
+        mine = run["per_card"][i][0]
+        if abs(g - mine) > MEM_TOL * mine:
+            problems.append(f"cuda:{i} grew {g} B, not within "
+                            f"{MEM_TOL:.0%} of its shards' {mine} B")
+    if run["metric_drops"] != run["engine_drops"]:
+        problems.append(f"/metrics drops {run['metric_drops']} against the "
+                        f"engine's {run['engine_drops']}")
+    if run["scrape_problems"]:
+        problems.append(f"/metrics: {run['scrape_problems'][:3]}")
+    if problems:
+        raise AssertionError("ep a: " + "; ".join(problems))
+    with tempfile.TemporaryDirectory(prefix="helix-ep-") as tmp:
+        node = _ep_node(smi, tmp)
+    witness = _ep_witness(devs, smi)
+    return {"launches": run["launches"], "run": run, "node": node,
+            "witness": witness}
+
+
 @_timed
 def phase_parity(int8: bool = False) -> dict:
     """Full width, 2 layers, same weights; prefill + 8 decode steps with
@@ -9321,17 +9766,17 @@ def main(argv=None) -> int:
                     choices=("all", "kernels", "hotswap", "adapters",
                              "checkpoint", "slo", "node", "tunnel",
                              "disagg", "context", "vision", "moe",
-                             "train", "tp"),
+                             "train", "tp", "ep"),
                     default="all",
                     help="'kernels': build + kernel checks only; "
                          "'hotswap' / 'adapters' / 'checkpoint' / 'slo' / "
                          "'node' / 'tunnel' / 'disagg' / 'context' / "
-                         "'vision' / 'moe' / 'train' / 'tp': those and the "
-                         "hot-swap / adapter / checkpoint / scheduler / "
-                         "node-agent / tunnel and embedding / disagg "
-                         "handoff and filestore / tiered context / "
+                         "'vision' / 'moe' / 'train' / 'tp' / 'ep': those "
+                         "and the hot-swap / adapter / checkpoint / "
+                         "scheduler / node-agent / tunnel and embedding / "
+                         "disagg handoff and filestore / tiered context / "
                          "Qwen2-VL / Mixtral / LoRA SFT / tensor-parallel "
-                         "phase")
+                         "/ expert-parallel Mixtral phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -9353,9 +9798,10 @@ def main(argv=None) -> int:
     cold_rows, cold_int8_rows = phase_k1_cold()
     k2_train, k2b_rows = phase_k2_backward()
     k2_rows += k2_train
-    k2_tp, k1_int8_tp = phase_tp_kernels()
+    k2_tp, k1_int8_tp, k1_tp = phase_tp_kernels()
     k2_rows += k2_tp
     k1_int8_rows += k1_int8_tp
+    k1_rows += k1_tp
     launches, by_path = {}, {}
     if args.phase == "hotswap":
         swap = phase_hotswap(dev["smi"])
@@ -9406,6 +9852,10 @@ def main(argv=None) -> int:
         tpr = phase_tp(dev["smi"])
         launches = {k: n for k, n in tpr["launches"].items() if n}
         by_path = {k: {"tp": n} for k, n in launches.items()}
+    if args.phase == "ep":
+        epr = phase_ep(dev["smi"])
+        launches = dict(epr["launches"])
+        by_path = {k: {"ep": n} for k, n in launches.items()}
     if args.phase == "all":
         # each path's own launches: the bf16 phase's for the float forms,
         # the int8 phase's for K1's int8 form
@@ -9431,6 +9881,7 @@ def main(argv=None) -> int:
         ctx = phase_context(dev["smi"])
         vis = phase_vision(dev["smi"])
         moe = phase_moe(dev["smi"])
+        epr = phase_ep(dev["smi"], moe)
         tr = phase_train(dev["smi"])
         tpr = phase_tp(dev["smi"])
         launches = {
@@ -9450,7 +9901,8 @@ def main(argv=None) -> int:
             "ragged_paged_attention": {
                 "bf16": bf16["launches"]["ragged_paged_attention"],
                 "vision": vis["launches"]["ragged_paged_attention"],
-                "moe": moe["launches"]["ragged_paged_attention"]},
+                "moe": moe["launches"]["ragged_paged_attention"],
+                "ep": epr["launches"]["ragged_paged_attention"]},
             "flash_attention": {
                 "bf16": bf16["launches"]["flash_attention"],
                 "hotswap": swap["launches"]["flash_attention"],
@@ -9462,6 +9914,7 @@ def main(argv=None) -> int:
                 "disagg": dis["launches"]["flash_attention"],
                 "vision": vis["launches"]["flash_attention"],
                 "moe": moe["launches"]["flash_attention"],
+                "ep": epr["launches"]["flash_attention"],
                 "train": tr["launches"]["flash_attention"],
                 "tp": tpr["launches"]["flash_attention"]},
             "ragged_paged_attention_int8": {

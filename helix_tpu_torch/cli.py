@@ -111,15 +111,16 @@ that disagrees with the entry's ``model_overrides`` is refused at start.
 A Mixtral entry (``num_local_experts`` in its checkpoint's config, or
 the catalog's ``mistralai/Mixtral-8x7B-Instruct-v0.1``) is a chat entry
 like any other: its engine takes the reference's MoE rules.  An entry's
-``mesh: {tp: n, device_offset: k}`` is realised over the node's devices
-``k .. k + n - 1`` (``device.mesh.build_mesh``; the reference's
-``ValueError`` when fewer are visible): a chat entry with ``tp`` above 1
-is served tensor parallel by one engine over those devices (its random
-weights made on the first and sharded by ``parallel.sharding``, its
-checkpoint loaded shard by shard), any
-other entry is committed to the slice's first device.  What is not
-ported yet is refused at start too, before any weights are made, naming
-its ROADMAP item: a mesh axis other than ``tp`` above 1, and on a mesh a
+``mesh: {ep: e, tp: n, device_offset: k}`` is realised over the node's
+devices ``k .. k + e n - 1`` (``device.mesh.build_mesh``; the
+reference's ``ValueError`` when fewer are visible): a chat entry on more
+than one device is served tensor (and, over ``ep``, expert) parallel by
+one engine over those devices (its random weights drawn a layer at a
+time on the first and copied into the shards by ``parallel.sharding``'s
+rules, its checkpoint loaded shard by shard), any other entry is
+committed to the slice's first device.  What is not ported yet is
+refused at start too, before any weights are made, naming its ROADMAP
+item: a mesh axis other than ``tp`` and ``ep`` above 1, and on a mesh a
 vision entry, an adapter and the engine options of
 ``engine.engine.mesh_refusals`` (A15b's later parts), and a
 ``multihost`` block (A15b).  A profile assigned by
@@ -264,9 +265,9 @@ def build_served_model(
     tower served beside the engine (``ServedModel.vision``).  ``adapter``
     (a LoRA training checkpoint directory) is merged into the weights
     (``merge_adapter``).  ``mesh`` (a ``device.mesh.Mesh``, as the node
-    agent realises an entry's ``mesh:`` block): a chat entry with ``tp``
-    above 1 is served tensor parallel over it, any other entry on its
-    first device (``device`` is then not read)."""
+    agent realises an entry's ``mesh:`` block): a chat entry over more
+    than one device is served tensor and expert parallel over it, any
+    other entry on its first device (``device`` is then not read)."""
     if mesh is not None and (mesh.size == 1 or kind != "chat"):
         device, mesh = mesh.devices[0], None
     if kind == "embedding":
@@ -366,18 +367,11 @@ def init_sharded(cfg: ModelConfig, seed: int, mesh, quantization=None):
     """Random weights of ``seed`` sharded over ``mesh``: one tree per
     shard (``parallel.sharding.shard_params`` by ``param_logical_axes``,
     int8 by ``quantized_logical_axes``), the shards joined equal to
-    ``init_params(cfg, seed)`` byte for byte.  Drawn whole on the mesh's
-    first device, then sharded and dropped."""
-    from helix_tpu_torch.models.llama import param_logical_axes
-    from helix_tpu_torch.ops.quant import quantized_logical_axes
-    from helix_tpu_torch.parallel.sharding import shard_params
-
-    whole = init_params(cfg, seed, device=mesh.devices[0],
-                        quantization=quantization)
-    axes = param_logical_axes(cfg)
-    if quantization == "int8":
-        axes = quantized_logical_axes(axes)
-    return shard_params(whole, mesh, axes)
+    ``init_params(cfg, seed)`` byte for byte.  Drawn a layer at a time on
+    the mesh's first device, each layer's blocks copied straight into
+    the shards (``init_params(mesh=)``): neither the whole model nor its
+    bf16 form exists on any card."""
+    return init_params(cfg, seed, mesh=mesh, quantization=quantization)
 
 
 def merge_adapter(params: dict, adapter: str, scale, device) -> dict:

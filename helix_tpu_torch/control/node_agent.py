@@ -37,8 +37,9 @@ the registry, the heartbeat's model list and the residency estimate (the
 reference's flat 256 MiB), not in the saturation summary.  An entry's
 ``mesh:`` is realised over the node's devices (``devices``, the visible
 cards by default; the reference's ``helix_tpu/control/node_agent.py:
-44-65``): a chat entry with ``tp`` above 1 is one tensor-parallel engine
-over its slice, an embedding (or any entry of one device) is committed
+44-65``): a chat entry on more than one device is one engine over its
+slice, tensor parallel over ``tp`` and expert parallel over ``ep`` (the
+v5e8-mixtral entry's ``{ep: 4, tp: 2}``), an embedding (or any entry of one device) is committed
 to its slice's first device, and a slice past the visible devices fails
 the apply with the reference's text.  A profile the port cannot serve
 (an adapter merged at apply, a mesh axis or option of a later A15b

@@ -36,8 +36,8 @@ from typing import Optional
 class MeshSpec:
     """Named-axis layout over a number of devices (the reference's
     ``helix_tpu/device/mesh.py`` dataclass; ``device.mesh.build_mesh``
-    realises it).  The port serves ``tp`` and ``device_offset``; any
-    other axis above 1 is refused at build (ROADMAP A15b's later
+    realises it).  The port serves ``tp``, ``ep`` and ``device_offset``;
+    any other axis above 1 is refused at build (ROADMAP A15b's later
     parts)."""
 
     dp: int = 1

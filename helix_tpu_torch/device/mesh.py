@@ -1,4 +1,4 @@
-"""Device meshes for tensor-parallel serving on one host.
+"""Device meshes for tensor- and expert-parallel serving on one host.
 
 Port of ``helix_tpu/device/mesh.py``.  A ``MeshSpec`` (the profile's
 ``mesh:`` block, ``control.profile.MeshSpec``, re-exported here) names a
@@ -9,7 +9,9 @@ The reference builds a ``jax.sharding.Mesh`` and lets XLA place every
 array and insert the collectives.  Here a ``Mesh`` is the slice itself:
 its ``torch.device`` list in the reference's axis order (``tp``
 innermost), which ``parallel.sharding`` shards parameters and the KV pool
-over and ``parallel.collectives`` sums across.  One process drives every
+over and ``parallel.collectives`` sums across.  ``Mesh.coords`` gives a
+shard's coordinate on each axis, ``Mesh.groups`` the shards a sum joins
+(each ep replica's tp group, or the whole mesh).  One process drives every
 device of the mesh, as the reference's single controller does.
 
 By default the devices are the visible cards (``cuda:0 .. n-1``).  A
@@ -77,6 +79,29 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def coords(self, index: int) -> dict:
+        """Shard ``index``'s coordinate on every axis (row-major over
+        ``AXIS_ORDER``, ``tp`` innermost)."""
+        out = {}
+        for a in reversed(AXIS_ORDER):
+            n = self.shape[a]
+            out[a] = index % n
+            index //= n
+        return out
+
+    def groups(self, axes: Sequence[str]) -> list:
+        """The shards that a sum over ``axes`` joins: one list of shard
+        indices per group (those differing only along ``axes``), each in
+        shard order, the groups ordered by their first shard.
+        ``("tp",)`` gives each ep replica's tp group, ``AXIS_ORDER`` the
+        whole mesh."""
+        out: dict = {}
+        for i in range(self.size):
+            c = self.coords(i)
+            key = tuple(c[a] for a in AXIS_ORDER if a not in axes)
+            out.setdefault(key, []).append(i)
+        return list(out.values())
 
 
 def build_mesh(spec: MeshSpec, devices: Optional[Sequence] = None) -> Mesh:

@@ -99,19 +99,22 @@ logged off, and prefill capacity drops are queued as device scalars and
 folded into ``moe_dropped_tokens`` where a fetch has already synced.
 An adapter pool on such a model serves its attention targets.
 
-``mesh`` (a ``device.mesh.Mesh`` of ``tp`` shards, the reference's
-``Engine(mesh=...)``) serves tensor parallel on one host, one process
-driving every shard: ``params`` is one tree per shard
-(``parallel.sharding.shard_params``), the page pool holds each shard's
-``KVH / n`` KV heads on its device (``PagedKVCache.create_sharded``),
-every step runs each layer on every shard through
-``models.llama.forward_sharded`` (K1 and K2 on each shard's heads, two
-float32 sums per layer), the step's metadata is copied to every shard's
+``mesh`` (a ``device.mesh.Mesh`` of ``ep`` x ``tp`` shards, the
+reference's ``Engine(mesh=...)``) serves tensor and expert parallel on
+one host, one process driving every shard: ``params`` is one tree per
+shard (``parallel.sharding.shard_params``), the page pool holds each
+shard's ``KVH / tp`` KV heads on its device (``PagedKVCache.
+create_sharded``; replicated over ``ep``), every step runs each layer on
+every shard through ``models.llama.forward_sharded`` (K1 and K2 on each
+shard's heads, the attention sums over each tp group, an MoE layer's
+over the whole mesh), the step's metadata is copied to every shard's
 device, and the sampler runs on the first device on the gathered logits.
-Page ids, the allocator and the prefix cache are those of one device.  A
-mesh engine refuses by name what a later part of ROADMAP A15b serves
-(``mesh_refusals``): axes other than ``tp``, speculation, the host tier,
-tiered context, the adapter pool, MoE and mrope models, and export /
+An MoE model keeps its rules there: one request per prefill call, the
+drop count queued once per call, speculation logged off.  Page ids, the
+allocator and the prefix cache are those of one device.  A mesh engine
+refuses by name what a later part of ROADMAP A15b serves
+(``mesh_refusals``): axes other than ``tp`` and ``ep``, speculation, the
+host tier, tiered context, the adapter pool, mrope models, and export /
 import.
 
 Outside this slice, and refused loudly by ``Engine``: the multihost plan
@@ -455,19 +458,17 @@ def mesh_refusals(cfg: EngineConfig, model_cfg: ModelConfig,
     anything is built."""
     out = []
     other = {a: n for a, n in mesh_spec.axis_sizes().items()
-             if a != "tp" and n > 1}
+             if a not in ("tp", "ep") and n > 1}
     if other:
-        out.append(f"mesh axes {other}: only tp is served on a mesh "
-                   "(ROADMAP A15b: dp / fsdp / pp / ep / sp)")
-    if mesh_spec.tp <= 1:
+        out.append(f"mesh axes {other}: only tp and ep are served on a "
+                   "mesh (ROADMAP A15b: dp / fsdp / pp / sp)")
+    if mesh_spec.num_devices <= 1:
         return out
     if model_cfg.mrope_sections is not None:
         out.append("a vision (mrope) model on a mesh is not ported yet "
                    "(ROADMAP A15b: vision on a mesh)")
-    if model_cfg.num_experts > 0:
-        out.append("a mixture-of-experts model on a mesh is not ported "
-                   "yet (ROADMAP A15b: MoE on a mesh)")
-    if cfg.enable_spec_decode:
+    if cfg.enable_spec_decode and not model_cfg.num_experts:
+        # an MoE model logs speculation off, as on one device
         out.append("speculative decoding on a mesh is not ported yet "
                    "(ROADMAP A15b: speculation on a mesh)")
     if cfg.host_pool_bytes > 0:
@@ -480,6 +481,9 @@ def mesh_refusals(cfg: EngineConfig, model_cfg: ModelConfig,
     if cfg.adapter_pool_slots > 1:
         out.append("the adapter pool on a mesh is not ported yet "
                    "(ROADMAP A15b: adapters on a mesh)")
+    if model_cfg.num_experts and model_cfg.num_experts % mesh_spec.ep:
+        out.append(f"{model_cfg.name}: {model_cfg.num_experts} experts do "
+                   f"not divide over ep {mesh_spec.ep}")
     for what, n in (("heads", model_cfg.num_heads),
                     ("KV heads", model_cfg.num_kv_heads),
                     ("FFN columns", model_cfg.intermediate_size),
@@ -495,8 +499,8 @@ _EXPORT_ON_MESH = ("export and import of requests on a mesh are not "
 
 
 class Engine:
-    """Single-model serving engine on one device, or tensor parallel
-    over the devices of one host (``mesh``)."""
+    """Single-model serving engine on one device, or tensor and expert
+    parallel over the devices of one host (``mesh``)."""
 
     def __init__(
         self,
@@ -3074,11 +3078,10 @@ class Engine:
         # the MoE capacity follows the whole bucket, padding included;
         # padding takes none of it (the reference's moe_token_mask)
         valid = a["seg"] > 0
-        kw = {}
+        kw = dict(moe_token_mask=valid,
+                  return_moe_stats=self.model_cfg.num_experts > 0)
         if self.mesh is None:
-            kw = dict(adapter_ids=a["aids"] if plan.has_adapter else None,
-                      moe_token_mask=valid,
-                      return_moe_stats=self.model_cfg.num_experts > 0)
+            kw["adapter_ids"] = a["aids"] if plan.has_adapter else None
         h, _, *stats = self._forward(a["tokens"], a["pos"], attn_fns,
                                      return_hidden=True, **kw)
         if stats:
@@ -3155,10 +3158,9 @@ class Engine:
         if self.model_cfg.mrope_sections is not None:
             pos3 = (pos + st.mrope_delta[:, None])[None].expand(3, B, W)
         attn_fns = [s_attn_of(*kv, m) for kv, m in zip(bufs, metas)]
-        kw = {}
+        kw = dict(moe_token_mask=live_t)
         if self.mesh is None:
-            kw = dict(adapter_ids=aids, positions3=pos3,
-                      moe_token_mask=live_t)
+            kw.update(adapter_ids=aids, positions3=pos3)
         logits, _ = self._forward(tokens, pos, attn_fns, **kw)
         for cache, (kacc, vacc), m in zip(self.caches, bufs, metas):
             write_kv(cache, kacc, vacc, m["pages"], m["offsets"], m["live"])

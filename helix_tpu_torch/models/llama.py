@@ -19,11 +19,13 @@ as ``x @ W``), so converting a JAX parameter tree is a plain copy
   ``return_moe_stats``.  An mrope config (the Qwen2-VL text tower) runs
   only with its three position streams (``positions3``,
   ``models.qwen2_vl.text_forward_mrope``).
-- ``forward_sharded`` is the Megatron tensor-parallel forward over a
+- ``forward_sharded`` is the forward over an ``{ep, tp}``
   ``device.mesh.Mesh``: one parameter tree per shard
   (``parallel.sharding.shard_params`` by ``param_logical_axes``), each
-  card computing its own heads, FFN columns and vocabulary rows, two
-  float32 sums per layer (``parallel.collectives``).
+  card computing its own heads, FFN columns, experts and vocabulary
+  rows, two float32 sums per layer (``parallel.collectives``): over each
+  tp group for the attention and a dense FFN, over the whole mesh for an
+  MoE layer.
 """
 
 from __future__ import annotations
@@ -68,8 +70,52 @@ def _act(name: str):
     raise ValueError(f"unknown activation {name}")
 
 
+class _WholeLeaf:
+    """A parameter made whole on one device."""
+
+    def __init__(self, shape, dtype, device):
+        self.tensor = torch.empty(shape, dtype=dtype, device=device)
+
+    def put(self, layer, value) -> None:
+        (self.tensor if layer is None else self.tensor[layer]).copy_(value)
+
+    def shard(self, index: int) -> torch.Tensor:
+        return self.tensor
+
+
+class _ShardedLeaf:
+    """A parameter made straight into its shards over a mesh: each put
+    (the whole tensor, or one layer of a stack) copies every shard's
+    block of it into that shard's tensor on its device."""
+
+    def __init__(self, shape, dtype, axes, mesh):
+        from helix_tpu_torch.parallel.sharding import shard_block
+
+        self.blocks = [shard_block(shape, axes, mesh, i)
+                       for i in range(mesh.size)]
+        self.tensors = [torch.empty([n for _lo, n in b], dtype=dtype,
+                                    device=d)
+                        for b, d in zip(self.blocks, mesh.devices)]
+        self.layers = shape[0]
+
+    def put(self, layer, value) -> None:
+        for block, t in zip(self.blocks, self.tensors):
+            if layer is not None:
+                # a stack fills a layer at a time: its layer axis is
+                # whole on every shard ("layers" -> pp, not served)
+                assert block[0] == (0, self.layers), block
+                t, block = t[layer], block[1:]
+            src = value
+            for dim, (lo, n) in enumerate(block):
+                src = src.narrow(dim, lo, n)
+            t.copy_(src)
+
+    def shard(self, index: int) -> torch.Tensor:
+        return self.tensors[index]
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
-                dtype=None, quantization=None) -> Params:
+                dtype=None, quantization=None, mesh=None):
     """Random-init the stacked-layer parameter dict ON ``device``: normal
     x 0.02 for projections and embeddings, ones for norms, zeros for
     biases (``llama.py:73-112``).  Draws come from one ``torch.Generator``
@@ -79,91 +125,143 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=DEFAULT_DEVICE,
     ``quantization="int8"`` gives ``quantize_params`` of that dict, equal
     to the byte, with each weight quantized as soon as it is drawn: the
     model never exists in ``dtype`` at once either (Llama-3-8B's int8
-    build then peaks near its int8 footprint, not at its bf16 one)."""
+    build then peaks near its int8 footprint, not at its bf16 one).
+
+    ``mesh`` (a ``device.mesh.Mesh``; ``device`` is then not read): one
+    tree per shard (``parallel.sharding.shard_params`` of the same dict
+    by ``param_logical_axes``, int8 by ``quantized_logical_axes``), drawn
+    on the mesh's first device a layer at a time and each layer's blocks
+    copied straight into the shards: the whole model never exists on any
+    card (Mixtral's int8 experts are 45 GB, its bf16 model 93 GB)."""
     if quantization not in (None, "int8"):
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     L, E, H, KVH, D, F, V = (
         cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
         cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
     )
+    if mesh is None:
+        def leaf(path, shape, dtype):
+            return _WholeLeaf(shape, dtype, dev)
+    else:
+        from helix_tpu_torch.ops.quant import quantized_logical_axes
+
+        axes_tree = param_logical_axes(cfg)
+        if quantization == "int8":
+            axes_tree = quantized_logical_axes(axes_tree)
+
+        def leaf(path, shape, dtype):
+            axes = axes_tree
+            for k in path:
+                axes = axes[k]
+            return _ShardedLeaf(shape, dtype, axes, mesh)
 
     def draw(shape):
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).mul_(0.02).to(dt)
 
-    def normal(shape, stacked=False):
-        out = torch.empty(shape, dtype=dt, device=dev)
-        for part in (out if stacked else (out,)):
-            part.copy_(draw(part.shape))
+    def normal(path, shape, stacked=False):
+        out = leaf(path, shape, dt)
+        if stacked:
+            for i in range(shape[0]):
+                out.put(i, draw(shape[1:]))
+        else:
+            out.put(None, draw(shape))
         return out
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def filled(path, shape, value):
+        out = leaf(path, shape, dt)
+        out.put(None, torch.full(shape, value, dtype=dt, device=dev))
+        return out
 
-    def dense(shape, stacked=True):
+    def dense(path, shape, stacked=True):
         if quantization is None:
-            return {"weight": normal(shape, stacked)}
+            return {"weight": normal(path + ("weight",), shape, stacked)}
+        q = leaf(path + ("weight",), shape, torch.int8)
+        s = leaf(path + ("scale",), (*shape[:-2], 1, shape[-1]),
+                 torch.float32)
         if not stacked:
-            return quantize_tensor(normal(shape))
+            qd = quantize_tensor(draw(shape))
+            q.put(None, qd["weight"])
+            s.put(None, qd["scale"])
+            return {"weight": q, "scale": s}
         # layer by layer: the stack never exists in ``dt`` at once (an
         # expert stack of Mixtral is 30 GB in bf16)
-        q = torch.empty(shape, dtype=torch.int8, device=dev)
-        s = torch.empty((*shape[:-2], 1, shape[-1]), dtype=torch.float32,
-                        device=dev)
         for i in range(shape[0]):
             qd = quantize_tensor(draw(shape[1:]))
-            q[i], s[i] = qd["weight"], qd["scale"]
+            q.put(i, qd["weight"])
+            s.put(i, qd["scale"])
         return {"weight": q, "scale": s}
 
     def embed():
-        w = normal((V, E))
+        path = ("embed", "weight")
         if quantization is None:
-            return {"weight": w}
-        q, scale = quantize_rows(w)
-        return {"weight": q, "embed_scale": scale}
+            return {"weight": normal(path, (V, E))}
+        qw, scale = quantize_rows(draw((V, E)))
+        q = leaf(path, (V, E), torch.int8)
+        s = leaf(("embed", "embed_scale"), (V, 1), torch.float32)
+        q.put(None, qw)
+        s.put(None, scale)
+        return {"weight": q, "embed_scale": s}
+
+    def lyr(name):
+        return ("layers", name)
 
     params = {
         "embed": embed(),
         "layers": {
-            "attn_norm": {"weight": ones((L, E))},
-            "mlp_norm": {"weight": ones((L, E))},
-            "wq": dense((L, E, H * D)),
-            "wk": dense((L, E, KVH * D)),
-            "wv": dense((L, E, KVH * D)),
-            "wo": dense((L, H * D, E)),
+            "attn_norm": {"weight": filled(lyr("attn_norm") + ("weight",),
+                                           (L, E), 1.0)},
+            "mlp_norm": {"weight": filled(lyr("mlp_norm") + ("weight",),
+                                          (L, E), 1.0)},
+            "wq": dense(lyr("wq"), (L, E, H * D)),
+            "wk": dense(lyr("wk"), (L, E, KVH * D)),
+            "wv": dense(lyr("wv"), (L, E, KVH * D)),
+            "wo": dense(lyr("wo"), (L, H * D, E)),
         },
-        "final_norm": {"weight": ones((E,))},
+        "final_norm": {"weight": filled(("final_norm", "weight"), (E,),
+                                        1.0)},
     }
     layers = params["layers"]
     if cfg.num_experts > 0:
         # Mixtral: a router and expert-stacked SwiGLU in place of the
         # dense FFN, in the reference's layout (``llama.py:91-103``)
         X = cfg.num_experts
-        layers["router"] = dense((L, E, X))
+        ex = ("layers", "experts")
+        layers["router"] = dense(lyr("router"), (L, E, X))
         layers["experts"] = {
-            "w_gate": dense((L, X, E, F)),
-            "w_up": dense((L, X, E, F)),
-            "w_down": dense((L, X, F, E)),
+            "w_gate": dense(ex + ("w_gate",), (L, X, E, F)),
+            "w_up": dense(ex + ("w_up",), (L, X, E, F)),
+            "w_down": dense(ex + ("w_down",), (L, X, F, E)),
         }
     else:
-        layers["w_gate"] = dense((L, E, F))
-        layers["w_up"] = dense((L, E, F))
-        layers["w_down"] = dense((L, F, E))
+        layers["w_gate"] = dense(lyr("w_gate"), (L, E, F))
+        layers["w_up"] = dense(lyr("w_up"), (L, E, F))
+        layers["w_down"] = dense(lyr("w_down"), (L, F, E))
     if cfg.attention_bias:
         for nm, width in (("wq", H * D), ("wk", KVH * D), ("wv", KVH * D)):
-            params["layers"][nm]["bias"] = torch.zeros(
-                (L, width), dtype=dt, device=dev
-            )
+            layers[nm]["bias"] = filled(lyr(nm) + ("bias",), (L, width),
+                                        0.0)
     if cfg.qk_norm:
-        params["layers"]["q_norm"] = {"weight": ones((L, D))}
-        params["layers"]["k_norm"] = {"weight": ones((L, D))}
+        layers["q_norm"] = {"weight": filled(lyr("q_norm") + ("weight",),
+                                             (L, D), 1.0)}
+        layers["k_norm"] = {"weight": filled(lyr("k_norm") + ("weight",),
+                                             (L, D), 1.0)}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense((E, V), stacked=False)
-    return params
+        params["lm_head"] = dense(("lm_head",), (E, V), stacked=False)
+    if mesh is None:
+        return _leaves_to(params, 0)
+    return [_leaves_to(params, i) for i in range(mesh.size)]
+
+
+def _leaves_to(tree, index: int):
+    """The tensor tree of shard ``index`` of a tree of leaves."""
+    if isinstance(tree, dict):
+        return {k: _leaves_to(v, index) for k, v in tree.items()}
+    return tree.shard(index)
 
 
 def param_logical_axes(cfg: ModelConfig) -> Any:
@@ -481,45 +579,78 @@ def forward_sharded(
     carry_caches: list,
     mesh,
     return_hidden: bool = False,
+    moe_token_mask=None,     # [B, S] bool: tokens the MoE router places
+    return_moe_stats: bool = False,  # also {"dropped": int32 over layers}
 ):
-    """The decoder tensor parallel over ``mesh`` (Megatron layout), the
-    carry protocol of ``forward`` per shard.
+    """The decoder over an ``{ep, tp}`` ``mesh`` (Megatron layout over
+    ``tp``, the expert stacks over ``ep``), the carry protocol of
+    ``forward`` per shard.
 
     - ``shards[i]``: shard i's parameter tree on ``mesh.devices[i]``
-      (``shard_params(params, mesh, param_logical_axes(cfg))``).
-    - The embedding lookup is vocabulary-sharded: each shard looks up
-      its own rows, zeros elsewhere, and the float32 shares are summed.
-    - Column-parallel wq / wk / wv / w_gate / w_up: shard i computes its
-      ``H / n`` query heads, ``KVH / n`` KV heads and ``F / n`` FFN
-      columns.  ``attn_fns[i](q, k, v, (carry_caches[i], layer), pos)``
-      returns ``(out, cache)`` on shard i's heads.
+      (``shard_params(params, mesh, param_logical_axes(cfg))``).  Each ep
+      replica holds the whole attention (its tp group's heads) and the
+      dense FFN, so everything but the expert stacks runs replicated over
+      ``ep``, as the reference serves a dense config on an ep mesh.
+    - The embedding lookup is vocabulary-sharded over ``tp``: each shard
+      looks up its own rows, zeros elsewhere, and the float32 shares are
+      summed within its tp group.
+    - Column-parallel wq / wk / wv / w_gate / w_up: a shard at tp
+      coordinate t computes its ``H / tp`` query heads, ``KVH / tp`` KV
+      heads and ``F / tp`` FFN columns.  ``attn_fns[i](q, k, v,
+      (carry_caches[i], layer), pos)`` returns ``(out, cache)`` on shard
+      i's heads.
     - Row-parallel wo / w_down: each shard's product stays float32, the
-      partials are summed in shard order and rounded once to the compute
-      dtype (``parallel.collectives.all_reduce``), the int8 scale and
-      bias applied to the sum.  The hidden state is the same on every
-      shard.
-    - The logits are vocabulary-sharded float32 products gathered on the
-      first device (``project_logits_sharded``); ``return_hidden``
-      returns the first device's final-norm hidden states instead.
+      partials are summed in shard order within each tp group and
+      rounded once to the compute dtype
+      (``parallel.collectives.all_reduce_groups``), the int8 scale and
+      bias applied to the sum.  A sum over the whole mesh would count
+      each ep replica ``ep`` times.
+    - An MoE layer: every shard routes the same hidden state over every
+      expert and gives the float32 combine of its own experts through its
+      FFN columns (``models.moe.moe_ffn_shard``); the shares are summed
+      over every shard of the mesh, in shard order, and rounded once.
+      The drop count is the same on every shard and counted once (shard
+      0's), under ``moe_token_mask`` as ``forward``.
+    - The hidden state is the same bits on every shard after every layer.
+    - The logits are the first tp group's vocabulary-sharded float32
+      products gathered on the first device (``project_logits_sharded``);
+      ``return_hidden`` returns the first device's final-norm hidden
+      states instead.
 
-    Returns ``(logits or hidden, caches)``.  Dense Llama-family configs
-    only: an MoE or mrope config is refused (ROADMAP A15b)."""
-    if cfg.num_experts > 0 or cfg.mrope_sections is not None:
+    Returns ``(logits or hidden, caches)``, with ``return_moe_stats`` the
+    ``{"dropped": ...}`` of ``forward`` appended.  An mrope config is
+    refused (ROADMAP A15b: vision on a mesh)."""
+    if cfg.mrope_sections is not None:
         raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts and mrope (VL) models on a "
-            "mesh are not ported yet (ROADMAP A15b)")
+            f"{cfg.name}: an mrope (VL) model on a mesh is not ported yet "
+            "(ROADMAP A15b: vision on a mesh)")
+    from helix_tpu_torch.models.moe import moe_ffn_shard
+    from helix_tpu_torch.parallel.collectives import all_reduce_groups
+
     devs = list(mesh.devices)
     n = len(devs)
+    tp = mesh.shape["tp"]
+    groups = mesh.groups(("tp",))
+    at = [mesh.coords(i) for i in range(n)]
     dt = torch_dtype(cfg.dtype)
-    Hs, KVHs, D = cfg.num_heads // n, cfg.num_kv_heads // n, cfg.head_dim
+    Hs, KVHs, D = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     toks = replicate(tokens.long(), devs)
     pos = replicate(positions, devs)
+    masks = (replicate(moe_token_mask, devs) if moe_token_mask is not None
+             else [None] * n)
     inv = [_inv_freq(D, cfg.rope_theta, cfg.rope_scaling, d) for d in devs]
     eps, off = cfg.rms_norm_eps, cfg.norm_offset
     act = _act(cfg.hidden_act)
-    h = all_reduce([_embed_part(shards[i]["embed"], toks[i], i)
-                    for i in range(n)], devs, dt)
+
+    def group_sum(parts, ps, name):
+        return all_reduce_groups(parts, devs, groups, dt, [
+            _row_epilogue(ps[g[0]][name]) for g in groups])
+
+    h = all_reduce_groups([_embed_part(shards[i]["embed"], toks[i],
+                                       at[i]["tp"]) for i in range(n)],
+                          devs, groups, dt)
     caches = list(carry_caches)
+    drops = []
     for lyr in range(cfg.num_layers):
         ps = [_layer_params(t["layers"], lyr) for t in shards]
         parts = []
@@ -536,32 +667,55 @@ def forward_sharded(
             k = apply_rope(k, pos[i], inv[i])
             out, caches[i] = attn_fns[i](q, k, v, (caches[i], lyr), pos[i])
             parts.append(_row_partial(out.reshape(B, S, Hs * D), p["wo"]))
-        o = all_reduce(parts, devs, dt, _row_epilogue(ps[0]["wo"]))
+        o = group_sum(parts, ps, "wo")
         h = [a + b for a, b in zip(h, o)]
         parts = []
         for i, p in enumerate(ps):
             x = rms_norm(h[i], p["mlp_norm"]["weight"], eps, off)
+            if cfg.num_experts > 0:
+                router = p["router"]["weight"]
+                if router.dtype == torch.int8:
+                    router = router.float() * p["router"]["scale"].float()
+                share, dropped = moe_ffn_shard(
+                    x, router, p["experts"], cfg, act, at[i]["ep"],
+                    token_mask=masks[i])
+                parts.append(share)
+                if i == 0:
+                    drops.append(dropped)
+                continue
             gate = maybe_dequant_dense(x, p["w_gate"])
             up = maybe_dequant_dense(x, p["w_up"])
             parts.append(_row_partial(act(gate) * up, p["w_down"]))
-        o = all_reduce(parts, devs, dt, _row_epilogue(ps[0]["w_down"]))
+        if cfg.num_experts > 0:
+            # the whole mesh: every shard holds a distinct (experts,
+            # columns) block of the layer
+            o = all_reduce(parts, devs, dt)
+        else:
+            o = group_sum(parts, ps, "w_down")
         h = [a + b for a, b in zip(h, o)]
     h = [rms_norm(x, t["final_norm"]["weight"], eps, off)
          for x, t in zip(h, shards)]
-    if return_hidden:
-        return h[0], caches
-    return project_logits_sharded(shards, cfg, h, mesh), caches
+    out = (h[0] if return_hidden
+           else project_logits_sharded(shards, cfg, h, mesh), caches)
+    if return_moe_stats:
+        dropped = (torch.stack(drops).sum(dtype=torch.int32) if drops
+                   else torch.zeros((), dtype=torch.int32, device=devs[0]))
+        out += ({"dropped": dropped},)
+    return out
 
 
 def project_logits_sharded(shards: list, cfg: ModelConfig, h, mesh):
     """Final-norm hidden states -> float32 logits over the vocabulary,
-    on the mesh's first device: each shard projects onto its own
-    vocabulary rows (``project_logits`` of its tree), the shards'
-    float32 logits concatenated.  ``h``: one tensor per shard, or one
-    tensor on the first device (copied to the others)."""
-    hs = h if isinstance(h, list) else replicate(h, mesh.devices)
-    return all_gather([project_logits(t, cfg, x)
-                       for t, x in zip(shards, hs)], dim=-1)
+    on the mesh's first device: each shard of the first tp group
+    projects onto its own vocabulary rows (``project_logits`` of its
+    tree), their float32 logits concatenated (the other ep replicas hold
+    the same rows).  ``h``: one tensor per shard, or one tensor on the
+    first device (copied to the group's others)."""
+    first = mesh.groups(("tp",))[0]
+    hs = ([h[i] for i in first] if isinstance(h, list)
+          else replicate(h, [mesh.devices[i] for i in first]))
+    return all_gather([project_logits(shards[i], cfg, x)
+                       for i, x in zip(first, hs)], dim=-1)
 
 
 def prefill_attn_fn(q, k, v, layer_cache, positions, *, segment_ids=None,

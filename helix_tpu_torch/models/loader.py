@@ -27,13 +27,14 @@ the checkpoint's dtype, under either HF naming (``model.`` or
 (``visual.`` or ``model.visual.``), into ``params["visual"]``, never
 quantized.
 
-On a tensor-parallel mesh (``load_params(..., mesh=)``) the load gives
+On an ``{ep, tp}`` mesh (``load_params(..., mesh=)``) the load gives
 one tree per shard, each on its shard's device, equal to
 ``parallel.sharding.shard_params`` of the whole load byte for byte: each
 block of HF rows is staged on the mesh's first device, cast (and
 quantized, over the whole input axis, so a row-parallel weight keeps
 the whole scale), and each shard's part of it is copied into that
-shard's tensors.  No device ever holds the whole model.
+shard's tensors; a Mixtral expert's rows reach only the shards of its
+ep coordinate.  No device ever holds the whole model.
 
 A Mixtral checkpoint (``num_local_experts``) gives the MoE layout: each
 layer's ``block_sparse_moe.gate`` as ``router [L, E, X]`` and its
@@ -377,6 +378,21 @@ def _allocate_sharded(layout: dict, dtype, mesh, quantized: bool,
             shape, _axes_of(axes_tree, path)[0], mesh, i)))
             for path, (kind, shape) in layout.items()}
         tree, dests = _allocate(cut, dtype, dev, quantized)
+        for path, d in dests.items():
+            if d.scale is None or d.kind != "linear":
+                continue
+            # a scale's block by its own axes: an expert stack's scale
+            # keeps every expert (``quantized_logical_axes``)
+            full = layout[path][1]
+            shape = tuple(n for _s, n in shard_block(
+                (*full[:-2], 1, full[-1]), _axes_of(axes_tree, path)[1],
+                mesh, i))
+            if shape != tuple(d.scale.shape):
+                d.scale = torch.empty(shape, dtype=d.scale.dtype, device=dev)
+                node = tree
+                for k in path:
+                    node = node[k]
+                node["scale"] = d.scale
         trees.append(tree)
         per_shard.append(dests)
     dests = {path: _ShardedDest(kind, [d[path] for d in per_shard], shape,
@@ -405,8 +421,8 @@ def _put_sharded(sd: _ShardedDest, layer, at: int, x) -> None:
         parts = [("tensor", (0, at), q), ("scale", (0, at), sc)]
     else:
         parts = [("tensor", (0, at), x.reshape(n, -1).t())]
-    lead = 0 if layer is None else len(layer) if isinstance(
-        layer, tuple) else 1
+    lead = () if layer is None else layer if isinstance(
+        layer, tuple) else (layer,)
     for field, starts, v in parts:
         axes, full = sd.axes, sd.shape
         if field == "scale":
@@ -414,10 +430,16 @@ def _put_sharded(sd: _ShardedDest, layer, at: int, x) -> None:
             full = ((full[0], 1) if sd.kind == "rows"
                     else (*full[:-2], 1, full[-1]))
         for i, dest in enumerate(sd.shards):
+            block = shard_block(full, axes, sd.mesh, i)
+            # the stack's leading indices (layer, expert) in the shard's
+            # own block: an expert another ep shard holds is skipped
+            local = tuple(j - lo for j, (lo, size) in zip(lead, block)
+                          if lo <= j < lo + size)
+            if len(local) != len(lead):
+                continue
             t = getattr(dest, field)
-            t = t if layer is None else t[layer]
-            src, dst = v, t
-            block = shard_block(full, axes, sd.mesh, i)[lead:]
+            src, dst = v, (t[local] if local else t)
+            block = block[len(lead):]
             for dim, ((lo, size), a) in enumerate(zip(block, starts)):
                 s0 = max(a, lo)
                 s1 = min(a + v.shape[dim], lo + size)
@@ -473,11 +495,10 @@ def load_params(model_dir: str, cfg: ModelConfig | None = None, *,
         raise ValueError(
             f"quantization {quantization!r}: expected None or 'int8'")
     cfg = cfg or load_config(model_dir)
-    if mesh is not None and (vision is not None or cfg.num_experts):
+    if mesh is not None and vision is not None:
         raise NotImplementedError(
-            f"{cfg.name}: loading a vision or mixture-of-experts "
-            "checkpoint onto a mesh is not ported yet (ROADMAP A15b: "
-            "vision on a mesh, MoE on a mesh)")
+            f"{cfg.name}: loading a vision checkpoint onto a mesh is not "
+            "ported yet (ROADMAP A15b: vision on a mesh)")
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     dt = torch_dtype(dtype or cfg.dtype)
     name = str(dt).removeprefix("torch.")

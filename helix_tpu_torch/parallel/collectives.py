@@ -1,4 +1,4 @@
-"""The two collectives of tensor-parallel serving, as peer copies.
+"""The collectives of tensor- and expert-parallel serving, as peer copies.
 
 The reference has no such module: XLA inserts the all-reduce and the
 all-gather into its compiled step.  Here one process drives every shard,
@@ -13,6 +13,12 @@ around a cross-device copy, no host wait) and adds in a fixed order:
   ``preferred_element_type=float32`` and XLA all-reduces that float32
   output before the cast).  A bf16 partial rounded before the sum would
   be a different number.
+- ``all_reduce_groups``: the same sum within each group of shards a
+  mesh names (``device.mesh.Mesh.groups``): over an ``{ep, tp}`` mesh
+  the row-parallel projections sum over each ep replica's tp group (a
+  sum over the whole mesh would count every replica ``ep`` times), the
+  MoE layer's shares over the whole mesh (``all_reduce`` of every
+  shard).
 - ``all_gather``: the shards' float32 logits concatenated along the
   vocabulary on the first shard's device.
 
@@ -58,6 +64,25 @@ def all_reduce(parts: Sequence[torch.Tensor], devices: Sequence,
         acc = epilogue(acc)
     out = acc.to(dtype)
     return [_to(out, d) for d in devices]
+
+
+def all_reduce_groups(parts: Sequence[torch.Tensor], devices: Sequence,
+                      groups: Sequence[Sequence[int]], dtype: torch.dtype,
+                      epilogues: Optional[Sequence] = None) -> list:
+    """``all_reduce`` within each group of shard indices (``groups``, a
+    partition of the shards, each in shard order; ``epilogues[g]`` the
+    float32 epilogue of group g, run on its first device): one tensor per
+    shard, equal bits within a group, and across groups whose partials
+    are equal."""
+    out: list = [None] * len(parts)
+    for g, idx in enumerate(groups):
+        got = all_reduce([parts[i] for i in idx], [devices[i] for i in idx],
+                         dtype, epilogues[g] if epilogues else None)
+        for i, t in zip(idx, got):
+            out[i] = t
+    if any(t is None for t in out):
+        raise ValueError(f"groups {groups} do not cover {len(parts)} shards")
+    return out
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int = -1):

@@ -14,7 +14,13 @@ bytes as the reference's shard of the same array on the same mesh.  A
 dimension sharded over an axis of size n is cut into n contiguous equal
 blocks, shard i taking block i along every sharded dimension (its
 coordinate on that axis, ``tp`` innermost as in ``AXIS_ORDER``); the
-other dimensions are copied whole.  Mesh axes of size 1 (and axes the
+other dimensions are copied whole.  A Mixtral expert stack ``[L, X, E,
+F]`` (``("layers", "expert", "embed", "mlp")``) thus cuts X over ``ep``
+and F over ``tp``; its int8 scale ``[L, X, 1, F]`` keeps every expert
+(``quantized_logical_axes`` replicates a scale's other axes) and cuts F
+with its columns; the router is whole on every shard.  Over an ``{ep,
+tp}`` mesh the KV pool (``POOL_AXES``) cuts its heads over ``tp`` and is
+replicated over ``ep``.  Mesh axes of size 1 (and axes the
 mesh does not define) prune to replicated, as ``_prune_spec_for_mesh``
 does.
 """
@@ -25,7 +31,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from helix_tpu_torch.device.mesh import AXIS_ORDER, Mesh
+from helix_tpu_torch.device.mesh import Mesh
 
 # logical axis name -> mesh axis (or tuple of mesh axes, or None =
 # replicated), the reference's Megatron layout
@@ -78,17 +84,6 @@ def _prune(mesh: Mesh, spec: tuple) -> tuple:
     return tuple(out)
 
 
-def _coords(mesh: Mesh, index: int) -> dict:
-    """Shard ``index``'s coordinate on every mesh axis (row-major over
-    ``AXIS_ORDER``)."""
-    coords = {}
-    for a in reversed(AXIS_ORDER):
-        n = mesh.shape[a]
-        coords[a] = index % n
-        index //= n
-    return coords
-
-
 def shard_block(shape, logical_axes, mesh: Mesh, index: int) -> list:
     """Shard ``index``'s block of a tensor of ``shape`` under
     ``logical_axes``: ``(start, size)`` per dimension.  Raises where a
@@ -99,7 +94,7 @@ def shard_block(shape, logical_axes, mesh: Mesh, index: int) -> list:
         raise ValueError(
             f"logical axes {tuple(logical_axes)} do not match a tensor of "
             f"shape {tuple(shape)}")
-    coords = _coords(mesh, index)
+    coords = mesh.coords(index)
     out = []
     for dim, axes in enumerate(spec):
         n, at = 1, 0

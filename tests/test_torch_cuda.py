@@ -2352,3 +2352,151 @@ def test_checkpoint_loads_onto_a_later_card(cuda, tmp_path, monkeypatch, tp):
             assert got[path].device == dev, path
             assert torch.equal(got[path].view(torch.uint8),
                                t.view(torch.uint8)), path
+
+
+# ---------------------------------------------------------------------------
+# expert parallel: MoE over an {ep: 2, tp: 2} mesh
+# ---------------------------------------------------------------------------
+
+
+def _ep_mesh(cuda):
+    """``{ep: 2, tp: 2}`` over cards 0-3 when four are visible, else card
+    0 four times (each entry one shard)."""
+    from helix_tpu_torch.device.mesh import MeshSpec, build_mesh
+
+    return build_mesh(MeshSpec(ep=2, tp=2), _sum_devices(cuda))
+
+
+def _moe_cfg(**over):
+    from helix_tpu_torch.models.common import ModelConfig
+
+    return ModelConfig.tiny(**{
+        "dtype": "float32", "hidden_size": 512, "num_heads": 16,
+        "num_kv_heads": 4, "head_dim": 32, "intermediate_size": 1024,
+        "vocab_size": 1024, "num_experts": 8, "num_experts_per_tok": 2,
+        "expert_capacity_factor": 0.5, **over})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1, 2, 3])
+def test_mixtral_shard_kernels_on_every_card(cuda, index):
+    """K1 (float pool) and K2 at a tp 2 shard of Mixtral-8x7B (H 16, KVH
+    4, D 128, bf16) on card ``index`` while card 0 stays current: within
+    their limits, counted, and a planted fault (one history slot too
+    many; each query's own key dropped) breaks the limit."""
+    card = _card(cuda, index)
+    f, i, live = _ragged(60 + index, 3, 96, 16, 4, 128, 16, 8, 6)
+    f = [torch.from_numpy(x).to(card, torch.bfloat16) for x in f]
+    i = [torch.from_numpy(x).to(card) for x in i]
+    live = torch.from_numpy(live).to(card)
+    before = tpk.K1.launches
+    got = tpk.ragged_paged_attention(*f, 1, *i)
+    assert tpk.K1.launches == before + 1 and got.device == card
+    want = tpk.ragged_paged_attention_plain(*f, 1, *i)
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[torch.bfloat16])
+    bad = tpk.ragged_paged_attention(*f, 1, *i[:2], i[2] + 1, i[3])
+    assert _breaks_limit(bad[live], want[live], torch.bfloat16)
+    (q, k, v), pos, seg = _packed(1, 600, 16, 4, 128, seed=index)
+    args = [torch.from_numpy(x).to(card, torch.bfloat16) for x in (q, k, v)]
+    t = {n: torch.from_numpy(a).to(card) for n, a in
+         (("pos", pos), ("seg", seg))}
+    kw = dict(q_positions=t["pos"], kv_positions=t["pos"],
+              q_segment_ids=t["seg"], kv_segment_ids=t["seg"])
+    before = tatt.K2.launches
+    got = tatt.flash_attention(*args, **kw)
+    assert tatt.K2.launches == before + 1 and got.device == card
+    want = tatt.flash_attention_plain(*args, **kw)
+    limit = tatt.flash_error_limit(*args, **kw)
+    live2 = t["seg"] > 0
+    _within_flash_limit(got, want, limit, live2)
+    bad = tatt.flash_attention(*args, **{**kw, "kv_positions": t["pos"] + 1})
+    assert ((bad.float() - want.float()).abs() > limit)[live2].any()
+    torch.cuda.synchronize(card)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_moe_routing_identical_on_every_card(cuda):
+    """The same replicated tokens routed on every card of the mesh give
+    the same top-k, positions, kept slots and drops, bit for bit (each
+    card routes for itself; no indices are copied)."""
+    from helix_tpu_torch.models import moe
+
+    cfg = _moe_cfg(hidden_size=4096, num_experts=8)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2048, 4096), generator=gen).bfloat16()
+    router = (torch.randn((4096, 8), generator=gen) * 0.02).bfloat16()
+    mesh = _ep_mesh(cuda)
+    first = None
+    for dev in mesh.devices:
+        got = moe.route(x.to(dev), router.to(dev).float(), cfg, 2048)
+        got = [t.cpu() if torch.is_tensor(t) else t for t in got]
+        if first is None:
+            first = got
+            assert int(got[-1]) > 0      # capacity 0.5 drops
+            continue
+        for a, b in zip(got, first):
+            assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+
+
+@pytest.mark.cuda
+def test_mesh_sum_bit_equal_on_every_card(cuda):
+    """The MoE layer's sum over the whole ``{ep: 2, tp: 2}`` mesh and the
+    attention's over each tp group: every card gets the bf16 bits of the
+    float32 shares added in shard order and rounded once, equal within a
+    group, and equal across groups whose partials are equal."""
+    from helix_tpu_torch.parallel import collectives
+
+    mesh = _ep_mesh(cuda)
+    devs = list(mesh.devices)
+    gen = torch.Generator().manual_seed(11)
+    host = [torch.randn((512, 4096), generator=gen) for _ in devs]
+    got = collectives.all_reduce([h.to(d) for h, d in zip(host, devs)],
+                                 devs, torch.bfloat16)
+    want = (((host[0] + host[1]) + host[2]) + host[3]).bfloat16()
+    for g, d in zip(got, devs):
+        assert g.device == d
+        assert torch.equal(g.cpu().view(torch.int16), want.view(torch.int16))
+    pair = host[:2] * 2
+    got = collectives.all_reduce_groups(
+        [h.to(d) for h, d in zip(pair, devs)], devs, mesh.groups(("tp",)),
+        torch.bfloat16)
+    want = (host[0] + host[1]).bfloat16()
+    for g in got:
+        assert torch.equal(g.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_ep_engine_greedy_and_drops_equal_tp1_on_card(cuda):
+    """A 2-layer float32 MoE engine over ``{ep: 2, tp: 2}`` (cards 0-3,
+    else card 0 four times) gives the single-device engine's greedy ids
+    and prefill drop count on the card (TF32 off, capacity factor 0.5),
+    with K1 and K2 launched once per shard per layer per forward."""
+    from helix_tpu_torch.engine.engine import Engine, EngineConfig
+    from helix_tpu_torch.engine.sampling import SamplingParams
+    from helix_tpu_torch.models.llama import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg()
+    mesh = _ep_mesh(cuda)
+    params = init_params(cfg, 3, device=cuda)
+    shards = init_params(cfg, 3, mesh=mesh)
+    ecfg = dict(max_decode_batch=8, page_size=16, num_pages=256,
+                max_pages_per_seq=16, max_prefill_len=64)
+    rng = np.random.default_rng(4)
+    prompts = [[int(x) for x in rng.integers(4, 1000, n)]
+               for n in (5, 40, 90, 17, 130, 3, 64, 77)]
+    s = SamplingParams(temperature=0.0, max_tokens=12)
+    one = Engine(cfg, params, EngineConfig(**ecfg), device=cuda)
+    want = one.generate(prompts, s)
+    one._drain_moe_drops()
+    ep = Engine(cfg, shards, EngineConfig(**ecfg), mesh=mesh)
+    k1, k2 = tpk.K1.launches, tatt.K2.launches
+    got = ep.generate(prompts, s)
+    ep._drain_moe_drops()
+    assert got == want
+    assert ep.moe_dropped_tokens == one.moe_dropped_tokens > 0
+    calls = ep.attn_forwards
+    assert tpk.K1.launches - k1 == 4 * cfg.num_layers * calls["k1"]
+    assert tatt.K2.launches - k2 == 4 * cfg.num_layers * calls["k2"]

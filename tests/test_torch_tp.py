@@ -22,7 +22,9 @@ config has 8 query and 4 KV heads, so tp 2 and tp 4 divide it.
 - the engine loop with ``enable_async_loop`` on and off on a mesh;
 - the node agent realising tp 2 chat entries at offsets 0 and 2 and an
   embedder at offset 4 over disjoint device slices;
-- every refusal that remains, by name.
+- every refusal that remains, by name (an MoE model and the ``ep`` axis
+  are served on a mesh, ``tests/test_torch_ep.py``; the MoE case asks for
+  a ``pp`` axis).
 """
 
 import jax
@@ -651,10 +653,11 @@ def _refusal_engine(weights, extra=None, cfg_kw=None, spec=None):
     (dict(host_pool_bytes=1 << 20, ctx_hot_pages=4), None, None,
      "host tier and tiered context on a mesh"),
     (dict(adapter_pool_slots=4), None, None, "adapters on a mesh"),
-    (None, dict(num_experts=4), None, "MoE on a mesh"),
+    (None, dict(num_experts=4), tmesh.MeshSpec(pp=2, tp=2),
+     "dp / fsdp / pp / sp"),
     (None, dict(mrope_sections=(2, 3, 3)), None, "vision on a mesh"),
-    (None, None, tmesh.MeshSpec(dp=2, tp=2), "dp / fsdp / pp / ep / sp"),
-    (None, None, tmesh.MeshSpec(sp=2), "dp / fsdp / pp / ep / sp"),
+    (None, None, tmesh.MeshSpec(dp=2, tp=2), "dp / fsdp / pp / sp"),
+    (None, None, tmesh.MeshSpec(sp=2), "dp / fsdp / pp / sp"),
 ])
 def test_mesh_engine_refusals(weights, extra, cfg_kw, spec, item):
     with pytest.raises(NotImplementedError, match="ROADMAP A15b: " + item):
@@ -680,7 +683,7 @@ def test_export_import_refused_on_a_mesh(weights):
       "engine": {"enable_spec_decode": True}},
      "ROADMAP A15b: speculation on a mesh"),
     ({"name": "m", "mesh": {"tp": 2, "pp": 2}},
-     "ROADMAP A15b: dp / fsdp / pp / ep / sp"),
+     "ROADMAP A15b: dp / fsdp / pp / sp"),
     ({"name": "m", "mesh": {"tp": 3}}, "do not divide over tp 3"),
 ])
 def test_profile_mesh_refusals_by_name(entry, text):
